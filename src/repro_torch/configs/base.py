@@ -1,0 +1,91 @@
+"""Model configuration schema + architecture registry (the port's copy).
+
+Counterpart of :mod:`repro.configs.base`, cut to what the serving slice
+serves: dense GQA transformers with bf16 serve weights and the BGPP decode
+knobs.  The port keeps its own copy (it imports nothing of ``repro``).
+Each architecture file registers its published config plus a reduced
+``smoke`` variant used by the CPU tests.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MCBPOptions:
+    """MCBP knobs the serving slice reads: the BGPP decode plan."""
+
+    bgpp_rounds: int = 4  # progressive bit-plane rounds (MSB first)
+    bgpp_keep_ratio: float = 0.25  # k_max = ceil(ratio * S) full-precision rows
+
+
+def apply_bgpp_overrides(cfg, rounds: Optional[int] = None,
+                         keep_ratio: Optional[float] = None):
+    """Return ``cfg`` with its BGPP decode knobs replaced (``None`` keeps
+    the config's value) — the code path behind ``--bgpp-rounds`` /
+    ``--bgpp-keep-ratio``."""
+    if rounds is None and keep_ratio is None:
+        return cfg
+    mo = dataclasses.replace(
+        cfg.mcbp,
+        bgpp_rounds=cfg.mcbp.bgpp_rounds if rounds is None else int(rounds),
+        bgpp_keep_ratio=cfg.mcbp.bgpp_keep_ratio if keep_ratio is None
+        else float(keep_ratio),
+    )
+    return dataclasses.replace(cfg, mcbp=mo)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """One dense decoder-only transformer."""
+
+    name: str
+    family: str  # dense
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    rope_theta: float = 10_000.0
+    activation: str = "swiglu"
+    norm: str = "rms"
+    tie_embeddings: bool = True
+    dtype: str = "bfloat16"
+    mcbp: MCBPOptions = MCBPOptions()
+
+    @property
+    def q_dim(self) -> int:
+        """Width of the concatenated query heads."""
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        """Width of the concatenated key (or value) heads."""
+        return self.num_kv_heads * self.head_dim
+
+    def layer_attn_window(self, i: int) -> Tuple[str, int]:
+        """(mask_kind, window) for layer i: every layer is full causal."""
+        return ("causal", 0)
+
+
+ARCH_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
+SMOKE_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
+
+
+def register(name: str, full: Callable[[], ModelConfig],
+             smoke: Callable[[], ModelConfig]) -> None:
+    """Register an architecture's full and smoke configs under ``name``."""
+    ARCH_REGISTRY[name] = full
+    SMOKE_REGISTRY[name] = smoke
+
+
+def get_config(name: str, smoke: bool = False) -> ModelConfig:
+    """The registered config ``name`` (its smoke variant with ``smoke``)."""
+    reg = SMOKE_REGISTRY if smoke else ARCH_REGISTRY
+    if name not in reg:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(reg)}")
+    return reg[name]()

@@ -1,0 +1,153 @@
+"""Build and load the port's CUDA kernels (nvcc into one shared library
+with a plain C interface, loaded through ``ctypes``).
+
+Every ``csrc/*.cu`` source is compiled on its own ``nvcc`` process, all
+started together, for ``sm_90a``; the objects are then linked into
+``<checkout>/build/repro_torch/libkernels.so``.  The build happens at first
+use and again whenever a source or the flags change (a SHA-256 stamp beside
+the library records what it was built from).  Nothing is built when a
+module is imported: the CPU tests import every module on a host with no
+``nvcc``.
+
+``--use_fast_math`` is deliberately absent: it makes ``/`` and ``expf``
+approximate, and the query and probability quantisers
+(``rint(x / scale)``) would then flip codes against the plain versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+from typing import List, Optional
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+# <checkout>/src/repro_torch/kernels/build.py -> <checkout>/build/repro_torch
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+LIB_NAME = "libkernels.so"
+# dynamic shared memory one H100 block may use (232,448 bytes)
+MAX_SMEM = 232_448
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (PATH or /usr/local/cuda/bin): the port's CUDA "
+        "kernels are built from source at first use on a CUDA host"
+    )
+
+
+def sources() -> List[pathlib.Path]:
+    """The CUDA sources compiled into the library, in a stable order."""
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _stamp() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()
+
+
+def build(verbose: bool = False) -> pathlib.Path:
+    """Compile the library if it is missing or stale; return its path.
+
+    One ``nvcc -c`` per source runs in parallel, then one link.  The
+    library is written under a temporary name and renamed into place, so
+    a build cut short never leaves a half-written library behind."""
+    lib = BUILD_DIR / LIB_NAME
+    stamp_file = BUILD_DIR / "libkernels.sha256"
+    stamp = _stamp()
+    if lib.exists() and stamp_file.exists() and stamp_file.read_text() == stamp:
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    extra = ["-Xptxas", "-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sources():
+            obj = pathlib.Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )))
+        failed = []
+        for src, p in procs:
+            out, _ = p.communicate()
+            if verbose and out:
+                print(out, end="")
+            if p.returncode:
+                failed.append(f"{src.name}:\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp_lib = pathlib.Path(tmp) / LIB_NAME
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", *map(str, objs), "-o", str(tmp_lib)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_lib, lib)
+    stamp_file.write_text(stamp)
+    return lib
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    """Give every C entry point its argtypes: ``c_void_p`` for each pointer
+    and the stream (a bare int would be cut to 32 bits), ``c_int`` /
+    ``c_longlong`` for sizes and strides."""
+    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.paged_flash_decode_smem_bytes.argtypes = [I, I, I, I]
+    lib.paged_flash_decode_smem_bytes.restype = ctypes.c_size_t
+    lib.paged_flash_decode_dense_launch.argtypes = [
+        P, P, P, P, P, P,  # q, k, v, page_ids, pos, out
+        I, I, I, I, I, I,  # B, Hk, g, D, pages_per_slot, page_size
+        L, L, I, F, P,  # kv tok/head strides, kv dtype code, scale, stream
+    ]
+    lib.paged_flash_decode_int8_launch.argtypes = [
+        P, P, P, P, P, P, P, P,  # q, k, v, k_scale, v_scale, page_ids, pos, out
+        I, I, I, I, I, I,  # B, Hk, g, D, pages_per_slot, page_size
+        L, L, L, L, F, P,  # kv strides, scale strides, scale, stream
+    ]
+    lib.bgpp_paged_attend_smem_bytes.argtypes = [I, I, I, I]
+    lib.bgpp_paged_attend_smem_bytes.restype = ctypes.c_size_t
+    lib.bgpp_paged_attend_launch.argtypes = [
+        P, P, P, P, P, P, P, P, P, P,  # q, planes, sign, ks, v, vs, phys, pos, out, out_idx
+        I, I, I, I, I,  # B, Hk, g, D, S
+        I, I, P, I, I,  # nbits, rounds, survivors (host int*), k_max, query_bits
+        L, L, L,  # plane strides: plane, token, head (sign shares token/head)
+        L, L, L, L,  # v token/head strides, scale token/head strides
+        F, P,  # scale, stream
+    ]
+    for fn in (lib.paged_flash_decode_dense_launch,
+               lib.paged_flash_decode_int8_launch,
+               lib.bgpp_paged_attend_launch):
+        fn.restype = ctypes.c_int
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed, then load the library once per process."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        _declare(lib)
+        _LIB = lib
+    return _LIB
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a nonzero ``cudaError_t``."""
+    if err:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")

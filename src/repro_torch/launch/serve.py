@@ -1,0 +1,128 @@
+"""Serving launcher of the port: slot-level continuous batching over the
+PyTorch engine (per-slot positions, bf16 / int8 / bgpp KV caches, slot or
+paged layout, request scheduler).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
+        --kv-format int8 --requests 8 --slots 4 --seed 0 \\
+        [--device cuda|cpu] [--full] [--chunk-budget 16] \\
+        [--kv-layout slot|paged] [--page-size 8] [--shared-prefix 16] \\
+        [--bgpp-rounds 4] [--bgpp-keep-ratio 0.25] [--trace-out trace.json]
+
+The counterpart of ``repro.launch.serve`` without ``--mesh``, ``--server``
+or ``--spec-decode`` (later slices).  It runs on ``--device cuda`` unless
+told otherwise; ``--full`` serves the published full-width config instead
+of the smoke one.  Weights are random, drawn from a seeded generator on
+the device.  Requests arrive on a Poisson-ish trace; prompts go through
+bucketed prefill chunks interleaved with the batched decode step.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import ARCH_REGISTRY, apply_bgpp_overrides, get_config
+from repro_torch.models.transformer import init_params
+from repro_torch.serving import kv_cache as kvc
+from repro_torch.serving.request import poisson_trace
+from repro_torch.serving.scheduler import Scheduler
+
+
+def main(argv=None):
+    """Parse the flags, serve the trace, print the ``[serve]`` lines."""
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", choices=sorted(ARCH_REGISTRY), default="phi4-mini-3.8b")
+    ap.add_argument("--full", action="store_true",
+                    help="serve the published full-width config (default: smoke)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (cuda raises without a card)")
+    ap.add_argument("--kv-format", default="int8", choices=["bf16", "int8", "bgpp"])
+    ap.add_argument("--kv-layout", default="slot", choices=["slot", "paged"])
+    ap.add_argument("--page-size", type=int, default=8)
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend this many shared system-prompt tokens to every "
+                         "request (exercises paged prefix reuse)")
+    ap.add_argument("--bgpp-rounds", type=int, default=None)
+    ap.add_argument("--bgpp-keep-ratio", type=float, default=None)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--max-prompt", type=int, default=23)
+    ap.add_argument("--chunk-budget", type=int, default=16)
+    ap.add_argument("--arrival-rate", type=float, default=2.0)
+    ap.add_argument("--seed", type=int, default=0, help="request-trace RNG seed")
+    ap.add_argument("--trace-out", default=None)
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = apply_bgpp_overrides(get_config(args.arch, smoke=not args.full),
+                               rounds=args.bgpp_rounds, keep_ratio=args.bgpp_keep_ratio)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init_params(cfg, gen, device)
+    layout = kvc.layout_for(cfg, args.slots, args.max_seq, kv_format=args.kv_format,
+                            layout=args.kv_layout, page_size=args.page_size)
+    sched = Scheduler(params, cfg, layout, device=device, chunk_budget=args.chunk_budget)
+    max_prompt = min(args.max_prompt, args.max_seq - 2 - args.shared_prefix)
+    if max_prompt < 1:
+        raise SystemExit("--shared-prefix leaves no room for prompts")
+    reqs = poisson_trace(np.random.default_rng(args.seed), args.requests, cfg.vocab_size,
+                         args.max_new, args.arrival_rate, max_prompt=max_prompt,
+                         shared_prefix=args.shared_prefix)
+    for req in reqs:
+        sched.submit(req)
+    t0 = time.perf_counter()
+    done = 0
+    while sched.num_pending:
+        sched.step()
+        if len(sched.finished) != done:
+            done = len(sched.finished)
+            print(f"[serve] {done}/{args.requests} requests "
+                  f"({sched.decoded_tokens} tokens, step {sched.step_count})")
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    stats = sched.stats(dt)
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU")
+    print(f"[serve] arch={cfg.name} kv={args.kv_format} layout={args.kv_layout} "
+          f"device={where}: {stats['finished_requests']} requests, "
+          f"{stats['decoded_tokens']} tokens in {dt:.1f}s "
+          f"({stats['tokens_per_s']:.1f} tok/s, mean occupancy "
+          f"{stats['mean_occupancy']:.2f})")
+    print(f"[serve] ttft_s p50={stats['ttft_s']['p50']} p95={stats['ttft_s']['p95']}  "
+          f"itl_s p50={stats['itl_s']['p50']} p95={stats['itl_s']['p95']}  "
+          f"max prefill tokens/step={stats['max_prefill_tokens_per_step']}")
+    kv = stats["kv_read"]
+    print(f"[serve] kv read: {kv['decode_bytes']/1e6:.2f} MB decode + "
+          f"{kv['prefill_bytes']/1e6:.2f} MB prefill; "
+          f"{kv['decode_bytes_per_step']/1e3:.1f} kB/decode-step "
+          f"(bf16-equivalent {kv['decode_bf16_equiv_bytes_per_step']/1e3:.1f} kB, "
+          f"{kv['decode_bytes_reduction_vs_bf16']}x reduction)")
+    if "bgpp" in kv:
+        bg = kv["bgpp"]
+        print(f"[serve] bgpp two-phase: {bg['rounds']} rounds, "
+              f"{bg['full_rows_per_slot']} full-precision rows per (slot, layer) per "
+              f"step; per-step bytes = sign {bg['sign_bytes']/1e3:.1f} kB + planes "
+              f"{bg['plane_bytes']/1e3:.1f} kB + top-k full "
+              f"{bg['topk_full_bytes']/1e3:.1f} kB")
+    if "paged" in stats:
+        pg = stats["paged"]
+        print(f"[serve] paged: prefix hit rate {pg['prefix_hit_rate']:.3f} "
+              f"({pg['prefix_hit_tokens']} tokens over {pg['prefix_hits']} hits), "
+              f"resident KV peak {pg['resident_kv_bytes_peak']/1e3:.1f} kB vs "
+              f"{pg['slot_resident_kv_bytes']/1e3:.1f} kB slot-dense, "
+              f"pages_in_use={pg['pages_in_use']}")
+    if args.trace_out:
+        stats["config"] = {k: v for k, v in vars(args).items() if k != "trace_out"}
+        with open(args.trace_out, "w") as f:
+            json.dump(stats, f, indent=2)
+        print(f"[serve] trace -> {args.trace_out}")
+
+
+if __name__ == "__main__":
+    main()

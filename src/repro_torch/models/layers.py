@@ -1,0 +1,86 @@
+"""Shared dense-transformer layers on plain tensors.
+
+Counterpart of :mod:`repro.models.layers` for the pieces the serving slice
+runs: RMS norm, split-halves RoPE in float32, the projection contraction
+(raw weight leaves, ``(in, out)`` layout), SwiGLU MLP and the QKV
+projection.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm in float32 with a zero-centred scale (``x * (1 + w)``)."""
+    dt = x.dtype
+    xf = x.float()
+    xf = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (xf * (1.0 + weight.float())).to(dt)
+
+
+def apply_norm(x: torch.Tensor, params, kind: str) -> torch.Tensor:
+    """The config's norm (the port serves ``rms``)."""
+    if kind != "rms":
+        raise ValueError(f"apply_norm: norm {kind!r} is not ported")
+    return rms_norm(x, params["scale"])
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """``1 / theta ** (2i / head_dim)`` for ``i < head_dim / 2`` (float32)."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Split-halves rotary embedding in float32: x ``(B, S, H, D)``,
+    positions ``(B, S)`` int -> x's dtype."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., None].float() * freqs  # (B, S, D/2)
+    sin = torch.sin(angles)[:, :, None, :]
+    cos = torch.cos(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def wdot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a raw ``(in, out)`` weight leaf, in the promoted dtype
+    as ``jnp`` promotes it: an f32 activation against a bf16 weight
+    contracts in f32 (torch's ``@`` refuses mixed dtypes, so the weight is
+    upcast for the call).  Quantized serve records are the weight-path
+    slice's."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
+def mlp_apply(params, x: torch.Tensor, activation: str) -> torch.Tensor:
+    """SwiGLU MLP: ``down(silu(gate(x)) * up(x))``."""
+    if activation != "swiglu":
+        raise ValueError(f"mlp_apply: activation {activation!r} is not ported")
+    gate = wdot(x, params["gate"])
+    return wdot(F.silu(gate) * wdot(x, params["up"]), params["down"])
+
+
+def qkv_project(params, x: torch.Tensor, num_heads: int, num_kv_heads: int,
+                head_dim: int, positions: Optional[torch.Tensor],
+                rope_theta: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x ``(B, S, D)`` -> q ``(B, S, Hq, Dh)``, k / v ``(B, S, Hk, Dh)``,
+    with RoPE on q and k at ``positions`` ``(B, S)``."""
+    B, S, _ = x.shape
+    q = wdot(x, params["wq"]).reshape(B, S, num_heads, head_dim)
+    k = wdot(x, params["wk"]).reshape(B, S, num_kv_heads, head_dim)
+    v = wdot(x, params["wv"]).reshape(B, S, num_kv_heads, head_dim)
+    if positions is not None:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    return q, k, v

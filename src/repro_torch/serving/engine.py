@@ -1,0 +1,380 @@
+"""Serving engine: single-token batched decode (``serve_step``) and chunked
+prefill for dense transformers over the paged or slot KV cache.
+
+Counterpart of :mod:`repro.serving.engine`, dense branch.
+
+    serve_step(params, cache, tokens (B, 1)) -> (logits (B, 1, V), cache)
+
+Positions are per slot (``cache["pos"]`` is ``(B,)``), so staggered
+requests share one batch.  The global-layer decode attend always goes
+through :mod:`repro_torch.serving.kernel_decode`: the CUDA kernels for
+CUDA tensors, their plain versions for CPU tensors.  The cache is updated
+in place (the reference's steps returned a new tree; the port returns the
+same one).  PyTorch runs eagerly: there is no jit, and a ``ChunkedPrefill``
+"compile" is the first run of a bucket width.
+
+The engine's own decode attends (``_decode_attend``, ``_bgpp_topk_indices``,
+``_bgpp_formal_attend``, ``_bgpp_decode_attend``,
+``_bgpp_paged_decode_attend``) are the reference's layer-level plain
+versions, built from the same pieces as the kernels' plain versions.  The
+serving path never calls them; they exist as test oracles, held against
+the reference's engine attends.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.bgpp_paged_attend import ref as bgpp_ref
+from repro_torch.kernels.paged_flash_decode.ref import dense_attend, int8_attend
+from repro_torch.models import layers, transformer
+from repro_torch.serving import kernel_decode, kv_cache as kvc
+
+Tree = Dict[str, Any]
+
+
+# --------------------------------------------------------------------------
+# attention over the cache stacks
+# --------------------------------------------------------------------------
+
+
+def _groups(cfg, Hq: int, who: str) -> Tuple[int, int]:
+    """(Hk, g) for an operand carrying ``Hq`` query heads."""
+    if cfg.num_heads % cfg.num_kv_heads:
+        raise ValueError(
+            f"{who}: num_heads={cfg.num_heads} not a multiple of "
+            f"num_kv_heads={cfg.num_kv_heads} — GQA grouping needs an "
+            f"integral ratio"
+        )
+    g = cfg.num_heads // cfg.num_kv_heads
+    if Hq % g:
+        raise ValueError(f"{who}: operand carries Hq={Hq} heads, not a "
+                         f"multiple of the GQA group size g={g}")
+    return Hq // g, g
+
+
+def _cache_attend(q, entry: Tree, valid, cfg, fmt: str, head_mask=None):
+    """Attention over the heads-major cache for Q query tokens per row.
+
+    q ``(B, Q, Hq, Dh)``; entry heads-major ``(B, Hk, S, ...)`` leaves;
+    valid ``(B, Q, S)`` bool; head_mask ``(B, Hk, S)``.  The int8 format
+    runs the paper's 8-bit QK^T (A2) and 8-bit PV (A3).  Decode calls it
+    with Q=1, chunked prefill with Q=chunk.  Returns f32 ``(B, Q, Hq, Dh)``.
+    """
+    B, Q, Hq, Dh = q.shape
+    Hk, g = _groups(cfg, Hq, "_cache_attend")
+    qg = q.reshape(B, Q, Hk, g, Dh).permute(0, 2, 3, 1, 4).float()
+    mask = valid[:, None, None]  # (B, 1, 1, Q, S)
+    if head_mask is not None:
+        mask = mask & head_mask[:, :, None, None, :]
+    if fmt == "bf16":
+        out = dense_attend(qg, entry["k"], entry["v"], mask)
+    else:
+        out = int8_attend(qg, entry["k"], entry["k_scale"], entry["v"],
+                          entry["v_scale"], mask)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Q, Hq, Dh)
+
+
+def _decode_attend(q, entry, valid, cfg, fmt, head_mask=None):
+    """Single-token wrapper: q ``(B, Hq, Dh)``, valid ``(B, S)`` -> ``(B, Hq, Dh)``."""
+    return _cache_attend(q[:, None], entry, valid[:, None], cfg, fmt,
+                         head_mask=head_mask)[:, 0]
+
+
+def _bgpp_quant_query(q, cfg):
+    """Quantize + MSB-truncate the decode query: ``(B, Hq, Dh)`` -> f32
+    ``(B, Hk, g, Dh)`` (the paper's 4-bit MSB query precompute)."""
+    B, Hq, Dh = q.shape
+    Hk, g = _groups(cfg, Hq, "_bgpp_quant_query")
+    return bgpp_ref.quant_query(q.reshape(B, Hk, g, Dh))
+
+
+def _bgpp_topk_indices(qf, plane0, sign_full, plane_at, valid, cfg):
+    """Progressive MSB-first top-k prediction (phase 1 of BGPP decode) with
+    the plan from :func:`kv_cache.bgpp_decode_plan`; see
+    :func:`repro_torch.kernels.bgpp_paged_attend.ref.progressive_topk`.
+    Returns ``(idx (B, Hk, k_max), idx_valid)``."""
+    rounds, k_max, survivors = kvc.bgpp_decode_plan(valid.shape[1], cfg)
+    return bgpp_ref.progressive_topk(qf, plane0, sign_full, plane_at, valid,
+                                     rounds, k_max, survivors)
+
+
+def _bgpp_formal_attend(q, gathered: Tree, idx_valid, cfg):
+    """Phase 2 of BGPP decode: the exact int8 attend (A2/A3) over the
+    compacted survivors ``gathered`` (``k_planes (NBITS, B, Hk, k, D/8)``,
+    ``k_sign``, ``k_scale``, ``v``, ``v_scale``).  q ``(B, Hq, Dh)``."""
+    B, Hq, Dh = q.shape
+    Hk, g = _groups(cfg, Hq, "_bgpp_formal_attend")
+    out = bgpp_ref.formal_attend(
+        q.reshape(B, Hk, g, Dh), gathered["k_planes"], gathered["k_sign"],
+        gathered["k_scale"], gathered["v"], gathered["v_scale"], idx_valid,
+    )
+    return out.reshape(B, Hq, Dh)
+
+
+def _bgpp_decode_attend(q, entry: Tree, valid, cfg):
+    """BGPP progressive decode over a FULL heads-major entry (the slot
+    layout's layer-level plain version): q ``(B, Hq, Dh)``."""
+    qf = _bgpp_quant_query(q, cfg)
+    take = lambda x, i: torch.gather(x, 2, i[..., None].expand(-1, -1, -1, x.shape[-1]))
+    idx, idx_valid = _bgpp_topk_indices(
+        qf, entry["k_planes"][kvc.NBITS - 1], entry["k_sign"],
+        lambda p, i: take(entry["k_planes"][p], i), valid, cfg,
+    )
+    gathered = {
+        "k_planes": torch.stack([take(entry["k_planes"][p], idx)
+                                 for p in range(kvc.NBITS)]),
+        "k_sign": take(entry["k_sign"], idx),
+        "k_scale": torch.gather(entry["k_scale"], 2, idx),
+        "v": take(entry["v"], idx),
+        "v_scale": torch.gather(entry["v_scale"], 2, idx),
+    }
+    return _bgpp_formal_attend(q, gathered, idx_valid, cfg)
+
+
+def _bgpp_paged_decode_attend(q, store: Tree, gi: int, phys, valid, cfg):
+    """Two-phase BGPP decode on the paged pool (the layer-level plain
+    version): phase 1 reads the sign and MSB planes at full width and one
+    more plane per round for the survivors; phase 2 gathers only the
+    ``k_max`` survivors' full rows."""
+    qf = _bgpp_quant_query(q, cfg)
+    idx, idx_valid = _bgpp_topk_indices(
+        qf, kvc.paged_plane(store, gi, kvc.NBITS - 1, phys),
+        kvc.paged_sign(store, gi, phys),
+        lambda p, i: kvc.paged_plane_rows(store, gi, p, kvc.paged_rows_at(phys, i)),
+        valid, cfg,
+    )
+    gathered = kvc.paged_topk_entry(store, gi, kvc.paged_rows_at(phys, idx))
+    return _bgpp_formal_attend(q, gathered, idx_valid, cfg)
+
+
+# --------------------------------------------------------------------------
+# per-layer decode bodies
+# --------------------------------------------------------------------------
+
+
+def _paged_kw(layout):
+    return dict(page_size=layout.page_size, max_seq=layout.max_seq)
+
+
+def _attn_decode_layer(p, cfg, layout, cache, x, pos, layer_idx, theta, phys=None):
+    """x ``(B, 1, D)``, pos per-slot ``(B,)``.  Write-then-attend: the
+    token's K/V land at ``pos`` first, then the global-layer attend runs
+    through :func:`kernel_decode.decode_attend`.  Returns ``(out, cache)``."""
+    B = x.shape[0]
+    h = layers.apply_norm(x, p["attn_norm"], cfg.norm)
+    q, k, v = layers.qkv_project(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
+                                 cfg.head_dim, pos[:, None], theta)
+    gi = layout.global_layers.index(layer_idx)
+    paged = layout.layout == "paged"
+    kvc.write_token(cache["global"], gi, k, v, pos,
+                    **(dict(page_table=cache["page_table"], **_paged_kw(layout))
+                       if paged else {}))
+    out = kernel_decode.decode_attend(
+        q[:, 0], cache["global"], gi, pos, cfg, layout, phys=phys,
+        page_table=cache["page_table"] if paged else None,
+    )
+    # the f32 attend output meets wo as it is, like the reference's
+    # ``wdot(out_f32, wo)``: at bf16 width the contraction and the residual
+    # stream run in f32 from layer 0's attend on (the chunk prefill casts
+    # to the activation dtype first, as the reference's does)
+    out = layers.wdot(out.reshape(B, 1, -1), p["attn"]["wo"])
+    return out, cache
+
+
+def _ffn_decode_layer(p, cfg, x):
+    h = layers.apply_norm(x, p["mlp_norm"], cfg.norm)
+    return layers.mlp_apply(p["mlp"], h, cfg.activation)
+
+
+def _logits(params, cfg, x):
+    x = layers.apply_norm(x, params["final_norm"], cfg.norm)
+    return layers.wdot(x, params["embed"].T)  # tied embeddings
+
+
+def make_serve_step(cfg, layout: kvc.CacheLayout):
+    """Build the batched decode step for one (cfg, layout):
+
+        serve_step(params, cache, tokens (B, 1)) -> (logits (B, 1, V), cache)
+
+    One call decodes ONE token for every slot at its own ``cache["pos"]``
+    and advances every ``pos`` by one.  Paged layouts hoist one
+    logical->pool gather map per step (BGPP's kernel reads through it)."""
+    if cfg.family != "dense":
+        raise ValueError(f"make_serve_step: family {cfg.family!r} is not ported")
+    if layout.global_layers:
+        kernel_decode.validate(cfg, layout)
+    dtype = layers._dtype(cfg.dtype)
+    thetas = transformer.layer_thetas(cfg)
+    paged = layout.layout == "paged"
+
+    def serve_step(params, cache, tokens):
+        """One batched decode token for every slot at its own position."""
+        pos = cache["pos"]
+        phys = (kvc.phys_table(cache["page_table"], layout.page_size, layout.max_seq)
+                if paged and layout.kv_format == "bgpp" else None)
+        x = params["embed"][tokens[:, :1]].to(dtype)
+        for i in range(cfg.num_layers):
+            p = transformer.layer_params(params["layers"], i)
+            a, cache = _attn_decode_layer(p, cfg, layout, cache, x, pos, i,
+                                          float(thetas[i]), phys=phys)
+            x = x + a
+            x = x + _ffn_decode_layer(p, cfg, x)
+        logits = _logits(params, cfg, x)
+        cache["pos"] = pos + 1
+        return logits, cache
+
+    return serve_step
+
+
+# --------------------------------------------------------------------------
+# chunked, bucketed prefill — the admission path
+# --------------------------------------------------------------------------
+#
+# A chunk step runs a fixed-shape (1, C) forward for one slot of the live
+# cache at an arbitrary token offset.  Global layers write the chunk's KV
+# FIRST and then attend over the full (S_max,) row with per-query causal
+# masks, so the key axis has one shape however the prompt was chunked (the
+# chunked == whole-prompt invariant).  Padded lanes beyond ``length`` carry
+# garbage queries (their logits are never read) and are never written.
+
+
+def _attn_chunk_layer(p, cfg, layout, cache, x, slot, offset, length, layer_idx,
+                      theta, phys=None):
+    """One attention layer of the chunk forward.  x ``(1, C, D)``; ``phys``
+    (paged) the slot's ``(1, S_max)`` gather map."""
+    B, C, _ = x.shape
+    h = layers.apply_norm(x, p["attn_norm"], cfg.norm)
+    qpos = offset + torch.arange(C, device=x.device)
+    q, k, v = layers.qkv_project(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
+                                 cfg.head_dim, qpos[None], theta)
+    gi = layout.global_layers.index(layer_idx)
+    store = cache["global"]
+    if layout.layout == "paged":
+        kvc.write_prefill(store, gi, k, v, slot=slot, offset=offset, length=length,
+                          page_table=cache["page_table"], **_paged_kw(layout))
+        view = kvc.paged_entry(store, gi, phys)
+    else:
+        kvc.write_prefill(store, gi, k, v, slot=slot, offset=offset, length=length)
+        view = {n: (a[gi][:, slot][:, None] if n == "k_planes" else a[gi, slot][None])
+                for n, a in store.items()}
+    valid = (torch.arange(layout.max_seq, device=x.device)[None, :]
+             <= qpos[:, None])[None]  # (1, C, S)
+    if layout.kv_format == "bgpp":
+        # prefill attends the full causal context: rebuild the exact int8 K
+        # from the planes (BGPP's prediction is a decode-time saving)
+        entry = {"k": kvc.bitplanes_to_k(view["k_planes"], view["k_sign"]),
+                 "k_scale": view["k_scale"], "v": view["v"], "v_scale": view["v_scale"]}
+        out = _cache_attend(q, entry, valid, cfg, "int8")
+    else:
+        out = _cache_attend(q, view, valid, cfg, layout.kv_format)
+    return out.to(x.dtype).reshape(B, C, -1) @ p["attn"]["wo"], cache
+
+
+def make_prefill_chunk(cfg, layout: kvc.CacheLayout):
+    """Build the chunk step for one (cfg, layout):
+
+        prefill_chunk(params, cache, tokens (1, C), slot, offset, length)
+            -> (logits (1, C, V), cache)
+
+    The chunk's KV lands at ``[offset, offset+length)`` of row ``slot`` and
+    ``cache['pos'][slot]`` is set to ``offset + length``."""
+    if cfg.family != "dense":
+        raise ValueError(f"make_prefill_chunk: family {cfg.family!r} is not ported")
+    dtype = layers._dtype(cfg.dtype)
+    thetas = transformer.layer_thetas(cfg)
+
+    def prefill_chunk(params, cache, tokens, slot: int, offset: int, length: int):
+        """One fixed-shape (1, C) prefill chunk against the live cache."""
+        phys = (kvc.phys_table(cache["page_table"], layout.page_size,
+                               layout.max_seq)[slot][None]
+                if layout.layout == "paged" else None)
+        x = params["embed"][tokens].to(dtype)
+        for i in range(cfg.num_layers):
+            p = transformer.layer_params(params["layers"], i)
+            a, cache = _attn_chunk_layer(p, cfg, layout, cache, x, slot, offset,
+                                         length, i, float(thetas[i]), phys=phys)
+            x = x + a
+            x = x + _ffn_decode_layer(p, cfg, x)
+        logits = _logits(params, cfg, x)
+        cache["pos"][slot] = offset + length
+        return logits, cache
+
+    return prefill_chunk
+
+
+def default_buckets(chunk_budget: int) -> Tuple[int, ...]:
+    """Bucket widths for a token budget: the budget itself plus one
+    half-size tail bucket (fewer padded lanes on a prompt's last chunk)."""
+    budget = max(1, int(chunk_budget))
+    return tuple(sorted({budget, max(4, budget // 2)} - {0}))
+
+
+class ChunkedPrefill:
+    """Bucketed chunk-prefill engine for one (cfg, layout).
+
+    The scheduler drives it chunk by chunk; :meth:`admit` runs a whole
+    prompt (the tests' whole-prompt reference: with a bucket >= the prompt
+    length it is a single fixed-shape forward)."""
+
+    def __init__(self, cfg, layout: kvc.CacheLayout, buckets: Tuple[int, ...] = (8, 16)):
+        self.cfg = cfg
+        self.layout = layout
+        self.buckets = tuple(sorted({int(b) for b in buckets}))
+        if not self.buckets or self.buckets[0] < 1:
+            raise ValueError(f"ChunkedPrefill: bad buckets {buckets}")
+        self._chunk = make_prefill_chunk(cfg, layout)
+        self._widths_run = set()
+
+    def bucket_for(self, n: int) -> int:
+        """Smallest bucket >= n, or the largest bucket (caller chunks)."""
+        for b in self.buckets:
+            if b >= n:
+                return b
+        return self.buckets[-1]
+
+    @property
+    def num_compiles(self) -> int:
+        """Distinct chunk widths run so far — never more than
+        ``len(self.buckets)`` (the bucketing contract)."""
+        return len(self._widths_run)
+
+    def reset(self, cache, slot: int):
+        """Scrub one slot (the first step of every admission)."""
+        return kvc.reset_slot(cache, self.layout, int(slot))
+
+    def run_chunk(self, params, cache, slot: int, chunk_tokens, offset: int):
+        """One fixed-shape chunk: pads ``chunk_tokens`` (length n <= the
+        largest bucket) to its bucket.  Returns ``(logits (1, C, V), cache, n)``."""
+        toks = np.asarray(chunk_tokens, np.int64).reshape(-1)
+        n = toks.shape[0]
+        C = self.bucket_for(n)
+        if n > C:
+            raise ValueError(f"chunk of {n} tokens exceeds largest bucket {C}")
+        if n < C:
+            toks = np.pad(toks, (0, C - n))
+        self._widths_run.add(C)
+        tokens = torch.as_tensor(toks[None], device=cache["pos"].device)
+        logits, cache = self._chunk(params, cache, tokens, int(slot), int(offset), n)
+        return logits, cache, n
+
+    def admit(self, params, cache, slot: int, prompt, *,
+              max_chunk: Optional[int] = None, reset: bool = True):
+        """Whole-prompt admission through the chunk path: reset the slot,
+        then consume the prompt in <= ``max_chunk``-token chunks.  Returns
+        ``(last_logits (1, 1, V), cache)``."""
+        toks = np.asarray(prompt, np.int64).reshape(-1)
+        S = toks.shape[0]
+        if not 0 < S < self.layout.max_seq:
+            raise ValueError(f"admit: prompt length {S} must be in [1, max_seq)")
+        step = min(self.buckets[-1], max_chunk or self.buckets[-1])
+        if reset:
+            cache = self.reset(cache, slot)
+        off, logits, n = 0, None, 0
+        while off < S:
+            logits, cache, n = self.run_chunk(params, cache, slot, toks[off:off + step], off)
+            off += n
+        return logits[:, n - 1:n], cache

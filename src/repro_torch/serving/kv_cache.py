@@ -1,0 +1,513 @@
+"""KV-cache containers for the serving engine (PyTorch).
+
+Counterpart of :mod:`repro.serving.kv_cache` for dense global-attention
+stacks (phi4-mini has no local or SSM layers).  Three storage formats:
+
+  bf16 — dense baseline (the model dtype).
+  int8 — per-token/head symmetric INT8 K and V (+ f32 scales).
+  bgpp — K magnitudes as packed bit-planes (+ sign plane, + scale) so the
+         BGPP predictor fetches one plane per round; V stays int8.
+
+Two physical layouts for the global stacks (``CacheLayout.layout``):
+
+  slot  — heads-major ``(L, B, Hk, S, ...)`` rows, one per batch slot.
+  paged — token-major pools ``(L, num_pages * page_size, Hk, ...)`` with no
+          batch dim, addressed through a ``(B, S_max // page_size)`` page
+          table (``-1`` = unmapped).  Reads gather the slot's logical row
+          back into the slot layout's heads-major view, so attention sees
+          bit-identical values.
+
+Writes update the cache IN PLACE (JAX's arrays were immutable and every
+write returned a new tree; the port mutates the tensors and returns the
+same store for call-site parity).  The reference relies on JAX dropping
+out-of-range scatters (padded chunk lanes at :data:`OOB_INDEX`, unmapped
+pages); ``index_put_`` has no such mode, so writes mask those lanes
+explicitly — without a host sync: a dropped lane repeats the first kept
+lane's write (same target, same value), and when no lane is kept every lane
+rewrites one row with its own old contents.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import bitslice
+from repro_torch.kernels.bgpp_paged_attend import ref as _bgpp_ref
+from repro_torch.models.layers import _dtype
+
+Tree = Dict[str, Any]
+
+NBITS = bitslice.WEIGHT_MAG_BITS  # 7 magnitude planes + sign
+
+# write target of padded / out-of-range lanes (never a real row)
+OOB_INDEX = 1 << 30
+
+@dataclasses.dataclass(frozen=True)
+class CacheLayout:
+    """Static description of one model's decode cache."""
+
+    arch: str
+    family: str
+    batch: int
+    max_seq: int
+    kv_format: str  # bf16 | int8 | bgpp
+    global_layers: Tuple[int, ...] = ()
+    layout: str = "slot"  # slot | paged
+    page_size: int = 0  # tokens per page (paged layout)
+    num_pages: int = 0  # physical pages in each layer's pool (paged layout)
+
+    @property
+    def pages_per_slot(self) -> int:
+        """Logical pages needed to map one slot's full ``max_seq`` row."""
+        return -(-self.max_seq // self.page_size) if self.page_size else 0
+
+
+def layout_for(cfg, batch: int, max_seq: int, kv_format: str = "int8",
+               layout: str = "slot", page_size: int = 8,
+               num_pages: Optional[int] = None) -> CacheLayout:
+    """Derive a :class:`CacheLayout` from a model config.  Every layer must
+    be a global (full-causal) attention layer — the port serves dense
+    stacks; local rings and SSM state are later slices.  ``layout="paged"``
+    sizes the shared pool (default capacity = the dense allocation)."""
+    for i in range(cfg.num_layers):
+        if cfg.layer_attn_window(i) != ("causal", 0):
+            raise ValueError(
+                f"layout_for: layer {i} of {cfg.name} is not a global causal "
+                f"attention layer; the port serves dense global stacks only"
+            )
+    if kv_format not in ("bf16", "int8", "bgpp"):
+        raise ValueError(f"layout_for: unknown kv_format {kv_format!r}")
+    if layout == "paged":
+        if page_size < 1:
+            raise ValueError("layout_for: paged layout needs page_size >= 1")
+        pages_per_slot = -(-max_seq // page_size)
+        num_pages = batch * pages_per_slot if num_pages is None else num_pages
+    elif layout == "slot":
+        page_size, num_pages = 0, 0
+    else:
+        raise ValueError(f"layout_for: unknown layout {layout!r}")
+    return CacheLayout(
+        arch=cfg.name, family=cfg.family, batch=batch, max_seq=max_seq,
+        kv_format=kv_format, global_layers=tuple(range(cfg.num_layers)),
+        layout=layout, page_size=page_size, num_pages=num_pages,
+    )
+
+
+# --------------------------------------------------------------------------
+# allocation
+# --------------------------------------------------------------------------
+
+
+def _kv_leaves(lead: Tuple[int, ...], Hk, Dh, fmt, dtype, device) -> Tree:
+    """Zero leaves of one store; ``lead`` is ``(L, B, Hk, S)`` (slot,
+    heads-major) or ``(L, n_tok, Hk)`` (paged, token-major)."""
+    z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
+    if fmt == "bf16":
+        return {"k": z(lead + (Dh,), dtype), "v": z(lead + (Dh,), dtype)}
+    if fmt == "int8":
+        return {"k": z(lead + (Dh,), torch.int8), "v": z(lead + (Dh,), torch.int8),
+                "k_scale": z(lead, torch.float32), "v_scale": z(lead, torch.float32)}
+    if fmt == "bgpp":
+        if Dh % 8:
+            raise ValueError(f"bgpp KV needs head_dim % 8 == 0, got {Dh}")
+        return {
+            "k_planes": z(lead[:1] + (NBITS,) + lead[1:] + (Dh // 8,), torch.uint8),
+            "k_sign": z(lead + (Dh // 8,), torch.uint8),
+            "k_scale": z(lead, torch.float32),
+            "v": z(lead + (Dh,), torch.int8),
+            "v_scale": z(lead, torch.float32),
+        }
+    raise ValueError(fmt)
+
+
+def init_cache_arrays(cfg, layout: CacheLayout, device="cuda") -> Tree:
+    """Cache tree of zeros on ``device``: per-slot ``pos`` ``(B,)`` int32,
+    the ``global`` store, and (paged) the ``(B, pages_per_slot)`` page table
+    of ``-1`` (unmapped)."""
+    B, S, L = layout.batch, layout.max_seq, len(layout.global_layers)
+    Hk, Dh = cfg.num_kv_heads, cfg.head_dim
+    cache: Tree = {"pos": torch.zeros((B,), dtype=torch.int32, device=device)}
+    if layout.layout == "paged":
+        lead = (L, layout.num_pages * layout.page_size, Hk)
+        cache["page_table"] = torch.full((B, layout.pages_per_slot), -1,
+                                         dtype=torch.int32, device=device)
+    else:
+        lead = (L, B, Hk, S)
+    cache["global"] = _kv_leaves(lead, Hk, Dh, layout.kv_format,
+                                 _dtype(cfg.dtype), device)
+    return cache
+
+
+# --------------------------------------------------------------------------
+# quantized read/write helpers
+# --------------------------------------------------------------------------
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-vector int8 quantization over the trailing head dim:
+    ``(..., Hk, Dh)`` -> ``(int8 values (..., Hk, Dh), f32 scales (..., Hk))``.
+    ``round`` is half to even, like ``jnp.round``."""
+    if x.ndim < 2:
+        raise ValueError(f"quantize_kv wants (..., Hk, Dh), got {tuple(x.shape)}")
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv` (tests and oracles)."""
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def k_to_bitplanes(k_q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 K ``(..., Dh)`` -> (packed planes ``(NBITS, ..., Dh/8)``, packed
+    sign ``(..., Dh/8)``)."""
+    sign, mag = bitslice.to_sign_magnitude(k_q)
+    planes = bitslice.bitplanes(mag, NBITS)
+    return bitslice.pack_bits(planes, -1), bitslice.pack_bits(sign, -1)
+
+
+def bitplanes_to_k(planes: torch.Tensor, sign: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`k_to_bitplanes` -> int32 values."""
+    mag = bitslice.from_bitplanes(bitslice.unpack_bits(planes, -1))
+    return bitslice.from_sign_magnitude(bitslice.unpack_bits(sign, -1), mag)
+
+
+# --------------------------------------------------------------------------
+# paged addressing — logical position <-> physical pool row
+# --------------------------------------------------------------------------
+#
+# Physical row of logical position p in slot b:
+#     page_table[b, p // page_size] * page_size + p % page_size
+# Writes drop padded / out-of-range lanes and unmapped pages; reads clamp
+# unmapped pages to row 0 — every consumer masks those lanes by position.
+
+
+def _tok_dim(name: str) -> int:
+    # pool token axis after the layer dim; bgpp planes interpose their
+    # plane dim: (layer, plane, token, ...)
+    return 2 if name == "k_planes" else 1
+
+
+def phys_table(page_table: torch.Tensor, page_size: int, max_seq: int) -> torch.Tensor:
+    """Gather map: ``(B, S_max)`` physical rows for every logical position
+    (unmapped pages clamp to row 0 — callers mask by position)."""
+    s = torch.arange(max_seq, device=page_table.device)
+    pid = page_table[:, s // page_size]
+    return torch.where(pid >= 0, pid * page_size + (s % page_size)[None], 0)
+
+
+def _phys_write(page_table: torch.Tensor, tpos: torch.Tensor, page_size: int,
+                max_seq: int, slot=None) -> torch.Tensor:
+    """Scatter map: physical rows for logical write targets ``tpos``
+    (:data:`OOB_INDEX` where the lane is padded / out of range / its page
+    unmapped).  ``slot=None``: tpos ``(B,)``, one row per batch slot;
+    ``slot`` an int or a ``(N,)`` tensor: the slot of each lane."""
+    n = page_table.shape[-1]
+    page = torch.clamp(tpos // page_size, 0, n - 1).long()
+    if slot is None:
+        slot = torch.arange(page_table.shape[0], device=tpos.device)
+    pid = page_table[slot, page]
+    ok = (tpos >= 0) & (tpos < max_seq) & (pid >= 0)
+    return torch.where(ok, pid * page_size + tpos % page_size, OOB_INDEX)
+
+
+def paged_entry(store: Tree, idx: int, phys: torch.Tensor) -> Tree:
+    """Gather layer ``idx`` of a paged pool into the slot layout's
+    heads-major view: phys ``(B, S)`` -> ``(B, Hk, S, ...)`` (bgpp planes
+    ``(NBITS, B, Hk, S, D/8)``)."""
+    out: Tree = {}
+    for n, a in store.items():
+        if n == "k_planes":
+            out[n] = a[idx][:, phys].movedim(3, 2)
+        else:
+            out[n] = a[idx][phys].movedim(2, 1)
+    return out
+
+
+def paged_sign(store: Tree, idx: int, phys: torch.Tensor) -> torch.Tensor:
+    """Packed sign plane of layer ``idx`` at every logical position:
+    ``(B, S)`` -> ``(B, Hk, S, D/8)`` heads-major."""
+    return store["k_sign"][idx][phys].movedim(2, 1)
+
+
+def paged_plane(store: Tree, idx: int, plane: int, phys: torch.Tensor) -> torch.Tensor:
+    """ONE packed magnitude plane of layer ``idx`` at every logical
+    position: ``(B, S)`` -> ``(B, Hk, S, D/8)`` heads-major."""
+    return store["k_planes"][idx, plane][phys].movedim(2, 1)
+
+
+# per-head logical indices (B, Hk, k) -> physical pool rows (B, Hk, k)
+paged_rows_at = _bgpp_ref.rows_at
+
+
+def paged_plane_rows(store: Tree, idx: int, plane: int, rows: torch.Tensor) -> torch.Tensor:
+    """ONE packed magnitude plane at surviving physical rows only: rows
+    ``(B, Hk, k)`` -> ``(B, Hk, k, D/8)`` (head ``h`` reads only its slice)."""
+    return _bgpp_ref.rows_per_head(store["k_planes"][idx, plane], rows, False)
+
+
+def paged_topk_entry(store: Tree, idx: int, rows: torch.Tensor) -> Tree:
+    """Phase-2 gather: the surviving tokens' full-precision bgpp rows,
+    compacted: rows ``(B, Hk, k)`` -> ``{k_planes (NBITS, B, Hk, k, D/8),
+    k_sign (B, Hk, k, D/8), k_scale (B, Hk, k), v (B, Hk, k, D), v_scale}``."""
+    return {n: _bgpp_ref.rows_per_head(a[idx], rows, n == "k_planes")
+            for n, a in store.items()}
+
+
+def identity_page_table(layout: CacheLayout, device="cuda") -> torch.Tensor:
+    """Slot-major mapping (slot b, page j) -> physical page ``b*n + j``."""
+    B, n = layout.batch, layout.pages_per_slot
+    if B * n > layout.num_pages:
+        raise ValueError("identity_page_table: table exceeds the pool")
+    return torch.arange(B * n, dtype=torch.int32, device=device).reshape(B, n)
+
+
+def zero_pages(store: Tree, page_ids, page_size: int) -> Tree:
+    """Scrub physical pages (freed by the allocator) in place across EVERY
+    pool leaf of every layer.  ``page_ids`` is host data (a sequence or
+    array; ``-1`` entries are ignored)."""
+    ids = np.asarray(page_ids, np.int64).reshape(-1)
+    ids = ids[ids >= 0]
+    if ids.size == 0:
+        return store
+    rows = (ids[:, None] * page_size + np.arange(page_size)[None]).reshape(-1)
+    for n, a in store.items():
+        r = torch.as_tensor(rows, device=a.device)
+        if n == "k_planes":
+            a[:, :, r] = 0
+        else:
+            a[:, r] = 0
+    return store
+
+
+def page_bytes(store: Tree, page_size: int) -> int:
+    """Bytes one physical page occupies across every leaf of a pool."""
+    total = 0
+    for n, a in store.items():
+        total += a.numel() * a.element_size() * page_size // a.shape[_tok_dim(n)]
+    return total
+
+
+# --------------------------------------------------------------------------
+# KV-read accounting — bytes the decode / chunk steps gather
+# --------------------------------------------------------------------------
+
+
+def _cache_dtype_bytes(cfg) -> int:
+    return 2 if cfg.dtype == "bfloat16" else 4
+
+
+def _token_row_bytes(cfg, fmt: str) -> float:
+    """Bytes one token's KV row (all ``Hk`` heads, K and V plus scales)
+    occupies in a store of format ``fmt``."""
+    Hk, Dh = cfg.num_kv_heads, cfg.head_dim
+    if fmt == "bf16":
+        return Hk * Dh * _cache_dtype_bytes(cfg) * 2.0
+    if fmt == "int8":
+        return Hk * (2.0 * Dh + 8.0)  # int8 K+V, two f32 scales
+    if fmt == "bgpp":
+        # packed planes + sign plane + k_scale + int8 V + v_scale: the FULL
+        # row phase 2 fetches per surviving token
+        return Hk * (NBITS * Dh / 8.0 + Dh / 8.0 + 4.0 + Dh + 4.0)
+    raise ValueError(fmt)
+
+
+def bgpp_decode_plan(S: int, cfg) -> Tuple[int, int, Tuple[int, ...]]:
+    """Static shapes of one two-phase BGPP decode attend over ``S`` lanes:
+    ``(rounds, k_max, survivors)`` with ``survivors[r]`` the candidate-set
+    width round ``r`` fetches (``S`` at round 0, then ``max(k_max, S >> r)``).
+    The engine takes its widths from here and :func:`decode_read_bytes`
+    prices the same tuple."""
+    mo = cfg.mcbp
+    if S < 1:
+        raise ValueError(f"bgpp_decode_plan: cache width S={S} must be >= 1")
+    if mo.bgpp_rounds < 1:
+        raise ValueError(
+            f"bgpp_decode_plan: bgpp_rounds={mo.bgpp_rounds} must be >= 1 "
+            f"(round 0 always scans the MSB plane)"
+        )
+    if not (0.0 < mo.bgpp_keep_ratio <= 1.0):
+        raise ValueError(
+            f"bgpp_decode_plan: bgpp_keep_ratio={mo.bgpp_keep_ratio} must be "
+            f"in (0, 1]"
+        )
+    rounds = max(1, min(mo.bgpp_rounds, NBITS))
+    k_max = max(1, min(S, int(math.ceil(mo.bgpp_keep_ratio * S))))
+    survivors = (S,) + tuple(max(k_max, S >> r) for r in range(1, rounds))
+    return rounds, k_max, survivors
+
+
+def decode_read_bytes(layout: CacheLayout, cfg) -> Dict[str, Any]:
+    """KV bytes ONE batched decode step gathers, at its static shapes: all
+    ``layout.batch`` rows and every layer; bf16/int8 read the full
+    ``(S_max,)`` row; bgpp follows the two-phase plan (sign + MSB plane
+    everywhere, shrinking survivor planes, ``k_max`` full rows).
+    ``bf16_equiv`` is what a bf16 cache of the same geometry reads."""
+    B, S = layout.batch, layout.max_seq
+    ng = len(layout.global_layers)
+    out: Dict[str, Any] = {}
+    if layout.kv_format == "bgpp":
+        rounds, k_max, survivors = bgpp_decode_plan(S, cfg)
+        plane_row = cfg.num_kv_heads * cfg.head_dim / 8.0
+        sign = S * plane_row
+        planes = float(sum(survivors)) * plane_row
+        topk_full = k_max * _token_row_bytes(cfg, "bgpp")
+        out["bgpp"] = {
+            "rounds": rounds,
+            "full_rows_per_slot": k_max,
+            "sign_bytes": B * ng * sign,
+            "plane_bytes": B * ng * planes,
+            "topk_full_bytes": B * ng * topk_full,
+        }
+        out["global"] = B * ng * (sign + planes + topk_full)
+    else:
+        out["global"] = B * ng * S * _token_row_bytes(cfg, layout.kv_format)
+    out["total"] = out["global"]
+    out["bf16_equiv"] = B * ng * S * _token_row_bytes(cfg, "bf16")
+    return out
+
+
+def chunk_read_bytes(layout: CacheLayout, cfg) -> Dict[str, Any]:
+    """KV bytes ONE chunked-prefill step reads (one slot): every layer
+    attends the full ``(S_max,)`` row at full precision (BGPP's prediction
+    is a decode-time saving)."""
+    g = len(layout.global_layers) * layout.max_seq * _token_row_bytes(
+        cfg, layout.kv_format)
+    return {"global": g, "total": g}
+
+
+# --------------------------------------------------------------------------
+# stack writes — one code path for bf16 / int8 / bgpp stores
+# --------------------------------------------------------------------------
+#
+# The format is inferred from the store's keys (``k_planes`` => bgpp,
+# ``k_scale`` => int8, else bf16).  Every write is a list of lanes (slot,
+# logical position, K/V row); padded lanes never reach the store.
+
+
+def _encode(store: Tree, k: torch.Tensor, v: torch.Tensor) -> Tree:
+    """Fresh rows ``(N, Hk, Dh)`` -> per-leaf lane-first values ``(N, ...)``
+    in the store's format (bgpp planes ``(N, NBITS, Hk, Dh/8)``)."""
+    if "k_planes" in store:
+        kq, ks = quantize_kv(k)
+        planes, sign = k_to_bitplanes(kq)
+        vq, vs = quantize_kv(v)
+        return {"k_planes": planes.movedim(0, 1), "k_sign": sign, "k_scale": ks,
+                "v": vq, "v_scale": vs}
+    if "k_scale" in store:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    return {"k": k.to(store["k"].dtype), "v": v.to(store["v"].dtype)}
+
+
+def _drop_lanes(ok: torch.Tensor):
+    """Lane map that drops the lanes where ``ok`` is False without a host
+    sync: ``(src, none)`` where a dropped lane takes the first kept lane's
+    write (``src``), and ``none`` is True when no lane is kept (every lane
+    then rewrites target 0 with its old value)."""
+    lanes = torch.arange(ok.shape[0], device=ok.device)
+    first = torch.argmax(ok.to(torch.int32))  # first kept lane (0 if none)
+    return torch.where(ok, lanes, first), ~ok.any()
+
+
+def _write_lanes(store: Tree, idx: int, b: torch.Tensor, tpos: torch.Tensor,
+                 k: torch.Tensor, v: torch.Tensor, page_table, page_size: int,
+                 max_seq: int) -> Tree:
+    """Write rows ``k``/``v`` ``(N, Hk, Dh)`` of slots ``b`` ``(N,)`` at
+    logical positions ``tpos`` ``(N,)`` into layer ``idx``, in place.
+    Lanes outside the row (``max_seq`` paged, the stack's S slot) and,
+    paged, lanes on unmapped pages drop."""
+    vals = _encode(store, k, v)
+    if page_table is not None:
+        rows = _phys_write(page_table, tpos, page_size, max_seq, slot=b)
+        src, none = _drop_lanes(rows != OOB_INDEX)
+        rows = torch.where(none, 0, rows[src])
+        for n, a in store.items():
+            layer = a[idx]
+            if n == "k_planes":
+                layer[:, rows] = torch.where(none, layer[:, 0], vals[n][src]).movedim(0, 1)
+            else:
+                layer[rows] = torch.where(none, layer[0], vals[n][src])
+        return store
+    S = store["k_sign" if "k_planes" in store else "k"].shape[3]
+    src, none = _drop_lanes((tpos >= 0) & (tpos < S))
+    b = torch.where(none, 0, b[src])
+    s = torch.where(none, 0, tpos[src]).long()
+    for n, a in store.items():
+        layer = a[idx]
+        if n == "k_planes":  # (NBITS, B, Hk, S, D/8)
+            layer[:, b, :, s] = torch.where(none, layer[:, 0, :, 0], vals[n][src])
+        else:  # (B, Hk, S, ...)
+            layer[b, :, s] = torch.where(none, layer[0, :, 0], vals[n][src])
+    return store
+
+
+def write_token(store: Tree, idx: int, k: torch.Tensor, v: torch.Tensor,
+                tpos: torch.Tensor, *, page_table=None, page_size: int = 0,
+                max_seq: int = 0) -> Tree:
+    """Write one decode token per slot into layer ``idx``, in place.
+
+    k/v: ``(B, 1, Hk, Dh)``; tpos: ``(B,)`` per-slot target position.
+    ``page_table`` selects the paged pool (unmapped page => dropped write);
+    positions outside ``[0, max_seq)`` drop in both layouts."""
+    B = k.shape[0]
+    b = torch.arange(B, device=k.device)
+    return _write_lanes(store, idx, b, tpos.long(), k[:, 0], v[:, 0], page_table,
+                        page_size, max_seq)
+
+
+def write_prefill(store: Tree, idx: int, k: torch.Tensor, v: torch.Tensor,
+                  *, slot: Optional[int] = None, offset: Optional[int] = None,
+                  length: Optional[int] = None, page_table=None,
+                  page_size: int = 0, max_seq: int = 0) -> Tree:
+    """Write a prompt's K/V into a global stack, in place.
+
+    k/v: ``(B, S, Hk, Dh)``.  ``slot=None`` writes every batch row at
+    positions ``[0, S)``; ``slot=b`` (``B == 1``) writes one row of a live
+    cache.  ``offset``/``length`` select the chunked-admission path: the
+    first ``length`` lanes land at ``[offset, offset+length)`` of ``slot``;
+    padded lanes are never written.  ``page_table`` selects the paged pool
+    (writes to unmapped pages drop)."""
+    B, S = k.shape[:2]
+    dev = k.device
+    if offset is not None or slot is not None:
+        if slot is None or B != 1:
+            raise ValueError("write_prefill: chunked / slot writes admit one "
+                             "prompt (B == 1) into one slot")
+        n = S if length is None else int(length)
+        off = 0 if offset is None else int(offset)
+        tpos = off + torch.arange(n, device=dev)
+        b = torch.full((n,), int(slot), device=dev)
+        kk, vv = k[0, :n], v[0, :n]
+    else:
+        tpos = torch.arange(S, device=dev).repeat(B)
+        b = torch.arange(B, device=dev).repeat_interleave(S)
+        kk, vv = k.reshape(B * S, *k.shape[2:]), v.reshape(B * S, *v.shape[2:])
+    return _write_lanes(store, idx, b, tpos, kk, vv, page_table, page_size, max_seq)
+
+
+# --------------------------------------------------------------------------
+# slot lifecycle
+# --------------------------------------------------------------------------
+
+
+def reset_slot(cache: Tree, layout: CacheLayout, slot: int) -> Tree:
+    """Clear one batch row in place: its KV rows to zero (slot layout) and
+    ``pos[slot]`` to 0.  Paged pools have no batch rows — page lifecycle
+    belongs to :class:`repro_torch.serving.paging.PageAllocator`."""
+    if layout.layout != "paged":
+        for n, a in cache["global"].items():
+            if n == "k_planes":
+                a[:, :, slot] = 0
+            else:
+                a[:, slot] = 0
+    cache["pos"][slot] = 0
+    return cache

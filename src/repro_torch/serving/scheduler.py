@@ -1,0 +1,515 @@
+"""Continuous-batching request scheduler over one live per-slot KV cache.
+
+Counterpart of :mod:`repro.serving.scheduler` (chunked admission, greedy
+or forced tokens, slot and paged layouts, paged prefix reuse, eviction,
+cancellation, priority tiers, deadline shedding, ``stats()``).
+
+Each step it (1) spends at most ``chunk_budget`` prompt tokens advancing
+ONE admitting request through the bucketed :class:`~repro_torch.serving
+.engine.ChunkedPrefill`, (2) runs ONE batched ``serve_step`` for every
+DECODING slot, and (3) evicts finished slots.  Paged layouts keep a
+host-side :class:`~repro_torch.serving.paging.PageAllocator`: pages are
+mapped just ahead of every write, the device page table is refreshed when
+the host copy changes, and eviction zeroes (on device) only pages whose
+refcount hit zero.  A slot's prompt is matched against the prefix index at
+its first advance; a hit adopts the resident pages and skips those tokens.
+
+The device work is enqueued without host syncs; each decode step syncs
+once, to bring its logits to the host for sampling (as the reference's
+``np.asarray(logits)``), and a step that finishes a prompt syncs once more
+for the first token's logits.
+
+Later slices: eager (whole-prompt) admission, speculative decoding,
+meshes, and the int8/BSTC serve-weight path — the constructor raises if
+asked for them.
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+from typing import Callable, Deque, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.serving import engine, kv_cache as kvc
+from repro_torch.serving.paging import PageAllocator
+from repro_torch.serving.request import Request, Slot, SlotState, priority_rank
+
+
+def greedy_sample(logits: np.ndarray) -> np.ndarray:
+    """(B, V) logits -> (B,) int32 argmax tokens."""
+    return np.argmax(logits, axis=-1).astype(np.int32)
+
+
+def _percentiles(samples) -> Dict[str, Optional[float]]:
+    a = np.asarray(list(samples), np.float64)
+    if a.size == 0:
+        return {"p50": None, "p95": None}
+    return {"p50": round(float(np.percentile(a, 50)), 6),
+            "p95": round(float(np.percentile(a, 95)), 6)}
+
+
+def _host_rows(logits: torch.Tensor) -> np.ndarray:
+    """Device logits -> float32 numpy (the step's one host sync)."""
+    return logits.float().cpu().numpy()
+
+
+class Scheduler:
+    """Slot-level continuous batching on top of the port's serving engine."""
+
+    def __init__(
+        self,
+        params,
+        cfg,
+        layout: kvc.CacheLayout,
+        device="cuda",
+        sample_fn: Callable[[np.ndarray], np.ndarray] = greedy_sample,
+        admission: str = "chunked",
+        chunk_budget: int = 16,
+        buckets=None,
+        record_logits: bool = False,
+        weight_format: str = "bf16",
+        spec_decode: bool = False,
+        mesh=None,
+    ):
+        from repro_torch import resolve_device
+
+        if cfg.family != "dense":
+            raise ValueError(f"Scheduler: family {cfg.family!r} is not ported")
+        if admission != "chunked":
+            raise NotImplementedError(
+                "Scheduler: eager admission needs the whole-sequence forward, "
+                "a later slice of the port; use admission='chunked'")
+        if weight_format != "bf16":
+            raise NotImplementedError(
+                f"Scheduler: weight_format={weight_format!r} is the weight-path "
+                f"slice; the port serves bf16 weights")
+        if spec_decode:
+            raise NotImplementedError("Scheduler: speculative decoding is a later slice")
+        if mesh is not None:
+            raise NotImplementedError("Scheduler: meshes / sharding are a later slice")
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(
+                f"Scheduler: params live on {params['embed'].device}, the "
+                f"scheduler on {self.device}")
+        self.params = params
+        self.cfg = cfg
+        self.layout = layout
+        self.sample_fn = sample_fn
+        self.admission = admission
+        self.chunk_budget = int(chunk_budget)
+        self.record_logits = record_logits
+
+        self.cache = kvc.init_cache_arrays(cfg, layout, self.device)
+        self.pager: Optional[PageAllocator] = None
+        if layout.layout == "paged" and layout.global_layers:
+            self.pager = PageAllocator(layout)
+            self._page_bytes = kvc.page_bytes(self.cache["global"], layout.page_size)
+        self.slots: List[Slot] = [Slot(i) for i in range(layout.batch)]
+        self.queue: Deque[Request] = collections.deque()
+        self.serve_step = engine.make_serve_step(cfg, layout)
+        self.chunked = engine.ChunkedPrefill(
+            cfg, layout, buckets=buckets or engine.default_buckets(self.chunk_budget))
+        # next-token feed per slot; EMPTY/PREFILLING rows decode token 0 into
+        # garbage that per-slot valid masks + chunk overwrites keep invisible
+        self.tokens = np.zeros((layout.batch, 1), np.int64)
+
+        self.step_count = 0
+        self.finished: List[Request] = []
+        self.cancelled: List[Request] = []  # cancel() + deadline sheds
+        self.preemptions = 0  # chunk budgets reclaimed by a higher tier
+        self._advancing: Optional[int] = None
+        self.occupancy: List[float] = []  # busy slots / slots, per step
+        self.decoded_tokens = 0
+        # KV-read accounting: host-side closed forms of the steps' gathers
+        self._decode_read = kvc.decode_read_bytes(layout, cfg)
+        self._chunk_read = kvc.chunk_read_bytes(layout, cfg)
+        self.decode_steps = 0
+        self.kv_bytes_read = {"decode": 0.0, "prefill": 0.0}
+        self.prefill_tokens_per_step: List[int] = []
+        self.prompt_tokens_admitted = 0
+        self.prefix_hits = 0
+        self.prefix_hit_tokens = 0
+
+    # ------------------------------------------------------------------
+    # paged-layout page lifecycle (host allocator <-> device table)
+    # ------------------------------------------------------------------
+
+    def _sync_pages(self) -> None:
+        """Copy the host page table into the device table if it changed."""
+        if self.pager is not None and self.pager.dirty:
+            self.cache["page_table"].copy_(torch.from_numpy(self.pager.table))
+            self.pager.dirty = False
+
+    def _ensure_pages(self, slot: int, lo: int, hi: int) -> None:
+        if self.pager is not None:
+            self.pager.ensure_range(slot, lo, hi)
+            self._sync_pages()
+
+    def _release_pages(self, slot: int) -> None:
+        """Evict a slot's pages: decref all, zero (on device) the ones whose
+        refcount hit zero — prefix sharers keep theirs."""
+        if self.pager is None:
+            return
+        freed = self.pager.release_slot(slot)
+        if freed:
+            kvc.zero_pages(self.cache["global"], freed, self.layout.page_size)
+        self._sync_pages()
+
+    def _try_prefix_reuse(self, slot: Slot, req: Request) -> None:
+        """Adopt resident prompt pages matching this prompt's head — at the
+        slot's FIRST advance, never at assignment: the batched decode
+        garbage-writes every row at its device pos, harmless only while the
+        row maps no shared page there (see the reference's note)."""
+        if self.pager is None:
+            return
+        n, ids = self.pager.lookup_prefix(req.prompt)
+        if n:
+            self.pager.adopt_prefix(slot.index, ids)
+            slot.prefill_pos = n
+            req.prefix_reused_tokens = n
+            self.prefix_hits += 1
+            self.prefix_hit_tokens += n
+
+    # ------------------------------------------------------------------
+    # queue / admission
+    # ------------------------------------------------------------------
+
+    def submit(self, request: Request) -> None:
+        """Queue one request (FIFO among arrived; see ``Request.arrival_step``)."""
+        if not 0 < request.prompt_len < self.layout.max_seq:
+            raise ValueError(
+                f"request {request.rid}: prompt_len {request.prompt_len} must be "
+                f">= 1 and leave at least one decode slot below max_seq "
+                f"{self.layout.max_seq}")
+        request.submit_time = time.perf_counter()
+        self.queue.append(request)
+
+    @property
+    def num_pending(self) -> int:
+        """Requests not yet finished: queued plus live in a slot."""
+        return len(self.queue) + sum(1 for s in self.slots if s.live)
+
+    def _next_arrived(self) -> Optional[Request]:
+        """Highest-priority arrived request, FIFO within a tier."""
+        best = None
+        for i, req in enumerate(self.queue):
+            if req.arrival_step > self.step_count:
+                continue
+            if best is None or priority_rank(req.priority) < priority_rank(best[1].priority):
+                best = (i, req)
+        if best is None:
+            return None
+        del self.queue[best[0]]
+        return best[1]
+
+    def _shed_expired(self) -> None:
+        """Cancel (shed) queued requests whose admission deadline passed."""
+        expired = [r for r in self.queue
+                   if r.deadline_steps is not None
+                   and self.step_count - r.arrival_step > r.deadline_steps]
+        for req in expired:
+            self.queue.remove(req)
+            self._record_cancel(req, "queued", shed=True)
+
+    def _pick_token(self, req: Request, logits_row: np.ndarray) -> int:
+        """Next response token: forced (teacher-forced oracles) or sampled."""
+        t = len(req.generated)
+        if req.forced_tokens is not None and t < len(req.forced_tokens):
+            tok = int(req.forced_tokens[t])
+        else:
+            tok = int(self.sample_fn(logits_row[None])[0])
+        if self.record_logits:
+            if req.logit_rows is None:
+                req.logit_rows = []
+            req.logit_rows.append(np.asarray(logits_row, np.float32))
+        return tok
+
+    def _emit_first_token(self, slot: Slot, logits_row: np.ndarray) -> None:
+        req = slot.request
+        first = self._pick_token(req, logits_row)
+        req.generated.append(first)
+        now = time.perf_counter()
+        req.first_token_step = self.step_count
+        req.first_token_time = now
+        req.token_times.append(now)
+        self.tokens[slot.index, 0] = first
+        slot.state = SlotState.DECODING
+        if req.on_token is not None:
+            req.on_token(req, first)
+        if self._hit_limit(slot, req):
+            self._finish(slot)
+
+    def _advance_admission(self) -> int:
+        """Assign arrived requests to EMPTY slots (reset the row), then
+        spend at most ``chunk_budget`` prompt tokens advancing the
+        highest-tier, oldest admitting request.  Returns the prompt tokens
+        consumed."""
+        for s in self.slots:
+            if s.state is not SlotState.EMPTY:
+                continue
+            req = self._next_arrived()
+            if req is None:
+                break
+            s.state = SlotState.PREFILLING
+            s.request = req
+            s.prefill_pos = 0
+            req.admitted_step = self.step_count
+            req.admit_time = time.perf_counter()
+            self.cache = self.chunked.reset(self.cache, s.index)
+            self.prompt_tokens_admitted += req.prompt_len
+        admitting = [s for s in self.slots if s.state is SlotState.PREFILLING]
+        if not admitting:
+            self._advancing = None
+            return 0
+        slot = min(admitting, key=lambda s: (
+            priority_rank(s.request.priority), s.request.admitted_step, s.index))
+        prev = self._advancing
+        if prev is not None and prev != slot.index:
+            ps = self.slots[prev]
+            if (ps.state is SlotState.PREFILLING
+                    and priority_rank(ps.request.priority)
+                    > priority_rank(slot.request.priority)):
+                ps.request.preemptions += 1
+                self.preemptions += 1
+        req = slot.request
+        if slot.prefill_pos == 0:
+            self._try_prefix_reuse(slot, req)
+        spent = 0
+        logits, n = None, 0
+        while spent < self.chunk_budget and slot.prefill_pos < req.prompt_len:
+            take = min(req.prompt_len - slot.prefill_pos, self.chunk_budget - spent,
+                       self.chunked.buckets[-1])
+            self._ensure_pages(slot.index, slot.prefill_pos, slot.prefill_pos + take)
+            logits, self.cache, n = self.chunked.run_chunk(
+                self.params, self.cache, slot.index,
+                req.prompt[slot.prefill_pos:slot.prefill_pos + take], slot.prefill_pos)
+            self.kv_bytes_read["prefill"] += self._chunk_read["total"]
+            slot.prefill_pos += n
+            spent += n
+        if self.pager is not None:
+            # every page-aligned prompt prefix now fully written becomes a
+            # reuse candidate for later admissions
+            self.pager.register_prefix(slot.index, req.prompt, slot.prefill_pos)
+        if slot.prefill_pos >= req.prompt_len:
+            self._emit_first_token(slot, _host_rows(logits[0, n - 1]))
+            self._advancing = None
+        else:
+            self._advancing = slot.index
+        return spent
+
+    # ------------------------------------------------------------------
+    # decode / eviction
+    # ------------------------------------------------------------------
+
+    def _hit_limit(self, slot: Slot, req: Request) -> bool:
+        if len(req.generated) >= req.max_new_tokens:
+            return True
+        # the next decode step writes at prompt_len + generated - 1 (the
+        # device pos, tracked host-side): at max_seq the slot is full
+        if req.prompt_len + len(req.generated) - 1 >= self.layout.max_seq:
+            return True
+        return (req.eos_id is not None and bool(req.generated)
+                and req.generated[-1] == req.eos_id)
+
+    def _evict(self, slot: Slot) -> None:
+        """State-agnostic slot release: decref the slot's pages (zeroing the
+        freed ones), reset the token feed, return the row to EMPTY.  The KV
+        row itself is reset at the next admission."""
+        self._release_pages(slot.index)
+        self.tokens[slot.index, 0] = 0
+        if self._advancing == slot.index:
+            self._advancing = None
+        slot.request = None
+        slot.prefill_pos = 0
+        slot.state = SlotState.EMPTY
+
+    def _finish(self, slot: Slot) -> None:
+        req = slot.request
+        req.finished_step = self.step_count
+        req.finish_time = time.perf_counter()
+        slot.state = SlotState.DONE
+        self.finished.append(req)
+        self._pin_history(slot, req)
+        self._evict(slot)
+        if req.on_finish is not None:
+            req.on_finish(req)
+
+    def _record_cancel(self, req: Request, state: str, shed: bool = False) -> None:
+        req.cancelled = True
+        req.shed = shed
+        req.cancel_state = state
+        req.cancel_step = self.step_count
+        req.cancel_time = time.perf_counter()
+        self.cancelled.append(req)
+        if req.on_finish is not None:
+            req.on_finish(req)
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel request ``rid`` wherever it is in its lifecycle (queued,
+        PREFILLING or DECODING); survivors are untouched.  Returns True if
+        the request was found queued or live."""
+        for i, req in enumerate(self.queue):
+            if req.rid == rid:
+                del self.queue[i]
+                self._record_cancel(req, "queued")
+                return True
+        for slot in self.slots:
+            if slot.live and slot.request.rid == rid:
+                req = slot.request
+                state = ("prefilling" if slot.state is SlotState.PREFILLING
+                         else "decoding")
+                self._evict(slot)
+                self._record_cancel(req, state)
+                return True
+        return False
+
+    def _pin_history(self, slot: Slot, req: Request) -> None:
+        """``keep_prefix_resident``: index + pin the page-aligned prefix of
+        the request's written history so a chat session's next turn can
+        adopt it (release with :meth:`unpin_pages`)."""
+        if self.pager is None or not req.keep_prefix_resident:
+            return
+        written = req.prompt_len + len(req.generated) - 1
+        hist = np.concatenate([np.asarray(req.prompt, np.int32),
+                               np.asarray(req.generated[:-1], np.int32)])
+        self.pager.register_prefix(slot.index, hist, written)
+        npages = written // self.layout.page_size
+        ids = tuple(int(p) for p in self.pager.table[slot.index, :npages] if p >= 0)
+        if npages > 0 and len(ids) == npages:
+            self.pager.pin_pages(ids)
+            req.pinned_pages = ids
+
+    def unpin_pages(self, ids) -> None:
+        """Release session pins: decref each page, zero the freed ones."""
+        if self.pager is None or not ids:
+            return
+        freed = self.pager.unpin_pages(ids)
+        kvc.zero_pages(self.cache["global"], freed, self.layout.page_size)
+        self._sync_pages()
+
+    def step(self) -> bool:
+        """Advance prefill, run one batched decode step, harvest, evict.
+        Returns False when there was nothing to do."""
+        self._shed_expired()
+        spent = self._advance_admission()
+        self.prefill_tokens_per_step.append(spent)
+        busy = [s for s in self.slots if s.live]
+        live = [s for s in self.slots if s.state is SlotState.DECODING]
+        self.occupancy.append(len(busy) / len(self.slots))
+        if not live:
+            self.step_count += 1
+            return bool(busy)
+        if self.pager is not None:
+            for slot in live:
+                r = slot.request
+                p = r.prompt_len + len(r.generated) - 1
+                self.pager.ensure_range(slot.index, p, p + 1)
+            self._sync_pages()
+        logits, self.cache = self.serve_step(
+            self.params, self.cache, torch.as_tensor(self.tokens, device=self.device))
+        rows = _host_rows(logits[:, -1])
+        self.step_count += 1
+        self.decode_steps += 1
+        self.kv_bytes_read["decode"] += self._decode_read["total"]
+        self.decoded_tokens += len(live)
+        now = time.perf_counter()
+        for slot in live:
+            req = slot.request
+            tok = self._pick_token(req, rows[slot.index])
+            req.generated.append(tok)
+            req.token_times.append(now)
+            self.tokens[slot.index, 0] = tok
+            if req.on_token is not None:
+                req.on_token(req, tok)
+            if self._hit_limit(slot, req):
+                self._finish(slot)
+        return True
+
+    def run(self, max_steps: Optional[int] = None) -> Dict:
+        """Drive steps until every submitted request finished (or the step
+        budget runs out); returns :meth:`stats`."""
+        t0 = time.perf_counter()
+        while self.num_pending:
+            if max_steps is not None and self.step_count >= max_steps:
+                break
+            self.step()
+        return self.stats(time.perf_counter() - t0)
+
+    def _tier_stats(self) -> Dict[str, Dict]:
+        """Per-priority-tier SLO columns."""
+        tiers: Dict[str, Dict] = {}
+        present = {r.priority for r in self.finished} | {r.priority for r in self.cancelled}
+        for tier in sorted(present, key=priority_rank):
+            fin = [r for r in self.finished if r.priority == tier]
+            gaps = np.concatenate([r.itl_gaps_s() for r in fin]) if fin else np.asarray([])
+            tiers[tier] = {
+                "finished": len(fin),
+                "cancelled": sum(1 for r in self.cancelled if r.priority == tier),
+                "shed": sum(1 for r in self.cancelled if r.priority == tier and r.shed),
+                "preemptions": sum(r.preemptions for r in fin),
+                "ttft_s": _percentiles(r.ttft_s for r in fin if r.first_token_time > 0),
+                "itl_s": _percentiles(gaps),
+            }
+        return tiers
+
+    def stats(self, wall_s: Optional[float] = None) -> Dict:
+        """Aggregate serving metrics: throughput/occupancy, TTFT/ITL
+        percentiles, per-request traces, the ``kv_read`` counter (KV bytes
+        the executed decode / chunk steps gathered, with the bgpp two-phase
+        breakdown) and, paged, the pool accounting."""
+        occ = [o for o in self.occupancy if o > 0] or self.occupancy
+        gaps = (np.concatenate([r.itl_gaps_s() for r in self.finished])
+                if self.finished else np.asarray([]))
+        out = {
+            "device": str(self.device),
+            "admission": self.admission,
+            "kv_layout": self.layout.layout,
+            "finished_requests": len(self.finished),
+            "decoded_tokens": self.decoded_tokens,
+            "steps": self.step_count,
+            "mean_occupancy": float(np.mean(occ)) if occ else 0.0,
+            "max_prefill_tokens_per_step": max(self.prefill_tokens_per_step, default=0),
+            "ttft_s": _percentiles(r.ttft_s for r in self.finished if r.first_token_time > 0),
+            "itl_s": _percentiles(gaps),
+            "requests": [r.trace_record() for r in self.finished],
+            "cancelled_requests": len(self.cancelled),
+            "shed_requests": sum(1 for r in self.cancelled if r.shed),
+            "preemptions": self.preemptions,
+            "tiers": self._tier_stats(),
+            "cancelled": [r.cancel_record() for r in self.cancelled],
+        }
+        dr = self._decode_read
+        out["kv_read"] = {
+            "decode_bytes": round(self.kv_bytes_read["decode"]),
+            "prefill_bytes": round(self.kv_bytes_read["prefill"]),
+            "decode_steps": self.decode_steps,
+            "decode_bytes_per_step": round(dr["total"]),
+            "decode_bf16_equiv_bytes_per_step": round(dr["bf16_equiv"]),
+            "decode_bytes_reduction_vs_bf16":
+                round(dr["bf16_equiv"] / dr["total"], 3) if dr["total"] else None,
+        }
+        if "bgpp" in dr:
+            out["kv_read"]["bgpp"] = {n: round(v) if isinstance(v, float) else v
+                                      for n, v in dr["bgpp"].items()}
+        if self.pager is not None:
+            pb = self._page_bytes
+            out["paged"] = {
+                "page_size": self.layout.page_size,
+                "num_pages": self.layout.num_pages,
+                "pages_allocated_total": self.pager.alloc_count,
+                "pages_in_use": self.pager.pages_in_use,
+                "prefix_hits": self.prefix_hits,
+                "prefix_hit_tokens": self.prefix_hit_tokens,
+                "prefix_hit_rate": round(
+                    self.prefix_hit_tokens / max(1, self.prompt_tokens_admitted), 4),
+                "resident_kv_bytes_peak": self.pager.peak_pages * pb,
+                "slot_resident_kv_bytes": self.layout.batch * self.layout.pages_per_slot * pb,
+            }
+        if wall_s is not None:
+            out["wall_s"] = round(wall_s, 3)
+            out["tokens_per_s"] = round(self.decoded_tokens / wall_s, 2) if wall_s > 0 else None
+        return out

@@ -1,0 +1,244 @@
+"""The port's kernel plain versions against the JAX package's oracles.
+
+``repro_torch.kernels.*.ref`` (what the wrappers run on CPU tensors, and
+what ``chip_smoke.py`` holds the CUDA kernels against on the card) must
+compute what ``repro.kernels.*.ref`` computes.  The same numpy-seeded
+operands go to both; page tables and phys maps are shuffled (so the
+logical -> physical translation is exercised), carry ``-1`` pages, and
+positions sit at page boundaries.
+
+Tolerances:
+  * K2 survivor indices: bit-exact (plane scores are integers < 2**24, so
+    the selection is exact once the quantised query matches).
+  * f32 outputs: 1e-5 relative to the output's scale, from summation order
+    (torch and XLA reduce in different orders).
+  * int8 paths: each (b, h, g) row within that, plus one probability code
+    step.  A code can flip by 1 where ``w / w_scale`` lands within an ulp
+    of a .5 boundary; one flip moves the row by at most ``w_scale * 127 =
+    max_j p_j * v_scale_j``, with ``p`` the reference's probabilities over
+    the row's valid lanes (computed here in float64 from the operands).
+    An extra or a missing lane moves a row by about ``p * |v|``, several
+    times that bound at these sizes.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.kernels.bgpp_paged_attend.ref import bgpp_paged_attend_ref as jax_bgpp_ref
+from repro.kernels.paged_flash_decode.ref import paged_flash_decode_ref as jax_pfd_ref
+from repro.serving import kv_cache as jkvc
+
+from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.kernels.bgpp_paged_attend import bgpp_paged_attend
+from repro_torch.kernels.bgpp_paged_attend.ref import bgpp_paged_attend_ref
+from repro_torch.kernels.paged_flash_decode import paged_flash_decode
+from repro_torch.serving import kv_cache as tkvc
+
+jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)
+
+D = 16
+PAGE = 8
+
+
+def _plan(S, rounds=4, keep=0.25):
+    k_max = max(1, min(S, math.ceil(keep * S)))
+    return rounds, k_max, (S,) + tuple(max(k_max, S >> r) for r in range(1, rounds))
+
+
+def _table(rng, B, pp, n_pages, unmapped=2):
+    """Shuffled page table with a few -1 (unmapped) entries."""
+    ids = rng.permutation(n_pages)[:B * pp].reshape(B, pp).astype(np.int32)
+    for b in range(B):
+        ids[b, rng.integers(0, pp, unmapped)] = -1
+    return ids
+
+
+def _pos(rng, B, S):
+    """Page-boundary positions plus a random one."""
+    cand = [0, PAGE - 1, PAGE, S - 1, int(rng.integers(0, S))]
+    return np.asarray([cand[b % len(cand)] for b in range(B)], np.int32)
+
+
+def _j(x):
+    return jnp.asarray(x)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _code_step(q, k, ks, vs, valid):
+    """Per (b, h, g) row, ``max_j p_j * v_scale_j`` of the int8 attend
+    (A2 logits, softmax over ``valid``): the most one flipped probability
+    code moves the row.  q ``(B, Hk, g, D)``; k int8 ``(B, Hk, S, D)``;
+    ks / vs ``(B, Hk, S)``; valid ``(B, Hk, S)`` bool."""
+    q = q.astype(np.float64)
+    q_scale = np.maximum(np.abs(q).max(-1, keepdims=True), 1e-8) / 127.0
+    q_q = np.clip(np.round(q / q_scale), -127, 127)
+    logits = (np.einsum("bhgd,bhsd->bhgs", q_q, k.astype(np.float64)) * q_scale
+              * ks[:, :, None].astype(np.float64) * q.shape[-1] ** -0.5)
+    logits = np.where(valid[:, :, None], logits, -np.inf)
+    p = np.exp(logits - logits.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    return (p * vs[:, :, None]).max(-1)
+
+
+def _assert_close_int8(got, want, step):
+    """f32 agreement, allowing one prob-code ``step`` per (b, h, g) row."""
+    err = np.abs(got - want).max(-1)
+    tol = 1e-5 * max(1.0, float(np.abs(want).max())) + step
+    assert np.all(err <= tol), float((err - tol).max())
+
+
+class TestPagedFlashDecodeRef:
+    @pytest.mark.parametrize("fmt", ["f32", "int8"])
+    @pytest.mark.parametrize("g", [1, 3])
+    def test_matches_jax_ref_on_shuffled_pages(self, fmt, g):
+        rng = np.random.default_rng(7 + g)
+        B, Hk, pp, n_pages = 5, 2, 4, 24
+        S = pp * PAGE
+        n_tok = n_pages * PAGE
+        q = rng.normal(size=(B, Hk, g, D)).astype(np.float32)
+        kf = rng.normal(size=(n_tok, Hk, D)).astype(np.float32)
+        vf = rng.normal(size=(n_tok, Hk, D)).astype(np.float32)
+        table, pos = _table(rng, B, pp, n_pages), _pos(rng, B, S)
+        kw_j, kw_t = {}, {}
+        if fmt == "int8":
+            kq, ks = (np.asarray(a) for a in jkvc.quantize_kv(_j(kf)))
+            vq, vs = (np.asarray(a) for a in jkvc.quantize_kv(_j(vf)))
+            kf, vf = kq, vq
+            kw_j = dict(k_scale=_j(ks), v_scale=_j(vs))
+            kw_t = dict(k_scale=_t(ks), v_scale=_t(vs))
+        want = np.asarray(jax_pfd_ref(_j(q), _j(kf), _j(vf), _j(table), _j(pos),
+                                      page_size=PAGE, **kw_j))
+        reset_launches()
+        got = paged_flash_decode(_t(q), _t(kf), _t(vf), _t(table), _t(pos),
+                                 page_size=PAGE, **kw_t).numpy()
+        assert LAUNCHES["paged_flash_decode_bf16"] == 0  # CPU: plain version
+        assert got.shape == (B, Hk, g, D) and got.dtype == np.float32
+        if fmt == "int8":
+            s = np.arange(S)
+            pid = table[:, s // PAGE]
+            phys = np.where(pid >= 0, pid * PAGE + s % PAGE, 0)  # (B, S)
+            hm = lambda a: np.moveaxis(a[phys], 2, 1)  # heads-major (B, Hk, S, ...)
+            valid = np.broadcast_to((s[None] <= pos[:, None])[:, None], (B, Hk, S))
+            _assert_close_int8(got, want, _code_step(q, hm(kq), hm(ks), hm(vs), valid))
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+    def test_unmapped_pages_never_contribute(self):
+        """Garbage behind -1 pages is masked by position: poisoning it
+        changes nothing."""
+        rng = np.random.default_rng(3)
+        B, Hk, g, pp = 2, 2, 3, 4
+        q = _t(rng.normal(size=(B, Hk, g, D)).astype(np.float32))
+        k = _t(rng.normal(size=(8 * PAGE, Hk, D)).astype(np.float32))
+        v = _t(rng.normal(size=(8 * PAGE, Hk, D)).astype(np.float32))
+        table = _t(np.asarray([[3, 5, -1, -1], [1, -1, -1, -1]], np.int32))
+        pos = _t(np.asarray([2 * PAGE - 1, PAGE - 1], np.int32))
+        base = paged_flash_decode(q, k, v, table, pos, page_size=PAGE)
+        k2, v2 = k.clone(), v.clone()
+        k2[:PAGE] = 1e4  # page 0: where -1 pages clamp
+        v2[:PAGE] = -1e4
+        again = paged_flash_decode(q, k2, v2, table, pos, page_size=PAGE)
+        torch.testing.assert_close(base, again, rtol=0, atol=0)
+
+    def test_rejects_bad_operands(self):
+        q = torch.zeros(2, 2, 3, D)
+        k = torch.zeros(4 * PAGE, 2, D)
+        t = torch.zeros(2, 4, dtype=torch.int32)
+        p = torch.zeros(2, dtype=torch.int32)
+        with pytest.raises(ValueError, match="grouped"):
+            paged_flash_decode(q[:, :, 0], k, k, t, p, page_size=PAGE)
+        with pytest.raises(ValueError, match="whole"):
+            paged_flash_decode(q, k[:-1], k[:-1], t, p, page_size=PAGE)
+        with pytest.raises(ValueError, match="BOTH"):
+            paged_flash_decode(q, k, k, t, p, page_size=PAGE,
+                               k_scale=torch.zeros(4 * PAGE, 2))
+
+
+class TestBgppPagedAttendRef:
+    @pytest.mark.parametrize("g", [1, 3])
+    @pytest.mark.parametrize("s_ctx", [5, 16, 40])
+    def test_matches_jax_ref_on_shuffled_phys(self, g, s_ctx):
+        rng = np.random.default_rng(100 * g + s_ctx)
+        B, Hk, S = 3, 2, 48
+        n_tok = 2 * B * S
+        q = rng.normal(size=(B, Hk, g, D)).astype(np.float32)
+        kf = _j(rng.normal(size=(n_tok, Hk, D)).astype(np.float32))
+        kq, ks = jkvc.quantize_kv(kf)
+        planes, sign = jkvc.k_to_bitplanes(kq)
+        vq, vs = jkvc.quantize_kv(_j(rng.normal(size=(n_tok, Hk, D)).astype(np.float32)))
+        ops = [np.asarray(a) for a in (planes, sign, ks, vq, vs)]
+        phys = rng.permutation(n_tok)[:B * S].reshape(B, S).astype(np.int32)
+        pos = np.asarray([s_ctx - 1, min(S - 1, 2 * s_ctx), 0], np.int32)
+        rounds, k_max, surv = _plan(S)
+        want = np.asarray(jax_bgpp_ref(_j(q), *map(_j, ops), _j(phys), _j(pos),
+                                       rounds=rounds, k_max=k_max, survivors=surv))
+        got, idx = bgpp_paged_attend(_t(q), *map(_t, ops), _t(phys), _t(pos),
+                                     rounds=rounds, k_max=k_max, survivors=surv,
+                                     return_indices=True)
+        assert idx.shape == (B, Hk, k_max) and idx.dtype == torch.int32
+        # selection: the survivors are exactly the engine's top-k lanes
+        want_idx = _jax_topk_indices(q, ops, phys, pos, rounds, k_max, surv)
+        np.testing.assert_array_equal(idx.numpy(), want_idx)
+        # the exact int8 attend over those survivors
+        rows = np.take_along_axis(phys, want_idx.reshape(B, -1), 1).reshape(want_idx.shape)
+        at = lambda a: np.asarray(a)[rows, np.arange(Hk)[None, :, None]]
+        valid = want_idx <= pos[:, None, None]
+        _assert_close_int8(got.numpy(), want,
+                           _code_step(q, at(kq), at(ks), at(vs), valid))
+
+    def test_plain_version_matches_ops_wrapper(self):
+        rng = np.random.default_rng(5)
+        B, Hk, g, S = 2, 2, 3, 32
+        n_tok = B * S
+        q = torch.from_numpy(rng.normal(size=(B, Hk, g, D)).astype(np.float32))
+        kq, ks = tkvc.quantize_kv(torch.randn(n_tok, Hk, D, generator=torch.Generator().manual_seed(1)))
+        planes, sign = tkvc.k_to_bitplanes(kq)
+        vq, vs = tkvc.quantize_kv(torch.randn(n_tok, Hk, D, generator=torch.Generator().manual_seed(2)))
+        phys = torch.arange(n_tok, dtype=torch.int32).reshape(B, S)
+        pos = torch.tensor([S - 1, 9], dtype=torch.int32)
+        plan = dict(rounds=3, k_max=8, survivors=(S, 16, 8))
+        a = bgpp_paged_attend(q, planes, sign, ks, vq, vs, phys, pos, **plan)
+        b = bgpp_paged_attend_ref(q, planes, sign, ks, vq, vs, phys, pos, **plan)
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+    def test_rejects_bad_plan(self):
+        B, Hk, g, S, n_tok = 1, 2, 3, 16, 16
+        ops = (torch.zeros(B, Hk, g, D), torch.zeros(7, n_tok, Hk, D // 8, dtype=torch.uint8),
+               torch.zeros(n_tok, Hk, D // 8, dtype=torch.uint8), torch.zeros(n_tok, Hk),
+               torch.zeros(n_tok, Hk, D, dtype=torch.int8), torch.zeros(n_tok, Hk),
+               torch.zeros(B, S, dtype=torch.int32), torch.zeros(B, dtype=torch.int32))
+        with pytest.raises(ValueError, match="survivors"):
+            bgpp_paged_attend(*ops, rounds=2, k_max=4, survivors=(8, 4))
+        with pytest.raises(ValueError, match="k_max"):
+            bgpp_paged_attend(*ops, rounds=2, k_max=9, survivors=(16, 8))
+
+
+def _jax_topk_indices(q, ops, phys, pos, rounds, k_max, surv):
+    """The JAX oracle's survivor lanes (its ``_topk_indices``), for the
+    bit-exact selection check."""
+    from repro.kernels.bgpp_paged_attend import ref as jref
+
+    planes, sign = (_j(a) for a in ops[:2])
+    phys_j = _j(phys)
+    B, Hk = q.shape[:2]
+    S = phys.shape[1]
+    valid = jnp.arange(S)[None, :] <= _j(pos)[:, None]
+    hm = lambda a: jnp.moveaxis(a[phys_j], 2, 1)
+
+    def plane_at(p, idx):
+        rows = jnp.take_along_axis(phys_j, idx.reshape(B, -1), axis=1).reshape(idx.shape)
+        return jref._rows_per_head(planes[p], rows, False)
+
+    idx, _ = jref._topk_indices(jref._quant_query(_j(q)), hm(planes[jref.NBITS - 1]),
+                                hm(sign), plane_at, valid, rounds, k_max, surv)
+    return np.asarray(idx)
