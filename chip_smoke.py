@@ -9,18 +9,25 @@ Phases, each of which fails the run (nonzero exit) on any error:
    anything else when ``torch.cuda.is_available()`` is false.
 2. Builds the CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``, sm_90a)
    and prints the build seconds.
-3. Kernel phase: runs every kernel of the serving decode path at the main
-   path's shapes (Hk=8, g=3, D=128, S=1024, page 16, shuffled page tables
-   with -1 pages) against its plain PyTorch version on the card, and times
-   kernel, plain version and, where one exists, one library call.
-4. Main path: serves phi4-mini-3.8b at full width and depth (bf16 weights
+3. Kernel phase: runs every kernel of the serving paths at the main
+   paths' shapes against its plain PyTorch version on the card, and times
+   kernel, plain version and, where one exists, library calls: the decode
+   attends (Hk=8, g=3, D=128, S=1024, page 16, shuffled page tables with
+   -1 pages), the fused BSTC decode + GEMV at every full-width projection
+   shape with N = 4 columns, and the BSTC plane decode on the coded planes
+   of a full-width 3072 x 3072 matrix.
+4. Main paths: serves phi4-mini-3.8b at full width and depth (bf16 weights
    from a seeded generator) through the port's ``Scheduler`` in the paged
-   layout for each KV format, and checks that each format's kernel was
-   launched once per layer per decode step; then traces a few steady
-   decode steps with torch.profiler (device busy share, time by kernel).
+   layout, once per KV format with bf16 weights and once with
+   ``weight_format="bstc"`` and BGPP KV; each run checks that its kernels
+   were launched exactly as often as the path needs (every count zeroed
+   just before the Scheduler is built, read just after the run); then
+   traces a few steady decode steps with torch.profiler (device busy
+   share, time by kernel).
 5. Reference check: the same small model and trace served on the card
    (kernels) and on the CPU (plain versions) give the same greedy tokens
-   and logits within tolerance.
+   and logits within tolerance, for every KV format and for the int8 and
+   bstc weight formats.
 
 The second-to-last lines are the kernels' JSON record and the card line;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -39,7 +46,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core peaks
+# dense tensor-core peaks; float32 outside the tensor cores
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
 def card_line() -> str:
@@ -111,9 +119,25 @@ def check_rows(name, got, want, step=None):
     return err.max().item()
 
 
+def kernel_record(name, source, replaces, err, ms, plain_ms, nbytes, ops, kind, lib_ms):
+    """One kernel's JSON record (launches filled in after the main paths),
+    printed as a ``[kernel]`` line.  The bound is the larger of ``nbytes``
+    at the HBM rate and ``ops`` at the ``kind`` peak."""
+    bound_b = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_o = ops / PEAK_OPS[kind] * 1e3
+    rec = dict(name=name, route="cuda", source=source, replaces=replaces, launches=0,
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(bound_b, bound_o),
+               bound_by="bytes" if bound_b >= bound_o else "operations", library_ms=lib_ms)
+    print(f"[kernel] {name}: max_abs_err={err:.3e} kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+          f"library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    return rec
+
+
 def kernel_phase(device, flush):
-    """Hold every kernel against its plain version at the main path's
-    shapes; return the kernels' JSON records (launches filled in later)."""
+    """Hold the decode attend kernels against their plain versions at the
+    main path's shapes; return their JSON records (launches filled in
+    later)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -143,21 +167,7 @@ def kernel_phase(device, flush):
     kf = torch.randn((n_tok, Hk, D), generator=dg, device=device)
     vf = torch.randn((n_tok, Hk, D), generator=dg, device=device)
     records = []
-
-    def record(name, source, replaces, err, ms, plain_ms, nbytes, ops, kind, lib_ms):
-        bound_b = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_o = ops / PEAK_OPS[kind] * 1e3
-        records.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces, launches=0,
-            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=max(bound_b, bound_o),
-            bound_by="bytes" if bound_b >= bound_o else "operations",
-            library_ms=lib_ms,
-        ))
-        print(f"[kernel] {name}: max_abs_err={err:.3e} kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {records[-1]['bound_ms']:.4f} ms "
-              f"({records[-1]['bound_by']}), library "
-              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    record = lambda *a: records.append(kernel_record(*a))
 
     io_bytes = q.numel() * 4 * 2 + table.numel() * 4 + B * 4  # q, out, table, pos
     # ---- K1 bf16 ------------------------------------------------------------
@@ -238,6 +248,159 @@ def kernel_phase(device, flush):
     return records
 
 
+def projection_shapes(cfg):
+    """``(name, in, out, launches a decode step)`` of every distinct decode
+    projection shape of ``cfg`` (7 projections a layer plus the tied head)."""
+    d, L = cfg.d_model, cfg.num_layers
+    return [("wq/wo", d, cfg.q_dim, 2 * L), ("wk/wv", d, cfg.kv_dim, 2 * L),
+            ("gate/up", d, cfg.d_ff, 2 * L), ("down", cfg.d_ff, d, L),
+            ("lm_head", d, cfg.vocab_size, 1)]
+
+
+def bstc_record(w, cfg):
+    """The serve path's BSTC record of one bf16 ``(in, out)`` matrix:
+    int8-quantized per output channel, coded with 512-column tiles."""
+    from repro_torch.serving import weights
+
+    rec = weights.quantize(w)
+    return rec, weights.bstc_record_from_int8(rec["q"], rec["scale"], cfg)
+
+
+def bstc_kernel_phase(device, flush):
+    """Hold the fused BSTC decode + GEMV (K3) against its plain version at
+    every full-width decode projection shape (N = 4 columns, f32 x as the
+    f32 decode residual; bf16 x once, as layer 0's q/k/v; x read in place
+    as the transpose of the (N, in) activations, as ``layers.wdot`` passes
+    it, and once as a row-major (in, N) tensor), and the plane
+    decode (K4) on the coded planes of a full-width 3072 x 3072 matrix
+    coded with one tile a row, as the serve path's round-trip check codes
+    it.  K3's tolerance: each output row within 1e-5 of its
+    ``Σ|w·x|·scale`` (the products are exact, the sums run in another
+    order); K4: bit-identical.  Returns the two JSON records; K3's times
+    and bound are the mean per launch over one decode step's mix."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import bitslice
+    from repro_torch.core import bstc
+    from repro_torch.kernels.bstc_decode import EncodedPlaneOperands, bstc_decode_patterns
+    from repro_torch.kernels.bstc_decode.ref import decode_patterns_ref
+    from repro_torch.kernels.bstc_matmul import bstc_matmul
+    from repro_torch.kernels.bstc_matmul.ops import operands_from_encoded
+    from repro_torch.kernels.bstc_matmul.ref import bstc_matmul_plain, reconstruct_dense_ref
+
+    cfg = get_config("phi4-mini-3.8b")
+    gen = torch.Generator(device=device).manual_seed(2)
+    N = 4
+    mix = {"ms": 0.0, "plain": 0.0, "bytes": 0, "ops": 0, "bound": 0.0, "lib": 0.0, "n": 0,
+           "err": 0.0}
+    x_at = lambda d_in, dt: torch.randn((N, d_in), generator=gen, device=device).to(dt).T
+    for name, d_in, d_out, count in projection_shapes(cfg):
+        w = (torch.randn((d_in, d_out), generator=gen, device=device) * d_in ** -0.5
+             ).to(torch.bfloat16)
+        int8, rec = bstc_record(w, cfg)
+        del w
+        ops = rec["bstc"]
+        dense = reconstruct_dense_ref(ops)  # plain decode: int32 (out, in)
+        if not torch.equal(dense, int8["q"].T.to(torch.int32)):
+            raise AssertionError(f"bstc_matmul {name}: the coded planes do not rebuild q")
+        scale = rec["scale"]
+        xs = [x_at(d_in, torch.float32)]
+        if name == "wq/wo":
+            xs += [x_at(d_in, torch.bfloat16), xs[0].contiguous()]
+        for x in xs:
+            got = bstc_matmul(ops, x, apply_scale=True)
+            want = bstc_matmul_plain(ops, x, apply_scale=True)
+            torch.cuda.synchronize()
+            row = (dense.abs().float() @ x.float().abs()) * scale[:, None]
+            err = (got - want).abs()
+            if bool((err > 1e-5 * row).any()):
+                at = (err > 1e-5 * row).nonzero()[0].tolist()
+                raise AssertionError(f"bstc_matmul {name} ({x.dtype}, strides {x.stride()}) "
+                                     f"disagrees at {at}: "
+                                     f"{err[tuple(at)].item():.3e} > 1e-5 x "
+                                     f"{row[tuple(at)].item():.3e}")
+            mix["err"] = max(mix["err"], err.max().item())
+        x = x_at(d_in, torch.float32)
+        wf = (dense.float() * scale[:, None])  # the pre-reconstructed dense weight
+        wb, xb = wf.to(torch.bfloat16), x.to(torch.bfloat16)
+        del dense
+        ms = time_ms(lambda: bstc_matmul(ops, x, apply_scale=True), flush=flush)
+        xr = x.contiguous()  # the same x as a row-major (in, N) tensor
+        rows_ms = time_ms(lambda: bstc_matmul(ops, xr, apply_scale=True), flush=flush)
+        plain_ms = time_ms(lambda: bstc_matmul_plain(ops, x, apply_scale=True), iters=5,
+                           flush=flush)
+        f32_ms = time_ms(lambda: torch.matmul(wf, x), flush=flush)
+        bf16_ms = time_ms(lambda: torch.matmul(wb, xb), flush=flush)
+        del wf, wb
+        # bytes this call needs: sign, raw planes, bitmaps, tile offsets and
+        # the valid patterns (a byte each, as stored), scale, x and out
+        patt_bytes = sum((ops.enc[3 * i + 2] != 0).sum().item()
+                         for i in range(len(ops.enc_planes)))
+        nbytes = (ops.sign_bits.numel() + sum(r.numel() for r in ops.raw)
+                  + sum(ops.enc[3 * i].numel() + ops.enc[3 * i + 1].numel() * 4
+                        for i in range(len(ops.enc_planes)))
+                  + patt_bytes + 4 * d_out + 4 * d_in * N + 4 * d_out * N)
+        ops_n = 2 * d_out * d_in * N
+        bound = max(nbytes / HBM_BYTES_PER_S, ops_n / PEAK_OPS["f32"]) * 1e3
+        print(f"[kernel] bstc_matmul {name} ({d_out} x {d_in}, N={N}, coded planes "
+              f"{list(ops.enc_planes)}): kernel {ms:.4f} ms (x row-major {rows_ms:.4f} ms), "
+              f"plain {plain_ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({nbytes} B needed; operands occupy "
+              f"{ops.stored_bytes} B; plan prices {ops.hbm_bytes + 4 * d_out} B at "
+              f"{ops.m} bits a pattern), torch.matmul dense f32 {f32_ms:.4f} ms, bf16 "
+              f"{bf16_ms:.4f} ms; {count} launches a decode step")
+        mix["ms"] += count * ms
+        mix["plain"] += count * plain_ms
+        mix["bytes"] += count * nbytes
+        mix["ops"] += count * ops_n
+        mix["bound"] += count * bound
+        mix["lib"] += count * bf16_ms
+        mix["n"] += count
+    n = mix["n"]
+    print(f"[kernel] bstc_matmul: a decode step's {n} projections take {mix['ms']:.3f} ms "
+          f"(bound {mix['bound']:.3f} ms); the record below is the mean per launch, "
+          f"library = torch.matmul on the dense bf16 weight")
+    k3 = kernel_record(
+        "bstc_matmul", "src/repro_torch/csrc/bstc_matmul.cu",
+        "src/repro/kernels/bstc_matmul/kernel.py:98", mix["err"], mix["ms"] / n,
+        mix["plain"] / n, mix["bytes"] / n, mix["ops"] / n, "f32", mix["lib"] / n)
+
+    # ---- K4: the coded planes of a full-width 3072 x 3072 matrix ---------------
+    d = cfg.d_model
+    w = (torch.randn((d, cfg.q_dim), generator=gen, device=device) * d ** -0.5
+         ).to(torch.bfloat16)
+    int8, _ = bstc_record(w, cfg)
+    q_t = int8["q"].T.contiguous()
+    bw = bstc.encode_weight(q_t, int8["scale"], m=cfg.mcbp.group_size,
+                            threshold=cfg.mcbp.bstc_threshold)
+    ops = operands_from_encoded(bw, tile_k=d)  # as _kernel_roundtrip_check codes it
+    if not ops.enc_planes:
+        raise AssertionError("bstc_decode: the full-width matrix coded no plane")
+    planes = [EncodedPlaneOperands(*ops.enc[3 * i:3 * i + 3], H=d, m=ops.m)
+              for i in range(len(ops.enc_planes))]
+    for p, pl in zip(ops.enc_planes, planes):
+        got = bstc_decode_patterns(pl)
+        want = decode_patterns_ref(bitslice.unpack_bits(pl.bitmap), pl.patterns)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = (got != want).nonzero()[:5].tolist()
+            raise AssertionError(f"bstc_decode plane {p} differs from its plain version at {bad}")
+        print(f"[kernel] bstc_decode plane {p}: bit-identical to the plain version "
+              f"(G {pl.bitmap.shape[0]}, H {d}, cap {pl.patterns.shape[1]})")
+    pl = planes[0]
+    G = pl.bitmap.shape[0]
+    nnz = int((pl.patterns != 0).sum())
+    k4 = kernel_record(
+        "bstc_decode", "src/repro_torch/csrc/bstc_decode.cu",
+        "src/repro/kernels/bstc_decode/kernel.py:48", 0.0,
+        time_ms(lambda: bstc_decode_patterns(pl), flush=flush),
+        time_ms(lambda: decode_patterns_ref(bitslice.unpack_bits(pl.bitmap), pl.patterns),
+                flush=flush),
+        pl.bitmap.numel() + pl.tile_offsets.numel() * 4 + nnz + G * d, G * d, "f32", None)
+    return [k3, k4]
+
+
 # ---------------------------------------------------------------------------
 # main path: full-width phi4-mini-3.8b behind the port's Scheduler
 # ---------------------------------------------------------------------------
@@ -311,9 +474,28 @@ def profile_decode(sched, reqs, steps: int = 4):
               f"calls  {e.key[:80]}")
 
 
+def coded_planes_of_first_matrix(params, cfg) -> int:
+    """Coded planes of the first matrix the serve path codes (layer 0's
+    ``wq``), encoded here on its own: the launches the round-trip check
+    owes the plane decode kernel."""
+    from repro_torch.core import bstc
+    from repro_torch.serving import weights
+
+    rec = weights.quantize(params["layers"]["attn"]["wq"][0])
+    bw = bstc.encode_weight(rec["q"].T.contiguous(), rec["scale"], m=cfg.mcbp.group_size,
+                            threshold=cfg.mcbp.bstc_threshold)
+    return sum(e is not None for e in bw.encoded)
+
+
+# (KV format, weight format) of each main-path run
+SERVE_RUNS = (("bf16", "bf16"), ("int8", "bf16"), ("bgpp", "bf16"), ("bgpp", "bstc"))
+
+
 def serve_phase(device, card):
-    """Serve the full model in the paged layout for every KV format;
-    return the launches each kernel made on its format's run."""
+    """Serve the full model in the paged layout for every run of
+    :data:`SERVE_RUNS`; return the launches of each kernel on its own run
+    (the decode attends on their KV format's bf16-weight run, the BSTC
+    kernels on the bstc run)."""
     import numpy as np
     import torch
 
@@ -324,58 +506,87 @@ def serve_phase(device, card):
     from repro_torch.serving.scheduler import Scheduler
 
     cfg = get_config("phi4-mini-3.8b")
+    L = cfg.num_layers
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
     torch.cuda.synchronize()
     nparam = sum(t.numel() for t in _leaves(params))
-    print(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+    print(f"[serve] {cfg.name}: {L} layers, d_model {cfg.d_model}, "
           f"{nparam / 1e9:.3f} B params ({cfg.dtype}) initialised on the card in "
           f"{time.perf_counter() - t0:.2f} s")
     launches = {}
-    for fmt in ("bf16", "int8", "bgpp"):
+    for fmt, wfmt in SERVE_RUNS:
         layout = kvc.layout_for(cfg, 4, 1024, kv_format=fmt, layout="paged", page_size=16)
-        sched = Scheduler(params, cfg, layout, device=device, chunk_budget=128,
-                          record_logits=True)
-        dec, pre = [], []
-        sched.serve_step = _timed(sched.serve_step, dec)
-        sched.chunked._chunk = _timed(sched.chunked._chunk, pre)
-        reqs = trace(0, 6, cfg.vocab_size, 64, 512, 16)
-        for r in reqs:
-            sched.submit(r)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         K.reset_launches()
+        t0 = time.perf_counter()
+        sched = Scheduler(params, cfg, layout, device=device, chunk_budget=128,
+                          record_logits=True, weight_format=wfmt)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        dec, pre = [], []
+        prefill_k3 = [0]
+        sched.serve_step = _timed(sched.serve_step, dec)
+        chunk = _timed(sched.chunked._chunk, pre)
+
+        def counted_chunk(*a, **kw):
+            before = K.LAUNCHES["bstc_matmul"]
+            out = chunk(*a, **kw)
+            prefill_k3[0] += K.LAUNCHES["bstc_matmul"] - before
+            return out
+
+        sched.chunked._chunk = counted_chunk
+        reqs = trace(0, 6, cfg.vocab_size, 64, 512, 16)
+        for r in reqs:
+            sched.submit(r)
         stats = sched.run()
         torch.cuda.synchronize()
         got = dict(K.LAUNCHES)
-        want = cfg.num_layers * sched.decode_steps
+        steps = sched.decode_steps
+        want = {name: 0 for name in got}
+        want[KERNEL_OF[fmt]] = L * steps
+        if wfmt == "bstc":
+            want["bstc_matmul"] = (7 * L + 1) * steps
+            want["bstc_decode"] = coded_planes_of_first_matrix(params, cfg)
+            if want["bstc_decode"] < 1:
+                raise AssertionError("bstc: the first coded matrix coded no plane")
         for name, n in got.items():
-            expect = want if name == KERNEL_OF[fmt] else 0
-            if n != expect:
-                raise AssertionError(f"{fmt}: {name} launched {n} times, expected {expect}")
-        launches[KERNEL_OF[fmt]] = got[KERNEL_OF[fmt]]
+            if n != want[name]:
+                raise AssertionError(f"{fmt}/{wfmt}: {name} launched {n} times, "
+                                     f"expected {want[name]}")
+        if prefill_k3[0]:
+            raise AssertionError(f"bstc_matmul launched {prefill_k3[0]} times in prefill")
+        for name, n in got.items():
+            if n and (wfmt == "bstc") == name.startswith("bstc_"):
+                launches[name] = n
         if stats["finished_requests"] != len(reqs):
-            raise AssertionError(f"{fmt}: {stats['finished_requests']} of {len(reqs)} finished")
+            raise AssertionError(f"{fmt}/{wfmt}: {stats['finished_requests']} of "
+                                 f"{len(reqs)} finished")
         for r in sched.finished:
             rows = np.stack(r.logit_rows)
             if (len(r.generated) != r.max_new_tokens or rows.shape != (16, cfg.vocab_size)
                     or not np.isfinite(rows).all()):
-                raise AssertionError(f"{fmt}: request {r.rid} output is malformed")
+                raise AssertionError(f"{fmt}/{wfmt}: request {r.rid} output is malformed")
         dec_ms = [a.elapsed_time(b) for a, b in dec]
         pre_ms = [a.elapsed_time(b) for a, b in pre]
-        kv = stats["kv_read"]
-        print(f"[serve] {fmt} paged: {stats['finished_requests']} requests, "
-              f"{stats['decoded_tokens']} tokens, {sched.decode_steps} decode steps, "
+        kv, wr = stats["kv_read"], stats["weight_read"]
+        counts = ", ".join(f"{n} {v}" for n, v in got.items() if v)
+        print(f"[serve] {fmt} paged, {wfmt} weights: {stats['finished_requests']} requests, "
+              f"{stats['decoded_tokens']} tokens, {steps} decode steps, "
               f"{len(pre_ms)} prefill chunks in {stats['wall_s']} s = "
               f"{stats['tokens_per_s']} tok/s; decode {np.mean(dec_ms):.3f} ms/step, "
               f"prefill {np.mean(pre_ms):.3f} ms/chunk; kv_read "
-              f"{kv['decode_bytes_per_step']} B/step; ttft p50 "
-              f"{stats['ttft_s']['p50']} s, itl p50 {stats['itl_s']['p50']} s; peak "
-              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-              f"{KERNEL_OF[fmt]} launches {got[KERNEL_OF[fmt]]} = {cfg.num_layers} "
-              f"layers x {sched.decode_steps} steps [{card}]")
+              f"{kv['decode_bytes_per_step']} B/step, weight_read "
+              f"{wr['decode_bytes_per_step']} B/step (bf16-equivalent "
+              f"{wr['decode_bf16_equiv_bytes_per_step']}, modeled "
+              f"{wr['modeled_bytes_per_step']}); serve-params prepare {prep_s:.2f} s; "
+              f"ttft p50 {stats['ttft_s']['p50']} s, itl p50 {stats['itl_s']['p50']} s; "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"launches: {counts} ({L} layers x {steps} steps) [{card}]")
         profile_decode(sched, trace(1, 4, cfg.vocab_size, 200, 256, 24))
         del sched
+        torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
     return launches
@@ -396,10 +607,12 @@ def _leaves(tree):
 
 def reference_phase(device):
     """Serve the smoke config (f32) on the card and on the CPU from the same
-    parameters and trace, in every layout x format cell.  bf16: the same
-    greedy tokens and logits within 1e-4 (f32 sums in another order).
-    int8/bgpp: teacher-forced with the CPU's tokens, logits within 2e-3 (a
-    probability code may flip by one at a .5 boundary)."""
+    parameters and trace, in every layout x KV-format cell with bf16
+    weights, and with int8 and bstc weights (the card's bstc projections
+    run the fused BSTC kernel, the CPU's its plain version).  bf16 KV: the
+    same greedy tokens and logits within 1e-4 (f32 sums in another order).
+    int8/bgpp KV: teacher-forced with the CPU's tokens, logits within 2e-3
+    (a probability code may flip by one at a .5 boundary)."""
     import numpy as np
     import torch
 
@@ -415,9 +628,9 @@ def reference_phase(device):
                       for k, v in cpu["layers"].items()},
            "final_norm": {"scale": cpu["final_norm"]["scale"].to(device)}}
 
-    def serve(params, dev, layout, forced=None):
+    def serve(params, dev, layout, forced=None, wfmt="bf16"):
         sched = Scheduler(params, cfg, layout, device=dev, chunk_budget=8,
-                          record_logits=True)
+                          record_logits=True, weight_format=wfmt)
         for r in trace(1, 4, cfg.vocab_size, 5, 30, 6):
             if forced is not None:
                 r.forced_tokens = np.asarray(forced[r.rid])
@@ -425,20 +638,22 @@ def reference_phase(device):
         sched.run()
         return {r.rid: r for r in sched.finished}
 
-    for lay in ("slot", "paged"):
-        for fmt in ("bf16", "int8", "bgpp"):
-            layout = kvc.layout_for(cfg, 2, 64, kv_format=fmt, layout=lay, page_size=8)
-            ref = serve(cpu, "cpu", layout)
-            forced = None if fmt == "bf16" else {i: r.generated for i, r in ref.items()}
-            got = serve(gpu, device, layout, forced)
-            same = all(got[i].generated == ref[i].generated for i in ref)
-            err = max(float(np.abs(np.stack(got[i].logit_rows)
-                                   - np.stack(ref[i].logit_rows)).max()) for i in ref)
-            tol = 1e-4 if fmt == "bf16" else 2e-3
-            print(f"[check] {lay} {fmt}: tokens equal {same}, max |logit diff| "
-                  f"{err:.3e} (tolerance {tol})")
-            if not same or not err <= tol:
-                raise AssertionError(f"{lay} {fmt}: card and CPU disagree")
+    cells = [(lay, fmt, "bf16") for lay in ("slot", "paged") for fmt in ("bf16", "int8", "bgpp")]
+    cells += [(lay, fmt, wfmt) for wfmt in ("int8", "bstc")
+              for lay, fmt in (("paged", "bf16"), ("slot", "bgpp"))]
+    for lay, fmt, wfmt in cells:
+        layout = kvc.layout_for(cfg, 2, 64, kv_format=fmt, layout=lay, page_size=8)
+        ref = serve(cpu, "cpu", layout, wfmt=wfmt)
+        forced = None if fmt == "bf16" else {i: r.generated for i, r in ref.items()}
+        got = serve(gpu, device, layout, forced, wfmt=wfmt)
+        same = all(got[i].generated == ref[i].generated for i in ref)
+        err = max(float(np.abs(np.stack(got[i].logit_rows)
+                               - np.stack(ref[i].logit_rows)).max()) for i in ref)
+        tol = 1e-4 if fmt == "bf16" else 2e-3
+        print(f"[check] {lay} {fmt} KV, {wfmt} weights: tokens equal {same}, max |logit "
+              f"diff| {err:.3e} (tolerance {tol})")
+        if not same or not err <= tol:
+            raise AssertionError(f"{lay} {fmt}/{wfmt}: card and CPU disagree")
 
 
 # ---------------------------------------------------------------------------
@@ -467,6 +682,7 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
     l2 = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     records = kernel_phase(device, flush=lambda: l2.zero_())
+    records += bstc_kernel_phase(device, flush=lambda: l2.zero_())
     del l2
 
     launches = serve_phase(device, card)

@@ -1,8 +1,8 @@
 """Model configuration schema + architecture registry (the port's copy).
 
-Counterpart of :mod:`repro.configs.base`, cut to what the serving slice
-serves: dense GQA transformers with bf16 serve weights and the BGPP decode
-knobs.  The port keeps its own copy (it imports nothing of ``repro``).
+Counterpart of :mod:`repro.configs.base`, cut to what the serving slices
+serve: dense GQA transformers, the serve-time weight format (bf16, int8 or
+BSTC-coded int8) and the BGPP decode knobs.  The port keeps its own copy (it imports nothing of ``repro``).
 Each architecture file registers its published config plus a reduced
 ``smoke`` variant used by the CPU tests.
 """
@@ -13,12 +13,41 @@ import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 
+# serve-time weight numerics (repro_torch.serving.weights reads the knob
+# once, when a serve step is built)
+WEIGHT_FORMATS = ("bf16", "int8", "bstc")
+
+
 @dataclasses.dataclass(frozen=True)
 class MCBPOptions:
-    """MCBP knobs the serving slice reads: the BGPP decode plan."""
+    """MCBP knobs the serving slices read: the weight path and the BGPP
+    decode plan."""
 
+    group_size: int = 4  # BRCR/BSTC group m (paper §5.2 DSE: m=4)
+    bstc_threshold: float = 0.65  # a plane is coded iff its bit sparsity clears it
     bgpp_rounds: int = 4  # progressive bit-plane rounds (MSB first)
     bgpp_keep_ratio: float = 0.25  # k_max = ceil(ratio * S) full-precision rows
+    # weight numerics of the decode projections: "bf16" | "int8" | "bstc"
+    weight_format: str = "bf16"
+
+    def __post_init__(self):
+        if self.weight_format not in WEIGHT_FORMATS:
+            raise ValueError(
+                f"weight_format={self.weight_format!r} is not one of "
+                f"{WEIGHT_FORMATS} (config mcbp.weight_format or the "
+                f"Scheduler's weight_format argument)"
+            )
+
+
+def apply_weight_format_override(cfg, fmt: Optional[str] = None):
+    """Return ``cfg`` with its ``weight_format`` knob replaced (``None``
+    keeps the config's value) — the code path behind ``--weight-format``
+    and the Scheduler's ``weight_format`` argument.  Validation happens in
+    :meth:`MCBPOptions.__post_init__`, so a typo raises here."""
+    if fmt is None:
+        return cfg
+    return dataclasses.replace(
+        cfg, mcbp=dataclasses.replace(cfg.mcbp, weight_format=str(fmt)))
 
 
 def apply_bgpp_overrides(cfg, rounds: Optional[int] = None,

@@ -31,3 +31,31 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)
+
+
+def serve_params_from_numpy(tree: Any, cfg, fmt: str, device="cuda") -> Any:
+    """A JAX serve-params tree (``weights.prepare_serve_params`` of the JAX
+    package, as numpy) -> the port's serve tree for ``fmt``.
+
+    The JAX tree carries int8 ``{"q", "scale"}`` records in both the int8
+    and the bstc format (its bstc path serves the same records).  They
+    cross as they are for ``"int8"``; for ``"bstc"`` each is coded into
+    the port's ``{"bstc": operands, "scale"}`` record, as the port's own
+    ``prepare_serve_params`` codes its int8 values."""
+    from repro_torch.serving import weights
+
+    def conv(node):
+        if not isinstance(node, dict):
+            return tensor_from_numpy(node, device)
+        if "q" in node and "scale" in node:
+            q, scale = (tensor_from_numpy(node[k], device) for k in ("q", "scale"))
+            if q.dtype != torch.int8 or scale.dtype != torch.float32:
+                raise ValueError(f"serve_params_from_numpy: a record needs int8 q and "
+                                 f"f32 scale, got {q.dtype} / {scale.dtype}")
+            return {"q": q, "scale": scale} if fmt == "int8" else \
+                weights.bstc_record_from_int8(q, scale, cfg)
+        return {k: conv(v) for k, v in node.items()}
+
+    if fmt not in ("int8", "bstc"):
+        raise ValueError(f"serve_params_from_numpy: fmt must be int8 or bstc, got {fmt!r}")
+    return conv(tree)

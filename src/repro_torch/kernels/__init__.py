@@ -17,6 +17,11 @@ Kernels:
   bgpp_paged_attend — fused two-phase BGPP decode: progressive bit-plane
                     top-k prediction, compacted survivor gather, exact int8
                     attend, in one launch
+  bstc_matmul     — fused BSTC decode + GEMV: ``(w_q @ x) * scale`` straight
+                    from the two-state-coded int8 weight planes (every
+                    decode projection of a ``weight_format="bstc"`` run)
+  bstc_decode     — BSTC plane decode: indicator bitmap + pattern stream ->
+                    (G, H) group patterns (the serve-params round-trip check)
 
 ``LAUNCHES`` counts kernel launches by name.  Each wrapper adds one where
 it launches its CUDA kernel and nowhere else, so a run can show that the
@@ -32,6 +37,8 @@ LAUNCHES: Dict[str, int] = {
     "paged_flash_decode_bf16": 0,
     "paged_flash_decode_int8": 0,
     "bgpp_paged_attend": 0,
+    "bstc_matmul": 0,
+    "bstc_decode": 0,
 }
 
 

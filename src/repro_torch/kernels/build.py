@@ -131,9 +131,20 @@ def _declare(lib: ctypes.CDLL) -> None:
         L, L, L, L,  # v token/head strides, scale token/head strides
         F, P,  # scale, stream
     ]
+    lib.bstc_decode_launch.argtypes = [
+        P, P, P, P,  # bitmap, tile_offsets, patterns, out
+        I, I, I, I, P,  # G, H, tile_k, cap, stream
+    ]
+    lib.bstc_matmul_launch.argtypes = [
+        P, P, P, I, L, L,  # plane table (host int64 array), sign, x, x dtype, x strides
+        P, P, L, L,  # scale, out, out strides
+        I, I, I, I, P,  # M, H, N, tile_k, stream
+    ]
     for fn in (lib.paged_flash_decode_dense_launch,
                lib.paged_flash_decode_int8_launch,
-               lib.bgpp_paged_attend_launch):
+               lib.bgpp_paged_attend_launch,
+               lib.bstc_decode_launch,
+               lib.bstc_matmul_launch):
         fn.restype = ctypes.c_int
 
 

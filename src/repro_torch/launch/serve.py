@@ -6,7 +6,8 @@ paged layout, request scheduler).
         --kv-format int8 --requests 8 --slots 4 --seed 0 \\
         [--device cuda|cpu] [--full] [--chunk-budget 16] \\
         [--kv-layout slot|paged] [--page-size 8] [--shared-prefix 16] \\
-        [--bgpp-rounds 4] [--bgpp-keep-ratio 0.25] [--trace-out trace.json]
+        [--bgpp-rounds 4] [--bgpp-keep-ratio 0.25] \\
+        [--weight-format bf16|int8|bstc] [--trace-out trace.json]
 
 The counterpart of ``repro.launch.serve`` without ``--mesh``, ``--server``
 or ``--spec-decode`` (later slices).  It runs on ``--device cuda`` unless
@@ -14,6 +15,10 @@ told otherwise; ``--full`` serves the published full-width config instead
 of the smoke one.  Weights are random, drawn from a seeded generator on
 the device.  Requests arrive on a Poisson-ish trace; prompts go through
 bucketed prefill chunks interleaved with the batched decode step.
+``--weight-format`` puts the decode projections on the serve-time weight
+path (``repro_torch.serving.weights``): int8 records, or bstc-coded planes
+that the ``bstc_matmul`` kernel reads on the card; the ``weight_read``
+line prints the weight bytes a decode step reads.
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import ARCH_REGISTRY, apply_bgpp_overrides, get_config
+from repro_torch.configs import (ARCH_REGISTRY, WEIGHT_FORMATS, apply_bgpp_overrides,
+                                 apply_weight_format_override, get_config)
 from repro_torch.models.transformer import init_params
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving.request import poisson_trace
@@ -49,6 +55,10 @@ def main(argv=None):
                          "request (exercises paged prefix reuse)")
     ap.add_argument("--bgpp-rounds", type=int, default=None)
     ap.add_argument("--bgpp-keep-ratio", type=float, default=None)
+    ap.add_argument("--weight-format", default=None, choices=sorted(WEIGHT_FORMATS),
+                    help="serve-time weight numerics of the decode projections: "
+                         "bf16 (raw leaves), int8 or bstc (two-state coded planes "
+                         "read by the bstc_matmul kernel) (default: the config's)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=32)
@@ -63,6 +73,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = apply_bgpp_overrides(get_config(args.arch, smoke=not args.full),
                                rounds=args.bgpp_rounds, keep_ratio=args.bgpp_keep_ratio)
+    cfg = apply_weight_format_override(cfg, args.weight_format)
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_params(cfg, gen, device)
     layout = kvc.layout_for(cfg, args.slots, args.max_seq, kv_format=args.kv_format,
@@ -90,6 +101,7 @@ def main(argv=None):
     stats = sched.stats(dt)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU")
     print(f"[serve] arch={cfg.name} kv={args.kv_format} layout={args.kv_layout} "
+          f"weights={sched.weight_format} "
           f"device={where}: {stats['finished_requests']} requests, "
           f"{stats['decoded_tokens']} tokens in {dt:.1f}s "
           f"({stats['tokens_per_s']:.1f} tok/s, mean occupancy "
@@ -110,6 +122,13 @@ def main(argv=None):
               f"step; per-step bytes = sign {bg['sign_bytes']/1e3:.1f} kB + planes "
               f"{bg['plane_bytes']/1e3:.1f} kB + top-k full "
               f"{bg['topk_full_bytes']/1e3:.1f} kB")
+    wr = stats["weight_read"]
+    print(f"[serve] weight read ({wr['weight_format']}): "
+          f"{wr['decode_bytes']/1e6:.2f} MB decode + {wr['prefill_bytes']/1e6:.2f} MB "
+          f"prefill; {wr['decode_bytes_per_step']/1e3:.1f} kB/decode-step "
+          f"(bf16-equivalent {wr['decode_bf16_equiv_bytes_per_step']/1e3:.1f} kB, "
+          f"{wr['decode_bytes_reduction_vs_bf16']}x reduction, measured/modeled "
+          f"{wr['measured_over_modeled']})")
     if "paged" in stats:
         pg = stats["paged"]
         print(f"[serve] paged: prefix hit rate {pg['prefix_hit_rate']:.3f} "

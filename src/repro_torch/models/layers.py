@@ -1,8 +1,9 @@
 """Shared dense-transformer layers on plain tensors.
 
-Counterpart of :mod:`repro.models.layers` for the pieces the serving slice
-runs: RMS norm, split-halves RoPE in float32, the projection contraction
-(raw weight leaves, ``(in, out)`` layout), SwiGLU MLP and the QKV
+Counterpart of :mod:`repro.models.layers` for the pieces the serving
+slices run: RMS norm, split-halves RoPE in float32, the projection
+contraction (raw ``(in, out)`` weight leaves and the serve-time int8 / BSTC
+records of :mod:`repro_torch.serving.weights`), SwiGLU MLP and the QKV
 projection.
 """
 
@@ -12,6 +13,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.bstc_matmul import bstc_matmul
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -53,12 +56,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
-def wdot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` for a raw ``(in, out)`` weight leaf, in the promoted dtype
-    as ``jnp`` promotes it: an f32 activation against a bf16 weight
-    contracts in f32 (torch's ``@`` refuses mixed dtypes, so the weight is
-    upcast for the call).  Quantized serve records are the weight-path
-    slice's."""
+def wdot(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` for a raw ``(in, out)`` weight leaf or a serve-time record.
+
+    * raw leaf: in the promoted dtype as ``jnp`` promotes it (an f32
+      activation against a bf16 weight contracts in f32; torch's ``@``
+      refuses mixed dtypes, so the weight is upcast for the call);
+    * int8 record ``{"q", "scale"}``: as the reference, against the dense
+      reconstruction ``(q * scale)`` cast to ``x.dtype``;
+    * BSTC record ``{"bstc", "scale"}``: the fused decode + GEMV
+      ``bstc_matmul`` on ``x`` viewed as ``(in, N)`` with the scale applied
+      after the sum (the CUDA kernel for CUDA tensors, which reads the view
+      in place and writes ``(N, out)`` rows) -> ``(..., out)`` in
+      ``x.dtype``.  Same product as the reference's ``x @ (q * scale)``,
+      summed in another order; in bf16 the reference also rounds
+      ``q * scale`` to bf16 first, where the kernel multiplies exact
+      integers."""
+    if isinstance(w, dict):
+        if "bstc" in w:
+            lead = x.shape[:-1]
+            y = bstc_matmul(w["bstc"], x.reshape(-1, x.shape[-1]).T, apply_scale=True)
+            return y.T.reshape(lead + (y.shape[0],)).to(x.dtype)  # (out, N) f32 -> (..., out)
+        dq = w["q"].to(torch.float32) * w["scale"][..., None, :].to(torch.float32)
+        return x @ dq.to(x.dtype)
     dt = torch.promote_types(x.dtype, w.dtype)
     return x.to(dt) @ w.to(dt)
 

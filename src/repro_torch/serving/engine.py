@@ -13,6 +13,11 @@ in place (the reference's steps returned a new tree; the port returns the
 same one).  PyTorch runs eagerly: there is no jit, and a ``ChunkedPrefill``
 "compile" is the first run of a bucket width.
 
+A serve step built with ``weight_format`` int8 or bstc takes the records
+of :func:`repro_torch.serving.weights.prepare_serve_params`: bstc decode
+projections run the ``bstc_matmul`` kernel on the coded weight planes.
+Chunked prefill always reads the raw parameter tree.
+
 The engine's own decode attends (``_decode_attend``, ``_bgpp_topk_indices``,
 ``_bgpp_formal_attend``, ``_bgpp_decode_attend``,
 ``_bgpp_paged_decode_attend``) are the reference's layer-level plain
@@ -31,7 +36,7 @@ import torch
 from repro_torch.kernels.bgpp_paged_attend import ref as bgpp_ref
 from repro_torch.kernels.paged_flash_decode.ref import dense_attend, int8_attend
 from repro_torch.models import layers, transformer
-from repro_torch.serving import kernel_decode, kv_cache as kvc
+from repro_torch.serving import kernel_decode, kv_cache as kvc, weights as swt
 
 Tree = Dict[str, Any]
 
@@ -192,7 +197,10 @@ def _ffn_decode_layer(p, cfg, x):
 
 def _logits(params, cfg, x):
     x = layers.apply_norm(x, params["final_norm"], cfg.norm)
-    return layers.wdot(x, params["embed"].T)  # tied embeddings
+    head = params.get("lm_head")
+    if head is None:  # tied: non-bf16 serve params carry an explicit record
+        head = params["embed"].T
+    return layers.wdot(x, head)
 
 
 def make_serve_step(cfg, layout: kvc.CacheLayout):
@@ -210,9 +218,16 @@ def make_serve_step(cfg, layout: kvc.CacheLayout):
     dtype = layers._dtype(cfg.dtype)
     thetas = transformer.layer_thetas(cfg)
     paged = layout.layout == "paged"
+    # weight_format, resolved once per built step: int8/bstc steps take the
+    # records weights.prepare_serve_params builds (the Scheduler feeds them)
+    weight_format = swt.resolve(cfg)
+    if weight_format != "bf16":
+        swt.validate(cfg)
 
     def serve_step(params, cache, tokens):
         """One batched decode token for every slot at its own position."""
+        if weight_format != "bf16":
+            swt.check_serve_params(params, cfg, weight_format)
         pos = cache["pos"]
         phys = (kvc.phys_table(cache["page_table"], layout.page_size, layout.max_seq)
                 if paged and layout.kv_format == "bgpp" else None)

@@ -19,9 +19,14 @@ once, to bring its logits to the host for sampling (as the reference's
 ``np.asarray(logits)``), and a step that finishes a prompt syncs once more
 for the first token's logits.
 
-Later slices: eager (whole-prompt) admission, speculative decoding,
-meshes, and the int8/BSTC serve-weight path — the constructor raises if
-asked for them.
+The serve-time weight format (``weight_format``: bf16, int8 or bstc; the
+config's unless the argument names one) is resolved once: decode steps
+read ``serve_params`` (int8 records, or BSTC-coded operands that the
+``bstc_matmul`` kernel reads on the card), chunked prefill the raw
+``params``; ``stats()["weight_read"]`` prices the bytes as the reference.
+
+Later slices: eager (whole-prompt) admission, speculative decoding and
+meshes — the constructor raises if asked for them.
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ from typing import Callable, Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.serving import engine, kv_cache as kvc
+from repro_torch.configs.base import apply_weight_format_override
+from repro_torch.serving import engine, kv_cache as kvc, weights as swt
 from repro_torch.serving.paging import PageAllocator
 from repro_torch.serving.request import Request, Slot, SlotState, priority_rank
 
@@ -70,7 +76,7 @@ class Scheduler:
         chunk_budget: int = 16,
         buckets=None,
         record_logits: bool = False,
-        weight_format: str = "bf16",
+        weight_format: Optional[str] = None,
         spec_decode: bool = False,
         mesh=None,
     ):
@@ -82,10 +88,6 @@ class Scheduler:
             raise NotImplementedError(
                 "Scheduler: eager admission needs the whole-sequence forward, "
                 "a later slice of the port; use admission='chunked'")
-        if weight_format != "bf16":
-            raise NotImplementedError(
-                f"Scheduler: weight_format={weight_format!r} is the weight-path "
-                f"slice; the port serves bf16 weights")
         if spec_decode:
             raise NotImplementedError("Scheduler: speculative decoding is a later slice")
         if mesh is not None:
@@ -95,6 +97,7 @@ class Scheduler:
             raise ValueError(
                 f"Scheduler: params live on {params['embed'].device}, the "
                 f"scheduler on {self.device}")
+        cfg = apply_weight_format_override(cfg, weight_format)
         self.params = params
         self.cfg = cfg
         self.layout = layout
@@ -103,6 +106,12 @@ class Scheduler:
         self.chunk_budget = int(chunk_budget)
         self.record_logits = record_logits
 
+        # serve-time weights, converted once: decode steps read
+        # ``serve_params``; prefill keeps the raw ``params`` (with bf16,
+        # serve_params IS params)
+        self.weight_format = swt.resolve(cfg)
+        self.serve_params, self.weight_plan = swt.prepare_serve_params(
+            params, cfg, self.weight_format)
         self.cache = kvc.init_cache_arrays(cfg, layout, self.device)
         self.pager: Optional[PageAllocator] = None
         if layout.layout == "paged" and layout.global_layers:
@@ -129,6 +138,11 @@ class Scheduler:
         self._chunk_read = kvc.chunk_read_bytes(layout, cfg)
         self.decode_steps = 0
         self.kv_bytes_read = {"decode": 0.0, "prefill": 0.0}
+        # weight-read accounting, kv_read's mirror: every converted
+        # projection once a decode step at its coded bytes; a prefill chunk
+        # reads the raw-dtype tree once
+        self._weight_read = self.weight_plan.decode_read_bytes()
+        self.weight_bytes_read = {"decode": 0.0, "prefill": 0.0}
         self.prefill_tokens_per_step: List[int] = []
         self.prompt_tokens_admitted = 0
         self.prefix_hits = 0
@@ -288,6 +302,7 @@ class Scheduler:
                 self.params, self.cache, slot.index,
                 req.prompt[slot.prefill_pos:slot.prefill_pos + take], slot.prefill_pos)
             self.kv_bytes_read["prefill"] += self._chunk_read["total"]
+            self.weight_bytes_read["prefill"] += self.weight_plan.bf16_bytes
             slot.prefill_pos += n
             spent += n
         if self.pager is not None:
@@ -410,11 +425,12 @@ class Scheduler:
                 self.pager.ensure_range(slot.index, p, p + 1)
             self._sync_pages()
         logits, self.cache = self.serve_step(
-            self.params, self.cache, torch.as_tensor(self.tokens, device=self.device))
+            self.serve_params, self.cache, torch.as_tensor(self.tokens, device=self.device))
         rows = _host_rows(logits[:, -1])
         self.step_count += 1
         self.decode_steps += 1
         self.kv_bytes_read["decode"] += self._decode_read["total"]
+        self.weight_bytes_read["decode"] += self._weight_read["total"]
         self.decoded_tokens += len(live)
         now = time.perf_counter()
         for slot in live:
@@ -460,7 +476,9 @@ class Scheduler:
         """Aggregate serving metrics: throughput/occupancy, TTFT/ITL
         percentiles, per-request traces, the ``kv_read`` counter (KV bytes
         the executed decode / chunk steps gathered, with the bgpp two-phase
-        breakdown) and, paged, the pool accounting."""
+        breakdown), its mirror ``weight_read`` (projection-weight bytes at
+        the resolved format's coded layout) and, paged, the pool
+        accounting."""
         occ = [o for o in self.occupancy if o > 0] or self.occupancy
         gaps = (np.concatenate([r.itl_gaps_s() for r in self.finished])
                 if self.finished else np.asarray([]))
@@ -495,6 +513,23 @@ class Scheduler:
         if "bgpp" in dr:
             out["kv_read"]["bgpp"] = {n: round(v) if isinstance(v, float) else v
                                       for n, v in dr["bgpp"].items()}
+        wr = self._weight_read
+        out["weight_read"] = {
+            "weight_format": self.weight_format,
+            "decode_bytes": round(self.weight_bytes_read["decode"]),
+            "prefill_bytes": round(self.weight_bytes_read["prefill"]),
+            "decode_steps": self.decode_steps,
+            "decode_bytes_per_step": round(wr["total"]),
+            "decode_bf16_equiv_bytes_per_step": round(wr["bf16_equiv"]),
+            "decode_bytes_reduction_vs_bf16":
+                round(wr["bf16_equiv"] / wr["total"], 3) if wr["total"] else None,
+            # closed-form reconciliation (roofline.bstc_weight_traffic on the
+            # measured per-plane column sparsities)
+            "modeled_bytes_per_step": round(wr["modeled"]),
+            "measured_over_modeled":
+                round(wr["total"] / wr["modeled"], 4) if wr["modeled"] else None,
+            "per_projection": {n: round(v) for n, v in wr["per_projection"].items()},
+        }
         if self.pager is not None:
             pb = self._page_bytes
             out["paged"] = {

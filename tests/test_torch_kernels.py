@@ -37,7 +37,10 @@ from repro.serving import kv_cache as jkvc
 from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels.bgpp_paged_attend import bgpp_paged_attend
 from repro_torch.kernels.bgpp_paged_attend.ref import bgpp_paged_attend_ref
+from repro_torch.kernels.bstc_decode import bstc_decode_patterns, prepare_encoded_plane
+from repro_torch.kernels.bstc_matmul import bstc_matmul, prepare_bstc_matmul_operands
 from repro_torch.kernels.paged_flash_decode import paged_flash_decode
+from repro_torch.core import bstc as tbstc
 from repro_torch.serving import kv_cache as tkvc
 
 jax.config.update("jax_platform_name", "cpu")
@@ -221,6 +224,25 @@ class TestBgppPagedAttendRef:
             bgpp_paged_attend(*ops, rounds=2, k_max=4, survivors=(8, 4))
         with pytest.raises(ValueError, match="k_max"):
             bgpp_paged_attend(*ops, rounds=2, k_max=9, survivors=(16, 8))
+
+
+class TestBstcCpuRouting:
+    def test_cpu_tensors_never_count_a_launch(self):
+        """The BSTC wrappers take their plain versions on CPU tensors: no
+        counter moves (the counters are the on-card proof of the path)."""
+        assert set(LAUNCHES) == {"paged_flash_decode_bf16", "paged_flash_decode_int8",
+                                 "bgpp_paged_attend", "bstc_matmul", "bstc_decode"}
+        rng = np.random.default_rng(11)
+        w = (rng.integers(-127, 128, (32, 64)) * (rng.random((32, 64)) < 0.1)).astype(np.int8)
+        ops = prepare_bstc_matmul_operands(_t(w), _t(np.ones(32, np.float32)), tile_k=32)
+        assert ops.enc_planes  # sparse: planes are coded
+        reset_launches()
+        y = bstc_matmul(ops, torch.ones(64, 4), apply_scale=True)
+        plane = prepare_encoded_plane(tbstc.encode_plane(_t((w != 0).astype(np.uint8)), 4),
+                                      tile_k=32)
+        patt = bstc_decode_patterns(plane)
+        assert tuple(y.shape) == (32, 4) and tuple(patt.shape) == (8, 64)
+        assert all(n == 0 for n in LAUNCHES.values()), dict(LAUNCHES)
 
 
 def _jax_topk_indices(q, ops, phys, pos, rounds, k_max, surv):
