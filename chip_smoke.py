@@ -14,20 +14,26 @@ Phases, each of which fails the run (nonzero exit) on any error:
    kernel, plain version and, where one exists, library calls: the decode
    attends (Hk=8, g=3, D=128, S=1024, page 16, shuffled page tables with
    -1 pages), the fused BSTC decode + GEMV at every full-width projection
-   shape with N = 4 columns, and the BSTC plane decode on the coded planes
-   of a full-width 3072 x 3072 matrix.
+   shape with N = 4 columns, the BSTC plane decode on the coded planes
+   of a full-width 3072 x 3072 matrix, and the forward's flash attention
+   (Hq 24, Hk 8, D 128, bf16: causal at B 1 / S 512, B 1 / S 301 and
+   B 4 / S 512; sliding and chunked with window 256; full; q_offset 256;
+   f32 once).
 4. Main paths: serves phi4-mini-3.8b at full width and depth (bf16 weights
    from a seeded generator) through the port's ``Scheduler`` in the paged
-   layout, once per KV format with bf16 weights and once with
-   ``weight_format="bstc"`` and BGPP KV; each run checks that its kernels
-   were launched exactly as often as the path needs (every count zeroed
-   just before the Scheduler is built, read just after the run); then
-   traces a few steady decode steps with torch.profiler (device busy
-   share, time by kernel).
+   layout, once per KV format with bf16 weights, once with
+   ``weight_format="bstc"`` and BGPP KV (all with chunked admission), and
+   once with ``admission="eager"`` and bf16 KV (one whole-prompt forward a
+   request, flash attention in every layer); each run checks that its
+   kernels were launched exactly as often as the path needs (every count
+   zeroed just before the Scheduler is built, read just after the run).
+   After all of them, each chunked run's configuration traces a few
+   steady decode steps, and the eager one a whole-prompt admission, with
+   torch.profiler (device busy share, time by kernel).
 5. Reference check: the same small model and trace served on the card
    (kernels) and on the CPU (plain versions) give the same greedy tokens
-   and logits within tolerance, for every KV format and for the int8 and
-   bstc weight formats.
+   and logits within tolerance, for every KV format, for the int8 and
+   bstc weight formats, and with eager admission.
 
 The second-to-last lines are the kernels' JSON record and the card line;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -119,16 +125,18 @@ def check_rows(name, got, want, step=None):
     return err.max().item()
 
 
-def kernel_record(name, source, replaces, err, ms, plain_ms, nbytes, ops, kind, lib_ms):
+def kernel_record(name, source, replaces, err, ms, plain_ms, nbytes, ops, kind, lib_ms,
+                  label=""):
     """One kernel's JSON record (launches filled in after the main paths),
-    printed as a ``[kernel]`` line.  The bound is the larger of ``nbytes``
-    at the HBM rate and ``ops`` at the ``kind`` peak."""
+    printed as a ``[kernel]`` line (``label`` names the case there).  The
+    bound is the larger of ``nbytes`` at the HBM rate and ``ops`` at the
+    ``kind`` peak."""
     bound_b = nbytes / HBM_BYTES_PER_S * 1e3
     bound_o = ops / PEAK_OPS[kind] * 1e3
     rec = dict(name=name, route="cuda", source=source, replaces=replaces, launches=0,
                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(bound_b, bound_o),
                bound_by="bytes" if bound_b >= bound_o else "operations", library_ms=lib_ms)
-    print(f"[kernel] {name}: max_abs_err={err:.3e} kernel {ms:.4f} ms, plain "
+    print(f"[kernel] {name}{label}: max_abs_err={err:.3e} kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
           f"library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
     return rec
@@ -401,6 +409,82 @@ def bstc_kernel_phase(device, flush):
     return [k3, k4]
 
 
+# (label, B, Sq, Sk, mask_kind, window, q_offset, dtype) of each K5 case; the
+# first is the JSON record's: one eager admission's forward at the trace's
+# prompt cap (512 tokens)
+FLASH_CASES = (
+    ("causal B1 S512", 1, 512, 512, "causal", 0, 0, "bf16"),
+    ("causal B1 S301", 1, 301, 301, "causal", 0, 0, "bf16"),
+    ("causal B4 S512", 4, 512, 512, "causal", 0, 0, "bf16"),
+    ("sliding w256 B1 S512", 1, 512, 512, "sliding", 256, 0, "bf16"),
+    ("chunked w256 B1 S512", 1, 512, 512, "chunked", 256, 0, "bf16"),
+    ("full B1 S512", 1, 512, 512, "full", 0, 0, "bf16"),
+    ("causal q_offset 256 B1 Sq256 Sk512", 1, 256, 512, "causal", 0, 256, "bf16"),
+    ("causal f32 B1 S301", 1, 301, 301, "causal", 0, 0, "f32"),
+)
+
+
+def flash_kernel_phase(device, flush):
+    """Hold the flash-attention kernel (K5) against its plain version at
+    the full-width forward's shapes (Hq 24, Hk 8, D 128) for every case of
+    :data:`FLASH_CASES`.  Tolerance per element: ``1e-5 * max|v|`` (f32
+    sums in another order) plus, for bf16 operands, one bf16 step at
+    ``|ref|`` (two f32 results that close can round to neighbouring bf16
+    values).  Bound: q, k, v read and out written once at the HBM rate,
+    against 4 * D operations per visible (query, key) pair of this case's
+    mask at the bf16 tensor-core peak (f32 peak for f32 operands).  The
+    library call is ``scaled_dot_product_attention`` on the transposed
+    views (``is_causal`` where it applies, else the boolean mask).
+    Returns the first case's JSON record."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.attention import make_mask
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    cfg = get_config("phi4-mini-3.8b")
+    Hq, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=device).manual_seed(3)
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    records = []
+    for label, B, Sq, Sk, kind, window, off, dt in FLASH_CASES:
+        mk = lambda S, H: torch.randn((B, S, H, D), generator=gen, device=device).to(dtypes[dt])
+        q, k, v = mk(Sq, Hq), mk(Sk, Hk), mk(Sk, Hk)
+        kw = dict(mask_kind=kind, window=window, q_offset=off)
+        got = flash_attention(q, k, v, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        w = want.float()
+        tol = 1e-5 * v.float().abs().max()
+        if dt == "bf16":  # one bf16 step at |ref|: 2^(e - 8) for |ref| = m * 2^e, m in [.5, 1)
+            tol = tol + torch.ldexp(torch.ones_like(w), torch.frexp(w.abs())[1] - 8)
+        err = (got.float() - w).abs()
+        if bool((err > tol).any()):
+            at = (err > tol).nonzero()[0].tolist()
+            raise AssertionError(f"flash_attention {label} disagrees at {at}: "
+                                 f"{err[tuple(at)].item():.3e} > {tol[tuple(at)].item():.3e}")
+        mask = make_mask(kind, Sq, Sk, window, off, device)
+        pairs = int(mask.sum()) * B * Hq
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if kind == "causal" and off == 0:
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                         enable_gqa=True)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                         enable_gqa=True)
+        esize = q.element_size()
+        records.append(kernel_record(
+            "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:114", err.max().item(),
+            time_ms(lambda: flash_attention(q, k, v, **kw), flush=flush),
+            time_ms(lambda: flash_attention_ref(q, k, v, **kw), flush=flush),
+            esize * (2 * q.numel() + k.numel() + v.numel()), 4 * D * pairs, dt,
+            time_ms(lib, flush=flush), label=f" {label}"))
+    return records[0]
+
+
 # ---------------------------------------------------------------------------
 # main path: full-width phi4-mini-3.8b behind the port's Scheduler
 # ---------------------------------------------------------------------------
@@ -439,14 +523,10 @@ def _timed(fn, spans):
     return wrapped
 
 
-def profile_decode(sched, reqs, steps: int = 4):
+def profile_decode(sched, reqs, label: str, steps: int = 4):
     """Admit ``reqs`` until every slot decodes, then trace ``steps`` steady
-    decode steps with ``torch.profiler``: print the device's busy share of
-    the wall time and the device time by kernel (top 8).  Only device-side
-    events count (a CPU op's row repeats its kernels' time)."""
+    decode steps with ``torch.profiler`` (:func:`_traced`)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     for r in reqs:
         sched.submit(r)
@@ -457,21 +537,51 @@ def profile_decode(sched, reqs, steps: int = 4):
     else:
         raise AssertionError("profile_decode: the slots never all decoded")
     torch.cuda.synchronize()
+    _traced(lambda: [sched.step() for _ in range(steps)],
+            f"{label}: {steps} steady decode steps")
+
+
+def _traced(fn, what: str) -> None:
+    """Run ``fn`` once under ``torch.profiler``: print the device's busy
+    share of the wall time and the device time by kernel (top 8).  Only
+    device-side events count (a CPU op's row repeats its kernels' time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            sched.step()
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     t = lambda e: e.self_device_time_total
     busy = sum(t(e) for e in dev)
-    print(f"[profile] {steps} steady decode steps: device busy {busy / 1e3:.2f} ms of "
+    print(f"[profile] {what}: device busy {busy / 1e3:.2f} ms of "
           f"{wall_us / 1e3:.2f} ms wall ({100 * busy / wall_us:.1f}%; the tracer's "
           f"own host cost lengthens the wall)")
     for e in sorted(dev, key=t, reverse=True)[:8]:
         print(f"[profile]   {t(e) / 1e3:8.3f} ms {100 * t(e) / busy:5.1f}% {e.count:5d} "
               f"calls  {e.key[:80]}")
+
+
+def profile_admission(sched, prompt, label: str) -> None:
+    """Trace one eager admission (``engine.prefill_into_slot``, a whole-
+    prompt forward) into slot 0 of an idle scheduler, after one untraced
+    warm-up, and release its pages after."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import engine
+
+    tokens = torch.as_tensor(np.asarray(prompt, np.int64), device=sched.device)
+    sched._ensure_pages(0, 0, len(prompt))
+    admit = lambda: engine.prefill_into_slot(sched.params, sched.cfg, sched.layout,
+                                             sched.cache, 0, tokens)
+    admit()
+    torch.cuda.synchronize()
+    _traced(admit, f"{label}: one eager admission ({len(prompt)} prompt tokens)")
+    sched._release_pages(0)
 
 
 def coded_planes_of_first_matrix(params, cfg) -> int:
@@ -487,22 +597,24 @@ def coded_planes_of_first_matrix(params, cfg) -> int:
     return sum(e is not None for e in bw.encoded)
 
 
-# (KV format, weight format) of each main-path run
-SERVE_RUNS = (("bf16", "bf16"), ("int8", "bf16"), ("bgpp", "bf16"), ("bgpp", "bstc"))
+# (KV format, weight format, admission) of each main-path run
+SERVE_RUNS = (("bf16", "bf16", "chunked"), ("int8", "bf16", "chunked"),
+              ("bgpp", "bf16", "chunked"), ("bgpp", "bstc", "chunked"),
+              ("bf16", "bf16", "eager"))
 
 
 def serve_phase(device, card):
     """Serve the full model in the paged layout for every run of
     :data:`SERVE_RUNS`; return the launches of each kernel on its own run
-    (the decode attends on their KV format's bf16-weight run, the BSTC
-    kernels on the bstc run)."""
+    (the decode attends on their KV format's chunked bf16-weight run, the
+    BSTC kernels on the bstc run, flash attention on the eager run)."""
     import numpy as np
     import torch
 
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_params
-    from repro_torch.serving import kv_cache as kvc
+    from repro_torch.serving import engine, kv_cache as kvc
     from repro_torch.serving.scheduler import Scheduler
 
     cfg = get_config("phi4-mini-3.8b")
@@ -515,37 +627,51 @@ def serve_phase(device, card):
           f"{nparam / 1e9:.3f} B params ({cfg.dtype}) initialised on the card in "
           f"{time.perf_counter() - t0:.2f} s")
     launches = {}
-    for fmt, wfmt in SERVE_RUNS:
+    first_logits = {}  # rid -> first-token logits of the chunked bf16 run
+    for fmt, wfmt, admission in SERVE_RUNS:
+        run = f"{fmt}/{wfmt}/{admission}"
         layout = kvc.layout_for(cfg, 4, 1024, kv_format=fmt, layout="paged", page_size=16)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         K.reset_launches()
         t0 = time.perf_counter()
-        sched = Scheduler(params, cfg, layout, device=device, chunk_budget=128,
-                          record_logits=True, weight_format=wfmt)
+        sched = Scheduler(params, cfg, layout, device=device, admission=admission,
+                          chunk_budget=128, record_logits=True, weight_format=wfmt)
         torch.cuda.synchronize()
         prep_s = time.perf_counter() - t0
         dec, pre = [], []
         prefill_k3 = [0]
         sched.serve_step = _timed(sched.serve_step, dec)
-        chunk = _timed(sched.chunked._chunk, pre)
+        eager = admission == "eager"
+        # prefill is timed (and checked for K3 launches) around each chunk,
+        # or around each whole-prompt forward of eager admission
+        admit_fn = engine.prefill_into_slot
+        prefill_fn = _timed(admit_fn if eager else sched.chunked._chunk, pre)
 
-        def counted_chunk(*a, **kw):
+        def counted_prefill(*a, **kw):
             before = K.LAUNCHES["bstc_matmul"]
-            out = chunk(*a, **kw)
+            out = prefill_fn(*a, **kw)
             prefill_k3[0] += K.LAUNCHES["bstc_matmul"] - before
             return out
 
-        sched.chunked._chunk = counted_chunk
+        if eager:
+            engine.prefill_into_slot = counted_prefill
+        else:
+            sched.chunked._chunk = counted_prefill
         reqs = trace(0, 6, cfg.vocab_size, 64, 512, 16)
         for r in reqs:
             sched.submit(r)
-        stats = sched.run()
+        try:
+            stats = sched.run()
+        finally:
+            engine.prefill_into_slot = admit_fn
         torch.cuda.synchronize()
         got = dict(K.LAUNCHES)
         steps = sched.decode_steps
         want = {name: 0 for name in got}
         want[KERNEL_OF[fmt]] = L * steps
+        if eager:
+            want["flash_attention"] = L * len(reqs)
         if wfmt == "bstc":
             want["bstc_matmul"] = (7 * L + 1) * steps
             want["bstc_decode"] = coded_planes_of_first_matrix(params, cfg)
@@ -553,30 +679,49 @@ def serve_phase(device, card):
                 raise AssertionError("bstc: the first coded matrix coded no plane")
         for name, n in got.items():
             if n != want[name]:
-                raise AssertionError(f"{fmt}/{wfmt}: {name} launched {n} times, "
+                raise AssertionError(f"{run}: {name} launched {n} times, "
                                      f"expected {want[name]}")
         if prefill_k3[0]:
             raise AssertionError(f"bstc_matmul launched {prefill_k3[0]} times in prefill")
         for name, n in got.items():
-            if n and (wfmt == "bstc") == name.startswith("bstc_"):
+            if eager:
+                if name == "flash_attention":
+                    launches[name] = n
+            elif n and (wfmt == "bstc") == name.startswith("bstc_"):
                 launches[name] = n
         if stats["finished_requests"] != len(reqs):
-            raise AssertionError(f"{fmt}/{wfmt}: {stats['finished_requests']} of "
+            raise AssertionError(f"{run}: {stats['finished_requests']} of "
                                  f"{len(reqs)} finished")
         for r in sched.finished:
             rows = np.stack(r.logit_rows)
             if (len(r.generated) != r.max_new_tokens or rows.shape != (16, cfg.vocab_size)
                     or not np.isfinite(rows).all()):
-                raise AssertionError(f"{fmt}/{wfmt}: request {r.rid} output is malformed")
+                raise AssertionError(f"{run}: request {r.rid} output is malformed")
+        if (fmt, wfmt, admission) == SERVE_RUNS[0]:
+            first_logits = {r.rid: r.logit_rows[0] for r in sched.finished}
         dec_ms = [a.elapsed_time(b) for a, b in dec]
         pre_ms = [a.elapsed_time(b) for a, b in pre]
         kv, wr = stats["kv_read"], stats["weight_read"]
         counts = ", ".join(f"{n} {v}" for n, v in got.items() if v)
-        print(f"[serve] {fmt} paged, {wfmt} weights: {stats['finished_requests']} requests, "
+        if eager:
+            scale = max(float(np.abs(first_logits[r.rid]).max()) for r in sched.finished)
+            diff = max(float(np.abs(r.logit_rows[0] - first_logits[r.rid]).max())
+                       for r in sched.finished)
+            same = sum(r.generated[0] == int(np.argmax(first_logits[r.rid]))
+                       for r in sched.finished)
+            print(f"[serve] eager admission: {len(pre_ms)} whole-prompt forwards, "
+                  f"{np.mean(pre_ms):.3f} ms per admission (prompts "
+                  f"{min(r.prompt_len for r in reqs)}-{max(r.prompt_len for r in reqs)} "
+                  f"tokens); first-token logits vs the chunked bf16 run: max |diff| "
+                  f"{diff:.4e} = {diff / scale:.4e} of max |logit| {scale:.4e}; the same "
+                  f"first token in {same} of {len(reqs)} requests")
+        print(f"[serve] {fmt} paged, {wfmt} weights, {admission} admission: "
+              f"{stats['finished_requests']} requests, "
               f"{stats['decoded_tokens']} tokens, {steps} decode steps, "
-              f"{len(pre_ms)} prefill chunks in {stats['wall_s']} s = "
+              f"{len(pre_ms)} prefill {'forwards' if eager else 'chunks'} in "
+              f"{stats['wall_s']} s = "
               f"{stats['tokens_per_s']} tok/s; decode {np.mean(dec_ms):.3f} ms/step, "
-              f"prefill {np.mean(pre_ms):.3f} ms/chunk; kv_read "
+              f"prefill {np.mean(pre_ms):.3f} ms/{'forward' if eager else 'chunk'}; kv_read "
               f"{kv['decode_bytes_per_step']} B/step, weight_read "
               f"{wr['decode_bytes_per_step']} B/step (bf16-equivalent "
               f"{wr['decode_bf16_equiv_bytes_per_step']}, modeled "
@@ -584,7 +729,20 @@ def serve_phase(device, card):
               f"ttft p50 {stats['ttft_s']['p50']} s, itl p50 {stats['itl_s']['p50']} s; "
               f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
               f"launches: {counts} ({L} layers x {steps} steps) [{card}]")
-        profile_decode(sched, trace(1, 4, cfg.vocab_size, 200, 256, 24))
+        del sched
+        torch.cuda.empty_cache()
+    # the traces come after every timed run: once torch.profiler has traced
+    # the card, later runs in the process were slower on the host side
+    longest = max(trace(0, 6, cfg.vocab_size, 64, 512, 16), key=lambda r: r.prompt_len)
+    for fmt, wfmt, admission in SERVE_RUNS:
+        layout = kvc.layout_for(cfg, 4, 1024, kv_format=fmt, layout="paged", page_size=16)
+        sched = Scheduler(params, cfg, layout, device=device, admission=admission,
+                          chunk_budget=128, weight_format=wfmt)
+        label = f"{fmt}/{wfmt}/{admission}"
+        if admission == "eager":  # its decode step is the chunked bf16 run's
+            profile_admission(sched, longest.prompt, label)
+        else:
+            profile_decode(sched, trace(1, 4, cfg.vocab_size, 200, 256, 24), label)
         del sched
         torch.cuda.empty_cache()
     del params
@@ -608,8 +766,10 @@ def _leaves(tree):
 def reference_phase(device):
     """Serve the smoke config (f32) on the card and on the CPU from the same
     parameters and trace, in every layout x KV-format cell with bf16
-    weights, and with int8 and bstc weights (the card's bstc projections
-    run the fused BSTC kernel, the CPU's its plain version).  bf16 KV: the
+    weights, with int8 and bstc weights (the card's bstc projections
+    run the fused BSTC kernel, the CPU's its plain version), and with eager
+    admission (the card's forward runs the flash-attention kernel at D 16
+    in f32, the CPU's its plain version).  bf16 KV: the
     same greedy tokens and logits within 1e-4 (f32 sums in another order).
     int8/bgpp KV: teacher-forced with the CPU's tokens, logits within 2e-3
     (a probability code may flip by one at a .5 boundary)."""
@@ -628,9 +788,9 @@ def reference_phase(device):
                       for k, v in cpu["layers"].items()},
            "final_norm": {"scale": cpu["final_norm"]["scale"].to(device)}}
 
-    def serve(params, dev, layout, forced=None, wfmt="bf16"):
-        sched = Scheduler(params, cfg, layout, device=dev, chunk_budget=8,
-                          record_logits=True, weight_format=wfmt)
+    def serve(params, dev, layout, forced=None, wfmt="bf16", admission="chunked"):
+        sched = Scheduler(params, cfg, layout, device=dev, admission=admission,
+                          chunk_budget=8, record_logits=True, weight_format=wfmt)
         for r in trace(1, 4, cfg.vocab_size, 5, 30, 6):
             if forced is not None:
                 r.forced_tokens = np.asarray(forced[r.rid])
@@ -638,22 +798,24 @@ def reference_phase(device):
         sched.run()
         return {r.rid: r for r in sched.finished}
 
-    cells = [(lay, fmt, "bf16") for lay in ("slot", "paged") for fmt in ("bf16", "int8", "bgpp")]
-    cells += [(lay, fmt, wfmt) for wfmt in ("int8", "bstc")
+    cells = [(lay, fmt, "bf16", "chunked") for lay in ("slot", "paged")
+             for fmt in ("bf16", "int8", "bgpp")]
+    cells += [(lay, fmt, wfmt, "chunked") for wfmt in ("int8", "bstc")
               for lay, fmt in (("paged", "bf16"), ("slot", "bgpp"))]
-    for lay, fmt, wfmt in cells:
+    cells += [(lay, "bf16", "bf16", "eager") for lay in ("paged", "slot")]
+    for lay, fmt, wfmt, admission in cells:
         layout = kvc.layout_for(cfg, 2, 64, kv_format=fmt, layout=lay, page_size=8)
-        ref = serve(cpu, "cpu", layout, wfmt=wfmt)
+        ref = serve(cpu, "cpu", layout, wfmt=wfmt, admission=admission)
         forced = None if fmt == "bf16" else {i: r.generated for i, r in ref.items()}
-        got = serve(gpu, device, layout, forced, wfmt=wfmt)
+        got = serve(gpu, device, layout, forced, wfmt=wfmt, admission=admission)
         same = all(got[i].generated == ref[i].generated for i in ref)
         err = max(float(np.abs(np.stack(got[i].logit_rows)
                                - np.stack(ref[i].logit_rows)).max()) for i in ref)
         tol = 1e-4 if fmt == "bf16" else 2e-3
-        print(f"[check] {lay} {fmt} KV, {wfmt} weights: tokens equal {same}, max |logit "
-              f"diff| {err:.3e} (tolerance {tol})")
+        print(f"[check] {lay} {fmt} KV, {wfmt} weights, {admission} admission: tokens "
+              f"equal {same}, max |logit diff| {err:.3e} (tolerance {tol})")
         if not same or not err <= tol:
-            raise AssertionError(f"{lay} {fmt}/{wfmt}: card and CPU disagree")
+            raise AssertionError(f"{lay} {fmt}/{wfmt}/{admission}: card and CPU disagree")
 
 
 # ---------------------------------------------------------------------------
@@ -683,6 +845,7 @@ def main(argv=None) -> int:
     l2 = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     records = kernel_phase(device, flush=lambda: l2.zero_())
     records += bstc_kernel_phase(device, flush=lambda: l2.zero_())
+    records.append(flash_kernel_phase(device, flush=lambda: l2.zero_()))
     del l2
 
     launches = serve_phase(device, card)

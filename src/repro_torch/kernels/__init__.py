@@ -22,6 +22,10 @@ Kernels:
                     decode projection of a ``weight_format="bstc"`` run)
   bstc_decode     — BSTC plane decode: indicator bitmap + pattern stream ->
                     (G, H) group patterns (the serve-params round-trip check)
+  flash_attention — tiled online-softmax GQA attention (causal, sliding,
+                    chunked, full masks): the attention of every layer of
+                    the whole-sequence forward (eager admission,
+                    whole-batch prefill)
 
 ``LAUNCHES`` counts kernel launches by name.  Each wrapper adds one where
 it launches its CUDA kernel and nowhere else, so a run can show that the
@@ -39,6 +43,7 @@ LAUNCHES: Dict[str, int] = {
     "bgpp_paged_attend": 0,
     "bstc_matmul": 0,
     "bstc_decode": 0,
+    "flash_attention": 0,
 }
 
 

@@ -140,11 +140,18 @@ def _declare(lib: ctypes.CDLL) -> None:
         P, P, L, L,  # scale, out, out strides
         I, I, I, I, P,  # M, H, N, tile_k, stream
     ]
+    lib.flash_attention_launch.argtypes = [
+        P, P, P, P,  # q, k, v, out
+        I, I, I, I, I, I,  # B, Sq, Sk, Hq, Hk, D
+        L, L, L, L, L, L, L, L, L,  # q, k, v strides: batch, sequence, head
+        I, I, I, I, F, P,  # dtype code, mask code, window, q_offset, scale, stream
+    ]
     for fn in (lib.paged_flash_decode_dense_launch,
                lib.paged_flash_decode_int8_launch,
                lib.bgpp_paged_attend_launch,
                lib.bstc_decode_launch,
-               lib.bstc_matmul_launch):
+               lib.bstc_matmul_launch,
+               lib.flash_attention_launch):
         fn.restype = ctypes.c_int
 
 

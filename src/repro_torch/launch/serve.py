@@ -4,7 +4,8 @@ paged layout, request scheduler).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
         --kv-format int8 --requests 8 --slots 4 --seed 0 \\
-        [--device cuda|cpu] [--full] [--chunk-budget 16] \\
+        [--device cuda|cpu] [--full] [--admission chunked|eager] \\
+        [--chunk-budget 16] \\
         [--kv-layout slot|paged] [--page-size 8] [--shared-prefix 16] \\
         [--bgpp-rounds 4] [--bgpp-keep-ratio 0.25] \\
         [--weight-format bf16|int8|bstc] [--trace-out trace.json]
@@ -13,8 +14,11 @@ The counterpart of ``repro.launch.serve`` without ``--mesh``, ``--server``
 or ``--spec-decode`` (later slices).  It runs on ``--device cuda`` unless
 told otherwise; ``--full`` serves the published full-width config instead
 of the smoke one.  Weights are random, drawn from a seeded generator on
-the device.  Requests arrive on a Poisson-ish trace; prompts go through
-bucketed prefill chunks interleaved with the batched decode step.
+the device.  Requests arrive on a Poisson-ish trace.  With the default
+``--admission chunked`` prompts go through bucketed prefill chunks
+interleaved with the batched decode step; ``--admission eager`` admits
+each prompt with one whole-sequence forward (the ``flash_attention``
+kernel on the card) as the reference's baseline.
 ``--weight-format`` puts the decode projections on the serve-time weight
 path (``repro_torch.serving.weights``): int8 records, or bstc-coded planes
 that the ``bstc_matmul`` kernel reads on the card; the ``weight_read``
@@ -64,7 +68,12 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--max-prompt", type=int, default=23)
-    ap.add_argument("--chunk-budget", type=int, default=16)
+    ap.add_argument("--admission", default="chunked", choices=["chunked", "eager"],
+                    help="chunked: bucketed prefill interleaved with decode; eager: "
+                         "whole-prompt B=1 admission")
+    ap.add_argument("--chunk-budget", type=int, default=16,
+                    help="max prefill tokens between consecutive batched decode "
+                         "steps (chunked admission)")
     ap.add_argument("--arrival-rate", type=float, default=2.0)
     ap.add_argument("--seed", type=int, default=0, help="request-trace RNG seed")
     ap.add_argument("--trace-out", default=None)
@@ -78,7 +87,8 @@ def main(argv=None):
     params = init_params(cfg, gen, device)
     layout = kvc.layout_for(cfg, args.slots, args.max_seq, kv_format=args.kv_format,
                             layout=args.kv_layout, page_size=args.page_size)
-    sched = Scheduler(params, cfg, layout, device=device, chunk_budget=args.chunk_budget)
+    sched = Scheduler(params, cfg, layout, device=device, admission=args.admission,
+                      chunk_budget=args.chunk_budget)
     max_prompt = min(args.max_prompt, args.max_seq - 2 - args.shared_prefix)
     if max_prompt < 1:
         raise SystemExit("--shared-prefix leaves no room for prompts")
@@ -101,7 +111,7 @@ def main(argv=None):
     stats = sched.stats(dt)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU")
     print(f"[serve] arch={cfg.name} kv={args.kv_format} layout={args.kv_layout} "
-          f"weights={sched.weight_format} "
+          f"weights={sched.weight_format} admission={args.admission} "
           f"device={where}: {stats['finished_requests']} requests, "
           f"{stats['decoded_tokens']} tokens in {dt:.1f}s "
           f"({stats['tokens_per_s']:.1f} tok/s, mean occupancy "

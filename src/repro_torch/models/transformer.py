@@ -1,11 +1,18 @@
-"""Dense decoder-only transformer: per-layer RoPE bases and parameter init.
+"""Dense decoder-only transformer: parameter init and the whole-sequence
+forward.
 
 Counterpart of :mod:`repro.models.transformer` for the dense family.  The
 parameter tree follows ``transformer.init``'s (stacked ``(L, ...)`` layer
 leaves, ``(in, out)`` projections, zero-centred norm scales, tied
 embeddings) and its scales, drawn from a ``torch.Generator`` on the target
-device.  The whole-sequence ``forward`` (eager admission, whole-batch
-prefill) is a later slice: serving admits prompts through chunked prefill.
+device.
+
+``forward`` runs a whole ``(B, S)`` token batch through every layer (the
+reference's ``lax.scan`` becomes a Python loop over the stacked leaves);
+its attention is :func:`repro_torch.core.attention.blocked_attend`, which
+launches the ``flash_attention`` kernel on the card.  Eager admission and
+whole-batch prefill (:mod:`repro_torch.serving.engine`) run on it.  MoE,
+the VLM prefix, rematerialisation and sharding rules are not ported.
 """
 
 from __future__ import annotations
@@ -16,9 +23,32 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.core import attention
+from repro_torch.models import layers
 from repro_torch.models.layers import _dtype
 
 Params = Dict[str, Any]
+
+
+def _mask_kind(cfg) -> str:
+    """The mask family of the model's attention layers (causal for a
+    dense stack of global layers; sliding or chunked where the config
+    gives local layers a window)."""
+    if cfg.family != "dense":
+        raise ValueError(f"transformer: family {cfg.family!r} is not ported")
+    kinds = {cfg.layer_attn_window(i)[0] for i in range(cfg.num_layers)} - {"causal"}
+    if len(kinds) > 1:
+        raise ValueError(f"transformer: layers mix mask kinds {sorted(kinds)}")
+    return kinds.pop() if kinds else "causal"
+
+
+def layer_windows(cfg) -> np.ndarray:
+    """(L,) per-layer window / chunk size (0 = full causal)."""
+    out = []
+    for i in range(cfg.num_layers):
+        kind, w = cfg.layer_attn_window(i)
+        out.append(w if kind in ("sliding", "chunked") else 0)
+    return np.asarray(out, np.int32)
 
 
 def layer_thetas(cfg) -> np.ndarray:
@@ -74,3 +104,61 @@ def layer_params(tree: Params, i: int) -> Params:
     """Layer ``i``'s slice of a stacked ``(L, ...)`` tree (views, no copy)."""
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+# --------------------------------------------------------------------------
+# forward (whole sequence: eager admission, whole-batch prefill)
+# --------------------------------------------------------------------------
+
+
+def _attention_block(p, cfg, x, positions, theta: float, window: int, mask_kind: str,
+                     return_kv: bool = False):
+    """Norm, QKV with RoPE, ``blocked_attend``, ``wo``.  x ``(B, S, d)`` ->
+    ``(out, (k, v) or None)`` with k / v ``(B, S, Hk, Dh)``."""
+    h = layers.apply_norm(x, p["attn_norm"], cfg.norm)
+    q, k, v = layers.qkv_project(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
+                                 cfg.head_dim, positions, theta)
+    attn = attention.blocked_attend(q, k, v, mask_kind=mask_kind, window=window)
+    B, S = attn.shape[:2]
+    out = attn.reshape(B, S, -1) @ p["attn"]["wo"]
+    return out, ((k, v) if return_kv else None)
+
+
+def _ffn_block(p, cfg, x):
+    """Norm and SwiGLU MLP -> ``(out, aux)``; aux is 0 for the dense family."""
+    h = layers.apply_norm(x, p["mlp_norm"], cfg.norm)
+    return layers.mlp_apply(p["mlp"], h, cfg.activation), 0.0
+
+
+def forward(params: Params, cfg, tokens: torch.Tensor, return_kv: bool = False):
+    """tokens ``(B, S)`` -> ``(logits (B, S, V), aux[, (k_all, v_all)])``.
+
+    The residual stream runs in ``cfg.dtype``; ``aux`` is a 0-d float32
+    tensor (0 for the dense family); ``k_all`` / ``v_all`` stack every
+    layer's post-RoPE K and V, ``(L, B, S, Hk, Dh)``."""
+    B, S = tokens.shape
+    dtype = _dtype(cfg.dtype)
+    x = params["embed"][tokens].to(dtype)
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    mask_kind = _mask_kind(cfg)
+    windows = layer_windows(cfg)
+    thetas = layer_thetas(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        p = layer_params(params["layers"], i)
+        a, kv = _attention_block(p, cfg, x, positions, float(thetas[i]), int(windows[i]),
+                                 mask_kind, return_kv=return_kv)
+        x = x + a
+        f, aux_l = _ffn_block(p, cfg, x)
+        x = x + f
+        aux = aux + aux_l
+        if return_kv:
+            ks.append(kv[0])
+            vs.append(kv[1])
+    x = layers.apply_norm(x, params["final_norm"], cfg.norm)
+    head = params.get("lm_head")
+    logits = x @ (params["embed"].T.to(dtype) if head is None else head)
+    if return_kv:
+        return logits, aux, (torch.stack(ks), torch.stack(vs))
+    return logits, aux

@@ -1,9 +1,18 @@
-"""Serving engine: single-token batched decode (``serve_step``) and chunked
-prefill for dense transformers over the paged or slot KV cache.
+"""Serving engine: single-token batched decode (``serve_step``), whole-
+sequence prefill (``prefill``, ``prefill_into_slot``) and chunked prefill
+for dense transformers over the paged or slot KV cache.
 
 Counterpart of :mod:`repro.serving.engine`, dense branch.
 
     serve_step(params, cache, tokens (B, 1)) -> (logits (B, 1, V), cache)
+    prefill(params, cfg, layout, tokens (B, S)) -> (logits (B, 1, V), cache)
+    prefill_into_slot(params, cfg, layout, cache, slot, prompt (S,))
+        -> (logits (1, 1, V), cache)
+
+The two whole-sequence paths run ``transformer.forward`` (whose attention
+launches the ``flash_attention`` kernel on the card) and write every
+layer's K/V through ``kv_cache.write_prefill``; ``prefill_into_slot`` is
+the Scheduler's eager admission.
 
 Positions are per slot (``cache["pos"]`` is ``(B,)``), so staggered
 requests share one batch.  The global-layer decode attend always goes
@@ -243,6 +252,67 @@ def make_serve_step(cfg, layout: kvc.CacheLayout):
         return logits, cache
 
     return serve_step
+
+
+# --------------------------------------------------------------------------
+# prefill (build the cache from a whole prompt)
+# --------------------------------------------------------------------------
+
+
+def _check_prefill(cfg, layout: kvc.CacheLayout, who: str) -> None:
+    if cfg.family != "dense":
+        raise ValueError(f"{who}: family {cfg.family!r} is not ported")
+    if len(layout.global_layers) != cfg.num_layers:
+        raise ValueError(f"{who}: every layer must be a global layer; local "
+                         f"rings (write_prefill_local) are a later slice")
+
+
+def prefill(params, cfg, layout: kvc.CacheLayout, tokens: torch.Tensor):
+    """Whole-batch prefill: one forward over tokens ``(B, S)``, then a
+    fresh cache holding every row's K/V at ``[0, S)`` and ``pos = S``.
+    Returns ``(last_logits (B, 1, V), cache)``.  The paged layout maps the
+    rows slot-major (``identity_page_table``)."""
+    _check_prefill(cfg, layout, "prefill")
+    logits, _, (k_all, v_all) = transformer.forward(params, cfg, tokens, return_kv=True)
+    dev = tokens.device
+    cache = kvc.init_cache_arrays(cfg, layout, dev)
+    B, S = tokens.shape
+    paged_kw = {}
+    if layout.layout == "paged":
+        cache["page_table"] = kvc.identity_page_table(layout, dev)
+        paged_kw = dict(page_table=cache["page_table"], **_paged_kw(layout))
+    for gi, layer in enumerate(layout.global_layers):
+        kvc.write_prefill(cache["global"], gi, k_all[layer], v_all[layer], **paged_kw)
+    cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=dev)
+    return logits[:, -1:], cache
+
+
+def prefill_into_slot(params, cfg, layout: kvc.CacheLayout, cache, slot: int,
+                      prompt: torch.Tensor):
+    """Eager admission: one B=1 forward over ``prompt`` (``(S,)`` or
+    ``(1, S)``, ``S < max_seq`` so the first decoded token has a row), then
+    ``reset_slot`` and the prompt's K/V written into row ``slot`` of the
+    live cache, in place.  Paged layouts write through the cache's page
+    table: the caller maps pages covering ``[0, S)`` first (writes to
+    unmapped pages drop).  Returns ``(last_logits (1, 1, V), cache)``."""
+    _check_prefill(cfg, layout, "prefill_into_slot")
+    tokens = prompt[None] if prompt.ndim == 1 else prompt
+    if tokens.shape[0] != 1:
+        raise ValueError(f"prefill_into_slot: one prompt per admission, got "
+                         f"{tuple(tokens.shape)}")
+    S = tokens.shape[1]
+    if not 0 < S < layout.max_seq:
+        raise ValueError(f"prefill_into_slot: prompt length {S} needs at least one "
+                         f"decode slot below max_seq {layout.max_seq}")
+    logits, _, (k_all, v_all) = transformer.forward(params, cfg, tokens, return_kv=True)
+    cache = kvc.reset_slot(cache, layout, slot)
+    paged_kw = (dict(page_table=cache["page_table"], **_paged_kw(layout))
+                if layout.layout == "paged" else {})
+    for gi, layer in enumerate(layout.global_layers):
+        kvc.write_prefill(cache["global"], gi, k_all[layer], v_all[layer], slot=slot,
+                          **paged_kw)
+    cache["pos"][slot] = S
+    return logits[:, -1:], cache
 
 
 # --------------------------------------------------------------------------

@@ -1,18 +1,28 @@
 """Continuous-batching request scheduler over one live per-slot KV cache.
 
-Counterpart of :mod:`repro.serving.scheduler` (chunked admission, greedy
-or forced tokens, slot and paged layouts, paged prefix reuse, eviction,
-cancellation, priority tiers, deadline shedding, ``stats()``).
+Counterpart of :mod:`repro.serving.scheduler` (chunked and eager
+admission, greedy or forced tokens, slot and paged layouts, paged prefix
+reuse, eviction, cancellation, priority tiers, deadline shedding,
+``stats()``).
 
-Each step it (1) spends at most ``chunk_budget`` prompt tokens advancing
-ONE admitting request through the bucketed :class:`~repro_torch.serving
-.engine.ChunkedPrefill`, (2) runs ONE batched ``serve_step`` for every
-DECODING slot, and (3) evicts finished slots.  Paged layouts keep a
-host-side :class:`~repro_torch.serving.paging.PageAllocator`: pages are
+Each step it (1) admits prompts, (2) runs ONE batched ``serve_step`` for
+every DECODING slot, and (3) evicts finished slots.  With the default
+``admission="chunked"`` step (1) spends at most ``chunk_budget`` prompt
+tokens advancing ONE admitting request through the bucketed
+:class:`~repro_torch.serving.engine.ChunkedPrefill`; ``admission="eager"``
+fills every EMPTY slot with one whole-prompt B=1 forward each
+(:func:`~repro_torch.serving.engine.prefill_into_slot`, whose attention
+runs the ``flash_attention`` kernel on the card) before the decode step,
+which stalls until they finish: the reference's baseline.
+
+Paged layouts keep a host-side
+:class:`~repro_torch.serving.paging.PageAllocator`: pages are
 mapped just ahead of every write, the device page table is refreshed when
 the host copy changes, and eviction zeroes (on device) only pages whose
-refcount hit zero.  A slot's prompt is matched against the prefix index at
-its first advance; a hit adopts the resident pages and skips those tokens.
+refcount hit zero.  With chunked admission a slot's prompt is matched
+against the prefix index at its first advance; a hit adopts the resident
+pages and skips those tokens (eager admission does not reuse prefixes, as
+in the reference).
 
 The device work is enqueued without host syncs; each decode step syncs
 once, to bring its logits to the host for sampling (as the reference's
@@ -22,11 +32,12 @@ for the first token's logits.
 The serve-time weight format (``weight_format``: bf16, int8 or bstc; the
 config's unless the argument names one) is resolved once: decode steps
 read ``serve_params`` (int8 records, or BSTC-coded operands that the
-``bstc_matmul`` kernel reads on the card), chunked prefill the raw
-``params``; ``stats()["weight_read"]`` prices the bytes as the reference.
+``bstc_matmul`` kernel reads on the card), prefill (chunked or eager)
+the raw ``params``; ``stats()["weight_read"]`` prices the bytes as the
+reference.
 
-Later slices: eager (whole-prompt) admission, speculative decoding and
-meshes — the constructor raises if asked for them.
+Later slices: speculative decoding and meshes — the constructor raises if
+asked for them.
 """
 
 from __future__ import annotations
@@ -84,10 +95,8 @@ class Scheduler:
 
         if cfg.family != "dense":
             raise ValueError(f"Scheduler: family {cfg.family!r} is not ported")
-        if admission != "chunked":
-            raise NotImplementedError(
-                "Scheduler: eager admission needs the whole-sequence forward, "
-                "a later slice of the port; use admission='chunked'")
+        if admission not in ("chunked", "eager"):
+            raise ValueError(f"Scheduler: admission {admission!r} is not chunked or eager")
         if spec_decode:
             raise NotImplementedError("Scheduler: speculative decoding is a later slice")
         if mesh is not None:
@@ -120,8 +129,10 @@ class Scheduler:
         self.slots: List[Slot] = [Slot(i) for i in range(layout.batch)]
         self.queue: Deque[Request] = collections.deque()
         self.serve_step = engine.make_serve_step(cfg, layout)
-        self.chunked = engine.ChunkedPrefill(
-            cfg, layout, buckets=buckets or engine.default_buckets(self.chunk_budget))
+        self.chunked: Optional[engine.ChunkedPrefill] = None
+        if admission == "chunked":
+            self.chunked = engine.ChunkedPrefill(
+                cfg, layout, buckets=buckets or engine.default_buckets(self.chunk_budget))
         # next-token feed per slot; EMPTY/PREFILLING rows decode token 0 into
         # garbage that per-slot valid masks + chunk overwrites keep invisible
         self.tokens = np.zeros((layout.batch, 1), np.int64)
@@ -257,8 +268,33 @@ class Scheduler:
         if self._hit_limit(slot, req):
             self._finish(slot)
 
+    def admit(self) -> List[Request]:
+        """Eager admission: fill EMPTY slots from the queue (highest tier,
+        FIFO within it), one whole-prompt B=1 forward per request; each
+        admitted request gets its first token here."""
+        admitted = []
+        for slot in self.slots:
+            if slot.state is not SlotState.EMPTY:
+                continue
+            req = self._next_arrived()
+            if req is None:
+                break
+            slot.state = SlotState.PREFILLING
+            slot.request = req
+            req.admitted_step = self.step_count
+            req.admit_time = time.perf_counter()
+            self.prompt_tokens_admitted += req.prompt_len
+            self._ensure_pages(slot.index, 0, req.prompt_len)
+            prompt = torch.as_tensor(np.asarray(req.prompt, np.int64), device=self.device)
+            logits, self.cache = engine.prefill_into_slot(
+                self.params, self.cfg, self.layout, self.cache, slot.index, prompt)
+            self._emit_first_token(slot, _host_rows(logits[0, -1]))
+            self.weight_bytes_read["prefill"] += self.weight_plan.bf16_bytes
+            admitted.append(req)
+        return admitted
+
     def _advance_admission(self) -> int:
-        """Assign arrived requests to EMPTY slots (reset the row), then
+        """Chunked admission: assign arrived requests to EMPTY slots (reset the row), then
         spend at most ``chunk_budget`` prompt tokens advancing the
         highest-tier, oldest admitting request.  Returns the prompt tokens
         consumed."""
@@ -407,10 +443,14 @@ class Scheduler:
         self._sync_pages()
 
     def step(self) -> bool:
-        """Advance prefill, run one batched decode step, harvest, evict.
+        """Admit (eager) or advance (chunked) prefill, run one batched
+        decode step, harvest, evict.
         Returns False when there was nothing to do."""
         self._shed_expired()
-        spent = self._advance_admission()
+        if self.admission == "chunked":
+            spent = self._advance_admission()
+        else:
+            spent = sum(r.prompt_len for r in self.admit())
         self.prefill_tokens_per_step.append(spent)
         busy = [s for s in self.slots if s.live]
         live = [s for s in self.slots if s.state is SlotState.DECODING]

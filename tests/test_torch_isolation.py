@@ -35,6 +35,9 @@ def test_no_jax_or_reference_imports(path):
 def test_scan_sees_the_package():
     names = {p.name for p in _files()}
     assert {"scheduler.py", "engine.py", "kv_cache.py", "ops.py", "chip_smoke.py",
-            "weights.py", "bstc.py", "roofline.py", "interop.py"} <= names
+            "weights.py", "bstc.py", "roofline.py", "interop.py", "attention.py",
+            "transformer.py"} <= names
+    assert PORT / "kernels" / "flash_attention" / "ops.py" in _files()
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
-        "bgpp_paged_attend.cu", "bstc_decode.cu", "bstc_matmul.cu", "paged_flash_decode.cu"]
+        "bgpp_paged_attend.cu", "bstc_decode.cu", "bstc_matmul.cu", "flash_attention.cu",
+        "paged_flash_decode.cu"]

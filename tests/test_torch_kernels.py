@@ -39,7 +39,10 @@ from repro_torch.kernels.bgpp_paged_attend import bgpp_paged_attend
 from repro_torch.kernels.bgpp_paged_attend.ref import bgpp_paged_attend_ref
 from repro_torch.kernels.bstc_decode import bstc_decode_patterns, prepare_encoded_plane
 from repro_torch.kernels.bstc_matmul import bstc_matmul, prepare_bstc_matmul_operands
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_flash_decode import paged_flash_decode
+from repro_torch.core import attention as tattention
 from repro_torch.core import bstc as tbstc
 from repro_torch.serving import kv_cache as tkvc
 
@@ -228,10 +231,12 @@ class TestBgppPagedAttendRef:
 
 class TestBstcCpuRouting:
     def test_cpu_tensors_never_count_a_launch(self):
-        """The BSTC wrappers take their plain versions on CPU tensors: no
-        counter moves (the counters are the on-card proof of the path)."""
+        """The BSTC and flash-attention wrappers take their plain versions
+        on CPU tensors: no counter moves (the counters are the on-card
+        proof of the path)."""
         assert set(LAUNCHES) == {"paged_flash_decode_bf16", "paged_flash_decode_int8",
-                                 "bgpp_paged_attend", "bstc_matmul", "bstc_decode"}
+                                 "bgpp_paged_attend", "bstc_matmul", "bstc_decode",
+                                 "flash_attention"}
         rng = np.random.default_rng(11)
         w = (rng.integers(-127, 128, (32, 64)) * (rng.random((32, 64)) < 0.1)).astype(np.int8)
         ops = prepare_bstc_matmul_operands(_t(w), _t(np.ones(32, np.float32)), tile_k=32)
@@ -242,7 +247,33 @@ class TestBstcCpuRouting:
                                       tile_k=32)
         patt = bstc_decode_patterns(plane)
         assert tuple(y.shape) == (32, 4) and tuple(patt.shape) == (8, 64)
+        q, k = torch.ones(1, 9, 4, 16), torch.ones(1, 9, 2, 16)
+        att = flash_attention(q, k, k, mask_kind="sliding", window=4)
+        att2 = tattention.blocked_attend(q, k, k, mask_kind="chunked", window=4)
+        assert att.shape == att2.shape == q.shape
         assert all(n == 0 for n in LAUNCHES.values()), dict(LAUNCHES)
+
+
+class TestFlashAttentionRouting:
+    def test_off_cpu_never_takes_the_plain_version(self, monkeypatch):
+        """Off the CPU, ``blocked_attend`` launches the kernel or raises:
+        ``prefix_causal`` (no kernel yet) raises before any plain path, and
+        the wrapper refuses a device it has no kernel for.  Meta tensors
+        stand in for a card here; the plain versions are made to fail so a
+        fallback would show."""
+        def no_plain(*a, **kw):
+            raise AssertionError("took the plain version off the CPU")
+
+        monkeypatch.setattr(tattention, "attend", no_plain)
+        monkeypatch.setattr(flash_ops, "flash_attention_ref", no_plain)
+        q = torch.empty(1, 8, 4, 16, device="meta")
+        k = torch.empty(1, 8, 2, 16, device="meta")
+        reset_launches()
+        with pytest.raises(NotImplementedError, match="VLM"):
+            tattention.blocked_attend(q, k, k, mask_kind="prefix_causal", window=3)
+        with pytest.raises(ValueError, match="no kernel for device"):
+            tattention.blocked_attend(q, k, k)
+        assert LAUNCHES["flash_attention"] == 0
 
 
 def _jax_topk_indices(q, ops, phys, pos, rounds, k_max, surv):

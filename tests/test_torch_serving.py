@@ -199,7 +199,7 @@ class TestRefusals:
     def test_later_slices_raise(self, served):
         _, cfg, _, params = served
         lay = tkvc.layout_for(cfg, SLOTS, MAX_SEQ)
-        for kw in (dict(admission="eager"), dict(spec_decode=True), dict(mesh=object())):
+        for kw in (dict(spec_decode=True), dict(mesh=object())):
             with pytest.raises(NotImplementedError):
                 Scheduler(params, cfg, lay, device="cpu", **kw)
 
