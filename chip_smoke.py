@@ -18,8 +18,20 @@ Phases, each of which fails the run (nonzero exit) on any error:
    of a full-width 3072 x 3072 matrix, and the forward's flash attention
    (Hq 24, Hk 8, D 128, bf16: causal at B 1 / S 512, B 1 / S 301 and
    B 4 / S 512; sliding and chunked with window 256; full; q_offset 256;
-   f32 once).
-4. Main paths: serves phi4-mini-3.8b at full width and depth (bf16 weights
+   f32 once).  Then the paper layer's two kernels: the BGPP round at
+   S 4096 (one query) and at the decode geometry (B 4 x Hq 24 over Hk 8,
+   S 1024), alive masks from a real first round, bit-exact; the BRCR GEMM
+   at every projection shape of one layer (layer 0's seeded weights,
+   int8) with N = 4 and 128 integer x (exact) and float32 / bfloat16 x
+   (within 1e-5 of Σ|w·x|), and the gate/up weight once more with whole
+   row and column blocks zeroed, so its tile and plane skips run (exact).
+4. Paper-layer path: the quickstart at phi4-mini width (BRCR on an
+   8192 x 3072 weight, BSTC, BGPP over 1024 keys), the BGPP walkthrough at
+   S 4096, and the batched predictor at the decode geometry followed by
+   ``alive_to_topk_indices`` and ``gather_attend``; launch counts asserted
+   per run (K7 once per ``brcr_matmul``, K6 once a round, the rest 0),
+   then K7 timed on the quickstart's operands.
+5. Main paths: serves phi4-mini-3.8b at full width and depth (bf16 weights
    from a seeded generator) through the port's ``Scheduler`` in the paged
    layout, once per KV format with bf16 weights, once with
    ``weight_format="bstc"`` and BGPP KV (all with chunked admission), and
@@ -30,10 +42,12 @@ Phases, each of which fails the run (nonzero exit) on any error:
    After all of them, each chunked run's configuration traces a few
    steady decode steps, and the eager one a whole-prompt admission, with
    torch.profiler (device busy share, time by kernel).
-5. Reference check: the same small model and trace served on the card
+6. Reference check: the same small model and trace served on the card
    (kernels) and on the CPU (plain versions) give the same greedy tokens
    and logits within tolerance, for every KV format, for the int8 and
-   bstc weight formats, and with eager admission.
+   bstc weight formats, and with eager admission; and the paper layer's
+   ``brcr_matmul``, batched predictor and examples at the reference
+   examples' sizes agree between card and CPU.
 
 The second-to-last lines are the kernels' JSON record and the card line;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -486,6 +500,359 @@ def flash_kernel_phase(device, flush):
 
 
 # ---------------------------------------------------------------------------
+# the paper layer: the BGPP round (K6) and the BRCR GEMM (K7)
+# ---------------------------------------------------------------------------
+
+# the decode geometry of the batched predictor: B slots x Hq query heads
+# over Hk kv heads of D, S keys; keys from the reference walkthrough's
+# concentrated-key generator, quantized at 25 a unit
+DECODE_GEOMETRY = dict(B=4, Hq=24, Hk=8, S=1024, D=128)
+KEY_SCALE = 25
+BRCR_COLS = (4, 128)  # K7's x widths: a decode batch of four slots, a prefill chunk
+
+
+def decode_keys(seed, B, Hq, Hk, S, D):
+    """Integer queries ``(B, Hq, D)`` and keys ``(B, S, Hk, D)`` (numpy,
+    int32): each (slot, kv head) draws its own concentrated keys and query
+    (:func:`make_concentrated_keys`); the kv head's g query heads are that
+    query plus a little integer noise."""
+    import numpy as np
+
+    from repro_torch.examples.bgpp_sparse_attention import make_concentrated_keys
+
+    rng = np.random.default_rng(seed)
+    g = Hq // Hk
+    q = np.empty((B, Hq, D), np.int32)
+    k = np.empty((B, S, Hk, D), np.int32)
+    for b in range(B):
+        for h in range(Hk):
+            qh, kh, _ = make_concentrated_keys(rng, S, D)
+            k[b, :, h] = kh
+            q[b, h * g:(h + 1) * g] = np.clip(qh + rng.integers(-8, 9, (g, D)), -127, 127)
+    return q, k
+
+
+def bgpp_kernel_phase(device, flush):
+    """Hold the BGPP round kernel (K6) against its plain version,
+    bit-exact: the walkthrough's single query over S 4096 keys, and the
+    decode geometry's 96 query rows over S 1024 (the batched predictor's
+    call).  The alive masks come from a real first predictor round (the
+    4-round schedule's round-0 alpha), so dead key tiles occur; the case
+    scores round 1's plane.  Bound: the alive flags and q read and the
+    scores written once, plus the plane and sign bytes of every key alive
+    in some row (a kv head's planes serve its g rows), at the HBM rate; its
+    integer operations (2 D a live row-key) against the f32 peak (CUDA
+    cores).  Library: one ``torch.matmul`` of the pre-unpacked +-1 f32
+    planes by q, which reads 32x the bytes of the packed planes.  Returns
+    the decode case's JSON record."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import bgpp, bitslice, topk
+    from repro_torch.examples.bgpp_sparse_attention import key_planes, make_concentrated_keys
+    from repro_torch.kernels.bgpp_score import bgpp_score_heads
+    from repro_torch.kernels.bgpp_score.ref import bgpp_score_heads_ref
+
+    walk = np.random.default_rng(0)
+    q1, k1, _ = make_concentrated_keys(walk, 4096, 128)
+    dg = DECODE_GEOMETRY
+    cases = [("S 4096, one query (the walkthrough)", q1[None, None], k1[None, :, None]),
+             ("S 1024, B 4 x Hq 24 (the batched predictor)", *decode_keys(5, **dg))]
+    record = None
+    for label, q_np, k_np in cases:
+        B, Hq, D = q_np.shape
+        S, Hk = k_np.shape[1], k_np.shape[2]
+        g = Hq // Hk
+        sign, planes = key_planes(k_np, device)
+        q = torch.from_numpy(q_np).to(device)
+        scale = 1.0 / (KEY_SCALE * KEY_SCALE * np.sqrt(D))
+        first = bgpp.BGPPConfig(rounds=1, alpha_schedule=bgpp.BGPPConfig().alphas(4)[:1])
+        alive_kv, _ = bgpp.bgpp_predict_batched(q, planes, sign, first, logit_scale=scale)
+        alive = alive_kv.repeat_interleave(g, dim=1).contiguous()  # (B, Hq, S)
+        pp, sp = bitslice.pack_bits(planes[5]), bitslice.pack_bits(sign)
+        qt = topk.quantize_msb(q)  # the predictor's 4-bit query truncation
+        got = bgpp_score_heads(qt, pp, sp, alive)
+        want = bgpp_score_heads_ref(qt, pp, sp, alive)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = (got != want).nonzero()[:5].tolist()
+            raise AssertionError(f"bgpp_score {label} differs from its plain version at {bad}")
+        tiles = torch.nn.functional.pad(alive, (0, (-S) % 128)).reshape(B, Hq, -1, 128)
+        dead = 1.0 - tiles.any(-1).float().mean().item()
+        live_keys = int(alive_kv.sum())  # (slot, kv head, key) alive in some row
+        nbytes = B * Hq * S * (1 + 4) + q.numel() * 4 + live_keys * 2 * (D // 8)
+        ops = int(alive.sum()) * 2 * D
+        signed = ((1 - 2 * sign.to(torch.int32)) * planes[5]).to(torch.float32)
+        signed = signed.permute(0, 2, 1, 3)  # (B, Hk, S, D), pre-unpacked +-1
+        qg = qt.reshape(B, Hk, g, D).to(torch.float32).transpose(-1, -2)
+        lib = lambda: torch.matmul(signed, qg)
+        print(f"[kernel] bgpp_score {label}: bit-identical to the plain version; "
+              f"{int(alive.sum())} of {B * Hq * S} row-keys alive after round 0, "
+              f"{100 * dead:.1f}% of 128-key tiles dead; library = torch.matmul of the "
+              f"pre-unpacked +-1 f32 plane ({signed.numel() * 4} B, 32x the packed plane)")
+        record = kernel_record(
+            "bgpp_score", "src/repro_torch/csrc/bgpp_score.cu",
+            "src/repro/kernels/bgpp_score/kernel.py:48", 0.0,
+            time_ms(lambda: bgpp_score_heads(qt, pp, sp, alive), flush=flush),
+            time_ms(lambda: bgpp_score_heads_ref(qt, pp, sp, alive), flush=flush),
+            nbytes, ops, "f32", time_ms(lib, flush=flush), label=f" {label}")
+    return record
+
+
+def check_brcr(label, got, want, w, x, exact):
+    """Max |got - want| of a BRCR product, failing the run unless each
+    element is within ``1e-5 * Σ|w·x|`` over its row and column (exact
+    products, the sums in another order) or, with ``exact``, equal where
+    that sum is below 2**24 (integer x: every partial sum is then an exact
+    float32 integer)."""
+    import torch
+
+    row = w.abs().to(torch.float32) @ x.to(torch.float32).abs()
+    tol = 1e-5 * row
+    if exact:
+        tol = torch.where(row < 2 ** 24, torch.zeros_like(tol), tol)
+    err = (got - want).abs()
+    bad = err > tol
+    if bool(bad.any()):
+        at = bad.nonzero()[0].tolist()
+        raise AssertionError(f"brcr_gemm {label} disagrees at {at}: "
+                             f"{err[tuple(at)].item():.3e} > {tol[tuple(at)].item():.3e}")
+    return err.max().item()
+
+
+def brcr_need(ops, x):
+    """(bytes, f32 adds) one BRCR product needs: every pattern byte, the
+    plane weights, x and out once; per column of x, one merge add for each
+    non-zero pattern, E @ Z (m 2^(m-1) adds a group and plane) and the
+    +-2^p accumulation (two operations an output and plane)."""
+    P, G, _ = ops.group_idx.shape
+    N = x.shape[1]
+    nbytes = ops.group_idx.numel() + 4 * P + x.numel() * x.element_size() + 4 * ops.M * N
+    nnz = int((ops.group_idx != 0).sum())
+    return nbytes, N * (nnz + P * G * ops.m * 2 ** (ops.m - 1) + 2 * P * ops.M)
+
+
+def brcr_skips(ops):
+    """Shares of K7's work its blocks skip: (plane, 32-group-row,
+    256-column) tiles with no non-zero pattern, and (plane, 32-group-row
+    block) pairs with none over the whole of H (ragged edges padded)."""
+    import torch
+
+    from repro_torch.kernels.brcr_gemm import tile_nonzero_map
+
+    G, H = ops.group_idx.shape[1:]
+    padded = torch.nn.functional.pad(ops.group_idx, (0, (-H) % 256, 0, (-G) % 32))
+    live = tile_nonzero_map(padded, ops.m, 32 * ops.m, 256)  # (P, G / 32, H / 256)
+    return 1.0 - live.float().mean().item(), 1.0 - live.any(-1).float().mean().item()
+
+
+def brcr_kernel_phase(device, flush):
+    """Hold the BRCR GEMM (K7) against its plain version and the dense
+    product at every projection shape of one phi4-mini-3.8b layer (wq/wo
+    3072 x 3072, wk/wv 1024 x 3072, gate/up 8192 x 3072, down 3072 x 8192;
+    not the head, which no path runs BRCR on), with layer 0's seeded
+    weights quantized by ``quantization.quantize_model_weight``.  x: N = 4
+    (a decode batch) and N = 128 (a prefill chunk) of integers (exact where
+    a row's Σ|w·x| < 2^24, else :func:`check_brcr`'s tolerance), and at
+    N = 4 float32 and bfloat16 x once each (the tolerance; read as the
+    transpose of (N, H) rows).  Times kernel, plain version and
+    ``torch.matmul`` of the dense bf16 weight; prints the share of
+    (plane, 128-row, 256-column) tiles the kernel skips.  Then, as the
+    Gaussian weights leave no tile empty, the gate/up weight once more
+    with whole row and column blocks zeroed, N = 128 integer x: exact,
+    with tiles and whole planes of a block skipped, and timed."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import quantization
+    from repro_torch.kernels.brcr_gemm import brcr_gemm, prepare_brcr_operands
+    from repro_torch.kernels.brcr_gemm.ref import brcr_gemm_ref, dense_ref
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_config("phi4-mini-3.8b")
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    attn, mlp = params["layers"]["attn"], params["layers"]["mlp"]
+    weights = {name: quantization.quantize_model_weight(t[0]).q for name, t in (
+        ("wq/wo", attn["wq"]), ("wk/wv", attn["wk"]), ("gate/up", mlp["gate"]),
+        ("down", mlp["down"]))}
+    del params, attn, mlp
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(4)
+    dense_ms = {}  # the kernel's ms at each shape and N, by label
+    for name, d_in, d_out, _ in projection_shapes(cfg)[:-1]:
+        w = weights[name]
+        if tuple(w.shape) != (d_out, d_in):
+            raise AssertionError(f"brcr_gemm {name}: weight {tuple(w.shape)}")
+        ops = prepare_brcr_operands(w)
+        skipped, _ = brcr_skips(ops)
+        wb = w.to(torch.bfloat16)
+        for N in BRCR_COLS:
+            label = f"{name} ({d_out} x {d_in}, N={N})"
+            xi = torch.randint(-50, 50, (d_in, N), generator=gen, device=device).float()
+            got = brcr_gemm(ops, xi)
+            err = check_brcr(label, got, brcr_gemm_ref(ops.group_idx, ops.plane_weights, xi,
+                                                       ops.m), w, xi, exact=True)
+            check_brcr(label, got, dense_ref(w, xi), w, xi, exact=True)
+            floats = ""
+            if N == BRCR_COLS[0]:
+                for dt in (torch.float32, torch.bfloat16):
+                    x = torch.randn((N, d_in), generator=gen, device=device).to(dt).T
+                    got = brcr_gemm(ops, x)
+                    e = check_brcr(f"{label} {dt}", got, brcr_gemm_ref(
+                        ops.group_idx, ops.plane_weights, x, ops.m), w, x, exact=False)
+                    check_brcr(f"{label} {dt}", got, dense_ref(w, x), w, x, exact=False)
+                    floats += f", {str(dt)[6:]} x max_abs_err {e:.3e}"
+            xb = xi.to(torch.bfloat16)
+            ms = time_ms(lambda: brcr_gemm(ops, xi), flush=flush)
+            plain_ms = time_ms(lambda: brcr_gemm_ref(ops.group_idx, ops.plane_weights, xi,
+                                                     ops.m), iters=3, flush=flush)
+            lib_ms = time_ms(lambda: torch.matmul(wb, xb), flush=flush)
+            dense_ms[label] = ms
+            nbytes, adds = brcr_need(ops, xi)
+            bound = max(nbytes / HBM_BYTES_PER_S, adds / PEAK_OPS["f32"]) * 1e3
+            print(f"[kernel] brcr_gemm {label}: integer x exact (max_abs_err {err:.1e}"
+                  f"{floats}); {100 * skipped:.1f}% of tiles skipped; kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({nbytes} B, {adds} adds), "
+                  f"torch.matmul dense bf16 {lib_ms:.4f} ms")
+        del ops, wb
+        torch.cuda.empty_cache()
+
+    # the skips: gate/up's weight with every other 128-row block and every
+    # third 256-column block zeroed, so whole (plane, 128-row, 256-column)
+    # tiles, and every plane of a zeroed row block, have no pattern
+    w = weights["gate/up"].clone()
+    M, H = w.shape
+    w.view(M // 128, 128, H)[1::2] = 0
+    w.view(M, H // 256, 256)[:, ::3] = 0
+    ops = prepare_brcr_operands(w)
+    tiles, planes = brcr_skips(ops)
+    if not (tiles > 0 and planes > 0):
+        raise AssertionError(f"brcr_gemm zeroed blocks: nothing to skip ({tiles}, {planes})")
+    N = BRCR_COLS[1]
+    label = f"gate/up, zeroed blocks ({M} x {H}, N={N})"
+    xi = torch.randint(-50, 50, (H, N), generator=gen, device=device).float()
+    got = brcr_gemm(ops, xi)
+    err = check_brcr(label, got, brcr_gemm_ref(ops.group_idx, ops.plane_weights, xi, ops.m),
+                     w, xi, exact=True)
+    check_brcr(label, got, dense_ref(w, xi), w, xi, exact=True)
+    ms = time_ms(lambda: brcr_gemm(ops, xi), flush=flush)
+    full = dense_ms[f"gate/up ({M} x {H}, N={N})"]
+    print(f"[kernel] brcr_gemm {label}: integer x exact (max_abs_err {err:.1e}); "
+          f"{100 * tiles:.1f}% of tiles and {100 * planes:.1f}% of (plane, 128-row block) "
+          f"pairs skipped; kernel {ms:.4f} ms against {full:.4f} ms on the whole weight")
+    del ops, w
+    torch.cuda.empty_cache()
+
+
+def paper_phase(device, flush):
+    """The paper layer's path on the card: the quickstart at phi4-mini
+    width (BRCR on an 8192 x 3072 weight, BSTC, BGPP over 1024 keys), the
+    BGPP walkthrough at S 4096, and the batched predictor at the decode
+    geometry followed by ``alive_to_topk_indices`` and ``gather_attend``.
+    Each run zeroes the counts just before and asserts them just after:
+    K7 once per ``brcr_matmul``, K6 once a predictor round, every other
+    kernel 0.  Then times K7 on the quickstart's own operands for its JSON
+    record.  Returns (the launches of both kernels over the path, K7's
+    record)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.core import bgpp
+    from repro_torch.core.attention import decode_attend, gather_attend
+    from repro_torch.examples import bgpp_sparse_attention as walk
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels.brcr_gemm import brcr_gemm, prepare_brcr_operands
+    from repro_torch.kernels.brcr_gemm.ref import brcr_gemm_ref
+
+    t0 = time.perf_counter()
+    total = {"bgpp_score": 0, "brcr_gemm": 0}
+
+    def counted(what, want, fn):
+        K.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(K.LAUNCHES)
+        for name, n in got.items():
+            if n != want.get(name, 0):
+                raise AssertionError(f"paper layer, {what}: {name} launched {n} times, "
+                                     f"expected {want.get(name, 0)}")
+        for name in total:
+            total[name] += got[name]
+        print(f"[paper] {what}: launches {want}")
+        return out
+
+    print("[paper] quickstart at phi4-mini width:")
+    res = counted("quickstart", {"brcr_gemm": 1, "bgpp_score": 4},
+                  lambda: quickstart.main(device=device))
+    w_np, x_np = res["w_int8"], res["x"]
+    row = np.abs(w_np.astype(np.float64)) @ np.abs(x_np.astype(np.float64))
+    if not (res["brcr_y"] == res["brcr_ref"])[row < 2 ** 24].all() or not res["bstc_lossless"]:
+        raise AssertionError("quickstart: BRCR is not exact or BSTC not lossless")
+    print(f"[paper] quickstart: BRCR equal to the int64 product on every row "
+          f"(max Σ|w·x| {row.max():.0f} < 2^24: {bool(row.max() < 2 ** 24)})")
+    print("[paper] BGPP walkthrough at S 4096:")
+    n_rounds = len(walk.ALPHAS) * sum(walk.ROUNDS) + 7
+    counted("bgpp_sparse_attention", {"bgpp_score": n_rounds}, lambda: walk.main(device=device))
+
+    dg = DECODE_GEOMETRY
+    q_np, k_np = decode_keys(5, **dg)
+    B, Hq, Hk, S, D = dg["B"], dg["Hq"], dg["Hk"], dg["S"], dg["D"]
+    sign, planes = walk.key_planes(k_np, device)
+    q = torch.from_numpy(q_np).to(device)
+    scale = 1.0 / (KEY_SCALE * KEY_SCALE * np.sqrt(D))
+    k_max = S // 4
+    gen = torch.Generator(device=device).manual_seed(6)
+    kc = torch.from_numpy(k_np).to(device).float() / KEY_SCALE
+    vc = torch.randn(kc.shape, generator=gen, device=device)
+    qf = q.float() / KEY_SCALE
+
+    def decode():
+        alive, est = bgpp.bgpp_predict_batched(q, planes, sign, bgpp.BGPPConfig(),
+                                               logit_scale=scale)
+        est_kv = est.reshape(B, Hk, Hq // Hk, S).amax(2)
+        idx, ok = bgpp.alive_to_topk_indices(alive, est_kv, k_max)
+        return alive, gather_attend(qf, kc, vc, idx, ok)
+
+    alive, out = counted("bgpp_predict_batched (B 4, Hq 24, Hk 8, S 1024) + gather_attend",
+                         {"bgpp_score": bgpp.BGPPConfig().rounds}, decode)
+    kept = alive.sum(-1)
+    if tuple(out.shape) != (B, Hq, D) or not bool(torch.isfinite(out).all()):
+        raise AssertionError("gather_attend: output malformed")
+    msg = f"keys kept per (slot, kv head) {int(kept.min())}-{int(kept.max())} of {S}"
+    if int(kept.max()) <= k_max:  # the gathered set is the whole alive set
+        dense = decode_attend(qf, kc, vc, torch.ones((B, S), dtype=torch.bool, device=device),
+                              head_mask=alive)
+        # the same softmax over the same keys, its logits rounded in another
+        # order: exp turns a logit's rounding (~u |s|) into a relative error
+        logit = torch.einsum("bhgd,bshd->bhgs", qf.reshape(B, Hk, -1, D), kc).abs().max()
+        tol = 1e-6 * max(1.0, logit.item() * D ** -0.5) * vc.abs().max().item()
+        diff = (out - dense).abs().max().item()
+        if not diff <= tol:
+            raise AssertionError(f"gather_attend differs from decode_attend by {diff:.3e} "
+                                 f"> {tol:.3e}")
+        msg += (f"; gather_attend within {diff:.2e} of decode_attend on the alive sets "
+                f"(tolerance {tol:.2e}: 1e-6 x max |logit| x max |v|)")
+    print(f"[paper] {msg}")
+    print(f"[paper] phase took {time.perf_counter() - t0:.2f} s (examples included)")
+
+    w = torch.from_numpy(w_np).to(device)
+    x = torch.from_numpy(x_np).to(device).float()
+    ops = prepare_brcr_operands(w)
+    plain = lambda: brcr_gemm_ref(ops.group_idx, ops.plane_weights, x, ops.m)
+    err = check_brcr("quickstart", brcr_gemm(ops, x), plain(), w, x, exact=True)
+    wb, xb = w.to(torch.bfloat16), x.to(torch.bfloat16)
+    nbytes, adds = brcr_need(ops, x)
+    k7 = kernel_record(
+        "brcr_gemm", "src/repro_torch/csrc/brcr_gemm.cu",
+        "src/repro/kernels/brcr_gemm/kernel.py:88", err,
+        time_ms(lambda: brcr_gemm(ops, x), flush=flush), time_ms(plain, iters=3, flush=flush),
+        nbytes, adds, "f32", time_ms(lambda: torch.matmul(wb, xb), flush=flush),
+        label=f" quickstart ({ops.M} x {ops.H}, N={x.shape[1]})")
+    return total, k7
+
+
+# ---------------------------------------------------------------------------
 # main path: full-width phi4-mini-3.8b behind the port's Scheduler
 # ---------------------------------------------------------------------------
 
@@ -818,6 +1185,69 @@ def reference_phase(device):
             raise AssertionError(f"{lay} {fmt}/{wfmt}/{admission}: card and CPU disagree")
 
 
+def paper_reference_phase(device):
+    """The paper layer's calls at the reference examples' sizes, on the
+    card (kernels) and on the CPU (plain versions): ``brcr_matmul`` on the
+    quickstart's 64 x 1024 weight for m = 2 and 4 (integer x: the same
+    int32; float x: within 1e-5 of Σ|w·x| per element), the batched
+    predictor at B 2, Hq 6, Hk 2, S 512 (alive masks, est scores and the
+    top-k indices identical), and both examples at their reference sizes
+    (the quickstart's printed lines and the walkthrough's numbers equal)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import bgpp, brcr
+    from repro_torch.examples import bgpp_sparse_attention as walk
+    from repro_torch.examples import quickstart
+    from repro_torch.utils.synthetic import synthetic_llm_weight_int8
+
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(synthetic_llm_weight_int8(rng, (64, 1024))[0])
+    xi = torch.from_numpy(rng.integers(-50, 50, (1024, 16)).astype(np.int32))
+    xf = torch.from_numpy(rng.normal(size=(1024, 16)).astype(np.float32))
+    for m in (2, 4):
+        same = torch.equal(brcr.brcr_matmul(w.to(device), xi.to(device), m=m).cpu(),
+                           brcr.brcr_matmul(w, xi, m=m))
+        err = check_brcr(f"brcr_matmul m={m} float x", brcr.brcr_matmul(
+            w.to(device), xf.to(device), m=m).cpu(), brcr.brcr_matmul(w, xf, m=m), w, xf,
+            exact=False)
+        print(f"[check] brcr_matmul 64 x 1024, m={m}: integer x identical {same}, float x "
+              f"max_abs_err {err:.3e} (tolerance 1e-5 of Σ|w·x|)")
+        if not same:
+            raise AssertionError(f"brcr_matmul m={m}: card and CPU differ on integer x")
+
+    q_np, k_np = decode_keys(7, B=2, Hq=6, Hk=2, S=512, D=128)
+    def predict(dev):
+        sign, planes = walk.key_planes(k_np, dev)
+        alive, est = bgpp.bgpp_predict_batched(torch.from_numpy(q_np).to(dev), planes, sign,
+                                               bgpp.BGPPConfig(min_keys=8),
+                                               logit_scale=1.0 / (625 * np.sqrt(128)))
+        idx, ok = bgpp.alive_to_topk_indices(alive, est.reshape(2, 2, 3, -1).amax(2), 128)
+        return [t.cpu() for t in (alive, est, idx, ok)]
+
+    same = all(torch.equal(a, b) for a, b in zip(predict(torch.device("cpu")), predict(device)))
+    print(f"[check] bgpp_predict_batched B 2, Hq 6, Hk 2, S 512: alive, est and top-k "
+          f"indices identical {same}")
+    if not same:
+        raise AssertionError("bgpp_predict_batched: card and CPU differ")
+
+    def examples(dev):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            quickstart.main(shape=(64, 1024), device=dev)
+            res = walk.main(S=512, device=dev)
+        return buf.getvalue(), res["rows"], res["alive_per_round"].tolist()
+
+    same = examples("cpu") == examples(device)
+    print(f"[check] quickstart 64 x 1024 and the walkthrough at S 512: card and CPU print "
+          f"the same numbers {same}")
+    if not same:
+        raise AssertionError("paper-layer examples: card and CPU differ")
+
+
 # ---------------------------------------------------------------------------
 # entry point
 # ---------------------------------------------------------------------------
@@ -846,12 +1276,18 @@ def main(argv=None) -> int:
     records = kernel_phase(device, flush=lambda: l2.zero_())
     records += bstc_kernel_phase(device, flush=lambda: l2.zero_())
     records.append(flash_kernel_phase(device, flush=lambda: l2.zero_()))
+    records.append(bgpp_kernel_phase(device, flush=lambda: l2.zero_()))
+    brcr_kernel_phase(device, flush=lambda: l2.zero_())
+    paper_launches, k7 = paper_phase(device, flush=lambda: l2.zero_())
+    records.append(k7)
     del l2
 
     launches = serve_phase(device, card)
+    launches.update(paper_launches)
     for r in records:
         r["launches"] = launches[r["name"]]
     reference_phase(device)
+    paper_reference_phase(device)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": records}))
     print(card)

@@ -1,10 +1,11 @@
-"""Attention primitives of the whole-sequence forward.
+"""Attention primitives: the whole-sequence forward's and the paper layer's.
 
-Counterpart of :mod:`repro.core.attention`, cut to what the dense forward
-runs: the mask builders (causal, sliding-window, chunked-local, full and
-the VLM prefix-causal mask), the materialised GQA ``attend`` and
-``blocked_attend``, the forward's attention.  The engine has its own
-decode attends, so ``decode_attend`` / ``gather_attend`` are not ported.
+Counterpart of :mod:`repro.core.attention`: the mask builders (causal,
+sliding-window, chunked-local, full and the VLM prefix-causal mask), the
+materialised GQA ``attend``, ``blocked_attend`` (the forward's attention)
+and the paper layer's decode attends: ``decode_attend`` over a (possibly
+BGPP-sparsified) cache and ``gather_attend``, the formal-compute stage on
+a static-size gathered key set.  The serving engine has its own attends.
 
 Softmaxes run in float32 whatever the input dtype; outputs come back in
 ``q.dtype``.
@@ -127,3 +128,59 @@ def blocked_attend(
         return attend(q, k, v, mask=mask, scale=scale)
     return _flash.flash_attention(q, k, v, mask_kind=mask_kind, window=window,
                                   q_offset=q_offset, scale=scale)
+
+
+def decode_attend(
+    q: torch.Tensor,  # (B, Hq, D) single-step query
+    k_cache: torch.Tensor,  # (B, S, Hk, D)
+    v_cache: torch.Tensor,  # (B, S, Hk, D)
+    valid: torch.Tensor,  # (B, S) bool — filled cache slots (∧ predicted set)
+    scale: Optional[float] = None,
+    head_mask: Optional[torch.Tensor] = None,  # (B, Hk, S), e.g. BGPP alive sets
+) -> torch.Tensor:
+    """One-token decode attention over a (possibly sparsified) KV cache.
+
+    The reference's ``logit_softcap`` is not ported: no path passes it."""
+    out = attend(q[:, None], k_cache, v_cache, mask=_decode_mask(valid, head_mask, q.shape[1]),
+                 scale=scale)
+    return out[:, 0]
+
+
+def _decode_mask(valid: torch.Tensor, head_mask: Optional[torch.Tensor],
+                 hq: int) -> torch.Tensor:
+    """The decode step's mask: ``(B, 1, S)`` from ``valid`` alone, else
+    ``(B, Hq, 1, S)`` with each query head taking its kv head's set.
+
+    Without a head mask the reference returns ``(B, 1, 1, S)``, which its
+    ``attend`` reshapes as a per-head mask and refuses for Hq > 1; the
+    ``(B, Sq=1, S)`` form here broadcasts over every head instead."""
+    if head_mask is None:
+        return valid[:, None, :]
+    group = hq // head_mask.shape[1]
+    m = (head_mask & valid[:, None, :]).repeat_interleave(group, dim=1)  # (B, Hq, S)
+    return m[:, :, None, :]
+
+
+def gather_attend(
+    q: torch.Tensor,  # (B, Hq, D)
+    k_cache: torch.Tensor,  # (B, S, Hk, D)
+    v_cache: torch.Tensor,  # (B, S, Hk, D)
+    idx: torch.Tensor,  # (B, Hk, kmax) predicted key indices
+    idx_valid: torch.Tensor,  # (B, Hk, kmax)
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Formal-compute stage on a static-size gathered key set (paper Fig. 3):
+    only ``kmax`` K/V rows per kv head are touched."""
+    B, Hq, D = q.shape
+    Hk = k_cache.shape[2]
+    scale = (D ** -0.5) if scale is None else scale
+    bidx = torch.arange(B, device=q.device)[:, None, None]
+    hidx = torch.arange(Hk, device=q.device)[None, :, None]
+    kg = k_cache[bidx, idx, hidx]  # (B, Hk, kmax, D)
+    vg = v_cache[bidx, idx, hidx]
+    qg = q.reshape(B, Hk, Hq // Hk, D).float()
+    logits = torch.einsum("bhgd,bhkd->bhgk", qg, kg.float()) * scale
+    logits = torch.where(idx_valid[:, :, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgk,bhkd->bhgd", probs, vg.float())
+    return out.reshape(B, Hq, D).to(q.dtype)

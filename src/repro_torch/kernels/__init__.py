@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels for the port's serving hot path.
+"""Hand-written Hopper kernels of the port: the serving hot path and the
+paper layer.
 
 Each kernel package ships three files, mirroring ``repro.kernels``:
   ref.py    — the plain PyTorch version of the function (the CPU path and
@@ -26,6 +27,12 @@ Kernels:
                     chunked, full masks): the attention of every layer of
                     the whole-sequence forward (eager admission,
                     whole-batch prefill)
+  bgpp_score      — one BGPP round: the masked bit-plane score of every key
+                    for every query head, dead key tiles skipped (each round
+                    of ``core.bgpp.bgpp_predict`` / ``bgpp_predict_batched``)
+  brcr_gemm       — BRCR GEMM: ``w_q @ x`` from the signed-plane group
+                    patterns through the MAV and E @ Z (``core.brcr.
+                    brcr_matmul``)
 
 ``LAUNCHES`` counts kernel launches by name.  Each wrapper adds one where
 it launches its CUDA kernel and nowhere else, so a run can show that the
@@ -44,6 +51,8 @@ LAUNCHES: Dict[str, int] = {
     "bstc_matmul": 0,
     "bstc_decode": 0,
     "flash_attention": 0,
+    "bgpp_score": 0,
+    "brcr_gemm": 0,
 }
 
 

@@ -146,12 +146,24 @@ def _declare(lib: ctypes.CDLL) -> None:
         L, L, L, L, L, L, L, L, L,  # q, k, v strides: batch, sequence, head
         I, I, I, I, F, P,  # dtype code, mask code, window, q_offset, scale, stream
     ]
+    lib.bgpp_score_launch.argtypes = [
+        P, P, P, P, P,  # q, plane, sign, alive, out
+        I, I, I, I, I,  # Q rows, S, packed D, Hq, g
+        L, L, L, L, L, L, P,  # plane / sign strides: batch, token, head; stream
+    ]
+    lib.brcr_gemm_launch.argtypes = [
+        P, P, P, I, L, L,  # group_idx, plane weights, x, x dtype, x strides
+        P, L, L,  # out, out strides
+        I, I, I, I, I, P,  # P planes, G, H, N, m, stream
+    ]
     for fn in (lib.paged_flash_decode_dense_launch,
                lib.paged_flash_decode_int8_launch,
                lib.bgpp_paged_attend_launch,
                lib.bstc_decode_launch,
                lib.bstc_matmul_launch,
-               lib.flash_attention_launch):
+               lib.flash_attention_launch,
+               lib.bgpp_score_launch,
+               lib.brcr_gemm_launch):
         fn.restype = ctypes.c_int
 
 

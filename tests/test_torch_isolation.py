@@ -36,8 +36,10 @@ def test_scan_sees_the_package():
     names = {p.name for p in _files()}
     assert {"scheduler.py", "engine.py", "kv_cache.py", "ops.py", "chip_smoke.py",
             "weights.py", "bstc.py", "roofline.py", "interop.py", "attention.py",
-            "transformer.py"} <= names
-    assert PORT / "kernels" / "flash_attention" / "ops.py" in _files()
+            "transformer.py", "brcr.py", "quantization.py", "topk.py", "synthetic.py",
+            "quickstart.py", "bgpp_sparse_attention.py"} <= names
+    for k in ("flash_attention", "bgpp_score", "brcr_gemm"):
+        assert PORT / "kernels" / k / "ops.py" in _files()
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
-        "bgpp_paged_attend.cu", "bstc_decode.cu", "bstc_matmul.cu", "flash_attention.cu",
-        "paged_flash_decode.cu"]
+        "bgpp_paged_attend.cu", "bgpp_score.cu", "brcr_gemm.cu", "bstc_decode.cu",
+        "bstc_matmul.cu", "flash_attention.cu", "paged_flash_decode.cu"]

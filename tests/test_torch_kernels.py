@@ -236,7 +236,7 @@ class TestBstcCpuRouting:
         proof of the path)."""
         assert set(LAUNCHES) == {"paged_flash_decode_bf16", "paged_flash_decode_int8",
                                  "bgpp_paged_attend", "bstc_matmul", "bstc_decode",
-                                 "flash_attention"}
+                                 "flash_attention", "bgpp_score", "brcr_gemm"}
         rng = np.random.default_rng(11)
         w = (rng.integers(-127, 128, (32, 64)) * (rng.random((32, 64)) < 0.1)).astype(np.int8)
         ops = prepare_bstc_matmul_operands(_t(w), _t(np.ones(32, np.float32)), tile_k=32)
@@ -274,6 +274,39 @@ class TestFlashAttentionRouting:
         with pytest.raises(ValueError, match="no kernel for device"):
             tattention.blocked_attend(q, k, k)
         assert LAUNCHES["flash_attention"] == 0
+
+
+class TestPaperLayerRouting:
+    def test_off_cpu_never_takes_the_plain_version(self, monkeypatch):
+        """The paper layer's entry points route like the serving ones: off
+        the CPU ``brcr_matmul`` and the BGPP predictors reach their kernel
+        wrappers (``brcr_gemm``, ``bgpp_score``), which launch or raise.
+        Meta tensors stand in for a device with no kernel; the plain
+        versions are made to fail so a fallback would show, and no count
+        moves."""
+        from repro_torch.core import bgpp as tbgpp
+        from repro_torch.core import brcr as tbrcr
+        from repro_torch.kernels.bgpp_score import ops as score_ops
+        from repro_torch.kernels.brcr_gemm import ops as brcr_ops
+
+        def no_plain(*a, **kw):
+            raise AssertionError("took the plain version off the CPU")
+
+        monkeypatch.setattr(score_ops, "bgpp_score_heads_ref", no_plain)
+        monkeypatch.setattr(brcr_ops, "brcr_gemm_ref", no_plain)
+        meta = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device="meta")
+        reset_launches()
+        with pytest.raises(ValueError, match="no kernel for device"):
+            tbrcr.brcr_matmul(meta(8, 32, dtype=torch.int8), meta(32, 4, dtype=torch.int32))
+        with pytest.raises(ValueError, match="no kernel for device"):
+            tbgpp.bgpp_predict(meta(16, dtype=torch.int32), meta(7, 40, 16, dtype=torch.uint8),
+                               meta(40, 16, dtype=torch.uint8))
+        with pytest.raises(ValueError, match="no kernel for device"):
+            tbgpp.bgpp_predict_batched(meta(2, 6, 16, dtype=torch.int32),
+                                       meta(7, 2, 40, 2, 16, dtype=torch.uint8),
+                                       meta(2, 40, 2, 16, dtype=torch.uint8))
+        assert {"bgpp_score", "brcr_gemm"} <= set(LAUNCHES)
+        assert all(n == 0 for n in LAUNCHES.values()), dict(LAUNCHES)
 
 
 def _jax_topk_indices(q, ops, phys, pos, rounds, k_max, surv):
