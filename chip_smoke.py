@@ -13,8 +13,11 @@ Phases, each of which fails the run (nonzero exit) on any error:
    paths' shapes against its plain PyTorch version on the card, and times
    kernel, plain version and, where one exists, library calls: the decode
    attends (Hk=8, g=3, D=128, S=1024, page 16, shuffled page tables with
-   -1 pages), the fused BSTC decode + GEMV at every full-width projection
-   shape with N = 4 columns, the BSTC plane decode on the coded planes
+   -1 pages; K1 also at B 1, S 32768, timed, and with every position in
+   its first block's lanes and one at -1, each body launched twice and
+   required to give identical bits), the fused BSTC decode + GEMV at
+   every full-width projection shape with N = 4 columns, the BSTC plane
+   decode on the coded planes
    of a full-width 3072 x 3072 matrix, and the forward's flash attention
    (Hq 24, Hk 8, D 128, bf16: causal at B 1 / S 512, B 1 / S 301 and
    B 4 / S 512; sliding and chunked with window 256; full; q_offset 256;
@@ -156,79 +159,133 @@ def kernel_record(name, source, replaces, err, ms, plain_ms, nbytes, ops, kind, 
     return rec
 
 
+K1_SOURCE = "src/repro_torch/csrc/paged_flash_decode.cu"
+K1_REPLACES = {"bf16": "src/repro/kernels/paged_flash_decode/kernel.py:65",
+               "int8": "src/repro/kernels/paged_flash_decode/kernel.py:85"}
+
+
+def k1_inputs(device, seed, B, S, pos, page, Hk, g, D):
+    """Seeded K1 operands at one geometry: f32 q ``(B, Hk, g, D)`` and K/V
+    ``(B * S, Hk, D)`` over a shuffled page table (:func:`_shuffled_table`)
+    of the slots' positions ``pos``."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    pos = torch.tensor(pos, dtype=torch.int32)
+    pp = S // page
+    table = _shuffled_table(gen, B, pp, B * pp, pos, page, device)
+    dg = torch.Generator(device=device).manual_seed(seed + 1)
+    q = torch.randn((B, Hk, g, D), generator=dg, device=device)
+    kf = torch.randn((B * S, Hk, D), generator=dg, device=device)
+    vf = torch.randn((B * S, Hk, D), generator=dg, device=device)
+    return q, kf, vf, table, pos.to(device)
+
+
+def k1_case(label, q, kf, vf, table, pos, page, flush=None):
+    """Both K1 bodies on one input set.  Each: two launches on the same
+    inputs give identical bits, and the output is held against the plain
+    version by :func:`check_rows` (int8: plus one probability-code step).
+    With ``flush``, each body is timed against its plain version and (bf16)
+    ``scaled_dot_product_attention`` on the gathered view, and its record
+    (:func:`kernel_record`) is returned; the ``[kernel]`` line names the
+    plan's cluster size, lanes a block and blocks."""
+    import torch
+
+    from repro_torch.kernels import paged_flash_decode as pfd_ops
+    from repro_torch.kernels.paged_flash_decode import kernel as pfd_kernel
+    from repro_torch.kernels.paged_flash_decode.ref import (
+        int8_code_step, paged_flash_decode_ref)
+    from repro_torch.serving import kv_cache as kvc
+
+    B, Hk, g, D = q.shape
+    pp = table.shape[1]
+    S = pp * page
+    device = q.device
+    C, L, _ = pfd_kernel.plan(B, Hk, g, D, pp, page, pfd_kernel.sm_count(device))
+    where = f" {label} (C {C}, L {L}, {B * Hk * C} blocks)"
+    phys = kvc.phys_table(table, page, S).long()
+    kv_view = lambda a: a[phys].movedim(2, 1)  # (B, Hk, S, ...)
+    valid = torch.arange(S, device=device)[None, :] <= pos[:, None]  # (B, S)
+    n_valid = [S if int(p) < 0 else min(int(p) + 1, S) for p in pos.cpu()]
+    rows = sum(n_valid) * Hk
+    io_bytes = q.numel() * 4 * 2 + table.numel() * 4 + B * 4  # q, out, table, pos
+    bodies = {"bf16": ((kf.to(torch.bfloat16), vf.to(torch.bfloat16)), {}, None)}
+    kq, ks = kvc.quantize_kv(kf)
+    vq, vs = kvc.quantize_kv(vf)
+    step = int8_code_step(q[:, :, :, None], kv_view(kq), kv_view(ks), kv_view(vs),
+                          valid[:, None, None, None, :])[..., 0]
+    bodies["int8"] = ((kq, vq), dict(k_scale=ks, v_scale=vs), step)
+    del kf, vf
+    records = []
+    for body, ((k, v), scales, tol_step) in bodies.items():
+        run = lambda: pfd_ops.paged_flash_decode(q, k, v, table, pos, page_size=page,
+                                                 **scales)
+        plain = lambda: paged_flash_decode_ref(q, k, v, table, pos, page_size=page, **scales)
+        got, again, want = run(), run(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"paged_flash_decode {body}{where}: two launches on the "
+                                 f"same inputs differ")
+        err = check_rows(f"paged_flash_decode {body}{where}", got, want, tol_step)
+        if flush is None:
+            print(f"[kernel] paged_flash_decode_{body}{where}: max_abs_err={err:.3e}, two "
+                  f"launches bit-identical")
+            continue
+        lib_ms = None
+        if body == "bf16":
+            kview, vview = kv_view(k), kv_view(v)
+            qh = q.reshape(B, Hk * g, 1, D).to(torch.bfloat16)
+            mask = valid[:, None, None, :]
+            lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kview, vview, attn_mask=mask, enable_gqa=True), flush=flush)
+            del kview, vview
+        row_bytes = 2 * D * k.element_size() + (8 if scales else 0)  # K, V (+ 2 scales)
+        records.append(kernel_record(
+            f"paged_flash_decode_{body}", K1_SOURCE, K1_REPLACES[body], err,
+            time_ms(run, flush=flush), time_ms(plain, flush=flush),
+            rows * row_bytes + io_bytes, rows * 4 * g * D, body, lib_ms,
+            label=where + ", two launches bit-identical"))
+    return records
+
+
 def kernel_phase(device, flush):
     """Hold the decode attend kernels against their plain versions at the
     main path's shapes; return their JSON records (launches filled in
-    later)."""
+    later).  K1 also runs a long context (B 1, S 32768, timed) and an
+    early-exit case (every position inside the first block's lanes, one
+    slot at -1), and two launches on the same inputs must give the same
+    bits."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import bgpp_paged_attend as bgpp_ops
-    from repro_torch.kernels import paged_flash_decode as pfd_ops
     from repro_torch.kernels.bgpp_paged_attend.ref import (
         bgpp_paged_attend_ref, rows_at, rows_per_head)
-    from repro_torch.kernels.paged_flash_decode.ref import (
-        int8_code_step, paged_flash_decode_ref)
+    from repro_torch.kernels.paged_flash_decode import kernel as pfd_kernel
+    from repro_torch.kernels.paged_flash_decode.ref import int8_code_step
     from repro_torch.serving import kv_cache as kvc
 
     cfg = get_config("phi4-mini-3.8b")
     B, Hk, D = 4, cfg.num_kv_heads, cfg.head_dim
     g = cfg.num_heads // cfg.num_kv_heads
     S, page = 1024, 16
-    pp = S // page
-    n_pages = B * pp
-    n_tok = n_pages * page
-    gen = torch.Generator(device="cpu").manual_seed(0)
     # page ends, a page start, and a context shorter than BGPP's k_max
-    pos = torch.tensor([S - 1, 100, 20 * page - 1, 33 * page], dtype=torch.int32)
-    table = _shuffled_table(gen, B, pp, n_pages, pos, page, device)
-    pos = pos.to(device)
+    q, kf, vf, table, pos = k1_inputs(device, 0, B, S, [S - 1, 100, 20 * page - 1, 33 * page],
+                                      page, Hk, g, D)
     n_valid = [min(int(p) + 1, S) for p in pos.cpu()]
-    dg = torch.Generator(device=device).manual_seed(1)
-    q = torch.randn((B, Hk, g, D), generator=dg, device=device)
-    kf = torch.randn((n_tok, Hk, D), generator=dg, device=device)
-    vf = torch.randn((n_tok, Hk, D), generator=dg, device=device)
-    records = []
-    record = lambda *a: records.append(kernel_record(*a))
-
-    io_bytes = q.numel() * 4 * 2 + table.numel() * 4 + B * 4  # q, out, table, pos
-    # ---- K1 bf16 ------------------------------------------------------------
-    k, v = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
-    run = lambda: pfd_ops.paged_flash_decode(q, k, v, table, pos, page_size=page)
-    plain = lambda: paged_flash_decode_ref(q, k, v, table, pos, page_size=page)
-    got, want = run(), plain()
-    torch.cuda.synchronize()
-    err = check_rows("paged_flash_decode bf16", got, want)
-    phys = kvc.phys_table(table, page, S)
-    kv_view = lambda a: a[phys.long()].movedim(2, 1)  # (B, Hk, S, ...)
-    kview, vview = kv_view(k), kv_view(v)
-    valid = torch.arange(S, device=device)[None, :] <= pos[:, None]  # (B, S)
-    mask = valid[:, None, None, :]
-    qh = q.reshape(B, Hk * g, 1, D).to(torch.bfloat16)
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-        qh, kview, vview, attn_mask=mask, enable_gqa=True)
-    rows = sum(n_valid) * Hk
-    record("paged_flash_decode_bf16", "src/repro_torch/csrc/paged_flash_decode.cu",
-           "src/repro/kernels/paged_flash_decode/kernel.py:65", err,
-           time_ms(run, flush=flush), time_ms(plain, flush=flush),
-           rows * 2 * D * 2 + io_bytes, rows * 4 * g * D, "bf16",
-           time_ms(sdpa, flush=flush))
-    # ---- K1 int8 ------------------------------------------------------------
+    records = k1_case("decode geometry", q, kf, vf, table, pos, page, flush)
+    # ---- K1: a long context, and every slot ending in the first block ------
+    long_ctx = k1_inputs(device, 10, 1, 32768, [32767], page, Hk, g, D)
+    k1_case("long context S 32768", *long_ctx, page, flush)
+    del long_ctx
+    torch.cuda.empty_cache()
+    L = pfd_kernel.plan(B, Hk, g, D, S // page, page, pfd_kernel.sm_count(device)).L
+    k1_case("early exit", *k1_inputs(device, 20, B, S, [L - 1, 37, 0, -1], page, Hk, g, D),
+            page)
     kq, ks = kvc.quantize_kv(kf)
     vq, vs = kvc.quantize_kv(vf)
-    run = lambda: pfd_ops.paged_flash_decode(q, kq, vq, table, pos, page_size=page,
-                                             k_scale=ks, v_scale=vs)
-    plain = lambda: paged_flash_decode_ref(q, kq, vq, table, pos, page_size=page,
-                                           k_scale=ks, v_scale=vs)
-    got, want = run(), plain()
-    torch.cuda.synchronize()
-    step = int8_code_step(q[:, :, :, None], kv_view(kq), kv_view(ks), kv_view(vs),
-                          valid[:, None, None, None, :])[..., 0]
-    err = check_rows("paged_flash_decode int8", got, want, step)
-    record("paged_flash_decode_int8", "src/repro_torch/csrc/paged_flash_decode.cu",
-           "src/repro/kernels/paged_flash_decode/kernel.py:85", err,
-           time_ms(run, flush=flush), time_ms(plain, flush=flush),
-           rows * (2 * D + 8) + io_bytes, rows * 4 * g * D, "int8", None)
+    phys = kvc.phys_table(table, page, S)
+    io_bytes = q.numel() * 4 * 2 + table.numel() * 4 + B * 4  # q, out, table, pos
     # ---- K2 -----------------------------------------------------------------
     planes, sign = kvc.k_to_bitplanes(kq)
     rounds, k_max, surv = kvc.bgpp_decode_plan(S, cfg)
@@ -263,10 +320,10 @@ def kernel_phase(device, flush):
                         + sum(min(s, nv) for s in surv[1:]) * Dp  # round planes
                         + kv_rows * ((kvc.NBITS - rounds) * Dp + 4 + D + 4))
     ops = sum(Hk * (nv * g * D * 2 + k_max * g * D * 4) for nv in n_valid)
-    record("bgpp_paged_attend", "src/repro_torch/csrc/bgpp_paged_attend.cu",
-           "src/repro/kernels/bgpp_paged_attend/kernel.py:80", err,
-           time_ms(run, flush=flush), time_ms(plain, flush=flush),
-           nbytes, ops, "int8", None)
+    records.append(kernel_record(
+        "bgpp_paged_attend", "src/repro_torch/csrc/bgpp_paged_attend.cu",
+        "src/repro/kernels/bgpp_paged_attend/kernel.py:80", err,
+        time_ms(run, flush=flush), time_ms(plain, flush=flush), nbytes, ops, "int8", None))
     return records
 
 

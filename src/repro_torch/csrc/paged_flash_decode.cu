@@ -7,320 +7,718 @@
 // pos+1 K rows and pos+1 V rows of D values (plus two f32 scales per row in
 // the int8 body) and does about 4*g*D operations per row: with g = 3 that is
 // ~1.5 flops per byte in bf16, far below the ~295 the card needs before its
-// arithmetic is the limit.
-//
-// What the design does about it:
-//   * one block per (slot, kv-head); the block walks the slot's page list
-//     only up to page pos/page_size, so lanes past pos (probability exactly
-//     0 in the reference: exp(-1e30 - m) underflows) are never read;
-//   * the g query rows of the kv head share every K/V row read (GQA);
-//   * the g x span score rows live in dynamic shared memory, so K and V are
-//     each read once and nothing but the (g, D) output is written;
-//   * a warp scores one key row at a time (lanes split D), a thread owns one
-//     output column d for the PV sum, so each row read is coalesced.
-// Softmax is deferred, as in the reference: row max, exp, sum, normalise.
+// arithmetic is the limit.  So the design fills the card, widens the loads
+// and keeps the per-row instruction count low:
+//   * one thread-block cluster of C blocks per (slot, kv-head) cell (C <= 8,
+//     chosen on the host from static shapes: kernels/paged_flash_decode/
+//     kernel.py `plan`), so B*Hk*C blocks spread over the SMs, two blocks an
+//     SM fitting in registers (g <= 4).  Block c of a cluster owns the lanes
+//     [c*L, (c+1)*L) (whole pages) and reads them only up to the slot's
+//     position: lanes past pos have probability exactly 0 in the reference
+//     (exp(-1e30 - m) underflows).  A block whose lanes all lie past it
+//     reads nothing but joins every cluster barrier;
+//   * the warps split the block's rows; a row's D/VEC threads each load 16
+//     bytes of it (8 bf16, 4 f32 or 16 int8 values), double-buffered a few
+//     rows ahead, and the g query rows of the kv head share every row read
+//     (GQA).  The row geometry is a template constant, and a row's partial
+//     dot products are summed by one halving butterfly over all the rows
+//     and query rows of a batch (each shuffle carries a distinct value);
+//   * the block's page ids are read once into shared memory (page size a
+//     power of two), so a row's pool index is a shared load and a shift;
+//     shared memory holds that map, the block's g x L scores and the warps'
+//     (g, D) partial sums: the context cap is C*L lanes at C = 8
+//     (kernel.py `max_lanes`);
+//   * the first V rows are loaded before the softmax's cluster barriers.
+// Softmax is deferred, as in the reference (row max, exp, sum, normalise),
+// with the statistics reduced across the cluster through distributed shared
+// memory: each block publishes one partial per g row, and after a cluster
+// barrier every block combines the C partials in rank order, so all blocks
+// see the same max and sum and exp(s - m) has the plain version's argument.
+// PV: each warp keeps its (g, D) partial sums in registers, the block adds
+// its warps' sums in shared memory, and each rank adds one slice of the C
+// blocks' sums and writes that slice of the output.  No reduction uses
+// atomics and every order is fixed: two launches give the same bits.
 // The int8 body follows the engine's A2/A3 sequence: q quantised per row
-// with rintf (half to even, like jnp.round), an exact int32 QK dot, the
-// (i32 * q_scale) * k_scale * D^-1/2 rescale in that order, v_scale folded
-// into the probabilities, probabilities quantised to [0, 127], an int8 PV
-// sum (exact integers) times w_scale.
+// with rintf (half to even, like jnp.round), an exact int32 QK dot (dp4a),
+// the (i32 * q_scale) * k_scale * D^-1/2 rescale in that order, v_scale
+// folded into the probabilities, probabilities quantised to [0, 127]
+// against the cluster-wide max, an int8 PV sum (exact integers, so its
+// order does not matter) times w_scale.
+// Left for later: TMA / cp.async page loads, tensor cores (mma with g
+// padded to 16 rows).
 //
 // Pools are addressed through strides (token, head), so the slot layout's
 // heads-major stacks feed the same kernel through an identity page table
 // without a copy.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr float kNegInf = -1e30f;  // repro.core.attention.NEG_INF
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;      // kernel.py THREADS
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 8;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// Block-wide reductions; `red` holds 32 floats of shared memory.  The
-// leading barrier lets a caller reduce twice in a row with one buffer.
-__device__ float block_max(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    int nw = blockDim.x >> 5;
-    v = threadIdx.x < nw ? red[threadIdx.x] : -INFINITY;
-    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    if (threadIdx.x == 0) red[0] = v;
-  }
-  __syncthreads();
-  return red[0];
-}
-
-__device__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    int nw = blockDim.x >> 5;
-    v = threadIdx.x < nw ? red[threadIdx.x] : 0.f;
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (threadIdx.x == 0) red[0] = v;
-  }
-  __syncthreads();
-  return red[0];
-}
+constexpr int kMaxCluster = 8;  // kernel.py MAX_CLUSTER
+constexpr int kUnroll = 4;  // rows a thread loads a batch (two batches in flight)
+// Shared-memory header (floats; kernel.py HEADER): the block's partial max,
+// sum and (int8) w max of each g row, the cluster-wide ones, the warps'
+// scratch and the int8 query scales.  Then (kWarps, g, D) PV partials, the
+// (g, L) scores and the block's L / P page bases.
+constexpr int kHeader = 128;
+constexpr int kPMax = 0, kPSum = 8, kPW = 16, kGMax = 24, kGSum = 32, kGW = 40, kScratch = 48,
+              kQScale = kScratch + kWarps * kMaxG;  // + kMaxG = 120 <= kHeader
+constexpr int kMaxDevices = 64;
 
 // Lanes this cell reads: 0..pos.  A negative pos (no valid lane) reads the
 // whole span, where the reference's all-masked softmax is uniform.
 __device__ __forceinline__ int span_of(int p, int S) { return p < 0 ? S : min(p + 1, S); }
 
-// Physical pool row of every lane < n into rows[]: lanes on unmapped (-1)
-// pages read row 0, as kv_cache.phys_table maps them (a live slot masks
-// them by position; an idle slot's garbage row then matches the plain
-// version's exactly).
-__device__ void page_rows(const int* __restrict__ page_ids, int b, int pp, int P, int n,
-                          int* rows) {
-  for (int s = threadIdx.x; s < n; s += blockDim.x) {
-    int pid = page_ids[(long long)b * pp + s / P];
-    rows[s] = pid < 0 ? 0 : pid * P + s % P;
-  }
+__device__ __forceinline__ uint4 load16(const char* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
-// Deferred softmax of each of the g rows of sc (row stride S) over lanes < n.
-__device__ void softmax_rows(float* sc, int g, int S, int n, float* red) {
-  for (int gi = 0; gi < g; ++gi) {
-    float* row = sc + (long long)gi * S;
-    float m = -INFINITY;
-    for (int s = threadIdx.x; s < n; s += blockDim.x) m = fmaxf(m, row[s]);
-    m = block_max(m, red);
-    float sum = 0.f;
-    for (int s = threadIdx.x; s < n; s += blockDim.x) {
-      float e = expf(row[s] - m);
-      row[s] = e;
-      sum += e;
+// 16 loaded bytes -> f32 values (bf16: the high half of an f32, exactly)
+__device__ __forceinline__ void unpack(const uint4& r, float (&f)[8]) {
+  const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void unpack(const uint4& r, float (&f)[4]) {
+  f[0] = __uint_as_float(r.x);
+  f[1] = __uint_as_float(r.y);
+  f[2] = __uint_as_float(r.z);
+  f[3] = __uint_as_float(r.w);
+}
+
+// Signed byte k of w.
+__device__ __forceinline__ int sbyte(unsigned w, int k) { return (int)(w << (24 - 8 * k)) >> 24; }
+
+// Row geometry of a D-wide row of T: TPR threads a row, each one 16-byte
+// chunk of VEC values.
+template <typename T, int D>
+struct Rows {
+  static constexpr int VEC = 16 / sizeof(T);
+  static constexpr int TPR = D / VEC;
+  static_assert(D % VEC == 0 && TPR >= 1 && TPR <= 32 && (TPR & (TPR - 1)) == 0,
+                "a row must be 16 B times a power of two, at most 512 B");
+};
+
+// One step of `fold`: O is the step's lane offset, v[0, LIVE) the values
+// still live.  Everything is a template constant, so v stays in registers.
+template <int O, int LIVE, int N, typename V>
+__device__ __forceinline__ void fold_step(V (&v)[N], int sub) {
+  if constexpr (O >= 1) {
+    if constexpr (LIVE >= 2) {
+      constexpr int h = LIVE / 2;
+      const bool up = sub & O;
+#pragma unroll
+      for (int j = 0; j < h; ++j) {
+        const V send = up ? v[j] : v[j + h];
+        const V keep = up ? v[j + h] : v[j];
+        v[j] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+      }
+      fold_step<O / 2, h>(v, sub);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+      fold_step<O / 2, 1>(v, sub);
     }
-    sum = block_sum(sum, red);
-    for (int s = threadIdx.x; s < n; s += blockDim.x) row[s] = row[s] / sum;
-    __syncthreads();
+  }
+}
+// Sum each of the N values of v over the TPR lanes of this lane's row group
+// (sub = 0..TPR-1), halving the values at each step, so each shuffle
+// carries a distinct value.  On return v[0, CNT) hold the totals of values
+// [sub * N / TPR, + CNT), CNT = max(1, N / TPR); the order is fixed.
+template <int TPR, int N, typename V>
+__device__ __forceinline__ void fold(V (&v)[N], int sub) {
+  fold_step<TPR / 2, N>(v, sub);
+}
+
+// Combine each thread's v[gi] over the block (max or sum; lanes by a fixed
+// butterfly, warps in order) into hdr[dst + gi], gi < g.  The caller's next
+// barrier publishes it.
+template <int G, bool kMax>
+__device__ void block_reduce(float (&v)[G], int g, float* hdr, int dst) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    float x = v[gi];
+    for (int o = 16; o > 0; o >>= 1) {
+      const float y = __shfl_xor_sync(0xffffffffu, x, o);
+      x = kMax ? fmaxf(x, y) : x + y;
+    }
+    if (lane == 0) hdr[kScratch + warp * kMaxG + gi] = x;
+  }
+  __syncthreads();
+  if (threadIdx.x < g) {
+    float x = hdr[kScratch + threadIdx.x];
+    for (int w = 1; w < kWarps; ++w) {
+      const float y = hdr[kScratch + w * kMaxG + threadIdx.x];
+      x = kMax ? fmaxf(x, y) : x + y;
+    }
+    hdr[dst + threadIdx.x] = x;
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) dense_kernel(
+// After a cluster barrier: combine hdr[src + gi] of the cluster's blocks in
+// rank order into this block's hdr[dst + gi], gi < g.
+// The C cluster blocks' copies of at[i], all loads in flight together.
+template <typename A>
+__device__ __forceinline__ void gather_ranks(cg::cluster_group& cluster, A* at, int i,
+                                             A (&y)[kMaxCluster]) {
+  const int C = cluster.num_blocks();
+#pragma unroll
+  for (int c = 0; c < kMaxCluster; ++c)
+    if (c < C) y[c] = cluster.map_shared_rank(at, c)[i];
+}
+
+template <bool kMax>
+__device__ void cluster_reduce(cg::cluster_group& cluster, float* hdr, int src, int dst, int g) {
+  if (threadIdx.x < g) {
+    float y[kMaxCluster];
+    gather_ranks(cluster, hdr, src + threadIdx.x, y);
+    float x = y[0];
+#pragma unroll
+    for (int c = 1; c < kMaxCluster; ++c)
+      if (c < (int)cluster.num_blocks()) x = kMax ? fmaxf(x, y[c]) : x + y[c];
+    hdr[dst + threadIdx.x] = x;
+  }
+  __syncthreads();
+}
+
+// The deferred softmax of the block's (g, n) logits sc (row stride L) over
+// the whole cluster.  Leaves exp(s - m) / sum in sc.
+template <int G>
+__device__ void cluster_softmax(cg::cluster_group& cluster, float* hdr, float* sc, int g, int L,
+                                int n) {
+  __syncthreads();  // the logits are in place
+  float part[G];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    part[gi] = -INFINITY;
+    if (gi >= g) continue;
+    for (int i = threadIdx.x; i < n; i += kThreads) part[gi] = fmaxf(part[gi], sc[gi * L + i]);
+  }
+  block_reduce<G, true>(part, g, hdr, kPMax);
+  cluster.sync();
+  cluster_reduce<true>(cluster, hdr, kPMax, kGMax, g);
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    part[gi] = 0.f;
+    if (gi >= g) continue;
+    const float m = hdr[kGMax + gi];
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      const float e = expf(sc[gi * L + i] - m);
+      sc[gi * L + i] = e;
+      part[gi] += e;
+    }
+  }
+  block_reduce<G, false>(part, g, hdr, kPSum);
+  cluster.sync();
+  cluster_reduce<false>(cluster, hdr, kPSum, kGSum, g);
+  for (int gi = 0; gi < g; ++gi) {
+    const float tot = hdr[kGSum + gi];
+    for (int i = threadIdx.x; i < n; i += kThreads) sc[gi * L + i] = sc[gi * L + i] / tot;
+  }
+  __syncthreads();
+}
+
+// Add the warps' (g, D) partials (part, warp stride E = g*D) into part[0],
+// then, after a cluster barrier, the C blocks' sums in rank order: rank r
+// writes its slice of the cell's output (int8: times that row's w_scale).
+// A last cluster barrier keeps every block's shared memory alive until all
+// ranks have read it.
+template <typename A>
+__device__ void cluster_output(cg::cluster_group& cluster, A* part, int E, int D,
+                               float* __restrict__ out, const float* hdr, bool int8) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < E; i += kThreads) {
+    A x = part[i];
+    for (int w = 1; w < kWarps; ++w) x += part[w * E + i];
+    part[i] = x;
+  }
+  cluster.sync();
+  const int C = cluster.num_blocks(), per = (E + C - 1) / C;
+  const int i0 = cluster.block_rank() * per, i1 = min(E, i0 + per);
+  for (int i = i0 + threadIdx.x; i < i1; i += kThreads) {
+    A y[kMaxCluster];
+    gather_ranks(cluster, part, i, y);
+    A x = y[0];
+#pragma unroll
+    for (int c = 1; c < kMaxCluster; ++c)
+      if (c < C) x += y[c];
+    out[i] = int8 ? (float)x * (fmaxf(hdr[kGW + i / D], 1e-20f) / 127.0f) : (float)x;
+  }
+  cluster.sync();
+}
+
+// Where a block and a thread sit: the cluster's (slot, kv-head) cell, the
+// block's lanes [lo, hi) and its page bases in shared memory, and the
+// thread's chunk `sub` of a row and row offset `rs` in a warp step.
+struct Cell {
+  int cell, b, h, p, lo, hi, sub, rs, first, step, logP, page0;
+  const int* base;  // first pool row of the block's j-th page, -1: unmapped
+
+  // Reads pos and writes the block's page bases (lanes on unmapped -1 pages
+  // read row 0, as kv_cache.phys_table maps them: a live slot masks them by
+  // position; an idle slot's garbage row then matches the plain version's).
+  __device__ Cell(cg::cluster_group& cluster, const int* __restrict__ pos,
+                  const int* __restrict__ page_ids, int* smem_base, int Hk, int pp, int logP_,
+                  int L, int tpr) {
+    cell = blockIdx.x / cluster.num_blocks();
+    b = cell / Hk;
+    h = cell % Hk;
+    logP = logP_;
+    lo = cluster.block_rank() * L;
+    const int pages = L >> logP;
+    page0 = lo >> logP;
+    for (int j = threadIdx.x; j < pages; j += kThreads) {
+      const int pid = page0 + j < pp ? __ldg(page_ids + (long long)b * pp + page0 + j) : -1;
+      smem_base[j] = pid < 0 ? -1 : pid << logP;
+    }
+    base = smem_base;
+    p = pos[b];
+    hi = max(lo, min(lo + L, span_of(p, pp << logP)));  // hi == lo: nothing to read
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, rpw = 32 / tpr;
+    sub = lane % tpr;
+    rs = lane / tpr;
+    first = lo + warp * rpw;  // warp-uniform
+    step = kWarps * rpw;      // rows a block step
+  }
+  __device__ long long row(int s) const {
+    const int r = base[(s >> logP) - page0];
+    return r < 0 ? 0 : r + (s & ((1 << logP) - 1));
+  }
+  __device__ int lane_of(int s0, int u) const { return s0 + u * step + rs; }
+};
+
+// Load this thread's 16-byte chunk of kUnroll rows from s0 on (rows >= lim
+// read as zero).  `at` is the chunk's address in pool row 0.
+__device__ __forceinline__ void load_rows(uint4 (&raw)[kUnroll], const Cell& c, const char* at,
+                                          long long row_bytes, int s0, int lim) {
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int s = c.lane_of(s0, u);
+    raw[u] = s < lim ? load16(at + c.row(s) * row_bytes) : make_uint4(0, 0, 0, 0);
+  }
+}
+
+template <typename T, int G, int D>
+__global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) dense_kernel(
     const float* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ page_ids, const int* __restrict__ pos, float* __restrict__ out,
-    int Hk, int g, int D, int pp, int P, long long tok_stride, long long head_stride,
+    int Hk, int g, int pp, int logP, int L, long long tok_stride, long long head_stride,
     float scale) {
-  extern __shared__ float smem[];
-  const int S = pp * P;
-  const int b = blockIdx.x / Hk, h = blockIdx.x % Hk;
-  const int p = pos[b];
-  const int n = span_of(p, S);
-  float* qs = smem;                       // (g, D)
-  float* sc = qs + g * D;                 // (g, S)
-  float* red = sc + (long long)g * S;     // (32,)
-  int* rows = reinterpret_cast<int*>(red + 32);  // (S,)
+  using R = Rows<T, D>;
+  constexpr int VEC = R::VEC, TPR = R::TPR, N = kUnroll * G;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  float* hdr = reinterpret_cast<float*>(smem4);
+  float* part = hdr + kHeader;                           // (kWarps, g, D)
+  float* sc = part + kWarps * g * D;                     // (g, L) logits -> probabilities
+  int* pages = reinterpret_cast<int*>(sc + g * L);       // (L / P,)
+  const Cell c(cluster, pos, page_ids, pages, Hk, pp, logP, L, TPR);
+  const int E = g * D;
+  const long long row_bytes = tok_stride * (long long)sizeof(T);
+  const char* kat = reinterpret_cast<const char*>(k + c.h * head_stride) + c.sub * 16;
+  const char* vat = reinterpret_cast<const char*>(v + c.h * head_stride) + c.sub * 16;
 
-  const float* qb = q + (long long)blockIdx.x * g * D;
-  for (int i = threadIdx.x; i < g * D; i += blockDim.x) qs[i] = qb[i];
-  page_rows(page_ids, b, pp, P, n, rows);
-  __syncthreads();
+  __syncthreads();  // the page bases are in place
 
-  const T* kh = k + h * head_stride;
-  const T* vh = v + h * head_stride;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  for (int s = warp; s < n; s += nw) {
-    const T* kr = kh + rows[s] * tok_stride;
-    float acc[kMaxG];
+  // QK: the logits of the block's lanes (K rows read only up to pos)
+  const int klim = c.p < 0 ? c.lo : c.hi;
+  uint4 raw[kUnroll], nxt[kUnroll];
+  load_rows(raw, c, kat, row_bytes, c.first, klim);
+  float qv[G][VEC];
 #pragma unroll
-    for (int gi = 0; gi < kMaxG; ++gi) acc[gi] = 0.f;
-    for (int d = lane; d < D; d += 32) {
-      float kd = to_f(kr[d]);
+  for (int gi = 0; gi < G; ++gi)
 #pragma unroll
-      for (int gi = 0; gi < kMaxG; ++gi)
-        if (gi < g) acc[gi] += qs[gi * D + d] * kd;
+    for (int j = 0; j < VEC; ++j)
+      qv[gi][j] = gi < g ? q[(long long)c.cell * E + gi * D + c.sub * VEC + j] : 0.f;
+  for (int s0 = c.first; s0 < c.hi; s0 += c.step * kUnroll) {
+    load_rows(nxt, c, kat, row_bytes, s0 + c.step * kUnroll, klim);
+    float val[N];  // (u, gi) partial dots of this thread's chunk
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      float kf[VEC];
+      unpack(raw[u], kf);
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        float a = 0.f;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) a = fmaf(qv[gi][j], kf[j], a);
+        val[u * G + gi] = a;
+      }
+    }
+    fold<TPR>(val, c.sub);
+    constexpr int CNT = N >= TPR ? N / TPR : 1, GRP = N >= TPR ? 1 : TPR / N;
+    if (c.sub % GRP == 0) {
+#pragma unroll
+      for (int j = 0; j < CNT; ++j) {
+        const int idx = c.sub * N / TPR + j, gi = idx % G;
+        const int s = c.lane_of(s0, idx / G);
+        if (gi < g && s < c.hi) sc[gi * L + (s - c.lo)] = s <= c.p ? val[j] * scale : kNegInf;
+      }
     }
 #pragma unroll
-    for (int gi = 0; gi < kMaxG; ++gi) {
-      if (gi >= g) break;
-      float a = acc[gi];
-      for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
-      if (lane == 0) sc[(long long)gi * S + s] = s <= p ? a * scale : kNegInf;
-    }
+    for (int u = 0; u < kUnroll; ++u) raw[u] = nxt[u];
   }
-  __syncthreads();
-  softmax_rows(sc, g, S, n, red);
+  load_rows(raw, c, vat, row_bytes, c.first, c.hi);  // V, ahead of the softmax
+  cluster_softmax<G>(cluster, hdr, sc, g, L, c.hi - c.lo);
 
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float acc[kMaxG];
+  // PV: each thread sums its chunk of D over the warp's rows
+  float acc[G][VEC];
 #pragma unroll
-    for (int gi = 0; gi < kMaxG; ++gi) acc[gi] = 0.f;
-    for (int s = 0; s < n; ++s) {
-      float vd = to_f(vh[rows[s] * tok_stride + d]);
+  for (int gi = 0; gi < G; ++gi)
 #pragma unroll
-      for (int gi = 0; gi < kMaxG; ++gi)
-        if (gi < g) acc[gi] += sc[(long long)gi * S + s] * vd;
+    for (int j = 0; j < VEC; ++j) acc[gi][j] = 0.f;
+  for (int s0 = c.first; s0 < c.hi; s0 += c.step * kUnroll) {
+    load_rows(nxt, c, vat, row_bytes, s0 + c.step * kUnroll, c.hi);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int s = c.lane_of(s0, u);
+      if (s >= c.hi) continue;
+      float vf[VEC];
+      unpack(raw[u], vf);
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        if (gi >= g) break;
+        const float pr = sc[gi * L + (s - c.lo)];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) acc[gi][j] = fmaf(pr, vf[j], acc[gi][j]);
+      }
     }
-    for (int gi = 0; gi < g; ++gi) out[((long long)blockIdx.x * g + gi) * D + d] = acc[gi];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) raw[u] = nxt[u];
   }
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+#pragma unroll
+      for (int o = TPR; o < 32; o <<= 1)
+        acc[gi][j] += __shfl_xor_sync(0xffffffffu, acc[gi][j], o);
+  if (c.rs == 0) {
+    const int warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi)
+      if (gi < g)
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) part[warp * E + gi * D + c.sub * VEC + j] = acc[gi][j];
+  }
+  cluster_output(cluster, part, E, D, out + (long long)c.cell * E, hdr, false);
 }
 
-__global__ void __launch_bounds__(kThreads) int8_kernel(
+template <int G, int D>
+__global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) int8_kernel(
     const float* __restrict__ q, const int8_t* __restrict__ k, const int8_t* __restrict__ v,
     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
     const int* __restrict__ page_ids, const int* __restrict__ pos, float* __restrict__ out,
-    int Hk, int g, int D, int pp, int P, long long tok_stride, long long head_stride,
+    int Hk, int g, int pp, int logP, int L, long long tok_stride, long long head_stride,
     long long sc_tok_stride, long long sc_head_stride, float scale) {
-  extern __shared__ float smem[];
-  const int S = pp * P;
-  const int b = blockIdx.x / Hk, h = blockIdx.x % Hk;
-  const int p = pos[b];
-  const int n = span_of(p, S);
-  int* qq = reinterpret_cast<int*>(smem);  // (g, D) quantised query
-  float* sc = smem + g * D;                // (g, S) logits -> probs -> w codes
-  float* red = sc + (long long)g * S;      // (32,)
-  int* rows = reinterpret_cast<int*>(red + 32);  // (S,)
-  __shared__ float q_scale[kMaxG], w_scale[kMaxG];
+  using R = Rows<int8_t, D>;
+  constexpr int VEC = R::VEC, TPR = R::TPR, N = kUnroll * G;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  float* hdr = reinterpret_cast<float*>(smem4);
+  int* part = reinterpret_cast<int*>(hdr + kHeader);     // (kWarps, g, D)
+  float* sc = hdr + kHeader + kWarps * g * D;            // (g, L) logits -> probs -> codes
+  int* pages = reinterpret_cast<int*>(sc + g * L);       // (L / P,)
+  const Cell c(cluster, pos, page_ids, pages, Hk, pp, logP, L, TPR);
+  const int E = g * D;
+  const char* kat = reinterpret_cast<const char*>(k + c.h * head_stride) + c.sub * 16;
+  const char* vat = reinterpret_cast<const char*>(v + c.h * head_stride) + c.sub * 16;
+  const float* ksh = k_scale + c.h * sc_head_stride;
+  const float* vsh = v_scale + c.h * sc_head_stride;
 
-  // A2: per-row absmax/127 quantisation of the query
-  const float* qb = q + (long long)blockIdx.x * g * D;
-  for (int gi = 0; gi < g; ++gi) {
-    float m = 0.f;
-    for (int d = threadIdx.x; d < D; d += blockDim.x) m = fmaxf(m, fabsf(qb[gi * D + d]));
-    m = block_max(m, red);
-    float qs = fmaxf(m, 1e-8f) / 127.0f;
-    if (threadIdx.x == 0) q_scale[gi] = qs;
-    for (int d = threadIdx.x; d < D; d += blockDim.x)
-      qq[gi * D + d] = (int)fminf(fmaxf(rintf(qb[gi * D + d] / qs), -127.f), 127.f);
-  }
-  page_rows(page_ids, b, pp, P, n, rows);
-  __syncthreads();
-
-  const int8_t* kh = k + h * head_stride;
-  const int8_t* vh = v + h * head_stride;
-  const float* ksh = k_scale + h * sc_head_stride;
-  const float* vsh = v_scale + h * sc_head_stride;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  for (int s = warp; s < n; s += nw) {
-    const int8_t* kr = kh + rows[s] * tok_stride;
-    int acc[kMaxG];
+  __syncthreads();  // the page bases are in place
+  // QK's first K rows, in flight while the query is quantised
+  const int klim = c.p < 0 ? c.lo : c.hi;
+  uint4 raw[kUnroll], nxt[kUnroll];
+  float ks[kUnroll], ks_nxt[kUnroll];
+  const auto load_k = [&](uint4(&r)[kUnroll], float(&kss)[kUnroll], int s0) {
 #pragma unroll
-    for (int gi = 0; gi < kMaxG; ++gi) acc[gi] = 0;
-    for (int d = lane; d < D; d += 32) {
-      int kd = kr[d];
-#pragma unroll
-      for (int gi = 0; gi < kMaxG; ++gi)
-        if (gi < g) acc[gi] += qq[gi * D + d] * kd;
+    for (int u = 0; u < kUnroll; ++u) {
+      const int s = c.lane_of(s0, u);
+      const long long row = s < klim ? c.row(s) : 0;
+      r[u] = s < klim ? load16(kat + row * tok_stride) : make_uint4(0, 0, 0, 0);
+      kss[u] = s < klim ? __ldg(ksh + row * sc_tok_stride) : 0.f;
     }
-    const float ks = ksh[rows[s] * sc_tok_stride];
-#pragma unroll
-    for (int gi = 0; gi < kMaxG; ++gi) {
-      if (gi >= g) break;
-      int a = acc[gi];
-      for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
-      if (lane == 0)
-        sc[(long long)gi * S + s] = s <= p ? (float)a * q_scale[gi] * ks * scale : kNegInf;
+  };
+  load_k(raw, ks, c.first);
+  // A2: per-row absmax/127 quantisation of the query; the block's threads
+  // split the codes, staged as bytes in `part` (free until the PV phase)
+  const float* qb = q + (long long)c.cell * E;
+  if (threadIdx.x < 32) {
+    for (int gi = 0; gi < g; ++gi) {
+      float m = 0.f;
+      for (int d = threadIdx.x; d < D; d += 32) m = fmaxf(m, fabsf(qb[gi * D + d]));
+      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      if (threadIdx.x == 0) hdr[kQScale + gi] = fmaxf(m, 1e-8f) / 127.0f;
     }
   }
   __syncthreads();
-  softmax_rows(sc, g, S, n, red);
+  int8_t* codes = reinterpret_cast<int8_t*>(part);
+  for (int i = threadIdx.x; i < E; i += kThreads)
+    codes[i] = (int8_t)fminf(fmaxf(rintf(qb[i] / hdr[kQScale + i / D]), -127.f), 127.f);
+  __syncthreads();
+  int qc[G][4];  // the thread's 16 codes of each row, packed for dp4a
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    const int4 w = gi < g ? *reinterpret_cast<const int4*>(codes + gi * D + c.sub * VEC)
+                          : make_int4(0, 0, 0, 0);
+    qc[gi][0] = w.x;
+    qc[gi][1] = w.y;
+    qc[gi][2] = w.z;
+    qc[gi][3] = w.w;
+  }
+
+  // QK: exact int32 dots, rescaled in the reference's order
+  for (int s0 = c.first; s0 < c.hi; s0 += c.step * kUnroll) {
+    load_k(nxt, ks_nxt, s0 + c.step * kUnroll);
+    int val[N];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        int a = __dp4a((int)raw[u].x, qc[gi][0], 0);
+        a = __dp4a((int)raw[u].y, qc[gi][1], a);
+        a = __dp4a((int)raw[u].z, qc[gi][2], a);
+        val[u * G + gi] = __dp4a((int)raw[u].w, qc[gi][3], a);
+      }
+    fold<TPR>(val, c.sub);
+    constexpr int CNT = N >= TPR ? N / TPR : 1, GRP = N >= TPR ? 1 : TPR / N;
+    if (c.sub % GRP == 0) {
+#pragma unroll
+      for (int j = 0; j < CNT; ++j) {
+        const int idx = c.sub * N / TPR + j, gi = idx % G, u = idx / G;
+        float ksu = ks[0];
+#pragma unroll
+        for (int uu = 1; uu < kUnroll; ++uu) ksu = u == uu ? ks[uu] : ksu;
+        const int s = c.lane_of(s0, u);
+        if (gi < g && s < c.hi)
+          sc[gi * L + (s - c.lo)] =
+              s <= c.p ? (float)val[j] * hdr[kQScale + gi] * ksu * scale : kNegInf;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      raw[u] = nxt[u];
+      ks[u] = ks_nxt[u];
+    }
+  }
+  const int n = c.hi - c.lo;
+  float vs[kUnroll];  // v_scale of this thread's first A3 lanes, ahead of the softmax
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    vs[u] = i < n ? __ldg(vsh + c.row(c.lo + i) * sc_tok_stride) : 0.f;
+  }
+  load_rows(raw, c, vat, tok_stride, c.first, c.hi);  // V, ahead of the softmax
+  cluster_softmax<G>(cluster, hdr, sc, g, L, n);
 
   // A3: fold v_scale into the probs, quantise them per row to [0, 127]
-  for (int gi = 0; gi < g; ++gi) {
-    float* row = sc + (long long)gi * S;
-    float m = 0.f;
-    for (int s = threadIdx.x; s < n; s += blockDim.x) {
-      float w = row[s] * vsh[rows[s] * sc_tok_stride];
-      row[s] = w;
-      m = fmaxf(m, w);
+  // against the cluster-wide max
+  float wm[G];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) wm[gi] = 0.f;
+  const auto fold_vs = [&](int i, float vsi) {
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      if (gi >= g) break;
+      const float w = sc[gi * L + i] * vsi;
+      sc[gi * L + i] = w;
+      wm[gi] = fmaxf(wm[gi], w);
     }
-    m = block_max(m, red);
-    float ws = fmaxf(m, 1e-20f) / 127.0f;
-    if (threadIdx.x == 0) w_scale[gi] = ws;
-    for (int s = threadIdx.x; s < n; s += blockDim.x)
-      row[s] = fminf(fmaxf(rintf(row[s] / ws), 0.f), 127.f);
+  };
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    if (i < n) fold_vs(i, vs[u]);
+  }
+  for (int i = threadIdx.x + kUnroll * kThreads; i < n; i += kThreads)
+    fold_vs(i, __ldg(vsh + c.row(c.lo + i) * sc_tok_stride));
+  block_reduce<G, true>(wm, g, hdr, kPW);
+  cluster.sync();
+  cluster_reduce<true>(cluster, hdr, kPW, kGW, g);
+  for (int gi = 0; gi < g; ++gi) {
+    const float ws = fmaxf(hdr[kGW + gi], 1e-20f) / 127.0f;
+    for (int i = threadIdx.x; i < n; i += kThreads)
+      sc[gi * L + i] = fminf(fmaxf(rintf(sc[gi * L + i] / ws), 0.f), 127.f);
   }
   __syncthreads();
 
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    int acc[kMaxG];
+  // PV on the codes: exact int32 sums
+  int acc[G][VEC];
 #pragma unroll
-    for (int gi = 0; gi < kMaxG; ++gi) acc[gi] = 0;
-    for (int s = 0; s < n; ++s) {
-      int vd = vh[rows[s] * tok_stride + d];
+  for (int gi = 0; gi < G; ++gi)
 #pragma unroll
-      for (int gi = 0; gi < kMaxG; ++gi)
-        if (gi < g) acc[gi] += (int)sc[(long long)gi * S + s] * vd;
+    for (int j = 0; j < VEC; ++j) acc[gi][j] = 0;
+  for (int s0 = c.first; s0 < c.hi; s0 += c.step * kUnroll) {
+    load_rows(nxt, c, vat, tok_stride, s0 + c.step * kUnroll, c.hi);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int s = c.lane_of(s0, u);
+      if (s >= c.hi) continue;
+      const unsigned w[4] = {raw[u].x, raw[u].y, raw[u].z, raw[u].w};
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        if (gi >= g) break;
+        const int code = (int)sc[gi * L + (s - c.lo)];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) acc[gi][j] += code * sbyte(w[j >> 2], j & 3);
+      }
     }
-    for (int gi = 0; gi < g; ++gi)
-      out[((long long)blockIdx.x * g + gi) * D + d] = (float)acc[gi] * w_scale[gi];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) raw[u] = nxt[u];
   }
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+#pragma unroll
+      for (int o = TPR; o < 32; o <<= 1)
+        acc[gi][j] += __shfl_xor_sync(0xffffffffu, acc[gi][j], o);
+  if (c.rs == 0) {
+    const int warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi)
+      if (gi < g)
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) part[warp * E + gi * D + c.sub * VEC + j] = acc[gi][j];
+  }
+  cluster_output(cluster, part, E, D, out + (long long)c.cell * E, hdr, true);
 }
 
-size_t smem_bytes(int g, int D, int S) {
-  return sizeof(float) * ((size_t)g * D + (size_t)g * S + 32) + sizeof(int) * (size_t)S;
+// One cluster launch of `blocks` blocks, C to a cluster.  Dynamic shared
+// memory above 48 KB must be opted into per kernel and device: that is done
+// only when a launch first needs more than was allowed before.
+template <auto Kern, typename... Args>
+int launch_clusters(int blocks, int C, int smem, cudaStream_t st, Args... args) {
+  static int allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err) return (int)err;
+  if (smem > (48 << 10) && (dev >= kMaxDevices || smem > allowed[dev])) {
+    err = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err) return (int)err;
+    if (dev < kMaxDevices) allowed[dev] = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, Kern, args...);
+  return (int)(err ? err : cudaGetLastError());
 }
 
-// Dynamic shared memory above 48 KB must be opted into per kernel.
-template <typename K>
-int allow_smem(K kernel, size_t smem) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
+// The launch's template instance: G, the register arrays' size, is the
+// smallest of 1, 2, 4, 8 that holds g; D is 16, 32, 64 or 128 (ops.py
+// checks both).
+template <template <int, int> class F, typename... A>
+int by_shape(int g, int D, A... a) {
+  const int G = g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : 8;
+#define PFD_D(G_)                                          \
+  switch (D) {                                             \
+    case 16: return F<G_, 16>::run(a...);                  \
+    case 32: return F<G_, 32>::run(a...);                  \
+    case 64: return F<G_, 64>::run(a...);                  \
+    default: return F<G_, 128>::run(a...);                 \
+  }
+  switch (G) {
+    case 1: PFD_D(1)
+    case 2: PFD_D(2)
+    case 4: PFD_D(4)
+    default: PFD_D(8)
+  }
+#undef PFD_D
 }
+
+struct DenseArgs {
+  const void *q, *k, *v, *page_ids, *pos;
+  void* out;
+  int B, Hk, g, pp, logP, C, L, smem;
+  long long tok_stride, head_stride;
+  float scale;
+  cudaStream_t st;
+};
+
+template <typename T>
+struct Dense {
+  template <int G, int D>
+  struct Launch {
+    static int run(const DenseArgs& a) {
+      return launch_clusters<dense_kernel<T, G, D>>(
+          a.B * a.Hk * a.C, a.C, a.smem, a.st, (const float*)a.q, (const T*)a.k,
+          (const T*)a.v, (const int*)a.page_ids, (const int*)a.pos, (float*)a.out, a.Hk, a.g,
+          a.pp, a.logP, a.L, a.tok_stride, a.head_stride, a.scale);
+    }
+  };
+};
+
+struct Int8Args {
+  DenseArgs d;
+  const void *k_scale, *v_scale;
+  long long sc_tok_stride, sc_head_stride;
+};
+
+template <int G, int D>
+struct Int8Launch {
+  static int run(const Int8Args& a) {
+    const DenseArgs& d = a.d;
+    return launch_clusters<int8_kernel<G, D>>(
+        d.B * d.Hk * d.C, d.C, d.smem, d.st, (const float*)d.q, (const int8_t*)d.k,
+        (const int8_t*)d.v, (const float*)a.k_scale, (const float*)a.v_scale,
+        (const int*)d.page_ids, (const int*)d.pos, (float*)d.out, d.Hk, d.g, d.pp, d.logP, d.L,
+        d.tok_stride, d.head_stride, a.sc_tok_stride, a.sc_head_stride, d.scale);
+  }
+};
 
 }  // namespace
 
 extern "C" {
 
-size_t paged_flash_decode_smem_bytes(int g, int D, int pages_per_slot, int page_size) {
-  return smem_bytes(g, D, pages_per_slot * page_size);
-}
-
-// kv_dtype: 0 = bf16, 1 = f32.  Returns cudaGetLastError() after the launch.
+// kv_dtype: 0 = bf16, 1 = f32.  C blocks a cell, L lanes a block and smem
+// bytes a block come from kernel.py `plan`; the page size is 2^logP.
+// Returns the launch's cudaError_t.
 int paged_flash_decode_dense_launch(const void* q, const void* k, const void* v,
                                     const void* page_ids, const void* pos, void* out, int B,
-                                    int Hk, int g, int D, int pp, int P, long long tok_stride,
-                                    long long head_stride, int kv_dtype, float scale,
-                                    void* stream) {
-  const size_t smem = smem_bytes(g, D, pp * P);
-  cudaStream_t st = (cudaStream_t)stream;
-  int err;
-  if (kv_dtype == 0) {
-    auto kern = dense_kernel<__nv_bfloat16>;
-    if ((err = allow_smem(kern, smem))) return err;
-    kern<<<B * Hk, kThreads, smem, st>>>(
-        (const float*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-        (const int*)page_ids, (const int*)pos, (float*)out, Hk, g, D, pp, P, tok_stride,
-        head_stride, scale);
-  } else {
-    auto kern = dense_kernel<float>;
-    if ((err = allow_smem(kern, smem))) return err;
-    kern<<<B * Hk, kThreads, smem, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, (const int*)page_ids,
-        (const int*)pos, (float*)out, Hk, g, D, pp, P, tok_stride, head_stride, scale);
-  }
-  return (int)cudaGetLastError();
+                                    int Hk, int g, int D, int pp, int logP, int C, int L,
+                                    int smem, long long tok_stride, long long head_stride,
+                                    int kv_dtype, float scale, void* stream) {
+  const DenseArgs a{q, k, v, page_ids, pos, out, B, Hk, g, pp, logP, C, L, smem,
+                    tok_stride, head_stride, scale, (cudaStream_t)stream};
+  return kv_dtype == 0 ? by_shape<Dense<__nv_bfloat16>::Launch>(g, D, a)
+                       : by_shape<Dense<float>::Launch>(g, D, a);
 }
 
 int paged_flash_decode_int8_launch(const void* q, const void* k, const void* v,
                                    const void* k_scale, const void* v_scale,
                                    const void* page_ids, const void* pos, void* out, int B,
-                                   int Hk, int g, int D, int pp, int P, long long tok_stride,
-                                   long long head_stride, long long sc_tok_stride,
-                                   long long sc_head_stride, float scale, void* stream) {
-  const size_t smem = smem_bytes(g, D, pp * P);
-  cudaStream_t st = (cudaStream_t)stream;
-  int err;
-  if ((err = allow_smem(int8_kernel, smem))) return err;
-  int8_kernel<<<B * Hk, kThreads, smem, st>>>(
-      (const float*)q, (const int8_t*)k, (const int8_t*)v, (const float*)k_scale,
-      (const float*)v_scale, (const int*)page_ids, (const int*)pos, (float*)out, Hk, g, D, pp,
-      P, tok_stride, head_stride, sc_tok_stride, sc_head_stride, scale);
-  return (int)cudaGetLastError();
+                                   int Hk, int g, int D, int pp, int logP, int C, int L, int smem,
+                                   long long tok_stride, long long head_stride,
+                                   long long sc_tok_stride, long long sc_head_stride,
+                                   float scale, void* stream) {
+  const Int8Args a{{q, k, v, page_ids, pos, out, B, Hk, g, pp, logP, C, L, smem, tok_stride,
+                    head_stride, scale, (cudaStream_t)stream},
+                   k_scale, v_scale, sc_tok_stride, sc_head_stride};
+  return by_shape<Int8Launch>(g, D, a);
 }
 
 }  // extern "C"

@@ -109,16 +109,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     and the stream (a bare int would be cut to 32 bits), ``c_int`` /
     ``c_longlong`` for sizes and strides."""
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.paged_flash_decode_smem_bytes.argtypes = [I, I, I, I]
-    lib.paged_flash_decode_smem_bytes.restype = ctypes.c_size_t
     lib.paged_flash_decode_dense_launch.argtypes = [
         P, P, P, P, P, P,  # q, k, v, page_ids, pos, out
-        I, I, I, I, I, I,  # B, Hk, g, D, pages_per_slot, page_size
+        I, I, I, I, I, I,  # B, Hk, g, D, pages_per_slot, log2 page_size
+        I, I, I,  # plan: blocks a cluster, lanes a block, shared memory bytes
         L, L, I, F, P,  # kv tok/head strides, kv dtype code, scale, stream
     ]
     lib.paged_flash_decode_int8_launch.argtypes = [
         P, P, P, P, P, P, P, P,  # q, k, v, k_scale, v_scale, page_ids, pos, out
-        I, I, I, I, I, I,  # B, Hk, g, D, pages_per_slot, page_size
+        I, I, I, I, I, I,  # B, Hk, g, D, pages_per_slot, log2 page_size
+        I, I, I,  # plan: blocks a cluster, lanes a block, shared memory bytes
         L, L, L, L, F, P,  # kv strides, scale strides, scale, stream
     ]
     lib.bgpp_paged_attend_smem_bytes.argtypes = [I, I, I, I]

@@ -3,8 +3,8 @@
 Counterpart of :mod:`repro.kernels.paged_flash_decode.ops`.  Routing is by
 the tensors' device: CPU tensors take the plain version in :mod:`.ref`;
 CUDA tensors launch the CUDA kernel or the call raises — there is no
-fallback.  Shape, dtype, stride and shared-memory mistakes raise here, at
-the call boundary.
+fallback.  Shape, dtype, stride, alignment and context-length mistakes
+raise here, at the call boundary.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.paged_flash_decode import kernel
 from repro_torch.kernels.paged_flash_decode.ref import paged_flash_decode_ref
 
@@ -66,8 +66,9 @@ def _validate(q, k, v, page_ids, pos, page_size, k_scale, v_scale):
         raise ValueError("paged_flash_decode: operands lie on different devices")
 
 
-def _validate_cuda(q, k, v, page_ids, pos, page_size, k_scale, v_scale):
-    """What the CUDA kernel additionally requires of its operands."""
+def _validate_cuda(q, k, v, page_ids, pos, page_size, k_scale, v_scale) -> kernel.Plan:
+    """What the CUDA kernel additionally requires of its operands; returns
+    the launch's :func:`kernel.plan`."""
     B, Hk, g, D = q.shape
     if q.dtype != torch.float32 or not q.is_contiguous():
         raise ValueError("paged_flash_decode: q must be contiguous float32")
@@ -80,17 +81,29 @@ def _validate_cuda(q, k, v, page_ids, pos, page_size, k_scale, v_scale):
         )
     if k.stride(2) != 1:
         raise ValueError("paged_flash_decode: pool rows must be contiguous in D")
+    if D not in (16, 32, 64, 128):
+        raise ValueError(f"paged_flash_decode: head_dim D={D} is not one of 16, 32, 64, 128")
+    if page_size & (page_size - 1):
+        raise ValueError(f"paged_flash_decode: page_size={page_size} is not a power of two")
+    if any(t.data_ptr() % 16 or (t.stride(0) * t.element_size()) % 16
+           or (t.stride(1) * t.element_size()) % 16 for t in (k, v)):
+        raise ValueError(
+            "paged_flash_decode: pool rows must start on 16-byte boundaries "
+            "(base pointers and token / head strides)"
+        )
     if k_scale is not None and k_scale.dtype != torch.float32:
         raise ValueError("paged_flash_decode: scales must be float32")
     for name, t in (("page_ids", page_ids), ("pos", pos)):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"paged_flash_decode: {name} must be contiguous int32")
-    need = kernel.smem_bytes(g, D, page_ids.shape[1], page_size)
-    if need > build.MAX_SMEM:
+    S = page_ids.shape[1] * page_size
+    if k_scale is not None and S * 127 * 127 >= 2 ** 31:
         raise ValueError(
-            f"paged_flash_decode: S={page_ids.shape[1] * page_size} lanes need "
-            f"{need} B of shared memory, over the block's {build.MAX_SMEM}"
+            f"paged_flash_decode: S={S} int8 lanes could overflow the int32 PV "
+            f"sum (S * 127^2 must stay below 2^31)"
         )
+    return kernel.plan(B, Hk, g, D, page_ids.shape[1], page_size,
+                       kernel.sm_count(q.device))
 
 
 def paged_flash_decode(
@@ -115,8 +128,8 @@ def paged_flash_decode(
                                       k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode: no kernel for device {q.device}")
-    _validate_cuda(q, k, v, page_ids, pos, page_size, k_scale, v_scale)
+    geometry = _validate_cuda(q, k, v, page_ids, pos, page_size, k_scale, v_scale)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    kernel.launch(q, k, v, page_ids, pos, out, page_size, k_scale, v_scale)
+    kernel.launch(q, k, v, page_ids, pos, out, page_size, geometry, k_scale, v_scale)
     LAUNCHES["paged_flash_decode_bf16" if k_scale is None else "paged_flash_decode_int8"] += 1
     return out

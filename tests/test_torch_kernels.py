@@ -41,7 +41,10 @@ from repro_torch.kernels.bstc_decode import bstc_decode_patterns, prepare_encode
 from repro_torch.kernels.bstc_matmul import bstc_matmul, prepare_bstc_matmul_operands
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels import build
 from repro_torch.kernels.paged_flash_decode import paged_flash_decode
+from repro_torch.kernels.paged_flash_decode import kernel as pfd_kernel
+from repro_torch.kernels.paged_flash_decode import ops as pfd_ops
 from repro_torch.core import attention as tattention
 from repro_torch.core import bstc as tbstc
 from repro_torch.serving import kv_cache as tkvc
@@ -168,6 +171,85 @@ class TestPagedFlashDecodeRef:
         with pytest.raises(ValueError, match="BOTH"):
             paged_flash_decode(q, k, k, t, p, page_size=PAGE,
                                k_scale=torch.zeros(4 * PAGE, 2))
+
+
+class TestPagedFlashDecodePlan:
+    """The CUDA launch geometry of K1 (``kernel.plan``: C blocks a (slot,
+    kv-head) cluster, L lanes a block), checked from static shapes alone:
+    no card is needed."""
+
+    SMS = 132  # an H100 SXM
+
+    @pytest.mark.parametrize("B,Hk,g,D,S,P", [
+        (4, 8, 3, 128, 1024, 16),  # the decode geometry
+        (1, 8, 3, 128, 32768, 16),  # a long context
+        (4, 8, 8, 128, 32768, 16),
+        (64, 8, 3, 128, 2048, 16),  # more cells than SMs
+        (2, 2, 3, 16, 64, 8),  # the smoke config
+        (3, 2, 5, 64, 40, 8),  # pages that do not split evenly
+        (1, 1, 1, 128, 16, 16),  # a single page
+        (2, 2, 3, 16, 64, 1),  # the slot layout's identity table
+    ])
+    def test_every_lane_has_one_block(self, B, Hk, g, D, S, P):
+        C, L, smem = pfd_kernel.plan(B, Hk, g, D, S // P, P, self.SMS)
+        assert C in (1, 2, 4, 8) and L % P == 0
+        owners = np.zeros(S, np.int64)
+        for c in range(C):
+            owners[c * L:min((c + 1) * L, S)] += 1
+        np.testing.assert_array_equal(owners, 1)
+        assert smem == pfd_kernel.smem_bytes(g, D, L, P) <= build.MAX_SMEM
+
+    def test_decode_geometry_fills_the_card(self):
+        B, Hk = 4, 8
+        C, L, _ = pfd_kernel.plan(B, Hk, 3, 128, 1024 // 16, 16, self.SMS)
+        assert (C, L) == (4, 256)
+        assert 128 <= B * Hk * C <= self.SMS
+
+    @staticmethod
+    def _operands(fmt, g, S, P, D=128):
+        """CPU operands the CUDA validation accepts: a one-page pool and a
+        (1, S / P) table (validation never reads the page ids)."""
+        q = torch.zeros(1, 2, g, D)
+        dt = torch.int8 if fmt == "int8" else torch.bfloat16
+        k = torch.zeros(P, 2, D, dtype=dt)
+        table = torch.zeros(1, S // P, dtype=torch.int32)
+        pos = torch.full((1,), S - 1, dtype=torch.int32)
+        scales = {}
+        if fmt == "int8":
+            scales = dict(k_scale=torch.ones(P, 2), v_scale=torch.ones(P, 2))
+        return q, k, table, pos, scales
+
+    @pytest.mark.parametrize("fmt", ["bf16", "int8"])
+    @pytest.mark.parametrize("g", range(1, 9))
+    def test_wrapper_takes_32k_lanes_at_every_group(self, monkeypatch, fmt, g):
+        monkeypatch.setattr(pfd_kernel, "sm_count", lambda device: self.SMS)
+        S, P = 32768, 16
+        assert pfd_kernel.max_lanes(g, 128, P) >= S
+        q, k, table, pos, scales = self._operands(fmt, g, S, P)
+        plan = pfd_ops._validate_cuda(q, k, k, table, pos, P, scales.get("k_scale"),
+                                      scales.get("v_scale"))
+        assert plan.smem <= build.MAX_SMEM and plan.C * plan.L >= S
+
+    @pytest.mark.parametrize("g", [1, 3, 8])
+    def test_past_the_cap_the_wrapper_raises_with_it(self, monkeypatch, g):
+        monkeypatch.setattr(pfd_kernel, "sm_count", lambda device: self.SMS)
+        P = 16
+        cap = pfd_kernel.max_lanes(g, 128, P)
+        pfd_kernel.plan(1, 2, g, 128, cap // P, P, self.SMS)  # the cap itself fits
+        q, k, table, pos, _ = self._operands("bf16", g, cap + P, P)
+        with pytest.raises(ValueError, match=f"the cap at g={g}, D=128, page_size={P} "
+                                             f"is {cap} lanes"):
+            pfd_ops._validate_cuda(q, k, k, table, pos, P, None, None)
+
+    @pytest.mark.parametrize("D,P,match", [(24, 4, "not one of 16, 32, 64, 128"),
+                                            (16, 6, "not a power of two")])
+    def test_rejects_shapes_it_has_no_instance_for(self, monkeypatch, D, P, match):
+        monkeypatch.setattr(pfd_kernel, "sm_count", lambda device: self.SMS)
+        q = torch.zeros(1, 2, 3, D)
+        k = torch.zeros(2 * P, 2, D, dtype=torch.bfloat16)
+        t, p = torch.zeros(1, 2, dtype=torch.int32), torch.zeros(1, dtype=torch.int32)
+        with pytest.raises(ValueError, match=match):
+            pfd_ops._validate_cuda(q, k, k, t, p, P, None, None)
 
 
 class TestBgppPagedAttendRef:
