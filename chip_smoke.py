@@ -19,12 +19,14 @@ Phases, each of which fails the run (nonzero exit) on any error:
    every full-width projection shape with N = 4 columns, the BSTC plane
    decode on the coded planes
    of a full-width 3072 x 3072 matrix, and the forward's flash attention
-   (Hq 24, Hk 8, D 128, bf16: causal at B 1 / S 512, B 1 / S 301 and
+   (Hq 24, Hk 8, D 128, bf16: causal at B 1 / S 512, 450 and 301 and
    B 4 / S 512; sliding and chunked with window 256; full; q_offset 256;
-   f32 once).  Then the paper layer's two kernels: the BGPP round at
-   S 4096 (one query) and at the decode geometry (B 4 x Hq 24 over Hk 8,
-   S 1024), alive masks from a real first round, bit-exact; the BRCR GEMM
-   at every projection shape of one layer (layer 0's seeded weights,
+   bf16 at D 64, 32 and 16 with ragged tails; f32 once; the first case
+   launched twice for identical bits).  Then the paper layer's two
+   kernels: the BGPP round at S 4096 (one query) and at the decode
+   geometry (B 4 x Hq 24 over Hk 8, S 1024), alive masks from a real
+   first round, bit-exact; the BRCR GEMM at every projection shape of
+   one layer (layer 0's seeded weights,
    int8) with N = 4 and 128 integer x (exact) and float32 / bfloat16 x
    (within 1e-5 of Σ|w·x|), and the gate/up weight once more with whole
    row and column blocks zeroed, so its tile and plane skips run (exact).
@@ -44,7 +46,9 @@ Phases, each of which fails the run (nonzero exit) on any error:
    zeroed just before the Scheduler is built, read just after the run).
    After all of them, each chunked run's configuration traces a few
    steady decode steps, and the eager one a whole-prompt admission, with
-   torch.profiler (device busy share, time by kernel).
+   torch.profiler (device busy share, time by kernel), and the flash
+   attention kernel and ``scaled_dot_product_attention`` are traced at
+   causal S 512 and S 450 for their device time a call.
 6. Reference check: the same small model and trace served on the card
    (kernels) and on the CPU (plain versions) give the same greedy tokens
    and logits within tolerance, for every KV format, for the int8 and
@@ -480,51 +484,95 @@ def bstc_kernel_phase(device, flush):
     return [k3, k4]
 
 
-# (label, B, Sq, Sk, mask_kind, window, q_offset, dtype) of each K5 case; the
-# first is the JSON record's: one eager admission's forward at the trace's
-# prompt cap (512 tokens)
+# (label, B, Sq, Sk, mask_kind, window, q_offset, dtype, D) of each K5 case;
+# the first is the JSON record's: one eager admission's forward at the
+# trace's prompt cap (512 tokens), the second the traced admission's
+# (450).  Together they launch every compiled instance (bf16 at D 16 / 32 /
+# 64 / 128, f32 at D 128), with ragged tails on both sides and q_offset.
 FLASH_CASES = (
-    ("causal B1 S512", 1, 512, 512, "causal", 0, 0, "bf16"),
-    ("causal B1 S301", 1, 301, 301, "causal", 0, 0, "bf16"),
-    ("causal B4 S512", 4, 512, 512, "causal", 0, 0, "bf16"),
-    ("sliding w256 B1 S512", 1, 512, 512, "sliding", 256, 0, "bf16"),
-    ("chunked w256 B1 S512", 1, 512, 512, "chunked", 256, 0, "bf16"),
-    ("full B1 S512", 1, 512, 512, "full", 0, 0, "bf16"),
-    ("causal q_offset 256 B1 Sq256 Sk512", 1, 256, 512, "causal", 0, 256, "bf16"),
-    ("causal f32 B1 S301", 1, 301, 301, "causal", 0, 0, "f32"),
+    ("causal B1 S512", 1, 512, 512, "causal", 0, 0, "bf16", 128),
+    ("causal B1 S450", 1, 450, 450, "causal", 0, 0, "bf16", 128),
+    ("causal B1 S301", 1, 301, 301, "causal", 0, 0, "bf16", 128),
+    ("causal B4 S512", 4, 512, 512, "causal", 0, 0, "bf16", 128),
+    ("sliding w256 B1 S512", 1, 512, 512, "sliding", 256, 0, "bf16", 128),
+    ("chunked w256 B1 S512", 1, 512, 512, "chunked", 256, 0, "bf16", 128),
+    ("full B1 S512", 1, 512, 512, "full", 0, 0, "bf16", 128),
+    ("causal q_offset 256 B1 Sq256 Sk512", 1, 256, 512, "causal", 0, 256, "bf16", 128),
+    ("sliding w100 B1 S201 D64", 1, 201, 201, "sliding", 100, 0, "bf16", 64),
+    ("chunked w64 q_offset 170 B2 Sq130 Sk300 D32", 2, 130, 300, "chunked", 64, 170, "bf16",
+     32),
+    ("full B1 Sq65 Sk77 D16", 1, 65, 77, "full", 0, 0, "bf16", 16),
+    ("causal f32 B1 S301", 1, 301, 301, "causal", 0, 0, "f32", 128),
 )
 
 
-def flash_kernel_phase(device, flush):
-    """Hold the flash-attention kernel (K5) against its plain version at
-    the full-width forward's shapes (Hq 24, Hk 8, D 128) for every case of
-    :data:`FLASH_CASES`.  Tolerance per element: ``1e-5 * max|v|`` (f32
-    sums in another order) plus, for bf16 operands, one bf16 step at
-    ``|ref|`` (two f32 results that close can round to neighbouring bf16
-    values).  Bound: q, k, v read and out written once at the HBM rate,
-    against 4 * D operations per visible (query, key) pair of this case's
-    mask at the bf16 tensor-core peak (f32 peak for f32 operands).  The
-    library call is ``scaled_dot_product_attention`` on the transposed
-    views (``is_causal`` where it applies, else the boolean mask).
-    Returns the first case's JSON record."""
+def flash_inputs(device, gen, case):
+    """Seeded q ``(B, Sq, Hq, D)`` and k, v ``(B, Sk, Hk, D)`` of one
+    :data:`FLASH_CASES` case at phi4-mini's heads (Hq 24, Hk 8), drawn
+    from ``gen`` in that order, and the case's mask keywords."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.configs import get_config
-    from repro_torch.core.attention import make_mask
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     cfg = get_config("phi4-mini-3.8b")
-    Hq, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    _, B, Sq, Sk, kind, window, off, dt, D = case
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
+    mk = lambda S, H: torch.randn((B, S, H, D), generator=gen, device=device).to(dtype)
+    q, k, v = mk(Sq, cfg.num_heads), mk(Sk, cfg.num_kv_heads), mk(Sk, cfg.num_kv_heads)
+    return q, k, v, dict(mask_kind=kind, window=window, q_offset=off)
+
+
+def flash_library(q, k, v, kw):
+    """``scaled_dot_product_attention`` computing K5's function on the
+    transposed views: ``is_causal`` where it applies, else the boolean
+    mask (the yardstick only; the port never calls it)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.attention import make_mask
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if kw["mask_kind"] == "causal" and kw["q_offset"] == 0:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True)
+    mask = make_mask(kw["mask_kind"], q.shape[1], k.shape[1], kw["window"], kw["q_offset"],
+                     q.device)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def flash_kernel_phase(device, flush):
+    """Hold the flash-attention kernel (K5) against its plain version for
+    every case of :data:`FLASH_CASES`.  Tolerance per element:
+    ``1e-5 * max|v|`` (f32 sums in another order; bf16: the split of p,
+    at most 2^-18 max|v|) plus, for bf16 operands, one bf16 step at
+    ``|ref|`` (two f32 results that close can round to neighbouring bf16
+    values).  The first case is launched twice and must give identical
+    bits.  Bound: q, k, v read and out written once at the HBM rate,
+    against 4 * D operations per visible (query, key) pair of this case's
+    mask at the bf16 tensor-core peak (f32 peak for f32 operands).  The
+    library call is :func:`flash_library`.  Returns the first case's JSON
+    record."""
+    import torch
+
+    from repro_torch.core.attention import make_mask
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
     gen = torch.Generator(device=device).manual_seed(3)
-    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     records = []
-    for label, B, Sq, Sk, kind, window, off, dt in FLASH_CASES:
-        mk = lambda S, H: torch.randn((B, S, H, D), generator=gen, device=device).to(dtypes[dt])
-        q, k, v = mk(Sq, Hq), mk(Sk, Hk), mk(Sk, Hk)
-        kw = dict(mask_kind=kind, window=window, q_offset=off)
+    for case in FLASH_CASES:
+        label, B, Sq, Sk, kind, window, off, dt, D = case
+        q, k, v, kw = flash_inputs(device, gen, case)
+        p = flash_kernel.plan(q.dtype, *q.shape)
+        where = f" {label} (BQ {p.BQ}, {p.grid[0] * p.grid[1]} blocks)"
         got = flash_attention(q, k, v, **kw)
+        if not records:
+            again = flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"flash_attention{where}: two launches on the same "
+                                     f"inputs differ")
+            where += ", two launches bit-identical"
         want = flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         w = want.float()
@@ -536,15 +584,7 @@ def flash_kernel_phase(device, flush):
             at = (err > tol).nonzero()[0].tolist()
             raise AssertionError(f"flash_attention {label} disagrees at {at}: "
                                  f"{err[tuple(at)].item():.3e} > {tol[tuple(at)].item():.3e}")
-        mask = make_mask(kind, Sq, Sk, window, off, device)
-        pairs = int(mask.sum()) * B * Hq
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if kind == "causal" and off == 0:
-            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                         enable_gqa=True)
-        else:
-            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                         enable_gqa=True)
+        pairs = int(make_mask(kind, Sq, Sk, window, off, device).sum()) * B * q.shape[2]
         esize = q.element_size()
         records.append(kernel_record(
             "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -552,8 +592,40 @@ def flash_kernel_phase(device, flush):
             time_ms(lambda: flash_attention(q, k, v, **kw), flush=flush),
             time_ms(lambda: flash_attention_ref(q, k, v, **kw), flush=flush),
             esize * (2 * q.numel() + k.numel() + v.numel()), 4 * D * pairs, dt,
-            time_ms(lib, flush=flush), label=f" {label}"))
+            time_ms(flash_library(q, k, v, kw), flush=flush), label=where))
     return records[0]
+
+
+def flash_device_phase(device, calls: int = 20) -> None:
+    """K5 against ``scaled_dot_product_attention`` on device time, at the
+    JSON record's case (causal B 1, S 512) and the traced admission's
+    (S 450): one ``torch.profiler`` trace (:func:`_traced`) of ``calls``
+    calls of each on the case's :data:`FLASH_CASES` operands (L2 warm, as
+    in the forward, where q, k and v were just written), printed as device
+    ms a call: the sum over the call's kernels of each one's mean device
+    time (the trace may miss a call's first events; the kernels it recorded
+    are printed with their counts).  Run after the serving runs are timed:
+    a trace slows the process's later host work."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    for case in FLASH_CASES[:2]:  # drawn from the seed in FLASH_CASES order
+        q, k, v, kw = flash_inputs(device, gen, case)
+        lib = flash_library(q, k, v, kw)
+        ms, counts = {}, {}
+        for name, fn in (("kernel", lambda: flash_attention(q, k, v, **kw)), ("SDPA", lib)):
+            fn()
+            torch.cuda.synchronize()
+            dev = _traced(lambda: [fn() for _ in range(calls)],
+                          f"flash_attention {case[0]}: {calls} {name} calls")
+            ms[name] = sum(e.self_device_time_total / e.count for e in dev) / 1e3
+            counts[name] = ", ".join(f"{e.count} x {e.key[:40]}" for e in dev)
+        print(f"[kernel] flash_attention {case[0]} device time (torch.profiler, {calls} calls "
+              f"each, L2 warm): kernel {ms['kernel']:.4f} ms a call, SDPA {ms['SDPA']:.4f} ms a "
+              f"call ({ms['kernel'] / ms['SDPA']:.2f}x); recorded: kernel {counts['kernel']}; "
+              f"SDPA {counts['SDPA']}")
 
 
 # ---------------------------------------------------------------------------
@@ -965,10 +1037,11 @@ def profile_decode(sched, reqs, label: str, steps: int = 4):
             f"{label}: {steps} steady decode steps")
 
 
-def _traced(fn, what: str) -> None:
+def _traced(fn, what: str):
     """Run ``fn`` once under ``torch.profiler``: print the device's busy
-    share of the wall time and the device time by kernel (top 8).  Only
-    device-side events count (a CPU op's row repeats its kernels' time)."""
+    share of the wall time and the device time by kernel (top 8), and
+    return the device-side events.  Only device-side events count (a CPU
+    op's row repeats its kernels' time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -987,6 +1060,7 @@ def _traced(fn, what: str) -> None:
     for e in sorted(dev, key=t, reverse=True)[:8]:
         print(f"[profile]   {t(e) / 1e3:8.3f} ms {100 * t(e) / busy:5.1f}% {e.count:5d} "
               f"calls  {e.key[:80]}")
+    return dev
 
 
 def profile_admission(sched, prompt, label: str) -> None:
@@ -1340,6 +1414,7 @@ def main(argv=None) -> int:
     del l2
 
     launches = serve_phase(device, card)
+    flash_device_phase(device)
     launches.update(paper_launches)
     for r in records:
         r["launches"] = launches[r["name"]]

@@ -144,7 +144,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         P, P, P, P,  # q, k, v, out
         I, I, I, I, I, I,  # B, Sq, Sk, Hq, Hk, D
         L, L, L, L, L, L, L, L, L,  # q, k, v strides: batch, sequence, head
-        I, I, I, I, F, P,  # dtype code, mask code, window, q_offset, scale, stream
+        I, I, I, I, F,  # dtype code, mask code, window, q_offset, scale
+        I, I, P,  # plan: query rows a block, shared memory bytes; stream
     ]
     lib.bgpp_score_launch.argtypes = [
         P, P, P, P, P,  # q, plane, sign, alive, out

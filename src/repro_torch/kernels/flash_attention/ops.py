@@ -3,10 +3,11 @@
 Counterpart of :mod:`repro.kernels.flash_attention.ops`.  Routing is by the
 tensors' device: CPU tensors take the plain version in :mod:`.ref`; CUDA
 tensors launch the CUDA kernel or the call raises — there is no fallback.
-The kernel picks its own tiles, so the reference's ``tile_q`` / ``tile_k``
-arguments have no counterpart.  q/k/v are read at their strides and the
-output is written in ``(B, Sq, Hq, D)`` directly: no transpose copies on
-either side.
+The launch geometry comes from :func:`.kernel.plan` (query rows a block,
+threads and shared memory from the dtype and shape; key tiles of 64), so
+the reference's ``tile_q`` / ``tile_k`` arguments have no counterpart.  q/k/v
+are read at their strides and the output is written in ``(B, Sq, Hq, D)``
+directly: no transpose copies on either side.
 """
 
 from __future__ import annotations
@@ -53,6 +54,21 @@ def _validate(q, k, v, mask_kind, q_offset):
         raise ValueError("flash_attention: operands lie on different devices")
 
 
+def _validate_cuda(q, k, v) -> kernel.Plan:
+    """What the CUDA kernel additionally requires of its operands; returns
+    the launch's :func:`kernel.plan`.  The bf16 body copies 16-byte chunks,
+    so its rows must start on 16-byte boundaries."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"flash_attention: {name} must be contiguous along D")
+        if t.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(
+                (s * t.element_size()) % 16 for s in t.stride()[:3])):
+            raise ValueError(
+                f"flash_attention: {name} rows must start on 16-byte boundaries "
+                f"(base pointer and batch / sequence / head strides)")
+    return kernel.plan(q.dtype, *q.shape)
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, Sq, Hq, D)
     k: torch.Tensor,  # (B, Sk, Hk, D)
@@ -79,10 +95,8 @@ def flash_attention(
                                    q_offset=q_offset, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1:
-            raise ValueError(f"flash_attention: {name} must be contiguous along D")
+    geometry = _validate_cuda(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    kernel.launch(q, k, v, out, mask_kind, window, q_offset, scale)
+    kernel.launch(q, k, v, out, geometry, mask_kind, window, q_offset, scale)
     LAUNCHES["flash_attention"] += 1
     return out

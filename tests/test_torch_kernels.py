@@ -40,7 +40,9 @@ from repro_torch.kernels.bgpp_paged_attend.ref import bgpp_paged_attend_ref
 from repro_torch.kernels.bstc_decode import bstc_decode_patterns, prepare_encoded_plane
 from repro_torch.kernels.bstc_matmul import bstc_matmul, prepare_bstc_matmul_operands
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_flash_decode import paged_flash_decode
 from repro_torch.kernels.paged_flash_decode import kernel as pfd_kernel
@@ -356,6 +358,223 @@ class TestFlashAttentionRouting:
         with pytest.raises(ValueError, match="no kernel for device"):
             tattention.blocked_attend(q, k, k)
         assert LAUNCHES["flash_attention"] == 0
+
+
+def _pallas_live(mask_kind, window, q_offset, iq, ik, tile_q, tile_k):
+    """The Pallas body's tile predicate (``live``,
+    ``src/repro/kernels/flash_attention/kernel.py:61``-``:70``)."""
+    q_lo = iq * tile_q + q_offset
+    q_hi = q_lo + tile_q - 1
+    k_lo = ik * tile_k
+    k_hi = k_lo + tile_k - 1
+    if mask_kind == "full":
+        return True
+    if mask_kind == "causal":
+        return k_lo <= q_hi
+    if mask_kind == "sliding":
+        return k_lo <= q_hi and k_hi >= q_lo - window + 1
+    return k_lo <= q_hi and k_hi // window >= q_lo // window
+
+
+# (mask_kind, window) of the kernel phase's cases, and windows whose edges
+# fall one key short of a tile's end
+FLASH_MASKS = [("causal", 0), ("sliding", 256), ("chunked", 256), ("full", 0),
+               ("sliding", 100), ("chunked", 64), ("sliding", 97), ("chunked", 96)]
+
+
+def _flash_warp_rows(p, y, w, Sq):
+    """The query rows warp ``w`` of bf16 grid block ``(x, y)`` writes (of
+    query head ``x % Hq``), as ``csrc/flash_attention.cu`` indexes them:
+    a row group's first warp its 16 rows, the key-half warp (``w >= 2``)
+    none."""
+    if w >= 2:
+        return range(0)
+    q0 = (p.grid[1] - 1 - y) * p.BQ + 16 * w
+    return range(q0, min(q0 + 16, Sq))
+
+
+def _flash_key_tiles(mask_kind, window, q_lo, q_hi, Sk):
+    """The key tiles a block over query positions ``[q_lo, q_hi]`` visits
+    (``csrc/flash_attention.cu``: the run between the first and the last
+    tile ``tile_live`` passes)."""
+    TK = flash_kernel.TILE_K
+
+    def live(kt):
+        k_lo, k_hi = kt * TK, min(kt * TK + TK, Sk) - 1
+        if mask_kind == "full":
+            return True
+        if k_lo > q_hi:
+            return False
+        if mask_kind == "causal":
+            return True
+        if mask_kind == "sliding":
+            return k_hi >= q_lo - window + 1
+        return k_hi // window >= q_lo // window
+
+    tiles = [kt for kt in range(-(-Sk // TK)) if live(kt)]
+    return range(tiles[0], tiles[-1] + 1) if tiles else range(0)
+
+
+class TestFlashAttentionPlan:
+    """The CUDA launch geometry of K5 (``kernel.plan`` and the source's
+    index math), checked from static shapes alone: no card is needed."""
+
+    SMS = 132  # an H100 SXM
+
+    @pytest.mark.parametrize("B,Sq,Hq", [(1, 1, 24), (1, 63, 24), (1, 65, 24), (1, 301, 24),
+                                          (1, 450, 24), (2, 65, 4), (3, 33, 2)])
+    def test_every_row_and_head_has_one_warp(self, B, Sq, Hq):
+        p = flash_kernel.plan(torch.bfloat16, B, Sq, Hq, 128)
+        assert p.threads == 128 and p.grid == (B * Hq, -(-Sq // p.BQ))
+        owners = np.zeros((B, Sq, Hq), np.int64)
+        for x in range(p.grid[0]):
+            for y in range(p.grid[1]):
+                for w in range(p.threads // 32):
+                    for s in _flash_warp_rows(p, y, w, Sq):
+                        owners[x // Hq, s, x % Hq] += 1
+        np.testing.assert_array_equal(owners, 1)
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("D", flash_ops.HEAD_DIMS)
+    def test_shared_memory_fits(self, dtype, D):
+        p = flash_kernel.plan(dtype, 1, 512, 24, D)
+        assert p.smem == flash_kernel.smem_bytes(dtype, D) <= build.MAX_SMEM
+        if dtype == torch.bfloat16 and D == 128:
+            # three blocks (12 warps) an SM: 228 KB of the SM, 1 KB reserved a block
+            assert 3 * (p.smem + 1024) <= 228 * 1024
+
+    @pytest.mark.parametrize("S", [201, 301, 450, 512])
+    def test_admission_shapes_fill_the_card(self, S):
+        p = flash_kernel.plan(torch.bfloat16, 1, S, 24, 128)
+        assert p.grid[0] * p.grid[1] >= self.SMS
+
+    @pytest.mark.parametrize("mask_kind,window", FLASH_MASKS)
+    @pytest.mark.parametrize("q_offset,Sq,Sk", [
+        (off, Sq, Sk) for off in (0, 37, 256)
+        for Sq, Sk in ((512, 512), (256, 512), (96, 448), (301, 301), (65, 77), (1, 300))
+        if off + Sq <= Sk])
+    def test_key_tiles_are_the_visible_ones(self, mask_kind, window, q_offset, Sq, Sk):
+        """Per query tile, the kernel visits exactly the key tiles that hold
+        a visible pair of the materialised mask, and (on whole tiles) as many
+        as the Pallas predicate with ``tile_q`` = 32, ``tile_k`` = 64."""
+        BQ, TK = flash_kernel.MMA_BQ, flash_kernel.TILE_K
+        mask = tattention.make_mask(mask_kind, Sq, Sk, window, q_offset).numpy()
+        for iq in range(-(-Sq // BQ)):
+            rows = mask[iq * BQ:(iq + 1) * BQ]
+            q_lo, q_hi = q_offset + iq * BQ, q_offset + min((iq + 1) * BQ, Sq) - 1
+            got = _flash_key_tiles(mask_kind, window, q_lo, q_hi, Sk)
+            want = [kt for kt in range(-(-Sk // TK)) if rows[:, kt * TK:(kt + 1) * TK].any()]
+            assert list(got) == want
+            if Sq % BQ == 0 and Sk % TK == 0:
+                assert len(got) == sum(_pallas_live(mask_kind, window, q_offset, iq, ik, BQ, TK)
+                                       for ik in range(Sk // TK))
+
+    def test_wrapper_raises_for_what_it_has_no_instance_for(self):
+        q = torch.zeros(1, 8, 4, 16, dtype=torch.bfloat16)
+        k = torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head_dim 24"):
+            flash_attention(torch.zeros(1, 8, 4, 24), torch.zeros(1, 8, 2, 24),
+                            torch.zeros(1, 8, 2, 24))
+        with pytest.raises(ValueError, match="dtype"):
+            flash_attention(q.half(), k.half(), k.half())
+        assert flash_ops._validate_cuda(q, k, k).BQ == flash_kernel.MMA_BQ
+        strided = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16)[..., ::2]
+        with pytest.raises(ValueError, match="k must be contiguous along D"):
+            flash_ops._validate_cuda(q, strided, k)
+        odd = torch.zeros(1 * 8 * 2 * 16 + 1, dtype=torch.bfloat16)[1:].view(1, 8, 2, 16)
+        with pytest.raises(ValueError, match="v rows must start on 16-byte boundaries"):
+            flash_ops._validate_cuda(q, k, odd)
+
+
+def _flash_operands(seed, B, Sq, Sk, Hq, Hk, D):
+    """bf16-valued float32 q, k, v (the kernel's operands, exact in f32)."""
+    rng = np.random.default_rng(seed)
+    mk = lambda S, H: torch.from_numpy(rng.standard_normal((B, S, H, D)).astype(np.float32))
+    return [t.bfloat16().float() for t in (mk(Sq, Hq), mk(Sk, Hk), mk(Sk, Hk))]
+
+
+# the kernel phase's mask cases (chip_smoke.FLASH_CASES) at 6 / 2 heads
+FLASH_SPLIT_CASES = [("causal", 0, 0, 512, 512), ("sliding", 256, 0, 512, 512),
+                     ("chunked", 256, 0, 512, 512), ("full", 0, 0, 512, 512),
+                     ("causal", 0, 256, 256, 512)]
+
+
+class TestFlashAttentionArithmetic:
+    """The bf16 body's arithmetic, in float32 on the CPU, against the plain
+    version within the tolerance the card holds the kernel to
+    (``1e-5 * max|v|`` before the output's bf16 rounding)."""
+
+    @staticmethod
+    def _split(p):
+        hi = p.bfloat16().float()
+        return hi, (p - hi).bfloat16().float()
+
+    @pytest.mark.parametrize("mask_kind,window,q_offset,Sq,Sk", FLASH_SPLIT_CASES)
+    def test_split_of_p_stays_inside_the_tolerance(self, mask_kind, window, q_offset, Sq, Sk):
+        """p replaced by ``bf16(p) + bf16(p - bf16(p))`` moves the output by
+        at most ``2^-18 max|v|``; rounding p once to bf16, as the Pallas
+        body does, would not stay inside."""
+        q, k, v = _flash_operands(11, 1, Sq, Sk, 6, 2, 128)
+        kw = dict(mask_kind=mask_kind, window=window, q_offset=q_offset)
+        want = flash_attention_ref(q, k, v, **kw)
+        mask = tattention.make_mask(mask_kind, Sq, Sk, window, q_offset)
+        qg = q.reshape(1, Sq, 2, 3, 128)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) * 128 ** -0.5
+        s = torch.where(mask, s, tattention.NEG_INF)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        hi, lo = self._split(p)
+        pv = lambda w: torch.einsum("bhgqk,bkhd->bqhgd", w, v).reshape(want.shape)
+        den = p.sum(-1).permute(0, 3, 1, 2).reshape(1, Sq, 6, 1)
+        tol = 1e-5 * float(v.abs().max())
+        assert float((((pv(hi) + pv(lo)) / den) - want).abs().max()) <= tol
+        if mask_kind == "full":
+            assert float((pv(hi) / den - want).abs().max()) > tol
+
+    @pytest.mark.parametrize("mask_kind,window,q_offset,Sq,Sk", FLASH_SPLIT_CASES + [
+        ("causal", 0, 0, 65, 77), ("chunked", 64, 170, 130, 300)])
+    def test_online_order_stays_inside_the_tolerance(self, mask_kind, window, q_offset, Sq,
+                                                     Sk):
+        """The body's order of work: each 16-row group in two key halves (32
+        of every 64-key tile), p = 2^(s c2 - m c2) with m moved (and l, acc
+        rescaled) only once a row of the group grows past it by 2^8, p split
+        for PV, the halves merged, out = acc * (1 / l)."""
+        q, k, v = _flash_operands(12, 1, Sq, Sk, 2, 1, 64)
+        kw = dict(mask_kind=mask_kind, window=window, q_offset=q_offset)
+        want = flash_attention_ref(q, k, v, **kw)[0].transpose(0, 1)  # (Hq, Sq, D)
+        mask = tattention.make_mask(mask_kind, Sq, Sk, window, q_offset)
+        c2 = 64 ** -0.5 * math.log2(math.e)
+        s_all = torch.einsum("qhd,khd->hqk", q[0], k[0].expand(Sk, 2, 64))
+        s_all = torch.where(mask, s_all, tattention.NEG_INF)
+        vv = v[0, :, 0]
+        out = torch.empty_like(want)
+        for r0 in range(0, Sq, 16):
+            rows = slice(r0, min(r0 + 16, Sq))
+            halves = []
+            for half in (0, 1):
+                n = rows.stop - rows.start
+                m = torch.full((2, n), tattention.NEG_INF)
+                l, acc = torch.zeros(2, n), torch.zeros(2, n, 64)
+                for k0 in range(32 * half, Sk, 64):
+                    keys = slice(k0, min(k0 + 32, Sk))
+                    if not mask[rows, keys].any():
+                        continue
+                    s = s_all[:, rows, keys]
+                    mx = torch.maximum(m, s.amax(-1))
+                    if bool(((mx - m) * c2 > 8).any()):
+                        c = torch.exp2((m - mx) * c2)
+                        m, l, acc = mx, l * c, acc * c[..., None]
+                    p = torch.exp2((s - m[..., None]) * c2)
+                    hi, lo = self._split(p)
+                    l = l + p.sum(-1)
+                    acc = acc + hi @ vv[keys] + lo @ vv[keys]
+                halves.append((m, l, acc))
+            (m0, l0, a0), (m1, l1, a1) = halves
+            mm = torch.maximum(m0, m1)
+            c0, c1 = torch.exp2((m0 - mm) * c2), torch.exp2((m1 - mm) * c2)
+            l = l0 * c0 + l1 * c1
+            acc = a0 * c0[..., None] + a1 * c1[..., None]
+            out[:, rows] = acc * (1 / l.clamp(min=1e-30))[..., None]
+        assert float((out - want).abs().max()) <= 1e-5 * float(v.abs().max())
 
 
 class TestPaperLayerRouting:
