@@ -16,7 +16,9 @@ Phases, each of which fails the run (nonzero exit) on any error:
    -1 pages; K1 also at B 1, S 32768, timed, and with every position in
    its first block's lanes and one at -1, each body launched twice and
    required to give identical bits), the fused BSTC decode + GEMV at
-   every full-width projection shape with N = 4 columns, the BSTC plane
+   every full-width projection shape with N = 4 columns (at wq/wo also N
+   1, 8 and 13, f32, bf16 and row-major x; and once coded with one tile a
+   row; every case launched twice for identical bits), the BSTC plane
    decode on the coded planes
    of a full-width 3072 x 3072 matrix, and the forward's flash attention
    (Hq 24, Hk 8, D 128, bf16: causal at B 1 / S 512, 450 and 301 and
@@ -46,9 +48,11 @@ Phases, each of which fails the run (nonzero exit) on any error:
    zeroed just before the Scheduler is built, read just after the run).
    After all of them, each chunked run's configuration traces a few
    steady decode steps, and the eager one a whole-prompt admission, with
-   torch.profiler (device busy share, time by kernel), and the flash
+   torch.profiler (device busy share, time by kernel), the flash
    attention kernel and ``scaled_dot_product_attention`` are traced at
-   causal S 512 and S 450 for their device time a call.
+   causal S 512 and S 450 for their device time a call, and the fused BSTC
+   decode + GEMV and a bf16 ``torch.matmul`` at every decode projection
+   shape.
 6. Reference check: the same small model and trace served on the card
    (kernels) and on the CPU (plain versions) give the same greedy tokens
    and logits within tolerance, for every KV format, for the int8 and
@@ -349,18 +353,60 @@ def bstc_record(w, cfg):
     return rec, weights.bstc_record_from_int8(rec["q"], rec["scale"], cfg)
 
 
+def check_bstc(label, ops, x, dense, scale):
+    """One K3 case: two launches on the same inputs must give identical
+    bits, and each output row must lie within 1e-5 of its ``Σ|w·x|``
+    (times the scale where there is one) of the plain version (the
+    products are exact, the sums run in another order).  Returns the
+    largest error."""
+    import torch
+
+    from repro_torch.kernels.bstc_matmul import bstc_matmul
+    from repro_torch.kernels.bstc_matmul.ref import bstc_matmul_plain
+
+    apply = scale is not None
+    got = bstc_matmul(ops, x, apply_scale=apply)
+    again = bstc_matmul(ops, x, apply_scale=apply)
+    want = bstc_matmul_plain(ops, x, apply_scale=apply)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"bstc_matmul {label}: two launches on the same inputs differ")
+    row = dense.abs().float() @ x.float().abs()
+    if apply:
+        row = row * scale[:, None]
+    err = (got - want).abs()
+    if bool((err > 1e-5 * row).any()):
+        at = (err > 1e-5 * row).nonzero()[0].tolist()
+        raise AssertionError(f"bstc_matmul {label} ({x.dtype}, strides {x.stride()}) "
+                             f"disagrees at {at}: "
+                             f"{err[tuple(at)].item():.3e} > 1e-5 x "
+                             f"{row[tuple(at)].item():.3e}")
+    return err.max().item()
+
+
+def bstc_plan_of(ops, x):
+    """K3's launch plan for these operands and x (what the wrapper uses)."""
+    from repro_torch.kernels.bstc_matmul import ops as bstc_ops
+
+    p = bstc_ops._validate_cuda(ops, x)
+    return (f"R {p.R}, C {p.C}, T {p.T}, {p.stages} stages, "
+            f"{p.grid[0] * p.grid[1] * p.grid[2]} blocks")
+
+
 def bstc_kernel_phase(device, flush):
     """Hold the fused BSTC decode + GEMV (K3) against its plain version at
     every full-width decode projection shape (N = 4 columns, f32 x as the
-    f32 decode residual; bf16 x once, as layer 0's q/k/v; x read in place
-    as the transpose of the (N, in) activations, as ``layers.wdot`` passes
-    it, and once as a row-major (in, N) tensor), and the plane
-    decode (K4) on the coded planes of a full-width 3072 x 3072 matrix
-    coded with one tile a row, as the serve path's round-trip check codes
-    it.  K3's tolerance: each output row within 1e-5 of its
-    ``Σ|w·x|·scale`` (the products are exact, the sums run in another
-    order); K4: bit-identical.  Returns the two JSON records; K3's times
-    and bound are the mean per launch over one decode step's mix."""
+    f32 decode residual, read in place as the transpose of the (N, in)
+    activations, as ``layers.wdot`` passes it; at wq/wo also N 1, 8 and 13,
+    each in f32, in bf16 as layer 0's q/k/v get it, and as a row-major
+    (in, N) tensor; then the full-width 3072 x 3072 matrix coded with one
+    tile a row, which walks a tile in 512-column steps), every case
+    launched twice for identical bits (:func:`check_bstc`), and the plane
+    decode (K4) on the coded planes of that one-tile-a-row matrix, as the
+    serve path's round-trip check codes it.  K3's tolerance: each output
+    row within 1e-5 of its ``Σ|w·x|·scale``; K4: bit-identical.  Returns
+    the two JSON records; K3's times and bound are the mean per launch over
+    one decode step's mix."""
     import torch
 
     from repro_torch.configs import get_config
@@ -377,7 +423,7 @@ def bstc_kernel_phase(device, flush):
     N = 4
     mix = {"ms": 0.0, "plain": 0.0, "bytes": 0, "ops": 0, "bound": 0.0, "lib": 0.0, "n": 0,
            "err": 0.0}
-    x_at = lambda d_in, dt: torch.randn((N, d_in), generator=gen, device=device).to(dt).T
+    x_at = lambda d_in, dt, n=N: torch.randn((n, d_in), generator=gen, device=device).to(dt).T
     for name, d_in, d_out, count in projection_shapes(cfg):
         w = (torch.randn((d_in, d_out), generator=gen, device=device) * d_in ** -0.5
              ).to(torch.bfloat16)
@@ -390,20 +436,15 @@ def bstc_kernel_phase(device, flush):
         scale = rec["scale"]
         xs = [x_at(d_in, torch.float32)]
         if name == "wq/wo":
-            xs += [x_at(d_in, torch.bfloat16), xs[0].contiguous()]
+            for n in (1, 4, 8, 13):
+                xs += [x_at(d_in, torch.float32, n)] if n != N else []
+                xs += [x_at(d_in, torch.bfloat16, n), x_at(d_in, torch.float32, n).contiguous()]
         for x in xs:
-            got = bstc_matmul(ops, x, apply_scale=True)
-            want = bstc_matmul_plain(ops, x, apply_scale=True)
-            torch.cuda.synchronize()
-            row = (dense.abs().float() @ x.float().abs()) * scale[:, None]
-            err = (got - want).abs()
-            if bool((err > 1e-5 * row).any()):
-                at = (err > 1e-5 * row).nonzero()[0].tolist()
-                raise AssertionError(f"bstc_matmul {name} ({x.dtype}, strides {x.stride()}) "
-                                     f"disagrees at {at}: "
-                                     f"{err[tuple(at)].item():.3e} > 1e-5 x "
-                                     f"{row[tuple(at)].item():.3e}")
-            mix["err"] = max(mix["err"], err.max().item())
+            err = check_bstc(name, ops, x, dense, scale)
+            mix["err"] = max(mix["err"], err)
+            print(f"[kernel] bstc_matmul {name} N={x.shape[1]} {x.dtype} x strides "
+                  f"{x.stride()}: max_abs_err {err:.3e}, two launches bit-identical "
+                  f"({bstc_plan_of(ops, x)})")
         x = x_at(d_in, torch.float32)
         wf = (dense.float() * scale[:, None])  # the pre-reconstructed dense weight
         wb, xb = wf.to(torch.bfloat16), x.to(torch.bfloat16)
@@ -427,7 +468,8 @@ def bstc_kernel_phase(device, flush):
         ops_n = 2 * d_out * d_in * N
         bound = max(nbytes / HBM_BYTES_PER_S, ops_n / PEAK_OPS["f32"]) * 1e3
         print(f"[kernel] bstc_matmul {name} ({d_out} x {d_in}, N={N}, coded planes "
-              f"{list(ops.enc_planes)}): kernel {ms:.4f} ms (x row-major {rows_ms:.4f} ms), "
+              f"{list(ops.enc_planes)}; {bstc_plan_of(ops, x)}): kernel {ms:.4f} ms "
+              f"(x row-major {rows_ms:.4f} ms), "
               f"plain {plain_ms:.4f} ms, "
               f"bound {bound:.4f} ms ({nbytes} B needed; operands occupy "
               f"{ops.stored_bytes} B; plan prices {ops.hbm_bytes + 4 * d_out} B at "
@@ -460,6 +502,10 @@ def bstc_kernel_phase(device, flush):
     ops = operands_from_encoded(bw, tile_k=d)  # as _kernel_roundtrip_check codes it
     if not ops.enc_planes:
         raise AssertionError("bstc_decode: the full-width matrix coded no plane")
+    x = x_at(d, torch.float32)
+    err = check_bstc("wq/wo one tile a row", ops, x, reconstruct_dense_ref(ops), None)
+    print(f"[kernel] bstc_matmul wq/wo coded with one tile a row (tile_k {d}): max_abs_err "
+          f"{err:.3e}, two launches bit-identical ({bstc_plan_of(ops, x)})")
     planes = [EncodedPlaneOperands(*ops.enc[3 * i:3 * i + 3], H=d, m=ops.m)
               for i in range(len(ops.enc_planes))]
     for p, pl in zip(ops.enc_planes, planes):
@@ -626,6 +672,62 @@ def flash_device_phase(device, calls: int = 20) -> None:
               f"each, L2 warm): kernel {ms['kernel']:.4f} ms a call, SDPA {ms['SDPA']:.4f} ms a "
               f"call ({ms['kernel'] / ms['SDPA']:.2f}x); recorded: kernel {counts['kernel']}; "
               f"SDPA {counts['SDPA']}")
+
+
+def bstc_device_phase(device, calls: int = 20) -> None:
+    """K3 against a bf16 ``torch.matmul`` on the dense weight, on device
+    time, at every full-width decode projection shape: one
+    ``torch.profiler`` trace (:func:`_traced`) of ``calls`` calls of each,
+    K3 on N = 4 f32 columns read in place as the decode step passes them,
+    the matmul on the same x in bf16, L2 flushed before each call (the step
+    reads every weight cold).  Prints device ms a call (the flush kernels
+    left out) and the decode step's mix weighted by its launches.  Run after
+    the serving runs are timed: a trace slows the process's later host
+    work."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.bstc_matmul import bstc_matmul
+
+    cfg = get_config("phi4-mini-3.8b")
+    gen = torch.Generator(device=device).manual_seed(5)
+    l2 = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    step = {"kernel": 0.0, "matmul": 0.0}
+    for name, d_in, d_out, count in projection_shapes(cfg):
+        w = (torch.randn((d_in, d_out), generator=gen, device=device) * d_in ** -0.5
+             ).to(torch.bfloat16)
+        int8, rec = bstc_record(w, cfg)
+        del w
+        ops = rec["bstc"]
+        wb = (int8["q"].T.float() * rec["scale"][:, None]).to(torch.bfloat16)
+        del int8
+        x = torch.randn((4, d_in), generator=gen, device=device).T
+        xb = x.to(torch.bfloat16)
+        ms, counts = {}, {}
+        for label, fn in (("kernel", lambda: bstc_matmul(ops, x, apply_scale=True)),
+                          ("matmul", lambda: torch.matmul(wb, xb))):
+            fn()
+            torch.cuda.synchronize()
+
+            def run():
+                for _ in range(calls):
+                    l2.zero_()
+                    fn()
+
+            dev = [e for e in _traced(run, f"bstc_matmul {name}: {calls} {label} calls")
+                   if "FillFunctor" not in e.key]
+            ms[label] = sum(e.self_device_time_total / e.count for e in dev) / 1e3
+            counts[label] = ", ".join(f"{e.count} x {e.key[:40]}" for e in dev)
+            step[label] += count * ms[label]
+        print(f"[kernel] bstc_matmul {name} device time (torch.profiler, {calls} calls each, "
+              f"L2 flushed): kernel {ms['kernel']:.4f} ms a call, bf16 torch.matmul "
+              f"{ms['matmul']:.4f} ms a call ({ms['kernel'] / ms['matmul']:.2f}x; "
+              f"{bstc_plan_of(ops, x)}); {count} launches a decode step; recorded: kernel "
+              f"{counts['kernel']}; matmul {counts['matmul']}")
+        del ops, wb
+    print(f"[kernel] bstc_matmul: a decode step's {7 * cfg.num_layers + 1} projections by "
+          f"device time (the mix above, weighted by launches): kernel {step['kernel']:.3f} ms, "
+          f"bf16 torch.matmul {step['matmul']:.3f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -1415,6 +1517,7 @@ def main(argv=None) -> int:
 
     launches = serve_phase(device, card)
     flash_device_phase(device)
+    bstc_device_phase(device)
     launches.update(paper_launches)
     for r in records:
         r["launches"] = launches[r["name"]]

@@ -18,9 +18,9 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.bstc_decode.ops import bstc_decode_patterns, plane_operands
 from repro_torch.kernels.bstc_matmul import kernel
 from repro_torch.kernels.bstc_matmul.ref import bstc_matmul_plain, reconstruct_dense_ref
+from repro_torch.kernels.paged_flash_decode.kernel import sm_count
 
-KERNEL_GROUP = 4  # the BSTC group m the CUDA kernel is built for
-MAX_KERNEL_COLS = 65535 * 8  # grid.y blocks of up to 8 columns of x
+MAX_KERNEL_COLS = kernel.MAX_COL_BLOCKS * 8  # grid.z blocks of up to 8 columns of x
 
 
 @dataclasses.dataclass(eq=False)
@@ -129,27 +129,28 @@ def _validate(ops: BSTCMatmulOperands, x: torch.Tensor) -> None:
                          f"{ops.sign_bits.device}")
 
 
-def _validate_cuda(ops: BSTCMatmulOperands, x: torch.Tensor) -> None:
-    """What the CUDA kernel additionally requires: of x at every call, of
-    the operands once, at their first launch (which caches the plane
-    table)."""
+def _validate_cuda(ops: BSTCMatmulOperands, x: torch.Tensor) -> Optional[kernel.Plan]:
+    """What the CUDA kernel additionally requires, and its launch plan: of
+    x at every call, of the operands once, at their first launch (which
+    caches the plane table).  The plan refuses a group m other than 4, more
+    than 7 magnitude planes and a tile_k that does not cut H into whole
+    bytes."""
     if x.dtype not in kernel.X_DTYPES:
         raise ValueError(f"bstc_matmul: x must be float32 or bfloat16, got {x.dtype}")
     if x.shape[1] > MAX_KERNEL_COLS:
         raise ValueError(f"bstc_matmul: N={x.shape[1]} columns exceed the grid")
+    geo = None  # nothing to launch for an empty output
+    if ops.M and x.shape[1]:
+        geo = kernel.plan(ops.M, ops.H, x.shape[1], ops.tile_k, ops.m, sm_count(x.device),
+                          len(ops.enc_planes), len(ops.raw_planes), kernel.x_vectorizable(x))
     if ops._desc is not None:
-        return
-    if ops.m != KERNEL_GROUP:
-        raise ValueError(f"bstc_matmul: the CUDA kernel decodes groups of m={KERNEL_GROUP}, "
-                         f"got m={ops.m}")
-    if len(ops.enc_planes) + len(ops.raw_planes) > 8:
-        raise ValueError("bstc_matmul: more than 8 magnitude planes")
+        return geo
+    if max(ops.enc_planes + ops.raw_planes, default=0) > kernel.MAX_SHIFT:
+        raise ValueError(f"bstc_matmul: magnitude planes above {kernel.MAX_SHIFT} "
+                         f"(|w| > 127) do not pack in the kernel's bytes")
     hb = ops.H // 8
     G = ops.M // ops.m
     tile_k = ops.tile_k
-    if tile_k % 8 or ops.H % tile_k:
-        raise ValueError(f"bstc_matmul: tile_k={tile_k} must be a multiple of 8 dividing "
-                         f"H={ops.H}")
     for i in range(len(ops.enc_planes)):
         bitmap, offsets, patterns = ops.enc[3 * i:3 * i + 3]
         if tuple(bitmap.shape) != (G, hb) or tuple(offsets.shape) != (G, ops.H // tile_k) \
@@ -165,11 +166,14 @@ def _validate_cuda(ops: BSTCMatmulOperands, x: torch.Tensor) -> None:
         if tuple(t.shape) != (ops.M, hb) or t.dtype != torch.uint8 or not t.is_contiguous():
             raise ValueError(f"bstc_matmul: raw and sign planes must be contiguous uint8 "
                              f"({ops.M}, {hb}), got {tuple(t.shape)} {t.dtype}")
+    if any(t.data_ptr() % 16 for t in (*ops.enc, *ops.raw, ops.sign_bits)):
+        raise ValueError("bstc_matmul: the plane arrays must start 16-byte aligned")
     if ops.scale is not None and (tuple(ops.scale.shape) != (ops.M,)
                                   or ops.scale.dtype != torch.float32
                                   or not ops.scale.is_contiguous()):
         raise ValueError(f"bstc_matmul: scale must be contiguous float32 ({ops.M},)")
     ops._desc = kernel.descriptor(ops)
+    return geo
 
 
 def bstc_matmul(ops: BSTCMatmulOperands, x: torch.Tensor, *,
@@ -186,13 +190,13 @@ def bstc_matmul(ops: BSTCMatmulOperands, x: torch.Tensor, *,
         return bstc_matmul_plain(ops, x, apply_scale)
     if x.device.type != "cuda":
         raise ValueError(f"bstc_matmul: no kernel for device {x.device}")
-    _validate_cuda(ops, x)
+    geo = _validate_cuda(ops, x)
     N = x.shape[1]
     if x.stride(0) == 1:
         out = torch.empty((N, ops.M), dtype=torch.float32, device=x.device).T
     else:
         out = torch.empty((ops.M, N), dtype=torch.float32, device=x.device)
-    if ops.M and N:
-        kernel.launch(ops._desc, ops, x, ops.scale if apply_scale else None, out)
+    if geo is not None:
+        kernel.launch(ops._desc, ops, x, ops.scale if apply_scale else None, out, geo)
         LAUNCHES["bstc_matmul"] += 1
     return out

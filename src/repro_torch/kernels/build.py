@@ -138,7 +138,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.bstc_matmul_launch.argtypes = [
         P, P, P, I, L, L,  # plane table (host int64 array), sign, x, x dtype, x strides
         P, P, L, L,  # scale, out, out strides
-        I, I, I, I, P,  # M, H, N, tile_k, stream
+        I, I, I, I, P, P,  # M, H, N, tile_k, plan (host int array), stream
     ]
     lib.flash_attention_launch.argtypes = [
         P, P, P, P,  # q, k, v, out

@@ -39,6 +39,9 @@ from repro_torch.kernels.bgpp_paged_attend import bgpp_paged_attend
 from repro_torch.kernels.bgpp_paged_attend.ref import bgpp_paged_attend_ref
 from repro_torch.kernels.bstc_decode import bstc_decode_patterns, prepare_encoded_plane
 from repro_torch.kernels.bstc_matmul import bstc_matmul, prepare_bstc_matmul_operands
+from repro_torch.kernels.bstc_matmul import kernel as bstc_kernel
+from repro_torch.kernels.bstc_matmul import ops as bstc_ops
+from repro_torch.kernels.bstc_matmul.ref import bstc_matmul_plain
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -629,3 +632,264 @@ def _jax_topk_indices(q, ops, phys, pos, rounds, k_max, surv):
     idx, _ = jref._topk_indices(jref._quant_query(_j(q)), hm(planes[jref.NBITS - 1]),
                                 hm(sign), plane_at, valid, rounds, k_max, surv)
     return np.asarray(idx)
+
+
+# ---------------------------------------------------------------------------
+# K3 bstc_matmul: the CUDA launch plan and the split's arithmetic
+# ---------------------------------------------------------------------------
+
+# (in_dim, out_dim) of phi4-mini's decode projections (chip_smoke.projection_shapes)
+# and of the smoke config (d_model 96, kv_dim 32, d_ff 192, vocab 512)
+K3_SERVE = [(3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072), (3072, 200064)]
+K3_SMOKE = [(96, 96), (96, 32), (96, 192), (192, 96), (96, 512)]
+
+
+def _k3_plan(H, M, N, tile_k, n_enc=1, n_raw=6, x_vec=True, sms=132):
+    return bstc_kernel.plan(M, H, N, tile_k, 4, sms, n_enc, n_raw, x_vec)
+
+
+def _k3_items(p, M, H, tile_k):
+    """How often the grid visits each (group row, tile), as the source
+    indexes it: block (bx, rank c), warp w -> group row bx * R + w and the
+    tiles [c * T, min(n_tiles, (c + 1) * T))."""
+    G, n_tiles = M // 4, H // tile_k
+    seen = np.zeros((G, n_tiles), np.int64)
+    for c in range(p.grid[1]):
+        tiles = slice(c * p.T, min(n_tiles, (c + 1) * p.T))
+        g = np.arange(p.grid[0] * p.R)
+        g = g[g < G]
+        seen[g, tiles] += 1
+    return seen * p.grid[2]  # every column block repeats the walk
+
+
+class TestBstcMatmulPlan:
+    """K3's CUDA launch geometry (``kernel.plan``), from static shapes alone."""
+
+    SMS = 132  # an H100 SXM
+
+    @pytest.mark.parametrize("H,M,tile_k", [(H, M, 512) for H, M in K3_SERVE]
+                             + [(H, M, H) for H, M in K3_SMOKE] + [(3072, 3072, 3072),
+                                                                    (8192, 3072, 8192)])
+    @pytest.mark.parametrize("N", [1, 4, 8, 13])
+    def test_every_item_has_one_warp(self, H, M, tile_k, N):
+        p = _k3_plan(H, M, N, tile_k)
+        assert p.grid[2] == -(-N // p.NB) and p.NB == min(8, 1 << (N - 1).bit_length())
+        np.testing.assert_array_equal(_k3_items(p, M, H, tile_k), p.grid[2])
+        n_tiles = H // tile_k
+        assert p.C <= bstc_kernel.MAX_CLUSTER and p.grid[1] == p.C  # cluster dims (1, C, 1)
+        assert (p.C - 1) * p.T < n_tiles <= p.C * p.T  # every rank owns a tile
+        assert p.threads == 32 * p.R and p.chunks == -(-tile_k // 512)
+        # shared memory: the block fits, and two blocks share an SM
+        assert p.smem == bstc_kernel.smem_bytes(p.R, p.NB, p.stages, 1, 6) <= build.MAX_SMEM
+        assert 2 * (p.smem + 1024) <= bstc_kernel.SM_SMEM
+        steps = p.T * p.chunks
+        assert p.stages == (1 if steps == 1 else 2 if p.chunks > 1 else p.stages)
+        assert 1 <= p.stages <= min(steps, bstc_kernel.MAX_STAGES) or steps == 1
+
+    @pytest.mark.parametrize("H,M", K3_SERVE)
+    @pytest.mark.parametrize("N", [1, 4, 8, 13])
+    def test_serve_shapes_fill_the_card(self, H, M, N):
+        """Every serve shape puts a block on each SM, copies rows and x by
+        16 bytes, and takes the cluster size of least modeled cost: waves of
+        two blocks an SM, each T + 1 steps long."""
+        p = _k3_plan(H, M, N, 512)
+        blocks = p.grid[0] * p.grid[1] * p.grid[2]
+        assert blocks >= self.SMS and p.R == 8
+        assert p.width == 16 and p.x_width == 16
+        n_tiles, rows = H // 512, p.grid[0] * p.grid[2]
+        costs = {}
+        for c in range(1, min(8, n_tiles) + 1):
+            T = -(-n_tiles // c)
+            costs.setdefault(-(-n_tiles // T), bstc_kernel.grid_cost(rows * -(-n_tiles // T), T,
+                                                                     self.SMS))
+        assert costs[p.C] == min(costs.values())
+        assert p.C == min(c for c, v in costs.items() if v == costs[p.C])
+
+    @pytest.mark.parametrize("H,M,C", [(3072, 3072, 2), (3072, 1024, 6), (3072, 8192, 1),
+                                       (8192, 3072, 2), (3072, 200064, 1)])
+    def test_decode_batch_takes_the_measured_cluster_size(self, H, M, C):
+        """At N 4 the plan picks, at each serve shape, the cluster size that
+        had the least device time on an H100 (PERF.md §6)."""
+        assert _k3_plan(H, M, 4, 512).C == C
+
+    def test_a_partial_wave_costs_a_whole_one(self):
+        assert bstc_kernel.grid_cost(264, 2, 132) == 3
+        assert bstc_kernel.grid_cost(288, 2, 132) == 6
+        assert bstc_kernel.grid_cost(192, 3, 132) == 4
+
+    @pytest.mark.parametrize("H,tile_k,width", [(96, 96, 4), (192, 192, 8), (3072, 512, 16),
+                                                (3072, 3072, 16), (96, 32, 4), (1024, 8, 1),
+                                                (1024, 64, 8), (8192, 512, 16)])
+    def test_copy_widths_match_the_alignment(self, H, tile_k, width):
+        """A row segment starts at a multiple of gcd(H/8, tile_k/8) bytes;
+        the copy width is the largest of 16, 8, 4, 1 dividing it, and x is
+        copied by 16 bytes only where it is an aligned f32 view and a step's
+        bytes are even."""
+        p = _k3_plan(H, 64, 4, tile_k)
+        assert p.width == width
+        assert math.gcd(H // 8, tile_k // 8) % p.width == 0
+        assert p.x_width == (16 if (tile_k // 8) % 2 == 0 else 0)
+        assert _k3_plan(H, 64, 4, tile_k, x_vec=False).x_width == 0
+
+    def test_a_step_segment_fits_the_window(self):
+        """A step reads at most 512 pattern slots, staged as the 16-byte
+        chunks covering them from any start: at most WINDOW bytes."""
+        for skew in range(16):
+            for n in (1, 100, 511, 512):
+                assert -(-(skew + n) // 16) * 16 <= bstc_kernel.WINDOW
+
+    @pytest.mark.parametrize("x_layout", ["T", "T one column", "rows", "bf16", "pitch 3073",
+                                          "offset 1"])
+    def test_x_is_copied_by_16_bytes_only_where_it_can_be(self, x_layout):
+        """16-byte copies of x need f32, unit stride along H and 16-byte
+        aligned column starts (``wdot``'s ``a.T``); anything else is copied
+        element by element."""
+        a = torch.zeros(4, 3072)
+        x = {"T": a.T, "T one column": a[:1].T, "rows": a.T.contiguous(),
+             "bf16": a.T.to(torch.bfloat16), "pitch 3073": torch.zeros(4, 3073)[:, :3072].T,
+             "offset 1": torch.zeros(4 * 3072 + 1)[1:].view(4, 3072).T}[x_layout]
+        assert bstc_kernel.x_vectorizable(x) == x_layout.startswith("T")
+
+    @pytest.mark.parametrize("kw,match", [
+        (dict(m=8), "groups of m=4"),
+        (dict(n_enc=2, n_raw=6), "at most 7 magnitude planes"),
+        (dict(n_enc=3, n_raw=6), "at most 7 magnitude planes"),
+        (dict(tile_k=12), "tile_k=12"),
+        (dict(tile_k=1024), "tile_k=1024"),
+        (dict(M=6), "M=6"),
+        (dict(N=0), "N=0"),
+    ])
+    def test_refusals_raise(self, kw, match):
+        args = dict(M=64, H=1536, N=4, tile_k=512, m=4, n_sms=132, n_enc=1, n_raw=6)
+        args.update(kw)
+        with pytest.raises(ValueError, match=match):
+            bstc_kernel.plan(args["M"], args["H"], args["N"], args["tile_k"], args["m"],
+                             args["n_sms"], args["n_enc"], args["n_raw"])
+
+    def test_wrapper_refuses_planes_above_six(self, monkeypatch):
+        """Magnitude bytes pack planes 0..6 (|w| <= 127): operands coded
+        with 8 planes are refused before any launch."""
+        monkeypatch.setattr(bstc_ops, "sm_count", lambda device: 132)
+        w = torch.from_numpy(np.random.default_rng(3).integers(-127, 128, (32, 64))
+                             .astype(np.int8))
+        ops = prepare_bstc_matmul_operands(w, torch.ones(32), nbits=8, tile_k=32)
+        with pytest.raises(ValueError, match="magnitude planes"):
+            bstc_ops._validate_cuda(ops, torch.zeros(64, 4))
+        ok = prepare_bstc_matmul_operands(w, torch.ones(32), tile_k=32)
+        assert isinstance(bstc_ops._validate_cuda(ok, torch.zeros(64, 4)), bstc_kernel.Plan)
+        assert ok._desc is not None  # the plane table, built at the first launch
+
+
+def _k3_transpose8(lo, hi):
+    """``transpose8`` of ``csrc/bstc_matmul.cu`` in Python integers."""
+    M = 0xFFFFFFFF
+
+    def swap(x, k, m):
+        t = (x ^ (x >> k)) & m
+        return (x ^ t ^ (t << k)) & M
+
+    lo, hi = swap(lo, 7, 0x00AA00AA), swap(hi, 7, 0x00AA00AA)
+    lo, hi = swap(lo, 14, 0x0000CCCC), swap(hi, 14, 0x0000CCCC)
+    t = (lo ^ (hi << 4)) & 0xF0F0F0F0
+    return lo ^ t, hi ^ (t >> 4)
+
+
+def _k3_split(ops, x):
+    """K3's split on the CPU, in plain torch: per (group row, tile) f32
+    partials, each coded plane's stream slot from ``offsets[e][g, kt]`` (or
+    the previous 512-column step's run) plus the exclusive scan of the
+    step's bitmap, read from the step's staged window ``[lo, hi)`` as the
+    source clamps it; a rank's tiles summed in order, the ranks summed in
+    rank order, the scale applied last."""
+    from repro_torch.core.bitslice import unpack_bits
+
+    M, H, m, tk = ops.M, ops.H, ops.m, ops.tile_k
+    G, n_tiles, N = M // m, H // tk, x.shape[1]
+    p = bstc_kernel.plan(M, H, N, tk, m, 132, len(ops.enc_planes), len(ops.raw_planes))
+    mag = torch.zeros((M, H), dtype=torch.int64)
+    for raw, plane in zip(ops.raw, ops.raw_planes):
+        mag += unpack_bits(raw).long() << plane
+    rows = torch.arange(G)[:, None]
+    for e, plane in enumerate(ops.enc_planes):
+        bitmap, offsets, patterns = ops.enc[3 * e:3 * e + 3]
+        bits, cap = unpack_bits(bitmap).long(), patterns.shape[1]
+        for kt in range(n_tiles):
+            run = offsets[:, kt].long()
+            for c0 in range(kt * tk, (kt + 1) * tk, 512):
+                c1 = min(c0 + 512, (kt + 1) * tk)
+                b = bits[:, c0:c1]
+                start = run
+                lo = start.clamp(0, cap)
+                hi = torch.minimum(lo + (c1 - c0), torch.full_like(lo, cap))
+                if c1 == (kt + 1) * tk and kt + 1 < n_tiles:
+                    hi = torch.minimum(hi, offsets[:, kt + 1].long())
+                hi = torch.maximum(hi, lo)
+                slot = start[:, None] + b.cumsum(1) - b
+                assert bool(((slot >= lo[:, None]) & (slot < hi[:, None]) | (b == 0)).all())
+                slot = torch.minimum(torch.maximum(slot, lo[:, None]),
+                                     (hi - 1).clamp(min=0)[:, None])
+                pat = torch.where(b == 1, patterns.long()[rows, slot.clamp(0, cap - 1)], 0)
+                for r in range(m):
+                    mag[r::m, c0:c1] += ((pat >> r) & 1) << plane
+                run = start + b.sum(1)
+    w = ((1 - 2 * unpack_bits(ops.sign_bits).long()) * mag).float()
+    xf = x.float()
+    ranks = []
+    for c in range(p.C):
+        acc = torch.zeros((M, N))
+        for kt in range(c * p.T, min(n_tiles, (c + 1) * p.T)):
+            acc = acc + w[:, kt * tk:(kt + 1) * tk] @ xf[kt * tk:(kt + 1) * tk]
+        ranks.append(acc)
+    y = ranks[0]
+    for part in ranks[1:]:
+        y = y + part
+    return y * ops.scale[:, None], w
+
+
+class TestBstcMatmulArithmetic:
+    """K3's arithmetic, emulated on the CPU, against its plain version
+    within the tolerance the card holds the kernel to (``1e-5 * Σ|w·x| *
+    scale`` a row: the products are exact in f32, the sums run in another
+    order)."""
+
+    def test_transpose_is_the_bit_transpose(self):
+        rng = np.random.default_rng(4)
+        for _ in range(500):
+            bits = rng.integers(0, 2, (8, 8))  # bits[p, c]: plane p, column c
+            rows = [int((bits[p] << np.arange(8)).sum()) for p in range(8)]
+            lo = rows[0] | rows[1] << 8 | rows[2] << 16 | rows[3] << 24
+            hi = rows[4] | rows[5] << 8 | rows[6] << 16 | rows[7] << 24
+            a, b = _k3_transpose8(lo, hi)
+            got = [(a >> 8 * c) & 0xFF for c in range(4)] + [(b >> 8 * c) & 0xFF for c in range(4)]
+            assert got == [int((bits[:, c] << np.arange(8)).sum()) for c in range(8)]
+
+    def test_sign_magnitude_bytes_become_exact_floats(self):
+        """bits 0-6 = |w|, bit 7 = sign -> w + 128 a byte with no carry, and
+        0x4B0000uu - (2^23 + 128) is w in f32, for every byte."""
+        for word in range(0, 1 << 8):
+            x = word * 0x01010101  # the same byte in all four lanes
+            S = (x >> 7) & 0x01010101
+            u = (((x & 0x7F7F7F7F) ^ (S * 0xFF) ^ 0x80808080) + S) & 0xFFFFFFFF
+            for j in range(4):
+                ub = (u >> 8 * j) & 0xFF
+                f = np.array([0x4B000000 | ub], np.uint32).view(np.float32)[0]
+                w = (word & 0x7F) * (-1 if word & 0x80 else 1)
+                assert float(np.float32(f) - np.float32(8388736.0)) == w
+
+    @pytest.mark.parametrize("tile_k", [32, 64, 512, 1024])
+    @pytest.mark.parametrize("N", [1, 4, 13])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_split_matches_the_plain_version(self, tile_k, N, dtype):
+        rng = np.random.default_rng(tile_k + N)
+        M, H = 64, 1024
+        w = rng.integers(-127, 128, (M, H))
+        w = np.where(rng.random((M, H)) < 0.7, w // 16, w).astype(np.int8)
+        ops = prepare_bstc_matmul_operands(_t(w), _t(rng.random(M).astype(np.float32) + 0.5),
+                                           tile_k=tile_k)
+        assert len(ops.enc_planes) >= 2
+        x = _t(rng.standard_normal((H, N)).astype(np.float32)).to(dtype)
+        got, dense = _k3_split(ops, x)
+        np.testing.assert_array_equal(dense.numpy(), w.astype(np.float32))
+        want = bstc_matmul_plain(ops, x, apply_scale=True)
+        tol = 1e-5 * (dense.abs() @ x.float().abs()) * ops.scale[:, None]
+        assert bool(((got - want).abs() <= tol).all()), float((got - want).abs().max())
