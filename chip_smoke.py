@@ -13,12 +13,14 @@ Phases, each of which fails the run (nonzero exit) on any error:
    paths' shapes against its plain PyTorch version on the card, and times
    kernel, plain version and, where one exists, library calls: the decode
    attends (Hk=8, g=3, D=128, S=1024, page 16, shuffled page tables with
-   -1 pages; K1 also at B 1, S 32768, timed, and with every position in
-   its first block's lanes and one at -1, each body launched twice and
-   required to give identical bits), the fused BSTC decode + GEMV at
-   every full-width projection shape with N = 4 columns (at wq/wo also N
-   1, 8 and 13, f32, bf16 and row-major x; and once coded with one tile a
-   row; every case launched twice for identical bits), the BSTC plane
+   -1 pages; K1 and K2 also at B 1, S 32768, timed, and with every
+   position in the first block's lanes and one at -1 (K2: one below its
+   k_max), each launched twice and required to give identical bits, K2
+   with and without its survivor indices asked for), the fused BSTC
+   decode + GEMV at every full-width projection shape with N = 4 columns
+   (at wq/wo also N 1, 8 and 13, f32, bf16 and row-major x; and once coded
+   with one tile a row; every case launched twice for identical bits), the
+   BSTC plane
    decode on the coded planes
    of a full-width 3072 x 3072 matrix, and the forward's flash attention
    (Hq 24, Hk 8, D 128, bf16: causal at B 1 / S 512, 450 and 301 and
@@ -50,9 +52,10 @@ Phases, each of which fails the run (nonzero exit) on any error:
    steady decode steps, and the eager one a whole-prompt admission, with
    torch.profiler (device busy share, time by kernel), the flash
    attention kernel and ``scaled_dot_product_attention`` are traced at
-   causal S 512 and S 450 for their device time a call, and the fused BSTC
+   causal S 512 and S 450 for their device time a call, the fused BSTC
    decode + GEMV and a bf16 ``torch.matmul`` at every decode projection
-   shape.
+   shape, and the fused BGPP decode and K1's int8 body on the same int8 KV
+   at the decode geometry.
 6. Reference check: the same small model and trace served on the card
    (kernels) and on the CPU (plain versions) give the same greedy tokens
    and logits within tolerance, for every KV format, for the int8 and
@@ -256,32 +259,120 @@ def k1_case(label, q, kf, vf, table, pos, page, flush=None):
     return records
 
 
-def kernel_phase(device, flush):
-    """Hold the decode attend kernels against their plain versions at the
-    main path's shapes; return their JSON records (launches filled in
-    later).  K1 also runs a long context (B 1, S 32768, timed) and an
-    early-exit case (every position inside the first block's lanes, one
-    slot at -1), and two launches on the same inputs must give the same
-    bits."""
+K2_SOURCE = "src/repro_torch/csrc/bgpp_paged_attend.cu"
+K2_REPLACES = "src/repro/kernels/bgpp_paged_attend/kernel.py:80"
+
+
+def k2_operands(q, kf, vf, table, pos, page):
+    """K2's operands from a K1 input set: the int8 K/V of ``kf`` / ``vf``,
+    K as packed bit planes + sign, and the ``(B, S)`` int32 phys map of the
+    page table, as the bgpp pool and ``kernel_decode`` pass them."""
+    import torch
+
+    from repro_torch.serving import kv_cache as kvc
+
+    kq, ks = kvc.quantize_kv(kf)
+    vq, vs = kvc.quantize_kv(vf)
+    planes, sign = kvc.k_to_bitplanes(kq)
+    S = table.shape[1] * page
+    phys = kvc.phys_table(table, page, S).to(torch.int32).contiguous()
+    return (q, planes, sign, ks, vq, vs, phys, pos), kq
+
+
+def k2_case(label, args, kq, flush=None):
+    """K2 on one input set (:func:`k2_operands`), with the serving plan of
+    its width (``kv_cache.bgpp_decode_plan``): two launches give identical
+    bits, the survivor lanes equal the plain version's and the output rows
+    are within :func:`check_rows` of it (plus one probability-code step
+    over the survivors), with and without the indices asked for.  With
+    ``flush`` the case is timed against its plain version; the
+    ``[kernel]`` line names the plan's cluster size, lanes a block and
+    blocks.  Returns ``(max_abs_err, ms, plain_ms)``."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import bgpp_paged_attend as bgpp_ops
+    from repro_torch.kernels.bgpp_paged_attend import kernel as bgpp_kernel
     from repro_torch.kernels.bgpp_paged_attend.ref import (
         bgpp_paged_attend_ref, rows_at, rows_per_head)
-    from repro_torch.kernels.paged_flash_decode import kernel as pfd_kernel
+    from repro_torch.kernels.paged_flash_decode.kernel import sm_count
     from repro_torch.kernels.paged_flash_decode.ref import int8_code_step
     from repro_torch.serving import kv_cache as kvc
 
+    q, planes, sign, ks, vq, vs, phys, pos = args
+    B, Hk, g, D = q.shape
+    S = phys.shape[1]
+    rounds, k_max, surv = kvc.bgpp_decode_plan(S, get_config("phi4-mini-3.8b"))
+    C, L, _, _ = bgpp_kernel.plan(B, Hk, g, D, S, k_max, surv, sm_count(q.device))
+    where = f" {label} (C {C}, L {L}, {B * Hk * C} blocks)"
+    plan = dict(rounds=rounds, k_max=k_max, survivors=surv)
+    got, idx = bgpp_ops.bgpp_paged_attend(*args, **plan, return_indices=True)
+    again, idx2 = bgpp_ops.bgpp_paged_attend(*args, **plan, return_indices=True)
+    serve, serve2 = (bgpp_ops.bgpp_paged_attend(*args, **plan) for _ in range(2))
+    want, want_idx = bgpp_paged_attend_ref(*args, **plan, return_indices=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, again) and torch.equal(idx, idx2) and torch.equal(serve, serve2)):
+        raise AssertionError(f"bgpp_paged_attend{where}: two launches on the same inputs "
+                             f"differ")
+    if not torch.equal(idx, want_idx):
+        bad = (idx != want_idx).nonzero()[:5].tolist()
+        raise AssertionError(f"bgpp_paged_attend{where} selected other lanes, e.g. {bad}")
+    # the exact int8 attend over the survivors (planes rebuild kq exactly)
+    surv_at = lambda a: rows_per_head(a, rows_at(phys.long(), want_idx.long()), False)
+    idx_valid = want_idx <= pos[:, None, None]
+    step = int8_code_step(q[:, :, :, None], surv_at(kq), surv_at(ks), surv_at(vs),
+                          idx_valid[:, :, None, None, :])[..., 0]
+    # with the indices and without them, as the serving path calls it
+    err = max(check_rows(f"bgpp_paged_attend{where}", got, want, step),
+              check_rows(f"bgpp_paged_attend{where} (no indices)", serve, want, step))
+    ms = plain_ms = None
+    timing = ""
+    if flush is not None:
+        ms = time_ms(lambda: bgpp_ops.bgpp_paged_attend(*args, **plan), flush=flush)
+        plain_ms = time_ms(lambda: bgpp_paged_attend_ref(*args, **plan), flush=flush)
+        timing = f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+    print(f"[kernel] bgpp_paged_attend{where}: survivor indices equal, max_abs_err="
+          f"{err:.3e}, two launches bit-identical{timing}")
+    return err, ms, plain_ms
+
+
+DECODE_S, DECODE_PAGE = 1024, 16  # the decode attends' width and page in the main path
+
+
+def decode_attend_inputs(device):
+    """The decode attends' operands at the decode geometry (B 4 slots of
+    phi4-mini's Hk 8, g 3, D 128 over S 1024 lanes, page 16), seed 0:
+    positions at page ends, a page start, and one shorter than BGPP's
+    k_max."""
+    from repro_torch.configs import get_config
+
     cfg = get_config("phi4-mini-3.8b")
-    B, Hk, D = 4, cfg.num_kv_heads, cfg.head_dim
-    g = cfg.num_heads // cfg.num_kv_heads
-    S, page = 1024, 16
-    # page ends, a page start, and a context shorter than BGPP's k_max
-    q, kf, vf, table, pos = k1_inputs(device, 0, B, S, [S - 1, 100, 20 * page - 1, 33 * page],
-                                      page, Hk, g, D)
+    S, page = DECODE_S, DECODE_PAGE
+    return k1_inputs(device, 0, 4, S, [S - 1, 100, 20 * page - 1, 33 * page], page,
+                     cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.head_dim)
+
+
+def kernel_phase(device, flush):
+    """Hold the decode attend kernels against their plain versions at the
+    main path's shapes; return their JSON records (launches filled in
+    later).  Each also runs a long context (B 1, S 32768, timed) and an
+    early-exit case (every position inside the first block's lanes, one
+    slot at -1; K2: one below k_max), and two launches on the same inputs
+    must give the same bits."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.bgpp_paged_attend import kernel as bgpp_kernel
+    from repro_torch.kernels.paged_flash_decode import kernel as pfd_kernel
+    from repro_torch.serving import kv_cache as kvc
+
+    cfg = get_config("phi4-mini-3.8b")
+    inputs = decode_attend_inputs(device)
+    q, kf, vf, table, pos = inputs
+    B, Hk, g, D = q.shape
+    S, page = DECODE_S, DECODE_PAGE
     n_valid = [min(int(p) + 1, S) for p in pos.cpu()]
-    records = k1_case("decode geometry", q, kf, vf, table, pos, page, flush)
+    records = k1_case("decode geometry", *inputs, page, flush)
     # ---- K1: a long context, and every slot ending in the first block ------
     long_ctx = k1_inputs(device, 10, 1, 32768, [32767], page, Hk, g, D)
     k1_case("long context S 32768", *long_ctx, page, flush)
@@ -290,37 +381,12 @@ def kernel_phase(device, flush):
     L = pfd_kernel.plan(B, Hk, g, D, S // page, page, pfd_kernel.sm_count(device)).L
     k1_case("early exit", *k1_inputs(device, 20, B, S, [L - 1, 37, 0, -1], page, Hk, g, D),
             page)
-    kq, ks = kvc.quantize_kv(kf)
-    vq, vs = kvc.quantize_kv(vf)
-    phys = kvc.phys_table(table, page, S)
-    io_bytes = q.numel() * 4 * 2 + table.numel() * 4 + B * 4  # q, out, table, pos
-    # ---- K2 -----------------------------------------------------------------
-    planes, sign = kvc.k_to_bitplanes(kq)
+    # ---- K2: the decode geometry, a long context, an early exit ------------
+    args, kq = k2_operands(*inputs, page)
+    err, ms, plain_ms = k2_case("decode geometry", args, kq, flush)
     rounds, k_max, surv = kvc.bgpp_decode_plan(S, cfg)
-    phys32 = phys.to(torch.int32).contiguous()
-    args = (q, planes, sign, ks, vq, vs, phys32, pos)
-    run = lambda: bgpp_ops.bgpp_paged_attend(*args, rounds=rounds, k_max=k_max,
-                                             survivors=surv)
-    plain = lambda: bgpp_paged_attend_ref(*args, rounds=rounds, k_max=k_max,
-                                          survivors=surv)
-    got, idx = bgpp_ops.bgpp_paged_attend(*args, rounds=rounds, k_max=k_max,
-                                          survivors=surv, return_indices=True)
-    want, want_idx = bgpp_paged_attend_ref(*args, rounds=rounds, k_max=k_max,
-                                           survivors=surv, return_indices=True)
-    torch.cuda.synchronize()
-    same = bool(torch.equal(idx, want_idx))
-    print(f"[kernel] bgpp_paged_attend: survivor indices equal: {same}")
-    if not same:
-        bad = (idx != want_idx).nonzero()[:5].tolist()
-        raise AssertionError(f"bgpp_paged_attend selected other lanes, e.g. {bad}")
-    # the exact int8 attend over the survivors (planes rebuild kq exactly)
-    surv_rows = rows_at(phys32.long(), want_idx.long())
-    surv_at = lambda a: rows_per_head(a, surv_rows, False)  # (B, Hk, k_max, ...)
-    idx_valid = want_idx <= pos[:, None, None]
-    step = int8_code_step(q[:, :, :, None], surv_at(kq), surv_at(ks), surv_at(vs),
-                          idx_valid[:, :, None, None, :])[..., 0]
-    err = check_rows("bgpp_paged_attend", got, want, step)
     Dp = D // 8
+    io_bytes = q.numel() * 4 * 2 + table.numel() * 4 + B * 4  # q, out, table, pos
     nbytes = io_bytes + B * S * 4  # + the phys map
     for nv in n_valid:
         kv_rows = min(k_max, nv)
@@ -328,10 +394,16 @@ def kernel_phase(device, flush):
                         + sum(min(s, nv) for s in surv[1:]) * Dp  # round planes
                         + kv_rows * ((kvc.NBITS - rounds) * Dp + 4 + D + 4))
     ops = sum(Hk * (nv * g * D * 2 + k_max * g * D * 4) for nv in n_valid)
-    records.append(kernel_record(
-        "bgpp_paged_attend", "src/repro_torch/csrc/bgpp_paged_attend.cu",
-        "src/repro/kernels/bgpp_paged_attend/kernel.py:80", err,
-        time_ms(run, flush=flush), time_ms(plain, flush=flush), nbytes, ops, "int8", None))
+    records.append(kernel_record("bgpp_paged_attend", K2_SOURCE, K2_REPLACES, err, ms,
+                                 plain_ms, nbytes, ops, "int8", None, label=" decode geometry"))
+    del args, kq
+    long_ctx = k1_inputs(device, 30, 1, 32768, [32767], page, Hk, g, D)
+    k2_case("long context S 32768", *k2_operands(*long_ctx, page), flush)
+    del long_ctx
+    torch.cuda.empty_cache()
+    L = bgpp_kernel.plan(B, Hk, g, D, S, k_max, surv, pfd_kernel.sm_count(device)).L
+    early = k1_inputs(device, 40, B, S, [L - 1, k_max // 4, 0, -1], page, Hk, g, D)
+    k2_case("early exit", *k2_operands(*early, page))
     return records
 
 
@@ -728,6 +800,51 @@ def bstc_device_phase(device, calls: int = 20) -> None:
     print(f"[kernel] bstc_matmul: a decode step's {7 * cfg.num_layers + 1} projections by "
           f"device time (the mix above, weighted by launches): kernel {step['kernel']:.3f} ms, "
           f"bf16 torch.matmul {step['matmul']:.3f} ms")
+
+
+def bgpp_device_phase(device, calls: int = 20) -> None:
+    """K2 against K1's int8 body, the dense int8 attend over the same KV,
+    on device time at the decode geometry (:func:`decode_attend_inputs`):
+    one ``torch.profiler`` trace (:func:`_traced`) of ``calls`` calls of
+    each, L2 flushed before each call (the decode step reads its KV cold).
+    Prints device ms a call (the flush kernels left out) and their ratio.
+    Run after the serving runs are timed: a trace slows the process's later
+    host work."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.bgpp_paged_attend import bgpp_paged_attend
+    from repro_torch.kernels.paged_flash_decode import paged_flash_decode
+    from repro_torch.serving import kv_cache as kvc
+
+    inputs = decode_attend_inputs(device)
+    q, _, _, table, pos = inputs
+    args, kq = k2_operands(*inputs, DECODE_PAGE)
+    _, _, _, ks, vq, vs, _, _ = args
+    rounds, k_max, surv = kvc.bgpp_decode_plan(DECODE_S, get_config("phi4-mini-3.8b"))
+    l2 = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    ms, counts = {}, {}
+    for label, fn in (
+            ("K2", lambda: bgpp_paged_attend(*args, rounds=rounds, k_max=k_max,
+                                             survivors=surv)),
+            ("K1 int8", lambda: paged_flash_decode(q, kq, vq, table, pos, page_size=DECODE_PAGE,
+                                                   k_scale=ks, v_scale=vs))):
+        fn()
+        torch.cuda.synchronize()
+
+        def run():
+            for _ in range(calls):
+                l2.zero_()
+                fn()
+
+        dev = [e for e in _traced(run, f"bgpp_paged_attend: {calls} {label} calls")
+               if "FillFunctor" not in e.key]
+        ms[label] = sum(e.self_device_time_total / e.count for e in dev) / 1e3
+        counts[label] = ", ".join(f"{e.count} x {e.key[:40]}" for e in dev)
+    print(f"[kernel] bgpp_paged_attend device time (torch.profiler, {calls} calls each, L2 "
+          f"flushed, decode geometry): K2 {ms['K2']:.4f} ms a call, K1 int8 body on the same "
+          f"int8 K/V {ms['K1 int8']:.4f} ms a call ({ms['K2'] / ms['K1 int8']:.2f}x); "
+          f"recorded: K2 {counts['K2']}; K1 {counts['K1 int8']}")
 
 
 # ---------------------------------------------------------------------------
@@ -1518,6 +1635,7 @@ def main(argv=None) -> int:
     launches = serve_phase(device, card)
     flash_device_phase(device)
     bstc_device_phase(device)
+    bgpp_device_phase(device)
     launches.update(paper_launches)
     for r in records:
         r["launches"] = launches[r["name"]]

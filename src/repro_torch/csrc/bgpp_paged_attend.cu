@@ -4,79 +4,112 @@
 // Replaces: src/repro/kernels/bgpp_paged_attend/kernel.py,
 //   bgpp_paged_attend_pallas (body _body, selection _topk_iter).
 //
-// What bounds it on the H100: bytes.  Per (slot, kv-head) cell it must read
-// the packed sign and MSB magnitude plane of every valid lane (D/4 bytes a
-// lane), one further plane for each progressive round's survivors (D/8 bytes
-// a survivor), and the k_max final survivors' remaining planes, scales and
-// int8 V row.  Its arithmetic (g*D adds per plane row, a sort of S keys per
-// round) is a few operations per byte.
-//
-// What the design does about it:
-//   * one block per (slot, kv-head) runs the whole pipeline of the
-//     reference cell: quantise + MSB-truncate the g query rows; round 0
-//     scores sign x MSB plane of every valid lane through the phys map;
-//     each progressive round keeps survivors[r] candidates and fetches only
-//     their next plane; the final k_max rows are rebuilt to int8 K from
-//     their 7 planes + sign and the exact int8 A2/A3 attend runs on them.
-//     Nothing wider than k_max full rows is read, matching the kv-read
-//     counter's claim;
-//   * lanes past pos are never read (their scores are NEG_INF, which orders
-//     them after every valid lane by position, exactly as in the
-//     reference); a final survivor whose quantised probability is 0
-//     contributes nothing and its V row is not read;
-//   * the g partial-score rows, the candidate list and the sort keys live
-//     in shared memory (24 KB + 8 KB + 8 KB at S = 1024, g = 3).
-// Selection is integer-exact: plane scores are integers below 2^24, exact
-// in f32 in any summation order.  Top-k is one stable bitonic sort per
-// round of 64-bit keys (score descending, position in the current list
-// ascending), which selects the same set in the same order as lax.top_k's
-// lowest-index tie-break.  The final attend keeps that selection order.
+// What bounds it on the H100: latency, not bytes.  Per (slot, kv-head) cell
+// it must read the packed sign and MSB magnitude plane of every valid lane
+// (D/4 bytes a lane), one further plane for each progressive round's
+// survivors (D/8 bytes a survivor), and the k_max final survivors' other
+// planes, scales and int8 V row: about 0.7 us of the card's memory time at
+// the decode geometry (B 4, Hk 8, S 1024).  But every round is a chain of
+// dependent steps (fetch a plane row through the lane's pool row, score,
+// rank the cell's candidates, pass the survivors on, cluster barriers in
+// between), so the design keeps each step short and spreads the cell over
+// the card:
+//   * one thread-block cluster of C blocks per (slot, kv-head) cell (C <= 8,
+//     chosen on the host from static shapes: kernels/bgpp_paged_attend/
+//     kernel.py `plan`; decode geometry C 4, 128 blocks, two blocks an SM
+//     fitting in registers at g <= 4, so all clusters run at once).  Block
+//     c owns the round-0 lanes [c*L, (c+1)*L) and reads them only up to
+//     the slot's position; in the list of round r (its candidates in
+//     selection order) it owns the ranks [c*caps[r], (c+1)*caps[r]);
+//   * a lane's plane row and sign row are one load each (16 bytes at D 128)
+//     through its pool row, round 0's first ones in flight while the query
+//     is quantised; the score is integer bit arithmetic: the truncated
+//     query's magnitudes are the top query_bits planes of an int8, so the
+//     signed plane dot is sum_p 2^p (popc(q_p & k & ~(q_s ^ k_s)) -
+//     popc(q_p & k & (q_s ^ k_s))) over 32-bit words.  It equals the plain
+//     version's f32 sum of integers below 2^24 exactly;
+//   * selection ranks only the valid candidates.  A lane past pos scores
+//     NEG_INF in every round and so follows every valid lane, in lane order
+//     (the plain version's stable sort): those lanes are implied, never
+//     stored or read.  Each block orders its own candidates by a 64-bit key
+//     (score descending, position in the current list ascending): up to one
+//     a thread by counting the keys below each, more by a bitonic network
+//     over at most 16 keys a thread in registers.  A candidate's rank in
+//     the cell is its rank in its block plus, for each other block, the
+//     count of that block's keys below it: binary searches of the other
+//     blocks' sorted runs, which each block copies into its own shared
+//     memory by 16-byte loads when they fit (decode geometry) and else
+//     reads where they lie, through distributed shared memory.  Keys are
+//     unique, so the ranks are, and the selection and its order are those
+//     of one sort of every key.  A candidate of rank below the next list's
+//     width is written, with its g partial scores, to the block that owns
+//     that rank, as 16-byte stores; no block ever holds or sorts the keys
+//     of all S lanes;
+//   * each progressive round fetches only its survivors' next plane; the
+//     final k_max survivors are rebuilt to int8 K from their 7 planes +
+//     sign by 8 x 8 bit transposes (four threads a survivor at D 128, one
+//     4-byte word of each plane a thread) and scored by dp4a: exact int32
+//     logits;
+//   * softmax statistics go across the cluster through distributed shared
+//     memory, combined in rank order so all blocks see the same values:
+//     each block's max m_c and sum s_c = sum exp(x - m_c) together, the
+//     cell's sum being sum_c s_c exp(m_c - max), then the A3 w max.  The PV
+//     sum (int8 codes x int8 V, 8-byte V loads, no load where a survivor's
+//     codes are all 0) is int32, exact in any order, and each rank adds one
+//     slice of the C blocks' sums.
+// Shared memory holds the header, the sort keys, a stage for the other
+// blocks' runs and two lists of L entries (the lane and g partials in whole
+// 16-byte words; the rounds alternate between them), the entry's pool row
+// read from the phys map where a round needs it: the context cap is C*L
+// lanes at C = 8
+// with L at most 4096, the sort's 16 keys a thread, and within 227 KB
+// (kernel.py `max_lanes`: S 32768 at g <= 3, D 128).  No reduction uses
+// atomics and every order is fixed: two launches give the same bits.
+// The attend follows the engine's A2/A3 sequence: q quantised per row with
+// rintf (half to even, like jnp.round), the (i32 * q_scale) * k_scale *
+// D^-1/2 rescale in that order, v_scale folded into the probabilities (a
+// zero probability weighs 0), probabilities quantised to [0, 127] against
+// the cluster-wide max, the int8 PV sum times w_scale.  With no valid lane
+// (pos < 0) the plain version's uniform attend over lanes 0..k_max-1 is
+// what the all-NEG_INF softmax gives, and that is what runs.
 
+#include <climits>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
+using u64 = unsigned long long;
+
 constexpr float kNegInf = -1e30f;  // repro.core.attention.NEG_INF
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;      // kernel.py THREADS
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 8;
-constexpr int kMaxRounds = 8;
+constexpr int kMaxCluster = 8;  // kernel.py MAX_CLUSTER
+constexpr int kNbits = 7;       // magnitude planes (the sign is an eighth)
+constexpr int kMaxLists = 8;    // rounds (at most kNbits) + the final list
+constexpr int kMaxSlots = 16;   // kernel.py MAX_SLOTS: keys a thread in the block sort
+constexpr int kUnroll = 4;      // rows a thread has in flight
+constexpr int kMaxDevices = 64;
+// Shared-memory header (bytes; kernel.py HEADER): the query's int8 codes
+// (kMaxG, 128), its bit masks (kMaxG, 8, 4) u32 (planes 0..6 of the
+// truncated magnitude, then the sign), then 136 words: the block's partial
+// and the cluster-wide max, sum and w max of each g row, the query scales,
+// the warps' scratch and the plan's list widths and caps.
+constexpr int kHdrCodes = 0, kHdrMasks = 1024, kHdrFloats = 2048, kHeader = 2592;
+constexpr int kStage = 2048;  // kernel.py STAGE: the other blocks' keys staged at once
+constexpr int kPMax = 0, kPSum = 8, kPW = 16, kGMax = 24, kGSum = 32, kGW = 40, kQScale = 48,
+              kScratch = 56,  // + kWarps * kMaxG = 120
+              kWidths = 120;  // + 2 * kMaxLists ints (the plan) = 136 words
 
 struct Plan {
-  int rounds;
-  int k_max;
-  int survivors[kMaxRounds];
+  int rounds, k_max;
+  int width[kMaxLists];  // entries of the list of round r: S, survivors[r], k_max
+  int cap[kMaxLists];    // ranks a block owns in that list (kernel.py plan)
 };
-
-__device__ float block_max(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    int nw = blockDim.x >> 5;
-    v = threadIdx.x < nw ? red[threadIdx.x] : -INFINITY;
-    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    if (threadIdx.x == 0) red[0] = v;
-  }
-  __syncthreads();
-  return red[0];
-}
-
-__device__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    int nw = blockDim.x >> 5;
-    v = threadIdx.x < nw ? red[threadIdx.x] : 0.f;
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (threadIdx.x == 0) red[0] = v;
-  }
-  __syncthreads();
-  return red[0];
-}
 
 __host__ __device__ inline int next_pow2(int n) {
   int p = 1;
@@ -85,298 +118,790 @@ __host__ __device__ inline int next_pow2(int n) {
 }
 
 // Sort key: ascending order of the key is descending score, then ascending
-// position.  -0.0 folds into +0.0 so the two compare equal, as floats do.
-__device__ __forceinline__ unsigned long long make_key(float score, int j) {
-  unsigned u = __float_as_uint(score + 0.0f);
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);  // order-preserving
-  return ((unsigned long long)(~u) << 32) | (unsigned)j;
+// position in the current list.  Scores are integers of magnitude < 2^25.
+__device__ __forceinline__ u64 make_key(int score, int j) {
+  return ((u64)(0x80000000u - (unsigned)score) << 32) | (unsigned)j;
 }
 
-__device__ void bitonic_sort(unsigned long long* keys, int N) {
+// One packed plane row: D/8 bytes in words (D 16: the low half of one).
+template <int D>
+__device__ __forceinline__ void load_row(const uint8_t* p, unsigned (&w)[4]) {
+  if constexpr (D == 128) {
+    const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = r.x, w[1] = r.y, w[2] = r.z, w[3] = r.w;
+  } else if constexpr (D == 64) {
+    const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = r.x, w[1] = r.y, w[2] = w[3] = 0u;
+  } else if constexpr (D == 32) {
+    w[0] = __ldg(reinterpret_cast<const unsigned*>(p));
+    w[1] = w[2] = w[3] = 0u;
+  } else {
+    w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
+    w[1] = w[2] = w[3] = 0u;
+  }
+}
+
+// Bytes [4c, 4c + 4) of a plane row (D 16: [0, 2)).
+template <int D>
+__device__ __forceinline__ unsigned load_chunk(const uint8_t* row, int c) {
+  if constexpr (D == 16) return __ldg(reinterpret_cast<const unsigned short*>(row));
+  else return __ldg(reinterpret_cast<const unsigned*>(row) + c);
+}
+
+// Signed plane dot of one packed row against the truncated query of each
+// g row: sum_d qf[gi][d] * (k_d ? (s_d ? -1 : 1) : 0), as integers.
+// masks: (kMaxG, 8, 4) words, plane p of |qf| at [gi][p], sign at [gi][7];
+// only planes qlo.. of the query are nonzero.
+template <int G, int W>
+__device__ __forceinline__ void plane_dot(const unsigned* masks, int g, int qlo,
+                                          const unsigned (&kb)[4], const unsigned (&ks)[4],
+                                          int (&acc)[G]) {
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    acc[gi] = 0;
+    if (gi >= g) continue;
+    const unsigned* m = masks + gi * 32;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const unsigned x = m[28 + w] ^ ks[w];
+      const unsigned pm = kb[w] & ~x, nm = kb[w] & x;
+      for (int p = qlo; p < kNbits; ++p) {
+        const unsigned qp = m[4 * p + w];
+        acc[gi] += (__popc(qp & pm) - __popc(qp & nm)) << p;
+      }
+    }
+  }
+}
+
+// 8 x 8 bit transpose (three delta swaps): lo / hi hold rows 0-3 / 4-7, a
+// byte each with bit c = column c; on return they hold columns 0-3 / 4-7, a
+// byte each with bit p = row p.  (The same as bstc_matmul.cu's.)
+__device__ __forceinline__ void transpose8(unsigned& lo, unsigned& hi) {
+  unsigned t;
+  t = (lo ^ (lo >> 7)) & 0x00AA00AAu;
+  lo ^= t ^ (t << 7);
+  t = (hi ^ (hi >> 7)) & 0x00AA00AAu;
+  hi ^= t ^ (t << 7);
+  t = (lo ^ (lo >> 14)) & 0x0000CCCCu;
+  lo ^= t ^ (t << 14);
+  t = (hi ^ (hi >> 14)) & 0x0000CCCCu;
+  hi ^= t ^ (t << 14);
+  t = (lo ^ (hi << 4)) & 0xF0F0F0F0u;
+  lo ^= t;
+  hi ^= t >> 4;
+}
+
+// Four sign-magnitude bytes (bit 7 the sign) dotted with four int8 query
+// codes: the magnitudes with the negative ones complemented (-1 - m as a
+// signed byte), less the complement masks (-1 each), is the signed value.
+__device__ __forceinline__ int sm_dot(unsigned x, int q) {
+  const unsigned neg = ((x >> 7) & 0x01010101u) * 0xFFu;
+  return __dp4a((int)((x & 0x7F7F7F7Fu) ^ neg), q, 0) - __dp4a((int)neg, q, 0);
+}
+
+// ---- block sort ------------------------------------------------------------
+
+// One bitonic step between slots e and e | JJ of this thread (stride
+// JJ * kThreads): element i = e * kThreads + tid.
+template <int JJ>
+__device__ __forceinline__ void slot_step(u64 (&v)[kMaxSlots], int E, int k) {
+#pragma unroll
+  for (int e = 0; e < kMaxSlots; ++e) {
+    if ((e & JJ) || e >= E) continue;
+    const bool up = ((e * kThreads + (int)threadIdx.x) & k) == 0;
+    const u64 a = v[e], b = v[e | JJ];
+    if ((a > b) == up) {
+      v[e] = b;
+      v[e | JJ] = a;
+    }
+  }
+}
+
+__device__ __forceinline__ u64 keep(u64 mine, u64 other, int i, int j, int k) {
+  const bool lower = (i & j) == 0, up = (i & k) == 0;
+  return (lower == up) ? (mine < other ? mine : other) : (mine < other ? other : mine);
+}
+
+// Sort keys[0, n) ascending (bitonic over N = pow2(n) elements, padding
+// ~0).  Element i = e * kThreads + tid lives in slot e of thread tid, so
+// strides below 32 are warp shuffles, strides below kThreads go through
+// `keys` (which holds max(kThreads, N) entries) and longer ones stay in the
+// thread.  Returns with keys[0, n) sorted.
+__device__ void block_sort(u64* keys, int n) {
+  u64 v[kMaxSlots];
+  const int N = next_pow2(max(n, 1));
+  const int E = max(1, N / kThreads);
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int e = 0; e < kMaxSlots; ++e) {
+    const int i = e * kThreads + tid;
+    v[e] = (e < E && i < n) ? keys[i] : ~0ull;
+  }
   for (int k = 2; k <= N; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < N; i += blockDim.x) {
-        int ixj = i ^ j;
-        if (ixj > i) {
-          unsigned long long a = keys[i], b = keys[ixj];
-          bool up = (i & k) == 0;
-          if ((a > b) == up) {
-            keys[i] = b;
-            keys[ixj] = a;
-          }
+      if (j >= kThreads) {
+        switch (j / kThreads) {
+          case 1: slot_step<1>(v, E, k); break;
+          case 2: slot_step<2>(v, E, k); break;
+          case 4: slot_step<4>(v, E, k); break;
+          default: slot_step<8>(v, E, k); break;
+        }
+      } else if (j >= 32) {
+        __syncthreads();  // the last readers of `keys` are done
+#pragma unroll
+        for (int e = 0; e < kMaxSlots; ++e)
+          if (e < E) keys[e * kThreads + tid] = v[e];
+        __syncthreads();
+#pragma unroll
+        for (int e = 0; e < kMaxSlots; ++e) {
+          if (e >= E) continue;
+          const int i = e * kThreads + tid;
+          v[e] = keep(v[e], keys[i ^ j], i, j, k);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < kMaxSlots; ++e) {
+          if (e >= E) continue;
+          const u64 o = __shfl_xor_sync(0xffffffffu, v[e], j);
+          v[e] = keep(v[e], o, e * kThreads + tid, j, k);
         }
       }
-      __syncthreads();
     }
   }
-}
-
-// Signed plane contribution of one packed row: sum_d qf[g][d] * (+-bit_d),
-// accumulated into acc[g].  Integer-valued, so exact in any order.
-__device__ __forceinline__ void plane_dot(const float* qf, int g, int D, const uint8_t* plane,
-                                          const uint8_t* sign, float* acc) {
-  for (int j = 0; j < D / 8; ++j) {
-    unsigned pb = plane[j], sb = sign[j];
-    if (!pb) continue;
-    for (int t = 0; t < 8; ++t) {
-      if (!((pb >> t) & 1u)) continue;
-      const int d = 8 * j + t;
-      const bool neg = (sb >> t) & 1u;
+  __syncthreads();
 #pragma unroll
-      for (int gi = 0; gi < kMaxG; ++gi)
-        if (gi < g) acc[gi] += neg ? -qf[gi * D + d] : qf[gi * D + d];
+  for (int e = 0; e < kMaxSlots; ++e) {
+    const int i = e * kThreads + tid;
+    if (e < E && i < n) keys[i] = v[e];
+  }
+  __syncthreads();
+}
+
+// Rank each of keys[0, n) (n <= kThreads; thread i holds key i) among them
+// by counting the keys below it, then move it to keys[rank]: the block's
+// sorted run.  Returns the rank of the thread's key.
+__device__ __forceinline__ int rank_few(u64* keys, int n) {
+  const int tid = threadIdx.x;
+  const u64 key = tid < n ? keys[tid] : ~0ull;
+  int cnt = 0;
+  if (tid < n) {
+    const ulonglong2* k2 = reinterpret_cast<const ulonglong2*>(keys);
+#pragma unroll 4
+    for (int j = 0; j < n / 2; ++j) {
+      const ulonglong2 kk = k2[j];
+      cnt += (int)(kk.x < key) + (int)(kk.y < key);
     }
+    if (n & 1) cnt += (int)(keys[n - 1] < key);
+  }
+  __syncthreads();
+  if (tid < n) keys[cnt] = key;
+  __syncthreads();
+  return cnt;
+}
+
+// ---- cluster reductions (as paged_flash_decode.cu's) -----------------------
+
+// Combine each thread's v[gi] over the block (max or sum; lanes by a fixed
+// butterfly, warps in order) into hdr[dst + gi], gi < g.  The caller's next
+// barrier publishes it.
+template <int G, bool kMax>
+__device__ void block_reduce(float (&v)[G], int g, float* hdr, int dst) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    float x = v[gi];
+    for (int o = 16; o > 0; o >>= 1) {
+      const float y = __shfl_xor_sync(0xffffffffu, x, o);
+      x = kMax ? fmaxf(x, y) : x + y;
+    }
+    if (lane == 0) hdr[kScratch + warp * kMaxG + gi] = x;
+  }
+  __syncthreads();
+  if (threadIdx.x < g) {
+    float x = hdr[kScratch + threadIdx.x];
+    for (int w = 1; w < kWarps; ++w) {
+      const float y = hdr[kScratch + w * kMaxG + threadIdx.x];
+      x = kMax ? fmaxf(x, y) : x + y;
+    }
+    hdr[dst + threadIdx.x] = x;
   }
 }
 
-__global__ void __launch_bounds__(kThreads) bgpp_kernel(
+// The C cluster blocks' copies of at[i], all loads in flight together.
+template <typename A>
+__device__ __forceinline__ void gather_ranks(cg::cluster_group& cluster, A* at, int i,
+                                             A (&y)[kMaxCluster]) {
+  const int C = cluster.num_blocks();
+#pragma unroll
+  for (int c = 0; c < kMaxCluster; ++c)
+    if (c < C) y[c] = cluster.map_shared_rank(at, c)[i];
+}
+
+// After a cluster barrier: combine hdr[src + gi] of the cluster's blocks in
+// rank order into this block's hdr[dst + gi], gi < g.
+template <bool kMax>
+__device__ void cluster_reduce(cg::cluster_group& cluster, float* hdr, int src, int dst, int g) {
+  if (threadIdx.x < g) {
+    float y[kMaxCluster];
+    gather_ranks(cluster, hdr, src + threadIdx.x, y);
+    float x = y[0];
+#pragma unroll
+    for (int c = 1; c < kMaxCluster; ++c)
+      if (c < (int)cluster.num_blocks()) x = kMax ? fmaxf(x, y[c]) : x + y[c];
+    hdr[dst + threadIdx.x] = x;
+  }
+  __syncthreads();
+}
+
+// Reduce each thread's part[gi] over the cluster (block, then ranks in
+// order) into hdr[dst + gi]; src is the block's slot.
+template <int G, bool kMax>
+__device__ void cluster_stat(cg::cluster_group& cluster, float (&part)[G], int g, float* hdr,
+                             int src, int dst) {
+  block_reduce<G, kMax>(part, g, hdr, src);
+  cluster.sync();
+  cluster_reduce<kMax>(cluster, hdr, src, dst, g);
+}
+
+// ---- the kernel ------------------------------------------------------------
+
+// A list of the pipeline in shared memory: L entries of `stride` ints (the
+// lane, then g partial scores, later the logits, probabilities and codes;
+// padded to whole 16-byte words, so an entry moves to another block as
+// 16-byte stores).
+struct List {
+  int* base;
+  int stride;
+  __device__ int* at(int i) const { return base + i * stride; }
+};
+
+template <int G, int D>
+__global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) bgpp_kernel(
     const float* __restrict__ q, const uint8_t* __restrict__ planes,
     const uint8_t* __restrict__ sign, const float* __restrict__ k_scale,
     const int8_t* __restrict__ v, const float* __restrict__ v_scale,
     const int* __restrict__ phys, const int* __restrict__ pos, float* __restrict__ out,
-    int* __restrict__ out_idx, int Hk, int g, int D, int S, int nbits, int query_bits,
-    Plan plan, long long pl_plane, long long pl_tok, long long pl_head, long long v_tok,
-    long long v_head, long long sc_tok, long long sc_head, float scale) {
-  extern __shared__ unsigned long long smem_u64[];
-  const int N = next_pow2(S);
-  const int K = plan.k_max;
-  unsigned long long* keys = smem_u64;                      // (N,)
-  float* qf = reinterpret_cast<float*>(keys + N);           // (g, D) truncated query
-  int* qq = reinterpret_cast<int*>(qf + g * D);             // (g, D) quantised query
-  float* part_a = reinterpret_cast<float*>(qq + g * D);     // (g, S)
-  float* part_b = part_a + (long long)g * S;                // (g, S)
-  float* score = part_b + (long long)g * S;                 // (S,)
-  int* cand_a = reinterpret_cast<int*>(score + S);          // (S,)
-  int* cand_b = cand_a + S;                                 // (S,)
-  float* lg = reinterpret_cast<float*>(cand_b + S);         // (g, K)
-  int* rowk = reinterpret_cast<int*>(lg + (long long)g * K);  // (K,)
-  float* red = reinterpret_cast<float*>(rowk + K);          // (32,)
-  __shared__ float q_scale[kMaxG], w_scale[kMaxG];
-  __shared__ int any_valid;
+    int* __restrict__ out_idx, int Hk, int g, int S, int query_bits, Plan plan,
+    long long pl_plane, long long pl_tok, long long pl_head, long long v_tok, long long v_head,
+    long long sc_tok, long long sc_head, float scale) {
+  constexpr int W = D >= 32 ? D / 32 : 1;  // 32-bit words of a plane row
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = cluster.num_blocks(), rank = cluster.block_rank();
+  const int tid = threadIdx.x, lane_id = tid & 31, warp = tid >> 5;
+  const int cell = blockIdx.x / C, b = cell / Hk, h = cell % Hk;
+  const int R = plan.rounds, L = plan.cap[0];
+  extern __shared__ uint4 smem4[];
+  char* sm = reinterpret_cast<char*>(smem4);
+  int8_t* codes = reinterpret_cast<int8_t*>(sm + kHdrCodes);     // (kMaxG, D)
+  unsigned* masks = reinterpret_cast<unsigned*>(sm + kHdrMasks);  // (kMaxG, 8, 4)
+  float* hdr = reinterpret_cast<float*>(sm + kHdrFloats);
+  int* widths = reinterpret_cast<int*>(hdr + kWidths);  // the plan's list widths
+  int* caps = widths + kMaxLists;                       // and caps
+  u64* keys = reinterpret_cast<u64*>(sm + kHeader);  // (max(kThreads, pow2(L)),)
+  u64* stage = keys + max(kThreads, next_pow2(L));   // (kStage,) other blocks' keys
+  int* lists = reinterpret_cast<int*>(stage + kStage);
+  const int ES = (1 + g + 3) / 4 * 4;  // ints an entry
+  const auto list_at = [&](int r) { return List{lists + (r & 1) * L * ES, ES}; };
+  int* pv = lists + 2 * L * ES;  // (kWarps, g, D)
+  if (tid < kMaxLists) {
+    widths[tid] = plan.width[tid];
+    caps[tid] = plan.cap[tid];
+  }
 
-  const int b = blockIdx.x / Hk, h = blockIdx.x % Hk;
   const int p = pos[b];
+  const int nv = p < 0 ? 0 : min(p + 1, S);  // valid lanes: 0..nv-1
+  // entries of the list of round r that block c holds (its valid ranks)
+  const auto count = [&](int r, int c) {
+    return max(0, min(min(nv, widths[r]) - c * caps[r], caps[r]));
+  };
   const int* phys_b = phys + (long long)b * S;
-  const uint8_t* sign_h = sign + h * pl_head;
   const uint8_t* planes_h = planes + h * pl_head;
-  const int Dp = D / 8;
+  const uint8_t* sign_h = sign + h * pl_head;
 
-  // ---- quantise the g query rows; truncate to the top query_bits bits ---
-  const float* qb = q + (long long)blockIdx.x * g * D;
-  const int shift = max(nbits - query_bits, 0);
-  for (int gi = 0; gi < g; ++gi) {
-    float m = 0.f;
-    for (int d = threadIdx.x; d < D; d += blockDim.x) m = fmaxf(m, fabsf(qb[gi * D + d]));
-    m = block_max(m, red);
-    const float dq = fmaxf(m, 1e-8f) / 127.0f;
-    if (threadIdx.x == 0) q_scale[gi] = dq;
-    for (int d = threadIdx.x; d < D; d += blockDim.x) {
-      int qi = (int)fminf(fmaxf(rintf(qb[gi * D + d] / dq), -127.f), 127.f);
-      qq[gi * D + d] = qi;
-      int mag = (abs(qi) >> shift) << shift;
-      qf[gi * D + d] = (float)(qi < 0 ? -mag : mag);
+  // the thread's first round-0 lane: its pool row and sign / MSB plane
+  // rows, in flight while the query is quantised (widths[0] = S >= nv,
+  // caps[0] = L)
+  const int pre_row = tid < max(0, min(nv - rank * L, L)) ? __ldg(phys_b + rank * L + tid) : -1;
+  unsigned pre_kb[4], pre_ks[4];
+  if (pre_row >= 0) {
+    const long long off = (long long)pre_row * pl_tok;
+    load_row<D>(planes_h + (kNbits - 1) * pl_plane + off, pre_kb);
+    load_row<D>(sign_h + off, pre_ks);
+  }
+
+  // ---- A2: quantise the g query rows; the truncated magnitudes' bit masks
+  const float* qb = q + (long long)cell * g * D;
+  if (tid < 32) {
+    for (int gi = 0; gi < g; ++gi) {
+      float m = 0.f;
+      for (int d = tid; d < D; d += 32) m = fmaxf(m, fabsf(qb[gi * D + d]));
+      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      if (tid == 0) hdr[kQScale + gi] = fmaxf(m, 1e-8f) / 127.0f;
     }
   }
   __syncthreads();
-
-  // ---- round 0: sign x MSB plane of every valid lane ------------------
-  const float w0 = (float)(1 << (nbits - 1));
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    float acc[kMaxG];
+  for (int i = tid; i < g * D; i += kThreads)
+    codes[i] = (int8_t)fminf(fmaxf(rintf(qb[i] / hdr[kQScale + i / D]), -127.f), 127.f);
+  __syncthreads();
+  const int qlo = max(kNbits - query_bits, 0);  // the query keeps planes qlo..6
+  for (int t = warp; t < g * 4; t += kWarps) {  // (g row, word): a warp's ballots
+    const int gi = t / 4, w = t % 4, d = 32 * w + lane_id;
+    const int c = d < D ? (int)codes[gi * D + d] : 0;
+    const int mag = abs(c) >> qlo << qlo;
 #pragma unroll
-    for (int gi = 0; gi < kMaxG; ++gi) acc[gi] = 0.f;
-    float sc = kNegInf;
-    if (s <= p) {
-      const long long row = phys_b[s];
-      plane_dot(qf, g, D, planes_h + (nbits - 1) * pl_plane + row * pl_tok,
-                sign_h + row * pl_tok, acc);
-      sc = -INFINITY;
-      for (int gi = 0; gi < g; ++gi) sc = fmaxf(sc, acc[gi] * w0);
+    for (int pl = 0; pl < kNbits; ++pl) {
+      const unsigned bits = __ballot_sync(0xffffffffu, (mag >> pl) & 1);
+      if (lane_id == 0) masks[gi * 32 + 4 * pl + w] = bits;
     }
-    for (int gi = 0; gi < g; ++gi) part_a[(long long)gi * S + s] = acc[gi] * w0;
-    score[s] = sc;
-    cand_a[s] = s;
+    const unsigned neg = __ballot_sync(0xffffffffu, c < 0);
+    if (lane_id == 0) masks[gi * 32 + 28 + w] = neg;
   }
   __syncthreads();
 
-  // ---- progressive rounds, then the final k_max selection --------------
-  int n_cur = S;
-  for (int r = 1; r <= plan.rounds; ++r) {
-    const bool final_sel = r == plan.rounds;
-    const int k_r = final_sel ? K : plan.survivors[r];
-    const int Nc = next_pow2(n_cur);
-    for (int j = threadIdx.x; j < Nc; j += blockDim.x)
-      keys[j] = j < n_cur ? make_key(score[j], j) : ~0ull;
-    __syncthreads();
-    bitonic_sort(keys, Nc);
-    for (int j = threadIdx.x; j < k_r; j += blockDim.x) {
-      const int li = (int)(keys[j] & 0xffffffffu);
-      cand_b[j] = cand_a[li];
-      for (int gi = 0; gi < g; ++gi)
-        part_b[(long long)gi * S + j] = part_a[(long long)gi * S + li];
-    }
-    __syncthreads();
-    { int* t = cand_a; cand_a = cand_b; cand_b = t; }
-    { float* t = part_a; part_a = part_b; part_b = t; }
-    n_cur = k_r;
-    if (final_sel) break;
-    const int p_r = nbits - 1 - r;
-    const float wr = (float)(1 << p_r);
-    for (int j = threadIdx.x; j < n_cur; j += blockDim.x) {
-      const int lane = cand_a[j];
-      float sc = kNegInf;
-      if (lane <= p) {
-        float acc[kMaxG];
+  // ---- round 0: sign x MSB plane of the block's valid lanes ---------------
+  // Then round r's fetch: plane 6 - r of the block's survivors, added to
+  // their partials; every entry gets its sort key.
+  const auto score_list = [&](int r) {
+    const List cur = list_at(r);
+    const int n = count(r, rank), base = rank * caps[r], pl = kNbits - 1 - r;
+    const uint8_t* plane = planes_h + pl * pl_plane;
+    for (int i0 = tid; i0 < n; i0 += kUnroll * kThreads) {
+      int rows[kUnroll];
+      unsigned kb[kUnroll][4], ks[kUnroll][4];
+      const bool first = r == 0 && i0 == tid;  // lane tid is prefetched
 #pragma unroll
-        for (int gi = 0; gi < kMaxG; ++gi) acc[gi] = 0.f;
-        const long long row = phys_b[lane];
-        plane_dot(qf, g, D, planes_h + p_r * pl_plane + row * pl_tok, sign_h + row * pl_tok,
-                  acc);
-        sc = -INFINITY;
-        for (int gi = 0; gi < g; ++gi) {
-          float v2 = part_a[(long long)gi * S + j] + acc[gi] * wr;
-          part_a[(long long)gi * S + j] = v2;
-          sc = fmaxf(sc, v2);
+      for (int u = 0; u < kUnroll; ++u) {
+        const int i = i0 + u * kThreads;
+        rows[u] = first && u == 0 ? pre_row
+                                  : i < n ? __ldg(phys_b + (r == 0 ? base + i : cur.at(i)[0]))
+                                          : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (first && u == 0) {
+#pragma unroll
+          for (int w = 0; w < 4; ++w) kb[0][w] = pre_kb[w], ks[0][w] = pre_ks[w];
+        } else if (rows[u] >= 0) {
+          const long long off = (long long)rows[u] * pl_tok;
+          load_row<D>(plane + off, kb[u]);
+          load_row<D>(sign_h + off, ks[u]);
         }
       }
-      score[j] = sc;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int i = i0 + u * kThreads;
+        if (i >= n) continue;
+        int acc[G];
+        plane_dot<G, W>(masks, g, qlo, kb[u], ks[u], acc);
+        int* ent = cur.at(i);
+        int score = INT_MIN;
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) {
+          if (gi >= g) continue;
+          const int s = (r == 0 ? 0 : ent[1 + gi]) + (acc[gi] << pl);
+          ent[1 + gi] = s;
+          score = max(score, s);
+        }
+        if (r == 0) ent[0] = base + i;
+        keys[i] = make_key(score, base + i);
+      }
     }
-    __syncthreads();
-  }
-  // cand_a[0..K) now holds the k_max survivors' logical lanes, in order
+  };
+  __syncthreads();  // the plan's widths and caps are in place
+  score_list(0);
 
-  // ---- phase 2: rebuild int8 K of the survivors, exact A2 logits -------
-  if (threadIdx.x == 0) any_valid = 0;
-  __syncthreads();
-  for (int j = threadIdx.x; j < K; j += blockDim.x) {
-    const int lane = cand_a[j];
-    const long long row = phys_b[lane];
-    rowk[j] = (int)row;
-    if (out_idx) out_idx[(long long)blockIdx.x * K + j] = lane;
-    if (lane <= p) {
-      any_valid = 1;
-      int acc[kMaxG];
+  // ---- selection: list r -> the top of it, in order, as list r + 1 --------
+  const int K = plan.k_max;
+  for (int r = 0; r < R; ++r) {
+    const List cur = list_at(r);
+    const int n = count(r, rank), base = rank * caps[r];
+    const int nxt = min(nv, widths[r + 1]), capn = caps[r + 1];
+    const bool final_sel = r + 1 == R;
+    __syncthreads();  // the keys are in place
+    // the block's run: keys[0, n) sorted; the thread's places in it (few
+    // keys: counted, thread i placing key i; else sorted, the thread taking
+    // places e * kThreads + tid)
+    const bool few = n <= kThreads;
+    const int loc0 = few ? rank_few(keys, n) : 0;
+    if (!few) block_sort(keys, n);
+    // The other blocks' runs: copied here by 16-byte loads when they fit
+    // the stage (each from an even offset), else read where they lie.
+    const bool staged = (C - 1) * (caps[r] + 1) <= kStage;
+    int pairs[kMaxCluster + 1];  // 16-byte words of the runs before block c
+    pairs[0] = 0;
 #pragma unroll
-      for (int gi = 0; gi < kMaxG; ++gi) acc[gi] = 0;
-      const uint8_t* sr = sign_h + row * pl_tok;
-      for (int jb = 0; jb < Dp; ++jb) {
-        unsigned pb[8];
-        for (int pl = 0; pl < nbits; ++pl) pb[pl] = planes_h[pl * pl_plane + row * pl_tok + jb];
-        const unsigned sb = sr[jb];
-        for (int t = 0; t < 8; ++t) {
-          int mag = 0;
-          for (int pl = 0; pl < nbits; ++pl) mag |= ((pb[pl] >> t) & 1u) << pl;
-          const int kd = ((sb >> t) & 1u) ? -mag : mag;
-          const int d = 8 * jb + t;
+    for (int c = 0; c < kMaxCluster; ++c)
+      pairs[c + 1] = pairs[c] + (c < C && c != rank ? (count(r, c) + 1) / 2 : 0);
+    cluster.sync();  // every block's sorted run is visible
+    if (staged) {
+      for (int t0 = 0; t0 < pairs[kMaxCluster]; t0 += 2 * kThreads) {
+        ulonglong2 got[2];
 #pragma unroll
-          for (int gi = 0; gi < kMaxG; ++gi)
-            if (gi < g) acc[gi] += qq[gi * D + d] * kd;
+        for (int k = 0; k < 2; ++k) {  // both loads in flight
+          const int t = t0 + k * kThreads + tid;
+          int c = 0, off = 0;
+#pragma unroll
+          for (int cc = 1; cc < kMaxCluster; ++cc)
+            if (t >= pairs[cc]) c = cc, off = pairs[cc];
+          if (t < pairs[kMaxCluster])
+            got[k] = reinterpret_cast<const ulonglong2*>(cluster.map_shared_rank(keys, c))[t - off];
+        }
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+          if (t0 + k * kThreads + tid < pairs[kMaxCluster])
+            reinterpret_cast<ulonglong2*>(stage)[t0 + k * kThreads + tid] = got[k];
+      }
+      __syncthreads();
+    }
+    // block c's run: its copy in the stage, or where it lies
+    const auto run_of = [&](int c) -> const u64* {
+      return staged ? stage + 2 * pairs[c] : cluster.map_shared_rank(keys, c);
+    };
+    int* nxt_base = list_at(r + 1).base;
+    const int places = few ? 1 : next_pow2(n) / kThreads;
+#pragma unroll 1
+    for (int e = 0; e < places; ++e) {
+      const int loc = few ? loc0 : e * kThreads + tid;
+      if ((few && tid >= n) || loc >= n || loc >= nxt) continue;  // local rank >= nxt: no survivor
+      const u64 key = keys[loc];
+      // + the other runs' keys below it: the key's rank in the cell (the
+      // C - 1 binary searches advance together)
+      int lo[kMaxCluster], len[kMaxCluster];
+#pragma unroll
+      for (int c = 0; c < kMaxCluster; ++c) lo[c] = 0, len[c] = c < C && c != rank ? count(r, c) : 0;
+      for (bool more = true; more;) {
+        more = false;
+#pragma unroll
+        for (int c = 0; c < kMaxCluster; ++c) {
+          if (len[c] <= 0) continue;
+          const int half = len[c] >> 1;
+          if (run_of(c)[lo[c] + half] < key) {
+            lo[c] += half + 1;
+            len[c] -= half + 1;
+          } else {
+            len[c] = half;
+          }
+          more |= len[c] > 0;
         }
       }
-      const float ks = k_scale[row * sc_tok + h * sc_head];
-      for (int gi = 0; gi < g; ++gi)
-        lg[(long long)gi * K + j] = (float)acc[gi] * q_scale[gi] * ks * scale;
-    } else {
-      for (int gi = 0; gi < g; ++gi) lg[(long long)gi * K + j] = kNegInf;
+      int at = loc;
+#pragma unroll
+      for (int c = 0; c < kMaxCluster; ++c) at += lo[c];
+      if (at >= nxt) continue;
+      const int li = (int)(unsigned)(key & 0xffffffffu) - base;
+      const int owner = at / capn, slot = at - owner * capn;
+      const int4* src = reinterpret_cast<const int4*>(cur.at(li));
+      int4* dst = reinterpret_cast<int4*>(cluster.map_shared_rank(nxt_base, owner) + slot * ES);
+      for (int k = 0; k < ES / 4; ++k) dst[k] = src[k];
+      if (final_sel && out_idx) out_idx[(long long)cell * K + at] = cur.at(li)[0];
+    }
+    if (final_sel && out_idx) {  // ranks past the valid lanes: lanes nv, nv + 1, ...
+      const int j1 = min(K, (rank + 1) * capn);
+      for (int j = max(nxt, rank * capn) + tid; j < j1; j += kThreads)
+        out_idx[(long long)cell * K + j] = nv + (j - nxt);
+    }
+    cluster.sync();  // the survivors are in place; the runs are no longer read
+    if (!final_sel) score_list(r + 1);
+  }
+
+  // ---- phase 2: the final survivors' int8 K rows, exact A2 logits --------
+  // Their pool rows take the place of their lanes, their v_scale goes to
+  // the stage (neither is read again).
+  const List fin = list_at(R);
+  const int capF = caps[R];
+  float* vs_of = reinterpret_cast<float*>(stage);
+  const float* vsh = v_scale + h * sc_head;
+  // with no valid lane every one of lanes 0..k_max-1 weighs the same
+  const int m = nv > 0 ? count(R, rank) : max(0, min(K - rank * capF, capF));
+  if (nv == 0) {
+    for (int i = tid; i < m; i += kThreads) {
+      const int row = __ldg(phys_b + rank * capF + i);
+      int* ent = fin.at(i);
+      ent[0] = row;
+      vs_of[i] = __ldg(vsh + (long long)row * sc_tok);
+      for (int gi = 0; gi < g; ++gi) reinterpret_cast<float*>(ent)[1 + gi] = kNegInf;
+    }
+  } else {
+    constexpr int CB = D >= 32 ? 4 : 2;   // bytes of a plane row a thread
+    constexpr int CH = D / (8 * CB);      // threads a survivor
+    const float* ksh = k_scale + h * sc_head;
+    for (int t0 = 0; t0 < m * CH; t0 += kThreads) {  // block-uniform trips
+      const int t = t0 + tid, i = t / CH, ch = t % CH;
+      const bool act = t < m * CH;
+      int dot[G];
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) dot[gi] = 0;
+      int row = 0;
+      float ks = 0.f, vs = 0.f;
+      if (act) {
+        row = __ldg(phys_b + fin.at(i)[0]);
+        const long long off = (long long)row * pl_tok;
+        if (ch == 0) {
+          ks = __ldg(ksh + (long long)row * sc_tok);
+          vs = __ldg(vsh + (long long)row * sc_tok);
+        }
+        unsigned P[8];
+#pragma unroll
+        for (int pl = 0; pl < kNbits; ++pl) P[pl] = load_chunk<D>(planes_h + pl * pl_plane + off, ch);
+        P[7] = load_chunk<D>(sign_h + off, ch);
+#pragma unroll
+        for (int grp = 0; grp < CB; ++grp) {  // 8 columns: planes 0..6 + sign -> bytes
+          const unsigned s = grp | ((grp + 4) << 4);
+          unsigned lo = __byte_perm(__byte_perm(P[0], P[1], s), __byte_perm(P[2], P[3], s), 0x5410);
+          unsigned hi = __byte_perm(__byte_perm(P[4], P[5], s), __byte_perm(P[6], P[7], s), 0x5410);
+          transpose8(lo, hi);
+          const int col = ch * 8 * CB + 8 * grp;
+#pragma unroll
+          for (int gi = 0; gi < G; ++gi) {
+            if (gi >= g) continue;
+            const int* qw = reinterpret_cast<const int*>(codes + gi * D + col);
+            dot[gi] += sm_dot(lo, qw[0]) + sm_dot(hi, qw[1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+        for (int o = 1; o < CH; o <<= 1) dot[gi] += __shfl_xor_sync(0xffffffffu, dot[gi], o);
+      if (act && ch == 0) {  // (the survivor's threads read its lane before the shuffles)
+        int* ent = fin.at(i);
+        ent[0] = row;
+        vs_of[i] = vs;
+        for (int gi = 0; gi < g; ++gi)
+          reinterpret_cast<float*>(ent)[1 + gi] = (float)dot[gi] * hdr[kQScale + gi] * ks * scale;
+      }
     }
   }
   __syncthreads();
 
-  // ---- softmax, v_scale fold, A3 prob quantisation ---------------------
+  // ---- softmax over the cluster, v_scale fold, A3 code quantisation -------
+  const auto lg = [&](int i, int gi) -> float& { return reinterpret_cast<float*>(fin.at(i))[1 + gi]; };
+  // Each block's max m_c and sum s_c = sum exp(x - m_c) go out together; the
+  // cell's max is M = max m_c and its sum sum_c s_c exp(m_c - M), in rank
+  // order.  Then p = exp(x - M) / sum, as the plain version's softmax.
+  float st[G];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    st[gi] = -INFINITY;
+    if (gi >= g) continue;
+    for (int i = tid; i < m; i += kThreads) st[gi] = fmaxf(st[gi], lg(i, gi));
+  }
+  block_reduce<G, true>(st, g, hdr, kPMax);
+  __syncthreads();
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    st[gi] = 0.f;
+    if (gi >= g) continue;
+    const float mb = hdr[kPMax + gi];
+    for (int i = tid; i < m; i += kThreads) st[gi] += expf(lg(i, gi) - mb);
+  }
+  block_reduce<G, false>(st, g, hdr, kPSum);
+  cluster.sync();
+  if (tid < g) {
+    float mc[kMaxCluster], sc[kMaxCluster];
+    gather_ranks(cluster, hdr, kPMax + tid, mc);
+    gather_ranks(cluster, hdr, kPSum + tid, sc);
+    float mx = mc[0];
+#pragma unroll
+    for (int c = 1; c < kMaxCluster; ++c)
+      if (c < C) mx = fmaxf(mx, mc[c]);
+    float tot = 0.f;
+#pragma unroll
+    for (int c = 0; c < kMaxCluster; ++c)
+      if (c < C && sc[c] > 0.f) tot += sc[c] * expf(mc[c] - mx);
+    hdr[kGMax + tid] = mx;
+    hdr[kGSum + tid] = tot;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    st[gi] = 0.f;
+    if (gi >= g) continue;
+    const float mx = hdr[kGMax + gi], tot = hdr[kGSum + gi];
+    for (int i = tid; i < m; i += kThreads) {
+      const float pr = expf(lg(i, gi) - mx) / tot;
+      const float w = pr == 0.f ? 0.f : pr * vs_of[i];  // a zero probability weighs nothing
+      lg(i, gi) = w;
+      st[gi] = fmaxf(st[gi], w);
+    }
+  }
+  cluster_stat<G, true>(cluster, st, g, hdr, kPW, kGW);
   for (int gi = 0; gi < g; ++gi) {
-    float* row = lg + (long long)gi * K;
-    float m = -INFINITY;
-    for (int j = threadIdx.x; j < K; j += blockDim.x) m = fmaxf(m, row[j]);
-    m = block_max(m, red);
-    float sum = 0.f;
-    for (int j = threadIdx.x; j < K; j += blockDim.x) {
-      float e = expf(row[j] - m);
-      row[j] = e;
-      sum += e;
-    }
-    sum = block_sum(sum, red);
-    float wm = 0.f;
-    for (int j = threadIdx.x; j < K; j += blockDim.x) {
-      const float pr = row[j] / sum;
-      // a zero probability weighs nothing: its scale row need not be read
-      const float w = (pr == 0.f && any_valid) ? 0.f
-                                               : pr * v_scale[(long long)rowk[j] * sc_tok + h * sc_head];
-      row[j] = w;
-      wm = fmaxf(wm, w);
-    }
-    wm = block_max(wm, red);
-    const float ws = fmaxf(wm, 1e-20f) / 127.0f;
-    if (threadIdx.x == 0) w_scale[gi] = ws;
-    for (int j = threadIdx.x; j < K; j += blockDim.x)
-      row[j] = fminf(fmaxf(rintf(row[j] / ws), 0.f), 127.f);
+    const float ws = fmaxf(hdr[kGW + gi], 1e-20f) / 127.0f;
+    for (int i = tid; i < m; i += kThreads) lg(i, gi) = fminf(fmaxf(rintf(lg(i, gi) / ws), 0.f), 127.f);
   }
   __syncthreads();
 
-  // ---- A3: int8 PV over the survivors, in selection order --------------
-  const int8_t* vh = v + h * v_head;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    int acc[kMaxG];
+  // ---- A3: int8 PV over the block's survivors, exact int32 sums -----------
+  constexpr int TPR = D / 8, RPW = 32 / TPR;  // threads a V row (8 B each), rows a warp
+  const int sub = lane_id % TPR, rs = lane_id / TPR;
+  const int8_t* vat = v + h * v_head + sub * 8;
+  int acc[G][8];
 #pragma unroll
-    for (int gi = 0; gi < kMaxG; ++gi) acc[gi] = 0;
-    for (int j = 0; j < K; ++j) {
-      int wsum = 0;
-      for (int gi = 0; gi < g; ++gi) wsum += (int)lg[(long long)gi * K + j];
-      if (!wsum) continue;  // zero codes add nothing: skip the V row
-      const int vd = vh[(long long)rowk[j] * v_tok + d];
+  for (int gi = 0; gi < G; ++gi)
 #pragma unroll
-      for (int gi = 0; gi < kMaxG; ++gi)
-        if (gi < g) acc[gi] += (int)lg[(long long)gi * K + j] * vd;
+    for (int j = 0; j < 8; ++j) acc[gi][j] = 0;
+  for (int i0 = warp * RPW + rs; i0 < m; i0 += kUnroll * kWarps * RPW) {
+    uint2 raw[kUnroll];
+    int cd[kUnroll][G];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u * kWarps * RPW;
+      bool any = false;
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        cd[u][gi] = gi < g && i < m ? (int)lg(i, gi) : 0;
+        any |= cd[u][gi] != 0;
+      }
+      // zero codes add nothing: the V row is not read
+      raw[u] = any ? __ldg(reinterpret_cast<const uint2*>(vat + (long long)fin.at(i)[0] * v_tok))
+                   : make_uint2(0, 0);
     }
-    for (int gi = 0; gi < g; ++gi)
-      out[((long long)blockIdx.x * g + gi) * D + d] = (float)acc[gi] * w_scale[gi];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const unsigned wv[2] = {raw[u].x, raw[u].y};
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          acc[gi][j] += cd[u][gi] * ((int)(wv[j >> 2] << (24 - 8 * (j & 3))) >> 24);
+    }
   }
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int o = TPR; o < 32; o <<= 1) acc[gi][j] += __shfl_xor_sync(0xffffffffu, acc[gi][j], o);
+  const int E = g * D;
+  if (rs == 0) {
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi)
+      if (gi < g)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) pv[warp * E + gi * D + sub * 8 + j] = acc[gi][j];
+  }
+  // the warps' sums, then the C blocks' in rank order: rank c writes a slice
+  __syncthreads();
+  for (int i = tid; i < E; i += kThreads) {
+    int x = pv[i];
+    for (int w = 1; w < kWarps; ++w) x += pv[w * E + i];
+    pv[i] = x;
+  }
+  cluster.sync();
+  const int per = (E + C - 1) / C, e0 = rank * per, e1 = min(E, e0 + per);
+  float* ob = out + (long long)cell * E;
+  for (int i = e0 + tid; i < e1; i += kThreads) {
+    int y[kMaxCluster];
+    gather_ranks(cluster, pv, i, y);
+    int x = y[0];
+#pragma unroll
+    for (int c = 1; c < kMaxCluster; ++c)
+      if (c < C) x += y[c];
+    ob[i] = (float)x * (fmaxf(hdr[kGW + i / D], 1e-20f) / 127.0f);
+  }
+  cluster.sync();  // every block's shared memory stays alive until all have read it
 }
 
-size_t smem_bytes(int g, int D, int S, int k_max) {
-  return sizeof(unsigned long long) * (size_t)next_pow2(S) +
-         sizeof(float) * (size_t)g * D * 2 +   // qf, qq
-         sizeof(float) * (size_t)g * S * 2 +   // part_a, part_b
-         sizeof(float) * (size_t)S +           // score
-         sizeof(int) * (size_t)S * 2 +         // cand_a, cand_b
-         sizeof(float) * (size_t)g * k_max +   // lg
-         sizeof(int) * (size_t)k_max +         // rowk
-         sizeof(float) * 32;                   // red
+// One cluster launch of `blocks` blocks, C to a cluster.  Dynamic shared
+// memory above 48 KB must be opted into per kernel and device: that is done
+// only when a launch first needs more than was allowed before.
+template <auto Kern, typename... Args>
+int launch_clusters(int blocks, int C, int smem, cudaStream_t st, Args... args) {
+  static int allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err) return (int)err;
+  if (smem > (48 << 10) && (dev >= kMaxDevices || smem > allowed[dev])) {
+    err = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err) return (int)err;
+    if (dev < kMaxDevices) allowed[dev] = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, Kern, args...);
+  return (int)(err ? err : cudaGetLastError());
+}
+
+struct Args {
+  const void *q, *planes, *sign, *k_scale, *v, *v_scale, *phys, *pos;
+  void *out, *out_idx;
+  int B, Hk, g, S, query_bits, C, smem;
+  Plan plan;
+  long long pl_plane, pl_tok, pl_head, v_tok, v_head, sc_tok, sc_head;
+  float scale;
+  cudaStream_t st;
+};
+
+template <int G, int D>
+int run(const Args& a) {
+  return launch_clusters<bgpp_kernel<G, D>>(
+      a.B * a.Hk * a.C, a.C, a.smem, a.st, (const float*)a.q, (const uint8_t*)a.planes,
+      (const uint8_t*)a.sign, (const float*)a.k_scale, (const int8_t*)a.v,
+      (const float*)a.v_scale, (const int*)a.phys, (const int*)a.pos, (float*)a.out,
+      (int*)a.out_idx, a.Hk, a.g, a.S, a.query_bits, a.plan, a.pl_plane, a.pl_tok, a.pl_head,
+      a.v_tok, a.v_head, a.sc_tok, a.sc_head, a.scale);
+}
+
+// The launch's template instance: G, the register arrays' size, is the
+// smallest of 1, 2, 4, 8 that holds g; D is 16, 32, 64 or 128 (ops.py
+// checks both).
+template <int G>
+int by_d(int D, const Args& a) {
+  switch (D) {
+    case 16: return run<G, 16>(a);
+    case 32: return run<G, 32>(a);
+    case 64: return run<G, 64>(a);
+    default: return run<G, 128>(a);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-size_t bgpp_paged_attend_smem_bytes(int g, int D, int S, int k_max) {
-  return smem_bytes(g, D, S, k_max);
-}
-
-// Returns cudaGetLastError() after the launch.  `survivors` is a host array
-// of `rounds` ints; `out_idx` may be null (else (B, Hk, k_max) int32).
+// `widths` (rounds + 1 ints: S, survivors[1..rounds-1], k_max) and `caps`
+// (ranks a block owns in each of those lists) are host arrays from
+// kernel.py `plan`; C blocks a cluster, smem bytes a block.  `out_idx` may
+// be null (else (B, Hk, k_max) int32).  Returns the launch's cudaError_t.
 int bgpp_paged_attend_launch(const void* q, const void* planes, const void* sign,
                              const void* k_scale, const void* v, const void* v_scale,
                              const void* phys, const void* pos, void* out, void* out_idx, int B,
                              int Hk, int g, int D, int S, int nbits, int rounds,
-                             const void* survivors, int k_max, int query_bits,
-                             long long pl_plane, long long pl_tok, long long pl_head,
-                             long long v_tok, long long v_head, long long sc_tok,
-                             long long sc_head, float scale, void* stream) {
-  if (rounds < 1 || rounds > kMaxRounds || g > kMaxG || nbits > 8) return (int)cudaErrorInvalidValue;
-  Plan plan;
-  plan.rounds = rounds;
-  plan.k_max = k_max;
-  for (int r = 0; r < kMaxRounds; ++r)
-    plan.survivors[r] = r < rounds ? static_cast<const int*>(survivors)[r] : 0;
-  const size_t smem = smem_bytes(g, D, S, k_max);
-  cudaError_t e = cudaFuncSetAttribute(bgpp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  bgpp_kernel<<<B * Hk, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const uint8_t*)planes, (const uint8_t*)sign, (const float*)k_scale,
-      (const int8_t*)v, (const float*)v_scale, (const int*)phys, (const int*)pos, (float*)out,
-      (int*)out_idx, Hk, g, D, S, nbits, query_bits, plan, pl_plane, pl_tok, pl_head, v_tok,
-      v_head, sc_tok, sc_head, scale);
-  return (int)cudaGetLastError();
+                             const void* widths, const void* caps, int C, int smem,
+                             int query_bits, long long pl_plane, long long pl_tok,
+                             long long pl_head, long long v_tok, long long v_head,
+                             long long sc_tok, long long sc_head, float scale, void* stream) {
+  if (rounds < 1 || rounds >= kMaxLists || g < 1 || g > kMaxG || nbits != kNbits ||
+      C < 1 || C > kMaxCluster)
+    return (int)cudaErrorInvalidValue;
+  Args a{q, planes, sign, k_scale, v, v_scale, phys, pos, out, out_idx, B, Hk, g, S,
+         query_bits, C, smem, {}, pl_plane, pl_tok, pl_head, v_tok, v_head, sc_tok, sc_head,
+         scale, (cudaStream_t)stream};
+  a.plan.rounds = rounds;
+  a.plan.k_max = static_cast<const int*>(widths)[rounds];
+  for (int r = 0; r < kMaxLists; ++r) {
+    a.plan.width[r] = r <= rounds ? static_cast<const int*>(widths)[r] : 0;
+    a.plan.cap[r] = r <= rounds ? static_cast<const int*>(caps)[r] : 0;
+  }
+  if (a.plan.cap[0] > kMaxSlots * kThreads) return (int)cudaErrorInvalidValue;
+  const int G = g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : 8;
+  switch (G) {
+    case 1: return by_d<1>(D, a);
+    case 2: return by_d<2>(D, a);
+    case 4: return by_d<4>(D, a);
+    default: return by_d<8>(D, a);
+  }
 }
 
 }  // extern "C"

@@ -121,12 +121,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         I, I, I,  # plan: blocks a cluster, lanes a block, shared memory bytes
         L, L, L, L, F, P,  # kv strides, scale strides, scale, stream
     ]
-    lib.bgpp_paged_attend_smem_bytes.argtypes = [I, I, I, I]
-    lib.bgpp_paged_attend_smem_bytes.restype = ctypes.c_size_t
     lib.bgpp_paged_attend_launch.argtypes = [
         P, P, P, P, P, P, P, P, P, P,  # q, planes, sign, ks, v, vs, phys, pos, out, out_idx
         I, I, I, I, I,  # B, Hk, g, D, S
-        I, I, P, I, I,  # nbits, rounds, survivors (host int*), k_max, query_bits
+        I, I, P, P,  # nbits, rounds, list widths and caps (host int arrays)
+        I, I, I,  # plan: blocks a cluster, shared memory bytes; query_bits
         L, L, L,  # plane strides: plane, token, head (sign shares token/head)
         L, L, L, L,  # v token/head strides, scale token/head strides
         F, P,  # scale, stream

@@ -36,6 +36,9 @@ from repro.serving import kv_cache as jkvc
 
 from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels.bgpp_paged_attend import bgpp_paged_attend
+from repro_torch.kernels.bgpp_paged_attend import kernel as bgpp_kernel
+from repro_torch.kernels.bgpp_paged_attend import ops as bgpp_ops
+from repro_torch.kernels.bgpp_paged_attend import ref as bgpp_ref
 from repro_torch.kernels.bgpp_paged_attend.ref import bgpp_paged_attend_ref
 from repro_torch.kernels.bstc_decode import bstc_decode_patterns, prepare_encoded_plane
 from repro_torch.kernels.bstc_matmul import bstc_matmul, prepare_bstc_matmul_operands
@@ -314,6 +317,257 @@ class TestBgppPagedAttendRef:
             bgpp_paged_attend(*ops, rounds=2, k_max=4, survivors=(8, 4))
         with pytest.raises(ValueError, match="k_max"):
             bgpp_paged_attend(*ops, rounds=2, k_max=9, survivors=(16, 8))
+
+
+# ---------------------------------------------------------------------------
+# K2 bgpp_paged_attend: the CUDA launch plan, the scoring arithmetic and the
+# cluster selection
+# ---------------------------------------------------------------------------
+
+
+def _k2_survivors(S, keep=0.25, rounds=4):
+    """``kv_cache.bgpp_decode_plan``'s (k_max, survivors) for a width."""
+    k_max = max(1, min(S, math.ceil(keep * S)))
+    return k_max, (S,) + tuple(max(k_max, S >> r) for r in range(1, rounds))
+
+
+class TestBgppPagedAttendPlan:
+    """K2's CUDA launch geometry (``kernel.plan``: C blocks a (slot,
+    kv-head) cluster, each owning L round-0 lanes and ``caps[r]`` ranks of
+    the list of round r), from static shapes alone: no card is needed."""
+
+    SMS = 132  # an H100 SXM
+
+    @pytest.mark.parametrize("B,Hk,g,D,S", [
+        (4, 8, 3, 128, 1024),  # the decode geometry
+        (1, 8, 3, 128, 32768),  # a long context
+        (4, 8, 8, 128, 8192),
+        (64, 8, 3, 128, 2048),  # more cells than SMs
+        (2, 2, 3, 16, 64),  # the smoke config
+        (3, 2, 5, 64, 1000),  # lanes that do not split evenly
+        (1, 1, 1, 32, 1),  # a single lane
+    ])
+    def test_every_lane_has_one_block(self, B, Hk, g, D, S):
+        k_max, surv = _k2_survivors(S)
+        C, L, caps, smem = bgpp_kernel.plan(B, Hk, g, D, S, k_max, surv, self.SMS)
+        assert C in (1, 2, 4, 8) and L == caps[0] <= bgpp_kernel.MAX_LIST
+        widths = bgpp_kernel.list_widths(S, k_max, surv)
+        assert len(caps) == len(widths) == len(surv) + 1
+        for width, cap in zip(widths, caps):  # round 0's lanes, every list's ranks
+            owners = np.zeros(width, np.int64)
+            for c in range(C):
+                owners[c * cap:min((c + 1) * cap, width)] += 1
+            np.testing.assert_array_equal(owners, 1)
+            assert cap <= L  # every list fits a block's region
+        assert smem == bgpp_kernel.smem_bytes(g, D, L) <= build.MAX_SMEM
+
+    def test_decode_geometry_fills_the_card(self):
+        B, Hk, S = 4, 8, 1024
+        k_max, surv = _k2_survivors(S)
+        C, L, caps, _ = bgpp_kernel.plan(B, Hk, 3, 128, S, k_max, surv, self.SMS)
+        assert (C, L, caps) == (4, 256, (256, 128, 64, 64, 64))
+        assert 128 <= B * Hk * C <= self.SMS
+
+    @pytest.mark.parametrize("g", range(1, 9))
+    @pytest.mark.parametrize("D", bgpp_kernel.HEAD_DIMS)
+    def test_shared_memory_fits_up_to_the_cap(self, g, D):
+        cap = bgpp_kernel.max_lanes(g, D)
+        assert cap % bgpp_kernel.MAX_CLUSTER == 0 and cap >= 8192
+        k_max, surv = _k2_survivors(cap)
+        p = bgpp_kernel.plan(1, 8, g, D, cap, k_max, surv, self.SMS)
+        assert p.C == bgpp_kernel.MAX_CLUSTER and p.smem <= build.MAX_SMEM
+        L = cap // bgpp_kernel.MAX_CLUSTER + 1  # one lane more a block does not fit
+        assert (L > bgpp_kernel.MAX_LIST
+                or bgpp_kernel.smem_bytes(g, D, L) > build.MAX_SMEM)
+
+    @staticmethod
+    def _operands(g, S, D=128, n_tok=16):
+        """CPU operands the CUDA validation accepts (it never reads the
+        pool rows or the phys map)."""
+        Hk = 2
+        return (torch.zeros(1, Hk, g, D),
+                torch.zeros(7, n_tok, Hk, D // 8, dtype=torch.uint8),
+                torch.zeros(n_tok, Hk, D // 8, dtype=torch.uint8),
+                torch.ones(n_tok, Hk), torch.zeros(n_tok, Hk, D, dtype=torch.int8),
+                torch.ones(n_tok, Hk), torch.zeros(1, S, dtype=torch.int32),
+                torch.full((1,), S - 1, dtype=torch.int32))
+
+    @pytest.mark.parametrize("g", [1, 2, 3])
+    def test_wrapper_takes_32k_lanes_at_phi4_mini_group(self, monkeypatch, g):
+        monkeypatch.setattr(bgpp_ops, "sm_count", lambda device: self.SMS)
+        S = 32768
+        assert bgpp_kernel.max_lanes(g, 128) >= S
+        k_max, surv = _k2_survivors(S)
+        p = bgpp_ops._validate_cuda(*self._operands(g, S), k_max, surv)
+        assert p.C * p.L >= S and p.smem <= build.MAX_SMEM
+
+    @pytest.mark.parametrize("g", [1, 3, 8])
+    def test_past_the_cap_the_wrapper_raises_with_it(self, monkeypatch, g):
+        monkeypatch.setattr(bgpp_ops, "sm_count", lambda device: self.SMS)
+        cap = bgpp_kernel.max_lanes(g, 128)
+        S = cap + 8
+        k_max, surv = _k2_survivors(S)
+        with pytest.raises(ValueError, match=f"the cap at g={g}, D=128 is {cap} lanes"):
+            bgpp_ops._validate_cuda(*self._operands(g, S), k_max, surv)
+
+    @pytest.mark.parametrize("D", [24, 256])
+    def test_rejects_head_dims_it_has_no_instance_for(self, monkeypatch, D):
+        monkeypatch.setattr(bgpp_ops, "sm_count", lambda device: self.SMS)
+        k_max, surv = _k2_survivors(64)
+        with pytest.raises(ValueError, match="not one of 16, 32, 64, 128"):
+            bgpp_ops._validate_cuda(*self._operands(3, 64, D=D), k_max, surv)
+
+
+def _k2_words(packed):
+    """Packed bit rows ``(..., D/8)`` uint8 -> ``(..., W)`` little-endian
+    32-bit words (D 16: one word, its high half zero), as the kernel loads
+    them."""
+    pad = (-packed.shape[-1]) % 4
+    a = np.concatenate([packed, np.zeros(packed.shape[:-1] + (pad,), np.uint8)], -1)
+    return np.ascontiguousarray(a).view("<u4")
+
+
+def _k2_plane_dot(codes, plane, sign, qlo=3):
+    """``plane_dot`` of ``csrc/bgpp_paged_attend.cu`` -> ``(g, n)`` int64:
+    the query's masks are plane p of each int8 code row's truncated
+    magnitude (``(|c| >> qlo) << qlo``) and its sign, and a packed row
+    ``(n, D/8)`` scores sum_p 2^p (popc(q_p & k & ~(q_s ^ k_s)) -
+    popc(q_p & k & (q_s ^ k_s))) over its 32-bit words."""
+    mag = (np.abs(codes) >> qlo) << qlo
+    pack = lambda bits: _k2_words(np.packbits(bits.astype(np.uint8), -1, bitorder="little"))
+    qs = pack(codes < 0)  # (g, W)
+    kb, ks = _k2_words(plane), _k2_words(sign)
+    x = qs[:, None] ^ ks[None]  # (g, n, W)
+    pm, nm = kb[None] & ~x, kb[None] & x
+    acc = np.zeros(x.shape[:2], np.int64)
+    for p in range(qlo, 7):
+        q = pack((mag >> p) & 1)[:, None]  # (g, 1, W)
+        cnt = (np.bitwise_count(q & pm).astype(np.int64)
+               - np.bitwise_count(q & nm).astype(np.int64))
+        acc += cnt.sum(-1) << p
+    return acc
+
+
+def _k2_rebuilt_dot(codes, planes, sign):
+    """Phase 2 of ``csrc/bgpp_paged_attend.cu`` on one survivor -> ``(g,)``:
+    planes ``(7, D/8)`` + sign ``(D/8,)`` in 4-byte chunks (2 at D 16); per
+    8 columns, byte ``grp`` of the 8 rows' words gathered (``__byte_perm``)
+    and bit-transposed (``transpose8``) into sign-magnitude bytes, dotted
+    with the int8 codes ``(g, D)`` as ``dp4a(m ^ neg, q) - dp4a(neg, q)``."""
+    g, D = codes.shape
+    cb = 4 if D >= 32 else 2
+    rows = np.concatenate([planes, sign[None]], 0)  # (8, D/8)
+    word = lambda b: int.from_bytes(bytes(b.tolist()), "little")
+    sbyte = lambda x, j: ((x >> 8 * j) & 0xFF) - (256 if (x >> 8 * j) & 0x80 else 0)
+    dp4a = lambda a, qv: sum(sbyte(a, j) * int(qv[j]) for j in range(4))
+    dot = np.zeros(g, np.int64)
+    for ch in range(D // (8 * cb)):
+        P = [word(rows[pl, ch * cb:(ch + 1) * cb]) for pl in range(8)]
+        for grp in range(cb):
+            lo = sum(((P[r] >> 8 * grp) & 0xFF) << 8 * r for r in range(4))
+            hi = sum(((P[4 + r] >> 8 * grp) & 0xFF) << 8 * r for r in range(4))
+            lo, hi = _k3_transpose8(lo, hi)
+            col = ch * 8 * cb + 8 * grp
+            for x, c0 in ((lo, col), (hi, col + 4)):
+                neg = ((x >> 7) & 0x01010101) * 0xFF
+                for gi in range(g):
+                    qv = codes[gi, c0:c0 + 4]
+                    dot[gi] += dp4a((x & 0x7F7F7F7F) ^ neg, qv) - dp4a(neg, qv)
+    return dot
+
+
+def _k2_cluster_select(lanes, score, nv, width, width_next, C, cap):
+    """One selection of the cluster on the CPU, as the kernel makes it.
+
+    ``lanes`` are the current list's valid entries (its first ``min(nv,
+    width)``, in list order) with integer ``score``; block c holds the
+    ranks ``[c * cap, (c + 1) * cap)`` of them.  Each block sorts its keys
+    (score descending, list position ascending); an entry's rank is its
+    rank in its block plus, for each other block, the count of that block's
+    keys below it (a binary search of its sorted run), and only entries of
+    local rank below the next list's valid width are ranked.  Returns the
+    next list's valid lanes in rank order and the whole list (the lanes
+    past the valid ones, ``nv, nv + 1, ...``, implied)."""
+    n_valid = min(nv, width)
+    assert len(lanes) == n_valid
+    # the kernel's unsigned key (2^31 - score) << 32 | position, less 2^63:
+    # the same order in int64
+    key = -torch.as_tensor(score, dtype=torch.int64) << 32 | torch.arange(n_valid)
+    runs = [torch.sort(key[c * cap:(c + 1) * cap]).values for c in range(C)]
+    nxt = min(nv, width_next)
+    out = torch.full((nxt,), -1, dtype=torch.int64)
+    for c, run in enumerate(runs):
+        for i, k in enumerate(run[:nxt].tolist()):
+            at = i + sum(int(torch.searchsorted(o, torch.tensor([k]))[0])
+                         for c2, o in enumerate(runs) if c2 != c)
+            if at < nxt:
+                assert out[at] == -1  # ranks are unique
+                out[at] = lanes[k & 0xFFFFFFFF]
+    assert bool((out >= 0).all())
+    return out, torch.cat([out, nv + torch.arange(width_next - nxt)])
+
+
+class TestBgppPagedAttendArithmetic:
+    """K2's arithmetic, emulated on the CPU: the integer plane dot and the
+    phase-2 rebuild equal the plain version's scores exactly, and the
+    cluster's selection equals ``ref.topk_indices`` round by round."""
+
+    @pytest.mark.parametrize("D", [16, 32, 64, 128])
+    @pytest.mark.parametrize("g", [1, 3, 8])
+    def test_plane_dot_is_the_plain_plane_score(self, D, g):
+        rng = np.random.default_rng(D + g)
+        n = 64
+        q = torch.from_numpy(rng.normal(size=(1, 1, g, D)).astype(np.float32))
+        qf = bgpp_ref.quant_query(q)[0, 0]  # (g, D) truncated integer floats
+        codes = tkvc.quantize_kv(q.reshape(g, 1, D))[0].reshape(g, D).numpy().astype(np.int64)
+        np.testing.assert_array_equal(np.sign(codes) * ((np.abs(codes) >> 3) << 3), qf.numpy())
+        kq = rng.integers(-127, 128, (n, D))
+        kq[rng.random((n, D)) < 0.3] = 0
+        planes, sign = tkvc.k_to_bitplanes(torch.from_numpy(kq.astype(np.int8)))
+        sign[: n // 2] = torch.from_numpy(rng.integers(0, 256, (n // 2, D // 8)).astype(np.uint8))
+        for p in range(7):  # signs set over zero magnitudes score nothing
+            want = bgpp_ref._plane_scores(planes[p][None, None], sign[None, None],
+                                          qf[None, None])[0, 0]
+            got = _k2_plane_dot(codes, planes[p].numpy(), sign.numpy())
+            np.testing.assert_array_equal(got, want.numpy().astype(np.int64))
+
+    @pytest.mark.parametrize("D", [16, 32, 64, 128])
+    def test_rebuilt_rows_give_the_exact_int8_dot(self, D):
+        rng = np.random.default_rng(D)
+        g, n = 3, 12
+        codes = rng.integers(-127, 128, (g, D))
+        kq = rng.integers(-127, 128, (n, D))
+        kq[:, ::5] = 0
+        planes, sign = tkvc.k_to_bitplanes(torch.from_numpy(kq.astype(np.int8)))
+        sign[0] = 0xFF  # a set sign over a zero magnitude is still 0
+        k_signed = tkvc.bitplanes_to_k(planes, sign).numpy().astype(np.int64)
+        for j in range(n):
+            got = _k2_rebuilt_dot(codes, planes[:, j].numpy(), sign[j].numpy())
+            np.testing.assert_array_equal(got, codes @ k_signed[j])
+
+    @pytest.mark.parametrize("C", [1, 2, 4, 8])
+    @pytest.mark.parametrize("S,pos", [(1024, 1023), (1024, 100), (1024, 600), (1024, 0),
+                                       (1024, -1), (1000, 999), (64, 40), (96, 5)])
+    def test_cluster_selection_is_the_plain_top_k(self, C, S, pos):
+        """Scores with many ties (7 distinct values a round), every
+        selection of a progressive plan, at every cluster size."""
+        rng = np.random.default_rng(S + pos + C)
+        k_max, surv = _k2_survivors(S)
+        widths = bgpp_kernel.list_widths(S, k_max, surv)
+        nv = 0 if pos < 0 else min(pos + 1, S)
+        valid = torch.arange(S) <= pos
+        want = torch.arange(S)  # the plain version's current list
+        lanes = torch.arange(nv)  # the cluster's valid entries of it
+        for r in range(len(widths) - 1):
+            lane_score = torch.from_numpy(rng.integers(-3, 4, S) * 64)
+            full = torch.where(valid[want], lane_score[want].float(),
+                               torch.tensor(bgpp_ref.NEG_INF))
+            want = want[bgpp_ref.topk_indices(full, widths[r + 1])]
+            lanes, got = _k2_cluster_select(lanes, lane_score[lanes], nv, widths[r],
+                                            widths[r + 1], C, -(-widths[r] // C))
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        if pos < 0:
+            torch.testing.assert_close(want, torch.arange(k_max), rtol=0, atol=0)
 
 
 class TestBstcCpuRouting:
