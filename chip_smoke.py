@@ -32,8 +32,12 @@ Phases, each of which fails the run (nonzero exit) on any error:
    first round, bit-exact; the BRCR GEMM at every projection shape of
    one layer (layer 0's seeded weights,
    int8) with N = 4 and 128 integer x (exact) and float32 / bfloat16 x
-   (within 1e-5 of Σ|w·x|), and the gate/up weight once more with whole
-   row and column blocks zeroed, so its tile and plane skips run (exact).
+   (within 1e-5 of Σ|w·x|), the gate/up weight once more with whole
+   row and column blocks zeroed, so its tile and plane skips run (exact,
+   and faster than the whole weight), m 2 at wk/wv, a ragged 1028 x 3000
+   slice at N 13, and integers of 17 to 20 bits on a sparse weight
+   (exact only with all three bf16 terms of x); every K7 case launched
+   twice for identical bits.
 4. Paper-layer path: the quickstart at phi4-mini width (BRCR on an
    8192 x 3072 weight, BSTC, BGPP over 1024 keys), the BGPP walkthrough at
    S 4096, and the batched predictor at the decode geometry followed by
@@ -54,8 +58,10 @@ Phases, each of which fails the run (nonzero exit) on any error:
    attention kernel and ``scaled_dot_product_attention`` are traced at
    causal S 512 and S 450 for their device time a call, the fused BSTC
    decode + GEMV and a bf16 ``torch.matmul`` at every decode projection
-   shape, and the fused BGPP decode and K1's int8 body on the same int8 KV
-   at the decode geometry.
+   shape, the fused BGPP decode and K1's int8 body on the same int8 KV
+   at the decode geometry, and the BRCR GEMM and a bf16 ``torch.matmul``
+   on the quickstart's operands and at every projection shape of a layer
+   (N 4, 16 and 128; f32 integer, f32 Gaussian and bf16 x).
 6. Reference check: the same small model and trace served on the card
    (kernels) and on the CPU (plain versions) give the same greedy tokens
    and logits within tolerance, for every KV format, for the int8 and
@@ -968,6 +974,57 @@ def check_brcr(label, got, want, w, x, exact):
     return err.max().item()
 
 
+def brcr_twice(label, ops, x):
+    """K7 launched twice on the same operands; the run fails unless both
+    give the same bits (the cluster adds in rank order, no atomics)."""
+    import torch
+
+    from repro_torch.kernels.brcr_gemm import brcr_gemm
+
+    got, again = brcr_gemm(ops, x), brcr_gemm(ops, x)
+    if not torch.equal(got, again):
+        raise AssertionError(f"brcr_gemm {label}: two launches differ")
+    return got
+
+
+def brcr_case(label, w, x, m, exact):
+    """One K7 case at group size m: launched twice (:func:`brcr_twice`) and
+    held against the plain version and the dense product
+    (:func:`check_brcr`); returns the max |error| against the plain
+    version."""
+    from repro_torch.kernels.brcr_gemm import prepare_brcr_operands
+    from repro_torch.kernels.brcr_gemm.ref import brcr_gemm_ref, dense_ref
+
+    ops = prepare_brcr_operands(w, m)
+    got = brcr_twice(label, ops, x)
+    err = check_brcr(label, got, brcr_gemm_ref(ops.group_idx, ops.plane_weights, x, m), w, x,
+                     exact)
+    check_brcr(label, got, dense_ref(w, x), w, x, exact)
+    return err
+
+
+def wide_ints(gen, M, H, N, device):
+    """A sparse int8 (M, H) weight and integer x (H, N) of 17 to 20
+    significant bits (column h of x draws its bit count) whose rows keep
+    Σ|w·x| below (1 - 2^-6) 2^24 in every column: a row holds 1 to 3
+    non-zeros, each within the budget its column of x leaves (up to 125
+    where x has 17 bits and the row one non-zero, so every plane occurs).
+    Exact only through all three bf16 terms of x: hi and mid hold 16 bits."""
+    import torch
+
+    bits = torch.randint(17, 21, (H, 1), generator=gen, device=device).float()
+    half = 2.0 ** (bits - 1)
+    mag = half + torch.floor(torch.rand((H, N), generator=gen, device=device) * half)
+    x = mag * (2 * torch.randint(0, 2, (H, N), generator=gen, device=device) - 1)
+    k = torch.randint(1, 4, (M, 1), generator=gen, device=device)
+    cols = torch.randint(0, H, (M, 3), generator=gen, device=device)
+    cap = torch.floor((1 - 2 ** -6) * 2 ** 24 / (k * mag.amax(1)[cols])).clamp(max=127)
+    vals = torch.floor(torch.rand((M, 3), generator=gen, device=device) * (2 * cap + 1)) - cap
+    vals = torch.where(torch.arange(3, device=device) < k, vals, torch.zeros_like(vals))
+    w = torch.zeros((M, H), device=device).scatter_(1, cols, vals).to(torch.int8)
+    return w, x
+
+
 def brcr_need(ops, x):
     """(bytes, f32 adds) one BRCR product needs: every pattern byte, the
     plane weights, x and out once; per column of x, one merge add for each
@@ -1008,7 +1065,12 @@ def brcr_kernel_phase(device, flush):
     (plane, 128-row, 256-column) tiles the kernel skips.  Then, as the
     Gaussian weights leave no tile empty, the gate/up weight once more
     with whole row and column blocks zeroed, N = 128 integer x: exact,
-    with tiles and whole planes of a block skipped, and timed."""
+    with tiles and whole planes of a block skipped, and timed (it must take
+    less time than the whole weight).  Then m = 2 at wk/wv (N 4 and 128),
+    a ragged 1028 x 3000 slice of gate/up at N 13 (m 4 and 2), and
+    integers of 17 to 20 significant bits on a sparse 3072 x 3072 weight
+    (:func:`wide_ints`, exact).  Every case is launched twice and must give
+    identical bits."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1037,7 +1099,7 @@ def brcr_kernel_phase(device, flush):
         for N in BRCR_COLS:
             label = f"{name} ({d_out} x {d_in}, N={N})"
             xi = torch.randint(-50, 50, (d_in, N), generator=gen, device=device).float()
-            got = brcr_gemm(ops, xi)
+            got = brcr_twice(label, ops, xi)
             err = check_brcr(label, got, brcr_gemm_ref(ops.group_idx, ops.plane_weights, xi,
                                                        ops.m), w, xi, exact=True)
             check_brcr(label, got, dense_ref(w, xi), w, xi, exact=True)
@@ -1045,7 +1107,7 @@ def brcr_kernel_phase(device, flush):
             if N == BRCR_COLS[0]:
                 for dt in (torch.float32, torch.bfloat16):
                     x = torch.randn((N, d_in), generator=gen, device=device).to(dt).T
-                    got = brcr_gemm(ops, x)
+                    got = brcr_twice(f"{label} {dt}", ops, x)
                     e = check_brcr(f"{label} {dt}", got, brcr_gemm_ref(
                         ops.group_idx, ops.plane_weights, x, ops.m), w, x, exact=False)
                     check_brcr(f"{label} {dt}", got, dense_ref(w, x), w, x, exact=False)
@@ -1079,7 +1141,7 @@ def brcr_kernel_phase(device, flush):
     N = BRCR_COLS[1]
     label = f"gate/up, zeroed blocks ({M} x {H}, N={N})"
     xi = torch.randint(-50, 50, (H, N), generator=gen, device=device).float()
-    got = brcr_gemm(ops, xi)
+    got = brcr_twice(label, ops, xi)
     err = check_brcr(label, got, brcr_gemm_ref(ops.group_idx, ops.plane_weights, xi, ops.m),
                      w, xi, exact=True)
     check_brcr(label, got, dense_ref(w, xi), w, xi, exact=True)
@@ -1087,8 +1149,40 @@ def brcr_kernel_phase(device, flush):
     full = dense_ms[f"gate/up ({M} x {H}, N={N})"]
     print(f"[kernel] brcr_gemm {label}: integer x exact (max_abs_err {err:.1e}); "
           f"{100 * tiles:.1f}% of tiles and {100 * planes:.1f}% of (plane, 128-row block) "
-          f"pairs skipped; kernel {ms:.4f} ms against {full:.4f} ms on the whole weight")
+          f"pairs skipped; kernel {ms:.4f} ms against {full:.4f} ms on the whole weight "
+          f"({ms / full:.2f}x)")
+    if not ms < full:
+        raise AssertionError(f"brcr_gemm {label}: the skips saved no time")
     del ops, w
+    torch.cuda.empty_cache()
+
+    # m = 2 at wk/wv; a ragged shape at m = 4 and 2 (groups past a block,
+    # H past a tile and not 16-byte aligned, N past an n-tile); integers of
+    # 17 to 20 significant bits on a sparse weight (:func:`wide_ints`)
+    cases = []
+    w = weights["wk/wv"]
+    for N in BRCR_COLS:
+        cases.append((f"wk/wv, m 2 ({w.shape[0]} x {w.shape[1]}, N={N})", w, 2, N))
+    w = weights["gate/up"][:1028, :3000].contiguous()
+    for m in (4, 2):
+        cases.append((f"ragged, m {m} ({w.shape[0]} x {w.shape[1]}, N=13)", w, m, 13))
+    for label, w, m, N in cases:
+        H = w.shape[1]
+        xi = torch.randint(-50, 50, (H, N), generator=gen, device=device).float()
+        line = f"integer x exact (max_abs_err {brcr_case(label, w, xi, m, exact=True):.1e})"
+        if N != BRCR_COLS[1]:
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn((N, H), generator=gen, device=device).to(dt).T
+                e = brcr_case(f"{label} {dt}", w, x, m, exact=False)
+                line += f", {str(dt)[6:]} x max_abs_err {e:.3e}"
+        print(f"[kernel] brcr_gemm {label}: {line}; two launches bit-identical")
+    w, xi = wide_ints(gen, 3072, 3072, BRCR_COLS[0], device)
+    label = f"17-20-bit integer x, sparse weight (3072 x 3072, N={BRCR_COLS[0]})"
+    row = (w.abs().float() @ xi.abs()).max().item()
+    err = brcr_case(label, w, xi, 4, exact=True)
+    print(f"[kernel] brcr_gemm {label}: exact (max_abs_err {err:.1e}; max Σ|w·x| {row:.0f} < "
+          f"2^24; {int((w != 0).sum())} non-zeros); two launches bit-identical")
+    del w, weights
     torch.cuda.empty_cache()
 
 
@@ -1198,6 +1292,90 @@ def paper_phase(device, flush):
         nbytes, adds, "f32", time_ms(lambda: torch.matmul(wb, xb), flush=flush),
         label=f" quickstart ({ops.M} x {ops.H}, N={x.shape[1]})")
     return total, k7
+
+
+def _device_ms(fn, calls, l2):
+    """Device ms a call of ``fn`` over one ``torch.profiler`` trace of
+    ``calls`` calls, ``l2`` zeroed before each (the flush kernels left
+    out), and the kernels the trace recorded."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            l2.zero_()
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and "FillFunctor" not in e.key and e.self_device_time_total > 0]
+    ms = sum(e.self_device_time_total / e.count for e in dev) / 1e3
+    return ms, ", ".join(f"{e.count} x {e.key[:32]}" for e in dev)
+
+
+def brcr_device_phase(device, calls: int = 10) -> None:
+    """K7 against a bf16 ``torch.matmul`` of the dense weight on device
+    time (:func:`_device_ms`, L2 flushed before each call: every pattern
+    byte is read cold): the quickstart's own operands (8192 x 3072, N 16,
+    integer x in f32), then each projection shape of one phi4-mini-3.8b
+    layer (layer 0's seeded weights, as :func:`brcr_kernel_phase`) at N 4,
+    16 and 128 with f32 integer x in [-50, 50) (one bf16 term a tile),
+    f32 Gaussian x (three terms) and bf16 Gaussian x, and the plan of each.
+    Run after the serving runs are timed: a trace slows the process's
+    later host work."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import quantization
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels.brcr_gemm import brcr_gemm, prepare_brcr_operands
+    from repro_torch.kernels.brcr_gemm import ops as brcr_ops
+    from repro_torch.models.transformer import init_params
+
+    l2 = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    M, H = quickstart.full_width_shape()
+    rng = np.random.default_rng(0)  # the quickstart's weight and x
+    w = torch.from_numpy(quickstart.synthetic_llm_weight(rng, (M, H))).to(device)
+    w = quantization.quantize_weight(w).q
+    x = torch.from_numpy(rng.integers(-50, 50, size=(H, 16))).to(device).float()
+    cases = [("quickstart", w, {"f32 integer": x})]
+    cfg = get_config("phi4-mini-3.8b")
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    attn, mlp = params["layers"]["attn"], params["layers"]["mlp"]
+    for name, t in (("wq/wo", attn["wq"]), ("wk/wv", attn["wk"]), ("gate/up", mlp["gate"]),
+                    ("down", mlp["down"])):
+        cases.append((name, quantization.quantize_model_weight(t[0]).q, None))
+    del params, attn, mlp
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(7)
+    for name, w, xs in cases:
+        ops = prepare_brcr_operands(w)
+        wb = w.to(torch.bfloat16)
+        for N in ((16,) if xs else (4, 16, 128)):
+            if xs is None:
+                H = w.shape[1]
+                xs = {"f32 integer": torch.randint(-50, 50, (H, N), generator=gen,
+                                                   device=device).float(),
+                      "f32": torch.randn((H, N), generator=gen, device=device),
+                      "bf16": torch.randn((H, N), generator=gen, device=device).bfloat16()}
+            line = []
+            for kind, x in xs.items():
+                ms, rec = _device_ms(lambda: brcr_gemm(ops, x), calls, l2)
+                line.append(f"{kind} x {ms:.4f} ms")
+            x = next(iter(xs.values()))
+            xb = x.to(torch.bfloat16)
+            lib, _ = _device_ms(lambda: torch.matmul(wb, xb), calls, l2)
+            geo = brcr_ops._validate_cuda(ops, x)
+            print(f"[kernel] brcr_gemm {name} ({w.shape[0]} x {w.shape[1]}, N={N}) device time "
+                  f"(torch.profiler, {calls} calls each, L2 flushed): {'; '.join(line)}; bf16 "
+                  f"torch.matmul {lib:.4f} ms; plan C {geo.C}, T {geo.T}, grid {geo.grid}, "
+                  f"{geo.NB} columns a block; recorded: {rec}")
+            xs = None
+        del ops, wb
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1636,6 +1814,7 @@ def main(argv=None) -> int:
     flash_device_phase(device)
     bstc_device_phase(device)
     bgpp_device_phase(device)
+    brcr_device_phase(device)
     launches.update(paper_launches)
     for r in records:
         r["launches"] = launches[r["name"]]

@@ -3,10 +3,11 @@
 Counterpart of :mod:`repro.kernels.brcr_gemm.ops`.  Routing is by the
 tensors' device: CPU tensors take the plain version in :mod:`.ref`; CUDA
 tensors launch the CUDA kernel or the call raises — there is no fallback.
-The kernel picks its own tiles, tests its own tiles for all-zero patterns
-(no host-side tile map) and masks ragged edges, so the reference's tile
-arguments and its N padding have no counterpart: M need only be a multiple
-of m, and N, H may be any size.
+The launch geometry comes from :func:`.kernel.plan` (column blocks and the
+cluster that splits H, from the shape and the card's SM count); the kernel
+skips all-zero pattern steps itself (no host-side tile map) and masks
+ragged edges, so the reference's tile arguments and its N padding have no
+counterpart: M need only be a multiple of m, and N, H may be any size.
 """
 
 from __future__ import annotations
@@ -19,9 +20,7 @@ from repro_torch.core import bitslice
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.brcr_gemm import kernel
 from repro_torch.kernels.brcr_gemm.ref import brcr_gemm_ref
-
-KERNEL_GROUPS = (2, 4)  # the group sizes m the CUDA kernel is built for
-MAX_KERNEL_COLS = 65535 * 8  # grid.y blocks of up to 8 columns of x
+from repro_torch.kernels.paged_flash_decode.kernel import sm_count
 
 
 class BRCROperands(NamedTuple):
@@ -87,6 +86,24 @@ def _validate(ops: BRCROperands, x: torch.Tensor) -> None:
         raise ValueError("brcr_gemm: x and the operands lie on different devices")
 
 
+def _validate_cuda(ops: BRCROperands, x: torch.Tensor) -> kernel.Plan:
+    """What the CUDA kernel additionally requires of its operands; returns
+    the launch's :func:`kernel.plan`.  The plane weights are the format's
+    signed powers of two, which the kernel folds into its bf16 one-hot
+    operand (a weight bf16 does not hold turns the output into NaN)."""
+    if x.dtype not in kernel.X_DTYPES:
+        raise ValueError(f"brcr_gemm: x must be float32 or bfloat16, got {x.dtype}")
+    if ops.group_idx.dtype != torch.uint8 or not ops.group_idx.is_contiguous() \
+            or ops.plane_weights.dtype != torch.float32 \
+            or not ops.plane_weights.is_contiguous():
+        raise ValueError("brcr_gemm: group_idx must be contiguous uint8 and plane_weights "
+                         "contiguous float32")
+    P, _, H = ops.group_idx.shape
+    ptr = ops.group_idx.data_ptr()
+    return kernel.plan(ops.M, H, x.shape[1], ops.m, P, sm_count(x.device),
+                       kernel.TERMS[x.dtype], min(16, ptr & -ptr) if ptr else 16)
+
+
 def brcr_gemm(ops: BRCROperands, x: torch.Tensor) -> torch.Tensor:
     """``w_q @ x`` from prepared BRCR operands: x (H, N) -> f32 (M, N).
 
@@ -96,19 +113,11 @@ def brcr_gemm(ops: BRCROperands, x: torch.Tensor) -> torch.Tensor:
         return brcr_gemm_ref(ops.group_idx, ops.plane_weights, x, ops.m)
     if x.device.type != "cuda":
         raise ValueError(f"brcr_gemm: no kernel for device {x.device}")
-    if ops.m not in KERNEL_GROUPS:
-        raise ValueError(f"brcr_gemm: the CUDA kernel takes m in {KERNEL_GROUPS}, got {ops.m}")
-    if x.dtype not in kernel.X_DTYPES:
-        raise ValueError(f"brcr_gemm: x must be float32 or bfloat16, got {x.dtype}")
-    if x.shape[1] > MAX_KERNEL_COLS:
-        raise ValueError(f"brcr_gemm: N={x.shape[1]} columns exceed the grid")
-    if ops.group_idx.dtype != torch.uint8 or not ops.group_idx.is_contiguous() \
-            or ops.plane_weights.dtype != torch.float32 \
-            or not ops.plane_weights.is_contiguous():
-        raise ValueError("brcr_gemm: group_idx must be contiguous uint8 and plane_weights "
-                         "contiguous float32")
-    out = torch.empty((ops.M, x.shape[1]), dtype=torch.float32, device=x.device)
-    if out.numel():
-        kernel.launch(ops, x, out)
-        LAUNCHES["brcr_gemm"] += 1
+    shape = (ops.M, x.shape[1])
+    if not (ops.M and x.shape[1] and ops.H and ops.plane_weights.shape[0]):
+        return torch.zeros(shape, dtype=torch.float32, device=x.device)  # no launch
+    geometry = _validate_cuda(ops, x)
+    out = torch.empty(shape, dtype=torch.float32, device=x.device)
+    kernel.launch(ops, x, out, geometry)
+    LAUNCHES["brcr_gemm"] += 1
     return out

@@ -154,7 +154,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.brcr_gemm_launch.argtypes = [
         P, P, P, I, L, L,  # group_idx, plane weights, x, x dtype, x strides
         P, L, L,  # out, out strides
-        I, I, I, I, I, P,  # P planes, G, H, N, m, stream
+        I, I, I, I, I, P, P,  # P planes, G, H, N, m, plan (host int array), stream
     ]
     for fn in (lib.paged_flash_decode_dense_launch,
                lib.paged_flash_decode_int8_launch,

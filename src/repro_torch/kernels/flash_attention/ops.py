@@ -42,8 +42,6 @@ def _validate(q, k, v, mask_kind, q_offset):
         raise ValueError(
             f"flash_attention: q/k/v must share one dtype of {DTYPES}; got "
             f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {D} is not one of {HEAD_DIMS}")
     if mask_kind not in kernel.MASK_CODES:
         raise ValueError(
             f"flash_attention: mask_kind {mask_kind!r} is not one of "
@@ -56,8 +54,12 @@ def _validate(q, k, v, mask_kind, q_offset):
 
 def _validate_cuda(q, k, v) -> kernel.Plan:
     """What the CUDA kernel additionally requires of its operands; returns
-    the launch's :func:`kernel.plan`.  The bf16 body copies 16-byte chunks,
-    so its rows must start on 16-byte boundaries."""
+    the launch's :func:`kernel.plan`.  Its head widths are the compiled
+    ones (the plain version takes any).  The bf16 body copies 16-byte
+    chunks, so its rows must start on 16-byte boundaries."""
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {q.shape[3]} is not one of the kernel's "
+                         f"compiled widths {HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention: {name} must be contiguous along D")

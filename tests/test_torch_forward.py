@@ -51,6 +51,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import attention
 from repro_torch.interop import params_from_numpy, tensor_from_numpy
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.models import transformer
 from repro_torch.serving import engine, kv_cache as tkvc
@@ -142,8 +143,8 @@ class TestFlashAttentionPlain:
         with pytest.raises(ValueError, match="multiple"):
             flash_attention(q, k, v)
         _, (q, k, v) = _both(_qkv(5, 1, 8, 8, 2, 2, 24), "float32")
-        with pytest.raises(ValueError, match="head_dim"):
-            flash_attention(q, k, v)
+        with pytest.raises(ValueError, match="head_dim 24 is not one of the kernel's"):
+            flash_ops._validate_cuda(q, k, v)  # the card's kernel; the CPU takes D 24
         _, (q, k, v) = _both(_qkv(5, 1, 8, 8, 2, 2, 16), "float32")
         with pytest.raises(ValueError, match="dtype"):
             flash_attention(q, k.double(), v)
@@ -162,6 +163,19 @@ class TestBlockedAttend:
         kw = dict(mask_kind=mask_kind, window=window, q_offset=q_offset)
         want = jattention.blocked_attend(jq, jk, jv, block_q=16, block_k=16, **kw)
         got = attention.blocked_attend(q, k, v, **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+    @pytest.mark.parametrize("D", [24, 256])
+    @pytest.mark.parametrize("mask_kind,window", [("causal", 0), ("sliding", 8)])
+    def test_head_dims_without_a_kernel_width_match_jax(self, D, mask_kind, window):
+        """On CPU tensors any head width takes the plain version: D 24
+        (gemma3-1b smoke) and 256 (gemma3 / paligemma at full size), which
+        the card's kernel has no instance for."""
+        (jq, jk, jv), (q, k, v) = _both(_qkv(8, 1, 40, 40, 4, 2, D), "float32")
+        kw = dict(mask_kind=mask_kind, window=window)
+        want = jattention.blocked_attend(jq, jk, jv, block_q=16, block_k=16, **kw)
+        got = attention.blocked_attend(q, k, v, **kw)
+        assert got.shape == (1, 40, 4, D)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
 
     def test_plain_version_is_mask_and_attend(self):

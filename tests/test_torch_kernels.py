@@ -50,6 +50,8 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels import build
+from repro_torch.kernels.brcr_gemm import kernel as brcr_kernel, prepare_brcr_operands
+from repro_torch.kernels.brcr_gemm.ref import brcr_gemm_ref
 from repro_torch.kernels.paged_flash_decode import paged_flash_decode
 from repro_torch.kernels.paged_flash_decode import kernel as pfd_kernel
 from repro_torch.kernels.paged_flash_decode import ops as pfd_ops
@@ -729,9 +731,10 @@ class TestFlashAttentionPlan:
     def test_wrapper_raises_for_what_it_has_no_instance_for(self):
         q = torch.zeros(1, 8, 4, 16, dtype=torch.bfloat16)
         k = torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match="head_dim 24"):
-            flash_attention(torch.zeros(1, 8, 4, 24), torch.zeros(1, 8, 2, 24),
-                            torch.zeros(1, 8, 2, 24))
+        q24, k24 = torch.zeros(1, 8, 4, 24), torch.zeros(1, 8, 2, 24)
+        assert flash_attention(q24, k24, k24).shape == (1, 8, 4, 24)  # the CPU takes any D
+        with pytest.raises(ValueError, match=r"head_dim 24 .* widths \(16, 32, 64, 128\)"):
+            flash_ops._validate_cuda(q24, k24, k24)
         with pytest.raises(ValueError, match="dtype"):
             flash_attention(q.half(), k.half(), k.half())
         assert flash_ops._validate_cuda(q, k, k).BQ == flash_kernel.MMA_BQ
@@ -1147,3 +1150,275 @@ class TestBstcMatmulArithmetic:
         want = bstc_matmul_plain(ops, x, apply_scale=True)
         tol = 1e-5 * (dense.abs() @ x.float().abs()) * ops.scale[:, None]
         assert bool(((got - want).abs() <= tol).all()), float((got - want).abs().max())
+
+
+# ---------------------------------------------------------------------------
+# K7 (brcr_gemm): the launch geometry and the kernel's arithmetic
+# ---------------------------------------------------------------------------
+
+# the four phi4-mini projection shapes (M, H): wq/wo, wk/wv, gate/up (the
+# quickstart's), down
+K7_SHAPES = [(3072, 3072), (1024, 3072), (8192, 3072), (3072, 8192)]
+
+
+def _k7_part_writes(m, NT):
+    """The (local row, local column) each lane of each warp writes into a
+    block's E @ Z part (``csrc/brcr_gemm.cu``, after the MAV): row tile r
+    of warp w covers 16 / 2^m groups; at m 4 the lanes of groupID 0 write
+    the 4 rows of the tile's group, at m 2 the lanes of bin 0 the 2 rows of
+    groups ``g >> 2`` and ``2 + (g >> 2)``."""
+    gpt = 16 >> m
+    for w in range(brcr_kernel.WARPS):
+        for r in range(brcr_kernel.ROW_TILES):
+            tile_g = (w * brcr_kernel.ROW_TILES + r) * gpt
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                for j in range(NT):
+                    for e in range(2):
+                        col = 8 * j + 2 * t + e
+                        if m == 4 and g == 0:
+                            for q in range(4):
+                                yield tile_g * 4 + q, col
+                        if m == 2 and (g & 3) == 0:
+                            for grp in (g >> 2, (g + 8) >> 2):
+                                for q in range(2):
+                                    yield (tile_g + grp) * 2 + q, col
+
+
+class TestBrcrGemmPlan:
+    """The CUDA launch geometry of K7 (``kernel.plan`` and the source's
+    index math), checked from static shapes alone: no card is needed."""
+
+    SMS = 132  # an H100 SXM
+
+    @pytest.mark.parametrize("m", [4, 2])
+    @pytest.mark.parametrize("terms", [3, 1])
+    @pytest.mark.parametrize("M,H,N", [(M, H, N) for M, H in K7_SHAPES for N in (1, 4, 16, 128)]
+                             + [(1028, 3000, 13), (12, 20, 1), (4, 1, 3), (8, 129, 33)])
+    def test_every_output_and_tile_has_one_owner(self, M, H, N, m, terms):
+        p = brcr_kernel.plan(M, H, N, m, 14, self.SMS, terms)
+        G = M // m
+        assert p.GB == brcr_kernel.groups_per_block(m) and p.threads == 128
+        assert p.NB == 8 * p.NT and p.terms == terms and p.K == brcr_kernel.TILE_K[m]
+        # the grid fits: (column blocks, cluster, row blocks)
+        assert p.grid == (-(-N // p.NB), p.C, -(-G // p.GB))
+        assert p.grid[2] <= 65535 and p.grid[0] <= 2 ** 31 - 1
+        # every H tile belongs to exactly one rank, and every rank owns one
+        assert 1 <= p.C <= brcr_kernel.MAX_CLUSTER and p.n_tiles == -(-H // p.K)
+        owned = [range(c * p.T, min(p.n_tiles, (c + 1) * p.T)) for c in range(p.C)]
+        assert all(len(r) for r in owned)
+        assert sorted(kt for r in owned for kt in r) == list(range(p.n_tiles))
+        # shared memory fits a block, and the plan's residency an SM
+        assert p.smem == brcr_kernel.smem_bytes(m, 14, p.NT, terms) <= build.MAX_SMEM
+        per_sm = min(brcr_kernel.blocks_per_sm(p.NT, terms), brcr_kernel.SM_SMEM // (p.smem + 1024))
+        assert per_sm >= 1 and p.resident == self.SMS * per_sm
+        # every (row, column) is written once, by one block's one lane
+        owners = np.zeros((p.grid[2] * p.GB * m, p.grid[0] * p.NB), np.int64)
+        local = np.zeros((p.GB * m, p.NB), np.int64)
+        for row, col in _k7_part_writes(m, p.NT):
+            local[row, col] += 1
+        np.testing.assert_array_equal(local, 1)
+        for z in range(p.grid[2]):
+            for x in range(p.grid[0]):
+                owners[z * p.GB * m:(z + 1) * p.GB * m, x * p.NB:(x + 1) * p.NB] += local
+        np.testing.assert_array_equal(owners[:M, :N], 1)
+        # the cluster's sum: each rank adds its share of the part, once
+        E = p.GB * m * p.NB
+        per = -(-E // p.C)
+        shares = [range(c * per, min(E, (c + 1) * per)) for c in range(p.C)]
+        assert sorted(i for r in shares for i in r) == list(range(E))
+
+    def test_quickstart_shape_fills_the_card(self):
+        """8192 x 3072 at N 16: 256 row blocks x a cluster of 2 (12 tiles a
+        rank), all resident at once on 132 SMs."""
+        p = brcr_kernel.plan(8192, 3072, 16, 4, 14, self.SMS, 3)
+        assert (p.C, p.T, p.grid, p.NB) == (2, 12, (1, 2, 256), 16)
+        assert p.grid[0] * p.grid[1] * p.grid[2] <= p.resident
+        assert p.grid[0] * p.grid[1] * p.grid[2] > self.SMS
+
+    @pytest.mark.parametrize("H,align,width", [(3072, 16, 16), (3000, 16, 8), (3000, 4, 4),
+                                               (20, 16, 4), (129, 16, 1), (3072, 2, 1)])
+    def test_pattern_copies_stay_in_a_row(self, H, align, width):
+        """The copy width divides H and the operand's alignment, so a copy
+        lies wholly in a row or wholly past its end (zero-filled)."""
+        w = brcr_kernel.copy_width(H, align)
+        assert w == width and H % w == 0 and align % w == 0
+        assert brcr_kernel.plan(64, H, 4, 4, 14, self.SMS, 3, align).width == width
+
+    def test_plan_refuses_what_the_kernel_does_not_take(self):
+        for args, match in [((64, 128, 4, 3, 14), "m in"), ((66, 128, 4, 4, 14), "multiple"),
+                            ((64, 128, 4, 4, 17), "planes"), ((64, 0, 4, 4, 14), "H=0")]:
+            with pytest.raises(ValueError, match=match):
+                brcr_kernel.plan(*args, self.SMS, 3)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _k7_terms(x):
+    """The kernel's bf16 terms of f32 x: hi, mid, lo."""
+    hi = _bf16(x)
+    mid = _bf16(x - hi)
+    return hi, mid, _bf16(x - hi - mid)
+
+
+def _k7_onehot_word(word, bin_, wp):
+    """csrc/brcr_gemm.cu's one-hot of a lane's pattern word: 0x80808080 -
+    (w ^ bin * 0x01010101), prmt's sign replication into bf16 halves (0x9988:
+    bytes 0, 1; 0xBBAA: bytes 2, 3), AND the plane weight pair."""
+    def prmt_sign(y, sel):
+        out = 0
+        for k in range(4):
+            b = (y >> 8 * (((sel >> 4 * k) & 0xF) & 7)) & 0xFF
+            out |= (0xFF if b & 0x80 else 0) << 8 * k
+        return out
+
+    y = (0x80808080 - (word ^ (bin_ * 0x01010101))) & 0xFFFFFFFF
+    return prmt_sign(y, 0x9988) & wp, prmt_sign(y, 0xBBAA) & wp
+
+
+def _k7_emulate(ops, x, C):
+    """K7's data flow on the CPU in f32: per rank's H tiles, per tile one
+    accumulator from zero over every plane's one-hot (entries +-2^p) times
+    each bf16 term of x (hi alone where mid is 0 over the tile), added to the
+    rank's running sum; E @ Z of each rank; the ranks added in rank order.
+    Returns (out, the largest |partial sum| of each (group, bin, column)
+    over the run, the sum of the |terms| each bin gathered)."""
+    P, G, H = ops.group_idx.shape
+    m, K = ops.m, brcr_kernel.TILE_K[ops.m]
+    n_tiles = -(-H // K)
+    T = -(-n_tiles // C)
+    xf = x.to(torch.float32)
+    terms = _k7_terms(xf) if x.dtype == torch.float32 else (xf,)
+    bins = torch.arange(2 ** m, dtype=ops.group_idx.dtype)
+    e = ((torch.arange(2 ** m)[None] >> torch.arange(m)[:, None]) & 1).to(torch.float32)
+    out = torch.zeros(G, m, x.shape[1])
+    peak = torch.zeros(G, 2 ** m, x.shape[1])
+    gathered = torch.zeros(G, 2 ** m, x.shape[1])
+    for c in range(C):
+        acc = torch.zeros(G, 2 ** m, x.shape[1])
+        for kt in range(c * T, min(n_tiles, (c + 1) * T)):
+            cols = slice(kt * K, min(H, (kt + 1) * K))
+            use = terms if len(terms) == 1 or bool((terms[1][cols] != 0).any()) else terms[:1]
+            fresh = torch.zeros_like(acc)
+            for p in range(P):
+                onehot = (ops.group_idx[p, :, cols, None] == bins).to(torch.float32)
+                a = onehot * ops.plane_weights[p]  # (G, h, bins), +-2^p
+                for t in use:
+                    fresh = fresh + torch.einsum("ghc,hn->gcn", a, t[cols])
+                    peak = torch.maximum(peak, (acc + fresh).abs())
+                    gathered += torch.einsum("ghc,hn->gcn", a.abs(), t[cols].abs())
+            acc = acc + fresh
+        out = out + torch.einsum("jc,gcn->gjn", e, acc)
+    return out.reshape(G * m, -1), peak, gathered
+
+
+class TestBrcrGemmArithmetic:
+    """K7's arithmetic, emulated in torch on the CPU, against the plain
+    version within the tolerance the card holds the kernel to: bit-equal
+    for integer x (every partial sum an integer below 2^24), within
+    ``1e-5 * Σ|w·x|`` for float x."""
+
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_three_terms_sum_back_to_x(self, seed):
+        """hi + mid + lo is x exactly, for f32 over a wide range of
+        exponents and for integers of up to 24 bits; hi + mid alone misses
+        integers of 17 or more significant bits."""
+        rng = np.random.default_rng(seed)
+        f = rng.standard_normal(100_000) * np.exp2(rng.integers(-60, 60, 100_000))
+        ints = rng.integers(-(2 ** 24), 2 ** 24 + 1, 100_000)
+        for arr in (f, ints):
+            x = torch.from_numpy(arr.astype(np.float32))
+            hi, mid, lo = _k7_terms(x)
+            total = hi.double() + mid.double() + lo.double()
+            assert torch.equal(total, x.double())
+            assert torch.equal(hi + mid + lo, x)
+        wide = torch.from_numpy(np.arange(2 ** 16, 2 ** 20, 977).astype(np.float32))
+        hi, mid, _ = _k7_terms(wide)
+        assert not torch.equal(hi + mid, wide)
+
+    def test_one_hot_bytes_are_the_plane_weight_at_the_lanes_bin(self):
+        """The byte trick gives +-2^p in the bf16 half of each column whose
+        pattern is the lane's bin, and 0 elsewhere, for every pattern and
+        bin (m 4) and every plane weight the format uses."""
+        for p in range(7):
+            for sign in (1, -1):
+                wb = int(torch.tensor([sign * 2.0 ** p]).to(torch.bfloat16).view(torch.int16)) \
+                    & 0xFFFF
+                wp = wb | (wb << 16)
+                for bin_ in range(16):
+                    for v in range(16):
+                        word = v | ((v + 1) % 16) << 8 | ((v + 7) % 16) << 16 | (15 - v) << 24
+                        lo, hi = _k7_onehot_word(word, bin_, wp)
+                        vals = [v, (v + 1) % 16, (v + 7) % 16, 15 - v]
+                        want = [wb if u == bin_ else 0 for u in vals]
+                        assert [lo & 0xFFFF, lo >> 16, hi & 0xFFFF, hi >> 16] == want
+
+    def test_fragments_follow_the_mma_layout(self):
+        """The mma's A (16 bins x k 16) and B (k 16 x 8) fragments as the
+        lanes build them -- k 2t+e and 2t+8+e are H columns 4t+e and
+        4t+2+e -- multiply to the one-hot product of the 16 columns."""
+        rng = np.random.default_rng(3)
+        for m in (4, 2):
+            pat = rng.integers(0, 2 ** m, (16 >> m, 16))  # the tile's groups x 16 columns
+            xs = rng.standard_normal((16, 8)).astype(np.float32)
+            A, B = np.zeros((16, 16)), np.zeros((16, 8))
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                for row in (g, g + 8):
+                    grp, bin_ = row >> m, row & (2 ** m - 1)
+                    for e in range(2):
+                        A[row, 2 * t + e] = pat[grp, 4 * t + e] == bin_
+                        A[row, 2 * t + 8 + e] = pat[grp, 4 * t + 2 + e] == bin_
+                for e in range(2):
+                    B[2 * t + e, g] = xs[4 * t + e, g]
+                    B[2 * t + 8 + e, g] = xs[4 * t + 2 + e, g]
+            want = np.zeros((16, 8))
+            for row in range(16):
+                grp, bin_ = row >> m, row & (2 ** m - 1)
+                want[row] = (pat[grp] == bin_).astype(np.float64) @ xs
+            np.testing.assert_allclose(A @ B, want, rtol=0, atol=1e-5)
+
+    @pytest.mark.parametrize("m", [4, 2])
+    @pytest.mark.parametrize("C", [1, 3])
+    @pytest.mark.parametrize("M,H,N", [(48, 320, 5), (20, 200, 9)])
+    def test_one_accumulator_is_the_plain_version(self, m, C, M, H, N):
+        """All planes into one Z, tile accumulators added in f32, E @ Z a
+        rank, ranks in order: bit-equal to the plain version for integer x
+        (in f32, and of 17 to 20 bits on a sparse weight), within
+        ``1e-5 * Σ|w·x|`` for f32 and bf16 Gaussian x; and no bin's partial
+        sum, nor the |terms| it gathers, exceeds a row's ``Σ|w·x|`` (times
+        1 + 2^-7 for the terms of wide integers)."""
+        rng = np.random.default_rng(M + H + N + m + C)
+        w = torch.from_numpy(rng.integers(-127, 128, (M, H)).astype(np.int8))
+        ops = prepare_brcr_operands(w, m)
+        cases = [(torch.from_numpy(rng.integers(-50, 50, (H, N)).astype(np.float32)), True)]
+        # three non-zeros a row, each within a third of 2^23 against its column of x
+        xw = rng.integers(2 ** 16, 2 ** 20, (H, N)) * rng.choice([-1, 1], (H, N))
+        sparse = np.zeros((M, H), np.int64)
+        for i in range(M):
+            cols = rng.choice(H, 3, replace=False)
+            cap = (2 ** 23) // (3 * np.abs(xw[cols]).max(1))
+            sparse[i, cols] = np.clip(rng.integers(-127, 128, 3), -cap, cap)
+        for x, exact in cases + [
+                (torch.from_numpy(xw.astype(np.float32)), True),
+                (torch.from_numpy(rng.standard_normal((H, N)).astype(np.float32)), False),
+                (torch.from_numpy(rng.standard_normal((H, N))).to(torch.bfloat16), False)]:
+            ww = w if x.abs().max() < 2 ** 16 else torch.from_numpy(sparse.astype(np.int8))
+            o = ops if ww is w else prepare_brcr_operands(ww, m)
+            got, peak, gathered = _k7_emulate(o, x, C)
+            want = brcr_gemm_ref(o.group_idx, o.plane_weights, x, m)
+            row = ww.abs().to(torch.float64) @ x.to(torch.float64).abs()  # (M, N)
+            if exact:
+                assert float(row.max()) < 2 ** 24
+                assert torch.equal(got, want)
+            else:
+                assert bool(((got - want).abs() <= 1e-5 * row).all())
+            # bin c of group g is bounded by any of its rows j (bit j of c)
+            G = M // m
+            rows = row.reshape(G, m, N)
+            for c in range(1, 2 ** m):
+                bound = torch.stack([rows[:, j] for j in range(m) if c >> j & 1]).amin(0)
+                assert bool((peak[:, c] <= bound * (1 + 2 ** -7)).all())
+                assert bool((gathered[:, c] <= bound * (1 + 2 ** -7)).all())
