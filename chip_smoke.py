@@ -26,10 +26,17 @@ Phases, each of which fails the run (nonzero exit) on any error:
    (Hq 24, Hk 8, D 128, bf16: causal at B 1 / S 512, 450 and 301 and
    B 4 / S 512; sliding and chunked with window 256; full; q_offset 256;
    bf16 at D 64, 32 and 16 with ragged tails; f32 once; the first case
-   launched twice for identical bits).  Then the paper layer's two
-   kernels: the BGPP round at S 4096 (one query) and at the decode
-   geometry (B 4 x Hq 24 over Hk 8, S 1024), alive masks from a real
-   first round, bit-exact; the BRCR GEMM at every projection shape of
+   launched twice for identical bits).  The head-width phase: K1 (bf16
+   and int8), K2 and K5 at the heads of gemma3-1b (Hq 4, Hk 1),
+   gemma3-4b (Hq 8, Hk 4) and paligemma-3b (Hq 8, Hk 1) at D 256 and of
+   the gemma3-1b smoke config at D 24 (run at the compiled width 32), the
+   decode attends at pages 16 and 6 over S 1024, K5 causal and with
+   gemma3's sliding window of 512 at B 1, S 512 (bf16, and f32 causal);
+   the D 256 cases at page 16 timed, with records naming their case.
+   Then the paper layer's two kernels: the BGPP round at S 4096 (one
+   query), at the decode geometry (B 4 x Hq 24 over Hk 8, S 1024) and at
+   S 32768, alive masks from a real first round, bit-exact and launched
+   twice; the BRCR GEMM at every projection shape of
    one layer (layer 0's seeded weights,
    int8) with N = 4 and 128 integer x (exact) and float32 / bfloat16 x
    (within 1e-5 of Σ|w·x|), the gate/up weight once more with whole
@@ -59,7 +66,9 @@ Phases, each of which fails the run (nonzero exit) on any error:
    causal S 512 and S 450 for their device time a call, the fused BSTC
    decode + GEMV and a bf16 ``torch.matmul`` at every decode projection
    shape, the fused BGPP decode and K1's int8 body on the same int8 KV
-   at the decode geometry, and the BRCR GEMM and a bf16 ``torch.matmul``
+   at the decode geometry, the BGPP round and a ``torch.matmul`` of the
+   unpacked plane at its three shapes, and the BRCR GEMM and a bf16
+   ``torch.matmul``
    on the quickstart's operands and at every projection shape of a layer
    (N 4, 16 and 128; f32 integer, f32 Gaussian and bf16 x).
 6. Reference check: the same small model and trace served on the card
@@ -71,11 +80,16 @@ Phases, each of which fails the run (nonzero exit) on any error:
 
 The second-to-last lines are the kernels' JSON record and the card line;
 the last line is ``{"ok": true, "device": {...}}``.
+
+``--only kernels|head-widths|score|score-device`` (repeatable) runs just
+those parts of phase 3 (and, for ``score``, K6's device times), prints no
+records and ends after them: for work on one kernel.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -160,16 +174,18 @@ def check_rows(name, got, want, step=None):
 
 
 def kernel_record(name, source, replaces, err, ms, plain_ms, nbytes, ops, kind, lib_ms,
-                  label=""):
+                  label="", case=None):
     """One kernel's JSON record (launches filled in after the main paths),
-    printed as a ``[kernel]`` line (``label`` names the case there).  The
-    bound is the larger of ``nbytes`` at the HBM rate and ``ops`` at the
-    ``kind`` peak."""
+    printed as a ``[kernel]`` line (``label`` names the case there; a
+    ``case`` goes into the record too).  The bound is the larger of
+    ``nbytes`` at the HBM rate and ``ops`` at the ``kind`` peak."""
     bound_b = nbytes / HBM_BYTES_PER_S * 1e3
     bound_o = ops / PEAK_OPS[kind] * 1e3
     rec = dict(name=name, route="cuda", source=source, replaces=replaces, launches=0,
                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(bound_b, bound_o),
                bound_by="bytes" if bound_b >= bound_o else "operations", library_ms=lib_ms)
+    if case:
+        rec["case"] = case
     print(f"[kernel] {name}{label}: max_abs_err={err:.3e} kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
           f"library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
@@ -342,6 +358,34 @@ def k2_case(label, args, kq, flush=None):
     return err, ms, plain_ms
 
 
+def k2_record(args, err, ms, plain_ms, table_numel, label):
+    """K2's JSON record for one timed input set: bound = q and out, the
+    page table and positions, the phys map, and per (valid slot, kv head)
+    the sign and MSB plane of every valid lane, each round's next plane of
+    its survivors and the final survivors' other planes, scales and int8 V
+    row, at the HBM rate; its operations (the plane scores' 2 g D a lane
+    and the exact attend's 4 g D a survivor) at the int8 peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import kv_cache as kvc
+
+    q, _, _, _, _, _, phys, pos = args
+    B, Hk, g, D = q.shape
+    S = phys.shape[1]
+    rounds, k_max, surv = kvc.bgpp_decode_plan(S, get_config("phi4-mini-3.8b"))
+    n_valid = [min(int(p) + 1, S) for p in pos.cpu()]
+    Dp = D // 8
+    io_bytes = q.numel() * 4 * 2 + table_numel * 4 + B * 4  # q, out, table, pos
+    nbytes = io_bytes + B * S * 4  # + the phys map
+    for nv in n_valid:
+        kv_rows = min(k_max, nv)
+        nbytes += Hk * (nv * 2 * Dp  # sign + MSB plane of every valid lane
+                        + sum(min(s, nv) for s in surv[1:]) * Dp  # round planes
+                        + kv_rows * ((kvc.NBITS - rounds) * Dp + 4 + D + 4))
+    ops = sum(Hk * (nv * g * D * 2 + k_max * g * D * 4) for nv in n_valid)
+    return kernel_record("bgpp_paged_attend", K2_SOURCE, K2_REPLACES, err, ms, plain_ms,
+                         nbytes, ops, "int8", None, label=label)
+
+
 DECODE_S, DECODE_PAGE = 1024, 16  # the decode attends' width and page in the main path
 
 
@@ -377,7 +421,6 @@ def kernel_phase(device, flush):
     q, kf, vf, table, pos = inputs
     B, Hk, g, D = q.shape
     S, page = DECODE_S, DECODE_PAGE
-    n_valid = [min(int(p) + 1, S) for p in pos.cpu()]
     records = k1_case("decode geometry", *inputs, page, flush)
     # ---- K1: a long context, and every slot ending in the first block ------
     long_ctx = k1_inputs(device, 10, 1, 32768, [32767], page, Hk, g, D)
@@ -390,18 +433,8 @@ def kernel_phase(device, flush):
     # ---- K2: the decode geometry, a long context, an early exit ------------
     args, kq = k2_operands(*inputs, page)
     err, ms, plain_ms = k2_case("decode geometry", args, kq, flush)
+    records.append(k2_record(args, err, ms, plain_ms, table.numel(), " decode geometry"))
     rounds, k_max, surv = kvc.bgpp_decode_plan(S, cfg)
-    Dp = D // 8
-    io_bytes = q.numel() * 4 * 2 + table.numel() * 4 + B * 4  # q, out, table, pos
-    nbytes = io_bytes + B * S * 4  # + the phys map
-    for nv in n_valid:
-        kv_rows = min(k_max, nv)
-        nbytes += Hk * (nv * 2 * Dp  # sign + MSB plane of every valid lane
-                        + sum(min(s, nv) for s in surv[1:]) * Dp  # round planes
-                        + kv_rows * ((kvc.NBITS - rounds) * Dp + 4 + D + 4))
-    ops = sum(Hk * (nv * g * D * 2 + k_max * g * D * 4) for nv in n_valid)
-    records.append(kernel_record("bgpp_paged_attend", K2_SOURCE, K2_REPLACES, err, ms,
-                                 plain_ms, nbytes, ops, "int8", None, label=" decode geometry"))
     del args, kq
     long_ctx = k1_inputs(device, 30, 1, 32768, [32767], page, Hk, g, D)
     k2_case("long context S 32768", *k2_operands(*long_ctx, page), flush)
@@ -410,6 +443,68 @@ def kernel_phase(device, flush):
     L = bgpp_kernel.plan(B, Hk, g, D, S, k_max, surv, pfd_kernel.sm_count(device)).L
     early = k1_inputs(device, 40, B, S, [L - 1, k_max // 4, 0, -1], page, Hk, g, D)
     k2_case("early exit", *k2_operands(*early, page))
+    return records
+
+
+# (name, Hq, Hk, D) of the head-width phase: the reference's configs whose
+# head widths the card once refused (src/repro/configs/gemma3_1b.py,
+# gemma3_4b.py and paligemma_3b.py at D 256; gemma3-1b's smoke width 24)
+HEAD_WIDTH_CASES = (
+    ("gemma3-1b", 4, 1, 256),
+    ("gemma3-4b", 8, 4, 256),
+    ("paligemma-3b", 8, 1, 256),
+    ("gemma3-1b smoke", 4, 1, 24),
+)
+HEAD_WIDTH_PAGES = (DECODE_PAGE, 6)  # a power of two and a page size that is not
+GEMMA3_WINDOW = 512  # gemma3-1b's sliding window (src/repro/configs/gemma3_1b.py)
+
+
+def head_width_phase(device, flush):
+    """The decode attends and the forward's attend at the head widths the
+    card once refused (:data:`HEAD_WIDTH_CASES`).  Per case: K1 (bf16 and
+    int8 bodies, :func:`k1_case`) and K2 (:func:`k2_case`) at B 4 over
+    S 1024 lanes (rounded up to whole pages) at pages 16 and 6, positions
+    as :func:`decode_attend_inputs`; K5 (:func:`flash_case`) at B 1, S 512,
+    causal and with gemma3's sliding window of 512, bf16, and f32 causal.
+    The same tolerances and two-launch checks as the kernel phase.  The
+    D 256 cases at page 16 are timed, each kernel's record (K5: beside
+    ``scaled_dot_product_attention``) returned with its case named."""
+    import torch
+
+    records = []
+    for i, (name, Hq, Hk, D) in enumerate(HEAD_WIDTH_CASES):
+        g = Hq // Hk
+        for page in HEAD_WIDTH_PAGES:
+            S = -(-DECODE_S // page) * page
+            timed = flush if D == 256 and page == DECODE_PAGE else None
+            case = f"{name} Hq {Hq} Hk {Hk} D {D} page {page} S {S}"
+            inputs = k1_inputs(device, 60 + 10 * i + page, 4, S,
+                               [S - 1, 100, 20 * page - 1, 33 * page], page, Hk, g, D)
+            recs = k1_case(case, *inputs, page, timed)
+            args, kq = k2_operands(*inputs, page)
+            err, ms, plain_ms = k2_case(case, args, kq, timed)
+            if timed is not None:
+                for r in recs:
+                    r["case"] = case
+                records += recs
+                records.append(k2_record(args, err, ms, plain_ms, inputs[3].numel(),
+                                         f" {case}"))
+                records[-1]["case"] = case
+            del inputs, args, kq
+        gen = torch.Generator(device=device).manual_seed(70 + i)
+        for kind, window, dtype in (("causal", 0, torch.bfloat16),
+                                    ("sliding", GEMMA3_WINDOW, torch.bfloat16),
+                                    ("causal", 0, torch.float32)):
+            mk = lambda H: torch.randn((1, 512, H, D), generator=gen, device=device).to(dtype)
+            q, k, v = mk(Hq), mk(Hk), mk(Hk)
+            kw = dict(mask_kind=kind, window=window, q_offset=0)
+            dt = "bf16" if dtype == torch.bfloat16 else "f32"
+            case = f"{name} Hq {Hq} Hk {Hk} D {D} {kind} B1 S512 {dt}"
+            timed = flush if D == 256 and kind == "causal" and dt == "bf16" else None
+            rec = flash_case(case, q, k, v, kw, timed, twice=True, case=case)
+            if rec is not None:
+                records.append(rec)
+        torch.cuda.empty_cache()
     return records
 
 
@@ -663,18 +758,16 @@ def flash_library(q, k, v, kw):
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
-def flash_kernel_phase(device, flush):
-    """Hold the flash-attention kernel (K5) against its plain version for
-    every case of :data:`FLASH_CASES`.  Tolerance per element:
-    ``1e-5 * max|v|`` (f32 sums in another order; bf16: the split of p,
-    at most 2^-18 max|v|) plus, for bf16 operands, one bf16 step at
+def flash_case(label, q, k, v, kw, flush, twice=False, case=None):
+    """K5 on one input set against its plain version.  Tolerance per
+    element: ``1e-5 * max|v|`` (f32 sums in another order; bf16: the split
+    of p, at most 2^-18 max|v|) plus, for bf16 operands, one bf16 step at
     ``|ref|`` (two f32 results that close can round to neighbouring bf16
-    values).  The first case is launched twice and must give identical
-    bits.  Bound: q, k, v read and out written once at the HBM rate,
-    against 4 * D operations per visible (query, key) pair of this case's
+    values).  With ``twice`` the kernel is launched twice and must give
+    identical bits.  Bound: q, k, v read and out written once at the HBM
+    rate, against 4 * D operations per visible (query, key) pair of the
     mask at the bf16 tensor-core peak (f32 peak for f32 operands).  The
-    library call is :func:`flash_library`.  Returns the first case's JSON
-    record."""
+    library call is :func:`flash_library`.  Returns the JSON record."""
     import torch
 
     from repro_torch.core.attention import make_mask
@@ -682,41 +775,56 @@ def flash_kernel_phase(device, flush):
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
+    B, Sq, Hq, D = q.shape
+    dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    p = flash_kernel.plan(q.dtype, *q.shape)
+    where = f" {label} (BQ {p.BQ}, {p.grid[0] * p.grid[1]} blocks)"
+    got = flash_attention(q, k, v, **kw)
+    if twice:
+        again = flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"flash_attention{where}: two launches on the same "
+                                 f"inputs differ")
+        where += ", two launches bit-identical"
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    w = want.float()
+    tol = 1e-5 * v.float().abs().max()
+    if dt == "bf16":  # one bf16 step at |ref|: 2^(e - 8) for |ref| = m * 2^e, m in [.5, 1)
+        tol = tol + torch.ldexp(torch.ones_like(w), torch.frexp(w.abs())[1] - 8)
+    err = (got.float() - w).abs()
+    if bool((err > tol).any()):
+        at = (err > tol).nonzero()[0].tolist()
+        raise AssertionError(f"flash_attention {label} disagrees at {at}: "
+                             f"{err[tuple(at)].item():.3e} > {tol[tuple(at)].item():.3e}")
+    if flush is None:
+        print(f"[kernel] flash_attention{where}: max_abs_err={err.max().item():.3e}")
+        return None
+    pairs = int(make_mask(kw["mask_kind"], Sq, k.shape[1], kw["window"], kw["q_offset"],
+                          q.device).sum()) * B * Hq
+    esize = q.element_size()
+    return kernel_record(
+        "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:114", err.max().item(),
+        time_ms(lambda: flash_attention(q, k, v, **kw), flush=flush),
+        time_ms(lambda: flash_attention_ref(q, k, v, **kw), flush=flush),
+        esize * (2 * q.numel() + k.numel() + v.numel()), 4 * D * pairs, dt,
+        time_ms(flash_library(q, k, v, kw), flush=flush), label=where, case=case)
+
+
+def flash_kernel_phase(device, flush):
+    """Hold the flash-attention kernel (K5) against its plain version for
+    every case of :data:`FLASH_CASES` (:func:`flash_case`; the first
+    launched twice for identical bits).  Returns the first case's JSON
+    record."""
+    import torch
+
     gen = torch.Generator(device=device).manual_seed(3)
     records = []
     for case in FLASH_CASES:
-        label, B, Sq, Sk, kind, window, off, dt, D = case
         q, k, v, kw = flash_inputs(device, gen, case)
-        p = flash_kernel.plan(q.dtype, *q.shape)
-        where = f" {label} (BQ {p.BQ}, {p.grid[0] * p.grid[1]} blocks)"
-        got = flash_attention(q, k, v, **kw)
-        if not records:
-            again = flash_attention(q, k, v, **kw)
-            torch.cuda.synchronize()
-            if not torch.equal(got, again):
-                raise AssertionError(f"flash_attention{where}: two launches on the same "
-                                     f"inputs differ")
-            where += ", two launches bit-identical"
-        want = flash_attention_ref(q, k, v, **kw)
-        torch.cuda.synchronize()
-        w = want.float()
-        tol = 1e-5 * v.float().abs().max()
-        if dt == "bf16":  # one bf16 step at |ref|: 2^(e - 8) for |ref| = m * 2^e, m in [.5, 1)
-            tol = tol + torch.ldexp(torch.ones_like(w), torch.frexp(w.abs())[1] - 8)
-        err = (got.float() - w).abs()
-        if bool((err > tol).any()):
-            at = (err > tol).nonzero()[0].tolist()
-            raise AssertionError(f"flash_attention {label} disagrees at {at}: "
-                                 f"{err[tuple(at)].item():.3e} > {tol[tuple(at)].item():.3e}")
-        pairs = int(make_mask(kind, Sq, Sk, window, off, device).sum()) * B * q.shape[2]
-        esize = q.element_size()
-        records.append(kernel_record(
-            "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention/kernel.py:114", err.max().item(),
-            time_ms(lambda: flash_attention(q, k, v, **kw), flush=flush),
-            time_ms(lambda: flash_attention_ref(q, k, v, **kw), flush=flush),
-            esize * (2 * q.numel() + k.numel() + v.numel()), 4 * D * pairs, dt,
-            time_ms(flash_library(q, k, v, kw), flush=flush), label=where))
+        records.append(flash_case(case[0], q, k, v, kw, flush, twice=not records))
     return records[0]
 
 
@@ -743,7 +851,7 @@ def flash_device_phase(device, calls: int = 20) -> None:
             fn()
             torch.cuda.synchronize()
             dev = _traced(lambda: [fn() for _ in range(calls)],
-                          f"flash_attention {case[0]}: {calls} {name} calls")
+                          f"flash_attention {case[0]}: {calls} {name} calls", tries=3)
             ms[name] = sum(e.self_device_time_total / e.count for e in dev) / 1e3
             counts[name] = ", ".join(f"{e.count} x {e.key[:40]}" for e in dev)
         print(f"[kernel] flash_attention {case[0]} device time (torch.profiler, {calls} calls "
@@ -792,7 +900,8 @@ def bstc_device_phase(device, calls: int = 20) -> None:
                     l2.zero_()
                     fn()
 
-            dev = [e for e in _traced(run, f"bstc_matmul {name}: {calls} {label} calls")
+            dev = [e for e in _traced(run, f"bstc_matmul {name}: {calls} {label} calls",
+                                      tries=3)
                    if "FillFunctor" not in e.key]
             ms[label] = sum(e.self_device_time_total / e.count for e in dev) / 1e3
             counts[label] = ", ".join(f"{e.count} x {e.key[:40]}" for e in dev)
@@ -843,7 +952,7 @@ def bgpp_device_phase(device, calls: int = 20) -> None:
                 l2.zero_()
                 fn()
 
-        dev = [e for e in _traced(run, f"bgpp_paged_attend: {calls} {label} calls")
+        dev = [e for e in _traced(run, f"bgpp_paged_attend: {calls} {label} calls", tries=3)
                if "FillFunctor" not in e.key]
         ms[label] = sum(e.self_device_time_total / e.count for e in dev) / 1e3
         counts[label] = ", ".join(f"{e.count} x {e.key[:40]}" for e in dev)
@@ -865,11 +974,13 @@ KEY_SCALE = 25
 BRCR_COLS = (4, 128)  # K7's x widths: a decode batch of four slots, a prefill chunk
 
 
+@functools.lru_cache(maxsize=None)
 def decode_keys(seed, B, Hq, Hk, S, D):
     """Integer queries ``(B, Hq, D)`` and keys ``(B, S, Hk, D)`` (numpy,
     int32): each (slot, kv head) draws its own concentrated keys and query
     (:func:`make_concentrated_keys`); the kv head's g query heads are that
-    query plus a little integer noise."""
+    query plus a little integer noise.  Cached: the callers only read
+    them."""
     import numpy as np
 
     from repro_torch.examples.bgpp_sparse_attention import make_concentrated_keys
@@ -886,71 +997,127 @@ def decode_keys(seed, B, Hq, Hk, S, D):
     return q, k
 
 
-def bgpp_kernel_phase(device, flush):
-    """Hold the BGPP round kernel (K6) against its plain version,
-    bit-exact: the walkthrough's single query over S 4096 keys, and the
-    decode geometry's 96 query rows over S 1024 (the batched predictor's
-    call).  The alive masks come from a real first predictor round (the
-    4-round schedule's round-0 alpha), so dead key tiles occur; the case
-    scores round 1's plane.  Bound: the alive flags and q read and the
-    scores written once, plus the plane and sign bytes of every key alive
-    in some row (a kv head's planes serve its g rows), at the HBM rate; its
-    integer operations (2 D a live row-key) against the f32 peak (CUDA
-    cores).  Library: one ``torch.matmul`` of the pre-unpacked +-1 f32
-    planes by q, which reads 32x the bytes of the packed planes.  Returns
-    the decode case's JSON record."""
+# K6's cases: the walkthrough's one query over S 4096, the batched
+# predictor's call at the decode geometry, and the decode geometry at a
+# long context
+SCORE_CASES = ("S 4096, one query (the walkthrough)",
+               "S 1024, B 4 x Hq 24 (the batched predictor)",
+               "S 32768, B 4 x Hq 24 (a long context)")
+
+
+def score_inputs(device, label):
+    """K6's operands for one :data:`SCORE_CASES` case: the predictor's
+    MSB-truncated query, round 1's packed plane (plane 5) and the sign,
+    and the alive masks of a real first predictor round (the 4-round
+    schedule's round-0 alpha), so dead key tiles occur; plus the bound's
+    bytes and operations (the alive flags and q read and the scores written
+    once, the plane and sign bytes of every key alive in some row of its
+    kv head; 2 D integer operations a live row-key) and the library call,
+    one ``torch.matmul`` of the pre-unpacked +-1 f32 plane by q, which
+    reads 32x the bytes of the packed planes."""
     import numpy as np
     import torch
 
     from repro_torch.core import bgpp, bitslice, topk
     from repro_torch.examples.bgpp_sparse_attention import key_planes, make_concentrated_keys
-    from repro_torch.kernels.bgpp_score import bgpp_score_heads
-    from repro_torch.kernels.bgpp_score.ref import bgpp_score_heads_ref
 
-    walk = np.random.default_rng(0)
-    q1, k1, _ = make_concentrated_keys(walk, 4096, 128)
-    dg = DECODE_GEOMETRY
-    cases = [("S 4096, one query (the walkthrough)", q1[None, None], k1[None, :, None]),
-             ("S 1024, B 4 x Hq 24 (the batched predictor)", *decode_keys(5, **dg))]
-    record = None
-    for label, q_np, k_np in cases:
-        B, Hq, D = q_np.shape
-        S, Hk = k_np.shape[1], k_np.shape[2]
-        g = Hq // Hk
-        sign, planes = key_planes(k_np, device)
-        q = torch.from_numpy(q_np).to(device)
-        scale = 1.0 / (KEY_SCALE * KEY_SCALE * np.sqrt(D))
-        first = bgpp.BGPPConfig(rounds=1, alpha_schedule=bgpp.BGPPConfig().alphas(4)[:1])
-        alive_kv, _ = bgpp.bgpp_predict_batched(q, planes, sign, first, logit_scale=scale)
-        alive = alive_kv.repeat_interleave(g, dim=1).contiguous()  # (B, Hq, S)
-        pp, sp = bitslice.pack_bits(planes[5]), bitslice.pack_bits(sign)
-        qt = topk.quantize_msb(q)  # the predictor's 4-bit query truncation
-        got = bgpp_score_heads(qt, pp, sp, alive)
-        want = bgpp_score_heads_ref(qt, pp, sp, alive)
+    if label == SCORE_CASES[0]:
+        q1, k1, _ = make_concentrated_keys(np.random.default_rng(0), 4096, 128)
+        q_np, k_np = q1[None, None], k1[None, :, None]
+    else:
+        S = 1024 if label == SCORE_CASES[1] else 32768
+        q_np, k_np = decode_keys(5, **dict(DECODE_GEOMETRY, S=S))
+    B, Hq, D = q_np.shape
+    S, Hk = k_np.shape[1], k_np.shape[2]
+    g = Hq // Hk
+    sign, planes = key_planes(k_np, device)
+    q = torch.from_numpy(q_np).to(device)
+    scale = 1.0 / (KEY_SCALE * KEY_SCALE * np.sqrt(D))
+    first = bgpp.BGPPConfig(rounds=1, alpha_schedule=bgpp.BGPPConfig().alphas(4)[:1])
+    alive_kv, _ = bgpp.bgpp_predict_batched(q, planes, sign, first, logit_scale=scale)
+    alive = alive_kv.repeat_interleave(g, dim=1).contiguous()  # (B, Hq, S)
+    pp, sp = bitslice.pack_bits(planes[5]), bitslice.pack_bits(sign)
+    qt = topk.quantize_msb(q)  # the predictor's 4-bit query truncation
+    signed = ((1 - 2 * sign.to(torch.int32)) * planes[5]).to(torch.float32)
+    del sign, planes
+    signed = signed.permute(0, 2, 1, 3).contiguous()  # (B, Hk, S, D), pre-unpacked +-1
+    qg = qt.reshape(B, Hk, g, D).to(torch.float32).transpose(-1, -2)
+    live_keys = int(alive_kv.sum())  # (slot, kv head, key) alive in some row
+    nbytes = B * Hq * S * (1 + 4) + q.numel() * 4 + live_keys * 2 * (D // 8)
+    ops = int(alive.sum()) * 2 * D
+    return dict(args=(qt, pp, sp, alive), nbytes=nbytes, ops=ops,
+                lib=lambda: torch.matmul(signed, qg), lib_bytes=signed.numel() * 4)
+
+
+def bgpp_kernel_phase(device, flush):
+    """Hold the BGPP round kernel (K6) against its plain version,
+    bit-exact and launched twice, in every :data:`SCORE_CASES` case
+    (:func:`score_inputs`), and time the decode geometry's and the long
+    context's against the plain version and the library call.  Returns
+    their JSON records."""
+    import torch
+
+    from repro_torch.kernels.bgpp_score import bgpp_score_heads
+    from repro_torch.kernels.bgpp_score import kernel as score_kernel
+    from repro_torch.kernels.bgpp_score.ref import bgpp_score_heads_ref
+    from repro_torch.kernels.paged_flash_decode.kernel import sm_count
+
+    records = []
+    for label in SCORE_CASES:
+        c = score_inputs(device, label)
+        qt, pp, sp, alive = c["args"]
+        B, Hq, D = qt.shape
+        S, Hk = pp.shape[1], pp.shape[2]
+        got, again = bgpp_score_heads(*c["args"]), bgpp_score_heads(*c["args"])
+        want = bgpp_score_heads_ref(*c["args"])
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"bgpp_score {label}: two launches on the same inputs differ")
         if not torch.equal(got, want):
             bad = (got != want).nonzero()[:5].tolist()
             raise AssertionError(f"bgpp_score {label} differs from its plain version at {bad}")
-        tiles = torch.nn.functional.pad(alive, (0, (-S) % 128)).reshape(B, Hq, -1, 128)
-        dead = 1.0 - tiles.any(-1).float().mean().item()
-        live_keys = int(alive_kv.sum())  # (slot, kv head, key) alive in some row
-        nbytes = B * Hq * S * (1 + 4) + q.numel() * 4 + live_keys * 2 * (D // 8)
-        ops = int(alive.sum()) * 2 * D
-        signed = ((1 - 2 * sign.to(torch.int32)) * planes[5]).to(torch.float32)
-        signed = signed.permute(0, 2, 1, 3)  # (B, Hk, S, D), pre-unpacked +-1
-        qg = qt.reshape(B, Hk, g, D).to(torch.float32).transpose(-1, -2)
-        lib = lambda: torch.matmul(signed, qg)
-        print(f"[kernel] bgpp_score {label}: bit-identical to the plain version; "
-              f"{int(alive.sum())} of {B * Hq * S} row-keys alive after round 0, "
-              f"{100 * dead:.1f}% of 128-key tiles dead; library = torch.matmul of the "
-              f"pre-unpacked +-1 f32 plane ({signed.numel() * 4} B, 32x the packed plane)")
-        record = kernel_record(
-            "bgpp_score", "src/repro_torch/csrc/bgpp_score.cu",
-            "src/repro/kernels/bgpp_score/kernel.py:48", 0.0,
-            time_ms(lambda: bgpp_score_heads(qt, pp, sp, alive), flush=flush),
-            time_ms(lambda: bgpp_score_heads_ref(qt, pp, sp, alive), flush=flush),
-            nbytes, ops, "f32", time_ms(lib, flush=flush), label=f" {label}")
-    return record
+        p = score_kernel.plan(B, Hk, Hq // Hk, S, D, sm_count(device))
+        cells = torch.nn.functional.pad(alive, (0, (-S) % p.TS)).reshape(B, Hk, Hq // Hk, -1, p.TS)
+        dead = 1.0 - cells.any(-1).any(2).float().mean().item()
+        where = (f" {label} (tile {p.TS} keys, {p.blocks} blocks, {100 * dead:.1f}% of "
+                 f"(kv head, tile) cells dead)")
+        print(f"[kernel] bgpp_score{where}: bit-identical to the plain version, two launches "
+              f"bit-identical; {int(alive.sum())} of {B * Hq * S} row-keys alive after round "
+              f"0; library = torch.matmul of the pre-unpacked +-1 f32 plane ({c['lib_bytes']} "
+              f"B, 32x the packed plane)")
+        if label != SCORE_CASES[0]:
+            records.append(kernel_record(
+                "bgpp_score", "src/repro_torch/csrc/bgpp_score.cu",
+                "src/repro/kernels/bgpp_score/kernel.py:48", 0.0,
+                time_ms(lambda: bgpp_score_heads(*c["args"]), flush=flush),
+                time_ms(lambda: bgpp_score_heads_ref(*c["args"]), iters=3, flush=flush),
+                c["nbytes"], c["ops"], "f32", time_ms(c["lib"], flush=flush), label=where,
+                case=label))
+        del c, got, again, want
+        torch.cuda.empty_cache()
+    return records
+
+
+def score_device_phase(device, calls: int = 20) -> None:
+    """K6 against the library call (:func:`score_inputs`) on device time
+    (:func:`_device_ms`, L2 flushed before each call: a round reads its
+    planes cold) in every :data:`SCORE_CASES` case, beside the bound."""
+    import torch
+
+    from repro_torch.kernels.bgpp_score import bgpp_score_heads
+
+    l2 = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    for label in SCORE_CASES:
+        c = score_inputs(device, label)
+        bound = max(c["nbytes"] / HBM_BYTES_PER_S, c["ops"] / PEAK_OPS["f32"]) * 1e3
+        ms, rec = _device_ms(lambda: bgpp_score_heads(*c["args"]), calls, l2)
+        lib, lib_rec = _device_ms(c["lib"], calls, l2)
+        print(f"[kernel] bgpp_score {label} device time (torch.profiler, {calls} calls each, "
+              f"L2 flushed): kernel {ms:.4f} ms a call, library {lib:.4f} ms a call "
+              f"({ms / lib:.2f}x), bound {bound:.5f} ms ({ms / bound:.1f}x); recorded: kernel "
+              f"{rec}; library {lib_rec}")
+        del c
+        torch.cuda.empty_cache()
 
 
 def check_brcr(label, got, want, w, x, exact):
@@ -1294,23 +1461,27 @@ def paper_phase(device, flush):
     return total, k7
 
 
-def _device_ms(fn, calls, l2):
+def _device_ms(fn, calls, l2, tries: int = 3):
     """Device ms a call of ``fn`` over one ``torch.profiler`` trace of
     ``calls`` calls, ``l2`` zeroed before each (the flush kernels left
-    out), and the kernels the trace recorded."""
+    out), and the kernels the trace recorded.  A trace that recorded no
+    device time of ``fn`` is taken again, up to ``tries`` times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            l2.zero_()
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-           and "FillFunctor" not in e.key and e.self_device_time_total > 0]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                l2.zero_()
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and "FillFunctor" not in e.key and e.self_device_time_total > 0]
+        if dev:
+            break
     ms = sum(e.self_device_time_total / e.count for e in dev) / 1e3
     return ms, ", ".join(f"{e.count} x {e.key[:32]}" for e in dev)
 
@@ -1434,23 +1605,29 @@ def profile_decode(sched, reqs, label: str, steps: int = 4):
             f"{label}: {steps} steady decode steps")
 
 
-def _traced(fn, what: str):
+def _traced(fn, what: str, tries: int = 1):
     """Run ``fn`` once under ``torch.profiler``: print the device's busy
     share of the wall time and the device time by kernel (top 8), and
     return the device-side events.  Only device-side events count (a CPU
-    op's row repeats its kernels' time)."""
+    op's row repeats its kernels' time).  The tracer now and then records
+    no device event at all: with ``tries`` > 1 such a trace is taken again,
+    up to ``tries`` times (for timing calls that can simply be repeated)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     t = lambda e: e.self_device_time_total
-    busy = sum(t(e) for e in dev)
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy = sum(t(e) for e in dev)
+        if busy > 0 or attempt + 1 == tries:
+            break
+        print(f"[profile] {what}: the trace recorded no device time; tracing again")
     print(f"[profile] {what}: device busy {busy / 1e3:.2f} ms of "
           f"{wall_us / 1e3:.2f} ms wall ({100 * busy / wall_us:.1f}%; the tracer's "
           f"own host cost lengthens the wall)")
@@ -1781,8 +1958,18 @@ def paper_reference_phase(device):
 # ---------------------------------------------------------------------------
 
 
+PHASES = ("kernels", "head-widths", "score", "score-device")
+
+
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--only", action="append", choices=PHASES,
+        help="run only these phases (repeatable), for work on one kernel: 'kernels' is "
+             "phase 3 without K6, 'head-widths' its head-width cases, 'score' K6's checks and "
+             "device times, 'score-device' K6's device times alone; without it every phase "
+             "runs and the records are printed")
+    only = parser.parse_args(argv).only
 
     import torch
 
@@ -1800,13 +1987,27 @@ def main(argv=None) -> int:
     print(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s")
 
     device = torch.device("cuda")
+    run = lambda phase: only is None or phase in only
     l2 = torch.empty(64 << 20, dtype=torch.uint8, device=device)
-    records = kernel_phase(device, flush=lambda: l2.zero_())
-    records += bstc_kernel_phase(device, flush=lambda: l2.zero_())
-    records.append(flash_kernel_phase(device, flush=lambda: l2.zero_()))
-    records.append(bgpp_kernel_phase(device, flush=lambda: l2.zero_()))
-    brcr_kernel_phase(device, flush=lambda: l2.zero_())
-    paper_launches, k7 = paper_phase(device, flush=lambda: l2.zero_())
+    flush = lambda: l2.zero_()
+    records = []
+    if run("kernels"):
+        records += kernel_phase(device, flush)
+        records += bstc_kernel_phase(device, flush)
+        records.append(flash_kernel_phase(device, flush))
+    if run("head-widths"):
+        records += head_width_phase(device, flush)
+    if run("score"):
+        records += bgpp_kernel_phase(device, flush)
+    if run("kernels"):
+        brcr_kernel_phase(device, flush)
+    if only is not None:  # a partial run: device times of what it ran, no records
+        if run("score") or run("score-device"):
+            score_device_phase(device)
+        torch.cuda.synchronize()
+        print(card)
+        return 0
+    paper_launches, k7 = paper_phase(device, flush)
     records.append(k7)
     del l2
 
@@ -1814,6 +2015,7 @@ def main(argv=None) -> int:
     flash_device_phase(device)
     bstc_device_phase(device)
     bgpp_device_phase(device)
+    score_device_phase(device)
     brcr_device_phase(device)
     launches.update(paper_launches)
     for r in records:

@@ -21,13 +21,21 @@
 //     c owns the round-0 lanes [c*L, (c+1)*L) and reads them only up to
 //     the slot's position; in the list of round r (its candidates in
 //     selection order) it owns the ranks [c*caps[r], (c+1)*caps[r]);
-//   * a lane's plane row and sign row are one load each (16 bytes at D 128)
-//     through its pool row, round 0's first ones in flight while the query
-//     is quantised; the score is integer bit arithmetic: the truncated
+//   * a lane's plane row and sign row are one load each (16 bytes at D 128,
+//     two at D 256) through its pool row, round 0's first ones in flight
+//     while the query is quantised; the score is integer bit arithmetic:
+//     the truncated
 //     query's magnitudes are the top query_bits planes of an int8, so the
 //     signed plane dot is sum_p 2^p (popc(q_p & k & ~(q_s ^ k_s)) -
 //     popc(q_p & k & (q_s ^ k_s))) over 32-bit words.  It equals the plain
 //     version's f32 sum of integers below 2^24 exactly;
+//   * head widths: instances at the compiled widths DP = 16, 32, 64, 128
+//     and 256; a D (a multiple of 8) between them runs at the next one
+//     with the true D at run time: the query's codes and masks past D are
+//     zero, plane bytes and V columns past D are not read, and the output
+//     past D is not written, which is exact.  Plane rows that are not whole
+//     aligned words of the compiled width (e.g. 3 bytes at D 24), and V
+//     rows not on 8-byte boundaries, load byte by byte;
 //   * selection ranks only the valid candidates.  A lane past pos scores
 //     NEG_INF in every round and so follows every valid lane, in lane order
 //     (the plain version's stable sort): those lanes are implied, never
@@ -94,12 +102,18 @@ constexpr int kMaxLists = 8;    // rounds (at most kNbits) + the final list
 constexpr int kMaxSlots = 16;   // kernel.py MAX_SLOTS: keys a thread in the block sort
 constexpr int kUnroll = 4;      // rows a thread has in flight
 constexpr int kMaxDevices = 64;
-// Shared-memory header (bytes; kernel.py HEADER): the query's int8 codes
-// (kMaxG, 128), its bit masks (kMaxG, 8, 4) u32 (planes 0..6 of the
-// truncated magnitude, then the sign), then 136 words: the block's partial
-// and the cluster-wide max, sum and w max of each g row, the query scales,
-// the warps' scratch and the plan's list widths and caps.
-constexpr int kHdrCodes = 0, kHdrMasks = 1024, kHdrFloats = 2048, kHeader = 2592;
+// Shared-memory header (bytes; kernel.py `header_bytes`): the query's int8
+// codes (kMaxG, max(DP, 128)), its bit masks (kMaxG, 8, MW) u32 (planes
+// 0..6 of the truncated magnitude, then the sign; MW = max(4, DP / 32)),
+// then 136 words: the block's partial and the cluster-wide max, sum and w
+// max of each g row, the query scales, the warps' scratch and the plan's
+// list widths and caps.  2592 bytes up to DP 128, 4640 at DP 256.
+template <int DP>
+struct Header {
+  static constexpr int MW = DP > 128 ? DP / 32 : 4;  // mask words a plane
+  static constexpr int kCodes = 0, kMasks = kMaxG * (DP > 128 ? DP : 128),
+                       kFloats = kMasks + kMaxG * 8 * MW * 4, kBytes = kFloats + 544;
+};
 constexpr int kStage = 2048;  // kernel.py STAGE: the other blocks' keys staged at once
 constexpr int kPMax = 0, kPSum = 8, kPW = 16, kGMax = 24, kGSum = 32, kGW = 40, kQScale = 48,
               kScratch = 56,  // + kWarps * kMaxG = 120
@@ -123,50 +137,89 @@ __device__ __forceinline__ u64 make_key(int score, int j) {
   return ((u64)(0x80000000u - (unsigned)score) << 32) | (unsigned)j;
 }
 
-// One packed plane row: D/8 bytes in words (D 16: the low half of one).
-template <int D>
-__device__ __forceinline__ void load_row(const uint8_t* p, unsigned (&w)[4]) {
-  if constexpr (D == 128) {
-    const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
-    w[0] = r.x, w[1] = r.y, w[2] = r.z, w[3] = r.w;
-  } else if constexpr (D == 64) {
-    const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
-    w[0] = r.x, w[1] = r.y, w[2] = w[3] = 0u;
-  } else if constexpr (D == 32) {
-    w[0] = __ldg(reinterpret_cast<const unsigned*>(p));
-    w[1] = w[2] = w[3] = 0u;
-  } else {
-    w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
-    w[1] = w[2] = w[3] = 0u;
+// Words of a packed plane row at the compiled width DP (D 16: the low half
+// of one word).
+template <int DP>
+__host__ __device__ constexpr int row_words() {
+  return DP >= 32 ? DP / 32 : 1;
+}
+
+// The first W words of the nb bytes at p, which may start on any byte
+// (the bytes past nb read as zero): the aligned words that hold them, each
+// pair funnel-shifted into place.  The aligned word after the last byte is
+// not read; the last one read may hold a few bytes past nb, never outside
+// its own aligned word.
+template <int W>
+__device__ __forceinline__ void load_words(const uint8_t* p, unsigned (&w)[W], int nb) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(p);
+  const unsigned* base = reinterpret_cast<const unsigned*>(at & ~(uintptr_t)3);
+  const int off = (int)(at & 3);
+  unsigned a[W + 1];
+#pragma unroll
+  for (int k = 0; k <= W; ++k) a[k] = 4 * k < off + nb ? __ldg(base + k) : 0u;
+#pragma unroll
+  for (int c = 0; c < W; ++c) {
+    const int v = nb - 4 * c;  // bytes of word c inside the row
+    const unsigned keep = v >= 4 ? ~0u : v <= 0 ? 0u : (1u << (8 * v)) - 1u;
+    w[c] = __funnelshift_r(a[c], a[c + 1], 8 * off) & keep;
   }
 }
 
-// Bytes [4c, 4c + 4) of a plane row (D 16: [0, 2)).
-template <int D>
-__device__ __forceinline__ unsigned load_chunk(const uint8_t* row, int c) {
-  if constexpr (D == 16) return __ldg(reinterpret_cast<const unsigned short*>(row));
+// One packed plane row in words.  `wide`: the row is the compiled width's
+// DP/8 bytes on a boundary of that many (16 at most), one or two vector
+// loads; else the true nb = D/8 bytes at any alignment (load_words).
+template <int DP>
+__device__ __forceinline__ void load_row(const uint8_t* p, unsigned (&w)[row_words<DP>()],
+                                         bool wide, int nb) {
+  if (!wide) {
+    load_words(p, w, nb);
+  } else if constexpr (DP >= 128) {
+#pragma unroll
+    for (int c = 0; c < DP / 128; ++c) {
+      const uint4 r = __ldg(reinterpret_cast<const uint4*>(p) + c);
+      w[4 * c] = r.x, w[4 * c + 1] = r.y, w[4 * c + 2] = r.z, w[4 * c + 3] = r.w;
+    }
+  } else if constexpr (DP == 64) {
+    const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = r.x, w[1] = r.y;
+  } else if constexpr (DP == 32) {
+    w[0] = __ldg(reinterpret_cast<const unsigned*>(p));
+  } else {
+    w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
+  }
+}
+
+// Bytes [4c, 4c + 4) of a plane row (DP 16: [0, 2)).
+template <int DP>
+__device__ __forceinline__ unsigned load_chunk(const uint8_t* row, int c, bool wide, int nb) {
+  if (!wide) {
+    unsigned w[1];
+    load_words(row + 4 * c, w, nb - 4 * c);
+    return w[0];
+  }
+  if constexpr (DP == 16) return __ldg(reinterpret_cast<const unsigned short*>(row));
   else return __ldg(reinterpret_cast<const unsigned*>(row) + c);
 }
 
 // Signed plane dot of one packed row against the truncated query of each
 // g row: sum_d qf[gi][d] * (k_d ? (s_d ? -1 : 1) : 0), as integers.
-// masks: (kMaxG, 8, 4) words, plane p of |qf| at [gi][p], sign at [gi][7];
+// masks: (kMaxG, 8, MW) words, plane p of |qf| at [gi][p], sign at [gi][7];
 // only planes qlo.. of the query are nonzero.
-template <int G, int W>
+template <int G, int W, int MW>
 __device__ __forceinline__ void plane_dot(const unsigned* masks, int g, int qlo,
-                                          const unsigned (&kb)[4], const unsigned (&ks)[4],
+                                          const unsigned (&kb)[W], const unsigned (&ks)[W],
                                           int (&acc)[G]) {
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) {
     acc[gi] = 0;
     if (gi >= g) continue;
-    const unsigned* m = masks + gi * 32;
+    const unsigned* m = masks + gi * 8 * MW;
 #pragma unroll
     for (int w = 0; w < W; ++w) {
-      const unsigned x = m[28 + w] ^ ks[w];
+      const unsigned x = m[7 * MW + w] ^ ks[w];
       const unsigned pm = kb[w] & ~x, nm = kb[w] & x;
       for (int p = qlo; p < kNbits; ++p) {
-        const unsigned qp = m[4 * p + w];
+        const unsigned qp = m[MW * p + w];
         acc[gi] += (__popc(qp & pm) - __popc(qp & nm)) << p;
       }
     }
@@ -375,16 +428,32 @@ struct List {
   __device__ int* at(int i) const { return base + i * stride; }
 };
 
-template <int G, int D>
-__global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) bgpp_kernel(
+// Blocks an SM the register budget is set for: two at G <= 4 up to D 128.
+template <int G, int DP>
+__host__ __device__ constexpr int min_blocks() {
+  return G <= 4 && DP <= 128 ? 2 : 1;
+}
+
+// wide: bit 0, plane rows are the compiled width's whole aligned words;
+// bit 1, V rows start on 8-byte boundaries.  Only the G = 8 instances
+// (one block an SM, registers to spare) carry the narrow loads: a launch
+// that needs them runs there whatever its g, so the other instances keep
+// their registers for the wide path alone.
+template <int G, int DP>
+__global__ void __launch_bounds__(kThreads, min_blocks<G, DP>()) bgpp_kernel(
     const float* __restrict__ q, const uint8_t* __restrict__ planes,
     const uint8_t* __restrict__ sign, const float* __restrict__ k_scale,
     const int8_t* __restrict__ v, const float* __restrict__ v_scale,
     const int* __restrict__ phys, const int* __restrict__ pos, float* __restrict__ out,
-    int* __restrict__ out_idx, int Hk, int g, int S, int query_bits, Plan plan,
+    int* __restrict__ out_idx, int Hk, int g, int Dt, int S, int query_bits, Plan plan,
     long long pl_plane, long long pl_tok, long long pl_head, long long v_tok, long long v_head,
-    long long sc_tok, long long sc_head, float scale) {
-  constexpr int W = D >= 32 ? D / 32 : 1;  // 32-bit words of a plane row
+    long long sc_tok, long long sc_head, int wide, float scale) {
+  using H = Header<DP>;
+  constexpr int W = row_words<DP>(), MW = H::MW;  // 32-bit words of a plane row, of a mask
+  constexpr int UN = DP > 128 ? 2 : kUnroll;     // rows a thread has in flight
+  constexpr bool kNarrow = G == 8;
+  const bool wide_pl = !kNarrow || (wide & 1), wide_v = !kNarrow || (wide & 2);
+  const int nb = Dt / 8;  // bytes of a packed row
   cg::cluster_group cluster = cg::this_cluster();
   const int C = cluster.num_blocks(), rank = cluster.block_rank();
   const int tid = threadIdx.x, lane_id = tid & 31, warp = tid >> 5;
@@ -392,17 +461,17 @@ __global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) bgpp_kernel(
   const int R = plan.rounds, L = plan.cap[0];
   extern __shared__ uint4 smem4[];
   char* sm = reinterpret_cast<char*>(smem4);
-  int8_t* codes = reinterpret_cast<int8_t*>(sm + kHdrCodes);     // (kMaxG, D)
-  unsigned* masks = reinterpret_cast<unsigned*>(sm + kHdrMasks);  // (kMaxG, 8, 4)
-  float* hdr = reinterpret_cast<float*>(sm + kHdrFloats);
+  int8_t* codes = reinterpret_cast<int8_t*>(sm + H::kCodes);     // (kMaxG, DP)
+  unsigned* masks = reinterpret_cast<unsigned*>(sm + H::kMasks);  // (kMaxG, 8, MW)
+  float* hdr = reinterpret_cast<float*>(sm + H::kFloats);
   int* widths = reinterpret_cast<int*>(hdr + kWidths);  // the plan's list widths
   int* caps = widths + kMaxLists;                       // and caps
-  u64* keys = reinterpret_cast<u64*>(sm + kHeader);  // (max(kThreads, pow2(L)),)
+  u64* keys = reinterpret_cast<u64*>(sm + H::kBytes);  // (max(kThreads, pow2(L)),)
   u64* stage = keys + max(kThreads, next_pow2(L));   // (kStage,) other blocks' keys
   int* lists = reinterpret_cast<int*>(stage + kStage);
   const int ES = (1 + g + 3) / 4 * 4;  // ints an entry
   const auto list_at = [&](int r) { return List{lists + (r & 1) * L * ES, ES}; };
-  int* pv = lists + 2 * L * ES;  // (kWarps, g, D)
+  int* pv = lists + 2 * L * ES;  // (kWarps, g, DP)
   if (tid < kMaxLists) {
     widths[tid] = plan.width[tid];
     caps[tid] = plan.cap[tid];
@@ -422,39 +491,44 @@ __global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) bgpp_kernel(
   // rows, in flight while the query is quantised (widths[0] = S >= nv,
   // caps[0] = L)
   const int pre_row = tid < max(0, min(nv - rank * L, L)) ? __ldg(phys_b + rank * L + tid) : -1;
-  unsigned pre_kb[4], pre_ks[4];
+  unsigned pre_kb[W], pre_ks[W];
   if (pre_row >= 0) {
     const long long off = (long long)pre_row * pl_tok;
-    load_row<D>(planes_h + (kNbits - 1) * pl_plane + off, pre_kb);
-    load_row<D>(sign_h + off, pre_ks);
+    load_row<DP>(planes_h + (kNbits - 1) * pl_plane + off, pre_kb, wide_pl, nb);
+    load_row<DP>(sign_h + off, pre_ks, wide_pl, nb);
   }
 
-  // ---- A2: quantise the g query rows; the truncated magnitudes' bit masks
-  const float* qb = q + (long long)cell * g * D;
+  // ---- A2: quantise the g query rows over their true Dt (codes past it
+  // are 0); the truncated magnitudes' bit masks
+  const float* qb = q + (long long)cell * g * Dt;
   if (tid < 32) {
     for (int gi = 0; gi < g; ++gi) {
       float m = 0.f;
-      for (int d = tid; d < D; d += 32) m = fmaxf(m, fabsf(qb[gi * D + d]));
+      for (int d = tid; d < Dt; d += 32) m = fmaxf(m, fabsf(qb[gi * Dt + d]));
       for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
       if (tid == 0) hdr[kQScale + gi] = fmaxf(m, 1e-8f) / 127.0f;
     }
   }
   __syncthreads();
-  for (int i = tid; i < g * D; i += kThreads)
-    codes[i] = (int8_t)fminf(fmaxf(rintf(qb[i] / hdr[kQScale + i / D]), -127.f), 127.f);
+  for (int i = tid; i < g * DP; i += kThreads) {
+    const int gi = i / DP, d = i - gi * DP;
+    codes[i] = d < Dt ? (int8_t)fminf(fmaxf(rintf(qb[gi * Dt + d] / hdr[kQScale + gi]), -127.f),
+                                      127.f)
+                      : (int8_t)0;
+  }
   __syncthreads();
   const int qlo = max(kNbits - query_bits, 0);  // the query keeps planes qlo..6
-  for (int t = warp; t < g * 4; t += kWarps) {  // (g row, word): a warp's ballots
-    const int gi = t / 4, w = t % 4, d = 32 * w + lane_id;
-    const int c = d < D ? (int)codes[gi * D + d] : 0;
+  for (int t = warp; t < g * MW; t += kWarps) {  // (g row, word): a warp's ballots
+    const int gi = t / MW, w = t % MW, d = 32 * w + lane_id;
+    const int c = d < DP ? (int)codes[gi * DP + d] : 0;
     const int mag = abs(c) >> qlo << qlo;
 #pragma unroll
     for (int pl = 0; pl < kNbits; ++pl) {
       const unsigned bits = __ballot_sync(0xffffffffu, (mag >> pl) & 1);
-      if (lane_id == 0) masks[gi * 32 + 4 * pl + w] = bits;
+      if (lane_id == 0) masks[gi * 8 * MW + MW * pl + w] = bits;
     }
     const unsigned neg = __ballot_sync(0xffffffffu, c < 0);
-    if (lane_id == 0) masks[gi * 32 + 28 + w] = neg;
+    if (lane_id == 0) masks[gi * 8 * MW + 7 * MW + w] = neg;
   }
   __syncthreads();
 
@@ -465,34 +539,34 @@ __global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) bgpp_kernel(
     const List cur = list_at(r);
     const int n = count(r, rank), base = rank * caps[r], pl = kNbits - 1 - r;
     const uint8_t* plane = planes_h + pl * pl_plane;
-    for (int i0 = tid; i0 < n; i0 += kUnroll * kThreads) {
-      int rows[kUnroll];
-      unsigned kb[kUnroll][4], ks[kUnroll][4];
+    for (int i0 = tid; i0 < n; i0 += UN * kThreads) {
+      int rows[UN];
+      unsigned kb[UN][W], ks[UN][W];
       const bool first = r == 0 && i0 == tid;  // lane tid is prefetched
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < UN; ++u) {
         const int i = i0 + u * kThreads;
         rows[u] = first && u == 0 ? pre_row
                                   : i < n ? __ldg(phys_b + (r == 0 ? base + i : cur.at(i)[0]))
                                           : -1;
       }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < UN; ++u) {
         if (first && u == 0) {
 #pragma unroll
-          for (int w = 0; w < 4; ++w) kb[0][w] = pre_kb[w], ks[0][w] = pre_ks[w];
+          for (int w = 0; w < W; ++w) kb[0][w] = pre_kb[w], ks[0][w] = pre_ks[w];
         } else if (rows[u] >= 0) {
           const long long off = (long long)rows[u] * pl_tok;
-          load_row<D>(plane + off, kb[u]);
-          load_row<D>(sign_h + off, ks[u]);
+          load_row<DP>(plane + off, kb[u], wide_pl, nb);
+          load_row<DP>(sign_h + off, ks[u], wide_pl, nb);
         }
       }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < UN; ++u) {
         const int i = i0 + u * kThreads;
         if (i >= n) continue;
         int acc[G];
-        plane_dot<G, W>(masks, g, qlo, kb[u], ks[u], acc);
+        plane_dot<G, W, MW>(masks, g, qlo, kb[u], ks[u], acc);
         int* ent = cur.at(i);
         int score = INT_MIN;
 #pragma unroll
@@ -622,8 +696,8 @@ __global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) bgpp_kernel(
       for (int gi = 0; gi < g; ++gi) reinterpret_cast<float*>(ent)[1 + gi] = kNegInf;
     }
   } else {
-    constexpr int CB = D >= 32 ? 4 : 2;   // bytes of a plane row a thread
-    constexpr int CH = D / (8 * CB);      // threads a survivor
+    constexpr int CB = DP >= 32 ? 4 : 2;  // bytes of a plane row a thread
+    constexpr int CH = DP / (8 * CB);     // threads a survivor
     const float* ksh = k_scale + h * sc_head;
     for (int t0 = 0; t0 < m * CH; t0 += kThreads) {  // block-uniform trips
       const int t = t0 + tid, i = t / CH, ch = t % CH;
@@ -642,8 +716,10 @@ __global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) bgpp_kernel(
         }
         unsigned P[8];
 #pragma unroll
-        for (int pl = 0; pl < kNbits; ++pl) P[pl] = load_chunk<D>(planes_h + pl * pl_plane + off, ch);
-        P[7] = load_chunk<D>(sign_h + off, ch);
+#pragma unroll
+        for (int pl = 0; pl < kNbits; ++pl)
+          P[pl] = load_chunk<DP>(planes_h + pl * pl_plane + off, ch, wide_pl, nb);
+        P[7] = load_chunk<DP>(sign_h + off, ch, wide_pl, nb);
 #pragma unroll
         for (int grp = 0; grp < CB; ++grp) {  // 8 columns: planes 0..6 + sign -> bytes
           const unsigned s = grp | ((grp + 4) << 4);
@@ -654,7 +730,7 @@ __global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) bgpp_kernel(
 #pragma unroll
           for (int gi = 0; gi < G; ++gi) {
             if (gi >= g) continue;
-            const int* qw = reinterpret_cast<const int*>(codes + gi * D + col);
+            const int* qw = reinterpret_cast<const int*>(codes + gi * DP + col);
             dot[gi] += sm_dot(lo, qw[0]) + sm_dot(hi, qw[1]);
           }
         }
@@ -733,7 +809,7 @@ __global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) bgpp_kernel(
   __syncthreads();
 
   // ---- A3: int8 PV over the block's survivors, exact int32 sums -----------
-  constexpr int TPR = D / 8, RPW = 32 / TPR;  // threads a V row (8 B each), rows a warp
+  constexpr int TPR = DP / 8, RPW = 32 / TPR;  // threads a V row (8 B each), rows a warp
   const int sub = lane_id % TPR, rs = lane_id / TPR;
   const int8_t* vat = v + h * v_head + sub * 8;
   int acc[G][8];
@@ -753,9 +829,18 @@ __global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) bgpp_kernel(
         cd[u][gi] = gi < g && i < m ? (int)lg(i, gi) : 0;
         any |= cd[u][gi] != 0;
       }
-      // zero codes add nothing: the V row is not read
-      raw[u] = any ? __ldg(reinterpret_cast<const uint2*>(vat + (long long)fin.at(i)[0] * v_tok))
-                   : make_uint2(0, 0);
+      // zero codes add nothing: the V row is not read; nor are its
+      // columns past Dt
+      const int8_t* vr = vat + (long long)(any ? fin.at(i)[0] : 0) * v_tok;
+      if (!any || sub * 8 >= Dt) {
+        raw[u] = make_uint2(0, 0);
+      } else if (wide_v) {
+        raw[u] = __ldg(reinterpret_cast<const uint2*>(vr));
+      } else {
+        unsigned w2[2];
+        load_words(reinterpret_cast<const uint8_t*>(vr), w2, 8);
+        raw[u] = make_uint2(w2[0], w2[1]);
+      }
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -773,13 +858,13 @@ __global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) bgpp_kernel(
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int o = TPR; o < 32; o <<= 1) acc[gi][j] += __shfl_xor_sync(0xffffffffu, acc[gi][j], o);
-  const int E = g * D;
+  const int E = g * DP;
   if (rs == 0) {
 #pragma unroll
     for (int gi = 0; gi < G; ++gi)
       if (gi < g)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) pv[warp * E + gi * D + sub * 8 + j] = acc[gi][j];
+        for (int j = 0; j < 8; ++j) pv[warp * E + gi * DP + sub * 8 + j] = acc[gi][j];
   }
   // the warps' sums, then the C blocks' in rank order: rank c writes a slice
   __syncthreads();
@@ -790,7 +875,7 @@ __global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) bgpp_kernel(
   }
   cluster.sync();
   const int per = (E + C - 1) / C, e0 = rank * per, e1 = min(E, e0 + per);
-  float* ob = out + (long long)cell * E;
+  float* ob = out + (long long)cell * g * Dt;
   for (int i = e0 + tid; i < e1; i += kThreads) {
     int y[kMaxCluster];
     gather_ranks(cluster, pv, i, y);
@@ -798,7 +883,8 @@ __global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) bgpp_kernel(
 #pragma unroll
     for (int c = 1; c < kMaxCluster; ++c)
       if (c < C) x += y[c];
-    ob[i] = (float)x * (fmaxf(hdr[kGW + i / D], 1e-20f) / 127.0f);
+    const int gi = i / DP, d = i - gi * DP;
+    if (d < Dt) ob[gi * Dt + d] = (float)x * (fmaxf(hdr[kGW + gi], 1e-20f) / 127.0f);
   }
   cluster.sync();  // every block's shared memory stays alive until all have read it
 }
@@ -836,33 +922,36 @@ int launch_clusters(int blocks, int C, int smem, cudaStream_t st, Args... args) 
 struct Args {
   const void *q, *planes, *sign, *k_scale, *v, *v_scale, *phys, *pos;
   void *out, *out_idx;
-  int B, Hk, g, S, query_bits, C, smem;
+  int B, Hk, g, Dt, S, query_bits, C, smem;
   Plan plan;
   long long pl_plane, pl_tok, pl_head, v_tok, v_head, sc_tok, sc_head;
+  int wide;
   float scale;
   cudaStream_t st;
 };
 
-template <int G, int D>
+template <int G, int DP>
 int run(const Args& a) {
-  return launch_clusters<bgpp_kernel<G, D>>(
+  return launch_clusters<bgpp_kernel<G, DP>>(
       a.B * a.Hk * a.C, a.C, a.smem, a.st, (const float*)a.q, (const uint8_t*)a.planes,
       (const uint8_t*)a.sign, (const float*)a.k_scale, (const int8_t*)a.v,
       (const float*)a.v_scale, (const int*)a.phys, (const int*)a.pos, (float*)a.out,
-      (int*)a.out_idx, a.Hk, a.g, a.S, a.query_bits, a.plan, a.pl_plane, a.pl_tok, a.pl_head,
-      a.v_tok, a.v_head, a.sc_tok, a.sc_head, a.scale);
+      (int*)a.out_idx, a.Hk, a.g, a.Dt, a.S, a.query_bits, a.plan, a.pl_plane, a.pl_tok,
+      a.pl_head, a.v_tok, a.v_head, a.sc_tok, a.sc_head, a.wide, a.scale);
 }
 
 // The launch's template instance: G, the register arrays' size, is the
-// smallest of 1, 2, 4, 8 that holds g; D is 16, 32, 64 or 128 (ops.py
-// checks both).
+// smallest of 1, 2, 4, 8 that holds g; DP, the compiled width, is 16, 32,
+// 64, 128 or 256 (kernel.py `padded_dim`; ops.py checks both).
 template <int G>
-int by_d(int D, const Args& a) {
-  switch (D) {
+int by_d(int DP, const Args& a) {
+  switch (DP) {
     case 16: return run<G, 16>(a);
     case 32: return run<G, 32>(a);
     case 64: return run<G, 64>(a);
-    default: return run<G, 128>(a);
+    case 128: return run<G, 128>(a);
+    case 256: return run<G, 256>(a);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -872,22 +961,25 @@ extern "C" {
 
 // `widths` (rounds + 1 ints: S, survivors[1..rounds-1], k_max) and `caps`
 // (ranks a block owns in each of those lists) are host arrays from
-// kernel.py `plan`; C blocks a cluster, smem bytes a block.  `out_idx` may
-// be null (else (B, Hk, k_max) int32).  Returns the launch's cudaError_t.
+// kernel.py `plan`; C blocks a cluster, smem bytes a block.  Dt is the true
+// head width (a multiple of 8), DP the compiled one it runs at; `wide` as
+// the kernel's.  `out_idx` may be null (else (B, Hk, k_max) int32).
+// Returns the launch's cudaError_t.
 int bgpp_paged_attend_launch(const void* q, const void* planes, const void* sign,
                              const void* k_scale, const void* v, const void* v_scale,
                              const void* phys, const void* pos, void* out, void* out_idx, int B,
-                             int Hk, int g, int D, int S, int nbits, int rounds,
+                             int Hk, int g, int Dt, int DP, int S, int nbits, int rounds,
                              const void* widths, const void* caps, int C, int smem,
                              int query_bits, long long pl_plane, long long pl_tok,
                              long long pl_head, long long v_tok, long long v_head,
-                             long long sc_tok, long long sc_head, float scale, void* stream) {
+                             long long sc_tok, long long sc_head, int wide, float scale,
+                             void* stream) {
   if (rounds < 1 || rounds >= kMaxLists || g < 1 || g > kMaxG || nbits != kNbits ||
-      C < 1 || C > kMaxCluster)
+      C < 1 || C > kMaxCluster || Dt < 8 || Dt % 8 || Dt > DP || (wide & 1 && Dt != DP))
     return (int)cudaErrorInvalidValue;
-  Args a{q, planes, sign, k_scale, v, v_scale, phys, pos, out, out_idx, B, Hk, g, S,
+  Args a{q, planes, sign, k_scale, v, v_scale, phys, pos, out, out_idx, B, Hk, g, Dt, S,
          query_bits, C, smem, {}, pl_plane, pl_tok, pl_head, v_tok, v_head, sc_tok, sc_head,
-         scale, (cudaStream_t)stream};
+         wide, scale, (cudaStream_t)stream};
   a.plan.rounds = rounds;
   a.plan.k_max = static_cast<const int*>(widths)[rounds];
   for (int r = 0; r < kMaxLists; ++r) {
@@ -895,12 +987,13 @@ int bgpp_paged_attend_launch(const void* q, const void* planes, const void* sign
     a.plan.cap[r] = r <= rounds ? static_cast<const int*>(caps)[r] : 0;
   }
   if (a.plan.cap[0] > kMaxSlots * kThreads) return (int)cudaErrorInvalidValue;
-  const int G = g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : 8;
+  // narrow loads (padded D, unaligned rows) run in the G = 8 instances
+  const int G = wide != 3 ? 8 : g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : 8;
   switch (G) {
-    case 1: return by_d<1>(D, a);
-    case 2: return by_d<2>(D, a);
-    case 4: return by_d<4>(D, a);
-    default: return by_d<8>(D, a);
+    case 1: return by_d<1>(DP, a);
+    case 2: return by_d<2>(DP, a);
+    case 4: return by_d<4>(DP, a);
+    default: return by_d<8>(DP, a);
   }
 }
 

@@ -78,6 +78,19 @@
 // a few ulp.  So the output stays inside the 1e-5 * max|v| the kernel is
 // held to.  The split costs one more PV mma a k-step.
 //
+// Head widths: instances at the compiled widths DP = 16, 32, 64, 128 and
+// 256; any other D from 1 to 256 runs at the next one, with the true D at
+// run time: q, k and v past D read as zero and the output past D is not
+// written, which is exact (zero columns add nothing to q.k or to p.v); the
+// scale is the caller's.  At DP 256 the bf16 body's output accumulator
+// alone is 128 registers a thread, so Q is not held in registers: each
+// k-step reads its A fragment from the staged Q tile by ldmatrix, and the
+// block (147,456 B of tiles) runs one an SM with up to 255 registers.
+// bf16 rows whose starts are not all 16-byte aligned are staged by plain
+// element loads instead of cp.async; a chunk that straddles D copies only
+// its bytes inside D (cp.async zero-fills the rest).  The f32 body stages
+// element by element anyway; at DP 256 its tiles take 213,760 B.
+//
 // f32 operands: the CUDA-core body (the tensor cores have no exact f32
 // product; the f32 smoke forward is held to the CPU within 1e-4).  One
 // 128-thread block per (64-row query tile, batch x query head); Q and
@@ -113,6 +126,8 @@ struct Args {
   const void* v;
   void* out;
   int Sq, Sk, Hq, Hk;
+  int D;     // the true head width (<= the compiled width DP)
+  int wide;  // bf16: every q, k, v row starts on a 16-byte boundary
   long long qs[3], ks[3], vs[3];  // batch, sequence and head strides (elements)
   int mask, window, q_offset;
   float scale;
@@ -183,6 +198,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Args a) {
   constexpr int LD = D + 1;     // padded row of the Q and K tiles
   constexpr int PLD = kBK + 1;  // padded row of the P tile
   constexpr int DC = D / 8;     // output columns a thread
+  const int Dt = a.D;           // columns d >= Dt read as 0 and are not written
   extern __shared__ float smem[];
   float* Qs = smem;            // (kBQ, LD)
   float* Ks = Qs + kBQ * LD;   // (kBK, LD)
@@ -199,7 +215,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Args a) {
 
   for (int i = threadIdx.x; i < kBQ * D; i += kThreads) {
     const int r = i / D, d = i % D, s = q0 + r;
-    Qs[r * LD + d] = s < a.Sq ? to_f(qb[s * a.qs[1] + d]) : 0.f;
+    Qs[r * LD + d] = s < a.Sq && d < Dt ? to_f(qb[s * a.qs[1] + d]) : 0.f;
   }
 
   float m[kRows], l[kRows], acc[kRows][DC];
@@ -220,7 +236,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Args a) {
     __syncthreads();  // Q is staged; the previous tile's readers are done
     for (int i = threadIdx.x; i < kBK * D; i += kThreads) {
       const int r = i / D, d = i % D, s = k0 + r;
-      const bool in = s < a.Sk;
+      const bool in = s < a.Sk && d < Dt;
       Ks[r * LD + d] = in ? to_f(kb[s * a.ks[1] + d]) : 0.f;
       Vs[r * D + d] = in ? to_f(vb[s * a.vs[1] + d]) : 0.f;
     }
@@ -290,9 +306,10 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Args a) {
     const int s = q0 + ty * kRows + i;
     if (s >= a.Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* row = out + (((long long)b * a.Sq + s) * a.Hq + h) * D;
+    T* row = out + (((long long)b * a.Sq + s) * a.Hq + h) * Dt;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) store(row + tx + 8 * c, acc[i][c] / den);
+    for (int c = 0; c < DC; ++c)
+      if (tx + 8 * c < Dt) store(row + tx + 8 * c, acc[i][c] / den);
   }
 }
 
@@ -309,6 +326,40 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int sr
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(src_bytes)
                : "memory");
+}
+
+__device__ __forceinline__ void st_shared16(uint32_t dst, const uint4& v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// Stage the 16-byte chunk of bf16 row `row` that starts at column c0 into
+// shared memory at dst: `valid` of its 8 columns lie inside the true D (the
+// rest are zero; valid <= 0: all zero, nothing read).  `wide` rows go by
+// cp.async (src-size zero-fills), others by element loads and one store.
+// Only NARROW instances carry the element path and partial chunks: a
+// launch whose rows are all 16-byte aligned and whose D is a multiple of
+// 8 (every chunk whole or wholly past D) runs an instance without them.
+// (Not NARROW: `row` already points at the chunk, c0 is unused.)
+template <bool NARROW>
+__device__ __forceinline__ void stage16(uint32_t dst, const __nv_bfloat16* row, int c0,
+                                        int valid, bool wide) {
+  if constexpr (!NARROW) {
+    cp_async16(dst, row, valid > 0 ? 16 : 0);
+    return;
+  }
+  if (wide) {
+    const int bytes = valid <= 0 ? 0 : valid >= 8 ? 16 : 2 * valid;
+    cp_async16(dst, bytes ? row + c0 : row, bytes);
+    return;
+  }
+  unsigned w[4] = {0u, 0u, 0u, 0u};
+  const unsigned short* p = reinterpret_cast<const unsigned short*>(row + c0);
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (e < valid) w[e >> 1] |= (unsigned)__ldg(p + e) << (16 * (e & 1));
+  st_shared16(dst, make_uint4(w[0], w[1], w[2], w[3]));
 }
 
 __device__ __forceinline__ void cp_commit() {
@@ -388,8 +439,10 @@ __device__ __forceinline__ float ex2(float x) {
 // A bf16 block: kMmaBQ = 32 query rows of one (batch, query head), in
 // 2 row groups of 16 rows x 2 key halves of 32 (of every 64-key tile), one
 // warp each.  The two warps of a row group merge their softmax states
-// through shared memory at the end.  Three blocks an SM (registers capped
-// at 168 a thread; 72 KB of shared memory a block at D 128).
+// through shared memory at the end.  Up to D 128: three blocks an SM
+// (registers capped at 168 a thread; 72 KB of shared memory a block at
+// D 128) with Q held in registers; at D 256 one block an SM, Q read from
+// shared memory each k-step.
 constexpr int kRG = 2;
 constexpr int kMmaBQ = 16 * kRG;
 constexpr int kMmaThreads = 64 * kRG;
@@ -400,8 +453,14 @@ constexpr size_t mma_smem_bytes() {
 }
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads, 3) flash_mma_kernel(const Args a) {
+__host__ __device__ constexpr int mma_min_blocks() {
+  return D <= 128 ? 3 : 1;
+}
+
+template <int D, bool NARROW>
+__global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<D>()) flash_mma_kernel(const Args a) {
   constexpr int RG = kRG, BQ = kMmaBQ, THREADS = kMmaThreads;
+  constexpr bool QREG = D <= 128;       // Q's A fragments held in registers
   constexpr int U = D / 8;              // 16-byte chunks a row
   constexpr int KS = D / 16;            // k-steps of the QK^T product
   constexpr int NT = D / 8;             // 8-column n-tiles of the output
@@ -424,11 +483,14 @@ __global__ void __launch_bounds__(kMmaThreads, 3) flash_mma_kernel(const Args a)
   const int b = blockIdx.x / a.Hq, h = blockIdx.x % a.Hq;
   const int hk = h / (a.Hq / a.Hk);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  // a copy pass: thread tid moves chunk cc of rows rr, rr + ROWS, ...
-  const int cc = tid % U, rr = tid / U;
-  const __nv_bfloat16* qb = (const __nv_bfloat16*)a.q + b * a.qs[0] + h * a.qs[2] + cc * 8;
-  const __nv_bfloat16* kb = (const __nv_bfloat16*)a.k + b * a.ks[0] + hk * a.ks[2] + cc * 8;
-  const __nv_bfloat16* vb = (const __nv_bfloat16*)a.v + b * a.vs[0] + hk * a.vs[2] + cc * 8;
+  // a copy pass: thread tid moves chunk cc of rows rr, rr + ROWS, ...; the
+  // chunk's columns inside the true D
+  const int cc = tid % U, rr = tid / U, cvalid = a.D - cc * 8;
+  const bool wide = a.wide != 0;
+  const int c_in = NARROW ? 0 : cc * 8;  // a whole-chunk copy points at the chunk itself
+  const __nv_bfloat16* qb = (const __nv_bfloat16*)a.q + b * a.qs[0] + h * a.qs[2] + c_in;
+  const __nv_bfloat16* kb = (const __nv_bfloat16*)a.k + b * a.ks[0] + hk * a.ks[2] + c_in;
+  const __nv_bfloat16* vb = (const __nv_bfloat16*)a.v + b * a.vs[0] + hk * a.vs[2] + c_in;
 
   // The block's live key tiles form one run [kt_first, kt_last]: the
   // union of its rows' visible keys is one interval.
@@ -470,7 +532,7 @@ __global__ void __launch_bounds__(kMmaThreads, 3) flash_mma_kernel(const Args a)
 #pragma unroll
   for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  uint32_t qf[KS][4];
+  uint32_t qf[QREG ? KS : 1][4];
 
   auto load_kv = [&](int kt, int st) {
 #pragma unroll
@@ -480,8 +542,8 @@ __global__ void __launch_bounds__(kMmaThreads, 3) flash_mma_kernel(const Args a)
       const bool in = s < a.Sk;
       const long long row = in ? s : 0;  // a valid address even when zero-filling
       const uint32_t off = st * STAGE_B + swz<D>(r, cc);
-      cp_async16(k_s + off, kb + row * a.ks[1], in ? 16 : 0);
-      cp_async16(v_s + off, vb + row * a.vs[1], in ? 16 : 0);
+      stage16<NARROW>(k_s + off, kb + row * a.ks[1], cc * 8, in ? cvalid : 0, wide);
+      stage16<NARROW>(v_s + off, vb + row * a.vs[1], cc * 8, in ? cvalid : 0, wide);
     }
   };
 
@@ -491,7 +553,8 @@ __global__ void __launch_bounds__(kMmaThreads, 3) flash_mma_kernel(const Args a)
       const int r = rr + j * ROWS, s = q0 + r;
       const bool in = s < a.Sq;
       if (r < BQ)  // ROWS > BQ: D 16 and 32
-        cp_async16(q_s + swz<D>(r, cc), qb + (long long)(in ? s : 0) * a.qs[1], in ? 16 : 0);
+        stage16<NARROW>(q_s + swz<D>(r, cc), qb + (long long)(in ? s : 0) * a.qs[1], cc * 8,
+                in ? cvalid : 0, wide);
     }
     load_kv(kt_first, 0);
     cp_commit();
@@ -504,10 +567,12 @@ __global__ void __launch_bounds__(kMmaThreads, 3) flash_mma_kernel(const Args a)
       load_kv(kt + 1, st ^ 1);
       cp_commit();
     }
-    if (kt == kt_first) {
+    if constexpr (QREG) {
+      if (kt == kt_first) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        ldsm_x4(q_lane + (((2 * kk) ^ q_x) << 4), qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3]);
+        for (int kk = 0; kk < KS; ++kk)
+          ldsm_x4(q_lane + (((2 * kk) ^ q_x) << 4), qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3]);
+      }
     }
     const int k0 = kt * kBK + kw;  // the warp's 32 keys: [k0, k0 + 32)
     if (warp_rows && k0 < a.Sk &&
@@ -520,12 +585,19 @@ __global__ void __launch_bounds__(kMmaThreads, 3) flash_mma_kernel(const Args a)
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
         const uint32_t k_kk = k_st + (((2 * kk) ^ k_x) << 4);
+        uint32_t qs[4];  // this k-step's A fragment: held, or read from the Q tile
+        if constexpr (QREG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qs[e] = qf[kk][e];
+        } else {
+          ldsm_x4(q_lane + (((2 * kk) ^ q_x) << 4), qs[0], qs[1], qs[2], qs[3]);
+        }
 #pragma unroll
         for (int np = 0; np < 2; ++np) {  // two n-tiles a ldmatrix.x4
           uint32_t b0, b1, b2, b3;
           ldsm_x4(k_kk + np * 16 * ROW_B, b0, b1, b2, b3);
-          mma_bf16(s[2 * np], qf[kk], b0, b1);
-          mma_bf16(s[2 * np + 1], qf[kk], b2, b3);
+          mma_bf16(s[2 * np], qs, b0, b1);
+          mma_bf16(s[2 * np + 1], qs, b2, b3);
         }
       }
       // ---- mask; lane holds rows g, g + 8 and keys 2t, 2t + 1 of each n-tile ----
@@ -649,17 +721,28 @@ __global__ void __launch_bounds__(kMmaThreads, 3) flash_mma_kernel(const Args a)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = o[n][e] * c0[e >> 1] + xch[(4 * n + e) * 32] * c1[e >> 1];
 
+  // out is (B, Sq, Hq, D) at the true D: column pairs as one 4-byte store
+  // where D is even, else one by one; columns past D dropped
   __nv_bfloat16* out = (__nv_bfloat16*)a.out;
+  const int Dt = a.D;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int s = q0 + wr + (lane >> 2) + 8 * i;
     if (s >= a.Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* row = out + (((long long)b * a.Sq + s) * a.Hq + h) * D + 2 * (lane & 3);
+    __nv_bfloat16* row = out + (((long long)b * a.Sq + s) * a.Hq + h) * Dt;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * n) =
-          __floats2bfloat162_rn(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+      const int col = 8 * n + 2 * (lane & 3);
+      const __nv_bfloat162 pr = __floats2bfloat162_rn(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+      if constexpr (!NARROW) {  // D % 8 == 0: a pair lies wholly inside D or past it
+        if (col < Dt) *reinterpret_cast<__nv_bfloat162*>(row + col) = pr;
+      } else if (col + 1 < Dt && !(Dt & 1)) {
+        *reinterpret_cast<__nv_bfloat162*>(row + col) = pr;
+      } else {
+        if (col < Dt) row[col] = pr.x;
+        if (col + 1 < Dt) row[col + 1] = pr.y;
+      }
     }
   }
 }
@@ -688,7 +771,10 @@ int launch_d(const Args& a, int B, int dtype, int bq, int smem, cudaStream_t st)
   if (bq != kMmaBQ || smem != (int)mma_smem_bytes<D>())
     return (int)cudaErrorInvalidValue;
   const dim3 grid(B * a.Hq, (a.Sq + kMmaBQ - 1) / kMmaBQ);
-  return launch_kernel(flash_mma_kernel<D>, grid, kMmaThreads, smem, a, st);
+  // unaligned rows or a D that leaves a partial chunk: the narrow instance
+  return a.wide && a.D % 8 == 0
+             ? launch_kernel(flash_mma_kernel<D, false>, grid, kMmaThreads, smem, a, st)
+             : launch_kernel(flash_mma_kernel<D, true>, grid, kMmaThreads, smem, a, st);
 }
 
 }  // namespace
@@ -696,17 +782,21 @@ int launch_d(const Args& a, int B, int dtype, int bq, int smem, cudaStream_t st)
 extern "C" {
 
 // dtype: 0 = f32, 1 = bf16; mask: 0 full, 1 causal, 2 sliding, 3 chunked.
-// Strides are in elements; D must be unit stride (bf16: rows on 16-byte
-// boundaries).  bq / smem: the launch plan (query rows a block, dynamic
+// D is the true head width, DP the compiled width it runs at (16, 32, 64,
+// 128 or 256).  Strides are in elements; D must be unit stride; wide: every
+// bf16 row starts on a 16-byte boundary (else rows are staged element by
+// element).  bq / smem: the launch plan (query rows a block, dynamic
 // shared memory bytes), checked against this file's geometry.  Returns
 // cudaGetLastError() after the launch.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* out, int B,
-                           int Sq, int Sk, int Hq, int Hk, int D, long long qsb,
+                           int Sq, int Sk, int Hq, int Hk, int D, int DP, int wide,
+                           long long qsb,
                            long long qss, long long qsh, long long ksb, long long kss,
                            long long ksh, long long vsb, long long vss, long long vsh,
                            int dtype, int mask, int window, int q_offset, float scale,
                            int bq, int smem, void* stream) {
-  if ((mask == kSliding || mask == kChunked) && window <= 0) return (int)cudaErrorInvalidValue;
+  if (((mask == kSliding || mask == kChunked) && window <= 0) || D < 1 || D > DP)
+    return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
   a.k = k;
@@ -716,6 +806,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* ou
   a.Sk = Sk;
   a.Hq = Hq;
   a.Hk = Hk;
+  a.D = D;
+  a.wide = wide;
   a.qs[0] = qsb; a.qs[1] = qss; a.qs[2] = qsh;
   a.ks[0] = ksb; a.ks[1] = kss; a.ks[2] = ksh;
   a.vs[0] = vsb; a.vs[1] = vss; a.vs[2] = vsh;
@@ -724,11 +816,12 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* ou
   a.q_offset = q_offset;
   a.scale = scale;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
+  switch (DP) {
     case 16: return launch_d<16>(a, B, dtype, bq, smem, st);
     case 32: return launch_d<32>(a, B, dtype, bq, smem, st);
     case 64: return launch_d<64>(a, B, dtype, bq, smem, st);
     case 128: return launch_d<128>(a, B, dtype, bq, smem, st);
+    case 256: return launch_d<256>(a, B, dtype, bq, smem, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

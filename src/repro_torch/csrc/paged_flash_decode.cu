@@ -17,14 +17,23 @@
 //     position: lanes past pos have probability exactly 0 in the reference
 //     (exp(-1e30 - m) underflows).  A block whose lanes all lie past it
 //     reads nothing but joins every cluster barrier;
-//   * the warps split the block's rows; a row's D/VEC threads each load 16
-//     bytes of it (8 bf16, 4 f32 or 16 int8 values), double-buffered a few
-//     rows ahead, and the g query rows of the kv head share every row read
-//     (GQA).  The row geometry is a template constant, and a row's partial
-//     dot products are summed by one halving butterfly over all the rows
-//     and query rows of a batch (each shuffle carries a distinct value);
-//   * the block's page ids are read once into shared memory (page size a
-//     power of two), so a row's pool index is a shared load and a shift;
+//   * the warps split the block's rows; a row's TPR threads each load 16
+//     bytes of it (8 bf16, 4 f32 or 16 int8 values; f32 at D 256: two
+//     chunks a thread), double-buffered a few rows ahead, and the g query
+//     rows of the kv head share every row read (GQA).  The row geometry is
+//     a template constant, and a row's partial dot products are summed by
+//     one halving butterfly over all the rows and query rows of a batch
+//     (each shuffle carries a distinct value);
+//   * head widths: instances at the compiled widths DP = 16, 32, 64, 128
+//     and 256; any other D runs at the next one, with the true D at run
+//     time: q, K and V past D read as zero and the output past D is not
+//     written, which is exact (zero columns add nothing to q.k or to p.v).
+//     Rows whose starts are not all 16-byte aligned (e.g. int8 at D 24),
+//     and a chunk that straddles D, load element by element;
+//   * the block's page ids are read once into shared memory, so a row's
+//     pool index is a shared load and a division by the page size (any
+//     page size >= 1: a multiply-high by a magic number from the host and
+//     a shift, exact for lanes below 2^31);
 //     shared memory holds that map, the block's g x L scores and the warps'
 //     (g, D) partial sums: the context cap is C*L lanes at C = 8
 //     (kernel.py `max_lanes`);
@@ -83,33 +92,78 @@ __device__ __forceinline__ uint4 load16(const char* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
-// 16 loaded bytes -> f32 values (bf16: the high half of an f32, exactly)
-__device__ __forceinline__ void unpack(const uint4& r, float (&f)[8]) {
-  const unsigned w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+// One 16-byte chunk of a row of T, of which the first `valid` elements lie
+// inside the true D (the rest read as zero).  A whole chunk of an aligned
+// pool is one 16-byte load; otherwise the bytes inside D one at a time (a
+// rolled loop).  Only NARROW instances (G = 8) carry that path: a launch
+// that needs it (a padded D or unaligned rows) runs there whatever its g,
+// so the other instances keep their registers for the 16-byte path alone.
+template <typename T, bool NARROW>
+__device__ __forceinline__ uint4 load_chunk(const char* p, int valid, bool wide) {
+  constexpr int EPC = 16 / sizeof(T);
+  if constexpr (!NARROW) {
+    return load16(p);
+  } else {
+    if (wide && valid >= EPC) return load16(p);
+    unsigned long long lo = 0ull, hi = 0ull;
+    const int n = min(valid, EPC) * (int)sizeof(T);
+#pragma unroll 1
+    for (int i = 0; i < n; ++i) {
+      const unsigned long long x = __ldg(reinterpret_cast<const unsigned char*>(p) + i);
+      if (i < 8) lo |= x << (8 * i);
+      else hi |= x << (8 * (i - 8));
+    }
+    return make_uint4((unsigned)lo, (unsigned)(lo >> 32), (unsigned)hi, (unsigned)(hi >> 32));
   }
 }
-__device__ __forceinline__ void unpack(const uint4& r, float (&f)[4]) {
-  f[0] = __uint_as_float(r.x);
-  f[1] = __uint_as_float(r.y);
-  f[2] = __uint_as_float(r.z);
-  f[3] = __uint_as_float(r.w);
+
+// CH loaded 16-byte chunks -> f32 values (bf16: the high half of an f32,
+// exactly)
+template <typename T, int CH, int V>
+__device__ __forceinline__ void unpack(const uint4 (&r)[CH], float (&f)[V]) {
+  static_assert(V == CH * 16 / (int)sizeof(T), "a thread's values");
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    const unsigned w[4] = {r[c].x, r[c].y, r[c].z, r[c].w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (sizeof(T) == 2) {
+        f[8 * c + 2 * i] = __uint_as_float(w[i] << 16);
+        f[8 * c + 2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      } else {
+        f[4 * c + i] = __uint_as_float(w[i]);
+      }
+    }
+  }
 }
 
 // Signed byte k of w.
 __device__ __forceinline__ int sbyte(unsigned w, int k) { return (int)(w << (24 - 8 * k)) >> 24; }
 
-// Row geometry of a D-wide row of T: TPR threads a row, each one 16-byte
-// chunk of VEC values.
-template <typename T, int D>
+// Row geometry of a DP-wide row of T: TPR threads a row (at most a warp),
+// each CH consecutive 16-byte chunks of EPC values, VEC values in all.
+template <typename T, int DP>
 struct Rows {
-  static constexpr int VEC = 16 / sizeof(T);
-  static constexpr int TPR = D / VEC;
-  static_assert(D % VEC == 0 && TPR >= 1 && TPR <= 32 && (TPR & (TPR - 1)) == 0,
-                "a row must be 16 B times a power of two, at most 512 B");
+  static constexpr int EPC = 16 / sizeof(T);
+  static constexpr int CHUNKS = DP / EPC;
+  static constexpr int CH = CHUNKS > 32 ? CHUNKS / 32 : 1;
+  static constexpr int TPR = CHUNKS / CH;
+  static constexpr int VEC = CH * EPC;
+  static_assert(DP % EPC == 0 && TPR >= 1 && TPR <= 32 && (TPR & (TPR - 1)) == 0,
+                "a row must be 16 B times a power of two, at most 1 KB");
+};
+
+// The chunks of a thread's slice of a row: how many of each chunk's
+// elements lie inside the true D, and whether the pool's rows allow
+// 16-byte loads.
+template <int CH>
+struct Span {
+  int valid[CH];
+  bool wide;
+  __device__ Span(int Dt, int sub, int EPC, bool wide_) : wide(wide_) {
+#pragma unroll
+    for (int i = 0; i < CH; ++i) valid[i] = Dt - (sub * CH + i) * EPC;
+  }
 };
 
 // One step of `fold`: O is the step's lane offset, v[0, LIVE) the values
@@ -231,13 +285,14 @@ __device__ void cluster_softmax(cg::cluster_group& cluster, float* hdr, float* s
   __syncthreads();
 }
 
-// Add the warps' (g, D) partials (part, warp stride E = g*D) into part[0],
-// then, after a cluster barrier, the C blocks' sums in rank order: rank r
-// writes its slice of the cell's output (int8: times that row's w_scale).
-// A last cluster barrier keeps every block's shared memory alive until all
-// ranks have read it.
+// Add the warps' (g, DP) partials (part, warp stride E = g*DP) into
+// part[0], then, after a cluster barrier, the C blocks' sums in rank order:
+// rank r writes its slice of the cell's (g, Dt) output, the columns past
+// the true Dt dropped (int8: times that row's w_scale).  A last cluster
+// barrier keeps every block's shared memory alive until all ranks have
+// read it.
 template <typename A>
-__device__ void cluster_output(cg::cluster_group& cluster, A* part, int E, int D,
+__device__ void cluster_output(cg::cluster_group& cluster, A* part, int E, int DP, int Dt,
                                float* __restrict__ out, const float* hdr, bool int8) {
   __syncthreads();
   for (int i = threadIdx.x; i < E; i += kThreads) {
@@ -255,38 +310,53 @@ __device__ void cluster_output(cg::cluster_group& cluster, A* part, int E, int D
 #pragma unroll
     for (int c = 1; c < kMaxCluster; ++c)
       if (c < C) x += y[c];
-    out[i] = int8 ? (float)x * (fmaxf(hdr[kGW + i / D], 1e-20f) / 127.0f) : (float)x;
+    const int gi = i / DP, d = i - gi * DP;
+    if (d < Dt)
+      out[gi * Dt + d] = int8 ? (float)x * (fmaxf(hdr[kGW + gi], 1e-20f) / 127.0f) : (float)x;
   }
   cluster.sync();
 }
+
+// The page of lane s: s / P by a multiply-high with the host's magic
+// number and a shift (kernel.py `page_divider`), exact for 0 <= s < 2^31;
+// a power of two (magic 1) takes the shift alone.
+struct PageDiv {
+  int P;
+  unsigned magic, shift;
+  __device__ int page(int s) const {
+    return magic == 1u ? s >> shift : (int)((__umulhi((unsigned)s, magic) + s) >> shift);
+  }
+};
 
 // Where a block and a thread sit: the cluster's (slot, kv-head) cell, the
 // block's lanes [lo, hi) and its page bases in shared memory, and the
 // thread's chunk `sub` of a row and row offset `rs` in a warp step.
 struct Cell {
-  int cell, b, h, p, lo, hi, sub, rs, first, step, logP, page0;
+  int cell, b, h, p, lo, hi, sub, rs, first, step, page0;
+  PageDiv div;
   const int* base;  // first pool row of the block's j-th page, -1: unmapped
 
   // Reads pos and writes the block's page bases (lanes on unmapped -1 pages
   // read row 0, as kv_cache.phys_table maps them: a live slot masks them by
   // position; an idle slot's garbage row then matches the plain version's).
+  // L is a whole number of pages (kernel.py `plan`).
   __device__ Cell(cg::cluster_group& cluster, const int* __restrict__ pos,
-                  const int* __restrict__ page_ids, int* smem_base, int Hk, int pp, int logP_,
-                  int L, int tpr) {
+                  const int* __restrict__ page_ids, int* smem_base, int Hk, int pp,
+                  const PageDiv& div_, int L, int tpr)
+      : div(div_) {
     cell = blockIdx.x / cluster.num_blocks();
     b = cell / Hk;
     h = cell % Hk;
-    logP = logP_;
     lo = cluster.block_rank() * L;
-    const int pages = L >> logP;
-    page0 = lo >> logP;
+    const int pages = L / div.P;
+    page0 = lo / div.P;
     for (int j = threadIdx.x; j < pages; j += kThreads) {
       const int pid = page0 + j < pp ? __ldg(page_ids + (long long)b * pp + page0 + j) : -1;
-      smem_base[j] = pid < 0 ? -1 : pid << logP;
+      smem_base[j] = pid < 0 ? -1 : pid * div.P;
     }
     base = smem_base;
     p = pos[b];
-    hi = max(lo, min(lo + L, span_of(p, pp << logP)));  // hi == lo: nothing to read
+    hi = max(lo, min(lo + L, span_of(p, pp * div.P)));  // hi == lo: nothing to read
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, rpw = 32 / tpr;
     sub = lane % tpr;
     rs = lane / tpr;
@@ -294,62 +364,79 @@ struct Cell {
     step = kWarps * rpw;      // rows a block step
   }
   __device__ long long row(int s) const {
-    const int r = base[(s >> logP) - page0];
-    return r < 0 ? 0 : r + (s & ((1 << logP) - 1));
+    const int pg = div.page(s);
+    const int r = base[pg - page0];
+    return r < 0 ? 0 : r + (s - pg * div.P);
   }
   __device__ int lane_of(int s0, int u) const { return s0 + u * step + rs; }
 };
 
-// Load this thread's 16-byte chunk of kUnroll rows from s0 on (rows >= lim
-// read as zero).  `at` is the chunk's address in pool row 0.
-__device__ __forceinline__ void load_rows(uint4 (&raw)[kUnroll], const Cell& c, const char* at,
-                                          long long row_bytes, int s0, int lim) {
+// Load this thread's CH chunks of kUnroll rows from s0 on (rows >= lim read
+// as zero).  `at` is the first chunk's address in pool row 0.
+template <typename T, bool NARROW, int CH>
+__device__ __forceinline__ void load_rows(uint4 (&raw)[kUnroll][CH], const Cell& c,
+                                          const char* at, long long row_bytes, int s0, int lim,
+                                          const Span<CH>& sp) {
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) {
     const int s = c.lane_of(s0, u);
-    raw[u] = s < lim ? load16(at + c.row(s) * row_bytes) : make_uint4(0, 0, 0, 0);
+    const char* r = s < lim ? at + c.row(s) * row_bytes : nullptr;
+#pragma unroll
+    for (int i = 0; i < CH; ++i)
+      raw[u][i] = r ? load_chunk<T, NARROW>(r + 16 * i, sp.valid[i], sp.wide)
+                    : make_uint4(0, 0, 0, 0);
   }
 }
 
-template <typename T, int G, int D>
-__global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) dense_kernel(
+// Blocks an SM the register budget is set for: two at G <= 4 up to D 128.
+template <int G, int DP>
+__host__ __device__ constexpr int min_blocks() {
+  return G <= 4 && DP <= 128 ? 2 : 1;
+}
+
+template <typename T, int G, int DP>
+__global__ void __launch_bounds__(kThreads, min_blocks<G, DP>()) dense_kernel(
     const float* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ page_ids, const int* __restrict__ pos, float* __restrict__ out,
-    int Hk, int g, int pp, int logP, int L, long long tok_stride, long long head_stride,
-    float scale) {
-  using R = Rows<T, D>;
-  constexpr int VEC = R::VEC, TPR = R::TPR, N = kUnroll * G;
+    int Hk, int g, int Dt, int pp, PageDiv div, int L, long long tok_stride,
+    long long head_stride, int wide, float scale) {
+  using R = Rows<T, DP>;
+  constexpr int VEC = R::VEC, TPR = R::TPR, CH = R::CH, N = kUnroll * G;
+  constexpr bool NARROW = G == 8;  // the instances that carry the narrow loads
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
   float* hdr = reinterpret_cast<float*>(smem4);
-  float* part = hdr + kHeader;                           // (kWarps, g, D)
-  float* sc = part + kWarps * g * D;                     // (g, L) logits -> probabilities
+  float* part = hdr + kHeader;                           // (kWarps, g, DP)
+  float* sc = part + kWarps * g * DP;                    // (g, L) logits -> probabilities
   int* pages = reinterpret_cast<int*>(sc + g * L);       // (L / P,)
-  const Cell c(cluster, pos, page_ids, pages, Hk, pp, logP, L, TPR);
-  const int E = g * D;
+  const Cell c(cluster, pos, page_ids, pages, Hk, pp, div, L, TPR);
+  const Span<CH> sp(Dt, c.sub, R::EPC, wide != 0);
+  const int E = g * DP;
   const long long row_bytes = tok_stride * (long long)sizeof(T);
-  const char* kat = reinterpret_cast<const char*>(k + c.h * head_stride) + c.sub * 16;
-  const char* vat = reinterpret_cast<const char*>(v + c.h * head_stride) + c.sub * 16;
+  const char* kat = reinterpret_cast<const char*>(k + c.h * head_stride) + c.sub * CH * 16;
+  const char* vat = reinterpret_cast<const char*>(v + c.h * head_stride) + c.sub * CH * 16;
 
   __syncthreads();  // the page bases are in place
 
   // QK: the logits of the block's lanes (K rows read only up to pos)
   const int klim = c.p < 0 ? c.lo : c.hi;
-  uint4 raw[kUnroll], nxt[kUnroll];
-  load_rows(raw, c, kat, row_bytes, c.first, klim);
+  uint4 raw[kUnroll][CH], nxt[kUnroll][CH];
+  load_rows<T, NARROW>(raw, c, kat, row_bytes, c.first, klim, sp);
   float qv[G][VEC];
 #pragma unroll
   for (int gi = 0; gi < G; ++gi)
 #pragma unroll
-    for (int j = 0; j < VEC; ++j)
-      qv[gi][j] = gi < g ? q[(long long)c.cell * E + gi * D + c.sub * VEC + j] : 0.f;
+    for (int j = 0; j < VEC; ++j) {
+      const int d = c.sub * VEC + j;
+      qv[gi][j] = gi < g && d < Dt ? q[((long long)c.cell * g + gi) * Dt + d] : 0.f;
+    }
   for (int s0 = c.first; s0 < c.hi; s0 += c.step * kUnroll) {
-    load_rows(nxt, c, kat, row_bytes, s0 + c.step * kUnroll, klim);
+    load_rows<T, NARROW>(nxt, c, kat, row_bytes, s0 + c.step * kUnroll, klim, sp);
     float val[N];  // (u, gi) partial dots of this thread's chunk
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       float kf[VEC];
-      unpack(raw[u], kf);
+      unpack<T>(raw[u], kf);
 #pragma unroll
       for (int gi = 0; gi < G; ++gi) {
         float a = 0.f;
@@ -369,9 +456,11 @@ __global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) dense_kernel(
       }
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) raw[u] = nxt[u];
+    for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+      for (int i = 0; i < CH; ++i) raw[u][i] = nxt[u][i];
   }
-  load_rows(raw, c, vat, row_bytes, c.first, c.hi);  // V, ahead of the softmax
+  load_rows<T, NARROW>(raw, c, vat, row_bytes, c.first, c.hi, sp);  // V, ahead of the softmax
   cluster_softmax<G>(cluster, hdr, sc, g, L, c.hi - c.lo);
 
   // PV: each thread sums its chunk of D over the warp's rows
@@ -381,13 +470,13 @@ __global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) dense_kernel(
 #pragma unroll
     for (int j = 0; j < VEC; ++j) acc[gi][j] = 0.f;
   for (int s0 = c.first; s0 < c.hi; s0 += c.step * kUnroll) {
-    load_rows(nxt, c, vat, row_bytes, s0 + c.step * kUnroll, c.hi);
+    load_rows<T, NARROW>(nxt, c, vat, row_bytes, s0 + c.step * kUnroll, c.hi, sp);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int s = c.lane_of(s0, u);
       if (s >= c.hi) continue;
       float vf[VEC];
-      unpack(raw[u], vf);
+      unpack<T>(raw[u], vf);
 #pragma unroll
       for (int gi = 0; gi < G; ++gi) {
         if (gi >= g) break;
@@ -397,7 +486,9 @@ __global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) dense_kernel(
       }
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) raw[u] = nxt[u];
+    for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+      for (int i = 0; i < CH; ++i) raw[u][i] = nxt[u][i];
   }
 #pragma unroll
   for (int gi = 0; gi < G; ++gi)
@@ -412,28 +503,32 @@ __global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) dense_kernel(
     for (int gi = 0; gi < G; ++gi)
       if (gi < g)
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) part[warp * E + gi * D + c.sub * VEC + j] = acc[gi][j];
+        for (int j = 0; j < VEC; ++j) part[warp * E + gi * DP + c.sub * VEC + j] = acc[gi][j];
   }
-  cluster_output(cluster, part, E, D, out + (long long)c.cell * E, hdr, false);
+  cluster_output(cluster, part, E, DP, Dt, out + (long long)c.cell * g * Dt, hdr, false);
 }
 
-template <int G, int D>
-__global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) int8_kernel(
+template <int G, int DP>
+__global__ void __launch_bounds__(kThreads, min_blocks<G, DP>()) int8_kernel(
     const float* __restrict__ q, const int8_t* __restrict__ k, const int8_t* __restrict__ v,
     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
     const int* __restrict__ page_ids, const int* __restrict__ pos, float* __restrict__ out,
-    int Hk, int g, int pp, int logP, int L, long long tok_stride, long long head_stride,
-    long long sc_tok_stride, long long sc_head_stride, float scale) {
-  using R = Rows<int8_t, D>;
+    int Hk, int g, int Dt, int pp, PageDiv div, int L, long long tok_stride,
+    long long head_stride, long long sc_tok_stride, long long sc_head_stride, int wide,
+    float scale) {
+  using R = Rows<int8_t, DP>;
   constexpr int VEC = R::VEC, TPR = R::TPR, N = kUnroll * G;
+  constexpr bool NARROW = G == 8;  // the instances that carry the narrow loads
+  static_assert(R::CH == 1, "an int8 row is at most 32 chunks");
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
   float* hdr = reinterpret_cast<float*>(smem4);
-  int* part = reinterpret_cast<int*>(hdr + kHeader);     // (kWarps, g, D)
-  float* sc = hdr + kHeader + kWarps * g * D;            // (g, L) logits -> probs -> codes
+  int* part = reinterpret_cast<int*>(hdr + kHeader);     // (kWarps, g, DP)
+  float* sc = hdr + kHeader + kWarps * g * DP;           // (g, L) logits -> probs -> codes
   int* pages = reinterpret_cast<int*>(sc + g * L);       // (L / P,)
-  const Cell c(cluster, pos, page_ids, pages, Hk, pp, logP, L, TPR);
-  const int E = g * D;
+  const Cell c(cluster, pos, page_ids, pages, Hk, pp, div, L, TPR);
+  const Span<1> sp(Dt, c.sub, R::EPC, wide != 0);
+  const int E = g * DP;
   const char* kat = reinterpret_cast<const char*>(k + c.h * head_stride) + c.sub * 16;
   const char* vat = reinterpret_cast<const char*>(v + c.h * head_stride) + c.sub * 16;
   const float* ksh = k_scale + c.h * sc_head_stride;
@@ -442,38 +537,45 @@ __global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) int8_kernel(
   __syncthreads();  // the page bases are in place
   // QK's first K rows, in flight while the query is quantised
   const int klim = c.p < 0 ? c.lo : c.hi;
-  uint4 raw[kUnroll], nxt[kUnroll];
+  uint4 raw[kUnroll][1], nxt[kUnroll][1];
   float ks[kUnroll], ks_nxt[kUnroll];
-  const auto load_k = [&](uint4(&r)[kUnroll], float(&kss)[kUnroll], int s0) {
+  const auto load_k = [&](uint4(&r)[kUnroll][1], float(&kss)[kUnroll], int s0) {
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int s = c.lane_of(s0, u);
       const long long row = s < klim ? c.row(s) : 0;
-      r[u] = s < klim ? load16(kat + row * tok_stride) : make_uint4(0, 0, 0, 0);
+      r[u][0] = s < klim ? load_chunk<int8_t, NARROW>(kat + row * tok_stride, sp.valid[0],
+                                                      sp.wide)
+                         : make_uint4(0, 0, 0, 0);
       kss[u] = s < klim ? __ldg(ksh + row * sc_tok_stride) : 0.f;
     }
   };
   load_k(raw, ks, c.first);
-  // A2: per-row absmax/127 quantisation of the query; the block's threads
-  // split the codes, staged as bytes in `part` (free until the PV phase)
-  const float* qb = q + (long long)c.cell * E;
+  // A2: per-row absmax/127 quantisation of the query over its true Dt;
+  // the block's threads split the codes, staged as bytes in `part` (free
+  // until the PV phase), zero past Dt
+  const float* qb = q + (long long)c.cell * g * Dt;
   if (threadIdx.x < 32) {
     for (int gi = 0; gi < g; ++gi) {
       float m = 0.f;
-      for (int d = threadIdx.x; d < D; d += 32) m = fmaxf(m, fabsf(qb[gi * D + d]));
+      for (int d = threadIdx.x; d < Dt; d += 32) m = fmaxf(m, fabsf(qb[gi * Dt + d]));
       for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
       if (threadIdx.x == 0) hdr[kQScale + gi] = fmaxf(m, 1e-8f) / 127.0f;
     }
   }
   __syncthreads();
   int8_t* codes = reinterpret_cast<int8_t*>(part);
-  for (int i = threadIdx.x; i < E; i += kThreads)
-    codes[i] = (int8_t)fminf(fmaxf(rintf(qb[i] / hdr[kQScale + i / D]), -127.f), 127.f);
+  for (int i = threadIdx.x; i < E; i += kThreads) {
+    const int gi = i / DP, d = i - gi * DP;
+    codes[i] = d < Dt ? (int8_t)fminf(fmaxf(rintf(qb[gi * Dt + d] / hdr[kQScale + gi]), -127.f),
+                                      127.f)
+                      : (int8_t)0;
+  }
   __syncthreads();
   int qc[G][4];  // the thread's 16 codes of each row, packed for dp4a
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) {
-    const int4 w = gi < g ? *reinterpret_cast<const int4*>(codes + gi * D + c.sub * VEC)
+    const int4 w = gi < g ? *reinterpret_cast<const int4*>(codes + gi * DP + c.sub * VEC)
                           : make_int4(0, 0, 0, 0);
     qc[gi][0] = w.x;
     qc[gi][1] = w.y;
@@ -489,10 +591,10 @@ __global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) int8_kernel(
     for (int u = 0; u < kUnroll; ++u)
 #pragma unroll
       for (int gi = 0; gi < G; ++gi) {
-        int a = __dp4a((int)raw[u].x, qc[gi][0], 0);
-        a = __dp4a((int)raw[u].y, qc[gi][1], a);
-        a = __dp4a((int)raw[u].z, qc[gi][2], a);
-        val[u * G + gi] = __dp4a((int)raw[u].w, qc[gi][3], a);
+        int a = __dp4a((int)raw[u][0].x, qc[gi][0], 0);
+        a = __dp4a((int)raw[u][0].y, qc[gi][1], a);
+        a = __dp4a((int)raw[u][0].z, qc[gi][2], a);
+        val[u * G + gi] = __dp4a((int)raw[u][0].w, qc[gi][3], a);
       }
     fold<TPR>(val, c.sub);
     constexpr int CNT = N >= TPR ? N / TPR : 1, GRP = N >= TPR ? 1 : TPR / N;
@@ -511,7 +613,7 @@ __global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) int8_kernel(
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      raw[u] = nxt[u];
+      raw[u][0] = nxt[u][0];
       ks[u] = ks_nxt[u];
     }
   }
@@ -522,7 +624,7 @@ __global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) int8_kernel(
     const int i = threadIdx.x + u * kThreads;
     vs[u] = i < n ? __ldg(vsh + c.row(c.lo + i) * sc_tok_stride) : 0.f;
   }
-  load_rows(raw, c, vat, tok_stride, c.first, c.hi);  // V, ahead of the softmax
+  load_rows<int8_t, NARROW>(raw, c, vat, tok_stride, c.first, c.hi, sp);  // V, ahead of softmax
   cluster_softmax<G>(cluster, hdr, sc, g, L, n);
 
   // A3: fold v_scale into the probs, quantise them per row to [0, 127]
@@ -563,12 +665,12 @@ __global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) int8_kernel(
 #pragma unroll
     for (int j = 0; j < VEC; ++j) acc[gi][j] = 0;
   for (int s0 = c.first; s0 < c.hi; s0 += c.step * kUnroll) {
-    load_rows(nxt, c, vat, tok_stride, s0 + c.step * kUnroll, c.hi);
+    load_rows<int8_t, NARROW>(nxt, c, vat, tok_stride, s0 + c.step * kUnroll, c.hi, sp);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int s = c.lane_of(s0, u);
       if (s >= c.hi) continue;
-      const unsigned w[4] = {raw[u].x, raw[u].y, raw[u].z, raw[u].w};
+      const unsigned w[4] = {raw[u][0].x, raw[u][0].y, raw[u][0].z, raw[u][0].w};
 #pragma unroll
       for (int gi = 0; gi < G; ++gi) {
         if (gi >= g) break;
@@ -578,7 +680,7 @@ __global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) int8_kernel(
       }
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) raw[u] = nxt[u];
+    for (int u = 0; u < kUnroll; ++u) raw[u][0] = nxt[u][0];
   }
 #pragma unroll
   for (int gi = 0; gi < G; ++gi)
@@ -593,9 +695,9 @@ __global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1) int8_kernel(
     for (int gi = 0; gi < G; ++gi)
       if (gi < g)
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) part[warp * E + gi * D + c.sub * VEC + j] = acc[gi][j];
+        for (int j = 0; j < VEC; ++j) part[warp * E + gi * DP + c.sub * VEC + j] = acc[gi][j];
   }
-  cluster_output(cluster, part, E, D, out + (long long)c.cell * E, hdr, true);
+  cluster_output(cluster, part, E, DP, Dt, out + (long long)c.cell * g * Dt, hdr, true);
 }
 
 // One cluster launch of `blocks` blocks, C to a cluster.  Dynamic shared
@@ -629,17 +731,20 @@ int launch_clusters(int blocks, int C, int smem, cudaStream_t st, Args... args) 
 }
 
 // The launch's template instance: G, the register arrays' size, is the
-// smallest of 1, 2, 4, 8 that holds g; D is 16, 32, 64 or 128 (ops.py
-// checks both).
+// smallest of 1, 2, 4, 8 that holds g (8 for a launch that needs the
+// narrow loads); DP, the compiled width, is 16, 32, 64, 128 or 256
+// (kernel.py `padded_dim`; ops.py checks both).
 template <template <int, int> class F, typename... A>
-int by_shape(int g, int D, A... a) {
-  const int G = g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : 8;
+int by_shape(int g, int DP, bool narrow, A... a) {
+  const int G = narrow ? 8 : g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : 8;
 #define PFD_D(G_)                                          \
-  switch (D) {                                             \
+  switch (DP) {                                            \
     case 16: return F<G_, 16>::run(a...);                  \
     case 32: return F<G_, 32>::run(a...);                  \
     case 64: return F<G_, 64>::run(a...);                  \
-    default: return F<G_, 128>::run(a...);                 \
+    case 128: return F<G_, 128>::run(a...);                \
+    case 256: return F<G_, 256>::run(a...);                \
+    default: return (int)cudaErrorInvalidValue;            \
   }
   switch (G) {
     case 1: PFD_D(1)
@@ -653,21 +758,24 @@ int by_shape(int g, int D, A... a) {
 struct DenseArgs {
   const void *q, *k, *v, *page_ids, *pos;
   void* out;
-  int B, Hk, g, pp, logP, C, L, smem;
+  int B, Hk, g, Dt, pp;
+  PageDiv div;
+  int C, L, smem;
   long long tok_stride, head_stride;
+  int wide;
   float scale;
   cudaStream_t st;
 };
 
 template <typename T>
 struct Dense {
-  template <int G, int D>
+  template <int G, int DP>
   struct Launch {
     static int run(const DenseArgs& a) {
-      return launch_clusters<dense_kernel<T, G, D>>(
+      return launch_clusters<dense_kernel<T, G, DP>>(
           a.B * a.Hk * a.C, a.C, a.smem, a.st, (const float*)a.q, (const T*)a.k,
           (const T*)a.v, (const int*)a.page_ids, (const int*)a.pos, (float*)a.out, a.Hk, a.g,
-          a.pp, a.logP, a.L, a.tok_stride, a.head_stride, a.scale);
+          a.Dt, a.pp, a.div, a.L, a.tok_stride, a.head_stride, a.wide, a.scale);
     }
   };
 };
@@ -678,15 +786,15 @@ struct Int8Args {
   long long sc_tok_stride, sc_head_stride;
 };
 
-template <int G, int D>
+template <int G, int DP>
 struct Int8Launch {
   static int run(const Int8Args& a) {
     const DenseArgs& d = a.d;
-    return launch_clusters<int8_kernel<G, D>>(
+    return launch_clusters<int8_kernel<G, DP>>(
         d.B * d.Hk * d.C, d.C, d.smem, d.st, (const float*)d.q, (const int8_t*)d.k,
         (const int8_t*)d.v, (const float*)a.k_scale, (const float*)a.v_scale,
-        (const int*)d.page_ids, (const int*)d.pos, (float*)d.out, d.Hk, d.g, d.pp, d.logP, d.L,
-        d.tok_stride, d.head_stride, a.sc_tok_stride, a.sc_head_stride, d.scale);
+        (const int*)d.page_ids, (const int*)d.pos, (float*)d.out, d.Hk, d.g, d.Dt, d.pp, d.div,
+        d.L, d.tok_stride, d.head_stride, a.sc_tok_stride, a.sc_head_stride, d.wide, d.scale);
   }
 };
 
@@ -694,31 +802,38 @@ struct Int8Launch {
 
 extern "C" {
 
-// kv_dtype: 0 = bf16, 1 = f32.  C blocks a cell, L lanes a block and smem
-// bytes a block come from kernel.py `plan`; the page size is 2^logP.
-// Returns the launch's cudaError_t.
+// kv_dtype: 0 = bf16, 1 = f32.  Dt is the true head width, DP the compiled
+// one it runs at; the page size P divides by (magic, shift); C blocks a
+// cell, L lanes a block and smem bytes a block come from kernel.py `plan`;
+// wide: every pool row starts on a 16-byte boundary.  Returns the launch's
+// cudaError_t.
 int paged_flash_decode_dense_launch(const void* q, const void* k, const void* v,
                                     const void* page_ids, const void* pos, void* out, int B,
-                                    int Hk, int g, int D, int pp, int logP, int C, int L,
-                                    int smem, long long tok_stride, long long head_stride,
+                                    int Hk, int g, int Dt, int DP, int pp, int P,
+                                    unsigned magic, unsigned shift, int C, int L, int smem,
+                                    long long tok_stride, long long head_stride, int wide,
                                     int kv_dtype, float scale, void* stream) {
-  const DenseArgs a{q, k, v, page_ids, pos, out, B, Hk, g, pp, logP, C, L, smem,
-                    tok_stride, head_stride, scale, (cudaStream_t)stream};
-  return kv_dtype == 0 ? by_shape<Dense<__nv_bfloat16>::Launch>(g, D, a)
-                       : by_shape<Dense<float>::Launch>(g, D, a);
+  if (P < 1 || Dt < 1 || Dt > DP || L % P) return (int)cudaErrorInvalidValue;
+  const DenseArgs a{q, k, v, page_ids, pos, out, B, Hk, g, Dt, pp, PageDiv{P, magic, shift},
+                    C, L, smem, tok_stride, head_stride, wide, scale, (cudaStream_t)stream};
+  const bool narrow = !wide || Dt != DP;  // runs in the G = 8 instances
+  return kv_dtype == 0 ? by_shape<Dense<__nv_bfloat16>::Launch>(g, DP, narrow, a)
+                       : by_shape<Dense<float>::Launch>(g, DP, narrow, a);
 }
 
 int paged_flash_decode_int8_launch(const void* q, const void* k, const void* v,
                                    const void* k_scale, const void* v_scale,
                                    const void* page_ids, const void* pos, void* out, int B,
-                                   int Hk, int g, int D, int pp, int logP, int C, int L, int smem,
-                                   long long tok_stride, long long head_stride,
-                                   long long sc_tok_stride, long long sc_head_stride,
-                                   float scale, void* stream) {
-  const Int8Args a{{q, k, v, page_ids, pos, out, B, Hk, g, pp, logP, C, L, smem, tok_stride,
-                    head_stride, scale, (cudaStream_t)stream},
+                                   int Hk, int g, int Dt, int DP, int pp, int P, unsigned magic,
+                                   unsigned shift, int C, int L, int smem, long long tok_stride,
+                                   long long head_stride, long long sc_tok_stride,
+                                   long long sc_head_stride, int wide, float scale,
+                                   void* stream) {
+  if (P < 1 || Dt < 1 || Dt > DP || L % P) return (int)cudaErrorInvalidValue;
+  const Int8Args a{{q, k, v, page_ids, pos, out, B, Hk, g, Dt, pp, PageDiv{P, magic, shift}, C,
+                    L, smem, tok_stride, head_stride, wide, scale, (cudaStream_t)stream},
                    k_scale, v_scale, sc_tok_stride, sc_head_stride};
-  return by_shape<Int8Launch>(g, D, a);
+  return by_shape<Int8Launch>(g, DP, !wide || Dt != DP, a);
 }
 
 }  // extern "C"

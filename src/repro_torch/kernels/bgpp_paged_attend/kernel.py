@@ -9,15 +9,16 @@ block ``c`` owns the round-0 lanes ``[c * L, (c + 1) * L)`` and, in the
 list of round ``r`` (its survivors in selection order), the ranks
 ``[c * caps[r], (c + 1) * caps[r])``.
 
-Shared memory a block (:func:`smem_bytes`, the source's carve-up): a fixed
+Shared memory a block (:func:`smem_bytes`, the source's carve-up): a
 header (the query's int8 codes and bit masks, the softmax statistics, the
-plan), the sort keys of the block's largest list (a power of two, at
-least one a thread), a stage for the other blocks' sorted keys, two lists
-of ``L`` entries (lane and ``g`` partial scores in whole 16-byte words;
-the rounds alternate between them) and the warps' ``(g, D)`` PV partials.
-The context cap (:func:`max_lanes`) is ``MAX_CLUSTER * L`` for the
-largest ``L`` that fits both that and the block sort's ``MAX_SLOTS`` keys
-a thread: S 32768 at g <= 3 and D 128.
+plan; :func:`header_bytes`), the sort keys of the block's largest list (a
+power of two, at least one a thread), a stage for the other blocks' sorted
+keys, two lists of ``L`` entries (lane and ``g`` partial scores in whole
+16-byte words; the rounds alternate between them) and the warps' ``(g,
+DP)`` PV partials at the compiled width.  The context cap
+(:func:`max_lanes`) is ``MAX_CLUSTER * L`` for the largest ``L`` that fits
+both that and the block sort's ``MAX_SLOTS`` keys a thread: S 32768 at g
+<= 3 and D 128, and at g <= 2 and D 256.
 """
 
 from __future__ import annotations
@@ -32,12 +33,11 @@ from repro_torch.kernels import build
 
 THREADS = 256  # kThreads in the source
 WARPS = THREADS // 32
-HEADER = 2592  # kHeader: query codes (1024 B), query bit masks (1024 B), 136 words
 STAGE = 2048  # kStage: the other blocks' sort keys staged at once
 MAX_CLUSTER = 8  # the portable cluster size
 MAX_SLOTS = 16  # kMaxSlots: keys a thread holds in the block sort
 MAX_LIST = MAX_SLOTS * THREADS  # the most entries a block's list may hold
-HEAD_DIMS = (16, 32, 64, 128)  # the source's template instances of D
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the source's compiled widths DP
 
 
 class Plan(NamedTuple):
@@ -56,6 +56,24 @@ def _pow2(n: int) -> int:
     return 1 << max(0, n - 1).bit_length()
 
 
+def padded_dim(D: int) -> int:
+    """The compiled width a head width ``D`` (a multiple of 8) runs at: the
+    least of :data:`HEAD_DIMS` that holds it.  Raises past the widest."""
+    for DP in HEAD_DIMS:
+        if D <= DP:
+            return DP
+    raise ValueError(f"bgpp_paged_attend: head_dim D={D} is over the widest compiled "
+                     f"width {HEAD_DIMS[-1]}")
+
+
+def header_bytes(D: int) -> int:
+    """The source's ``Header<DP>``: the query's int8 codes ``(8, max(DP,
+    128))``, its bit masks ``(8, 8, max(4, DP / 32))`` words and 136 words
+    of statistics and plan: 2592 bytes up to DP 128, 4640 at DP 256."""
+    DP = padded_dim(D)
+    return 8 * max(DP, 128) + 8 * 8 * max(4, DP // 32) * 4 + 544
+
+
 def entry_ints(g: int) -> int:
     """Ints of a list entry: the lane and ``g`` partial scores, padded to
     whole 16-byte words."""
@@ -66,9 +84,9 @@ def smem_bytes(g: int, D: int, L: int) -> int:
     """Dynamic shared memory of one block owning ``L`` round-0 lanes: the
     header, ``max(THREADS, pow2(L))`` 8-byte sort keys and ``STAGE`` staged
     ones, two lists of ``L`` entries of :func:`entry_ints` ints and the
-    warps' ``(g, D)`` int PV partials."""
-    return (HEADER + 8 * (max(THREADS, _pow2(L)) + STAGE) + 2 * 4 * entry_ints(g) * L
-            + 4 * WARPS * g * D)
+    warps' ``(g, DP)`` int PV partials at the compiled width."""
+    return (header_bytes(D) + 8 * (max(THREADS, _pow2(L)) + STAGE)
+            + 2 * 4 * entry_ints(g) * L + 4 * WARPS * g * padded_dim(D))
 
 
 def max_lanes(g: int, D: int) -> int:
@@ -96,8 +114,9 @@ def plan(B: int, Hk: int, g: int, D: int, S: int, k_max: int,
     at most one lane a block) whose ``B * Hk * C`` blocks still fit one
     block an SM, so the cells fill the card in one wave (decode geometry
     B 4, Hk 8 on 132 SMs: C 4, 128 blocks); it is then doubled until one
-    block's lanes fit the sort and shared memory.  Raises when no ``C``
-    fits, with the cap."""
+    block's lanes fit the sort and shared memory.  ``D`` is the true head
+    width; shared memory is that of its compiled width.  Raises when no
+    ``C`` fits, with the cap."""
     C = 1
     while C < MAX_CLUSTER and 2 * C <= S and B * Hk * 2 * C <= sms:
         C *= 2
@@ -117,6 +136,20 @@ def plan(B: int, Hk: int, g: int, D: int, S: int, k_max: int,
         C *= 2
 
 
+def wide_rows(k_planes: torch.Tensor, k_sign: torch.Tensor, v: torch.Tensor) -> int:
+    """The kernel's load widths: bit 0 when every packed plane and sign
+    row is the compiled width's ``DP / 8`` bytes on a boundary of that
+    many (16 at most; D is then a compiled width), bit 1 when every V row
+    starts on an 8-byte boundary.  Rows without them load byte by byte."""
+    D = 8 * k_planes.shape[-1]
+    a = min(16, padded_dim(D) // 8)
+    planes = D == padded_dim(D) and all(
+        t.data_ptr() % a == 0 and all(s % a == 0 for s in t.stride()[:-1])
+        for t in (k_planes, k_sign))
+    rows = v.data_ptr() % 8 == 0 and all(s % 8 == 0 for s in v.stride()[:2])
+    return int(planes) | 2 * int(rows)
+
+
 def launch(q, k_planes, k_sign, k_scale, v, v_scale, phys, pos, out,
            out_idx, *, k_max: int, survivors: Tuple[int, ...], query_bits: int,
            geometry: Plan) -> None:
@@ -133,9 +166,10 @@ def launch(q, k_planes, k_sign, k_scale, v, v_scale, phys, pos, out,
         q.data_ptr(), k_planes.data_ptr(), k_sign.data_ptr(), k_scale.data_ptr(),
         v.data_ptr(), v_scale.data_ptr(), phys.data_ptr(), pos.data_ptr(),
         out.data_ptr(), None if out_idx is None else out_idx.data_ptr(),
-        B, Hk, g, D, S, k_planes.shape[0], len(survivors), w_arr, c_arr, C, smem,
-        query_bits, k_planes.stride(0), k_planes.stride(1), k_planes.stride(2),
+        B, Hk, g, D, padded_dim(D), S, k_planes.shape[0], len(survivors), w_arr, c_arr, C,
+        smem, query_bits, k_planes.stride(0), k_planes.stride(1), k_planes.stride(2),
         v.stride(0), v.stride(1), k_scale.stride(0), k_scale.stride(1),
-        D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream,
+        wide_rows(k_planes, k_sign, v), D ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, "bgpp_paged_attend")

@@ -3,8 +3,7 @@
 Counterpart of :mod:`repro.kernels.bgpp_paged_attend.ops`.  Routing is by
 the tensors' device: CPU tensors take the plain version in :mod:`.ref`;
 CUDA tensors launch the CUDA kernel or the call raises — there is no
-fallback.  GQA, plan, shape, alignment and context-length mistakes raise
-here.
+fallback.  GQA, plan, shape and context-length mistakes raise here.
 """
 
 from __future__ import annotations
@@ -90,36 +89,23 @@ def _validate(q, k_planes, k_sign, k_scale, v, v_scale, phys, pos,
 def _validate_cuda(q, k_planes, k_sign, k_scale, v, v_scale, phys, pos, k_max,
                    survivors) -> kernel.Plan:
     """What the CUDA kernel additionally requires of its operands; returns
-    the launch's :func:`kernel.plan` (which raises past the context cap)."""
+    the launch's :func:`kernel.plan` (which raises past the context cap).
+    Every D (a multiple of 8) up to 256 runs, at its compiled width
+    (:func:`kernel.padded_dim`), and rows at any alignment (vector loads
+    where they allow, :func:`kernel.wide_rows`); the refusals are g > 8,
+    D > 256 and the context cap."""
     B, Hk, g, D = q.shape
     if q.dtype != torch.float32 or not q.is_contiguous():
         raise ValueError("bgpp_paged_attend: q must be contiguous float32")
     if g > 8:
         raise ValueError(f"bgpp_paged_attend: GQA group g={g} > 8 is not supported")
-    if D not in kernel.HEAD_DIMS:
-        raise ValueError(
-            f"bgpp_paged_attend: head_dim D={D} is not one of "
-            f"{', '.join(map(str, kernel.HEAD_DIMS))}"
-        )
+    kernel.padded_dim(D)  # raises past the widest compiled width
     if (k_planes.dtype, k_sign.dtype, v.dtype) != (torch.uint8, torch.uint8, torch.int8):
         raise ValueError("bgpp_paged_attend: planes/sign must be uint8 and v int8")
     if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
         raise ValueError("bgpp_paged_attend: scales must be float32")
     if k_planes.stride(3) != 1 or v.stride(2) != 1:
         raise ValueError("bgpp_paged_attend: plane and V rows must be contiguous")
-    # a plane row is one D/8-byte load, a V row 8-byte loads
-    row_bytes = D // 8
-    if any(t.data_ptr() % row_bytes or any(s % row_bytes for s in t.stride()[:-1])
-           for t in (k_planes, k_sign)):
-        raise ValueError(
-            f"bgpp_paged_attend: plane and sign rows must start on {row_bytes}-byte "
-            f"boundaries (base pointers and plane / token / head strides)"
-        )
-    if v.data_ptr() % 8 or v.stride(0) % 8 or v.stride(1) % 8:
-        raise ValueError(
-            "bgpp_paged_attend: V rows must start on 8-byte boundaries (base "
-            "pointer and token / head strides)"
-        )
     for name, t in (("phys", phys), ("pos", pos)):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"bgpp_paged_attend: {name} must be contiguous int32")

@@ -3,8 +3,9 @@
 Counterpart of :mod:`repro.kernels.bgpp_score.ops`.  Routing is by the
 tensors' device: CPU tensors take the plain version in :mod:`.ref`; CUDA
 tensors launch the CUDA kernel or the call raises — there is no fallback.
-The kernel picks its own key tile, so the reference's ``tile_s`` has no
-counterpart, and it takes any S (the reference pads S to its tile).
+The kernel's key tile comes from :func:`.kernel.plan`, so the reference's
+``tile_s`` has no counterpart, and it takes any S (the reference pads S
+to its tile) and any number of query rows.
 
 :func:`bgpp_score_round` has the reference's signature (one query, one
 key set).  :func:`bgpp_score_heads` scores every query head of a decode
@@ -19,9 +20,7 @@ import torch
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.bgpp_score import kernel
 from repro_torch.kernels.bgpp_score.ref import bgpp_score_heads_ref
-
-MAX_ROWS = 65535  # query rows of one launch (grid.y)
-
+from repro_torch.kernels.paged_flash_decode.kernel import sm_count
 
 def _validate(q, plane_packed, sign_packed, alive) -> None:
     if q.ndim != 3 or plane_packed.ndim != 4 or sign_packed.shape != plane_packed.shape:
@@ -58,15 +57,15 @@ def bgpp_score_heads(
         return bgpp_score_heads_ref(q, plane_packed, sign_packed, alive)
     if q.device.type != "cuda":
         raise ValueError(f"bgpp_score: no kernel for device {q.device}")
-    B, Hq, _ = q.shape
     if plane_packed.stride(3) != 1 or sign_packed.stride(3) != 1:
         raise ValueError("bgpp_score: the packed planes need unit stride along D")
-    if B * Hq > MAX_ROWS:
-        raise ValueError(f"bgpp_score: {B * Hq} query rows exceed the grid ({MAX_ROWS})")
     q, alive = q.contiguous(), alive.contiguous()
     out = torch.empty(alive.shape, dtype=torch.int32, device=q.device)
     if out.numel():
-        kernel.launch(q, plane_packed, sign_packed, alive, out)
+        B, Hq, D = q.shape
+        S, Hk = plane_packed.shape[1:3]
+        geometry = kernel.plan(B, Hk, Hq // Hk, S, D, sm_count(q.device))
+        kernel.launch(q, plane_packed, sign_packed, alive, out, geometry)
         LAUNCHES["bgpp_score"] += 1
     return out
 

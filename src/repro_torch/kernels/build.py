@@ -109,26 +109,30 @@ def _declare(lib: ctypes.CDLL) -> None:
     and the stream (a bare int would be cut to 32 bits), ``c_int`` /
     ``c_longlong`` for sizes and strides."""
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    U = ctypes.c_uint
+    pfd_shape = [
+        I, I, I, I, I, I,  # B, Hk, g, D, compiled width, pages_per_slot
+        I, U, U,  # page size and its divider (magic, shift)
+        I, I, I,  # plan: blocks a cluster, lanes a block, shared memory bytes
+    ]
     lib.paged_flash_decode_dense_launch.argtypes = [
         P, P, P, P, P, P,  # q, k, v, page_ids, pos, out
-        I, I, I, I, I, I,  # B, Hk, g, D, pages_per_slot, log2 page_size
-        I, I, I,  # plan: blocks a cluster, lanes a block, shared memory bytes
-        L, L, I, F, P,  # kv tok/head strides, kv dtype code, scale, stream
+        *pfd_shape,
+        L, L, I, I, F, P,  # kv tok/head strides, wide rows, kv dtype code, scale, stream
     ]
     lib.paged_flash_decode_int8_launch.argtypes = [
         P, P, P, P, P, P, P, P,  # q, k, v, k_scale, v_scale, page_ids, pos, out
-        I, I, I, I, I, I,  # B, Hk, g, D, pages_per_slot, log2 page_size
-        I, I, I,  # plan: blocks a cluster, lanes a block, shared memory bytes
-        L, L, L, L, F, P,  # kv strides, scale strides, scale, stream
+        *pfd_shape,
+        L, L, L, L, I, F, P,  # kv strides, scale strides, wide rows, scale, stream
     ]
     lib.bgpp_paged_attend_launch.argtypes = [
         P, P, P, P, P, P, P, P, P, P,  # q, planes, sign, ks, v, vs, phys, pos, out, out_idx
-        I, I, I, I, I,  # B, Hk, g, D, S
+        I, I, I, I, I, I,  # B, Hk, g, D, compiled width, S
         I, I, P, P,  # nbits, rounds, list widths and caps (host int arrays)
         I, I, I,  # plan: blocks a cluster, shared memory bytes; query_bits
         L, L, L,  # plane strides: plane, token, head (sign shares token/head)
         L, L, L, L,  # v token/head strides, scale token/head strides
-        F, P,  # scale, stream
+        I, F, P,  # wide rows, scale, stream
     ]
     lib.bstc_decode_launch.argtypes = [
         P, P, P, P,  # bitmap, tile_offsets, patterns, out
@@ -141,14 +145,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.flash_attention_launch.argtypes = [
         P, P, P, P,  # q, k, v, out
-        I, I, I, I, I, I,  # B, Sq, Sk, Hq, Hk, D
+        I, I, I, I, I, I, I, I,  # B, Sq, Sk, Hq, Hk, D, compiled width, wide rows
         L, L, L, L, L, L, L, L, L,  # q, k, v strides: batch, sequence, head
         I, I, I, I, F,  # dtype code, mask code, window, q_offset, scale
         I, I, P,  # plan: query rows a block, shared memory bytes; stream
     ]
     lib.bgpp_score_launch.argtypes = [
         P, P, P, P, P,  # q, plane, sign, alive, out
-        I, I, I, I, I,  # Q rows, S, packed D, Hq, g
+        I, I, I, I, I,  # B, S, D, Hq, Hk
+        I, I, I, I, I,  # plan: staged row words, lanes a key, keys a tile, shared memory; wide
         L, L, L, L, L, L, P,  # plane / sign strides: batch, token, head; stream
     ]
     lib.brcr_gemm_launch.argtypes = [

@@ -26,6 +26,7 @@ MASK_CODES = {"full": 0, "causal": 1, "sliding": 2, "chunked": 3}
 TILE_K = 64  # kBK: keys a tile, both bodies
 F32_BQ = 64  # kBQ: the f32 body's query rows a block
 MMA_BQ = 32  # kMmaBQ: the bf16 body's query rows a block
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the source's compiled widths DP
 
 
 class Plan(NamedTuple):
@@ -39,11 +40,24 @@ class Plan(NamedTuple):
     grid: tuple
 
 
+def padded_dim(D: int) -> int:
+    """The compiled width a head width ``D`` runs at: the least of
+    :data:`HEAD_DIMS` that holds it (the kernel reads q, k and v past ``D``
+    as zero and drops the output past it).  Raises past the widest."""
+    for DP in HEAD_DIMS:
+        if D <= DP:
+            return DP
+    raise ValueError(f"flash_attention: head_dim {D} is over the kernel's widest compiled "
+                     f"width {HEAD_DIMS[-1]} (compiled widths {HEAD_DIMS})")
+
+
 def smem_bytes(dtype: torch.dtype, D: int) -> int:
-    """Dynamic shared memory of one block (the source's carve-up).  bf16:
-    the Q tile and two stages of 64-key K and V tiles, 2 bytes an element.
+    """Dynamic shared memory of one block (the source's carve-up) at the
+    compiled width of ``D``.  bf16: the Q tile and two stages of 64-key K
+    and V tiles, 2 bytes an element (147,456 B at 256: one block an SM).
     f32: the padded Q and K tiles, the V tile and the padded P tile, 4
-    bytes an element."""
+    bytes an element (213,760 B at 256, under the block's 232,448)."""
+    D = padded_dim(D)
     if dtype == torch.float32:
         return 4 * (F32_BQ * (D + 1) + TILE_K * (D + 1) + TILE_K * D
                     + F32_BQ * (TILE_K + 1))
@@ -63,6 +77,14 @@ def plan(dtype: torch.dtype, B: int, Sq: int, Hq: int, D: int) -> Plan:
     return Plan(MMA_BQ, 4 * MMA_BQ, smem_bytes(dtype, D), (B * Hq, -(-Sq // MMA_BQ)))
 
 
+def wide_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether every row of q, k and v starts on a 16-byte boundary (base
+    pointers and batch / sequence / head strides): the bf16 body then
+    stages them by 16-byte ``cp.async``, else element by element."""
+    return all(t.data_ptr() % 16 == 0 and all((s * t.element_size()) % 16 == 0
+                                              for s in t.stride()[:3]) for t in (q, k, v))
+
+
 def launch(q, k, v, out, geometry: Plan, mask_kind: str, window: int, q_offset: int,
            scale: float) -> None:
     """Enqueue one launch on the current stream; raise if it was refused."""
@@ -72,7 +94,7 @@ def launch(q, k, v, out, geometry: Plan, mask_kind: str, window: int, q_offset: 
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, Sq, Sk, Hq, Hk, D,
+        B, Sq, Sk, Hq, Hk, D, padded_dim(D), int(wide_rows(q, k, v)),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         _DTYPE[q.dtype], MASK_CODES[mask_kind], int(window), int(q_offset), float(scale),
         geometry.BQ, geometry.smem, stream,

@@ -20,7 +20,7 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's compiled head widths
+HEAD_DIMS = kernel.HEAD_DIMS  # the kernel's compiled head widths
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -54,20 +54,14 @@ def _validate(q, k, v, mask_kind, q_offset):
 
 def _validate_cuda(q, k, v) -> kernel.Plan:
     """What the CUDA kernel additionally requires of its operands; returns
-    the launch's :func:`kernel.plan`.  Its head widths are the compiled
-    ones (the plain version takes any).  The bf16 body copies 16-byte
-    chunks, so its rows must start on 16-byte boundaries."""
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {q.shape[3]} is not one of the kernel's "
-                         f"compiled widths {HEAD_DIMS}")
+    the launch's :func:`kernel.plan`.  Every head width up to 256 runs, at
+    its compiled width (:func:`kernel.padded_dim`; the plain version takes
+    any), and rows at any alignment (the bf16 body stages unaligned rows
+    element by element, :func:`kernel.wide_rows`)."""
+    kernel.padded_dim(q.shape[3])  # raises past the widest compiled width
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention: {name} must be contiguous along D")
-        if t.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(
-                (s * t.element_size()) % 16 for s in t.stride()[:3])):
-            raise ValueError(
-                f"flash_attention: {name} rows must start on 16-byte boundaries "
-                f"(base pointer and batch / sequence / head strides)")
     return kernel.plan(q.dtype, *q.shape)
 
 

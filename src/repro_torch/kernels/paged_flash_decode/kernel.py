@@ -11,7 +11,7 @@ from static shapes, once per shape.
 from __future__ import annotations
 
 import functools
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -23,6 +23,7 @@ THREADS = 256  # kThreads in the source
 WARPS = THREADS // 32
 HEADER = 128  # kHeader: the shared-memory header, in floats
 MAX_CLUSTER = 8  # the portable cluster size
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the source's compiled widths DP
 
 _SMS: Dict[int, int] = {}
 
@@ -36,17 +37,42 @@ class Plan(NamedTuple):
     smem: int
 
 
+def padded_dim(D: int) -> int:
+    """The compiled width a head width ``D`` runs at: the least of
+    :data:`HEAD_DIMS` that holds it (the kernel reads q, K and V past ``D``
+    as zero and drops the output past it).  Raises past the widest."""
+    for DP in HEAD_DIMS:
+        if D <= DP:
+            return DP
+    raise ValueError(f"paged_flash_decode: head_dim D={D} is over the widest compiled "
+                     f"width {HEAD_DIMS[-1]}")
+
+
+def page_divider(page_size: int) -> Tuple[int, int]:
+    """``(magic, shift)`` with ``s // page_size == (umulhi(s, magic) + s)
+    >> shift`` for every ``0 <= s < 2**31`` (the source's ``PageDiv``):
+    ``shift = ceil(log2(P))`` and ``magic = 2^32 (2^shift - P) // P + 1``
+    (Granlund and Montgomery's round-up method; a power of two gives
+    ``magic`` 1, a plain shift)."""
+    if page_size < 1:
+        raise ValueError(f"paged_flash_decode: page_size={page_size} must be >= 1")
+    shift = (page_size - 1).bit_length()
+    return ((1 << 32) * ((1 << shift) - page_size)) // page_size + 1, shift
+
+
 def smem_bytes(g: int, D: int, lanes: int, page_size: int) -> int:
     """Dynamic shared memory of one block owning ``lanes`` lanes: the
-    header, the warps' ``(g, D)`` PV partials, the ``(g, lanes)`` scores
-    and the block's page bases, 4 bytes each (the source's carve-up)."""
-    return 4 * (HEADER + WARPS * g * D + g * lanes + lanes // page_size)
+    header, the warps' ``(g, DP)`` PV partials at the compiled width, the
+    ``(g, lanes)`` scores and the block's page bases, 4 bytes each (the
+    source's carve-up)."""
+    return 4 * (HEADER + WARPS * g * padded_dim(D) + g * lanes + lanes // page_size)
 
 
 def max_lanes(g: int, D: int, page_size: int) -> int:
     """The most lanes a slot may have: ``MAX_CLUSTER`` blocks, each with as
     many whole pages as its shared memory holds."""
-    pages = (build.MAX_SMEM // 4 - HEADER - WARPS * g * D) // (g * page_size + 1)
+    pages = ((build.MAX_SMEM // 4 - HEADER - WARPS * g * padded_dim(D))
+             // (g * page_size + 1))
     return MAX_CLUSTER * max(0, pages) * page_size
 
 
@@ -60,7 +86,9 @@ def plan(B: int, Hk: int, g: int, D: int, pages_per_slot: int, page_size: int,
     block an SM, so the cells fill the card in one wave (decode geometry
     B 4, Hk 8 on 132 SMs: C 4, 128 blocks); it is then doubled until one
     block's lanes fit in shared memory.  Block ``c`` owns the lanes
-    ``[c * L, (c + 1) * L)``.  Raises when no ``C`` fits, with the cap."""
+    ``[c * L, (c + 1) * L)``, whole pages of any size.  ``D`` is the true
+    head width; shared memory is that of its compiled width.  Raises when
+    no ``C`` fits, with the cap."""
     C = 1
     while C < MAX_CLUSTER and 2 * C <= pages_per_slot and B * Hk * 2 * C <= sms:
         C *= 2
@@ -87,6 +115,14 @@ def sm_count(device: torch.device) -> int:
     return _SMS[idx]
 
 
+def wide_rows(k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether every pool row of ``k`` and ``v`` starts on a 16-byte
+    boundary (base pointers and token / head strides): the kernel then
+    loads whole 16-byte chunks, else element by element."""
+    return all(t.data_ptr() % 16 == 0 and all((s * t.element_size()) % 16 == 0
+                                              for s in t.stride()[:2]) for t in (k, v))
+
+
 def launch(q, k, v, page_ids, pos, out, page_size: int, geometry: Plan,
            k_scale: Optional[torch.Tensor] = None,
            v_scale: Optional[torch.Tensor] = None) -> None:
@@ -95,22 +131,24 @@ def launch(q, k, v, page_ids, pos, out, page_size: int, geometry: Plan,
     B, Hk, g, D = q.shape
     pp = page_ids.shape[1]
     C, L, smem = geometry
-    log_p = page_size.bit_length() - 1  # ops.py checks it is a power of two
+    magic, shift = page_divider(page_size)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     tok_stride, head_stride = k.stride(0), k.stride(1)
     scale = D ** -0.5
+    shape = (B, Hk, g, D, padded_dim(D), pp, page_size, magic, shift, C, L, smem)
+    wide = int(wide_rows(k, v))
     if k_scale is None:
         err = lib.paged_flash_decode_dense_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), page_ids.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), B, Hk, g, D, pp, log_p, C, L, smem,
-            tok_stride, head_stride, _KV_DTYPE[k.dtype], scale, stream,
+            pos.data_ptr(), out.data_ptr(), *shape, tok_stride, head_stride, wide,
+            _KV_DTYPE[k.dtype], scale, stream,
         )
         build.check(err, "paged_flash_decode (dense)")
     else:
         err = lib.paged_flash_decode_int8_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), page_ids.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), B, Hk, g, D, pp, log_p, C, L, smem, tok_stride,
-            head_stride, k_scale.stride(0), k_scale.stride(1), scale, stream,
+            out.data_ptr(), *shape, tok_stride, head_stride, k_scale.stride(0),
+            k_scale.stride(1), wide, scale, stream,
         )
         build.check(err, "paged_flash_decode (int8)")

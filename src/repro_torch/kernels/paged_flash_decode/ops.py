@@ -3,8 +3,8 @@
 Counterpart of :mod:`repro.kernels.paged_flash_decode.ops`.  Routing is by
 the tensors' device: CPU tensors take the plain version in :mod:`.ref`;
 CUDA tensors launch the CUDA kernel or the call raises — there is no
-fallback.  Shape, dtype, stride, alignment and context-length mistakes
-raise here, at the call boundary.
+fallback.  Shape, dtype, stride and context-length mistakes raise here,
+at the call boundary.
 """
 
 from __future__ import annotations
@@ -68,7 +68,10 @@ def _validate(q, k, v, page_ids, pos, page_size, k_scale, v_scale):
 
 def _validate_cuda(q, k, v, page_ids, pos, page_size, k_scale, v_scale) -> kernel.Plan:
     """What the CUDA kernel additionally requires of its operands; returns
-    the launch's :func:`kernel.plan`."""
+    the launch's :func:`kernel.plan`.  Every D up to 256 runs (at its
+    compiled width, :func:`kernel.padded_dim`), every page size >= 1, and
+    pool rows at any alignment (16-byte loads where they allow); the
+    refusals are g > 8, D > 256 and the context cap."""
     B, Hk, g, D = q.shape
     if q.dtype != torch.float32 or not q.is_contiguous():
         raise ValueError("paged_flash_decode: q must be contiguous float32")
@@ -81,16 +84,7 @@ def _validate_cuda(q, k, v, page_ids, pos, page_size, k_scale, v_scale) -> kerne
         )
     if k.stride(2) != 1:
         raise ValueError("paged_flash_decode: pool rows must be contiguous in D")
-    if D not in (16, 32, 64, 128):
-        raise ValueError(f"paged_flash_decode: head_dim D={D} is not one of 16, 32, 64, 128")
-    if page_size & (page_size - 1):
-        raise ValueError(f"paged_flash_decode: page_size={page_size} is not a power of two")
-    if any(t.data_ptr() % 16 or (t.stride(0) * t.element_size()) % 16
-           or (t.stride(1) * t.element_size()) % 16 for t in (k, v)):
-        raise ValueError(
-            "paged_flash_decode: pool rows must start on 16-byte boundaries "
-            "(base pointers and token / head strides)"
-        )
+    kernel.padded_dim(D)  # raises past the widest compiled width
     if k_scale is not None and k_scale.dtype != torch.float32:
         raise ValueError("paged_flash_decode: scales must be float32")
     for name, t in (("page_ids", page_ids), ("pos", pos)):

@@ -40,8 +40,10 @@ from repro_torch.core import bitslice as tbit
 from repro_torch.core import topk as ttopk
 from repro_torch.examples import bgpp_sparse_attention as tbsa
 from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.kernels import build
 from repro_torch.kernels.bgpp_score import bgpp_score_heads, bgpp_score_round
-from repro_torch.kernels.bgpp_score.ref import bgpp_score_round_ref
+from repro_torch.kernels.bgpp_score import kernel as score_kernel
+from repro_torch.kernels.bgpp_score.ref import bgpp_score_heads_ref, bgpp_score_round_ref
 
 jax.config.update("jax_platform_name", "cpu")
 torch.set_num_threads(1)
@@ -119,6 +121,155 @@ class TestScoreRound:
         with pytest.raises(ValueError, match="no kernel for device"):
             bgpp_score_heads(meta(q), meta(pl), meta(pl), meta(alive))
         assert LAUNCHES["bgpp_score"] == 0
+
+
+def _words(bits):
+    """``(..., D)`` {0,1} -> ``(..., W)`` little-endian uint32 words, bit d
+    of word w holding dim 32 w + d (D padded with zeros to whole words)."""
+    W = -(-bits.shape[-1] // 32)
+    pad = np.zeros(bits.shape[:-1] + (32 * W - bits.shape[-1],), np.uint8)
+    packed = np.packbits(np.concatenate([bits.astype(np.uint8), pad], -1), -1,
+                         bitorder="little")
+    return np.ascontiguousarray(packed).view("<u4")
+
+
+def _k6_model(q, plane_packed, sign_packed, alive, plan, junk):
+    """``bgpp_score.cu`` on the CPU, block by block of ``plan``: the
+    group's alive bytes, a dead tile written as zeros, only keys some row
+    of the group needs staged (the others hold ``junk`` words), each row's
+    q split into a sign mask and its used magnitude planes, and every
+    32-dim word adding ``2^j (popc(M_j & b) - 2 popc(M_j & b & (s ^ sq)))``
+    modulo 2^32, words interleaved over ``LPK`` lanes."""
+    B, Hq, D = q.shape
+    _, S, Hk, Dp = plane_packed.shape
+    g, WP, LPK, TS = Hq // Hk, plan.WP, plan.LPK, plan.TS
+    unpack = lambda p: np.unpackbits(p, -1, bitorder="little")
+    mag = np.abs(q.astype(np.int64)).astype(np.uint32)  # |INT_MIN| = 2^31
+    sq = _words(q < 0)
+    out = np.full((B, Hq, S), 12345, np.int64)
+    seen = np.zeros((B, S // TS + 1, Hk), np.int64)
+    for blk in range(plan.blocks):  # the source's block -> (slot, tile, kv head)
+        h, tile, b = blk % Hk, (blk // Hk) % plan.tiles, blk // (Hk * plan.tiles)
+        seen[b, tile, h] += 1
+        s0, rows = tile * TS, slice(h * g, (h + 1) * g)
+        n = min(TS, S - s0)
+        alv = alive[b, rows, s0:s0 + n]
+        if not alv.any():
+            out[b, rows, s0:s0 + n] = 0
+            continue
+        kb, ks = junk[0][:n].copy(), junk[1][:n].copy()
+        live = alv.any(0)
+        kb[live] = _words(unpack(plane_packed[b, s0:s0 + n, h]))[live]
+        ks[live] = _words(unpack(sign_packed[b, s0:s0 + n, h]))[live]
+        for gi, r in enumerate(range(h * g, (h + 1) * g)):
+            used = np.bitwise_or.reduce(mag[b, r])
+            acc = np.zeros(n, np.uint64)
+            for wl in range(LPK):
+                for w in range(wl, WP, LPK):
+                    if w >= sq.shape[-1]:  # words past D: the query's planes are 0
+                        continue
+                    x = ks[:, w] ^ sq[b, r, w]
+                    for j in range(32):
+                        if used >> j & 1:
+                            m = _words((mag[b, r] >> j) & 1)[w]
+                            y = m & kb[:, w]
+                            c = (np.bitwise_count(y).astype(np.int64)
+                                 - 2 * np.bitwise_count(y & x).astype(np.int64))
+                            acc = (acc + (c.astype(np.uint64) << np.uint64(j))) % 2 ** 32
+            out[b, r, s0:s0 + n] = np.where(alv[gi], acc.astype(np.uint32).view(np.int32), 0)
+    assert (seen[:, :plan.tiles] == 1).all()  # every (slot, tile, kv head) once
+    return out.astype(np.int32)
+
+
+def _k6_operands(rng, B, Hk, g, S, D, q_kind, alive_kind):
+    """Seeded K6 operands (numpy): q of ``q_kind`` (``full``: int32 over
+    its whole range with INT_MIN and INT_MAX placed; ``msb``: the
+    predictor's 4-bit truncation of int8 codes), packed plane and sign
+    rows, and alive of ``alive_kind`` (``mixed`` has whole dead 32-key
+    tiles and dead keys in live ones)."""
+    Hq, Dp = Hk * g, D // 8
+    if q_kind == "full":
+        q = rng.integers(-2 ** 31, 2 ** 31, size=(B, Hq, D), dtype=np.int64).astype(np.int32)
+        q[0, 0, 0], q[-1, -1, -1] = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    else:
+        c = rng.integers(-127, 128, size=(B, Hq, D))
+        q = (np.sign(c) * ((np.abs(c) >> 3) << 3)).astype(np.int32)
+    plane = rng.integers(0, 256, size=(B, S, Hk, Dp)).astype(np.uint8)
+    sign = rng.integers(0, 256, size=(B, S, Hk, Dp)).astype(np.uint8)
+    alive = {"dead": np.zeros((B, Hq, S), bool), "live": np.ones((B, Hq, S), bool),
+             "mixed": rng.random((B, Hq, S)) < 0.3}[alive_kind]
+    if alive_kind == "mixed":
+        alive[:, :, :32] = False
+        alive[:, :, 64:96] = False
+    return q, plane, sign, alive
+
+
+class TestScoreWordArithmetic:
+    """The redesigned kernel's arithmetic and block walk (a CPU model of
+    the source) is bit-exact against the plain version and the JAX Pallas
+    kernel in interpret mode, for int32 q over its whole range and for the
+    predictor's MSB-truncated q."""
+
+    SMS = 132  # an H100 SXM
+
+    @pytest.mark.parametrize("D", [16, 24, 128])
+    @pytest.mark.parametrize("q_kind", ["full", "msb"])
+    @pytest.mark.parametrize("alive_kind", ["mixed", "dead", "live"])
+    def test_model_matches_plain_and_jax(self, D, q_kind, alive_kind):
+        rng = np.random.default_rng(7 * D + len(q_kind) + len(alive_kind))
+        B, Hk, g, S = 2, 2, 3, 130
+        q, plane, sign, alive = _k6_operands(rng, B, Hk, g, S, D, q_kind, alive_kind)
+        plan = score_kernel.plan(B, Hk, g, S, D, self.SMS)
+        junk = rng.integers(0, 2 ** 32, size=(2, plan.TS, plan.WP), dtype=np.uint64)
+        got = _k6_model(q, plane, sign, alive, plan, junk.astype(np.uint32))
+        want = bgpp_score_heads_ref(_t(q), _t(plane), _t(sign), _t(alive)).numpy()
+        _eq(got, want)
+        for b, h in ((0, 0), (B - 1, Hk * g - 1)):  # the Pallas kernel, one query a call
+            jw = jax_score(jnp.asarray(q[b, h]), jnp.asarray(plane[b, :, h // g]),
+                           jnp.asarray(sign[b, :, h // g]), jnp.asarray(alive[b, h]),
+                           interpret=True)
+            _eq(got[b, h], jw)
+        if alive_kind == "dead":
+            assert not got.any()
+
+
+class TestScorePlan:
+    SMS = 132  # an H100 SXM
+
+    @pytest.mark.parametrize("B,Hk,g,S,D,blocks,TS", [
+        (1, 1, 1, 4096, 128, 128, 32),  # the walkthrough: four times today's 32 blocks
+        (4, 8, 3, 1024, 128, 1024, 32),  # the decode geometry
+        (4, 8, 3, 32768, 128, 4096, 256),  # its long context
+        (70000, 1, 1, 100, 128, 70000, 256),  # 70,000 query rows, past a 65,535 grid.y
+        (1, 2, 4, 77, 24, 2, 128),  # D 24: one word a row, one lane a key
+        (2, 1, 8, 300, 256, 20, 32),  # D 256: two words a lane
+    ])
+    def test_grid_and_tiles_cover_every_key_once(self, B, Hk, g, S, D, blocks, TS):
+        p = score_kernel.plan(B, Hk, g, S, D, self.SMS)
+        assert (p.blocks, p.TS) == (blocks, TS)
+        W = -(-D // 32)
+        assert p.WP >= W and p.WP & (p.WP - 1) == 0 and p.LPK == min(p.WP, 4)
+        assert p.WP % p.LPK == 0 and p.TS % (score_kernel.THREADS // p.LPK) == 0
+        assert p.tiles * p.TS >= S > (p.tiles - 1) * p.TS
+        assert p.blocks == B * p.tiles * Hk
+        assert p.smem == score_kernel.smem_bytes(g, p.WP, p.TS) <= build.MAX_SMEM
+        ids = np.arange(p.blocks)  # the source's block -> (slot, tile, kv head)
+        cells = np.stack([ids // (Hk * p.tiles), (ids // Hk) % p.tiles, ids % Hk], 1)
+        assert len(np.unique(cells, axis=0)) == p.blocks
+        assert (cells.max(0) == [B - 1, p.tiles - 1, Hk - 1]).all()
+
+    def test_a_group_past_shared_memory_names_the_cap(self):
+        p = score_kernel.plan(1, 1, 64, 4096, 128, self.SMS)
+        assert p.TS == 32 and p.smem <= build.MAX_SMEM  # fewer passes first
+        with pytest.raises(ValueError, match=r"the cap at D=4096 is g=\d+"):
+            score_kernel.plan(1, 1, 64, 4096, 4096, self.SMS)
+
+    def test_the_kernel_stages_whole_chunks_only_when_rows_allow(self):
+        planes = torch.zeros(7, 2, 40, 3, 16, dtype=torch.uint8)
+        assert score_kernel.wide_rows(planes[5], planes[6])  # batch, token, head strides
+        assert not score_kernel.wide_rows(planes[5, ..., :8], planes[6, ..., :8])
+        odd = torch.zeros(2 * 40 * 3 * 3, dtype=torch.uint8).view(2, 40, 3, 3)
+        assert not score_kernel.wide_rows(odd, odd)  # D 24: byte by byte
 
 
 def _stats_equal(got, want):

@@ -51,7 +51,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import attention
 from repro_torch.interop import params_from_numpy, tensor_from_numpy
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import kernel as flash_kernel, ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.models import transformer
 from repro_torch.serving import engine, kv_cache as tkvc
@@ -143,8 +143,11 @@ class TestFlashAttentionPlain:
         with pytest.raises(ValueError, match="multiple"):
             flash_attention(q, k, v)
         _, (q, k, v) = _both(_qkv(5, 1, 8, 8, 2, 2, 24), "float32")
-        with pytest.raises(ValueError, match="head_dim 24 is not one of the kernel's"):
-            flash_ops._validate_cuda(q, k, v)  # the card's kernel; the CPU takes D 24
+        assert flash_ops._validate_cuda(q, k, v).smem == flash_kernel.smem_bytes(
+            torch.float32, 32)  # the card runs D 24 at its compiled width 32
+        _, (q, k, v) = _both(_qkv(5, 1, 8, 8, 2, 2, 512), "float32")
+        with pytest.raises(ValueError, match="head_dim 512 is over the kernel's widest"):
+            flash_ops._validate_cuda(q, k, v)  # the card's kernel; the CPU takes D 512
         _, (q, k, v) = _both(_qkv(5, 1, 8, 8, 2, 2, 16), "float32")
         with pytest.raises(ValueError, match="dtype"):
             flash_attention(q, k.double(), v)

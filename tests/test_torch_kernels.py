@@ -116,41 +116,58 @@ def _assert_close_int8(got, want, step):
     assert np.all(err <= tol), float((err - tol).max())
 
 
+def _k1_parity(fmt, g, D, page, seed):
+    """K1's CPU path against the JAX plain version on a shuffled page table
+    at head width ``D`` and ``page``: f32 within 1e-5, int8 within one
+    probability-code step a row."""
+    rng = np.random.default_rng(seed)
+    B, Hk, pp, n_pages = 5, 2, 4, 24
+    S = pp * page
+    n_tok = n_pages * page
+    q = rng.normal(size=(B, Hk, g, D)).astype(np.float32)
+    kf = rng.normal(size=(n_tok, Hk, D)).astype(np.float32)
+    vf = rng.normal(size=(n_tok, Hk, D)).astype(np.float32)
+    table = _table(rng, B, pp, n_pages)
+    cand = [0, page - 1, page, S - 1, int(rng.integers(0, S))]
+    pos = np.asarray([cand[b % len(cand)] for b in range(B)], np.int32)
+    kw_j, kw_t = {}, {}
+    if fmt == "int8":
+        kq, ks = (np.asarray(a) for a in jkvc.quantize_kv(_j(kf)))
+        vq, vs = (np.asarray(a) for a in jkvc.quantize_kv(_j(vf)))
+        kf, vf = kq, vq
+        kw_j = dict(k_scale=_j(ks), v_scale=_j(vs))
+        kw_t = dict(k_scale=_t(ks), v_scale=_t(vs))
+    want = np.asarray(jax_pfd_ref(_j(q), _j(kf), _j(vf), _j(table), _j(pos),
+                                  page_size=page, **kw_j))
+    reset_launches()
+    got = paged_flash_decode(_t(q), _t(kf), _t(vf), _t(table), _t(pos),
+                             page_size=page, **kw_t).numpy()
+    assert LAUNCHES["paged_flash_decode_bf16"] == 0  # CPU: plain version
+    assert got.shape == (B, Hk, g, D) and got.dtype == np.float32
+    if fmt == "int8":
+        s = np.arange(S)
+        pid = table[:, s // page]
+        phys = np.where(pid >= 0, pid * page + s % page, 0)  # (B, S)
+        hm = lambda a: np.moveaxis(a[phys], 2, 1)  # heads-major (B, Hk, S, ...)
+        valid = np.broadcast_to((s[None] <= pos[:, None])[:, None], (B, Hk, S))
+        _assert_close_int8(got, want, _code_step(q, hm(kq), hm(ks), hm(vs), valid))
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
 class TestPagedFlashDecodeRef:
     @pytest.mark.parametrize("fmt", ["f32", "int8"])
     @pytest.mark.parametrize("g", [1, 3])
     def test_matches_jax_ref_on_shuffled_pages(self, fmt, g):
-        rng = np.random.default_rng(7 + g)
-        B, Hk, pp, n_pages = 5, 2, 4, 24
-        S = pp * PAGE
-        n_tok = n_pages * PAGE
-        q = rng.normal(size=(B, Hk, g, D)).astype(np.float32)
-        kf = rng.normal(size=(n_tok, Hk, D)).astype(np.float32)
-        vf = rng.normal(size=(n_tok, Hk, D)).astype(np.float32)
-        table, pos = _table(rng, B, pp, n_pages), _pos(rng, B, S)
-        kw_j, kw_t = {}, {}
-        if fmt == "int8":
-            kq, ks = (np.asarray(a) for a in jkvc.quantize_kv(_j(kf)))
-            vq, vs = (np.asarray(a) for a in jkvc.quantize_kv(_j(vf)))
-            kf, vf = kq, vq
-            kw_j = dict(k_scale=_j(ks), v_scale=_j(vs))
-            kw_t = dict(k_scale=_t(ks), v_scale=_t(vs))
-        want = np.asarray(jax_pfd_ref(_j(q), _j(kf), _j(vf), _j(table), _j(pos),
-                                      page_size=PAGE, **kw_j))
-        reset_launches()
-        got = paged_flash_decode(_t(q), _t(kf), _t(vf), _t(table), _t(pos),
-                                 page_size=PAGE, **kw_t).numpy()
-        assert LAUNCHES["paged_flash_decode_bf16"] == 0  # CPU: plain version
-        assert got.shape == (B, Hk, g, D) and got.dtype == np.float32
-        if fmt == "int8":
-            s = np.arange(S)
-            pid = table[:, s // PAGE]
-            phys = np.where(pid >= 0, pid * PAGE + s % PAGE, 0)  # (B, S)
-            hm = lambda a: np.moveaxis(a[phys], 2, 1)  # heads-major (B, Hk, S, ...)
-            valid = np.broadcast_to((s[None] <= pos[:, None])[:, None], (B, Hk, S))
-            _assert_close_int8(got, want, _code_step(q, hm(kq), hm(ks), hm(vs), valid))
-        else:
-            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        _k1_parity(fmt, g, D, PAGE, 7 + g)
+
+    @pytest.mark.parametrize("fmt", ["f32", "int8"])
+    @pytest.mark.parametrize("Dh,page,g", [(24, 8, 3), (256, 8, 1), (256, 16, 8), (16, 6, 3),
+                                           (24, 6, 2)])
+    def test_matches_jax_ref_at_other_widths_and_pages(self, fmt, Dh, page, g):
+        """The head widths the card now pads (D 24 runs at 32) or has an
+        instance for (D 256), and a page size that is not a power of two."""
+        _k1_parity(fmt, g, Dh, page, Dh + page + g)
 
     def test_unmapped_pages_never_contribute(self):
         """Garbage behind -1 pages is masked by position: poisoning it
@@ -251,48 +268,115 @@ class TestPagedFlashDecodePlan:
                                              f"is {cap} lanes"):
             pfd_ops._validate_cuda(q, k, k, table, pos, P, None, None)
 
-    @pytest.mark.parametrize("D,P,match", [(24, 4, "not one of 16, 32, 64, 128"),
-                                            (16, 6, "not a power of two")])
-    def test_rejects_shapes_it_has_no_instance_for(self, monkeypatch, D, P, match):
+    @pytest.mark.parametrize("fmt", ["bf16", "int8"])
+    @pytest.mark.parametrize("D,P,DP", [(24, 4, 32), (16, 6, 16), (24, 6, 32), (256, 6, 256),
+                                         (1, 1, 16), (200, 3, 256)])
+    def test_takes_padded_widths_and_any_page_size(self, monkeypatch, fmt, D, P, DP):
+        """Shapes the card once refused (D 24, page 6): any D up to 256 runs
+        at its compiled width, any page size >= 1, unaligned rows too."""
         monkeypatch.setattr(pfd_kernel, "sm_count", lambda device: self.SMS)
-        q = torch.zeros(1, 2, 3, D)
-        k = torch.zeros(2 * P, 2, D, dtype=torch.bfloat16)
+        assert pfd_kernel.padded_dim(D) == DP
+        q, k, table, pos, scales = self._operands(fmt, 3, 64 * P, P, D=D)
+        plan = pfd_ops._validate_cuda(q, k, k, table, pos, P, scales.get("k_scale"),
+                                      scales.get("v_scale"))
+        assert plan == pfd_kernel.plan(1, 2, 3, D, 64, P, self.SMS)
+        assert plan.smem == pfd_kernel.smem_bytes(3, DP, plan.L, P) and plan.L % P == 0
+        assert pfd_kernel.wide_rows(k, k) == ((D * k.element_size()) % 16 == 0)
+
+    @pytest.mark.parametrize("D,g,match", [(512, 3, "D=512 is over the widest compiled width"),
+                                           (24, 9, "g=9 > 8")])
+    def test_rejects_shapes_it_has_no_instance_for(self, monkeypatch, D, g, match):
+        monkeypatch.setattr(pfd_kernel, "sm_count", lambda device: self.SMS)
+        q = torch.zeros(1, 2, g, D)
+        k = torch.zeros(12, 2, D, dtype=torch.bfloat16)
         t, p = torch.zeros(1, 2, dtype=torch.int32), torch.zeros(1, dtype=torch.int32)
         with pytest.raises(ValueError, match=match):
-            pfd_ops._validate_cuda(q, k, k, t, p, P, None, None)
+            pfd_ops._validate_cuda(q, k, k, t, p, 6, None, None)
+
+    @pytest.mark.parametrize("P", [1, 2, 3, 5, 6, 7, 12, 16, 24, 100, 255, 256, 1000, 4097])
+    def test_page_divider_is_exact(self, P):
+        """The source's ``PageDiv``: ``(umulhi(s, magic) + s) >> shift``
+        equals ``s // P`` for lanes up to 2^31 (every lane of the first
+        pages and the last, and random ones)."""
+        magic, shift = pfd_kernel.page_divider(P)
+        assert 0 < magic < 2 ** 32 and (P & (P - 1) or (magic, shift) == (1, P.bit_length() - 1))
+        rng = np.random.default_rng(P)
+        s = np.concatenate([np.arange(4 * P + 70000), 2 ** 31 - 1 - np.arange(4 * P + 1000),
+                            rng.integers(0, 2 ** 31, 100000)]).astype(np.uint64)
+        got = (((s * np.uint64(magic)) >> np.uint64(32)) + s) >> np.uint64(shift)
+        np.testing.assert_array_equal(got, s // np.uint64(P))
+
+    @pytest.mark.parametrize("fmt", ["bf16", "int8"])
+    @pytest.mark.parametrize("g", [1, 2, 4, 8])
+    def test_head_width_256_keeps_the_32k_context(self, monkeypatch, fmt, g):
+        """gemma3-1b (g 4, Hk 1), gemma3-4b (g 2, Hk 4) and paligemma-3b
+        (g 8, Hk 1) at D 256: the cap covers the reference's decode_32k
+        context at pages 16 and 6, and a 32k slot plans within shared
+        memory."""
+        monkeypatch.setattr(pfd_kernel, "sm_count", lambda device: self.SMS)
+        for P in (16, 6):
+            assert pfd_kernel.max_lanes(g, 256, P) >= 32768
+            pp = -(-32768 // P)
+            q, k, table, pos, scales = self._operands(fmt, g, pp * P, P, D=256)
+            plan = pfd_ops._validate_cuda(q, k, k, table, pos, P, scales.get("k_scale"),
+                                          scales.get("v_scale"))
+            assert plan.C * plan.L >= pp * P and plan.smem <= build.MAX_SMEM
+            assert plan.smem == pfd_kernel.smem_bytes(g, 256, plan.L, P)
+
+
+def _k2_parity(g, s_ctx, D, seed, page=None):
+    """K2's CPU path against the JAX plain version at head width ``D``:
+    the survivors equal the engine's top-k lanes and the output is within
+    one probability-code step a row.  ``phys`` is a shuffled permutation of
+    the pool's rows, or with ``page`` the rows of a shuffled page table of
+    that page size."""
+    rng = np.random.default_rng(seed)
+    B, Hk, S = 3, 2, 48
+    n_tok = 2 * B * S
+    q = rng.normal(size=(B, Hk, g, D)).astype(np.float32)
+    kf = _j(rng.normal(size=(n_tok, Hk, D)).astype(np.float32))
+    kq, ks = jkvc.quantize_kv(kf)
+    planes, sign = jkvc.k_to_bitplanes(kq)
+    vq, vs = jkvc.quantize_kv(_j(rng.normal(size=(n_tok, Hk, D)).astype(np.float32)))
+    ops = [np.asarray(a) for a in (planes, sign, ks, vq, vs)]
+    if page is None:
+        phys = rng.permutation(n_tok)[:B * S].reshape(B, S).astype(np.int32)
+    else:
+        pp = -(-S // page)
+        table = rng.permutation(n_tok // page)[:B * pp].reshape(B, pp)
+        s = np.arange(S)
+        phys = (table[:, s // page] * page + s % page).astype(np.int32)
+    pos = np.asarray([s_ctx - 1, min(S - 1, 2 * s_ctx), 0], np.int32)
+    rounds, k_max, surv = _plan(S)
+    want = np.asarray(jax_bgpp_ref(_j(q), *map(_j, ops), _j(phys), _j(pos),
+                                   rounds=rounds, k_max=k_max, survivors=surv))
+    got, idx = bgpp_paged_attend(_t(q), *map(_t, ops), _t(phys), _t(pos),
+                                 rounds=rounds, k_max=k_max, survivors=surv,
+                                 return_indices=True)
+    assert idx.shape == (B, Hk, k_max) and idx.dtype == torch.int32
+    assert got.shape == (B, Hk, g, D)
+    # selection: the survivors are exactly the engine's top-k lanes
+    want_idx = _jax_topk_indices(q, ops, phys, pos, rounds, k_max, surv)
+    np.testing.assert_array_equal(idx.numpy(), want_idx)
+    # the exact int8 attend over those survivors
+    rows = np.take_along_axis(phys, want_idx.reshape(B, -1), 1).reshape(want_idx.shape)
+    at = lambda a: np.asarray(a)[rows, np.arange(Hk)[None, :, None]]
+    valid = want_idx <= pos[:, None, None]
+    _assert_close_int8(got.numpy(), want, _code_step(q, at(kq), at(ks), at(vs), valid))
 
 
 class TestBgppPagedAttendRef:
     @pytest.mark.parametrize("g", [1, 3])
     @pytest.mark.parametrize("s_ctx", [5, 16, 40])
     def test_matches_jax_ref_on_shuffled_phys(self, g, s_ctx):
-        rng = np.random.default_rng(100 * g + s_ctx)
-        B, Hk, S = 3, 2, 48
-        n_tok = 2 * B * S
-        q = rng.normal(size=(B, Hk, g, D)).astype(np.float32)
-        kf = _j(rng.normal(size=(n_tok, Hk, D)).astype(np.float32))
-        kq, ks = jkvc.quantize_kv(kf)
-        planes, sign = jkvc.k_to_bitplanes(kq)
-        vq, vs = jkvc.quantize_kv(_j(rng.normal(size=(n_tok, Hk, D)).astype(np.float32)))
-        ops = [np.asarray(a) for a in (planes, sign, ks, vq, vs)]
-        phys = rng.permutation(n_tok)[:B * S].reshape(B, S).astype(np.int32)
-        pos = np.asarray([s_ctx - 1, min(S - 1, 2 * s_ctx), 0], np.int32)
-        rounds, k_max, surv = _plan(S)
-        want = np.asarray(jax_bgpp_ref(_j(q), *map(_j, ops), _j(phys), _j(pos),
-                                       rounds=rounds, k_max=k_max, survivors=surv))
-        got, idx = bgpp_paged_attend(_t(q), *map(_t, ops), _t(phys), _t(pos),
-                                     rounds=rounds, k_max=k_max, survivors=surv,
-                                     return_indices=True)
-        assert idx.shape == (B, Hk, k_max) and idx.dtype == torch.int32
-        # selection: the survivors are exactly the engine's top-k lanes
-        want_idx = _jax_topk_indices(q, ops, phys, pos, rounds, k_max, surv)
-        np.testing.assert_array_equal(idx.numpy(), want_idx)
-        # the exact int8 attend over those survivors
-        rows = np.take_along_axis(phys, want_idx.reshape(B, -1), 1).reshape(want_idx.shape)
-        at = lambda a: np.asarray(a)[rows, np.arange(Hk)[None, :, None]]
-        valid = want_idx <= pos[:, None, None]
-        _assert_close_int8(got.numpy(), want,
-                           _code_step(q, at(kq), at(ks), at(vs), valid))
+        _k2_parity(g, s_ctx, D, 100 * g + s_ctx)
+
+    @pytest.mark.parametrize("Dh,page,g", [(24, None, 3), (256, None, 1), (256, 6, 2),
+                                           (16, 6, 3), (24, 6, 1)])
+    def test_matches_jax_ref_at_other_widths_and_pages(self, Dh, page, g):
+        """The head widths the card now pads (D 24 runs at 32) or has an
+        instance for (D 256), and pool rows of a page-6 table."""
+        _k2_parity(g, 16, Dh, Dh + g, page)
 
     def test_plain_version_matches_ops_wrapper(self):
         rng = np.random.default_rng(5)
@@ -412,12 +496,40 @@ class TestBgppPagedAttendPlan:
         with pytest.raises(ValueError, match=f"the cap at g={g}, D=128 is {cap} lanes"):
             bgpp_ops._validate_cuda(*self._operands(g, S), k_max, surv)
 
-    @pytest.mark.parametrize("D", [24, 256])
-    def test_rejects_head_dims_it_has_no_instance_for(self, monkeypatch, D):
+    @pytest.mark.parametrize("D,DP", [(24, 32), (256, 256), (8, 16), (200, 256), (96, 128)])
+    def test_takes_padded_head_dims(self, monkeypatch, D, DP):
+        """Widths the card once refused (D 24 and 256): a multiple of 8 up to
+        256 runs at its compiled width, the plane rows byte by byte where
+        they are not the compiled width's whole words."""
         monkeypatch.setattr(bgpp_ops, "sm_count", lambda device: self.SMS)
         k_max, surv = _k2_survivors(64)
-        with pytest.raises(ValueError, match="not one of 16, 32, 64, 128"):
-            bgpp_ops._validate_cuda(*self._operands(3, 64, D=D), k_max, surv)
+        ops = self._operands(3, 64, D=D)
+        p = bgpp_ops._validate_cuda(*ops, k_max, surv)
+        assert bgpp_kernel.padded_dim(D) == DP
+        assert p == bgpp_kernel.plan(1, 2, 3, D, 64, k_max, surv, self.SMS)
+        assert p.smem == bgpp_kernel.smem_bytes(3, DP, p.L)
+        assert bgpp_kernel.wide_rows(ops[1], ops[2], ops[4]) == (int(D == DP) | 2)
+
+    @pytest.mark.parametrize("D,g,match", [(512, 3, "D=512 is over the widest compiled width"),
+                                           (24, 9, "g=9 > 8")])
+    def test_rejects_head_dims_it_has_no_instance_for(self, monkeypatch, D, g, match):
+        monkeypatch.setattr(bgpp_ops, "sm_count", lambda device: self.SMS)
+        k_max, surv = _k2_survivors(64)
+        with pytest.raises(ValueError, match=match):
+            bgpp_ops._validate_cuda(*self._operands(g, 64, D=D), k_max, surv)
+
+    @pytest.mark.parametrize("g,S", [(1, 32768), (2, 32768), (4, 16384), (8, 8192)])
+    def test_head_width_256_caps(self, monkeypatch, g, S):
+        """D 256 (gemma3-4b g 2; gemma3-1b g 4; paligemma-3b g 8): the header
+        and the warps' partials at 256 still fit the cap's lanes, 32768 at
+        g <= 2."""
+        monkeypatch.setattr(bgpp_ops, "sm_count", lambda device: self.SMS)
+        assert bgpp_kernel.header_bytes(256) == 4640 and bgpp_kernel.header_bytes(128) == 2592
+        cap = bgpp_kernel.max_lanes(g, 256)
+        assert cap >= S
+        k_max, surv = _k2_survivors(S)
+        p = bgpp_ops._validate_cuda(*self._operands(g, S, D=256), k_max, surv)
+        assert p.C * p.L >= S and p.smem == bgpp_kernel.smem_bytes(g, 256, p.L) <= build.MAX_SMEM
 
 
 def _k2_words(packed):
@@ -729,12 +841,17 @@ class TestFlashAttentionPlan:
                                        for ik in range(Sk // TK))
 
     def test_wrapper_raises_for_what_it_has_no_instance_for(self):
+        """D 24 (once refused) runs at the compiled 32, unaligned bf16 rows
+        are staged element by element; D 512 has no instance."""
         q = torch.zeros(1, 8, 4, 16, dtype=torch.bfloat16)
         k = torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16)
         q24, k24 = torch.zeros(1, 8, 4, 24), torch.zeros(1, 8, 2, 24)
         assert flash_attention(q24, k24, k24).shape == (1, 8, 4, 24)  # the CPU takes any D
-        with pytest.raises(ValueError, match=r"head_dim 24 .* widths \(16, 32, 64, 128\)"):
-            flash_ops._validate_cuda(q24, k24, k24)
+        assert flash_ops._validate_cuda(q24, k24, k24) == flash_kernel.plan(
+            torch.float32, 1, 8, 4, 32)
+        q512, k512 = torch.zeros(1, 8, 4, 512), torch.zeros(1, 8, 2, 512)
+        with pytest.raises(ValueError, match=r"head_dim 512 .* widths \(16, 32, 64, 128, 256\)"):
+            flash_ops._validate_cuda(q512, k512, k512)
         with pytest.raises(ValueError, match="dtype"):
             flash_attention(q.half(), k.half(), k.half())
         assert flash_ops._validate_cuda(q, k, k).BQ == flash_kernel.MMA_BQ
@@ -742,8 +859,21 @@ class TestFlashAttentionPlan:
         with pytest.raises(ValueError, match="k must be contiguous along D"):
             flash_ops._validate_cuda(q, strided, k)
         odd = torch.zeros(1 * 8 * 2 * 16 + 1, dtype=torch.bfloat16)[1:].view(1, 8, 2, 16)
-        with pytest.raises(ValueError, match="v rows must start on 16-byte boundaries"):
-            flash_ops._validate_cuda(q, k, odd)
+        assert flash_ops._validate_cuda(q, k, odd).BQ == flash_kernel.MMA_BQ
+        assert flash_kernel.wide_rows(q, k, k) and not flash_kernel.wide_rows(q, k, odd)
+
+    @pytest.mark.parametrize("D,DP", [(24, 32), (1, 16), (100, 128), (200, 256), (256, 256)])
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_padded_widths_plan_as_their_compiled_width(self, D, DP, dtype):
+        """Any D up to 256 plans as its compiled width: at 256 the bf16
+        tiles take 147,456 B (one block an SM, Q read from shared memory)
+        and the f32 ones 213,760 B, both under a block's 232,448."""
+        assert flash_kernel.padded_dim(D) == DP
+        p = flash_kernel.plan(dtype, 2, 77, 8, D)
+        assert p == flash_kernel.plan(dtype, 2, 77, 8, DP)
+        assert p.smem == flash_kernel.smem_bytes(dtype, DP) <= build.MAX_SMEM
+        if DP == 256:
+            assert p.smem == {torch.bfloat16: 147_456, torch.float32: 213_760}[dtype]
 
 
 def _flash_operands(seed, B, Sq, Sk, Hq, Hk, D):
