@@ -20,9 +20,11 @@ Phases, each of which fails the run (nonzero exit) on any error:
    decode + GEMV at every full-width projection shape with N = 4 columns
    (at wq/wo also N 1, 8 and 13, f32, bf16 and row-major x; and once coded
    with one tile a row; every case launched twice for identical bits), the
-   BSTC plane
-   decode on the coded planes
-   of a full-width 3072 x 3072 matrix, and the forward's flash attention
+   BSTC plane decode on every coded plane of a 3072 x 3072 (wq), a
+   3072 x 8192 (down) and an 8192 x 3072 (gate/up) matrix coded with one
+   tile a row, as the serve path's round-trip check codes them (each plane
+   launched twice, bit-identical; timed beside ``masked_scatter_``), and the
+   forward's flash attention
    (Hq 24, Hk 8, D 128, bf16: causal at B 1 / S 512, 450 and 301 and
    B 4 / S 512; sliding and chunked with window 256; full; q_offset 256;
    bf16 at D 64, 32 and 16 with ragged tails; f32 once; the first case
@@ -59,13 +61,19 @@ Phases, each of which fails the run (nonzero exit) on any error:
    request, flash attention in every layer); each run checks that its
    kernels were launched exactly as often as the path needs (every count
    zeroed just before the Scheduler is built, read just after the run).
-   After all of them, each chunked run's configuration traces a few
+   Then two speculative runs of the same trace (bit-plane drafts, gamma 4,
+   4 kept planes): bf16 KV with bf16 weights and bgpp KV with bstc weights,
+   each holding its greedy tokens to the matching run above, leaking no
+   page and launching K1 or K2 L times and K3 7L + 1 times a draft or
+   verify step and K4 once per coded plane of both weight sets' first
+   matrices.  After all of them, each chunked run's configuration traces a few
    steady decode steps, and the eager one a whole-prompt admission, with
    torch.profiler (device busy share, time by kernel), the flash
    attention kernel and ``scaled_dot_product_attention`` are traced at
    causal S 512 and S 450 for their device time a call, the fused BSTC
    decode + GEMV and a bf16 ``torch.matmul`` at every decode projection
-   shape, the fused BGPP decode and K1's int8 body on the same int8 KV
+   shape, the BSTC plane decode and ``masked_scatter_`` at its three
+   matrices, the fused BGPP decode and K1's int8 body on the same int8 KV
    at the decode geometry, the BGPP round and a ``torch.matmul`` of the
    unpacked plane at its three shapes, and the BRCR GEMM and a bf16
    ``torch.matmul``
@@ -81,9 +89,10 @@ Phases, each of which fails the run (nonzero exit) on any error:
 The second-to-last lines are the kernels' JSON record and the card line;
 the last line is ``{"ok": true, "device": {...}}``.
 
-``--only kernels|head-widths|score|score-device`` (repeatable) runs just
-those parts of phase 3 (and, for ``score``, K6's device times), prints no
-records and ends after them: for work on one kernel.
+``--only kernels|head-widths|score|score-device|decode`` (repeatable) runs
+just those parts of phase 3 (and, for ``score`` and ``decode``, K6's or
+K4's device times), prints no records and ends after them: for work on one
+kernel.
 """
 
 from __future__ import annotations
@@ -573,22 +582,15 @@ def bstc_kernel_phase(device, flush):
     activations, as ``layers.wdot`` passes it; at wq/wo also N 1, 8 and 13,
     each in f32, in bf16 as layer 0's q/k/v get it, and as a row-major
     (in, N) tensor; then the full-width 3072 x 3072 matrix coded with one
-    tile a row, which walks a tile in 512-column steps), every case
-    launched twice for identical bits (:func:`check_bstc`), and the plane
-    decode (K4) on the coded planes of that one-tile-a-row matrix, as the
-    serve path's round-trip check codes it.  K3's tolerance: each output
-    row within 1e-5 of its ``Σ|w·x|·scale``; K4: bit-identical.  Returns
-    the two JSON records; K3's times and bound are the mean per launch over
-    one decode step's mix."""
+    tile a row, as the serve path's round-trip check codes it, which walks
+    a tile in 512-column steps), every case launched twice for identical
+    bits (:func:`check_bstc`).  Tolerance: each output row within 1e-5 of
+    its ``Σ|w·x|·scale``.  Returns the JSON record; its times and bound are
+    the mean per launch over one decode step's mix."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.core import bitslice
-    from repro_torch.core import bstc
-    from repro_torch.kernels.bstc_decode import EncodedPlaneOperands, bstc_decode_patterns
-    from repro_torch.kernels.bstc_decode.ref import decode_patterns_ref
     from repro_torch.kernels.bstc_matmul import bstc_matmul
-    from repro_torch.kernels.bstc_matmul.ops import operands_from_encoded
     from repro_torch.kernels.bstc_matmul.ref import bstc_matmul_plain, reconstruct_dense_ref
 
     cfg = get_config("phi4-mini-3.8b")
@@ -664,43 +666,153 @@ def bstc_kernel_phase(device, flush):
         "src/repro/kernels/bstc_matmul/kernel.py:98", mix["err"], mix["ms"] / n,
         mix["plain"] / n, mix["bytes"] / n, mix["ops"] / n, "f32", mix["lib"] / n)
 
-    # ---- K4: the coded planes of a full-width 3072 x 3072 matrix ---------------
+    # ---- K3 on a full-width 3072 x 3072 matrix coded with one tile a row ------
     d = cfg.d_model
     w = (torch.randn((d, cfg.q_dim), generator=gen, device=device) * d ** -0.5
          ).to(torch.bfloat16)
-    int8, _ = bstc_record(w, cfg)
-    q_t = int8["q"].T.contiguous()
-    bw = bstc.encode_weight(q_t, int8["scale"], m=cfg.mcbp.group_size,
-                            threshold=cfg.mcbp.bstc_threshold)
-    ops = operands_from_encoded(bw, tile_k=d)  # as _kernel_roundtrip_check codes it
-    if not ops.enc_planes:
-        raise AssertionError("bstc_decode: the full-width matrix coded no plane")
+    ops = decode_operands(w, cfg)
     x = x_at(d, torch.float32)
     err = check_bstc("wq/wo one tile a row", ops, x, reconstruct_dense_ref(ops), None)
     print(f"[kernel] bstc_matmul wq/wo coded with one tile a row (tile_k {d}): max_abs_err "
           f"{err:.3e}, two launches bit-identical ({bstc_plan_of(ops, x)})")
-    planes = [EncodedPlaneOperands(*ops.enc[3 * i:3 * i + 3], H=d, m=ops.m)
-              for i in range(len(ops.enc_planes))]
-    for p, pl in zip(ops.enc_planes, planes):
-        got = bstc_decode_patterns(pl)
-        want = decode_patterns_ref(bitslice.unpack_bits(pl.bitmap), pl.patterns)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            bad = (got != want).nonzero()[:5].tolist()
-            raise AssertionError(f"bstc_decode plane {p} differs from its plain version at {bad}")
-        print(f"[kernel] bstc_decode plane {p}: bit-identical to the plain version "
-              f"(G {pl.bitmap.shape[0]}, H {d}, cap {pl.patterns.shape[1]})")
-    pl = planes[0]
-    G = pl.bitmap.shape[0]
-    nnz = int((pl.patterns != 0).sum())
-    k4 = kernel_record(
-        "bstc_decode", "src/repro_torch/csrc/bstc_decode.cu",
-        "src/repro/kernels/bstc_decode/kernel.py:48", 0.0,
-        time_ms(lambda: bstc_decode_patterns(pl), flush=flush),
-        time_ms(lambda: decode_patterns_ref(bitslice.unpack_bits(pl.bitmap), pl.patterns),
-                flush=flush),
-        pl.bitmap.numel() + pl.tile_offsets.numel() * 4 + nnz + G * d, G * d, "f32", None)
-    return [k3, k4]
+    return [k3]
+
+
+# (label, out, in) of K4's shapes: the matrices whose planes the serve path's
+# round-trip check decodes, coded as it codes them (one tile a row); the
+# first is the JSON record's
+DECODE_SHAPES = (("wq", 3072, 3072), ("down", 3072, 8192), ("gate/up", 8192, 3072))
+
+
+def decode_operands(w, cfg):
+    """The ``bstc_matmul`` operands of one bf16 ``(in, out)`` matrix coded
+    with one tile a row, as the serve path's round-trip check codes it."""
+    from repro_torch.core import bstc
+    from repro_torch.kernels.bstc_matmul.ops import operands_from_encoded
+
+    int8, _ = bstc_record(w, cfg)
+    q_t = int8["q"].T.contiguous()
+    bw = bstc.encode_weight(q_t, int8["scale"], m=cfg.mcbp.group_size,
+                            threshold=cfg.mcbp.bstc_threshold)
+    return operands_from_encoded(bw, tile_k=q_t.shape[1])
+
+
+def decode_planes(device, seed=2):
+    """``(label, coded plane numbers, EncodedPlaneOperands)`` of every
+    :data:`DECODE_SHAPES` matrix, from seeded Gaussian weights."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.bstc_decode import EncodedPlaneOperands
+
+    cfg = get_config("phi4-mini-3.8b")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for label, d_out, d_in in DECODE_SHAPES:
+        w = (torch.randn((d_in, d_out), generator=gen, device=device) * d_in ** -0.5
+             ).to(torch.bfloat16)
+        ops = decode_operands(w, cfg)
+        if not ops.enc_planes:
+            raise AssertionError(f"bstc_decode {label}: the matrix coded no plane")
+        out.append((label, list(ops.enc_planes),
+                    [EncodedPlaneOperands(*ops.enc[3 * i:3 * i + 3], H=d_in, m=ops.m)
+                     for i in range(len(ops.enc_planes))]))
+    return out
+
+
+def decode_library(pl):
+    """K4's function as one PyTorch call on operands built outside it:
+    ``masked_scatter_`` of the row-compacted stream into zeros under the
+    unpacked bitmap (a bool a column: 8x the bytes of K4's packed bitmap)."""
+    import torch
+
+    from repro_torch.core import bitslice
+
+    mask = bitslice.unpack_bits(pl.bitmap).bool()
+    nnz = mask.sum(1)
+    cap = pl.patterns.shape[1]
+    stream = pl.patterns[torch.arange(cap, device=mask.device)[None] < nnz[:, None]]
+    G, H = mask.shape
+    return lambda: torch.zeros((G, H), dtype=torch.uint8, device=mask.device).masked_scatter_(
+        mask, stream)
+
+
+def decode_plan_of(pl) -> str:
+    """K4's launch plan for these operands (what the wrapper uses)."""
+    from repro_torch.kernels.bstc_decode import ops as decode_ops
+
+    p = decode_ops._validate_cuda(pl)
+    if p is None or not hasattr(p, "R"):  # an older tree's wrapper: no plan
+        return "no plan"
+    return (f"{p.R} rows a block, {p.WR} warps a row, {p.NS} segments, {p.blocks} blocks "
+            f"of {p.threads} threads, {p.smem} B shared, {p.copy}-byte copies")
+
+
+def decode_kernel_phase(device, flush):
+    """Hold the BSTC plane decode (K4) against its plain version at every
+    :data:`DECODE_SHAPES` matrix, each coded plane launched twice (both
+    bit-identical to the plain version), and time the kernel, the plain
+    version and ``masked_scatter_`` (:func:`decode_library`, checked equal
+    too) on each matrix's first coded plane, L2 flushed.  The bound counts
+    the packed bitmap, the tile offsets, the valid stream bytes and the
+    output.  Returns the wq record."""
+    import torch
+
+    from repro_torch.core import bitslice
+    from repro_torch.kernels.bstc_decode import bstc_decode_patterns
+    from repro_torch.kernels.bstc_decode.ref import decode_patterns_ref
+
+    records = []
+    for label, numbers, planes in decode_planes(device):
+        for p, pl in zip(numbers, planes):
+            want = decode_patterns_ref(bitslice.unpack_bits(pl.bitmap), pl.patterns)
+            got, again = bstc_decode_patterns(pl), bstc_decode_patterns(pl)
+            torch.cuda.synchronize()
+            for out in (got, again):
+                if not torch.equal(out, want):
+                    bad = (out != want).nonzero()[:5].tolist()
+                    raise AssertionError(f"bstc_decode {label} plane {p} differs from its "
+                                         f"plain version at {bad}")
+            print(f"[kernel] bstc_decode {label} plane {p}: two launches bit-identical to the "
+                  f"plain version (G {pl.bitmap.shape[0]}, H {pl.H}, cap "
+                  f"{pl.patterns.shape[1]}; {decode_plan_of(pl)})")
+        pl = planes[0]
+        G, H = pl.bitmap.shape[0], pl.H
+        lib = decode_library(pl)
+        if not torch.equal(lib(), bstc_decode_patterns(pl)):
+            raise AssertionError(f"bstc_decode {label}: masked_scatter_ differs from the kernel")
+        nnz = int(bitslice.unpack_bits(pl.bitmap).sum())
+        records.append(kernel_record(
+            "bstc_decode", "src/repro_torch/csrc/bstc_decode.cu",
+            "src/repro/kernels/bstc_decode/kernel.py:48", 0.0,
+            time_ms(lambda: bstc_decode_patterns(pl), flush=flush),
+            time_ms(lambda: decode_patterns_ref(bitslice.unpack_bits(pl.bitmap), pl.patterns),
+                    flush=flush),
+            pl.bitmap.numel() + pl.tile_offsets.numel() * 4 + nnz + G * H, G * H, "f32",
+            time_ms(lib, flush=flush), label=f" {label} (G {G}, H {H}, plane {numbers[0]})",
+            case=label))
+        del lib
+    return records[0]
+
+
+def decode_device_phase(device, calls: int = 20) -> None:
+    """K4 against ``masked_scatter_`` (:func:`decode_library`) on device time
+    at every :data:`DECODE_SHAPES` matrix's first coded plane: one
+    ``torch.profiler`` trace of ``calls`` calls of each, L2 flushed before
+    each call (:func:`_device_ms`)."""
+    import torch
+
+    from repro_torch.kernels.bstc_decode import bstc_decode_patterns
+
+    l2 = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    for label, numbers, planes in decode_planes(device):
+        pl = planes[0]
+        k_ms, k_rec = _device_ms(lambda: bstc_decode_patterns(pl), calls, l2)
+        l_ms, l_rec = _device_ms(decode_library(pl), calls, l2)
+        print(f"[kernel] bstc_decode {label} device time (torch.profiler, {calls} calls each, "
+              f"L2 flushed, G {pl.bitmap.shape[0]}, H {pl.H}, plane {numbers[0]}): kernel "
+              f"{k_ms:.4f} ms a call, masked_scatter_ {l_ms:.4f} ms a call "
+              f"({k_ms / l_ms:.2f}x); recorded: kernel {k_rec}; library {l_rec}")
 
 
 # (label, B, Sq, Sk, mask_kind, window, q_offset, dtype, D) of each K5 case;
@@ -1656,23 +1768,55 @@ def profile_admission(sched, prompt, label: str) -> None:
     sched._release_pages(0)
 
 
-def coded_planes_of_first_matrix(params, cfg) -> int:
-    """Coded planes of the first matrix the serve path codes (layer 0's
-    ``wq``), encoded here on its own: the launches the round-trip check
-    owes the plane decode kernel."""
+def coded_planes_of_first_matrix(wq, cfg) -> int:
+    """Coded planes of the first matrix the serve path codes (layer 0 of
+    the stacked ``wq`` leaf), encoded here on its own: the launches the
+    round-trip check owes the plane decode kernel."""
     from repro_torch.core import bstc
     from repro_torch.serving import weights
 
-    rec = weights.quantize(params["layers"]["attn"]["wq"][0])
+    rec = weights.quantize(wq[0])
     bw = bstc.encode_weight(rec["q"].T.contiguous(), rec["scale"], m=cfg.mcbp.group_size,
                             threshold=cfg.mcbp.bstc_threshold)
     return sum(e is not None for e in bw.encoded)
+
+
+def weight_set_bytes(tree) -> int:
+    """Device bytes of one weight set: every tensor it holds once, a BSTC
+    operand record at the bytes its arrays occupy."""
+    import torch
+
+    seen, total = set(), 0
+
+    def walk(x):
+        nonlocal total
+        if isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif torch.is_tensor(x):
+            if x.data_ptr() not in seen:
+                seen.add(x.data_ptr())
+                total += x.numel() * x.element_size()
+        elif hasattr(x, "stored_bytes") and id(x) not in seen:
+            seen.add(id(x))
+            total += x.stored_bytes
+
+    walk(tree)
+    return total
 
 
 # (KV format, weight format, admission) of each main-path run
 SERVE_RUNS = (("bf16", "bf16", "chunked"), ("int8", "bf16", "chunked"),
               ("bgpp", "bf16", "chunked"), ("bgpp", "bstc", "chunked"),
               ("bf16", "bf16", "eager"))
+# (KV format, weight format) of each speculative run: chunked, paged, the
+# main trace, gamma 4 drafts from 4 kept planes; each is held to the
+# non-speculative run of the same formats
+SPEC_RUNS = (("bf16", "bf16"), ("bgpp", "bstc"))
+SPEC_GAMMA, SPEC_PLANES = 4, 4
 
 
 def serve_phase(device, card):
@@ -1700,6 +1844,7 @@ def serve_phase(device, card):
           f"{time.perf_counter() - t0:.2f} s")
     launches = {}
     first_logits = {}  # rid -> first-token logits of the chunked bf16 run
+    tokens_of = {}  # (KV format, weight format, admission) -> rid -> greedy tokens
     for fmt, wfmt, admission in SERVE_RUNS:
         run = f"{fmt}/{wfmt}/{admission}"
         layout = kvc.layout_for(cfg, 4, 1024, kv_format=fmt, layout="paged", page_size=16)
@@ -1746,7 +1891,8 @@ def serve_phase(device, card):
             want["flash_attention"] = L * len(reqs)
         if wfmt == "bstc":
             want["bstc_matmul"] = (7 * L + 1) * steps
-            want["bstc_decode"] = coded_planes_of_first_matrix(params, cfg)
+            want["bstc_decode"] = coded_planes_of_first_matrix(params["layers"]["attn"]["wq"],
+                                                               cfg)
             if want["bstc_decode"] < 1:
                 raise AssertionError("bstc: the first coded matrix coded no plane")
         for name, n in got.items():
@@ -1771,6 +1917,7 @@ def serve_phase(device, card):
                 raise AssertionError(f"{run}: request {r.rid} output is malformed")
         if (fmt, wfmt, admission) == SERVE_RUNS[0]:
             first_logits = {r.rid: r.logit_rows[0] for r in sched.finished}
+        tokens_of[(fmt, wfmt, admission)] = {r.rid: list(r.generated) for r in sched.finished}
         dec_ms = [a.elapsed_time(b) for a, b in dec]
         pre_ms = [a.elapsed_time(b) for a, b in pre]
         kv, wr = stats["kv_read"], stats["weight_read"]
@@ -1803,6 +1950,8 @@ def serve_phase(device, card):
               f"launches: {counts} ({L} layers x {steps} steps) [{card}]")
         del sched
         torch.cuda.empty_cache()
+    for fmt, wfmt in SPEC_RUNS:
+        spec_run(params, cfg, fmt, wfmt, tokens_of[(fmt, wfmt, "chunked")], device, card)
     # the traces come after every timed run: once torch.profiler has traced
     # the card, later runs in the process were slower on the host side
     longest = max(trace(0, 6, cfg.vocab_size, 64, 512, 16), key=lambda r: r.prompt_len)
@@ -1820,6 +1969,109 @@ def serve_phase(device, card):
     del params
     torch.cuda.empty_cache()
     return launches
+
+
+def spec_run(params, cfg, fmt, wfmt, want_tokens, device, card) -> None:
+    """One speculative run of the main trace (paged, chunked, gamma
+    :data:`SPEC_GAMMA`, :data:`SPEC_PLANES` kept planes), every count zeroed
+    just before the Scheduler is built and read just after the run.  Holds
+    its greedy tokens to the non-speculative run's (``want_tokens``), the
+    page pool to no leak, and the launches to the formulas: K1 or K2 L a
+    draft or verify step, K3 (7L + 1) a step with bstc weights, K4 the
+    coded planes of both weight sets' first matrices.  Prints the spec
+    counters, ms a round, a draft step and a verify step, tok/s, peak
+    memory and both weight sets' bytes."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.serving import kv_cache as kvc
+    from repro_torch.serving import spec_decode as spd
+    from repro_torch.serving.scheduler import Scheduler
+
+    L = cfg.num_layers
+    run = f"{fmt}/{wfmt} speculative"
+    layout = kvc.layout_for(cfg, 4, 1024, kv_format=fmt, layout="paged", page_size=16)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    sched = Scheduler(params, cfg, layout, device=device, chunk_budget=128, record_logits=True,
+                      weight_format=wfmt, spec_decode=True, draft_gamma=SPEC_GAMMA,
+                      draft_planes=SPEC_PLANES)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    prep_peak = torch.cuda.max_memory_allocated()
+    spans = {"draft": [], "verify": [], "round": []}
+    step = sched.serve_step
+
+    def serve_step(p, cache, tokens):
+        kind = "draft" if p is sched.draft_params else "verify"
+        return _timed(step, spans[kind])(p, cache, tokens)
+
+    sched.serve_step = serve_step
+    sched._spec_round = _timed(sched._spec_round, spans["round"])
+    reqs = trace(0, 6, cfg.vocab_size, 64, 512, 16)
+    for r in reqs:
+        sched.submit(r)
+    stats = sched.run()
+    torch.cuda.synchronize()
+    got = dict(K.LAUNCHES)
+    sp = stats["spec"]
+    steps = sp["draft_steps"] + sp["verify_steps"]
+    want = {name: 0 for name in got}
+    want[KERNEL_OF[fmt]] = L * steps
+    if wfmt == "bstc":
+        want["bstc_matmul"] = (7 * L + 1) * steps
+        draft_wq = spd.truncate_plane_params({"wq": params["layers"]["attn"]["wq"]},
+                                             SPEC_PLANES)["wq"]
+        want["bstc_decode"] = (coded_planes_of_first_matrix(params["layers"]["attn"]["wq"], cfg)
+                               + coded_planes_of_first_matrix(draft_wq, cfg))
+        del draft_wq
+    for name, n in got.items():
+        if n != want[name]:
+            raise AssertionError(f"{run}: {name} launched {n} times, expected {want[name]}")
+    if steps != sched.decode_steps or sp["draft_steps"] != SPEC_GAMMA * sp["rounds"]:
+        raise AssertionError(f"{run}: {steps} draft + verify steps, {sched.decode_steps} "
+                             f"serve steps counted, {sp['rounds']} rounds")
+    if stats["finished_requests"] != len(reqs):
+        raise AssertionError(f"{run}: {stats['finished_requests']} of {len(reqs)} finished")
+    sched.pager.check()
+    if sched.pager.pages_in_use:
+        raise AssertionError(f"{run}: {sched.pager.pages_in_use} pages leaked")
+    for r in sched.finished:
+        rows = np.stack(r.logit_rows)
+        if rows.shape != (16, cfg.vocab_size) or not np.isfinite(rows).all():
+            raise AssertionError(f"{run}: request {r.rid} output is malformed")
+        if r.generated != want_tokens[r.rid]:
+            at = next(i for i, (a, b) in enumerate(zip(r.generated, want_tokens[r.rid]))
+                      if a != b)
+            raise AssertionError(f"{run}: request {r.rid} token {at} is "
+                                 f"{r.generated[at]}, the non-speculative run's "
+                                 f"{want_tokens[r.rid][at]}")
+    ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in spans.items()}
+    serve_b = weight_set_bytes(sched.serve_params)
+    draft_b = weight_set_bytes(sched.draft_params)
+    both_b = weight_set_bytes([sched.serve_params, sched.draft_params])
+    counts = ", ".join(f"{n} {v}" for n, v in got.items() if v)
+    print(f"[spec] {fmt} paged, {wfmt} weights, speculative (gamma {sp['gamma']}, "
+          f"{sp['draft_planes']} planes): greedy tokens of all {len(reqs)} requests identical "
+          f"to the non-speculative run; {sp['rounds']} rounds, "
+          f"{sp['accepted_tokens_per_round']} tokens accepted a slot-round (draft hit rate "
+          f"{sp['draft_hit_rate']}, {sp['accepted_tokens']} tokens), {sp['draft_steps']} draft "
+          f"+ {sp['verify_steps']} verify steps; {np.mean(ms['round']):.3f} ms a round, "
+          f"{np.mean(ms['draft']):.3f} ms a draft step, {np.mean(ms['verify']):.3f} ms a "
+          f"verify step; {stats['decoded_tokens']} tokens in {stats['wall_s']} s = "
+          f"{stats['tokens_per_s']} tok/s; pages_in_use 0; launches: {counts} [{card}]")
+    print(f"[spec] {fmt}/{wfmt} speculative: weight sets {serve_b / 2**30:.3f} GiB serve + "
+          f"{draft_b / 2**30:.3f} GiB draft ({both_b / 2**30:.3f} GiB distinct, raw params "
+          f"{weight_set_bytes(params) / 2**30:.3f} GiB); prepare {prep_s:.2f} s, peak memory "
+          f"{prep_peak / 2**30:.2f} GiB while preparing, "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB over the run; "
+          f"spec {json.dumps(sp)}")
+    del sched
+    torch.cuda.empty_cache()
 
 
 def _leaves(tree):
@@ -1958,7 +2210,7 @@ def paper_reference_phase(device):
 # ---------------------------------------------------------------------------
 
 
-PHASES = ("kernels", "head-widths", "score", "score-device")
+PHASES = ("kernels", "head-widths", "score", "score-device", "decode")
 
 
 def main(argv=None) -> int:
@@ -1967,7 +2219,8 @@ def main(argv=None) -> int:
         "--only", action="append", choices=PHASES,
         help="run only these phases (repeatable), for work on one kernel: 'kernels' is "
              "phase 3 without K6, 'head-widths' its head-width cases, 'score' K6's checks and "
-             "device times, 'score-device' K6's device times alone; without it every phase "
+             "device times, 'score-device' K6's device times alone, 'decode' K4's checks and "
+             "device times; without it every phase "
              "runs and the records are printed")
     only = parser.parse_args(argv).only
 
@@ -1994,6 +2247,9 @@ def main(argv=None) -> int:
     if run("kernels"):
         records += kernel_phase(device, flush)
         records += bstc_kernel_phase(device, flush)
+    if run("kernels") or run("decode"):
+        records.append(decode_kernel_phase(device, flush))
+    if run("kernels"):
         records.append(flash_kernel_phase(device, flush))
     if run("head-widths"):
         records += head_width_phase(device, flush)
@@ -2004,6 +2260,8 @@ def main(argv=None) -> int:
     if only is not None:  # a partial run: device times of what it ran, no records
         if run("score") or run("score-device"):
             score_device_phase(device)
+        if run("decode"):
+            decode_device_phase(device)
         torch.cuda.synchronize()
         print(card)
         return 0
@@ -2014,6 +2272,7 @@ def main(argv=None) -> int:
     launches = serve_phase(device, card)
     flash_device_phase(device)
     bstc_device_phase(device)
+    decode_device_phase(device)
     bgpp_device_phase(device)
     score_device_phase(device)
     brcr_device_phase(device)

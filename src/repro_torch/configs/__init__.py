@@ -8,6 +8,7 @@ from repro_torch.configs.base import (  # noqa: F401
     MCBPOptions,
     ModelConfig,
     apply_bgpp_overrides,
+    apply_spec_decode_overrides,
     apply_weight_format_override,
     get_config,
     register,

@@ -2,8 +2,8 @@
 
 Counterpart of :mod:`repro.configs.base`, cut to what the serving slices
 serve: dense GQA transformers, the serve-time weight format (bf16, int8 or
-BSTC-coded int8) and the BGPP decode knobs.  The port keeps its own copy (it imports nothing of ``repro``).
-Each architecture file registers its published config plus a reduced
+BSTC-coded int8), the BGPP decode knobs and speculative decoding.  The
+port keeps its own copy (it imports nothing of ``repro``).  Each architecture file registers its published config plus a reduced
 ``smoke`` variant used by the CPU tests.
 """
 
@@ -20,8 +20,8 @@ WEIGHT_FORMATS = ("bf16", "int8", "bstc")
 
 @dataclasses.dataclass(frozen=True)
 class MCBPOptions:
-    """MCBP knobs the serving slices read: the weight path and the BGPP
-    decode plan."""
+    """MCBP knobs the serving slices read: the weight path, the BGPP decode
+    plan and speculative decoding."""
 
     group_size: int = 4  # BRCR/BSTC group m (paper §5.2 DSE: m=4)
     bstc_threshold: float = 0.65  # a plane is coded iff its bit sparsity clears it
@@ -29,6 +29,15 @@ class MCBPOptions:
     bgpp_keep_ratio: float = 0.25  # k_max = ceil(ratio * S) full-precision rows
     # weight numerics of the decode projections: "bf16" | "int8" | "bstc"
     weight_format: str = "bf16"
+    # speculative decoding (repro_torch.serving.spec_decode): propose
+    # draft_gamma tokens a slot with a truncated-bit-plane forward, verify
+    # them through serve_step, accept or roll back per slot; greedy output
+    # is identical to non-speculative decode
+    spec_decode: bool = False
+    draft_gamma: int = 4
+    # MSB magnitude bit planes the draft weights keep (1..8 of int8's 7
+    # magnitude bits + sign; >= 7 keeps full int8 precision)
+    draft_planes: int = 4
 
     def __post_init__(self):
         if self.weight_format not in WEIGHT_FORMATS:
@@ -36,6 +45,16 @@ class MCBPOptions:
                 f"weight_format={self.weight_format!r} is not one of "
                 f"{WEIGHT_FORMATS} (config mcbp.weight_format or the "
                 f"Scheduler's weight_format argument)"
+            )
+        if not 1 <= int(self.draft_gamma):
+            raise ValueError(
+                f"draft_gamma={self.draft_gamma!r} must be >= 1 (tokens "
+                f"drafted per speculative round)"
+            )
+        if not 1 <= int(self.draft_planes) <= 8:
+            raise ValueError(
+                f"draft_planes={self.draft_planes!r} must be in 1..8 (MSB "
+                f"magnitude bit-planes the draft weights keep)"
             )
 
 
@@ -62,6 +81,24 @@ def apply_bgpp_overrides(cfg, rounds: Optional[int] = None,
         bgpp_rounds=cfg.mcbp.bgpp_rounds if rounds is None else int(rounds),
         bgpp_keep_ratio=cfg.mcbp.bgpp_keep_ratio if keep_ratio is None
         else float(keep_ratio),
+    )
+    return dataclasses.replace(cfg, mcbp=mo)
+
+
+def apply_spec_decode_overrides(cfg, enabled: Optional[bool] = None,
+                                gamma: Optional[int] = None,
+                                planes: Optional[int] = None):
+    """Return ``cfg`` with its speculative-decoding knobs replaced (``None``
+    keeps the config's value) — the code path behind ``--spec-decode`` /
+    ``--draft-gamma`` / ``--draft-planes``.  Validation happens in
+    :meth:`MCBPOptions.__post_init__`."""
+    if enabled is None and gamma is None and planes is None:
+        return cfg
+    mo = dataclasses.replace(
+        cfg.mcbp,
+        spec_decode=cfg.mcbp.spec_decode if enabled is None else bool(enabled),
+        draft_gamma=cfg.mcbp.draft_gamma if gamma is None else int(gamma),
+        draft_planes=cfg.mcbp.draft_planes if planes is None else int(planes),
     )
     return dataclasses.replace(cfg, mcbp=mo)
 

@@ -17,6 +17,7 @@ from repro_torch.core.bstc import EncodedPlane
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.bstc_decode import kernel
 from repro_torch.kernels.bstc_decode.ref import decode_patterns_ref
+from repro_torch.kernels.paged_flash_decode.kernel import sm_count
 
 
 class EncodedPlaneOperands(NamedTuple):
@@ -76,15 +77,17 @@ def _validate(ops: EncodedPlaneOperands) -> None:
         raise ValueError("bstc_decode: operands lie on different devices")
 
 
-def _validate_cuda(ops: EncodedPlaneOperands) -> None:
-    """What the CUDA kernel additionally requires of its operands."""
+def _validate_cuda(ops: EncodedPlaneOperands) -> kernel.Plan:
+    """What the CUDA kernel additionally requires of its operands, and its
+    launch plan (which refuses a stream too long for shared memory)."""
     for name, t, dt in (("bitmap", ops.bitmap, torch.uint8),
                         ("tile_offsets", ops.tile_offsets, torch.int32),
                         ("patterns", ops.patterns, torch.uint8)):
         if t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"bstc_decode: {name} must be contiguous {dt}")
-    if ops.tile_offsets.shape[1] > 65535:
-        raise ValueError("bstc_decode: more than 65535 H tiles")
+    G, cap = ops.patterns.shape
+    return kernel.plan(G, ops.H, ops.H // ops.tile_offsets.shape[1], cap,
+                       sm_count(ops.bitmap.device), kernel.alignment(ops.patterns))
 
 
 def bstc_decode_patterns(ops: EncodedPlaneOperands) -> torch.Tensor:
@@ -97,10 +100,10 @@ def bstc_decode_patterns(ops: EncodedPlaneOperands) -> torch.Tensor:
         return decode_patterns_ref(bitslice.unpack_bits(ops.bitmap), ops.patterns)
     if dev.type != "cuda":
         raise ValueError(f"bstc_decode: no kernel for device {dev}")
-    _validate_cuda(ops)
+    geo = _validate_cuda(ops)
     G = ops.bitmap.shape[0]
     out = torch.empty((G, ops.H), dtype=torch.uint8, device=dev)
     if G:
-        kernel.launch(ops.bitmap, ops.tile_offsets, ops.patterns, out, ops.H)
+        kernel.launch(ops.bitmap, ops.tile_offsets, ops.patterns, out, ops.H, geo)
         LAUNCHES["bstc_decode"] += 1
     return out

@@ -136,7 +136,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.bstc_decode_launch.argtypes = [
         P, P, P, P,  # bitmap, tile_offsets, patterns, out
-        I, I, I, I, P,  # G, H, tile_k, cap, stream
+        I, I, I, I,  # G, H, tile_k, cap
+        I, I, I, I, I, I, I, I, I,  # plan: R, WR, tps, NS, cap_s, copy; wide, blocks, smem
+        P,  # stream
     ]
     lib.bstc_matmul_launch.argtypes = [
         P, P, P, I, L, L,  # plane table (host int64 array), sign, x, x dtype, x strides

@@ -8,10 +8,11 @@ paged layout, request scheduler).
         [--chunk-budget 16] \\
         [--kv-layout slot|paged] [--page-size 8] [--shared-prefix 16] \\
         [--bgpp-rounds 4] [--bgpp-keep-ratio 0.25] \\
-        [--weight-format bf16|int8|bstc] [--trace-out trace.json]
+        [--weight-format bf16|int8|bstc] \\
+        [--spec-decode] [--draft-gamma 4] [--draft-planes 4] [--trace-out trace.json]
 
-The counterpart of ``repro.launch.serve`` without ``--mesh``, ``--server``
-or ``--spec-decode`` (later slices).  It runs on ``--device cuda`` unless
+The counterpart of ``repro.launch.serve`` without ``--mesh`` or
+``--server`` (later slices).  It runs on ``--device cuda`` unless
 told otherwise; ``--full`` serves the published full-width config instead
 of the smoke one.  Weights are random, drawn from a seeded generator on
 the device.  Requests arrive on a Poisson-ish trace.  With the default
@@ -22,7 +23,12 @@ kernel on the card) as the reference's baseline.
 ``--weight-format`` puts the decode projections on the serve-time weight
 path (``repro_torch.serving.weights``): int8 records, or bstc-coded planes
 that the ``bstc_matmul`` kernel reads on the card; the ``weight_read``
-line prints the weight bytes a decode step reads.
+line prints the weight bytes a decode step reads.  ``--spec-decode`` turns
+on bit-plane speculative decoding (``repro_torch.serving.spec_decode``): a
+``--draft-planes``-truncated copy of the serve weights drafts
+``--draft-gamma`` tokens a slot a round, a batched verify chain accepts or
+rolls back, and the report gains the acceptance lines; the generated
+tokens stay those of the non-speculative run.
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import (ARCH_REGISTRY, WEIGHT_FORMATS, apply_bgpp_overrides,
-                                 apply_weight_format_override, get_config)
+                                 apply_spec_decode_overrides, apply_weight_format_override,
+                                 get_config)
 from repro_torch.models.transformer import init_params
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving.request import poisson_trace
@@ -63,6 +70,15 @@ def main(argv=None):
                     help="serve-time weight numerics of the decode projections: "
                          "bf16 (raw leaves), int8 or bstc (two-state coded planes "
                          "read by the bstc_matmul kernel) (default: the config's)")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="bit-plane speculative decoding: truncated-plane draft weights "
+                         "propose --draft-gamma tokens a slot a round, verified and rolled "
+                         "back in one batched chain (identical output)")
+    ap.add_argument("--draft-gamma", type=int, default=None,
+                    help="draft tokens a slot a speculative round (default: the config's, 4)")
+    ap.add_argument("--draft-planes", type=int, default=None,
+                    help="MSB magnitude bit planes kept in the draft weights, 1-8; >= 7 "
+                         "keeps every bit (default: the config's, 4)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=32)
@@ -83,6 +99,8 @@ def main(argv=None):
     cfg = apply_bgpp_overrides(get_config(args.arch, smoke=not args.full),
                                rounds=args.bgpp_rounds, keep_ratio=args.bgpp_keep_ratio)
     cfg = apply_weight_format_override(cfg, args.weight_format)
+    cfg = apply_spec_decode_overrides(cfg, enabled=args.spec_decode or None,
+                                      gamma=args.draft_gamma, planes=args.draft_planes)
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_params(cfg, gen, device)
     layout = kvc.layout_for(cfg, args.slots, args.max_seq, kv_format=args.kv_format,
@@ -125,6 +143,19 @@ def main(argv=None):
           f"{kv['decode_bytes_per_step']/1e3:.1f} kB/decode-step "
           f"(bf16-equivalent {kv['decode_bf16_equiv_bytes_per_step']/1e3:.1f} kB, "
           f"{kv['decode_bytes_reduction_vs_bf16']}x reduction)")
+    if "spec" in stats:
+        sp = stats["spec"]
+        print(f"[serve] spec decode (gamma={sp['gamma']}, planes={sp['draft_planes']}, "
+              f"source={sp['draft_source']}): "
+              f"accepted/step={sp['accepted_tokens_per_step']:.3f} "
+              f"({sp['accepted_tokens']} tokens, {sp['rounds']} rounds, "
+              f"{sp['accepted_tokens_per_round']:.2f}/round, draft hit rate "
+              f"{sp['draft_hit_rate']:.2f})")
+        print(f"[serve] spec bytes/accepted-token: "
+              f"kv {sp['kv_bytes_per_accepted_token']/1e3:.1f} kB, "
+              f"weight {sp['weight_bytes_per_accepted_token']/1e3:.1f} kB "
+              f"(modeled bit-plane draft "
+              f"{sp['modeled_weight_bytes_per_accepted_token']/1e3:.1f} kB)")
     if "bgpp" in kv:
         bg = kv["bgpp"]
         print(f"[serve] bgpp two-phase: {bg['rounds']} rounds, "

@@ -287,6 +287,46 @@ def zero_pages(store: Tree, page_ids, page_size: int) -> Tree:
     return store
 
 
+def zero_token_range(store: Tree, tpos, *, page_table=None, page_size: int = 0,
+                     max_seq: int = 0) -> Tree:
+    """Zero per-slot logical token positions in place across EVERY leaf of
+    a global KV store — the speculative-decode rollback scrub.
+
+    ``tpos`` is ``(B, N)`` (a tensor or host array): for each batch slot,
+    up to ``N`` positions whose rows held speculative writes past the
+    accepted frontier; lanes outside ``[0, max_seq)`` (e.g.
+    :data:`OOB_INDEX`) drop.  ``page_table`` selects the paged pool:
+    positions are translated through each slot's table row and lanes on
+    unmapped pages drop (:func:`zero_pages` scrubs pages the allocator
+    freed).  The slot path zeroes the per-slot rows.  Both cover k/v
+    bodies, int8 scales and bgpp sign and magnitude planes alike."""
+    dev = next(iter(store.values())).device
+    tpos = torch.as_tensor(tpos, device=dev).long()
+    ok = (tpos >= 0) & (tpos < max_seq)
+    if page_table is not None:
+        table = torch.as_tensor(page_table, device=dev).long()
+        page = torch.clamp(torch.div(tpos, page_size, rounding_mode="floor"), 0,
+                           table.shape[-1] - 1)
+        pid = torch.gather(table, 1, page)
+        ok &= pid >= 0
+        rows = (pid * page_size + tpos % page_size)[ok]
+        for n, a in store.items():
+            if n == "k_planes":
+                a[:, :, rows] = 0
+            else:
+                a[:, rows] = 0
+        return store
+    ok &= tpos < store["k_sign" if "k_planes" in store else "k"].shape[3]
+    b = torch.arange(tpos.shape[0], device=dev)[:, None].expand_as(tpos)[ok]
+    s = tpos[ok]
+    for n, a in store.items():
+        if n == "k_planes":  # (L, NBITS, B, Hk, S, D/8)
+            a[:, :, b, :, s] = 0
+        else:  # (L, B, Hk, S, ...)
+            a[:, b, :, s] = 0
+    return store
+
+
 def page_bytes(store: Tree, page_size: int) -> int:
     """Bytes one physical page occupies across every leaf of a pool."""
     total = 0

@@ -1,8 +1,8 @@
 """Host-side page allocator + hash-based prefix-reuse index for the paged
 KV cache (``CacheLayout.layout == "paged"``).
 
-Counterpart of :mod:`repro.serving.paging` (pure numpy; the speculative
-rollback ``rewind_slot`` comes with the spec-decode slice).
+Counterpart of :mod:`repro.serving.paging` (pure numpy), with the
+speculative-decode rollback ``rewind_slot``.
 
 The device side (``kv_cache``/``engine``) only ever sees a ``(B,
 pages_per_slot)`` int32 page table; everything dynamic lives here, in plain
@@ -27,7 +27,8 @@ the scheduler already uses:
 
 The scheduler drives the lifecycle: ``ensure_range`` before every chunk /
 decode write, ``register_prefix`` after chunks land, ``lookup_prefix`` +
-``adopt_prefix`` at admission, ``release_slot`` at eviction (the returned
+``adopt_prefix`` at admission, ``rewind_slot`` after a speculative round,
+``release_slot`` at eviction (the returned
 freed ids are scrubbed on device via :func:`repro_torch.serving.kv_cache
 .zero_pages` — eviction only *frees* a page when its refcount hits zero).
 
@@ -140,6 +141,46 @@ class PageAllocator:
             self.table[slot, pi] = -1
             self.dirty = True
         self._registered[slot] = 0
+        return freed
+
+    def rewind_slot(self, slot: int, keep_tokens: int) -> List[int]:
+        """Roll ``slot`` back so only logical positions ``[0, keep_tokens)``
+        stay valid — the speculative-decode rollback.  Pages entirely past
+        the kept frontier are decref'd and unmapped (freed at refcount 0:
+        generation bumped, prefix entries pruned, returned for device
+        zeroing); the page the frontier straddles stays mapped but has ALL
+        its prefix-index digests deregistered — its tail rows held
+        speculative writes, so a later prompt matching a stale hash must
+        never adopt it.  The slot's registration high-water mark is clamped
+        so later ``register_prefix`` calls re-hash from the kept frontier."""
+        freed = []
+        for pi in range(self.pages_per_slot):
+            p = int(self.table[slot, pi])
+            if p < 0:
+                continue
+            if pi * self.page_size >= keep_tokens:
+                # page wholly past the accepted frontier: give it back
+                assert self.refcount[p] > 0, f"double free of page {p}"
+                self.refcount[p] -= 1
+                if self.refcount[p] == 0:
+                    self.generation[p] += 1
+                    self._free.append(p)
+                    freed.append(p)
+                    for d in self._page_digests.pop(p, ()):
+                        self._prefix.pop(d, None)
+                self.table[slot, pi] = -1
+                self.dirty = True
+            elif (pi + 1) * self.page_size > keep_tokens:
+                # frontier page: kept (its head rows are valid), but its
+                # rewound tail invalidates every prefix that covered it.
+                # A speculating slot never shares its frontier page (shared
+                # pages are full prompt pages nobody writes again).
+                assert self.refcount[p] == int(self.pins[p]) + 1, (
+                    f"rewinding shared page {p} would corrupt its sharers")
+                for d in self._page_digests.pop(p, ()):
+                    self._prefix.pop(d, None)
+        self._registered[slot] = min(int(self._registered[slot]),
+                                     (keep_tokens // self.page_size) * self.page_size)
         return freed
 
     # ------------------------------------------------------------------

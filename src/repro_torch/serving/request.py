@@ -1,7 +1,6 @@
 """Request/slot dataclasses for the continuous-batching serving runtime.
 
-Counterpart of :mod:`repro.serving.request` (pure Python; no spec-decode
-fields until that slice).
+Counterpart of :mod:`repro.serving.request` (pure Python).
 
 A :class:`Request` is one user prompt plus its decode budget and the
 timing/trace fields the scheduler fills in as the request moves through its
@@ -123,6 +122,11 @@ class Request:
     # page ids pinned at DONE for keep_prefix_resident (release with
     # Scheduler.unpin_pages when the session closes)
     pinned_pages: tuple = ()
+    # speculative decoding: tokens accepted in each round this request
+    # took part in (each in 1..gamma+1 — the corrected token alone up to
+    # every draft plus the bonus token) and total drafts proposed
+    spec_accepts: List[int] = dataclasses.field(default_factory=list)
+    spec_drafted: int = 0
 
     @property
     def prompt_len(self) -> int:
@@ -171,6 +175,9 @@ class Request:
             "latency_s": round(self.finish_time - self.submit_time, 6),
             "tokens_per_s": round(len(self.generated) / wall, 3)
             if wall > 0 else None,
+            "spec_rounds": len(self.spec_accepts),
+            "spec_accepted_tokens": int(sum(self.spec_accepts)),
+            "spec_drafted_tokens": self.spec_drafted,
         }
 
     def cancel_record(self) -> dict:

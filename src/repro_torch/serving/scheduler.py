@@ -36,8 +36,19 @@ read ``serve_params`` (int8 records, or BSTC-coded operands that the
 the raw ``params``; ``stats()["weight_read"]`` prices the bytes as the
 reference.
 
-Later slices: speculative decoding and meshes — the constructor raises if
-asked for them.
+Speculative decoding (``spec_decode=True`` or the config's
+``mcbp.spec_decode``; :mod:`repro_torch.serving.spec_decode`) replaces each
+batched decode step with one draft -> verify -> accept/rollback round
+(:meth:`Scheduler._spec_round`): ``draft_gamma`` truncated-bit-plane serve
+steps propose draft tokens for every DECODING slot, up to ``gamma + 1``
+full-precision serve steps verify them through the ordinary
+``_pick_token`` (so the output is identical to non-speculative decode), and
+every slot rolls back to its accepted frontier: ``pos`` rewound, pages past
+it released (``PageAllocator.rewind_slot``) and the speculative rows zeroed
+in every store leaf.  ``stats()["spec"]`` reports the acceptance and the
+KV and weight bytes per accepted token.
+
+Meshes are a later slice: the constructor raises if asked for one.
 """
 
 from __future__ import annotations
@@ -50,7 +61,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import apply_weight_format_override
-from repro_torch.serving import engine, kv_cache as kvc, weights as swt
+from repro_torch.serving import engine, kv_cache as kvc, spec_decode as spd
+from repro_torch.serving import weights as swt
 from repro_torch.serving.paging import PageAllocator
 from repro_torch.serving.request import Request, Slot, SlotState, priority_rank
 
@@ -88,7 +100,10 @@ class Scheduler:
         buckets=None,
         record_logits: bool = False,
         weight_format: Optional[str] = None,
-        spec_decode: bool = False,
+        spec_decode: Optional[bool] = None,
+        draft_gamma: Optional[int] = None,
+        draft_planes: Optional[int] = None,
+        draft_fn: Optional[Callable[[Request, int], int]] = None,
         mesh=None,
     ):
         from repro_torch import resolve_device
@@ -97,8 +112,6 @@ class Scheduler:
             raise ValueError(f"Scheduler: family {cfg.family!r} is not ported")
         if admission not in ("chunked", "eager"):
             raise ValueError(f"Scheduler: admission {admission!r} is not chunked or eager")
-        if spec_decode:
-            raise NotImplementedError("Scheduler: speculative decoding is a later slice")
         if mesh is not None:
             raise NotImplementedError("Scheduler: meshes / sharding are a later slice")
         self.device = resolve_device(device)
@@ -136,6 +149,33 @@ class Scheduler:
         # next-token feed per slot; EMPTY/PREFILLING rows decode token 0 into
         # garbage that per-slot valid masks + chunk overwrites keep invisible
         self.tokens = np.zeros((layout.batch, 1), np.int64)
+
+        # speculative decoding: the argument, else the config
+        self.spec = spd.validate(cfg, layout, spd.resolve(cfg, spec_decode, draft_gamma,
+                                                          draft_planes))
+        self.draft_fn = draft_fn
+        self.draft_params = None
+        if self.spec.enabled:
+            if draft_fn is None and self.spec.planes < 7:
+                # truncated-plane draft weights, converted through the same
+                # weight-format path as the real ones (a bstc run codes a
+                # second set; the truncated raw tree is dropped after)
+                self.draft_params, _ = swt.prepare_serve_params(
+                    spd.truncate_plane_params(params, self.spec.planes), cfg,
+                    self.weight_format)
+            else:
+                # planes >= 7 keeps full int8 precision: the serve weights
+                # are the (perfect) draft model
+                self.draft_params = self.serve_params
+        # spec-decode counters (stats()["spec"]): rounds, drafts proposed and
+        # accepted, draft and verify steps, slot-rounds, best single accept
+        self.spec_rounds = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_draft_steps = 0
+        self.spec_verify_steps = 0
+        self.spec_slot_rounds = 0
+        self.spec_max_accept = 0
 
         self.step_count = 0
         self.finished: List[Request] = []
@@ -442,6 +482,146 @@ class Scheduler:
         kvc.zero_pages(self.cache["global"], freed, self.layout.page_size)
         self._sync_pages()
 
+    # ------------------------------------------------------------------
+    # speculative decoding (draft -> verify -> accept/rollback)
+    # ------------------------------------------------------------------
+
+    def _count_decode_step(self) -> None:
+        """Account one executed ``serve_step``: the KV and weight prices are
+        static totals a step, so draft, verify and plain decode steps all
+        pay the same (the accounting laws hold with or without
+        speculation; its gain shows in the per-accepted-token columns)."""
+        self.decode_steps += 1
+        self.kv_bytes_read["decode"] += self._decode_read["total"]
+        self.weight_bytes_read["decode"] += self._weight_read["total"]
+
+    def _spec_round(self, live: List[Slot]) -> None:
+        """One draft -> verify -> accept/rollback round for every DECODING
+        slot (in place of the batched decode step).
+
+        Drafts come from ``draft_fn(request, token_index)`` when given (the
+        tests' perfect or adversarial drafts), else from a ``gamma``-step
+        chain of ``serve_step`` over the truncated-plane ``draft_params``.
+        Verification feeds the drafts through ``serve_step`` with the real
+        weights and picks each slot's true token from the exact logits
+        (``_pick_token``), so every accepted token is the one
+        non-speculative decode would give; a slot leaves the chain at its
+        first mismatch, after its corrected token.  Rollback then rewinds
+        every row's ``pos`` (live slots to their accepted frontier, the
+        other rows to their pre-round position), releases paged pages past
+        the frontier (``PageAllocator.rewind_slot`` + page zeroing) and
+        zeroes the speculative rows in every store leaf; finishes are
+        deferred until after it."""
+        gamma = self.spec.gamma
+        B = self.layout.batch
+        # pre-round frontier P: this round's first write position per slot
+        P = {s.index: s.request.prompt_len + len(s.request.generated) - 1 for s in live}
+        reqs = {s.index: s.request for s in live}
+        if self.pager is not None:
+            for slot in live:
+                p = P[slot.index]
+                self.pager.ensure_range(slot.index, p, min(p + gamma + 1, self.layout.max_seq))
+            self._sync_pages()
+        # ---- draft: gamma proposed tokens per live slot ----------------
+        drafts: Dict[int, List[int]] = {i: [] for i in P}
+        draft_steps = 0
+        if self.draft_fn is not None:
+            for slot in live:
+                req = reqs[slot.index]
+                n0 = len(req.generated)
+                drafts[slot.index] = [int(self.draft_fn(req, n0 + j)) for j in range(gamma)]
+        else:
+            # greedy argmax fed forward on the live cache; its writes land
+            # past every frontier and are rolled back with the round
+            feed = self.tokens.copy()
+            for _ in range(gamma):
+                dlogits, self.cache = self.serve_step(
+                    self.draft_params, self.cache, torch.as_tensor(feed, device=self.device))
+                drows = _host_rows(dlogits[:, -1])
+                draft_steps += 1
+                self._count_decode_step()
+                for slot in live:
+                    tok = int(np.argmax(drows[slot.index]))
+                    drafts[slot.index].append(tok)
+                    feed[slot.index, 0] = tok
+            # undo the draft chain's pos drift: the verify chain writes and
+            # attends where non-speculative decode would
+            self.cache["pos"] -= gamma
+        # ---- verify: feed the drafts, accept while they match ----------
+        active = {slot.index: slot for slot in live}
+        accepted = {slot.index: 0 for slot in live}
+        finishes: List[Slot] = []
+        C = 0
+        while active and C < gamma + 1:
+            logits, self.cache = self.serve_step(
+                self.serve_params, self.cache, torch.as_tensor(self.tokens, device=self.device))
+            rows = _host_rows(logits[:, -1])
+            j, C = C, C + 1
+            self._count_decode_step()
+            self.spec_verify_steps += 1
+            self.decoded_tokens += len(active)
+            now = time.perf_counter()
+            for idx in list(active):
+                slot = active[idx]
+                req = reqs[idx]
+                tok = self._pick_token(req, rows[idx])
+                req.generated.append(tok)
+                req.token_times.append(now)
+                accepted[idx] += 1
+                # while the drafts match, the next feed IS the draft
+                self.tokens[idx, 0] = tok
+                if req.on_token is not None:
+                    req.on_token(req, tok)
+                if self._hit_limit(slot, req):
+                    # finish after the rollback: _pin_history must only see
+                    # pages the rewind kept
+                    finishes.append(slot)
+                    del active[idx]
+                elif j < gamma and tok != drafts[idx][j]:
+                    del active[idx]  # draft diverged; the corrected token is kept
+        # ---- rollback ---------------------------------------------------
+        delta = np.full(B, C, np.int32)
+        for slot in live:
+            delta[slot.index] = C - accepted[slot.index]
+        self.cache["pos"] -= torch.as_tensor(delta, device=self.device)
+        if self.pager is not None:
+            freed: List[int] = []
+            for slot in live:
+                freed += self.pager.rewind_slot(slot.index, P[slot.index] + accepted[slot.index])
+            kvc.zero_pages(self.cache["global"], freed, self.layout.page_size)
+            self._sync_pages()
+        # zero the speculative rows [P+a, P+extent) in every leaf: freed
+        # pages were scrubbed whole above; this covers the slot layout and
+        # the paged frontier page's tail
+        extent = max(C, gamma if draft_steps else 0)
+        tpos = np.full((B, gamma + 1), kvc.OOB_INDEX, np.int64)
+        dirty = False
+        for slot in live:
+            lo = P[slot.index] + accepted[slot.index]
+            hi = min(P[slot.index] + extent, self.layout.max_seq)
+            if hi > lo:
+                tpos[slot.index, :hi - lo] = np.arange(lo, hi)
+                dirty = True
+        if dirty:
+            kvc.zero_token_range(
+                self.cache["global"], tpos,
+                page_table=self.cache["page_table"] if self.pager is not None else None,
+                page_size=self.layout.page_size, max_seq=self.layout.max_seq)
+        # ---- bookkeeping + deferred finishes ----------------------------
+        self.spec_rounds += 1
+        self.spec_draft_steps += draft_steps
+        for slot in live:
+            a = accepted[slot.index]
+            req = reqs[slot.index]
+            self.spec_accepted += a
+            self.spec_drafted += gamma
+            self.spec_slot_rounds += 1
+            self.spec_max_accept = max(self.spec_max_accept, a)
+            req.spec_accepts.append(a)
+            req.spec_drafted += gamma
+        for slot in finishes:
+            self._finish(slot)
+
     def step(self) -> bool:
         """Admit (eager) or advance (chunked) prefill, run one batched
         decode step, harvest, evict.
@@ -458,6 +638,12 @@ class Scheduler:
         if not live:
             self.step_count += 1
             return bool(busy)
+        if self.spec.enabled:
+            # one draft -> verify -> accept/rollback round replaces the
+            # batched decode step (same harvesting, same eviction)
+            self.step_count += 1
+            self._spec_round(live)
+            return True
         if self.pager is not None:
             for slot in live:
                 r = slot.request
@@ -468,9 +654,7 @@ class Scheduler:
             self.serve_params, self.cache, torch.as_tensor(self.tokens, device=self.device))
         rows = _host_rows(logits[:, -1])
         self.step_count += 1
-        self.decode_steps += 1
-        self.kv_bytes_read["decode"] += self._decode_read["total"]
-        self.weight_bytes_read["decode"] += self._weight_read["total"]
+        self._count_decode_step()
         self.decoded_tokens += len(live)
         now = time.perf_counter()
         for slot in live:
@@ -570,6 +754,41 @@ class Scheduler:
                 round(wr["total"] / wr["modeled"], 4) if wr["modeled"] else None,
             "per_projection": {n: round(v) for n, v in wr["per_projection"].items()},
         }
+        if self.spec.enabled:
+            acc = self.spec_accepted
+            kvb = self.kv_bytes_read["decode"]
+            wb = self.weight_bytes_read["decode"]
+            # a truncated-plane draft step streams only the kept planes (the
+            # model); verify steps pay in full.  Callback drafts run no draft
+            # step, so modeled == measured.
+            modeled = (self.spec_draft_steps * wr["total"] * self.spec.planes / 8.0
+                       + self.spec_verify_steps * wr["total"])
+            out["spec"] = {
+                "enabled": True,
+                "gamma": self.spec.gamma,
+                "draft_planes": self.spec.planes,
+                "draft_source": "callback" if self.draft_fn is not None else "planes",
+                "rounds": self.spec_rounds,
+                "drafted_tokens": self.spec_drafted,
+                "accepted_tokens": acc,
+                "draft_steps": self.spec_draft_steps,
+                "verify_steps": self.spec_verify_steps,
+                "max_accepted_in_round": self.spec_max_accept,
+                # true tokens per executed serve_step (draft + verify); 1.0
+                # is the non-speculative baseline
+                "accepted_tokens_per_step":
+                    round(acc / self.decode_steps, 4) if self.decode_steps else None,
+                "accepted_tokens_per_round":
+                    round(acc / self.spec_slot_rounds, 4) if self.spec_slot_rounds else None,
+                # drafts that survived verification (each slot-round's first
+                # accepted token is the free corrected one)
+                "draft_hit_rate": round((acc - self.spec_slot_rounds) / self.spec_drafted, 4)
+                if self.spec_drafted else None,
+                "kv_bytes_per_accepted_token": round(kvb / acc) if acc else None,
+                "weight_bytes_per_accepted_token": round(wb / acc) if acc else None,
+                "modeled_weight_bytes_per_accepted_token":
+                    round(modeled / acc) if acc else None,
+            }
         if self.pager is not None:
             pb = self._page_bytes
             out["paged"] = {

@@ -30,7 +30,10 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from repro.core import bstc as jbstc
 from repro.kernels.bgpp_paged_attend.ref import bgpp_paged_attend_ref as jax_bgpp_ref
+from repro.kernels.bstc_decode import (bstc_decode_patterns as jax_decode,
+                                       prepare_encoded_plane as jax_prepare_plane)
 from repro.kernels.paged_flash_decode.ref import paged_flash_decode_ref as jax_pfd_ref
 from repro.serving import kv_cache as jkvc
 
@@ -41,6 +44,9 @@ from repro_torch.kernels.bgpp_paged_attend import ops as bgpp_ops
 from repro_torch.kernels.bgpp_paged_attend import ref as bgpp_ref
 from repro_torch.kernels.bgpp_paged_attend.ref import bgpp_paged_attend_ref
 from repro_torch.kernels.bstc_decode import bstc_decode_patterns, prepare_encoded_plane
+from repro_torch.kernels.bstc_decode import kernel as decode_kernel
+from repro_torch.kernels.bstc_decode import ops as decode_ops
+from repro_torch.kernels.bstc_decode.ref import decode_patterns_ref
 from repro_torch.kernels.bstc_matmul import bstc_matmul, prepare_bstc_matmul_operands
 from repro_torch.kernels.bstc_matmul import kernel as bstc_kernel
 from repro_torch.kernels.bstc_matmul import ops as bstc_ops
@@ -56,6 +62,7 @@ from repro_torch.kernels.paged_flash_decode import paged_flash_decode
 from repro_torch.kernels.paged_flash_decode import kernel as pfd_kernel
 from repro_torch.kernels.paged_flash_decode import ops as pfd_ops
 from repro_torch.core import attention as tattention
+from repro_torch.core import bitslice
 from repro_torch.core import bstc as tbstc
 from repro_torch.serving import kv_cache as tkvc
 
@@ -1552,3 +1559,213 @@ class TestBrcrGemmArithmetic:
                 bound = torch.stack([rows[:, j] for j in range(m) if c >> j & 1]).amin(0)
                 assert bool((peak[:, c] <= bound * (1 + 2 ** -7)).all())
                 assert bool((gathered[:, c] <= bound * (1 + 2 ** -7)).all())
+
+
+# --------------------------------------------------------------------------
+# K4 (bstc_decode): the plan and a CPU model of the kernel's addressing
+# --------------------------------------------------------------------------
+
+
+def _nibble_table():
+    """bstc_decode.cu's NibbleTable: per 4-bit nibble, the rank selector
+    and the byte mask of its set columns."""
+    out = []
+    for n in range(16):
+        sel = mask = r = 0
+        for c in range(4):
+            sel |= r << (4 * c)
+            if (n >> c) & 1:
+                mask |= 0xFF << (8 * c)
+                r += 1
+        out.append((sel, mask))
+    return out
+
+
+def _byte_perm(x, y, sel):
+    """CUDA ``__byte_perm(x, y, sel)`` for selector nibbles below 8."""
+    src = (y << 32) | x
+    return sum(((src >> (8 * ((sel >> (4 * c)) & 7))) & 0xFF) << (8 * c) for c in range(4))
+
+
+def _funnel_r(lo, hi, sh):
+    return (((hi << 32) | lo) >> (sh & 31)) & 0xFFFFFFFF
+
+
+def _k4_model(bitmap, offsets, patterns, H, geo, rng, paths=None):
+    """``bstc_decode.cu`` pass by pass on the CPU: a warp per (row,
+    segment of ``geo.tps`` tiles) starting at its tile offset, 32 lanes of
+    16 bitmap bytes a pass with an exclusive scan, the carried total across
+    passes, and per lane the fast gather (three aligned words, funnel
+    shifts, byte permutes with the nibble table, masks) where every slot is
+    in range, else the clamped column-by-column gather.  The shared row's
+    padding past ``cap`` is random junk, as uninitialised shared memory.
+    ``paths`` (a list) collects which gather each lane pass took."""
+    G, cap = patterns.shape
+    tile_k = H // offsets.shape[1]
+    table = _nibble_table()
+    out = np.full((G, H), 0xEE, np.uint8)  # every column must be written
+    for g in range(G):
+        s = np.concatenate([patterns[g], rng.integers(0, 256, geo.cap_s - cap, dtype=np.uint8)])
+        s32 = s.view("<u4").astype(np.int64)
+        for seg in range(geo.NS):
+            c0, c1 = seg * geo.tps * tile_k, min((seg + 1) * geo.tps * tile_k, H)
+            run = int(offsets[g, seg * geo.tps])
+            for cs in range(c0, c1, decode_kernel.STRIDE):
+                lanes = []
+                for lane in range(32):
+                    b = cs // 8 + 16 * lane
+                    chunk = bitmap[g, b:min(b + 16, c1 // 8)]
+                    chunk = np.concatenate([chunk, np.zeros(16 - len(chunk), np.uint8)])
+                    lanes.append([int(v) for v in chunk.view("<u4")])
+                counts = [sum(bin(v).count("1") for v in w) for w in lanes]
+                excl = np.concatenate([[0], np.cumsum(counts)[:-1]])
+                for lane, w in enumerate(lanes):
+                    col = cs + 128 * lane
+                    if col >= c1:
+                        continue
+                    p = run + int(excl[lane])
+                    fast = p >= 0 and p + counts[lane] <= cap
+                    if paths is not None:
+                        paths.append("fast" if fast else "clamped")
+                    words = []
+                    for k in range(4):
+                        for i in range(4):
+                            bm = (w[k] >> (8 * i)) & 0xFF
+                            if fast:
+                                a, sh = p >> 2, (p & 3) * 8
+                                lo = _funnel_r(s32[a], s32[a + 1], sh)
+                                hi = _funnel_r(s32[a + 1], s32[a + 2], sh)
+                                (t0, m0), (t1, m1) = table[bm & 15], table[bm >> 4]
+                                n0 = bin(bm & 15).count("1")
+                                words += [_byte_perm(lo, 0, t0) & m0,
+                                          _byte_perm(lo, hi, t1 + n0 * 0x1111) & m1]
+                                p += bin(bm).count("1")
+                            else:
+                                for q in range(2):
+                                    word = 0
+                                    for c in range(4):
+                                        bit = (bm >> (4 * q + c)) & 1
+                                        word |= (int(s[min(max(p, 0), cap - 1)]) * bit) << (8 * c)
+                                        p += bit
+                                    words.append(word)
+                    vals = np.asarray(words, "<u4").view(np.uint8)
+                    n = min(128, c1 - col)
+                    out[g, col:col + n] = vals[:n]
+                run += sum(counts)
+    return out
+
+
+def _coded_plane(rng, G, H, density, tile_k, m=4, all_rows=()):
+    """Prepared operands of a random (G*m, H) bit plane (rows listed in
+    ``all_rows`` are all ones, the last group row all zeros)."""
+    plane = (rng.random((G * m, H)) < density).astype(np.uint8)
+    for r in all_rows:
+        plane[r * m:(r + 1) * m] = 1
+    plane[(G - 1) * m:] = 0
+    t = prepare_encoded_plane(tbstc.encode_plane(torch.from_numpy(plane), m), tile_k=tile_k)
+    return plane, t
+
+
+class TestBstcDecodePlan:
+    def test_rows_a_block_fill_the_card(self):
+        wq = decode_kernel.plan(768, 3072, 3072, 1064, 132)
+        assert (wq.R, wq.WR, wq.NS, wq.blocks, wq.threads) == (4, 1, 1, 192, 128)
+        assert wq.cap_s == 1088 and wq.smem == 4 * 1088 and wq.copy == 8
+        gate = decode_kernel.plan(2048, 3072, 3072, 1056, 132)
+        assert (gate.R, gate.blocks, gate.threads, gate.copy) == (8, 256, 256, 16)
+        down = decode_kernel.plan(768, 8192, 8192, 6384, 132)
+        assert (down.R, down.NS, down.tps, down.blocks) == (4, 1, 1, 192)
+        small = decode_kernel.plan(16, 512, 128, 40, 132)
+        assert (small.R, small.blocks, small.tps, small.NS) == (1, 16, 4, 1)
+
+    def test_segments_follow_the_tiles(self):
+        g = decode_kernel.plan(768, 8192, 512, 4000, 132)
+        assert (g.tps, g.NS, g.WR, g.R) == (8, 2, 2, 4)  # 4096 columns a segment
+        wide = decode_kernel.plan(16, 131072, 512, 16000, 132)
+        assert (wide.NS, wide.WR, wide.R) == (32, 16, 1)  # warps loop over segments
+        one = decode_kernel.plan(768, 3072, 512, 2000, 132)
+        assert (one.tps, one.NS) == (6, 1)
+
+    def test_copy_width_follows_cap_and_alignment(self):
+        assert decode_kernel.plan(64, 512, 512, 48, 132, 16).copy == 16
+        assert decode_kernel.plan(64, 512, 512, 48, 132, 8).copy == 8
+        assert decode_kernel.plan(64, 512, 512, 44, 132, 16).copy == 4
+        assert decode_kernel.plan(64, 512, 512, 45, 132, 16).copy == 1
+
+    def test_refuses_a_stream_over_shared_memory(self):
+        cap = build.MAX_SMEM - 16
+        assert decode_kernel.plan(8, 8, 8, cap, 132).smem == build.MAX_SMEM
+        with pytest.raises(ValueError, match=f"cap={build.MAX_SMEM}"):
+            decode_kernel.plan(8, 8, 8, cap + 1, 132)
+
+    def test_wrapper_plans_from_the_operands(self, monkeypatch):
+        rng = np.random.default_rng(0)
+        _, t = _coded_plane(rng, 8, 256, 0.3, 128)
+        monkeypatch.setattr(decode_ops, "sm_count", lambda d: 132)
+        geo = decode_ops._validate_cuda(t)
+        assert geo == decode_kernel.plan(8, 256, 128, t.patterns.shape[1], 132,
+                                         decode_kernel.alignment(t.patterns))
+        assert decode_kernel.wide_rows(t.bitmap, torch.empty(8, 256, dtype=torch.uint8),
+                                       256, 128)
+        assert not decode_kernel.wide_rows(t.bitmap, torch.empty(8, 256, dtype=torch.uint8),
+                                           256, 64)
+        with pytest.raises(ValueError, match="contiguous"):
+            decode_ops._validate_cuda(t._replace(patterns=t.patterns.T.contiguous().T))
+
+
+class TestBstcDecodeModel:
+    @pytest.mark.parametrize("H,tile_k", [(3072, 3072), (8192, 8192), (8192, 512),
+                                          (3072, 512), (320, 64), (200, 40)])
+    def test_model_matches_plain_and_pallas(self, H, tile_k):
+        rng = np.random.default_rng(H + tile_k)
+        G = 8
+        plane, t = _coded_plane(rng, G, H, 0.25, tile_k, all_rows=(1,))
+        geo = decode_kernel.plan(G, H, tile_k, t.patterns.shape[1], 132)
+        want = decode_patterns_ref(bitslice.unpack_bits(t.bitmap), t.patterns).numpy()
+        got = _k4_model(t.bitmap.numpy(), t.tile_offsets.numpy(), t.patterns.numpy(), H, geo,
+                        rng)
+        np.testing.assert_array_equal(got, want)
+        assert (want[G - 1] == 0).all() and (want[1] == 15).all()  # all-zero / all-one rows
+        if H % tile_k == 0 and tile_k % 8 == 0 and H <= 3072:
+            jops = jax_prepare_plane(jbstc.encode_plane(plane, 4), tile_k=tile_k)
+            np.testing.assert_array_equal(got, np.asarray(jax_decode(jops, mode="interpret")))
+
+    @pytest.mark.parametrize("cut", [1, 7, 33])
+    def test_model_clamps_slots_past_the_cap(self, cut):
+        """Patterns narrower than a row's set columns: slots past the cap
+        clamp to cap - 1 (the plain version's rule), through the clamped
+        gather of the lanes that reach them."""
+        rng = np.random.default_rng(cut)
+        H = 1024
+        _, t = _coded_plane(rng, 4, H, 0.4, H)
+        cap = t.patterns.shape[1] - cut
+        patterns = t.patterns[:, :cap].contiguous()
+        geo = decode_kernel.plan(4, H, H, cap, 132)
+        want = decode_patterns_ref(bitslice.unpack_bits(t.bitmap), patterns).numpy()
+        paths = []
+        got = _k4_model(t.bitmap.numpy(), t.tile_offsets.numpy(), patterns.numpy(), H, geo, rng,
+                        paths)
+        np.testing.assert_array_equal(got, want)
+        assert {"fast", "clamped"} <= set(paths)
+
+    def test_nibble_table_places_every_byte(self):
+        """Each of the 256 bitmap bytes: the two permutes put the k-th set
+        column's pattern at its column and zero elsewhere, from any byte
+        offset of the stream."""
+        table = _nibble_table()
+        rng = np.random.default_rng(1)
+        stream = rng.integers(1, 256, 64, dtype=np.uint8)
+        s32 = stream.view("<u4").astype(np.int64)
+        for bm in range(256):
+            for p in range(0, 20):
+                a, sh = p >> 2, (p & 3) * 8
+                lo, hi = _funnel_r(s32[a], s32[a + 1], sh), _funnel_r(s32[a + 1], s32[a + 2], sh)
+                (t0, m0), (t1, m1) = table[bm & 15], table[bm >> 4]
+                n0 = bin(bm & 15).count("1")
+                got = np.asarray([_byte_perm(lo, 0, t0) & m0,
+                                  _byte_perm(lo, hi, t1 + n0 * 0x1111) & m1], "<u4").view(np.uint8)
+                want, k = np.zeros(8, np.uint8), p
+                for c in range(8):
+                    if (bm >> c) & 1:
+                        want[c], k = stream[k], k + 1
+                np.testing.assert_array_equal(got, want, err_msg=f"byte {bm:08b} at slot {p}")
