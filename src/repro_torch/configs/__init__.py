@@ -1,6 +1,9 @@
-"""Architecture configs the port serves (its own copy of ``repro.configs``)."""
+"""Architecture configs (the port's own copy of ``repro.configs``): the ten
+architectures the JAX package registers, under the same names.  The port
+serves the dense ones (phi4-mini, gemma3-1b / 4b, deepseek-7b); the entry
+points refuse the other families (:func:`base.require_dense`)."""
 
-from repro_torch.configs import phi4_mini_3_8b  # noqa: F401  (registers)
+from repro_torch.configs import shapes  # noqa: F401
 from repro_torch.configs.base import (  # noqa: F401
     ARCH_REGISTRY,
     SMOKE_REGISTRY,
@@ -12,4 +15,19 @@ from repro_torch.configs.base import (  # noqa: F401
     apply_weight_format_override,
     get_config,
     register,
+    require_dense,
+)
+
+# imported for their registrations
+from repro_torch.configs import (  # noqa: F401
+    deepseek_7b,
+    gemma3_1b,
+    gemma3_4b,
+    jamba_1_5_large_398b,
+    llama4_scout_17b_a16e,
+    mamba2_1_3b,
+    mixtral_8x22b,
+    paligemma_3b,
+    phi4_mini_3_8b,
+    whisper_medium,
 )

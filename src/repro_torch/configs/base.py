@@ -1,10 +1,15 @@
 """Model configuration schema + architecture registry (the port's copy).
 
-Counterpart of :mod:`repro.configs.base`, cut to what the serving slices
-serve: dense GQA transformers, the serve-time weight format (bf16, int8 or
-BSTC-coded int8), the BGPP decode knobs and speculative decoding.  The
-port keeps its own copy (it imports nothing of ``repro``).  Each architecture file registers its published config plus a reduced
-``smoke`` variant used by the CPU tests.
+Counterpart of :mod:`repro.configs.base`: every field of the reference's
+``ModelConfig`` (dense, MoE, SSM, hybrid, encoder-decoder and VLM
+families), its per-layer helpers and its parameter counts, with the port's
+own cut of ``MCBPOptions`` (the serve-time weight format, the BGPP decode
+knobs and speculative decoding).  The port keeps its own copy (it imports
+nothing of ``repro``).  Each architecture file registers its published
+config plus a reduced ``smoke`` variant used by the CPU tests.
+
+The port serves the ``dense`` family; every entry point refuses another
+family with :func:`require_dense`'s error.
 """
 
 from __future__ import annotations
@@ -105,10 +110,10 @@ def apply_spec_decode_overrides(cfg, enabled: Optional[bool] = None,
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """One dense decoder-only transformer."""
+    """One architecture: the reference's fields, with the port's MCBP knobs."""
 
     name: str
-    family: str  # dense
+    family: str  # dense | moe | ssm | hybrid | enc_dec | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -116,9 +121,45 @@ class ModelConfig:
     head_dim: int
     d_ff: int
     vocab_size: int
+
+    # attention structure
     rope_theta: float = 10_000.0
-    activation: str = "swiglu"
-    norm: str = "rms"
+    rope_theta_local: float = 0.0  # gemma3: local layers use a different base
+    sliding_window: int = 0  # window of the local layers (0 = none)
+    global_every: int = 0  # layer i is global iff (i + 1) % global_every == 0
+    chunk_attention: int = 0  # llama4 chunked-local size (0 = off)
+    attn_logit_softcap: float = 0.0
+    qk_norm: bool = False
+    embed_scale: bool = False  # gemma: embeddings times sqrt(d_model)
+    post_norms: bool = False  # gemma3 sandwich norms
+
+    # FFN / MoE
+    activation: str = "swiglu"  # swiglu | geglu | gelu
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_every: int = 1  # layer i is MoE iff num_experts > 0 and i % moe_every == moe_offset
+    moe_offset: int = 0
+    moe_shared_ff: int = 0  # llama4 shared expert width (0 = none)
+    moe_capacity_factor: float = 1.25
+
+    # SSM (mamba2 / jamba)
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    attn_every: int = 0  # hybrid: layer i is attention iff i % attn_every == attn_offset
+    attn_offset: int = 0
+
+    # encoder-decoder (whisper)
+    encoder_layers: int = 0
+    encoder_seq: int = 0
+    d_audio: int = 0
+
+    # VLM (paligemma)
+    vision_tokens: int = 0
+    d_vision: int = 0
+
+    norm: str = "rms"  # rms | ln
     tie_embeddings: bool = True
     dtype: str = "bfloat16"
     mcbp: MCBPOptions = MCBPOptions()
@@ -133,9 +174,96 @@ class ModelConfig:
         """Width of the concatenated key (or value) heads."""
         return self.num_kv_heads * self.head_dim
 
+    def layer_is_global_attn(self, i: int) -> bool:
+        """Whether layer i attends the whole sequence."""
+        if self.sliding_window <= 0:
+            return self.chunk_attention <= 0  # chunked archs: global_every rule
+        if self.global_every <= 0:
+            return False
+        return (i + 1) % self.global_every == 0
+
     def layer_attn_window(self, i: int) -> Tuple[str, int]:
-        """(mask_kind, window) for layer i: every layer is full causal."""
+        """(mask_kind, window) for layer i; ``("causal", 0)`` is global."""
+        if self.chunk_attention > 0:
+            if self.global_every > 0 and (i + 1) % self.global_every == 0:
+                return ("causal", 0)
+            return ("chunked", self.chunk_attention)
+        if self.sliding_window > 0:
+            if self.global_every > 0 and (i + 1) % self.global_every == 0:
+                return ("causal", 0)
+            return ("sliding", self.sliding_window)
         return ("causal", 0)
+
+    def layer_is_moe(self, i: int) -> bool:
+        """Whether layer i's FFN is a mixture of experts."""
+        return self.num_experts > 0 and i % self.moe_every == self.moe_offset
+
+    def layer_is_attention(self, i: int) -> bool:
+        """Attention (not a mamba mixer) at layer i: every layer of the
+        attention families, none of ``ssm``, the interleave of ``hybrid``."""
+        if self.family != "hybrid":
+            return self.family != "ssm"
+        return self.attn_every > 0 and i % self.attn_every == self.attn_offset
+
+    def active_params(self) -> int:
+        """Approximate active (per-token) parameter count."""
+        return _param_count(self, active_only=True)
+
+    def total_params(self) -> int:
+        """Approximate total parameter count."""
+        return _param_count(self, active_only=False)
+
+
+def _ffn_params(cfg: ModelConfig, d_ff: int) -> int:
+    mult = 3 if cfg.activation in ("swiglu", "geglu") else 2
+    return mult * cfg.d_model * d_ff
+
+
+def _param_count(cfg: ModelConfig, active_only: bool) -> int:
+    """The reference's closed-form parameter count (norms left out)."""
+    d = cfg.d_model
+    total = cfg.vocab_size * d  # embeddings
+    if not cfg.tie_embeddings:
+        total += cfg.vocab_size * d
+    for i in range(cfg.num_layers):
+        if cfg.layer_is_attention(i):
+            total += d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
+        else:  # mamba mixer
+            d_in = cfg.ssm_expand * d
+            nheads = d_in // cfg.ssm_head_dim
+            total += d * (2 * d_in + 2 * cfg.ssm_state + nheads) + d_in * d
+        if cfg.family == "ssm":
+            continue  # mamba2 interleaves mixers only, no separate FFN
+        if cfg.layer_is_moe(i):
+            e = cfg.experts_per_token if active_only else cfg.num_experts
+            total += e * _ffn_params(cfg, cfg.d_ff) + d * cfg.num_experts
+            if cfg.moe_shared_ff:
+                total += _ffn_params(cfg, cfg.moe_shared_ff)
+        else:
+            total += _ffn_params(cfg, cfg.d_ff)
+    for _ in range(cfg.encoder_layers):  # whisper's encoder, roughly
+        total += 4 * cfg.d_model * cfg.q_dim + _ffn_params(cfg, cfg.d_ff)
+    return total
+
+
+# ROADMAP Queue 1 item that ports each family the port does not serve yet
+_FAMILY_ITEM = {
+    "moe": "ROADMAP Queue 1, items 6 (models/moe.py) and 7 (sharding)",
+    "ssm": "ROADMAP Queue 1, item 6 (models/mamba2.py)",
+    "hybrid": "ROADMAP Queue 1, items 6 (models/hybrid.py) and 7 (sharding)",
+    "enc_dec": "ROADMAP Queue 1, item 6 (models/whisper.py)",
+    "vlm": "ROADMAP Queue 1, item 6 (the VLM prefix)",
+}
+
+
+def require_dense(cfg, who: str) -> None:
+    """Refuse a family the port does not serve: a ``ValueError`` naming the
+    family and the roadmap item that ports it."""
+    if cfg.family != "dense":
+        where = _FAMILY_ITEM.get(cfg.family, "ROADMAP Queue 1, item 6")
+        raise ValueError(
+            f"{who}: {cfg.name} is of family {cfg.family!r}; the port serves the "
+            f"dense family only ({cfg.family} is {where})")
 
 
 ARCH_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}

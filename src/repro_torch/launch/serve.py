@@ -12,7 +12,10 @@ paged layout, request scheduler).
         [--spec-decode] [--draft-gamma 4] [--draft-planes 4] [--trace-out trace.json]
 
 The counterpart of ``repro.launch.serve`` without ``--mesh`` or
-``--server`` (later slices).  It runs on ``--device cuda`` unless
+``--server`` (later slices).  ``--arch`` takes every registered
+architecture; the dense ones serve (phi4-mini, gemma3-1b / 4b with their
+sliding-window rings, deepseek-7b with its untied head) and the others are
+refused with an error that names their family.  It runs on ``--device cuda`` unless
 told otherwise; ``--full`` serves the published full-width config instead
 of the smoke one.  Weights are random, drawn from a seeded generator on
 the device.  Requests arrive on a Poisson-ish trace.  With the default
@@ -44,7 +47,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import (ARCH_REGISTRY, WEIGHT_FORMATS, apply_bgpp_overrides,
                                  apply_spec_decode_overrides, apply_weight_format_override,
                                  get_config)
-from repro_torch.models.transformer import init_params
+from repro_torch.models import model_zoo
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving.request import poisson_trace
 from repro_torch.serving.scheduler import Scheduler
@@ -102,7 +105,7 @@ def main(argv=None):
     cfg = apply_spec_decode_overrides(cfg, enabled=args.spec_decode or None,
                                       gamma=args.draft_gamma, planes=args.draft_planes)
     gen = torch.Generator(device=device).manual_seed(0)
-    params = init_params(cfg, gen, device)
+    params = model_zoo.init(cfg, gen, device)
     layout = kvc.layout_for(cfg, args.slots, args.max_seq, kv_format=args.kv_format,
                             layout=args.kv_layout, page_size=args.page_size)
     sched = Scheduler(params, cfg, layout, device=device, admission=args.admission,

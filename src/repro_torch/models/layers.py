@@ -1,10 +1,14 @@
 """Shared dense-transformer layers on plain tensors.
 
-Counterpart of :mod:`repro.models.layers` for the pieces the serving
-slices run: RMS norm, split-halves RoPE in float32, the projection
+Counterpart of :mod:`repro.models.layers` for the pieces the dense
+family runs: RMS norm, split-halves RoPE in float32, the projection
 contraction (raw ``(in, out)`` weight leaves and the serve-time int8 / BSTC
-records of :mod:`repro_torch.serving.weights`), SwiGLU MLP and the QKV
-projection.
+records of :mod:`repro_torch.serving.weights`), the SwiGLU / GeGLU / GELU
+MLPs and the QKV projection with gemma3's optional qk-norm.
+
+On the CPU every contraction sums each row in one order whatever the
+number of rows beside it (:func:`matmul`), so a prompt's logits do not move
+with the chunk width it was prefilled at, nor a slot's with the batch.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
 
 
 def apply_norm(x: torch.Tensor, params, kind: str) -> torch.Tensor:
-    """The config's norm (the port serves ``rms``)."""
+    """The config's norm (the dense family's is ``rms``; whisper's layer
+    norm comes with its family)."""
     if kind != "rms":
         raise ValueError(f"apply_norm: norm {kind!r} is not ported")
     return rms_norm(x, params["scale"])
@@ -54,6 +59,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a 2-D ``(in, out)`` weight.
+
+    On the CPU the product is made row-stable: the library's GEMM sums a
+    row in an order that depends on the row count when ``w`` is a
+    transposed view (up to a few rows) and when there is one row (its
+    matrix-vector path), and in one order for every count of two rows or
+    more against a contiguous ``w``.  So a transposed ``w`` (the tied head
+    ``embed.T``) is made contiguous for the call and a single row is padded
+    to two.  On the card the product is ``x @ w`` as it stands."""
+    if x.device.type != "cpu":
+        return x @ w
+    if not w.is_contiguous():
+        w = w.contiguous()
+    rows = x.reshape(-1, x.shape[-1])
+    if rows.shape[0] == 1:
+        return (torch.cat([rows, rows]) @ w)[:1].reshape(x.shape[:-1] + w.shape[-1:])
+    return x @ w
 
 
 def wdot(x: torch.Tensor, w) -> torch.Tensor:
@@ -78,28 +103,49 @@ def wdot(x: torch.Tensor, w) -> torch.Tensor:
             y = bstc_matmul(w["bstc"], x.reshape(-1, x.shape[-1]).T, apply_scale=True)
             return y.T.reshape(lead + (y.shape[0],)).to(x.dtype)  # (out, N) f32 -> (..., out)
         dq = w["q"].to(torch.float32) * w["scale"][..., None, :].to(torch.float32)
-        return x @ dq.to(x.dtype)
+        return matmul(x, dq.to(x.dtype))
     dt = torch.promote_types(x.dtype, w.dtype)
-    return x.to(dt) @ w.to(dt)
+    return matmul(x.to(dt), w.to(dt))
+
+
+def glu_act(kind: str, gate: torch.Tensor) -> torch.Tensor:
+    """The gate's activation: SiLU (``swiglu``) or tanh-approximate GELU
+    (``geglu``)."""
+    if kind == "swiglu":
+        return F.silu(gate)
+    if kind == "geglu":
+        return F.gelu(gate, approximate="tanh")
+    raise ValueError(f"glu_act: activation {kind!r} is not a gated unit")
 
 
 def mlp_apply(params, x: torch.Tensor, activation: str) -> torch.Tensor:
-    """SwiGLU MLP: ``down(silu(gate(x)) * up(x))``."""
-    if activation != "swiglu":
-        raise ValueError(f"mlp_apply: activation {activation!r} is not ported")
-    gate = wdot(x, params["gate"])
-    return wdot(F.silu(gate) * wdot(x, params["up"]), params["down"])
+    """Gated MLP ``down(act(gate(x)) * up(x))`` for ``swiglu`` / ``geglu``;
+    the plain ``gelu`` MLP with biases (``up``, ``up_b``, ``down``,
+    ``down_b``) otherwise."""
+    if activation in ("swiglu", "geglu"):
+        gate = wdot(x, params["gate"])
+        return wdot(glu_act(activation, gate) * wdot(x, params["up"]), params["down"])
+    if activation != "gelu":
+        raise ValueError(f"mlp_apply: unknown activation {activation!r}")
+    h = F.gelu(wdot(x, params["up"]) + params["up_b"], approximate="tanh")
+    return wdot(h, params["down"]) + params["down_b"]
 
 
 def qkv_project(params, x: torch.Tensor, num_heads: int, num_kv_heads: int,
                 head_dim: int, positions: Optional[torch.Tensor],
-                rope_theta: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                rope_theta: float, qk_norm: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x ``(B, S, D)`` -> q ``(B, S, Hq, Dh)``, k / v ``(B, S, Hk, Dh)``,
-    with RoPE on q and k at ``positions`` ``(B, S)``."""
+    with RoPE on q and k at ``positions`` ``(B, S)``.  ``qk_norm`` (gemma3)
+    RMS-normalises every q and k head over its ``Dh`` lanes with the
+    zero-centred ``q_norm`` / ``k_norm`` scales, before RoPE."""
     B, S, _ = x.shape
     q = wdot(x, params["wq"]).reshape(B, S, num_heads, head_dim)
     k = wdot(x, params["wk"]).reshape(B, S, num_kv_heads, head_dim)
     v = wdot(x, params["wv"]).reshape(B, S, num_kv_heads, head_dim)
+    if qk_norm:
+        q = rms_norm(q, params["q_norm"]["scale"])
+        k = rms_norm(k, params["k_norm"]["scale"])
     if positions is not None:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)

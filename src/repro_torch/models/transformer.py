@@ -1,18 +1,23 @@
 """Dense decoder-only transformer: parameter init and the whole-sequence
 forward.
 
-Counterpart of :mod:`repro.models.transformer` for the dense family.  The
-parameter tree follows ``transformer.init``'s (stacked ``(L, ...)`` layer
-leaves, ``(in, out)`` projections, zero-centred norm scales, tied
-embeddings) and its scales, drawn from a ``torch.Generator`` on the target
-device.
+Counterpart of :mod:`repro.models.transformer` for the dense family:
+phi4-mini, deepseek-7b (an untied ``lm_head``) and gemma3-1b / 4b (local
+sliding-window layers 5:1 with global ones, their own RoPE base, qk-norm,
+sandwich norms, GeGLU and the embedding scale).  The parameter tree
+follows ``transformer.init``'s (stacked ``(L, ...)`` layer leaves, ``(in,
+out)`` projections, zero-centred norm scales, the optional leaves where
+the config asks for them) and its scales, drawn from a
+``torch.Generator`` on the target device.
 
 ``forward`` runs a whole ``(B, S)`` token batch through every layer (the
 reference's ``lax.scan`` becomes a Python loop over the stacked leaves);
 its attention is :func:`repro_torch.core.attention.blocked_attend`, which
-launches the ``flash_attention`` kernel on the card.  Eager admission and
-whole-batch prefill (:mod:`repro_torch.serving.engine`) run on it.  MoE,
-the VLM prefix, rematerialisation and sharding rules are not ported.
+launches the ``flash_attention`` kernel on the card, with the model's mask
+kind and each layer's window (0, full causal, on the global layers).
+Eager admission and whole-batch prefill (:mod:`repro_torch.serving.engine`)
+run on it.  MoE, the VLM prefix, rematerialisation and sharding rules are
+not ported.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.configs.base import require_dense
 from repro_torch.core import attention
 from repro_torch.models import layers
 from repro_torch.models.layers import _dtype
@@ -31,15 +37,15 @@ Params = Dict[str, Any]
 
 
 def _mask_kind(cfg) -> str:
-    """The mask family of the model's attention layers (causal for a
-    dense stack of global layers; sliding or chunked where the config
-    gives local layers a window)."""
-    if cfg.family != "dense":
-        raise ValueError(f"transformer: family {cfg.family!r} is not ported")
-    kinds = {cfg.layer_attn_window(i)[0] for i in range(cfg.num_layers)} - {"causal"}
-    if len(kinds) > 1:
-        raise ValueError(f"transformer: layers mix mask kinds {sorted(kinds)}")
-    return kinds.pop() if kinds else "causal"
+    """The model's one mask kind; each layer's window picks its extent
+    (window 0 is full causal)."""
+    if cfg.family == "vlm":
+        return "prefix_causal"
+    if cfg.chunk_attention > 0:
+        return "chunked"
+    if cfg.sliding_window > 0:
+        return "sliding"
+    return "causal"
 
 
 def layer_windows(cfg) -> np.ndarray:
@@ -52,8 +58,14 @@ def layer_windows(cfg) -> np.ndarray:
 
 
 def layer_thetas(cfg) -> np.ndarray:
-    """(L,) RoPE base per layer (every ported layer is global)."""
-    return np.full((cfg.num_layers,), cfg.rope_theta, np.float32)
+    """(L,) RoPE base per layer: ``rope_theta_local`` on the local layers
+    where the config sets one (gemma3), ``rope_theta`` elsewhere."""
+    out = []
+    for i in range(cfg.num_layers):
+        kind, _ = cfg.layer_attn_window(i)
+        local = kind in ("sliding", "chunked") and cfg.rope_theta_local > 0
+        out.append(cfg.rope_theta_local if local else cfg.rope_theta)
+    return np.asarray(out, np.float32)
 
 
 def init_params(cfg, generator: torch.Generator, device="cuda") -> Params:
@@ -61,17 +73,17 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> Params:
     live on the same device).
 
     Projections are ``N(0, 1) / sqrt(fan_in)``, embeddings ``N(0, 1) *
-    0.02``, norm scales zero — ``transformer.init``'s scales.  Leaves are
-    filled layer by layer in the model dtype, so the peak memory is the
-    parameters themselves (7.7 GB for phi4-mini-3.8b in bf16)."""
-    if cfg.family != "dense" or not cfg.tie_embeddings:
-        raise ValueError("init_params: the port initialises dense, tied models")
+    0.02``, norm scales zero — ``transformer.init``'s scales; the
+    ``(d_model, vocab)`` ``lm_head`` of an untied model is a projection.
+    Leaves are filled layer by layer in the model dtype, so the peak memory
+    is the parameters themselves (7.7 GB for phi4-mini-3.8b in bf16)."""
+    require_dense(cfg, "init_params")
     dtype = _dtype(cfg.dtype)
     L, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
 
     def normal(shape, scale):
         t = torch.empty(shape, dtype=dtype, device=device)
-        for i in range(shape[0]):  # one layer (or the whole table) at a time
+        for i in range(shape[0]):  # one layer (or row block) at a time
             t[i].normal_(generator=generator)
         return t.mul_(torch.tensor(scale, dtype=dtype, device=device))
 
@@ -79,25 +91,51 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> Params:
     embed = torch.empty((cfg.vocab_size, d), dtype=dtype, device=device)
     embed.normal_(generator=generator)
     embed.mul_(torch.tensor(0.02, dtype=dtype, device=device))
-    return {
-        "embed": embed,
-        "layers": {
-            "attn_norm": {"scale": zeros(L, d)},
-            "attn": {
-                "wq": normal((L, d, cfg.q_dim), 1 / math.sqrt(d)),
-                "wk": normal((L, d, cfg.kv_dim), 1 / math.sqrt(d)),
-                "wv": normal((L, d, cfg.kv_dim), 1 / math.sqrt(d)),
-                "wo": normal((L, cfg.q_dim, d), 1 / math.sqrt(cfg.q_dim)),
-            },
-            "mlp_norm": {"scale": zeros(L, d)},
-            "mlp": {
-                "gate": normal((L, d, f), 1 / math.sqrt(d)),
-                "up": normal((L, d, f), 1 / math.sqrt(d)),
-                "down": normal((L, f, d), 1 / math.sqrt(f)),
-            },
-        },
-        "final_norm": {"scale": zeros(d)},
+    attn = {
+        "wq": normal((L, d, cfg.q_dim), 1 / math.sqrt(d)),
+        "wk": normal((L, d, cfg.kv_dim), 1 / math.sqrt(d)),
+        "wv": normal((L, d, cfg.kv_dim), 1 / math.sqrt(d)),
+        "wo": normal((L, cfg.q_dim, d), 1 / math.sqrt(cfg.q_dim)),
     }
+    if cfg.qk_norm:
+        attn["q_norm"] = {"scale": zeros(L, cfg.head_dim)}
+        attn["k_norm"] = {"scale": zeros(L, cfg.head_dim)}
+    if cfg.activation in ("swiglu", "geglu"):
+        mlp = {"gate": normal((L, d, f), 1 / math.sqrt(d)),
+               "up": normal((L, d, f), 1 / math.sqrt(d)),
+               "down": normal((L, f, d), 1 / math.sqrt(f))}
+    else:  # the plain GELU MLP
+        mlp = {"up": normal((L, d, f), 1 / math.sqrt(d)), "up_b": zeros(L, f),
+               "down": normal((L, f, d), 1 / math.sqrt(f)), "down_b": zeros(L, d)}
+    lay = {"attn_norm": {"scale": zeros(L, d)}, "attn": attn,
+           "mlp_norm": {"scale": zeros(L, d)}, "mlp": mlp}
+    if cfg.post_norms:
+        lay["post_attn_norm"] = {"scale": zeros(L, d)}
+        lay["post_mlp_norm"] = {"scale": zeros(L, d)}
+    params = {"embed": embed, "layers": lay, "final_norm": {"scale": zeros(d)}}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((d, cfg.vocab_size), 1 / math.sqrt(d))
+    return params
+
+
+def embed_tokens(params: Params, cfg, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings in the model dtype, times ``sqrt(d_model)`` (rounded
+    to that dtype) where the config asks for it (gemma)."""
+    dtype = _dtype(cfg.dtype)
+    x = params["embed"][tokens].to(dtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype, device=x.device)
+    return x
+
+
+def lm_logits(params: Params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the head: the untied ``lm_head`` (a raw leaf or a
+    serve-time record), else the tied ``embed.T`` in the model dtype."""
+    x = layers.apply_norm(x, params["final_norm"], cfg.norm)
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].T.to(_dtype(cfg.dtype))
+    return layers.wdot(x, head)
 
 
 def layer_params(tree: Params, i: int) -> Params:
@@ -113,21 +151,28 @@ def layer_params(tree: Params, i: int) -> Params:
 
 def _attention_block(p, cfg, x, positions, theta: float, window: int, mask_kind: str,
                      return_kv: bool = False):
-    """Norm, QKV with RoPE, ``blocked_attend``, ``wo``.  x ``(B, S, d)`` ->
-    ``(out, (k, v) or None)`` with k / v ``(B, S, Hk, Dh)``."""
+    """Norm, QKV (qk-norm where set) with RoPE, ``blocked_attend``, ``wo``
+    and the post-attention norm where set.  x ``(B, S, d)`` -> ``(out, (k,
+    v) or None)`` with k / v ``(B, S, Hk, Dh)``."""
     h = layers.apply_norm(x, p["attn_norm"], cfg.norm)
     q, k, v = layers.qkv_project(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
-                                 cfg.head_dim, positions, theta)
+                                 cfg.head_dim, positions, theta, qk_norm=cfg.qk_norm)
     attn = attention.blocked_attend(q, k, v, mask_kind=mask_kind, window=window)
     B, S = attn.shape[:2]
-    out = attn.reshape(B, S, -1) @ p["attn"]["wo"]
+    out = layers.wdot(attn.reshape(B, S, -1), p["attn"]["wo"])
+    if cfg.post_norms:
+        out = layers.apply_norm(out, p["post_attn_norm"], cfg.norm)
     return out, ((k, v) if return_kv else None)
 
 
 def _ffn_block(p, cfg, x):
-    """Norm and SwiGLU MLP -> ``(out, aux)``; aux is 0 for the dense family."""
+    """Norm, MLP and the post-MLP norm where set -> ``(out, aux)``; aux is 0
+    for the dense family."""
     h = layers.apply_norm(x, p["mlp_norm"], cfg.norm)
-    return layers.mlp_apply(p["mlp"], h, cfg.activation), 0.0
+    out = layers.mlp_apply(p["mlp"], h, cfg.activation)
+    if cfg.post_norms:
+        out = layers.apply_norm(out, p["post_mlp_norm"], cfg.norm)
+    return out, 0.0
 
 
 def forward(params: Params, cfg, tokens: torch.Tensor, return_kv: bool = False):
@@ -136,9 +181,9 @@ def forward(params: Params, cfg, tokens: torch.Tensor, return_kv: bool = False):
     The residual stream runs in ``cfg.dtype``; ``aux`` is a 0-d float32
     tensor (0 for the dense family); ``k_all`` / ``v_all`` stack every
     layer's post-RoPE K and V, ``(L, B, S, Hk, Dh)``."""
+    require_dense(cfg, "forward")
     B, S = tokens.shape
-    dtype = _dtype(cfg.dtype)
-    x = params["embed"][tokens].to(dtype)
+    x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     mask_kind = _mask_kind(cfg)
     windows = layer_windows(cfg)
@@ -156,9 +201,7 @@ def forward(params: Params, cfg, tokens: torch.Tensor, return_kv: bool = False):
         if return_kv:
             ks.append(kv[0])
             vs.append(kv[1])
-    x = layers.apply_norm(x, params["final_norm"], cfg.norm)
-    head = params.get("lm_head")
-    logits = x @ (params["embed"].T.to(dtype) if head is None else head)
+    logits = lm_logits(params, cfg, x)
     if return_kv:
         return logits, aux, (torch.stack(ks), torch.stack(vs))
     return logits, aux

@@ -2,7 +2,9 @@
 sequence prefill (``prefill``, ``prefill_into_slot``) and chunked prefill
 for dense transformers over the paged or slot KV cache.
 
-Counterpart of :mod:`repro.serving.engine`, dense branch.
+Counterpart of :mod:`repro.serving.engine`, dense branch: global layers
+over the full-sequence store and, for gemma3's sliding-window layers,
+local layers over ring buffers of ``local_window`` lanes a slot.
 
     serve_step(params, cache, tokens (B, 1)) -> (logits (B, 1, V), cache)
     prefill(params, cfg, layout, tokens (B, S)) -> (logits (B, 1, V), cache)
@@ -17,7 +19,10 @@ the Scheduler's eager admission.
 Positions are per slot (``cache["pos"]`` is ``(B,)``), so staggered
 requests share one batch.  The global-layer decode attend always goes
 through :mod:`repro_torch.serving.kernel_decode`: the CUDA kernels for
-CUDA tensors, their plain versions for CPU tensors.  The cache is updated
+CUDA tensors, their plain versions for CPU tensors.  The local layers'
+attends (decode over the ring, ``_chunk_attend_local`` in chunked prefill)
+are plain PyTorch on every device, as they are ``jnp`` in the reference,
+which has no kernel for them.  The cache is updated
 in place (the reference's steps returned a new tree; the port returns the
 same one).  PyTorch runs eagerly: there is no jit, and a ``ChunkedPrefill``
 "compile" is the first run of a bucket width.
@@ -42,8 +47,10 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import require_dense
+from repro_torch.core.attention import NEG_INF
 from repro_torch.kernels.bgpp_paged_attend import ref as bgpp_ref
-from repro_torch.kernels.paged_flash_decode.ref import dense_attend, int8_attend
+from repro_torch.kernels.paged_flash_decode.ref import dense_attend, int8_attend, softmax
 from repro_torch.models import layers, transformer
 from repro_torch.serving import kernel_decode, kv_cache as kvc, weights as swt
 
@@ -174,42 +181,66 @@ def _paged_kw(layout):
     return dict(page_size=layout.page_size, max_seq=layout.max_seq)
 
 
+def _local_decode_attend(q1, cache, li: int, k, v, pos, cfg, layout, layer_idx: int):
+    """One local (ring) layer's decode: the token's K/V land at lane
+    ``pos % W`` with ``abs_pos`` = pos, then q ``(B, Hq, Dh)`` attends the
+    lanes inside its sliding (or chunked) window — plain PyTorch, as the
+    reference's ``jnp``.  Returns f32 ``(B, Hq, Dh)``."""
+    B = q1.shape[0]
+    store = cache["local"]
+    lane = (pos % layout.local_window).long()
+    kvc.write_token(store, li, k, v, lane)
+    store["abs_pos"][li, torch.arange(B, device=pos.device), lane] = pos
+    abs_pos, pos_c = store["abs_pos"][li], pos[:, None]  # (B, W), (B, 1)
+    kind, w = cfg.layer_attn_window(layer_idx)
+    if kind == "chunked":
+        valid = (abs_pos >= 0) & (abs_pos // w == pos_c // w) & (abs_pos <= pos_c)
+    else:
+        valid = (abs_pos >= 0) & (pos_c - abs_pos < w) & (abs_pos <= pos_c)
+    entry = {n: a[li] for n, a in store.items() if n != "abs_pos"}
+    return _decode_attend(q1, entry, valid, cfg, kvc.local_format(layout))
+
+
 def _attn_decode_layer(p, cfg, layout, cache, x, pos, layer_idx, theta, phys=None):
     """x ``(B, 1, D)``, pos per-slot ``(B,)``.  Write-then-attend: the
-    token's K/V land at ``pos`` first, then the global-layer attend runs
-    through :func:`kernel_decode.decode_attend`.  Returns ``(out, cache)``."""
+    token's K/V land at ``pos`` first (a local layer: its ring lane), then
+    a global layer's attend runs through :func:`kernel_decode.decode_attend`
+    and a local layer's through :func:`_local_decode_attend`.  Returns
+    ``(out, cache)``."""
     B = x.shape[0]
     h = layers.apply_norm(x, p["attn_norm"], cfg.norm)
     q, k, v = layers.qkv_project(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
-                                 cfg.head_dim, pos[:, None], theta)
-    gi = layout.global_layers.index(layer_idx)
-    paged = layout.layout == "paged"
-    kvc.write_token(cache["global"], gi, k, v, pos,
-                    **(dict(page_table=cache["page_table"], **_paged_kw(layout))
-                       if paged else {}))
-    out = kernel_decode.decode_attend(
-        q[:, 0], cache["global"], gi, pos, cfg, layout, phys=phys,
-        page_table=cache["page_table"] if paged else None,
-    )
+                                 cfg.head_dim, pos[:, None], theta, qk_norm=cfg.qk_norm)
+    if layer_idx in layout.local_layers:
+        out = _local_decode_attend(q[:, 0], cache, layout.local_layers.index(layer_idx),
+                                   k, v, pos, cfg, layout, layer_idx)
+    else:
+        gi = layout.global_layers.index(layer_idx)
+        paged = layout.layout == "paged"
+        kvc.write_token(cache["global"], gi, k, v, pos,
+                        **(dict(page_table=cache["page_table"], **_paged_kw(layout))
+                           if paged else {}))
+        out = kernel_decode.decode_attend(
+            q[:, 0], cache["global"], gi, pos, cfg, layout, phys=phys,
+            page_table=cache["page_table"] if paged else None,
+        )
     # the f32 attend output meets wo as it is, like the reference's
     # ``wdot(out_f32, wo)``: at bf16 width the contraction and the residual
     # stream run in f32 from layer 0's attend on (the chunk prefill casts
     # to the activation dtype first, as the reference's does)
     out = layers.wdot(out.reshape(B, 1, -1), p["attn"]["wo"])
+    if cfg.post_norms:
+        out = layers.apply_norm(out, p["post_attn_norm"], cfg.norm)
     return out, cache
 
 
 def _ffn_decode_layer(p, cfg, x):
     h = layers.apply_norm(x, p["mlp_norm"], cfg.norm)
-    return layers.mlp_apply(p["mlp"], h, cfg.activation)
+    out = layers.mlp_apply(p["mlp"], h, cfg.activation)
+    if cfg.post_norms:
+        out = layers.apply_norm(out, p["post_mlp_norm"], cfg.norm)
+    return out
 
-
-def _logits(params, cfg, x):
-    x = layers.apply_norm(x, params["final_norm"], cfg.norm)
-    head = params.get("lm_head")
-    if head is None:  # tied: non-bf16 serve params carry an explicit record
-        head = params["embed"].T
-    return layers.wdot(x, head)
 
 
 def make_serve_step(cfg, layout: kvc.CacheLayout):
@@ -220,11 +251,9 @@ def make_serve_step(cfg, layout: kvc.CacheLayout):
     One call decodes ONE token for every slot at its own ``cache["pos"]``
     and advances every ``pos`` by one.  Paged layouts hoist one
     logical->pool gather map per step (BGPP's kernel reads through it)."""
-    if cfg.family != "dense":
-        raise ValueError(f"make_serve_step: family {cfg.family!r} is not ported")
+    require_dense(cfg, "make_serve_step")
     if layout.global_layers:
         kernel_decode.validate(cfg, layout)
-    dtype = layers._dtype(cfg.dtype)
     thetas = transformer.layer_thetas(cfg)
     paged = layout.layout == "paged"
     # weight_format, resolved once per built step: int8/bstc steps take the
@@ -239,15 +268,15 @@ def make_serve_step(cfg, layout: kvc.CacheLayout):
             swt.check_serve_params(params, cfg, weight_format)
         pos = cache["pos"]
         phys = (kvc.phys_table(cache["page_table"], layout.page_size, layout.max_seq)
-                if paged and layout.kv_format == "bgpp" else None)
-        x = params["embed"][tokens[:, :1]].to(dtype)
+                if paged and layout.kv_format == "bgpp" and layout.global_layers else None)
+        x = transformer.embed_tokens(params, cfg, tokens[:, :1])
         for i in range(cfg.num_layers):
             p = transformer.layer_params(params["layers"], i)
             a, cache = _attn_decode_layer(p, cfg, layout, cache, x, pos, i,
                                           float(thetas[i]), phys=phys)
             x = x + a
             x = x + _ffn_decode_layer(p, cfg, x)
-        logits = _logits(params, cfg, x)
+        logits = transformer.lm_logits(params, cfg, x)
         cache["pos"] = pos + 1
         return logits, cache
 
@@ -259,12 +288,15 @@ def make_serve_step(cfg, layout: kvc.CacheLayout):
 # --------------------------------------------------------------------------
 
 
-def _check_prefill(cfg, layout: kvc.CacheLayout, who: str) -> None:
-    if cfg.family != "dense":
-        raise ValueError(f"{who}: family {cfg.family!r} is not ported")
-    if len(layout.global_layers) != cfg.num_layers:
-        raise ValueError(f"{who}: every layer must be a global layer; local "
-                         f"rings (write_prefill_local) are a later slice")
+def _write_prompt(cache, layout: kvc.CacheLayout, k_all, v_all, slot=None, **paged_kw):
+    """Every layer's prompt K/V into the cache: the global stores at
+    ``[0, S)``, the local rings their last ``window`` positions."""
+    for gi, layer in enumerate(layout.global_layers):
+        kvc.write_prefill(cache["global"], gi, k_all[layer], v_all[layer], slot=slot,
+                          **paged_kw)
+    for li, layer in enumerate(layout.local_layers):
+        kvc.write_prefill_local(cache["local"], li, k_all[layer], v_all[layer],
+                                layout.local_window, slot=slot)
 
 
 def prefill(params, cfg, layout: kvc.CacheLayout, tokens: torch.Tensor):
@@ -272,17 +304,16 @@ def prefill(params, cfg, layout: kvc.CacheLayout, tokens: torch.Tensor):
     fresh cache holding every row's K/V at ``[0, S)`` and ``pos = S``.
     Returns ``(last_logits (B, 1, V), cache)``.  The paged layout maps the
     rows slot-major (``identity_page_table``)."""
-    _check_prefill(cfg, layout, "prefill")
+    require_dense(cfg, "prefill")
     logits, _, (k_all, v_all) = transformer.forward(params, cfg, tokens, return_kv=True)
     dev = tokens.device
     cache = kvc.init_cache_arrays(cfg, layout, dev)
     B, S = tokens.shape
     paged_kw = {}
-    if layout.layout == "paged":
+    if layout.layout == "paged" and layout.global_layers:
         cache["page_table"] = kvc.identity_page_table(layout, dev)
         paged_kw = dict(page_table=cache["page_table"], **_paged_kw(layout))
-    for gi, layer in enumerate(layout.global_layers):
-        kvc.write_prefill(cache["global"], gi, k_all[layer], v_all[layer], **paged_kw)
+    _write_prompt(cache, layout, k_all, v_all, **paged_kw)
     cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=dev)
     return logits[:, -1:], cache
 
@@ -295,7 +326,7 @@ def prefill_into_slot(params, cfg, layout: kvc.CacheLayout, cache, slot: int,
     live cache, in place.  Paged layouts write through the cache's page
     table: the caller maps pages covering ``[0, S)`` first (writes to
     unmapped pages drop).  Returns ``(last_logits (1, 1, V), cache)``."""
-    _check_prefill(cfg, layout, "prefill_into_slot")
+    require_dense(cfg, "prefill_into_slot")
     tokens = prompt[None] if prompt.ndim == 1 else prompt
     if tokens.shape[0] != 1:
         raise ValueError(f"prefill_into_slot: one prompt per admission, got "
@@ -307,10 +338,8 @@ def prefill_into_slot(params, cfg, layout: kvc.CacheLayout, cache, slot: int,
     logits, _, (k_all, v_all) = transformer.forward(params, cfg, tokens, return_kv=True)
     cache = kvc.reset_slot(cache, layout, slot)
     paged_kw = (dict(page_table=cache["page_table"], **_paged_kw(layout))
-                if layout.layout == "paged" else {})
-    for gi, layer in enumerate(layout.global_layers):
-        kvc.write_prefill(cache["global"], gi, k_all[layer], v_all[layer], slot=slot,
-                          **paged_kw)
+                if layout.layout == "paged" and layout.global_layers else {})
+    _write_prompt(cache, layout, k_all, v_all, slot=slot, **paged_kw)
     cache["pos"][slot] = S
     return logits[:, -1:], cache
 
@@ -323,8 +352,57 @@ def prefill_into_slot(params, cfg, layout: kvc.CacheLayout, cache, slot: int,
 # cache at an arbitrary token offset.  Global layers write the chunk's KV
 # FIRST and then attend over the full (S_max,) row with per-query causal
 # masks, so the key axis has one shape however the prompt was chunked (the
-# chunked == whole-prompt invariant).  Padded lanes beyond ``length`` carry
-# garbage queries (their logits are never read) and are never written.
+# chunked == whole-prompt invariant).  Local (ring) layers attend per query
+# over a gathered fixed-width window (lane r of the query at p holds
+# position p - W + 1 + r), so their lane placement does not depend on the
+# chunking either; the ring is written after the attend (a chunk's write
+# would evict lanes its own earlier queries still need).  Padded lanes
+# beyond ``length`` carry garbage queries (their logits are never read) and
+# are never written.
+
+
+def _chunk_attend_local(cfg, layout, store, li: int, slot: int, q, k, v, qpos,
+                        offset: int, kind: str, w: int):
+    """Fixed-width gathered-window attention of a local layer's chunk.
+
+    q / k / v are the chunk's fresh projections ``(1, C, H, Dh)``; qpos
+    ``(C,)`` their positions; the ring row holds positions below
+    ``offset``.  The query at p attends lanes holding ``p - W + 1 .. p``,
+    gathered from [the ring in position order | the fresh chunk] and masked
+    by presence and the sliding / chunked rule.  Returns f32 ``(1, C, Hq,
+    Dh)``."""
+    _, C, Hq, Dh = q.shape
+    Hk = cfg.num_kv_heads
+    g = Hq // Hk
+    W = layout.local_window
+    dev = q.device
+    kr, vr = store["k"][li, slot].float(), store["v"][li, slot].float()  # (Hk, W, D)
+    if "k_scale" in store:
+        kr = kr * store["k_scale"][li, slot][..., None]
+        vr = vr * store["v_scale"][li, slot][..., None]
+    order = (offset - W + torch.arange(W, device=dev)) % W  # lane j holds offset - W + j
+    kr, vr, ap = kr[:, order], vr[:, order], store["abs_pos"][li, slot][order]
+    ring_pos = torch.where((ap >= 0) & (ap < offset), ap.long(), -(1 << 30))
+    buf_k = torch.cat([kr, k[0].transpose(0, 1).float()], dim=1)  # (Hk, W + C, D)
+    buf_v = torch.cat([vr, v[0].transpose(0, 1).float()], dim=1)
+    buf_pos = torch.cat([ring_pos, qpos.long()])
+    # query i gathers buffer lanes i + 1 .. i + W: positions qpos[i] - W + 1 .. qpos[i]
+    idx = (torch.arange(C, device=dev)[:, None] + 1
+           + torch.arange(W, device=dev)[None, :])  # (C, W)
+    gk, gv = buf_k[:, idx], buf_v[:, idx]  # (Hk, C, W, D)
+    expect = qpos[:, None].long() - W + 1 + torch.arange(W, device=dev)[None, :]
+    valid = (buf_pos[idx] == expect) & (expect >= 0)
+    if kind == "chunked":
+        cw = max(w, 1)
+        valid &= torch.div(expect, cw, rounding_mode="floor") == \
+            torch.div(qpos[:, None].long(), cw, rounding_mode="floor")
+    else:  # sliding: a no-op when w == W, real when W was clamped to max_seq
+        valid &= qpos[:, None] - expect < w
+    qg = q[0].reshape(C, Hk, g, Dh).permute(1, 2, 0, 3).float()  # (Hk, g, C, D)
+    logits = torch.einsum("hgqd,hqwd->hgqw", qg, gk) * Dh ** -0.5
+    probs = softmax(torch.where(valid[None, None], logits, NEG_INF))
+    out = torch.einsum("hgqw,hqwd->hgqd", probs, gv)
+    return out.permute(2, 0, 1, 3).reshape(1, C, Hq, Dh)
 
 
 def _attn_chunk_layer(p, cfg, layout, cache, x, slot, offset, length, layer_idx,
@@ -335,7 +413,15 @@ def _attn_chunk_layer(p, cfg, layout, cache, x, slot, offset, length, layer_idx,
     h = layers.apply_norm(x, p["attn_norm"], cfg.norm)
     qpos = offset + torch.arange(C, device=x.device)
     q, k, v = layers.qkv_project(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
-                                 cfg.head_dim, qpos[None], theta)
+                                 cfg.head_dim, qpos[None], theta, qk_norm=cfg.qk_norm)
+    if layer_idx in layout.local_layers:
+        li = layout.local_layers.index(layer_idx)
+        kind, w = cfg.layer_attn_window(layer_idx)
+        out = _chunk_attend_local(cfg, layout, cache["local"], li, slot, q, k, v, qpos,
+                                  offset, kind, w)
+        kvc.write_prefill_local(cache["local"], li, k, v, layout.local_window, slot=slot,
+                                offset=offset, length=length)
+        return _chunk_out(p, cfg, out, x), cache
     gi = layout.global_layers.index(layer_idx)
     store = cache["global"]
     if layout.layout == "paged":
@@ -356,7 +442,17 @@ def _attn_chunk_layer(p, cfg, layout, cache, x, slot, offset, length, layer_idx,
         out = _cache_attend(q, entry, valid, cfg, "int8")
     else:
         out = _cache_attend(q, view, valid, cfg, layout.kv_format)
-    return out.to(x.dtype).reshape(B, C, -1) @ p["attn"]["wo"], cache
+    return _chunk_out(p, cfg, out, x), cache
+
+
+def _chunk_out(p, cfg, out, x):
+    """The chunk attend's f32 output cast to the activation dtype, ``wo``
+    and the post-attention norm where set."""
+    B, C = x.shape[:2]
+    out = layers.wdot(out.to(x.dtype).reshape(B, C, -1), p["attn"]["wo"])
+    if cfg.post_norms:
+        out = layers.apply_norm(out, p["post_attn_norm"], cfg.norm)
+    return out
 
 
 def make_prefill_chunk(cfg, layout: kvc.CacheLayout):
@@ -367,24 +463,22 @@ def make_prefill_chunk(cfg, layout: kvc.CacheLayout):
 
     The chunk's KV lands at ``[offset, offset+length)`` of row ``slot`` and
     ``cache['pos'][slot]`` is set to ``offset + length``."""
-    if cfg.family != "dense":
-        raise ValueError(f"make_prefill_chunk: family {cfg.family!r} is not ported")
-    dtype = layers._dtype(cfg.dtype)
+    require_dense(cfg, "make_prefill_chunk")
     thetas = transformer.layer_thetas(cfg)
 
     def prefill_chunk(params, cache, tokens, slot: int, offset: int, length: int):
         """One fixed-shape (1, C) prefill chunk against the live cache."""
         phys = (kvc.phys_table(cache["page_table"], layout.page_size,
                                layout.max_seq)[slot][None]
-                if layout.layout == "paged" else None)
-        x = params["embed"][tokens].to(dtype)
+                if layout.layout == "paged" and layout.global_layers else None)
+        x = transformer.embed_tokens(params, cfg, tokens)
         for i in range(cfg.num_layers):
             p = transformer.layer_params(params["layers"], i)
             a, cache = _attn_chunk_layer(p, cfg, layout, cache, x, slot, offset,
                                          length, i, float(thetas[i]), phys=phys)
             x = x + a
             x = x + _ffn_decode_layer(p, cfg, x)
-        logits = _logits(params, cfg, x)
+        logits = transformer.lm_logits(params, cfg, x)
         cache["pos"][slot] = offset + length
         return logits, cache
 

@@ -1,7 +1,10 @@
 """KV-cache containers for the serving engine (PyTorch).
 
-Counterpart of :mod:`repro.serving.kv_cache` for dense global-attention
-stacks (phi4-mini has no local or SSM layers).  Three storage formats:
+Counterpart of :mod:`repro.serving.kv_cache` for dense attention stacks.
+Mixed local/global stacks (gemma3's 5:1 sliding-window layers) keep two
+stores: the global layers hold the whole sequence, the local layers a ring
+of ``local_window`` lanes a slot (lane ``pos % window``) with each lane's
+absolute position in ``abs_pos`` (-1 = empty).  Three storage formats:
 
   bf16 — dense baseline (the model dtype).
   int8 — per-token/head symmetric INT8 K and V (+ f32 scales).
@@ -16,6 +19,10 @@ Two physical layouts for the global stacks (``CacheLayout.layout``):
           table (``-1`` = unmapped).  Reads gather the slot's logical row
           back into the slot layout's heads-major view, so attention sees
           bit-identical values.
+
+The local rings are slot-major ``(L_local, B, Hk, W, ...)`` in both
+layouts, int8 for the int8 and bgpp formats (BGPP targets the long global
+rows) and the model dtype for bf16.
 
 Writes update the cache IN PLACE (JAX's arrays were immutable and every
 write returned a new tree; the port mutates the tensors and returns the
@@ -36,6 +43,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import require_dense
 from repro_torch.core import bitslice
 from repro_torch.kernels.bgpp_paged_attend import ref as _bgpp_ref
 from repro_torch.models.layers import _dtype
@@ -57,7 +65,9 @@ class CacheLayout:
     max_seq: int
     kv_format: str  # bf16 | int8 | bgpp
     global_layers: Tuple[int, ...] = ()
-    layout: str = "slot"  # slot | paged
+    local_layers: Tuple[int, ...] = ()  # ring-buffered sliding / chunked layers
+    local_window: int = 0  # ring lanes a slot (the window, at most max_seq)
+    layout: str = "slot"  # slot | paged (global stores only)
     page_size: int = 0  # tokens per page (paged layout)
     num_pages: int = 0  # physical pages in each layer's pool (paged layout)
 
@@ -70,16 +80,19 @@ class CacheLayout:
 def layout_for(cfg, batch: int, max_seq: int, kv_format: str = "int8",
                layout: str = "slot", page_size: int = 8,
                num_pages: Optional[int] = None) -> CacheLayout:
-    """Derive a :class:`CacheLayout` from a model config.  Every layer must
-    be a global (full-causal) attention layer — the port serves dense
-    stacks; local rings and SSM state are later slices.  ``layout="paged"``
-    sizes the shared pool (default capacity = the dense allocation)."""
+    """Derive a :class:`CacheLayout` from a model config: each layer is a
+    global layer (full-sequence store) or a local one (a ring of its
+    sliding or chunked window); ``layout="paged"`` sizes the shared pool of
+    the global store (default capacity = the dense allocation)."""
+    require_dense(cfg, "layout_for")
+    glob, loc, window = [], [], 0
     for i in range(cfg.num_layers):
-        if cfg.layer_attn_window(i) != ("causal", 0):
-            raise ValueError(
-                f"layout_for: layer {i} of {cfg.name} is not a global causal "
-                f"attention layer; the port serves dense global stacks only"
-            )
+        kind, w = cfg.layer_attn_window(i)
+        if kind in ("sliding", "chunked") and w > 0:
+            loc.append(i)
+            window = w
+        else:
+            glob.append(i)
     if kv_format not in ("bf16", "int8", "bgpp"):
         raise ValueError(f"layout_for: unknown kv_format {kv_format!r}")
     if layout == "paged":
@@ -93,7 +106,8 @@ def layout_for(cfg, batch: int, max_seq: int, kv_format: str = "int8",
         raise ValueError(f"layout_for: unknown layout {layout!r}")
     return CacheLayout(
         arch=cfg.name, family=cfg.family, batch=batch, max_seq=max_seq,
-        kv_format=kv_format, global_layers=tuple(range(cfg.num_layers)),
+        kv_format=kv_format, global_layers=tuple(glob), local_layers=tuple(loc),
+        local_window=min(window, max_seq) if window else 0,
         layout=layout, page_size=page_size, num_pages=num_pages,
     )
 
@@ -125,21 +139,35 @@ def _kv_leaves(lead: Tuple[int, ...], Hk, Dh, fmt, dtype, device) -> Tree:
     raise ValueError(fmt)
 
 
+def local_format(layout: CacheLayout) -> str:
+    """Storage format of the local rings: int8 under the int8 and bgpp
+    formats, bf16 (the model dtype) under bf16."""
+    return "int8" if layout.kv_format == "bgpp" else layout.kv_format
+
+
 def init_cache_arrays(cfg, layout: CacheLayout, device="cuda") -> Tree:
     """Cache tree of zeros on ``device``: per-slot ``pos`` ``(B,)`` int32,
-    the ``global`` store, and (paged) the ``(B, pages_per_slot)`` page table
-    of ``-1`` (unmapped)."""
+    the ``global`` store and (paged) the ``(B, pages_per_slot)`` page table
+    of ``-1`` (unmapped) where there are global layers, and the ``local``
+    rings with ``abs_pos`` ``(L_local, B, W)`` of ``-1`` where there are
+    local ones."""
     B, S, L = layout.batch, layout.max_seq, len(layout.global_layers)
     Hk, Dh = cfg.num_kv_heads, cfg.head_dim
+    dtype = _dtype(cfg.dtype)
     cache: Tree = {"pos": torch.zeros((B,), dtype=torch.int32, device=device)}
-    if layout.layout == "paged":
-        lead = (L, layout.num_pages * layout.page_size, Hk)
-        cache["page_table"] = torch.full((B, layout.pages_per_slot), -1,
-                                         dtype=torch.int32, device=device)
-    else:
-        lead = (L, B, Hk, S)
-    cache["global"] = _kv_leaves(lead, Hk, Dh, layout.kv_format,
-                                 _dtype(cfg.dtype), device)
+    if L:
+        if layout.layout == "paged":
+            lead = (L, layout.num_pages * layout.page_size, Hk)
+            cache["page_table"] = torch.full((B, layout.pages_per_slot), -1,
+                                             dtype=torch.int32, device=device)
+        else:
+            lead = (L, B, Hk, S)
+        cache["global"] = _kv_leaves(lead, Hk, Dh, layout.kv_format, dtype, device)
+    if layout.local_layers:
+        nl, W = len(layout.local_layers), layout.local_window
+        ring = _kv_leaves((nl, B, Hk, W), Hk, Dh, local_format(layout), dtype, device)
+        ring["abs_pos"] = torch.full((nl, B, W), -1, dtype=torch.int32, device=device)
+        cache["local"] = ring
     return cache
 
 
@@ -386,14 +414,15 @@ def bgpp_decode_plan(S: int, cfg) -> Tuple[int, int, Tuple[int, ...]]:
 
 def decode_read_bytes(layout: CacheLayout, cfg) -> Dict[str, Any]:
     """KV bytes ONE batched decode step gathers, at its static shapes: all
-    ``layout.batch`` rows and every layer; bf16/int8 read the full
-    ``(S_max,)`` row; bgpp follows the two-phase plan (sign + MSB plane
-    everywhere, shrinking survivor planes, ``k_max`` full rows).
+    ``layout.batch`` rows and every layer; global bf16/int8 read the full
+    ``(S_max,)`` row; global bgpp follows the two-phase plan (sign + MSB
+    plane everywhere, shrinking survivor planes, ``k_max`` full rows);
+    local rings read their ``window`` in their own format.
     ``bf16_equiv`` is what a bf16 cache of the same geometry reads."""
-    B, S = layout.batch, layout.max_seq
-    ng = len(layout.global_layers)
-    out: Dict[str, Any] = {}
-    if layout.kv_format == "bgpp":
+    B, S, W = layout.batch, layout.max_seq, layout.local_window
+    ng, nl = len(layout.global_layers), len(layout.local_layers)
+    out: Dict[str, Any] = {"global": 0.0, "local": 0.0}
+    if ng and layout.kv_format == "bgpp":
         rounds, k_max, survivors = bgpp_decode_plan(S, cfg)
         plane_row = cfg.num_kv_heads * cfg.head_dim / 8.0
         sign = S * plane_row
@@ -407,20 +436,25 @@ def decode_read_bytes(layout: CacheLayout, cfg) -> Dict[str, Any]:
             "topk_full_bytes": B * ng * topk_full,
         }
         out["global"] = B * ng * (sign + planes + topk_full)
-    else:
+    elif ng:
         out["global"] = B * ng * S * _token_row_bytes(cfg, layout.kv_format)
-    out["total"] = out["global"]
-    out["bf16_equiv"] = B * ng * S * _token_row_bytes(cfg, "bf16")
+    if nl:
+        out["local"] = B * nl * W * _token_row_bytes(cfg, local_format(layout))
+    out["total"] = out["global"] + out["local"]
+    out["bf16_equiv"] = (B * ng * S + B * nl * W) * _token_row_bytes(cfg, "bf16")
     return out
 
 
 def chunk_read_bytes(layout: CacheLayout, cfg) -> Dict[str, Any]:
-    """KV bytes ONE chunked-prefill step reads (one slot): every layer
-    attends the full ``(S_max,)`` row at full precision (BGPP's prediction
-    is a decode-time saving)."""
+    """KV bytes ONE chunked-prefill step reads (one slot): every global
+    layer attends the full ``(S_max,)`` row at full precision (BGPP's
+    prediction is a decode-time saving) and every local layer gathers its
+    ``window``."""
     g = len(layout.global_layers) * layout.max_seq * _token_row_bytes(
         cfg, layout.kv_format)
-    return {"global": g, "total": g}
+    loc = len(layout.local_layers) * layout.local_window * _token_row_bytes(
+        cfg, local_format(layout))
+    return {"global": g, "local": loc, "total": g + loc}
 
 
 # --------------------------------------------------------------------------
@@ -482,6 +516,8 @@ def _write_lanes(store: Tree, idx: int, b: torch.Tensor, tpos: torch.Tensor,
     b = torch.where(none, 0, b[src])
     s = torch.where(none, 0, tpos[src]).long()
     for n, a in store.items():
+        if n == "abs_pos":  # a ring's positions: its writer sets them
+            continue
         layer = a[idx]
         if n == "k_planes":  # (NBITS, B, Hk, S, D/8)
             layer[:, b, :, s] = torch.where(none, layer[:, 0, :, 0], vals[n][src])
@@ -495,7 +531,9 @@ def write_token(store: Tree, idx: int, k: torch.Tensor, v: torch.Tensor,
                 max_seq: int = 0) -> Tree:
     """Write one decode token per slot into layer ``idx``, in place.
 
-    k/v: ``(B, 1, Hk, Dh)``; tpos: ``(B,)`` per-slot target position.
+    k/v: ``(B, 1, Hk, Dh)``; tpos: ``(B,)`` per-slot target index — the
+    absolute position in a global store, ``pos % window`` in a local ring
+    (whose ``abs_pos`` the caller sets).
     ``page_table`` selects the paged pool (unmapped page => dropped write);
     positions outside ``[0, max_seq)`` drop in both layouts."""
     B = k.shape[0]
@@ -534,20 +572,61 @@ def write_prefill(store: Tree, idx: int, k: torch.Tensor, v: torch.Tensor,
     return _write_lanes(store, idx, b, tpos, kk, vv, page_table, page_size, max_seq)
 
 
+def write_prefill_local(store: Tree, idx: int, k: torch.Tensor, v: torch.Tensor,
+                        window: int, *, slot: Optional[int] = None,
+                        offset: Optional[int] = None,
+                        length: Optional[int] = None) -> Tree:
+    """Ring-write a prompt's last ``min(window, S)`` positions into local
+    layer ``idx`` (lane ``pos % window``), in place, recording each lane's
+    absolute position in ``abs_pos``.
+
+    k/v: ``(B, S, Hk, Dh)``.  ``slot`` selects one batch row (``B == 1``)
+    as in :func:`write_prefill`.  ``offset`` / ``length`` select the
+    chunked-admission path: the first ``length`` lanes are the chunk's
+    tokens at ``[offset, offset + length)``, and only the last
+    ``min(length, window)`` of them are written (the earlier ones would be
+    evicted by them; padded lanes never land)."""
+    B, S = k.shape[:2]
+    dev = k.device
+    if offset is not None or slot is not None:
+        if slot is None or B != 1:
+            raise ValueError("write_prefill_local: chunked / slot writes admit one "
+                             "prompt (B == 1) into one slot")
+        off = 0 if offset is None else int(offset)
+        n = S if length is None else int(length)
+        lo = max(0, n - window)
+        apos = off + torch.arange(lo, n, device=dev)
+        b = torch.full((n - lo,), int(slot), device=dev)
+        kk, vv = k[0, lo:n], v[0, lo:n]
+    else:
+        lo = max(0, S - window)
+        apos = torch.arange(lo, S, device=dev).repeat(B)
+        b = torch.arange(B, device=dev).repeat_interleave(S - lo)
+        kk = k[:, lo:].reshape(-1, *k.shape[2:])
+        vv = v[:, lo:].reshape(-1, *v.shape[2:])
+    lane = apos % window
+    _write_lanes(store, idx, b, lane, kk, vv, None, 0, 0)
+    store["abs_pos"][idx, b, lane] = apos.to(torch.int32)
+    return store
+
+
 # --------------------------------------------------------------------------
 # slot lifecycle
 # --------------------------------------------------------------------------
 
 
 def reset_slot(cache: Tree, layout: CacheLayout, slot: int) -> Tree:
-    """Clear one batch row in place: its KV rows to zero (slot layout) and
-    ``pos[slot]`` to 0.  Paged pools have no batch rows — page lifecycle
-    belongs to :class:`repro_torch.serving.paging.PageAllocator`."""
-    if layout.layout != "paged":
-        for n, a in cache["global"].items():
+    """Clear one batch row in place: its global KV rows to zero (slot
+    layout), its local rings to zero with ``abs_pos`` -1 (both layouts, so
+    a previous occupant's lanes never alias into the new request's window)
+    and ``pos[slot]`` to 0.  Paged pools have no batch rows — page
+    lifecycle belongs to :class:`repro_torch.serving.paging.PageAllocator`."""
+    stores = ("local",) if layout.layout == "paged" else ("global", "local")
+    for name in stores:
+        for n, a in cache.get(name, {}).items():
             if n == "k_planes":
                 a[:, :, slot] = 0
             else:
-                a[:, slot] = 0
+                a[:, slot] = -1 if n == "abs_pos" else 0
     cache["pos"][slot] = 0
     return cache

@@ -60,7 +60,7 @@ from typing import Callable, Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import apply_weight_format_override
+from repro_torch.configs.base import apply_weight_format_override, require_dense
 from repro_torch.serving import engine, kv_cache as kvc, spec_decode as spd
 from repro_torch.serving import weights as swt
 from repro_torch.serving.paging import PageAllocator
@@ -108,8 +108,7 @@ class Scheduler:
     ):
         from repro_torch import resolve_device
 
-        if cfg.family != "dense":
-            raise ValueError(f"Scheduler: family {cfg.family!r} is not ported")
+        require_dense(cfg, "Scheduler")
         if admission not in ("chunked", "eager"):
             raise ValueError(f"Scheduler: admission {admission!r} is not chunked or eager")
         if mesh is not None:
@@ -228,8 +227,10 @@ class Scheduler:
         """Adopt resident prompt pages matching this prompt's head — at the
         slot's FIRST advance, never at assignment: the batched decode
         garbage-writes every row at its device pos, harmless only while the
-        row maps no shared page there (see the reference's note)."""
-        if self.pager is None:
+        row maps no shared page there (see the reference's note).  Only
+        global-only stacks qualify: a ring layer would need the reused
+        positions' window, which nothing keeps."""
+        if self.pager is None or self.layout.local_layers:
             return
         n, ids = self.pager.lookup_prefix(req.prompt)
         if n:
@@ -381,7 +382,7 @@ class Scheduler:
             self.weight_bytes_read["prefill"] += self.weight_plan.bf16_bytes
             slot.prefill_pos += n
             spent += n
-        if self.pager is not None:
+        if self.pager is not None and not self.layout.local_layers:
             # every page-aligned prompt prefix now fully written becomes a
             # reuse candidate for later admissions
             self.pager.register_prefix(slot.index, req.prompt, slot.prefill_pos)
@@ -462,7 +463,7 @@ class Scheduler:
         """``keep_prefix_resident``: index + pin the page-aligned prefix of
         the request's written history so a chat session's next turn can
         adopt it (release with :meth:`unpin_pages`)."""
-        if self.pager is None or not req.keep_prefix_resident:
+        if self.pager is None or self.layout.local_layers or not req.keep_prefix_resident:
             return
         written = req.prompt_len + len(req.generated) - 1
         hist = np.concatenate([np.asarray(req.prompt, np.int32),
