@@ -28,9 +28,13 @@ Phases, each of which fails the run (nonzero exit) on any error:
    (Hq 24, Hk 8, D 128, bf16: causal at B 1 / S 512, 450 and 301 and
    B 4 / S 512; sliding and chunked with window 256; full; q_offset 256;
    bf16 at D 64, 32 and 16 with ragged tails; f32 once; the first case
-   launched twice for identical bits).  The head-width phase: K1 (bf16
+   launched twice for identical bits), and at llama4-scout's heads (Hq 40,
+   Hk 8, D 128, bf16) over S 8448 with its chunked mask of 8192 (the
+   queries past 8192 attend only their own chunk; the plain version a
+   block of query rows at a time).  The head-width phase: K1 (bf16
    and int8), K2 and K5 at the heads of gemma3-1b (Hq 4, Hk 1),
-   gemma3-4b (Hq 8, Hk 4) and paligemma-3b (Hq 8, Hk 1) at D 256 and of
+   gemma3-4b (Hq 8, Hk 4) and paligemma-3b (Hq 8, Hk 1) at D 256, of
+   deepseek-7b (g 1) and llama4-scout (Hq 40, Hk 8: g 5) at D 128, and of
    the gemma3-1b smoke config at D 24 (run at the compiled width 32), the
    decode attends at pages 16 and 6 over S 1024, K5 causal and with
    gemma3's sliding window of 512 at B 1, S 512 (bf16, and f32 causal);
@@ -48,7 +52,9 @@ Phases, each of which fails the run (nonzero exit) on any error:
    (exact only with all three bf16 terms of x); every K7 case launched
    twice for identical bits.  K3 is also held to its plain version at
    every decode projection shape of gemma3-4b (wq 2560 x 2048, wo, wk/wv,
-   gate/up 2560 x 10240, down, the 2560 x 262144 head), f32 and bf16 x.
+   gate/up 2560 x 10240, down, the 2560 x 262144 head) and of
+   llama4-scout (wq/wo 5120 x 5120, wk/wv 5120 x 1024, the 5120 x 202048
+   head; its experts stay raw), f32 and bf16 x.
 4. Paper-layer path: the quickstart at phi4-mini width (BRCR on an
    8192 x 3072 weight, BSTC, BGPP over 1024 keys), the BGPP walkthrough at
    S 4096, and the batched predictor at the decode geometry followed by
@@ -77,12 +83,23 @@ Phases, each of which fails the run (nonzero exit) on any error:
    7L + 1, K5 L an eager admission; the ring attends are plain PyTorch and
    launch nothing), and refuses a speculative Scheduler as the reference
    does; deepseek-7b (30 layers, 32/32 heads, an untied head) serves 3
-   requests once, chunked with bf16 KV.  After every timed run, each of
+   requests once, chunked with bf16 KV.  Then the MoE family at full
+   width: llama4-scout-17b-a16e with its depth cut to 8 layers (0-2 and
+   4-6 chunked-local rings of 1024 lanes, 3 and 7 global; 40/8 heads, 16
+   experts of d_ff 8192 top-1 and a shared expert, the untied 202048-row
+   head; 19.7 B params) serves 6 requests of 201-450 prompt tokens
+   (max_seq 1024) chunked with bf16 KV, with bstc weights and bgpp KV, and
+   eagerly, and mixtral-8x22b cut to 2 layers (both sliding-window rings:
+   no global layer, no page pool; 8 experts top-2) serves 3 requests
+   chunked with int8 KV, each run with the same checks (K3 once per
+   converted matrix a step: 4L + 1, the experts staying raw).  After
+   every timed run, each of
    phi4-mini's chunked runs traces a few steady decode steps, and its
    eager one a whole-prompt admission, and gemma3-4b traces bf16 and bgpp
    decode and one eager admission (K1, K2 and K5 device ms a launch at
-   D 256), with torch.profiler (device busy share, time by kernel), the flash
-   attention kernel and ``scaled_dot_product_attention`` are traced at
+   D 256), and llama4-scout traces bf16 decode (K1 at g 5, one MoE
+   layer's decode timed alone), with torch.profiler (device busy share,
+   time by kernel), the flash attention kernel and ``scaled_dot_product_attention`` are traced at
    causal S 512 and S 450 for their device time a call, the fused BSTC
    decode + GEMV and a bf16 ``torch.matmul`` at every decode projection
    shape, the BSTC plane decode and ``masked_scatter_`` at its three
@@ -93,10 +110,12 @@ Phases, each of which fails the run (nonzero exit) on any error:
    on the quickstart's operands and at every projection shape of a layer
    (N 4, 16 and 128; f32 integer, f32 Gaussian and bf16 x).
 6. Reference check: the same small models (the smoke configs of
-   phi4-mini, gemma3-4b and deepseek-7b) and traces served on the card
+   phi4-mini, gemma3-4b, deepseek-7b, mixtral-8x22b and
+   llama4-scout-17b-a16e) and traces served on the card
    (kernels) and on the CPU (plain versions) give the same greedy tokens
    and logits within tolerance, for every KV format, for the int8 and
-   bstc weight formats, and with eager admission; and the paper layer's
+   bstc weight formats, and with eager admission (the smoke configs of
+   mixtral-8x22b and llama4-scout-17b-a16e too); and the paper layer's
    ``brcr_matmul``, batched predictor and examples at the reference
    examples' sizes agree between card and CPU.
 
@@ -479,6 +498,7 @@ HEAD_WIDTH_CASES = (
     ("paligemma-3b", 8, 1, 256),
     ("gemma3-1b smoke", 4, 1, 24),
     ("deepseek-7b", 32, 32, 128),  # g 1
+    ("llama4-scout", 40, 8, 128),  # g 5 (src/repro/configs/llama4_scout_17b_a16e.py)
 )
 HEAD_WIDTH_PAGES = (DECODE_PAGE, 6)  # a power of two and a page size that is not
 GEMMA3_WINDOW = 512  # gemma3-1b's sliding window (src/repro/configs/gemma3_1b.py)
@@ -535,13 +555,15 @@ def head_width_phase(device, flush):
 
 def projection_shapes(cfg):
     """``(name, in, out, launches a decode step)`` of every distinct decode
-    projection shape of ``cfg`` (7 projections a layer plus the head); wq
-    and wo share a shape where ``q_dim`` is ``d_model``."""
+    projection shape of ``cfg`` (7 projections a layer plus the head; an
+    MoE layer's 4 attention projections, its experts staying raw); wq and
+    wo share a shape where ``q_dim`` is ``d_model``."""
     d, L = cfg.d_model, cfg.num_layers
     attn = ([("wq/wo", d, cfg.q_dim, 2 * L)] if cfg.q_dim == d
             else [("wq", d, cfg.q_dim, L), ("wo", cfg.q_dim, d, L)])
-    return attn + [("wk/wv", d, cfg.kv_dim, 2 * L), ("gate/up", d, cfg.d_ff, 2 * L),
-                   ("down", cfg.d_ff, d, L), ("lm_head", d, cfg.vocab_size, 1)]
+    mlp = [] if cfg.num_experts else [("gate/up", d, cfg.d_ff, 2 * L),
+                                      ("down", cfg.d_ff, d, L)]
+    return attn + [("wk/wv", d, cfg.kv_dim, 2 * L)] + mlp + [("lm_head", d, cfg.vocab_size, 1)]
 
 
 def bstc_record(w, cfg):
@@ -695,14 +717,17 @@ def bstc_kernel_phase(device, flush):
           f"{err:.3e}, two launches bit-identical ({bstc_plan_of(ops, x)})")
     del w, ops
     torch.cuda.empty_cache()
-    zoo_bstc_checks(device, flush)
+    zoo_bstc_checks(device, flush, GEMMA_ARCH)
+    zoo_bstc_checks(device, flush, LLAMA4_ARCH)
     return [k3]
 
 
-def zoo_bstc_checks(device, flush):
-    """K3 at gemma3-4b's decode projection shapes (wq and wo apart: its
-    q_dim 2048 is not its d_model 2560; seeded bf16 weights quantized and
-    coded as the serve path codes them): N 4 columns of f32
+def zoo_bstc_checks(device, flush, arch):
+    """K3 at ``arch``'s decode projection shapes (gemma3-4b: wq and wo
+    apart, its q_dim 2048 is not its d_model 2560; llama4-scout: wq/wo
+    5120 x 5120, wk/wv 5120 x 1024 and the 5120 x 202048 head, its experts
+    staying raw; seeded bf16 weights quantized and coded as the serve path
+    codes them): N 4 columns of f32
     x (the decode residual) and of bf16 x, each launched twice for
     identical bits and held to the plain version row by row
     (:func:`check_bstc`), and timed beside the plain version."""
@@ -712,7 +737,7 @@ def zoo_bstc_checks(device, flush):
     from repro_torch.kernels.bstc_matmul import bstc_matmul
     from repro_torch.kernels.bstc_matmul.ref import bstc_matmul_plain, reconstruct_dense_ref
 
-    cfg = get_config(GEMMA_ARCH)
+    cfg = get_config(arch)
     gen = torch.Generator(device=device).manual_seed(3)
     for name, d_in, d_out, _ in projection_shapes(cfg):
         w = (torch.randn((d_in, d_out), generator=gen, device=device) * d_in ** -0.5
@@ -962,7 +987,11 @@ def flash_case(label, q, k, v, kw, flush, twice=False, case=None):
             raise AssertionError(f"flash_attention{where}: two launches on the same "
                                  f"inputs differ")
         where += ", two launches bit-identical"
-    want = flash_attention_ref(q, k, v, **kw)
+    # the plain version a block of query rows at a time (its logits are
+    # (B, Hq, rows, Sk) f32: 11 GiB whole at llama4-scout's S 8448)
+    want = torch.cat([flash_attention_ref(q[:, i:i + 1024], k, v,
+                                          **dict(kw, q_offset=kw["q_offset"] + i))
+                      for i in range(0, Sq, 1024)], 1)
     torch.cuda.synchronize()
     w = want.float()
     tol = 1e-5 * v.float().abs().max()
@@ -991,8 +1020,11 @@ def flash_case(label, q, k, v, kw, flush, twice=False, case=None):
 def flash_kernel_phase(device, flush):
     """Hold the flash-attention kernel (K5) against its plain version for
     every case of :data:`FLASH_CASES` (:func:`flash_case`; the first
-    launched twice for identical bits).  Returns the first case's JSON
-    record."""
+    launched twice for identical bits), then at llama4-scout's heads
+    (Hq 40, Hk 8, D 128, bf16) over S 8448 with its chunked-local mask of
+    8192: the queries past 8192 attend only their own chunk (twice for
+    identical bits, timed).  Returns the first case's JSON record and the
+    llama4-scout case's, which names its case."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(3)
@@ -1000,7 +1032,15 @@ def flash_kernel_phase(device, flush):
     for case in FLASH_CASES:
         q, k, v, kw = flash_inputs(device, gen, case)
         records.append(flash_case(case[0], q, k, v, kw, flush, twice=not records))
-    return records[0]
+    mk = lambda H: torch.randn((1, LLAMA4_FLASH_S, H, 128), generator=gen,
+                               device=device).to(torch.bfloat16)
+    q, k, v = mk(40), mk(8), mk(8)
+    case = f"llama4-scout chunked {LLAMA4_CHUNK} Hq 40 Hk 8 D 128 B1 S{LLAMA4_FLASH_S} bf16"
+    records.append(flash_case(case, q, k, v, dict(mask_kind="chunked", window=LLAMA4_CHUNK,
+                                                  q_offset=0), flush, twice=True, case=case))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return [records[0], records[-1]]
 
 
 def flash_device_phase(device, calls: int = 20) -> None:
@@ -1892,6 +1932,20 @@ GEMMA_ARCH, GEMMA_TRACE, GEMMA_MAX_SEQ = "gemma3-4b", dict(seed=0, n=6, lo=1100,
                                                            new=16), 4096
 # deepseek-7b (an untied head, g 1): one chunked bf16-KV run, 3 requests
 DEEPSEEK_ARCH, DEEPSEEK_TRACE = "deepseek-7b", dict(seed=0, n=3, lo=64, hi=512, new=16)
+# the MoE family at full width, depth cut to fit one card: llama4-scout
+# (16 experts top-1, a shared expert, the 202048-row head; layers 0-2 and
+# 4-6 chunked-local rings of min(8192, max_seq) lanes, 3 and 7 global; g 5)
+# in three runs, and mixtral-8x22b (8 experts top-2; both layers
+# sliding-window rings: no global layer, no page pool) once
+LLAMA4_ARCH, LLAMA4_DEPTH = "llama4-scout-17b-a16e", 8
+LLAMA4_TRACE = dict(seed=0, n=6, lo=201, hi=450, new=16)
+LLAMA4_RUNS = (("bf16", "bf16", "chunked"), ("bgpp", "bstc", "chunked"),
+               ("bf16", "bf16", "eager"))
+MIXTRAL_ARCH, MIXTRAL_DEPTH = "mixtral-8x22b", 2
+MIXTRAL_TRACE = dict(seed=0, n=3, lo=201, hi=450, new=16)
+MIXTRAL_RUNS = (("int8", "bf16", "chunked"),)
+# K5 at llama4-scout's heads past its attention chunk
+LLAMA4_CHUNK, LLAMA4_FLASH_S = 8192, 8448
 
 
 def free_device() -> None:
@@ -1911,24 +1965,39 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def init_model(arch, device):
-    """``arch`` at full width and depth in bf16, random weights from seed
-    0 on the card; prints its size and the seconds it took."""
+def init_model(arch, device, depth=None):
+    """``arch`` at full width in bf16, at full depth or cut to ``depth``
+    layers, random weights from seed 0 on the card; prints its size, its
+    cut and the seconds it took."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import model_zoo
 
     cfg = get_config(arch)
+    full = cfg.num_layers
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
     t0 = time.perf_counter()
     params = model_zoo.init(cfg, torch.Generator(device=device).manual_seed(0), device)
     torch.cuda.synchronize()
     nparam = sum(t.numel() for t in _leaves(params))
-    n_local = sum(cfg.layer_attn_window(i)[0] != "causal" for i in range(cfg.num_layers))
-    lay = (f"{cfg.num_layers} layers ({cfg.num_layers - n_local} global, {n_local} local "
-           f"of window {cfg.sliding_window})" if n_local else f"{cfg.num_layers} layers")
+    kinds = [cfg.layer_attn_window(i) for i in range(cfg.num_layers)]
+    n_local = sum(kind != "causal" for kind, _ in kinds)
+    local = next((f"chunked, chunk {w}" if kind == "chunked" else f"sliding window {w}"
+                  for kind, w in kinds if kind != "causal"), "")
+    lay = (f"{cfg.num_layers} layers ({cfg.num_layers - n_local} global, {n_local} local: "
+           f"{local})" if n_local else f"{cfg.num_layers} layers")
+    if cfg.num_layers != full:
+        lay += f", depth cut from {full}"
+    ffn = f"d_ff {cfg.d_ff}"
+    if cfg.num_experts:
+        ffn = (f"{cfg.num_experts} experts of d_ff {cfg.d_ff}, top-{cfg.experts_per_token}"
+               + (f", a shared expert of {cfg.moe_shared_ff}" if cfg.moe_shared_ff else ""))
     print(f"[serve] {cfg.name}: {lay}, d_model {cfg.d_model}, {cfg.num_heads}/"
-          f"{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.num_kv_heads} heads of {cfg.head_dim}, {ffn}, vocab "
           f"{cfg.vocab_size}, {'tied' if cfg.tie_embeddings else 'untied'} head, "
           f"{nparam / 1e9:.3f} B params ({cfg.dtype}) initialised on the card in "
           f"{time.perf_counter() - t0:.2f} s")
@@ -1940,11 +2009,14 @@ def serve_runs(cfg, params, runs, trace_kw, max_seq, device, card):
     128) once per ``(KV format, weight format, admission)`` of ``runs`` on
     the trace ``trace_kw``; every count zeroed just before the Scheduler is
     built and read just after the run.  Each run must finish every request
-    with well-formed logits, leak no page and launch each kernel exactly as
-    often as its path needs: K1 or K2 once per global layer a decode step,
-    K3 7L + 1 times a decode step and K4 once per coded plane of the first
-    coded matrix with bstc weights, K5 L times an eager admission, nothing
-    else (the local layers' ring attends are plain PyTorch).  Returns the
+    with well-formed logits, leak no page (a stack of rings only has no
+    pool) and launch each kernel exactly as often as its path needs: K1 or
+    K2 once per global layer a decode step, K3 once per converted matrix a
+    decode step (7L + 1 for a dense model, 4L + 1 for an MoE one, whose
+    experts stay raw) and K4 once per coded plane of the first coded
+    matrix with bstc weights, K5 L times an eager admission, nothing else
+    (the local layers' ring attends and the MoE's experts are plain
+    PyTorch).  Returns the
     launches of each kernel on its own run (the decode attends on their KV
     format's chunked bf16-weight run, the BSTC kernels on the bstc run,
     flash attention on the eager run) and each run's greedy tokens."""
@@ -2004,7 +2076,7 @@ def serve_runs(cfg, params, runs, trace_kw, max_seq, device, card):
         if eager:
             want["flash_attention"] = L * len(reqs)
         if wfmt == "bstc":
-            want["bstc_matmul"] = (7 * L + 1) * steps
+            want["bstc_matmul"] = sum(e.copies for e in sched.weight_plan.entries) * steps
             want["bstc_decode"] = coded_planes_of_first_matrix(params["layers"]["attn"]["wq"],
                                                                cfg)
             if want["bstc_decode"] < 1:
@@ -2024,9 +2096,10 @@ def serve_runs(cfg, params, runs, trace_kw, max_seq, device, card):
         if stats["finished_requests"] != len(reqs):
             raise AssertionError(f"{run}: {stats['finished_requests']} of "
                                  f"{len(reqs)} finished")
-        sched.pager.check()
-        if sched.pager.pages_in_use:
-            raise AssertionError(f"{run}: {sched.pager.pages_in_use} pages leaked")
+        if sched.pager is not None:
+            sched.pager.check()
+            if sched.pager.pages_in_use:
+                raise AssertionError(f"{run}: {sched.pager.pages_in_use} pages leaked")
         new = trace_kw["new"]
         for r in sched.finished:
             rows = np.stack(r.logit_rows)
@@ -2066,7 +2139,8 @@ def serve_runs(cfg, params, runs, trace_kw, max_seq, device, card):
               f"{wr['modeled_bytes_per_step']}); serve-params prepare {prep_s:.2f} s; "
               f"ttft p50 {stats['ttft_s']['p50']} s, itl p50 {stats['itl_s']['p50']} s; "
               f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-              f"pages_in_use 0; launches: {counts} ({G} global of {L} layers x {steps} "
+              f"pages_in_use 0{'' if sched.pager else ' (no global layer: no pool)'}; "
+              f"launches: {counts or 'none'} ({G} global of {L} layers x {steps} "
               f"steps) [{card}]")
         del sched
         free_device()
@@ -2120,13 +2194,32 @@ def zoo_serve_phase(device, card):
     free_device()
 
 
+def moe_serve_phase(device, card):
+    """The MoE family at full width: llama4-scout cut to
+    :data:`LLAMA4_DEPTH` layers for every run of :data:`LLAMA4_RUNS`
+    on :data:`LLAMA4_TRACE` (max_seq 1024), then mixtral-8x22b cut to
+    :data:`MIXTRAL_DEPTH` layers (no global layer) once
+    (:data:`MIXTRAL_RUNS`); :func:`serve_runs` checks each."""
+    cfg, params = init_model(LLAMA4_ARCH, device, LLAMA4_DEPTH)
+    serve_runs(cfg, params, LLAMA4_RUNS, LLAMA4_TRACE, 1024, device, card)
+    del params
+    free_device()
+    cfg, params = init_model(MIXTRAL_ARCH, device, MIXTRAL_DEPTH)
+    serve_runs(cfg, params, MIXTRAL_RUNS, MIXTRAL_TRACE, 1024, device, card)
+    del params
+    free_device()
+
+
 def trace_phase(device):
     """After every timed serving run (a profiler trace slows later host
     work): phi4-mini's chunked runs trace a few steady decode steps and its
     eager run one whole-prompt admission (:data:`SERVE_RUNS`); gemma3-4b
     traces steady bf16-KV and bgpp-KV decode and one eager admission of
     1100+ tokens, and prints K1's, K2's and K5's device ms a launch at
-    D 256 on its serving path."""
+    D 256 on its serving path; llama4-scout (cut to
+    :data:`LLAMA4_DEPTH` layers) traces steady bf16-KV decode, with K1's
+    device ms a launch at g 5 and one MoE layer's decode timed alone
+    (:func:`moe_decode_device`)."""
     import torch
 
     from repro_torch.serving import kv_cache as kvc
@@ -2170,6 +2263,59 @@ def trace_phase(device):
         free_device()
     del params
     free_device()
+    cfg, params = init_model(LLAMA4_ARCH, device, LLAMA4_DEPTH)
+    layout = kvc.layout_for(cfg, 4, 1024, kv_format="bf16", layout="paged", page_size=16)
+    sched = Scheduler(params, cfg, layout, device=device, chunk_budget=128)
+    dev = profile_decode(sched, trace(1, 4, cfg.vocab_size, 200, 256, 24),
+                         f"{cfg.name} bf16/bf16/chunked", top=12)
+    per_launch(dev, "paged_flash_decode bf16 (K1, g 5, 2 global layers)", ("dense_kernel",))
+    moe_decode_device(sched, sum(e.self_device_time_total for e in dev) / 4e3)
+    del sched, params
+    free_device()
+
+
+def moe_decode_device(sched, step_ms: float, calls: int = 10, top: int = 6) -> None:
+    """Device ms of one MoE layer's dropless decode (``moe_apply`` at
+    capacity factor E on the live batch's f32 residual: the router, the
+    routed experts' weight upcasts and GEMVs, the combine, the shared
+    expert) on a decoding Scheduler's layer 0, from one ``torch.profiler``
+    trace of ``calls`` calls (every device event over ``calls``: a kernel
+    launches several times a call, so :func:`_device_ms`'s mean a launch
+    would not do, and an event the tracer drops lowers the sum, which the
+    launches a call it prints show; the expert weights exceed the L2 many
+    times over, so it is not flushed), beside a traced step's device
+    ``step_ms``; prints the time by kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import moe, transformer
+
+    cfg, dev = sched.cfg, sched.device
+    p = transformer.layer_params(sched.params["layers"], 0)["moe"]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    h = torch.randn((sched.layout.batch, 1, cfg.d_model), generator=gen, device=dev)
+    run = lambda: moe.moe_apply(p, h, cfg, float(cfg.num_experts))
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    t = lambda e: e.self_device_time_total / calls / 1e3  # ms a call
+    ms = sum(t(e) for e in evs)
+    active = len(set(moe.route(p, h, cfg, float(cfg.num_experts))["experts"].reshape(-1)
+                     .tolist()))
+    L = cfg.num_layers
+    print(f"[profile]   {cfg.name} MoE decode, one layer (B {h.shape[0]}, {active} of "
+          f"{cfg.num_experts} experts routed, top-{cfg.experts_per_token}, shared "
+          f"{cfg.moe_shared_ff}): {ms:.4f} ms a call on the device; {L} a step: "
+          f"{L * ms:.3f} ms of the traced step's {step_ms:.3f} ms "
+          f"({100 * L * ms / step_ms:.1f}%); by kernel, a call:")
+    for e in sorted(evs, key=t, reverse=True)[:top]:
+        print(f"[profile]     {t(e):8.4f} ms {100 * t(e) / ms:5.1f}% "
+              f"{e.count / calls:5.1f} launches  {e.key[:80]}")
 
 
 def ring_attend_device(sched, calls: int = 10) -> None:
@@ -2343,11 +2489,14 @@ def _leaves(tree):
 # kv head (g 1), so one flipped code in K1's int8 body moves a logit by up
 # to 3.5e-3 in an isolated row (the check prints the rows beyond 1e-4;
 # K1's int8 body at g 1 matches its plain version within 2.4e-7 on random
-# inputs: the head-width phase's deepseek-7b case)
+# inputs: the head-width phase's deepseek-7b case).  The MoE smokes have
+# the same 4 query heads of 16 lanes (2 kv heads), so they take 5e-3 too
 REFERENCE_MODELS = (
     ("phi4-mini-3.8b", dict(seed=1, n=4, lo=5, hi=30, new=6), "all", 2e-3),
     ("gemma3-4b", dict(seed=1, n=4, lo=12, hi=40, new=12), "some", 2e-3),
     ("deepseek-7b", dict(seed=1, n=4, lo=5, hi=30, new=6), "none", 5e-3),
+    ("mixtral-8x22b", dict(seed=1, n=4, lo=12, hi=40, new=12), "none", 5e-3),
+    ("llama4-scout-17b-a16e", dict(seed=1, n=4, lo=12, hi=40, new=12), "some", 5e-3),
 )
 
 
@@ -2523,7 +2672,7 @@ def main(argv=None) -> int:
     if run("kernels") or run("decode"):
         records.append(decode_kernel_phase(device, flush))
     if run("kernels"):
-        records.append(flash_kernel_phase(device, flush))
+        records += flash_kernel_phase(device, flush)
     if run("head-widths"):
         records += head_width_phase(device, flush)
     if run("score"):
@@ -2544,6 +2693,7 @@ def main(argv=None) -> int:
 
     launches = serve_phase(device, card)
     zoo_serve_phase(device, card)
+    moe_serve_phase(device, card)
     trace_phase(device)
     flash_device_phase(device)
     bstc_device_phase(device)

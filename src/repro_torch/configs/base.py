@@ -8,8 +8,8 @@ knobs and speculative decoding).  The port keeps its own copy (it imports
 nothing of ``repro``).  Each architecture file registers its published
 config plus a reduced ``smoke`` variant used by the CPU tests.
 
-The port serves the ``dense`` family; every entry point refuses another
-family with :func:`require_dense`'s error.
+The port serves the ``dense`` and ``moe`` families; every entry point
+refuses another family with :func:`require_served`'s error.
 """
 
 from __future__ import annotations
@@ -246,9 +246,12 @@ def _param_count(cfg: ModelConfig, active_only: bool) -> int:
     return total
 
 
+# families the port serves (a transformer stack: every layer attention, the
+# MoE family with an expert FFN in every layer)
+SERVED_FAMILIES = ("dense", "moe")
+
 # ROADMAP Queue 1 item that ports each family the port does not serve yet
 _FAMILY_ITEM = {
-    "moe": "ROADMAP Queue 1, items 6 (models/moe.py) and 7 (sharding)",
     "ssm": "ROADMAP Queue 1, item 6 (models/mamba2.py)",
     "hybrid": "ROADMAP Queue 1, items 6 (models/hybrid.py) and 7 (sharding)",
     "enc_dec": "ROADMAP Queue 1, item 6 (models/whisper.py)",
@@ -256,14 +259,21 @@ _FAMILY_ITEM = {
 }
 
 
-def require_dense(cfg, who: str) -> None:
+def require_served(cfg, who: str) -> None:
     """Refuse a family the port does not serve: a ``ValueError`` naming the
-    family and the roadmap item that ports it."""
-    if cfg.family != "dense":
+    family and the roadmap item that ports it.  An MoE config must put an
+    expert FFN in every layer (``moe_every == 1``), as the reference's
+    transformer asserts; mixed MoE / dense stacks are the hybrid's."""
+    if cfg.family not in SERVED_FAMILIES:
         where = _FAMILY_ITEM.get(cfg.family, "ROADMAP Queue 1, item 6")
         raise ValueError(
             f"{who}: {cfg.name} is of family {cfg.family!r}; the port serves the "
-            f"dense family only ({cfg.family} is {where})")
+            f"{' and '.join(SERVED_FAMILIES)} families only ({cfg.family} is {where})")
+    if cfg.num_experts > 0 and cfg.moe_every != 1:
+        raise ValueError(
+            f"{who}: {cfg.name} is of family {cfg.family!r} with moe_every="
+            f"{cfg.moe_every}; mixed MoE / dense stacks are the hybrid's "
+            f"({_FAMILY_ITEM['hybrid']})")
 
 
 ARCH_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}

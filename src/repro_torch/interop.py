@@ -3,10 +3,12 @@
 The tests build the JAX reference and the port from the SAME parameters:
 ``jax.tree.map(np.asarray, params)`` on the JAX side, then
 :func:`params_from_numpy` here.  The JAX layout is kept as it is — ``(in,
-out)`` projection weights, stacked ``(L, ...)`` layer leaves — so the two
-sides compare like with like.  bf16 leaves arrive as numpy arrays whose
-``dtype.name == "bfloat16"``; they are reinterpreted through ``uint16``
-bits, so no ``ml_dtypes`` import is needed.
+out)`` projection weights, stacked ``(L, ...)`` layer leaves, an MoE
+layer's ``moe`` subtree (``router``, the ``(L, E, ...)`` ``gate`` / ``up`` /
+``down`` banks, ``shared/*``) — so the two sides compare like with like.
+bf16 leaves arrive as numpy arrays whose ``dtype.name == "bfloat16"``;
+they are reinterpreted through ``uint16`` bits, so no ``ml_dtypes`` import
+is needed.
 """
 
 from __future__ import annotations

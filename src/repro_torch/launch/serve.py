@@ -4,7 +4,7 @@ paged layout, request scheduler).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
         --kv-format int8 --requests 8 --slots 4 --seed 0 \\
-        [--device cuda|cpu] [--full] [--admission chunked|eager] \\
+        [--device cuda|cpu] [--full] [--layers N] [--admission chunked|eager] \\
         [--chunk-budget 16] \\
         [--kv-layout slot|paged] [--page-size 8] [--shared-prefix 16] \\
         [--bgpp-rounds 4] [--bgpp-keep-ratio 0.25] \\
@@ -14,11 +14,15 @@ paged layout, request scheduler).
 The counterpart of ``repro.launch.serve`` without ``--mesh`` or
 ``--server`` (later slices).  ``--arch`` takes every registered
 architecture; the dense ones serve (phi4-mini, gemma3-1b / 4b with their
-sliding-window rings, deepseek-7b with its untied head) and the others are
-refused with an error that names their family.  It runs on ``--device cuda`` unless
-told otherwise; ``--full`` serves the published full-width config instead
-of the smoke one.  Weights are random, drawn from a seeded generator on
-the device.  Requests arrive on a Poisson-ish trace.  With the default
+sliding-window rings, deepseek-7b with its untied head), and so do the MoE
+ones (mixtral-8x22b: 8 experts top-2, every layer a sliding-window ring;
+llama4-scout-17b-a16e: 16 experts top-1 and a shared expert, chunked-local
+rings 3:1 with global layers); the others are refused with an error that
+names their family.  It runs on ``--device cuda`` unless told otherwise;
+``--full`` serves the published full-width config instead of the smoke
+one, and ``--layers`` cuts its depth (a full MoE config does not fit one
+card: mixtral-8x22b is 141 B parameters, llama4-scout 108 B).  Weights are
+random, drawn from a seeded generator on the device.  Requests arrive on a Poisson-ish trace.  With the default
 ``--admission chunked`` prompts go through bucketed prefill chunks
 interleaved with the batched decode step; ``--admission eager`` admits
 each prompt with one whole-sequence forward (the ``flash_attention``
@@ -37,6 +41,7 @@ tokens stay those of the non-speculative run.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -59,6 +64,8 @@ def main(argv=None):
     ap.add_argument("--arch", choices=sorted(ARCH_REGISTRY), default="phi4-mini-3.8b")
     ap.add_argument("--full", action="store_true",
                     help="serve the published full-width config (default: smoke)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the model's depth to this many layers (default: all)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cuda raises without a card)")
     ap.add_argument("--kv-format", default="int8", choices=["bf16", "int8", "bgpp"])
@@ -104,6 +111,8 @@ def main(argv=None):
     cfg = apply_weight_format_override(cfg, args.weight_format)
     cfg = apply_spec_decode_overrides(cfg, enabled=args.spec_decode or None,
                                       gamma=args.draft_gamma, planes=args.draft_planes)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     gen = torch.Generator(device=device).manual_seed(0)
     params = model_zoo.init(cfg, gen, device)
     layout = kvc.layout_for(cfg, args.slots, args.max_seq, kv_format=args.kv_format,

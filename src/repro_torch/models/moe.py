@@ -1,0 +1,151 @@
+"""Mixture-of-experts FFN with GShard capacity dispatch (mixtral 8 experts
+top-2, llama4-scout 16 experts top-1 with a shared expert).
+
+Counterpart of :mod:`repro.models.moe` with one token group (the port has
+no mesh).  Routing is the reference's: router logits ``x @ router`` in x's
+dtype then float32, softmax, top-k with ``jax.lax.top_k``'s tie order,
+the gates renormalised when k > 1, ``capacity = min(max(1, ceil(T k / E
+cf)), T k)``, each (token, slot)'s place in its expert's queue from a
+token-major cumsum, and a (token, slot) whose place reaches the capacity
+dropped (gate weight 0).  ``capacity_factor = E`` is dropless: the serve
+path's decode and chunk steps route so, as the reference's do.
+
+The experts are computed for the card, not as the reference's einsum over
+an ``(E, C, D)`` buffer that is mostly zeros: the kept (token, slot) rows
+are scattered to their queue places in one ``(E * C, D)`` buffer, and only
+the experts that received a row run their FFN, each over its whole ``C``
+rows (zero-padded).  So an expert's product has the same shape whatever
+its neighbours routed to, and on the CPU (:func:`layers.matmul`) a row's
+sum does not follow the row count: a token's dropless output does not
+depend on its batch neighbours.  Which experts run is read on the host
+(one sync a call).  The expert FFNs are plain ``layers.wdot`` products, as
+the reference computes them with ``jnp.einsum`` outside any kernel; a
+float32 activation against bfloat16 expert weights (the serve path's
+decode residual) upcasts one expert's matrix at a time, never a bank.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.topk import top_k
+from repro_torch.models import layers
+from repro_torch.models.layers import _dtype
+
+Params = Dict[str, Any]
+
+
+def moe_init(cfg, generator: torch.Generator, device="cuda", stack: int = 0) -> Params:
+    """Random MoE parameters on ``device`` from ``generator``, the
+    reference's tree and scales: ``router`` ``(d, E)`` and ``gate`` / ``up``
+    ``(E, d, f)`` at ``1/sqrt(d)``, ``down`` ``(E, f, d)`` at ``1/sqrt(f)``,
+    and ``shared``, a gated MLP of width ``moe_shared_ff``, where the config
+    sets one.  ``stack > 0`` stacks that many layer copies ``(L, ...)``.
+    Filled one layer and one expert at a time, in the model dtype, so the
+    peak memory is the parameters themselves."""
+    dtype = _dtype(cfg.dtype)
+    E, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    lead = (stack,) if stack else ()
+
+    def normal(shape, scale):
+        t = torch.empty(lead + shape, dtype=dtype, device=device)
+        flat = t.view((-1,) + shape[-2:])
+        for i in range(flat.shape[0]):  # one (layer, expert) matrix at a time
+            flat[i].normal_(generator=generator)
+        return t.mul_(torch.tensor(scale, dtype=dtype, device=device))
+
+    params = {
+        "router": normal((d, E), 1 / math.sqrt(d)),
+        "gate": normal((E, d, f), 1 / math.sqrt(d)),
+        "up": normal((E, d, f), 1 / math.sqrt(d)),
+        "down": normal((E, f, d), 1 / math.sqrt(f)),
+    }
+    fs = cfg.moe_shared_ff
+    if fs:
+        params["shared"] = {"gate": normal((d, fs), 1 / math.sqrt(d)),
+                            "up": normal((d, fs), 1 / math.sqrt(d)),
+                            "down": normal((fs, d), 1 / math.sqrt(fs))}
+    return params
+
+
+def capacity_of(T: int, cfg, capacity_factor: float) -> int:
+    """Rows an expert's queue holds for ``T`` tokens: the reference's
+    ``min(max(1, ceil(T k / E cf)), T k)``."""
+    E, k = cfg.num_experts, cfg.experts_per_token
+    cap = int(max(1, math.ceil(T * k / E * capacity_factor)))
+    return min(cap, T * k)
+
+
+def route(params: Params, x: torch.Tensor, cfg, capacity_factor: Optional[float] = None):
+    """The router and the capacity rule for x ``(..., D)`` flattened to
+    ``T`` tokens.  Returns a dict: ``logits`` / ``probs`` ``(T, E)`` f32,
+    ``gates`` / ``experts`` ``(T, k)`` (renormalised when k > 1), ``pos``
+    ``(T, k)`` each (token, slot)'s place in its expert's queue, ``keep``
+    ``(T, k)`` bool and ``capacity``."""
+    cf = cfg.moe_capacity_factor if capacity_factor is None else capacity_factor
+    E, k = cfg.num_experts, cfg.experts_per_token
+    xt = x.reshape(-1, x.shape[-1])
+    T = xt.shape[0]
+    logits = layers.wdot(xt, params["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    gates, experts = top_k(probs, k)
+    if k > 1:
+        gates = gates / gates.sum(-1, keepdim=True)
+    capacity = capacity_of(T, cfg, cf)
+    flat = experts.reshape(T * k)
+    onehot = F.one_hot(flat, E).to(torch.int32)  # token-major (token, slot) rows
+    pos = (onehot.cumsum(0) - 1).gather(1, flat[:, None]).reshape(T, k)
+    return {"logits": logits, "probs": probs, "gates": gates, "experts": experts,
+            "pos": pos, "keep": pos < capacity, "capacity": capacity}
+
+
+def _expert_ffn(params: Params, e: int, h: torch.Tensor, activation: str) -> torch.Tensor:
+    """Expert ``e``'s gated FFN over rows ``h`` ``(C, D)``; ``wdot`` upcasts
+    this expert's matrices alone where h is wider than the weights."""
+    g = layers.wdot(h, params["gate"][e])
+    u = layers.wdot(h, params["up"][e])
+    return layers.wdot(layers.glu_act(activation, g) * u, params["down"][e])
+
+
+def moe_apply(params: Params, x: torch.Tensor, cfg,
+              capacity_factor: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x ``(B, S, D)`` -> ``(y (B, S, D), aux)``: the routed experts'
+    gate-weighted sum (dropped (token, slot)s weigh 0), plus the shared
+    expert where the config has one; ``aux`` is the switch load-balance
+    loss plus 1e-3 of the router z-loss, a 0-d float32 tensor."""
+    B, S, D = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    T = B * S
+    r = route(params, x, cfg, capacity_factor)
+    C, keep = r["capacity"], r["keep"]
+    xt = x.reshape(T, D)
+    # queue row of each kept (token, slot); a dropped one goes to the spare
+    # row E * C, which no expert reads
+    slot = torch.where(keep, r["experts"] * C + r["pos"], E * C).reshape(T * k)
+    buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
+    buf[slot] = xt.repeat_interleave(k, dim=0)
+    counts = torch.zeros(E, dtype=torch.int32, device=x.device).index_add_(
+        0, r["experts"].reshape(-1), keep.reshape(-1).to(torch.int32))
+    active = [e for e, n in enumerate(counts.tolist()) if n]
+    out = torch.zeros((E * C + 1, D), dtype=torch.promote_types(x.dtype, params["gate"].dtype),
+                      device=x.device)
+    for e in active:
+        out[e * C:(e + 1) * C] = _expert_ffn(params, e, buf[e * C:(e + 1) * C], cfg.activation)
+    gathered = out[slot].reshape(T, k, D)
+    w = (r["gates"] * keep.float()).to(x.dtype)
+    # the combine, slot by slot in order, summed in float32, rounded once
+    y = w[:, 0, None].float() * gathered[:, 0].float()
+    for j in range(1, k):
+        y = y + w[:, j, None].float() * gathered[:, j].float()
+    y = y.to(out.dtype).reshape(B, S, D)
+    if "shared" in params:
+        y = y + layers.mlp_apply(params["shared"], x, cfg.activation)
+    density = F.one_hot(r["experts"][:, 0], E).float().mean(0)
+    mean_prob = r["probs"].mean(0)
+    lb_loss = E * torch.sum(density * mean_prob)
+    z_loss = torch.mean(torch.square(torch.logsumexp(r["logits"], dim=-1)))
+    return y, lb_loss + 1e-3 * z_loss

@@ -1,13 +1,15 @@
-"""Dense decoder-only transformer: parameter init and the whole-sequence
-forward.
+"""Decoder-only transformer: parameter init and the whole-sequence forward.
 
-Counterpart of :mod:`repro.models.transformer` for the dense family:
-phi4-mini, deepseek-7b (an untied ``lm_head``) and gemma3-1b / 4b (local
-sliding-window layers 5:1 with global ones, their own RoPE base, qk-norm,
-sandwich norms, GeGLU and the embedding scale).  The parameter tree
-follows ``transformer.init``'s (stacked ``(L, ...)`` layer leaves, ``(in,
-out)`` projections, zero-centred norm scales, the optional leaves where
-the config asks for them) and its scales, drawn from a
+Counterpart of :mod:`repro.models.transformer` for the dense and MoE
+families: phi4-mini, deepseek-7b (an untied ``lm_head``), gemma3-1b / 4b
+(local sliding-window layers 5:1 with global ones, their own RoPE base,
+qk-norm, sandwich norms, GeGLU and the embedding scale), mixtral-8x22b
+(every layer a sliding-window ring, 8 experts top-2) and
+llama4-scout-17b-a16e (chunked-local layers 3:1 with global ones, 16
+experts top-1 and a shared expert; :mod:`repro_torch.models.moe`).  The
+parameter tree follows ``transformer.init``'s (stacked ``(L, ...)`` layer
+leaves, ``(in, out)`` projections, zero-centred norm scales, the optional
+leaves where the config asks for them) and its scales, drawn from a
 ``torch.Generator`` on the target device.
 
 ``forward`` runs a whole ``(B, S)`` token batch through every layer (the
@@ -16,8 +18,10 @@ its attention is :func:`repro_torch.core.attention.blocked_attend`, which
 launches the ``flash_attention`` kernel on the card, with the model's mask
 kind and each layer's window (0, full causal, on the global layers).
 Eager admission and whole-batch prefill (:mod:`repro_torch.serving.engine`)
-run on it.  MoE, the VLM prefix, rematerialisation and sharding rules are
-not ported.
+run on it.  An MoE layer routes with the config's capacity factor, so
+the whole-sequence forward drops tokens as the reference's does (1.25 on
+the full configs).  The VLM prefix, rematerialisation and sharding rules
+are not ported.
 """
 
 from __future__ import annotations
@@ -28,9 +32,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import require_dense
+from repro_torch.configs.base import require_served
 from repro_torch.core import attention
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models.layers import _dtype
 
 Params = Dict[str, Any]
@@ -69,15 +73,17 @@ def layer_thetas(cfg) -> np.ndarray:
 
 
 def init_params(cfg, generator: torch.Generator, device="cuda") -> Params:
-    """Random dense parameters on ``device`` from ``generator`` (which must
-    live on the same device).
+    """Random parameters on ``device`` from ``generator`` (which must live
+    on the same device).
 
     Projections are ``N(0, 1) / sqrt(fan_in)``, embeddings ``N(0, 1) *
     0.02``, norm scales zero — ``transformer.init``'s scales; the
     ``(d_model, vocab)`` ``lm_head`` of an untied model is a projection.
-    Leaves are filled layer by layer in the model dtype, so the peak memory
-    is the parameters themselves (7.7 GB for phi4-mini-3.8b in bf16)."""
-    require_dense(cfg, "init_params")
+    An MoE config builds ``layers["moe"]`` (:func:`moe.moe_init`, stacked)
+    in place of ``layers["mlp"]``.  Leaves are filled layer by layer (and
+    expert by expert) in the model dtype, so the peak memory is the
+    parameters themselves (7.7 GB for phi4-mini-3.8b in bf16)."""
+    require_served(cfg, "init_params")
     dtype = _dtype(cfg.dtype)
     L, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
 
@@ -100,15 +106,17 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> Params:
     if cfg.qk_norm:
         attn["q_norm"] = {"scale": zeros(L, cfg.head_dim)}
         attn["k_norm"] = {"scale": zeros(L, cfg.head_dim)}
-    if cfg.activation in ("swiglu", "geglu"):
-        mlp = {"gate": normal((L, d, f), 1 / math.sqrt(d)),
-               "up": normal((L, d, f), 1 / math.sqrt(d)),
-               "down": normal((L, f, d), 1 / math.sqrt(f))}
-    else:  # the plain GELU MLP
-        mlp = {"up": normal((L, d, f), 1 / math.sqrt(d)), "up_b": zeros(L, f),
-               "down": normal((L, f, d), 1 / math.sqrt(f)), "down_b": zeros(L, d)}
     lay = {"attn_norm": {"scale": zeros(L, d)}, "attn": attn,
-           "mlp_norm": {"scale": zeros(L, d)}, "mlp": mlp}
+           "mlp_norm": {"scale": zeros(L, d)}}
+    if cfg.num_experts > 0:
+        lay["moe"] = moe.moe_init(cfg, generator, device, stack=L)
+    elif cfg.activation in ("swiglu", "geglu"):
+        lay["mlp"] = {"gate": normal((L, d, f), 1 / math.sqrt(d)),
+                      "up": normal((L, d, f), 1 / math.sqrt(d)),
+                      "down": normal((L, f, d), 1 / math.sqrt(f))}
+    else:  # the plain GELU MLP
+        lay["mlp"] = {"up": normal((L, d, f), 1 / math.sqrt(d)), "up_b": zeros(L, f),
+                      "down": normal((L, f, d), 1 / math.sqrt(f)), "down_b": zeros(L, d)}
     if cfg.post_norms:
         lay["post_attn_norm"] = {"scale": zeros(L, d)}
         lay["post_mlp_norm"] = {"scale": zeros(L, d)}
@@ -165,23 +173,33 @@ def _attention_block(p, cfg, x, positions, theta: float, window: int, mask_kind:
     return out, ((k, v) if return_kv else None)
 
 
+def ffn_apply(p, cfg, h, capacity_factor=None):
+    """A layer's FFN on the normed ``h`` -> ``(out, aux)``: the MoE at
+    ``capacity_factor`` (the config's when None) where the layer has one,
+    else the MLP with aux 0."""
+    if "moe" in p:
+        return moe.moe_apply(p["moe"], h, cfg, capacity_factor=capacity_factor)
+    return layers.mlp_apply(p["mlp"], h, cfg.activation), 0.0
+
+
 def _ffn_block(p, cfg, x):
-    """Norm, MLP and the post-MLP norm where set -> ``(out, aux)``; aux is 0
-    for the dense family."""
+    """Norm, FFN (the MoE at the config's capacity factor) and the post-MLP
+    norm where set -> ``(out, aux)``; aux is 0 for a dense layer."""
     h = layers.apply_norm(x, p["mlp_norm"], cfg.norm)
-    out = layers.mlp_apply(p["mlp"], h, cfg.activation)
+    out, aux = ffn_apply(p, cfg, h)
     if cfg.post_norms:
         out = layers.apply_norm(out, p["post_mlp_norm"], cfg.norm)
-    return out, 0.0
+    return out, aux
 
 
 def forward(params: Params, cfg, tokens: torch.Tensor, return_kv: bool = False):
     """tokens ``(B, S)`` -> ``(logits (B, S, V), aux[, (k_all, v_all)])``.
 
     The residual stream runs in ``cfg.dtype``; ``aux`` is a 0-d float32
-    tensor (0 for the dense family); ``k_all`` / ``v_all`` stack every
-    layer's post-RoPE K and V, ``(L, B, S, Hk, Dh)``."""
-    require_dense(cfg, "forward")
+    tensor, the sum of the MoE layers' losses (0 for the dense family);
+    ``k_all`` / ``v_all`` stack every layer's post-RoPE K and V, ``(L, B,
+    S, Hk, Dh)``."""
+    require_served(cfg, "forward")
     B, S = tokens.shape
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(S, device=tokens.device).expand(B, S)

@@ -1,10 +1,17 @@
 """Serving engine: single-token batched decode (``serve_step``), whole-
 sequence prefill (``prefill``, ``prefill_into_slot``) and chunked prefill
-for dense transformers over the paged or slot KV cache.
+for dense and MoE transformers over the paged or slot KV cache.
 
-Counterpart of :mod:`repro.serving.engine`, dense branch: global layers
-over the full-sequence store and, for gemma3's sliding-window layers,
-local layers over ring buffers of ``local_window`` lanes a slot.
+Counterpart of :mod:`repro.serving.engine`, transformer branch: global
+layers over the full-sequence store and, for gemma3's and mixtral's
+sliding-window and llama4-scout's chunked-local layers, local layers over
+ring buffers of ``local_window`` lanes a slot (a stack may have no global
+layer at all: mixtral's).  An MoE layer routes dropless in the decode and
+chunk steps (``capacity_factor = E``), as the reference's
+``_ffn_decode_layer`` does: capacity is pooled over the batch, so drops
+would couple a slot to its neighbours and let a chunk's padded lanes take
+capacity from its prompt tokens; the whole-sequence paths run
+``transformer.forward`` at the config's capacity factor.
 
     serve_step(params, cache, tokens (B, 1)) -> (logits (B, 1, V), cache)
     prefill(params, cfg, layout, tokens (B, S)) -> (logits (B, 1, V), cache)
@@ -47,7 +54,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import require_dense
+from repro_torch.configs.base import require_served
 from repro_torch.core.attention import NEG_INF
 from repro_torch.kernels.bgpp_paged_attend import ref as bgpp_ref
 from repro_torch.kernels.paged_flash_decode.ref import dense_attend, int8_attend, softmax
@@ -235,12 +242,13 @@ def _attn_decode_layer(p, cfg, layout, cache, x, pos, layer_idx, theta, phys=Non
 
 
 def _ffn_decode_layer(p, cfg, x):
+    """Norm, FFN and the post-MLP norm where set, for the decode and chunk
+    steps: an MoE layer routes dropless (``capacity_factor = E``)."""
     h = layers.apply_norm(x, p["mlp_norm"], cfg.norm)
-    out = layers.mlp_apply(p["mlp"], h, cfg.activation)
+    out, _ = transformer.ffn_apply(p, cfg, h, capacity_factor=float(cfg.num_experts))
     if cfg.post_norms:
         out = layers.apply_norm(out, p["post_mlp_norm"], cfg.norm)
     return out
-
 
 
 def make_serve_step(cfg, layout: kvc.CacheLayout):
@@ -251,7 +259,7 @@ def make_serve_step(cfg, layout: kvc.CacheLayout):
     One call decodes ONE token for every slot at its own ``cache["pos"]``
     and advances every ``pos`` by one.  Paged layouts hoist one
     logical->pool gather map per step (BGPP's kernel reads through it)."""
-    require_dense(cfg, "make_serve_step")
+    require_served(cfg, "make_serve_step")
     if layout.global_layers:
         kernel_decode.validate(cfg, layout)
     thetas = transformer.layer_thetas(cfg)
@@ -304,7 +312,7 @@ def prefill(params, cfg, layout: kvc.CacheLayout, tokens: torch.Tensor):
     fresh cache holding every row's K/V at ``[0, S)`` and ``pos = S``.
     Returns ``(last_logits (B, 1, V), cache)``.  The paged layout maps the
     rows slot-major (``identity_page_table``)."""
-    require_dense(cfg, "prefill")
+    require_served(cfg, "prefill")
     logits, _, (k_all, v_all) = transformer.forward(params, cfg, tokens, return_kv=True)
     dev = tokens.device
     cache = kvc.init_cache_arrays(cfg, layout, dev)
@@ -326,7 +334,7 @@ def prefill_into_slot(params, cfg, layout: kvc.CacheLayout, cache, slot: int,
     live cache, in place.  Paged layouts write through the cache's page
     table: the caller maps pages covering ``[0, S)`` first (writes to
     unmapped pages drop).  Returns ``(last_logits (1, 1, V), cache)``."""
-    require_dense(cfg, "prefill_into_slot")
+    require_served(cfg, "prefill_into_slot")
     tokens = prompt[None] if prompt.ndim == 1 else prompt
     if tokens.shape[0] != 1:
         raise ValueError(f"prefill_into_slot: one prompt per admission, got "
@@ -463,7 +471,7 @@ def make_prefill_chunk(cfg, layout: kvc.CacheLayout):
 
     The chunk's KV lands at ``[offset, offset+length)`` of row ``slot`` and
     ``cache['pos'][slot]`` is set to ``offset + length``."""
-    require_dense(cfg, "make_prefill_chunk")
+    require_served(cfg, "make_prefill_chunk")
     thetas = transformer.layer_thetas(cfg)
 
     def prefill_chunk(params, cache, tokens, slot: int, offset: int, length: int):

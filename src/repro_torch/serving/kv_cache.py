@@ -1,10 +1,14 @@
 """KV-cache containers for the serving engine (PyTorch).
 
-Counterpart of :mod:`repro.serving.kv_cache` for dense attention stacks.
-Mixed local/global stacks (gemma3's 5:1 sliding-window layers) keep two
+Counterpart of :mod:`repro.serving.kv_cache` for transformer attention
+stacks (the dense and MoE families).  Mixed local/global stacks (gemma3's
+5:1 sliding-window layers, llama4-scout's 3:1 chunked-local ones) keep two
 stores: the global layers hold the whole sequence, the local layers a ring
-of ``local_window`` lanes a slot (lane ``pos % window``) with each lane's
-absolute position in ``abs_pos`` (-1 = empty).  Three storage formats:
+of ``local_window`` lanes a slot (lane ``pos % window``; the window is
+the sliding window or the attention chunk, at most ``max_seq``) with each
+lane's absolute position in ``abs_pos`` (-1 = empty).  A stack of rings
+only (mixtral) has no global store, no page table and no page pool; its
+global ``kv_read`` term is 0.  Three storage formats:
 
   bf16 — dense baseline (the model dtype).
   int8 — per-token/head symmetric INT8 K and V (+ f32 scales).
@@ -43,7 +47,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import require_dense
+from repro_torch.configs.base import require_served
 from repro_torch.core import bitslice
 from repro_torch.kernels.bgpp_paged_attend import ref as _bgpp_ref
 from repro_torch.models.layers import _dtype
@@ -84,7 +88,7 @@ def layout_for(cfg, batch: int, max_seq: int, kv_format: str = "int8",
     global layer (full-sequence store) or a local one (a ring of its
     sliding or chunked window); ``layout="paged"`` sizes the shared pool of
     the global store (default capacity = the dense allocation)."""
-    require_dense(cfg, "layout_for")
+    require_served(cfg, "layout_for")
     glob, loc, window = [], [], 0
     for i in range(cfg.num_layers):
         kind, w = cfg.layer_attn_window(i)

@@ -15,8 +15,10 @@ fills every EMPTY slot with one whole-prompt B=1 forward each
 runs the ``flash_attention`` kernel on the card) before the decode step,
 which stalls until they finish: the reference's baseline.
 
-Paged layouts keep a host-side
-:class:`~repro_torch.serving.paging.PageAllocator`: pages are
+It serves the dense and MoE families.  Paged layouts with a global layer
+keep a host-side
+:class:`~repro_torch.serving.paging.PageAllocator` (a stack of local rings
+only, as mixtral's, has no pool and no allocator): pages are
 mapped just ahead of every write, the device page table is refreshed when
 the host copy changes, and eviction zeroes (on device) only pages whose
 refcount hit zero.  With chunked admission a slot's prompt is matched
@@ -60,7 +62,7 @@ from typing import Callable, Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import apply_weight_format_override, require_dense
+from repro_torch.configs.base import apply_weight_format_override, require_served
 from repro_torch.serving import engine, kv_cache as kvc, spec_decode as spd
 from repro_torch.serving import weights as swt
 from repro_torch.serving.paging import PageAllocator
@@ -108,7 +110,7 @@ class Scheduler:
     ):
         from repro_torch import resolve_device
 
-        require_dense(cfg, "Scheduler")
+        require_served(cfg, "Scheduler")
         if admission not in ("chunked", "eager"):
             raise ValueError(f"Scheduler: admission {admission!r} is not chunked or eager")
         if mesh is not None:

@@ -2,7 +2,10 @@
 
 Counterpart of :mod:`repro.serving.weights`.  ``MCBPOptions.weight_format``
 selects the numerics of the decode-time projections (``wq``/``wk``/``wv``/
-``wo``, the dense MLP, ``lm_head``):
+``wo``, the dense MLP, ``lm_head``).  As in the reference, only these
+explicit names convert: an MoE layer's router, expert banks and shared
+expert stay raw in every format, and ``weight_read`` prices attention and
+the head alone (the routed experts' reads are not counted):
 
 * ``"bf16"`` — the raw parameter leaves, untouched;
 * ``"int8"`` — per-output-channel symmetric int8: each projection becomes
@@ -51,7 +54,8 @@ Tree = Dict[str, Any]
 
 FORMATS = WEIGHT_FORMATS
 
-# projection leaves the serve path converts (biases and norms stay raw)
+# projection leaves the serve path converts (biases, norms and the MoE
+# subtree stay raw)
 _ATTN_WEIGHTS = ("wq", "wk", "wv", "wo")
 _MLP_WEIGHTS = ("gate", "up", "down")
 _KERNEL_TILE_K = 512  # H tile of the served operands, where it divides in_dim
@@ -113,7 +117,8 @@ def dequantize(record: Tree, dtype=torch.float32) -> torch.Tensor:
 
 
 def check_serve_params(params: Tree, cfg, fmt: str) -> None:
-    """A non-bf16 serve step must receive converted records, never raw leaves."""
+    """A non-bf16 serve step must receive converted records, never raw
+    leaves (probed at ``wq``; an MoE subtree is raw in every format)."""
     lay = params.get("layers", {})
     probe = lay.get("attn", {}).get("wq") if isinstance(lay, dict) else None
     if probe is not None and not is_record(probe):

@@ -38,7 +38,8 @@ def test_scan_sees_the_package():
             "weights.py", "bstc.py", "roofline.py", "interop.py", "attention.py",
             "transformer.py", "brcr.py", "quantization.py", "topk.py", "synthetic.py",
             "quickstart.py", "bgpp_sparse_attention.py", "spec_decode.py", "model_zoo.py",
-            "shapes.py", "gemma3_4b.py", "deepseek_7b.py", "whisper_medium.py"} <= names
+            "shapes.py", "gemma3_4b.py", "deepseek_7b.py", "whisper_medium.py",
+            "moe.py"} <= names
     for k in ("flash_attention", "bgpp_score", "brcr_gemm"):
         assert PORT / "kernels" / k / "ops.py" in _files()
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [

@@ -216,6 +216,7 @@ class TestPagedFlashDecodePlan:
 
     @pytest.mark.parametrize("B,Hk,g,D,S,P", [
         (4, 8, 3, 128, 1024, 16),  # the decode geometry
+        (4, 8, 5, 128, 1024, 16),  # llama4-scout's (g 5: the G 8 instance)
         (1, 8, 3, 128, 32768, 16),  # a long context
         (4, 8, 8, 128, 32768, 16),
         (64, 8, 3, 128, 2048, 16),  # more cells than SMs
@@ -433,6 +434,7 @@ class TestBgppPagedAttendPlan:
 
     @pytest.mark.parametrize("B,Hk,g,D,S", [
         (4, 8, 3, 128, 1024),  # the decode geometry
+        (4, 8, 5, 128, 1024),  # llama4-scout's (g 5: the G 8 instance)
         (1, 8, 3, 128, 32768),  # a long context
         (4, 8, 8, 128, 8192),
         (64, 8, 3, 128, 2048),  # more cells than SMs

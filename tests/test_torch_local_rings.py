@@ -1,5 +1,6 @@
-"""gemma3's local (sliding-window) ring layers on the port against the JAX
-package's, on the CPU.
+"""The local ring layers on the port against the JAX package's, on the CPU:
+gemma3's sliding-window rings, mixtral's (every layer a ring) and
+llama4-scout's chunked-local ones.
 
 The same numpy-seeded inputs and the same JAX-initialised smoke parameters
 (brought across with ``interop.params_from_numpy``) go through ``repro``
@@ -39,7 +40,9 @@ from repro_torch.serving import engine, kv_cache as tkvc
 jax.config.update("jax_platform_name", "cpu")
 torch.set_num_threads(1)
 
-ARCHS = ["gemma3-1b", "gemma3-4b", "deepseek-7b"]
+# mixtral-smoke: rings only (no global store, no page pool); llama4-scout-
+# smoke: chunked-local rings 3:1 with a global layer
+ARCHS = ["gemma3-1b", "gemma3-4b", "deepseek-7b", "mixtral-8x22b", "llama4-scout-17b-a16e"]
 FORMATS = ["bf16", "int8", "bgpp"]
 LAYOUTS = ["slot", "paged"]
 MAX_SEQ, PAGE = 48, 8
@@ -93,6 +96,10 @@ class TestLayoutAndBytes:
         if arch.startswith("gemma3"):
             assert tl.local_window == 16 and len(tl.global_layers) == 1
             assert tl.local_layers == (0, 1, 2, 3, 4)
+        if arch == "mixtral-8x22b":
+            assert tl.global_layers == () and tl.local_layers == (0, 1)
+        if arch == "llama4-scout-17b-a16e":
+            assert tl.global_layers == (3,) and tl.local_window == 16
         jcfg, cfg = jax_config(arch, smoke=True), get_config(arch, smoke=True)
         _assert_tree_equal(jkvc.init_cache_arrays(jcfg, jl),
                            tkvc.init_cache_arrays(cfg, tl, "cpu"))
@@ -244,7 +251,8 @@ class TestPrefillPaths:
             np.testing.assert_allclose(log.numpy(), np.asarray(jlog), rtol=0, atol=1e-4)
             _assert_cache_close(tc, jc, fmt)
 
-    @pytest.mark.parametrize("arch", ["gemma3-1b", "gemma3-4b"])
+    @pytest.mark.parametrize("arch", ["gemma3-1b", "gemma3-4b", "mixtral-8x22b",
+                                      "llama4-scout-17b-a16e"])
     @pytest.mark.parametrize("fmt", FORMATS)
     def test_chunked_prefill(self, arch, fmt):
         """A 37-token prompt in chunks of 8 (the ring wraps mid-prompt and
