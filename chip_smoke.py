@@ -39,6 +39,19 @@ Phases, each of which fails the run (nonzero exit) on any error:
    decode attends at pages 16 and 6 over S 1024, K5 causal and with
    gemma3's sliding window of 512 at B 1, S 512 (bf16, and f32 causal);
    the D 256 cases at page 16 timed, with records naming their case.
+   The long-context phase: K2 at the reference's decode_32k (S 32768)
+   at the heads of gemma3-1b (g 4, D 256), llama4-scout (g 5, D 128) and
+   paligemma-3b (g 8, D 256), where its lists go to a global workspace,
+   and K1's bf16 and int8 bodies at long_500k (S 524,288) at the heads of
+   gemma3-4b, gemma3-1b and llama4-scout, where each block walks its
+   lanes in passes; each with a second slot ending inside K2's first
+   block or K1's first pass, twice bit-identical (K2: survivor indices
+   equal), timed with records naming their case.  K5's prefix_causal
+   kind (the VLM's mask) at paligemma-3b's heads (Hq 8, Hk 1, D 256) over
+   S 556 with its 256-patch prefix (timed beside
+   ``scaled_dot_product_attention`` with the same boolean mask), and
+   prefixes 100, 0 and past S, a query offset and f32, twice
+   bit-identical.
    Then the paper layer's two kernels: the BGPP round at S 4096 (one
    query), at the decode geometry (B 4 x Hq 24 over Hk 8, S 1024) and at
    S 32768, alive masks from a real first round, bit-exact and launched
@@ -92,13 +105,23 @@ Phases, each of which fails the run (nonzero exit) on any error:
    eagerly, and mixtral-8x22b cut to 2 layers (both sliding-window rings:
    no global layer, no page pool; 8 experts top-2) serves 3 requests
    chunked with int8 KV, each run with the same checks (K3 once per
-   converted matrix a step: 4L + 1, the experts staying raw).  After
+   converted matrix a step: 4L + 1, the experts staying raw).  Then the
+   VLM family at full width and depth: paligemma-3b (18 global layers,
+   8/1 heads of 256, GeGLU d_ff 16384, the tied 257216-row head; 2.509 B
+   params) serves the main trace chunked with bf16, int8 and bgpp KV
+   (the last with bstc weights: K3 7L + 1 = 127 launches a step), once
+   with bgpp KV at max_seq 32768 on two prompts of 12,000-16,000 tokens
+   (K2 with its lists in the workspace), and runs one eager admission
+   behind a 256 x 1152 patch prefix (K5 18 launches, prefix_causal)
+   followed by 8 decode steps (K1 18 a step), printing the reference's
+   ``pos`` convention (the text length).  After
    every timed run, each of
    phi4-mini's chunked runs traces a few steady decode steps, and its
    eager one a whole-prompt admission, and gemma3-4b traces bf16 and bgpp
    decode and one eager admission (K1, K2 and K5 device ms a launch at
    D 256), and llama4-scout traces bf16 decode (K1 at g 5, one MoE
-   layer's decode timed alone), with torch.profiler (device busy share,
+   layer's decode timed alone), and paligemma-3b bf16 decode (K1 at g 8,
+   D 256), with torch.profiler (device busy share,
    time by kernel), the flash attention kernel and ``scaled_dot_product_attention`` are traced at
    causal S 512 and S 450 for their device time a call, the fused BSTC
    decode + GEMV and a bf16 ``torch.matmul`` at every decode projection
@@ -110,21 +133,26 @@ Phases, each of which fails the run (nonzero exit) on any error:
    on the quickstart's operands and at every projection shape of a layer
    (N 4, 16 and 128; f32 integer, f32 Gaussian and bf16 x).
 6. Reference check: the same small models (the smoke configs of
-   phi4-mini, gemma3-4b, deepseek-7b, mixtral-8x22b and
-   llama4-scout-17b-a16e) and traces served on the card
+   phi4-mini, gemma3-4b, deepseek-7b, mixtral-8x22b,
+   llama4-scout-17b-a16e and paligemma-3b) and traces served on the card
    (kernels) and on the CPU (plain versions) give the same greedy tokens
    and logits within tolerance, for every KV format, for the int8 and
    bstc weight formats, and with eager admission (the smoke configs of
-   mixtral-8x22b and llama4-scout-17b-a16e too); and the paper layer's
+   mixtral-8x22b and llama4-scout-17b-a16e too), and paligemma-3b-smoke's
+   forward behind its 16-patch prefix within 1e-4 of max |logit|; and the
+   paper layer's
    ``brcr_matmul``, batched predictor and examples at the reference
    examples' sizes agree between card and CPU.
 
 The second-to-last lines are the kernels' JSON record and the card line;
 the last line is ``{"ok": true, "device": {...}}``.
 
-``--only kernels|head-widths|score|score-device|decode`` (repeatable) runs
-just those parts of phase 3 (and, for ``score`` and ``decode``, K6's or
-K4's device times), prints no records and ends after them: for work on one
+``--only kernels|head-widths|long-context|prefix|score|score-device|decode|
+decode-attends`` (repeatable) runs just those parts of phase 3 (and, for
+``score`` and ``decode``, K6's or K4's device times; ``decode-attends``
+K1's and K2's device times at the decode geometry, through the public
+wrappers only, so the script copied into an older tree times that tree's
+kernels), prints no records and ends after them: for work on one
 kernel.
 """
 
@@ -236,6 +264,7 @@ def kernel_record(name, source, replaces, err, ms, plain_ms, nbytes, ops, kind, 
 
 
 K1_SOURCE = "src/repro_torch/csrc/paged_flash_decode.cu"
+K1_PASS_SOURCE = "src/repro_torch/csrc/paged_flash_decode_long.cu"  # past one block's smem
 K1_REPLACES = {"bf16": "src/repro/kernels/paged_flash_decode/kernel.py:65",
                "int8": "src/repro/kernels/paged_flash_decode/kernel.py:85"}
 
@@ -257,14 +286,15 @@ def k1_inputs(device, seed, B, S, pos, page, Hk, g, D):
     return q, kf, vf, table, pos.to(device)
 
 
-def k1_case(label, q, kf, vf, table, pos, page, flush=None):
+def k1_case(label, q, kf, vf, table, pos, page, flush=None, iters=20):
     """Both K1 bodies on one input set.  Each: two launches on the same
     inputs give identical bits, and the output is held against the plain
     version by :func:`check_rows` (int8: plus one probability-code step).
-    With ``flush``, each body is timed against its plain version and (bf16)
-    ``scaled_dot_product_attention`` on the gathered view, and its record
-    (:func:`kernel_record`) is returned; the ``[kernel]`` line names the
-    plan's cluster size, lanes a block and blocks."""
+    With ``flush``, each body is timed (``iters`` launches) against its
+    plain version and (bf16) ``scaled_dot_product_attention`` on the
+    gathered view, and its record (:func:`kernel_record`) is returned; the
+    ``[kernel]`` line names the plan's cluster size, lanes a block, blocks
+    and, past the single pass, its passes."""
     import torch
 
     from repro_torch.kernels import paged_flash_decode as pfd_ops
@@ -277,8 +307,8 @@ def k1_case(label, q, kf, vf, table, pos, page, flush=None):
     pp = table.shape[1]
     S = pp * page
     device = q.device
-    C, L, _ = pfd_kernel.plan(B, Hk, g, D, pp, page, pfd_kernel.sm_count(device))
-    where = f" {label} (C {C}, L {L}, {B * Hk * C} blocks)"
+
+
     phys = kvc.phys_table(table, page, S).long()
     kv_view = lambda a: a[phys].movedim(2, 1)  # (B, Hk, S, ...)
     valid = torch.arange(S, device=device)[None, :] <= pos[:, None]  # (B, S)
@@ -294,6 +324,10 @@ def k1_case(label, q, kf, vf, table, pos, page, flush=None):
     del kf, vf
     records = []
     for body, ((k, v), scales, tol_step) in bodies.items():
+        p = pfd_kernel.plan(B, Hk, g, D, pp, page, pfd_kernel.sm_count(device),
+                            int8=body == "int8")
+        passes = f", {p.passes} passes of {p.pass_lanes}" if p.pass_lanes else ""
+        where = f" {label} (C {p.C}, L {p.L}, {B * Hk * p.C} blocks{passes})"
         run = lambda: pfd_ops.paged_flash_decode(q, k, v, table, pos, page_size=page,
                                                  **scales)
         plain = lambda: paged_flash_decode_ref(q, k, v, table, pos, page_size=page, **scales)
@@ -313,12 +347,13 @@ def k1_case(label, q, kf, vf, table, pos, page, flush=None):
             qh = q.reshape(B, Hk * g, 1, D).to(torch.bfloat16)
             mask = valid[:, None, None, :]
             lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qh, kview, vview, attn_mask=mask, enable_gqa=True), flush=flush)
+                qh, kview, vview, attn_mask=mask, enable_gqa=True), iters, flush)
             del kview, vview
         row_bytes = 2 * D * k.element_size() + (8 if scales else 0)  # K, V (+ 2 scales)
         records.append(kernel_record(
-            f"paged_flash_decode_{body}", K1_SOURCE, K1_REPLACES[body], err,
-            time_ms(run, flush=flush), time_ms(plain, flush=flush),
+            f"paged_flash_decode_{body}", K1_PASS_SOURCE if p.pass_lanes else K1_SOURCE,
+            K1_REPLACES[body], err,
+            time_ms(run, iters, flush), time_ms(plain, iters, flush),
             rows * row_bytes + io_bytes, rows * 4 * g * D, body, lib_ms,
             label=where + ", two launches bit-identical"))
     return records
@@ -368,8 +403,10 @@ def k2_case(label, args, kq, flush=None):
     B, Hk, g, D = q.shape
     S = phys.shape[1]
     rounds, k_max, surv = kvc.bgpp_decode_plan(S, get_config("phi4-mini-3.8b"))
-    C, L, _, _ = bgpp_kernel.plan(B, Hk, g, D, S, k_max, surv, sm_count(q.device))
-    where = f" {label} (C {C}, L {L}, {B * Hk * C} blocks)"
+    p = bgpp_kernel.plan(B, Hk, g, D, S, k_max, surv, sm_count(q.device))
+    ws = (f", lists in a {bgpp_kernel.workspace_ints(B, Hk, g, p) * 4 / 2**20:.0f} MiB "
+          f"workspace" if p.workspace else "")
+    where = f" {label} (C {p.C}, L {p.L}, {B * Hk * p.C} blocks{ws})"
     plan = dict(rounds=rounds, k_max=k_max, survivors=surv)
     got, idx = bgpp_ops.bgpp_paged_attend(*args, **plan, return_indices=True)
     again, idx2 = bgpp_ops.bgpp_paged_attend(*args, **plan, return_indices=True)
@@ -551,6 +588,125 @@ def head_width_phase(device, flush):
                 records.append(rec)
         torch.cuda.empty_cache()
     return records
+
+
+# (name, Hk, g, D) of the long-context phase: the reference's decode_32k
+# for K2 at the geometries whose lists pass shared memory (gemma3-1b,
+# llama4-scout, paligemma-3b; src/repro/configs/shapes.py), and its
+# long_500k for K1 at the sub-quadratic archs' global layers (gemma3-4b,
+# gemma3-1b, llama4-scout)
+K2_LONG_CASES = (("gemma3-1b", 1, 4, 256), ("llama4-scout", 8, 5, 128),
+                 ("paligemma-3b", 1, 8, 256))
+K1_LONG_CASES = (("gemma3-4b", 4, 2, 256), ("gemma3-1b", 1, 4, 256),
+                 ("llama4-scout", 8, 5, 128))
+K2_LONG_S, K1_LONG_S = 32768, 524288
+K2_EARLY_POS, K1_EARLY_POS = 3000, 5000  # inside K2's first block, K1's first pass
+
+
+def long_context_phase(device, flush):
+    """The decode attends at the reference's context lengths
+    (:data:`K2_LONG_CASES`, :data:`K1_LONG_CASES`; page 16): K2 at
+    decode_32k (S 32768) with its lists in the global workspace, and K1's
+    bf16 and int8 bodies at long_500k (S 524,288) in passes.  Each case has
+    two slots, one at the last lane and one ending inside K2's first block
+    or K1's first pass (:data:`K2_EARLY_POS`, :data:`K1_EARLY_POS`), is
+    held to its plain version within the kernel phase's tolerances (K2: the
+    survivor indices equal), launched twice for identical bits, and timed
+    with its bound (:func:`k1_case`, :func:`k2_case`); returns the records,
+    each naming its case."""
+    import torch
+
+    records = []
+    for i, (name, Hk, g, D) in enumerate(K2_LONG_CASES):
+        case = f"{name} Hk {Hk} g {g} D {D} page 16 S {K2_LONG_S} B 2"
+        inputs = k1_inputs(device, 90 + i, 2, K2_LONG_S, [K2_LONG_S - 1, K2_EARLY_POS],
+                           DECODE_PAGE, Hk, g, D)
+        args, kq = k2_operands(*inputs, DECODE_PAGE)
+        table_numel = inputs[3].numel()
+        del inputs
+        err, ms, plain_ms = k2_case(case, args, kq, flush)
+        records.append(k2_record(args, err, ms, plain_ms, table_numel, f" {case}"))
+        records[-1]["case"] = case
+        del args, kq
+        torch.cuda.empty_cache()
+    for i, (name, Hk, g, D) in enumerate(K1_LONG_CASES):
+        case = f"{name} Hk {Hk} g {g} D {D} page 16 S {K1_LONG_S} B 2"
+        recs = k1_case(case, *k1_inputs(device, 95 + i, 2, K1_LONG_S,
+                                         [K1_LONG_S - 1, K1_EARLY_POS], DECODE_PAGE, Hk, g, D),
+                       DECODE_PAGE, flush, iters=5)
+        for r in recs:
+            r["case"] = case
+        records += recs
+        torch.cuda.empty_cache()
+    return records
+
+
+# K5's prefix_causal at paligemma-3b's heads (Hq 8, Hk 1, D 256; its 256
+# image patches; src/repro/configs/paligemma_3b.py): (label, S, prefix,
+# q_offset, dtype); the first is the record's case, timed beside SDPA
+PREFIX_CASES = (("paligemma-3b prefix 256", 556, 256, 0, "bf16"),
+                ("prefix 100 (not a tile multiple)", 556, 100, 0, "bf16"),
+                ("prefix 0 (causal)", 556, 0, 0, "bf16"),
+                ("prefix 600 >= S (full)", 556, 600, 0, "bf16"),
+                ("prefix 256, q_offset 200", 556, 256, 200, "bf16"),
+                ("prefix 256 f32", 556, 256, 0, "f32"))
+
+
+def flash_prefix_phase(device, flush):
+    """K5's prefix_causal kind (the VLM's mask) against its plain version
+    (:func:`flash_case`) at :data:`PREFIX_CASES`, each launched twice for
+    identical bits; the first timed beside ``scaled_dot_product_attention``
+    with the same boolean mask.  Returns its record."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    record = None
+    for label, S, prefix, off, dt in PREFIX_CASES:
+        dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
+        mk = lambda Sx, H: torch.randn((1, Sx, H, 256), generator=gen,
+                                       device=device).to(dtype)
+        q, k, v = mk(S - off, 8), mk(S, 1), mk(S, 1)
+        case = f"{label}: Hq 8 Hk 1 D 256 B1 S{S} {dt}"
+        rec = flash_case(case, q, k, v, dict(mask_kind="prefix_causal", window=prefix,
+                                             q_offset=off),
+                         flush if record is None else None, twice=True, case=case)
+        record = record or rec
+    return record
+
+
+def decode_attend_times(device, calls: int = 50) -> None:
+    """Device ms a call of K1's bf16 and int8 bodies and of K2 at the
+    decode geometry (:func:`decode_attend_inputs`), one ``torch.profiler``
+    trace of ``calls`` calls each, L2 flushed before every call
+    (:func:`_device_ms`).  It calls the public wrappers only, so the same
+    script times an older tree's kernels: copy it into that tree and run it
+    there with ``--only decode-attends``, in the same call."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.bgpp_paged_attend import bgpp_paged_attend
+    from repro_torch.kernels.paged_flash_decode import paged_flash_decode
+    from repro_torch.serving import kv_cache as kvc
+
+    inputs = decode_attend_inputs(device)
+    q, kf, vf, table, pos = inputs
+    kb, vb = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+    args, kq = k2_operands(*inputs, DECODE_PAGE)
+    _, _, _, ks, vq, vs, _, _ = args
+    rounds, k_max, surv = kvc.bgpp_decode_plan(DECODE_S, get_config("phi4-mini-3.8b"))
+    l2 = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    out = []
+    for label, fn in (
+            ("K1 bf16", lambda: paged_flash_decode(q, kb, vb, table, pos, page_size=DECODE_PAGE)),
+            ("K1 int8", lambda: paged_flash_decode(q, kq, vq, table, pos, page_size=DECODE_PAGE,
+                                                   k_scale=ks, v_scale=vs)),
+            ("K2", lambda: bgpp_paged_attend(*args, rounds=rounds, k_max=k_max,
+                                             survivors=surv))):
+        ms, counts = _device_ms(fn, calls, l2)
+        out.append(f"{label} {ms:.5f} ms ({counts})")
+    print(f"[compare] decode attends at the decode geometry (B 4, Hk 8, g 3, D 128, S 1024, "
+          f"page 16; device ms a call, torch.profiler, {calls} calls, L2 flushed) of the tree "
+          f"at {ROOT}: " + "; ".join(out))
 
 
 def projection_shapes(cfg):
@@ -1946,6 +2102,17 @@ MIXTRAL_TRACE = dict(seed=0, n=3, lo=201, hi=450, new=16)
 MIXTRAL_RUNS = (("int8", "bf16", "chunked"),)
 # K5 at llama4-scout's heads past its attention chunk
 LLAMA4_CHUNK, LLAMA4_FLASH_S = 8192, 8448
+# the VLM family at full width and depth: paligemma-3b (18 layers, all
+# global; 8/1 heads of 256; GeGLU d_ff 16384; the tied 257216-row head) on
+# the main trace in three runs, once at max_seq 32768 with two prompts of
+# 12,000-16,000 tokens and bgpp KV (K2 past its old 10,792-lane cap at
+# g 8, D 256), and one eager admission with a 256-patch image prefix
+PALI_ARCH = "paligemma-3b"
+PALI_RUNS = (("bf16", "bf16", "chunked"), ("int8", "bf16", "chunked"),
+             ("bgpp", "bstc", "chunked"))
+PALI_LONG_RUNS = (("bgpp", "bf16", "chunked"),)
+PALI_LONG_TRACE, PALI_LONG_SEQ = dict(seed=0, n=2, lo=12000, hi=16000, new=8), 32768
+PALI_PROMPT, PALI_DECODES = 300, 8  # the vision prefill's text prompt, its decode steps
 
 
 def free_device() -> None:
@@ -2004,7 +2171,7 @@ def init_model(arch, device, depth=None):
     return cfg, params
 
 
-def serve_runs(cfg, params, runs, trace_kw, max_seq, device, card):
+def serve_runs(cfg, params, runs, trace_kw, max_seq, device, card, k3_per_step=None):
     """Serve ``cfg`` in the paged layout (4 slots, page 16, chunk budget
     128) once per ``(KV format, weight format, admission)`` of ``runs`` on
     the trace ``trace_kw``; every count zeroed just before the Scheduler is
@@ -2016,7 +2183,9 @@ def serve_runs(cfg, params, runs, trace_kw, max_seq, device, card):
     experts stay raw) and K4 once per coded plane of the first coded
     matrix with bstc weights, K5 L times an eager admission, nothing else
     (the local layers' ring attends and the MoE's experts are plain
-    PyTorch).  Returns the
+    PyTorch).  ``k3_per_step``, where given, is the converted matrices a
+    decode step the weight plan must hold (the reference's ``_iter_targets``
+    count).  Returns the
     launches of each kernel on its own run (the decode attends on their KV
     format's chunked bf16-weight run, the BSTC kernels on the bstc run,
     flash attention on the eager run) and each run's greedy tokens."""
@@ -2076,7 +2245,11 @@ def serve_runs(cfg, params, runs, trace_kw, max_seq, device, card):
         if eager:
             want["flash_attention"] = L * len(reqs)
         if wfmt == "bstc":
-            want["bstc_matmul"] = sum(e.copies for e in sched.weight_plan.entries) * steps
+            per_step = sum(e.copies for e in sched.weight_plan.entries)
+            if k3_per_step is not None and per_step != k3_per_step:
+                raise AssertionError(f"{run}: the weight plan converts {per_step} matrices a "
+                                     f"step, expected {k3_per_step}")
+            want["bstc_matmul"] = per_step * steps
             want["bstc_decode"] = coded_planes_of_first_matrix(params["layers"]["attn"]["wq"],
                                                                cfg)
             if want["bstc_decode"] < 1:
@@ -2210,6 +2383,83 @@ def moe_serve_phase(device, card):
     free_device()
 
 
+def vlm_serve_phase(device, card):
+    """The VLM family at full width and depth: paligemma-3b for every run
+    of :data:`PALI_RUNS` on :data:`MAIN_TRACE` at max_seq 1024 (K3 7L + 1
+    = 127 launches a step, ``vision_proj`` raw), once at
+    :data:`PALI_LONG_SEQ` on :data:`PALI_LONG_TRACE` with bgpp KV
+    (:func:`serve_runs` checks each), then one eager admission with an
+    image prefix (:func:`vision_prefill`).  Text prompts go through chunked
+    admission, as the reference's Scheduler serves a VLM."""
+    cfg, params = init_model(PALI_ARCH, device)
+    serve_runs(cfg, params, PALI_RUNS, MAIN_TRACE, 1024, device, card,
+               k3_per_step=7 * cfg.num_layers + 1)
+    serve_runs(cfg, params, PALI_LONG_RUNS, PALI_LONG_TRACE, PALI_LONG_SEQ, device, card)
+    vision_prefill(cfg, params, device, card)
+    del params
+    free_device()
+
+
+def vision_prefill(cfg, params, device, card):
+    """``engine.prefill_into_slot`` of a :data:`PALI_PROMPT`-token prompt
+    behind ``vision_tokens`` random patch embeddings (bf16, seeded) into
+    slot 0 of a paged bf16-KV cache (every page mapped), then
+    :data:`PALI_DECODES` ``serve_step`` decodes of the batch: K5 launches
+    once a layer in the prefill, K1 once a layer a decode step, nothing
+    else; logits finite.  Prints the reference's ``pos`` convention: the
+    text length, though the prefill wrote the prefix's lanes before it."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.serving import engine, kv_cache as kvc
+
+    L, Tv = cfg.num_layers, cfg.vision_tokens
+    layout = kvc.layout_for(cfg, 4, 1024, kv_format="bf16", layout="paged", page_size=16)
+    free_device()
+    cache = kvc.init_cache_arrays(cfg, layout, device)
+    cache["page_table"] = kvc.identity_page_table(layout, device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    vis = torch.randn((1, Tv, cfg.d_vision), generator=gen, device=device).to(torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab_size, (PALI_PROMPT,), generator=gen, device=device)
+    step = engine.make_serve_step(cfg, layout)
+    tokens = torch.zeros((layout.batch, 1), dtype=torch.long, device=device)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    e[0].record()
+    logits, cache = engine.prefill_into_slot(params, cfg, layout, cache, 0, prompt,
+                                             vision_embeds=vis)
+    e[1].record()
+    pos = int(cache["pos"][0])
+    rows = [logits[0, -1].float()]
+    for _ in range(PALI_DECODES):
+        tokens[0, 0] = rows[-1].argmax()
+        out, cache = step(params, cache, tokens)
+        rows.append(out[0, -1].float())
+    e[2].record()
+    torch.cuda.synchronize()
+    got = dict(K.LAUNCHES)
+    want = {name: 0 for name in got}
+    want["flash_attention"] = L
+    want["paged_flash_decode_bf16"] = L * PALI_DECODES
+    if got != want:
+        raise AssertionError(f"{cfg.name} vision prefill: launches {got}, expected {want}")
+    rows = torch.stack(rows)
+    if rows.shape != (PALI_DECODES + 1, cfg.vocab_size) or not bool(rows.isfinite().all()):
+        raise AssertionError(f"{cfg.name} vision prefill: logits malformed")
+    if pos != PALI_PROMPT or int(cache["pos"][0]) != PALI_PROMPT + PALI_DECODES:
+        raise AssertionError(f"{cfg.name} vision prefill: pos {pos}, expected the text "
+                             f"length {PALI_PROMPT}")
+    print(f"[serve] {cfg.name} vision prefill: {Tv} patches x {cfg.d_vision} + "
+          f"{PALI_PROMPT} tokens through prefill_into_slot in {e[0].elapsed_time(e[1]):.3f} ms "
+          f"(flash_attention {got['flash_attention']} launches, prefix_causal window {Tv}), "
+          f"then {PALI_DECODES} serve_step decodes in {e[1].elapsed_time(e[2]):.3f} ms "
+          f"(paged_flash_decode_bf16 {got['paged_flash_decode_bf16']} launches); pos after "
+          f"the prefill {pos}: the text length, as the reference sets it, though "
+          f"{Tv + PALI_PROMPT} lanes were written, so the first decode wrote lane {pos}, "
+          f"inside them; logits finite, first token {int(rows[0].argmax())} [{card}]")
+
+
 def trace_phase(device):
     """After every timed serving run (a profiler trace slows later host
     work): phi4-mini's chunked runs trace a few steady decode steps and its
@@ -2219,7 +2469,8 @@ def trace_phase(device):
     D 256 on its serving path; llama4-scout (cut to
     :data:`LLAMA4_DEPTH` layers) traces steady bf16-KV decode, with K1's
     device ms a launch at g 5 and one MoE layer's decode timed alone
-    (:func:`moe_decode_device`)."""
+    (:func:`moe_decode_device`); paligemma-3b traces steady bf16-KV
+    decode, with K1's device ms a launch at g 8, D 256."""
     import torch
 
     from repro_torch.serving import kv_cache as kvc
@@ -2270,6 +2521,15 @@ def trace_phase(device):
                          f"{cfg.name} bf16/bf16/chunked", top=12)
     per_launch(dev, "paged_flash_decode bf16 (K1, g 5, 2 global layers)", ("dense_kernel",))
     moe_decode_device(sched, sum(e.self_device_time_total for e in dev) / 4e3)
+    del sched, params
+    free_device()
+    cfg, params = init_model(PALI_ARCH, device)
+    layout = kvc.layout_for(cfg, 4, 1024, kv_format="bf16", layout="paged", page_size=16)
+    sched = Scheduler(params, cfg, layout, device=device, chunk_budget=128)
+    dev = profile_decode(sched, trace(1, 4, cfg.vocab_size, 200, 256, 24),
+                         f"{cfg.name} bf16/bf16/chunked", top=12)
+    per_launch(dev, "paged_flash_decode bf16 (K1, g 8, D 256, 18 global layers)",
+               ("dense_kernel",))
     del sched, params
     free_device()
 
@@ -2497,6 +2757,7 @@ REFERENCE_MODELS = (
     ("deepseek-7b", dict(seed=1, n=4, lo=5, hi=30, new=6), "none", 5e-3),
     ("mixtral-8x22b", dict(seed=1, n=4, lo=12, hi=40, new=12), "none", 5e-3),
     ("llama4-scout-17b-a16e", dict(seed=1, n=4, lo=12, hi=40, new=12), "some", 5e-3),
+    ("paligemma-3b", dict(seed=1, n=4, lo=12, hi=40, new=12), "none", 5e-3),
 )
 
 
@@ -2516,7 +2777,7 @@ def reference_phase(device):
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.models import model_zoo
+    from repro_torch.models import model_zoo, transformer
     from repro_torch.serving import kv_cache as kvc
     from repro_torch.serving.scheduler import Scheduler
 
@@ -2562,6 +2823,21 @@ def reference_phase(device):
             if not same or not err <= tol:
                 raise AssertionError(f"{cfg.name} {lay} {fmt}/{wfmt}/{admission}: card and "
                                      f"CPU disagree")
+        if cfg.family == "vlm":  # the forward behind the image prefix
+            gen = torch.Generator().manual_seed(2)
+            toks = torch.randint(0, cfg.vocab_size, (2, 20), generator=gen)
+            vis = torch.randn((2, cfg.vision_tokens, cfg.d_vision), generator=gen)
+            want = transformer.forward(cpu, cfg, toks, vision_embeds=vis)[0]
+            got = transformer.forward(gpu, cfg, toks.to(device),
+                                      vision_embeds=vis.to(device))[0].cpu()
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            print(f"[check] {cfg.name} forward with a {cfg.vision_tokens}-patch prefix "
+                  f"(prefix_causal through flash_attention on the card): max |logit diff| "
+                  f"{err:.3e} = {err / scale:.3e} of max |logit| {scale:.3e} (tolerance 1e-4 "
+                  f"of it)")
+            if not err <= 1e-4 * scale:
+                raise AssertionError(f"{cfg.name}: the prefix forward disagrees card / CPU")
 
 
 def paper_reference_phase(device):
@@ -2632,7 +2908,8 @@ def paper_reference_phase(device):
 # ---------------------------------------------------------------------------
 
 
-PHASES = ("kernels", "head-widths", "score", "score-device", "decode")
+PHASES = ("kernels", "head-widths", "long-context", "prefix", "score", "score-device", "decode",
+          "decode-attends")
 
 
 def main(argv=None) -> int:
@@ -2640,9 +2917,12 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--only", action="append", choices=PHASES,
         help="run only these phases (repeatable), for work on one kernel: 'kernels' is "
-             "phase 3 without K6, 'head-widths' its head-width cases, 'score' K6's checks and "
-             "device times, 'score-device' K6's device times alone, 'decode' K4's checks and "
-             "device times; without it every phase "
+             "phase 3 without K6, 'head-widths' its head-width cases, 'long-context' K1 at "
+             "524,288 and K2 at 32768 lanes, 'prefix' K5's prefix_causal, 'score' K6's checks "
+             "and device times, 'score-device' K6's device times alone, 'decode' K4's checks "
+             "and device times, 'decode-attends' K1's and K2's device times at the decode "
+             "geometry alone (public wrappers only: it runs on an older tree too); without it "
+             "every phase "
              "runs and the records are printed")
     only = parser.parse_args(argv).only
 
@@ -2675,6 +2955,10 @@ def main(argv=None) -> int:
         records += flash_kernel_phase(device, flush)
     if run("head-widths"):
         records += head_width_phase(device, flush)
+    if run("long-context"):
+        records += long_context_phase(device, flush)
+    if run("prefix"):
+        records.append(flash_prefix_phase(device, flush))
     if run("score"):
         records += bgpp_kernel_phase(device, flush)
     if run("kernels"):
@@ -2684,6 +2968,8 @@ def main(argv=None) -> int:
             score_device_phase(device)
         if run("decode"):
             decode_device_phase(device)
+        if run("decode-attends"):
+            decode_attend_times(device)
         torch.cuda.synchronize()
         print(card)
         return 0
@@ -2694,6 +2980,7 @@ def main(argv=None) -> int:
     launches = serve_phase(device, card)
     zoo_serve_phase(device, card)
     moe_serve_phase(device, card)
+    vlm_serve_phase(device, card)
     trace_phase(device)
     flash_device_phase(device)
     bstc_device_phase(device)

@@ -1,8 +1,8 @@
 """Architecture configs (the port's own copy of ``repro.configs``): the ten
 architectures the JAX package registers, under the same names.  The port
-serves the dense ones (phi4-mini, gemma3-1b / 4b, deepseek-7b) and the MoE
-ones (mixtral-8x22b, llama4-scout-17b-a16e); the entry points refuse the
-other families (:func:`base.require_served`)."""
+serves the dense ones (phi4-mini, gemma3-1b / 4b, deepseek-7b), the MoE
+ones (mixtral-8x22b, llama4-scout-17b-a16e) and the VLM paligemma-3b; the
+entry points refuse the other families (:func:`base.require_served`)."""
 
 from repro_torch.configs import shapes  # noqa: F401
 from repro_torch.configs.base import (  # noqa: F401

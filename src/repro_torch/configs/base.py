@@ -8,7 +8,7 @@ knobs and speculative decoding).  The port keeps its own copy (it imports
 nothing of ``repro``).  Each architecture file registers its published
 config plus a reduced ``smoke`` variant used by the CPU tests.
 
-The port serves the ``dense`` and ``moe`` families; every entry point
+The port serves the ``dense``, ``moe`` and ``vlm`` families; every entry point
 refuses another family with :func:`require_served`'s error.
 """
 
@@ -247,15 +247,14 @@ def _param_count(cfg: ModelConfig, active_only: bool) -> int:
 
 
 # families the port serves (a transformer stack: every layer attention, the
-# MoE family with an expert FFN in every layer)
-SERVED_FAMILIES = ("dense", "moe")
+# MoE family with an expert FFN in every layer, the VLM's image prefix)
+SERVED_FAMILIES = ("dense", "moe", "vlm")
 
 # ROADMAP Queue 1 item that ports each family the port does not serve yet
 _FAMILY_ITEM = {
     "ssm": "ROADMAP Queue 1, item 6 (models/mamba2.py)",
     "hybrid": "ROADMAP Queue 1, items 6 (models/hybrid.py) and 7 (sharding)",
     "enc_dec": "ROADMAP Queue 1, item 6 (models/whisper.py)",
-    "vlm": "ROADMAP Queue 1, item 6 (the VLM prefix)",
 }
 
 
@@ -268,7 +267,7 @@ def require_served(cfg, who: str) -> None:
         where = _FAMILY_ITEM.get(cfg.family, "ROADMAP Queue 1, item 6")
         raise ValueError(
             f"{who}: {cfg.name} is of family {cfg.family!r}; the port serves the "
-            f"{' and '.join(SERVED_FAMILIES)} families only ({cfg.family} is {where})")
+            f"{', '.join(SERVED_FAMILIES)} families only ({cfg.family} is {where})")
     if cfg.num_experts > 0 and cfg.moe_every != 1:
         raise ValueError(
             f"{who}: {cfg.name} is of family {cfg.family!r} with moe_every="

@@ -64,14 +64,18 @@ def prefix_causal_mask(s_q: int, s_k: int, prefix: int, offset: int = 0,
 
 def make_mask(kind: str, s_q: int, s_k: int, window: int = 0, offset: int = 0,
               device=None) -> torch.Tensor:
-    """The (s_q, s_k) mask of ``kind``; sliding/chunked with window <= 0
-    are causal."""
-    if kind == "causal" or (kind in ("sliding", "chunked") and window <= 0):
+    """The (s_q, s_k) mask of ``kind``; sliding / chunked / prefix_causal
+    with window <= 0 are causal.  The reference's ``make_mask`` has no
+    prefix_causal (its ``blocked_attend`` builds that mask itself); here
+    it serves the flash kernel's plain version."""
+    if kind == "causal" or (kind in ("sliding", "chunked", "prefix_causal") and window <= 0):
         return causal_mask(s_q, s_k, offset, device)
     if kind == "sliding":
         return sliding_window_mask(s_q, s_k, window, offset, device)
     if kind == "chunked":
         return chunked_mask(s_q, s_k, window, offset, device)
+    if kind == "prefix_causal":
+        return prefix_causal_mask(s_q, s_k, window, offset, device)
     if kind == "full":
         return torch.ones((s_q, s_k), dtype=torch.bool, device=device)
     raise ValueError(f"unknown mask kind {kind!r}")
@@ -117,15 +121,8 @@ def blocked_attend(
 ) -> torch.Tensor:
     """The forward's attention -> ``(B, Sq, Hq, D)`` in ``q.dtype``: the
     ``flash_attention`` kernel on CUDA tensors, its plain version on CPU
-    ones.  ``prefix_causal`` (the VLM family) has no kernel yet: it takes
-    the plain path on the CPU and raises on the card."""
-    if mask_kind == "prefix_causal":
-        if q.device.type != "cpu":
-            raise NotImplementedError(
-                "blocked_attend: prefix_causal has no kernel; the VLM family "
-                "is a later slice of the port")
-        mask = prefix_causal_mask(q.shape[1], k.shape[1], window, q_offset, q.device)
-        return attend(q, k, v, mask=mask, scale=scale)
+    ones, for every mask kind: causal, sliding, chunked, full and the VLM's
+    prefix_causal (``window`` the prefix length)."""
     return _flash.flash_attention(q, k, v, mask_kind=mask_kind, window=window,
                                   q_offset=q_offset, scale=scale)
 

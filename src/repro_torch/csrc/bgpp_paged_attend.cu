@@ -50,9 +50,10 @@
 //     reads where they lie, through distributed shared memory.  Keys are
 //     unique, so the ranks are, and the selection and its order are those
 //     of one sort of every key.  A candidate of rank below the next list's
-//     width is written, with its g partial scores, to the block that owns
-//     that rank, as 16-byte stores; no block ever holds or sorts the keys
-//     of all S lanes;
+//     width is written, with its g partial scores, to the list of the block
+//     that owns that rank, as 16-byte stores (through distributed shared
+//     memory, or to the workspace below); no block ever holds or sorts the
+//     keys of all S lanes;
 //   * each progressive round fetches only its survivors' next plane; the
 //     final k_max survivors are rebuilt to int8 K from their 7 planes +
 //     sign by 8 x 8 bit transposes (four threads a survivor at D 128, one
@@ -68,11 +69,24 @@
 // Shared memory holds the header, the sort keys, a stage for the other
 // blocks' runs and two lists of L entries (the lane and g partials in whole
 // 16-byte words; the rounds alternate between them), the entry's pool row
-// read from the phys map where a round needs it: the context cap is C*L
-// lanes at C = 8
-// with L at most 4096, the sort's 16 keys a thread, and within 227 KB
-// (kernel.py `max_lanes`: S 32768 at g <= 3, D 128).  No reduction uses
-// atomics and every order is fixed: two launches give the same bits.
+// read from the phys map where a round needs it.  Where the two lists do
+// not fit in the block's 227 KB with the rest (S 32768 at g >= 4, or at
+// g 3 with D 256: 96 B an entry at g 8, 786 KB of lists a block), kernel.py
+// `plan` sets them in a global workspace instead, B * Hk * C blocks of two
+// lists each, and the candidates of a selection go to their owner's list
+// there by global stores: the cluster barrier after the selection
+// (barrier.cluster.arrive.release / wait.acquire) orders them before any
+// block reads its new list, as it orders the shared-memory stores, and no
+// block reads a list entry another block writes before that barrier.  The
+// sort keys, the stage, the header and the PV partials stay in shared
+// memory, and so does every order: the workspace path selects and sums
+// what the shared-memory path does.  Only the G = 8 instances carry it (a
+// launch that takes it runs there whatever its g), so the others keep
+// their code.  The context cap is C * L lanes at C = 8 with L at most
+// 4096, the sort's 16 keys a thread: S 32768 at every g <= 8 and D <= 256
+// (kernel.py `max_lanes`); a longer context needs a selection across
+// clusters.  No reduction uses atomics and every order is fixed: two
+// launches give the same bits.
 // The attend follows the engine's A2/A3 sequence: q quantised per row with
 // rintf (half to even, like jnp.round), the (i32 * q_scale) * k_scale *
 // D^-1/2 rescale in that order, v_scale folded into the probabilities (a
@@ -436,16 +450,17 @@ __host__ __device__ constexpr int min_blocks() {
 
 // wide: bit 0, plane rows are the compiled width's whole aligned words;
 // bit 1, V rows start on 8-byte boundaries.  Only the G = 8 instances
-// (one block an SM, registers to spare) carry the narrow loads: a launch
-// that needs them runs there whatever its g, so the other instances keep
-// their registers for the wide path alone.
+// (one block an SM, registers to spare) carry the narrow loads and the
+// workspace lists (ws non-null: (B * Hk * C, 2, L, ES) ints): a launch
+// that needs either runs there whatever its g, so the other instances keep
+// their registers for the wide path with lists in shared memory alone.
 template <int G, int DP>
 __global__ void __launch_bounds__(kThreads, min_blocks<G, DP>()) bgpp_kernel(
     const float* __restrict__ q, const uint8_t* __restrict__ planes,
     const uint8_t* __restrict__ sign, const float* __restrict__ k_scale,
     const int8_t* __restrict__ v, const float* __restrict__ v_scale,
     const int* __restrict__ phys, const int* __restrict__ pos, float* __restrict__ out,
-    int* __restrict__ out_idx, int Hk, int g, int Dt, int S, int query_bits, Plan plan,
+    int* __restrict__ out_idx, int* ws, int Hk, int g, int Dt, int S, int query_bits, Plan plan,
     long long pl_plane, long long pl_tok, long long pl_head, long long v_tok, long long v_head,
     long long sc_tok, long long sc_head, int wide, float scale) {
   using H = Header<DP>;
@@ -453,6 +468,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks<G, DP>()) bgpp_kernel(
   constexpr int UN = DP > 128 ? 2 : kUnroll;     // rows a thread has in flight
   constexpr bool kNarrow = G == 8;
   const bool wide_pl = !kNarrow || (wide & 1), wide_v = !kNarrow || (wide & 2);
+  const bool in_ws = kNarrow && ws != nullptr;  // the lists lie in the workspace
   const int nb = Dt / 8;  // bytes of a packed row
   cg::cluster_group cluster = cg::this_cluster();
   const int C = cluster.num_blocks(), rank = cluster.block_rank();
@@ -468,10 +484,15 @@ __global__ void __launch_bounds__(kThreads, min_blocks<G, DP>()) bgpp_kernel(
   int* caps = widths + kMaxLists;                       // and caps
   u64* keys = reinterpret_cast<u64*>(sm + H::kBytes);  // (max(kThreads, pow2(L)),)
   u64* stage = keys + max(kThreads, next_pow2(L));   // (kStage,) other blocks' keys
-  int* lists = reinterpret_cast<int*>(stage + kStage);
+  int* const after_stage = reinterpret_cast<int*>(stage + kStage);
   const int ES = (1 + g + 3) / 4 * 4;  // ints an entry
+  // block c's two lists: after the stage, or its blocks of the workspace
+  const auto lists_of = [&](int c) {
+    return in_ws ? ws + (long long)(blockIdx.x - rank + c) * 2 * L * ES : after_stage;
+  };
+  int* lists = lists_of(rank);
   const auto list_at = [&](int r) { return List{lists + (r & 1) * L * ES, ES}; };
-  int* pv = lists + 2 * L * ES;  // (kWarps, g, DP)
+  int* pv = in_ws ? after_stage : lists + 2 * L * ES;  // (kWarps, g, DP)
   if (tid < kMaxLists) {
     widths[tid] = plan.width[tid];
     caps[tid] = plan.cap[tid];
@@ -631,7 +652,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks<G, DP>()) bgpp_kernel(
     const auto run_of = [&](int c) -> const u64* {
       return staged ? stage + 2 * pairs[c] : cluster.map_shared_rank(keys, c);
     };
-    int* nxt_base = list_at(r + 1).base;
+    const int nxt_off = ((r + 1) & 1) * L * ES;  // the next list in a block's pair
     const int places = few ? 1 : next_pow2(n) / kThreads;
 #pragma unroll 1
     for (int e = 0; e < places; ++e) {
@@ -665,7 +686,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks<G, DP>()) bgpp_kernel(
       const int li = (int)(unsigned)(key & 0xffffffffu) - base;
       const int owner = at / capn, slot = at - owner * capn;
       const int4* src = reinterpret_cast<const int4*>(cur.at(li));
-      int4* dst = reinterpret_cast<int4*>(cluster.map_shared_rank(nxt_base, owner) + slot * ES);
+      int* const nxt_owner = in_ws ? lists_of(owner) + nxt_off
+                                   : cluster.map_shared_rank(lists + nxt_off, owner);
+      int4* dst = reinterpret_cast<int4*>(nxt_owner + slot * ES);
       for (int k = 0; k < ES / 4; ++k) dst[k] = src[k];
       if (final_sel && out_idx) out_idx[(long long)cell * K + at] = cur.at(li)[0];
     }
@@ -921,7 +944,7 @@ int launch_clusters(int blocks, int C, int smem, cudaStream_t st, Args... args) 
 
 struct Args {
   const void *q, *planes, *sign, *k_scale, *v, *v_scale, *phys, *pos;
-  void *out, *out_idx;
+  void *out, *out_idx, *ws;
   int B, Hk, g, Dt, S, query_bits, C, smem;
   Plan plan;
   long long pl_plane, pl_tok, pl_head, v_tok, v_head, sc_tok, sc_head;
@@ -936,7 +959,7 @@ int run(const Args& a) {
       a.B * a.Hk * a.C, a.C, a.smem, a.st, (const float*)a.q, (const uint8_t*)a.planes,
       (const uint8_t*)a.sign, (const float*)a.k_scale, (const int8_t*)a.v,
       (const float*)a.v_scale, (const int*)a.phys, (const int*)a.pos, (float*)a.out,
-      (int*)a.out_idx, a.Hk, a.g, a.Dt, a.S, a.query_bits, a.plan, a.pl_plane, a.pl_tok,
+      (int*)a.out_idx, (int*)a.ws, a.Hk, a.g, a.Dt, a.S, a.query_bits, a.plan, a.pl_plane, a.pl_tok,
       a.pl_head, a.v_tok, a.v_head, a.sc_tok, a.sc_head, a.wide, a.scale);
 }
 
@@ -963,11 +986,14 @@ extern "C" {
 // (ranks a block owns in each of those lists) are host arrays from
 // kernel.py `plan`; C blocks a cluster, smem bytes a block.  Dt is the true
 // head width (a multiple of 8), DP the compiled one it runs at; `wide` as
-// the kernel's.  `out_idx` may be null (else (B, Hk, k_max) int32).
+// the kernel's.  `out_idx` may be null (else (B, Hk, k_max) int32).  `ws`
+// is null when the lists fit in shared memory (smem counts them), else the
+// (B * Hk * C, 2, L, ES) int32 workspace that holds them (smem does not).
 // Returns the launch's cudaError_t.
 int bgpp_paged_attend_launch(const void* q, const void* planes, const void* sign,
                              const void* k_scale, const void* v, const void* v_scale,
-                             const void* phys, const void* pos, void* out, void* out_idx, int B,
+                             const void* phys, const void* pos, void* out, void* out_idx,
+                             void* ws, int B,
                              int Hk, int g, int Dt, int DP, int S, int nbits, int rounds,
                              const void* widths, const void* caps, int C, int smem,
                              int query_bits, long long pl_plane, long long pl_tok,
@@ -977,7 +1003,7 @@ int bgpp_paged_attend_launch(const void* q, const void* planes, const void* sign
   if (rounds < 1 || rounds >= kMaxLists || g < 1 || g > kMaxG || nbits != kNbits ||
       C < 1 || C > kMaxCluster || Dt < 8 || Dt % 8 || Dt > DP || (wide & 1 && Dt != DP))
     return (int)cudaErrorInvalidValue;
-  Args a{q, planes, sign, k_scale, v, v_scale, phys, pos, out, out_idx, B, Hk, g, Dt, S,
+  Args a{q, planes, sign, k_scale, v, v_scale, phys, pos, out, out_idx, ws, B, Hk, g, Dt, S,
          query_bits, C, smem, {}, pl_plane, pl_tok, pl_head, v_tok, v_head, sc_tok, sc_head,
          wide, scale, (cudaStream_t)stream};
   a.plan.rounds = rounds;
@@ -987,8 +1013,9 @@ int bgpp_paged_attend_launch(const void* q, const void* planes, const void* sign
     a.plan.cap[r] = r <= rounds ? static_cast<const int*>(caps)[r] : 0;
   }
   if (a.plan.cap[0] > kMaxSlots * kThreads) return (int)cudaErrorInvalidValue;
-  // narrow loads (padded D, unaligned rows) run in the G = 8 instances
-  const int G = wide != 3 ? 8 : g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : 8;
+  // narrow loads (padded D, unaligned rows) and workspace lists run in the
+  // G = 8 instances
+  const int G = wide != 3 || ws ? 8 : g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : 8;
   switch (G) {
     case 1: return by_d<1>(DP, a);
     case 2: return by_d<2>(DP, a);

@@ -3,7 +3,10 @@
 // Replaces: src/repro/kernels/flash_attention/kernel.py,
 //   flash_attention_pallas (body _kernel): causal / sliding / chunked / full
 //   masks, GQA (query head h reads kv head h / g), fully masked key tiles
-//   skipped by the same index-range predicate.
+//   skipped by the same index-range predicate; and the VLM's prefix_causal
+//   mask, which the reference runs in its jnp blocked_attend
+//   (src/repro/core/attention.py): full attention inside the first w
+//   positions (the image prefix), causal after.
 //
 // What bounds it on the H100.  At the eager admission's longest prompt
 // (B 1, S 450, Hq 24, Hk 8, D 128, causal, bf16) it must read q, k and v
@@ -105,9 +108,15 @@
 // operands that plus one bf16 step (the spacing of bf16 values at |ref|),
 // since two f32 results that close can round to neighbouring bf16 values.
 //
+// prefix_causal: a row's visible keys are still one interval from key 0,
+// [0, qi] past the prefix and [0, max(qi, w - 1)] inside it, so a query
+// tile inside the prefix walks past its diagonal up to key w - 1: the live
+// run, the per-row upper bound hi and the whole-tile test all take the
+// prefix's reach (w <= 0 arrives as causal; w >= Sk is full attention).
+//
 // Left for later: wgmma with a TMA producer warp (mma.sync reaches part of
 // the tensor cores' rate, and a producer warp takes the copies off the
-// compute warps); a prefix_causal mask kind for the VLM family.
+// compute warps).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -118,7 +127,7 @@ namespace {
 constexpr float kNegInf = -1e30f;  // repro.core.attention.NEG_INF
 constexpr int kBK = 64;            // keys a tile (both bodies)
 
-enum MaskKind { kFull = 0, kCausal = 1, kSliding = 2, kChunked = 3 };
+enum MaskKind { kFull = 0, kCausal = 1, kSliding = 2, kChunked = 3, kPrefix = 4 };
 
 struct Args {
   const void* q;
@@ -139,16 +148,18 @@ __device__ __forceinline__ bool visible(int mask, int w, int qi, int kj) {
   const bool causal = kj <= qi;
   if (mask == kCausal) return causal;
   if (mask == kSliding) return causal && qi - kj < w;
+  if (mask == kPrefix) return causal || (qi < w && kj < w);
   return causal && qi / w == kj / w;
 }
 
 // Does the tile of query positions [q_lo, q_hi] x keys [k_lo, k_hi] hold a
 // visible pair?  The union of the rows' visible key ranges is one interval
-// ([q_lo - w + 1, q_hi] sliding, [q_lo / w * w, q_hi] chunked), so the
-// test is exact.
+// ([q_lo - w + 1, q_hi] sliding, [q_lo / w * w, q_hi] chunked, [0,
+// max(q_hi, w - 1)] prefix_causal when q_lo < w), so the test is exact.
 __device__ __forceinline__ bool tile_live(int mask, int w, int q_lo, int q_hi, int k_lo,
                                           int k_hi) {
   if (mask == kFull) return true;
+  if (mask == kPrefix) return k_lo <= q_hi || (k_lo < w && q_lo < w);
   if (k_lo > q_hi) return false;
   if (mask == kCausal) return true;
   if (mask == kSliding) return k_hi >= q_lo - w + 1;
@@ -159,6 +170,7 @@ __device__ __forceinline__ bool tile_live(int mask, int w, int q_lo, int q_hi, i
 __device__ __forceinline__ bool tile_whole(int mask, int w, int q_lo, int q_hi, int k_lo,
                                            int k_hi) {
   if (mask == kFull) return true;
+  if (mask == kPrefix) return k_hi <= q_lo || (q_lo < w && k_hi < w);
   if (k_hi > q_lo) return false;
   if (mask == kCausal) return true;
   if (mask == kSliding) return q_hi - k_lo < w;
@@ -513,7 +525,8 @@ __global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<D>()) flash_mma_ke
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int qi = wq_lo + (lane >> 2) + 8 * i;
-    hi[i] = a.mask == kFull ? a.Sk - 1 : min(qi, a.Sk - 1);
+    const int reach = a.mask == kPrefix && qi < a.window ? a.window - 1 : qi;  // past the diagonal
+    hi[i] = a.mask == kFull ? a.Sk - 1 : min(reach, a.Sk - 1);
     lo[i] = a.mask == kSliding ? qi - a.window + 1 : a.mask == kChunked ? qi / a.window * a.window : 0;
   }
   const float c2 = a.scale * kLog2e;  // exp(x * scale) = exp2(x * c2)
@@ -781,7 +794,8 @@ int launch_d(const Args& a, int B, int dtype, int bq, int smem, cudaStream_t st)
 
 extern "C" {
 
-// dtype: 0 = f32, 1 = bf16; mask: 0 full, 1 causal, 2 sliding, 3 chunked.
+// dtype: 0 = f32, 1 = bf16; mask: 0 full, 1 causal, 2 sliding, 3 chunked,
+// 4 prefix_causal (window = the prefix length).
 // D is the true head width, DP the compiled width it runs at (16, 32, 64,
 // 128 or 256).  Strides are in elements; D must be unit stride; wide: every
 // bf16 row starts on a 16-byte boundary (else rows are staged element by
@@ -795,7 +809,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* ou
                            long long ksh, long long vsb, long long vss, long long vsh,
                            int dtype, int mask, int window, int q_offset, float scale,
                            int bq, int smem, void* stream) {
-  if (((mask == kSliding || mask == kChunked) && window <= 0) || D < 1 || D > DP)
+  if (((mask == kSliding || mask == kChunked || mask == kPrefix) && window <= 0) || mask < kFull ||
+      mask > kPrefix || D < 1 || D > DP)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;

@@ -5,7 +5,8 @@ The tests build the JAX reference and the port from the SAME parameters:
 :func:`params_from_numpy` here.  The JAX layout is kept as it is — ``(in,
 out)`` projection weights, stacked ``(L, ...)`` layer leaves, an MoE
 layer's ``moe`` subtree (``router``, the ``(L, E, ...)`` ``gate`` / ``up`` /
-``down`` banks, ``shared/*``) — so the two sides compare like with like.
+``down`` banks, ``shared/*``), a VLM's ``(d_vision, d_model)``
+``vision_proj`` — so the two sides compare like with like.
 bf16 leaves arrive as numpy arrays whose ``dtype.name == "bfloat16"``;
 they are reinterpreted through ``uint16`` bits, so no ``ml_dtypes`` import
 is needed.
@@ -43,7 +44,8 @@ def serve_params_from_numpy(tree: Any, cfg, fmt: str, device="cuda") -> Any:
     and the bstc format (its bstc path serves the same records).  They
     cross as they are for ``"int8"``; for ``"bstc"`` each is coded into
     the port's ``{"bstc": operands, "scale"}`` record, as the port's own
-    ``prepare_serve_params`` codes its int8 values."""
+    ``prepare_serve_params`` codes its int8 values.  Raw leaves (norms, the
+    MoE experts, a VLM's ``vision_proj``) cross as tensors."""
     from repro_torch.serving import weights
 
     def conv(node):

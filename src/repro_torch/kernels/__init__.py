@@ -24,7 +24,8 @@ Kernels:
   bstc_decode     — BSTC plane decode: indicator bitmap + pattern stream ->
                     (G, H) group patterns (the serve-params round-trip check)
   flash_attention — tiled online-softmax GQA attention (causal, sliding,
-                    chunked, full masks): the attention of every layer of
+                    chunked, full and the VLM's prefix_causal masks): the
+                    attention of every layer of
                     the whole-sequence forward (eager admission,
                     whole-batch prefill)
   bgpp_score      — one BGPP round: the masked bit-plane score of every key

@@ -15,10 +15,13 @@ plan; :func:`header_bytes`), the sort keys of the block's largest list (a
 power of two, at least one a thread), a stage for the other blocks' sorted
 keys, two lists of ``L`` entries (lane and ``g`` partial scores in whole
 16-byte words; the rounds alternate between them) and the warps' ``(g,
-DP)`` PV partials at the compiled width.  The context cap
-(:func:`max_lanes`) is ``MAX_CLUSTER * L`` for the largest ``L`` that fits
-both that and the block sort's ``MAX_SLOTS`` keys a thread: S 32768 at g
-<= 3 and D 128, and at g <= 2 and D 256.
+DP)`` PV partials at the compiled width.  Where the two lists do not fit
+beside the rest even at ``MAX_CLUSTER`` blocks, the plan puts them in a
+global workspace (:func:`workspace_ints`; ``Plan.workspace``), which the
+wrapper allocates on q's device.  The context cap (:func:`max_lanes`) is
+then the block sort's alone: ``MAX_CLUSTER * MAX_LIST`` = 32768 lanes at
+every g <= 8 and D <= 256, the reference's decode_32k context.  Past it a
+selection would have to span clusters.
 """
 
 from __future__ import annotations
@@ -43,13 +46,15 @@ HEAD_DIMS = (16, 32, 64, 128, 256)  # the source's compiled widths DP
 class Plan(NamedTuple):
     """One launch's geometry: ``C`` blocks a (slot, kv-head) cluster, ``L``
     round-0 lanes a block, ``caps[r]`` ranks a block owns in the list of
-    round ``r`` (``r = rounds``: the final ``k_max`` survivors) and
-    ``smem`` bytes of shared memory a block."""
+    round ``r`` (``r = rounds``: the final ``k_max`` survivors), ``smem``
+    bytes of shared memory a block and whether the lists lie in a global
+    workspace (``workspace``) instead of shared memory."""
 
     C: int
     L: int
     caps: Tuple[int, ...]
     smem: int
+    workspace: bool = False
 
 
 def _pow2(n: int) -> int:
@@ -80,23 +85,34 @@ def entry_ints(g: int) -> int:
     return -(-(1 + g) // 4) * 4
 
 
-def smem_bytes(g: int, D: int, L: int) -> int:
+def smem_bytes(g: int, D: int, L: int, workspace: bool = False) -> int:
     """Dynamic shared memory of one block owning ``L`` round-0 lanes: the
     header, ``max(THREADS, pow2(L))`` 8-byte sort keys and ``STAGE`` staged
-    ones, two lists of ``L`` entries of :func:`entry_ints` ints and the
-    warps' ``(g, DP)`` int PV partials at the compiled width."""
+    ones, two lists of ``L`` entries of :func:`entry_ints` ints (not with
+    ``workspace``: they lie in global memory) and the warps' ``(g, DP)``
+    int PV partials at the compiled width."""
+    lists = 0 if workspace else 2 * 4 * entry_ints(g) * L
     return (header_bytes(D) + 8 * (max(THREADS, _pow2(L)) + STAGE)
-            + 2 * 4 * entry_ints(g) * L + 4 * WARPS * g * padded_dim(D))
+            + lists + 4 * WARPS * g * padded_dim(D))
 
 
 def max_lanes(g: int, D: int) -> int:
     """The most lanes a slot may have at group ``g`` and head dim ``D``:
-    ``MAX_CLUSTER`` blocks, each with the most lanes that both the block
-    sort (``MAX_LIST``) and shared memory take."""
+    ``MAX_CLUSTER`` blocks, each with the most lanes the block sort takes
+    (``MAX_LIST``) and, beside its lists in the workspace, shared memory
+    takes: 32768 at every g <= 8 and D <= 256."""
     L = MAX_LIST
-    while L > 0 and smem_bytes(g, D, L) > build.MAX_SMEM:
+    while L > 0 and smem_bytes(g, D, L, workspace=True) > build.MAX_SMEM:
         L -= 1
     return MAX_CLUSTER * L
+
+
+def workspace_ints(B: int, Hk: int, g: int, p: Plan) -> int:
+    """Ints of the global workspace a launch of plan ``p`` needs: two
+    lists of ``L`` entries for each of its ``B * Hk * C`` blocks (64 MiB at
+    llama4-scout's B 4, Hk 8, g 5 over 32768 lanes), or 0 when the lists
+    fit in shared memory."""
+    return B * Hk * p.C * 2 * p.L * entry_ints(g) if p.workspace else 0
 
 
 def list_widths(S: int, k_max: int, survivors: Tuple[int, ...]) -> Tuple[int, ...]:
@@ -114,18 +130,24 @@ def plan(B: int, Hk: int, g: int, D: int, S: int, k_max: int,
     at most one lane a block) whose ``B * Hk * C`` blocks still fit one
     block an SM, so the cells fill the card in one wave (decode geometry
     B 4, Hk 8 on 132 SMs: C 4, 128 blocks); it is then doubled until one
-    block's lanes fit the sort and shared memory.  ``D`` is the true head
-    width; shared memory is that of its compiled width.  Raises when no
-    ``C`` fits, with the cap."""
+    block's lanes fit the sort and shared memory.  Where at ``MAX_CLUSTER``
+    they fit the sort but their lists do not fit shared memory, the lists
+    go to the workspace (``workspace``: S 32768 at g >= 4, or at g 3 and
+    D 256).  ``D`` is the true head width; shared memory is that of its
+    compiled width.  Raises when no ``C`` fits, with the cap."""
     C = 1
     while C < MAX_CLUSTER and 2 * C <= S and B * Hk * 2 * C <= sms:
         C *= 2
     while True:
         L = -(-S // C)
         smem = smem_bytes(g, D, L)
+        caps = tuple(-(-w // C) for w in list_widths(S, k_max, survivors))
         if L <= MAX_LIST and smem <= build.MAX_SMEM:
-            caps = tuple(-(-w // C) for w in list_widths(S, k_max, survivors))
             return Plan(C, L, caps, smem)
+        if C == MAX_CLUSTER and L <= MAX_LIST:
+            ws_smem = smem_bytes(g, D, L, workspace=True)
+            if ws_smem <= build.MAX_SMEM:
+                return Plan(C, L, caps, ws_smem, workspace=True)
         if C == MAX_CLUSTER:
             raise ValueError(
                 f"bgpp_paged_attend: S={S} lanes need {L} lanes and {smem} B of "
@@ -151,13 +173,14 @@ def wide_rows(k_planes: torch.Tensor, k_sign: torch.Tensor, v: torch.Tensor) -> 
 
 
 def launch(q, k_planes, k_sign, k_scale, v, v_scale, phys, pos, out,
-           out_idx, *, k_max: int, survivors: Tuple[int, ...], query_bits: int,
+           out_idx, ws, *, k_max: int, survivors: Tuple[int, ...], query_bits: int,
            geometry: Plan) -> None:
-    """Enqueue one launch on the current stream; raise if it was refused."""
+    """Enqueue one launch on the current stream; raise if it was refused.
+    ``ws`` is the plan's workspace (:func:`workspace_ints` int32), or None."""
     lib = build.load()
     B, Hk, g, D = q.shape
     S = phys.shape[1]
-    C, _, caps, smem = geometry
+    C, _, caps, smem, _ = geometry
     widths = list_widths(S, k_max, survivors)
     # host arrays, alive past the call
     w_arr = (ctypes.c_int * len(widths))(*widths)
@@ -166,7 +189,7 @@ def launch(q, k_planes, k_sign, k_scale, v, v_scale, phys, pos, out,
         q.data_ptr(), k_planes.data_ptr(), k_sign.data_ptr(), k_scale.data_ptr(),
         v.data_ptr(), v_scale.data_ptr(), phys.data_ptr(), pos.data_ptr(),
         out.data_ptr(), None if out_idx is None else out_idx.data_ptr(),
-        B, Hk, g, D, padded_dim(D), S, k_planes.shape[0], len(survivors), w_arr, c_arr, C,
+        None if ws is None else ws.data_ptr(), B, Hk, g, D, padded_dim(D), S, k_planes.shape[0], len(survivors), w_arr, c_arr, C,
         smem, query_bits, k_planes.stride(0), k_planes.stride(1), k_planes.stride(2),
         v.stride(0), v.stride(1), k_scale.stride(0), k_scale.stride(1),
         wide_rows(k_planes, k_sign, v), D ** -0.5,

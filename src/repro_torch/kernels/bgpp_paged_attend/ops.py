@@ -150,7 +150,11 @@ def bgpp_paged_attend(
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     idx = (torch.empty((B, Hk, k_max), dtype=torch.int32, device=q.device)
            if return_indices else None)
-    kernel.launch(q, k_planes, k_sign, k_scale, v, v_scale, phys, pos, out, idx,
+    # the lists' workspace where they do not fit in shared memory (never read
+    # before the kernel writes it)
+    ws = (torch.empty(kernel.workspace_ints(B, Hk, q.shape[2], geometry), dtype=torch.int32,
+                      device=q.device) if geometry.workspace else None)
+    kernel.launch(q, k_planes, k_sign, k_scale, v, v_scale, phys, pos, out, idx, ws,
                   k_max=k_max, survivors=survivors, query_bits=DEFAULT_QUERY_BITS,
                   geometry=geometry)
     LAUNCHES["bgpp_paged_attend"] += 1

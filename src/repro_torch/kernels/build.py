@@ -125,8 +125,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         *pfd_shape,
         L, L, L, L, I, F, P,  # kv strides, scale strides, wide rows, scale, stream
     ]
+    lib.paged_flash_decode_pass_launch.argtypes = [
+        P, P, P, P, P, P, P, P,  # q, k, v, k_scale, v_scale, page_ids, pos, out (scales: null)
+        I, I, I, I, I, I,  # B, Hk, g, D, compiled width, pages_per_slot
+        I, U, U,  # page size and its divider (magic, shift)
+        I, I, I, I,  # plan: blocks a cluster, lanes a block, lanes a pass, shared memory
+        L, L, L, L, I, I, F, P,  # kv / scale strides, wide rows, body, scale, stream
+    ]
     lib.bgpp_paged_attend_launch.argtypes = [
         P, P, P, P, P, P, P, P, P, P,  # q, planes, sign, ks, v, vs, phys, pos, out, out_idx
+        P,  # the lists' workspace (null: in shared memory)
         I, I, I, I, I, I,  # B, Hk, g, D, compiled width, S
         I, I, P, P,  # nbits, rounds, list widths and caps (host int arrays)
         I, I, I,  # plan: blocks a cluster, shared memory bytes; query_bits
@@ -165,6 +173,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     for fn in (lib.paged_flash_decode_dense_launch,
                lib.paged_flash_decode_int8_launch,
+               lib.paged_flash_decode_pass_launch,
                lib.bgpp_paged_attend_launch,
                lib.bstc_decode_launch,
                lib.bstc_matmul_launch,

@@ -22,7 +22,7 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
-MASK_CODES = {"full": 0, "causal": 1, "sliding": 2, "chunked": 3}
+MASK_CODES = {"full": 0, "causal": 1, "sliding": 2, "chunked": 3, "prefix_causal": 4}
 TILE_K = 64  # kBK: keys a tile, both bodies
 F32_BQ = 64  # kBQ: the f32 body's query rows a block
 MMA_BQ = 32  # kMmaBQ: the bf16 body's query rows a block

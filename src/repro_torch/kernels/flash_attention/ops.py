@@ -80,10 +80,12 @@ def flash_attention(
 
     Query row ``i`` sits at position ``i + q_offset``; key ``j`` at ``j``.
     ``mask_kind`` is causal, sliding (window ``window``), chunked (chunk
-    ``window``) or full; sliding and chunked with ``window <= 0`` are
-    causal, as ``make_mask`` has it."""
+    ``window``), prefix_causal (the VLM's: full attention inside the first
+    ``window`` positions, causal after) or full; sliding, chunked and
+    prefix_causal with ``window <= 0`` are causal, as ``make_mask`` has
+    it."""
     _validate(q, k, v, mask_kind, q_offset)
-    if mask_kind in ("sliding", "chunked") and window <= 0:
+    if mask_kind in ("sliding", "chunked", "prefix_causal") and window <= 0:
         mask_kind, window = "causal", 0
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu":

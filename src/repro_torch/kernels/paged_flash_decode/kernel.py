@@ -2,10 +2,13 @@
 (``src/repro_torch/csrc/paged_flash_decode.cu``) through ``ctypes``.
 
 Two ``__global__`` bodies: the dense one (bf16 or f32 K/V) and the int8
-A2/A3 one.  Callers pass validated CUDA tensors; :mod:`.ops` is the public
-wrapper.  Grid: one thread-block cluster of ``C`` 256-thread blocks per
-(slot, kv-head) cell; :func:`plan` chooses ``C`` and each block's lanes
-from static shapes, once per shape.
+A2/A3 one; and their pass versions (``csrc/paged_flash_decode_long.cu``)
+for slots longer than one block's shared memory holds at ``MAX_CLUSTER``
+blocks, where a block walks its lanes in passes.  Callers pass validated
+CUDA tensors; :mod:`.ops` is the public wrapper.  Grid: one thread-block
+cluster of ``C`` 256-thread blocks per (slot, kv-head) cell; :func:`plan`
+chooses ``C``, each block's lanes and the passes from static shapes, once
+per shape.
 """
 
 from __future__ import annotations
@@ -28,13 +31,21 @@ HEAD_DIMS = (16, 32, 64, 128, 256)  # the source's compiled widths DP
 _SMS: Dict[int, int] = {}
 
 
+# an int8 block's PV sums stay in int32: its lanes times 127 * 127 below 2^31
+INT8_BLOCK_LANES = (2 ** 31 - 1) // (127 * 127)
+
+
 class Plan(NamedTuple):
     """One launch's geometry: ``C`` blocks a (slot, kv-head) cluster, each
-    owning ``L`` lanes (whole pages) and ``smem`` bytes of shared memory."""
+    owning ``L`` lanes (whole pages) and ``smem`` bytes of shared memory;
+    with ``pass_lanes`` > 0 the pass bodies run, each block walking its
+    lanes in ``passes`` passes of ``pass_lanes`` lanes (whole pages)."""
 
     C: int
     L: int
     smem: int
+    passes: int = 1
+    pass_lanes: int = 0
 
 
 def padded_dim(D: int) -> int:
@@ -68,17 +79,35 @@ def smem_bytes(g: int, D: int, lanes: int, page_size: int) -> int:
     return 4 * (HEADER + WARPS * g * padded_dim(D) + g * lanes + lanes // page_size)
 
 
-def max_lanes(g: int, D: int, page_size: int) -> int:
-    """The most lanes a slot may have: ``MAX_CLUSTER`` blocks, each with as
-    many whole pages as its shared memory holds."""
-    pages = ((build.MAX_SMEM // 4 - HEADER - WARPS * g * padded_dim(D))
-             // (g * page_size + 1))
-    return MAX_CLUSTER * max(0, pages) * page_size
+def pass_pages(g: int, D: int, page_size: int) -> int:
+    """Whole pages whose ``(g, lanes)`` scores and page bases one block's
+    shared memory holds beside the header and the PV partials."""
+    return max(0, (build.MAX_SMEM // 4 - HEADER - WARPS * g * padded_dim(D))
+               // (g * page_size + 1))
+
+
+def single_pass_lanes(g: int, D: int, page_size: int) -> int:
+    """The most lanes the single-pass bodies take: ``MAX_CLUSTER`` blocks,
+    each with as many whole pages as its shared memory holds (83,456 at
+    g 5, D 128, page 16; 208,896 at g 2, D 256)."""
+    return MAX_CLUSTER * pass_pages(g, D, page_size) * page_size
+
+
+def max_lanes(g: int, D: int, page_size: int, int8: bool = False) -> int:
+    """The most lanes a slot may have, passes included: lane indices stay
+    below 2^31 (whole pages), and an int8 block's lanes below
+    :data:`INT8_BLOCK_LANES` (``MAX_CLUSTER`` blocks: 1,065,088 at page
+    16).  0 where one page does not fit a block's shared memory."""
+    if pass_pages(g, D, page_size) == 0:
+        return 0
+    if int8:
+        return MAX_CLUSTER * (INT8_BLOCK_LANES // page_size) * page_size
+    return (2 ** 31 - 1) // page_size * page_size
 
 
 @functools.lru_cache(maxsize=None)
 def plan(B: int, Hk: int, g: int, D: int, pages_per_slot: int, page_size: int,
-         sms: int) -> Plan:
+         sms: int, int8: bool = False) -> Plan:
     """Cluster size and lanes per block for one shape.
 
     ``C`` starts as the largest power of two (at most ``MAX_CLUSTER``, and
@@ -87,24 +116,38 @@ def plan(B: int, Hk: int, g: int, D: int, pages_per_slot: int, page_size: int,
     B 4, Hk 8 on 132 SMs: C 4, 128 blocks); it is then doubled until one
     block's lanes fit in shared memory.  Block ``c`` owns the lanes
     ``[c * L, (c + 1) * L)``, whole pages of any size.  ``D`` is the true
-    head width; shared memory is that of its compiled width.  Raises when
-    no ``C`` fits, with the cap."""
+    head width; shared memory is that of its compiled width.
+
+    Where no ``C`` fits the single-pass bodies (past
+    :func:`single_pass_lanes`), or where an ``int8`` slot's PV sums could
+    pass int32 over the cluster (``S * 127^2 >= 2^31``), the pass bodies
+    run at the largest ``C``: a block's lanes in the fewest passes of whole
+    pages that shared memory holds, split evenly (gemma3-4b's g 2, D 256 at
+    524,288 lanes, page 16: C 8, 65,536 lanes a block in 3 passes of
+    21,856).  Raises past :func:`max_lanes`, with the cap."""
     C = 1
     while C < MAX_CLUSTER and 2 * C <= pages_per_slot and B * Hk * 2 * C <= sms:
         C *= 2
+    S = pages_per_slot * page_size
+    wide_sum = int8 and S * 127 * 127 >= 2 ** 31  # one int32 sum over the cluster overflows
     while True:
         L = -(-pages_per_slot // C) * page_size
         smem = smem_bytes(g, D, L, page_size)
-        if smem <= build.MAX_SMEM:
+        if smem <= build.MAX_SMEM and not wide_sum:
             return Plan(C, L, smem)
         if C == MAX_CLUSTER or 2 * C > pages_per_slot:
-            raise ValueError(
-                f"paged_flash_decode: S={pages_per_slot * page_size} lanes need "
-                f"{smem} B of shared memory in each of {C} blocks, over the "
-                f"block's {build.MAX_SMEM}; the cap at g={g}, D={D}, "
-                f"page_size={page_size} is {max_lanes(g, D, page_size)} lanes"
-            )
+            break
         C *= 2
+    cap = max_lanes(g, D, page_size, int8)
+    if S > cap or (int8 and L > INT8_BLOCK_LANES):
+        raise ValueError(
+            f"paged_flash_decode: S={S} lanes are over the cap at g={g}, D={D}, "
+            f"page_size={page_size}{', int8' if int8 else ''}: {cap} lanes"
+        )
+    block_pages = L // page_size
+    passes = -(-block_pages // pass_pages(g, D, page_size))
+    PL = -(-block_pages // passes) * page_size
+    return Plan(C, L, smem_bytes(g, D, PL, page_size), passes, PL)
 
 
 def sm_count(device: torch.device) -> int:
@@ -130,13 +173,26 @@ def launch(q, k, v, page_ids, pos, out, page_size: int, geometry: Plan,
     lib = build.load()
     B, Hk, g, D = q.shape
     pp = page_ids.shape[1]
-    C, L, smem = geometry
+    C, L, smem, _, PL = geometry
     magic, shift = page_divider(page_size)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     tok_stride, head_stride = k.stride(0), k.stride(1)
     scale = D ** -0.5
-    shape = (B, Hk, g, D, padded_dim(D), pp, page_size, magic, shift, C, L, smem)
     wide = int(wide_rows(k, v))
+    if PL:  # the pass bodies
+        body = 2 if k_scale is not None else _KV_DTYPE[k.dtype]
+        sc_strides = (k_scale.stride(0), k_scale.stride(1)) if k_scale is not None else (0, 0)
+        err = lib.paged_flash_decode_pass_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if k_scale is None else k_scale.data_ptr(),
+            None if v_scale is None else v_scale.data_ptr(), page_ids.data_ptr(),
+            pos.data_ptr(), out.data_ptr(), B, Hk, g, D, padded_dim(D), pp, page_size,
+            magic, shift, C, L, PL, smem, tok_stride, head_stride, *sc_strides, wide, body,
+            scale, stream,
+        )
+        build.check(err, "paged_flash_decode (passes)")
+        return
+    shape = (B, Hk, g, D, padded_dim(D), pp, page_size, magic, shift, C, L, smem)
     if k_scale is None:
         err = lib.paged_flash_decode_dense_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), page_ids.data_ptr(),

@@ -70,8 +70,10 @@ def _validate_cuda(q, k, v, page_ids, pos, page_size, k_scale, v_scale) -> kerne
     """What the CUDA kernel additionally requires of its operands; returns
     the launch's :func:`kernel.plan`.  Every D up to 256 runs (at its
     compiled width, :func:`kernel.padded_dim`), every page size >= 1, and
-    pool rows at any alignment (16-byte loads where they allow); the
-    refusals are g > 8, D > 256 and the context cap."""
+    pool rows at any alignment (16-byte loads where they allow), past one
+    block's shared memory in passes; the refusals are g > 8, D > 256 and
+    the context cap (:func:`kernel.max_lanes`: lanes below 2^31, int8
+    1,065,088 at page 16, where a block's int32 PV sums would overflow)."""
     B, Hk, g, D = q.shape
     if q.dtype != torch.float32 or not q.is_contiguous():
         raise ValueError("paged_flash_decode: q must be contiguous float32")
@@ -90,14 +92,8 @@ def _validate_cuda(q, k, v, page_ids, pos, page_size, k_scale, v_scale) -> kerne
     for name, t in (("page_ids", page_ids), ("pos", pos)):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"paged_flash_decode: {name} must be contiguous int32")
-    S = page_ids.shape[1] * page_size
-    if k_scale is not None and S * 127 * 127 >= 2 ** 31:
-        raise ValueError(
-            f"paged_flash_decode: S={S} int8 lanes could overflow the int32 PV "
-            f"sum (S * 127^2 must stay below 2^31)"
-        )
     return kernel.plan(B, Hk, g, D, page_ids.shape[1], page_size,
-                       kernel.sm_count(q.device))
+                       kernel.sm_count(q.device), int8=k_scale is not None)
 
 
 def paged_flash_decode(

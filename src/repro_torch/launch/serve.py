@@ -17,8 +17,12 @@ architecture; the dense ones serve (phi4-mini, gemma3-1b / 4b with their
 sliding-window rings, deepseek-7b with its untied head), and so do the MoE
 ones (mixtral-8x22b: 8 experts top-2, every layer a sliding-window ring;
 llama4-scout-17b-a16e: 16 experts top-1 and a shared expert, chunked-local
-rings 3:1 with global layers); the others are refused with an error that
-names their family.  It runs on ``--device cuda`` unless told otherwise;
+rings 3:1 with global layers), and so does the VLM paligemma-3b, text
+prompts only, through chunked admission as the reference's Scheduler serves
+it (its image prefix enters only through ``engine.prefill`` /
+``prefill_into_slot``, so ``--admission eager`` raises for it); the others
+are refused with an error that names their family.  ``--full`` at
+paligemma-3b is the whole model (2.5 B parameters) on one card.  It runs on ``--device cuda`` unless told otherwise;
 ``--full`` serves the published full-width config instead of the smoke
 one, and ``--layers`` cuts its depth (a full MoE config does not fit one
 card: mixtral-8x22b is 141 B parameters, llama4-scout 108 B).  Weights are

@@ -1,8 +1,9 @@
 """Family dispatch for the registered architectures.
 
-Counterpart of :mod:`repro.models.model_zoo`.  The port serves the dense
-and MoE families, both on :mod:`repro_torch.models.transformer` (an MoE
-config's layers carry :mod:`repro_torch.models.moe` FFNs); every other
+Counterpart of :mod:`repro.models.model_zoo`.  The port serves the dense,
+MoE and VLM families, all on :mod:`repro_torch.models.transformer` (an MoE
+config's layers carry :mod:`repro_torch.models.moe` FFNs; a VLM's forward
+puts its projected image patches before the tokens); every other
 family raises the ``ValueError`` of
 :func:`repro_torch.configs.base.require_served`, which names the family
 and the roadmap item that ports it.  There are no
@@ -29,16 +30,20 @@ def init(cfg, generator: torch.Generator, device="cuda") -> Params:
 
 
 def forward(params: Params, cfg, batch: Dict[str, torch.Tensor], **kw):
-    """batch ``{"tokens": (B, S)}`` -> ``(logits, aux_loss)`` (plus the
-    stacked K/V with ``return_kv=True``)."""
+    """batch ``{"tokens": (B, S)}`` (a VLM's also ``"vision": (B, Tv,
+    d_vision)``) -> ``(logits, aux_loss)`` (plus the stacked K/V with
+    ``return_kv=True``)."""
     require_served(cfg, "model_zoo.forward")
+    if cfg.family == "vlm":
+        return transformer.forward(params, cfg, batch["tokens"],
+                                   vision_embeds=batch["vision"], **kw)
     return transformer.forward(params, cfg, batch["tokens"], **kw)
 
 
 def extra_inputs(cfg) -> Tuple[str, ...]:
     """Modality-stub inputs beyond tokens: none for the dense and MoE
-    families; the VLM's ``vision`` and whisper's ``frames`` come with their
-    families."""
+    families, the VLM's ``vision`` (precomputed patch embeddings) and
+    whisper's ``frames`` (a family the port does not serve yet)."""
     if cfg.family == "vlm":
         return ("vision",)
     if cfg.family == "enc_dec":

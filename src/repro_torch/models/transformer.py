@@ -6,7 +6,9 @@ families: phi4-mini, deepseek-7b (an untied ``lm_head``), gemma3-1b / 4b
 qk-norm, sandwich norms, GeGLU and the embedding scale), mixtral-8x22b
 (every layer a sliding-window ring, 8 experts top-2) and
 llama4-scout-17b-a16e (chunked-local layers 3:1 with global ones, 16
-experts top-1 and a shared expert; :mod:`repro_torch.models.moe`).  The
+experts top-1 and a shared expert; :mod:`repro_torch.models.moe`) and the
+VLM paligemma-3b (gemma's stack behind a ``vision_proj`` of precomputed
+patch embeddings, the prefix_causal mask).  The
 parameter tree follows ``transformer.init``'s (stacked ``(L, ...)`` layer
 leaves, ``(in, out)`` projections, zero-centred norm scales, the optional
 leaves where the config asks for them) and its scales, drawn from a
@@ -20,14 +22,16 @@ kind and each layer's window (0, full causal, on the global layers).
 Eager admission and whole-batch prefill (:mod:`repro_torch.serving.engine`)
 run on it.  An MoE layer routes with the config's capacity factor, so
 the whole-sequence forward drops tokens as the reference's does (1.25 on
-the full configs).  The VLM prefix, rematerialisation and sharding rules
-are not ported.
+the full configs).  A VLM's forward takes ``vision_embeds``: their
+projection runs before the tokens, positions count from the first patch,
+and every layer attends under prefix_causal with the patch count as its
+window.  Rematerialisation and sharding rules are not ported.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -80,7 +84,8 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> Params:
     0.02``, norm scales zero — ``transformer.init``'s scales; the
     ``(d_model, vocab)`` ``lm_head`` of an untied model is a projection.
     An MoE config builds ``layers["moe"]`` (:func:`moe.moe_init`, stacked)
-    in place of ``layers["mlp"]``.  Leaves are filled layer by layer (and
+    in place of ``layers["mlp"]``; a VLM the ``(d_vision, d_model)``
+    ``vision_proj``, a projection.  Leaves are filled layer by layer (and
     expert by expert) in the model dtype, so the peak memory is the
     parameters themselves (7.7 GB for phi4-mini-3.8b in bf16)."""
     require_served(cfg, "init_params")
@@ -123,6 +128,8 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> Params:
     params = {"embed": embed, "layers": lay, "final_norm": {"scale": zeros(d)}}
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, cfg.vocab_size), 1 / math.sqrt(d))
+    if cfg.family == "vlm":
+        params["vision_proj"] = normal((cfg.d_vision, d), 1 / math.sqrt(cfg.d_vision))
     return params
 
 
@@ -192,19 +199,35 @@ def _ffn_block(p, cfg, x):
     return out, aux
 
 
-def forward(params: Params, cfg, tokens: torch.Tensor, return_kv: bool = False):
-    """tokens ``(B, S)`` -> ``(logits (B, S, V), aux[, (k_all, v_all)])``.
+def forward(params: Params, cfg, tokens: torch.Tensor, return_kv: bool = False,
+            vision_embeds: Optional[torch.Tensor] = None):
+    """tokens ``(B, S)`` -> ``(logits (B, S', V), aux[, (k_all, v_all)])``.
 
     The residual stream runs in ``cfg.dtype``; ``aux`` is a 0-d float32
     tensor, the sum of the MoE layers' losses (0 for the dense family);
     ``k_all`` / ``v_all`` stack every layer's post-RoPE K and V, ``(L, B,
-    S, Hk, Dh)``."""
+    S', Hk, Dh)``.  ``S' = S`` but for a VLM, whose ``vision_embeds`` ``(B,
+    Tv, d_vision)`` are projected by ``vision_proj`` (in the residual
+    dtype, not scaled) and put before the token embeddings: ``S' = Tv +
+    S``, positions ``0 .. Tv + S - 1``, every layer under prefix_causal
+    with window ``Tv``.  A VLM without them raises (the reference
+    asserts); other families ignore them, as the reference does."""
     require_served(cfg, "forward")
     B, S = tokens.shape
     x = embed_tokens(params, cfg, tokens)
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
     mask_kind = _mask_kind(cfg)
     windows = layer_windows(cfg)
+    if cfg.family == "vlm":
+        if vision_embeds is None:
+            raise ValueError(
+                f"forward: {cfg.name} is of family 'vlm'; its whole-sequence forward "
+                f"needs vision_embeds (B, Tv, d_vision={cfg.d_vision}), the image "
+                f"prefix (chunked admission serves text prompts without it)")
+        vis = (vision_embeds.to(x.dtype) @ params["vision_proj"]).to(x.dtype)
+        x = torch.cat([vis, x], dim=1)
+        windows = np.full_like(windows, vis.shape[1])
+        S = x.shape[1]
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
     thetas = layer_thetas(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []

@@ -1,6 +1,6 @@
 """Serving engine: single-token batched decode (``serve_step``), whole-
 sequence prefill (``prefill``, ``prefill_into_slot``) and chunked prefill
-for dense and MoE transformers over the paged or slot KV cache.
+for dense, MoE and VLM transformers over the paged or slot KV cache.
 
 Counterpart of :mod:`repro.serving.engine`, transformer branch: global
 layers over the full-sequence store and, for gemma3's and mixtral's
@@ -14,9 +14,18 @@ capacity from its prompt tokens; the whole-sequence paths run
 ``transformer.forward`` at the config's capacity factor.
 
     serve_step(params, cache, tokens (B, 1)) -> (logits (B, 1, V), cache)
-    prefill(params, cfg, layout, tokens (B, S)) -> (logits (B, 1, V), cache)
-    prefill_into_slot(params, cfg, layout, cache, slot, prompt (S,))
+    prefill(params, cfg, layout, tokens (B, S)[, vision_embeds])
+        -> (logits (B, 1, V), cache)
+    prefill_into_slot(params, cfg, layout, cache, slot, prompt (S,)[, vision_embeds])
         -> (logits (1, 1, V), cache)
+
+A VLM's image prefix enters only through the two whole-sequence paths'
+``vision_embeds``, as the reference's ``**fw_kw``: decode and chunked
+admission take text alone.  They keep the reference's positions: every
+one of the ``Tv + S`` lanes the forward returns is written (in the paged
+layout the lanes past the mapped pages drop), but ``pos`` is the text
+length ``S``, so the first decode writes at lane ``S``, inside the
+prefix's rows.
 
 The two whole-sequence paths run ``transformer.forward`` (whose attention
 launches the ``flash_attention`` kernel on the card) and write every
@@ -307,13 +316,16 @@ def _write_prompt(cache, layout: kvc.CacheLayout, k_all, v_all, slot=None, **pag
                                 layout.local_window, slot=slot)
 
 
-def prefill(params, cfg, layout: kvc.CacheLayout, tokens: torch.Tensor):
-    """Whole-batch prefill: one forward over tokens ``(B, S)``, then a
-    fresh cache holding every row's K/V at ``[0, S)`` and ``pos = S``.
+def prefill(params, cfg, layout: kvc.CacheLayout, tokens: torch.Tensor,
+            vision_embeds: Optional[torch.Tensor] = None):
+    """Whole-batch prefill: one forward over tokens ``(B, S)`` (a VLM's
+    behind ``vision_embeds``), then a fresh cache holding every row's K/V
+    at ``[0, S)`` (``[0, Tv + S)`` with an image prefix) and ``pos = S``.
     Returns ``(last_logits (B, 1, V), cache)``.  The paged layout maps the
     rows slot-major (``identity_page_table``)."""
     require_served(cfg, "prefill")
-    logits, _, (k_all, v_all) = transformer.forward(params, cfg, tokens, return_kv=True)
+    logits, _, (k_all, v_all) = transformer.forward(params, cfg, tokens, return_kv=True,
+                                                    vision_embeds=vision_embeds)
     dev = tokens.device
     cache = kvc.init_cache_arrays(cfg, layout, dev)
     B, S = tokens.shape
@@ -327,13 +339,15 @@ def prefill(params, cfg, layout: kvc.CacheLayout, tokens: torch.Tensor):
 
 
 def prefill_into_slot(params, cfg, layout: kvc.CacheLayout, cache, slot: int,
-                      prompt: torch.Tensor):
+                      prompt: torch.Tensor, vision_embeds: Optional[torch.Tensor] = None):
     """Eager admission: one B=1 forward over ``prompt`` (``(S,)`` or
-    ``(1, S)``, ``S < max_seq`` so the first decoded token has a row), then
-    ``reset_slot`` and the prompt's K/V written into row ``slot`` of the
-    live cache, in place.  Paged layouts write through the cache's page
-    table: the caller maps pages covering ``[0, S)`` first (writes to
-    unmapped pages drop).  Returns ``(last_logits (1, 1, V), cache)``."""
+    ``(1, S)``, ``S < max_seq`` so the first decoded token has a row; a
+    VLM's behind ``vision_embeds`` ``(1, Tv, d_vision)``), then
+    ``reset_slot`` and the forward's K/V written into row ``slot`` of the
+    live cache, in place, and ``pos = S``.  Paged layouts write through the
+    cache's page table: the caller maps pages covering ``[0, S)`` first
+    (writes to unmapped pages drop).  Returns ``(last_logits (1, 1, V),
+    cache)``."""
     require_served(cfg, "prefill_into_slot")
     tokens = prompt[None] if prompt.ndim == 1 else prompt
     if tokens.shape[0] != 1:
@@ -343,7 +357,8 @@ def prefill_into_slot(params, cfg, layout: kvc.CacheLayout, cache, slot: int,
     if not 0 < S < layout.max_seq:
         raise ValueError(f"prefill_into_slot: prompt length {S} needs at least one "
                          f"decode slot below max_seq {layout.max_seq}")
-    logits, _, (k_all, v_all) = transformer.forward(params, cfg, tokens, return_kv=True)
+    logits, _, (k_all, v_all) = transformer.forward(params, cfg, tokens, return_kv=True,
+                                                    vision_embeds=vision_embeds)
     cache = kvc.reset_slot(cache, layout, slot)
     paged_kw = (dict(page_table=cache["page_table"], **_paged_kw(layout))
                 if layout.layout == "paged" and layout.global_layers else {})

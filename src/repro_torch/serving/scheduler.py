@@ -15,7 +15,12 @@ fills every EMPTY slot with one whole-prompt B=1 forward each
 runs the ``flash_attention`` kernel on the card) before the decode step,
 which stalls until they finish: the reference's baseline.
 
-It serves the dense and MoE families.  Paged layouts with a global layer
+It serves the dense, MoE and VLM families.  A VLM is served text only,
+through chunked admission, as the reference's Scheduler serves it: the
+port's Scheduler takes no ``prefill_kw``, so an eager admission of a VLM
+has no image prefix to give ``prefill_into_slot`` and its forward raises
+the ``ValueError`` that names it (where the reference's forward asserts).
+Paged layouts with a global layer
 keep a host-side
 :class:`~repro_torch.serving.paging.PageAllocator` (a stack of local rings
 only, as mixtral's, has no pool and no allocator): pages are

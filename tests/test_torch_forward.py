@@ -152,7 +152,11 @@ class TestFlashAttentionPlain:
         with pytest.raises(ValueError, match="dtype"):
             flash_attention(q, k.double(), v)
         with pytest.raises(ValueError, match="mask_kind"):
-            flash_attention(q, k, v, mask_kind="prefix_causal", window=3)
+            flash_attention(q, k, v, mask_kind="bidirectional", window=3)
+        # the VLM's prefix_causal is a kind of the kernel now
+        assert flash_ops._validate_cuda(q, k, v).smem == flash_kernel.smem_bytes(
+            torch.float32, 16)
+        flash_attention(q, k, v, mask_kind="prefix_causal", window=3)
 
 
 class TestBlockedAttend:

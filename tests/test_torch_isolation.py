@@ -44,4 +44,5 @@ def test_scan_sees_the_package():
         assert PORT / "kernels" / k / "ops.py" in _files()
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
         "bgpp_paged_attend.cu", "bgpp_score.cu", "brcr_gemm.cu", "bstc_decode.cu",
-        "bstc_matmul.cu", "flash_attention.cu", "paged_flash_decode.cu"]
+        "bstc_matmul.cu", "flash_attention.cu", "paged_flash_decode.cu",
+        "paged_flash_decode_long.cu"]

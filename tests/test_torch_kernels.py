@@ -65,6 +65,8 @@ from repro_torch.core import attention as tattention
 from repro_torch.core import bitslice
 from repro_torch.core import bstc as tbstc
 from repro_torch.serving import kv_cache as tkvc
+from repro_torch.configs import ARCH_REGISTRY, get_config, shapes
+from repro_torch.configs.base import SERVED_FAMILIES
 
 jax.config.update("jax_platform_name", "cpu")
 torch.set_num_threads(1)
@@ -226,8 +228,9 @@ class TestPagedFlashDecodePlan:
         (2, 2, 3, 16, 64, 1),  # the slot layout's identity table
     ])
     def test_every_lane_has_one_block(self, B, Hk, g, D, S, P):
-        C, L, smem = pfd_kernel.plan(B, Hk, g, D, S // P, P, self.SMS)
-        assert C in (1, 2, 4, 8) and L % P == 0
+        p = pfd_kernel.plan(B, Hk, g, D, S // P, P, self.SMS)
+        C, L, smem = p.C, p.L, p.smem
+        assert C in (1, 2, 4, 8) and L % P == 0 and (p.passes, p.pass_lanes) == (1, 0)
         owners = np.zeros(S, np.int64)
         for c in range(C):
             owners[c * L:min((c + 1) * L, S)] += 1
@@ -236,8 +239,9 @@ class TestPagedFlashDecodePlan:
 
     def test_decode_geometry_fills_the_card(self):
         B, Hk = 4, 8
-        C, L, _ = pfd_kernel.plan(B, Hk, 3, 128, 1024 // 16, 16, self.SMS)
-        assert (C, L) == (4, 256)
+        p = pfd_kernel.plan(B, Hk, 3, 128, 1024 // 16, 16, self.SMS)
+        C, L = p.C, p.L
+        assert (C, L, p.pass_lanes) == (4, 256, 0)
         assert 128 <= B * Hk * C <= self.SMS
 
     @staticmethod
@@ -267,14 +271,32 @@ class TestPagedFlashDecodePlan:
 
     @pytest.mark.parametrize("g", [1, 3, 8])
     def test_past_the_cap_the_wrapper_raises_with_it(self, monkeypatch, g):
+        """Past the single-pass bodies' shared memory the wrapper plans the
+        pass bodies: 524,288 lanes (the reference's long_500k) in passes of
+        whole pages that fit, bf16 and int8.  The cap is then the int32
+        range: lanes below 2^31, and an int8 block's PV sums (1,065,088
+        lanes at page 16); one page more raises with it."""
         monkeypatch.setattr(pfd_kernel, "sm_count", lambda device: self.SMS)
-        P = 16
-        cap = pfd_kernel.max_lanes(g, 128, P)
-        pfd_kernel.plan(1, 2, g, 128, cap // P, P, self.SMS)  # the cap itself fits
-        q, k, table, pos, _ = self._operands("bf16", g, cap + P, P)
-        with pytest.raises(ValueError, match=f"the cap at g={g}, D=128, page_size={P} "
-                                             f"is {cap} lanes"):
-            pfd_ops._validate_cuda(q, k, k, table, pos, P, None, None)
+        P, S = 16, 524288
+        single = pfd_kernel.single_pass_lanes(g, 128, P)
+        assert single < S
+        assert pfd_kernel.plan(1, 2, g, 128, single // P, P, self.SMS).pass_lanes == 0
+        for fmt in ("bf16", "int8"):
+            q, k, table, pos, scales = self._operands(fmt, g, S, P)
+            p = pfd_ops._validate_cuda(q, k, k, table, pos, P, scales.get("k_scale"),
+                                       scales.get("v_scale"))
+            assert p.C == pfd_kernel.MAX_CLUSTER and p.C * p.L >= S and p.pass_lanes % P == 0
+            assert p.passes == -(-p.L // p.pass_lanes) > 1 and p.smem <= build.MAX_SMEM
+        cap = pfd_kernel.max_lanes(g, 128, P, int8=True)
+        assert cap == 1_065_088 and pfd_kernel.max_lanes(g, 128, P) == 2 ** 31 - P
+        pfd_kernel.plan(1, 2, g, 128, cap // P, P, self.SMS, int8=True)  # the cap itself fits
+        q, k, table, pos, scales = self._operands("int8", g, cap + P, P)
+        with pytest.raises(ValueError, match=f"over the cap at g={g}, D=128, page_size={P}, "
+                                             f"int8: {cap} lanes"):
+            pfd_ops._validate_cuda(q, k, k, table, pos, P, scales["k_scale"], scales["v_scale"])
+        with pytest.raises(ValueError, match=f"cap at g={g}, D=128, page_size={P}: "
+                                             f"{2 ** 31 - P} lanes"):
+            pfd_kernel.plan(1, 2, g, 128, 2 ** 31 // P, P, self.SMS)
 
     @pytest.mark.parametrize("fmt", ["bf16", "int8"])
     @pytest.mark.parametrize("D,P,DP", [(24, 4, 32), (16, 6, 16), (24, 6, 32), (256, 6, 256),
@@ -330,6 +352,76 @@ class TestPagedFlashDecodePlan:
                                           scales.get("v_scale"))
             assert plan.C * plan.L >= pp * P and plan.smem <= build.MAX_SMEM
             assert plan.smem == pfd_kernel.smem_bytes(g, 256, plan.L, P)
+
+    @pytest.mark.parametrize("g,D,P,S,pos", [
+        (2, 256, 16, 524288, 524287), (4, 256, 16, 524288, 300000),
+        (5, 128, 16, 524288, 1000), (8, 256, 16, 524288, -1),
+        (3, 128, 6, 300000, 299999), (1, 16, 1, 500000, 77777)])
+    def test_passes_walk_every_lane_once(self, g, D, P, S, pos):
+        """The pass bodies' walk (``csrc/paged_flash_decode_long.cu``):
+        block c owns the lanes ``[c L, (c + 1) L)`` up to the slot's span and
+        walks them in passes of ``pass_lanes`` from its first lane, each pass
+        whole pages (its page bases fill at most the pass's array); every
+        lane of the span is walked once, a slot ending in an earlier pass
+        walks no later one (a block past it none), the pass's scores and
+        page bases fit shared memory, and an int8 block's PV sums fit int32."""
+        pp = -(-S // P)
+        span = pp * P if pos < 0 else min(pos + 1, pp * P)
+        for int8 in (False, True):
+            p = pfd_kernel.plan(1, 2, g, D, pp, P, self.SMS, int8=int8)
+            assert p.pass_lanes > 0 and p.L % P == 0 and p.pass_lanes % P == 0
+            assert p.smem == pfd_kernel.smem_bytes(g, D, p.pass_lanes, P) <= build.MAX_SMEM
+            assert p.passes == -(-p.L // p.pass_lanes)
+            seen = np.zeros(p.C * p.L, np.int64)
+            for c in range(p.C):
+                lo = c * p.L
+                hi = max(lo, min(lo + p.L, span))
+                walked = list(range(lo, hi, p.pass_lanes))
+                assert len(walked) <= p.passes
+                assert len(walked) == -(-(hi - lo) // p.pass_lanes)  # none past the span
+                for plo in walked:
+                    phi = min(plo + p.pass_lanes, hi)
+                    assert plo % P == 0 and -(-(phi - plo) // P) <= p.pass_lanes // P
+                    seen[plo:phi] += 1
+            np.testing.assert_array_equal(seen[:span], 1)
+            assert not seen[span:].any()
+            if int8:
+                assert p.L * 127 * 127 < 2 ** 31
+
+
+SERVED_ARCHS = sorted(n for n in ARCH_REGISTRY
+                      if get_config(n).family in SERVED_FAMILIES)
+
+
+@pytest.mark.parametrize("arch", SERVED_ARCHS)
+def test_every_assigned_decode_shape_plans_on_the_card(arch):
+    """Every decode cell of the reference's shape table
+    (``configs/shapes.py``: decode_32k for every arch, long_500k for the
+    sub-quadratic ones) that a served arch is assigned plans on the H100's
+    132 SMs at the arch's heads, page 16: K1's bf16 and int8 bodies at both
+    lengths (long_500k in passes), K2 at decode_32k (its lists in the
+    workspace where they do not fit).  K2 at long_500k is refused, the cap
+    named: a selection past 32768 lanes would span clusters."""
+    cfg = get_config(arch)
+    Hk, D = cfg.num_kv_heads, cfg.head_dim
+    g = cfg.num_heads // Hk
+    cells = [s for s in shapes.SHAPES if s.kind == "decode" and shapes.applicable(arch, s) is None]
+    assert {s.name for s in cells} >= {"decode_32k"}
+    for shape in cells:
+        S, B, P = shape.seq_len, shape.global_batch, 16
+        for int8 in (False, True):
+            p = pfd_kernel.plan(B, Hk, g, D, S // P, P, 132, int8=int8)
+            assert p.C * p.L >= S and p.smem <= build.MAX_SMEM
+            assert (p.pass_lanes > 0) == (S > pfd_kernel.single_pass_lanes(g, D, P)
+                                          or (int8 and S * 127 * 127 >= 2 ** 31))
+        _, k_max, surv = tkvc.bgpp_decode_plan(S, cfg)
+        if S <= bgpp_kernel.max_lanes(g, D):
+            p = bgpp_kernel.plan(B, Hk, g, D, S, k_max, surv, 132)
+            assert p.C * p.L >= S and p.smem <= build.MAX_SMEM
+        else:
+            assert shape.name == "long_500k"
+            with pytest.raises(ValueError, match=f"the cap at g={g}, D={D} is 32768 lanes"):
+                bgpp_kernel.plan(B, Hk, g, D, S, k_max, surv, 132)
 
 
 def _k2_parity(g, s_ctx, D, seed, page=None):
@@ -444,7 +536,8 @@ class TestBgppPagedAttendPlan:
     ])
     def test_every_lane_has_one_block(self, B, Hk, g, D, S):
         k_max, surv = _k2_survivors(S)
-        C, L, caps, smem = bgpp_kernel.plan(B, Hk, g, D, S, k_max, surv, self.SMS)
+        p = bgpp_kernel.plan(B, Hk, g, D, S, k_max, surv, self.SMS)
+        C, L, caps, smem = p.C, p.L, p.caps, p.smem
         assert C in (1, 2, 4, 8) and L == caps[0] <= bgpp_kernel.MAX_LIST
         widths = bgpp_kernel.list_widths(S, k_max, surv)
         assert len(caps) == len(widths) == len(surv) + 1
@@ -454,26 +547,35 @@ class TestBgppPagedAttendPlan:
                 owners[c * cap:min((c + 1) * cap, width)] += 1
             np.testing.assert_array_equal(owners, 1)
             assert cap <= L  # every list fits a block's region
-        assert smem == bgpp_kernel.smem_bytes(g, D, L) <= build.MAX_SMEM
+        assert smem == bgpp_kernel.smem_bytes(g, D, L, p.workspace) <= build.MAX_SMEM
+        assert p.workspace == (bgpp_kernel.smem_bytes(g, D, L) > build.MAX_SMEM)
 
     def test_decode_geometry_fills_the_card(self):
         B, Hk, S = 4, 8, 1024
         k_max, surv = _k2_survivors(S)
-        C, L, caps, _ = bgpp_kernel.plan(B, Hk, 3, 128, S, k_max, surv, self.SMS)
-        assert (C, L, caps) == (4, 256, (256, 128, 64, 64, 64))
+        p = bgpp_kernel.plan(B, Hk, 3, 128, S, k_max, surv, self.SMS)
+        assert (p.C, p.L, p.caps, p.workspace) == (4, 256, (256, 128, 64, 64, 64), False)
+        C = p.C
         assert 128 <= B * Hk * C <= self.SMS
 
     @pytest.mark.parametrize("g", range(1, 9))
     @pytest.mark.parametrize("D", bgpp_kernel.HEAD_DIMS)
     def test_shared_memory_fits_up_to_the_cap(self, g, D):
+        """The cap is the block sort's, 32768 lanes, at every group and
+        width: the lists go to the workspace where they do not fit beside
+        the rest (g >= 4 at D 128), whose size the plan gives."""
         cap = bgpp_kernel.max_lanes(g, D)
-        assert cap % bgpp_kernel.MAX_CLUSTER == 0 and cap >= 8192
+        assert cap == bgpp_kernel.MAX_CLUSTER * bgpp_kernel.MAX_LIST == 32768
         k_max, surv = _k2_survivors(cap)
         p = bgpp_kernel.plan(1, 8, g, D, cap, k_max, surv, self.SMS)
         assert p.C == bgpp_kernel.MAX_CLUSTER and p.smem <= build.MAX_SMEM
+        assert p.workspace == (bgpp_kernel.smem_bytes(g, D, p.L) > build.MAX_SMEM)
+        want_ws = 8 * p.C * 2 * p.L * bgpp_kernel.entry_ints(g) if p.workspace else 0
+        assert bgpp_kernel.workspace_ints(1, 8, g, p) == want_ws
+        if D == 128:
+            assert p.workspace == (g >= 4)
         L = cap // bgpp_kernel.MAX_CLUSTER + 1  # one lane more a block does not fit
-        assert (L > bgpp_kernel.MAX_LIST
-                or bgpp_kernel.smem_bytes(g, D, L) > build.MAX_SMEM)
+        assert L > bgpp_kernel.MAX_LIST
 
     @staticmethod
     def _operands(g, S, D=128, n_tok=16):
@@ -530,15 +632,19 @@ class TestBgppPagedAttendPlan:
     @pytest.mark.parametrize("g,S", [(1, 32768), (2, 32768), (4, 16384), (8, 8192)])
     def test_head_width_256_caps(self, monkeypatch, g, S):
         """D 256 (gemma3-4b g 2; gemma3-1b g 4; paligemma-3b g 8): the header
-        and the warps' partials at 256 still fit the cap's lanes, 32768 at
-        g <= 2."""
+        and the warps' partials at 256 fit beside the lists up to the old
+        caps (S here: 32768 at g <= 2, 18,232 at g 4, 10,792 at g 8), and
+        with the lists in the workspace past them, up to the reference's
+        decode_32k at every g."""
         monkeypatch.setattr(bgpp_ops, "sm_count", lambda device: self.SMS)
         assert bgpp_kernel.header_bytes(256) == 4640 and bgpp_kernel.header_bytes(128) == 2592
-        cap = bgpp_kernel.max_lanes(g, 256)
-        assert cap >= S
-        k_max, surv = _k2_survivors(S)
-        p = bgpp_ops._validate_cuda(*self._operands(g, S, D=256), k_max, surv)
-        assert p.C * p.L >= S and p.smem == bgpp_kernel.smem_bytes(g, 256, p.L) <= build.MAX_SMEM
+        assert bgpp_kernel.max_lanes(g, 256) == 32768
+        for n in (S, 32768):
+            k_max, surv = _k2_survivors(n)
+            p = bgpp_ops._validate_cuda(*self._operands(g, n, D=256), k_max, surv)
+            assert p.C * p.L >= n
+            assert p.smem == bgpp_kernel.smem_bytes(g, 256, p.L, p.workspace) <= build.MAX_SMEM
+            assert p.workspace == (n > S)
 
 
 def _k2_words(packed):
@@ -619,14 +725,15 @@ def _k2_cluster_select(lanes, score, nv, width, width_next, C, cap):
     runs = [torch.sort(key[c * cap:(c + 1) * cap]).values for c in range(C)]
     nxt = min(nv, width_next)
     out = torch.full((nxt,), -1, dtype=torch.int64)
+    hits = torch.zeros(nxt, dtype=torch.int64)
     for c, run in enumerate(runs):
-        for i, k in enumerate(run[:nxt].tolist()):
-            at = i + sum(int(torch.searchsorted(o, torch.tensor([k]))[0])
-                         for c2, o in enumerate(runs) if c2 != c)
-            if at < nxt:
-                assert out[at] == -1  # ranks are unique
-                out[at] = lanes[k & 0xFFFFFFFF]
-    assert bool((out >= 0).all())
+        keys = run[:nxt]
+        at = torch.arange(keys.numel()) + sum(torch.searchsorted(o, keys)
+                                              for c2, o in enumerate(runs) if c2 != c)
+        keep = at < nxt
+        hits.index_add_(0, at[keep], torch.ones_like(at[keep]))
+        out[at[keep]] = lanes[keys[keep] & 0xFFFFFFFF]
+    assert bool((hits == 1).all())  # ranks are unique and cover the next list
     return out, torch.cat([out, nv + torch.arange(width_next - nxt)])
 
 
@@ -692,6 +799,66 @@ class TestBgppPagedAttendArithmetic:
         if pos < 0:
             torch.testing.assert_close(want, torch.arange(k_max), rtol=0, atol=0)
 
+    @pytest.mark.parametrize("g,S,pos", [(5, 32768, 32767), (8, 32768, 20000), (4, 32768, 700),
+                                         (8, 32768, -1), (5, 32768, 4095)])
+    def test_workspace_lists_select_what_shared_memory_does(self, g, S, pos):
+        """The workspace path (lists in global memory, at S 32768 with
+        g >= 4): every selection writes rank ``at`` of the next list to its
+        owner's list, ``(blockIdx - rank + owner, (r + 1) & 1, slot)`` of the
+        ``(B Hk C, 2, L, ES)`` workspace, as the shared-memory path writes
+        it to ``(owner, (r + 1) & 1, slot)`` of the blocks' own lists.  Two
+        cells run at once: each address is written at most once a round,
+        inside the plan's workspace and its own cell's blocks, never into
+        the list the round reads; each block reads back the same entries as
+        from shared memory, and the final list is the plain top k."""
+        rng = np.random.default_rng(g * S + pos)
+        k_max, surv = _k2_survivors(S)
+        p = bgpp_kernel.plan(1, 2, g, 128, S, k_max, surv, 132)
+        assert p.workspace and p.C == 8
+        C, L, ES = p.C, p.L, bgpp_kernel.entry_ints(g)
+        size = bgpp_kernel.workspace_ints(1, 2, g, p)
+        widths = bgpp_kernel.list_widths(S, k_max, surv)
+        nv = 0 if pos < 0 else min(pos + 1, S)
+        ws = np.full(size, -1, np.int64)  # the workspace: entry ints (lane, then scores)
+        smem = {cell: np.full((C, 2, L, ES), -1, np.int64) for cell in range(2)}
+        lanes = {cell: torch.arange(nv) for cell in range(2)}
+        want = {cell: torch.arange(S) for cell in range(2)}
+        valid = torch.arange(S) <= pos
+        count = lambda r, c: max(0, min(min(nv, widths[r]) - c * p.caps[r], p.caps[r]))
+        for r in range(len(widths) - 1):
+            capn = p.caps[r + 1]
+            written = np.zeros(size, np.int64)
+            for cell in range(2):
+                score = torch.from_numpy(rng.integers(-3, 4, S) * 64)
+                full = torch.where(valid[want[cell]], score[want[cell]].float(),
+                                   torch.tensor(bgpp_ref.NEG_INF))
+                want[cell] = want[cell][bgpp_ref.topk_indices(full, widths[r + 1])]
+                nxt, _ = _k2_cluster_select(lanes[cell], score[lanes[cell]], nv, widths[r],
+                                            widths[r + 1], C, p.caps[r])
+                for at, lane in enumerate(nxt.tolist()):  # the selection's stores
+                    owner, slot = at // capn, at % capn
+                    entry = [lane] + [lane * 8 + gi for gi in range(g)]
+                    entry += [-2] * (ES - len(entry))
+                    base = ((cell * C + owner) * 2 * L + ((r + 1) & 1) * L + slot) * ES
+                    assert slot < L and base + ES <= size
+                    assert base // (2 * L * ES) // C == cell  # inside its own cell's blocks
+                    ws[base:base + ES] = entry
+                    written[base:base + ES] += 1
+                    smem[cell][owner, (r + 1) & 1, slot] = entry
+                # the blocks read their new lists back: the same entries either way
+                for c in range(C):
+                    base = ((cell * C + c) * 2 * L + ((r + 1) & 1) * L) * ES
+                    n = count(r + 1, c)
+                    got = ws[base:base + n * ES].reshape(n, ES)
+                    np.testing.assert_array_equal(got, smem[cell][c, (r + 1) & 1, :n])
+                    cur = ((cell * C + c) * 2 * L + (r & 1) * L) * ES  # the list being read
+                    assert not written[cur:cur + L * ES].any()
+                lanes[cell] = nxt
+            assert written.max() <= 1
+        for cell in range(2):
+            final = torch.cat([lanes[cell], nv + torch.arange(k_max - lanes[cell].numel())])
+            torch.testing.assert_close(final, want[cell], rtol=0, atol=0)
+
 
 class TestBstcCpuRouting:
     def test_cpu_tensors_never_count_a_launch(self):
@@ -720,11 +887,11 @@ class TestBstcCpuRouting:
 
 class TestFlashAttentionRouting:
     def test_off_cpu_never_takes_the_plain_version(self, monkeypatch):
-        """Off the CPU, ``blocked_attend`` launches the kernel or raises:
-        ``prefix_causal`` (no kernel yet) raises before any plain path, and
-        the wrapper refuses a device it has no kernel for.  Meta tensors
-        stand in for a card here; the plain versions are made to fail so a
-        fallback would show."""
+        """Off the CPU, ``blocked_attend`` launches the kernel or raises,
+        for every mask kind (``prefix_causal`` included): the wrapper
+        refuses a device it has no kernel for.  Meta tensors stand in for a
+        card here; the plain versions are made to fail so a fallback would
+        show."""
         def no_plain(*a, **kw):
             raise AssertionError("took the plain version off the CPU")
 
@@ -733,7 +900,7 @@ class TestFlashAttentionRouting:
         q = torch.empty(1, 8, 4, 16, device="meta")
         k = torch.empty(1, 8, 2, 16, device="meta")
         reset_launches()
-        with pytest.raises(NotImplementedError, match="VLM"):
+        with pytest.raises(ValueError, match="no kernel for device"):
             tattention.blocked_attend(q, k, k, mask_kind="prefix_causal", window=3)
         with pytest.raises(ValueError, match="no kernel for device"):
             tattention.blocked_attend(q, k, k)
@@ -757,9 +924,12 @@ def _pallas_live(mask_kind, window, q_offset, iq, ik, tile_q, tile_k):
 
 
 # (mask_kind, window) of the kernel phase's cases, and windows whose edges
-# fall one key short of a tile's end
+# fall one key short of a tile's end; the VLM's prefix_causal at prefixes
+# on, one short of and one past a tile edge, and inside the first tile
 FLASH_MASKS = [("causal", 0), ("sliding", 256), ("chunked", 256), ("full", 0),
-               ("sliding", 100), ("chunked", 64), ("sliding", 97), ("chunked", 96)]
+               ("sliding", 100), ("chunked", 64), ("sliding", 97), ("chunked", 96),
+               ("prefix_causal", 256), ("prefix_causal", 100), ("prefix_causal", 63),
+               ("prefix_causal", 65), ("prefix_causal", 20)]
 
 
 def _flash_warp_rows(p, y, w, Sq):
@@ -783,6 +953,8 @@ def _flash_key_tiles(mask_kind, window, q_lo, q_hi, Sk):
         k_lo, k_hi = kt * TK, min(kt * TK + TK, Sk) - 1
         if mask_kind == "full":
             return True
+        if mask_kind == "prefix_causal":  # a prefix tile's rows reach key window - 1
+            return k_lo <= q_hi or (k_lo < window and q_lo < window)
         if k_lo > q_hi:
             return False
         if mask_kind == "causal":
@@ -845,9 +1017,45 @@ class TestFlashAttentionPlan:
             got = _flash_key_tiles(mask_kind, window, q_lo, q_hi, Sk)
             want = [kt for kt in range(-(-Sk // TK)) if rows[:, kt * TK:(kt + 1) * TK].any()]
             assert list(got) == want
-            if Sq % BQ == 0 and Sk % TK == 0:
+            if Sq % BQ == 0 and Sk % TK == 0 and mask_kind != "prefix_causal":
                 assert len(got) == sum(_pallas_live(mask_kind, window, q_offset, iq, ik, BQ, TK)
                                        for ik in range(Sk // TK))
+
+    @pytest.mark.parametrize("window", [0, 20, 63, 64, 65, 100, 256, 300, 1000])
+    @pytest.mark.parametrize("q_offset,Sq,Sk", [(0, 300, 300), (37, 200, 300), (0, 1, 77),
+                                                (250, 50, 300)])
+    def test_prefix_rows_and_whole_halves(self, window, q_offset, Sq, Sk):
+        """prefix_causal in the bf16 body: a row's visible keys are the
+        interval ``[0, hi]`` (``hi`` the row's reach inside the prefix, else
+        its diagonal, cut at Sk), so the element mask is that interval test;
+        a warp's 32-key half that ``tile_whole`` passes is all visible, and
+        one ``tile_live`` fails none; ``window <= 0`` is causal (the
+        wrapper's rewrite) and ``window >= Sk`` is full attention."""
+        kind = "prefix_causal" if window > 0 else "causal"
+        mask = tattention.make_mask("prefix_causal", Sq, Sk, window, q_offset).numpy()
+        np.testing.assert_array_equal(mask, tattention.make_mask(kind, Sq, Sk, window,
+                                                                 q_offset).numpy())
+        if window >= Sk:
+            assert mask.all()
+        w = window
+        qi = q_offset + np.arange(Sq)
+        reach = np.where(qi < w, np.maximum(qi, w - 1), qi) if w > 0 else qi
+        hi = np.minimum(reach, Sk - 1)
+        np.testing.assert_array_equal(mask, np.arange(Sk)[None] <= hi[:, None])
+        for r0 in range(0, Sq, 16):
+            q_lo, q_hi = q_offset + r0, q_offset + min(r0 + 16, Sq) - 1
+            rows = mask[r0:r0 + 16]
+            for k0 in range(0, Sk, 32):
+                k_hi = min(k0 + 32, Sk) - 1
+                block = rows[:, k0:k_hi + 1]
+                if w > 0:
+                    live = k0 <= q_hi or (k0 < w and q_lo < w)
+                    whole = k_hi <= q_lo or (q_lo < w and k_hi < w)
+                else:
+                    live, whole = k0 <= q_hi, k_hi <= q_lo
+                assert live == bool(block.any())
+                if whole:
+                    assert block.all()
 
     def test_wrapper_raises_for_what_it_has_no_instance_for(self):
         """D 24 (once refused) runs at the compiled 32, unaligned bf16 rows
@@ -930,7 +1138,8 @@ class TestFlashAttentionArithmetic:
             assert float((pv(hi) / den - want).abs().max()) > tol
 
     @pytest.mark.parametrize("mask_kind,window,q_offset,Sq,Sk", FLASH_SPLIT_CASES + [
-        ("causal", 0, 0, 65, 77), ("chunked", 64, 170, 130, 300)])
+        ("causal", 0, 0, 65, 77), ("chunked", 64, 170, 130, 300),
+        ("prefix_causal", 100, 0, 300, 300), ("prefix_causal", 256, 37, 200, 300)])
     def test_online_order_stays_inside_the_tolerance(self, mask_kind, window, q_offset, Sq,
                                                      Sk):
         """The body's order of work: each 16-row group in two key halves (32

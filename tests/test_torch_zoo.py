@@ -59,9 +59,10 @@ SLOTS, MAX_SEQ, PAGE, BUDGET = 2, 96, 8, 8
 # flipped code moved a row by 3.5e-3 in chip_smoke.py's card-against-CPU
 # check); a wrong lane, mask or scale moves them by 1e-1 or more
 TF_TOL = 5e-3
-# the families the port does not serve yet (it serves dense and moe)
-NON_DENSE = sorted(n for n in JARCH if jax_config(n).family not in ("dense", "moe"))
+# the families the port does not serve yet (it serves dense, moe and vlm)
+NON_DENSE = sorted(n for n in JARCH if jax_config(n).family not in ("dense", "moe", "vlm"))
 MOE = sorted(n for n in JARCH if jax_config(n).family == "moe")
+VLM = sorted(n for n in JARCH if jax_config(n).family == "vlm")
 
 _MODELS = {}
 
@@ -130,25 +131,28 @@ def test_config_matches_reference(name):
         assert model_zoo.extra_inputs(t) == jzoo.extra_inputs(j)
 
 
-def _entry_points(name, model_cfg, launcher_args):
+def _entry_points(name, model_cfg, launcher_args, vision=None):
     """Every entry point of the port, called on arch ``name``'s smoke config
-    with the parameters, layout and cache of ``model_cfg``."""
+    with the parameters, layout and cache of ``model_cfg``; ``vision`` (a
+    VLM's ``(1, Tv, d_vision)`` image prefix) goes to the whole-sequence
+    ones."""
     cfg = get_config(name, smoke=True)
     params = model_zoo.init(model_cfg, torch.Generator().manual_seed(0), "cpu")
     lay = tkvc.layout_for(model_cfg, SLOTS, 32)
     cache = tkvc.init_cache_arrays(model_cfg, lay, "cpu")
     toks = torch.zeros((1, 4), dtype=torch.long)
+    batch = {"tokens": toks} if vision is None else {"tokens": toks, "vision": vision}
     return {
         "model_zoo.init": lambda: model_zoo.init(cfg, torch.Generator(), "cpu"),
-        "model_zoo.forward": lambda: model_zoo.forward(params, cfg, {"tokens": toks}),
+        "model_zoo.forward": lambda: model_zoo.forward(params, cfg, batch),
         "init_params": lambda: transformer.init_params(cfg, torch.Generator(), "cpu"),
-        "forward": lambda: transformer.forward(params, cfg, toks),
+        "forward": lambda: transformer.forward(params, cfg, toks, vision_embeds=vision),
         "layout_for": lambda: tkvc.layout_for(cfg, SLOTS, 32),
         "make_serve_step": lambda: engine.make_serve_step(cfg, lay),
         "make_prefill_chunk": lambda: engine.make_prefill_chunk(cfg, lay),
-        "prefill": lambda: engine.prefill(params, cfg, lay, toks),
+        "prefill": lambda: engine.prefill(params, cfg, lay, toks, vision_embeds=vision),
         "prefill_into_slot": lambda: engine.prefill_into_slot(params, cfg, lay, cache, 0,
-                                                              toks[0]),
+                                                              toks[0], vision_embeds=vision),
         "Scheduler": lambda: Scheduler(params, cfg, lay, device="cpu"),
         "launcher": lambda: launcher.main(["--device", "cpu", "--arch", name] + launcher_args),
     }
@@ -178,6 +182,31 @@ def test_moe_family_runs_every_entry_point(name, capsys):
     mixed = dataclasses.replace(cfg, moe_every=2)
     with pytest.raises(ValueError, match="moe_every=2.*hybrid"):
         model_zoo.init(mixed, torch.Generator(), "cpu")
+
+
+@pytest.mark.parametrize("name", VLM)
+def test_vlm_family_runs_every_entry_point(name, capsys):
+    """The VLM smoke passes every entry point the refusal test calls, its
+    whole-sequence ones with a 16-patch image prefix (the launcher serves
+    two text requests to the end through chunked admission); without the
+    prefix its forward raises, as the reference's asserts, and so does an
+    eager admission, which has none to give."""
+    cfg = get_config(name, smoke=True)
+    vision = torch.zeros((1, cfg.vision_tokens, cfg.d_vision))
+    calls = _entry_points(name, cfg, ["--requests", "2", "--max-new", "3",
+                                      "--kv-layout", "paged"], vision=vision)
+    for who, call in calls.items():
+        assert call() is not None or who == "launcher", who
+    out = capsys.readouterr().out
+    assert f"arch={cfg.name} kv=int8 layout=paged" in out and ": 2 requests, " in out
+    logits, _ = calls["forward"]()
+    assert logits.shape == (1, cfg.vision_tokens + 4, cfg.vocab_size)
+    with pytest.raises(ValueError, match="family 'vlm'.*needs vision_embeds"):
+        model_zoo.forward(model_zoo.init(cfg, torch.Generator(), "cpu"), cfg,
+                          {"tokens": torch.zeros((1, 4), dtype=torch.long), "vision": None})
+    with pytest.raises(ValueError, match="needs vision_embeds"):
+        launcher.main(["--device", "cpu", "--arch", name, "--requests", "1", "--max-new", "2",
+                       "--admission", "eager"])
 
 
 # --------------------------------------------------------------------------
