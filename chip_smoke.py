@@ -44,7 +44,9 @@ Phases, each of which fails the run (nonzero exit) on any error:
    paligemma-3b (g 8, D 256), where its lists go to a global workspace,
    and K1's bf16 and int8 bodies at long_500k (S 524,288) at the heads of
    gemma3-4b, gemma3-1b and llama4-scout, where each block walks its
-   lanes in passes; each with a second slot ending inside K2's first
+   lanes in passes, and K2 at long_500k at the same heads, its selection
+   spanning blocks (and once at D 24 over 40,000 lanes, unmet by any
+   compiled width: run at 128); each with a second slot ending inside K2's first
    block or K1's first pass, twice bit-identical (K2: survivor indices
    equal), timed with records naming their case.  K5's prefix_causal
    kind (the VLM's mask) at paligemma-3b's heads (Hq 8, Hk 1, D 256) over
@@ -87,10 +89,11 @@ Phases, each of which fails the run (nonzero exit) on any error:
    each holding its greedy tokens to the matching run above, leaking no
    page and launching K1 or K2 L times and K3 7L + 1 times a draft or
    verify step and K4 once per coded plane of both weight sets' first
-   matrices.  Then the dense model zoo at full width and depth:
-   gemma3-4b (34 layers, 29 of them local sliding-window rings of 1024
-   lanes, 5 global; D 256, qk-norm, sandwich norms, GeGLU; 4 slots, paged,
-   max_seq 4096) serves 6 requests of 1100-2000 prompt tokens in the same
+   matrices.  Then the dense model zoo at full width:
+   gemma3-4b with its depth cut to 12 layers (10 local sliding-window rings
+   of 1024 lanes, 2 global; D 256, qk-norm, sandwich norms, GeGLU; 4 slots,
+   paged, max_seq 4096; the traces below run all 34) serves 6 requests of
+   1100-2000 prompt tokens in the same
    five runs, each with every request finished, no page leaked and the
    launch formulas exact (K1 or K2 once per global layer a decode step, K3
    7L + 1, K5 L an eager admission; the ring attends are plain PyTorch and
@@ -114,7 +117,15 @@ Phases, each of which fails the run (nonzero exit) on any error:
    (K2 with its lists in the workspace), and runs one eager admission
    behind a 256 x 1152 patch prefix (K5 18 launches, prefix_causal)
    followed by 8 decode steps (K1 18 a step), printing the reference's
-   ``pos`` convention (the text length).  After
+   ``pos`` convention (the text length).  Then gemma3-1b at full width and
+   depth served through the Scheduler at max_seq 524,288 with bgpp KV, one
+   slot (K2 over the whole row, its selection spanning blocks, 4 launches a
+   step), and the ssm family: mamba2-1.3b at full width and depth (bf16,
+   seed 0) decoding four prompts of 256-448 tokens a token a step from a
+   zero state and 16 greedy tokens (4 slots; ms a step, traced), its
+   forward timed at B 1, S 2048, the forward at chunk 64 held to the
+   decode on an f32 copy of the weights, and its long_500k cache (the same
+   bytes as a short one's, 16 steps).  After
    every timed run, each of
    phi4-mini's chunked runs traces a few steady decode steps, and its
    eager one a whole-prompt admission, and gemma3-4b traces bf16 and bgpp
@@ -139,16 +150,20 @@ Phases, each of which fails the run (nonzero exit) on any error:
    and logits within tolerance, for every KV format, for the int8 and
    bstc weight formats, and with eager admission (the smoke configs of
    mixtral-8x22b and llama4-scout-17b-a16e too), and paligemma-3b-smoke's
-   forward behind its 16-patch prefix within 1e-4 of max |logit|; and the
-   paper layer's
+   forward behind its 16-patch prefix within 1e-4 of max |logit|
+   (mamba2-smoke's decode, in the ssm phase: tokens equal, logits within
+   1e-4); and the paper layer's
    ``brcr_matmul``, batched predictor and examples at the reference
    examples' sizes agree between card and CPU.
 
 The second-to-last lines are the kernels' JSON record and the card line;
 the last line is ``{"ok": true, "device": {...}}``.
 
+Each phase's seconds print as a ``[time]`` line.
+
 ``--only kernels|head-widths|long-context|prefix|score|score-device|decode|
-decode-attends`` (repeatable) runs just those parts of phase 3 (and, for
+decode-attends|ssm|long-serve`` (repeatable) runs just those parts of phase
+3 or 5 (and, for
 ``score`` and ``decode``, K6's or K4's device times; ``decode-attends``
 K1's and K2's device times at the decode geometry, through the public
 wrappers only, so the script copied into an older tree times that tree's
@@ -360,6 +375,7 @@ def k1_case(label, q, kf, vf, table, pos, page, flush=None, iters=20):
 
 
 K2_SOURCE = "src/repro_torch/csrc/bgpp_paged_attend.cu"
+K2_SPAN_SOURCE = "src/repro_torch/csrc/bgpp_paged_attend_long.cu"  # past one cluster
 K2_REPLACES = "src/repro/kernels/bgpp_paged_attend/kernel.py:80"
 
 
@@ -379,15 +395,17 @@ def k2_operands(q, kf, vf, table, pos, page):
     return (q, planes, sign, ks, vq, vs, phys, pos), kq
 
 
-def k2_case(label, args, kq, flush=None):
+def k2_case(label, args, kq, flush=None, arch="phi4-mini-3.8b"):
     """K2 on one input set (:func:`k2_operands`), with the serving plan of
-    its width (``kv_cache.bgpp_decode_plan``): two launches give identical
+    its width (``kv_cache.bgpp_decode_plan`` at ``arch``'s keep ratio and
+    rounds): two launches give identical
     bits, the survivor lanes equal the plain version's and the output rows
     are within :func:`check_rows` of it (plus one probability-code step
     over the survivors), with and without the indices asked for.  With
     ``flush`` the case is timed against its plain version; the
     ``[kernel]`` line names the plan's cluster size, lanes a block and
-    blocks.  Returns ``(max_abs_err, ms, plain_ms)``."""
+    blocks (past one cluster: the tiles a cell of the spanning body).
+    Returns ``(max_abs_err, ms, plain_ms)``."""
     import torch
 
     from repro_torch.configs import get_config
@@ -402,11 +420,13 @@ def k2_case(label, args, kq, flush=None):
     q, planes, sign, ks, vq, vs, phys, pos = args
     B, Hk, g, D = q.shape
     S = phys.shape[1]
-    rounds, k_max, surv = kvc.bgpp_decode_plan(S, get_config("phi4-mini-3.8b"))
+    rounds, k_max, surv = kvc.bgpp_decode_plan(S, get_config(arch))
     p = bgpp_kernel.plan(B, Hk, g, D, S, k_max, surv, sm_count(q.device))
     ws = (f", lists in a {bgpp_kernel.workspace_ints(B, Hk, g, p) * 4 / 2**20:.0f} MiB "
           f"workspace" if p.workspace else "")
-    where = f" {label} (C {p.C}, L {p.L}, {B * Hk * p.C} blocks{ws})"
+    where = (f" {label} (selection spanning blocks: {p.C} tiles of {p.L} a cell, "
+             f"{B * Hk * p.C} blocks a sweep{ws})" if p.spans else
+             f" {label} (C {p.C}, L {p.L}, {B * Hk * p.C} blocks{ws})")
     plan = dict(rounds=rounds, k_max=k_max, survivors=surv)
     got, idx = bgpp_ops.bgpp_paged_attend(*args, **plan, return_indices=True)
     again, idx2 = bgpp_ops.bgpp_paged_attend(*args, **plan, return_indices=True)
@@ -438,20 +458,23 @@ def k2_case(label, args, kq, flush=None):
     return err, ms, plain_ms
 
 
-def k2_record(args, err, ms, plain_ms, table_numel, label):
+def k2_record(args, err, ms, plain_ms, table_numel, label, arch="phi4-mini-3.8b"):
     """K2's JSON record for one timed input set: bound = q and out, the
     page table and positions, the phys map, and per (valid slot, kv head)
     the sign and MSB plane of every valid lane, each round's next plane of
     its survivors and the final survivors' other planes, scales and int8 V
     row, at the HBM rate; its operations (the plane scores' 2 g D a lane
-    and the exact attend's 4 g D a survivor) at the int8 peak."""
+    and the exact attend's 4 g D a survivor) at the int8 peak.  The source
+    is the spanning body's where the plan spans blocks."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.bgpp_paged_attend import kernel as bgpp_kernel
     from repro_torch.serving import kv_cache as kvc
 
     q, _, _, _, _, _, phys, pos = args
     B, Hk, g, D = q.shape
     S = phys.shape[1]
-    rounds, k_max, surv = kvc.bgpp_decode_plan(S, get_config("phi4-mini-3.8b"))
+    rounds, k_max, surv = kvc.bgpp_decode_plan(S, get_config(arch))
+    spans = bgpp_kernel.plan(B, Hk, g, D, S, k_max, surv, 132).spans
     n_valid = [min(int(p) + 1, S) for p in pos.cpu()]
     Dp = D // 8
     io_bytes = q.numel() * 4 * 2 + table_numel * 4 + B * 4  # q, out, table, pos
@@ -462,8 +485,8 @@ def k2_record(args, err, ms, plain_ms, table_numel, label):
                         + sum(min(s, nv) for s in surv[1:]) * Dp  # round planes
                         + kv_rows * ((kvc.NBITS - rounds) * Dp + 4 + D + 4))
     ops = sum(Hk * (nv * g * D * 2 + k_max * g * D * 4) for nv in n_valid)
-    return kernel_record("bgpp_paged_attend", K2_SOURCE, K2_REPLACES, err, ms, plain_ms,
-                         nbytes, ops, "int8", None, label=label)
+    return kernel_record("bgpp_paged_attend", K2_SPAN_SOURCE if spans else K2_SOURCE,
+                         K2_REPLACES, err, ms, plain_ms, nbytes, ops, "int8", None, label=label)
 
 
 DECODE_S, DECODE_PAGE = 1024, 16  # the decode attends' width and page in the main path
@@ -593,21 +616,26 @@ def head_width_phase(device, flush):
 # (name, Hk, g, D) of the long-context phase: the reference's decode_32k
 # for K2 at the geometries whose lists pass shared memory (gemma3-1b,
 # llama4-scout, paligemma-3b; src/repro/configs/shapes.py), and its
-# long_500k for K1 at the sub-quadratic archs' global layers (gemma3-4b,
-# gemma3-1b, llama4-scout)
+# long_500k for K1 and K2 (selection spanning blocks) at the sub-quadratic
+# archs' global layers (gemma3-4b, gemma3-1b, llama4-scout)
 K2_LONG_CASES = (("gemma3-1b", 1, 4, 256), ("llama4-scout", 8, 5, 128),
                  ("paligemma-3b", 1, 8, 256))
 K1_LONG_CASES = (("gemma3-4b", 4, 2, 256), ("gemma3-1b", 1, 4, 256),
                  ("llama4-scout", 8, 5, 128))
 K2_LONG_S, K1_LONG_S = 32768, 524288
+K2_SPAN_NARROW_S = 40000  # past one cluster: the spanning body
+LONG_ARCH = {"gemma3-4b": "gemma3-4b", "gemma3-1b": "gemma3-1b", "paligemma-3b": "paligemma-3b",
+             "llama4-scout": "llama4-scout-17b-a16e"}  # the config whose BGPP plan a case takes
 K2_EARLY_POS, K1_EARLY_POS = 3000, 5000  # inside K2's first block, K1's first pass
 
 
 def long_context_phase(device, flush):
     """The decode attends at the reference's context lengths
     (:data:`K2_LONG_CASES`, :data:`K1_LONG_CASES`; page 16): K2 at
-    decode_32k (S 32768) with its lists in the global workspace, and K1's
-    bf16 and int8 bodies at long_500k (S 524,288) in passes.  Each case has
+    decode_32k (S 32768) with its lists in the global workspace, K2 at
+    long_500k (S 524,288) with its selection spanning blocks, and K1's
+    bf16 and int8 bodies at long_500k in passes, each with its arch's BGPP
+    plan.  Each case has
     two slots, one at the last lane and one ending inside K2's first block
     or K1's first pass (:data:`K2_EARLY_POS`, :data:`K1_EARLY_POS`), is
     held to its plain version within the kernel phase's tolerances (K2: the
@@ -624,8 +652,28 @@ def long_context_phase(device, flush):
         args, kq = k2_operands(*inputs, DECODE_PAGE)
         table_numel = inputs[3].numel()
         del inputs
-        err, ms, plain_ms = k2_case(case, args, kq, flush)
-        records.append(k2_record(args, err, ms, plain_ms, table_numel, f" {case}"))
+        err, ms, plain_ms = k2_case(case, args, kq, flush, arch=LONG_ARCH[name])
+        records.append(k2_record(args, err, ms, plain_ms, table_numel, f" {case}",
+                                 arch=LONG_ARCH[name]))
+        records[-1]["case"] = case
+        del args, kq
+        torch.cuda.empty_cache()
+    # the spanning body at a width it has no instance of (the gemma3-1b smoke
+    # width D 24 runs at 128, its rows byte by byte), checked, not timed
+    inputs = k1_inputs(device, 84, 2, K2_SPAN_NARROW_S, [K2_SPAN_NARROW_S - 1, K2_EARLY_POS],
+                       DECODE_PAGE, 2, 3, 24)
+    k2_case(f"Hk 2 g 3 D 24 page 16 S {K2_SPAN_NARROW_S} B 2", *k2_operands(*inputs, DECODE_PAGE))
+    del inputs
+    for i, (name, Hk, g, D) in enumerate(K1_LONG_CASES):  # K2 at long_500k
+        case = f"{name} Hk {Hk} g {g} D {D} page 16 S {K1_LONG_S} B 2"
+        inputs = k1_inputs(device, 85 + i, 2, K1_LONG_S, [K1_LONG_S - 1, K1_EARLY_POS],
+                           DECODE_PAGE, Hk, g, D)
+        args, kq = k2_operands(*inputs, DECODE_PAGE)
+        table_numel = inputs[3].numel()
+        del inputs
+        err, ms, plain_ms = k2_case(case, args, kq, flush, arch=LONG_ARCH[name])
+        records.append(k2_record(args, err, ms, plain_ms, table_numel, f" {case}",
+                                 arch=LONG_ARCH[name]))
         records[-1]["case"] = case
         del args, kq
         torch.cuda.empty_cache()
@@ -2086,6 +2134,10 @@ MAIN_TRACE = dict(seed=0, n=6, lo=64, hi=512, new=16)
 # in prefill and every eager admission's sliding windows cut; max_seq 4096
 GEMMA_ARCH, GEMMA_TRACE, GEMMA_MAX_SEQ = "gemma3-4b", dict(seed=0, n=6, lo=1100, hi=2000,
                                                            new=16), 4096
+# its depth, cut from 34 to 12 layers (layers 5 and 11 global, 10 rings) to
+# keep the whole script near its time beside the ssm and long_500k phases;
+# width, rings, heads and trace stay
+GEMMA_DEPTH = 12
 # deepseek-7b (an untied head, g 1): one chunked bf16-KV run, 3 requests
 DEEPSEEK_ARCH, DEEPSEEK_TRACE = "deepseek-7b", dict(seed=0, n=3, lo=64, hi=512, new=16)
 # the MoE family at full width, depth cut to fit one card: llama4-scout
@@ -2125,11 +2177,16 @@ def free_device() -> None:
     torch.cuda.empty_cache()
 
 
+def _tree_map(fn, tree):
+    """``fn`` of each tensor of a parameter tree (the same nesting)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def _tree_to(tree, device):
     """A parameter tree's tensors on ``device`` (the same nesting)."""
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+    return _tree_map(lambda t: t.to(device), tree)
 
 
 def init_model(arch, device, depth=None):
@@ -2159,6 +2216,14 @@ def init_model(arch, device, depth=None):
            f"{local})" if n_local else f"{cfg.num_layers} layers")
     if cfg.num_layers != full:
         lay += f", depth cut from {full}"
+    if cfg.family == "ssm":
+        d_in = cfg.ssm_expand * cfg.d_model
+        print(f"[serve] {cfg.name}: {cfg.num_layers} mamba2 layers, d_model {cfg.d_model}, "
+              f"d_inner {d_in} = {d_in // cfg.ssm_head_dim} heads of {cfg.ssm_head_dim}, "
+              f"state {cfg.ssm_state}, conv {cfg.ssm_conv}, vocab {cfg.vocab_size}, tied "
+              f"head, {nparam / 1e9:.3f} B params ({cfg.dtype}) initialised on the card in "
+              f"{time.perf_counter() - t0:.2f} s")
+        return cfg, params
     ffn = f"d_ff {cfg.d_ff}"
     if cfg.num_experts:
         ffn = (f"{cfg.num_experts} experts of d_ff {cfg.d_ff}, top-{cfg.experts_per_token}"
@@ -2171,9 +2236,10 @@ def init_model(arch, device, depth=None):
     return cfg, params
 
 
-def serve_runs(cfg, params, runs, trace_kw, max_seq, device, card, k3_per_step=None):
-    """Serve ``cfg`` in the paged layout (4 slots, page 16, chunk budget
-    128) once per ``(KV format, weight format, admission)`` of ``runs`` on
+def serve_runs(cfg, params, runs, trace_kw, max_seq, device, card, k3_per_step=None,
+               slots=4):
+    """Serve ``cfg`` in the paged layout (``slots`` slots, page 16, chunk
+    budget 128) once per ``(KV format, weight format, admission)`` of ``runs`` on
     the trace ``trace_kw``; every count zeroed just before the Scheduler is
     built and read just after the run.  Each run must finish every request
     with well-formed logits, leak no page (a stack of rings only has no
@@ -2200,7 +2266,8 @@ def serve_runs(cfg, params, runs, trace_kw, max_seq, device, card, k3_per_step=N
     launches, tokens_of, first_logits = {}, {}, {}
     for fmt, wfmt, admission in runs:
         run = f"{cfg.name} {fmt}/{wfmt}/{admission}"
-        layout = kvc.layout_for(cfg, 4, max_seq, kv_format=fmt, layout="paged", page_size=16)
+        layout = kvc.layout_for(cfg, slots, max_seq, kv_format=fmt, layout="paged",
+                                page_size=16)
         G = len(layout.global_layers)
         free_device()
         torch.cuda.synchronize()
@@ -2336,9 +2403,10 @@ def serve_phase(device, card):
 
 
 def zoo_serve_phase(device, card):
-    """The dense model zoo at full width and depth: gemma3-4b (29 local
-    sliding-window layers of 1024 lanes beside 5 global ones, qk-norm,
-    sandwich norms, GeGLU, D 256) for every run of :data:`SERVE_RUNS` on
+    """The dense model zoo at full width: gemma3-4b at :data:`GEMMA_DEPTH`
+    layers (10 local sliding-window layers of 1024 lanes beside 2 global
+    ones, qk-norm, sandwich norms, GeGLU, D 256) for every run of
+    :data:`SERVE_RUNS` on
     :data:`GEMMA_TRACE` at max_seq 4096, and its refusal of speculative
     decoding; then deepseek-7b (an untied head, g 1) once, chunked with
     bf16 KV."""
@@ -2347,7 +2415,7 @@ def zoo_serve_phase(device, card):
     from repro_torch.serving import kv_cache as kvc
     from repro_torch.serving.scheduler import Scheduler
 
-    cfg, params = init_model(GEMMA_ARCH, device)
+    cfg, params = init_model(GEMMA_ARCH, device, depth=GEMMA_DEPTH)
     serve_runs(cfg, params, SERVE_RUNS, GEMMA_TRACE, GEMMA_MAX_SEQ, device, card)
     layout = kvc.layout_for(cfg, 4, GEMMA_MAX_SEQ, kv_format="bf16", layout="paged",
                             page_size=16)
@@ -2398,6 +2466,257 @@ def vlm_serve_phase(device, card):
     vision_prefill(cfg, params, device, card)
     del params
     free_device()
+
+
+# gemma3-1b at the reference's long_500k (configs/shapes.py): one slot of
+# max_seq 524,288, bgpp KV, one prompt of ~300 tokens chunked, 8 decode steps
+LONG_SERVE_ARCH, LONG_SERVE_SEQ = "gemma3-1b", 524288
+LONG_SERVE_RUNS = (("bgpp", "bf16", "chunked"),)
+LONG_SERVE_TRACE = dict(seed=3, n=1, lo=290, hi=310, new=9)
+
+
+def long_serve_phase(device, card):
+    """gemma3-1b at full width and depth (26 layers: 22 sliding-window
+    rings, 4 global) served through the Scheduler at max_seq 524,288 with
+    bgpp KV, one slot: each decode step's K2 scans the whole 524,288-lane
+    row of every global layer with its selection spanning blocks
+    (:func:`serve_runs` checks the request finishes, no page leaks and K2
+    launches 4 x steps)."""
+    cfg, params = init_model(LONG_SERVE_ARCH, device)
+    serve_runs(cfg, params, LONG_SERVE_RUNS, LONG_SERVE_TRACE, LONG_SERVE_SEQ, device, card,
+               slots=1)
+    del params
+    free_device()
+
+
+# mamba2-1.3b (the ssm family) at full width and depth: four prompts fed a
+# token a step from a zero state (multiples of 64, so the forward below runs
+# them at chunk 64), then greedy tokens; the forward timed at B 1, S 2048
+SSM_ARCH = "mamba2-1.3b"
+SSM_PROMPTS = (256, 320, 384, 448)
+SSM_NEW, SSM_MAX_SEQ = 16, 1024
+SSM_FWD_S, SSM_FWD_CHUNK, SSM_CHECK_CHUNK = 2048, 256, 64
+# the forward against the decode, on an f32 copy of the weights: the chunked
+# dual form and the recurrence are two summation orders of one scan (shares
+# of max |logit| and of max |h|, |conv| for layer 0's state).  In bf16 the
+# two paths round at other places and 48 random layers amplify it (on the
+# CPU 15-25 % of max |logit| already at a prompt's first token, where no
+# scan runs), so the bf16 share is printed, not bounded.
+SSM_LOGIT_SHARE, SSM_STATE_SHARE = 1e-3, 1e-3
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def ssm_decode(cfg, params, prompts, new, device, timed=None):
+    """Decode ``prompts`` (one a slot) through ``engine.make_serve_step``
+    from a zero state, a prompt token a step and then greedy tokens, until
+    every slot has ``new`` of them.  Returns each slot's logits at its
+    prompt positions ``(n, V)`` f32, layer 0's state ``(h, conv)`` just
+    after its prompt, its greedy tokens and the cache; ``timed`` (a list)
+    collects each step's CUDA event pair."""
+    import torch
+
+    from repro_torch.serving import engine, kv_cache as kvc
+
+    lens = [len(p) for p in prompts]
+    layout = kvc.layout_for(cfg, len(prompts), SSM_MAX_SEQ)
+    cache = kvc.init_cache_arrays(cfg, layout, device)
+    step = engine.make_serve_step(cfg, layout)
+    if timed is not None:
+        step = _timed(step, timed)
+    logits_at = [torch.empty((n, cfg.vocab_size), dtype=torch.float32, device=device)
+                 for n in lens]
+    state_at, gen = [None] * len(prompts), [[] for _ in prompts]
+    cur = [int(p[0]) for p in prompts]
+    for t in range(max(lens) + max(new, 1) - 1):
+        lg, cache = step(params, cache, torch.tensor(cur, device=device)[:, None])
+        nxt = lg[:, 0].argmax(-1).tolist()
+        for b, n in enumerate(lens):
+            if t < n:
+                logits_at[b][t] = lg[b, 0].float()
+            if t == n - 1:
+                state_at[b] = (cache["mamba"]["h"][0, b].clone(),
+                               cache["mamba"]["conv"][0, b].clone())
+            if t >= n - 1 and len(gen[b]) < new:
+                gen[b].append(nxt[b])
+            cur[b] = int(prompts[b][t + 1]) if t + 1 < n else nxt[b]
+    return logits_at, state_at, gen, cache, layout
+
+
+def ssm_forward_check(cfg, params, prompts, logits_at, state_at, device):
+    """``model_zoo.forward`` at chunk :data:`SSM_CHECK_CHUNK` over each
+    prompt against :func:`ssm_decode`'s logits at every prompt position,
+    and layer 0's ``mixer_apply(return_state=True)`` state after the
+    prompt against the decode's.  Returns the largest shares: logits of
+    max |logit|, h of max |h|, the conv window of max |conv|, and whether
+    every last position's argmax is the decode's."""
+    import torch
+
+    from repro_torch.models import layers, mamba2, model_zoo, transformer
+
+    p0 = transformer.layer_params(params["layers"], 0)
+    worst, same = [0.0, 0.0, 0.0], True
+    for b, prompt in enumerate(prompts):
+        tokens = torch.as_tensor(prompt, device=device)[None]
+        lf, _ = model_zoo.forward(params, cfg, {"tokens": tokens}, chunk=SSM_CHECK_CHUNK)
+        lf, ld = lf[0].float(), logits_at[b]
+        x = layers.apply_norm(transformer.embed_tokens(params, cfg, tokens), p0["norm"],
+                              cfg.norm)
+        _, st = mamba2.mixer_apply(p0["mixer"], cfg, x, chunk=SSM_CHECK_CHUNK,
+                                   return_state=True)
+        h, conv = state_at[b][0], state_at[b][1].float()
+        shares = (float((lf - ld).abs().max() / ld.abs().max()),
+                  float((st["h"][0] - h).abs().max() / h.abs().max()),
+                  float((st["conv"][0].float() - conv).abs().max() / conv.abs().max()))
+        worst = [max(w, v) for w, v in zip(worst, shares)]
+        same &= int(lf[-1].argmax()) == int(ld[-1].argmax())
+    return worst, same
+
+
+def ssm_phase(device, card):
+    """mamba2-1.3b on the card, as the reference decodes it: through
+    ``engine.make_serve_step`` alone from a zero state.
+
+    * Decode (bf16): 4 slots (max_seq 1024, the slot layout ``layout_for``
+      gives), the prompts of :data:`SSM_PROMPTS` fed a token a step, then
+      :data:`SSM_NEW` greedy tokens each (:func:`ssm_decode`): ms a step
+      (CUDA events), no kernel launched (the family runs none), peak GiB
+      and the state's bytes; then 4 steps traced (device busy share, top
+      device items).
+    * Forward: ``model_zoo.forward`` at B 1, S 2048, chunk 256 timed (device
+      ms, peak GiB); at chunk 64 over each prompt against the decode
+      (:func:`ssm_forward_check`): in bf16 the shares are printed; on an
+      f32 copy of the same weights the prompts are decoded again and the
+      logits must agree within :data:`SSM_LOGIT_SHARE` of max |logit|,
+      argmax equal at each last position, and layer 0's state within
+      :data:`SSM_STATE_SHARE`.
+    * long_500k: ``layout_for`` at B 1, max_seq 524,288 allocates the bytes
+      of max_seq 1024; 16 steps run.
+    * The CPU plain path: mamba2-smoke (f32) on the card and on the CPU,
+      24 greedy steps of 2 slots: tokens equal, logits within 1e-4."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo
+    from repro_torch.serving import engine, kv_cache as kvc
+
+    cfg, params = init_model(SSM_ARCH, device)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in SSM_PROMPTS]
+    B, V = len(prompts), cfg.vocab_size
+    free_device()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    spans = []
+    t0 = time.perf_counter()
+    logits_at, state_at, gen, cache, layout = ssm_decode(cfg, params, prompts, SSM_NEW, device,
+                                                         timed=spans)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: v for k, v in K.LAUNCHES.items() if v}
+    if launched:
+        raise AssertionError(f"{cfg.name} decode launched kernels: {launched}")
+    n_steps = len(spans)
+    if list(map(len, gen)) != [SSM_NEW] * B or int(cache["pos"].min()) != n_steps:
+        raise AssertionError(f"{cfg.name} decode: {list(map(len, gen))} tokens, pos "
+                             f"{cache['pos'].tolist()}")
+    state_bytes = _nbytes(cache["mamba"])
+    ms = np.mean([a.elapsed_time(b) for a, b in spans])
+    print(f"[ssm] {cfg.name} decode, {B} slots ({layout.layout} layout, max_seq "
+          f"{SSM_MAX_SEQ}): prompts of {SSM_PROMPTS} tokens fed a token a step from a zero "
+          f"state, then {SSM_NEW} greedy tokens each, {n_steps} steps in {wall:.2f} s: "
+          f"{ms:.3f} ms a step (CUDA events); launches: none; state {state_bytes} B "
+          f"({state_bytes / B / 1e6:.3f} MB a slot: {cfg.num_layers} x (h {cfg.ssm_head_dim}x"
+          f"{cfg.ssm_state} f32 x {cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} heads "
+          f"+ conv window)); kv_read {kvc.decode_read_bytes(layout, cfg)['total']:.0f} B a "
+          f"step (the reference's counter leaves the state out); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; first tokens "
+          f"{[g[:4] for g in gen]} [{card}]")
+    step = engine.make_serve_step(cfg, layout)
+    toks = torch.tensor([g[-1] for g in gen], device=device)[:, None]
+    _traced(lambda: [step(params, cache, toks) for _ in range(4)],
+            f"{cfg.name} decode: 4 steps of {B} slots", top=8)
+    del cache
+
+    # the whole-sequence forward, timed, then held to the decode
+    fwd = torch.as_tensor(rng.integers(0, V, (1, SSM_FWD_S)), device=device)
+    free_device()
+    torch.cuda.reset_peak_memory_stats()
+    run = lambda: model_zoo.forward(params, cfg, {"tokens": fwd}, chunk=SSM_FWD_CHUNK)
+    fwd_ms = time_ms(run, iters=3)
+    print(f"[ssm] {cfg.name} forward B 1, S {SSM_FWD_S}, chunk {SSM_FWD_CHUNK}: {fwd_ms:.3f} "
+          f"ms (CUDA events, 3 calls), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB [{card}]")
+    bf16, same16 = ssm_forward_check(cfg, params, prompts, logits_at, state_at, device)
+    del logits_at, state_at
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = _tree_map(lambda t: t.float(), params)
+    logits32, state32, _, cache32, _ = ssm_decode(cfg32, params32, prompts, 0, device)
+    del cache32
+    f32, same32 = ssm_forward_check(cfg32, params32, prompts, logits32, state32, device)
+    del logits32, state32, params32
+    if f32[0] > SSM_LOGIT_SHARE or max(f32[1:]) > SSM_STATE_SHARE or not same32:
+        raise AssertionError(f"{cfg.name} f32 forward vs decode: {f32} of max (bounds "
+                             f"{SSM_LOGIT_SHARE} / {SSM_STATE_SHARE}), last argmax equal "
+                             f"{same32}")
+    print(f"[ssm] {cfg.name} forward (chunk {SSM_CHECK_CHUNK}) vs the token-by-token decode "
+          f"over the four prompts, on an f32 copy of the weights: logits at every prompt "
+          f"position within {f32[0]:.3e} of max |logit| (bound {SSM_LOGIT_SHARE}), argmax "
+          f"equal at each last position; layer 0's mixer_apply(return_state=True) state "
+          f"within {f32[1]:.3e} (h) and {f32[2]:.3e} (conv window) of max (bound "
+          f"{SSM_STATE_SHARE}).  In {cfg.dtype} (not bounded: rounding through "
+          f"{cfg.num_layers} layers): logits {bf16[0]:.3e}, h {bf16[1]:.3e}, conv {bf16[2]:.3e}, last argmax "
+          f"equal {same16}")
+
+    # long_500k: the same state bytes; 16 steps
+    free_device()
+    long_lay = kvc.layout_for(cfg, 1, 524288)
+    long_cache = kvc.init_cache_arrays(cfg, long_lay, device)
+    short = _nbytes(kvc.init_cache_arrays(cfg, kvc.layout_for(cfg, 1, SSM_MAX_SEQ), device))
+    if _nbytes(long_cache) != short:
+        raise AssertionError(f"{cfg.name}: max_seq 524288 allocates {_nbytes(long_cache)} B, "
+                             f"max_seq {SSM_MAX_SEQ} {short} B")
+    spans = []
+    long_step = _timed(engine.make_serve_step(cfg, long_lay), spans)
+    tok = torch.tensor([[int(prompts[0][0])]], device=device)
+    for _ in range(16):
+        lg, long_cache = long_step(params, long_cache, tok)
+        tok = lg[:, 0].argmax(-1)[:, None]
+    if not bool(torch.isfinite(lg).all()) or int(long_cache["pos"][0]) != 16:
+        raise AssertionError(f"{cfg.name} long_500k decode is malformed")
+    print(f"[ssm] {cfg.name} long_500k (B 1, max_seq 524288): cache {_nbytes(long_cache)} B, "
+          f"the same as at max_seq {SSM_MAX_SEQ}; 16 steps at "
+          f"{np.mean([a.elapsed_time(b) for a, b in spans]):.3f} ms a step [{card}]")
+    del params, long_cache
+    free_device()
+
+    # the CPU plain path
+    scfg = get_config(SSM_ARCH, smoke=True)
+    cpu = model_zoo.init(scfg, torch.Generator().manual_seed(0), "cpu")
+    out = {}
+    for key, dev, p in (("cpu", "cpu", cpu), ("card", device, _tree_to(cpu, device))):
+        lay = kvc.layout_for(scfg, 2, 64)
+        c = kvc.init_cache_arrays(scfg, lay, dev)
+        st = engine.make_serve_step(scfg, lay)
+        tok = torch.tensor([[1], [2]], device=dev)
+        rows, toks = [], []
+        for _ in range(24):
+            lg, c = st(p, c, tok)
+            tok = lg[:, 0].argmax(-1)[:, None]
+            rows.append(lg[:, 0].float().cpu())
+            toks.append(tok[:, 0].tolist())
+        out[key] = (torch.stack(rows), toks)
+    diff = float((out["card"][0] - out["cpu"][0]).abs().max())
+    if out["card"][1] != out["cpu"][1] or diff > 1e-4:
+        raise AssertionError(f"{scfg.name}: card and CPU differ (logits {diff:.3e})")
+    print(f"[check] {scfg.name} (f32): 24 greedy steps of 2 slots, card and CPU tokens equal, "
+          f"logits within {diff:.3e} (bound 1e-4)")
 
 
 def vision_prefill(cfg, params, device, card):
@@ -2909,7 +3228,7 @@ def paper_reference_phase(device):
 
 
 PHASES = ("kernels", "head-widths", "long-context", "prefix", "score", "score-device", "decode",
-          "decode-attends")
+          "decode-attends", "ssm", "long-serve")
 
 
 def main(argv=None) -> int:
@@ -2918,10 +3237,12 @@ def main(argv=None) -> int:
         "--only", action="append", choices=PHASES,
         help="run only these phases (repeatable), for work on one kernel: 'kernels' is "
              "phase 3 without K6, 'head-widths' its head-width cases, 'long-context' K1 at "
-             "524,288 and K2 at 32768 lanes, 'prefix' K5's prefix_causal, 'score' K6's checks "
+             "524,288 and K2 at 32768 and 524,288 lanes, 'prefix' K5's prefix_causal, 'score' K6's checks "
              "and device times, 'score-device' K6's device times alone, 'decode' K4's checks "
              "and device times, 'decode-attends' K1's and K2's device times at the decode "
-             "geometry alone (public wrappers only: it runs on an older tree too); without it "
+             "geometry alone (public wrappers only: it runs on an older tree too), 'ssm' "
+             "mamba2-1.3b's decode, forward and long_500k cache and mamba2-smoke against the "
+             "CPU, 'long-serve' gemma3-1b served at max_seq 524,288; without it "
              "every phase "
              "runs and the records are printed")
     only = parser.parse_args(argv).only
@@ -2945,24 +3266,32 @@ def main(argv=None) -> int:
     run = lambda phase: only is None or phase in only
     l2 = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     flush = lambda: l2.zero_()
+
+    def timed(fn, *args):
+        """``fn(*args)``, its seconds printed as a ``[time]`` line."""
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"[time] {fn.__name__}: {time.perf_counter() - t:.1f} s")
+        return out
+
     records = []
     if run("kernels"):
-        records += kernel_phase(device, flush)
-        records += bstc_kernel_phase(device, flush)
+        records += timed(kernel_phase, device, flush)
+        records += timed(bstc_kernel_phase, device, flush)
     if run("kernels") or run("decode"):
-        records.append(decode_kernel_phase(device, flush))
+        records.append(timed(decode_kernel_phase, device, flush))
     if run("kernels"):
-        records += flash_kernel_phase(device, flush)
+        records += timed(flash_kernel_phase, device, flush)
     if run("head-widths"):
-        records += head_width_phase(device, flush)
+        records += timed(head_width_phase, device, flush)
     if run("long-context"):
-        records += long_context_phase(device, flush)
+        records += timed(long_context_phase, device, flush)
     if run("prefix"):
-        records.append(flash_prefix_phase(device, flush))
+        records.append(timed(flash_prefix_phase, device, flush))
     if run("score"):
-        records += bgpp_kernel_phase(device, flush)
+        records += timed(bgpp_kernel_phase, device, flush)
     if run("kernels"):
-        brcr_kernel_phase(device, flush)
+        timed(brcr_kernel_phase, device, flush)
     if only is not None:  # a partial run: device times of what it ran, no records
         if run("score") or run("score-device"):
             score_device_phase(device)
@@ -2970,29 +3299,29 @@ def main(argv=None) -> int:
             decode_device_phase(device)
         if run("decode-attends"):
             decode_attend_times(device)
+        if run("long-serve"):
+            timed(long_serve_phase, device, card)
+        if run("ssm"):
+            timed(ssm_phase, device, card)
         torch.cuda.synchronize()
         print(card)
         return 0
-    paper_launches, k7 = paper_phase(device, flush)
+    paper_launches, k7 = timed(paper_phase, device, flush)
     records.append(k7)
     del l2
 
-    launches = serve_phase(device, card)
-    zoo_serve_phase(device, card)
-    moe_serve_phase(device, card)
-    vlm_serve_phase(device, card)
-    trace_phase(device)
-    flash_device_phase(device)
-    bstc_device_phase(device)
-    decode_device_phase(device)
-    bgpp_device_phase(device)
-    score_device_phase(device)
-    brcr_device_phase(device)
+    launches = timed(serve_phase, device, card)
+    for phase in (zoo_serve_phase, moe_serve_phase, vlm_serve_phase, long_serve_phase,
+                  ssm_phase):
+        timed(phase, device, card)
+    for phase in (trace_phase, flash_device_phase, bstc_device_phase, decode_device_phase,
+                  bgpp_device_phase, score_device_phase, brcr_device_phase):
+        timed(phase, device)
     launches.update(paper_launches)
     for r in records:
         r["launches"] = launches[r["name"]]
-    reference_phase(device)
-    paper_reference_phase(device)
+    timed(reference_phase, device)
+    timed(paper_reference_phase, device)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": records}))
     print(card)

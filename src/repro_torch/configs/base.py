@@ -8,8 +8,11 @@ knobs and speculative decoding).  The port keeps its own copy (it imports
 nothing of ``repro``).  Each architecture file registers its published
 config plus a reduced ``smoke`` variant used by the CPU tests.
 
-The port serves the ``dense``, ``moe`` and ``vlm`` families; every entry point
-refuses another family with :func:`require_served`'s error.
+The port serves the ``dense``, ``moe``, ``vlm`` and ``ssm`` families; every
+entry point refuses another family with :func:`require_served`'s error, and
+the transformer-only ones (prefill, chunked admission, the Scheduler, the
+launcher) refuse ssm with :func:`require_transformer`'s, as the reference
+does.
 """
 
 from __future__ import annotations
@@ -246,14 +249,18 @@ def _param_count(cfg: ModelConfig, active_only: bool) -> int:
     return total
 
 
-# families the port serves (a transformer stack: every layer attention, the
-# MoE family with an expert FFN in every layer, the VLM's image prefix)
-SERVED_FAMILIES = ("dense", "moe", "vlm")
+# the transformer families (every layer attention, the MoE family with an
+# expert FFN in every layer, the VLM's image prefix): the ones the
+# reference's prefill, chunked admission, Scheduler, launcher and converted
+# weight formats take
+TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
+# families the port serves: the transformer stack and the attention-free
+# ssm (models/mamba2.py), which decodes through make_serve_step alone
+SERVED_FAMILIES = TRANSFORMER_FAMILIES + ("ssm",)
 
 # ROADMAP Queue 1 item that ports each family the port does not serve yet
 _FAMILY_ITEM = {
-    "ssm": "ROADMAP Queue 1, item 6 (models/mamba2.py)",
-    "hybrid": "ROADMAP Queue 1, items 6 (models/hybrid.py) and 7 (sharding)",
+    "hybrid": "ROADMAP Queue 1, items 6c (models/hybrid.py) and 7 (sharding)",
     "enc_dec": "ROADMAP Queue 1, item 6 (models/whisper.py)",
 }
 
@@ -273,6 +280,19 @@ def require_served(cfg, who: str) -> None:
             f"{who}: {cfg.name} is of family {cfg.family!r} with moe_every="
             f"{cfg.moe_every}; mixed MoE / dense stacks are the hybrid's "
             f"({_FAMILY_ITEM['hybrid']})")
+
+
+def require_transformer(cfg, who: str) -> None:
+    """Refuse what :func:`require_served` refuses, and the ssm family at an
+    entry point of the transformer families alone, with the reference's
+    reason: ssm decodes through ``make_serve_step`` from a zero state."""
+    require_served(cfg, who)
+    if cfg.family not in TRANSFORMER_FAMILIES:
+        raise ValueError(
+            f"{who}: {cfg.name} is of family {cfg.family!r}; {who} covers the "
+            f"transformer families ({', '.join(TRANSFORMER_FAMILIES)}) only: "
+            f"{cfg.family} decodes through make_serve_step directly, from a zero "
+            f"state, as in the reference")
 
 
 ARCH_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}

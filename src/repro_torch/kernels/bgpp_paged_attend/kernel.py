@@ -18,10 +18,16 @@ keys, two lists of ``L`` entries (lane and ``g`` partial scores in whole
 DP)`` PV partials at the compiled width.  Where the two lists do not fit
 beside the rest even at ``MAX_CLUSTER`` blocks, the plan puts them in a
 global workspace (:func:`workspace_ints`; ``Plan.workspace``), which the
-wrapper allocates on q's device.  The context cap (:func:`max_lanes`) is
-then the block sort's alone: ``MAX_CLUSTER * MAX_LIST`` = 32768 lanes at
-every g <= 8 and D <= 256, the reference's decode_32k context.  Past it a
-selection would have to span clusters.
+wrapper allocates on q's device.  One cluster then takes the block
+sort's ``MAX_CLUSTER * MAX_LIST`` = 32768 lanes at every g <= 8 and D <=
+256 (:func:`cluster_lanes`), the reference's decode_32k context.
+
+Past one cluster the plan is the body whose selection spans blocks
+(``csrc/bgpp_paged_attend_long.cu``; ``Plan.spans``): a sequence of
+launches over ``B * Hk`` cells of ``C`` tiles of ``LONG_TILE`` entries a
+cell, each round's list ranked by a global radix sort, everything in the
+workspace.  Its cap (:func:`max_lanes`) is the reference's largest assigned
+context, long_500k's 524,288 lanes.
 """
 
 from __future__ import annotations
@@ -41,6 +47,8 @@ MAX_CLUSTER = 8  # the portable cluster size
 MAX_SLOTS = 16  # kMaxSlots: keys a thread holds in the block sort
 MAX_LIST = MAX_SLOTS * THREADS  # the most entries a block's list may hold
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the source's compiled widths DP
+LONG_TILE = 4096  # kTile in bgpp_paged_attend_long.cu: entries a block in every sweep
+LONG_MAX_LANES = 524_288  # the reference's long_500k context (configs/shapes.py)
 
 
 class Plan(NamedTuple):
@@ -48,13 +56,17 @@ class Plan(NamedTuple):
     round-0 lanes a block, ``caps[r]`` ranks a block owns in the list of
     round ``r`` (``r = rounds``: the final ``k_max`` survivors), ``smem``
     bytes of shared memory a block and whether the lists lie in a global
-    workspace (``workspace``) instead of shared memory."""
+    workspace (``workspace``) instead of shared memory.  With ``spans`` the
+    selection spans blocks: ``C`` tiles of ``L = LONG_TILE`` entries cover
+    a cell's round-0 list, ``caps[r]`` tiles the list of round ``r``, and
+    the blocks are no cluster (``smem`` 0: static shared memory only)."""
 
     C: int
     L: int
     caps: Tuple[int, ...]
     smem: int
     workspace: bool = False
+    spans: bool = False
 
 
 def _pow2(n: int) -> int:
@@ -69,6 +81,12 @@ def padded_dim(D: int) -> int:
             return DP
     raise ValueError(f"bgpp_paged_attend: head_dim D={D} is over the widest compiled "
                      f"width {HEAD_DIMS[-1]}")
+
+
+def long_dim(D: int) -> int:
+    """The compiled width the spanning body runs a head width ``D`` at: 128
+    up to 128, else 256 (its only two; the true D goes in at run time)."""
+    return 128 if D <= 128 else 256
 
 
 def header_bytes(D: int) -> int:
@@ -96,8 +114,8 @@ def smem_bytes(g: int, D: int, L: int, workspace: bool = False) -> int:
             + lists + 4 * WARPS * g * padded_dim(D))
 
 
-def max_lanes(g: int, D: int) -> int:
-    """The most lanes a slot may have at group ``g`` and head dim ``D``:
+def cluster_lanes(g: int, D: int) -> int:
+    """The most lanes one cluster takes at group ``g`` and head dim ``D``:
     ``MAX_CLUSTER`` blocks, each with the most lanes the block sort takes
     (``MAX_LIST``) and, beside its lists in the workspace, shared memory
     takes: 32768 at every g <= 8 and D <= 256."""
@@ -107,12 +125,32 @@ def max_lanes(g: int, D: int) -> int:
     return MAX_CLUSTER * L
 
 
+def max_lanes(g: int, D: int) -> int:
+    """The most lanes a slot may have at group ``g`` and head dim ``D``:
+    past :func:`cluster_lanes` the selection spans blocks, up to
+    ``LONG_MAX_LANES`` (524,288) at every g <= 8 and D <= 256."""
+    return max(cluster_lanes(g, D), LONG_MAX_LANES)
+
+
 def workspace_ints(B: int, Hk: int, g: int, p: Plan) -> int:
-    """Ints of the global workspace a launch of plan ``p`` needs: two
-    lists of ``L`` entries for each of its ``B * Hk * C`` blocks (64 MiB at
-    llama4-scout's B 4, Hk 8, g 5 over 32768 lanes), or 0 when the lists
-    fit in shared memory."""
-    return B * Hk * p.C * 2 * p.L * entry_ints(g) if p.workspace else 0
+    """Ints of the global workspace a launch of plan ``p`` needs, or 0 when
+    the lists fit in shared memory.  Single cluster: two lists of ``L``
+    entries for each of its ``B * Hk * C`` blocks (64 MiB at llama4-scout's
+    B 4, Hk 8, g 5 over 32768 lanes).  Spanning blocks, per cell over the
+    ``W = C * L`` padded lanes and ``K = caps[-1] * L`` padded survivors
+    (``Ws`` in the source): two key buffers (8 B a lane), two lists (lane
+    and ``g`` partials), the PV sums (``(g, 256)`` int64), the tile
+    histograms (256 a tile), 32 pass flags, three statistics a final tile
+    and ``g`` row, and the survivors' pool rows, v_scales and ``g``
+    logits: 64 + 8 g B a lane, 35.4 MiB a cell at S 524,288, g 5."""
+    if not p.workspace:
+        return 0
+    if not p.spans:
+        return B * Hk * p.C * 2 * p.L * entry_ints(g)
+    W, F = p.C * p.L, p.caps[-1]
+    K = F * p.L
+    return B * Hk * (W * (6 + 2 * g) + 2 * g * HEAD_DIMS[-1] + p.C * 256 + 32
+                     + F * 3 * g + K * (2 + g))
 
 
 def list_widths(S: int, k_max: int, survivors: Tuple[int, ...]) -> Tuple[int, ...]:
@@ -134,7 +172,17 @@ def plan(B: int, Hk: int, g: int, D: int, S: int, k_max: int,
     they fit the sort but their lists do not fit shared memory, the lists
     go to the workspace (``workspace``: S 32768 at g >= 4, or at g 3 and
     D 256).  ``D`` is the true head width; shared memory is that of its
-    compiled width.  Raises when no ``C`` fits, with the cap."""
+    compiled width.  Past :func:`cluster_lanes` the selection spans blocks
+    (``spans``): ``ceil(S / LONG_TILE)`` tiles a cell (128 at S 524,288).
+    Raises past :func:`max_lanes`, with the cap."""
+    if S > cluster_lanes(g, D):
+        if S > LONG_MAX_LANES:
+            raise ValueError(
+                f"bgpp_paged_attend: S={S} lanes are past the spanning body's reach; "
+                f"the cap at g={g}, D={D} is {max_lanes(g, D)} lanes (the reference's "
+                f"long_500k context)")
+        tiles = tuple(-(-w // LONG_TILE) for w in list_widths(S, k_max, survivors))
+        return Plan(tiles[0], LONG_TILE, tiles, 0, workspace=True, spans=True)
     C = 1
     while C < MAX_CLUSTER and 2 * C <= S and B * Hk * 2 * C <= sms:
         C *= 2
@@ -148,24 +196,20 @@ def plan(B: int, Hk: int, g: int, D: int, S: int, k_max: int,
             ws_smem = smem_bytes(g, D, L, workspace=True)
             if ws_smem <= build.MAX_SMEM:
                 return Plan(C, L, caps, ws_smem, workspace=True)
-        if C == MAX_CLUSTER:
-            raise ValueError(
-                f"bgpp_paged_attend: S={S} lanes need {L} lanes and {smem} B of "
-                f"shared memory in each of {C} blocks, over the block sort's "
-                f"{MAX_LIST} or the block's {build.MAX_SMEM} B; the cap at g={g}, "
-                f"D={D} is {max_lanes(g, D)} lanes"
-            )
         C *= 2
 
 
-def wide_rows(k_planes: torch.Tensor, k_sign: torch.Tensor, v: torch.Tensor) -> int:
-    """The kernel's load widths: bit 0 when every packed plane and sign
-    row is the compiled width's ``DP / 8`` bytes on a boundary of that
-    many (16 at most; D is then a compiled width), bit 1 when every V row
-    starts on an 8-byte boundary.  Rows without them load byte by byte."""
+def wide_rows(k_planes: torch.Tensor, k_sign: torch.Tensor, v: torch.Tensor,
+              DP: int = 0) -> int:
+    """The kernel's load widths at compiled width ``DP`` (default the
+    single-cluster body's, :func:`padded_dim`): bit 0 when every packed
+    plane and sign row is ``DP / 8`` bytes on a boundary of that many (16
+    at most; D is then DP), bit 1 when every V row starts on an 8-byte
+    boundary.  Rows without them load byte by byte."""
     D = 8 * k_planes.shape[-1]
-    a = min(16, padded_dim(D) // 8)
-    planes = D == padded_dim(D) and all(
+    DP = DP or padded_dim(D)
+    a = min(16, DP // 8)
+    planes = D == DP and all(
         t.data_ptr() % a == 0 and all(s % a == 0 for s in t.stride()[:-1])
         for t in (k_planes, k_sign))
     rows = v.data_ptr() % 8 == 0 and all(s % 8 == 0 for s in v.stride()[:2])
@@ -180,19 +224,24 @@ def launch(q, k_planes, k_sign, k_scale, v, v_scale, phys, pos, out,
     lib = build.load()
     B, Hk, g, D = q.shape
     S = phys.shape[1]
-    C, _, caps, smem, _ = geometry
+    C, _, caps, smem, _, spans = geometry
     widths = list_widths(S, k_max, survivors)
     # host arrays, alive past the call
     w_arr = (ctypes.c_int * len(widths))(*widths)
     c_arr = (ctypes.c_int * len(caps))(*caps)
-    err = lib.bgpp_paged_attend_launch(
-        q.data_ptr(), k_planes.data_ptr(), k_sign.data_ptr(), k_scale.data_ptr(),
-        v.data_ptr(), v_scale.data_ptr(), phys.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), None if out_idx is None else out_idx.data_ptr(),
-        None if ws is None else ws.data_ptr(), B, Hk, g, D, padded_dim(D), S, k_planes.shape[0], len(survivors), w_arr, c_arr, C,
-        smem, query_bits, k_planes.stride(0), k_planes.stride(1), k_planes.stride(2),
-        v.stride(0), v.stride(1), k_scale.stride(0), k_scale.stride(1),
-        wide_rows(k_planes, k_sign, v), D ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    operands = (q.data_ptr(), k_planes.data_ptr(), k_sign.data_ptr(), k_scale.data_ptr(),
+                v.data_ptr(), v_scale.data_ptr(), phys.data_ptr(), pos.data_ptr(),
+                out.data_ptr(), None if out_idx is None else out_idx.data_ptr())
+    DP = long_dim(D) if spans else padded_dim(D)
+    shape = (B, Hk, g, D, DP, S, k_planes.shape[0], len(survivors), w_arr)
+    strides = (k_planes.stride(0), k_planes.stride(1), k_planes.stride(2), v.stride(0),
+               v.stride(1), k_scale.stride(0), k_scale.stride(1))
+    tail = (wide_rows(k_planes, k_sign, v, DP), D ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if spans:
+        err = lib.bgpp_paged_attend_long_launch(*operands, ws.data_ptr(), ws.numel(), *shape,
+                                                query_bits, *strides, *tail)
+    else:
+        err = lib.bgpp_paged_attend_launch(*operands, None if ws is None else ws.data_ptr(),
+                                           *shape, c_arr, C, smem, query_bits, *strides, *tail)
     build.check(err, "bgpp_paged_attend")

@@ -89,7 +89,9 @@ def _validate(q, k_planes, k_sign, k_scale, v, v_scale, phys, pos,
 def _validate_cuda(q, k_planes, k_sign, k_scale, v, v_scale, phys, pos, k_max,
                    survivors) -> kernel.Plan:
     """What the CUDA kernel additionally requires of its operands; returns
-    the launch's :func:`kernel.plan` (which raises past the context cap).
+    the launch's :func:`kernel.plan` (which raises past the context cap,
+    524,288 lanes; past one cluster's 32768 it plans the body whose
+    selection spans blocks, and the workspace below holds its lists).
     Every D (a multiple of 8) up to 256 runs, at its compiled width
     (:func:`kernel.padded_dim`), and rows at any alignment (vector loads
     where they allow, :func:`kernel.wide_rows`); the refusals are g > 8,

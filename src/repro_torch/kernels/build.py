@@ -142,6 +142,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         L, L, L, L,  # v token/head strides, scale token/head strides
         I, F, P,  # wide rows, scale, stream
     ]
+    lib.bgpp_paged_attend_long_launch.argtypes = [
+        P, P, P, P, P, P, P, P, P, P,  # q, planes, sign, ks, v, vs, phys, pos, out, out_idx
+        P, L,  # the workspace and its ints
+        I, I, I, I, I, I,  # B, Hk, g, D, compiled width, S
+        I, I, P, I,  # nbits, rounds, list widths (host int array), query_bits
+        L, L, L,  # plane strides: plane, token, head (sign shares token/head)
+        L, L, L, L,  # v token/head strides, scale token/head strides
+        I, F, P,  # wide rows, scale, stream
+    ]
     lib.bstc_decode_launch.argtypes = [
         P, P, P, P,  # bitmap, tile_offsets, patterns, out
         I, I, I, I,  # G, H, tile_k, cap
@@ -175,6 +184,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                lib.paged_flash_decode_int8_launch,
                lib.paged_flash_decode_pass_launch,
                lib.bgpp_paged_attend_launch,
+               lib.bgpp_paged_attend_long_launch,
                lib.bstc_decode_launch,
                lib.bstc_matmul_launch,
                lib.flash_attention_launch,

@@ -21,7 +21,9 @@ rings 3:1 with global layers), and so does the VLM paligemma-3b, text
 prompts only, through chunked admission as the reference's Scheduler serves
 it (its image prefix enters only through ``engine.prefill`` /
 ``prefill_into_slot``, so ``--admission eager`` raises for it); the others
-are refused with an error that names their family.  ``--full`` at
+are refused with an error that names their family (mamba2-1.3b, which
+the reference's launcher refuses too, decodes through
+``engine.make_serve_step`` alone).  ``--full`` at
 paligemma-3b is the whole model (2.5 B parameters) on one card.  It runs on ``--device cuda`` unless told otherwise;
 ``--full`` serves the published full-width config instead of the smoke
 one, and ``--layers`` cuts its depth (a full MoE config does not fit one
@@ -55,7 +57,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import (ARCH_REGISTRY, WEIGHT_FORMATS, apply_bgpp_overrides,
                                  apply_spec_decode_overrides, apply_weight_format_override,
-                                 get_config)
+                                 get_config, require_transformer)
 from repro_torch.models import model_zoo
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving.request import poisson_trace
@@ -115,6 +117,7 @@ def main(argv=None):
     cfg = apply_weight_format_override(cfg, args.weight_format)
     cfg = apply_spec_decode_overrides(cfg, enabled=args.spec_decode or None,
                                       gamma=args.draft_gamma, planes=args.draft_planes)
+    require_transformer(cfg, "launch.serve")
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     gen = torch.Generator(device=device).manual_seed(0)

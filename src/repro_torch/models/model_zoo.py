@@ -1,10 +1,11 @@
 """Family dispatch for the registered architectures.
 
 Counterpart of :mod:`repro.models.model_zoo`.  The port serves the dense,
-MoE and VLM families, all on :mod:`repro_torch.models.transformer` (an MoE
+MoE and VLM families on :mod:`repro_torch.models.transformer` (an MoE
 config's layers carry :mod:`repro_torch.models.moe` FFNs; a VLM's forward
-puts its projected image patches before the tokens); every other
-family raises the ``ValueError`` of
+puts its projected image patches before the tokens) and the ssm family on
+:mod:`repro_torch.models.mamba2`; every other family raises the
+``ValueError`` of
 :func:`repro_torch.configs.base.require_served`, which names the family
 and the roadmap item that ports it.  There are no
 logical-axis specs: sharding is a later slice.
@@ -17,23 +18,27 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import require_served
-from repro_torch.models import transformer
+from repro_torch.models import mamba2, transformer
 
 Params = Dict[str, Any]
 
 
 def init(cfg, generator: torch.Generator, device="cuda") -> Params:
     """Random parameters for ``cfg`` on ``device`` (see
-    :func:`transformer.init_params`)."""
+    :func:`transformer.init_params`, :func:`mamba2.init`)."""
     require_served(cfg, "model_zoo.init")
+    if cfg.family == "ssm":
+        return mamba2.init(cfg, generator, device)
     return transformer.init_params(cfg, generator, device)
 
 
 def forward(params: Params, cfg, batch: Dict[str, torch.Tensor], **kw):
     """batch ``{"tokens": (B, S)}`` (a VLM's also ``"vision": (B, Tv,
     d_vision)``) -> ``(logits, aux_loss)`` (plus the stacked K/V with
-    ``return_kv=True``)."""
+    ``return_kv=True``; an ssm model takes ``chunk``, the SSD scan's)."""
     require_served(cfg, "model_zoo.forward")
+    if cfg.family == "ssm":
+        return mamba2.forward(params, cfg, batch["tokens"], **kw)
     if cfg.family == "vlm":
         return transformer.forward(params, cfg, batch["tokens"],
                                    vision_embeds=batch["vision"], **kw)

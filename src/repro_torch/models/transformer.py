@@ -36,7 +36,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import require_served
+from repro_torch.configs.base import require_transformer
 from repro_torch.core import attention
 from repro_torch.models import layers, moe
 from repro_torch.models.layers import _dtype
@@ -88,7 +88,7 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> Params:
     ``vision_proj``, a projection.  Leaves are filled layer by layer (and
     expert by expert) in the model dtype, so the peak memory is the
     parameters themselves (7.7 GB for phi4-mini-3.8b in bf16)."""
-    require_served(cfg, "init_params")
+    require_transformer(cfg, "init_params")
     dtype = _dtype(cfg.dtype)
     L, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
 
@@ -212,7 +212,7 @@ def forward(params: Params, cfg, tokens: torch.Tensor, return_kv: bool = False,
     S``, positions ``0 .. Tv + S - 1``, every layer under prefix_causal
     with window ``Tv``.  A VLM without them raises (the reference
     asserts); other families ignore them, as the reference does."""
-    require_served(cfg, "forward")
+    require_transformer(cfg, "forward")
     B, S = tokens.shape
     x = embed_tokens(params, cfg, tokens)
     mask_kind = _mask_kind(cfg)

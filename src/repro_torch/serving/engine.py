@@ -63,11 +63,11 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import require_served
+from repro_torch.configs.base import require_served, require_transformer
 from repro_torch.core.attention import NEG_INF
 from repro_torch.kernels.bgpp_paged_attend import ref as bgpp_ref
 from repro_torch.kernels.paged_flash_decode.ref import dense_attend, int8_attend, softmax
-from repro_torch.models import layers, transformer
+from repro_torch.models import layers, mamba2, transformer
 from repro_torch.serving import kernel_decode, kv_cache as kvc, weights as swt
 
 Tree = Dict[str, Any]
@@ -260,6 +260,20 @@ def _ffn_decode_layer(p, cfg, x):
     return out
 
 
+def _mamba_decode_layer(p, cfg, layout: kvc.CacheLayout, cache, x, layer_idx: int):
+    """One mamba layer's decode token: the pre-norm, the mixer's recurrence
+    on the layer's state, the state written back in place -> ``(out,
+    cache)``."""
+    mi = layout.mamba_layers.index(layer_idx)
+    st = cache["mamba"]
+    h = layers.apply_norm(x, p["norm"], cfg.norm)
+    out, new = mamba2.mixer_decode_step(p["mixer"], cfg, h,
+                                        {"h": st["h"][mi], "conv": st["conv"][mi]})
+    st["h"][mi] = new["h"]
+    st["conv"][mi] = new["conv"].to(st["conv"].dtype)
+    return out, cache
+
+
 def make_serve_step(cfg, layout: kvc.CacheLayout):
     """Build the batched decode step for one (cfg, layout):
 
@@ -267,7 +281,9 @@ def make_serve_step(cfg, layout: kvc.CacheLayout):
 
     One call decodes ONE token for every slot at its own ``cache["pos"]``
     and advances every ``pos`` by one.  Paged layouts hoist one
-    logical->pool gather map per step (BGPP's kernel reads through it)."""
+    logical->pool gather map per step (BGPP's kernel reads through it).
+    An ssm model steps every layer's mamba state instead (no KV, no
+    position in the arithmetic; ``pos`` still advances)."""
     require_served(cfg, "make_serve_step")
     if layout.global_layers:
         kernel_decode.validate(cfg, layout)
@@ -289,6 +305,10 @@ def make_serve_step(cfg, layout: kvc.CacheLayout):
         x = transformer.embed_tokens(params, cfg, tokens[:, :1])
         for i in range(cfg.num_layers):
             p = transformer.layer_params(params["layers"], i)
+            if cfg.family == "ssm":
+                m, cache = _mamba_decode_layer(p, cfg, layout, cache, x, i)
+                x = x + m
+                continue
             a, cache = _attn_decode_layer(p, cfg, layout, cache, x, pos, i,
                                           float(thetas[i]), phys=phys)
             x = x + a
@@ -323,7 +343,7 @@ def prefill(params, cfg, layout: kvc.CacheLayout, tokens: torch.Tensor,
     at ``[0, S)`` (``[0, Tv + S)`` with an image prefix) and ``pos = S``.
     Returns ``(last_logits (B, 1, V), cache)``.  The paged layout maps the
     rows slot-major (``identity_page_table``)."""
-    require_served(cfg, "prefill")
+    require_transformer(cfg, "prefill")
     logits, _, (k_all, v_all) = transformer.forward(params, cfg, tokens, return_kv=True,
                                                     vision_embeds=vision_embeds)
     dev = tokens.device
@@ -348,7 +368,7 @@ def prefill_into_slot(params, cfg, layout: kvc.CacheLayout, cache, slot: int,
     cache's page table: the caller maps pages covering ``[0, S)`` first
     (writes to unmapped pages drop).  Returns ``(last_logits (1, 1, V),
     cache)``."""
-    require_served(cfg, "prefill_into_slot")
+    require_transformer(cfg, "prefill_into_slot")
     tokens = prompt[None] if prompt.ndim == 1 else prompt
     if tokens.shape[0] != 1:
         raise ValueError(f"prefill_into_slot: one prompt per admission, got "
@@ -486,7 +506,7 @@ def make_prefill_chunk(cfg, layout: kvc.CacheLayout):
 
     The chunk's KV lands at ``[offset, offset+length)`` of row ``slot`` and
     ``cache['pos'][slot]`` is set to ``offset + length``."""
-    require_served(cfg, "make_prefill_chunk")
+    require_transformer(cfg, "make_prefill_chunk")
     thetas = transformer.layer_thetas(cfg)
 
     def prefill_chunk(params, cache, tokens, slot: int, offset: int, length: int):

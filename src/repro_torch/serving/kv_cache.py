@@ -1,7 +1,10 @@
 """KV-cache containers for the serving engine (PyTorch).
 
 Counterpart of :mod:`repro.serving.kv_cache` for transformer attention
-stacks (the dense and MoE families).  Mixed local/global stacks (gemma3's
+stacks (the dense, MoE and VLM families) and the ssm family's mamba state:
+``mamba`` ``{"h": (L_mamba, B, H, P, N) f32, "conv": (L_mamba, B, K - 1,
+d_in + 2 N)}``, slot-major in both layouts, the same bytes at any
+``max_seq`` (mamba2-1.3b: 101.9 MB a slot).  Mixed local/global stacks (gemma3's
 5:1 sliding-window layers, llama4-scout's 3:1 chunked-local ones) keep two
 stores: the global layers hold the whole sequence, the local layers a ring
 of ``local_window`` lanes a slot (lane ``pos % window``; the window is
@@ -50,6 +53,7 @@ import torch
 from repro_torch.configs.base import require_served
 from repro_torch.core import bitslice
 from repro_torch.kernels.bgpp_paged_attend import ref as _bgpp_ref
+from repro_torch.models import mamba2
 from repro_torch.models.layers import _dtype
 
 Tree = Dict[str, Any]
@@ -71,6 +75,7 @@ class CacheLayout:
     global_layers: Tuple[int, ...] = ()
     local_layers: Tuple[int, ...] = ()  # ring-buffered sliding / chunked layers
     local_window: int = 0  # ring lanes a slot (the window, at most max_seq)
+    mamba_layers: Tuple[int, ...] = ()  # layers of a mamba mixer (no KV)
     layout: str = "slot"  # slot | paged (global stores only)
     page_size: int = 0  # tokens per page (paged layout)
     num_pages: int = 0  # physical pages in each layer's pool (paged layout)
@@ -85,12 +90,16 @@ def layout_for(cfg, batch: int, max_seq: int, kv_format: str = "int8",
                layout: str = "slot", page_size: int = 8,
                num_pages: Optional[int] = None) -> CacheLayout:
     """Derive a :class:`CacheLayout` from a model config: each layer is a
-    global layer (full-sequence store) or a local one (a ring of its
-    sliding or chunked window); ``layout="paged"`` sizes the shared pool of
-    the global store (default capacity = the dense allocation)."""
+    mamba layer (its state), a global layer (full-sequence store) or a
+    local one (a ring of its sliding or chunked window); ``layout="paged"``
+    sizes the shared pool of the global store (default capacity = the
+    dense allocation; with no global layer nothing is allocated)."""
     require_served(cfg, "layout_for")
-    glob, loc, window = [], [], 0
+    glob, loc, mamba, window = [], [], [], 0
     for i in range(cfg.num_layers):
+        if not cfg.layer_is_attention(i):
+            mamba.append(i)
+            continue
         kind, w = cfg.layer_attn_window(i)
         if kind in ("sliding", "chunked") and w > 0:
             loc.append(i)
@@ -111,7 +120,7 @@ def layout_for(cfg, batch: int, max_seq: int, kv_format: str = "int8",
     return CacheLayout(
         arch=cfg.name, family=cfg.family, batch=batch, max_seq=max_seq,
         kv_format=kv_format, global_layers=tuple(glob), local_layers=tuple(loc),
-        local_window=min(window, max_seq) if window else 0,
+        local_window=min(window, max_seq) if window else 0, mamba_layers=tuple(mamba),
         layout=layout, page_size=page_size, num_pages=num_pages,
     )
 
@@ -154,7 +163,8 @@ def init_cache_arrays(cfg, layout: CacheLayout, device="cuda") -> Tree:
     the ``global`` store and (paged) the ``(B, pages_per_slot)`` page table
     of ``-1`` (unmapped) where there are global layers, and the ``local``
     rings with ``abs_pos`` ``(L_local, B, W)`` of ``-1`` where there are
-    local ones."""
+    local ones, and the ``mamba`` state (zero) where there are mamba
+    layers."""
     B, S, L = layout.batch, layout.max_seq, len(layout.global_layers)
     Hk, Dh = cfg.num_kv_heads, cfg.head_dim
     dtype = _dtype(cfg.dtype)
@@ -172,6 +182,10 @@ def init_cache_arrays(cfg, layout: CacheLayout, device="cuda") -> Tree:
         ring = _kv_leaves((nl, B, Hk, W), Hk, Dh, local_format(layout), dtype, device)
         ring["abs_pos"] = torch.full((nl, B, W), -1, dtype=torch.int32, device=device)
         cache["local"] = ring
+    if layout.mamba_layers:  # each mamba layer's decode state, stacked
+        one = mamba2.init_mixer_state(cfg, B, dtype, device)
+        cache["mamba"] = {n: a.expand((len(layout.mamba_layers),) + a.shape).clone()
+                          for n, a in one.items()}
     return cache
 
 
@@ -422,7 +436,9 @@ def decode_read_bytes(layout: CacheLayout, cfg) -> Dict[str, Any]:
     ``(S_max,)`` row; global bgpp follows the two-phase plan (sign + MSB
     plane everywhere, shrinking survivor planes, ``k_max`` full rows);
     local rings read their ``window`` in their own format.
-    ``bf16_equiv`` is what a bf16 cache of the same geometry reads."""
+    ``bf16_equiv`` is what a bf16 cache of the same geometry reads.  The
+    mamba state is not counted, as in the reference: an ssm layout reads
+    0 B here though its step reads and writes the whole state."""
     B, S, W = layout.batch, layout.max_seq, layout.local_window
     ng, nl = len(layout.global_layers), len(layout.local_layers)
     out: Dict[str, Any] = {"global": 0.0, "local": 0.0}
@@ -622,10 +638,11 @@ def write_prefill_local(store: Tree, idx: int, k: torch.Tensor, v: torch.Tensor,
 def reset_slot(cache: Tree, layout: CacheLayout, slot: int) -> Tree:
     """Clear one batch row in place: its global KV rows to zero (slot
     layout), its local rings to zero with ``abs_pos`` -1 (both layouts, so
-    a previous occupant's lanes never alias into the new request's window)
-    and ``pos[slot]`` to 0.  Paged pools have no batch rows — page
-    lifecycle belongs to :class:`repro_torch.serving.paging.PageAllocator`."""
-    stores = ("local",) if layout.layout == "paged" else ("global", "local")
+    a previous occupant's lanes never alias into the new request's window),
+    its mamba state to zero and ``pos[slot]`` to 0.  Paged pools have no
+    batch rows — page lifecycle belongs to
+    :class:`repro_torch.serving.paging.PageAllocator`."""
+    stores = ("local", "mamba") if layout.layout == "paged" else ("global", "local", "mamba")
     for name in stores:
         for n, a in cache.get(name, {}).items():
             if n == "k_planes":

@@ -67,7 +67,7 @@ from typing import Callable, Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import apply_weight_format_override, require_served
+from repro_torch.configs.base import apply_weight_format_override, require_transformer
 from repro_torch.serving import engine, kv_cache as kvc, spec_decode as spd
 from repro_torch.serving import weights as swt
 from repro_torch.serving.paging import PageAllocator
@@ -115,7 +115,7 @@ class Scheduler:
     ):
         from repro_torch import resolve_device
 
-        require_served(cfg, "Scheduler")
+        require_transformer(cfg, "Scheduler")
         if admission not in ("chunked", "eager"):
             raise ValueError(f"Scheduler: admission {admission!r} is not chunked or eager")
         if mesh is not None:

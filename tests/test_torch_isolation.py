@@ -39,10 +39,11 @@ def test_scan_sees_the_package():
             "transformer.py", "brcr.py", "quantization.py", "topk.py", "synthetic.py",
             "quickstart.py", "bgpp_sparse_attention.py", "spec_decode.py", "model_zoo.py",
             "shapes.py", "gemma3_4b.py", "deepseek_7b.py", "whisper_medium.py",
-            "moe.py"} <= names
+            "moe.py", "mamba2.py"} <= names
     for k in ("flash_attention", "bgpp_score", "brcr_gemm"):
         assert PORT / "kernels" / k / "ops.py" in _files()
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
-        "bgpp_paged_attend.cu", "bgpp_score.cu", "brcr_gemm.cu", "bstc_decode.cu",
+        "bgpp_paged_attend.cu", "bgpp_paged_attend_long.cu", "bgpp_score.cu", "brcr_gemm.cu",
+        "bstc_decode.cu",
         "bstc_matmul.cu", "flash_attention.cu", "paged_flash_decode.cu",
         "paged_flash_decode_long.cu"]

@@ -66,7 +66,7 @@ from repro_torch.core import bitslice
 from repro_torch.core import bstc as tbstc
 from repro_torch.serving import kv_cache as tkvc
 from repro_torch.configs import ARCH_REGISTRY, get_config, shapes
-from repro_torch.configs.base import SERVED_FAMILIES
+from repro_torch.configs.base import TRANSFORMER_FAMILIES
 
 jax.config.update("jax_platform_name", "cpu")
 torch.set_num_threads(1)
@@ -389,8 +389,9 @@ class TestPagedFlashDecodePlan:
                 assert p.L * 127 * 127 < 2 ** 31
 
 
+# the served archs with attention (an ssm config has no KV heads)
 SERVED_ARCHS = sorted(n for n in ARCH_REGISTRY
-                      if get_config(n).family in SERVED_FAMILIES)
+                      if get_config(n).family in TRANSFORMER_FAMILIES)
 
 
 @pytest.mark.parametrize("arch", SERVED_ARCHS)
@@ -400,8 +401,9 @@ def test_every_assigned_decode_shape_plans_on_the_card(arch):
     sub-quadratic ones) that a served arch is assigned plans on the H100's
     132 SMs at the arch's heads, page 16: K1's bf16 and int8 bodies at both
     lengths (long_500k in passes), K2 at decode_32k (its lists in the
-    workspace where they do not fit).  K2 at long_500k is refused, the cap
-    named: a selection past 32768 lanes would span clusters."""
+    workspace where they do not fit) in one cluster, and at long_500k with
+    its selection spanning blocks (``Plan.spans``: 128 tiles a cell).  One
+    lane past the cap (524,288) is refused, the cap named."""
     cfg = get_config(arch)
     Hk, D = cfg.num_kv_heads, cfg.head_dim
     g = cfg.num_heads // Hk
@@ -415,13 +417,16 @@ def test_every_assigned_decode_shape_plans_on_the_card(arch):
             assert (p.pass_lanes > 0) == (S > pfd_kernel.single_pass_lanes(g, D, P)
                                           or (int8 and S * 127 * 127 >= 2 ** 31))
         _, k_max, surv = tkvc.bgpp_decode_plan(S, cfg)
-        if S <= bgpp_kernel.max_lanes(g, D):
-            p = bgpp_kernel.plan(B, Hk, g, D, S, k_max, surv, 132)
-            assert p.C * p.L >= S and p.smem <= build.MAX_SMEM
-        else:
-            assert shape.name == "long_500k"
-            with pytest.raises(ValueError, match=f"the cap at g={g}, D={D} is 32768 lanes"):
-                bgpp_kernel.plan(B, Hk, g, D, S, k_max, surv, 132)
+        p = bgpp_kernel.plan(B, Hk, g, D, S, k_max, surv, 132)
+        assert p.C * p.L >= S and p.smem <= build.MAX_SMEM
+        assert p.spans == (shape.name == "long_500k") == (S > bgpp_kernel.cluster_lanes(g, D))
+        if p.spans:
+            assert (p.C, p.L) == (128, bgpp_kernel.LONG_TILE)
+            assert p.caps == tuple(-(-w // p.L) for w in bgpp_kernel.list_widths(S, k_max, surv))
+        S = bgpp_kernel.max_lanes(g, D) + 1
+        _, k_max, surv = tkvc.bgpp_decode_plan(S, cfg)
+        with pytest.raises(ValueError, match=f"the cap at g={g}, D={D} is 524288 lanes"):
+            bgpp_kernel.plan(B, Hk, g, D, S, k_max, surv, 132)
 
 
 def _k2_parity(g, s_ctx, D, seed, page=None):
@@ -564,8 +569,9 @@ class TestBgppPagedAttendPlan:
         """The cap is the block sort's, 32768 lanes, at every group and
         width: the lists go to the workspace where they do not fit beside
         the rest (g >= 4 at D 128), whose size the plan gives."""
-        cap = bgpp_kernel.max_lanes(g, D)
+        cap = bgpp_kernel.cluster_lanes(g, D)
         assert cap == bgpp_kernel.MAX_CLUSTER * bgpp_kernel.MAX_LIST == 32768
+        assert bgpp_kernel.max_lanes(g, D) == bgpp_kernel.LONG_MAX_LANES == 524288
         k_max, surv = _k2_survivors(cap)
         p = bgpp_kernel.plan(1, 8, g, D, cap, k_max, surv, self.SMS)
         assert p.C == bgpp_kernel.MAX_CLUSTER and p.smem <= build.MAX_SMEM
@@ -638,7 +644,7 @@ class TestBgppPagedAttendPlan:
         decode_32k at every g."""
         monkeypatch.setattr(bgpp_ops, "sm_count", lambda device: self.SMS)
         assert bgpp_kernel.header_bytes(256) == 4640 and bgpp_kernel.header_bytes(128) == 2592
-        assert bgpp_kernel.max_lanes(g, 256) == 32768
+        assert bgpp_kernel.cluster_lanes(g, 256) == 32768
         for n in (S, 32768):
             k_max, surv = _k2_survivors(n)
             p = bgpp_ops._validate_cuda(*self._operands(g, n, D=256), k_max, surv)
@@ -858,6 +864,154 @@ class TestBgppPagedAttendArithmetic:
         for cell in range(2):
             final = torch.cat([lanes[cell], nv + torch.arange(k_max - lanes[cell].numel())])
             torch.testing.assert_close(final, want[cell], rtol=0, atol=0)
+
+
+def _k2_span_sort(score, tile=bgpp_kernel.LONG_TILE):
+    """The sort of ``csrc/bgpp_paged_attend_long.cu`` on one cell's list,
+    on the CPU: keys ``(2^22 - score) << 32 | position`` in position order,
+    three least-significant-digit passes over the high word's 8-bit digits,
+    each a tile histogram, its scan (digits, then tiles, in order) and a
+    stable scatter (a key's place: its tile's offset for the digit plus the
+    keys of that digit before it in the tile); a pass whose digit has one
+    value over the list is skipped.  Every scatter is a permutation.
+    Returns the sorted keys (int64)."""
+    n = score.size
+    hi = (1 << 22) - score.astype(np.int64)
+    assert n == 0 or (hi.min() > 0 and hi.max() < 1 << 23)
+    cur = hi << 32 | np.arange(n, dtype=np.int64)
+    tiles = -(-n // tile)
+    tile_of = np.arange(n) // tile
+    for p in range(3):
+        d = (cur >> (32 + 8 * p)) & 255
+        hist = np.bincount(tile_of * 256 + d, minlength=tiles * 256).reshape(tiles, 256)
+        tot = hist.sum(0)
+        if n == 0 or (tot == n).any():
+            continue
+        off = (np.cumsum(tot) - tot)[None, :] + np.cumsum(hist, 0) - hist
+        group = tile_of * 256 + d
+        order = np.argsort(group, kind="stable")
+        sorted_group = group[order]
+        within = np.empty(n, np.int64)
+        within[order] = np.arange(n) - np.searchsorted(sorted_group, sorted_group)
+        dest = off[tile_of, d] + within
+        np.testing.assert_array_equal(np.sort(dest), np.arange(n))
+        nxt = np.empty_like(cur)
+        nxt[dest] = cur
+        cur = nxt
+    return cur
+
+
+def _k2_span_select(scores, nv, widths, lane_tie_round=None):
+    """The spanning body's selection on one cell: ``scores[r]`` each lane's
+    integer score after round r's plane; round r's list (its first
+    ``min(nv, widths[r])`` valid entries) is sorted by :func:`_k2_span_sort`
+    and its first ``min(nv, widths[r + 1])`` keys name the next list's
+    entries by position; the lanes past the valid ones follow, implied.
+    With ``lane_tie_round`` that round breaks its ties by lane instead of
+    list position (what the sort must not do).  Returns the final list."""
+    lanes = np.arange(nv)
+    for r in range(len(widths) - 1):
+        lanes = lanes[:min(nv, widths[r])]
+        score = scores[r][lanes]
+        if r == lane_tie_round:  # rank by (score, lane): the lane order's sort
+            keys = np.lexsort((lanes, -score))[:min(nv, widths[r + 1])]
+        else:
+            keys = _k2_span_sort(score)[:min(nv, widths[r + 1])] & 0xFFFFFFFF
+        lanes = lanes[keys]
+    return np.concatenate([lanes, nv + np.arange(widths[-1] - lanes.size)])
+
+
+class TestBgppSpanningSelection:
+    """K2 past one cluster (``csrc/bgpp_paged_attend_long.cu``): its
+    selection, modelled on the CPU (:func:`_k2_span_select`), equals the
+    plain version's ``progressive_topk`` at the reference's long_500k
+    context, indices in order, over heavy ties."""
+
+    @pytest.mark.parametrize("seed,pos", [(0, (524287, 5000)), (1, (300000, -1))])
+    def test_spanning_selection_is_the_plain_top_k(self, seed, pos):
+        """S 524,288, B 2, g 2, D 16: K rows drawn from 40 row types of
+        small integers, so each round's scores repeat across hundreds of
+        thousands of lanes; one slot ends at the last lane (or past
+        300,000), the other at 5000 (most lanes NEG_INF) or before its
+        first lane.  A fifth of the rows are two types built on one base
+        row: A adds 64 in column 0 (bit 6, scored at round 0), B adds 32 in
+        column 0 and 16 in column 1 (bits 5 and 4); with query codes 8 and
+        16 there, A leads B by 512 after round 0, by 256 after round 1 and
+        they tie from round 2 on.  Breaking round 2's ties by lane instead
+        of by the previous round's selection order (A first) gives another
+        order: the sort must keep the list order, and it does."""
+        S, B, g, Dh = 524288, 2, 2, 16
+        rng = np.random.default_rng(seed)
+        rounds, k_max, surv = _plan(S)
+        widths = bgpp_kernel.list_widths(S, k_max, surv)
+        q_row = rng.integers(-15, 16, Dh) * 8  # truncated codes: multiples of 8 up to 120
+        q_row[:2] = (8, 16)
+        qf = torch.from_numpy(np.tile(q_row, (B, 1, g, 1)).astype(np.float32))
+        types = rng.integers(-40, 41, (40, Dh))
+        types[:, :2] = 0
+        base = np.where(q_row > 0, 127, -127)  # the base row scores highest
+        base[:2] = 0
+        a_row, b_row = base.copy(), base.copy()
+        a_row[0], b_row[0], b_row[1] = 64, 32, 16
+        pick = rng.integers(0, 50, B * S)
+        kq = np.where((pick < 40)[:, None], types[np.minimum(pick, 39)],
+                      np.where((pick < 45)[:, None], a_row, b_row))
+        kq = torch.from_numpy(kq.astype(np.int8))
+        planes, sign = tkvc.k_to_bitplanes(kq)  # (7, B S, D/8), (B S, D/8)
+        hm = lambda a: a.reshape(a.shape[:-2] + (B, 1, S, Dh // 8))  # heads-major, Hk 1
+        planes_h, sign_h = hm(planes), hm(sign)
+        valid = torch.arange(S)[None, :] <= torch.tensor(pos)[:, None]
+        gather = lambda a, i: torch.gather(a, 2, i[..., None].expand(-1, -1, -1, a.shape[-1]))
+        want, _ = bgpp_ref.progressive_topk(
+            qf, planes_h[6], sign_h, lambda p, i: gather(planes_h[p], i), valid, rounds,
+            k_max, surv)
+        partial = 0
+        scores = []  # (B, rounds, S) each lane's score after each round's plane
+        for r in range(rounds):
+            p = 6 - r
+            partial = partial + bgpp_ref._plane_scores(planes_h[p], sign_h, qf) * float(2 ** p)
+            scores.append(partial.amax(2)[:, 0].numpy().astype(np.int64))
+        differs = False
+        for b in range(B):
+            nv = 0 if pos[b] < 0 else min(pos[b] + 1, S)
+            got = _k2_span_select([s[b] for s in scores], nv, widths)
+            np.testing.assert_array_equal(got, want[b, 0].numpy())
+            lane_ties = _k2_span_select([s[b] for s in scores], nv, widths, lane_tie_round=2)
+            differs |= not np.array_equal(lane_ties, got)
+        assert differs  # the case tells the two tie orders apart
+
+    @pytest.mark.parametrize("n", [0, 1, 4095, 4096, 4097, 70000])
+    def test_sort_is_score_then_position(self, n):
+        """The three passes sort by (score descending, position ascending),
+        the keys' whole order, over tile edges and constant digits."""
+        rng = np.random.default_rng(n)
+        score = rng.integers(-5, 6, n) * 4096 + rng.integers(0, 3, n) - (1 << 21) * (n % 2)
+        got = _k2_span_sort(score) & 0xFFFFFFFF
+        np.testing.assert_array_equal(got, np.lexsort((np.arange(n), -score)))
+
+    @pytest.mark.parametrize("D,DP", [(8, 128), (24, 128), (128, 128), (136, 256), (256, 256)])
+    def test_every_width_runs_at_a_compiled_one(self, D, DP):
+        """The spanning body has instances at 128 and 256 only: every D (a
+        multiple of 8) up to 256 runs at one of them, its plane rows wide
+        only at D == DP (else byte by byte), as the cluster body's padded
+        widths run."""
+        assert bgpp_kernel.long_dim(D) == DP
+        planes = torch.zeros(7, 4, 2, D // 8, dtype=torch.uint8)
+        v = torch.zeros(4, 2, D, dtype=torch.int8)
+        assert bgpp_kernel.wide_rows(planes, planes[0], v, DP) == int(D == DP) | 2
+
+    def test_workspace_holds_every_array(self):
+        """``workspace_ints`` covers the source's ``Ws`` arrays at the long
+        cases' heads: 64 + 8 g bytes a lane and the rest."""
+        for Hk, g, D in ((4, 2, 256), (1, 4, 256), (8, 5, 128)):
+            S = 524288
+            k_max, surv = _k2_survivors(S)
+            p = bgpp_kernel.plan(2, Hk, g, D, S, k_max, surv, 132)
+            assert p.spans and p.workspace and p.smem == 0
+            W, T, F = p.C * p.L, p.C, -(-k_max // p.L)
+            need = 2 * Hk * (4 * W + 2 * g * bgpp_kernel.padded_dim(D) + 2 * W + 2 * g * W
+                             + T * 256 + 32 + F * 3 * g + k_max * (2 + g))
+            assert need <= bgpp_kernel.workspace_ints(2, Hk, g, p) < need + 2 * Hk * 2 * g * 256
 
 
 class TestBstcCpuRouting:

@@ -38,7 +38,8 @@ from repro.serving import kv_cache as jkvc, weights as jswt
 from repro.serving.request import Request as JRequest
 from repro.serving.scheduler import Scheduler as JScheduler
 
-from repro_torch.configs import ARCH_REGISTRY, MCBPOptions, get_config, shapes
+from repro_torch.configs import (ARCH_REGISTRY, MCBPOptions, apply_weight_format_override,
+                                 get_config, shapes)
 from repro_torch.interop import params_from_numpy
 from repro_torch.launch import serve as launcher
 from repro_torch.models import layers, model_zoo, transformer
@@ -59,8 +60,10 @@ SLOTS, MAX_SEQ, PAGE, BUDGET = 2, 96, 8, 8
 # flipped code moved a row by 3.5e-3 in chip_smoke.py's card-against-CPU
 # check); a wrong lane, mask or scale moves them by 1e-1 or more
 TF_TOL = 5e-3
-# the families the port does not serve yet (it serves dense, moe and vlm)
-NON_DENSE = sorted(n for n in JARCH if jax_config(n).family not in ("dense", "moe", "vlm"))
+# the families the port does not serve yet (it serves dense, moe, vlm and ssm)
+NON_DENSE = sorted(n for n in JARCH
+                   if jax_config(n).family not in ("dense", "moe", "vlm", "ssm"))
+SSM = sorted(n for n in JARCH if jax_config(n).family == "ssm")
 MOE = sorted(n for n in JARCH if jax_config(n).family == "moe")
 VLM = sorted(n for n in JARCH if jax_config(n).family == "vlm")
 
@@ -165,6 +168,28 @@ def test_non_dense_family_is_refused_everywhere(name):
     for call in calls.values():
         with pytest.raises(ValueError, match=f"family '{cfg.family}'.*ROADMAP Queue 1"):
             call()
+
+
+@pytest.mark.parametrize("name", SSM)
+def test_ssm_family_runs_every_entry_point(name):
+    """The ssm smoke runs the entry points the reference runs it through
+    (``model_zoo``, the cache layout, ``make_serve_step``); the
+    transformer-only ones refuse it with the reference's reason (it
+    decodes through ``make_serve_step`` from a zero state), and so do the
+    int8 and bstc weight formats (it decodes with raw bf16 weights)."""
+    cfg = get_config(name, smoke=True)
+    calls = _entry_points(name, cfg, ["--requests", "2", "--max-new", "3"])
+    runs = ("model_zoo.init", "model_zoo.forward", "layout_for", "make_serve_step")
+    for who, call in calls.items():
+        if who in runs:
+            assert call() is not None, who
+        else:
+            with pytest.raises(ValueError, match="family 'ssm'.*make_serve_step directly"):
+                call()
+    for fmt in ("int8", "bstc"):
+        wcfg = apply_weight_format_override(cfg, fmt)
+        with pytest.raises(ValueError, match="family='ssm' decodes with raw bf16 weights"):
+            engine.make_serve_step(wcfg, tkvc.layout_for(wcfg, SLOTS, 32))
 
 
 @pytest.mark.parametrize("name", MOE)
