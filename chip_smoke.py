@@ -28,20 +28,27 @@ Phases, each of which fails the run (nonzero exit) on any error:
    (Hq 24, Hk 8, D 128, bf16: causal at B 1 / S 512, 450 and 301 and
    B 4 / S 512; sliding and chunked with window 256; full; q_offset 256;
    bf16 at D 64, 32 and 16 with ragged tails; f32 once; the first case
-   launched twice for identical bits), and at llama4-scout's heads (Hq 40,
+   launched twice for identical bits), at whisper-medium's heads (Hq 16,
+   Hk 16, D 64, bf16, full: its encoder's B 4 over 1500 frames and its
+   forward's cross-attention, 128 queries over 1500 memory rows; timed,
+   with records naming their case), and at llama4-scout's heads (Hq 40,
    Hk 8, D 128, bf16) over S 8448 with its chunked mask of 8192 (the
    queries past 8192 attend only their own chunk; the plain version a
    block of query rows at a time).  The head-width phase: K1 (bf16
    and int8), K2 and K5 at the heads of gemma3-1b (Hq 4, Hk 1),
    gemma3-4b (Hq 8, Hk 4) and paligemma-3b (Hq 8, Hk 1) at D 256, of
-   deepseek-7b (g 1) and llama4-scout (Hq 40, Hk 8: g 5) at D 128, and of
+   deepseek-7b (g 1) and llama4-scout (Hq 40, Hk 8: g 5) at D 128, of
+   whisper-medium (Hq 16, Hk 16: g 1) at D 64, and of
    the gemma3-1b smoke config at D 24 (run at the compiled width 32), the
    decode attends at pages 16 and 6 over S 1024, K5 causal and with
    gemma3's sliding window of 512 at B 1, S 512 (bf16, and f32 causal);
-   the D 256 cases at page 16 timed, with records naming their case.
+   the D 256 and whisper-medium cases at page 16 timed, with records
+   naming their case.
    The long-context phase: K2 at the reference's decode_32k (S 32768)
-   at the heads of gemma3-1b (g 4, D 256), llama4-scout (g 5, D 128) and
-   paligemma-3b (g 8, D 256), where its lists go to a global workspace,
+   at the heads of gemma3-1b (g 4, D 256), llama4-scout (g 5, D 128),
+   paligemma-3b (g 8, D 256) and whisper-medium (g 1, D 64), where its
+   lists go to a global workspace, K1's bf16 and int8 bodies there at
+   whisper-medium's heads,
    and K1's bf16 and int8 bodies at long_500k (S 524,288) at the heads of
    gemma3-4b, gemma3-1b and llama4-scout, where each block walks its
    lanes in passes, and K2 at long_500k at the same heads, its selection
@@ -90,9 +97,9 @@ Phases, each of which fails the run (nonzero exit) on any error:
    page and launching K1 or K2 L times and K3 7L + 1 times a draft or
    verify step and K4 once per coded plane of both weight sets' first
    matrices.  Then the dense model zoo at full width:
-   gemma3-4b with its depth cut to 12 layers (10 local sliding-window rings
-   of 1024 lanes, 2 global; D 256, qk-norm, sandwich norms, GeGLU; 4 slots,
-   paged, max_seq 4096; the traces below run all 34) serves 6 requests of
+   gemma3-4b with its depth cut to 6 layers (5 local sliding-window rings
+   of 1024 lanes, 1 global; D 256, qk-norm, sandwich norms, GeGLU; 4 slots,
+   paged, max_seq 4096; its traces below run all 34) serves 6 requests of
    1100-2000 prompt tokens in the same
    five runs, each with every request finished, no page leaked and the
    launch formulas exact (K1 or K2 once per global layer a decode step, K3
@@ -125,11 +132,26 @@ Phases, each of which fails the run (nonzero exit) on any error:
    zero state and 16 greedy tokens (4 slots; ms a step, traced), its
    forward timed at B 1, S 2048, the forward at chunk 64 held to the
    decode on an f32 copy of the weights, and its long_500k cache (the same
-   bytes as a short one's, 16 steps).  After
+   bytes as a short one's, 16 steps).  Then the enc_dec family:
+   whisper-medium at full width and depth (24 encoder + 24 decoder layers,
+   16/16 heads of 64, bf16, seed 0) as the reference serves it, outside
+   the Scheduler: the encoder once over 4 x 1500 seeded frames (K5 full,
+   24 launches), its memory projected into the cache's cross K / V, then
+   4 slots fed prompts of 64-128 tokens a token a step from position 0 and
+   16 greedy tokens, in bf16, int8 and bgpp KV paged and bf16 KV in the
+   slot layout (K1 / K2 24 launches a step); 4 steps from the bf16 run's
+   cache held to the same steps on the CPU (tokens equal, logits within
+   1e-4 of max |logit|, a run with K1 blind to each slot's newest lane
+   read beside it and required to fail that bound), and again on an f32
+   copy with slot 0 reset so the slots decode at other positions; the
+   decode_32k layout (max_seq 32768, B 2)
+   in bgpp and int8 KV for 16 steps; the forward at B 1, S 128 (K5 72
+   launches: full, causal and cross); traces of the encoder and of bf16
+   and bgpp decode.  After
    every timed run, each of
    phi4-mini's chunked runs traces a few steady decode steps, and its
-   eager one a whole-prompt admission, and gemma3-4b traces bf16 and bgpp
-   decode and one eager admission (K1, K2 and K5 device ms a launch at
+   eager one a whole-prompt admission, and gemma3-4b (all 34 layers) traces bf16
+   and bgpp decode and one eager admission (K1, K2 and K5 device ms a launch at
    D 256), and llama4-scout traces bf16 decode (K1 at g 5, one MoE
    layer's decode timed alone), and paligemma-3b bf16 decode (K1 at g 8,
    D 256), with torch.profiler (device busy share,
@@ -152,7 +174,11 @@ Phases, each of which fails the run (nonzero exit) on any error:
    mixtral-8x22b and llama4-scout-17b-a16e too), and paligemma-3b-smoke's
    forward behind its 16-patch prefix within 1e-4 of max |logit|
    (mamba2-smoke's decode, in the ssm phase: tokens equal, logits within
-   1e-4); and the paper layer's
+   1e-4), and whisper-smoke's encoder and forward within 1e-4 of max
+   |value| and its ``make_serve_step`` decode in every layout and KV
+   format (bf16: tokens equal, logits within 1e-4; int8 / bgpp
+   teacher-forced within 5e-3), a second round from the live cache with
+   slot 0 reset so the slots stand at other positions; and the paper layer's
    ``brcr_matmul``, batched predictor and examples at the reference
    examples' sizes agree between card and CPU.
 
@@ -162,7 +188,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 Each phase's seconds print as a ``[time]`` line.
 
 ``--only kernels|head-widths|long-context|prefix|score|score-device|decode|
-decode-attends|ssm|long-serve`` (repeatable) runs just those parts of phase
+decode-attends|ssm|long-serve|whisper`` (repeatable) runs just those parts of phase
 3 or 5 (and, for
 ``score`` and ``decode``, K6's or K4's device times; ``decode-attends``
 K1's and K2's device times at the decode geometry, through the public
@@ -551,7 +577,9 @@ def kernel_phase(device, flush):
 
 # (name, Hq, Hk, D) of the head-width phase: the reference's configs whose
 # head widths the card once refused (src/repro/configs/gemma3_1b.py,
-# gemma3_4b.py and paligemma_3b.py at D 256; gemma3-1b's smoke width 24)
+# gemma3_4b.py and paligemma_3b.py at D 256; gemma3-1b's smoke width 24),
+# and the instances whisper-medium's decode and forward take (g 1, D 64;
+# src/repro/configs/whisper_medium.py)
 HEAD_WIDTH_CASES = (
     ("gemma3-1b", 4, 1, 256),
     ("gemma3-4b", 8, 4, 256),
@@ -559,7 +587,9 @@ HEAD_WIDTH_CASES = (
     ("gemma3-1b smoke", 4, 1, 24),
     ("deepseek-7b", 32, 32, 128),  # g 1
     ("llama4-scout", 40, 8, 128),  # g 5 (src/repro/configs/llama4_scout_17b_a16e.py)
+    ("whisper-medium", 16, 16, 64),  # g 1, D 64
 )
+HEAD_WIDTH_TIMED = ("whisper-medium",)  # timed beside the D 256 cases
 HEAD_WIDTH_PAGES = (DECODE_PAGE, 6)  # a power of two and a page size that is not
 GEMMA3_WINDOW = 512  # gemma3-1b's sliding window (src/repro/configs/gemma3_1b.py)
 
@@ -572,8 +602,9 @@ def head_width_phase(device, flush):
     as :func:`decode_attend_inputs`; K5 (:func:`flash_case`) at B 1, S 512,
     causal and with gemma3's sliding window of 512, bf16, and f32 causal.
     The same tolerances and two-launch checks as the kernel phase.  The
-    D 256 cases at page 16 are timed, each kernel's record (K5: beside
-    ``scaled_dot_product_attention``) returned with its case named."""
+    D 256 cases and :data:`HEAD_WIDTH_TIMED`'s at page 16 are timed, each
+    kernel's record (K5: beside ``scaled_dot_product_attention``) returned
+    with its case named."""
     import torch
 
     records = []
@@ -581,7 +612,8 @@ def head_width_phase(device, flush):
         g = Hq // Hk
         for page in HEAD_WIDTH_PAGES:
             S = -(-DECODE_S // page) * page
-            timed = flush if D == 256 and page == DECODE_PAGE else None
+            timed = (flush if (D == 256 or name in HEAD_WIDTH_TIMED) and page == DECODE_PAGE
+                     else None)
             case = f"{name} Hq {Hq} Hk {Hk} D {D} page {page} S {S}"
             inputs = k1_inputs(device, 60 + 10 * i + page, 4, S,
                                [S - 1, 100, 20 * page - 1, 33 * page], page, Hk, g, D)
@@ -605,7 +637,8 @@ def head_width_phase(device, flush):
             kw = dict(mask_kind=kind, window=window, q_offset=0)
             dt = "bf16" if dtype == torch.bfloat16 else "f32"
             case = f"{name} Hq {Hq} Hk {Hk} D {D} {kind} B1 S512 {dt}"
-            timed = flush if D == 256 and kind == "causal" and dt == "bf16" else None
+            timed = (flush if (D == 256 or name in HEAD_WIDTH_TIMED) and kind == "causal"
+                     and dt == "bf16" else None)
             rec = flash_case(case, q, k, v, kw, timed, twice=True, case=case)
             if rec is not None:
                 records.append(rec)
@@ -615,24 +648,28 @@ def head_width_phase(device, flush):
 
 # (name, Hk, g, D) of the long-context phase: the reference's decode_32k
 # for K2 at the geometries whose lists pass shared memory (gemma3-1b,
-# llama4-scout, paligemma-3b; src/repro/configs/shapes.py), and its
-# long_500k for K1 and K2 (selection spanning blocks) at the sub-quadratic
-# archs' global layers (gemma3-4b, gemma3-1b, llama4-scout)
+# llama4-scout, paligemma-3b; src/repro/configs/shapes.py) and at
+# whisper-medium's (Hk 16, g 1, D 64), K1 there at whisper-medium's, and
+# its long_500k for K1 and K2 (selection spanning blocks) at the
+# sub-quadratic archs' global layers (gemma3-4b, gemma3-1b, llama4-scout)
 K2_LONG_CASES = (("gemma3-1b", 1, 4, 256), ("llama4-scout", 8, 5, 128),
-                 ("paligemma-3b", 1, 8, 256))
+                 ("paligemma-3b", 1, 8, 256), ("whisper-medium", 16, 1, 64))
+K1_32K_CASES = (("whisper-medium", 16, 1, 64),)
 K1_LONG_CASES = (("gemma3-4b", 4, 2, 256), ("gemma3-1b", 1, 4, 256),
                  ("llama4-scout", 8, 5, 128))
 K2_LONG_S, K1_LONG_S = 32768, 524288
 K2_SPAN_NARROW_S = 40000  # past one cluster: the spanning body
 LONG_ARCH = {"gemma3-4b": "gemma3-4b", "gemma3-1b": "gemma3-1b", "paligemma-3b": "paligemma-3b",
-             "llama4-scout": "llama4-scout-17b-a16e"}  # the config whose BGPP plan a case takes
+             "llama4-scout": "llama4-scout-17b-a16e",
+             "whisper-medium": "whisper-medium"}  # the config whose BGPP plan a case takes
 K2_EARLY_POS, K1_EARLY_POS = 3000, 5000  # inside K2's first block, K1's first pass
 
 
 def long_context_phase(device, flush):
     """The decode attends at the reference's context lengths
-    (:data:`K2_LONG_CASES`, :data:`K1_LONG_CASES`; page 16): K2 at
-    decode_32k (S 32768) with its lists in the global workspace, K2 at
+    (:data:`K2_LONG_CASES`, :data:`K1_32K_CASES`, :data:`K1_LONG_CASES`;
+    page 16): K2 at decode_32k (S 32768) with its lists in the global
+    workspace, K1's bf16 and int8 bodies at decode_32k, K2 at
     long_500k (S 524,288) with its selection spanning blocks, and K1's
     bf16 and int8 bodies at long_500k in passes, each with its arch's BGPP
     plan.  Each case has
@@ -676,6 +713,15 @@ def long_context_phase(device, flush):
                                  arch=LONG_ARCH[name]))
         records[-1]["case"] = case
         del args, kq
+        torch.cuda.empty_cache()
+    for i, (name, Hk, g, D) in enumerate(K1_32K_CASES):
+        case = f"{name} Hk {Hk} g {g} D {D} page 16 S {K2_LONG_S} B 2"
+        recs = k1_case(case, *k1_inputs(device, 80 + i, 2, K2_LONG_S,
+                                         [K2_LONG_S - 1, K2_EARLY_POS], DECODE_PAGE, Hk, g, D),
+                       DECODE_PAGE, flush)
+        for r in recs:
+            r["case"] = case
+        records += recs
         torch.cuda.empty_cache()
     for i, (name, Hk, g, D) in enumerate(K1_LONG_CASES):
         case = f"{name} Hk {Hk} g {g} D {D} page 16 S {K1_LONG_S} B 2"
@@ -1107,11 +1153,16 @@ def decode_device_phase(device, calls: int = 20) -> None:
               f"({k_ms / l_ms:.2f}x); recorded: kernel {k_rec}; library {l_rec}")
 
 
-# (label, B, Sq, Sk, mask_kind, window, q_offset, dtype, D) of each K5 case;
+# (label, B, Sq, Sk, mask_kind, window, q_offset, dtype, D[, Hq, Hk]) of each
+# K5 case, at phi4-mini's heads (Hq 24, Hk 8) unless the case names its own;
 # the first is the JSON record's: one eager admission's forward at the
 # trace's prompt cap (512 tokens), the second the traced admission's
 # (450).  Together they launch every compiled instance (bf16 at D 16 / 32 /
 # 64 / 128, f32 at D 128), with ragged tails on both sides and q_offset.
+# The last two are whisper-medium's (16/16 heads of 64): its encoder's
+# full mask over 1500 frames (not a multiple of the 64-key tile) at B 4 and
+# its forward's cross-attention, 128 queries over the 1500 memory rows;
+# their records name their case.
 FLASH_CASES = (
     ("causal B1 S512", 1, 512, 512, "causal", 0, 0, "bf16", 128),
     ("causal B1 S450", 1, 450, 450, "causal", 0, 0, "bf16", 128),
@@ -1126,22 +1177,28 @@ FLASH_CASES = (
      32),
     ("full B1 Sq65 Sk77 D16", 1, 65, 77, "full", 0, 0, "bf16", 16),
     ("causal f32 B1 S301", 1, 301, 301, "causal", 0, 0, "f32", 128),
+    ("whisper-medium encoder full Hq 16 Hk 16 D 64 B4 S1500 bf16", 4, 1500, 1500, "full", 0,
+     0, "bf16", 64, 16, 16),
+    ("whisper-medium cross full Hq 16 Hk 16 D 64 B1 Sq128 Sk1500 bf16", 1, 128, 1500, "full",
+     0, 0, "bf16", 64, 16, 16),
 )
 
 
 def flash_inputs(device, gen, case):
     """Seeded q ``(B, Sq, Hq, D)`` and k, v ``(B, Sk, Hk, D)`` of one
-    :data:`FLASH_CASES` case at phi4-mini's heads (Hq 24, Hk 8), drawn
-    from ``gen`` in that order, and the case's mask keywords."""
+    :data:`FLASH_CASES` case at its heads (phi4-mini's Hq 24, Hk 8 unless
+    it names its own), drawn from ``gen`` in that order, and the case's
+    mask keywords."""
     import torch
 
     from repro_torch.configs import get_config
 
     cfg = get_config("phi4-mini-3.8b")
-    _, B, Sq, Sk, kind, window, off, dt, D = case
+    _, B, Sq, Sk, kind, window, off, dt, D = case[:9]
+    Hq, Hk = case[9:] or (cfg.num_heads, cfg.num_kv_heads)
     dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
     mk = lambda S, H: torch.randn((B, S, H, D), generator=gen, device=device).to(dtype)
-    q, k, v = mk(Sq, cfg.num_heads), mk(Sk, cfg.num_kv_heads), mk(Sk, cfg.num_kv_heads)
+    q, k, v = mk(Sq, Hq), mk(Sk, Hk), mk(Sk, Hk)
     return q, k, v, dict(mask_kind=kind, window=window, q_offset=off)
 
 
@@ -1227,15 +1284,17 @@ def flash_kernel_phase(device, flush):
     launched twice for identical bits), then at llama4-scout's heads
     (Hq 40, Hk 8, D 128, bf16) over S 8448 with its chunked-local mask of
     8192: the queries past 8192 attend only their own chunk (twice for
-    identical bits, timed).  Returns the first case's JSON record and the
-    llama4-scout case's, which names its case."""
+    identical bits, timed).  Returns the first case's JSON record, the
+    whisper-medium cases' and the llama4-scout case's, which name their
+    cases."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(3)
     records = []
     for case in FLASH_CASES:
         q, k, v, kw = flash_inputs(device, gen, case)
-        records.append(flash_case(case[0], q, k, v, kw, flush, twice=not records))
+        named = case[0] if len(case) > 9 else None
+        records.append(flash_case(case[0], q, k, v, kw, flush, twice=not records, case=named))
     mk = lambda H: torch.randn((1, LLAMA4_FLASH_S, H, 128), generator=gen,
                                device=device).to(torch.bfloat16)
     q, k, v = mk(40), mk(8), mk(8)
@@ -1244,7 +1303,7 @@ def flash_kernel_phase(device, flush):
                                                   q_offset=0), flush, twice=True, case=case))
     del q, k, v
     torch.cuda.empty_cache()
-    return [records[0], records[-1]]
+    return [records[0]] + [r for r in records[1:] if "case" in r]
 
 
 def flash_device_phase(device, calls: int = 20) -> None:
@@ -2134,10 +2193,11 @@ MAIN_TRACE = dict(seed=0, n=6, lo=64, hi=512, new=16)
 # in prefill and every eager admission's sliding windows cut; max_seq 4096
 GEMMA_ARCH, GEMMA_TRACE, GEMMA_MAX_SEQ = "gemma3-4b", dict(seed=0, n=6, lo=1100, hi=2000,
                                                            new=16), 4096
-# its depth, cut from 34 to 12 layers (layers 5 and 11 global, 10 rings) to
-# keep the whole script near its time beside the ssm and long_500k phases;
-# width, rings, heads and trace stay
-GEMMA_DEPTH = 12
+# its depth in the serving runs, cut from 34 to 6 layers (layer 5 global, 5
+# rings) to keep the whole script near its time beside the ssm, long_500k and
+# whisper phases; width, rings, heads and trace stay, and the traces below
+# run all 34 layers
+GEMMA_DEPTH = 6
 # deepseek-7b (an untied head, g 1): one chunked bf16-KV run, 3 requests
 DEEPSEEK_ARCH, DEEPSEEK_TRACE = "deepseek-7b", dict(seed=0, n=3, lo=64, hi=512, new=16)
 # the MoE family at full width, depth cut to fit one card: llama4-scout
@@ -2222,6 +2282,14 @@ def init_model(arch, device, depth=None):
               f"d_inner {d_in} = {d_in // cfg.ssm_head_dim} heads of {cfg.ssm_head_dim}, "
               f"state {cfg.ssm_state}, conv {cfg.ssm_conv}, vocab {cfg.vocab_size}, tied "
               f"head, {nparam / 1e9:.3f} B params ({cfg.dtype}) initialised on the card in "
+              f"{time.perf_counter() - t0:.2f} s")
+        return cfg, params
+    if cfg.family == "enc_dec":
+        print(f"[serve] {cfg.name}: {cfg.encoder_layers} encoder + {cfg.num_layers} decoder "
+              f"layers (every decoder layer global), d_model {cfg.d_model}, {cfg.num_heads}/"
+              f"{cfg.num_kv_heads} heads of {cfg.head_dim}, GELU d_ff {cfg.d_ff}, layer norms, "
+              f"{cfg.encoder_seq} frames of {cfg.d_audio}, vocab {cfg.vocab_size}, tied head, "
+              f"{nparam / 1e9:.3f} B params ({cfg.dtype}) initialised on the card in "
               f"{time.perf_counter() - t0:.2f} s")
         return cfg, params
     ffn = f"d_ff {cfg.d_ff}"
@@ -2404,8 +2472,8 @@ def serve_phase(device, card):
 
 def zoo_serve_phase(device, card):
     """The dense model zoo at full width: gemma3-4b at :data:`GEMMA_DEPTH`
-    layers (10 local sliding-window layers of 1024 lanes beside 2 global
-    ones, qk-norm, sandwich norms, GeGLU, D 256) for every run of
+    layers (5 local sliding-window layers of 1024 lanes beside 1 global
+    one, qk-norm, sandwich norms, GeGLU, D 256) for every run of
     :data:`SERVE_RUNS` on
     :data:`GEMMA_TRACE` at max_seq 4096, and its refusal of speculative
     decoding; then deepseek-7b (an untied head, g 1) once, chunked with
@@ -2505,17 +2573,41 @@ SSM_FWD_S, SSM_FWD_CHUNK, SSM_CHECK_CHUNK = 2048, 256, 64
 SSM_LOGIT_SHARE, SSM_STATE_SHARE = 1e-3, 1e-3
 
 
-def _nbytes(tree) -> int:
-    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+def feed_greedy(step, params, cache, prompts, new, forced=None, on_step=None):
+    """Feed ``prompts`` (one a slot) through the decode ``step`` a token a
+    step, then greedy tokens until every slot has ``new`` of them (with
+    ``forced``, each slot's given tokens instead: teacher forcing), at
+    least one step past the longest prompt.  ``on_step(t, logits, cache)``
+    sees each step's ``(B, V)`` f32 logits.  Returns each slot's tokens
+    and the cache."""
+    import torch
+
+    dev = cache["pos"].device
+    lens = [len(p) for p in prompts]
+    gen = [[] for _ in prompts]
+    cur = [int(p[0]) for p in prompts]
+    for t in range(max(lens) + max(new, 1) - 1):
+        lg, cache = step(params, cache, torch.tensor(cur, device=dev)[:, None])
+        lg = lg[:, 0].float()
+        nxt = lg.argmax(-1).tolist()
+        if on_step is not None:
+            on_step(t, lg, cache)
+        for b, n in enumerate(lens):
+            if t >= n - 1 and len(gen[b]) < new:
+                gen[b].append(nxt[b] if forced is None else int(forced[b][len(gen[b])]))
+            if t + 1 < n:
+                cur[b] = int(prompts[b][t + 1])
+            else:
+                cur[b] = gen[b][-1] if gen[b] else nxt[b]
+    return gen, cache
 
 
 def ssm_decode(cfg, params, prompts, new, device, timed=None):
     """Decode ``prompts`` (one a slot) through ``engine.make_serve_step``
-    from a zero state, a prompt token a step and then greedy tokens, until
-    every slot has ``new`` of them.  Returns each slot's logits at its
-    prompt positions ``(n, V)`` f32, layer 0's state ``(h, conv)`` just
-    after its prompt, its greedy tokens and the cache; ``timed`` (a list)
-    collects each step's CUDA event pair."""
+    from a zero state (:func:`feed_greedy`).  Returns each slot's logits
+    at its prompt positions ``(n, V)`` f32, layer 0's state ``(h, conv)``
+    just after its prompt, its greedy tokens and the cache; ``timed`` (a
+    list) collects each step's CUDA event pair."""
     import torch
 
     from repro_torch.serving import engine, kv_cache as kvc
@@ -2528,20 +2620,17 @@ def ssm_decode(cfg, params, prompts, new, device, timed=None):
         step = _timed(step, timed)
     logits_at = [torch.empty((n, cfg.vocab_size), dtype=torch.float32, device=device)
                  for n in lens]
-    state_at, gen = [None] * len(prompts), [[] for _ in prompts]
-    cur = [int(p[0]) for p in prompts]
-    for t in range(max(lens) + max(new, 1) - 1):
-        lg, cache = step(params, cache, torch.tensor(cur, device=device)[:, None])
-        nxt = lg[:, 0].argmax(-1).tolist()
+    state_at = [None] * len(prompts)
+
+    def keep(t, lg, cache):
         for b, n in enumerate(lens):
             if t < n:
-                logits_at[b][t] = lg[b, 0].float()
+                logits_at[b][t] = lg[b]
             if t == n - 1:
                 state_at[b] = (cache["mamba"]["h"][0, b].clone(),
                                cache["mamba"]["conv"][0, b].clone())
-            if t >= n - 1 and len(gen[b]) < new:
-                gen[b].append(nxt[b])
-            cur[b] = int(prompts[b][t + 1]) if t + 1 < n else nxt[b]
+
+    gen, cache = feed_greedy(step, params, cache, prompts, new, on_step=keep)
     return logits_at, state_at, gen, cache, layout
 
 
@@ -2626,7 +2715,7 @@ def ssm_phase(device, card):
     if list(map(len, gen)) != [SSM_NEW] * B or int(cache["pos"].min()) != n_steps:
         raise AssertionError(f"{cfg.name} decode: {list(map(len, gen))} tokens, pos "
                              f"{cache['pos'].tolist()}")
-    state_bytes = _nbytes(cache["mamba"])
+    state_bytes = kvc.cache_bytes(cache["mamba"])
     ms = np.mean([a.elapsed_time(b) for a, b in spans])
     print(f"[ssm] {cfg.name} decode, {B} slots ({layout.layout} layout, max_seq "
           f"{SSM_MAX_SEQ}): prompts of {SSM_PROMPTS} tokens fed a token a step from a zero "
@@ -2678,9 +2767,11 @@ def ssm_phase(device, card):
     free_device()
     long_lay = kvc.layout_for(cfg, 1, 524288)
     long_cache = kvc.init_cache_arrays(cfg, long_lay, device)
-    short = _nbytes(kvc.init_cache_arrays(cfg, kvc.layout_for(cfg, 1, SSM_MAX_SEQ), device))
-    if _nbytes(long_cache) != short:
-        raise AssertionError(f"{cfg.name}: max_seq 524288 allocates {_nbytes(long_cache)} B, "
+    short = kvc.cache_bytes(kvc.init_cache_arrays(cfg, kvc.layout_for(cfg, 1, SSM_MAX_SEQ),
+                                                  device))
+    if kvc.cache_bytes(long_cache) != short:
+        raise AssertionError(f"{cfg.name}: max_seq 524288 allocates "
+                             f"{kvc.cache_bytes(long_cache)} B, "
                              f"max_seq {SSM_MAX_SEQ} {short} B")
     spans = []
     long_step = _timed(engine.make_serve_step(cfg, long_lay), spans)
@@ -2690,7 +2781,8 @@ def ssm_phase(device, card):
         tok = lg[:, 0].argmax(-1)[:, None]
     if not bool(torch.isfinite(lg).all()) or int(long_cache["pos"][0]) != 16:
         raise AssertionError(f"{cfg.name} long_500k decode is malformed")
-    print(f"[ssm] {cfg.name} long_500k (B 1, max_seq 524288): cache {_nbytes(long_cache)} B, "
+    print(f"[ssm] {cfg.name} long_500k (B 1, max_seq 524288): cache "
+          f"{kvc.cache_bytes(long_cache)} B, "
           f"the same as at max_seq {SSM_MAX_SEQ}; 16 steps at "
           f"{np.mean([a.elapsed_time(b) for a, b in spans]):.3f} ms a step [{card}]")
     del params, long_cache
@@ -2717,6 +2809,338 @@ def ssm_phase(device, card):
         raise AssertionError(f"{scfg.name}: card and CPU differ (logits {diff:.3e})")
     print(f"[check] {scfg.name} (f32): 24 greedy steps of 2 slots, card and CPU tokens equal, "
           f"logits within {diff:.3e} (bound 1e-4)")
+
+
+# whisper-medium (the enc_dec family) at full width and depth, decoded as the
+# reference decodes it: the encoder once, its memory projected into the
+# cache's cross_k / cross_v, then make_serve_step a token a step from
+# position 0 (no Scheduler, no prefill).  4 slots fed prompts of 64-128
+# tokens, then 16 greedy tokens, in each (KV format, layout) of
+# WHISPER_RUNS (paged: page 16, max_seq 1024); the decode_32k layout
+# (max_seq 32768) at B 2 for 16 steps in WHISPER_LONG_FORMATS; the forward
+# at B 1, S 128
+WHISPER_ARCH = "whisper-medium"
+WHISPER_PROMPTS = (64, 80, 96, 128)
+WHISPER_NEW, WHISPER_MAX_SEQ, WHISPER_PAGE = 16, 1024, 16
+WHISPER_RUNS = (("bf16", "paged"), ("int8", "paged"), ("bgpp", "paged"), ("bf16", "slot"))
+WHISPER_LONG_SEQ, WHISPER_LONG_B, WHISPER_LONG_STEPS = 32768, 2, 16
+WHISPER_LONG_FORMATS = ("bgpp", "int8")
+WHISPER_FWD_S, WHISPER_CPU_STEPS = 128, 4
+# the card against the CPU at full width over 4 steps from one cache: 1e-4
+# of max |logit|.  Both sides run the decode in f32 on the same weights and
+# cache (the residual is f32 from layer 0's attend on), so they differ by
+# f32 summation orders, diluted over the 143+ lanes each slot attends; a
+# decode with K1 blind to each slot's newest lane, teacher-forced with the
+# CPU's tokens, is read beside it and must fall outside the bound
+WHISPER_CPU_SHARE = 1e-4
+
+
+def whisper_frames(cfg, batch: int, seed: int, device):
+    """Stub post-conv frames ``(batch, encoder_seq, d_audio)`` f32, drawn
+    with numpy from ``seed``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    frames = rng.standard_normal((batch, cfg.encoder_seq, cfg.d_audio), dtype=np.float32)
+    return torch.from_numpy(frames).to(device)
+
+
+def whisper_cache(cfg, cross, fmt, layout, batch, max_seq, device, page=WHISPER_PAGE):
+    """A zero cache for ``batch`` slots (paged: pages of ``page``, an
+    identity page table) with ``cross`` (``whisper.cross_kv``'s stacked K /
+    V, at least ``batch`` rows) in its cross memory."""
+    from repro_torch.serving import kv_cache as kvc
+
+    lay = kvc.layout_for(cfg, batch, max_seq, kv_format=fmt, layout=layout, page_size=page)
+    cache = kvc.init_cache_arrays(cfg, lay, device)
+    if layout == "paged":
+        cache["page_table"] = kvc.identity_page_table(lay, device)
+    cache["cross_k"].copy_(cross[0][:, :batch])
+    cache["cross_v"].copy_(cross[1][:, :batch])
+    return lay, cache
+
+
+def whisper_decode(cfg, params, cache, layout, prompts, new, forced=None, timed=None):
+    """Feed ``prompts`` (one a slot) through ``engine.make_serve_step``
+    from the cache's positions, then ``new`` greedy (or ``forced``) tokens
+    (:func:`feed_greedy`).  Returns each slot's logits at its generated
+    positions ``(new, V)`` f32 on the CPU, its tokens and the cache;
+    ``timed`` (a list) collects each step's CUDA event pair."""
+    import torch
+
+    from repro_torch.serving import engine
+
+    step = engine.make_serve_step(cfg, layout)
+    if timed is not None:
+        step = _timed(step, timed)
+    lens = [len(p) for p in prompts]
+    rows = [[] for _ in prompts]
+
+    def keep(t, lg, cache):
+        for b, n in enumerate(lens):
+            if n - 1 <= t < n - 1 + new:
+                rows[b].append(lg[b].cpu())
+
+    gen, cache = feed_greedy(step, params, cache, prompts, new, forced=forced, on_step=keep)
+    return [torch.stack(r) for r in rows], gen, cache
+
+
+def whisper_cpu_check(cfg, params, lay, cache, last, cross, device):
+    """The card against the CPU at full width: :data:`WHISPER_CPU_STEPS`
+    greedy steps from ``cache`` on the card and on CPU copies of the cache
+    and weights (the plain versions), fed ``last`` first, in two variants:
+
+    * bf16, the cache as the decode left it: greedy tokens equal, logits
+      within :data:`WHISPER_CPU_SHARE` of max |logit|; the same steps with
+      K1 blind to each slot's newest lane (teacher-forced with the CPU's
+      tokens) must read more.
+    * f32 (weights, cache and cross memory upcast exactly) with slot 0
+      reset and its cross memory refilled, so the slots decode at other
+      positions: tokens equal, logits within the same bound.  f32 K / V,
+      because a fresh slot attends one to four lanes, which pass a bf16
+      store's rounding of the two sides' f32 values on undiluted.
+
+    Each prints the largest difference a slot."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.serving import engine, kernel_decode, kv_cache as kvc
+
+    sound = kernel_decode.decode_attend
+    blind = lambda q, store, gi, pos, *a, **kw: sound(q, store, gi, (pos - 1).clamp_min(0),
+                                                      *a, **kw)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    up = lambda t: t.float() if t.is_floating_point() else t.clone()
+    for name, cfg_, params_, base in (("bf16", cfg, params, cache),
+                                      ("f32, slot 0 reset", cfg32, None, None)):
+        t0 = time.perf_counter()
+        if base is None:
+            params_ = _tree_map(up, params)
+            base = kvc.reset_slot(_tree_map(up, cache), lay, 0)
+            base["cross_k"][:, 0], base["cross_v"][:, 0] = cross[0][:, 0], cross[1][:, 0]
+        step = engine.make_serve_step(cfg_, lay)
+        sides = [("cpu", "cpu", _tree_to(params_, "cpu"), _tree_to(base, "cpu")),
+                 ("card", device, params_, _tree_map(torch.clone, base))]
+        if name == "bf16":
+            sides.append(("fault", device, params_, _tree_map(torch.clone, base)))
+        got = {}
+        for key, dev, p, c in sides:
+            tok = torch.tensor(last, device=dev)[:, None]
+            rows, toks = [], []
+            kernel_decode.decode_attend = blind if key == "fault" else sound
+            try:
+                for i in range(WHISPER_CPU_STEPS):
+                    lg, c = step(p, c, tok)
+                    tok = lg[:, 0].argmax(-1)[:, None]
+                    if key == "fault":
+                        tok = torch.tensor(got["cpu"][1][i], device=dev)[:, None]
+                    rows.append(lg[:, 0].float().cpu())
+                    toks.append(tok[:, 0].tolist())
+            finally:
+                kernel_decode.decode_attend = sound
+            got[key] = (torch.stack(rows), toks)
+            del c
+        del sides, params_, base
+        scale = float(got["cpu"][0].abs().max())
+        diff = {k: (v[0] - got["cpu"][0]).abs().amax(dim=(0, 2)) for k, v in got.items()
+                if k != "cpu"}
+        err = float(diff["card"].max())
+        fault = (f"; K1 blind to each slot's newest lane, teacher-forced: "
+                 f"{float(diff['fault'].max()) / scale:.4e} of it" if "fault" in diff else "")
+        print(f"[check] {cfg.name} ({name}, full width and depth) {WHISPER_CPU_STEPS} greedy "
+              f"steps of {len(last)} slots at positions {cache['pos'].tolist()}"
+              f"{' -> slot 0 at 0' if name != 'bf16' else ''} from the bf16 paged run's cache, "
+              f"on the card and on CPU copies of the cache and weights (the plain versions): "
+              f"tokens equal {got['card'][1] == got['cpu'][1]}, max |logit diff| "
+              f"{err:.4e} = {err / scale:.4e} of max |logit| {scale:.4e} (bound "
+              f"{WHISPER_CPU_SHARE:.4e}; a slot: "
+              f"{[f'{float(d) / scale:.2e}' for d in diff['card']]}){fault}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        if got["card"][1] != got["cpu"][1] or err > WHISPER_CPU_SHARE * scale:
+            raise AssertionError(f"{cfg.name} ({name}): card and CPU decode disagree")
+        if "fault" in diff and not float(diff["fault"].max()) > WHISPER_CPU_SHARE * scale:
+            raise AssertionError(f"{cfg.name}: the card-vs-CPU bound does not tell a blind "
+                                 f"K1 from a sound one")
+        free_device()
+
+
+def whisper_phase(device, card):
+    """whisper-medium on the card, as the reference serves enc_dec (no
+    Scheduler: ``whisper.encode`` once, ``cross_kv`` into the cache, then
+    ``engine.make_serve_step`` from position 0).
+
+    * Encoder: B 4 of :func:`whisper_frames` (seed 0), K5's full mask over
+      1500 frames in all 24 layers (24 launches a call), ms (CUDA events,
+      3 calls) and peak GiB; ``cross_kv`` into the cross memory.
+    * Decode: for each run of :data:`WHISPER_RUNS`, 4 slots fed
+      :data:`WHISPER_PROMPTS` a token a step, then :data:`WHISPER_NEW`
+      greedy tokens (:func:`whisper_decode`): ms a step, K1 (bf16 / int8)
+      or K2 (bgpp) exactly 24 launches a step and nothing else, tokens and
+      logits well formed, ``pos`` the step count, peak GiB, ``kv_read``
+      against the cross memory a step reads.
+    * The card against the CPU from the bf16 paged run's final cache
+      (:func:`whisper_cpu_check`): bf16 as it is, and an f32 copy with
+      slot 0 reset, so the slots' positions differ.
+    * decode_32k: max_seq 32768, B 2, :data:`WHISPER_LONG_FORMATS`, 16
+      steps each (K1's int8 body / K2 over 32768 lanes, 24 a step).
+    * Forward: ``model_zoo.forward`` at B 1, S 128 (K5 72 launches: 24
+      full, 24 causal, 24 cross), ms and peak GiB.
+    * Traces, after everything is timed: one encode (K5's device ms a
+      launch at S 1500), 2 bf16 and 2 bgpp decode steps (device busy
+      share, K1's and K2's device ms a launch).
+    Returns the launches of each kernel over the phase's timed runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.models import model_zoo, whisper
+    from repro_torch.serving import engine, kv_cache as kvc
+
+    cfg, params = init_model(WHISPER_ARCH, device)
+    L, B, V = cfg.num_layers, len(WHISPER_PROMPTS), cfg.vocab_size
+    total = {name: 0 for name in K.LAUNCHES}
+
+    def count(what, want):
+        got = dict(K.LAUNCHES)
+        for name, n in got.items():
+            if n != want.get(name, 0):
+                raise AssertionError(f"{cfg.name} {what}: {name} launched {n} times, "
+                                     f"expected {want.get(name, 0)}")
+            total[name] += n
+        return ", ".join(f"{n} {v}" for n, v in got.items() if v) or "none"
+
+    # the encoder, once per request, then its memory into the cross K / V
+    frames = whisper_frames(cfg, B, 0, device)
+    free_device()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    memory = whisper.encode(params, cfg, frames)
+    torch.cuda.synchronize()
+    counts = count("encoder", {"flash_attention": cfg.encoder_layers})
+    enc_ms = time_ms(lambda: whisper.encode(params, cfg, frames), iters=3)
+    t0 = time.perf_counter()
+    cross = whisper.cross_kv(params, cfg, memory)
+    torch.cuda.synchronize()
+    cross_s = time.perf_counter() - t0
+    if not bool(torch.isfinite(memory).all()) or memory.shape != (B, cfg.encoder_seq,
+                                                                 cfg.d_model):
+        raise AssertionError(f"{cfg.name} encoder output is malformed")
+    cross_b = 2 * cross[0][:, :1].numel() * cross[0].element_size()
+    print(f"[whisper] {cfg.name} encoder, B {B} x {cfg.encoder_seq} frames: {enc_ms:.3f} ms "
+          f"(CUDA events, 3 calls); launches a call: {counts}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; cross_kv into the cache's "
+          f"memory in {cross_s * 1e3:.1f} ms, {cross_b} B a slot ({L} layers x "
+          f"{cfg.num_kv_heads} heads x {cfg.encoder_seq} x {cfg.head_dim} x K and V) [{card}]")
+    del memory
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, V, n) for n in WHISPER_PROMPTS]
+    kept, tokens_of = {}, {}
+    for fmt, layout in WHISPER_RUNS:
+        free_device()
+        torch.cuda.reset_peak_memory_stats()
+        lay, cache = whisper_cache(cfg, cross, fmt, layout, B, WHISPER_MAX_SEQ, device)
+        spans = []
+        K.reset_launches()
+        t0 = time.perf_counter()
+        rows, gen, cache = whisper_decode(cfg, params, cache, lay, prompts, WHISPER_NEW,
+                                          timed=spans)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = len(spans)
+        counts = count(f"{fmt} {layout} decode", {KERNEL_OF[fmt]: L * steps})
+        if (list(map(len, gen)) != [WHISPER_NEW] * B or int(cache["pos"].min()) != steps
+                or not all(bool(torch.isfinite(r).all()) and r.shape == (WHISPER_NEW, V)
+                           for r in rows)):
+            raise AssertionError(f"{cfg.name} {fmt} {layout} decode is malformed")
+        tokens_of[(fmt, layout)] = gen
+        kv = kvc.decode_read_bytes(lay, cfg)["total"]
+        ms = np.mean([a.elapsed_time(b) for a, b in spans])
+        same = ""
+        if (fmt, layout) == ("bf16", "slot"):
+            same = (f"; greedy tokens equal to the paged bf16 run's in "
+                    f"{sum(a == b for a, b in zip(gen, tokens_of[('bf16', 'paged')]))} of "
+                    f"{B} slots")
+        print(f"[whisper] {cfg.name} {fmt} KV {layout}"
+              f"{f' (page {lay.page_size})' if layout == 'paged' else ''}, max_seq "
+              f"{WHISPER_MAX_SEQ}, {B} slots: prompts of {WHISPER_PROMPTS} tokens fed a token "
+              f"a step from position 0, then {WHISPER_NEW} greedy tokens each, {steps} steps "
+              f"in {wall:.2f} s: {ms:.3f} ms a step (CUDA events); launches: {counts} ({L} "
+              f"layers x {steps} steps); kv_read {kv:.0f} B a step (self-attention stores "
+              f"only, as the reference prices it; the cross attends read {B * cross_b} B "
+              f"more); peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; first tokens "
+              f"{[g[:4] for g in gen]}{same} [{card}]")
+        if layout == "paged" and fmt in ("bf16", "bgpp"):
+            kept[fmt] = (lay, cache, [g[-1] for g in gen])
+        del cache, rows
+
+    # the card against the CPU: 4 greedy steps from the bf16 paged run's
+    # cache as the run left it, then from an f32 copy with slot 0 reset
+    lay, cache, last = kept["bf16"]
+    whisper_cpu_check(cfg, params, lay, cache, last, cross, device)
+    free_device()
+
+    # decode_32k: the reference's 32768-lane cache, B 2
+    for fmt in WHISPER_LONG_FORMATS:
+        free_device()
+        torch.cuda.reset_peak_memory_stats()
+        lay, cache = whisper_cache(cfg, cross, fmt, "paged", WHISPER_LONG_B, WHISPER_LONG_SEQ,
+                                   device)
+        spans = []
+        K.reset_launches()
+        long_prompts = [p[:WHISPER_LONG_STEPS] for p in prompts[:WHISPER_LONG_B]]
+        rows, gen, cache = whisper_decode(cfg, params, cache, lay, long_prompts, 1,
+                                          timed=spans)
+        torch.cuda.synchronize()
+        steps = len(spans)
+        counts = count(f"{fmt} decode_32k", {KERNEL_OF[fmt]: L * steps})
+        if steps != WHISPER_LONG_STEPS or not all(bool(torch.isfinite(r).all()) for r in rows):
+            raise AssertionError(f"{cfg.name} {fmt} decode_32k is malformed")
+        print(f"[whisper] {cfg.name} decode_32k {fmt} KV paged (page {lay.page_size}, max_seq "
+              f"{WHISPER_LONG_SEQ}), {WHISPER_LONG_B} slots, {steps} steps: "
+              f"{np.mean([a.elapsed_time(b) for a, b in spans]):.3f} ms a step; launches: "
+              f"{counts}; cache {kvc.cache_bytes(cache)} B; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+        del cache
+
+    # the teacher-forced forward: K5's three kinds
+    free_device()
+    torch.cuda.reset_peak_memory_stats()
+    toks = torch.as_tensor(rng.integers(0, V, (1, WHISPER_FWD_S)), device=device)
+    batch = {"tokens": toks, "frames": frames[:1]}
+    K.reset_launches()
+    logits, aux = model_zoo.forward(params, cfg, batch)
+    torch.cuda.synchronize()
+    counts = count("forward", {"flash_attention": cfg.encoder_layers + 2 * L})
+    if logits.shape != (1, WHISPER_FWD_S, V) or not bool(torch.isfinite(logits).all()) \
+            or float(aux) != 0.0:
+        raise AssertionError(f"{cfg.name} forward is malformed")
+    fwd_ms = time_ms(lambda: model_zoo.forward(params, cfg, batch), iters=3)
+    print(f"[whisper] {cfg.name} forward B 1, S {WHISPER_FWD_S} over {cfg.encoder_seq} "
+          f"frames: {fwd_ms:.3f} ms (CUDA events, 3 calls); launches a call: {counts} "
+          f"({cfg.encoder_layers} full in the encoder, {L} causal and {L} cross Sq "
+          f"{WHISPER_FWD_S} / Sk {cfg.encoder_seq} in the decoder); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    del logits
+
+    # traces, once every run above is timed
+    dev = _traced(lambda: whisper.encode(params, cfg, frames), f"{cfg.name} encoder B {B}")
+    heads = f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}"
+    per_launch(dev, f"flash_attention (K5, full, S {cfg.encoder_seq}, {heads})",
+               ("flash_kernel", "flash_mma_kernel"))
+    for fmt, names in (("bf16", ("dense_kernel",)), ("bgpp", ("bgpp_kernel",))):
+        lay, cache, last = kept.pop(fmt)
+        step = engine.make_serve_step(cfg, lay)
+        tok = torch.tensor(last, device=device)[:, None]
+        dev = _traced(lambda: [step(params, cache, tok) for _ in range(2)],
+                      f"{cfg.name} {fmt} KV decode: 2 steps of {B} slots", top=10)
+        per_launch(dev, f"{KERNEL_OF[fmt]} ({L} global layers, {heads})", names)
+        del cache
+    del params, cross, frames
+    free_device()
+    return total
 
 
 def vision_prefill(cfg, params, device, card):
@@ -2783,7 +3207,8 @@ def trace_phase(device):
     """After every timed serving run (a profiler trace slows later host
     work): phi4-mini's chunked runs trace a few steady decode steps and its
     eager run one whole-prompt admission (:data:`SERVE_RUNS`); gemma3-4b
-    traces steady bf16-KV and bgpp-KV decode and one eager admission of
+    at all 34 layers (its only full-depth run) traces steady bf16-KV and bgpp-KV
+    decode and one eager admission of
     1100+ tokens, and prints K1's, K2's and K5's device ms a launch at
     D 256 on its serving path; llama4-scout (cut to
     :data:`LLAMA4_DEPTH` layers) traces steady bf16-KV decode, with K1's
@@ -2825,7 +3250,8 @@ def trace_phase(device):
         else:
             dev = profile_decode(sched, trace(1, 4, cfg.vocab_size, 1100, 1200, 64), label,
                                  top=12)
-            per_launch(dev, f"{KERNEL_OF[fmt]} (D 256, 5 global layers)",
+            G = len(layout.global_layers)
+            per_launch(dev, f"{KERNEL_OF[fmt]} (D 256, {G} global layers)",
                        ("bgpp_kernel",) if fmt == "bgpp" else ("dense_kernel",))
             if fmt == "bf16":
                 ring_attend_device(sched)
@@ -3091,7 +3517,8 @@ def reference_phase(device):
     and logits within 1e-4 (f32 sums in another order).  int8/bgpp KV:
     teacher-forced with the CPU's tokens, logits within the model's
     tolerance of :data:`REFERENCE_MODELS` (a probability code may flip by
-    one at a .5 boundary)."""
+    one at a .5 boundary).  Then whisper-smoke, outside the Scheduler as
+    the reference serves it (:func:`whisper_reference`)."""
     import numpy as np
     import torch
 
@@ -3157,6 +3584,73 @@ def reference_phase(device):
                   f"of it)")
             if not err <= 1e-4 * scale:
                 raise AssertionError(f"{cfg.name}: the prefix forward disagrees card / CPU")
+    whisper_reference(device)
+
+
+def whisper_reference(device):
+    """whisper-smoke (f32) on the card (K5 in the encoder and the forward,
+    K1 / K2 in the decode) and on the CPU (the plain versions), from the
+    same parameters and seeded frames (B 2): the encoder's memory and the
+    forward's logits (S 20) within 1e-4 of max |value|; then every layout x
+    KV format of ``make_serve_step`` (max_seq 64, page 8), each side over
+    its own memory, prompts of 12 and 20 tokens and 8 new ones
+    (:func:`whisper_decode`), then slot 0 reset (its cross memory
+    refilled) and the same again from the live cache, the slots now at
+    other positions: bf16 KV the same greedy tokens and logits
+    within 1e-4; int8 / bgpp KV teacher-forced with the CPU's tokens,
+    logits within 5e-3 (4 heads of 16, as deepseek-7b-smoke's)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo, whisper
+    from repro_torch.serving import kv_cache as kvc
+
+    cfg = get_config(WHISPER_ARCH, smoke=True)
+    side = {"cpu": model_zoo.init(cfg, torch.Generator().manual_seed(0), "cpu")}
+    side[device] = _tree_to(side["cpu"], device)
+    frames = whisper_frames(cfg, 2, 1, "cpu")
+    toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 20)))
+    mem, fwd = {}, {}
+    for dev, p in side.items():
+        mem[dev] = whisper.encode(p, cfg, frames.to(dev))
+        fwd[dev] = model_zoo.forward(p, cfg, {"tokens": toks.to(dev),
+                                              "frames": frames.to(dev)})[0].cpu()
+    for what, a, b in (("encoder memory", mem[device].cpu(), mem["cpu"]),
+                       ("forward logits", fwd[device], fwd["cpu"])):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        print(f"[check] {cfg.name} {what} (flash_attention on the card): max |diff| "
+              f"{err:.3e} = {err / scale:.3e} of max {scale:.3e} (tolerance 1e-4 of it)")
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"{cfg.name}: the {what} disagree card / CPU")
+    cross = {dev: whisper.cross_kv(p, cfg, mem[dev]) for dev, p in side.items()}
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (12, 20)]
+    for layout in ("slot", "paged"):
+        for fmt in ("bf16", "int8", "bgpp"):
+            run = {}
+            for dev, p in (("cpu", side["cpu"]), (device, side[device])):
+                lay, cache = whisper_cache(cfg, cross[dev], fmt, layout, 2, 64, dev, page=8)
+                rows, toks = [], []
+                for r in range(2):
+                    if r:  # slot 0 anew: from here the slots decode at other positions
+                        cache = kvc.reset_slot(cache, lay, 0)
+                        cache["cross_k"][:, 0] = cross[dev][0][:, 0]
+                        cache["cross_v"][:, 0] = cross[dev][1][:, 0]
+                    forced = None if fmt == "bf16" or dev == "cpu" else run["cpu"][1][r]
+                    lg, gen, cache = whisper_decode(cfg, p, cache, lay, prompts, 8,
+                                                    forced=forced)
+                    rows += lg
+                    toks.append(gen)
+                run[dev] = (rows, toks)
+            same = run[device][1] == run["cpu"][1]
+            err = max(float((a - b).abs().max()) for a, b in zip(run[device][0], run["cpu"][0]))
+            tol = 1e-4 if fmt == "bf16" else 5e-3
+            print(f"[check] {cfg.name} {layout} {fmt} KV, make_serve_step over the encoder's "
+                  f"memory: tokens equal {same}, max |logit diff| {err:.3e} (tolerance {tol})")
+            if not same or not err <= tol:
+                raise AssertionError(f"{cfg.name} {layout} {fmt}: card and CPU disagree")
 
 
 def paper_reference_phase(device):
@@ -3228,7 +3722,7 @@ def paper_reference_phase(device):
 
 
 PHASES = ("kernels", "head-widths", "long-context", "prefix", "score", "score-device", "decode",
-          "decode-attends", "ssm", "long-serve")
+          "decode-attends", "ssm", "long-serve", "whisper")
 
 
 def main(argv=None) -> int:
@@ -3242,7 +3736,9 @@ def main(argv=None) -> int:
              "and device times, 'decode-attends' K1's and K2's device times at the decode "
              "geometry alone (public wrappers only: it runs on an older tree too), 'ssm' "
              "mamba2-1.3b's decode, forward and long_500k cache and mamba2-smoke against the "
-             "CPU, 'long-serve' gemma3-1b served at max_seq 524,288; without it "
+             "CPU, 'long-serve' gemma3-1b served at max_seq 524,288, 'whisper' "
+             "whisper-medium's encoder, decode in every KV format, decode_32k layout and "
+             "forward and whisper-smoke against the CPU; without it "
              "every phase "
              "runs and the records are printed")
     only = parser.parse_args(argv).only
@@ -3303,6 +3799,9 @@ def main(argv=None) -> int:
             timed(long_serve_phase, device, card)
         if run("ssm"):
             timed(ssm_phase, device, card)
+        if run("whisper"):
+            timed(whisper_phase, device, card)
+            timed(whisper_reference, device)
         torch.cuda.synchronize()
         print(card)
         return 0
@@ -3314,6 +3813,9 @@ def main(argv=None) -> int:
     for phase in (zoo_serve_phase, moe_serve_phase, vlm_serve_phase, long_serve_phase,
                   ssm_phase):
         timed(phase, device, card)
+    # K1 / K2 / K5 over whisper's runs count beside phi4-mini's
+    for name, n in timed(whisper_phase, device, card).items():
+        launches[name] = launches.get(name, 0) + n
     for phase in (trace_phase, flash_device_phase, bstc_device_phase, decode_device_phase,
                   bgpp_device_phase, score_device_phase, brcr_device_phase):
         timed(phase, device)

@@ -8,11 +8,11 @@ knobs and speculative decoding).  The port keeps its own copy (it imports
 nothing of ``repro``).  Each architecture file registers its published
 config plus a reduced ``smoke`` variant used by the CPU tests.
 
-The port serves the ``dense``, ``moe``, ``vlm`` and ``ssm`` families; every
-entry point refuses another family with :func:`require_served`'s error, and
-the transformer-only ones (prefill, chunked admission, the Scheduler, the
-launcher) refuse ssm with :func:`require_transformer`'s, as the reference
-does.
+The port serves the ``dense``, ``moe``, ``vlm``, ``ssm`` and ``enc_dec``
+families; every entry point refuses another family (the hybrid) with
+:func:`require_served`'s error, and the transformer-only ones (prefill,
+chunked admission, the Scheduler, the launcher) refuse ssm and enc_dec
+with :func:`require_transformer`'s, as the reference does.
 """
 
 from __future__ import annotations
@@ -254,14 +254,23 @@ def _param_count(cfg: ModelConfig, active_only: bool) -> int:
 # reference's prefill, chunked admission, Scheduler, launcher and converted
 # weight formats take
 TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
-# families the port serves: the transformer stack and the attention-free
-# ssm (models/mamba2.py), which decodes through make_serve_step alone
-SERVED_FAMILIES = TRANSFORMER_FAMILIES + ("ssm",)
+# families the port serves: the transformer stack, the attention-free ssm
+# (models/mamba2.py) and whisper's enc_dec (models/whisper.py); the last two
+# decode through make_serve_step alone
+SERVED_FAMILIES = TRANSFORMER_FAMILIES + ("ssm", "enc_dec")
 
 # ROADMAP Queue 1 item that ports each family the port does not serve yet
 _FAMILY_ITEM = {
-    "hybrid": "ROADMAP Queue 1, items 6c (models/hybrid.py) and 7 (sharding)",
-    "enc_dec": "ROADMAP Queue 1, item 6 (models/whisper.py)",
+    "hybrid": "ROADMAP Queue 1, item 7 (sharding: one jamba super-block does not fit one "
+              "card), then 6c (models/hybrid.py)",
+}
+
+# how a family outside the transformer stack decodes (the reference's
+# Scheduler: "ssm/hybrid/enc-dec decode through make_serve_step directly")
+_DIRECT_DECODE = {
+    "ssm": "from a zero state",
+    "enc_dec": "from position 0, over the encoder memory the caller puts in the cache's "
+               "cross_k / cross_v",
 }
 
 
@@ -283,16 +292,16 @@ def require_served(cfg, who: str) -> None:
 
 
 def require_transformer(cfg, who: str) -> None:
-    """Refuse what :func:`require_served` refuses, and the ssm family at an
-    entry point of the transformer families alone, with the reference's
-    reason: ssm decodes through ``make_serve_step`` from a zero state."""
+    """Refuse what :func:`require_served` refuses, and the ssm and enc_dec
+    families at an entry point of the transformer families alone, with the
+    reference's reason: they decode through ``make_serve_step`` directly."""
     require_served(cfg, who)
     if cfg.family not in TRANSFORMER_FAMILIES:
         raise ValueError(
             f"{who}: {cfg.name} is of family {cfg.family!r}; {who} covers the "
             f"transformer families ({', '.join(TRANSFORMER_FAMILIES)}) only: "
-            f"{cfg.family} decodes through make_serve_step directly, from a zero "
-            f"state, as in the reference")
+            f"{cfg.family} decodes through make_serve_step directly, "
+            f"{_DIRECT_DECODE[cfg.family]}, as in the reference")
 
 
 ARCH_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}

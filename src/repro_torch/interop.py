@@ -6,7 +6,9 @@ The tests build the JAX reference and the port from the SAME parameters:
 out)`` projection weights, stacked ``(L, ...)`` layer leaves, an MoE
 layer's ``moe`` subtree (``router``, the ``(L, E, ...)`` ``gate`` / ``up`` /
 ``down`` banks, ``shared/*``), a VLM's ``(d_vision, d_model)``
-``vision_proj`` — so the two sides compare like with like.
+``vision_proj``, whisper's ``encoder`` / ``decoder`` stacks with their
+layer norms' ``scale`` and ``bias`` and the MLP biases — so the two sides
+compare like with like.
 bf16 leaves arrive as numpy arrays whose ``dtype.name == "bfloat16"``;
 they are reinterpreted through ``uint16`` bits, so no ``ml_dtypes`` import
 is needed.

@@ -1,10 +1,11 @@
 """Shared dense-transformer layers on plain tensors.
 
-Counterpart of :mod:`repro.models.layers` for the pieces the dense
-family runs: RMS norm, split-halves RoPE in float32, the projection
-contraction (raw ``(in, out)`` weight leaves and the serve-time int8 / BSTC
-records of :mod:`repro_torch.serving.weights`), the SwiGLU / GeGLU / GELU
-MLPs and the QKV projection with gemma3's optional qk-norm.
+Counterpart of :mod:`repro.models.layers` for the pieces the port's
+families run: RMS norm and whisper's layer norm, split-halves RoPE in
+float32, the sinusoidal position table, the projection contraction (raw
+``(in, out)`` weight leaves and the serve-time int8 / BSTC records of
+:mod:`repro_torch.serving.weights`), the SwiGLU / GeGLU / GELU MLPs and
+the QKV projection with gemma3's optional qk-norm.
 
 On the CPU every contraction sums each row in one order whatever the
 number of rows beside it (:func:`matmul`), so a prompt's logits do not move
@@ -13,6 +14,7 @@ with the chunk width it was prefilled at, nor a slot's with the batch.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -35,12 +37,33 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     return (xf * (1.0 + weight.float())).to(dt)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm in float32 (mean and biased variance over the last axis),
+    ``y * weight + bias``, cast back to x's dtype: one fused
+    ``F.layer_norm`` where the reference's ``jnp`` spells it out."""
+    return F.layer_norm(x.float(), x.shape[-1:], weight.float(), bias.float(),
+                        eps).to(x.dtype)
+
+
 def apply_norm(x: torch.Tensor, params, kind: str) -> torch.Tensor:
-    """The config's norm (the dense family's is ``rms``; whisper's layer
-    norm comes with its family)."""
-    if kind != "rms":
-        raise ValueError(f"apply_norm: norm {kind!r} is not ported")
-    return rms_norm(x, params["scale"])
+    """The config's norm: ``rms`` (``params["scale"]``) or whisper's
+    ``ln`` (``params["scale"]``, ``params["bias"]``)."""
+    if kind == "rms":
+        return rms_norm(x, params["scale"])
+    if kind == "ln":
+        return layer_norm(x, params["scale"], params["bias"])
+    raise ValueError(f"apply_norm: unknown norm {kind!r}")
+
+
+def norm_init(dim: int, kind: str, dtype, device, stack: Tuple[int, ...] = ()):
+    """A norm's parameters, ``stack`` copies: ``rms`` a zero scale, ``ln``
+    a scale of ones and a zero bias."""
+    shape = tuple(stack) + (dim,)
+    if kind == "rms":
+        return {"scale": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"scale": torch.ones(shape, dtype=dtype, device=device),
+            "bias": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -59,6 +82,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoid_div(dim: int, device=None) -> torch.Tensor:
+    """``exp(2i * -ln(10000) / dim)`` for ``i < dim / 2`` in float32: the
+    exponent formed in float32, the exponential correctly rounded (taken in
+    float64).  The reference's table is a constant of its compiled step,
+    and XLA folds it with a correctly rounded exp; its eager ``jnp.exp``
+    is off by an ulp on a few lanes, which a position of 32767 turns into
+    ~1e-3 of sin / cos."""
+    arg = torch.arange(0, dim, 2, dtype=torch.float32, device=device) * (-math.log(10000.0) / dim)
+    return torch.exp(arg.double()).float()
+
+
+def sinusoidal_positions(num_pos: int, dim: int, device=None) -> torch.Tensor:
+    """The extended sinusoidal table ``(num_pos, dim)`` float32: sin on the
+    even lanes and cos on the odd ones of ``pos * div`` (whisper's encoder
+    and its decoder beyond the checkpoint's 448 positions)."""
+    pos = torch.arange(num_pos, dtype=torch.float32, device=device)
+    return sinusoid_at(pos, dim)
+
+
+def sinusoid_at(pos: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sinusoidal embedding at positions ``pos`` (any shape, any
+    numeric dtype) -> ``pos.shape + (dim,)`` float32; the angle is the
+    float32 product ``pos * div``, as the reference forms it."""
+    ang = pos.float()[..., None] * sinusoid_div(dim, pos.device)
+    out = torch.empty(pos.shape + (dim,), dtype=torch.float32, device=pos.device)
+    out[..., 0::2] = torch.sin(ang)
+    out[..., 1::2] = torch.cos(ang)
+    return out
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

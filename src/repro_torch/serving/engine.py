@@ -32,13 +32,21 @@ launches the ``flash_attention`` kernel on the card) and write every
 layer's K/V through ``kv_cache.write_prefill``; ``prefill_into_slot`` is
 the Scheduler's eager admission.
 
+``make_serve_step`` also decodes the families the reference decodes
+outside its Scheduler: ssm (a mamba state a layer, no KV) and enc_dec
+(whisper: the per-slot sinusoid on the token embedding; per decoder layer
+the self-attention over the global store with RoPE at ``cfg.rope_theta``,
+as the reference's decode applies it though its forward does not, then
+cross-attention over the cache's ``cross_k`` / ``cross_v``, which the
+caller fills from the encoder, then the GELU MLP).
+
 Positions are per slot (``cache["pos"]`` is ``(B,)``), so staggered
 requests share one batch.  The global-layer decode attend always goes
 through :mod:`repro_torch.serving.kernel_decode`: the CUDA kernels for
 CUDA tensors, their plain versions for CPU tensors.  The local layers'
 attends (decode over the ring, ``_chunk_attend_local`` in chunked prefill)
-are plain PyTorch on every device, as they are ``jnp`` in the reference,
-which has no kernel for them.  The cache is updated
+and whisper's cross attend are plain PyTorch on every device, as they are
+``jnp`` in the reference, which has no kernel for them.  The cache is updated
 in place (the reference's steps returned a new tree; the port returns the
 same one).  PyTorch runs eagerly: there is no jit, and a ``ChunkedPrefill``
 "compile" is the first run of a bucket width.
@@ -274,6 +282,25 @@ def _mamba_decode_layer(p, cfg, layout: kvc.CacheLayout, cache, x, layer_idx: in
     return out, cache
 
 
+def _whisper_decode_layer(p, cfg, layout, cache, x, pos, layer_idx: int, phys, cross_valid):
+    """One whisper decoder layer's token -> ``(x, cache)``: the
+    self-attention over the global store (RoPE at ``cfg.rope_theta``), the
+    cross-attention (layer norm, ``wq``, the plain bf16-format attend over
+    the layer's ``cross_k`` / ``cross_v`` with ``cross_valid``: every lane,
+    built once a step; ``wo``) and the GELU MLP, each a residual."""
+    B = x.shape[0]
+    a, cache = _attn_decode_layer({"attn_norm": p["norm1"], "attn": p["attn"]}, cfg, layout,
+                                  cache, x, pos, layer_idx, cfg.rope_theta, phys=phys)
+    x = x + a
+    h = layers.apply_norm(x, p["norm_x"], cfg.norm)
+    q = layers.wdot(h, p["xattn"]["wq"]).reshape(B, cfg.num_heads, cfg.head_dim)
+    entry = {"k": cache["cross_k"][layer_idx], "v": cache["cross_v"][layer_idx]}
+    out = _decode_attend(q, entry, cross_valid, cfg, "bf16")
+    x = x + layers.wdot(out.reshape(B, 1, -1), p["xattn"]["wo"])
+    x = x + layers.mlp_apply(p["mlp"], layers.apply_norm(x, p["norm2"], cfg.norm), "gelu")
+    return x, cache
+
+
 def make_serve_step(cfg, layout: kvc.CacheLayout):
     """Build the batched decode step for one (cfg, layout):
 
@@ -283,7 +310,12 @@ def make_serve_step(cfg, layout: kvc.CacheLayout):
     and advances every ``pos`` by one.  Paged layouts hoist one
     logical->pool gather map per step (BGPP's kernel reads through it).
     An ssm model steps every layer's mamba state instead (no KV, no
-    position in the arithmetic; ``pos`` still advances)."""
+    position in the arithmetic; ``pos`` still advances).  An enc_dec model
+    (whisper) adds each slot's sinusoid to the token embedding and runs,
+    per decoder layer, self-attention (global, RoPE at ``cfg.rope_theta``),
+    cross-attention over ``cache["cross_k"]`` / ``["cross_v"]`` and the
+    GELU MLP; the cross memory must already hold the encoder's K / V
+    (:func:`repro_torch.models.whisper.cross_kv`)."""
     require_served(cfg, "make_serve_step")
     if layout.global_layers:
         kernel_decode.validate(cfg, layout)
@@ -303,7 +335,16 @@ def make_serve_step(cfg, layout: kvc.CacheLayout):
         phys = (kvc.phys_table(cache["page_table"], layout.page_size, layout.max_seq)
                 if paged and layout.kv_format == "bgpp" and layout.global_layers else None)
         x = transformer.embed_tokens(params, cfg, tokens[:, :1])
+        if cfg.family == "enc_dec":
+            x = x + layers.sinusoid_at(pos, cfg.d_model).to(x.dtype)[:, None, :]
+            cross_valid = torch.ones((x.shape[0], cfg.encoder_seq), dtype=torch.bool,
+                                     device=x.device)
         for i in range(cfg.num_layers):
+            if cfg.family == "enc_dec":
+                x, cache = _whisper_decode_layer(transformer.layer_params(params["decoder"], i),
+                                                 cfg, layout, cache, x, pos, i, phys,
+                                                 cross_valid)
+                continue
             p = transformer.layer_params(params["layers"], i)
             if cfg.family == "ssm":
                 m, cache = _mamba_decode_layer(p, cfg, layout, cache, x, i)

@@ -1,11 +1,16 @@
 """KV-cache containers for the serving engine (PyTorch).
 
 Counterpart of :mod:`repro.serving.kv_cache` for transformer attention
-stacks (the dense, MoE and VLM families) and the ssm family's mamba state:
+stacks (the dense, MoE and VLM families), the ssm family's mamba state:
 ``mamba`` ``{"h": (L_mamba, B, H, P, N) f32, "conv": (L_mamba, B, K - 1,
 d_in + 2 N)}``, slot-major in both layouts, the same bytes at any
-``max_seq`` (mamba2-1.3b: 101.9 MB a slot).  Mixed local/global stacks (gemma3's
-5:1 sliding-window layers, llama4-scout's 3:1 chunked-local ones) keep two
+``max_seq`` (mamba2-1.3b: 101.9 MB a slot), and whisper's cross-attention
+memory: ``cross_k`` / ``cross_v`` ``(L, B, Hk, encoder_seq, Dh)`` in the
+model dtype whatever the KV format, slot-major in both layouts, filled by
+the caller from the encoder (whisper-medium: 147.5 MB a slot).  A whisper
+decoder's self-attention layers are global layers like any other.  Mixed
+local/global stacks (gemma3's 5:1 sliding-window layers, llama4-scout's
+3:1 chunked-local ones) keep two
 stores: the global layers hold the whole sequence, the local layers a ring
 of ``local_window`` lanes a slot (lane ``pos % window``; the window is
 the sliding window or the attention chunk, at most ``max_seq``) with each
@@ -76,6 +81,7 @@ class CacheLayout:
     local_layers: Tuple[int, ...] = ()  # ring-buffered sliding / chunked layers
     local_window: int = 0  # ring lanes a slot (the window, at most max_seq)
     mamba_layers: Tuple[int, ...] = ()  # layers of a mamba mixer (no KV)
+    has_cross: bool = False  # whisper's encoder memory (cross_k / cross_v)
     layout: str = "slot"  # slot | paged (global stores only)
     page_size: int = 0  # tokens per page (paged layout)
     num_pages: int = 0  # physical pages in each layer's pool (paged layout)
@@ -121,7 +127,8 @@ def layout_for(cfg, batch: int, max_seq: int, kv_format: str = "int8",
         arch=cfg.name, family=cfg.family, batch=batch, max_seq=max_seq,
         kv_format=kv_format, global_layers=tuple(glob), local_layers=tuple(loc),
         local_window=min(window, max_seq) if window else 0, mamba_layers=tuple(mamba),
-        layout=layout, page_size=page_size, num_pages=num_pages,
+        has_cross=cfg.family == "enc_dec", layout=layout, page_size=page_size,
+        num_pages=num_pages,
     )
 
 
@@ -163,8 +170,10 @@ def init_cache_arrays(cfg, layout: CacheLayout, device="cuda") -> Tree:
     the ``global`` store and (paged) the ``(B, pages_per_slot)`` page table
     of ``-1`` (unmapped) where there are global layers, and the ``local``
     rings with ``abs_pos`` ``(L_local, B, W)`` of ``-1`` where there are
-    local ones, and the ``mamba`` state (zero) where there are mamba
-    layers."""
+    local ones, the ``mamba`` state (zero) where there are mamba
+    layers, and ``cross_k`` / ``cross_v`` (zero) ``(num_layers, B, Hk,
+    encoder_seq, Dh)`` in the model dtype where the layout has cross
+    memory."""
     B, S, L = layout.batch, layout.max_seq, len(layout.global_layers)
     Hk, Dh = cfg.num_kv_heads, cfg.head_dim
     dtype = _dtype(cfg.dtype)
@@ -186,7 +195,18 @@ def init_cache_arrays(cfg, layout: CacheLayout, device="cuda") -> Tree:
         one = mamba2.init_mixer_state(cfg, B, dtype, device)
         cache["mamba"] = {n: a.expand((len(layout.mamba_layers),) + a.shape).clone()
                           for n, a in one.items()}
+    if layout.has_cross:
+        shape = (cfg.num_layers, B, Hk, cfg.encoder_seq, Dh)
+        cache["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
     return cache
+
+
+def cache_bytes(cache: Tree) -> int:
+    """Bytes resident across every leaf of a cache tree (the cross memory
+    and the mamba state included)."""
+    return sum(a.numel() * a.element_size() for v in cache.values()
+               for a in (v.values() if isinstance(v, dict) else [v]))
 
 
 # --------------------------------------------------------------------------
@@ -437,8 +457,10 @@ def decode_read_bytes(layout: CacheLayout, cfg) -> Dict[str, Any]:
     plane everywhere, shrinking survivor planes, ``k_max`` full rows);
     local rings read their ``window`` in their own format.
     ``bf16_equiv`` is what a bf16 cache of the same geometry reads.  The
-    mamba state is not counted, as in the reference: an ssm layout reads
-    0 B here though its step reads and writes the whole state."""
+    mamba state and the cross memory are not counted, as in the reference:
+    an ssm layout reads 0 B here though its step reads and writes the
+    whole state, and a whisper step also reads every layer's cross K / V
+    (147.5 MB a slot at whisper-medium)."""
     B, S, W = layout.batch, layout.max_seq, layout.local_window
     ng, nl = len(layout.global_layers), len(layout.local_layers)
     out: Dict[str, Any] = {"global": 0.0, "local": 0.0}
@@ -639,8 +661,8 @@ def reset_slot(cache: Tree, layout: CacheLayout, slot: int) -> Tree:
     """Clear one batch row in place: its global KV rows to zero (slot
     layout), its local rings to zero with ``abs_pos`` -1 (both layouts, so
     a previous occupant's lanes never alias into the new request's window),
-    its mamba state to zero and ``pos[slot]`` to 0.  Paged pools have no
-    batch rows — page lifecycle belongs to
+    its mamba state and cross memory to zero and ``pos[slot]`` to 0.  Paged
+    pools have no batch rows — page lifecycle belongs to
     :class:`repro_torch.serving.paging.PageAllocator`."""
     stores = ("local", "mamba") if layout.layout == "paged" else ("global", "local", "mamba")
     for name in stores:
@@ -649,5 +671,8 @@ def reset_slot(cache: Tree, layout: CacheLayout, slot: int) -> Tree:
                 a[:, :, slot] = 0
             else:
                 a[:, slot] = -1 if n == "abs_pos" else 0
+    for n in ("cross_k", "cross_v"):
+        if n in cache:
+            cache[n][:, slot] = 0
     cache["pos"][slot] = 0
     return cache

@@ -1,10 +1,11 @@
 """The dense model zoo on the port against the JAX package's, on the CPU.
 
 Configs: the ten registered architectures, field by field and with the same
-parameter counts; the non-dense families are refused at every entry point
-by a named error.  Models: gemma3-1b-smoke (D 24, one kv head), gemma3-4b-
-smoke (local rings 5:1, qk-norm, sandwich norms, GeGLU, the embedding
-scale) and deepseek-7b-smoke (an untied head), from parameters that JAX
+parameter counts; the hybrid is refused at every entry point by a named
+error, and the ssm and enc_dec families at the transformer-only ones.
+Models: gemma3-1b-smoke (D 24, one kv head), gemma3-4b-smoke (local rings
+5:1, qk-norm, sandwich norms, GeGLU, the embedding scale) and
+deepseek-7b-smoke (an untied head), from parameters that JAX
 initialised and ``interop.params_from_numpy`` brought across:
 
   * ``forward`` logits within 1e-5 (f32);
@@ -60,10 +61,12 @@ SLOTS, MAX_SEQ, PAGE, BUDGET = 2, 96, 8, 8
 # flipped code moved a row by 3.5e-3 in chip_smoke.py's card-against-CPU
 # check); a wrong lane, mask or scale moves them by 1e-1 or more
 TF_TOL = 5e-3
-# the families the port does not serve yet (it serves dense, moe, vlm and ssm)
+# the families the port does not serve yet (it serves dense, moe, vlm, ssm
+# and enc_dec)
 NON_DENSE = sorted(n for n in JARCH
-                   if jax_config(n).family not in ("dense", "moe", "vlm", "ssm"))
+                   if jax_config(n).family not in ("dense", "moe", "vlm", "ssm", "enc_dec"))
 SSM = sorted(n for n in JARCH if jax_config(n).family == "ssm")
+ENC_DEC = sorted(n for n in JARCH if jax_config(n).family == "enc_dec")
 MOE = sorted(n for n in JARCH if jax_config(n).family == "moe")
 VLM = sorted(n for n in JARCH if jax_config(n).family == "vlm")
 
@@ -134,17 +137,22 @@ def test_config_matches_reference(name):
         assert model_zoo.extra_inputs(t) == jzoo.extra_inputs(j)
 
 
-def _entry_points(name, model_cfg, launcher_args, vision=None):
+def _entry_points(name, model_cfg, launcher_args, vision=None, frames=None):
     """Every entry point of the port, called on arch ``name``'s smoke config
     with the parameters, layout and cache of ``model_cfg``; ``vision`` (a
     VLM's ``(1, Tv, d_vision)`` image prefix) goes to the whole-sequence
-    ones."""
+    ones, ``frames`` (whisper's ``(1, encoder_seq, d_audio)``) to
+    ``model_zoo.forward``."""
     cfg = get_config(name, smoke=True)
     params = model_zoo.init(model_cfg, torch.Generator().manual_seed(0), "cpu")
     lay = tkvc.layout_for(model_cfg, SLOTS, 32)
     cache = tkvc.init_cache_arrays(model_cfg, lay, "cpu")
     toks = torch.zeros((1, 4), dtype=torch.long)
-    batch = {"tokens": toks} if vision is None else {"tokens": toks, "vision": vision}
+    batch = {"tokens": toks}
+    if vision is not None:
+        batch["vision"] = vision
+    if frames is not None:
+        batch["frames"] = frames
     return {
         "model_zoo.init": lambda: model_zoo.init(cfg, torch.Generator(), "cpu"),
         "model_zoo.forward": lambda: model_zoo.forward(params, cfg, batch),
@@ -163,10 +171,13 @@ def _entry_points(name, model_cfg, launcher_args, vision=None):
 
 @pytest.mark.parametrize("name", NON_DENSE)
 def test_non_dense_family_is_refused_everywhere(name):
+    """jamba (the hybrid) is refused at every entry point, naming the
+    sharding item its one-card cut waits for."""
     cfg = get_config(name, smoke=True)
     calls = _entry_points(name, get_config("phi4-mini-3.8b", smoke=True), [])
     for call in calls.values():
-        with pytest.raises(ValueError, match=f"family '{cfg.family}'.*ROADMAP Queue 1"):
+        with pytest.raises(ValueError,
+                           match=f"family '{cfg.family}'.*ROADMAP Queue 1, item 7"):
             call()
 
 
@@ -189,6 +200,34 @@ def test_ssm_family_runs_every_entry_point(name):
     for fmt in ("int8", "bstc"):
         wcfg = apply_weight_format_override(cfg, fmt)
         with pytest.raises(ValueError, match="family='ssm' decodes with raw bf16 weights"):
+            engine.make_serve_step(wcfg, tkvc.layout_for(wcfg, SLOTS, 32))
+
+
+@pytest.mark.parametrize("name", ENC_DEC)
+def test_enc_dec_family_runs_every_entry_point(name):
+    """The whisper smoke runs the entry points the reference runs it
+    through (``model_zoo`` with ``batch["frames"]``, the cache layout with
+    its cross memory, ``make_serve_step``); the transformer-only ones refuse
+    it with the reference's reason (it decodes through ``make_serve_step``
+    directly, over the cross memory the caller fills), and so do the int8
+    and bstc weight formats (it decodes with raw bf16 weights)."""
+    cfg = get_config(name, smoke=True)
+    frames = torch.zeros((1, cfg.encoder_seq, cfg.d_audio))
+    calls = _entry_points(name, cfg, ["--requests", "2", "--max-new", "3"], frames=frames)
+    runs = ("model_zoo.init", "model_zoo.forward", "layout_for", "make_serve_step")
+    for who, call in calls.items():
+        if who in runs:
+            assert call() is not None, who
+        else:
+            with pytest.raises(ValueError,
+                               match="family 'enc_dec'.*make_serve_step directly.*cross_k"):
+                call()
+    logits, aux = calls["model_zoo.forward"]()
+    assert logits.shape == (1, 4, cfg.vocab_size) and float(aux) == 0.0
+    assert calls["layout_for"]().has_cross
+    for fmt in ("int8", "bstc"):
+        wcfg = apply_weight_format_override(cfg, fmt)
+        with pytest.raises(ValueError, match="family='enc_dec' decodes with raw bf16 weights"):
             engine.make_serve_step(wcfg, tkvc.layout_for(wcfg, SLOTS, 32))
 
 
