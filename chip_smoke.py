@@ -96,7 +96,17 @@ Phases, each of which fails the run (nonzero exit) on any error:
    each holding its greedy tokens to the matching run above, leaking no
    page and launching K1 or K2 L times and K3 7L + 1 times a draft or
    verify step and K4 once per coded plane of both weight sets' first
-   matrices.  Then the dense model zoo at full width:
+   matrices.  Then the asyncio front door (``serving/server.py``) over the
+   same model, layout and trace: ``simulate_clients`` in bf16 and bgpp KV
+   (tiers alternating, every third client hanging up after 4 tokens,
+   ``pager.check()`` after every pumped step), holding survivors' streams
+   to the offline run's tokens and logits, the disconnected clients' to
+   its first tokens, 2 cancels, 0 pages after ``close`` and K1 / K2 once
+   per global layer a decode step; a two-turn chat session whose second
+   turn adopts the first's pinned pages, held to a fresh prefill of the
+   whole prompt; and the TCP front door on 127.0.0.1 (one client reads
+   its whole stream, one hangs up after 2 tokens and is cancelled
+   server-side).  Then the dense model zoo at full width:
    gemma3-4b with its depth cut to 6 layers (5 local sliding-window rings
    of 1024 lanes, 1 global; D 256, qk-norm, sandwich norms, GeGLU; 4 slots,
    paged, max_seq 4096; its traces below run all 34) serves 6 requests of
@@ -188,8 +198,9 @@ the last line is ``{"ok": true, "device": {...}}``.
 Each phase's seconds print as a ``[time]`` line.
 
 ``--only kernels|head-widths|long-context|prefix|score|score-device|decode|
-decode-attends|ssm|long-serve|whisper`` (repeatable) runs just those parts of phase
-3 or 5 (and, for
+decode-attends|ssm|long-serve|whisper|server`` (repeatable) runs just those parts of phase
+3 or 5 (``server``: phi4-mini-3.8b's bf16 and bgpp offline runs, then the
+front door over them; and, for
 ``score`` and ``decode``, K6's or K4's device times; ``decode-attends``
 K1's and K2's device times at the decode geometry, through the public
 wrappers only, so the script copied into an older tree times that tree's
@@ -2322,7 +2333,8 @@ def serve_runs(cfg, params, runs, trace_kw, max_seq, device, card, k3_per_step=N
     count).  Returns the
     launches of each kernel on its own run (the decode attends on their KV
     format's chunked bf16-weight run, the BSTC kernels on the bstc run,
-    flash attention on the eager run) and each run's greedy tokens."""
+    flash attention on the eager run) and each run's outcome: its greedy
+    tokens and logit rows by request, its wall seconds and its steps."""
     import numpy as np
     import torch
 
@@ -2331,7 +2343,7 @@ def serve_runs(cfg, params, runs, trace_kw, max_seq, device, card, k3_per_step=N
     from repro_torch.serving.scheduler import Scheduler
 
     L = cfg.num_layers
-    launches, tokens_of, first_logits = {}, {}, {}
+    launches, outcome, first_logits = {}, {}, {}
     for fmt, wfmt, admission in runs:
         run = f"{cfg.name} {fmt}/{wfmt}/{admission}"
         layout = kvc.layout_for(cfg, slots, max_seq, kv_format=fmt, layout="paged",
@@ -2416,7 +2428,10 @@ def serve_runs(cfg, params, runs, trace_kw, max_seq, device, card, k3_per_step=N
                 raise AssertionError(f"{run}: request {r.rid} output is malformed")
         if (fmt, wfmt, admission) == runs[0]:
             first_logits = {r.rid: r.logit_rows[0] for r in sched.finished}
-        tokens_of[(fmt, wfmt, admission)] = {r.rid: list(r.generated) for r in sched.finished}
+        outcome[(fmt, wfmt, admission)] = {
+            "tokens": {r.rid: list(r.generated) for r in sched.finished},
+            "logits": {r.rid: np.stack(r.logit_rows) for r in sched.finished},
+            "wall_s": stats["wall_s"], "steps": sched.step_count}
         dec_ms = [a.elapsed_time(b) for a, b in dec]
         pre_ms = [a.elapsed_time(b) for a, b in pre]
         kv, wr = stats["kv_read"], stats["weight_read"]
@@ -2452,19 +2467,22 @@ def serve_runs(cfg, params, runs, trace_kw, max_seq, device, card, k3_per_step=N
               f"steps) [{card}]")
         del sched
         free_device()
-    return launches, tokens_of
+    return launches, outcome
 
 
 def serve_phase(device, card):
     """Serve full phi4-mini-3.8b for every run of :data:`SERVE_RUNS`
     (:func:`serve_runs`), then speculatively for every run of
-    :data:`SPEC_RUNS`; return the launches of each kernel on its own run."""
-    import torch
-
+    :data:`SPEC_RUNS`, then through the asyncio front door
+    (:func:`server_phase`); return the launches of each kernel on its own
+    run, the front door's decode attends added."""
     cfg, params = init_model("phi4-mini-3.8b", device)
-    launches, tokens_of = serve_runs(cfg, params, SERVE_RUNS, MAIN_TRACE, 1024, device, card)
+    launches, outcome = serve_runs(cfg, params, SERVE_RUNS, MAIN_TRACE, 1024, device, card)
     for fmt, wfmt in SPEC_RUNS:
-        spec_run(params, cfg, fmt, wfmt, tokens_of[(fmt, wfmt, "chunked")], device, card)
+        spec_run(params, cfg, fmt, wfmt, outcome[(fmt, wfmt, "chunked")]["tokens"], device,
+                 card)
+    for name, n in server_phase(cfg, params, outcome, device, card).items():
+        launches[name] = launches.get(name, 0) + n
     del params
     free_device()
     return launches
@@ -2532,6 +2550,309 @@ def vlm_serve_phase(device, card):
                k3_per_step=7 * cfg.num_layers + 1)
     serve_runs(cfg, params, PALI_LONG_RUNS, PALI_LONG_TRACE, PALI_LONG_SEQ, device, card)
     vision_prefill(cfg, params, device, card)
+    del params
+    free_device()
+
+
+# the asyncio front door (serving/server.py) over full phi4-mini-3.8b, in
+# the offline runs' layout (paged, page 16, 4 slots, chunk budget 128,
+# max_seq 1024): the main trace's clients in bf16 and bgpp KV, tiers
+# alternating interactive / batch, every third client hanging up after 4
+# streamed tokens; a two-turn chat session of a 200-token prompt then 48
+# more; the TCP front door on 127.0.0.1
+SERVER_RUNS = ("bf16", "bgpp")
+SERVER_OFFLINE = tuple((fmt, "bf16", "chunked") for fmt in SERVER_RUNS)
+SERVER_DISCONNECT_EVERY, SERVER_DISCONNECT_AFTER = 3, 4
+SERVER_CHAT = (200, 48, 16)  # turn 1's prompt, turn 2's new tokens, tokens a turn
+SERVER_TCP_CUT = 2  # streamed tokens before the second TCP client hangs up
+# the front door's logits against the offline run's, as a share of max
+# |logit|: each prompt is chunked at the same offsets and each decode step
+# has 4 rows whatever the interleaving, so the sound runs read 0 in bf16
+# and bgpp KV; K1 blind to each slot's newest lane (teacher-forced) read
+# 1.10e-1 (PERF.md §6)
+SERVER_LOGIT_SHARE = 1e-4
+# a chat turn that adopted its history's pages against a fresh prefill of
+# the whole prompt: the adopted pages hold K / V that turn 1's chunks and
+# decode steps wrote, the fresh run's chunks write them in other widths,
+# and the card's products round differently across row counts, so bf16
+# stores differ in the last place; the sound run read 1.39e-2 in two calls
+# (eager against chunked admission reads 2e-2 for the same reason), K1
+# blind to each slot's newest lane during turn 2 (teacher-forced) 6.73e-2
+SERVER_CHAT_SHARE = 3e-2
+
+
+def _front_door_sched(cfg, params, fmt, device):
+    """A Scheduler in the offline runs' layout, recording logits."""
+    from repro_torch.serving import kv_cache as kvc
+    from repro_torch.serving.scheduler import Scheduler
+
+    layout = kvc.layout_for(cfg, 4, 1024, kv_format=fmt, layout="paged", page_size=16)
+    return Scheduler(params, cfg, layout, device=device, chunk_budget=128,
+                     record_logits=True)
+
+
+def _share(rows, want):
+    """Largest |rows - want| over the rows ``rows`` has, as a share of the
+    largest |logit| of ``want``'s rows."""
+    import numpy as np
+
+    ref = want[:len(rows)]
+    return float(np.abs(np.stack(rows) - ref).max()) / float(np.abs(ref).max())
+
+
+def server_run(cfg, params, fmt, offline, device, card):
+    """The main trace through :func:`~repro_torch.serving.server.simulate_clients`
+    (``check_invariants``: ``pager.check()`` after every pumped step), every
+    count zeroed just before the Scheduler is built and read just after.
+    Holds: at least 2 requests cancelled and 0 pages in use after ``close``;
+    every survivor's streamed tokens equal to the offline run's for that
+    rid, and every disconnected client's to the offline run's first tokens;
+    logit rows within :data:`SERVER_LOGIT_SHARE` of the offline run's; the
+    decode attend launched once per global layer a decode step and nothing
+    else.  Prints the gaps, the tiers' TTFT and ITL p50 in steps and ms,
+    and ms per pumped step against the offline run's ms per step.  Returns
+    the launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.serving.server import simulate_clients
+
+    run = f"{cfg.name} {fmt} front door"
+    want = offline[(fmt, "bf16", "chunked")]
+    free_device()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    sched = _front_door_sched(cfg, params, fmt, device)
+    dec, in_step = [], [0.0]
+    sched.serve_step = _timed(sched.serve_step, dec)
+    step = sched.step
+
+    def timed_step():
+        t = time.perf_counter()
+        out = step()
+        in_step[0] += time.perf_counter() - t
+        return out
+
+    sched.step = timed_step
+    reqs = trace(vocab=cfg.vocab_size, **MAIN_TRACE)
+    t0 = time.perf_counter()
+    stats = simulate_clients(sched, reqs, disconnect_every=SERVER_DISCONNECT_EVERY,
+                             disconnect_after=SERVER_DISCONNECT_AFTER, check_invariants=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(K.LAUNCHES)
+    G = len(sched.layout.global_layers)
+    expect = {name: 0 for name in got}
+    expect[KERNEL_OF[fmt]] = G * sched.decode_steps
+    for name, n in got.items():
+        if n != expect[name]:
+            raise AssertionError(f"{run}: {name} launched {n} times, expected {expect[name]}")
+    sched.pager.check()
+    if sched.pager.pages_in_use or stats["paged"]["pages_in_use"]:
+        raise AssertionError(f"{run}: {sched.pager.pages_in_use} pages in use after close")
+    if stats["cancelled_requests"] < 2:
+        raise AssertionError(f"{run}: {stats['cancelled_requests']} requests cancelled")
+    by_rid = {r.rid: r for r in sched.finished + sched.cancelled}
+    gaps = {}
+    for c in stats["clients"]:
+        r, offline_tokens = by_rid[c["rid"]], want["tokens"][c["rid"]]
+        if c["disconnected"]:
+            ok = (c["cancelled"] and c["tokens"] == SERVER_DISCONNECT_AFTER
+                  and r.generated == offline_tokens[:len(r.generated)])
+        else:
+            ok = not r.cancelled and r.generated == offline_tokens
+        if not ok:
+            raise AssertionError(f"{run}: client {c} streamed {r.generated}, the offline run "
+                                 f"{offline_tokens}")
+        gaps[c["rid"]] = _share(r.logit_rows, want["logits"][c["rid"]])
+    worst = max(gaps.values())
+    by = ", ".join(f"{rid} {share:.2e}" for rid, share in sorted(gaps.items()))
+    steps_pumped = stats["server"]["steps_pumped"]
+    print(f"[server] {run}: {len(reqs)} clients (tiers interactive / batch alternating), "
+          f"{stats['cancelled_requests']} cancelled (every {SERVER_DISCONNECT_EVERY}rd client "
+          f"hung up after {SERVER_DISCONNECT_AFTER} tokens), {stats['finished_requests']} "
+          f"finished, {stats['preemptions']} preemptions; survivors' streamed tokens equal the "
+          f"offline run's, the disconnected clients' its first {SERVER_DISCONNECT_AFTER}; "
+          f"pager.check() after each of {steps_pumped} pumped steps, pages_in_use 0 after "
+          f"close; logit rows against the offline run's: largest gap {worst:.4e} of max "
+          f"|logit| (bound {SERVER_LOGIT_SHARE:.0e}; by rid: {by}); launches "
+          f"{KERNEL_OF[fmt]} {got[KERNEL_OF[fmt]]} = {G} x {sched.decode_steps} decode steps "
+          f"[{card}]")
+    for tier, t in stats["tiers"].items():
+        fin = [r for r in sched.finished if r.priority == tier]
+        ttft = float(np.median([r.first_token_step - r.arrival_step for r in fin]))
+        itl = float(np.median([(r.finished_step - r.first_token_step) / (len(r.generated) - 1)
+                               for r in fin]))
+        print(f"[server] {run}, tier {tier}: {t['finished']} finished, {t['cancelled']} "
+              f"cancelled, {t['preemptions']} preemptions; TTFT p50 {ttft:.1f} steps = "
+              f"{t['ttft_s']['p50'] * 1e3:.1f} ms, ITL p50 {itl:.2f} steps = "
+              f"{t['itl_s']['p50'] * 1e3:.2f} ms [{card}]")
+    dec_ms = float(np.mean([a.elapsed_time(b) for a, b in dec]))
+    print(f"[server] {run}: {wall * 1e3 / steps_pumped:.2f} ms per pumped step, of which "
+          f"{(wall - in_step[0]) * 1e3 / steps_pumped:.3f} ms outside Scheduler.step (the "
+          f"asyncio pump with its pager.check() and the clients), {steps_pumped} steps in {wall:.3f} s, decode "
+          f"{dec_ms:.3f} ms/step by events; the offline run "
+          f"{want['wall_s'] * 1e3 / want['steps']:.2f} ms per step ({want['steps']} steps in "
+          f"{want['wall_s']} s) [{card}]")
+    if worst > SERVER_LOGIT_SHARE:
+        raise AssertionError(f"{run}: logits {worst:.4e} of max |logit| from the offline run's")
+    del sched
+    free_device()
+    return got
+
+
+def chat_check(cfg, params, device, card):
+    """A two-turn chat session through the front door (bf16 paged): turn 2's
+    prompt (the history plus :data:`SERVER_CHAT`'s new tokens) must adopt
+    turn 1's pinned pages (``prefix_hit_tokens`` grows by at least the
+    written history's page-aligned length), give the tokens of a fresh
+    Scheduler's run of the whole prompt with nothing resident (run between
+    the turns), and logits within :data:`SERVER_CHAT_SHARE` of it;
+    ``close_session`` returns the pool to 0 pages."""
+    import asyncio
+
+    import numpy as np
+
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.server import AsyncServer
+
+    first, more, new = SERVER_CHAT
+    rng = np.random.default_rng(7)
+    p1 = rng.integers(0, cfg.vocab_size, (first,)).astype(np.int32)
+    p2 = rng.integers(0, cfg.vocab_size, (more,)).astype(np.int32)
+    free_device()
+    sched = _front_door_sched(cfg, params, "bf16", device)
+    page = sched.layout.page_size
+
+    async def session():
+        server = AsyncServer(sched, check_invariants=True)
+        pump = asyncio.ensure_future(server.run())
+        turn1 = [t async for t in server.chat("chat", p1, new)]
+        hits, hist = sched.prefix_hit_tokens, server.sessions["chat"].history
+        fresh = _front_door_sched(cfg, params, "bf16", device)
+        fresh.submit(Request(rid=0, prompt=np.concatenate([hist, p2]), max_new_tokens=new))
+        fresh.run()
+        ref = fresh.finished[0]
+        del fresh
+        stream = server.chat("chat", p2, new)
+        turn2 = [t async for t in stream]
+        grown = sched.prefix_hit_tokens - hits
+        pinned = len(server.sessions["chat"].pinned)
+        server.close_session("chat")
+        sched.pager.check()
+        left = sched.pager.pages_in_use
+        server.close()
+        await pump
+        return turn1, hist, ref, turn2, stream.request, grown, pinned, left
+
+    t0 = time.perf_counter()
+    turn1, hist, ref, turn2, req2, grown, pinned, left = asyncio.run(session())
+    took = time.perf_counter() - t0
+    aligned = (len(hist) - 1) // page * page  # the written history: all but its last token
+    share = _share(req2.logit_rows, np.stack(ref.logit_rows))
+    print(f"[server] {cfg.name} chat session (bf16 paged): turn 1 {first} prompt tokens -> "
+          f"{len(turn1)} tokens; turn 2 the {len(hist)}-token history + {more} -> "
+          f"{len(turn2)} tokens, {grown} prompt tokens adopted from the pinned pages (the "
+          f"history's page-aligned length {aligned}), {pinned} pages pinned after it; tokens "
+          f"{'equal' if turn2 == ref.generated else 'NOT equal'} to a fresh Scheduler's run "
+          f"of the whole {ref.prompt_len}-token prompt, logits {share:.4e} of max |logit| "
+          f"from it (bound {SERVER_CHAT_SHARE:.0e}); pages_in_use {left} after "
+          f"close_session; {took:.2f} s with the fresh run [{card}]")
+    if grown < aligned or req2.prefix_reused_tokens < aligned:
+        raise AssertionError(f"chat: turn 2 adopted {grown} tokens, the history's page-aligned "
+                             f"length is {aligned}")
+    if left:
+        raise AssertionError(f"chat: {left} pages in use after close_session")
+    if turn2 != ref.generated or share > SERVER_CHAT_SHARE:
+        raise AssertionError("chat: turn 2 differs from a fresh run of the whole prompt")
+    del sched
+    free_device()
+
+
+def tcp_check(cfg, params, offline, device, card):
+    """The TCP front door on 127.0.0.1, port 0: one client reads its whole
+    stream of the main trace's request 0 (its tokens must be the offline
+    run's), a second hangs up after :data:`SERVER_TCP_CUT` tokens (the
+    server must record it cancelled and drain the pool to 0)."""
+    import asyncio
+
+    from repro_torch.serving.server import AsyncServer, TCPFrontDoor
+
+    reqs = trace(vocab=cfg.vocab_size, **MAIN_TRACE)
+    new = MAIN_TRACE["new"]
+    free_device()
+    sched = _front_door_sched(cfg, params, "bf16", device)
+
+    async def exchange():
+        server = AsyncServer(sched, check_invariants=True)
+        pump = asyncio.ensure_future(server.run())
+        door = TCPFrontDoor(server)
+        await door.start()
+
+        async def client(prompt, cut=None):
+            reader, writer = await asyncio.open_connection("127.0.0.1", door.port)
+            writer.write(json.dumps({"prompt": prompt.tolist(), "max_new_tokens": new})
+                         .encode() + b"\n")
+            await writer.drain()
+            msgs = []
+            while not (msgs and msgs[-1].get("done")) and len(msgs) != cut:
+                msgs.append(json.loads(await reader.readline()))
+            writer.close()
+            return msgs
+
+        msgs = await asyncio.gather(client(reqs[0].prompt),
+                                    client(reqs[1].prompt, SERVER_TCP_CUT))
+        await server.drain()
+        await door.stop()
+        server.close()
+        await pump
+        return msgs
+
+    t0 = time.perf_counter()
+    full, cut = asyncio.run(exchange())
+    took = time.perf_counter() - t0
+    tokens = [m["token"] for m in full[:-1]]
+    done = full[-1]
+    gone = [r for r in sched.cancelled if r.prompt_len == reqs[1].prompt_len]
+    sched.pager.check()
+    print(f"[server] {cfg.name} TCP front door (127.0.0.1, bf16 paged): one client read "
+          f"{len(tokens)} tokens and {done}, tokens "
+          f"{'equal' if tokens == offline[('bf16', 'bf16', 'chunked')]['tokens'][0] else 'NOT equal'} "
+          f"to the offline run's request 0; one hung up after {len(cut)} tokens: the server "
+          f"recorded {[(r.cancel_state, len(r.generated)) for r in gone]} (cancel state, tokens "
+          f"generated); pages_in_use {sched.pager.pages_in_use}; {took:.2f} s [{card}]")
+    if (tokens != offline[("bf16", "bf16", "chunked")]["tokens"][0] or not done.get("done")
+            or done["tokens"] != new or done["cancelled"] or len(cut) != SERVER_TCP_CUT
+            or len(gone) != 1 or sched.pager.pages_in_use):
+        raise AssertionError("TCP front door: the exchange or the disconnect went wrong")
+    del sched
+    free_device()
+
+
+def server_phase(cfg, params, offline, device, card):
+    """The asyncio front door over full phi4-mini-3.8b: :func:`server_run`
+    in every KV format of :data:`SERVER_RUNS` against the offline runs
+    ``offline`` (:func:`serve_runs`' outcome), then :func:`chat_check` and
+    :func:`tcp_check`.  Returns the decode attends' launches of the
+    front-door runs."""
+    t0 = time.perf_counter()
+    launches = {}
+    for fmt in SERVER_RUNS:
+        for name, n in server_run(cfg, params, fmt, offline, device, card).items():
+            launches[name] = launches.get(name, 0) + n
+    chat_check(cfg, params, device, card)
+    tcp_check(cfg, params, offline, device, card)
+    print(f"[time] server_phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
+
+
+def server_only_phase(device, card):
+    """``--only server``: full phi4-mini-3.8b's offline runs of
+    :data:`SERVER_OFFLINE` (:func:`serve_runs`), then :func:`server_phase`."""
+    cfg, params = init_model("phi4-mini-3.8b", device)
+    _, offline = serve_runs(cfg, params, SERVER_OFFLINE, MAIN_TRACE, 1024, device, card)
+    server_phase(cfg, params, offline, device, card)
     del params
     free_device()
 
@@ -3722,7 +4043,7 @@ def paper_reference_phase(device):
 
 
 PHASES = ("kernels", "head-widths", "long-context", "prefix", "score", "score-device", "decode",
-          "decode-attends", "ssm", "long-serve", "whisper")
+          "decode-attends", "ssm", "long-serve", "whisper", "server")
 
 
 def main(argv=None) -> int:
@@ -3738,7 +4059,8 @@ def main(argv=None) -> int:
              "mamba2-1.3b's decode, forward and long_500k cache and mamba2-smoke against the "
              "CPU, 'long-serve' gemma3-1b served at max_seq 524,288, 'whisper' "
              "whisper-medium's encoder, decode in every KV format, decode_32k layout and "
-             "forward and whisper-smoke against the CPU; without it "
+             "forward and whisper-smoke against the CPU, 'server' phi4-mini-3.8b's bf16 and "
+             "bgpp offline runs then the asyncio front door over them; without it "
              "every phase "
              "runs and the records are printed")
     only = parser.parse_args(argv).only
@@ -3802,6 +4124,8 @@ def main(argv=None) -> int:
         if run("whisper"):
             timed(whisper_phase, device, card)
             timed(whisper_reference, device)
+        if run("server"):
+            server_only_phase(device, card)
         torch.cuda.synchronize()
         print(card)
         return 0

@@ -9,10 +9,11 @@ paged layout, request scheduler).
         [--kv-layout slot|paged] [--page-size 8] [--shared-prefix 16] \\
         [--bgpp-rounds 4] [--bgpp-keep-ratio 0.25] \\
         [--weight-format bf16|int8|bstc] \\
-        [--spec-decode] [--draft-gamma 4] [--draft-planes 4] [--trace-out trace.json]
+        [--spec-decode] [--draft-gamma 4] [--draft-planes 4] \\
+        [--server] [--disconnect-every 3] [--disconnect-after 1] [--trace-out trace.json]
 
-The counterpart of ``repro.launch.serve`` without ``--mesh`` or
-``--server`` (later slices).  ``--arch`` takes every registered
+The counterpart of ``repro.launch.serve`` without ``--mesh`` (a later
+slice).  ``--arch`` takes every registered
 architecture; the dense ones serve (phi4-mini, gemma3-1b / 4b with their
 sliding-window rings, deepseek-7b with its untied head), and so do the MoE
 ones (mixtral-8x22b: 8 experts top-2, every layer a sliding-window ring;
@@ -42,6 +43,15 @@ on bit-plane speculative decoding (``repro_torch.serving.spec_decode``): a
 ``--draft-gamma`` tokens a slot a round, a batched verify chain accepts or
 rolls back, and the report gains the acceptance lines; the generated
 tokens stay those of the non-speculative run.
+
+``--server`` routes the same trace through the asyncio front door
+(``repro_torch.serving.server``) with simulated clients instead of the
+offline replay loop: tiers rotate interactive/batch (interactive preempts
+batch chunked prefills), and every ``--disconnect-every``-th client hangs
+up after ``--disconnect-after`` streamed tokens — a mid-flight
+cancellation that must evict the slot and free its pages.  The printed
+stats grow cancellation / preemption / per-tier TTFT+ITL lines, and the
+per-step ``PageAllocator.check()`` leak gate runs throughout.
 """
 
 from __future__ import annotations
@@ -62,10 +72,12 @@ from repro_torch.models import model_zoo
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving.request import poisson_trace
 from repro_torch.serving.scheduler import Scheduler
+from repro_torch.serving.server import simulate_clients
 
 
 def main(argv=None):
-    """Parse the flags, serve the trace, print the ``[serve]`` lines."""
+    """Parse the flags, serve the trace, print the ``[serve]`` lines;
+    returns the run's stats."""
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", choices=sorted(ARCH_REGISTRY), default="phi4-mini-3.8b")
     ap.add_argument("--full", action="store_true",
@@ -108,6 +120,15 @@ def main(argv=None):
                          "steps (chunked admission)")
     ap.add_argument("--arrival-rate", type=float, default=2.0)
     ap.add_argument("--seed", type=int, default=0, help="request-trace RNG seed")
+    ap.add_argument("--server", action="store_true",
+                    help="drive the asyncio front door with simulated tiered streaming "
+                         "clients (interactive/batch rotation, mid-stream disconnects) "
+                         "instead of the offline replay loop")
+    ap.add_argument("--disconnect-every", type=int, default=3,
+                    help="--server: every Nth client disconnects mid-stream (0 disables)")
+    ap.add_argument("--disconnect-after", type=int, default=1,
+                    help="--server: disconnecting clients hang up after this many "
+                         "streamed tokens")
     ap.add_argument("--trace-out", default=None)
     args = ap.parse_args(argv)
 
@@ -132,20 +153,29 @@ def main(argv=None):
     reqs = poisson_trace(np.random.default_rng(args.seed), args.requests, cfg.vocab_size,
                          args.max_new, args.arrival_rate, max_prompt=max_prompt,
                          shared_prefix=args.shared_prefix)
-    for req in reqs:
-        sched.submit(req)
     t0 = time.perf_counter()
-    done = 0
-    while sched.num_pending:
-        sched.step()
-        if len(sched.finished) != done:
-            done = len(sched.finished)
-            print(f"[serve] {done}/{args.requests} requests "
-                  f"({sched.decoded_tokens} tokens, step {sched.step_count})")
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    dt = time.perf_counter() - t0
-    stats = sched.stats(dt)
+    if args.server:
+        stats = simulate_clients(sched, reqs, disconnect_every=args.disconnect_every,
+                                 disconnect_after=args.disconnect_after)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+        stats["wall_s"] = round(dt, 3)
+        stats["tokens_per_s"] = round(stats["decoded_tokens"] / dt, 2) if dt > 0 else None
+    else:
+        for req in reqs:
+            sched.submit(req)
+        done = 0
+        while sched.num_pending:
+            sched.step()
+            if len(sched.finished) != done:
+                done = len(sched.finished)
+                print(f"[serve] {done}/{args.requests} requests "
+                      f"({sched.decoded_tokens} tokens, step {sched.step_count})")
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+        stats = sched.stats(dt)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU")
     print(f"[serve] arch={cfg.name} kv={args.kv_format} layout={args.kv_layout} "
           f"weights={sched.weight_format} admission={args.admission} "
@@ -156,6 +186,16 @@ def main(argv=None):
     print(f"[serve] ttft_s p50={stats['ttft_s']['p50']} p95={stats['ttft_s']['p95']}  "
           f"itl_s p50={stats['itl_s']['p50']} p95={stats['itl_s']['p95']}  "
           f"max prefill tokens/step={stats['max_prefill_tokens_per_step']}")
+    if args.server:
+        pages = (f" pages_in_use={stats['paged']['pages_in_use']}" if "paged" in stats else "")
+        print(f"[serve] server: cancelled={stats['cancelled_requests']} "
+              f"shed={stats['shed_requests']} preemptions={stats['preemptions']} "
+              f"disconnects={sum(c['disconnected'] for c in stats['clients'])}{pages}")
+        for tier, t in stats["tiers"].items():
+            print(f"[serve] tier {tier}: finished={t['finished']} cancelled={t['cancelled']} "
+                  f"shed={t['shed']} preemptions={t['preemptions']} "
+                  f"ttft_s p50={t['ttft_s']['p50']} itl_s p50={t['itl_s']['p50']} "
+                  f"p95={t['itl_s']['p95']}")
     kv = stats["kv_read"]
     print(f"[serve] kv read: {kv['decode_bytes']/1e6:.2f} MB decode + "
           f"{kv['prefill_bytes']/1e6:.2f} MB prefill; "
@@ -201,6 +241,7 @@ def main(argv=None):
         with open(args.trace_out, "w") as f:
             json.dump(stats, f, indent=2)
         print(f"[serve] trace -> {args.trace_out}")
+    return stats
 
 
 if __name__ == "__main__":

@@ -39,7 +39,7 @@ def test_scan_sees_the_package():
             "transformer.py", "brcr.py", "quantization.py", "topk.py", "synthetic.py",
             "quickstart.py", "bgpp_sparse_attention.py", "spec_decode.py", "model_zoo.py",
             "shapes.py", "gemma3_4b.py", "deepseek_7b.py", "whisper_medium.py",
-            "moe.py", "mamba2.py", "whisper.py"} <= names
+            "moe.py", "mamba2.py", "whisper.py", "server.py", "serve_llm.py"} <= names
     for k in ("flash_attention", "bgpp_score", "brcr_gemm"):
         assert PORT / "kernels" / k / "ops.py" in _files()
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
