@@ -175,6 +175,25 @@ Phases, each of which fails the run (nonzero exit) on any error:
    ``torch.matmul``
    on the quickstart's operands and at every projection shape of a layer
    (N 4, 16 and 128; f32 integer, f32 Gaussian and bf16 x).
+   Training (after the whisper phase, before the traces): K5b
+   (``flash_attention_bwd``, K5's gradient) against its plain version in
+   every :data:`BWD_CASES` case (phase 3: phi4-mini's heads causal at
+   B 1, S 4096, sliding 512, chunked 256, prefix_causal 100, a ragged
+   S 301, a q_offset, D 24, gemma3-4b's, llama4-scout's and
+   whisper-medium's heads with Sq 128 != Sk 1500, one f32 case; each
+   launched twice for identical bits, K5's ``out`` bit-identical with and
+   without ``lse`` and ``lse`` within 1e-5 of the plain version's, timed
+   cases beside SDPA's forward plus backward); one train step of the
+   smoke configs of phi4-mini, gemma3-4b, paligemma-3b and whisper-medium
+   on the card against the CPU (loss within 1e-5 relative, every grad leaf
+   within 1e-4 of its max |g|; phi4-mini-smoke again with K5b's launch
+   skipped, which must fail that bound); phi4-mini-3.8b at full width and
+   depth, B 1, S 4096, remat, 4 f32-AdamW steps on one repeated batch
+   (loss falling, K5 64 and K5b 32 launches a step and nothing else) and
+   2 with int8 moments, ms a step, tokens/s and peak memory printed; and
+   the train launcher at phi4-mini width cut to 2 layers, int8 moments,
+   S 4096: 6 steps checkpointing at step 3, then a run resumed from that
+   checkpoint whose losses must be within 1e-3 of the straight run's.
 6. Reference check: the same small models (the smoke configs of
    phi4-mini, gemma3-4b, deepseek-7b, mixtral-8x22b,
    llama4-scout-17b-a16e and paligemma-3b) and traces served on the card
@@ -198,9 +217,9 @@ the last line is ``{"ok": true, "device": {...}}``.
 Each phase's seconds print as a ``[time]`` line.
 
 ``--only kernels|head-widths|long-context|prefix|score|score-device|decode|
-decode-attends|ssm|long-serve|whisper|server`` (repeatable) runs just those parts of phase
-3 or 5 (``server``: phi4-mini-3.8b's bf16 and bgpp offline runs, then the
-front door over them; and, for
+decode-attends|ssm|long-serve|whisper|server|train`` (repeatable) runs just those parts of
+phase 3 or 5 (``server``: phi4-mini-3.8b's bf16 and bgpp offline runs, then the
+front door over them; ``train``: K5b's cases and the training path; and, for
 ``score`` and ``decode``, K6's or K4's device times; ``decode-attends``
 K1's and K2's device times at the decode geometry, through the public
 wrappers only, so the script copied into an older tree times that tree's
@@ -4042,8 +4061,399 @@ def paper_reference_phase(device):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# train phase: K5's gradient (K5b), then the training path
+# ---------------------------------------------------------------------------
+
+K5B_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
+# the reference has no Pallas backward: it differentiates its jnp scan
+K5B_REPLACES = "src/repro/core/attention.py:97"
+# (label, B, Sq, Sk, kind, window, q_offset, dtype, D, Hq, Hk, timed)
+BWD_CASES = (
+    ("phi4-mini causal Hq 24 Hk 8 D 128 B1 S4096 bf16", 1, 4096, 4096, "causal", 0, 0, "bf16",
+     128, 24, 8, True),
+    ("sliding w512 B1 S2048 bf16", 1, 2048, 2048, "sliding", 512, 0, "bf16", 128, 24, 8, False),
+    ("chunked w256 B1 S1024 bf16", 1, 1024, 1024, "chunked", 256, 0, "bf16", 128, 24, 8, False),
+    ("prefix_causal w100 B1 S512 bf16", 1, 512, 512, "prefix_causal", 100, 0, "bf16", 128, 24,
+     8, False),
+    ("causal ragged B2 S301 bf16", 2, 301, 301, "causal", 0, 0, "bf16", 128, 24, 8, False),
+    ("causal q_offset 256 B1 Sq256 Sk512 bf16", 1, 256, 512, "causal", 0, 256, "bf16", 128, 24,
+     8, False),
+    ("sliding w100 D 24 Hq 4 Hk 1 B2 S201 bf16", 2, 201, 201, "sliding", 100, 0, "bf16", 24, 4,
+     1, False),
+    ("gemma3-4b causal Hq 8 Hk 4 D 256 B1 S1024 bf16", 1, 1024, 1024, "causal", 0, 0, "bf16",
+     256, 8, 4, True),
+    ("llama4-scout causal Hq 40 Hk 8 D 128 B1 S1024 bf16", 1, 1024, 1024, "causal", 0, 0, "bf16",
+     128, 40, 8, False),
+    ("whisper-medium cross full Hq 16 Hk 16 D 64 B1 Sq128 Sk1500 bf16", 1, 128, 1500, "full", 0,
+     0, "bf16", 64, 16, 16, True),
+    ("phi4-mini causal B1 S301 f32", 1, 301, 301, "causal", 0, 0, "f32", 128, 24, 8, True),
+)
+BWD_ROWS = 1024  # query rows of one plain-version block at long S
+
+
+def bwd_plain_blocked(q, k, v, o, lse, dout, kw):
+    """``flash_attention_bwd_ref`` a block of :data:`BWD_ROWS` query rows
+    at a time, in f32 (dk and dv summed over the blocks in f32, all three
+    rounded once to the operands' dtype): the whole call's function,
+    summed in another order, without its ``(B, Hq, Sq, Sk)`` temporaries
+    at S 4096."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+
+    f = lambda t: t.float()
+    dqs, dk, dv = [], 0.0, 0.0
+    for i in range(0, q.shape[1], BWD_ROWS):
+        sl = slice(i, i + BWD_ROWS)
+        a, b, c = flash_attention_bwd_ref(
+            f(q[:, sl]), f(k), f(v), f(o[:, sl]), lse[:, :, sl].contiguous(), f(dout[:, sl]),
+            **dict(kw, q_offset=kw["q_offset"] + i))
+        dqs.append(a)
+        dk, dv = dk + b, dv + c
+    dt = q.dtype
+    return torch.cat(dqs, 1).to(dt), dk.to(dt), dv.to(dt)
+
+
+def bwd_tolerance(want, bf16):
+    """K5's per-element bound on one gradient: ``1e-5 * max|want|`` (its
+    own scale: f32 sums in another order), plus one bf16 step at ``|want|``
+    for bf16 operands (two f32 results that close can round to
+    neighbouring bf16 values)."""
+    import torch
+
+    w = want.float()
+    tol = 1e-5 * w.abs().max()
+    if bf16:
+        tol = tol + torch.ldexp(torch.ones_like(w), torch.frexp(w.abs())[1] - 8)
+    return tol
+
+
+def sdpa_fwd_bwd(q, k, v, dout, kw):
+    """``scaled_dot_product_attention``'s forward plus backward on K5b's
+    inputs (the library column; the port never calls it)."""
+    import torch
+
+    leaves = tuple(t.detach().requires_grad_() for t in (q, k, v))
+    fwd = flash_library(*leaves, kw)  # its output is (B, H, S, D)
+    grad_out = dout.transpose(1, 2)
+
+    def run():
+        torch.autograd.grad(fwd(), leaves, grad_out)
+    return run
+
+
+def flash_bwd_case(case, gen, device, flush):
+    """One :data:`BWD_CASES` case: K5's forward with and without ``lse``
+    (``out`` bit-identical, ``lse`` within 1e-5 of the plain version's),
+    then K5b twice (identical bits) against ``flash_attention_bwd_ref`` on
+    the same q, k, v, out, lse and dout (:func:`bwd_tolerance` on each of
+    dq, dk and dv).  A timed case is timed beside the plain version and
+    SDPA's forward plus backward, its bound 10 * D operations per visible
+    (query, key) pair at the operands' peak against q, k, v, o and dout read
+    and dq, dk and dv written once; returns its record (else None)."""
+    import torch
+
+    from repro_torch.core.attention import make_mask
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                          flash_attention_ref)
+
+    label, B, Sq, Sk, kind, window, off, dt, D, Hq, Hk, timed = case
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
+    mk = lambda S, H: torch.randn((B, S, H, D), generator=gen, device=device).to(dtype)
+    q, k, v, dout = mk(Sq, Hq), mk(Sk, Hk), mk(Sk, Hk), mk(Sq, Hq)
+    kw = dict(mask_kind=kind, window=window, q_offset=off)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    plain_out = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(out, plain_out):
+        raise AssertionError(f"flash_attention {label}: out moves when lse is asked for")
+    want_lse = torch.cat([flash_attention_ref(q[:, i:i + BWD_ROWS], k, v, return_lse=True,
+                                              **dict(kw, q_offset=off + i))[1]
+                          for i in range(0, Sq, BWD_ROWS)], 2)
+    lse_err = (lse - want_lse).abs().max().item()
+    if lse_err > 1e-5:
+        raise AssertionError(f"flash_attention {label}: lse off by {lse_err:.3e} > 1e-5")
+    got = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"flash_attention_bwd {label}: two launches differ")
+    want = bwd_plain_blocked(q, k, v, out, lse, dout, kw)
+    errs = []
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = (g.float() - w.float()).abs()
+        tol = bwd_tolerance(w, dt == "bf16")
+        if bool((err > tol).any()):
+            at = (err > tol).nonzero()[0].tolist()
+            raise AssertionError(f"flash_attention_bwd {label}: {name} disagrees at {at}: "
+                                 f"{err[tuple(at)].item():.3e} > {tol[tuple(at)].item():.3e}")
+        errs.append(err.max().item())
+    p = flash_kernel.bwd_plan(B, Sq, Sk, Hq, Hk, D)
+    where = (f" {label} (tile {p.tile}, {p.grid_kv[0] * p.grid_kv[1]} + "
+             f"{p.grid_q[0] * p.grid_q[1]} blocks, two launches bit-identical, lse err "
+             f"{lse_err:.2e}, dq/dk/dv err {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e})")
+    if not timed:
+        print(f"[kernel] flash_attention_bwd{where}")
+        return None
+    pairs = int(make_mask(kind, Sq, Sk, window, off, device).sum()) * B * Hq
+    esize = q.element_size()
+    nbytes = esize * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    return kernel_record(
+        "flash_attention_bwd", K5B_SOURCE, K5B_REPLACES, max(errs),
+        time_ms(lambda: flash_attention_bwd(q, k, v, out, lse, dout, **kw), flush=flush),
+        time_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw), flush=flush,
+                iters=3),
+        nbytes, 10 * D * pairs, dt, time_ms(sdpa_fwd_bwd(q, k, v, dout, kw), flush=flush),
+        label=where, case=label)
+
+
+def flash_bwd_phase(device, flush):
+    """Every :data:`BWD_CASES` case (:func:`flash_bwd_case`); returns the
+    timed cases' records, the first (phi4-mini's training shape) first."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    records = [r for r in (flash_bwd_case(c, gen, device, flush) for c in BWD_CASES) if r]
+    free_device()
+    return records
+
+
+TRAIN_ARCH = "phi4-mini-3.8b"
+TRAIN_B, TRAIN_S = 1, 4096  # train_4k's length; its global batch of 256 cut to 1 for one card
+TRAIN_STEPS, TRAIN_INT8_STEPS = 4, 2
+TRAIN_SMOKES = (("phi4-mini-3.8b", "causal"), ("gemma3-4b", "sliding window 16, qk-norm"),
+                ("paligemma-3b", "prefix_causal"), ("whisper-medium", "full and cross"))
+TRAIN_SMOKE_B, TRAIN_SMOKE_S = 2, 64
+TRAIN_GRAD_SHARE = 1e-4  # each grad leaf against its own max |g|
+TRAIN_LOSS_REL = 1e-5
+LAUNCHER_LAYERS, LAUNCHER_STEPS, LAUNCHER_EVERY = 2, 6, 2
+LAUNCHER_LOSS_TOL = 1e-3
+
+
+def grads_gap(got, want):
+    """``(worst share, its leaf)``: each grad leaf's max |got - want| over
+    its own max |want|, the worst of them."""
+    from repro_torch.utils.tree import tree_items
+
+    flat = dict(tree_items(want))
+    worst, where = 0.0, ""
+    for key, g in tree_items(got):
+        w = flat[key].float()
+        share = ((g.float().cpu() - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
+        if share > worst:
+            worst, where = share, key
+    return worst, where
+
+
+def train_card_cpu_phase(device):
+    """One train step's loss and grads (remat on) of each of
+    :data:`TRAIN_SMOKES` on the card against the CPU's from the same
+    parameters and batch: the loss within :data:`TRAIN_LOSS_REL`
+    relative, every grad leaf within :data:`TRAIN_GRAD_SHARE` of its max
+    |g| (``wq`` / ``wk`` / ``wv``, whose grads flow through K5b,
+    included), K5b launched once a self- or cross-attention.  Then
+    phi4-mini-smoke again with K5b's launch skipped (dq, dk, dv left
+    zero): that run must fail the grad bound, which shows the check can
+    fail."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset, to_device
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.launch.train import fwd_kwargs, modality
+    from repro_torch.models import model_zoo
+    from repro_torch.training import make_loss_fn
+    from repro_torch.training.train_step import loss_and_grads
+
+    for arch, what in TRAIN_SMOKES:
+        cfg = get_config(arch, smoke=True)
+        params = model_zoo.init(cfg, torch.Generator().manual_seed(0), "cpu")
+        batch = SyntheticLMDataset(cfg.vocab_size, TRAIN_SMOKE_S, TRAIN_SMOKE_B, seed=1,
+                                   modality=modality(cfg)).batch(0)
+        loss_fn = make_loss_fn(cfg, fwd_kwargs(cfg))
+        want_loss, _, want = loss_and_grads(loss_fn, params, to_device(batch, "cpu"))
+        dparams = _tree_to(params, device)
+        dbatch = to_device(batch, device)
+        reset_launches()
+        loss, _, got = loss_and_grads(loss_fn, dparams, dbatch)
+        torch.cuda.synchronize()
+        attends = cfg.num_layers * (2 if cfg.family == "enc_dec" else 1) + (
+            cfg.encoder_layers if cfg.family == "enc_dec" else 0)
+        if LAUNCHES["flash_attention_bwd"] != attends:
+            raise AssertionError(f"train {arch}-smoke: K5b launched "
+                                 f"{LAUNCHES['flash_attention_bwd']} times, want {attends}")
+        rel = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+        share, where = grads_gap(got, want)
+        if rel > TRAIN_LOSS_REL or share > TRAIN_GRAD_SHARE:
+            raise AssertionError(f"train {arch}-smoke ({what}): card against CPU loss rel "
+                                 f"{rel:.3e}, worst grad leaf {where} {share:.3e}")
+        print(f"[train] {arch}-smoke ({what}) card against CPU: loss {loss.item():.6f} "
+              f"(rel {rel:.2e} <= {TRAIN_LOSS_REL}), worst grad leaf {where} {share:.2e} of "
+              f"its max |g| (<= {TRAIN_GRAD_SHARE}); K5 {LAUNCHES['flash_attention']}, K5b "
+              f"{LAUNCHES['flash_attention_bwd']} launches")
+        if arch != TRAIN_SMOKES[0][0]:
+            continue
+        launch_bwd = flash_kernel.launch_bwd
+
+        def skipped(q, k, v, o, dout, lse, delta, dq, dk, dv, *rest):
+            for t in (dq, dk, dv):
+                t.zero_()
+        flash_kernel.launch_bwd = skipped
+        try:
+            _, _, bad = loss_and_grads(loss_fn, dparams, dbatch)
+        finally:
+            flash_kernel.launch_bwd = launch_bwd
+        share, where = grads_gap(bad, want)
+        if share <= TRAIN_GRAD_SHARE:
+            raise AssertionError(f"train {arch}-smoke: with K5b skipped the grads still pass "
+                                 f"the bound ({where} {share:.3e}): the check cannot fail")
+        print(f"[train] {arch}-smoke with K5b's launch skipped fails the bound, as it must: "
+              f"worst grad leaf {where} {share:.2e} of its max |g|")
+
+
+def _opt_bytes(opt):
+    from repro_torch.utils.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(opt))
+
+
+def train_main_run(device, card):
+    """phi4-mini-3.8b at full width and depth (32 layers, bf16, seeded
+    weights) trains :data:`TRAIN_STEPS` f32-AdamW steps (peak_lr 3e-4 after
+    ``AdamWConfig``'s 100 warm-up steps) at B 1, S 4096 with remat on one repeated
+    ``SyntheticLMDataset`` batch, then :data:`TRAIN_INT8_STEPS` steps with
+    fresh int8 moments.  Every step: loss and grad norm finite, K5
+    launched 2L = 64 times (the forward and its recompute) and K5b L = 32,
+    nothing else; the last f32 step's loss below the first's.  Prints ms a
+    step, tokens/s, the peak memory and the state's bytes.  Returns the
+    launch counts of every step summed."""
+    import math
+
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLMDataset, to_device
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.training import make_train_step
+
+    free_device()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = init_model(TRAIN_ARCH, device)
+    L = cfg.num_layers
+    batch = to_device(SyntheticLMDataset(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0).batch(0),
+                      device)
+    want = {name: 0 for name in LAUNCHES}
+    want.update(flash_attention=2 * L, flash_attention_bwd=L)
+    total = {name: 0 for name in LAUNCHES}
+    state = {"params": params}
+    for fmt, steps in (("fp32", TRAIN_STEPS), ("int8", TRAIN_INT8_STEPS)):
+        # AdamWConfig's own schedule: 100 warm-up steps to peak_lr 3e-4.  Without the
+        # warm-up the first step's 3e-4 on every weight at once raised the loss
+        # (12.71 -> 14.40 -> 21.29 over 4 steps on the card)
+        opt_cfg = AdamWConfig(peak_lr=3e-4, state_dtype=fmt)
+        state["opt"] = None
+        free_device()
+        state["opt"] = adamw_init(state["params"], opt_cfg)
+        step_fn = make_train_step(cfg, opt_cfg, dict(remat=True))
+        pbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        print(f"[train] {cfg.name} {fmt} AdamW: state {_opt_bytes(state['opt']) / 1e9:.3f} GB "
+              f"of moments beside {pbytes / 1e9:.3f} GB of bf16 parameters")
+        losses = []
+        for i in range(steps):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            loss, gnorm = metrics["loss"].item(), metrics["grad_norm"].item()
+            dt = time.perf_counter() - t0
+            got = dict(LAUNCHES)
+            for name, n in got.items():
+                total[name] += n
+            if got != want:
+                raise AssertionError(f"train {cfg.name} step {i}: launches {got}, want {want}")
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                raise AssertionError(f"train {cfg.name} step {i}: loss {loss}, grad norm {gnorm}")
+            losses.append(loss)
+            print(f"[train] {cfg.name} {fmt} step {i}: loss {loss:.6f} grad norm {gnorm:.4f} "
+                  f"lr {metrics['lr'].item():.2e} {dt * 1e3:.1f} ms "
+                  f"({TRAIN_B * TRAIN_S / dt:.0f} tokens/s); K5 {got['flash_attention']}, K5b "
+                  f"{got['flash_attention_bwd']} launches ({card})")
+        if fmt == "fp32" and not losses[-1] < losses[0]:
+            raise AssertionError(f"train {cfg.name}: loss at step {steps - 1} {losses[-1]} is "
+                                 f"not below step 0's {losses[0]} on the repeated batch")
+        print(f"[train] {cfg.name} {fmt}: peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated "
+              f"(B {TRAIN_B}, S {TRAIN_S}, remat)")
+    del state, params, batch
+    free_device()
+    return total
+
+
+def train_launcher_check(device, card):
+    """``python -m repro_torch.launch.train --full`` at phi4-mini width,
+    depth cut to :data:`LAUNCHER_LAYERS`, int8 moments, S 4096: a straight
+    run of :data:`LAUNCHER_STEPS` steps checkpointing every
+    :data:`LAUNCHER_EVERY` (a checkpoint at step 3), then a run from a
+    directory that holds only that checkpoint, which resumes there; its
+    losses at steps 4-6 must be within :data:`LAUNCHER_LOSS_TOL` of the
+    straight run's.  Everything is written under a temporary directory,
+    removed afterwards."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train as launch_train
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        def run(ckpt_dir):
+            return launch_train.main([
+                "--arch", TRAIN_ARCH, "--full", "--layers", str(LAUNCHER_LAYERS), "--int8-opt",
+                "--batch", "1", "--seq-len", str(TRAIN_S), "--steps", str(LAUNCHER_STEPS),
+                "--ckpt-every", str(LAUNCHER_EVERY), "--log-every", "1", "--device", str(device),
+                "--ckpt-dir", ckpt_dir, "--heartbeat", os.path.join(tmp, "heartbeat.json")])
+        straight = run(os.path.join(tmp, "straight"))
+        at = LAUNCHER_EVERY + 1
+        resume_dir = os.path.join(tmp, "resume")
+        os.makedirs(resume_dir)
+        shutil.copytree(os.path.join(tmp, "straight", f"step_{at:08d}"),
+                        os.path.join(resume_dir, f"step_{at:08d}"))
+        resumed = run(resume_dir)
+        if straight["failures"] or resumed["failures"]:
+            raise AssertionError(f"train launcher: {straight['failures']} + "
+                                 f"{resumed['failures']} steps failed (printed above)")
+        if sorted(resumed["losses"]) != list(range(at, LAUNCHER_STEPS)):
+            raise AssertionError(f"train launcher: the resumed run ran steps "
+                                 f"{sorted(resumed['losses'])}, want {at}..{LAUNCHER_STEPS - 1}")
+        gaps = [abs(resumed["losses"][s] - straight["losses"][s]) for s in resumed["losses"]]
+        if max(gaps) > LAUNCHER_LOSS_TOL:
+            raise AssertionError(f"train launcher: resumed losses off by {max(gaps):.3e} "
+                                 f"> {LAUNCHER_LOSS_TOL}")
+        equal = all(resumed["losses"][s] == straight["losses"][s] for s in resumed["losses"])
+        print(f"[train] launcher --full --layers {LAUNCHER_LAYERS} --int8-opt S {TRAIN_S}: "
+              f"resumed from step {at}, losses at steps {at + 1}-{LAUNCHER_STEPS} within "
+              f"{max(gaps):.2e} of the straight run's (bit-equal: {equal}); median step "
+              f"{straight['median_ms']:.1f} ms ({card})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def train_phase(device, card):
+    """The training path on the card (K5b's kernel checks run in
+    :func:`flash_bwd_phase`): the card against the CPU on the smoke
+    models, the main run at full phi4-mini, the launcher's resume.
+    Returns the main run's launch counts."""
+    train_card_cpu_phase(device)
+    launches = train_main_run(device, card)
+    train_launcher_check(device, card)
+    return launches
+
+
 PHASES = ("kernels", "head-widths", "long-context", "prefix", "score", "score-device", "decode",
-          "decode-attends", "ssm", "long-serve", "whisper", "server")
+          "decode-attends", "ssm", "long-serve", "whisper", "server", "train")
 
 
 def main(argv=None) -> int:
@@ -4060,7 +4470,9 @@ def main(argv=None) -> int:
              "CPU, 'long-serve' gemma3-1b served at max_seq 524,288, 'whisper' "
              "whisper-medium's encoder, decode in every KV format, decode_32k layout and "
              "forward and whisper-smoke against the CPU, 'server' phi4-mini-3.8b's bf16 and "
-             "bgpp offline runs then the asyncio front door over them; without it "
+             "bgpp offline runs then the asyncio front door over them, 'train' K5b's checks "
+             "and the training path (smoke models against the CPU, phi4-mini-3.8b's full "
+             "training steps, the launcher's resume); without it "
              "every phase "
              "runs and the records are printed")
     only = parser.parse_args(argv).only
@@ -4100,6 +4512,8 @@ def main(argv=None) -> int:
         records.append(timed(decode_kernel_phase, device, flush))
     if run("kernels"):
         records += timed(flash_kernel_phase, device, flush)
+    if run("kernels") or run("train"):
+        records += timed(flash_bwd_phase, device, flush)
     if run("head-widths"):
         records += timed(head_width_phase, device, flush)
     if run("long-context"):
@@ -4126,6 +4540,8 @@ def main(argv=None) -> int:
             timed(whisper_reference, device)
         if run("server"):
             server_only_phase(device, card)
+        if run("train"):
+            timed(train_phase, device, card)
         torch.cuda.synchronize()
         print(card)
         return 0
@@ -4139,6 +4555,9 @@ def main(argv=None) -> int:
         timed(phase, device, card)
     # K1 / K2 / K5 over whisper's runs count beside phi4-mini's
     for name, n in timed(whisper_phase, device, card).items():
+        launches[name] = launches.get(name, 0) + n
+    # K5 over the training steps counts beside the serving paths'; K5b runs there alone
+    for name, n in timed(train_phase, device, card).items():
         launches[name] = launches.get(name, 0) + n
     for phase in (trace_phase, flash_device_phase, bstc_device_phase, decode_device_phase,
                   bgpp_device_phase, score_device_phase, brcr_device_phase):

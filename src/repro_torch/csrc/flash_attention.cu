@@ -114,6 +114,14 @@
 // run, the per-row upper bound hi and the whole-tile test all take the
 // prefix's reach (w <= 0 arrives as causal; w >= Sk is full attention).
 //
+// The log-sum-exp.  When the caller passes an lse buffer (the training
+// forward, whose backward flash_attention_bwd.cu recomputes p from it),
+// each row also writes ln sum_j exp(s_j scale) over its visible keys: the
+// f32 body m + ln l (m the scaled row max), the bf16 body mm scale + ln l
+// (mm the merged reference point in raw score units).  Nothing else
+// changes: out is computed and rounded exactly as without it.  A row that
+// sees no key is outside the contract, as for out.
+//
 // Left for later: wgmma with a TMA producer warp (mma.sync reaches part of
 // the tensor cores' rate, and a producer warp takes the copies off the
 // compute warps).
@@ -122,18 +130,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_attention.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e30f;  // repro.core.attention.NEG_INF
 constexpr int kBK = 64;            // keys a tile (both bodies)
-
-enum MaskKind { kFull = 0, kCausal = 1, kSliding = 2, kChunked = 3, kPrefix = 4 };
 
 struct Args {
   const void* q;
   const void* k;
   const void* v;
   void* out;
+  float* lse;  // (B, Hq, Sq) row log-sum-exp of the scaled, masked logits, or null
   int Sq, Sk, Hq, Hk;
   int D;     // the true head width (<= the compiled width DP)
   int wide;  // bf16: every q, k, v row starts on a 16-byte boundary
@@ -141,41 +149,6 @@ struct Args {
   int mask, window, q_offset;
   float scale;
 };
-
-// Does query position qi see key position kj?
-__device__ __forceinline__ bool visible(int mask, int w, int qi, int kj) {
-  if (mask == kFull) return true;
-  const bool causal = kj <= qi;
-  if (mask == kCausal) return causal;
-  if (mask == kSliding) return causal && qi - kj < w;
-  if (mask == kPrefix) return causal || (qi < w && kj < w);
-  return causal && qi / w == kj / w;
-}
-
-// Does the tile of query positions [q_lo, q_hi] x keys [k_lo, k_hi] hold a
-// visible pair?  The union of the rows' visible key ranges is one interval
-// ([q_lo - w + 1, q_hi] sliding, [q_lo / w * w, q_hi] chunked, [0,
-// max(q_hi, w - 1)] prefix_causal when q_lo < w), so the test is exact.
-__device__ __forceinline__ bool tile_live(int mask, int w, int q_lo, int q_hi, int k_lo,
-                                          int k_hi) {
-  if (mask == kFull) return true;
-  if (mask == kPrefix) return k_lo <= q_hi || (k_lo < w && q_lo < w);
-  if (k_lo > q_hi) return false;
-  if (mask == kCausal) return true;
-  if (mask == kSliding) return k_hi >= q_lo - w + 1;
-  return k_hi / w >= q_lo / w;
-}
-
-// Does every query position of [q_lo, q_hi] see every key of [k_lo, k_hi]?
-__device__ __forceinline__ bool tile_whole(int mask, int w, int q_lo, int q_hi, int k_lo,
-                                           int k_hi) {
-  if (mask == kFull) return true;
-  if (mask == kPrefix) return k_hi <= q_lo || (q_lo < w && k_hi < w);
-  if (k_hi > q_lo) return false;
-  if (mask == kCausal) return true;
-  if (mask == kSliding) return q_hi - k_lo < w;
-  return k_lo / w == q_hi / w;
-}
 
 // ---------------------------------------------------------------------------
 // f32 body (CUDA cores)
@@ -318,6 +291,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Args a) {
     const int s = q0 + ty * kRows + i;
     if (s >= a.Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (a.lse != nullptr && tx == 0) a.lse[((long long)b * a.Hq + h) * a.Sq + s] = m[i] + logf(l[i]);
     T* row = out + (((long long)b * a.Sq + s) * a.Hq + h) * Dt;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
@@ -720,7 +694,7 @@ __global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<D>()) flash_mma_ke
   }
   __syncthreads();
   if (kh == 1 || !warp_rows) return;
-  float c0[2], c1[2];
+  float c0[2], c1[2], ref[2];  // ref: the merged rows' reference point mm
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const float m1 = xch[(4 * NT + i) * 32], l1 = xch[(4 * NT + 2 + i) * 32];
@@ -728,6 +702,7 @@ __global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<D>()) flash_mma_ke
     c0[i] = ex2((m[i] - mm) * c2);
     c1[i] = ex2((m1 - mm) * c2);
     l[i] = l[i] * c0[i] + l1 * c1[i];
+    ref[i] = mm;
   }
 #pragma unroll
   for (int n = 0; n < NT; ++n)
@@ -743,6 +718,10 @@ __global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<D>()) flash_mma_ke
     const int s = q0 + wr + (lane >> 2) + 8 * i;
     if (s >= a.Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    // l sums exp((s - mm) scale) over the row, so its log-sum-exp is
+    // mm scale + ln l; the quad's four lanes hold the same l, one writes
+    if (a.lse != nullptr && (lane & 3) == 0)
+      a.lse[((long long)b * a.Hq + h) * a.Sq + s] = ref[i] * a.scale + logf(l[i]);
     __nv_bfloat16* row = out + (((long long)b * a.Sq + s) * a.Hq + h) * Dt;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
@@ -795,14 +774,17 @@ int launch_d(const Args& a, int B, int dtype, int bq, int smem, cudaStream_t st)
 extern "C" {
 
 // dtype: 0 = f32, 1 = bf16; mask: 0 full, 1 causal, 2 sliding, 3 chunked,
-// 4 prefix_causal (window = the prefix length).
+// 4 prefix_causal (window = the prefix length).  lse: null, or a (B, Hq, Sq)
+// f32 buffer that takes each row's natural-log log-sum-exp of its scaled,
+// masked logits (the backward's input); out is the same either way.
 // D is the true head width, DP the compiled width it runs at (16, 32, 64,
 // 128 or 256).  Strides are in elements; D must be unit stride; wide: every
 // bf16 row starts on a 16-byte boundary (else rows are staged element by
 // element).  bq / smem: the launch plan (query rows a block, dynamic
 // shared memory bytes), checked against this file's geometry.  Returns
 // cudaGetLastError() after the launch.
-int flash_attention_launch(const void* q, const void* k, const void* v, void* out, int B,
+int flash_attention_launch(const void* q, const void* k, const void* v, void* out, void* lse,
+                           int B,
                            int Sq, int Sk, int Hq, int Hk, int D, int DP, int wide,
                            long long qsb,
                            long long qss, long long qsh, long long ksb, long long kss,
@@ -817,6 +799,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* ou
   a.k = k;
   a.v = v;
   a.out = out;
+  a.lse = (float*)lse;
   a.Sq = Sq;
   a.Sk = Sk;
   a.Hq = Hq;

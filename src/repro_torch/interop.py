@@ -12,6 +12,12 @@ compare like with like.
 bf16 leaves arrive as numpy arrays whose ``dtype.name == "bfloat16"``;
 they are reinterpreted through ``uint16`` bits, so no ``ml_dtypes`` import
 is needed.
+
+A training state crosses the same way: :func:`params_from_numpy` takes the
+reference's ``{"params", "opt"}`` tree whole (the optimizer's 0-d int32
+``step`` and its int8 ``{"q", "s"}`` moment records included), and
+:func:`tree_to_numpy` brings the port's tree back as numpy arrays, bf16
+through its bits.
 """
 
 from __future__ import annotations
@@ -29,6 +35,25 @@ def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
         bits = np.ascontiguousarray(a).view(np.uint16)
         return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a)).to(device)
+
+
+def tensor_to_numpy(t: torch.Tensor, bf16=None) -> np.ndarray:
+    """One tensor -> a host numpy array.  A bf16 tensor comes back as its
+    ``uint16`` bits, viewed as ``bf16`` when the caller passes that numpy
+    dtype (the JAX side's ``jnp.bfloat16``)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        bits = t.view(torch.int16).numpy().view(np.uint16)
+        return bits if bf16 is None else bits.view(bf16)
+    return t.numpy()
+
+
+def tree_to_numpy(tree: Any, bf16=None) -> Any:
+    """Nested dicts of tensors -> the same nesting of numpy arrays
+    (:func:`tensor_to_numpy`)."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v, bf16) for k, v in tree.items()}
+    return tensor_to_numpy(tree, bf16)
 
 
 def params_from_numpy(tree: Any, device="cuda") -> Any:

@@ -27,7 +27,10 @@ Kernels:
                     chunked, full and the VLM's prefix_causal masks): the
                     attention of every layer of
                     the whole-sequence forward (eager admission,
-                    whole-batch prefill)
+                    whole-batch prefill, training); its backward
+                    (``flash_attention_bwd``: dq, dk, dv from the forward's
+                    out and row log-sum-exp) is the gradient the training
+                    path takes through it
   bgpp_score      — one BGPP round: the masked bit-plane score of every key
                     for every query head, dead key tiles skipped (each round
                     of ``core.bgpp.bgpp_predict`` / ``bgpp_predict_batched``)
@@ -52,6 +55,7 @@ LAUNCHES: Dict[str, int] = {
     "bstc_matmul": 0,
     "bstc_decode": 0,
     "flash_attention": 0,
+    "flash_attention_bwd": 0,
     "bgpp_score": 0,
     "brcr_gemm": 0,
 }

@@ -163,11 +163,19 @@ def _declare(lib: ctypes.CDLL) -> None:
         I, I, I, I, P, P,  # M, H, N, tile_k, plan (host int array), stream
     ]
     lib.flash_attention_launch.argtypes = [
-        P, P, P, P,  # q, k, v, out
+        P, P, P, P, P,  # q, k, v, out, lse (null: not asked for)
         I, I, I, I, I, I, I, I,  # B, Sq, Sk, Hq, Hk, D, compiled width, wide rows
         L, L, L, L, L, L, L, L, L,  # q, k, v strides: batch, sequence, head
         I, I, I, I, F,  # dtype code, mask code, window, q_offset, scale
         I, I, P,  # plan: query rows a block, shared memory bytes; stream
+    ]
+    lib.flash_attention_bwd_launch.argtypes = [
+        P, P, P, P, P, P, P,  # q, k, v, o, dout, lse, delta (workspace)
+        P, P, P,  # dq, dk, dv
+        I, I, I, I, I, I, I,  # B, Sq, Sk, Hq, Hk, D, compiled width
+        L, L, L, L, L, L, L, L, L, L, L, L, L, L, L,  # q, k, v, o, dout strides: batch, seq, head
+        I, I, I, I, F,  # dtype code, mask code, window, q_offset, scale
+        I, I, I, P,  # plan: tile rows, dk/dv and dq shared memory bytes; stream
     ]
     lib.bgpp_score_launch.argtypes = [
         P, P, P, P, P,  # q, plane, sign, alive, out
@@ -188,6 +196,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                lib.bstc_decode_launch,
                lib.bstc_matmul_launch,
                lib.flash_attention_launch,
+               lib.flash_attention_bwd_launch,
                lib.bgpp_score_launch,
                lib.brcr_gemm_launch):
         fn.restype = ctypes.c_int

@@ -1,5 +1,6 @@
-"""Tiled online-softmax GQA attention over the model layout (B, S, H, D)."""
+"""Tiled online-softmax GQA attention over the model layout (B, S, H, D),
+and its gradient."""
 
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_bwd
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "flash_attention_bwd"]

@@ -8,14 +8,21 @@ tile), one warp each; grid ``(B * Hq, query tiles)``, tiles issued heaviest
 first.  f32 operands run the CUDA-core body: a 128-thread block per
 (64-row query tile, batch x query head).  Both read q/k/v through their
 batch, sequence and head strides (unit stride along D) and write a
-contiguous ``(B, Sq, Hq, D)`` out.  Callers pass validated CUDA tensors;
-:mod:`.ops` is the public wrapper.
+contiguous ``(B, Sq, Hq, D)`` out, and, when asked, each row's log-sum-exp
+``(B, Hq, Sq)`` f32.
+
+The backward (``src/repro_torch/csrc/flash_attention_bwd.cu``) has the
+geometry :func:`bwd_plan` gives: 256-thread blocks over tiles of
+:func:`bwd_tile` rows, one grid over (key tiles, batch x kv head) for dk
+and dv and one over (query tiles, batch x query head) for dq, after a
+delta pass.  Callers pass validated CUDA tensors; :mod:`.ops` is the
+public wrapper.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -86,17 +93,81 @@ def wide_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
 
 
 def launch(q, k, v, out, geometry: Plan, mask_kind: str, window: int, q_offset: int,
-           scale: float) -> None:
-    """Enqueue one launch on the current stream; raise if it was refused."""
+           scale: float, lse=None) -> None:
+    """Enqueue one launch on the current stream; raise if it was refused.
+    ``lse``: None, or a ``(B, Hq, Sq)`` f32 tensor that takes each row's
+    log-sum-exp (``out`` is the same either way)."""
     lib = build.load()
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         B, Sq, Sk, Hq, Hk, D, padded_dim(D), int(wide_rows(q, k, v)),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         _DTYPE[q.dtype], MASK_CODES[mask_kind], int(window), int(q_offset), float(scale),
         geometry.BQ, geometry.smem, stream,
     )
     build.check(err, "flash_attention")
+
+
+BWD_THREADS = 256  # the backward's blocks: 16 row groups x 16 column lanes
+
+
+class BwdPlan(NamedTuple):
+    """The backward's geometry: ``tile`` rows a tile (keys of a dk/dv
+    block, queries of a dq block), ``threads`` a block, the two blocks'
+    dynamic shared memory, and the two grids."""
+
+    tile: int
+    threads: int
+    smem_kv: int
+    smem_q: int
+    grid_kv: tuple
+    grid_q: tuple
+
+
+def bwd_tile(D: int) -> int:
+    """Rows a backward tile: 64, or 32 at the compiled width 256."""
+    return 32 if padded_dim(D) > 128 else 64
+
+
+def bwd_smem_bytes(D: int) -> Tuple[int, int]:
+    """Dynamic shared memory of the dk/dv block and of the dq block (the
+    source's carve-up, f32 whatever the operands' dtype): four ``(T, DP +
+    1)`` row tiles each, the P and dS tiles ``(T, T + 1)`` (dq: dS only)
+    and lse and delta (T each).  165,888 and 149,248 B at D 128; 140,288
+    and 136,064 B at D 256."""
+    DP, T = padded_dim(D), bwd_tile(D)
+    rows = 4 * T * (DP + 1) + 2 * T
+    return 4 * (rows + 2 * T * (T + 1)), 4 * (rows + T * (T + 1))
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(B: int, Sq: int, Sk: int, Hq: int, Hk: int, D: int) -> BwdPlan:
+    """The backward's launch geometry of one shape (the same for f32 and
+    bf16 operands: it computes in f32)."""
+    T = bwd_tile(D)
+    kv, q = bwd_smem_bytes(D)
+    return BwdPlan(T, BWD_THREADS, kv, q, (-(-Sk // T), B * Hk), (-(-Sq // T), B * Hq))
+
+
+def launch_bwd(q, k, v, o, dout, lse, delta, dq, dk, dv, geometry: BwdPlan, mask_kind: str,
+               window: int, q_offset: int, scale: float) -> None:
+    """Enqueue the backward's three launches (delta, dk / dv, dq) on the
+    current stream; raise if one was refused.  ``delta`` is a ``(B, Hq,
+    Sq)`` f32 workspace; dq, dk and dv are written whole."""
+    lib = build.load()
+    B, Sq, Hq, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, Sq, Sk, Hq, Hk, D, padded_dim(D),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], *dout.stride()[:3],
+        _DTYPE[q.dtype], MASK_CODES[mask_kind], int(window), int(q_offset), float(scale),
+        geometry.tile, geometry.smem_kv, geometry.smem_q, stream,
+    )
+    build.check(err, "flash_attention_bwd")

@@ -18,6 +18,7 @@ reference's.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -105,7 +106,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Te
     The reference's four-operand contraction of the intra-chunk term is
     taken pairwise, heads before positions, so its one large temporary is
     the ``(B, nc, H, L, L)`` f32 decay-weighted score (134 MB a batch row
-    at mamba2-1.3b's 64 heads, S 2048, chunk 256), built in place."""
+    at mamba2-1.3b's 64 heads, S 2048, chunk 256), built in place (out of
+    place under gradient mode, where an operand requires a gradient)."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     chunk = min(chunk, S)
@@ -121,8 +123,13 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Te
     # intra-chunk: y[l] += sum_{m <= l} (C_l . B_m) exp(a_cum[l] - a_cum[m]) dt_m x_m
     w = a_cum[..., :, None] - a_cum[..., None, :]  # (B, nc, H, L, L)
     causal = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
-    w.exp_().masked_fill_(~causal, 0.0)
-    w.mul_((Cc @ Bc.transpose(-1, -2))[:, :, None]).mul_(dth[..., None, :])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, Bm, Cm)):
+        # the same operations out of place: autograd keeps what each needs
+        w = w.exp().masked_fill(~causal, 0.0)
+        w = w * (Cc @ Bc.transpose(-1, -2))[:, :, None] * dth[..., None, :]
+    else:
+        w.exp_().masked_fill_(~causal, 0.0)
+        w.mul_((Cc @ Bc.transpose(-1, -2))[:, :, None]).mul_(dth[..., None, :])
     y = w @ xh  # (B, nc, H, L, P)
     del w
 
@@ -228,12 +235,18 @@ def init(cfg, generator: torch.Generator, device="cuda") -> Params:
     return {"embed": embed, "layers": lay, "final_norm": {"scale": zeros(d)}}
 
 
-def forward(params: Params, cfg, tokens: torch.Tensor, chunk: int = 256):
+def _layer(p: Params, x: torch.Tensor, *, cfg, chunk: int) -> torch.Tensor:
+    return x + mixer_apply(p["mixer"], cfg, layers.apply_norm(x, p["norm"], cfg.norm),
+                           chunk=chunk)
+
+
+def forward(params: Params, cfg, tokens: torch.Tensor, chunk: int = 256, remat: bool = False):
     """tokens ``(B, S)`` -> ``(logits (B, S, V), aux 0.0)``: each layer
-    ``x + mixer(norm(x))``, the final norm and the tied head."""
+    ``x + mixer(norm(x))`` (recomputed in the backward with ``remat``, as
+    the reference's ``jax.checkpoint``), the final norm and the tied
+    head."""
     x = transformer.embed_tokens(params, cfg, tokens)
-    for i in range(cfg.num_layers):
-        p = transformer.layer_params(params["layers"], i)
-        x = x + mixer_apply(p["mixer"], cfg, layers.apply_norm(x, p["norm"], cfg.norm),
-                            chunk=chunk)
+    body = functools.partial(_layer, cfg=cfg, chunk=chunk)
+    for p in transformer.layer_slices(params["layers"], cfg.num_layers):
+        x = transformer.run_layer(body, remat, p, x)
     return transformer.lm_logits(params, cfg, x), torch.zeros((), device=x.device)

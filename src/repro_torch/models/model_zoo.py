@@ -39,7 +39,9 @@ def forward(params: Params, cfg, batch: Dict[str, torch.Tensor], **kw):
     """batch ``{"tokens": (B, S)}`` (a VLM's also ``"vision": (B, Tv,
     d_vision)``, whisper's ``"frames": (B, encoder_seq, d_audio)``) ->
     ``(logits, aux_loss)`` (plus the stacked K/V with ``return_kv=True``;
-    an ssm model takes ``chunk``, the SSD scan's)."""
+    an ssm model takes ``chunk``, the SSD scan's; every family takes
+    ``remat``, the transformer and enc_dec families also the reference's
+    ``block_q`` / ``block_k``, ignored)."""
     require_served(cfg, "model_zoo.forward")
     if cfg.family == "ssm":
         return mamba2.forward(params, cfg, batch["tokens"], **kw)

@@ -25,21 +25,25 @@ the whole-sequence forward drops tokens as the reference's does (1.25 on
 the full configs).  A VLM's forward takes ``vision_embeds``: their
 projection runs before the tokens, positions count from the first patch,
 and every layer attends under prefix_causal with the patch count as its
-window.  Rematerialisation and sharding rules are not ported.
+window.  ``remat`` recomputes each layer in the backward, as the
+reference's ``jax.checkpoint`` does; sharding rules are not ported.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import require_transformer
 from repro_torch.core import attention
 from repro_torch.models import layers, moe
 from repro_torch.models.layers import _dtype
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
 
@@ -159,6 +163,27 @@ def layer_params(tree: Params, i: int) -> Params:
             for k, v in tree.items()}
 
 
+def layer_slices(tree: Params, n: int) -> List[Params]:
+    """Every layer's slice of a stacked tree: views by indexing, or under
+    gradient mode (a leaf requires a gradient) one ``unbind`` a leaf, whose
+    backward stacks the leaf's ``n`` grads once (``v[i]`` would build a
+    zero tensor the size of the whole stack for each slice's grad)."""
+    if torch.is_grad_enabled() and any(v.requires_grad for v in tree_leaves(tree)):
+        per_leaf = tree_map(lambda v: v.unbind(0), tree)
+        return [tree_map(lambda u: u[i], per_leaf) for i in range(n)]
+    return [layer_params(tree, i) for i in range(n)]
+
+
+def run_layer(fn, remat: bool, *args):
+    """``fn(*args)``, rematerialised when ``remat`` (the reference's
+    ``jax.checkpoint`` of its scan body): its activations are not kept for
+    the backward but recomputed from ``args`` there
+    (``torch.utils.checkpoint``, non-reentrant)."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 # --------------------------------------------------------------------------
 # forward (whole sequence: eager admission, whole-batch prefill)
 # --------------------------------------------------------------------------
@@ -199,8 +224,19 @@ def _ffn_block(p, cfg, x):
     return out, aux
 
 
+def _layer(p, x, positions, *, cfg, theta: float, window: int, mask_kind: str,
+           return_kv: bool):
+    """One layer: ``x + attn``, then ``+ ffn`` -> ``(x, aux, kv)``."""
+    a, kv = _attention_block(p, cfg, x, positions, theta, window, mask_kind,
+                             return_kv=return_kv)
+    x = x + a
+    f, aux = _ffn_block(p, cfg, x)
+    return x + f, aux, kv
+
+
 def forward(params: Params, cfg, tokens: torch.Tensor, return_kv: bool = False,
-            vision_embeds: Optional[torch.Tensor] = None):
+            vision_embeds: Optional[torch.Tensor] = None, block_q: Optional[int] = None,
+            block_k: Optional[int] = None, remat: bool = False):
     """tokens ``(B, S)`` -> ``(logits (B, S', V), aux[, (k_all, v_all)])``.
 
     The residual stream runs in ``cfg.dtype``; ``aux`` is a 0-d float32
@@ -211,7 +247,12 @@ def forward(params: Params, cfg, tokens: torch.Tensor, return_kv: bool = False,
     dtype, not scaled) and put before the token embeddings: ``S' = Tv +
     S``, positions ``0 .. Tv + S - 1``, every layer under prefix_causal
     with window ``Tv``.  A VLM without them raises (the reference
-    asserts); other families ignore them, as the reference does."""
+    asserts); other families ignore them, as the reference does.
+
+    ``remat`` recomputes each layer in the backward instead of keeping its
+    activations (:func:`run_layer`).  ``block_q`` / ``block_k`` (the
+    reference's attention tiles) are accepted and ignored: the kernel's
+    plan sets its own tiles."""
     require_transformer(cfg, "forward")
     B, S = tokens.shape
     x = embed_tokens(params, cfg, tokens)
@@ -231,13 +272,11 @@ def forward(params: Params, cfg, tokens: torch.Tensor, return_kv: bool = False,
     thetas = layer_thetas(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        p = layer_params(params["layers"], i)
-        a, kv = _attention_block(p, cfg, x, positions, float(thetas[i]), int(windows[i]),
-                                 mask_kind, return_kv=return_kv)
-        x = x + a
-        f, aux_l = _ffn_block(p, cfg, x)
-        x = x + f
+    for i, p in enumerate(layer_slices(params["layers"], cfg.num_layers)):
+        x, aux_l, kv = run_layer(
+            functools.partial(_layer, cfg=cfg, theta=float(thetas[i]), window=int(windows[i]),
+                              mask_kind=mask_kind, return_kv=return_kv),
+            remat, p, x, positions)
         aux = aux + aux_l
         if return_kv:
             ks.append(kv[0])

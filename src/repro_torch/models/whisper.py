@@ -31,8 +31,9 @@ and ``engine.make_serve_step`` decodes a token a step from position 0.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -105,8 +106,7 @@ def encode(params: Params, cfg, frames: torch.Tensor) -> torch.Tensor:
     dtype = _dtype(cfg.dtype)
     x = layers.wdot(frames.to(dtype), params["audio_proj"])
     x = x + layers.sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(dtype)[None]
-    for i in range(cfg.encoder_layers):
-        p = transformer.layer_params(params["encoder"], i)
+    for p in transformer.layer_slices(params["encoder"], cfg.encoder_layers):
         x = x + _self_attn(p, cfg, layers.apply_norm(x, p["norm1"], cfg.norm), "full")
         x = x + layers.mlp_apply(p["mlp"], layers.apply_norm(x, p["norm2"], cfg.norm), "gelu")
     return layers.apply_norm(x, params["enc_final_norm"], cfg.norm)
@@ -120,32 +120,43 @@ def _memory_kv(p: Params, cfg, memory: torch.Tensor) -> Tuple[torch.Tensor, torc
     return km, vm
 
 
-def decode_train(params: Params, cfg, tokens: torch.Tensor,
-                 memory: torch.Tensor) -> torch.Tensor:
+def _decoder_layer(p: Params, x: torch.Tensor, memory: torch.Tensor, *, cfg) -> torch.Tensor:
+    B, S = x.shape[:2]
+    x = x + _self_attn(p, cfg, layers.apply_norm(x, p["norm1"], cfg.norm), "causal")
+    h = layers.apply_norm(x, p["norm_x"], cfg.norm)
+    q = layers.wdot(h, p["xattn"]["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    km, vm = _memory_kv(p, cfg, memory)
+    xa = attention.blocked_attend(q, km, vm, mask_kind="full")
+    x = x + layers.wdot(xa.reshape(B, S, -1), p["xattn"]["wo"])
+    return x + layers.mlp_apply(p["mlp"], layers.apply_norm(x, p["norm2"], cfg.norm), "gelu")
+
+
+def decode_train(params: Params, cfg, tokens: torch.Tensor, memory: torch.Tensor,
+                 block_q: Optional[int] = None, block_k: Optional[int] = None,
+                 remat: bool = False) -> torch.Tensor:
     """Teacher-forced decoder pass: tokens ``(B, S)``, memory ``(B, S_enc,
     d_model)`` -> logits ``(B, S, V)``.  Each layer: causal self-attention,
     cross-attention (``full``, S queries over S_enc keys), the GELU MLP,
-    each behind its layer norm; then the final norm and the tied head."""
+    each behind its layer norm; then the final norm and the tied head.
+    ``remat`` recomputes each layer in the backward (the reference's
+    ``jax.checkpoint``); ``block_q`` / ``block_k`` are accepted and ignored,
+    as in :func:`transformer.forward`."""
     dtype = _dtype(cfg.dtype)
-    B, S = tokens.shape
+    S = tokens.shape[1]
     x = params["embed"][tokens].to(dtype)
     x = x + layers.sinusoidal_positions(S, cfg.d_model, x.device).to(dtype)[None]
-    for i in range(cfg.num_layers):
-        p = transformer.layer_params(params["decoder"], i)
-        x = x + _self_attn(p, cfg, layers.apply_norm(x, p["norm1"], cfg.norm), "causal")
-        h = layers.apply_norm(x, p["norm_x"], cfg.norm)
-        q = layers.wdot(h, p["xattn"]["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
-        km, vm = _memory_kv(p, cfg, memory)
-        xa = attention.blocked_attend(q, km, vm, mask_kind="full")
-        x = x + layers.wdot(xa.reshape(B, S, -1), p["xattn"]["wo"])
-        x = x + layers.mlp_apply(p["mlp"], layers.apply_norm(x, p["norm2"], cfg.norm), "gelu")
+    body = functools.partial(_decoder_layer, cfg=cfg)
+    for p in transformer.layer_slices(params["decoder"], cfg.num_layers):
+        x = transformer.run_layer(body, remat, p, x, memory)
     x = layers.apply_norm(x, params["final_norm"], cfg.norm)
     return layers.matmul(x, params["embed"].T.to(dtype))
 
 
-def forward(params: Params, cfg, tokens: torch.Tensor, frames: torch.Tensor):
-    """The whole encoder-decoder pass -> ``(logits (B, S, V), aux 0.0)``."""
-    logits = decode_train(params, cfg, tokens, encode(params, cfg, frames))
+def forward(params: Params, cfg, tokens: torch.Tensor, frames: torch.Tensor, **kw):
+    """The whole encoder-decoder pass -> ``(logits (B, S, V), aux 0.0)``;
+    ``kw`` (``block_q``, ``block_k``, ``remat``) go to the decoder, as in
+    the reference (its encoder has no remat)."""
+    logits = decode_train(params, cfg, tokens, encode(params, cfg, frames), **kw)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 

@@ -1021,7 +1021,8 @@ class TestBstcCpuRouting:
         proof of the path)."""
         assert set(LAUNCHES) == {"paged_flash_decode_bf16", "paged_flash_decode_int8",
                                  "bgpp_paged_attend", "bstc_matmul", "bstc_decode",
-                                 "flash_attention", "bgpp_score", "brcr_gemm"}
+                                 "flash_attention", "flash_attention_bwd", "bgpp_score",
+                                 "brcr_gemm"}
         rng = np.random.default_rng(11)
         w = (rng.integers(-127, 128, (32, 64)) * (rng.random((32, 64)) < 0.1)).astype(np.int8)
         ops = prepare_bstc_matmul_operands(_t(w), _t(np.ones(32, np.float32)), tile_k=32)
@@ -1036,6 +1037,9 @@ class TestBstcCpuRouting:
         att = flash_attention(q, k, k, mask_kind="sliding", window=4)
         att2 = tattention.blocked_attend(q, k, k, mask_kind="chunked", window=4)
         assert att.shape == att2.shape == q.shape
+        qg = q.clone().requires_grad_()
+        flash_attention(qg, k, k, mask_kind="sliding", window=4).sum().backward()
+        assert qg.grad.shape == q.shape
         assert all(n == 0 for n in LAUNCHES.values()), dict(LAUNCHES)
 
 
