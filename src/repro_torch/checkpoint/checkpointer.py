@@ -7,10 +7,13 @@ their path joined with ``|``, written on a background thread under a
 past ``keep``.  So a checkpoint written by the reference restores here and
 the reverse (float32, int32 and int8 leaves).  A bfloat16 leaf is written
 as its ``uint16`` bits with ``bfloat16`` as its dtype in the manifest (no
-``ml_dtypes`` is needed to read or write it).  ``restore`` places each
-leaf on the template leaf's device in its dtype.  The reference's
-``shardings=`` (restore onto another mesh) belongs to sharding, ROADMAP
-item 7.
+``ml_dtypes`` is needed to read or write it).  ``save`` takes its host
+copies before it returns, so the in-place optimizer may go on at once.
+``restore`` departs from the reference: it writes the checkpoint into the
+template's leaves in place, one leaf read at a time, so a restore holds no
+second copy of the state (the reference returns new arrays).  The
+reference's ``shardings=`` (restore onto another mesh) belongs to sharding,
+ROADMAP item 7.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.utils.tree import tree_items, tree_map
+from repro_torch.utils.tree import tree_items
 
 Tree = Any
 
@@ -33,8 +36,12 @@ _BF16 = "bfloat16"
 
 
 def _host(leaf: torch.Tensor) -> np.ndarray:
-    """A leaf as a host numpy array (bf16 as its uint16 bits)."""
+    """A leaf as a host numpy array of its own (bf16 as its uint16 bits):
+    ``.cpu()`` of a CPU tensor is the tensor itself, which the optimizer
+    updates in place while the writer thread reads it, so it is cloned."""
     t = leaf.detach().cpu()
+    if leaf.device.type == "cpu":
+        t = t.clone()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
@@ -61,10 +68,12 @@ class Checkpointer:
     def save(self, step: int, state: Tree, metadata: Optional[Dict] = None):
         """Write ``state`` as step ``step``; the host copies happen on the
         caller's thread, the file writes on a background one (``wait``
-        joins it) unless ``async_save`` is off."""
+        joins it) unless ``async_save`` is off.  A save in flight is joined
+        before the copies are taken, so the host holds one copy at a time
+        (the reference copies first)."""
+        self.wait()
         flat, dtypes = _flatten(state)
         if self.async_save:
-            self.wait()
             self._thread = threading.Thread(
                 target=self._write, args=(step, flat, dtypes, metadata or {}), daemon=True)
             self._thread.start()
@@ -113,26 +122,25 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def restore(self, template: Tree, step: Optional[int] = None) -> Tuple[int, Tree]:
-        """``(step, state)``: the checkpoint of ``step`` (the latest when
-        None) in ``template``'s nesting, each leaf a tensor on the template
-        leaf's device in its dtype."""
+        """``(step, template)``: the checkpoint of ``step`` (the latest when
+        None) copied into ``template``'s leaves in place, each in the
+        template leaf's device and dtype.  Waits for a save in flight."""
+        self.wait()
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         path = os.path.join(self.directory, f"step_{step:08d}")
         with open(os.path.join(path, "manifest.json")) as f:
             leaves = json.load(f)["leaves"]
-        with np.load(os.path.join(path, "arrays.npz")) as z:
-            flat = {k: z[k] for k in z.files}
-        keys = iter([k for k, _ in tree_items(template)])
-
-        def fill(leaf):
-            key = next(keys)
-            arr = flat[key]
-            if leaves[key][1] == _BF16:
-                t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
-            else:
-                t = torch.from_numpy(np.array(arr))
-            return t.to(device=leaf.device, dtype=leaf.dtype)
-
-        return step, tree_map(fill, template)
+        with np.load(os.path.join(path, "arrays.npz")) as z, torch.no_grad():
+            for key, leaf in tree_items(template):
+                arr = z[key]
+                if tuple(arr.shape) != tuple(leaf.shape):
+                    raise ValueError(f"checkpoint leaf {key!r} has shape {arr.shape}, the "
+                                     f"template's {tuple(leaf.shape)}")
+                if leaves[key][1] == _BF16:
+                    t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+                else:
+                    t = torch.from_numpy(arr)
+                leaf.copy_(t)
+        return step, template

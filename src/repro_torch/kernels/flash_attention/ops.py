@@ -128,11 +128,9 @@ def flash_attention(
     window: int = 0,
     q_offset: int = 0,
     scale: Optional[float] = None,
-    return_lse: bool = False,
 ):
     """Masked GQA attention with an f32 online softmax -> ``(B, Sq, Hq, D)``
-    in ``q.dtype`` (with ``return_lse`` also each row's log-sum-exp ``(B,
-    Hq, Sq)`` f32, and no gradient).
+    in ``q.dtype``.
 
     Query row ``i`` sits at position ``i + q_offset``; key ``j`` at ``j``.
     ``mask_kind`` is causal, sliding (window ``window``), chunked (chunk
@@ -143,8 +141,6 @@ def flash_attention(
     row that sees no key is outside the gradient's contract."""
     _validate(q, k, v, mask_kind, q_offset)
     mask_kind, window, scale = _mask_args(q, mask_kind, window, scale)
-    if return_lse:
-        return _forward(q, k, v, mask_kind, window, q_offset, scale, want_lse=True)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, mask_kind, window, q_offset, scale)
     return _forward(q, k, v, mask_kind, window, q_offset, scale, want_lse=False)

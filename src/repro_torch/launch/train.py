@@ -141,6 +141,9 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                                  on_failure=on_failure)
         print(f"[train] done ({failures} failures survived); "
               f"median step {monitor.median * 1e3:.0f} ms")
+        if device.type == "cuda":
+            print(f"[train] peak device memory "
+                  f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
         ckpt.save(args.steps, holder["state"])
         ckpt.wait()
     finally:

@@ -95,8 +95,8 @@ def test_plain_backward_matches_autograd_and_jax_vjp(mask, heads, D):
 def test_lse_is_the_masked_logsumexp(mask):
     kind, w, off, Sq, Sk = mask
     q, k, _, _ = _inputs(3, Sq, Sk, 6, 2, 16)
-    out, lse = flash_attention(*(torch.from_numpy(a) for a in (q, k, k)), mask_kind=kind,
-                               window=w, q_offset=off, return_lse=True)
+    out, lse = flash_attention_ref(*(torch.from_numpy(a) for a in (q, k, k)), mask_kind=kind,
+                                   window=w, q_offset=off, return_lse=True)
     assert lse.shape == (2, 6, Sq) and lse.dtype == torch.float32
     m = np.asarray(jattention.make_mask(kind, Sq, Sk, w, off)) if kind != "prefix_causal" \
         else attention.prefix_causal_mask(Sq, Sk, w, off).numpy()
@@ -149,7 +149,7 @@ def test_window_zero_is_causal_in_the_backward():
 
 def test_bf16_gradients_come_back_in_bf16():
     q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16) for a in _inputs(4, 17, 17, 4, 1, 16))
-    out, lse = flash_attention(q, k, v, return_lse=True)
+    out, lse = flash_attention_ref(q, k, v, return_lse=True)
     grads = flash_attention_bwd(q, k, v, out, lse, do)
     assert [g.dtype for g in grads] == [torch.bfloat16] * 3
     assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
@@ -157,7 +157,7 @@ def test_bf16_gradients_come_back_in_bf16():
 
 def test_backward_refuses_mismatched_operands():
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(1, 8, 8, 4, 2, 16))
-    out, lse = flash_attention(q, k, v, return_lse=True)
+    out, lse = flash_attention_ref(q, k, v, return_lse=True)
     with pytest.raises(ValueError, match="lse"):
         flash_attention_bwd(q, k, v, out, lse[:, :, :4], do)
     with pytest.raises(ValueError, match="dout"):

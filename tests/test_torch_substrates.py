@@ -13,6 +13,7 @@ waits for it too (item 6c).
 import dataclasses
 import json
 import os
+import threading
 import time
 import zlib
 
@@ -58,6 +59,12 @@ def _init(arch, seed=0):
 
 def _clone(tree):
     return {k: _clone(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def _zeros(tree):
+    """A restore template of ``tree``'s nesting, shapes and dtypes, all zero."""
+    return {k: _zeros(v) if isinstance(v, dict) else torch.zeros_like(v)
+            for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -165,8 +172,9 @@ class TestCheckpointer:
         for s in (1, 2, 3):
             ckpt.save(s, state, metadata={"note": "t"})
         assert ckpt.all_steps() == [2, 3]
-        step, restored = ckpt.restore(state)
-        assert step == 3
+        template = _zeros(state)
+        step, restored = ckpt.restore(template)
+        assert step == 3 and restored is template
         assert torch.equal(restored["params"]["w"], state["params"]["w"])
         assert restored["opt"]["step"].dtype == torch.int32
         with open(tmp_path / "step_00000003" / "manifest.json") as f:
@@ -178,8 +186,46 @@ class TestCheckpointer:
         state = {"w": torch.ones(4, 4)}
         ckpt.save(10, state)
         ckpt.wait()
-        step, restored = ckpt.restore(state)
+        step, restored = ckpt.restore(_zeros(state))
         assert step == 10 and torch.equal(restored["w"], state["w"])
+
+    def test_async_save_holds_the_step_the_optimizer_then_updates_in_place(self, tmp_path,
+                                                                          monkeypatch):
+        """The writer thread writes the state as it was at ``save``, not as
+        the in-place update that follows leaves it; ``restore`` waits for it.
+        The writer is held back until the update is done, and then slowed,
+        so both orders are forced."""
+        updated = threading.Event()
+        savez = np.savez
+
+        def held_savez(*args, **kwargs):
+            assert updated.wait(timeout=60)
+            time.sleep(0.2)
+            savez(*args, **kwargs)
+
+        monkeypatch.setattr(np, "savez", held_savez)
+        cfg, params = _init("deepseek-7b", seed=4)
+        opt_cfg = AdamWConfig(peak_lr=1e-2, warmup_steps=1, state_dtype="int8")
+        step_fn = make_train_step(cfg, opt_cfg, SMOKE_KW)
+        ds = SyntheticLMDataset(cfg.vocab_size, 16, 2, seed=1)
+        state = {"params": params, "opt": adamw_init(params, opt_cfg)}
+        state, _ = step_fn(state, _to(ds.batch(0)))
+        saved = _clone(state)
+        ckpt = Checkpointer(str(tmp_path), async_save=True)
+        ckpt.save(1, state)
+        state, _ = step_fn(state, _to(ds.batch(1)))  # in place, while the writer runs
+        updated.set()
+        assert not torch.equal(state["params"]["embed"], saved["params"]["embed"])
+        step, restored = ckpt.restore(_zeros(state))
+        assert step == 1
+        for (key, a), (_, b) in zip(tree_items(restored), tree_items(saved)):
+            assert a.dtype == b.dtype and torch.equal(a, b), key
+
+    def test_restore_refuses_a_template_of_another_shape(self, tmp_path):
+        ckpt = Checkpointer(str(tmp_path), async_save=False)
+        ckpt.save(1, {"w": torch.ones(4, 4)})
+        with pytest.raises(ValueError, match="shape"):
+            ckpt.restore({"w": torch.zeros(4, 5)})
 
     def test_bf16_round_trip(self, tmp_path):
         ckpt = Checkpointer(str(tmp_path), async_save=False)
@@ -256,6 +302,28 @@ class TestFaultTolerance:
         hb.stop()
         assert Heartbeat.is_alive(str(tmp_path / "hb.json"), timeout_s=5.0)
         assert not Heartbeat.is_alive(str(tmp_path / "missing.json"), 1.0)
+
+    def test_beats_from_two_threads_never_race(self, tmp_path):
+        """The launcher's ``beat(step=...)`` and the heartbeat's own thread
+        write one temporary file; unlocked (as the reference's is), one
+        thread's ``os.replace`` finds it already moved: FileNotFoundError."""
+        hb = Heartbeat(str(tmp_path / "hb.json"))
+        errors = []
+
+        def hammer():
+            try:
+                for i in range(500):
+                    hb.beat(step=i)
+            except OSError as e:
+                errors.append(e)
+
+        threads = [threading.Thread(target=hammer) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert not errors, errors
+        assert Heartbeat.is_alive(str(tmp_path / "hb.json"), timeout_s=5.0)
 
     def test_straggler_monitor_flags(self):
         mon = StragglerMonitor(threshold=2.0, min_steps=4)
@@ -408,7 +476,7 @@ class TestResilientTraining:
         s2 = {"params": _clone(params), "opt": adamw_init(params, opt_cfg)}
         s2, _ = step_fn(s2, batches[0])
         ckpt.save(1, s2)
-        _, s2r = ckpt.restore(s2)
+        _, s2r = ckpt.restore(_zeros(s2))
         s2r, _ = step_fn(s2r, batches[1])
         for a, b in zip(tree_leaves(s_direct), tree_leaves(s2r)):
             assert torch.equal(a, b)
