@@ -190,7 +190,9 @@ Phases, each of which fails the run (nonzero exit) on any error:
    skipped, which must fail that bound); phi4-mini-3.8b at full width and
    depth, B 1, S 4096, remat, 4 f32-AdamW steps on one repeated batch
    (loss falling, K5 64 and K5b 32 launches a step and nothing else) and
-   2 with int8 moments, ms a step, tokens/s and peak memory printed; and
+   2 with int8 moments, ms a step, tokens/s and peak memory printed, and
+   one more f32 step traced (device busy share, kernels by group, the
+   device time inside the AdamW update and the cross entropy); and
    the train launcher at phi4-mini width cut to 2 layers, int8 moments,
    S 4096: 6 steps checkpointing at step 3, then a run resumed from that
    checkpoint whose losses must be within 1e-3 of the straight run's.
@@ -4183,7 +4185,7 @@ def flash_bwd_case(case, gen, device, flush):
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"flash_attention_bwd {label}: two launches differ")
     want = bwd_plain_blocked(q, k, v, out, lse, dout, kw)
-    errs = []
+    errs, share = [], 0.0
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         err = (g.float() - w.float()).abs()
         tol = bwd_tolerance(w, dt == "bf16")
@@ -4192,10 +4194,12 @@ def flash_bwd_case(case, gen, device, flush):
             raise AssertionError(f"flash_attention_bwd {label}: {name} disagrees at {at}: "
                                  f"{err[tuple(at)].item():.3e} > {tol[tuple(at)].item():.3e}")
         errs.append(err.max().item())
-    p = flash_kernel.bwd_plan(B, Sq, Sk, Hq, Hk, D)
+        share = max(share, (err / tol).max().item())
+    p = flash_kernel.bwd_plan(dtype, B, Sq, Sk, Hq, Hk, D)
     where = (f" {label} (tile {p.tile}, {p.grid_kv[0] * p.grid_kv[1]} + "
              f"{p.grid_q[0] * p.grid_q[1]} blocks, two launches bit-identical, lse err "
-             f"{lse_err:.2e}, dq/dk/dv err {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e})")
+             f"{lse_err:.2e}, dq/dk/dv err {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e}, worst "
+             f"err/tol {share:.3f})")
     if not timed:
         print(f"[kernel] flash_attention_bwd{where}")
         return None
@@ -4322,6 +4326,81 @@ def _opt_bytes(opt):
     return sum(t.numel() * t.element_size() for t in tree_leaves(opt))
 
 
+# device kernels of a train step by what they do: the first group whose
+# pattern a kernel's name holds
+TRAIN_GROUPS = (("K5b (flash_attention_bwd)", ("dkdv_", "dq_mma_kernel", "dq_kernel",
+                                               "delta_kernel")),
+                ("K5 (flash_attention)", ("flash_mma_kernel", "flash_kernel")),
+                ("GEMMs (cuBLAS)", ("gemm", "Gemm", "nvjet", "cutlass", "xmma")),
+                ("copies and fills", ("copy", "Copy", "Memcpy", "Memset", "fill", "Fill")),
+                ("reductions", ("reduce", "Reduce")),
+                ("elementwise", ("elementwise", "Elementwise")))
+
+
+def train_step_trace(step_fn, state, batch, what):
+    """One more steady train step under ``torch.profiler``, after the timed
+    ones: the device's busy share of the step's wall, the device time of
+    the top kernels, the kernels summed by :data:`TRAIN_GROUPS` (K5b, K5,
+    the GEMMs, copies, reductions, elementwise, the rest), and the device
+    time launched inside ``adamw_update`` and inside the forward's
+    ``cross_entropy`` (``record_function`` ranges on the calling thread;
+    the backward runs on autograd's thread, so the cross entropy's
+    backward counts in the groups only).  Returns the new state."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.training import train_step as ts
+
+    def ranged(name, fn):
+        def run(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return run
+
+    ranges = ("train::adamw_update", "train::cross_entropy")
+    saved = ts.adamw_update, ts.cross_entropy
+    ts.adamw_update = ranged(ranges[0], saved[0])
+    ts.cross_entropy = ranged(ranges[1], saved[1])
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = step_fn(state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ts.adamw_update, ts.cross_entropy = saved
+    events = prof.key_averages()
+    # a range also shows on the device's timeline under its own name: not a kernel
+    dev = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in ranges]
+    t = lambda e: e.self_device_time_total / 1e3
+    busy = sum(t(e) for e in dev)
+    if busy <= 0:  # the tracer now and then records no device event at all
+        print(f"[profile] train {what}: the trace recorded no device time")
+        return state
+    print(f"[profile] train {what}: one steady step, device busy {busy:.2f} ms of "
+          f"{wall_ms:.2f} ms wall ({100 * busy / wall_ms:.1f}%; the tracer's own host cost "
+          f"lengthens the wall)")
+    for e in sorted(dev, key=t, reverse=True)[:10]:
+        print(f"[profile]   {t(e):9.3f} ms {100 * t(e) / busy:5.1f}% {e.count:6d} calls  "
+              f"{e.key[:80]}")
+    groups = {name: [0.0, 0] for name, _ in TRAIN_GROUPS}
+    groups["other"] = [0.0, 0]
+    for e in dev:
+        name = next((n for n, pats in TRAIN_GROUPS if any(p in e.key for p in pats)), "other")
+        groups[name][0] += t(e)
+        groups[name][1] += e.count
+    for name, (ms, n) in groups.items():
+        print(f"[profile]   group {name}: {ms:.3f} ms ({100 * ms / busy:.1f}%), {n} kernels")
+    for name in ranges:  # the kernels launched inside the range, from its host side
+        ms = sum(e.device_time_total for e in events
+                 if e.key == name and e.device_type == DeviceType.CPU) / 1e3
+        print(f"[profile]   inside {name} (calling thread): {ms:.3f} ms "
+              f"({100 * ms / busy:.1f}%)")
+    return state
+
+
 def train_main_run(device, card):
     """phi4-mini-3.8b at full width and depth (32 layers, bf16, seeded
     weights) trains :data:`TRAIN_STEPS` f32-AdamW steps (peak_lr 3e-4 after
@@ -4330,8 +4409,9 @@ def train_main_run(device, card):
     fresh int8 moments.  Every step: loss and grad norm finite, K5
     launched 2L = 64 times (the forward and its recompute) and K5b L = 32,
     nothing else; the last f32 step's loss below the first's.  Prints ms a
-    step, tokens/s, the peak memory and the state's bytes.  Returns the
-    launch counts of every step summed."""
+    step, tokens/s, the peak memory and the state's bytes, and traces one
+    more f32 step (:func:`train_step_trace`).  Returns the launch counts of
+    every timed step summed."""
     import math
 
     import torch
@@ -4386,6 +4466,8 @@ def train_main_run(device, card):
         if fmt == "fp32" and not losses[-1] < losses[0]:
             raise AssertionError(f"train {cfg.name}: loss at step {steps - 1} {losses[-1]} is "
                                  f"not below step 0's {losses[0]} on the repeated batch")
+        if fmt == "fp32":
+            state = train_step_trace(step_fn, state, batch, f"{cfg.name} {fmt}")
         print(f"[train] {cfg.name} {fmt}: peak memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated "
               f"(B {TRAIN_B}, S {TRAIN_S}, remat)")

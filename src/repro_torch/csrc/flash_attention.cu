@@ -303,125 +303,6 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Args a) {
 // bf16 body (tensor cores)
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16-byte asynchronous copy; src_bytes 0 writes 16 zero bytes.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void st_shared16(uint32_t dst, const uint4& v) {
-  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(v.x), "r"(v.y),
-               "r"(v.z), "r"(v.w)
-               : "memory");
-}
-
-// Stage the 16-byte chunk of bf16 row `row` that starts at column c0 into
-// shared memory at dst: `valid` of its 8 columns lie inside the true D (the
-// rest are zero; valid <= 0: all zero, nothing read).  `wide` rows go by
-// cp.async (src-size zero-fills), others by element loads and one store.
-// Only NARROW instances carry the element path and partial chunks: a
-// launch whose rows are all 16-byte aligned and whose D is a multiple of
-// 8 (every chunk whole or wholly past D) runs an instance without them.
-// (Not NARROW: `row` already points at the chunk, c0 is unused.)
-template <bool NARROW>
-__device__ __forceinline__ void stage16(uint32_t dst, const __nv_bfloat16* row, int c0,
-                                        int valid, bool wide) {
-  if constexpr (!NARROW) {
-    cp_async16(dst, row, valid > 0 ? 16 : 0);
-    return;
-  }
-  if (wide) {
-    const int bytes = valid <= 0 ? 0 : valid >= 8 ? 16 : 2 * valid;
-    cp_async16(dst, bytes ? row + c0 : row, bytes);
-    return;
-  }
-  unsigned w[4] = {0u, 0u, 0u, 0u};
-  const unsigned short* p = reinterpret_cast<const unsigned short*>(row + c0);
-#pragma unroll
-  for (int e = 0; e < 8; ++e)
-    if (e < valid) w[e >> 1] |= (unsigned)__ldg(p + e) << (16 * (e & 1));
-  st_shared16(dst, make_uint4(w[0], w[1], w[2], w[3]));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's copy groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1,
-                                        uint32_t& r2, uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0, uint32_t& r1,
-                                              uint32_t& r2, uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (x, y) -> bf16x2 p_hi and the bf16x2 rest p_lo = bf16(p - p_hi); the
-// lower 16 bits hold x, the lower column of an mma A fragment.
-__device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 r = __floats2bfloat162_rn(x - hf.x, y - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&r);
-}
-
-// The chunk XOR of tile row r: rows are (rows, D) bf16, U = D / 8 chunks of
-// 16 bytes each, and chunk c of row r is stored at chunk c ^ swz_mask(r).
-// The 8 consecutive rows (from a multiple of 8) that one ldmatrix phase
-// reads at one chunk then land in 8 distinct 16-byte bank groups.  With
-// U < 8 a row spans U bank groups, so rows are swizzled in runs of 8 / U.
-// The mask depends on r & 7 alone.
-template <int D>
-__device__ __forceinline__ int swz_mask(int r) {
-  constexpr int U = D / 8;
-  if constexpr (U >= 8) {
-    return r & 7;
-  } else {
-    return (r / (8 / U)) & (U - 1);
-  }
-}
-
-// Byte offset of chunk c of row r in a swizzled tile.
-template <int D>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return 2 * (r * D + ((c ^ swz_mask<D>(r)) << 3));
-}
-
-// 2^x, a subnormal result flushed to 0 (a p below 2^-126 adds nothing at
-// f32 to a row sum that holds a p of 1)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // A bf16 block: kMmaBQ = 32 query rows of one (batch, query head), in
 // 2 row groups of 16 rows x 2 key halves of 32 (of every 64-key tile), one
 // warp each.  The two warps of a row group merge their softmax states

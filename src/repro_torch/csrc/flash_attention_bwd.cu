@@ -8,7 +8,8 @@
 // the gradient of the function the forward computes, for every mask kind
 // it takes (full, causal, sliding, chunked, prefix_causal), GQA of any
 // group, f32 and bf16 operands, every head width up to 256 (compiled widths
-// 16, 32, 64, 128 and 256, as the forward) and Sq != Sk.
+// 16, 32, 64, 128 and 256, as the forward; a narrower D runs at the next
+// one with the columns past it read as zero and not written) and Sq != Sk.
 //
 // Arithmetic.  With s = scale q.k and P = exp(s - lse) on the visible
 // pairs (0 elsewhere; lse the forward's row log-sum-exp), the gradient is
@@ -17,29 +18,67 @@
 //   dS_ij   = P_ij (dout_i . v_j - delta_i)
 //   dk_j   += scale sum_i dS_ij q_i
 //   dq_i    = scale sum_j dS_ij k_j
-// summed over the query heads of each kv head's group for dk and dv.  All
-// of it runs in f32 on the CUDA cores from operands read as f32 (bf16
-// values are exact in f32), so the kernel departs from the materialised
-// plain version (flash_attention_bwd_ref) by summation order alone, and
-// the results are rounded once to the operands' dtype.
+// summed over the query heads of each kv head's group for dk and dv, in
+// f32, and rounded once to the operands' dtype.
 //
-// Three launches on the stream, one C call:
-//   1. delta: a warp a query row.
-//   2. dk, dv: a block per (key tile of T keys, batch x kv head).  K and V
-//      stay in shared memory; the block walks the group's query heads and,
-//      for each, the query tiles the mask lets see its key tile (the exact
-//      tile test of flash_attention.cuh), staging Q, dout, lse and delta
-//      of each.  A thread owns R key rows: for S^T and dP^T it holds R x
-//      T/16 (key, query) entries, for dk and dv R x D/16 (key, column)
-//      accumulators in registers, over the whole walk.  The group's sum
-//      happens inside the block in a fixed order: no atomics, so two
-//      launches on the same inputs give identical bits.
-//   3. dq: a block per (query tile of T rows, batch x query head), heaviest
-//      first; Q, dout, lse and delta stay in shared memory while the block
-//      walks the live key tiles in order.
-// T is 64 up to D 128 and 32 at D 256 (shared memory: 165,888 B at D 128,
-// 140,288 B at D 256, tiles padded by one float a row against bank
-// conflicts), 256 threads a block.
+// Three launches on the stream, one C call: delta (a warp a query row),
+// then a dk / dv pass and a dq pass.  Each output element is written by
+// one block, and every sum runs in a fixed order: no atomics, so two
+// launches on the same inputs give identical bits.
+//
+// bf16 operands: a FlashAttention-2-style body on the tensor cores
+// (mma.sync m16n8k16, bf16 in, f32 accumulate), 128-thread blocks of four
+// warps.  A warp owns 16 rows (keys in the dk / dv pass, queries in the dq
+// pass); at the compiled width 256 two warps share each 16 rows, one half
+// of the output columns each, so a tile is T = 64 rows up to D 128 and 32
+// at D 256.
+//   * dk / dv pass, a block per (batch x kv head, key tile of T), issued
+//     key tile 0 first (under a causal mask it sees the most queries).  K
+//     and V stay in shared memory.  The block walks the group's query
+//     heads in order and, for each, the run of query tiles the mask lets
+//     see its keys (the exact tile test of flash_attention.cuh); Q, dout,
+//     lse and delta of each tile are copied with cp.async into two stages,
+//     the next tile in flight while this one computes.  For every 16-query
+//     chunk a warp forms S^T = K Q^T and dP^T = V dout^T (K and V as A
+//     fragments by ldmatrix, Q and dout as B fragments by ldmatrix), then
+//     P^T = 2^(s c2 - lse log2 e) and dS^T = P^T (dP^T - delta) in f32 in
+//     the accumulator fragments.  The m16n8 accumulators of two adjacent
+//     8-query n-tiles are, pair by pair, the m16n8k16 A fragment of the
+//     next product, so P and dS never leave registers: dv += P^T dout and
+//     dk += dS^T Q, dout and Q as B fragments by ldmatrix.trans.
+//   * dq pass, a block per (batch x query head, query tile of T), the last
+//     tile (the heaviest under a causal mask) first.  Q and dout stay in
+//     shared memory (up to D 128 their A fragments are held in registers),
+//     lse and delta in registers; the run of live key tiles streams
+//     through two cp.async stages.  S = Q K^T and dP = dout V^T as above,
+//     dS formed in the fragments, dq += dS K with K by ldmatrix.trans.
+//   * The split of P and dS.  A single bf16 rounding (2^-9 relative) of
+//     each would move a gradient element that sums many cancelling terms
+//     by ~1e-3 of its typical size, outside the 1e-5 * max|grad| the
+//     kernel is held to.  Each is split as the forward splits p: hi =
+//     bf16(x), lo = bf16(x - hi), |x - hi - lo| <= 2^-17 |x|, and both
+//     halves go through the product (two mma a k-step).
+//   * Tiles are bf16, rows of D, each row's 16-byte chunks XOR-swizzled by
+//     the row as the forward's (swz), so the 8 rows one ldmatrix phase
+//     reads hit 8 bank groups.  Shared memory a block: 12 T D bytes (dk / dv
+//     adds 16 T of lse and delta): 99,328 and 98,304 B at D 128, 98,816
+//     and 98,304 at D 256, so two blocks share an SM.  Rows that do not all
+//     start on a 16-byte boundary are staged by element loads, a chunk that
+//     straddles D copies only its bytes inside D.
+//   * The exponent: p = ex2(fma(s, scale log2 e, -lse log2 e)), one
+//     rounding of the argument as the plain version's s scale - lse, and
+//     ex2.approx's few ulp.
+//   * Work: per visible (query, key) pair 2 D operations for each of S and
+//     dP in both passes and 4 D for each of the split dv, dk and dq
+//     products, 20 D in all (28 D at D 256, where both warps of a row
+//     pair form S and dP), against the 10 D of the bound below.
+//
+// f32 operands: the CUDA-core body, as the tensor cores have no exact f32
+// product.  256-thread blocks over tiles of 64 rows (32 at D 256), f32
+// tiles in shared memory padded by one float a row; a thread owns R x T/16
+// (key, query) entries of S^T and dP^T and R x D/16 (key, column)
+// accumulators of dk and dv (dq: the same by query); P and dS go through
+// shared memory in f32.  S and dP are formed in both passes.
 //
 // What bounds it on the H100.  At phi4-mini's training shape (B 1, S 4096,
 // Hq 24, Hk 8, D 128, causal, bf16) it must read q, k, v, o and dout once
@@ -47,14 +86,20 @@
 // 24 + 24 heads read and 24 + 8 + 8 written, 134.2 MB, 0.040 ms at 3.35
 // TB/s (lse adds 0.4 MB); its operations are 10 D per visible (query,
 // key) pair (the five products QK^T, dout V^T, P^T dout, dS^T Q and dS K,
-// two operations a multiply-add): 10 * 128 * 201.4 M pairs = 257.8 GFLOP, 0.26 ms at the
-// bf16 tensor cores' 989 TFLOP/s.  So it is bound by operations.  This
-// design does them as f32 FMAs on the CUDA cores (67 TFLOP/s at most; a
-// shared-memory load for every two FMAs), and recomputes S in both the
-// dk/dv and the dq pass (seven products, not five): a simple kernel that
-// is right first.  The tensor-core route (mma.sync or wgmma with split
-// bf16 operands for P and dS, as the forward's bf16 body splits p) is
-// later work.
+// two operations a multiply-add): 10 * 128 * 201.4 M pairs = 257.8 GFLOP,
+// 0.26 ms at the bf16 tensor cores' 989 TFLOP/s.  So it is bound by
+// operations.  The bf16 body does twice those operations (the split, and S
+// and dP formed in both passes) with mma.sync, which reaches a part of the
+// tensor cores' rate, and reads every B operand (256 bytes a 16 x 8 x 16
+// product) and the dk / dv pass's A operands of S and dP from shared memory
+// by ldmatrix.  On an H100 SXM at 700 W the dk / dv and dq launches take
+// ~1.4 and ~1.2 ms at this shape, ~220 and ~180 TFLOP/s of issued
+// products; forming S and dP 32 rows a pass (twice the independent
+// accumulators, half the A-fragment loads of the dk / dv pass) did not
+// shorten either, so the rate of the products themselves bounds it.  Left
+// for later: dq folded into the dk / dv pass with an ordered reduction
+// over key tiles (S and dP formed once), then wgmma with a TMA producer
+// warp.
 //
 // A query row that sees no key is outside the contract, as in the forward.
 
@@ -65,6 +110,10 @@
 #include "flash_attention.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// delta and the f32 body (CUDA cores)
+// ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;  // 16 row groups x 16 column lanes
 constexpr int kLanes = 16;
@@ -81,7 +130,8 @@ struct BwdArgs {
   void* dk;          // (B, Sk, Hk, D) contiguous
   void* dv;          // (B, Sk, Hk, D) contiguous
   int B, Sq, Sk, Hq, Hk;
-  int D;  // the true head width (<= the compiled width DP)
+  int D;     // the true head width (<= the compiled width DP)
+  int wide;  // bf16: every q, k, v and dout row starts on a 16-byte boundary
   long long qs[3], ks[3], vs[3], os[3], ds[3];  // batch, sequence, head strides (elements)
   int mask, window, q_offset;
   float scale;
@@ -90,7 +140,6 @@ struct BwdArgs {
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // Tile rows a block: 64, or 32 at the compiled width 256.
 template <int D>
@@ -395,40 +444,546 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const BwdArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 body (tensor cores)
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaThreads = 128;  // four warps
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Warps that share a 16-row group, one slice of the output columns each:
+// 2 at the compiled width 256 (dk and dv of 16 rows x 256 columns would be
+// 256 f32 accumulators a thread), else 1.
+template <int D>
+__host__ __device__ constexpr int mma_slices() {
+  return D > 128 ? 2 : 1;
+}
+
+// Rows a tile, both passes: 16 a row group, 4 / slices row groups.
+template <int D>
+__host__ __device__ constexpr int mma_tile() {
+  return 16 * (4 / mma_slices<D>());
+}
+
+// dk / dv block: K and V, two stages of Q and dout (bf16, T x D each), two
+// stages of lse and delta (f32, T each).
+template <int D>
+constexpr int mma_kv_smem_bytes() {
+  return 12 * mma_tile<D>() * D + 16 * mma_tile<D>();
+}
+
+// dq block: Q and dout, two stages of K and V (bf16, T x D each).
+template <int D>
+constexpr int mma_q_smem_bytes() {
+  return 12 * mma_tile<D>() * D;
+}
+
+// 4-byte asynchronous copy (f32 lse and delta rows start anywhere);
+// src_bytes 0 writes zero.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// Columns col, col + 1 of a bf16 output row at the true width Dt: one
+// 4-byte store where Dt is even, else one by one; columns past Dt dropped.
+__device__ __forceinline__ void store_pair(__nv_bfloat16* row, int col, int Dt, float x,
+                                           float y) {
+  if (col + 1 < Dt && !(Dt & 1)) {
+    *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(x, y);
+  } else {
+    if (col < Dt) row[col] = __float2bfloat16(x);
+    if (col + 1 < Dt) row[col + 1] = __float2bfloat16(y);
+  }
+}
+
+// The m16n8k16 A fragment of x's 16 columns held as two m16n8 accumulator
+// n-tiles (x[0] columns 0-7, x[1] columns 8-15), split into bf16 hi and lo.
+__device__ __forceinline__ void split_a(const float (&x)[2][4], uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  split_bf16x2(x[0][0], x[0][1], hi[0], lo[0]);
+  split_bf16x2(x[0][2], x[0][3], hi[1], lo[1]);
+  split_bf16x2(x[1][0], x[1][1], hi[2], lo[2]);
+  split_bf16x2(x[1][2], x[1][3], hi[3], lo[3]);
+}
+
+// Stage `T` rows of a (.., seq, .., D) bf16 operand from sequence index
+// row0 into a swizzled tile at dst: rows at or past n read as zero.  Thread
+// tid moves chunk tid % U of rows tid / U, tid / U + ROWS, ...
+template <int D, int T>
+__device__ __forceinline__ void stage_rows(uint32_t dst, const __nv_bfloat16* base,
+                                           long long seq_stride, int row0, int n, int Dt,
+                                           bool wide) {
+  constexpr int U = D / 8, ROWS = kMmaThreads / U;
+  const int cc = threadIdx.x % U, rr = threadIdx.x / U, valid = Dt - cc * 8;
+#pragma unroll
+  for (int j = 0; j < (T + ROWS - 1) / ROWS; ++j) {
+    const int r = rr + j * ROWS, s = row0 + r;
+    if (r >= T) break;  // ROWS > T: D 16
+    const bool in = s < n;
+    stage16<true>(dst + swz<D>(r, cc), base + (long long)(in ? s : 0) * seq_stride, cc * 8,
+                  in ? valid : 0, wide);
+  }
+}
+
+// ldmatrix lane offsets into a swizzled (rows, D) tile: every row a lane
+// addresses is a multiple of 8 plus lane & 7, so its chunk XOR is the
+// lane's constant xr.
+struct Lanes {
+  uint32_t a_row, bn_row, bt_row;  // byte offsets of the lane's row
+  int a_x, bn_x, bt_x;             // chunk XORs
+};
+
+template <int D>
+__device__ __forceinline__ Lanes lanes(int lane) {
+  constexpr uint32_t ROW_B = 2 * D;
+  const int xr = swz_mask<D>(lane & 7);
+  Lanes l;
+  // A (16 rows x 16 columns): row lane % 16, chunk 2 kk + lane / 16
+  l.a_row = (lane & 15) * ROW_B;
+  l.a_x = (lane >> 4) ^ xr;
+  // B from rows that are its n index (two 8-row n-tiles x 16 columns):
+  // row lane % 8 + 8 (lane / 16), chunk 2 kk + (lane / 8) % 2
+  l.bn_row = ((lane & 7) + ((lane >> 4) << 3)) * ROW_B;
+  l.bn_x = ((lane >> 3) & 1) ^ xr;
+  // B from rows that are its k index (16 rows x two 8-column n-tiles), by
+  // ldmatrix.trans: row lane % 8 + 8 ((lane / 8) % 2), chunk 2 np + lane / 16
+  l.bt_row = ((lane & 7) + (((lane >> 3) & 1) << 3)) * ROW_B;
+  l.bt_x = (lane >> 4) ^ xr;
+  return l;
+}
+
+// dk and dv of one key tile of one (batch, kv head).
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 2) dkdv_mma_kernel(const BwdArgs a) {
+  constexpr int CS = mma_slices<D>(), T = mma_tile<D>();
+  constexpr int KS = D / 16;       // k-steps of S^T and dP^T
+  constexpr int NO = D / CS / 8;   // output n-tiles a warp, of dk and of dv
+  constexpr uint32_t ROW_B = 2 * D, TILE_B = T * ROW_B;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t k_s = smem_addr(smem_raw);  // (T, D)
+  const uint32_t v_s = k_s + TILE_B;         // (T, D)
+  const uint32_t q_s = v_s + TILE_B;         // 2 stages of (T, D)
+  const uint32_t o_s = q_s + 2 * TILE_B;     // dout, 2 stages of (T, D)
+  const uint32_t l_s = o_s + 2 * TILE_B;     // lse, 2 stages of T f32
+  const uint32_t e_s = l_s + 8 * T;          // delta, 2 stages of T f32
+  const float* ls = reinterpret_cast<const float*>(smem_raw + 6 * TILE_B);
+  const float* es = ls + 2 * T;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = warp / CS, cs = warp % CS;  // row group, column slice
+  const int b = blockIdx.x / a.Hk, hk = blockIdx.x % a.Hk;
+  const int g = a.Hq / a.Hk;
+  const int k0 = blockIdx.y * T;
+  const int Dt = a.D;
+  const bool wide = a.wide != 0;
+
+  // The query tiles that see a key of this tile form one run [qt_first,
+  // qt_last]: the union of the keys' visible queries is one interval.
+  const int k_hi = min(k0 + T, a.Sk) - 1;
+  const int n_qt = (a.Sq + T - 1) / T;
+  int qt_first = n_qt, qt_last = -1;
+  for (int qt = 0; qt < n_qt; ++qt) {
+    const int q_lo = a.q_offset + qt * T, q_hi = a.q_offset + min(qt * T + T, a.Sq) - 1;
+    if (tile_live(a.mask, a.window, q_lo, q_hi, k0, k_hi)) {
+      qt_first = min(qt_first, qt);
+      qt_last = qt;
+    }
+  }
+  const int n_live = qt_last - qt_first + 1;
+  const int n_it = n_live > 0 ? g * n_live : 0;  // (query head of the group, live tile)
+
+  // Q, dout, lse and delta of iteration it into stage st
+  auto load_q = [&](int it, int st) {
+    const int h = hk * g + it / n_live, q0 = (qt_first + it % n_live) * T;
+    stage_rows<D, T>(q_s + st * TILE_B, (const __nv_bfloat16*)a.q + b * a.qs[0] + h * a.qs[2],
+                     a.qs[1], q0, a.Sq, Dt, wide);
+    stage_rows<D, T>(o_s + st * TILE_B,
+                     (const __nv_bfloat16*)a.dout + b * a.ds[0] + h * a.ds[2], a.ds[1], q0,
+                     a.Sq, Dt, wide);
+    if (tid < 2 * T) {  // one f32 a thread: lse rows, then delta rows
+      const int r = tid % T, s = q0 + r;
+      const long long at = ((long long)b * a.Hq + h) * a.Sq + (s < a.Sq ? s : 0);
+      cp_async4((tid < T ? l_s : e_s) + 4 * (st * T + r), (tid < T ? a.lse : a.delta) + at,
+                s < a.Sq ? 4 : 0);
+    }
+  };
+
+  if (n_it > 0) {
+    stage_rows<D, T>(k_s, (const __nv_bfloat16*)a.k + b * a.ks[0] + hk * a.ks[2], a.ks[1], k0,
+                     a.Sk, Dt, wide);
+    stage_rows<D, T>(v_s, (const __nv_bfloat16*)a.v + b * a.vs[0] + hk * a.vs[2], a.vs[1], k0,
+                     a.Sk, Dt, wide);
+    load_q(0, 0);
+    cp_commit();
+  }
+
+  float dk[NO][4], dv[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  const Lanes ln = lanes<D>(lane);
+  const uint32_t k_a = k_s + 16 * rg * ROW_B + ln.a_row, v_a = v_s + 16 * rg * ROW_B + ln.a_row;
+  const float c2 = a.scale * kLog2e;  // exp(s scale) = 2^(s c2)
+  const int kw = k0 + 16 * rg;        // the warp's first key
+  const int kw_hi = min(kw + 16, a.Sk) - 1;
+  const int kj[2] = {kw + (lane >> 2), kw + (lane >> 2) + 8};  // the lane's keys (rows g, g + 8)
+
+  for (int it = 0, st = 0; it < n_it; ++it, st ^= 1) {
+    cp_wait<0>();     // this tile (and K, V) has landed for this thread ...
+    __syncthreads();  // ... and for every thread; and every warp is done with tile it - 1
+    if (it + 1 < n_it) {  // so its stage takes tile it + 1, in flight while it computes
+      load_q(it + 1, st ^ 1);
+      cp_commit();
+    }
+    if (kw >= a.Sk) continue;  // the warp's rows are all past Sk
+    const int q0 = (qt_first + it % n_live) * T;
+    const uint32_t q_st = q_s + st * TILE_B, o_st = o_s + st * TILE_B;
+    const float* l_st = ls + st * T;
+    const float* e_st = es + st * T;
+#pragma unroll 1
+    for (int c = 0; c < T / 16; ++c) {  // 16-query chunks
+      const int qc = q0 + 16 * c;
+      if (qc >= a.Sq) break;
+      const int q_lo = a.q_offset + qc, q_hi = a.q_offset + min(qc + 16, a.Sq) - 1;
+      if (!tile_live(a.mask, a.window, q_lo, q_hi, kw, kw_hi)) continue;
+
+      // ---- S^T = K Q^T, dP^T = V dout^T: 16 keys x 2 n-tiles of 8 queries ----
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      const uint32_t q_b = q_st + 16 * c * ROW_B + ln.bn_row;
+      const uint32_t o_b = o_st + 16 * c * ROW_B + ln.bn_row;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ka[4], va[4], b0, b1, b2, b3;
+        ldsm_x4(k_a + (((2 * kk) ^ ln.a_x) << 4), ka[0], ka[1], ka[2], ka[3]);
+        ldsm_x4(q_b + (((2 * kk) ^ ln.bn_x) << 4), b0, b1, b2, b3);
+        mma_bf16(s[0], ka, b0, b1);
+        mma_bf16(s[1], ka, b2, b3);
+        ldsm_x4(v_a + (((2 * kk) ^ ln.a_x) << 4), va[0], va[1], va[2], va[3]);
+        ldsm_x4(o_b + (((2 * kk) ^ ln.bn_x) << 4), b0, b1, b2, b3);
+        mma_bf16(dp[0], va, b0, b1);
+        mma_bf16(dp[1], va, b2, b3);
+      }
+
+      // ---- P^T and dS^T in the fragments: lane holds keys kj[e / 2] and
+      // queries qc + 8 j + 2 (lane % 4) + e % 2 ----
+      const bool whole = qc + 16 <= a.Sq && kw + 16 <= a.Sk &&
+                         tile_whole(a.mask, a.window, q_lo, q_hi, kw, kw_hi);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int r = 16 * c + 8 * j + 2 * (lane & 3);  // the tile row of e % 2 = 0
+        const float2 l2 = *reinterpret_cast<const float2*>(l_st + r);
+        const float2 d2 = *reinterpret_cast<const float2*>(e_st + r);
+        const float lq[2] = {l2.x * kLog2e, l2.y * kLog2e}, dl[2] = {d2.x, d2.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = e & 1;
+          float p = ex2(fmaf(s[j][e], c2, -lq[x]));
+          if (!whole) {
+            const int qr = qc + 8 * j + 2 * (lane & 3) + x, key = kj[e >> 1];
+            p = key < a.Sk && qr < a.Sq && visible(a.mask, a.window, a.q_offset + qr, key)
+                    ? p
+                    : 0.f;
+          }
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - dl[x]);
+        }
+      }
+
+      // ---- dv += P^T dout, dk += dS^T Q: the split fragments are the A
+      // operand of one 16-query k-step; dout and Q by ldmatrix.trans ----
+      uint32_t hi[4], lo[4];
+      split_a(s, hi, lo);
+      const uint32_t o_t = o_st + 16 * c * ROW_B + ln.bt_row;
+#pragma unroll
+      for (int np = 0; np < NO / 2; ++np) {  // two output n-tiles a ldmatrix.x4.trans
+        const int ch = 2 * (cs * (NO / 2) + np);
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_trans(o_t + ((ch ^ ln.bt_x) << 4), b0, b1, b2, b3);
+        mma_bf16(dv[2 * np], hi, b0, b1);
+        mma_bf16(dv[2 * np + 1], hi, b2, b3);
+        mma_bf16(dv[2 * np], lo, b0, b1);
+        mma_bf16(dv[2 * np + 1], lo, b2, b3);
+      }
+      split_a(dp, hi, lo);
+      const uint32_t q_t = q_st + 16 * c * ROW_B + ln.bt_row;
+#pragma unroll
+      for (int np = 0; np < NO / 2; ++np) {
+        const int ch = 2 * (cs * (NO / 2) + np);
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_trans(q_t + ((ch ^ ln.bt_x) << 4), b0, b1, b2, b3);
+        mma_bf16(dk[2 * np], hi, b0, b1);
+        mma_bf16(dk[2 * np + 1], hi, b2, b3);
+        mma_bf16(dk[2 * np], lo, b0, b1);
+        mma_bf16(dk[2 * np + 1], lo, b2, b3);
+      }
+    }
+  }
+
+  // dk and dv are (B, Sk, Hk, D) at the true D; a block with no live query
+  // tile writes zeros
+  __nv_bfloat16* dkp = (__nv_bfloat16*)a.dk;
+  __nv_bfloat16* dvp = (__nv_bfloat16*)a.dv;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (kj[i] >= a.Sk) continue;
+    const long long row = (((long long)b * a.Sk + kj[i]) * a.Hk + hk) * Dt;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int col = 8 * (cs * NO + n) + 2 * (lane & 3);
+      store_pair(dkp + row, col, Dt, dk[n][2 * i] * a.scale, dk[n][2 * i + 1] * a.scale);
+      store_pair(dvp + row, col, Dt, dv[n][2 * i], dv[n][2 * i + 1]);
+    }
+  }
+}
+
+// dq of one query tile of one (batch, query head).
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 2) dq_mma_kernel(const BwdArgs a) {
+  constexpr int CS = mma_slices<D>(), T = mma_tile<D>();
+  constexpr bool QREG = CS == 1;   // Q's and dout's A fragments held in registers
+  constexpr int KS = D / 16;
+  constexpr int NO = D / CS / 8;   // dq n-tiles a warp
+  constexpr uint32_t ROW_B = 2 * D, TILE_B = T * ROW_B;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t q_s = smem_addr(smem_raw);  // (T, D)
+  const uint32_t o_s = q_s + TILE_B;         // dout (T, D)
+  const uint32_t k_s = o_s + TILE_B;         // 2 stages of (T, D)
+  const uint32_t v_s = k_s + 2 * TILE_B;     // 2 stages of (T, D)
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = warp / CS, cs = warp % CS;
+  // x walks (batch, query head) fastest and y the query tiles, heaviest
+  // first, so every head's heaviest tile is issued before any lighter one
+  const int b = blockIdx.x / a.Hq, h = blockIdx.x % a.Hq;
+  const int hk = h / (a.Hq / a.Hk);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * T;
+  const int Dt = a.D;
+  const bool wide = a.wide != 0;
+  const __nv_bfloat16* kb = (const __nv_bfloat16*)a.k + b * a.ks[0] + hk * a.ks[2];
+  const __nv_bfloat16* vb = (const __nv_bfloat16*)a.v + b * a.vs[0] + hk * a.vs[2];
+
+  // the block's live key tiles: one run [kt_first, kt_last]
+  const int q_lo = a.q_offset + q0, q_hi = a.q_offset + min(q0 + T, a.Sq) - 1;
+  const int n_kt = (a.Sk + T - 1) / T;
+  int kt_first = n_kt, kt_last = -1;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if (tile_live(a.mask, a.window, q_lo, q_hi, kt * T, min(kt * T + T, a.Sk) - 1)) {
+      kt_first = min(kt_first, kt);
+      kt_last = kt;
+    }
+  }
+
+  auto load_kv = [&](int kt, int st) {
+    stage_rows<D, T>(k_s + st * TILE_B, kb, a.ks[1], kt * T, a.Sk, Dt, wide);
+    stage_rows<D, T>(v_s + st * TILE_B, vb, a.vs[1], kt * T, a.Sk, Dt, wide);
+  };
+  if (kt_first <= kt_last) {
+    stage_rows<D, T>(q_s, (const __nv_bfloat16*)a.q + b * a.qs[0] + h * a.qs[2], a.qs[1], q0,
+                     a.Sq, Dt, wide);
+    stage_rows<D, T>(o_s, (const __nv_bfloat16*)a.dout + b * a.ds[0] + h * a.ds[2], a.ds[1],
+                     q0, a.Sq, Dt, wide);
+    load_kv(kt_first, 0);
+    cp_commit();
+  }
+
+  // the warp's query rows; the lane's two, qr[0] and qr[1], with their lse
+  // (times log2 e) and delta
+  const int qw = q0 + 16 * rg;
+  const int qw_lo = a.q_offset + qw, qw_hi = a.q_offset + min(qw + 16, a.Sq) - 1;
+  const int qr[2] = {qw + (lane >> 2), qw + (lane >> 2) + 8};
+  float lq[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const long long at = ((long long)b * a.Hq + h) * a.Sq + (qr[i] < a.Sq ? qr[i] : 0);
+    lq[i] = a.lse[at] * kLog2e;
+    dl[i] = a.delta[at];
+  }
+
+  float dq[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  uint32_t qf[QREG ? KS : 1][4], of[QREG ? KS : 1][4];
+
+  const Lanes ln = lanes<D>(lane);
+  const uint32_t q_a = q_s + 16 * rg * ROW_B + ln.a_row, o_a = o_s + 16 * rg * ROW_B + ln.a_row;
+  const float c2 = a.scale * kLog2e;
+
+  for (int kt = kt_first, st = 0; kt <= kt_last; ++kt, st ^= 1) {
+    cp_wait<0>();
+    __syncthreads();
+    if (kt < kt_last) {
+      load_kv(kt + 1, st ^ 1);
+      cp_commit();
+    }
+    if constexpr (QREG) {
+      if (kt == kt_first) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          ldsm_x4(q_a + (((2 * kk) ^ ln.a_x) << 4), qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3]);
+          ldsm_x4(o_a + (((2 * kk) ^ ln.a_x) << 4), of[kk][0], of[kk][1], of[kk][2], of[kk][3]);
+        }
+      }
+    }
+    if (qw >= a.Sq) continue;  // the warp's rows are all past Sq
+    const uint32_t k_st = k_s + st * TILE_B, v_st = v_s + st * TILE_B;
+#pragma unroll 1
+    for (int c = 0; c < T / 16; ++c) {  // 16-key chunks
+      const int kc = kt * T + 16 * c;
+      if (kc >= a.Sk) break;
+      const int kc_hi = min(kc + 16, a.Sk) - 1;
+      if (!tile_live(a.mask, a.window, qw_lo, qw_hi, kc, kc_hi)) continue;
+
+      // ---- S = Q K^T, dP = dout V^T: 16 queries x 2 n-tiles of 8 keys ----
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      const uint32_t k_b = k_st + 16 * c * ROW_B + ln.bn_row;
+      const uint32_t v_b = v_st + 16 * c * ROW_B + ln.bn_row;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t qa[4], oa[4], b0, b1, b2, b3;
+        if constexpr (QREG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            qa[e] = qf[kk][e];
+            oa[e] = of[kk][e];
+          }
+        } else {
+          ldsm_x4(q_a + (((2 * kk) ^ ln.a_x) << 4), qa[0], qa[1], qa[2], qa[3]);
+          ldsm_x4(o_a + (((2 * kk) ^ ln.a_x) << 4), oa[0], oa[1], oa[2], oa[3]);
+        }
+        ldsm_x4(k_b + (((2 * kk) ^ ln.bn_x) << 4), b0, b1, b2, b3);
+        mma_bf16(s[0], qa, b0, b1);
+        mma_bf16(s[1], qa, b2, b3);
+        ldsm_x4(v_b + (((2 * kk) ^ ln.bn_x) << 4), b0, b1, b2, b3);
+        mma_bf16(dp[0], oa, b0, b1);
+        mma_bf16(dp[1], oa, b2, b3);
+      }
+
+      // ---- dS in the fragments: lane holds rows qr[e / 2] and keys
+      // kc + 8 j + 2 (lane % 4) + e % 2 ----
+      const bool whole = qw + 16 <= a.Sq && kc + 16 <= a.Sk &&
+                         tile_whole(a.mask, a.window, qw_lo, qw_hi, kc, kc_hi);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          float p = ex2(fmaf(s[j][e], c2, -lq[i]));
+          if (!whole) {
+            const int key = kc + 8 * j + 2 * (lane & 3) + (e & 1);
+            p = key < a.Sk && qr[i] < a.Sq &&
+                        visible(a.mask, a.window, a.q_offset + qr[i], key)
+                    ? p
+                    : 0.f;
+          }
+          dp[j][e] = p * (dp[j][e] - dl[i]);
+        }
+      }
+
+      // ---- dq += dS K: the split dS is the A operand of one 16-key
+      // k-step; K by ldmatrix.trans ----
+      uint32_t hi[4], lo[4];
+      split_a(dp, hi, lo);
+      const uint32_t k_t = k_st + 16 * c * ROW_B + ln.bt_row;
+#pragma unroll
+      for (int np = 0; np < NO / 2; ++np) {
+        const int ch = 2 * (cs * (NO / 2) + np);
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_trans(k_t + ((ch ^ ln.bt_x) << 4), b0, b1, b2, b3);
+        mma_bf16(dq[2 * np], hi, b0, b1);
+        mma_bf16(dq[2 * np + 1], hi, b2, b3);
+        mma_bf16(dq[2 * np], lo, b0, b1);
+        mma_bf16(dq[2 * np + 1], lo, b2, b3);
+      }
+    }
+  }
+
+  __nv_bfloat16* dqp = (__nv_bfloat16*)a.dq;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (qr[i] >= a.Sq) continue;
+    const long long row = (((long long)b * a.Sq + qr[i]) * a.Hq + h) * Dt;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int col = 8 * (cs * NO + n) + 2 * (lane & 3);
+      store_pair(dqp + row, col, Dt, dq[n][2 * i] * a.scale, dq[n][2 * i + 1] * a.scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
 template <typename K>
-int launch_kernel(K kern, dim3 grid, int smem, const BwdArgs& a, cudaStream_t st) {
+int launch_kernel(K kern, dim3 grid, int threads, int smem, const BwdArgs& a, cudaStream_t st) {
   // dynamic shared memory above 48 KB must be opted into per kernel
   int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err) return err;
-  kern<<<grid, kThreads, smem, st>>>(a);
+  kern<<<grid, threads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch_bwd(const BwdArgs& a, int tile, int smem_kv, int smem_q, cudaStream_t st) {
+template <typename T>
+int launch_delta(const BwdArgs& a, cudaStream_t st) {
+  const long long rows = (long long)a.B * a.Hq * a.Sq;
+  delta_kernel<T><<<(unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32)), kThreads, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// f32 operands: the CUDA-core body
+template <int D>
+int launch_f32(const BwdArgs& a, int tile, int smem_kv, int smem_q, cudaStream_t st) {
   // the plan must be this file's geometry
   if (tile != tile_rows<D>() || smem_kv != kv_smem_bytes<D>() || smem_q != q_smem_bytes<D>())
     return (int)cudaErrorInvalidValue;
-  const long long rows = (long long)a.B * a.Hq * a.Sq;
-  delta_kernel<T><<<(unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32)), kThreads, 0, st>>>(a);
-  int err = (int)cudaGetLastError();
+  int err = launch_delta<float>(a, st);
   if (err) return err;
   const int TR = tile_rows<D>();
-  err = launch_kernel(dkdv_kernel<T, D>, dim3((a.Sk + TR - 1) / TR, a.B * a.Hk), smem_kv, a, st);
+  err = launch_kernel(dkdv_kernel<float, D>, dim3((a.Sk + TR - 1) / TR, a.B * a.Hk), kThreads,
+                      smem_kv, a, st);
   if (err) return err;
-  return launch_kernel(dq_kernel<T, D>, dim3((a.Sq + TR - 1) / TR, a.B * a.Hq), smem_q, a, st);
+  return launch_kernel(dq_kernel<float, D>, dim3((a.Sq + TR - 1) / TR, a.B * a.Hq), kThreads,
+                       smem_q, a, st);
 }
 
-template <typename T>
-int launch_dtype(const BwdArgs& a, int DP, int tile, int smem_kv, int smem_q, cudaStream_t st) {
-  switch (DP) {
-    case 16: return launch_bwd<T, 16>(a, tile, smem_kv, smem_q, st);
-    case 32: return launch_bwd<T, 32>(a, tile, smem_kv, smem_q, st);
-    case 64: return launch_bwd<T, 64>(a, tile, smem_kv, smem_q, st);
-    case 128: return launch_bwd<T, 128>(a, tile, smem_kv, smem_q, st);
-    case 256: return launch_bwd<T, 256>(a, tile, smem_kv, smem_q, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// bf16 operands: the tensor-core body
+template <int D>
+int launch_mma(const BwdArgs& a, int tile, int smem_kv, int smem_q, cudaStream_t st) {
+  if (tile != mma_tile<D>() || smem_kv != mma_kv_smem_bytes<D>() ||
+      smem_q != mma_q_smem_bytes<D>())
+    return (int)cudaErrorInvalidValue;
+  int err = launch_delta<__nv_bfloat16>(a, st);
+  if (err) return err;
+  const int T = mma_tile<D>();
+  err = launch_kernel(dkdv_mma_kernel<D>, dim3(a.B * a.Hk, (a.Sk + T - 1) / T), kMmaThreads,
+                      smem_kv, a, st);
+  if (err) return err;
+  return launch_kernel(dq_mma_kernel<D>, dim3(a.B * a.Hq, (a.Sq + T - 1) / T), kMmaThreads,
+                       smem_q, a, st);
+}
+
+template <int D>
+int launch_bwd(const BwdArgs& a, int dtype, int tile, int smem_kv, int smem_q, cudaStream_t st) {
+  if (dtype == 0) return launch_f32<D>(a, tile, smem_kv, smem_q, st);
+  if (dtype == 1) return launch_mma<D>(a, tile, smem_kv, smem_q, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Does every row of a bf16 operand start on a 16-byte boundary?
+bool wide_rows(const void* p, long long sb, long long ss, long long sh) {
+  return (uintptr_t)p % 16 == 0 && sb % 8 == 0 && ss % 8 == 0 && sh % 8 == 0;
 }
 
 }  // namespace
@@ -440,9 +995,11 @@ extern "C" {
 // true head width, DP the compiled width it runs at.  Strides are in
 // elements (unit stride along D); lse is (B, Hq, Sq) f32 from the forward,
 // delta a (B, Hq, Sq) f32 workspace; dq (B, Sq, Hq, D), dk and dv (B, Sk,
-// Hk, D) are written whole and contiguous.  tile / smem_kv / smem_q: the
-// plan (tile rows, the two blocks' dynamic shared memory), checked against
-// this file's geometry.  Returns cudaGetLastError() after the launches.
+// Hk, D) are written whole and contiguous; bf16 rows may start anywhere
+// (rows not all on 16-byte boundaries are staged element by element).
+// tile / smem_kv / smem_q: the plan (tile rows, the two blocks' dynamic
+// shared memory), checked against this file's geometry for the dtype.
+// Returns cudaGetLastError() after the launches.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
                                const void* dout, const void* lse, void* delta, void* dq,
                                void* dk, void* dv, int B, int Sq, int Sk, int Hq, int Hk, int D,
@@ -481,10 +1038,17 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v, cons
   a.window = window;
   a.q_offset = q_offset;
   a.scale = scale;
+  a.wide = wide_rows(q, qsb, qss, qsh) && wide_rows(k, ksb, kss, ksh) &&
+           wide_rows(v, vsb, vss, vsh) && wide_rows(dout, dsb, dss, dsh);
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_dtype<float>(a, DP, tile, smem_kv, smem_q, st);
-  if (dtype == 1) return launch_dtype<__nv_bfloat16>(a, DP, tile, smem_kv, smem_q, st);
-  return (int)cudaErrorInvalidValue;
+  switch (DP) {
+    case 16: return launch_bwd<16>(a, dtype, tile, smem_kv, smem_q, st);
+    case 32: return launch_bwd<32>(a, dtype, tile, smem_kv, smem_q, st);
+    case 64: return launch_bwd<64>(a, dtype, tile, smem_kv, smem_q, st);
+    case 128: return launch_bwd<128>(a, dtype, tile, smem_kv, smem_q, st);
+    case 256: return launch_bwd<256>(a, dtype, tile, smem_kv, smem_q, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -12,11 +12,14 @@ contiguous ``(B, Sq, Hq, D)`` out, and, when asked, each row's log-sum-exp
 ``(B, Hq, Sq)`` f32.
 
 The backward (``src/repro_torch/csrc/flash_attention_bwd.cu``) has the
-geometry :func:`bwd_plan` gives: 256-thread blocks over tiles of
-:func:`bwd_tile` rows, one grid over (key tiles, batch x kv head) for dk
-and dv and one over (query tiles, batch x query head) for dq, after a
-delta pass.  Callers pass validated CUDA tensors; :mod:`.ops` is the
-public wrapper.
+geometry :func:`bwd_plan` gives, after a delta pass: a dk / dv grid over
+key tiles of each (batch, kv head) and a dq grid over query tiles of each
+(batch, query head), tiles of :func:`bwd_tile` rows.  bf16 operands run
+on the tensor cores in 128-thread blocks, grids ``(B * Hk, key tiles)``
+and ``(B * Hq, query tiles)``; f32 operands on the CUDA cores in
+256-thread blocks, grids ``(key tiles, B * Hk)`` and ``(query tiles, B *
+Hq)``.  Callers pass validated CUDA tensors; :mod:`.ops` is the public
+wrapper.
 """
 
 from __future__ import annotations
@@ -112,13 +115,14 @@ def launch(q, k, v, out, geometry: Plan, mask_kind: str, window: int, q_offset: 
     build.check(err, "flash_attention")
 
 
-BWD_THREADS = 256  # the backward's blocks: 16 row groups x 16 column lanes
+BWD_THREADS = {torch.float32: 256,  # 16 row groups x 16 column lanes
+               torch.bfloat16: 128}  # four warps of 16 rows (two a row group at D 256)
 
 
 class BwdPlan(NamedTuple):
     """The backward's geometry: ``tile`` rows a tile (keys of a dk/dv
-    block, queries of a dq block), ``threads`` a block, the two blocks'
-    dynamic shared memory, and the two grids."""
+    block, queries of a dq block, and the tiles each walks), ``threads`` a
+    block, the two blocks' dynamic shared memory, and the two grids."""
 
     tile: int
     threads: int
@@ -129,28 +133,41 @@ class BwdPlan(NamedTuple):
 
 
 def bwd_tile(D: int) -> int:
-    """Rows a backward tile: 64, or 32 at the compiled width 256."""
+    """Rows a backward tile, both dtypes: 64, or 32 at the compiled width
+    256 (bf16: there the two warps of each 16-row group split the output
+    columns)."""
     return 32 if padded_dim(D) > 128 else 64
 
 
-def bwd_smem_bytes(D: int) -> Tuple[int, int]:
+def bwd_smem_bytes(dtype: torch.dtype, D: int) -> Tuple[int, int]:
     """Dynamic shared memory of the dk/dv block and of the dq block (the
-    source's carve-up, f32 whatever the operands' dtype): four ``(T, DP +
-    1)`` row tiles each, the P and dS tiles ``(T, T + 1)`` (dq: dS only)
-    and lse and delta (T each).  165,888 and 149,248 B at D 128; 140,288
-    and 136,064 B at D 256."""
+    source's carve-up).  bf16: six ``(T, DP)`` bf16 tiles each (K and V,
+    two stages of Q and dout; Q and dout, two stages of K and V), and the
+    dk/dv block two stages of lse and delta (f32, T each): 99,328 and
+    98,304 B at D 128, 98,816 and 98,304 at D 256, so two blocks share an
+    SM.  f32: four ``(T, DP + 1)`` f32 row tiles each, the P and dS tiles
+    ``(T, T + 1)`` (dq: dS only) and lse and delta (T each): 165,888 and
+    149,248 B at D 128; 140,288 and 136,064 B at D 256."""
     DP, T = padded_dim(D), bwd_tile(D)
+    if dtype == torch.bfloat16:
+        return 12 * T * DP + 16 * T, 12 * T * DP
     rows = 4 * T * (DP + 1) + 2 * T
     return 4 * (rows + 2 * T * (T + 1)), 4 * (rows + T * (T + 1))
 
 
 @functools.lru_cache(maxsize=None)
-def bwd_plan(B: int, Sq: int, Sk: int, Hq: int, Hk: int, D: int) -> BwdPlan:
-    """The backward's launch geometry of one shape (the same for f32 and
-    bf16 operands: it computes in f32)."""
+def bwd_plan(dtype: torch.dtype, B: int, Sq: int, Sk: int, Hq: int, Hk: int, D: int) -> BwdPlan:
+    """The backward's launch geometry of one shape.  bf16: grids ``(B *
+    Hk, key tiles)``, key tile 0 (which a causal mask lets the most queries
+    see) issued first across every head, and ``(B * Hq, query tiles)``,
+    the last query tile first.  f32: grids ``(key tiles, B * Hk)`` and
+    ``(query tiles, B * Hq)``."""
     T = bwd_tile(D)
-    kv, q = bwd_smem_bytes(D)
-    return BwdPlan(T, BWD_THREADS, kv, q, (-(-Sk // T), B * Hk), (-(-Sq // T), B * Hq))
+    kv, q = bwd_smem_bytes(dtype, D)
+    nk, nq = -(-Sk // T), -(-Sq // T)
+    if dtype == torch.bfloat16:
+        return BwdPlan(T, BWD_THREADS[dtype], kv, q, (B * Hk, nk), (B * Hq, nq))
+    return BwdPlan(T, BWD_THREADS[dtype], kv, q, (nk, B * Hk), (nq, B * Hq))
 
 
 def launch_bwd(q, k, v, o, dout, lse, delta, dq, dk, dv, geometry: BwdPlan, mask_kind: str,

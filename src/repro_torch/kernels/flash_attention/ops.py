@@ -184,7 +184,7 @@ def flash_attention_bwd(
     lse = lse.float().contiguous()
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
-    geometry = kernel.bwd_plan(B, Sq, Sk, Hq, Hk, D)
+    geometry = kernel.bwd_plan(q.dtype, B, Sq, Sk, Hq, Hk, D)
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)

@@ -3,12 +3,21 @@
 ``chip_smoke.py`` holds the ``flash_attention_bwd.cu`` kernel against on
 the card) against autograd of the plain forward and against ``jax.vjp`` of
 the reference's ``blocked_attend``; the forward's log-sum-exp; the
-no-grad forward unchanged; the backward's launch plan.
+no-grad forward unchanged; the arithmetic of the kernel's bf16 body (a
+float32 model: bf16 operands, P and dS split into bf16 hi + lo, f32 sums
+in the kernel's order) against the plain version; the backward's launch
+plan and source layout.
 
 Tolerances: every gradient within 1e-5 of its own max |grad| in f32 (the
 same function, summed in another order: measured ~1e-6); ``lse`` within
-1e-5 absolute of the masked ``logsumexp``.
+1e-5 absolute of the masked ``logsumexp``; the bf16 body's gradients,
+rounded to bf16, within ``chip_smoke.bwd_tolerance`` (the bound the card
+holds the kernel to: 1e-5 of max |grad| plus one bf16 step).
 """
+
+import importlib.util
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -28,6 +37,11 @@ from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
 
 jax.config.update("jax_platform_name", "cpu")
 torch.set_num_threads(1)
+
+_CHIP_SMOKE = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+_spec = importlib.util.spec_from_file_location("chip_smoke", _CHIP_SMOKE)
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 GRAD_TOL = 1e-5
 # (mask_kind, window, q_offset, Sq, Sk): every kind, Sq != Sk, q_offsets
@@ -167,24 +181,185 @@ def test_backward_refuses_mismatched_operands():
                             out, lse, do)
 
 
+LOG2E = 1.4426950408889634
+
+
+def _split(x, keep_lo=True):
+    """The kernel's bf16 pair: ``hi = bf16(x)``, ``lo = bf16(x - hi)``
+    (``keep_lo`` False: x rounded once, as a single bf16 operand)."""
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float() if keep_lo else torch.zeros_like(x)
+
+
+def _k5b_model(q, k, v, o, lse, dout, kind, w, off, keep_lo=True):
+    """``flash_attention_bwd.cu``'s bf16 body in float32: S and dP from the
+    bf16 operands (exact products, f32 sums), ``P = 2^(s scale log2 e -
+    lse log2 e)`` (0 off the mask), ``dS = P (dP - delta)``; P and dS split
+    into bf16 hi + lo and both halves multiplied.  The sums run in the
+    kernel's order: dk and dv over the group's query heads in turn, each
+    over its queries in 16-row chunks (one mma k-step; a chunk the kernel
+    skips adds zeros), hi then lo; dq over the keys in 16-key chunks.  The
+    scale applied to dk and dq at the end.  -> f32 ``(dq, dk, dv)``."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    g, scale = Hq // Hk, D ** -0.5
+    qg = q.float().reshape(B, Sq, Hk, g, D)
+    dog = dout.float().reshape(B, Sq, Hk, g, D)
+    kf, vf = k.float(), v.float()
+    mask = attention.make_mask(kind, Sq, Sk, w, off)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf)
+    lq = lse.float().reshape(B, Hk, g, Sq, 1) * LOG2E
+    p = torch.where(mask, torch.exp2(s * (scale * LOG2E) - lq), 0.0)
+    delta = (dout.float() * o.float()).sum(-1).reshape(B, Sq, Hk, g).permute(0, 2, 3, 1)
+    ds = p * (torch.einsum("bqhgd,bkhd->bhgqk", dog, vf) - delta[..., None])
+    p2, ds2 = _split(p, keep_lo), _split(ds, keep_lo)
+    dk, dv = torch.zeros(B, Sk, Hk, D), torch.zeros(B, Sk, Hk, D)
+    for gi in range(g):
+        for c in range(0, Sq, 16):
+            sl = slice(c, c + 16)
+            for x in p2:
+                dv = dv + torch.einsum("bhqk,bqhd->bkhd", x[:, :, gi, sl], dog[:, sl, :, gi])
+            for x in ds2:
+                dk = dk + torch.einsum("bhqk,bqhd->bkhd", x[:, :, gi, sl], qg[:, sl, :, gi])
+    dq = torch.zeros(B, Sq, Hk, g, D)
+    for c in range(0, Sk, 16):
+        for x in ds2:
+            dq = dq + torch.einsum("bhgqk,bkhd->bqhgd", x[..., c:c + 16], kf[:, c:c + 16])
+    return dq.reshape(B, Sq, Hq, D) * scale, dk * scale, dv
+
+
+def _bf16_case(seed, kind, w, off, Sq, Sk, Hq, Hk, D, B=1):
+    """Seeded bf16 q, k, v, dout, the plain forward's bf16 out and f32 lse
+    (what K5 hands K5b), and ``flash_attention_bwd_ref``'s f32 gradient on
+    them (``chip_smoke.bwd_plain_blocked``'s function)."""
+    rng = np.random.default_rng(seed)
+    mk = lambda S, H: torch.from_numpy(
+        rng.standard_normal((B, S, H, D)).astype(np.float32)).bfloat16()
+    q, k, v, do = mk(Sq, Hq), mk(Sk, Hk), mk(Sk, Hk), mk(Sq, Hq)
+    kw = dict(mask_kind=kind, window=w, q_offset=off)
+    out, lse = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    want = flash_attention_bwd_ref(q.float(), k.float(), v.float(), out.float(), lse,
+                                   do.float(), **kw)
+    return (q, k, v, out, lse, do), want
+
+
+def _worst_share(got, want):
+    """The largest ``|bf16(got) - bf16(want)| / bwd_tolerance(bf16(want))``
+    over dq, dk and dv: at most 1 passes the card's check."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        wb = w.bfloat16()
+        tol = chip_smoke.bwd_tolerance(wb, True)
+        worst = max(worst, ((g.bfloat16().float() - wb.float()).abs() / tol).max().item())
+    return worst
+
+
+# (mask_kind, window, q_offset, Sq, Sk, Hq, Hk, D): every mask kind of
+# chip_smoke.BWD_CASES at small shapes, D 64 / 128 / 256, g 1 and 3, ragged S
+MODEL_CASES = [
+    ("causal", 0, 0, 77, 77, 6, 2, 128),
+    ("sliding", 24, 0, 70, 70, 2, 2, 64),
+    ("chunked", 32, 0, 80, 80, 3, 1, 128),
+    ("prefix_causal", 20, 0, 60, 60, 6, 2, 64),
+    ("causal", 0, 40, 40, 80, 3, 1, 256),
+    ("full", 0, 0, 24, 150, 2, 2, 64),
+    ("causal", 0, 0, 64, 64, 2, 2, 256),
+]
+
+
+class TestBackwardArithmetic:
+    """The bf16 body's arithmetic (:func:`_k5b_model`) against the plain
+    version, within the bound the card holds the kernel to."""
+
+    @pytest.mark.parametrize("case", MODEL_CASES,
+                             ids=[f"{c[0]}-w{c[1]}-off{c[2]}-{c[3]}x{c[4]}-g{c[5] // c[6]}-D{c[7]}"
+                                  for c in MODEL_CASES])
+    def test_split_body_stays_inside_the_tolerance(self, case):
+        """P and dS as bf16 pairs keep ~2^-17 of each: dq, dk and dv within
+        1e-5 of their max |grad| before rounding, and within
+        ``bwd_tolerance`` once rounded to bf16."""
+        ops, want = _bf16_case(7, *case)
+        got = _k5b_model(*ops, *case[:3])
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            _close(g.numpy(), w.numpy(), f"{name} of the split body")
+        assert _worst_share(got, want) <= 1.0
+
+    def test_one_bf16_rounding_of_p_and_ds_would_not_stay_inside(self):
+        """The same body with P and dS rounded once to bf16 (2^-9 of each)
+        moves the gradients by ~2e-3 of their max |grad|: many times the
+        bound.  So the split is needed."""
+        case = MODEL_CASES[0]
+        ops, want = _bf16_case(7, *case)
+        assert _worst_share(_k5b_model(*ops, *case[:3], keep_lo=False), want) > 10.0
+        assert _worst_share(_k5b_model(*ops, *case[:3]), want) <= 1.0
+
+    def test_split_body_matches_jax_vjp(self):
+        """The split body on bf16-valued q, k, v and dout, with the f32
+        forward's out and lse, against ``jax.vjp`` of the reference's
+        ``blocked_attend``: within 1e-5 of each max |grad| in f32."""
+        kind, w, off, Sq, Sk, Hq, Hk, D = "sliding", 24, 5, 60, 65, 6, 2, 128
+        rng = np.random.default_rng(3)
+        mk = lambda S, H: rng.standard_normal((1, S, H, D)).astype(np.float32)
+        q, k, v, do = (torch.from_numpy(x).bfloat16().float()
+                       for x in (mk(Sq, Hq), mk(Sk, Hk), mk(Sk, Hk), mk(Sq, Hq)))
+        out, lse = flash_attention_ref(q, k, v, mask_kind=kind, window=w, q_offset=off,
+                                       return_lse=True)
+        got = _k5b_model(q, k, v, out, lse, do, kind, w, off)
+        fn = lambda a, b, c: jattention.blocked_attend(a, b, c, mask_kind=kind, window=w,
+                                                       q_offset=off, block_q=64, block_k=32)
+        vjp = jax.jit(lambda a, b, c, gr: jax.vjp(fn, a, b, c)[1](gr))
+        jgrads = vjp(*(jnp.asarray(t.numpy()) for t in (q, k, v, do)))
+        for name, g, j in zip(("dq", "dk", "dv"), got, jgrads):
+            _close(g.numpy(), np.asarray(j), f"{name} of the split body against jax.vjp")
+
+
+# an SM's shared memory (228 KB); each resident block also takes 1 KB the
+# hardware reserves
+SM_SMEM, BLOCK_RESERVED = 233_472, 1024
+PLAN_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
 class TestBackwardPlan:
+    @pytest.mark.parametrize("dt", PLAN_DTYPES)
     @pytest.mark.parametrize("D", [16, 24, 32, 64, 128, 200, 256])
-    def test_blocks_fit_an_sm(self, D):
-        kv, q = flash_kernel.bwd_smem_bytes(D)
+    def test_blocks_fit_an_sm(self, D, dt):
+        """Every block fits one block's limit; the bf16 blocks are small
+        enough that two share an SM at every width (at D 128 the dk/dv block
+        under ~113 KB)."""
+        dtype = PLAN_DTYPES[dt]
+        kv, q = flash_kernel.bwd_smem_bytes(dtype, D)
         assert max(kv, q) <= build.MAX_SMEM
         assert flash_kernel.bwd_tile(D) == (32 if D > 128 else 64)
+        if dtype == torch.bfloat16:
+            assert 2 * (max(kv, q) + BLOCK_RESERVED) <= SM_SMEM
 
     def test_source_carve_up(self):
-        # the .cu's kv_smem_bytes / q_smem_bytes at D 128 and 256
-        assert flash_kernel.bwd_smem_bytes(128) == (165_888, 149_248)
-        assert flash_kernel.bwd_smem_bytes(256) == (140_288, 136_064)
+        # bf16: mma_kv_smem_bytes / mma_q_smem_bytes, 12 T D (+ 16 T) at T 64 / 32;
+        # f32: kv_smem_bytes / q_smem_bytes, at D 128 and 256
+        assert flash_kernel.bwd_smem_bytes(torch.bfloat16, 128) == (99_328, 98_304)
+        assert flash_kernel.bwd_smem_bytes(torch.bfloat16, 256) == (98_816, 98_304)
+        assert flash_kernel.bwd_smem_bytes(torch.bfloat16, 16) == (13_312, 12_288)
+        assert flash_kernel.bwd_smem_bytes(torch.float32, 128) == (165_888, 149_248)
+        assert flash_kernel.bwd_smem_bytes(torch.float32, 256) == (140_288, 136_064)
+        src = (build.CSRC / "flash_attention_bwd.cu").read_text()
+        assert "return 12 * mma_tile<D>() * D + 16 * mma_tile<D>();" in src
+        assert "return 12 * mma_tile<D>() * D;" in src
+        assert "return D > 128 ? 2 : 1;" in src  # two warps a 16-row group at D 256
 
     def test_grids_cover_every_key_and_query_tile(self):
-        p = flash_kernel.bwd_plan(1, 4096, 4096, 24, 8, 128)
-        assert p.grid_kv == (64, 8) and p.grid_q == (64, 24) and p.threads == 256
-        p = flash_kernel.bwd_plan(2, 128, 1500, 16, 16, 64)
-        assert p.grid_kv == (24, 32) and p.grid_q == (2, 32)
-        p = flash_kernel.bwd_plan(1, 301, 301, 8, 4, 256)
+        bf, f32 = torch.bfloat16, torch.float32
+        # bf16: (B * Hk, key tiles) and (B * Hq, query tiles), 128 threads
+        p = flash_kernel.bwd_plan(bf, 1, 4096, 4096, 24, 8, 128)
+        assert p.grid_kv == (8, 64) and p.grid_q == (24, 64) and p.threads == 128
+        p = flash_kernel.bwd_plan(bf, 2, 128, 1500, 16, 16, 64)
+        assert p.grid_kv == (32, 24) and p.grid_q == (32, 2)
+        p = flash_kernel.bwd_plan(bf, 1, 1024, 1024, 8, 4, 256)
+        assert p.tile == 32 and p.grid_kv == (4, 32) and p.grid_q == (8, 32)
+        # f32: (key tiles, B * Hk) and (query tiles, B * Hq), 256 threads
+        p = flash_kernel.bwd_plan(f32, 1, 301, 301, 24, 8, 128)
+        assert p.tile == 64 and p.grid_kv == (5, 8) and p.grid_q == (5, 24)
+        assert p.threads == 256
+        p = flash_kernel.bwd_plan(f32, 1, 301, 301, 8, 4, 256)
         assert p.tile == 32 and p.grid_kv == (10, 4) and p.grid_q == (10, 8)
 
     def test_the_library_declares_the_backward(self):
@@ -193,3 +368,15 @@ class TestBackwardPlan:
         assert "flash_attention.cuh" in src
         fwd = (build.CSRC / "flash_attention.cu").read_text()
         assert "void* lse" in fwd
+        # one copy of the bf16 bodies' device helpers, in the shared header
+        hdr = (build.CSRC / "flash_attention.cuh").read_text()
+        for helper in ("uint32_t smem_addr(", "void cp_async16(", "void cp_commit(",
+                       "void cp_wait(", "void ldsm_x4(", "void ldsm_x4_trans(",
+                       "void mma_bf16(", "void split_bf16x2(", "int swz_mask(",
+                       "uint32_t swz(", "float ex2("):
+            assert f"__forceinline__ {helper}" in hdr, helper
+            assert f"__forceinline__ {helper}" not in src + fwd, helper
+        # the bf16 backward: mma.sync products on split P and dS, no atomics
+        assert "dkdv_mma_kernel" in src and "dq_mma_kernel" in src
+        assert src.count("split_a(") >= 4
+        assert not re.search(r"\batomic[A-Z]\w*\(|\b(atom|red)\.", src)
