@@ -2,9 +2,9 @@
 architectures the JAX package registers, under the same names.  The port
 serves the dense ones (phi4-mini, gemma3-1b / 4b, deepseek-7b), the MoE
 ones (mixtral-8x22b, llama4-scout-17b-a16e), the VLM paligemma-3b, the
-ssm mamba2-1.3b and the enc_dec whisper-medium (these two through
-``make_serve_step`` only); the entry points refuse the hybrid jamba
-(:func:`base.require_served`)."""
+ssm mamba2-1.3b, the hybrid jamba-1.5-large-398b and the enc_dec
+whisper-medium (these three through ``make_serve_step`` only; the
+transformer-only entry points refuse them, :func:`base.require_transformer`)."""
 
 from repro_torch.configs import shapes  # noqa: F401
 from repro_torch.configs.base import (  # noqa: F401

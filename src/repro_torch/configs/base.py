@@ -8,11 +8,11 @@ knobs and speculative decoding).  The port keeps its own copy (it imports
 nothing of ``repro``).  Each architecture file registers its published
 config plus a reduced ``smoke`` variant used by the CPU tests.
 
-The port serves the ``dense``, ``moe``, ``vlm``, ``ssm`` and ``enc_dec``
-families; every entry point refuses another family (the hybrid) with
-:func:`require_served`'s error, and the transformer-only ones (prefill,
-chunked admission, the Scheduler, the launcher) refuse ssm and enc_dec
-with :func:`require_transformer`'s, as the reference does.
+The port serves every family of the reference: ``dense``, ``moe``,
+``vlm``, ``ssm``, ``hybrid`` and ``enc_dec``.  The transformer-only entry
+points (prefill, chunked admission, the Scheduler, the launcher) refuse
+ssm, hybrid and enc_dec with :func:`require_transformer`'s error, as the
+reference does: those decode through ``make_serve_step`` directly.
 """
 
 from __future__ import annotations
@@ -255,46 +255,43 @@ def _param_count(cfg: ModelConfig, active_only: bool) -> int:
 # weight formats take
 TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
 # families the port serves: the transformer stack, the attention-free ssm
-# (models/mamba2.py) and whisper's enc_dec (models/whisper.py); the last two
-# decode through make_serve_step alone
-SERVED_FAMILIES = TRANSFORMER_FAMILIES + ("ssm", "enc_dec")
-
-# ROADMAP Queue 1 item that ports each family the port does not serve yet
-_FAMILY_ITEM = {
-    "hybrid": "ROADMAP Queue 1, item 7 (sharding: one jamba super-block does not fit one "
-              "card), then 6c (models/hybrid.py)",
-}
+# (models/mamba2.py), jamba's hybrid (models/hybrid.py) and whisper's enc_dec
+# (models/whisper.py); the last three decode through make_serve_step alone
+SERVED_FAMILIES = TRANSFORMER_FAMILIES + ("ssm", "hybrid", "enc_dec")
 
 # how a family outside the transformer stack decodes (the reference's
 # Scheduler: "ssm/hybrid/enc-dec decode through make_serve_step directly")
 _DIRECT_DECODE = {
     "ssm": "from a zero state",
+    "hybrid": "from a zero state",
     "enc_dec": "from position 0, over the encoder memory the caller puts in the cache's "
                "cross_k / cross_v",
 }
 
 
 def require_served(cfg, who: str) -> None:
-    """Refuse a family the port does not serve: a ``ValueError`` naming the
-    family and the roadmap item that ports it.  An MoE config must put an
+    """Refuse a family the port does not know: a ``ValueError`` naming it.
+    A config of the transformer families that carries experts must put an
     expert FFN in every layer (``moe_every == 1``), as the reference's
-    transformer asserts; mixed MoE / dense stacks are the hybrid's."""
+    transformer asserts; a stack that alternates MoE and dense FFNs is of
+    the hybrid family."""
     if cfg.family not in SERVED_FAMILIES:
-        where = _FAMILY_ITEM.get(cfg.family, "ROADMAP Queue 1, item 6")
         raise ValueError(
             f"{who}: {cfg.name} is of family {cfg.family!r}; the port serves the "
-            f"{', '.join(SERVED_FAMILIES)} families only ({cfg.family} is {where})")
-    if cfg.num_experts > 0 and cfg.moe_every != 1:
+            f"{', '.join(SERVED_FAMILIES)} families")
+    if cfg.family in TRANSFORMER_FAMILIES and cfg.num_experts > 0 and cfg.moe_every != 1:
         raise ValueError(
             f"{who}: {cfg.name} is of family {cfg.family!r} with moe_every="
-            f"{cfg.moe_every}; mixed MoE / dense stacks are the hybrid's "
-            f"({_FAMILY_ITEM['hybrid']})")
+            f"{cfg.moe_every}; a transformer puts an expert FFN in every layer, and "
+            f"a stack that alternates MoE and dense FFNs is of the hybrid family "
+            f"(models/hybrid.py)")
 
 
 def require_transformer(cfg, who: str) -> None:
-    """Refuse what :func:`require_served` refuses, and the ssm and enc_dec
-    families at an entry point of the transformer families alone, with the
-    reference's reason: they decode through ``make_serve_step`` directly."""
+    """Refuse what :func:`require_served` refuses, and the ssm, hybrid and
+    enc_dec families at an entry point of the transformer families alone,
+    with the reference's reason: they decode through ``make_serve_step``
+    directly."""
     require_served(cfg, who)
     if cfg.family not in TRANSFORMER_FAMILIES:
         raise ValueError(

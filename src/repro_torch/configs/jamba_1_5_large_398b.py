@@ -2,9 +2,11 @@
 vocab=65536, MoE 16e top-2 — Mamba+attention 1:7 interleave (attention at
 layer i where i % 8 == 4), MoE every other layer.  [arXiv:2403.19887; hf]
 
-Does not fit one card unsharded (the port refuses the hybrid family).  The
-mamba mixer uses an SSD (mamba2) block — recorded as an adaptation since
-Jamba ships Mamba-1 internals."""
+The port serves and trains it through ``models/hybrid.py``.  The whole model
+(398 B parameters) does not fit one card unsharded, nor does one super-block
+at 16 experts (45.1 B, 84.1 GiB in bf16); one card holds one super-block with
+8 of the 16 experts.  The mamba mixer uses an SSD (mamba2) block — recorded
+as an adaptation since Jamba ships Mamba-1 internals."""
 
 from repro_torch.configs.base import ModelConfig, register
 

@@ -22,9 +22,9 @@ rings 3:1 with global layers), and so does the VLM paligemma-3b, text
 prompts only, through chunked admission as the reference's Scheduler serves
 it (its image prefix enters only through ``engine.prefill`` /
 ``prefill_into_slot``, so ``--admission eager`` raises for it); the others
-are refused with an error that names their family (mamba2-1.3b and
-whisper-medium, which the reference's launcher refuses too, decode through
-``engine.make_serve_step`` alone).  ``--full`` at
+are refused with an error that names their family (mamba2-1.3b,
+jamba-1.5-large-398b and whisper-medium, which the reference's launcher
+refuses too, decode through ``engine.make_serve_step`` alone).  ``--full`` at
 paligemma-3b is the whole model (2.5 B parameters) on one card.  It runs on ``--device cuda`` unless told otherwise;
 ``--full`` serves the published full-width config instead of the smoke
 one, and ``--layers`` cuts its depth (a full MoE config does not fit one

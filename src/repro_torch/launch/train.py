@@ -14,7 +14,7 @@ cuts its depth.  Weights are random, drawn from a seeded generator on the
 device; batches come from :class:`repro_torch.data.SyntheticLMDataset`
 (seed 0), prefetched onto the device.  The forward runs with ``remat``
 (the dense families also take the reference's ``block_q`` / ``block_k``,
-ignored; the ssm family ``chunk`` 64).  A checkpoint is written after every
+ignored; the ssm family ``chunk`` 64, the hybrid ``ssd_chunk`` 64).  A checkpoint is written after every
 ``--ckpt-every``-th step and at the end (default directory
 ``mcbp_train`` under the temporary directory); a run that finds one in
 ``--ckpt-dir`` resumes from the latest.
@@ -45,6 +45,8 @@ def fwd_kwargs(cfg) -> Dict:
     """The forward keywords the reference's launcher trains with."""
     if cfg.family == "ssm":
         return dict(chunk=64, remat=True)
+    if cfg.family == "hybrid":
+        return dict(block_q=64, block_k=128, remat=True, ssd_chunk=64)
     return dict(block_q=64, block_k=128, remat=True)
 
 

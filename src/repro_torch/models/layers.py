@@ -157,8 +157,10 @@ def wdot(x: torch.Tensor, w) -> torch.Tensor:
             return y.T.reshape(lead + (y.shape[0],)).to(x.dtype)  # (out, N) f32 -> (..., out)
         dq = w["q"].to(torch.float32) * w["scale"][..., None, :].to(torch.float32)
         return matmul(x, dq.to(x.dtype))
-    dt = torch.promote_types(x.dtype, w.dtype)
-    return matmul(x.to(dt), w.to(dt))
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return matmul(x, w)
 
 
 def glu_act(kind: str, gate: torch.Tensor) -> torch.Tensor:

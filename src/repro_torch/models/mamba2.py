@@ -12,8 +12,9 @@ axis, so a long context costs the same memory as a short one.
 Parameters keep the reference's tree: ``embed``, ``layers/{norm,
 mixer/{in_proj, conv_w, conv_b, A_log, D, dt_bias, norm/scale, out_proj}}``
 stacked over the layers, ``final_norm``; the head is the tied ``embed.T``.
-The projections are plain ``x @ w`` (:func:`layers.matmul`), as the
-reference's.
+The projections are plain ``x @ w`` (:func:`layers.wdot`), as the
+reference's, in the promoted dtype: the hybrid's decode residual is float32
+after its attention layer, and meets the bf16 mixer weights upcast.
 """
 
 from __future__ import annotations
@@ -155,7 +156,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Te
 def _gated_out(p: Params, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """``out_proj(rms_norm(y * silu(z)))``, the gate in f32 cast to y's dtype."""
     y = layers.rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm"]["scale"])
-    return layers.matmul(y, p["out_proj"])
+    return layers.wdot(y, p["out_proj"])
 
 
 def mixer_apply(p: Params, cfg, x: torch.Tensor, chunk: int = 256,
@@ -165,7 +166,7 @@ def mixer_apply(p: Params, cfg, x: torch.Tensor, chunk: int = 256,
     (B, H, P, N) f32, "conv": (B, K - 1, C)}`` (the last ``K - 1``
     pre-activation conv inputs)."""
     B, S, _ = x.shape
-    z, xBC, dt, d_in, N, H = _split_proj(cfg, layers.matmul(x, p["in_proj"]))
+    z, xBC, dt, d_in, N, H = _split_proj(cfg, layers.wdot(x, p["in_proj"]))
     xBC_raw = xBC
     xBC, _ = _causal_conv(xBC, p["conv_w"], p["conv_b"])
     xin = xBC[..., :d_in].reshape(B, S, H, cfg.ssm_head_dim)
@@ -188,7 +189,7 @@ def mixer_decode_step(p: Params, cfg, x: torch.Tensor, state: Dict[str, torch.Te
     (B, H, P, N) f32, "conv": (B, K - 1, C)}`` -> ``(out (B, 1, d_model),
     new state)``."""
     B = x.shape[0]
-    z, xBC, dt, d_in, N, H = _split_proj(cfg, layers.matmul(x, p["in_proj"]))
+    z, xBC, dt, d_in, N, H = _split_proj(cfg, layers.wdot(x, p["in_proj"]))
     xBC, conv_state = _causal_conv(xBC, p["conv_w"], p["conv_b"], conv_state=state["conv"])
     xin = xBC[..., :d_in].reshape(B, H, cfg.ssm_head_dim).float()
     Bm = xBC[:, 0, d_in:d_in + N].float()  # (B, N)

@@ -33,7 +33,10 @@ layer's K/V through ``kv_cache.write_prefill``; ``prefill_into_slot`` is
 the Scheduler's eager admission.
 
 ``make_serve_step`` also decodes the families the reference decodes
-outside its Scheduler: ssm (a mamba state a layer, no KV) and enc_dec
+outside its Scheduler: ssm (a mamba state a layer, no KV), hybrid (jamba:
+per layer, the attention layers over the global store without RoPE and
+the mamba layers over their state, each followed by its FFN, the MoE
+dropless) and enc_dec
 (whisper: the per-slot sinusoid on the token embedding; per decoder layer
 the self-attention over the global store with RoPE at ``cfg.rope_theta``,
 as the reference's decode applies it though its forward does not, then
@@ -225,16 +228,20 @@ def _local_decode_attend(q1, cache, li: int, k, v, pos, cfg, layout, layer_idx: 
     return _decode_attend(q1, entry, valid, cfg, kvc.local_format(layout))
 
 
-def _attn_decode_layer(p, cfg, layout, cache, x, pos, layer_idx, theta, phys=None):
-    """x ``(B, 1, D)``, pos per-slot ``(B,)``.  Write-then-attend: the
-    token's K/V land at ``pos`` first (a local layer: its ring lane), then
-    a global layer's attend runs through :func:`kernel_decode.decode_attend`
-    and a local layer's through :func:`_local_decode_attend`.  Returns
-    ``(out, cache)``."""
+def _attn_decode_layer(p, norm, cfg, layout, cache, x, pos, layer_idx, theta, phys=None):
+    """x ``(B, 1, D)``, pos per-slot ``(B,)``; ``norm`` the layer's
+    pre-norm, ``p`` its ``attn`` (and ``post_attn_norm`` where set).
+    Write-then-attend: the token's K/V land at ``pos`` first (a local
+    layer: its ring lane), then a global layer's attend runs through
+    :func:`kernel_decode.decode_attend` and a local layer's through
+    :func:`_local_decode_attend`.  RoPE at ``theta`` on q and k; none with
+    ``theta=None`` (the hybrid's attention, the reference's ``use_rope``).
+    Returns ``(out, cache)``."""
     B = x.shape[0]
-    h = layers.apply_norm(x, p["attn_norm"], cfg.norm)
+    h = layers.apply_norm(x, norm, cfg.norm)
+    positions = None if theta is None else pos[:, None]
     q, k, v = layers.qkv_project(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
-                                 cfg.head_dim, pos[:, None], theta, qk_norm=cfg.qk_norm)
+                                 cfg.head_dim, positions, theta, qk_norm=cfg.qk_norm)
     if layer_idx in layout.local_layers:
         out = _local_decode_attend(q[:, 0], cache, layout.local_layers.index(layer_idx),
                                    k, v, pos, cfg, layout, layer_idx)
@@ -258,24 +265,26 @@ def _attn_decode_layer(p, cfg, layout, cache, x, pos, layer_idx, theta, phys=Non
     return out, cache
 
 
-def _ffn_decode_layer(p, cfg, x):
-    """Norm, FFN and the post-MLP norm where set, for the decode and chunk
-    steps: an MoE layer routes dropless (``capacity_factor = E``)."""
-    h = layers.apply_norm(x, p["mlp_norm"], cfg.norm)
+def _ffn_decode_layer(p, norm, cfg, x):
+    """The pre-norm ``norm``, the FFN of ``p`` and its post-MLP norm where
+    set, for the decode and chunk steps: an MoE layer routes dropless
+    (``capacity_factor = E``)."""
+    h = layers.apply_norm(x, norm, cfg.norm)
     out, _ = transformer.ffn_apply(p, cfg, h, capacity_factor=float(cfg.num_experts))
     if cfg.post_norms:
         out = layers.apply_norm(out, p["post_mlp_norm"], cfg.norm)
     return out
 
 
-def _mamba_decode_layer(p, cfg, layout: kvc.CacheLayout, cache, x, layer_idx: int):
-    """One mamba layer's decode token: the pre-norm, the mixer's recurrence
-    on the layer's state, the state written back in place -> ``(out,
-    cache)``."""
+def _mamba_decode_layer(norm, mixer, cfg, layout: kvc.CacheLayout, cache, x,
+                        layer_idx: int):
+    """One mamba layer's decode token: the pre-norm ``norm``, the
+    recurrence of ``mixer`` on the layer's state, the state written back
+    in place -> ``(out, cache)``."""
     mi = layout.mamba_layers.index(layer_idx)
     st = cache["mamba"]
-    h = layers.apply_norm(x, p["norm"], cfg.norm)
-    out, new = mamba2.mixer_decode_step(p["mixer"], cfg, h,
+    h = layers.apply_norm(x, norm, cfg.norm)
+    out, new = mamba2.mixer_decode_step(mixer, cfg, h,
                                         {"h": st["h"][mi], "conv": st["conv"][mi]})
     st["h"][mi] = new["h"]
     st["conv"][mi] = new["conv"].to(st["conv"].dtype)
@@ -289,8 +298,8 @@ def _whisper_decode_layer(p, cfg, layout, cache, x, pos, layer_idx: int, phys, c
     the layer's ``cross_k`` / ``cross_v`` with ``cross_valid``: every lane,
     built once a step; ``wo``) and the GELU MLP, each a residual."""
     B = x.shape[0]
-    a, cache = _attn_decode_layer({"attn_norm": p["norm1"], "attn": p["attn"]}, cfg, layout,
-                                  cache, x, pos, layer_idx, cfg.rope_theta, phys=phys)
+    a, cache = _attn_decode_layer(p, p["norm1"], cfg, layout, cache, x, pos, layer_idx,
+                                  cfg.rope_theta, phys=phys)
     x = x + a
     h = layers.apply_norm(x, p["norm_x"], cfg.norm)
     q = layers.wdot(h, p["xattn"]["wq"]).reshape(B, cfg.num_heads, cfg.head_dim)
@@ -310,7 +319,11 @@ def make_serve_step(cfg, layout: kvc.CacheLayout):
     and advances every ``pos`` by one.  Paged layouts hoist one
     logical->pool gather map per step (BGPP's kernel reads through it).
     An ssm model steps every layer's mamba state instead (no KV, no
-    position in the arithmetic; ``pos`` still advances).  An enc_dec model
+    position in the arithmetic; ``pos`` still advances).  A hybrid model
+    (jamba) takes layer ``i`` from super-block ``i // attn_every`` at
+    position ``i % attn_every``: an attention layer decodes over the global
+    store without RoPE, a mamba layer steps its state, and each is followed
+    by its FFN (the MoE dropless).  An enc_dec model
     (whisper) adds each slot's sinusoid to the token embedding and runs,
     per decoder layer, self-attention (global, RoPE at ``cfg.rope_theta``),
     cross-attention over ``cache["cross_k"]`` / ``["cross_v"]`` and the
@@ -345,15 +358,27 @@ def make_serve_step(cfg, layout: kvc.CacheLayout):
                                                  cfg, layout, cache, x, pos, i, phys,
                                                  cross_valid)
                 continue
+            if cfg.family == "hybrid":
+                b, j = divmod(i, cfg.attn_every)
+                p = transformer.layer_params(params["blocks"][f"pos{j}"], b)
+                if cfg.layer_is_attention(i):
+                    a, cache = _attn_decode_layer(p, p["norm1"], cfg, layout, cache, x, pos, i,
+                                                  None, phys=phys)
+                else:
+                    a, cache = _mamba_decode_layer(p["norm1"], p["mamba"], cfg, layout, cache,
+                                                   x, i)
+                x = x + a
+                x = x + _ffn_decode_layer(p, p["norm2"], cfg, x)
+                continue
             p = transformer.layer_params(params["layers"], i)
             if cfg.family == "ssm":
-                m, cache = _mamba_decode_layer(p, cfg, layout, cache, x, i)
+                m, cache = _mamba_decode_layer(p["norm"], p["mixer"], cfg, layout, cache, x, i)
                 x = x + m
                 continue
-            a, cache = _attn_decode_layer(p, cfg, layout, cache, x, pos, i,
+            a, cache = _attn_decode_layer(p, p["attn_norm"], cfg, layout, cache, x, pos, i,
                                           float(thetas[i]), phys=phys)
             x = x + a
-            x = x + _ffn_decode_layer(p, cfg, x)
+            x = x + _ffn_decode_layer(p, p["mlp_norm"], cfg, x)
         logits = transformer.lm_logits(params, cfg, x)
         cache["pos"] = pos + 1
         return logits, cache
@@ -561,7 +586,7 @@ def make_prefill_chunk(cfg, layout: kvc.CacheLayout):
             a, cache = _attn_chunk_layer(p, cfg, layout, cache, x, slot, offset,
                                          length, i, float(thetas[i]), phys=phys)
             x = x + a
-            x = x + _ffn_decode_layer(p, cfg, x)
+            x = x + _ffn_decode_layer(p, p["mlp_norm"], cfg, x)
         logits = transformer.lm_logits(params, cfg, x)
         cache["pos"][slot] = offset + length
         return logits, cache

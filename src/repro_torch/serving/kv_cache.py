@@ -1,10 +1,11 @@
 """KV-cache containers for the serving engine (PyTorch).
 
 Counterpart of :mod:`repro.serving.kv_cache` for transformer attention
-stacks (the dense, MoE and VLM families), the ssm family's mamba state:
-``mamba`` ``{"h": (L_mamba, B, H, P, N) f32, "conv": (L_mamba, B, K - 1,
-d_in + 2 N)}``, slot-major in both layouts, the same bytes at any
-``max_seq`` (mamba2-1.3b: 101.9 MB a slot), and whisper's cross-attention
+stacks (the dense, MoE and VLM families), the mamba state of the ssm
+family and of the hybrid's mamba layers (beside its global attention
+layers' store): ``mamba`` ``{"h": (L_mamba, B, H, P, N) f32, "conv":
+(L_mamba, B, K - 1, d_in + 2 N)}``, slot-major in both layouts, the same
+bytes at any ``max_seq`` (mamba2-1.3b: 101.9 MB a slot), and whisper's cross-attention
 memory: ``cross_k`` / ``cross_v`` ``(L, B, Hk, encoder_seq, Dh)`` in the
 model dtype whatever the KV format, slot-major in both layouts, filled by
 the caller from the encoder (whisper-medium: 147.5 MB a slot).  A whisper

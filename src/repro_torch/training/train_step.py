@@ -4,7 +4,7 @@ Counterpart of :mod:`repro.training.train_step` on one device (no sharding
 rules: ROADMAP item 7).  ``fwd_kwargs`` go to the model's forward as in the
 reference: ``remat=True`` recomputes each layer in the backward, the
 transformer families take (and ignore) ``block_q`` / ``block_k``, the ssm
-family its ``chunk``.  On the card the forward's attention is the
+family its ``chunk``, the hybrid both and its ``ssd_chunk``.  On the card the forward's attention is the
 ``flash_attention`` kernel with its log-sum-exp kept, and its gradient the
 ``flash_attention_bwd`` kernel; on the CPU their plain versions.  The state
 is the reference's plain tree ``{"params", "opt"}``; the AdamW update

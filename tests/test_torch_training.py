@@ -1,7 +1,7 @@
 """The port's training stack against the JAX package's, on the CPU.
 
 ``cross_entropy``, ``warmup_cosine``, ``adamw_update`` (f32 and int8
-moments) and one train step of each of eight smoke configs, from the same
+moments) and one train step of each of nine smoke configs, from the same
 numpy parameters, batches and states; rematerialisation bit for bit.
 
 Tolerances:
@@ -46,7 +46,8 @@ jax.config.update("jax_platform_name", "cpu")
 torch.set_num_threads(1)
 
 SMOKE_ARCHS = ["phi4-mini-3.8b", "deepseek-7b", "gemma3-4b", "mixtral-8x22b",
-               "llama4-scout-17b-a16e", "paligemma-3b", "mamba2-1.3b", "whisper-medium"]
+               "llama4-scout-17b-a16e", "paligemma-3b", "mamba2-1.3b", "jamba-1.5-large-398b",
+               "whisper-medium"]
 B, S = 2, 32
 
 
@@ -160,6 +161,29 @@ def test_adamw_updates_in_place_and_refuses_zero():
 # ---------------------------------------------------------------------------
 
 
+def _smoke_kwargs(cfg):
+    """The launcher's forward keywords with the SSD chunk cut to 16, the
+    smoke sequence's half (the reference's arch smoke tests' chunk)."""
+    kw = dict(fwd_kwargs(cfg))
+    if cfg.family == "ssm":
+        kw["chunk"] = 16
+    if cfg.family == "hybrid":
+        kw["ssd_chunk"] = 16
+    return kw
+
+
+@pytest.mark.parametrize("arch,want", [
+    ("jamba-1.5-large-398b", dict(block_q=64, block_k=128, remat=True, ssd_chunk=64)),
+    ("mamba2-1.3b", dict(chunk=64, remat=True)),
+    ("phi4-mini-3.8b", dict(block_q=64, block_k=128, remat=True)),
+])
+def test_launcher_forward_keywords_are_the_references(arch, want):
+    """``launch/train.fwd_kwargs``: the reference launcher's keywords, the
+    hybrid's ``ssd_chunk`` 64 beside the attention tiles (its
+    ``launch/train.py:65-70``)."""
+    assert fwd_kwargs(get_config(arch)) == want
+
+
 def _batch(cfg, seed=1):
     return JaxDataset(cfg.vocab_size, S, B, seed=seed, modality=modality(cfg)).batch(0)
 
@@ -171,9 +195,7 @@ def test_train_step_matches_jax(arch):
     nparams = jax.tree.map(np.asarray, jparams)
     batch = _batch(jcfg)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    kw = fwd_kwargs(jcfg)
-    if jcfg.family == "ssm":
-        kw["chunk"] = 16
+    kw = _smoke_kwargs(jcfg)
     jopt = jadamw.AdamWConfig(peak_lr=1e-3, warmup_steps=2, decay_steps=50)
     jgrads = jax.jit(jax.grad(lambda p, b: jts.make_loss_fn(jcfg, jsh.ShardingRules(), kw)(p, b)[0]))(
         jparams, jbatch)
@@ -194,14 +216,13 @@ def test_train_step_matches_jax(arch):
     assert set(jflat) == {k for k, _ in tree_items(tgrads)}
 
 
-@pytest.mark.parametrize("arch", ["gemma3-4b", "mamba2-1.3b", "whisper-medium"])
+@pytest.mark.parametrize("arch", ["gemma3-4b", "mamba2-1.3b", "jamba-1.5-large-398b",
+                                  "whisper-medium"])
 def test_remat_is_bit_identical_on_the_cpu(arch):
     cfg = get_config(arch, smoke=True)
     params = model_zoo.init(cfg, torch.Generator().manual_seed(0), "cpu")
     batch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
-    kw = dict(fwd_kwargs(cfg))
-    if cfg.family == "ssm":
-        kw["chunk"] = 16
+    kw = _smoke_kwargs(cfg)
     runs = []
     for remat in (False, True):
         loss, _, grads = loss_and_grads(make_loss_fn(cfg, dict(kw, remat=remat)), params, batch)

@@ -1,8 +1,9 @@
 """The dense model zoo on the port against the JAX package's, on the CPU.
 
 Configs: the ten registered architectures, field by field and with the same
-parameter counts; the hybrid is refused at every entry point by a named
-error, and the ssm and enc_dec families at the transformer-only ones.
+parameter counts; the ssm, hybrid and enc_dec families run the entry points
+the reference runs them through and are refused at the transformer-only
+ones with the reference's reason.
 Models: gemma3-1b-smoke (D 24, one kv head), gemma3-4b-smoke (local rings
 5:1, qk-norm, sandwich norms, GeGLU, the embedding scale) and
 deepseek-7b-smoke (an untied head), from parameters that JAX
@@ -61,10 +62,7 @@ SLOTS, MAX_SEQ, PAGE, BUDGET = 2, 96, 8, 8
 # flipped code moved a row by 3.5e-3 in chip_smoke.py's card-against-CPU
 # check); a wrong lane, mask or scale moves them by 1e-1 or more
 TF_TOL = 5e-3
-# the families the port does not serve yet (it serves dense, moe, vlm, ssm
-# and enc_dec)
-NON_DENSE = sorted(n for n in JARCH
-                   if jax_config(n).family not in ("dense", "moe", "vlm", "ssm", "enc_dec"))
+HYBRID = sorted(n for n in JARCH if jax_config(n).family == "hybrid")
 SSM = sorted(n for n in JARCH if jax_config(n).family == "ssm")
 ENC_DEC = sorted(n for n in JARCH if jax_config(n).family == "enc_dec")
 MOE = sorted(n for n in JARCH if jax_config(n).family == "moe")
@@ -169,16 +167,33 @@ def _entry_points(name, model_cfg, launcher_args, vision=None, frames=None):
     }
 
 
-@pytest.mark.parametrize("name", NON_DENSE)
-def test_non_dense_family_is_refused_everywhere(name):
-    """jamba (the hybrid) is refused at every entry point, naming the
-    sharding item its one-card cut waits for."""
+@pytest.mark.parametrize("name", HYBRID)
+def test_hybrid_family_runs_every_entry_point(name):
+    """The jamba smoke runs the entry points the reference runs it through
+    (``model_zoo``, the cache layout with its mamba and global layers,
+    ``make_serve_step``); the transformer-only ones (``prefill``,
+    ``prefill_into_slot``, chunked admission, the ``Scheduler``, the serve
+    launcher) refuse it with the reference's reason (it decodes through
+    ``make_serve_step`` from a zero state), and so do the int8 and bstc
+    weight formats (it decodes with raw bf16 weights)."""
     cfg = get_config(name, smoke=True)
-    calls = _entry_points(name, get_config("phi4-mini-3.8b", smoke=True), [])
-    for call in calls.values():
-        with pytest.raises(ValueError,
-                           match=f"family '{cfg.family}'.*ROADMAP Queue 1, item 7"):
-            call()
+    calls = _entry_points(name, cfg, ["--requests", "2", "--max-new", "3"])
+    runs = ("model_zoo.init", "model_zoo.forward", "layout_for", "make_serve_step")
+    for who, call in calls.items():
+        if who in runs:
+            assert call() is not None, who
+        else:
+            with pytest.raises(ValueError,
+                               match="family 'hybrid'.*make_serve_step directly, from a zero"):
+                call()
+    logits, aux = calls["model_zoo.forward"]()
+    assert logits.shape == (1, 4, cfg.vocab_size) and float(aux) > 0.0
+    lay = calls["layout_for"]()
+    assert lay.global_layers == (4,) and len(lay.mamba_layers) == 7
+    for fmt in ("int8", "bstc"):
+        wcfg = apply_weight_format_override(cfg, fmt)
+        with pytest.raises(ValueError, match="family='hybrid' decodes with raw bf16 weights"):
+            engine.make_serve_step(wcfg, tkvc.layout_for(wcfg, SLOTS, 32))
 
 
 @pytest.mark.parametrize("name", SSM)
