@@ -76,7 +76,14 @@ Phases, each of which fails the run (nonzero exit) on any error:
    every decode projection shape of gemma3-4b (wq 2560 x 2048, wo, wk/wv,
    gate/up 2560 x 10240, down, the 2560 x 262144 head) and of
    llama4-scout (wq/wo 5120 x 5120, wk/wv 5120 x 1024, the 5120 x 202048
-   head; its experts stay raw), f32 and bf16 x.
+   head; its experts stay raw), f32 and bf16 x.  The shard phase: for
+   every rank of the (data, model) meshes 2x1, 1x4 and 2x4, one after
+   another, K1 (bf16, int8) and K2 on the rank's slots and kv heads at the
+   decode geometry and K3 on phi4-mini's wq and lm_head cut into 4 column
+   shards (each coded as its own matrix), each bit-equal to its slice of
+   the whole launch when planned at the whole launch's geometry; the same
+   launches planned at their own shapes, and cuBLAS on a column shard
+   against the whole product's columns, printed as findings.
 4. Paper-layer path: the quickstart at phi4-mini width (BRCR on an
    8192 x 3072 weight, BSTC, BGPP over 1024 keys), the BGPP walkthrough at
    S 4096, and the batched predictor at the decode geometry followed by
@@ -91,6 +98,12 @@ Phases, each of which fails the run (nonzero exit) on any error:
    request, flash attention in every layer); each run checks that its
    kernels were launched exactly as often as the path needs (every count
    zeroed just before the Scheduler is built, read just after the run).
+   Then the same trace through a sharded Scheduler (``rules_for(1, 1)``
+   over an NCCL world of one: every layer's collectives run) in bf16
+   paged, int8 slot, bgpp paged and bgpp paged with bstc weights, each
+   with the same launch checks and its tokens and logits bit-identical to
+   the unsharded run of its formats; where the machine has two or more
+   cards, the (1, n) mesh through ``torchrun`` (else printed as not run).
    Then two speculative runs of the same trace (bit-plane drafts, gamma 4,
    4 kept planes): bf16 KV with bf16 weights and bgpp KV with bstc weights,
    each holding its greedy tokens to the matching run above, leaking no
@@ -109,7 +122,7 @@ Phases, each of which fails the run (nonzero exit) on any error:
    server-side).  Then the dense model zoo at full width:
    gemma3-4b with its depth cut to 6 layers (5 local sliding-window rings
    of 1024 lanes, 1 global; D 256, qk-norm, sandwich norms, GeGLU; 4 slots,
-   paged, max_seq 4096; its traces below run all 34) serves 6 requests of
+   paged, max_seq 4096; its traces below too) serves 6 requests of
    1100-2000 prompt tokens in the same
    five runs, each with every request finished, no page leaked and the
    launch formulas exact (K1 or K2 once per global layer a decode step, K3
@@ -176,7 +189,7 @@ Phases, each of which fails the run (nonzero exit) on any error:
    and bgpp decode.  After
    every timed run, each of
    phi4-mini's chunked runs traces a few steady decode steps, and its
-   eager one a whole-prompt admission, and gemma3-4b (all 34 layers) traces bf16
+   eager one a whole-prompt admission, and gemma3-4b (6 layers) traces bf16
    and bgpp decode and one eager admission (K1, K2 and K5 device ms a launch at
    D 256), and llama4-scout traces bf16 decode (K1 at g 5, one MoE
    layer's decode timed alone), and paligemma-3b bf16 decode (K1 at g 8,
@@ -316,15 +329,20 @@ def _shuffled_table(gen, B, pp, n_pages, pos, page, device):
     return table.to(device)
 
 
+def row_tol(want, step=None):
+    """:func:`check_rows`' tolerance of each (b, h, g) row:
+    ``1e-5 * max(1, max|want row|)`` (f32 sums in another order) plus
+    ``step``, the plain version's per-row bound on one flipped int8
+    probability code (:func:`int8_code_step`); ``step`` None: no codes."""
+    tol = 1e-5 * want.abs().amax(-1).clamp(min=1.0)
+    return tol if step is None else tol + step
+
+
 def check_rows(name, got, want, step=None):
     """Max |got - want|, failing the run unless every (b, h, g) row is
-    within ``1e-5 * max(1, max|want row|)`` (f32 sums in another order)
-    plus ``step``, the plain version's per-row bound on one flipped int8
-    probability code (:func:`int8_code_step`); ``step`` None: no codes."""
+    within :func:`row_tol`."""
     err = (got - want).abs().amax(-1)
-    tol = 1e-5 * want.abs().amax(-1).clamp(min=1.0)
-    if step is not None:
-        tol = tol + step
+    tol = row_tol(want, step)
     bad = err > tol
     if bool(bad.any()):
         at = bad.nonzero()[0].tolist()
@@ -375,6 +393,23 @@ def k1_inputs(device, seed, B, S, pos, page, Hk, g, D):
     return q, kf, vf, table, pos.to(device)
 
 
+def k1_int8_step(q, kq, ks, vs, table, pos, page):
+    """K1's per-row tolerance step of its int8 body on these operands: the
+    plain version's bound on one flipped int8 probability code
+    (``int8_code_step``), ``(B, Hk, g)``."""
+    import torch
+
+    from repro_torch.kernels.paged_flash_decode.ref import int8_code_step
+    from repro_torch.serving import kv_cache as kvc
+
+    S = table.shape[1] * page
+    phys = kvc.phys_table(table, page, S).long()
+    kv_view = lambda a: a[phys].movedim(2, 1)  # (B, Hk, S, ...)
+    valid = torch.arange(S, device=q.device)[None, :] <= pos[:, None]  # (B, S)
+    return int8_code_step(q[:, :, :, None], kv_view(kq), kv_view(ks), kv_view(vs),
+                          valid[:, None, None, None, :])[..., 0]
+
+
 def k1_case(label, q, kf, vf, table, pos, page, flush=None, iters=20):
     """Both K1 bodies on one input set.  Each: two launches on the same
     inputs give identical bits, and the output is held against the plain
@@ -388,8 +423,7 @@ def k1_case(label, q, kf, vf, table, pos, page, flush=None, iters=20):
 
     from repro_torch.kernels import paged_flash_decode as pfd_ops
     from repro_torch.kernels.paged_flash_decode import kernel as pfd_kernel
-    from repro_torch.kernels.paged_flash_decode.ref import (
-        int8_code_step, paged_flash_decode_ref)
+    from repro_torch.kernels.paged_flash_decode.ref import paged_flash_decode_ref
     from repro_torch.serving import kv_cache as kvc
 
     B, Hk, g, D = q.shape
@@ -407,8 +441,7 @@ def k1_case(label, q, kf, vf, table, pos, page, flush=None, iters=20):
     bodies = {"bf16": ((kf.to(torch.bfloat16), vf.to(torch.bfloat16)), {}, None)}
     kq, ks = kvc.quantize_kv(kf)
     vq, vs = kvc.quantize_kv(vf)
-    step = int8_code_step(q[:, :, :, None], kv_view(kq), kv_view(ks), kv_view(vs),
-                          valid[:, None, None, None, :])[..., 0]
+    step = k1_int8_step(q, kq, ks, vs, table, pos, page)
     bodies["int8"] = ((kq, vq), dict(k_scale=ks, v_scale=vs), step)
     del kf, vf
     records = []
@@ -469,6 +502,23 @@ def k2_operands(q, kf, vf, table, pos, page):
     return (q, planes, sign, ks, vq, vs, phys, pos), kq
 
 
+def k2_plain(args, kq, plan):
+    """K2's plain version on ``args`` (:func:`k2_operands`) under ``plan``
+    (rounds, k_max, survivors): its output, its survivor lanes and the
+    per-row tolerance step of one flipped int8 probability code over the
+    survivors (the planes rebuild ``kq`` exactly)."""
+    from repro_torch.kernels.bgpp_paged_attend.ref import (
+        bgpp_paged_attend_ref, rows_at, rows_per_head)
+    from repro_torch.kernels.paged_flash_decode.ref import int8_code_step
+
+    q, _, _, ks, _, vs, phys, pos = args
+    want, idx = bgpp_paged_attend_ref(*args, **plan, return_indices=True)
+    surv_at = lambda a: rows_per_head(a, rows_at(phys.long(), idx.long()), False)
+    step = int8_code_step(q[:, :, :, None], surv_at(kq), surv_at(ks), surv_at(vs),
+                          (idx <= pos[:, None, None])[:, :, None, None, :])[..., 0]
+    return want, idx, step
+
+
 def k2_case(label, args, kq, flush=None, arch="phi4-mini-3.8b"):
     """K2 on one input set (:func:`k2_operands`), with the serving plan of
     its width (``kv_cache.bgpp_decode_plan`` at ``arch``'s keep ratio and
@@ -485,10 +535,8 @@ def k2_case(label, args, kq, flush=None, arch="phi4-mini-3.8b"):
     from repro_torch.configs import get_config
     from repro_torch.kernels import bgpp_paged_attend as bgpp_ops
     from repro_torch.kernels.bgpp_paged_attend import kernel as bgpp_kernel
-    from repro_torch.kernels.bgpp_paged_attend.ref import (
-        bgpp_paged_attend_ref, rows_at, rows_per_head)
+    from repro_torch.kernels.bgpp_paged_attend.ref import bgpp_paged_attend_ref
     from repro_torch.kernels.paged_flash_decode.kernel import sm_count
-    from repro_torch.kernels.paged_flash_decode.ref import int8_code_step
     from repro_torch.serving import kv_cache as kvc
 
     q, planes, sign, ks, vq, vs, phys, pos = args
@@ -505,7 +553,7 @@ def k2_case(label, args, kq, flush=None, arch="phi4-mini-3.8b"):
     got, idx = bgpp_ops.bgpp_paged_attend(*args, **plan, return_indices=True)
     again, idx2 = bgpp_ops.bgpp_paged_attend(*args, **plan, return_indices=True)
     serve, serve2 = (bgpp_ops.bgpp_paged_attend(*args, **plan) for _ in range(2))
-    want, want_idx = bgpp_paged_attend_ref(*args, **plan, return_indices=True)
+    want, want_idx, step = k2_plain(args, kq, plan)
     torch.cuda.synchronize()
     if not (torch.equal(got, again) and torch.equal(idx, idx2) and torch.equal(serve, serve2)):
         raise AssertionError(f"bgpp_paged_attend{where}: two launches on the same inputs "
@@ -513,11 +561,6 @@ def k2_case(label, args, kq, flush=None, arch="phi4-mini-3.8b"):
     if not torch.equal(idx, want_idx):
         bad = (idx != want_idx).nonzero()[:5].tolist()
         raise AssertionError(f"bgpp_paged_attend{where} selected other lanes, e.g. {bad}")
-    # the exact int8 attend over the survivors (planes rebuild kq exactly)
-    surv_at = lambda a: rows_per_head(a, rows_at(phys.long(), want_idx.long()), False)
-    idx_valid = want_idx <= pos[:, None, None]
-    step = int8_code_step(q[:, :, :, None], surv_at(kq), surv_at(ks), surv_at(vs),
-                          idx_valid[:, :, None, None, :])[..., 0]
     # with the indices and without them, as the serving path calls it
     err = max(check_rows(f"bgpp_paged_attend{where}", got, want, step),
               check_rows(f"bgpp_paged_attend{where} (no indices)", serve, want, step))
@@ -874,12 +917,18 @@ def bstc_record(w, cfg):
     return rec, weights.bstc_record_from_int8(rec["q"], rec["scale"], cfg)
 
 
+def bstc_tol(dense, x, scale):
+    """:func:`check_bstc`'s tolerance of each output: 1e-5 of its
+    ``Σ|w·x|``, times the scale where there is one."""
+    row = dense.abs().float() @ x.float().abs()
+    return 1e-5 * (row if scale is None else row * scale[:, None])
+
+
 def check_bstc(label, ops, x, dense, scale):
     """One K3 case: two launches on the same inputs must give identical
-    bits, and each output row must lie within 1e-5 of its ``Σ|w·x|``
-    (times the scale where there is one) of the plain version (the
-    products are exact, the sums run in another order).  Returns the
-    largest error."""
+    bits, and each output row must lie within :func:`bstc_tol` of the
+    plain version (the products are exact, the sums run in another
+    order).  Returns the largest error."""
     import torch
 
     from repro_torch.kernels.bstc_matmul import bstc_matmul
@@ -892,16 +941,13 @@ def check_bstc(label, ops, x, dense, scale):
     torch.cuda.synchronize()
     if not torch.equal(got, again):
         raise AssertionError(f"bstc_matmul {label}: two launches on the same inputs differ")
-    row = dense.abs().float() @ x.float().abs()
-    if apply:
-        row = row * scale[:, None]
+    tol = bstc_tol(dense, x, scale)
     err = (got - want).abs()
-    if bool((err > 1e-5 * row).any()):
-        at = (err > 1e-5 * row).nonzero()[0].tolist()
+    if bool((err > tol).any()):
+        at = (err > tol).nonzero()[0].tolist()
         raise AssertionError(f"bstc_matmul {label} ({x.dtype}, strides {x.stride()}) "
                              f"disagrees at {at}: "
-                             f"{err[tuple(at)].item():.3e} > 1e-5 x "
-                             f"{row[tuple(at)].item():.3e}")
+                             f"{err[tuple(at)].item():.3e} > {tol[tuple(at)].item():.3e}")
     return err.max().item()
 
 
@@ -2250,10 +2296,10 @@ MAIN_TRACE = dict(seed=0, n=6, lo=64, hi=512, new=16)
 # in prefill and every eager admission's sliding windows cut; max_seq 4096
 GEMMA_ARCH, GEMMA_TRACE, GEMMA_MAX_SEQ = "gemma3-4b", dict(seed=0, n=6, lo=1100, hi=2000,
                                                            new=16), 4096
-# its depth in the serving runs, cut from 34 to 6 layers (layer 5 global, 5
-# rings) to keep the whole script near its time beside the ssm, long_500k and
-# whisper phases; width, rings, heads and trace stay, and the traces below
-# run all 34 layers
+# its depth in the serving runs and the traces, cut from 34 to 6 layers
+# (layer 5 global, 5 rings) to keep the whole script near its time beside
+# the ssm, long_500k, whisper and sharded phases; width, rings, heads and
+# trace stay
 GEMMA_DEPTH = 6
 # deepseek-7b (an untied head, g 1): one chunked bf16-KV run, 3 requests
 DEEPSEEK_ARCH, DEEPSEEK_TRACE = "deepseek-7b", dict(seed=0, n=3, lo=64, hi=512, new=16)
@@ -2380,10 +2426,12 @@ def init_model(arch, device, depth=None, experts=None):
 
 
 def serve_runs(cfg, params, runs, trace_kw, max_seq, device, card, k3_per_step=None,
-               slots=4):
+               slots=4, rules=None):
     """Serve ``cfg`` in the paged layout (``slots`` slots, page 16, chunk
     budget 128) once per ``(KV format, weight format, admission)`` of ``runs`` on
-    the trace ``trace_kw``; every count zeroed just before the Scheduler is
+    the trace ``trace_kw`` (a run's fourth entry, where it has one, names
+    its layout; ``rules``: a sharded Scheduler's serving rules); every count
+    zeroed just before the Scheduler is
     built and read just after the run.  Each run must finish every request
     with well-formed logits, leak no page (a stack of rings only has no
     pool) and launch each kernel exactly as often as its path needs: K1 or
@@ -2403,14 +2451,17 @@ def serve_runs(cfg, params, runs, trace_kw, max_seq, device, card, k3_per_step=N
     import torch
 
     from repro_torch import kernels as K
-    from repro_torch.serving import engine, kv_cache as kvc
+    from repro_torch.serving import engine, kv_cache as kvc, sharded as shd
     from repro_torch.serving.scheduler import Scheduler
 
     L = cfg.num_layers
     launches, outcome, first_logits = {}, {}, {}
-    for fmt, wfmt, admission in runs:
-        run = f"{cfg.name} {fmt}/{wfmt}/{admission}"
-        layout = kvc.layout_for(cfg, slots, max_seq, kv_format=fmt, layout="paged",
+    for key in runs:
+        fmt, wfmt, admission = key[:3]
+        kind = key[3] if len(key) > 3 else "paged"
+        mesh = "" if rules is None else "mesh %dx%d " % shd.mesh_shape(rules)
+        run = f"{cfg.name} {mesh}{fmt}/{wfmt}/{admission}/{kind}"
+        layout = kvc.layout_for(cfg, slots, max_seq, kv_format=fmt, layout=kind,
                                 page_size=16)
         G = len(layout.global_layers)
         free_device()
@@ -2419,7 +2470,8 @@ def serve_runs(cfg, params, runs, trace_kw, max_seq, device, card, k3_per_step=N
         K.reset_launches()
         t0 = time.perf_counter()
         sched = Scheduler(params, cfg, layout, device=device, admission=admission,
-                          chunk_budget=128, record_logits=True, weight_format=wfmt)
+                          chunk_budget=128, record_logits=True, weight_format=wfmt,
+                          rules=rules)
         torch.cuda.synchronize()
         prep_s = time.perf_counter() - t0
         dec, pre = [], []
@@ -2490,9 +2542,9 @@ def serve_runs(cfg, params, runs, trace_kw, max_seq, device, card, k3_per_step=N
             if (len(r.generated) != r.max_new_tokens or rows.shape != (new, cfg.vocab_size)
                     or not np.isfinite(rows).all()):
                 raise AssertionError(f"{run}: request {r.rid} output is malformed")
-        if (fmt, wfmt, admission) == runs[0]:
+        if key == runs[0]:
             first_logits = {r.rid: r.logit_rows[0] for r in sched.finished}
-        outcome[(fmt, wfmt, admission)] = {
+        outcome[key] = {
             "tokens": {r.rid: list(r.generated) for r in sched.finished},
             "logits": {r.rid: np.stack(r.logit_rows) for r in sched.finished},
             "wall_s": stats["wall_s"], "steps": sched.step_count}
@@ -2512,7 +2564,7 @@ def serve_runs(cfg, params, runs, trace_kw, max_seq, device, card, k3_per_step=N
                   f"tokens); first-token logits vs the chunked {runs[0][0]} run: max |diff| "
                   f"{diff:.4e} = {diff / scale:.4e} of max |logit| {scale:.4e}; the same "
                   f"first token in {same} of {len(reqs)} requests")
-        print(f"[serve] {cfg.name} {fmt} paged, {wfmt} weights, {admission} admission: "
+        print(f"[serve] {cfg.name} {mesh}{fmt} {kind}, {wfmt} weights, {admission} admission: "
               f"{stats['finished_requests']} requests (prompts "
               f"{min(r.prompt_len for r in reqs)}-{max(r.prompt_len for r in reqs)} tokens), "
               f"{stats['decoded_tokens']} tokens, {steps} decode steps, "
@@ -2536,12 +2588,15 @@ def serve_runs(cfg, params, runs, trace_kw, max_seq, device, card, k3_per_step=N
 
 def serve_phase(device, card):
     """Serve full phi4-mini-3.8b for every run of :data:`SERVE_RUNS`
-    (:func:`serve_runs`), then speculatively for every run of
+    (:func:`serve_runs`), then through a sharded Scheduler for every run of
+    :data:`SHARDED_RUNS` (:func:`sharded_serve`), then speculatively for every run of
     :data:`SPEC_RUNS`, then through the asyncio front door
     (:func:`server_phase`); return the launches of each kernel on its own
     run, the front door's decode attends added."""
     cfg, params = init_model("phi4-mini-3.8b", device)
     launches, outcome = serve_runs(cfg, params, SERVE_RUNS, MAIN_TRACE, 1024, device, card)
+    for name, n in sharded_serve(cfg, params, outcome, device, card).items():
+        launches[name] = launches.get(name, 0) + n
     for fmt, wfmt in SPEC_RUNS:
         spec_run(params, cfg, fmt, wfmt, outcome[(fmt, wfmt, "chunked")]["tokens"], device,
                  card)
@@ -2550,6 +2605,336 @@ def serve_phase(device, card):
     del params
     free_device()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# sharded serving (ROADMAP item 7a): a mesh over torch.distributed
+# ---------------------------------------------------------------------------
+
+# (KV format, weight format, admission, layout) of each run through a sharded
+# Scheduler over an NCCL world of one on phi4-mini-3.8b's main trace; each is
+# held to the unsharded run of its formats and admission (the int8 slot run
+# to the paged one: slot = paged bit for bit); the eager run's admissions
+# are the sharded forward on the rank's heads (K5) and the owner's broadcast
+SHARDED_RUNS = (("bf16", "bf16", "chunked", "paged"), ("int8", "bf16", "chunked", "slot"),
+                ("bgpp", "bf16", "chunked", "paged"), ("bgpp", "bstc", "chunked", "paged"),
+                ("bf16", "bf16", "eager", "paged"))
+# the meshes whose ranks' decode launches run one after another on one card
+SHARD_MESHES = ((2, 1), (1, 4), (2, 4))
+
+
+def start_world():
+    """A ``torch.distributed`` world of one (NCCL) over a file store under
+    ``build/`` (no port); False where a world is already up."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return False
+    root = os.path.join(ROOT, "build", "dist")
+    os.makedirs(root, exist_ok=True)
+    store = os.path.join(tempfile.mkdtemp(dir=root), "store")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    return True
+
+
+def sharded_serve(cfg, params, outcome, device, card):
+    """Serve :data:`MAIN_TRACE` for every run of :data:`SHARDED_RUNS`
+    through a Scheduler with ``rules_for(1, 1)`` over an NCCL world of one
+    (:func:`serve_runs`: the same launch counts and checks): the layers'
+    collectives run through NCCL whatever the group's size.  Tokens must be
+    identical and logits bit-identical to the unsharded run of the same
+    formats in ``outcome``.  Returns the launches of each kernel."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.serving import sharded as shd
+
+    started = start_world()
+    try:
+        rules = shd.rules_for(1, 1, "cuda")
+        launches, got = serve_runs(cfg, params, SHARDED_RUNS, MAIN_TRACE, 1024, device, card,
+                                   rules=rules)
+        collective_cost(rules, device, card)
+    finally:
+        if started:
+            dist.destroy_process_group()
+    for key in SHARDED_RUNS:
+        want, have = outcome[key[:3]], got[key]
+        if have["tokens"] != want["tokens"]:
+            raise AssertionError(f"sharded {key}: tokens differ from the unsharded run")
+        diff = max(float(np.abs(have["logits"][r] - want["logits"][r]).max())
+                   for r in want["logits"])
+        if diff:
+            raise AssertionError(f"sharded {key}: logits differ from the unsharded run by "
+                                 f"up to {diff:.3e}")
+        print(f"[sharded] {cfg.name} mesh 1x1 over NCCL (world of one), {key[0]} {key[3]} KV, "
+              f"{key[1]} weights, {key[2]} admission: {len(want['tokens'])} requests, tokens "
+              f"identical and logits bit-identical to the unsharded {key[0]} paged "
+              f"{key[2]} run; {have['steps']} steps in {have['wall_s']} s (unsharded "
+              f"{want['wall_s']} s) [{card}]")
+    return launches
+
+
+def collective_cost(rules, device, card, calls=200) -> None:
+    """What one all-gather of a decode step costs on this world: the
+    heads' attend outputs of phi4-mini's decode (4 x 24 x 128 f32) through
+    ``sharding.all_gather`` and through ``all_gather_into_tensor`` alone,
+    host microseconds a call (``calls`` enqueued, then one synchronize)
+    and device microseconds a call (events around the same loop)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as sh
+
+    group = rules.mesh.get_group(rules.model_axis)
+    x = torch.randn((4, 24, 128), device=device)
+    out = torch.empty((4 * dist.get_world_size(group), 24, 128), device=device)
+    ways = {"sharding.all_gather": lambda: sh.all_gather(x, group, 1),
+            "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(out, x, group=group)}
+    for name, fn in ways.items():
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        host = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        print(f"[sharded] one decode-step all-gather (4 x 24 x 128 f32) over NCCL, world of "
+              f"one, {name}: {host:.1f} us of host a call enqueued, "
+              f"{a.elapsed_time(b) / calls * 1e3:.1f} us a call between events [{card}]")
+
+
+def _rank_slices(B, Hk, mesh):
+    """``(rank, slots, kv heads)`` of every rank of a ``(data, model)``
+    mesh over ``B`` slots and ``Hk`` kv heads."""
+    d, m = mesh
+    b, h = B // d, Hk // m
+    return [((i, j), slice(i * b, (i + 1) * b), slice(j * h, (j + 1) * h))
+            for i in range(d) for j in range(m)]
+
+
+def shard_kernel_phase(device, flush):
+    """Each mesh rank's decode launches, one after another on the card, at
+    phi4-mini-3.8b's decode geometry (Hq 24, Hk 8, D 128, 4 slots of 1024
+    lanes, page 16): for every rank of the meshes :data:`SHARD_MESHES`, K1
+    (bf16 and int8) and K2 on the rank's slots and kv heads (the pools whole
+    on every data rank, as the paged layout holds them) and K3 on its
+    column shard of ``wq`` and of ``lm_head`` (coded as matrices of their
+    own) must equal their slice of the whole launch bit for bit, planned at
+    the whole launch's geometry.  Every whole and rank launch is also held
+    to its plain version on the same operands (:func:`check_rows` with the
+    int8 bodies' code step; :func:`check_bstc`).  The same launches planned at their own
+    shapes are printed as a finding, and so is cuBLAS on a column shard
+    against the same columns of the whole product (f32 and bf16).  Returns
+    the records of the (2, 4) rank (0, 0)'s launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.bgpp_paged_attend import bgpp_paged_attend
+    from repro_torch.kernels.bgpp_paged_attend.ref import bgpp_paged_attend_ref
+    from repro_torch.kernels.paged_flash_decode import paged_flash_decode
+    from repro_torch.kernels.bstc_matmul import bstc_matmul
+    from repro_torch.kernels.bstc_matmul.ref import bstc_matmul_plain
+    from repro_torch.kernels.paged_flash_decode.ref import paged_flash_decode_ref
+    from repro_torch.serving import kv_cache as kvc, weights
+
+    cfg = get_config("phi4-mini-3.8b")
+    page = DECODE_PAGE
+    q, kf, vf, table, pos = decode_attend_inputs(device)
+    B, Hk, g, D = q.shape
+    whole = (B, Hk)
+    kq, ks = kvc.quantize_kv(kf)
+    vq, vs = kvc.quantize_kv(vf)
+    bodies = {"bf16": ((kf.to(torch.bfloat16), vf.to(torch.bfloat16)), {}),
+              "int8": ((kq, vq), dict(k_scale=ks, v_scale=vs))}
+    args, _ = k2_operands(q, kf, vf, table, pos, page)
+    rounds, k_max, surv = kvc.bgpp_decode_plan(DECODE_S, cfg)
+    k2kw = dict(rounds=rounds, k_max=k_max, survivors=surv)
+    kernels = {"bf16": paged_flash_decode, "int8": paged_flash_decode,
+               "bgpp": bgpp_paged_attend}
+    plains = {"bf16": paged_flash_decode_ref, "int8": paged_flash_decode_ref,
+              "bgpp": bgpp_paged_attend_ref}
+    # each row's tolerance beyond check_rows' 1e-5: one int8 probability code
+    steps = {"bf16": None, "int8": k1_int8_step(q, kq, ks, vs, table, pos, page),
+             "bgpp": k2_plain(args, kq, k2kw)[2]}
+
+    def sliced(name, b, h):
+        """The operands of ``name`` on slots ``b`` and kv heads ``h``
+        (copies): ``(args, kwargs)`` of the kernel and its plain version."""
+        if name == "bgpp":
+            a = args
+            return (a[0][b, h].contiguous(), a[1][:, :, h].contiguous(),
+                    a[2][:, h].contiguous(), a[3][:, h].contiguous(), a[4][:, h].contiguous(),
+                    a[5][:, h].contiguous(), a[6][b].contiguous(), a[7][b].contiguous()), k2kw
+        (k, v), sc = bodies[name]
+        return ((q[b, h].contiguous(), k[:, h].contiguous(), v[:, h].contiguous(),
+                 table[b].contiguous(), pos[b].contiguous()),
+                dict(page_size=page, **{n: x[:, h].contiguous() for n, x in sc.items()}))
+
+    def checked(label, name, b, h, got):
+        """``got`` held to the plain version on the same slice: its largest
+        error and largest error over :func:`row_tol`."""
+        a, kw = sliced(name, b, h)
+        step = None if steps[name] is None else steps[name][b, h]
+        want = plains[name](*a, **kw)
+        err = check_rows(label, got, want, step)
+        return err, ((got - want).abs().amax(-1) / row_tol(want, step)).max().item()
+
+    every = slice(None)
+    full = {name: kernels[name](*sliced(name, every, every)[0],
+                                **sliced(name, every, every)[1]) for name in kernels}
+    for name, y in full.items():
+        checked(f"{name} whole launch", name, every, every, y)
+    records, own, errs = [], {}, {}
+    for mesh in SHARD_MESHES:
+        for name in kernels:
+            for rank, b, h in _rank_slices(B, Hk, mesh):
+                a, kw = sliced(name, b, h)
+                got = kernels[name](*a, whole=whole, **kw)
+                if not torch.equal(got, full[name][b, h]):
+                    raise AssertionError(f"{name} rank {rank} of mesh {mesh}: not its slice "
+                                         f"of the whole launch")
+                errs[(mesh, name, rank)] = checked(f"{name} rank {rank} of mesh {mesh}", name,
+                                                   b, h, got)
+                alone = kernels[name](*a, **kw)
+                own[(mesh, name)] = own.get((mesh, name), 0) + int(
+                    not torch.equal(alone, full[name][b, h]))
+            err = max(e for (m_, n_, _), (e, _) in errs.items() if (m_, n_) == (mesh, name))
+            print(f"[shard] {'K2 bgpp_paged_attend' if name == 'bgpp' else f'K1 {name}'} on "
+                  f"the {mesh[0] * mesh[1]} ranks of mesh {mesh[0]}x{mesh[1]} (slots "
+                  f"{B // mesh[0]}, kv heads {Hk // mesh[1]} a rank): each rank bit-equal to "
+                  f"its slice of the whole launch at the whole geometry and within "
+                  f"check_rows of its plain version (max_abs_err {err:.3e}); planned at its "
+                  f"own shape, {own[(mesh, name)]} of {mesh[0] * mesh[1]} ranks differ")
+    # the (2, 4) rank (0, 0)'s launches, timed against their plain versions
+    rank, b, h = _rank_slices(B, Hk, (2, 4))[0]
+    label = (f" mesh 2x4 rank (0, 0): {B // 2} slots x {Hk // 4} kv heads, whole-launch "
+             f"plan")
+    case = (f"mesh 2x4 rank (0, 0): B {B // 2} Hk {Hk // 4} g {g} D {D} page {page} "
+            f"S {DECODE_S}, whole-launch plan")
+    for name in ("bf16", "int8"):
+        a, kw = sliced(name, b, h)
+        lq, lk, lt, lp = a[0], a[1], a[3], a[4]
+        run = lambda: paged_flash_decode(*a, whole=whole, **kw)
+        plain = lambda: paged_flash_decode_ref(*a, **kw)
+        n_valid = sum(min(int(p) + 1, DECODE_S) for p in lp.cpu()) * lq.shape[1]
+        row = 2 * D * lk.element_size() + (8 if len(kw) > 1 else 0)
+        io = lq.numel() * 8 + lt.numel() * 4 + lq.shape[0] * 4
+        err, ratio = errs[((2, 4), name, rank)]
+        rec = kernel_record(
+            f"paged_flash_decode_{name}", K1_SOURCE, K1_REPLACES[name], err,
+            time_ms(run, 20, flush), time_ms(plain, 20, flush), n_valid * row + io,
+            n_valid * 4 * g * D, name, None, label=label, case=case)
+        rec["err_over_tol"] = ratio
+        records.append(rec)
+    la, _ = sliced("bgpp", b, h)
+    run = lambda: bgpp_paged_attend(*la, whole=whole, **k2kw)
+    plain = lambda: bgpp_paged_attend_ref(*la, **k2kw)
+    err, ratio = errs[((2, 4), "bgpp", rank)]
+    rec = k2_record(la, err, time_ms(run, 20, flush), time_ms(plain, 20, flush),
+                    la[6].numel(), label)
+    rec.update(case=case, err_over_tol=ratio)
+    records.append(rec)
+    del bodies, args, full, steps, kf, vf, kq, vq
+    torch.cuda.empty_cache()
+    # K3 on column shards of wq and the head: the model axis splits weights;
+    # meshes (1, 4) and (2, 4) hold the same four shards
+    gen = torch.Generator(device=device).manual_seed(5)
+    d, m, N = cfg.d_model, 4, 4
+    x = torch.randn((d, N), generator=gen, device=device)
+    for pname, out in (("wq", cfg.q_dim), ("lm_head", cfg.vocab_size)):
+        w = (torch.randn((d, out), generator=gen, device=device) * d ** -0.5).to(torch.bfloat16)
+        rec = weights.quantize(w)
+        ops = weights.bstc_record_from_int8(rec["q"], rec["scale"], cfg)["bstc"]
+        whole_y = bstc_matmul(ops, x, apply_scale=True)
+        err = check_bstc(f"{pname} whole", ops, x, rec["q"].T.to(torch.int32), rec["scale"])
+        n, differ = out // m, 0
+        for r in range(m):
+            cols = slice(r * n, (r + 1) * n)
+            shard = weights._code(rec["q"][:, cols], rec["scale"][cols], cfg, roundtrip=False,
+                                  plan_rows=out)[0]["bstc"]
+            if not torch.equal(bstc_matmul(shard, x, apply_scale=True), whole_y[cols]):
+                raise AssertionError(f"bstc_matmul {pname} column shard {r} of {m}: not its "
+                                     f"rows of the whole launch")
+            q_cols = rec["q"][:, cols].T.to(torch.int32)
+            shard_err = check_bstc(f"{pname} column shard {r} of {m}", shard, x, q_cols,
+                                   rec["scale"][cols])
+            err = max(err, shard_err)
+            alone = dataclasses.replace(shard, plan_rows=0, _desc=None)
+            differ += int(not torch.equal(bstc_matmul(alone, x, apply_scale=True),
+                                          whole_y[cols]))
+            if pname == "lm_head" and r == 0:
+                run = lambda: bstc_matmul(shard, x, apply_scale=True)
+                plain = lambda: bstc_matmul_plain(shard, x, apply_scale=True)
+                dense = (rec["q"][:, cols].float() * rec["scale"][cols]).to(torch.bfloat16)
+                xb = x.T.to(torch.bfloat16).contiguous()
+                lib = time_ms(lambda: xb @ dense, 20, flush)
+                rk = kernel_record(
+                    "bstc_matmul", "src/repro_torch/csrc/bstc_matmul.cu",
+                    "src/repro/kernels/bstc_matmul/kernel.py:98",
+                    shard_err, time_ms(run, 20, flush),
+                    time_ms(plain, 5, flush),
+                    shard.stored_bytes + x.numel() * 4 + n * N * 4, 2 * n * d * N, "f32", lib,
+                    label=f" lm_head column shard 1 of {m} ({d} x {n}, N {N}), whole-launch "
+                          f"plan",
+                    case=f"lm_head column shard 1 of {m}: {d} x {n}, N {N}, whole-launch plan")
+                rk["err_over_tol"] = ((run() - plain()).abs()
+                                      / bstc_tol(q_cols, x, rec["scale"][cols])).max().item()
+                records.append(rk)
+            del shard, alone, q_cols
+        print(f"[shard] K3 bstc_matmul {pname} ({d} x {out}) in {m} column shards, each coded "
+              f"as its own matrix: each bit-equal to its rows of the whole launch at the "
+              f"whole geometry, the whole and every shard within check_bstc of the plain "
+              f"version (max_abs_err {err:.3e}); planned at its own rows, {differ} of {m} "
+              f"differ")
+        # cuBLAS (the raw-weight path's product, f32 as wdot upcasts, and bf16)
+        for dt in (torch.float32, torch.bfloat16):
+            xr, wr = x.T.contiguous().to(dt), w.to(dt)
+            full_p = xr @ wr
+            gap = max(float((xr @ wr[:, r * n:(r + 1) * n].contiguous()
+                             - full_p[:, r * n:(r + 1) * n]).abs().max()) for r in range(m))
+            print(f"[shard] cuBLAS x (4 x {d}) @ {pname} {str(dt)[6:]} column shards of {m} "
+                  f"against the whole product's columns: "
+                  f"{'bit-equal' if gap == 0 else f'max |diff| {gap:.3e}'}")
+        del w, rec, ops, whole_y
+        torch.cuda.empty_cache()
+    return records
+
+
+def multi_card_check(card) -> None:
+    """Where the machine has two or more cards, serve phi4-mini-3.8b's
+    smoke config on the ``(1, n)`` mesh through ``torchrun`` (NCCL, a rank a
+    card); otherwise say that it was not run."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"[sharded] the (1, n) mesh over several cards: not run ({n} card)")
+        return
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc-per-node={n}", "-m", "repro_torch.launch.serve", "--arch", "deepseek-7b",
+         "--mesh", f"1,{n}", "--kv-format", "bf16", "--kv-layout", "paged", "--requests", "4",
+         "--max-new", "8"], capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    if out.returncode:
+        raise AssertionError(f"torchrun on the (1, {n}) mesh failed: {out.stderr[-2000:]}")
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("[serve]")]
+    print(f"[sharded] the (1, {n}) mesh over {n} cards through torchrun [{card}]:")
+    for ln in lines[-4:]:
+        print(ln)
 
 
 def zoo_serve_phase(device, card):
@@ -3947,7 +4332,7 @@ def trace_phase(device):
     """After every timed serving run (a profiler trace slows later host
     work): phi4-mini's chunked runs trace a few steady decode steps and its
     eager run one whole-prompt admission (:data:`SERVE_RUNS`); gemma3-4b
-    at all 34 layers (its only full-depth run) traces steady bf16-KV and bgpp-KV
+    at :data:`GEMMA_DEPTH` layers traces steady bf16-KV and bgpp-KV
     decode and one eager admission of
     1100+ tokens, and prints K1's, K2's and K5's device ms a launch at
     D 256 on its serving path; llama4-scout (cut to
@@ -3975,7 +4360,7 @@ def trace_phase(device):
         free_device()
     del params
     free_device()
-    cfg, params = init_model(GEMMA_ARCH, device)
+    cfg, params = init_model(GEMMA_ARCH, device, GEMMA_DEPTH)
     for fmt, admission in (("bf16", "chunked"), ("bgpp", "chunked"), ("bf16", "eager")):
         layout = kvc.layout_for(cfg, 4, GEMMA_MAX_SEQ, kv_format=fmt, layout="paged",
                                 page_size=16)
@@ -4945,7 +5330,20 @@ def train_phase(device, card):
 
 
 PHASES = ("kernels", "head-widths", "long-context", "prefix", "score", "score-device", "decode",
-          "decode-attends", "ssm", "hybrid", "long-serve", "whisper", "server", "train")
+          "decode-attends", "ssm", "hybrid", "long-serve", "whisper", "server", "train",
+          "sharded")
+
+
+def sharded_only_phase(device, card):
+    """phi4-mini-3.8b's unsharded runs of :data:`SHARDED_RUNS`' formats,
+    then :func:`sharded_serve` against them and :func:`multi_card_check`."""
+    cfg, params = init_model("phi4-mini-3.8b", device)
+    _, outcome = serve_runs(cfg, params, tuple(k[:3] for k in SHARDED_RUNS), MAIN_TRACE, 1024,
+                            device, card)
+    sharded_serve(cfg, params, outcome, device, card)
+    del params
+    free_device()
+    multi_card_check(card)
 
 
 def main(argv=None) -> int:
@@ -4966,7 +5364,10 @@ def main(argv=None) -> int:
              "forward and whisper-smoke against the CPU, 'server' phi4-mini-3.8b's bf16 and "
              "bgpp offline runs then the asyncio front door over them, 'train' K5b's checks "
              "and the training path (smoke models against the CPU, phi4-mini-3.8b's full "
-             "training steps, the launcher's resume); without it "
+             "training steps, the launcher's resume), 'sharded' each mesh rank's K1 / K2 / "
+             "K3 launches against their slice of the whole launch, then phi4-mini-3.8b "
+             "served through a sharded Scheduler over NCCL against its unsharded runs; "
+             "without it "
              "every phase "
              "runs and the records are printed")
     only = parser.parse_args(argv).only
@@ -5014,6 +5415,8 @@ def main(argv=None) -> int:
         records += timed(long_context_phase, device, flush)
     if run("prefix"):
         records.append(timed(flash_prefix_phase, device, flush))
+    if run("kernels") or run("sharded"):
+        records += timed(shard_kernel_phase, device, flush)
     if run("score"):
         records += timed(bgpp_kernel_phase, device, flush)
     if run("kernels"):
@@ -5038,6 +5441,8 @@ def main(argv=None) -> int:
             server_only_phase(device, card)
         if run("train"):
             timed(train_phase, device, card)
+        if run("sharded"):
+            timed(sharded_only_phase, device, card)
         torch.cuda.synchronize()
         print(card)
         return 0
@@ -5046,6 +5451,7 @@ def main(argv=None) -> int:
     del l2
 
     launches = timed(serve_phase, device, card)
+    multi_card_check(card)
     for phase in (zoo_serve_phase, moe_serve_phase, vlm_serve_phase, long_serve_phase,
                   ssm_phase):
         timed(phase, device, card)

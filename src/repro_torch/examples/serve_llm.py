@@ -8,9 +8,12 @@ bit-planar BGPP KV cache).
         [--kv-layout slot|paged] [--page-size 8] [--shared-prefix 16]
         [--weight-format bf16|int8|bstc] [--server]
         [--spec-decode] [--draft-gamma 4] [--draft-planes 4]
-        [--chunk-budget 8] [--steps 24] [--batch 4]
+        [--chunk-budget 8] [--steps 24] [--batch 4] [--mesh D,M | --data D --model M]
 
-The port's counterpart of ``examples/serve_llm.py`` without ``--mesh``.
+The port's counterpart of ``examples/serve_llm.py``.  ``--mesh D,M``
+serves on a ``(data, model)`` mesh, one process a rank, as
+:mod:`repro_torch.launch.serve` does (``torchrun --nproc-per-node D*M``;
+``--mesh 1,1`` alone starts a world of one; rank 0 prints).
 It runs on ``--device cuda`` unless told otherwise; ``--full`` serves the
 published full-width config instead of the smoke one (random weights from
 a seeded generator on the device).
@@ -43,6 +46,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import (ARCH_REGISTRY, WEIGHT_FORMATS, apply_bgpp_overrides,
                                  apply_spec_decode_overrides, apply_weight_format_override,
                                  get_config, require_transformer)
+from repro_torch.launch import mesh
 from repro_torch.models import model_zoo
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving.request import Request
@@ -147,7 +151,9 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=24)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
+    mesh.add_mesh_args(ap)
     args = ap.parse_args(argv)
+    meshed = mesh.mesh_from_args(args)
 
     device = resolve_device(args.device)
     cfg = apply_bgpp_overrides(get_config(args.arch, smoke=not args.full),
@@ -156,6 +162,13 @@ def main(argv=None):
     cfg = apply_spec_decode_overrides(cfg, enabled=args.spec_decode or None,
                                       gamma=args.draft_gamma, planes=args.draft_planes)
     require_transformer(cfg, "examples.serve_llm")
+    rules, started, out = None, False, print
+    if meshed:
+        import torch.distributed as dist
+
+        device, rules, started = mesh.start_mesh(args.data, args.model, device)
+        if dist.get_rank() != 0:
+            out = lambda *a, **k: None  # noqa: E731 -- rank 0 reports
     rng = np.random.default_rng(0)
     params = model_zoo.init(cfg, torch.Generator(device=device).manual_seed(0), device)
     max_seq = args.prompt_len + args.steps + 8
@@ -164,8 +177,8 @@ def main(argv=None):
                             kv_format=args.kv_format, layout=args.kv_layout,
                             page_size=args.page_size)
     sched = Scheduler(params, cfg, layout, device=device, admission=args.admission,
-                      chunk_budget=args.chunk_budget)
-    print(f"[serve] cache: {kvc.cache_bytes(sched.cache)/1e6:.2f} MB "
+                      chunk_budget=args.chunk_budget, rules=rules)
+    out(f"[serve] cache: {kvc.cache_bytes(sched.cache)/1e6:.2f} MB "
           f"({len(layout.global_layers)} global / {len(layout.local_layers)} local layers) "
           f"on {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'CPU'}")
 
@@ -194,39 +207,44 @@ def main(argv=None):
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     stats = sched.stats(dt)
-    print(f"[serve] arch={cfg.name} kv={args.kv_format} admission={args.admission}: "
+    out(f"[serve] arch={cfg.name} kv={args.kv_format} admission={args.admission}: "
           f"decoded {stats['decoded_tokens']} tokens across {args.batch} seqs in "
           f"{dt*1e3:.1f} ms ({stats['tokens_per_s']:.1f} tok/s, "
           f"occupancy {stats['mean_occupancy']:.2f})")
-    print(f"[serve] ttft_s p50={stats['ttft_s']['p50']} p95={stats['ttft_s']['p95']}  "
+    out(f"[serve] ttft_s p50={stats['ttft_s']['p50']} p95={stats['ttft_s']['p95']}  "
           f"itl_s p50={stats['itl_s']['p50']} p95={stats['itl_s']['p95']}  "
           f"max prefill tokens/step={stats['max_prefill_tokens_per_step']}")
     kv = stats["kv_read"]
-    print(f"[serve] kv read/decode-step: {kv['decode_bytes_per_step']/1e3:.1f} kB vs "
+    out(f"[serve] kv read/decode-step: {kv['decode_bytes_per_step']/1e3:.1f} kB vs "
           f"{kv['decode_bf16_equiv_bytes_per_step']/1e3:.1f} kB bf16-equivalent "
           f"({kv['decode_bytes_reduction_vs_bf16']}x); bgpp full rows/slot/layer: "
           f"{kv.get('bgpp', {}).get('full_rows_per_slot', '-')}")
     wr = stats["weight_read"]
-    print(f"[serve] weight read/decode-step ({wr['weight_format']}): "
+    out(f"[serve] weight read/decode-step ({wr['weight_format']}): "
           f"{wr['decode_bytes_per_step']/1e3:.1f} kB vs "
           f"{wr['decode_bf16_equiv_bytes_per_step']/1e3:.1f} kB bf16-equivalent "
           f"({wr['decode_bytes_reduction_vs_bf16']}x, measured/modeled "
           f"{wr['measured_over_modeled']})")
     if "spec" in stats:
         sp = stats["spec"]
-        print(f"[serve] spec decode (gamma={sp['gamma']}, planes={sp['draft_planes']}): "
+        out(f"[serve] spec decode (gamma={sp['gamma']}, planes={sp['draft_planes']}): "
               f"accepted/step={sp['accepted_tokens_per_step']:.3f}, "
               f"{sp['accepted_tokens_per_round']:.2f} accepted/round, "
               f"kv {sp['kv_bytes_per_accepted_token']/1e3:.1f} kB and weight "
               f"{sp['weight_bytes_per_accepted_token']/1e3:.1f} kB per accepted token")
     if "paged" in stats:
         pg = stats["paged"]
-        print(f"[serve] paged: prefix hit rate {pg['prefix_hit_rate']:.3f}, "
+        out(f"[serve] paged: prefix hit rate {pg['prefix_hit_rate']:.3f}, "
               f"resident KV peak {pg['resident_kv_bytes_peak']/1e3:.1f} kB "
               f"vs {pg['slot_resident_kv_bytes']/1e3:.1f} kB slot-dense, "
               f"pages_in_use={pg['pages_in_use']}")
     for req in sorted(sched.finished, key=lambda r: r.rid)[:2]:
-        print(f"[serve] seq{req.rid}: {req.generated[:16]}...")
+        out(f"[serve] seq{req.rid}: {req.generated[:16]}...")
+    if meshed:
+        out(f"[serve] mesh {kv['mesh']['data']}x{kv['mesh']['model']} "
+            f"({kv['kv_shards']} kv shards): {kv['decode_bytes_per_device_per_step']/1e3:.1f} "
+            f"kB/device/step, interconnect {kv['interconnect_bytes_per_step']/1e3:.2f} kB/step")
+    mesh.stop_mesh(started)
     return stats
 
 

@@ -8,7 +8,7 @@ fallback.  GQA, plan, shape and context-length mistakes raise here.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -87,7 +87,7 @@ def _validate(q, k_planes, k_sign, k_scale, v, v_scale, phys, pos,
 
 
 def _validate_cuda(q, k_planes, k_sign, k_scale, v, v_scale, phys, pos, k_max,
-                   survivors) -> kernel.Plan:
+                   survivors, whole=None) -> kernel.Plan:
     """What the CUDA kernel additionally requires of its operands; returns
     the launch's :func:`kernel.plan` (which raises past the context cap,
     524,288 lanes; past one cluster's 32768 it plans the body whose
@@ -111,7 +111,8 @@ def _validate_cuda(q, k_planes, k_sign, k_scale, v, v_scale, phys, pos, k_max,
     for name, t in (("phys", phys), ("pos", pos)):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"bgpp_paged_attend: {name} must be contiguous int32")
-    return kernel.plan(B, Hk, g, D, phys.shape[1], k_max, survivors,
+    Bp, Hkp = (B, Hk) if whole is None else whole
+    return kernel.plan(Bp, Hkp, g, D, phys.shape[1], k_max, survivors,
                        sm_count(q.device))
 
 
@@ -129,13 +130,17 @@ def bgpp_paged_attend(
     k_max: int,
     survivors: Tuple[int, ...],
     return_indices: bool = False,
+    whole: Optional[Tuple[int, int]] = None,
 ):
     """Fused two-phase BGPP paged decode -> f32 ``(B, Hk, g, D)``.
 
     ``(rounds, k_max, survivors)`` is the plan from
     :func:`repro_torch.serving.kv_cache.bgpp_decode_plan`.  With
     ``return_indices`` the ``(B, Hk, k_max)`` int32 survivor lanes come back
-    too, in selection order (the kernel/plain comparison uses them)."""
+    too, in selection order (the kernel/plain comparison uses them).
+    ``whole`` is ``(B, Hk)`` of the unsharded launch a mesh rank's slice
+    belongs to: the plan takes its cluster split from it, so the rank's
+    output is that slice of the whole launch bit for bit."""
     survivors = tuple(int(s) for s in survivors)
     _validate(q, k_planes, k_sign, k_scale, v, v_scale, phys, pos,
               rounds, k_max, survivors)
@@ -147,7 +152,7 @@ def bgpp_paged_attend(
     if q.device.type != "cuda":
         raise ValueError(f"bgpp_paged_attend: no kernel for device {q.device}")
     geometry = _validate_cuda(q, k_planes, k_sign, k_scale, v, v_scale, phys, pos,
-                              k_max, survivors)
+                              k_max, survivors, whole)
     B, Hk = q.shape[:2]
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     idx = (torch.empty((B, Hk, k_max), dtype=torch.int32, device=q.device)

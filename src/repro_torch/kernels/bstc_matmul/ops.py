@@ -38,6 +38,10 @@ class BSTCMatmulOperands:
     m: int
     M: int
     H: int
+    # rows of the whole matrix a mesh rank's column shard was cut from (0:
+    # this matrix is whole): the launch plans at it, so the H split, and
+    # with it each row's order of sums, is the whole matrix's
+    plan_rows: int = 0
     # the kernel's plane table, built once at the first CUDA launch
     _desc: object = dataclasses.field(default=None, repr=False)
 
@@ -81,8 +85,10 @@ class BSTCMatmulOperands:
 
 
 def operands_from_encoded(bw: bstc.BSTCWeight, tile_k: int,
-                          scale: Optional[torch.Tensor] = None) -> BSTCMatmulOperands:
-    """An encoded weight -> kernel operands with ``tile_k``-column tiles."""
+                          scale: Optional[torch.Tensor] = None,
+                          plan_rows: int = 0) -> BSTCMatmulOperands:
+    """An encoded weight -> kernel operands with ``tile_k``-column tiles
+    (``plan_rows``: see :class:`BSTCMatmulOperands`)."""
     M, H = bw.shape
     if H % tile_k:
         raise ValueError(f"H={H} is not a multiple of tile_k={tile_k}")
@@ -94,7 +100,7 @@ def operands_from_encoded(bw: bstc.BSTCWeight, tile_k: int,
     return BSTCMatmulOperands(
         enc=tuple(enc), raw=tuple(bw.raw_planes[p] for p in raw_planes),
         sign_bits=bw.sign, scale=None if scale is None else scale.to(torch.float32),
-        enc_planes=enc_planes, raw_planes=raw_planes, m=bw.m, M=M, H=H)
+        enc_planes=enc_planes, raw_planes=raw_planes, m=bw.m, M=M, H=H, plan_rows=plan_rows)
 
 
 def prepare_bstc_matmul_operands(
@@ -141,7 +147,8 @@ def _validate_cuda(ops: BSTCMatmulOperands, x: torch.Tensor) -> Optional[kernel.
         raise ValueError(f"bstc_matmul: N={x.shape[1]} columns exceed the grid")
     geo = None  # nothing to launch for an empty output
     if ops.M and x.shape[1]:
-        geo = kernel.plan(ops.M, ops.H, x.shape[1], ops.tile_k, ops.m, sm_count(x.device),
+        geo = kernel.plan(ops.plan_rows or ops.M, ops.H, x.shape[1], ops.tile_k, ops.m,
+                          sm_count(x.device),
                           len(ops.enc_planes), len(ops.raw_planes), kernel.x_vectorizable(x))
     if ops._desc is not None:
         return geo

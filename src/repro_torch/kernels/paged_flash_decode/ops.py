@@ -9,7 +9,7 @@ at the call boundary.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -66,7 +66,8 @@ def _validate(q, k, v, page_ids, pos, page_size, k_scale, v_scale):
         raise ValueError("paged_flash_decode: operands lie on different devices")
 
 
-def _validate_cuda(q, k, v, page_ids, pos, page_size, k_scale, v_scale) -> kernel.Plan:
+def _validate_cuda(q, k, v, page_ids, pos, page_size, k_scale, v_scale,
+                   whole=None) -> kernel.Plan:
     """What the CUDA kernel additionally requires of its operands; returns
     the launch's :func:`kernel.plan`.  Every D up to 256 runs (at its
     compiled width, :func:`kernel.padded_dim`), every page size >= 1, and
@@ -92,7 +93,8 @@ def _validate_cuda(q, k, v, page_ids, pos, page_size, k_scale, v_scale) -> kerne
     for name, t in (("page_ids", page_ids), ("pos", pos)):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"paged_flash_decode: {name} must be contiguous int32")
-    return kernel.plan(B, Hk, g, D, page_ids.shape[1], page_size,
+    Bp, Hkp = (B, Hk) if whole is None else whole
+    return kernel.plan(Bp, Hkp, g, D, page_ids.shape[1], page_size,
                        kernel.sm_count(q.device), int8=k_scale is not None)
 
 
@@ -106,19 +108,26 @@ def paged_flash_decode(
     page_size: int,
     k_scale: Optional[torch.Tensor] = None,  # (n_tok, Hk) f32
     v_scale: Optional[torch.Tensor] = None,
+    whole: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Page-table-aware single-token decode attend -> f32 ``(B, Hk, g, D)``.
 
     bf16/f32 pools run the dense attend; passing ``k_scale``/``v_scale``
     selects the int8 A2/A3 body.  The page ids must address rows inside
-    the pool (the kernel trusts them, as the reference's gather does)."""
+    the pool (the kernel trusts them, as the reference's gather does).
+
+    ``whole`` is ``(B, Hk)`` of the unsharded launch a mesh rank's slice
+    belongs to: the plan takes its cluster split from it, so each (slot,
+    kv-head) cell merges its softmax over the same blocks as in the whole
+    launch and the rank's output is that slice of it bit for bit.  None:
+    the launch's own shape."""
     _validate(q, k, v, page_ids, pos, page_size, k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_flash_decode_ref(q, k, v, page_ids, pos, page_size=page_size,
                                       k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode: no kernel for device {q.device}")
-    geometry = _validate_cuda(q, k, v, page_ids, pos, page_size, k_scale, v_scale)
+    geometry = _validate_cuda(q, k, v, page_ids, pos, page_size, k_scale, v_scale, whole)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     kernel.launch(q, k, v, page_ids, pos, out, page_size, geometry, k_scale, v_scale)
     LAUNCHES["paged_flash_decode_bf16" if k_scale is None else "paged_flash_decode_int8"] += 1

@@ -40,13 +40,28 @@ def quantize_rows(x: torch.Tensor):
     return torch.clamp(torch.round(x / scale), -127, 127), scale
 
 
+def _cell_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a (B, Hk, g, Q, X) x b (B, Hk, X, Y) -> (B, Hk, g, Q, Y)``, each
+    (slot, kv-head) cell's product on its own on the CPU: a batched GEMM
+    there sums a cell in an order that moves with the number of cells
+    beside it, so a mesh rank's slots or heads would not give the bits of
+    the whole batch.  On the card one batched product."""
+    if a.device.type != "cpu" or a.shape[0] * a.shape[1] == 0:
+        return torch.einsum("bhgqx,bhxy->bhgqy", a, b)
+    B, H, g, Q, X = a.shape
+    cells = [a[i, j].reshape(g * Q, X) @ b[i, j] for i in range(B) for j in range(H)]
+    return torch.stack(cells).reshape(B, H, g, Q, b.shape[-1])
+
+
 def dense_attend(qg, k, v, mask) -> torch.Tensor:
     """bf16/f32 attend: qg ``(B, Hk, g, Q, D)`` f32, k/v ``(B, Hk, S, D)``,
-    mask broadcastable to ``(B, Hk, g, Q, S)`` -> f32 ``(B, Hk, g, Q, D)``."""
+    mask broadcastable to ``(B, Hk, g, Q, S)`` -> f32 ``(B, Hk, g, Q, D)``.
+    Each (slot, kv-head) cell's sums do not depend on the cells beside it
+    (:func:`_cell_products`)."""
     scale = qg.shape[-1] ** -0.5
-    logits = torch.einsum("bhgqd,bhsd->bhgqs", qg, k.float()) * scale
+    logits = _cell_products(qg, k.float().transpose(-1, -2)) * scale
     probs = softmax(torch.where(mask, logits, NEG_INF))
-    return torch.einsum("bhgqs,bhsd->bhgqd", probs, v.float())
+    return _cell_products(probs, v.float())
 
 
 def int8_weights(qg, k, k_scale, v_scale, mask) -> torch.Tensor:

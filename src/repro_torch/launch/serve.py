@@ -10,10 +10,20 @@ paged layout, request scheduler).
         [--bgpp-rounds 4] [--bgpp-keep-ratio 0.25] \\
         [--weight-format bf16|int8|bstc] \\
         [--spec-decode] [--draft-gamma 4] [--draft-planes 4] \\
-        [--server] [--disconnect-every 3] [--disconnect-after 1] [--trace-out trace.json]
+        [--server] [--disconnect-every 3] [--disconnect-after 1] [--trace-out trace.json] \
+        [--mesh D,M | --data D --model M]
 
-The counterpart of ``repro.launch.serve`` without ``--mesh`` (a later
-slice).  ``--arch`` takes every registered
+    torchrun --nproc-per-node D*M -m repro_torch.launch.serve --mesh D,M ...
+
+The counterpart of ``repro.launch.serve``.  ``--mesh D,M`` serves on a
+``(data, model)`` mesh of ``D * M`` ranks (:mod:`repro_torch.serving.sharded`,
+the dense family), one process a rank: under ``torchrun`` the world comes
+from its environment, NCCL on the card (each rank on the card of its
+``LOCAL_RANK``) and gloo with ``--device cpu``; run without ``torchrun``,
+``--mesh 1,1`` starts a world of one.  Every rank serves the same trace;
+rank 0 prints, with a ``[serve] mesh DxM`` line of the reference's mesh
+columns, and the JSON gains ``mesh``.  ``--server`` takes no mesh.
+``--arch`` takes every registered
 architecture; the dense ones serve (phi4-mini, gemma3-1b / 4b with their
 sliding-window rings, deepseek-7b with its untied head), and so do the MoE
 ones (mixtral-8x22b: 8 experts top-2, every layer a sliding-window ring;
@@ -68,6 +78,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import (ARCH_REGISTRY, WEIGHT_FORMATS, apply_bgpp_overrides,
                                  apply_spec_decode_overrides, apply_weight_format_override,
                                  get_config, require_transformer)
+from repro_torch.launch import mesh
 from repro_torch.models import model_zoo
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving.request import poisson_trace
@@ -130,7 +141,9 @@ def main(argv=None):
                     help="--server: disconnecting clients hang up after this many "
                          "streamed tokens")
     ap.add_argument("--trace-out", default=None)
+    mesh.add_mesh_args(ap)
     args = ap.parse_args(argv)
+    meshed = mesh.mesh_from_args(args)
 
     device = resolve_device(args.device)
     cfg = apply_bgpp_overrides(get_config(args.arch, smoke=not args.full),
@@ -141,12 +154,19 @@ def main(argv=None):
     require_transformer(cfg, "launch.serve")
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    rules, started, out = None, False, print
+    if meshed:
+        import torch.distributed as dist
+
+        device, rules, started = mesh.start_mesh(args.data, args.model, device)
+        if dist.get_rank() != 0:
+            out = lambda *a, **k: None  # noqa: E731 -- rank 0 reports
     gen = torch.Generator(device=device).manual_seed(0)
     params = model_zoo.init(cfg, gen, device)
     layout = kvc.layout_for(cfg, args.slots, args.max_seq, kv_format=args.kv_format,
                             layout=args.kv_layout, page_size=args.page_size)
     sched = Scheduler(params, cfg, layout, device=device, admission=args.admission,
-                      chunk_budget=args.chunk_budget)
+                      chunk_budget=args.chunk_budget, rules=rules)
     max_prompt = min(args.max_prompt, args.max_seq - 2 - args.shared_prefix)
     if max_prompt < 1:
         raise SystemExit("--shared-prefix leaves no room for prompts")
@@ -170,60 +190,67 @@ def main(argv=None):
             sched.step()
             if len(sched.finished) != done:
                 done = len(sched.finished)
-                print(f"[serve] {done}/{args.requests} requests "
+                out(f"[serve] {done}/{args.requests} requests "
                       f"({sched.decoded_tokens} tokens, step {sched.step_count})")
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0
         stats = sched.stats(dt)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU")
-    print(f"[serve] arch={cfg.name} kv={args.kv_format} layout={args.kv_layout} "
+    out(f"[serve] arch={cfg.name} kv={args.kv_format} layout={args.kv_layout} "
           f"weights={sched.weight_format} admission={args.admission} "
           f"device={where}: {stats['finished_requests']} requests, "
           f"{stats['decoded_tokens']} tokens in {dt:.1f}s "
           f"({stats['tokens_per_s']:.1f} tok/s, mean occupancy "
           f"{stats['mean_occupancy']:.2f})")
-    print(f"[serve] ttft_s p50={stats['ttft_s']['p50']} p95={stats['ttft_s']['p95']}  "
+    out(f"[serve] ttft_s p50={stats['ttft_s']['p50']} p95={stats['ttft_s']['p95']}  "
           f"itl_s p50={stats['itl_s']['p50']} p95={stats['itl_s']['p95']}  "
           f"max prefill tokens/step={stats['max_prefill_tokens_per_step']}")
     if args.server:
         pages = (f" pages_in_use={stats['paged']['pages_in_use']}" if "paged" in stats else "")
-        print(f"[serve] server: cancelled={stats['cancelled_requests']} "
+        out(f"[serve] server: cancelled={stats['cancelled_requests']} "
               f"shed={stats['shed_requests']} preemptions={stats['preemptions']} "
               f"disconnects={sum(c['disconnected'] for c in stats['clients'])}{pages}")
         for tier, t in stats["tiers"].items():
-            print(f"[serve] tier {tier}: finished={t['finished']} cancelled={t['cancelled']} "
+            out(f"[serve] tier {tier}: finished={t['finished']} cancelled={t['cancelled']} "
                   f"shed={t['shed']} preemptions={t['preemptions']} "
                   f"ttft_s p50={t['ttft_s']['p50']} itl_s p50={t['itl_s']['p50']} "
                   f"p95={t['itl_s']['p95']}")
     kv = stats["kv_read"]
-    print(f"[serve] kv read: {kv['decode_bytes']/1e6:.2f} MB decode + "
+    out(f"[serve] kv read: {kv['decode_bytes']/1e6:.2f} MB decode + "
           f"{kv['prefill_bytes']/1e6:.2f} MB prefill; "
           f"{kv['decode_bytes_per_step']/1e3:.1f} kB/decode-step "
           f"(bf16-equivalent {kv['decode_bf16_equiv_bytes_per_step']/1e3:.1f} kB, "
           f"{kv['decode_bytes_reduction_vs_bf16']}x reduction)")
+    out(f"[serve] mesh {kv['mesh']['data']}x{kv['mesh']['model']} "
+        f"({kv['kv_shards']} kv shards): "
+        f"{kv['decode_bytes_per_device_per_step']/1e3:.1f} kB/device/step, "
+        f"interconnect {kv['interconnect_bytes_per_step']/1e3:.2f} kB/step "
+        f"({kv['interconnect_bytes']/1e6:.2f} MB total: attend all-gather "
+        f"{kv['interconnect']['attend_allgather']/1e3:.2f} kB/step + paged "
+        f"write bcast {kv['interconnect']['paged_write_bcast']/1e3:.2f})")
     if "spec" in stats:
         sp = stats["spec"]
-        print(f"[serve] spec decode (gamma={sp['gamma']}, planes={sp['draft_planes']}, "
+        out(f"[serve] spec decode (gamma={sp['gamma']}, planes={sp['draft_planes']}, "
               f"source={sp['draft_source']}): "
               f"accepted/step={sp['accepted_tokens_per_step']:.3f} "
               f"({sp['accepted_tokens']} tokens, {sp['rounds']} rounds, "
               f"{sp['accepted_tokens_per_round']:.2f}/round, draft hit rate "
               f"{sp['draft_hit_rate']:.2f})")
-        print(f"[serve] spec bytes/accepted-token: "
+        out(f"[serve] spec bytes/accepted-token: "
               f"kv {sp['kv_bytes_per_accepted_token']/1e3:.1f} kB, "
               f"weight {sp['weight_bytes_per_accepted_token']/1e3:.1f} kB "
               f"(modeled bit-plane draft "
               f"{sp['modeled_weight_bytes_per_accepted_token']/1e3:.1f} kB)")
     if "bgpp" in kv:
         bg = kv["bgpp"]
-        print(f"[serve] bgpp two-phase: {bg['rounds']} rounds, "
+        out(f"[serve] bgpp two-phase: {bg['rounds']} rounds, "
               f"{bg['full_rows_per_slot']} full-precision rows per (slot, layer) per "
               f"step; per-step bytes = sign {bg['sign_bytes']/1e3:.1f} kB + planes "
               f"{bg['plane_bytes']/1e3:.1f} kB + top-k full "
               f"{bg['topk_full_bytes']/1e3:.1f} kB")
     wr = stats["weight_read"]
-    print(f"[serve] weight read ({wr['weight_format']}): "
+    out(f"[serve] weight read ({wr['weight_format']}): "
           f"{wr['decode_bytes']/1e6:.2f} MB decode + {wr['prefill_bytes']/1e6:.2f} MB "
           f"prefill; {wr['decode_bytes_per_step']/1e3:.1f} kB/decode-step "
           f"(bf16-equivalent {wr['decode_bf16_equiv_bytes_per_step']/1e3:.1f} kB, "
@@ -231,16 +258,18 @@ def main(argv=None):
           f"{wr['measured_over_modeled']})")
     if "paged" in stats:
         pg = stats["paged"]
-        print(f"[serve] paged: prefix hit rate {pg['prefix_hit_rate']:.3f} "
+        out(f"[serve] paged: prefix hit rate {pg['prefix_hit_rate']:.3f} "
               f"({pg['prefix_hit_tokens']} tokens over {pg['prefix_hits']} hits), "
               f"resident KV peak {pg['resident_kv_bytes_peak']/1e3:.1f} kB vs "
               f"{pg['slot_resident_kv_bytes']/1e3:.1f} kB slot-dense, "
               f"pages_in_use={pg['pages_in_use']}")
-    if args.trace_out:
+    if args.trace_out and out is print:
         stats["config"] = {k: v for k, v in vars(args).items() if k != "trace_out"}
+        stats["config"]["mesh"] = [args.data, args.model]
         with open(args.trace_out, "w") as f:
             json.dump(stats, f, indent=2)
-        print(f"[serve] trace -> {args.trace_out}")
+        out(f"[serve] trace -> {args.trace_out}")
+    mesh.stop_mesh(started)
     return stats
 
 

@@ -27,6 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import attention
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import layers, mamba2, moe, transformer
 from repro_torch.models.layers import _dtype
 
@@ -49,6 +50,30 @@ def _pos_kinds(cfg, j: int) -> Tuple[bool, bool]:
     """``(is_attention, is_moe)`` for in-block position ``j``."""
     return (j % cfg.attn_every == cfg.attn_offset,
             cfg.num_experts > 0 and j % cfg.moe_every == cfg.moe_offset)
+
+
+def _pos_specs(cfg, j: int) -> Params:
+    is_attn, is_moe = _pos_kinds(cfg, j)
+    s: Params = {"norm1": layers.norm_specs(cfg.norm)}
+    if is_attn:
+        s["attn"] = layers.attention_specs()
+    else:
+        s["mamba"] = mamba2.mixer_specs()
+    s["norm2"] = layers.norm_specs(cfg.norm)
+    s["moe" if is_moe else "mlp"] = (moe.moe_specs(cfg) if is_moe
+                                     else layers.mlp_specs(cfg.activation))
+    return s
+
+
+def param_specs(cfg) -> Params:
+    """The logical-axis tree of :func:`init`'s parameters."""
+    specs: Params = {"embed": (sh.VOCAB, sh.D_MODEL),
+                     "blocks": {f"pos{j}": sh.stacked(_pos_specs(cfg, j))
+                                for j in range(_period(cfg))},
+                     "final_norm": layers.norm_specs(cfg.norm)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (sh.D_MODEL, sh.VOCAB)
+    return specs
 
 
 def init(cfg, generator: torch.Generator, device="cuda") -> Params:

@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels.bstc_matmul import bstc_matmul
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -54,6 +55,33 @@ def apply_norm(x: torch.Tensor, params, kind: str) -> torch.Tensor:
     if kind == "ln":
         return layer_norm(x, params["scale"], params["bias"])
     raise ValueError(f"apply_norm: unknown norm {kind!r}")
+
+
+def norm_specs(kind: str):
+    """A norm's logical axes: the scale (and ``ln``'s bias) on ``d_model``."""
+    if kind == "rms":
+        return {"scale": (sh.D_MODEL,)}
+    return {"scale": (sh.D_MODEL,), "bias": (sh.D_MODEL,)}
+
+
+def mlp_specs(activation: str):
+    """The MLP's logical axes: ``ff`` on the hidden side of each matrix."""
+    if activation in ("swiglu", "geglu"):
+        return {"gate": (sh.D_MODEL, sh.FF), "up": (sh.D_MODEL, sh.FF),
+                "down": (sh.FF, sh.D_MODEL)}
+    return {"up": (sh.D_MODEL, sh.FF), "up_b": (sh.FF,), "down": (sh.FF, sh.D_MODEL),
+            "down_b": (sh.D_MODEL,)}
+
+
+def attention_specs(qk_norm: bool = False):
+    """The attention projections' logical axes: heads on the output of
+    ``wq`` / ``wk`` / ``wv`` and on the input of ``wo``."""
+    specs = {"wq": (sh.D_MODEL, sh.HEADS), "wk": (sh.D_MODEL, sh.KV_HEADS),
+             "wv": (sh.D_MODEL, sh.KV_HEADS), "wo": (sh.HEADS, sh.D_MODEL)}
+    if qk_norm:
+        specs["q_norm"] = {"scale": (None,)}
+        specs["k_norm"] = {"scale": (None,)}
+    return specs
 
 
 def norm_init(dim: int, kind: str, dtype, device, stack: Tuple[int, ...] = ()):

@@ -26,6 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import layers, transformer
 from repro_torch.models.layers import _dtype
 
@@ -36,6 +37,13 @@ def _dims(cfg) -> Tuple[int, int, int]:
     """``(d_in, N, H)``: the inner width, the state width and the heads."""
     d_in = cfg.ssm_expand * cfg.d_model
     return d_in, cfg.ssm_state, d_in // cfg.ssm_head_dim
+
+
+def mixer_specs() -> Params:
+    """Logical axes of one mamba mixer: ``ff`` on its inner width."""
+    return {"in_proj": (sh.D_MODEL, sh.FF), "conv_w": (sh.CONV, sh.FF), "conv_b": (sh.FF,),
+            "A_log": (None,), "D": (None,), "dt_bias": (None,), "norm": {"scale": (sh.FF,)},
+            "out_proj": (sh.FF, sh.D_MODEL)}
 
 
 def mixer_init(cfg, generator: torch.Generator, device, dtype, stack: int) -> Params:
@@ -218,6 +226,13 @@ def init_mixer_state(cfg, batch: int, dtype, device="cuda") -> Dict[str, torch.T
 # --------------------------------------------------------------------------
 # the attention-free LM (mamba2-1.3b)
 # --------------------------------------------------------------------------
+
+
+def param_specs(cfg) -> Params:
+    """The logical-axis tree of :func:`init`'s parameters."""
+    layer = {"norm": layers.norm_specs(cfg.norm), "mixer": mixer_specs()}
+    return {"embed": (sh.VOCAB, sh.D_MODEL), "layers": sh.stacked(layer),
+            "final_norm": layers.norm_specs(cfg.norm)}
 
 
 def init(cfg, generator: torch.Generator, device="cuda") -> Params:

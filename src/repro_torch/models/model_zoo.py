@@ -6,8 +6,8 @@ config's layers carry :mod:`repro_torch.models.moe` FFNs; a VLM's forward
 puts its projected image patches before the tokens), the ssm family on
 :mod:`repro_torch.models.mamba2`, the hybrid (jamba) on
 :mod:`repro_torch.models.hybrid` and the enc_dec family on
-:mod:`repro_torch.models.whisper`.  There are no logical-axis specs:
-sharding is a later slice.
+:mod:`repro_torch.models.whisper`.  :func:`param_specs` gives each
+family's logical-axis tree, as the reference's.
 """
 
 from __future__ import annotations
@@ -34,6 +34,19 @@ def init(cfg, generator: torch.Generator, device="cuda") -> Params:
     if cfg.family == "enc_dec":
         return whisper.init(cfg, generator, device)
     return transformer.init_params(cfg, generator, device)
+
+
+def param_specs(cfg) -> Params:
+    """The logical-axis tree of :func:`init`'s parameters (pure data, the
+    reference's trees)."""
+    require_served(cfg, "model_zoo.param_specs")
+    if cfg.family == "ssm":
+        return mamba2.param_specs(cfg)
+    if cfg.family == "hybrid":
+        return hybrid.param_specs(cfg)
+    if cfg.family == "enc_dec":
+        return whisper.param_specs(cfg)
+    return transformer.param_specs(cfg)
 
 
 def forward(params: Params, cfg, batch: Dict[str, torch.Tensor], **kw):

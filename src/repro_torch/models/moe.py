@@ -33,10 +33,23 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.topk import top_k
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import layers
 from repro_torch.models.layers import _dtype
 
 Params = Dict[str, Any]
+
+
+def moe_specs(cfg, ep: bool = False) -> Params:
+    """Logical axes of one MoE FFN: ``ff`` on the experts' hidden side
+    (``expert`` on their leading axis instead under expert parallelism)."""
+    expert_axis = sh.EXPERT if ep else None
+    ff_axis = None if ep else sh.FF
+    specs = {"router": (sh.D_MODEL, None), "gate": (expert_axis, sh.D_MODEL, ff_axis),
+             "up": (expert_axis, sh.D_MODEL, ff_axis), "down": (expert_axis, ff_axis, sh.D_MODEL)}
+    if cfg.moe_shared_ff:
+        specs["shared"] = layers.mlp_specs(cfg.activation)
+    return specs
 
 
 def moe_init(cfg, generator: torch.Generator, device="cuda", stack: int = 0) -> Params:

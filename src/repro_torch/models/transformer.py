@@ -26,7 +26,9 @@ the full configs).  A VLM's forward takes ``vision_embeds``: their
 projection runs before the tokens, positions count from the first patch,
 and every layer attends under prefix_causal with the patch count as its
 window.  ``remat`` recomputes each layer in the backward, as the
-reference's ``jax.checkpoint`` does; sharding rules are not ported.
+reference's ``jax.checkpoint`` does.  Under a mesh (eager admission on a
+sharded Scheduler) it runs on one rank's heads and vocab: see
+``forward``'s ``split``.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import require_transformer
 from repro_torch.core import attention
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import layers, moe
 from repro_torch.models.layers import _dtype
 from repro_torch.utils.tree import tree_leaves, tree_map
@@ -78,6 +81,31 @@ def layer_thetas(cfg) -> np.ndarray:
         local = kind in ("sliding", "chunked") and cfg.rope_theta_local > 0
         out.append(cfg.rope_theta_local if local else cfg.rope_theta)
     return np.asarray(out, np.float32)
+
+
+def _layer_specs(cfg) -> Params:
+    s: Params = {"attn_norm": layers.norm_specs(cfg.norm),
+                 "attn": layers.attention_specs(cfg.qk_norm),
+                 "mlp_norm": layers.norm_specs(cfg.norm)}
+    if cfg.num_experts > 0:
+        s["moe"] = moe.moe_specs(cfg)
+    else:
+        s["mlp"] = layers.mlp_specs(cfg.activation)
+    if cfg.post_norms:
+        s["post_attn_norm"] = layers.norm_specs(cfg.norm)
+        s["post_mlp_norm"] = layers.norm_specs(cfg.norm)
+    return s
+
+
+def param_specs(cfg) -> Params:
+    """The logical-axis tree of :func:`init_params`'s parameters."""
+    specs: Params = {"embed": (sh.VOCAB, sh.D_MODEL), "layers": sh.stacked(_layer_specs(cfg)),
+                     "final_norm": layers.norm_specs(cfg.norm)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (sh.D_MODEL, sh.VOCAB)
+    if cfg.family == "vlm":
+        specs["vision_proj"] = (None, sh.D_MODEL)
+    return specs
 
 
 def init_params(cfg, generator: torch.Generator, device="cuda") -> Params:
@@ -137,24 +165,29 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> Params:
     return params
 
 
-def embed_tokens(params: Params, cfg, tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(params: Params, cfg, tokens: torch.Tensor,
+                 split: Optional[sh.ModelSplit] = None) -> torch.Tensor:
     """Token embeddings in the model dtype, times ``sqrt(d_model)`` (rounded
-    to that dtype) where the config asks for it (gemma)."""
+    to that dtype) where the config asks for it (gemma).  A mesh rank's
+    ``split`` looks rows up in its vocab share (:func:`sh.embed_lookup`)."""
     dtype = _dtype(cfg.dtype)
-    x = params["embed"][tokens].to(dtype)
+    x = sh.embed_lookup(params["embed"], tokens, split).to(dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype, device=x.device)
     return x
 
 
-def lm_logits(params: Params, cfg, x: torch.Tensor) -> torch.Tensor:
+def lm_logits(params: Params, cfg, x: torch.Tensor,
+              split: Optional[sh.ModelSplit] = None) -> torch.Tensor:
     """The final norm and the head: the untied ``lm_head`` (a raw leaf or a
-    serve-time record), else the tied ``embed.T`` in the model dtype."""
+    serve-time record), else the tied ``embed.T`` in the model dtype.  A
+    mesh rank's ``split`` gathers its vocab columns over ``"model"``."""
     x = layers.apply_norm(x, params["final_norm"], cfg.norm)
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T.to(_dtype(cfg.dtype))
-    return layers.wdot(x, head)
+    logits = layers.wdot(x, head)
+    return sh.gather_vocab(logits, split)
 
 
 def layer_params(tree: Params, i: int) -> Params:
@@ -190,14 +223,17 @@ def run_layer(fn, remat: bool, *args):
 
 
 def _attention_block(p, cfg, x, positions, theta: float, window: int, mask_kind: str,
-                     return_kv: bool = False):
+                     return_kv: bool = False, split: Optional[sh.ModelSplit] = None):
     """Norm, QKV (qk-norm where set) with RoPE, ``blocked_attend``, ``wo``
     and the post-attention norm where set.  x ``(B, S, d)`` -> ``(out, (k,
-    v) or None)`` with k / v ``(B, S, Hk, Dh)``."""
+    v) or None)`` with k / v ``(B, S, Hk, Dh)``.  A mesh rank's ``split``
+    projects and attends its heads and gathers them before ``wo``."""
     h = layers.apply_norm(x, p["attn_norm"], cfg.norm)
-    q, k, v = layers.qkv_project(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
-                                 cfg.head_dim, positions, theta, qk_norm=cfg.qk_norm)
-    attn = attention.blocked_attend(q, k, v, mask_kind=mask_kind, window=window)
+    Hq, Hk = sh.local_heads(cfg, split)
+    q, k, v = layers.qkv_project(p["attn"], h, Hq, Hk, cfg.head_dim, positions, theta,
+                                 qk_norm=cfg.qk_norm)
+    attn = sh.gather_heads(attention.blocked_attend(q, k, v, mask_kind=mask_kind,
+                                                    window=window), split, 2)
     B, S = attn.shape[:2]
     out = layers.wdot(attn.reshape(B, S, -1), p["attn"]["wo"])
     if cfg.post_norms:
@@ -225,10 +261,10 @@ def _ffn_block(p, cfg, x):
 
 
 def _layer(p, x, positions, *, cfg, theta: float, window: int, mask_kind: str,
-           return_kv: bool):
+           return_kv: bool, split: Optional[sh.ModelSplit] = None):
     """One layer: ``x + attn``, then ``+ ffn`` -> ``(x, aux, kv)``."""
     a, kv = _attention_block(p, cfg, x, positions, theta, window, mask_kind,
-                             return_kv=return_kv)
+                             return_kv=return_kv, split=split)
     x = x + a
     f, aux = _ffn_block(p, cfg, x)
     return x + f, aux, kv
@@ -236,7 +272,8 @@ def _layer(p, x, positions, *, cfg, theta: float, window: int, mask_kind: str,
 
 def forward(params: Params, cfg, tokens: torch.Tensor, return_kv: bool = False,
             vision_embeds: Optional[torch.Tensor] = None, block_q: Optional[int] = None,
-            block_k: Optional[int] = None, remat: bool = False):
+            block_k: Optional[int] = None, remat: bool = False,
+            split: Optional[sh.ModelSplit] = None):
     """tokens ``(B, S)`` -> ``(logits (B, S', V), aux[, (k_all, v_all)])``.
 
     The residual stream runs in ``cfg.dtype``; ``aux`` is a 0-d float32
@@ -252,10 +289,13 @@ def forward(params: Params, cfg, tokens: torch.Tensor, return_kv: bool = False,
     ``remat`` recomputes each layer in the backward instead of keeping its
     activations (:func:`run_layer`).  ``block_q`` / ``block_k`` (the
     reference's attention tiles) are accepted and ignored: the kernel's
-    plan sets its own tiles."""
+    plan sets its own tiles.  ``split``: a mesh rank's place on the model
+    axis (:class:`repro_torch.distributed.sharding.ModelSplit`; eager
+    admission on a mesh): the rank's heads (its K / V), the vocab-split
+    embedding and head, the whole logits."""
     require_transformer(cfg, "forward")
     B, S = tokens.shape
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, split)
     mask_kind = _mask_kind(cfg)
     windows = layer_windows(cfg)
     if cfg.family == "vlm":
@@ -275,13 +315,13 @@ def forward(params: Params, cfg, tokens: torch.Tensor, return_kv: bool = False,
     for i, p in enumerate(layer_slices(params["layers"], cfg.num_layers)):
         x, aux_l, kv = run_layer(
             functools.partial(_layer, cfg=cfg, theta=float(thetas[i]), window=int(windows[i]),
-                              mask_kind=mask_kind, return_kv=return_kv),
+                              mask_kind=mask_kind, return_kv=return_kv, split=split),
             remat, p, x, positions)
         aux = aux + aux_l
         if return_kv:
             ks.append(kv[0])
             vs.append(kv[1])
-    logits = lm_logits(params, cfg, x)
+    logits = lm_logits(params, cfg, x, split)
     if return_kv:
         return logits, aux, (torch.stack(ks), torch.stack(vs))
     return logits, aux

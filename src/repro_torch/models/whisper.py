@@ -38,10 +38,22 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import attention
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import layers, transformer
 from repro_torch.models.layers import _dtype
 
 Params = Dict[str, Any]
+
+
+def param_specs(cfg) -> Params:
+    """The logical-axis tree of :func:`init`'s parameters."""
+    enc = {"norm1": layers.norm_specs(cfg.norm), "attn": layers.attention_specs(),
+           "norm2": layers.norm_specs(cfg.norm), "mlp": layers.mlp_specs("gelu")}
+    dec = dict(enc, norm_x=layers.norm_specs(cfg.norm), xattn=layers.attention_specs())
+    return {"embed": (sh.VOCAB, sh.D_MODEL), "audio_proj": (None, sh.D_MODEL),
+            "encoder": sh.stacked(enc), "decoder": sh.stacked(dec),
+            "enc_final_norm": layers.norm_specs(cfg.norm),
+            "final_norm": layers.norm_specs(cfg.norm)}
 
 
 def init(cfg, generator: torch.Generator, device="cuda") -> Params:

@@ -32,6 +32,17 @@ launches the ``flash_attention`` kernel on the card) and write every
 layer's K/V through ``kv_cache.write_prefill``; ``prefill_into_slot`` is
 the Scheduler's eager admission.
 
+``make_serve_step``, ``make_prefill_chunk`` / ``ChunkedPrefill`` and
+``prefill_into_slot`` take the reference's ``rules``: with a mesh the dense
+family runs as explicit SPMD on this rank's shard
+(:class:`repro_torch.serving.sharded.Shard`): q / k / v on the rank's
+heads, its slots of the decode batch, the KV writes and attends local, one
+all-gather of the heads' attend outputs over ``"model"`` before ``wo``,
+the vocab-split embedding and head, the logits gathered over ``"model"``
+then ``"data"``; a paged pool takes the step's K / V rows of every data
+rank.  The kernels plan at the whole launch's geometry.  No rules (or no
+mesh) is the single-device path, unchanged.
+
 ``make_serve_step`` also decodes the families the reference decodes
 outside its Scheduler: ssm (a mamba state a layer, no KV), hybrid (jamba:
 per layer, the attention layers over the global store without RoPE and
@@ -76,10 +87,11 @@ import torch
 
 from repro_torch.configs.base import require_served, require_transformer
 from repro_torch.core.attention import NEG_INF
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels.bgpp_paged_attend import ref as bgpp_ref
 from repro_torch.kernels.paged_flash_decode.ref import dense_attend, int8_attend, softmax
 from repro_torch.models import layers, mamba2, transformer
-from repro_torch.serving import kernel_decode, kv_cache as kvc, weights as swt
+from repro_torch.serving import kernel_decode, kv_cache as kvc, sharded as shd, weights as swt
 
 Tree = Dict[str, Any]
 
@@ -208,27 +220,30 @@ def _paged_kw(layout):
     return dict(page_size=layout.page_size, max_seq=layout.max_seq)
 
 
-def _local_decode_attend(q1, cache, li: int, k, v, pos, cfg, layout, layer_idx: int):
-    """One local (ring) layer's decode: the token's K/V land at lane
-    ``pos % W`` with ``abs_pos`` = pos, then q ``(B, Hq, Dh)`` attends the
-    lanes inside its sliding (or chunked) window — plain PyTorch, as the
-    reference's ``jnp``.  Returns f32 ``(B, Hq, Dh)``."""
-    B = q1.shape[0]
+def _local_decode_attend(q1, cache, li: int, k, v, pos, cfg, layout, layer_idx: int,
+                         rows: slice = slice(None)):
+    """One local (ring) layer's decode: the tokens' K/V ``(N, 1, Hk, Dh)``
+    at ``pos`` ``(N,)`` land at lane ``pos % W`` with ``abs_pos`` = pos, then
+    q ``(B, Hq, Dh)`` attends the lanes of ring rows ``rows`` inside its
+    sliding (or chunked) window — plain PyTorch, as the reference's
+    ``jnp``.  Returns f32 ``(B, Hq, Dh)``."""
     store = cache["local"]
     lane = (pos % layout.local_window).long()
     kvc.write_token(store, li, k, v, lane)
-    store["abs_pos"][li, torch.arange(B, device=pos.device), lane] = pos
-    abs_pos, pos_c = store["abs_pos"][li], pos[:, None]  # (B, W), (B, 1)
+    store["abs_pos"][li, torch.arange(k.shape[0], device=pos.device), lane] = pos
+    pos = pos[rows]
+    abs_pos, pos_c = store["abs_pos"][li][rows], pos[:, None]  # (B, W), (B, 1)
     kind, w = cfg.layer_attn_window(layer_idx)
     if kind == "chunked":
         valid = (abs_pos >= 0) & (abs_pos // w == pos_c // w) & (abs_pos <= pos_c)
     else:
         valid = (abs_pos >= 0) & (pos_c - abs_pos < w) & (abs_pos <= pos_c)
-    entry = {n: a[li] for n, a in store.items() if n != "abs_pos"}
+    entry = {n: a[li][rows] for n, a in store.items() if n != "abs_pos"}
     return _decode_attend(q1, entry, valid, cfg, kvc.local_format(layout))
 
 
-def _attn_decode_layer(p, norm, cfg, layout, cache, x, pos, layer_idx, theta, phys=None):
+def _attn_decode_layer(p, norm, cfg, layout, cache, x, pos, layer_idx, theta, phys=None,
+                       shard=None, pos_all=None):
     """x ``(B, 1, D)``, pos per-slot ``(B,)``; ``norm`` the layer's
     pre-norm, ``p`` its ``attn`` (and ``post_attn_norm`` where set).
     Write-then-attend: the token's K/V land at ``pos`` first (a local
@@ -236,25 +251,38 @@ def _attn_decode_layer(p, norm, cfg, layout, cache, x, pos, layer_idx, theta, ph
     :func:`kernel_decode.decode_attend` and a local layer's through
     :func:`_local_decode_attend`.  RoPE at ``theta`` on q and k; none with
     ``theta=None`` (the hybrid's attention, the reference's ``use_rope``).
-    Returns ``(out, cache)``."""
+    With a ``shard`` x holds the rank's slots and the projections its
+    heads; where the stores are whole on every data rank (paged) the K/V
+    of every slot (gathered over ``"data"``) are written at ``pos_all``
+    and the rank's rows attended, and the heads' outputs are gathered over
+    ``"model"`` before ``wo``.  Returns ``(out, cache)``."""
     B = x.shape[0]
     h = layers.apply_norm(x, norm, cfg.norm)
     positions = None if theta is None else pos[:, None]
-    q, k, v = layers.qkv_project(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
-                                 cfg.head_dim, positions, theta, qk_norm=cfg.qk_norm)
+    split = shd.model_split(shard)
+    Hq, Hk = sh.local_heads(cfg, split)
+    q, k, v = layers.qkv_project(p["attn"], h, Hq, Hk, cfg.head_dim, positions, theta,
+                                 qk_norm=cfg.qk_norm)
+    paged = layout.layout == "paged"
+    rows, kw, vw, pw = slice(None), k, v, pos
+    if shard is not None and not shard.split_stores:  # stores whole on every data rank
+        rows = slice(shard.lo, shard.hi)
+        kw, vw, pw = shard.gather_slots(k), shard.gather_slots(v), pos_all
     if layer_idx in layout.local_layers:
         out = _local_decode_attend(q[:, 0], cache, layout.local_layers.index(layer_idx),
-                                   k, v, pos, cfg, layout, layer_idx)
+                                   kw, vw, pw, cfg, layout, layer_idx, rows)
     else:
         gi = layout.global_layers.index(layer_idx)
-        paged = layout.layout == "paged"
-        kvc.write_token(cache["global"], gi, k, v, pos,
+        kvc.write_token(cache["global"], gi, kw, vw, pw,
                         **(dict(page_table=cache["page_table"], **_paged_kw(layout))
                            if paged else {}))
         out = kernel_decode.decode_attend(
-            q[:, 0], cache["global"], gi, pos, cfg, layout, phys=phys,
-            page_table=cache["page_table"] if paged else None,
+            q[:, 0], cache["global"], gi, pos, cfg, layout,
+            phys=None if phys is None else phys[rows],
+            page_table=cache["page_table"][rows] if paged else None,
+            whole=None if shard is None else (layout.batch, cfg.num_kv_heads),
         )
+    out = sh.gather_heads(out, split, 1)
     # the f32 attend output meets wo as it is, like the reference's
     # ``wdot(out_f32, wo)``: at bf16 width the contraction and the residual
     # stream run in f32 from layer 0's attend on (the chunk prefill casts
@@ -310,7 +338,16 @@ def _whisper_decode_layer(p, cfg, layout, cache, x, pos, layer_idx: int, phys, c
     return x, cache
 
 
-def make_serve_step(cfg, layout: kvc.CacheLayout):
+def _mesh_family(cfg, shard, who: str) -> None:
+    """Under a mesh only the dense family is served (item 7c is the rest)."""
+    if shard is not None and cfg.family != "dense":
+        raise NotImplementedError(
+            f"{who}: family {cfg.family!r} under a mesh is ROADMAP item 7c (MoE token "
+            f"groups, ssm / hybrid state, the enc_dec cross memory, the VLM); the "
+            f"dense family is served sharded")
+
+
+def make_serve_step(cfg, layout: kvc.CacheLayout, rules=None):
     """Build the batched decode step for one (cfg, layout):
 
         serve_step(params, cache, tokens (B, 1)) -> (logits (B, 1, V), cache)
@@ -328,8 +365,13 @@ def make_serve_step(cfg, layout: kvc.CacheLayout):
     per decoder layer, self-attention (global, RoPE at ``cfg.rope_theta``),
     cross-attention over ``cache["cross_k"]`` / ``["cross_v"]`` and the
     GELU MLP; the cross memory must already hold the encoder's K / V
-    (:func:`repro_torch.models.whisper.cross_kv`)."""
+    (:func:`repro_torch.models.whisper.cross_kv`).  ``rules`` with a mesh:
+    the step runs on this rank's shard of params and cache (module
+    docstring) and returns every slot's logits on every rank."""
     require_served(cfg, "make_serve_step")
+    shard = shd.Shard.of(cfg, layout, rules)
+    _mesh_family(cfg, shard, "make_serve_step")
+    split = shd.model_split(shard)
     if layout.global_layers:
         kernel_decode.validate(cfg, layout)
     thetas = transformer.layer_thetas(cfg)
@@ -344,10 +386,12 @@ def make_serve_step(cfg, layout: kvc.CacheLayout):
         """One batched decode token for every slot at its own position."""
         if weight_format != "bf16":
             swt.check_serve_params(params, cfg, weight_format)
-        pos = cache["pos"]
+        pos = pos_all = cache["pos"]
         phys = (kvc.phys_table(cache["page_table"], layout.page_size, layout.max_seq)
                 if paged and layout.kv_format == "bgpp" and layout.global_layers else None)
-        x = transformer.embed_tokens(params, cfg, tokens[:, :1])
+        if shard is not None:
+            pos, tokens = pos_all[shard.lo:shard.hi], tokens[shard.lo:shard.hi]
+        x = transformer.embed_tokens(params, cfg, tokens[:, :1], split)
         if cfg.family == "enc_dec":
             x = x + layers.sinusoid_at(pos, cfg.d_model).to(x.dtype)[:, None, :]
             cross_valid = torch.ones((x.shape[0], cfg.encoder_seq), dtype=torch.bool,
@@ -376,11 +420,14 @@ def make_serve_step(cfg, layout: kvc.CacheLayout):
                 x = x + m
                 continue
             a, cache = _attn_decode_layer(p, p["attn_norm"], cfg, layout, cache, x, pos, i,
-                                          float(thetas[i]), phys=phys)
+                                          float(thetas[i]), phys=phys, shard=shard,
+                                          pos_all=pos_all)
             x = x + a
             x = x + _ffn_decode_layer(p, p["mlp_norm"], cfg, x)
-        logits = transformer.lm_logits(params, cfg, x)
-        cache["pos"] = pos + 1
+        logits = transformer.lm_logits(params, cfg, x, split)
+        if shard is not None:
+            logits = shard.gather_slots(logits)
+        cache["pos"] = pos_all + 1
         return logits, cache
 
     return serve_step
@@ -425,7 +472,8 @@ def prefill(params, cfg, layout: kvc.CacheLayout, tokens: torch.Tensor,
 
 
 def prefill_into_slot(params, cfg, layout: kvc.CacheLayout, cache, slot: int,
-                      prompt: torch.Tensor, vision_embeds: Optional[torch.Tensor] = None):
+                      prompt: torch.Tensor, vision_embeds: Optional[torch.Tensor] = None,
+                      rules=None):
     """Eager admission: one B=1 forward over ``prompt`` (``(S,)`` or
     ``(1, S)``, ``S < max_seq`` so the first decoded token has a row; a
     VLM's behind ``vision_embeds`` ``(1, Tv, d_vision)``), then
@@ -433,8 +481,12 @@ def prefill_into_slot(params, cfg, layout: kvc.CacheLayout, cache, slot: int,
     live cache, in place, and ``pos = S``.  Paged layouts write through the
     cache's page table: the caller maps pages covering ``[0, S)`` first
     (writes to unmapped pages drop).  Returns ``(last_logits (1, 1, V),
-    cache)``."""
+    cache)``.  Under ``rules`` with a mesh the forward runs on the rank's
+    heads; in the slot layout only the data rank holding ``slot`` runs it
+    and broadcasts its logits."""
     require_transformer(cfg, "prefill_into_slot")
+    shard = shd.Shard.of(cfg, layout, rules)
+    _mesh_family(cfg, shard, "prefill_into_slot")
     tokens = prompt[None] if prompt.ndim == 1 else prompt
     if tokens.shape[0] != 1:
         raise ValueError(f"prefill_into_slot: one prompt per admission, got "
@@ -443,14 +495,27 @@ def prefill_into_slot(params, cfg, layout: kvc.CacheLayout, cache, slot: int,
     if not 0 < S < layout.max_seq:
         raise ValueError(f"prefill_into_slot: prompt length {S} needs at least one "
                          f"decode slot below max_seq {layout.max_seq}")
+    row = slot if shard is None else shard.row(slot)
+    if row < 0:  # another data rank holds the slot: its logits come from there
+        cache = kvc.reset_slot(cache, layout, slot, row=row)
+        cache["pos"][slot] = S
+        return shard.from_owner(_logits_buffer(cfg, 1, tokens.device), slot), cache
     logits, _, (k_all, v_all) = transformer.forward(params, cfg, tokens, return_kv=True,
-                                                    vision_embeds=vision_embeds)
-    cache = kvc.reset_slot(cache, layout, slot)
+                                                    vision_embeds=vision_embeds,
+                                                    split=shd.model_split(shard))
+    cache = kvc.reset_slot(cache, layout, slot, row=row)
     paged_kw = (dict(page_table=cache["page_table"], **_paged_kw(layout))
                 if layout.layout == "paged" and layout.global_layers else {})
-    _write_prompt(cache, layout, k_all, v_all, slot=slot, **paged_kw)
+    _write_prompt(cache, layout, k_all, v_all, slot=row, **paged_kw)
     cache["pos"][slot] = S
-    return logits[:, -1:], cache
+    logits = logits[:, -1:]
+    return (logits if shard is None else shard.from_owner(logits, slot)), cache
+
+
+def _logits_buffer(cfg, C: int, device) -> torch.Tensor:
+    """A ``(1, C, V)`` buffer of the admission paths' logits dtype (the
+    model dtype: they read the raw tree) to receive a broadcast into."""
+    return torch.empty((1, C, cfg.vocab_size), dtype=layers._dtype(cfg.dtype), device=device)
 
 
 # --------------------------------------------------------------------------
@@ -481,7 +546,7 @@ def _chunk_attend_local(cfg, layout, store, li: int, slot: int, q, k, v, qpos,
     by presence and the sliding / chunked rule.  Returns f32 ``(1, C, Hq,
     Dh)``."""
     _, C, Hq, Dh = q.shape
-    Hk = cfg.num_kv_heads
+    Hk = k.shape[2]
     g = Hq // Hk
     W = layout.local_window
     dev = q.device
@@ -515,14 +580,17 @@ def _chunk_attend_local(cfg, layout, store, li: int, slot: int, q, k, v, qpos,
 
 
 def _attn_chunk_layer(p, cfg, layout, cache, x, slot, offset, length, layer_idx,
-                      theta, phys=None):
+                      theta, phys=None, split=None):
     """One attention layer of the chunk forward.  x ``(1, C, D)``; ``phys``
-    (paged) the slot's ``(1, S_max)`` gather map."""
+    (paged) the slot's ``(1, S_max)`` gather map; ``slot`` the row of the
+    rank's slot-major stores.  With a model-axis ``split`` the rank's
+    heads, gathered over ``"model"`` before ``wo``."""
     B, C, _ = x.shape
     h = layers.apply_norm(x, p["attn_norm"], cfg.norm)
     qpos = offset + torch.arange(C, device=x.device)
-    q, k, v = layers.qkv_project(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
-                                 cfg.head_dim, qpos[None], theta, qk_norm=cfg.qk_norm)
+    Hq, Hk = sh.local_heads(cfg, split)
+    q, k, v = layers.qkv_project(p["attn"], h, Hq, Hk, cfg.head_dim, qpos[None], theta,
+                                 qk_norm=cfg.qk_norm)
     if layer_idx in layout.local_layers:
         li = layout.local_layers.index(layer_idx)
         kind, w = cfg.layer_attn_window(layer_idx)
@@ -530,7 +598,7 @@ def _attn_chunk_layer(p, cfg, layout, cache, x, slot, offset, length, layer_idx,
                                   offset, kind, w)
         kvc.write_prefill_local(cache["local"], li, k, v, layout.local_window, slot=slot,
                                 offset=offset, length=length)
-        return _chunk_out(p, cfg, out, x), cache
+        return _chunk_out(p, cfg, out, x, split), cache
     gi = layout.global_layers.index(layer_idx)
     store = cache["global"]
     if layout.layout == "paged":
@@ -551,45 +619,57 @@ def _attn_chunk_layer(p, cfg, layout, cache, x, slot, offset, length, layer_idx,
         out = _cache_attend(q, entry, valid, cfg, "int8")
     else:
         out = _cache_attend(q, view, valid, cfg, layout.kv_format)
-    return _chunk_out(p, cfg, out, x), cache
+    return _chunk_out(p, cfg, out, x, split), cache
 
 
-def _chunk_out(p, cfg, out, x):
-    """The chunk attend's f32 output cast to the activation dtype, ``wo``
-    and the post-attention norm where set."""
+def _chunk_out(p, cfg, out, x, split=None):
+    """The chunk attend's f32 output cast to the activation dtype (its
+    heads gathered over ``"model"`` under a ``split``), ``wo`` and the
+    post-attention norm where set."""
     B, C = x.shape[:2]
-    out = layers.wdot(out.to(x.dtype).reshape(B, C, -1), p["attn"]["wo"])
+    out = sh.gather_heads(out.to(x.dtype), split, 2)
+    out = layers.wdot(out.reshape(B, C, -1), p["attn"]["wo"])
     if cfg.post_norms:
         out = layers.apply_norm(out, p["post_attn_norm"], cfg.norm)
     return out
 
 
-def make_prefill_chunk(cfg, layout: kvc.CacheLayout):
-    """Build the chunk step for one (cfg, layout):
+def make_prefill_chunk(cfg, layout: kvc.CacheLayout, rules=None):
+    """Build the chunk step for one (cfg, layout, rules):
 
         prefill_chunk(params, cache, tokens (1, C), slot, offset, length)
             -> (logits (1, C, V), cache)
 
     The chunk's KV lands at ``[offset, offset+length)`` of row ``slot`` and
-    ``cache['pos'][slot]`` is set to ``offset + length``."""
+    ``cache['pos'][slot]`` is set to ``offset + length``.  With a mesh the
+    chunk runs on the rank's heads; in the slot layout only the data rank
+    holding ``slot`` runs it and broadcasts its logits over ``"data"``."""
     require_transformer(cfg, "make_prefill_chunk")
+    shard = shd.Shard.of(cfg, layout, rules)
+    _mesh_family(cfg, shard, "make_prefill_chunk")
+    split = shd.model_split(shard)
     thetas = transformer.layer_thetas(cfg)
 
     def prefill_chunk(params, cache, tokens, slot: int, offset: int, length: int):
         """One fixed-shape (1, C) prefill chunk against the live cache."""
+        row = slot if shard is None else shard.row(slot)
+        if row < 0:  # another data rank holds the slot
+            cache["pos"][slot] = offset + length
+            return shard.from_owner(_logits_buffer(cfg, tokens.shape[1], tokens.device),
+                                    slot), cache
         phys = (kvc.phys_table(cache["page_table"], layout.page_size,
                                layout.max_seq)[slot][None]
                 if layout.layout == "paged" and layout.global_layers else None)
-        x = transformer.embed_tokens(params, cfg, tokens)
+        x = transformer.embed_tokens(params, cfg, tokens, split)
         for i in range(cfg.num_layers):
             p = transformer.layer_params(params["layers"], i)
-            a, cache = _attn_chunk_layer(p, cfg, layout, cache, x, slot, offset,
-                                         length, i, float(thetas[i]), phys=phys)
+            a, cache = _attn_chunk_layer(p, cfg, layout, cache, x, row, offset,
+                                         length, i, float(thetas[i]), phys=phys, split=split)
             x = x + a
             x = x + _ffn_decode_layer(p, p["mlp_norm"], cfg, x)
-        logits = transformer.lm_logits(params, cfg, x)
+        logits = transformer.lm_logits(params, cfg, x, split)
         cache["pos"][slot] = offset + length
-        return logits, cache
+        return (logits if shard is None else shard.from_owner(logits, slot)), cache
 
     return prefill_chunk
 
@@ -608,13 +688,15 @@ class ChunkedPrefill:
     prompt (the tests' whole-prompt reference: with a bucket >= the prompt
     length it is a single fixed-shape forward)."""
 
-    def __init__(self, cfg, layout: kvc.CacheLayout, buckets: Tuple[int, ...] = (8, 16)):
+    def __init__(self, cfg, layout: kvc.CacheLayout, buckets: Tuple[int, ...] = (8, 16),
+                 rules=None):
         self.cfg = cfg
         self.layout = layout
         self.buckets = tuple(sorted({int(b) for b in buckets}))
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"ChunkedPrefill: bad buckets {buckets}")
-        self._chunk = make_prefill_chunk(cfg, layout)
+        self.shard = shd.Shard.of(cfg, layout, rules)
+        self._chunk = make_prefill_chunk(cfg, layout, rules)
         self._widths_run = set()
 
     def bucket_for(self, n: int) -> int:
@@ -632,7 +714,9 @@ class ChunkedPrefill:
 
     def reset(self, cache, slot: int):
         """Scrub one slot (the first step of every admission)."""
-        return kvc.reset_slot(cache, self.layout, int(slot))
+        slot = int(slot)
+        row = slot if self.shard is None else self.shard.row(slot)
+        return kvc.reset_slot(cache, self.layout, slot, row=row)
 
     def run_chunk(self, params, cache, slot: int, chunk_tokens, offset: int):
         """One fixed-shape chunk: pads ``chunk_tokens`` (length n <= the

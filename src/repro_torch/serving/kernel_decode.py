@@ -1,6 +1,10 @@
 """Route the engine's global-layer decode attend onto the kernel families.
 
-Counterpart of :mod:`repro.serving.kernel_decode` without ``shard_map``.
+Counterpart of :mod:`repro.serving.kernel_decode`.  Its ``shard_map``
+has no counterpart: under a mesh each rank calls these on its own (slot,
+kv-head) shard with no collective, and hands down the whole launch's
+``(B, Hk)`` so the kernels plan the cluster split of the unsharded launch
+and each rank's output is its slice of that launch bit for bit.
 
 * ``paged_flash_decode`` — bf16 / int8 dense attend.  The paged layout
   passes its token-major pools and page table straight into the kernel.
@@ -86,7 +90,7 @@ def _pool_views(store: Tree, gi: int, fmt: str, slot_layout: bool) -> Tree:
     return {n: _rows_view(store[n][gi], n == "k_planes") for n in names}
 
 
-def _attend_local(q1, pool: Tree, pos, table, cfg, layout):
+def _attend_local(q1, pool: Tree, pos, table, cfg, layout, whole=None):
     """Run the kernel family -> f32 ``(B, Hq, Dh)``.  ``table`` is the page
     table (dense formats) or the phys map (bgpp); ``None`` (slot layout)
     builds the identity map over :func:`_rows_view`'s rows."""
@@ -104,7 +108,7 @@ def _attend_local(q1, pool: Tree, pos, table, cfg, layout):
         out = bgpp_paged_attend(
             qg, pool["k_planes"], pool["k_sign"], pool["k_scale"], pool["v"],
             pool["v_scale"], table, pos, rounds=rounds, k_max=k_max,
-            survivors=survivors,
+            survivors=survivors, whole=whole,
         )
     else:
         if table is None:  # slot: page j of slot b is rows b*Hk*S + j*P ...
@@ -116,17 +120,18 @@ def _attend_local(q1, pool: Tree, pos, table, cfg, layout):
         scales = ({} if layout.kv_format == "bf16"
                   else {"k_scale": pool["k_scale"], "v_scale": pool["v_scale"]})
         out = paged_flash_decode(qg, pool["k"], pool["v"], table, pos,
-                                 page_size=page_size, **scales)
+                                 page_size=page_size, whole=whole, **scales)
     return out.reshape(B, Hq, Dh)
 
 
 def decode_attend(q1, store: Tree, gi: int, pos, cfg, layout, phys=None,
-                  page_table=None):
+                  page_table=None, whole=None):
     """Kernel-backed global-layer decode attend.
 
     q1 ``(B, Hq, Dh)``; ``store`` is ``cache["global"]``; ``pos`` the
     per-slot positions ``(B,)``.  Paged layouts pass ``phys`` (bgpp) and
     ``page_table`` (dense formats); the slot layout passes neither.
+    ``whole``: the unsharded launch's ``(B, Hk)`` on a mesh rank.
     Returns f32 ``(B, Hq, Dh)`` matching the engine's attend."""
     fmt = layout.kv_format
     slot = layout.layout != "paged"
@@ -134,4 +139,5 @@ def decode_attend(q1, store: Tree, gi: int, pos, cfg, layout, phys=None,
     if not slot:
         table = (phys if fmt == "bgpp" else page_table).to(torch.int32).contiguous()
     pool = _pool_views(store, gi, fmt, slot)
-    return _attend_local(q1, pool, pos.to(torch.int32).contiguous(), table, cfg, layout)
+    return _attend_local(q1, pool, pos.to(torch.int32).contiguous(), table, cfg, layout,
+                         whole)

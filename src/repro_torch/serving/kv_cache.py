@@ -58,6 +58,7 @@ import torch
 
 from repro_torch.configs.base import require_served
 from repro_torch.core import bitslice
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels.bgpp_paged_attend import ref as _bgpp_ref
 from repro_torch.models import mamba2
 from repro_torch.models.layers import _dtype
@@ -164,6 +165,72 @@ def local_format(layout: CacheLayout) -> str:
     """Storage format of the local rings: int8 under the int8 and bgpp
     formats, bf16 (the model dtype) under bf16."""
     return "int8" if layout.kv_format == "bgpp" else layout.kv_format
+
+
+def _kv_pool_specs(kv_format: str) -> Tree:
+    """Logical axes of a paged pool: heads only (pool rows belong to any
+    slot, so neither batch nor seq shards the token axis)."""
+    if kv_format == "bf16":
+        ax = (sh.LAYERS, None, sh.KV_HEADS, None)
+        return {"k": ax, "v": ax}
+    if kv_format == "int8":
+        s = {}
+        for n in ("k", "v"):
+            s[n] = (sh.LAYERS, None, sh.KV_HEADS, None)
+            s[f"{n}_scale"] = (sh.LAYERS, None, sh.KV_HEADS)
+        return s
+    if kv_format == "bgpp":
+        return {"k_planes": (sh.LAYERS, None, None, sh.KV_HEADS, None),
+                "k_sign": (sh.LAYERS, None, sh.KV_HEADS, None),
+                "k_scale": (sh.LAYERS, None, sh.KV_HEADS),
+                "v": (sh.LAYERS, None, sh.KV_HEADS, None),
+                "v_scale": (sh.LAYERS, None, sh.KV_HEADS)}
+    raise ValueError(kv_format)
+
+
+def _kv_stack_specs(kv_format: str) -> Tree:
+    """Logical axes of slot-major stacks: batch and heads (bgpp: no seq
+    sharding, its top-k takes global indices)."""
+    if kv_format == "bf16":
+        ax = (sh.LAYERS, sh.BATCH, sh.KV_HEADS, sh.SEQ, None)
+        return {"k": ax, "v": ax}
+    if kv_format == "int8":
+        s = {}
+        for n in ("k", "v"):
+            s[n] = (sh.LAYERS, sh.BATCH, sh.KV_HEADS, sh.SEQ, None)
+            s[f"{n}_scale"] = (sh.LAYERS, sh.BATCH, sh.KV_HEADS, sh.SEQ)
+        return s
+    if kv_format == "bgpp":
+        return {"k_planes": (sh.LAYERS, None, sh.BATCH, sh.KV_HEADS, None, None),
+                "k_sign": (sh.LAYERS, sh.BATCH, sh.KV_HEADS, None, None),
+                "k_scale": (sh.LAYERS, sh.BATCH, sh.KV_HEADS, None),
+                "v": (sh.LAYERS, sh.BATCH, sh.KV_HEADS, None, None),
+                "v_scale": (sh.LAYERS, sh.BATCH, sh.KV_HEADS, None)}
+    raise ValueError(kv_format)
+
+
+def cache_specs(cfg, layout: CacheLayout) -> Tree:
+    """Logical-axis specs of :func:`init_cache_arrays`'s tree (pure data,
+    the reference's): pools and stacks heads-parallel, slot stacks also
+    batch-parallel, the page table replicated."""
+    specs: Tree = {"pos": (sh.BATCH,)}
+    if layout.global_layers:
+        if layout.layout == "paged":
+            specs["global"] = _kv_pool_specs(layout.kv_format)
+            specs["page_table"] = (None, None)
+        else:
+            specs["global"] = _kv_stack_specs(layout.kv_format)
+    if layout.local_layers:
+        s = _kv_stack_specs(local_format(layout))
+        s["abs_pos"] = (sh.LAYERS, sh.BATCH, None)
+        specs["local"] = s
+    if layout.mamba_layers:
+        specs["mamba"] = {"h": (sh.LAYERS, sh.BATCH, sh.FF, None, None),
+                          "conv": (sh.LAYERS, sh.BATCH, None, sh.FF)}
+    if layout.has_cross:
+        specs["cross_k"] = (sh.LAYERS, sh.BATCH, sh.KV_HEADS, None, None)
+        specs["cross_v"] = (sh.LAYERS, sh.BATCH, sh.KV_HEADS, None, None)
+    return specs
 
 
 def init_cache_arrays(cfg, layout: CacheLayout, device="cuda") -> Tree:
@@ -426,6 +493,35 @@ def _token_row_bytes(cfg, fmt: str) -> float:
     raise ValueError(fmt)
 
 
+def mesh_shard_factors(layout: CacheLayout, cfg, mesh_shape) -> Tuple[int, int]:
+    """``(d_eff, m_eff)``: how many ways a ``(data, model)`` mesh splits a
+    decode step's KV reads.  A ``"model"`` axis that does not divide BOTH
+    head counts replicates (q shards alongside k / v, so the attend stays
+    local), and a ``"data"`` axis that does not divide the batch
+    replicates."""
+    d, m = int(mesh_shape[0]), int(mesh_shape[1])
+    Hq, Hk = cfg.num_heads, cfg.num_kv_heads
+    m_eff = m if m >= 1 and Hk and Hq and Hk % m == 0 and Hq % m == 0 else 1
+    d_eff = d if d >= 1 and layout.batch % d == 0 else 1
+    return d_eff, m_eff
+
+
+def _interconnect_decode(layout: CacheLayout, cfg, d_eff: int, m_eff: int) -> Dict[str, float]:
+    """Collective bytes ONE batched decode step moves between ranks: the
+    f32 per-head attend outputs ``(B, Hq, Dh)`` all-gathered over
+    ``"model"`` each attention layer (``attend_allgather``), and, paged,
+    the step's B K/V rows of every global layer sent to each other
+    ``"data"`` replica of the pool (``paged_write_bcast``)."""
+    B = layout.batch
+    ng, nl = len(layout.global_layers), len(layout.local_layers)
+    attend = (m_eff - 1) * B * cfg.num_heads * cfg.head_dim * 4.0 * (ng + nl)
+    paged_w = 0.0
+    if layout.layout == "paged" and ng:
+        paged_w = (d_eff - 1) * B * ng * _token_row_bytes(cfg, layout.kv_format)
+    return {"attend_allgather": attend, "paged_write_bcast": paged_w,
+            "total": attend + paged_w}
+
+
 def bgpp_decode_plan(S: int, cfg) -> Tuple[int, int, Tuple[int, ...]]:
     """Static shapes of one two-phase BGPP decode attend over ``S`` lanes:
     ``(rounds, k_max, survivors)`` with ``survivors[r]`` the candidate-set
@@ -451,7 +547,8 @@ def bgpp_decode_plan(S: int, cfg) -> Tuple[int, int, Tuple[int, ...]]:
     return rounds, k_max, survivors
 
 
-def decode_read_bytes(layout: CacheLayout, cfg) -> Dict[str, Any]:
+def decode_read_bytes(layout: CacheLayout, cfg,
+                      mesh_shape: Tuple[int, int] = (1, 1)) -> Dict[str, Any]:
     """KV bytes ONE batched decode step gathers, at its static shapes: all
     ``layout.batch`` rows and every layer; global bf16/int8 read the full
     ``(S_max,)`` row; global bgpp follows the two-phase plan (sign + MSB
@@ -461,7 +558,13 @@ def decode_read_bytes(layout: CacheLayout, cfg) -> Dict[str, Any]:
     mamba state and the cross memory are not counted, as in the reference:
     an ssm layout reads 0 B here though its step reads and writes the
     whole state, and a whisper step also reads every layer's cross K / V
-    (147.5 MB a slot at whisper-medium)."""
+    (147.5 MB a slot at whisper-medium).
+
+    ``per_device`` divides the counters by the mesh's effective shards
+    (reads split over ``"data"`` by batch and over ``"model"`` by heads,
+    :func:`mesh_shard_factors`); ``interconnect`` prices the collectives
+    (:func:`_interconnect_decode`).  At mesh 1x1 per-device equals total
+    and interconnect is zero."""
     B, S, W = layout.batch, layout.max_seq, layout.local_window
     ng, nl = len(layout.global_layers), len(layout.local_layers)
     out: Dict[str, Any] = {"global": 0.0, "local": 0.0}
@@ -485,19 +588,34 @@ def decode_read_bytes(layout: CacheLayout, cfg) -> Dict[str, Any]:
         out["local"] = B * nl * W * _token_row_bytes(cfg, local_format(layout))
     out["total"] = out["global"] + out["local"]
     out["bf16_equiv"] = (B * ng * S + B * nl * W) * _token_row_bytes(cfg, "bf16")
+    d_eff, m_eff = mesh_shard_factors(layout, cfg, mesh_shape)
+    shards = d_eff * m_eff
+    out["per_device"] = {"global": out["global"] / shards, "local": out["local"] / shards,
+                         "total": out["total"] / shards, "shards": shards}
+    out["interconnect"] = _interconnect_decode(layout, cfg, d_eff, m_eff)
     return out
 
 
-def chunk_read_bytes(layout: CacheLayout, cfg) -> Dict[str, Any]:
+def chunk_read_bytes(layout: CacheLayout, cfg, mesh_shape: Tuple[int, int] = (1, 1),
+                     chunk_width: int = 1) -> Dict[str, Any]:
     """KV bytes ONE chunked-prefill step reads (one slot): every global
     layer attends the full ``(S_max,)`` row at full precision (BGPP's
     prediction is a decode-time saving) and every local layer gathers its
-    ``window``."""
-    g = len(layout.global_layers) * layout.max_seq * _token_row_bytes(
-        cfg, layout.kv_format)
-    loc = len(layout.local_layers) * layout.local_window * _token_row_bytes(
-        cfg, local_format(layout))
-    return {"global": g, "local": loc, "total": g + loc}
+    ``window``.  A B=1 chunk shards over ``"model"`` only; its attend
+    all-gather moves ``chunk_width`` lanes of ``Hq * Dh`` at the cache
+    dtype, and no paged write is broadcast (every data replica runs the
+    chunk and writes its own pool)."""
+    ng, nl = len(layout.global_layers), len(layout.local_layers)
+    g = ng * layout.max_seq * _token_row_bytes(cfg, layout.kv_format)
+    loc = nl * layout.local_window * _token_row_bytes(cfg, local_format(layout))
+    out: Dict[str, Any] = {"global": g, "local": loc, "total": g + loc}
+    _, m_eff = mesh_shard_factors(layout, cfg, mesh_shape)
+    out["per_device"] = {"total": out["total"] / m_eff, "shards": m_eff}
+    attend = ((m_eff - 1) * chunk_width * cfg.num_heads * cfg.head_dim
+              * _cache_dtype_bytes(cfg) * (ng + nl))
+    out["interconnect"] = {"attend_allgather": attend, "paged_write_bcast": 0.0,
+                           "total": attend}
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -658,22 +776,26 @@ def write_prefill_local(store: Tree, idx: int, k: torch.Tensor, v: torch.Tensor,
 # --------------------------------------------------------------------------
 
 
-def reset_slot(cache: Tree, layout: CacheLayout, slot: int) -> Tree:
+def reset_slot(cache: Tree, layout: CacheLayout, slot: int,
+               row: Optional[int] = None) -> Tree:
     """Clear one batch row in place: its global KV rows to zero (slot
     layout), its local rings to zero with ``abs_pos`` -1 (both layouts, so
     a previous occupant's lanes never alias into the new request's window),
     its mamba state and cross memory to zero and ``pos[slot]`` to 0.  Paged
     pools have no batch rows — page lifecycle belongs to
-    :class:`repro_torch.serving.paging.PageAllocator`."""
+    :class:`repro_torch.serving.paging.PageAllocator`.  ``row`` is the
+    slot's row in a mesh rank's slot-major stores (default ``slot``; -1:
+    another rank holds it, and only ``pos`` is cleared here)."""
+    row = slot if row is None else row
     stores = ("local", "mamba") if layout.layout == "paged" else ("global", "local", "mamba")
-    for name in stores:
+    for name in stores if row >= 0 else ():
         for n, a in cache.get(name, {}).items():
             if n == "k_planes":
-                a[:, :, slot] = 0
+                a[:, :, row] = 0
             else:
-                a[:, slot] = -1 if n == "abs_pos" else 0
+                a[:, row] = -1 if n == "abs_pos" else 0
     for n in ("cross_k", "cross_v"):
-        if n in cache:
-            cache[n][:, slot] = 0
+        if n in cache and row >= 0:
+            cache[n][:, row] = 0
     cache["pos"][slot] = 0
     return cache

@@ -55,7 +55,14 @@ it released (``PageAllocator.rewind_slot``) and the speculative rows zeroed
 in every store leaf.  ``stats()["spec"]`` reports the acceptance and the
 KV and weight bytes per accepted token.
 
-Meshes are a later slice: the constructor raises if asked for one.
+``rules`` (the reference's :class:`ShardingRules`) with a mesh serves the
+dense family as explicit SPMD (:mod:`repro_torch.serving.sharded`): every
+rank runs the same Scheduler on the same requests from the same whole
+params, keeps its shard of the params and cache, and gets every step's
+logits gathered from every rank, so the host state (slots, pages,
+samples) stays identical on all of them; rank 0 reports.  The page table
+stays host-owned and replicated.  ``stats()`` adds the reference's mesh
+columns.  Another family under a mesh raises (item 7c).
 """
 
 from __future__ import annotations
@@ -68,7 +75,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import apply_weight_format_override, require_transformer
-from repro_torch.serving import engine, kv_cache as kvc, spec_decode as spd
+from repro_torch.models import model_zoo
+from repro_torch.serving import engine, kv_cache as kvc, sharded as shd, spec_decode as spd
 from repro_torch.serving import weights as swt
 from repro_torch.serving.paging import PageAllocator
 from repro_torch.serving.request import Request, Slot, SlotState, priority_rank
@@ -111,22 +119,31 @@ class Scheduler:
         draft_gamma: Optional[int] = None,
         draft_planes: Optional[int] = None,
         draft_fn: Optional[Callable[[Request, int], int]] = None,
-        mesh=None,
+        rules=None,
     ):
         from repro_torch import resolve_device
 
         require_transformer(cfg, "Scheduler")
         if admission not in ("chunked", "eager"):
             raise ValueError(f"Scheduler: admission {admission!r} is not chunked or eager")
-        if mesh is not None:
-            raise NotImplementedError("Scheduler: meshes / sharding are a later slice")
+        self.rules = rules
+        self.mesh_shape = shd.mesh_shape(rules)
+        if rules is not None and rules.mesh is not None and cfg.family != "dense":
+            raise NotImplementedError(
+                f"Scheduler: family {cfg.family!r} under a mesh is ROADMAP item 7c (MoE "
+                f"token groups, the VLM); the dense family is served sharded")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(
                 f"Scheduler: params live on {params['embed'].device}, the "
                 f"scheduler on {self.device}")
         cfg = apply_weight_format_override(cfg, weight_format)
-        self.params = params
+        # mesh placement: this rank's shard of the params (identity off-mesh)
+        self.shard = shd.Shard.of(cfg, layout, rules)
+        local = params
+        if self.shard is not None:
+            local = shd.shard_params(params, model_zoo.param_specs(cfg), rules, cfg)
+        self.params = local
         self.cfg = cfg
         self.layout = layout
         self.sample_fn = sample_fn
@@ -134,24 +151,27 @@ class Scheduler:
         self.chunk_budget = int(chunk_budget)
         self.record_logits = record_logits
 
-        # serve-time weights, converted once: decode steps read
-        # ``serve_params``; prefill keeps the raw ``params`` (with bf16,
-        # serve_params IS params)
+        # serve-time weights, converted once from the rank's shard and priced
+        # whole: decode steps read ``serve_params``; prefill keeps the raw
+        # ``params`` (with bf16, serve_params IS params)
         self.weight_format = swt.resolve(cfg)
         self.serve_params, self.weight_plan = swt.prepare_serve_params(
-            params, cfg, self.weight_format)
+            params, cfg, self.weight_format, local=local)
         self.cache = kvc.init_cache_arrays(cfg, layout, self.device)
+        if self.shard is not None:
+            self.cache = shd.shard_cache(self.cache, cfg, layout, rules)
         self.pager: Optional[PageAllocator] = None
         if layout.layout == "paged" and layout.global_layers:
             self.pager = PageAllocator(layout)
             self._page_bytes = kvc.page_bytes(self.cache["global"], layout.page_size)
         self.slots: List[Slot] = [Slot(i) for i in range(layout.batch)]
         self.queue: Deque[Request] = collections.deque()
-        self.serve_step = engine.make_serve_step(cfg, layout)
+        self.serve_step = engine.make_serve_step(cfg, layout, rules)
         self.chunked: Optional[engine.ChunkedPrefill] = None
         if admission == "chunked":
             self.chunked = engine.ChunkedPrefill(
-                cfg, layout, buckets=buckets or engine.default_buckets(self.chunk_budget))
+                cfg, layout, buckets=buckets or engine.default_buckets(self.chunk_budget),
+                rules=rules)
         # next-token feed per slot; EMPTY/PREFILLING rows decode token 0 into
         # garbage that per-slot valid masks + chunk overwrites keep invisible
         self.tokens = np.zeros((layout.batch, 1), np.int64)
@@ -168,7 +188,8 @@ class Scheduler:
                 # second set; the truncated raw tree is dropped after)
                 self.draft_params, _ = swt.prepare_serve_params(
                     spd.truncate_plane_params(params, self.spec.planes), cfg,
-                    self.weight_format)
+                    self.weight_format,
+                    local=spd.truncate_plane_params(local, self.spec.planes))
             else:
                 # planes >= 7 keeps full int8 precision: the serve weights
                 # are the (perfect) draft model
@@ -191,14 +212,16 @@ class Scheduler:
         self.occupancy: List[float] = []  # busy slots / slots, per step
         self.decoded_tokens = 0
         # KV-read accounting: host-side closed forms of the steps' gathers
-        self._decode_read = kvc.decode_read_bytes(layout, cfg)
-        self._chunk_read = kvc.chunk_read_bytes(layout, cfg)
+        self._decode_read = kvc.decode_read_bytes(layout, cfg, self.mesh_shape)
+        self._chunk_read = kvc.chunk_read_bytes(layout, cfg, self.mesh_shape)
+        # chunk interconnect scales with the chunk's lanes: priced a valid lane
+        self._chunk_ic_per_lane = self._chunk_read["interconnect"]["total"]
         self.decode_steps = 0
-        self.kv_bytes_read = {"decode": 0.0, "prefill": 0.0}
+        self.kv_bytes_read = {"decode": 0.0, "prefill": 0.0, "interconnect": 0.0}
         # weight-read accounting, kv_read's mirror: every converted
         # projection once a decode step at its coded bytes; a prefill chunk
         # reads the raw-dtype tree once
-        self._weight_read = self.weight_plan.decode_read_bytes()
+        self._weight_read = self.weight_plan.decode_read_bytes(layout, cfg, self.mesh_shape)
         self.weight_bytes_read = {"decode": 0.0, "prefill": 0.0}
         self.prefill_tokens_per_step: List[int] = []
         self.prompt_tokens_admitted = 0
@@ -335,7 +358,8 @@ class Scheduler:
             self._ensure_pages(slot.index, 0, req.prompt_len)
             prompt = torch.as_tensor(np.asarray(req.prompt, np.int64), device=self.device)
             logits, self.cache = engine.prefill_into_slot(
-                self.params, self.cfg, self.layout, self.cache, slot.index, prompt)
+                self.params, self.cfg, self.layout, self.cache, slot.index, prompt,
+                rules=self.rules)
             self._emit_first_token(slot, _host_rows(logits[0, -1]))
             self.weight_bytes_read["prefill"] += self.weight_plan.bf16_bytes
             admitted.append(req)
@@ -386,6 +410,7 @@ class Scheduler:
                 self.params, self.cache, slot.index,
                 req.prompt[slot.prefill_pos:slot.prefill_pos + take], slot.prefill_pos)
             self.kv_bytes_read["prefill"] += self._chunk_read["total"]
+            self.kv_bytes_read["interconnect"] += self._chunk_ic_per_lane * n
             self.weight_bytes_read["prefill"] += self.weight_plan.bf16_bytes
             slot.prefill_pos += n
             spent += n
@@ -501,6 +526,7 @@ class Scheduler:
         speculation; its gain shows in the per-accepted-token columns)."""
         self.decode_steps += 1
         self.kv_bytes_read["decode"] += self._decode_read["total"]
+        self.kv_bytes_read["interconnect"] += self._decode_read["interconnect"]["total"]
         self.weight_bytes_read["decode"] += self._weight_read["total"]
 
     def _spec_round(self, live: List[Slot]) -> None:
@@ -610,6 +636,8 @@ class Scheduler:
             if hi > lo:
                 tpos[slot.index, :hi - lo] = np.arange(lo, hi)
                 dirty = True
+        if dirty and self.shard is not None and self.shard.split_stores:
+            tpos = tpos[self.shard.lo:self.shard.hi]  # the rank's rows of the slot stacks
         if dirty:
             kvc.zero_token_range(
                 self.cache["global"], tpos,
@@ -741,6 +769,14 @@ class Scheduler:
             "decode_bf16_equiv_bytes_per_step": round(dr["bf16_equiv"]),
             "decode_bytes_reduction_vs_bf16":
                 round(dr["bf16_equiv"] / dr["total"], 3) if dr["total"] else None,
+            # mesh columns: each rank's share of the gathers and the priced
+            # collectives (zero / equal to the total at mesh 1x1)
+            "mesh": {"data": self.mesh_shape[0], "model": self.mesh_shape[1]},
+            "kv_shards": dr["per_device"]["shards"],
+            "decode_bytes_per_device_per_step": round(dr["per_device"]["total"]),
+            "interconnect_bytes_per_step": round(dr["interconnect"]["total"]),
+            "interconnect_bytes": round(self.kv_bytes_read["interconnect"]),
+            "interconnect": {n: round(v) for n, v in dr["interconnect"].items()},
         }
         if "bgpp" in dr:
             out["kv_read"]["bgpp"] = {n: round(v) if isinstance(v, float) else v
@@ -761,6 +797,9 @@ class Scheduler:
             "measured_over_modeled":
                 round(wr["total"] / wr["modeled"], 4) if wr["modeled"] else None,
             "per_projection": {n: round(v) for n, v in wr["per_projection"].items()},
+            "mesh": {"data": self.mesh_shape[0], "model": self.mesh_shape[1]},
+            "weight_shards": wr["per_device"]["shards"],
+            "decode_bytes_per_device_per_step": round(wr["per_device"]["total"]),
         }
         if self.spec.enabled:
             acc = self.spec_accepted

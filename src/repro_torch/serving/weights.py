@@ -32,8 +32,16 @@ Accounting mirrors ``kv_cache.decode_read_bytes``: the scheduler holds a
 :class:`WeightPlan` and adds its static per-step bytes per executed decode
 step into ``Scheduler.stats()["weight_read"]`` — totals, the bf16 and int8
 equivalents, a per-projection breakdown and the closed-form modeled bytes
-(``analysis.roofline.bstc_weight_traffic``).  Mesh columns come with the
-sharding slice.
+(``analysis.roofline.bstc_weight_traffic``), and the reference's mesh
+columns: ``wq`` / ``wk`` / ``wv`` and the vocab-split ``lm_head`` are
+column-parallel on ``"model"``, ``wo`` and the MLP replicated, so every
+rank reads them whole (:attr:`WeightEntry.placement`).
+
+On a mesh the plan prices the whole matrices, as the reference's does,
+while each rank's records are converted from its own shard of the raw
+leaves (``local``): a column shard is quantized and coded as a matrix of
+its own, so a bstc rank holds and reads only its columns' stream.  The
+int8 values are the same either way (the scale is per output column).
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from repro_torch.configs.base import WEIGHT_FORMATS
 from repro_torch.core import bstc
 from repro_torch.kernels.bstc_matmul.ops import (operands_from_encoded,
                                                  reconstruct_dense_weight)
+from repro_torch.serving import kv_cache as kvc
 
 Tree = Dict[str, Any]
 
@@ -135,14 +144,18 @@ def check_serve_params(params: Tree, cfg, fmt: str) -> None:
 
 @dataclasses.dataclass
 class WeightEntry:
-    """One converted projection (all its stacked layer copies).  The
-    reference's ``placement`` (shard class) comes with the sharding slice."""
+    """One converted projection (all its stacked layer copies).
+    ``placement`` is its serving shard: ``"heads"`` (column-parallel on
+    ``"model"``), ``"vocab"`` (the head's columns) or ``"replicated"``
+    (``wo`` and the MLP, whose model axis is on the contraction side).
+    Byte columns cover ALL ``copies`` of the whole matrix."""
 
     path: str
     proj: str
     copies: int
     in_dim: int
     out_dim: int
+    placement: str
     coded_bytes: float
     int8_bytes: float
     bf16_bytes: float
@@ -171,10 +184,22 @@ class WeightPlan:
         """What raw-dtype leaves of the same geometry read."""
         return self._sum("bf16_bytes")
 
-    def decode_read_bytes(self) -> Dict[str, Any]:
-        """Weight bytes ONE batched ``serve_step`` reads (mesh 1x1): totals,
-        the bf16 and int8 equivalents, the closed-form modeled bytes and the
-        per-projection breakdown."""
+    def decode_read_bytes(self, layout=None, cfg=None,
+                          mesh_shape: Tuple[int, int] = (1, 1)) -> Dict[str, Any]:
+        """Weight bytes ONE batched ``serve_step`` reads: totals, the bf16
+        and int8 equivalents, the closed-form modeled bytes, the
+        per-projection breakdown and the mesh columns.  A ``"model"`` axis
+        splits only the column-parallel entries (heads by
+        :func:`kv_cache.mesh_shard_factors`, the head's vocab where it
+        divides); weights never split over ``"data"``.  ``layout`` and
+        ``cfg`` are needed off mesh 1x1."""
+        m = int(mesh_shape[1])
+        m_eff = m_vocab = 1
+        if tuple(mesh_shape) != (1, 1):
+            _, m_eff = kvc.mesh_shard_factors(layout, cfg, mesh_shape)
+            m_vocab = m if m >= 1 and cfg.vocab_size % m == 0 else 1
+        shards = {"heads": m_eff, "vocab": m_vocab, "replicated": 1}
+        sharded = sum(e.coded_bytes for e in self.entries if shards[e.placement] > 1)
         per_proj: Dict[str, float] = {}
         for e in self.entries:
             per_proj[e.proj] = per_proj.get(e.proj, 0.0) + e.coded_bytes
@@ -185,6 +210,17 @@ class WeightPlan:
             "int8_equiv": self._sum("int8_bytes"),
             "modeled": self._sum("modeled_bytes"),
             "per_projection": per_proj,
+            "per_device": {
+                "sharded": sharded / max(m_eff, m_vocab, 1),
+                "replicated": self.total_bytes - sharded,
+                "total": sum(e.coded_bytes / shards[e.placement] for e in self.entries),
+                "shards": m_eff,
+            },
+            # summing per_device_by_placement[p] * shards[p] recovers the total
+            "per_device_by_placement": {
+                p: sum(e.coded_bytes / shards[p] for e in self.entries if e.placement == p)
+                for p in ("heads", "vocab", "replicated")},
+            "shards_by_placement": shards,
         }
 
 
@@ -193,22 +229,22 @@ class WeightPlan:
 # --------------------------------------------------------------------------
 
 
-def _iter_targets(params: Tree) -> Iterator[Tuple[Tuple[str, ...], str]]:
-    """``(path, proj_name)`` of every convertible leaf present."""
+def _iter_targets(params: Tree) -> Iterator[Tuple[Tuple[str, ...], str, str]]:
+    """``(path, proj_name, placement)`` of every convertible leaf present."""
     lay = params.get("layers")
     if isinstance(lay, dict):
         attn = lay.get("attn")
         if isinstance(attn, dict):
             for n in _ATTN_WEIGHTS:
                 if n in attn:
-                    yield ("layers", "attn", n), n
+                    yield ("layers", "attn", n), n, "replicated" if n == "wo" else "heads"
         mlp = lay.get("mlp")
         if isinstance(mlp, dict):
             for n in _MLP_WEIGHTS:
                 if n in mlp:
-                    yield ("layers", "mlp", n), n
+                    yield ("layers", "mlp", n), n, "replicated"
     if "lm_head" in params:
-        yield ("lm_head",), "lm_head"
+        yield ("lm_head",), "lm_head", "vocab"
 
 
 def _get(tree: Tree, path: Tuple[str, ...]):
@@ -264,12 +300,13 @@ def _kernel_roundtrip_check(bw: bstc.BSTCWeight, q_t: torch.Tensor) -> None:
             "int8 weight — the coded layout cannot serve")
 
 
-def _code(q: torch.Tensor, scale: torch.Tensor, cfg, roundtrip: bool):
+def _code(q: torch.Tensor, scale: torch.Tensor, cfg, roundtrip: bool, plan_rows: int = 0):
     """An int8 record's arrays (``(..., in, out)`` q, ``(..., out)`` scale)
     -> ``(bstc record, coded bytes, modeled bytes)``.  Every stacked copy
     is coded channel-major, as ``(out, in)`` (the scale is per output row),
     on the weights' device; the first copy is round-tripped when
-    ``roundtrip``."""
+    ``roundtrip``.  ``plan_rows``: the whole matrix's output width where
+    ``q`` is a rank's column shard (K3 plans at it)."""
     in_dim, out_dim = q.shape[-2:]
     tile_k = _KERNEL_TILE_K if in_dim % _KERNEL_TILE_K == 0 else in_dim
     qs, ss = q.reshape(-1, in_dim, out_dim), scale.reshape(-1, out_dim)
@@ -283,7 +320,7 @@ def _code(q: torch.Tensor, scale: torch.Tensor, cfg, roundtrip: bool):
         modeled += mb
         if roundtrip and c == 0:
             _kernel_roundtrip_check(bw, q_t)
-        ops.append(operands_from_encoded(bw, tile_k, ss[c]))
+        ops.append(operands_from_encoded(bw, tile_k, ss[c], plan_rows))
     rec = {"bstc": ops if q.dim() > 2 else ops[0], "scale": scale}
     return rec, coded, modeled
 
@@ -301,8 +338,8 @@ def bstc_record_from_int8(q: torch.Tensor, scale: torch.Tensor, cfg) -> Tree:
     return _code(q, scale, cfg, roundtrip=False)[0]
 
 
-def prepare_serve_params(params: Tree, cfg,
-                         fmt: Optional[str] = None) -> Tuple[Tree, WeightPlan]:
+def prepare_serve_params(params: Tree, cfg, fmt: Optional[str] = None,
+                         local: Optional[Tree] = None) -> Tuple[Tree, WeightPlan]:
     """Convert the decode-time projection leaves for ``fmt`` and price them.
 
     Returns ``(serve_params, plan)``; ``fmt=None`` resolves from the
@@ -311,17 +348,22 @@ def prepare_serve_params(params: Tree, cfg,
     record (module docstring); tied embeddings get an explicit ``lm_head``
     record built from ``embed.T``, matching the engine's tied head read.
     ``"bstc"`` codes every copy on the weights' device, prices the measured
-    stream and round-trips the first coded matrix.  (The reference also
-    takes the cache layout, for its mesh columns.)"""
+    stream and round-trips the first coded matrix.  ``local`` is a rank's
+    shard of ``params`` (:func:`repro_torch.serving.sharded.shard_params`):
+    the plan prices ``params``, the records come from ``local``'s leaves,
+    and the tree returned is ``local``'s.  (The reference also takes the
+    cache layout, for its mesh columns; the port's plan takes it when it
+    reports them.)"""
     fmt = resolve(cfg) if fmt is None else fmt
     if fmt not in FORMATS:
         raise ValueError(f"weight_format={fmt!r} is not one of {FORMATS}")
     dt = _dtype_bytes(cfg)
     entries: List[WeightEntry] = []
-    serve = params
+    local = params if local is None else local
+    serve = local
     roundtrip = fmt == "bstc"
 
-    def convert(w, path, proj, stacked):
+    def convert(w, w_local, path, proj, placement, stacked):
         nonlocal serve, roundtrip
         shape = tuple(w.shape)
         copies = math.prod(shape[:-2]) if len(shape) > 2 else 1
@@ -329,7 +371,8 @@ def prepare_serve_params(params: Tree, cfg,
         bf16_b = float(dt * in_dim * out_dim * copies)
         int8_b = float((in_dim * out_dim + 4 * out_dim) * copies)
         entry = dict(path="/".join(path) if stacked else "embed.T", proj=proj,
-                     copies=copies, in_dim=in_dim, out_dim=out_dim, int8_bytes=int8_b, bf16_bytes=bf16_b)
+                     copies=copies, in_dim=in_dim, out_dim=out_dim, placement=placement,
+                     int8_bytes=int8_b, bf16_bytes=bf16_b)
         if fmt == "bf16":
             entries.append(WeightEntry(coded_bytes=bf16_b, modeled_bytes=bf16_b, **entry))
             return
@@ -339,14 +382,19 @@ def prepare_serve_params(params: Tree, cfg,
         if fmt == "bstc" and not fell_back:
             rec, coded_b, modeled_b = _code(rec["q"], rec["scale"], cfg, roundtrip)
             roundtrip = False
+        if w_local.shape != w.shape:  # a rank's shard, coded as its own matrix
+            rec = quantize(w_local)
+            if fmt == "bstc" and _fits_grid(*w_local.shape[-2:], cfg):
+                rec = _code(rec["q"], rec["scale"], cfg, roundtrip=False, plan_rows=out_dim)[0]
         serve = _set(serve, path, rec)
         entries.append(WeightEntry(coded_bytes=float(coded_b), modeled_bytes=float(modeled_b),
                                    bstc_fallback=fell_back, **entry))
 
-    for path, proj in list(_iter_targets(params)):
-        convert(_get(params, path), path, proj, stacked=True)
+    for path, proj, placement in list(_iter_targets(params)):
+        convert(_get(params, path), _get(local, path), path, proj, placement, stacked=True)
     # tied embeddings: the engine reads embed.T as the head — price it in
     # every format, and materialise a record for it on the quantized paths
     if "lm_head" not in params and "embed" in params:
-        convert(params["embed"].T, ("lm_head",), "lm_head", stacked=False)
+        convert(params["embed"].T, local["embed"].T, ("lm_head",), "lm_head", "vocab",
+                stacked=False)
     return serve, WeightPlan(fmt=fmt, entries=entries)

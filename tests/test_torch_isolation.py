@@ -41,7 +41,8 @@ def test_scan_sees_the_package():
             "shapes.py", "gemma3_4b.py", "deepseek_7b.py", "whisper_medium.py",
             "moe.py", "mamba2.py", "whisper.py", "server.py", "serve_llm.py",
             "adamw.py", "schedules.py", "train_step.py", "pipeline.py", "checkpointer.py",
-            "fault_tolerance.py", "train.py", "train_llm.py", "tree.py"} <= names
+            "fault_tolerance.py", "train.py", "train_llm.py", "tree.py", "sharding.py",
+            "sharded.py", "mesh.py"} <= names
     for k in ("flash_attention", "bgpp_score", "brcr_gemm"):
         assert PORT / "kernels" / k / "ops.py" in _files()
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [

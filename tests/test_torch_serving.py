@@ -31,6 +31,7 @@ from repro.serving.scheduler import Scheduler as JScheduler
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
+from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.interop import params_from_numpy
 from repro_torch.serving import engine, kv_cache as tkvc
 from repro_torch.serving.request import Request, SlotState
@@ -199,8 +200,12 @@ class TestRefusals:
     def test_later_slices_raise(self, served):
         _, cfg, _, params = served
         lay = tkvc.layout_for(cfg, SLOTS, MAX_SEQ)
-        with pytest.raises(NotImplementedError):
-            Scheduler(params, cfg, lay, device="cpu", mesh=object())
+        # a mesh serves the dense family; another family under one is item 7c
+        moe_cfg = get_config("mixtral-8x22b", smoke=True)
+        rules = ShardingRules(mesh={"data": 1, "model": 1})
+        with pytest.raises(NotImplementedError, match="7c"):
+            Scheduler(params, moe_cfg, tkvc.layout_for(moe_cfg, SLOTS, MAX_SEQ), device="cpu",
+                      rules=rules)
         # speculative decoding is ported: the call that raised now builds
         assert Scheduler(params, cfg, lay, device="cpu", spec_decode=True).spec.enabled
 
