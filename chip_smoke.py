@@ -150,8 +150,8 @@ Phases, each of which fails the run (nonzero exit) on any error:
    ``pos`` convention (the text length).  Then gemma3-1b at full width and
    depth served through the Scheduler at max_seq 524,288 with bgpp KV, one
    slot (K2 over the whole row, its selection spanning blocks, 4 launches a
-   step), and the ssm family: mamba2-1.3b at full width and depth (bf16,
-   seed 0) decoding four prompts of 256-448 tokens a token a step from a
+   step), and the ssm family: mamba2-1.3b at full width, cut to 24 of its
+   48 layers (bf16, seed 0) decoding four prompts of 256-448 tokens a token a step from a
    zero state and 16 greedy tokens (4 slots; ms a step, traced), its
    forward timed at B 1, S 2048, the forward at chunk 64 held to the
    decode on an f32 copy of the weights, and its long_500k cache (the same
@@ -225,6 +225,21 @@ Phases, each of which fails the run (nonzero exit) on any error:
    the train launcher at phi4-mini width cut to 2 layers, int8 moments,
    S 4096: 6 steps checkpointing at step 3, then a run resumed from that
    checkpoint whose losses must be within 1e-3 of the straight run's.
+   Sharded training (ROADMAP item 7b): each model rank's K5 (with its
+   log-sum-exp) and K5b at phi4-mini's heads split over meshes 1x2, 1x4
+   and 1x8 (causal, B 1, S 4096, bf16; phase 3), bit-equal to its heads'
+   slice of the whole launch and within the plain versions' bounds;
+   phi4-mini-3.8b at full width, cut to 8 layers, through the sharded
+   train step with the reference launcher's ``--fsdp`` rules on a 1x1 mesh
+   over an
+   NCCL world of one, 3 f32 and 3 int8 steps, each loss and grad norm and
+   then every parameter bit-identical to the one-device steps (K5 16, K5b
+   8 launches a step), one more step's collectives counted and another
+   traced; one int8-compressed grad sync held to its plain quantize
+   formula; and the train launcher under ``torch.distributed.run
+   --nproc-per-node 1`` with ``--mesh 1,1 --fsdp --int8-opt`` at 2
+   layers, 4 steps, resumed from its step-3 checkpoint with equal losses;
+   with two or more cards, the train launcher on the ``(1, n)`` mesh.
 6. Reference check: the same small models (the smoke configs of
    phi4-mini, gemma3-4b, deepseek-7b, mixtral-8x22b,
    llama4-scout-17b-a16e and paligemma-3b) and traces served on the card
@@ -2914,14 +2929,16 @@ def shard_kernel_phase(device, flush):
 
 
 def multi_card_check(card) -> None:
-    """Where the machine has two or more cards, serve phi4-mini-3.8b's
-    smoke config on the ``(1, n)`` mesh through ``torchrun`` (NCCL, a rank a
-    card); otherwise say that it was not run."""
+    """Where the machine has two or more cards, serve deepseek-7b's smoke
+    config on the ``(1, n)`` mesh through ``torchrun`` (NCCL, a rank a
+    card), then train it there 3 steps (the train launcher, ``--fsdp``,
+    ``sp``); otherwise say that it was not run."""
     import torch
 
     n = torch.cuda.device_count()
     if n < 2:
-        print(f"[sharded] the (1, n) mesh over several cards: not run ({n} card)")
+        print(f"[sharded] the (1, n) mesh over several cards, serving and training: not run "
+              f"({n} card)")
         return
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run(
@@ -2935,6 +2952,21 @@ def multi_card_check(card) -> None:
     print(f"[sharded] the (1, {n}) mesh over {n} cards through torchrun [{card}]:")
     for ln in lines[-4:]:
         print(ln)
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc-per-node={n}", "-m", "repro_torch.launch.train", "--arch", "deepseek-7b",
+         "--mesh", f"1,{n}", "--fsdp", "--steps", "3", "--batch", "4", "--seq-len", "64",
+         "--log-every", "1", "--ckpt-dir", os.path.join(ROOT, "build", f"train-1x{n}"),
+         "--heartbeat", os.path.join(ROOT, "build", f"train-1x{n}.json")],
+        capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    if out.returncode or "failed" in out.stdout:
+        raise AssertionError(f"the train launcher on the (1, {n}) mesh failed: "
+                             f"{out.stdout[-1500:]} {out.stderr[-2000:]}")
+    print(f"[sharded-train] deepseek-7b-smoke trained on the (1, {n}) mesh over {n} cards "
+          f"through torchrun (fsdp, sp) [{card}]:")
+    for ln in out.stdout.splitlines():
+        if ln.startswith("[train]"):
+            print(ln)
 
 
 def zoo_serve_phase(device, card):
@@ -3327,17 +3359,21 @@ def long_serve_phase(device, card):
     free_device()
 
 
-# mamba2-1.3b (the ssm family) at full width and depth: four prompts fed a
-# token a step from a zero state (multiples of 64, so the forward below runs
-# them at chunk 64), then greedy tokens; the forward timed at B 1, S 2048
+# mamba2-1.3b (the ssm family) at full width, its depth cut from 48 layers to
+# 24 (the whole script ran 1131.8 s of its 1200 s limit on a slow host once
+# the sharded training phase joined it; this decode is host-bound, a layer at
+# a time): four prompts fed a token a step from a zero state (multiples of 64,
+# so the forward below runs them at chunk 64), then greedy tokens; the
+# forward timed at B 1, S 2048
 SSM_ARCH = "mamba2-1.3b"
+SSM_DEPTH = 24
 SSM_PROMPTS = (256, 320, 384, 448)
 SSM_NEW, SSM_MAX_SEQ = 16, 1024
 SSM_FWD_S, SSM_FWD_CHUNK, SSM_CHECK_CHUNK = 2048, 256, 64
 # the forward against the decode, on an f32 copy of the weights: the chunked
 # dual form and the recurrence are two summation orders of one scan (shares
 # of max |logit| and of max |h|, |conv| for layer 0's state).  In bf16 the
-# two paths round at other places and 48 random layers amplify it (on the
+# two paths round at other places and the random layers amplify it (on the
 # CPU 15-25 % of max |logit| already at a prompt's first token, where no
 # scan runs), so the bf16 share is printed, not bounded.
 SSM_LOGIT_SHARE, SSM_STATE_SHARE = 1e-3, 1e-3
@@ -3435,7 +3471,8 @@ def ssm_forward_check(cfg, params, prompts, logits_at, state_at, device):
 
 
 def ssm_phase(device, card):
-    """mamba2-1.3b on the card, as the reference decodes it: through
+    """mamba2-1.3b on the card (cut to :data:`SSM_DEPTH` layers), as the
+    reference decodes it: through
     ``engine.make_serve_step`` alone from a zero state.
 
     * Decode (bf16): 4 slots (max_seq 1024, the slot layout ``layout_for``
@@ -3465,7 +3502,7 @@ def ssm_phase(device, card):
     from repro_torch.models import model_zoo
     from repro_torch.serving import engine, kv_cache as kvc
 
-    cfg, params = init_model(SSM_ARCH, device)
+    cfg, params = init_model(SSM_ARCH, device, depth=SSM_DEPTH)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in SSM_PROMPTS]
     B, V = len(prompts), cfg.vocab_size
@@ -5128,7 +5165,8 @@ TRAIN_GROUPS = (("K5b (flash_attention_bwd)", ("dkdv_", "dq_mma_kernel", "dq_ker
                 ("GEMMs (cuBLAS)", ("gemm", "Gemm", "nvjet", "cutlass", "xmma")),
                 ("copies and fills", ("copy", "Copy", "Memcpy", "Memset", "fill", "Fill")),
                 ("reductions", ("reduce", "Reduce")),
-                ("elementwise", ("elementwise", "Elementwise")))
+                ("elementwise", ("elementwise", "Elementwise")),
+                ("NCCL collectives", ("nccl", "Nccl")))
 
 
 def train_step_trace(step_fn, state, batch, what):
@@ -5329,9 +5367,374 @@ def train_phase(device, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# sharded training (ROADMAP item 7b): the train step on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+SHARD_TRAIN_STEPS = 3  # a run each: f32 and int8 moments, unsharded then sharded
+# phi4-mini-3.8b cut from 32 layers to 8: the phase took 169.3 s at full depth,
+# past its ~90 s share of the run's limit
+SHARD_TRAIN_DEPTH = 8
+SHARD_HEAD_MESHES = ((1, 2), (1, 4), (1, 8))  # the model axes K5 / K5b split heads over
+SHARD_LAUNCH_LAYERS, SHARD_LAUNCH_STEPS, SHARD_LAUNCH_EVERY = LAUNCHER_LAYERS, 4, 2
+
+
+def train_runs(cfg, batch, rules, fmt, device, want=None, trace=False):
+    """:data:`SHARD_TRAIN_STEPS` steps of ``cfg`` (re-initialised from seed
+    0) with ``fmt`` moments, one-device when ``rules`` is None, else one
+    rank's sharded step under ``rules``.  Returns ``(losses, grad norms,
+    ms a step, launches of each step, peak GiB, out)``: ``out`` the final
+    parameter leaves on the card (the moments freed), or, given ``want``
+    (another run's), how many of them differ from it.  With ``trace``, one
+    more step then counts the collectives it issues
+    (``sharding.all_gather`` carries every one) and another is traced
+    (:func:`train_step_trace`)."""
+    import torch
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import fwd_kwargs
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.training import make_train_step
+    from repro_torch.training.sharded import TrainShard
+
+    free_device()
+    torch.cuda.reset_peak_memory_stats()
+    params = model_zoo.init(cfg, torch.Generator(device=device).manual_seed(0), device)
+    shard = TrainShard.of(cfg, rules)
+    if shard is not None:
+        params = shard.shard_params(params)
+        batch = shard.local_rows(batch)
+    opt_cfg = AdamWConfig(peak_lr=3e-4, state_dtype=fmt)
+    state = {"params": params, "opt": adamw_init(params, opt_cfg)}
+    step_fn = make_train_step(cfg, opt_cfg, fwd_kwargs(cfg), rules=rules)
+    losses, norms, ms, launches = [], [], [], []
+    for _ in range(SHARD_TRAIN_STEPS):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(dict(LAUNCHES))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = list(_leaves(state["params"]))
+    if want is not None:
+        out = sum(not torch.equal(a, b) for a, b in zip(out, want))
+    if trace:
+        calls, real = [], sh.all_gather
+        sh.all_gather = lambda x, group, dim=0: calls.append(1) or real(x, group, dim)
+        try:
+            state, _ = step_fn(state, batch)
+        finally:
+            sh.all_gather = real
+        print(f"[sharded-train] {cfg.name} {fmt}, {'sharded' if rules else 'one-device'}: "
+              f"{len(calls)} collectives a step")
+        state = train_step_trace(step_fn, state, batch,
+                                 f"{cfg.name} {fmt} {'sharded 1x1' if rules else 'one-device'}")
+    del state, params, step_fn
+    free_device()
+    return losses, norms, ms, launches, peak, out
+
+
+def sharded_train_run(device, card):
+    """phi4-mini-3.8b at full width (depth :data:`SHARD_TRAIN_DEPTH`, None =
+    all 32 layers) at B 1, S 4096 with remat: :data:`SHARD_TRAIN_STEPS`
+    one-device steps, then the same through the sharded train step with the
+    reference launcher's ``--fsdp`` rules on a 1x1 mesh over an NCCL world
+    of one (every FSDP gather, reduce-scatter, sum over ``"model"`` and the
+    global-mean loss run as collectives of one), once with f32 and once
+    with int8 moments.  Every sharded step's loss and grad norm must equal
+    the one-device step's bit for bit, and after the last step every
+    parameter too; every step launches K5 2L times (forward and remat) and
+    K5b L times, nothing else.  The f32 sharded run counts and traces one
+    more step.  Then one int8-compressed sync of the step's grads
+    (``compressed_psum_mean`` over the world of one, and
+    ``make_compressed_dp_grad_fn``): each leaf equals its plain quantize
+    formula ``round(g / s) * s / 1`` bit for bit, and differs from g.
+    Returns the sharded steps' launches summed."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset, to_device
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    cfg = get_config(TRAIN_ARCH)
+    if SHARD_TRAIN_DEPTH is not None:
+        cfg = dataclasses.replace(cfg, num_layers=SHARD_TRAIN_DEPTH)
+    L = cfg.num_layers
+    batch = to_device(SyntheticLMDataset(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0).batch(0),
+                      device)
+    started = start_world()
+    total = {}
+    try:
+        rules = sh.rules_for_mesh(make_debug_mesh(1, 1, "cuda"), fsdp_axes=(sh.D_MODEL,),
+                                  sp=False)
+        for fmt in ("fp32", "int8"):
+            base = train_runs(cfg, batch, None, fmt, device)
+            got = train_runs(cfg, batch, rules, fmt, device, want=base[5],
+                             trace=fmt == "fp32")
+            for i in range(SHARD_TRAIN_STEPS):
+                want = {n: 0 for n in got[3][i]}
+                want.update(flash_attention=2 * L, flash_attention_bwd=L)
+                if got[3][i] != want:
+                    raise AssertionError(f"sharded train {fmt} step {i}: launches {got[3][i]}, "
+                                         f"want {want}")
+                for name, n in got[3][i].items():
+                    total[name] = total.get(name, 0) + n
+            if got[0] != base[0] or got[1] != base[1]:
+                raise AssertionError(f"sharded train {fmt}: losses {got[0]} / grad norms "
+                                     f"{got[1]} differ from the one-device step's {base[0]} / "
+                                     f"{base[1]}")
+            if got[5]:
+                raise AssertionError(f"sharded train {fmt}: {got[5]} parameter leaves differ "
+                                     f"from the one-device step's after {SHARD_TRAIN_STEPS} "
+                                     f"steps")
+            for what, run in (("one-device", base), ("sharded 1x1 fsdp", got)):
+                steady = run[2][1:]
+                print(f"[sharded-train] {cfg.name} ({L} layers) {fmt} moments, {what}: losses "
+                      f"{[round(x, 6) for x in run[0]]}, ms a step "
+                      f"{[round(x, 1) for x in run[2]]} (steady {sum(steady) / len(steady):.1f} "
+                      f"ms, {TRAIN_B * TRAIN_S * len(steady) / sum(steady) * 1e3:.0f} "
+                      f"tokens/s), peak {run[4]:.2f} GiB [{card}]")
+            print(f"[sharded-train] {cfg.name} {fmt}: the sharded 1x1 step (NCCL, fsdp rules) "
+                  f"is bit-identical to the one-device step: {SHARD_TRAIN_STEPS} losses and "
+                  f"grad norms, then all {len(base[5])} parameter leaves; K5 {2 * L}, K5b "
+                  f"{L} launches a step")
+            del base, got
+            free_device()
+        compressed_sync_check(cfg, batch, rules, device, card)
+    finally:
+        if started:
+            dist.destroy_process_group()
+    return total
+
+
+def compressed_sync_check(cfg, batch, rules, device, card):
+    """One int8-compressed sync of one step's grads on the card over the
+    data axis of a world of one: ``compressed_psum_mean`` and
+    ``make_compressed_dp_grad_fn`` against the plain quantize formula, leaf
+    by leaf, bit for bit; the sync's ms (CUDA events) printed."""
+    import torch
+
+    from repro_torch.distributed.compression import (compressed_psum_mean,
+                                                     make_compressed_dp_grad_fn)
+    from repro_torch.launch.train import fwd_kwargs
+    from repro_torch.models import model_zoo
+    from repro_torch.training import make_loss_fn
+    from repro_torch.training.train_step import loss_and_grads
+
+    free_device()
+    params = model_zoo.init(cfg, torch.Generator(device=device).manual_seed(0), device)
+    loss_fn = make_loss_fn(cfg, fwd_kwargs(cfg))
+    _, _, grads = loss_and_grads(loss_fn, params, batch)
+    group = rules.mesh.get_group("data")
+
+    def plain(g):
+        g32 = g.float()
+        scale = torch.clamp(g32.abs().amax(), min=1e-12) / 127.0
+        q = torch.clamp(torch.round(g32 / scale), -127, 127).to(torch.int8)
+        return (q.to(torch.int32).to(torch.float32) * scale / 1).to(g.dtype)
+
+    def held(got, label):
+        bad = same = 0
+        for g, c in zip(_leaves(grads), _leaves(got)):
+            bad += int(not torch.equal(c, plain(g)))
+            same += int(torch.equal(c, g))
+        if bad or same == len(list(_leaves(grads))):
+            raise AssertionError(f"compressed sync ({label}): {bad} leaves differ from the "
+                                 f"plain quantize formula, {same} are copies of the grads")
+        return same
+
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    synced = compressed_psum_mean(grads, group)
+    b.record()
+    torch.cuda.synchronize()
+    same = held(synced, "compressed_psum_mean")
+    del synced
+    free_device()
+    loss, got = make_compressed_dp_grad_fn(lambda p, x: loss_fn(p, x)[0], rules)(params, batch)
+    held(got, "make_compressed_dp_grad_fn")
+    print(f"[sharded-train] int8-compressed grad sync of {cfg.name}'s {len(list(_leaves(grads)))} "
+          f"grad leaves over the data axis of a world of one: every leaf equal to round(g / s) "
+          f"* s / 1 bit for bit ({same} leaves already on that grid), "
+          f"{a.elapsed_time(b):.1f} ms between events; make_compressed_dp_grad_fn loss "
+          f"{loss.item():.6f} [{card}]")
+    del grads, got, params
+    free_device()
+
+
+def shard_flash_phase(device, flush):
+    """Each model rank's K5 (with its log-sum-exp, the training forward's
+    launch) and K5b at phi4-mini-3.8b's heads (Hq 24, Hk 8, D 128, causal,
+    B 1, S 4096, bf16) split over the model axes of
+    :data:`SHARD_HEAD_MESHES`: every rank's out, lse, dq, dk and dv must
+    equal its heads' slice of the whole launch bit for bit, and be within
+    K5's per-element bound (:func:`flash_case`'s) and K5b's
+    (:func:`bwd_tolerance`) of the plain versions' slice.  Returns the
+    records of the 1x2 and 1x8 meshes' rank 0 launches (K5 and K5b, timed,
+    with their cases and ``err_over_tol``)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                          flash_attention_ref)
+    from repro_torch.core.attention import make_mask
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    B, S, Hq, Hk, D = TRAIN_B, TRAIN_S, 24, 8, 128
+    mk = lambda H: torch.randn((B, S, H, D), generator=gen, device=device).to(torch.bfloat16)
+    q, k, v, dout = mk(Hq), mk(Hk), mk(Hk), mk(Hq)
+    kw = dict(mask_kind="causal", window=0, q_offset=0)
+    fwd = lambda q_, k_, v_: flash_ops._forward(q_, k_, v_, "causal", 0, 0, D ** -0.5,
+                                                want_lse=True)
+    out, lse = fwd(q, k, v)
+    grads = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    want_out = torch.cat([flash_attention_ref(q[:, i:i + BWD_ROWS], k, v,
+                                              **dict(kw, q_offset=i))
+                          for i in range(0, S, BWD_ROWS)], 1).float()
+    want_grads = bwd_plain_blocked(q, k, v, out, lse, dout, kw)
+    torch.cuda.synchronize()
+    out_tol = 1e-5 * v.float().abs().max() + torch.ldexp(
+        torch.ones_like(want_out), torch.frexp(want_out.abs())[1] - 8)
+    grad_tol = [bwd_tolerance(w, True) for w in want_grads]
+    records = []
+    for _, m in SHARD_HEAD_MESHES:
+        hq, hk = Hq // m, Hk // m
+        worst = 0.0
+        for r in range(m):
+            qh, kh = slice(r * hq, (r + 1) * hq), slice(r * hk, (r + 1) * hk)
+            args = [t[:, :, h].contiguous() for t, h in ((q, qh), (k, kh), (v, kh))]
+            o_r, l_r = fwd(*args)
+            d_r = flash_attention_bwd(*args, o_r, l_r, dout[:, :, qh].contiguous(), **kw)
+            torch.cuda.synchronize()
+            whole = (out[:, :, qh], lse[:, qh], grads[0][:, :, qh], grads[1][:, :, kh],
+                     grads[2][:, :, kh])
+            if not all(torch.equal(a, b) for a, b in zip((o_r, l_r) + tuple(d_r), whole)):
+                raise AssertionError(f"K5 / K5b rank {r} of mesh 1x{m}: not its heads' slice of "
+                                     f"the whole launch")
+            share = 0.0
+            for got, want, tol in ((o_r, want_out[:, :, qh], out_tol[:, :, qh]),
+                                   (d_r[0], want_grads[0][:, :, qh], grad_tol[0][:, :, qh]),
+                                   (d_r[1], want_grads[1][:, :, kh], grad_tol[1][:, :, kh]),
+                                   (d_r[2], want_grads[2][:, :, kh], grad_tol[2][:, :, kh])):
+                err = (got.float() - want.float()).abs()
+                if bool((err > tol).any()):
+                    raise AssertionError(f"K5 / K5b rank {r} of mesh 1x{m}: beyond the plain "
+                                         f"version's bound by {(err / tol).max().item():.3f}x")
+                share = max(share, (err / tol).max().item())
+            worst = max(worst, share)
+            if r == 0 and m in (2, 8):
+                case = (f"sharded train mesh 1x{m} rank 0: Hq {hq} Hk {hk} D {D} causal "
+                        f"B{B} S{S} bf16")
+                pairs = int(make_mask("causal", S, S, 0, 0, device).sum()) * B * hq
+                o_err = (o_r.float() - want_out[:, :, qh]).abs()
+                rec = kernel_record(
+                    "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+                    "src/repro/kernels/flash_attention/kernel.py:114", o_err.max().item(),
+                    time_ms(lambda: fwd(*args), flush=flush),
+                    time_ms(lambda: flash_attention_ref(*args, **kw), flush=flush, iters=3),
+                    2 * (2 * args[0].numel() + 2 * args[1].numel()) + 4 * l_r.numel(),
+                    4 * D * pairs, "bf16", time_ms(flash_library(*args, kw), flush=flush),
+                    label=f" {case}", case=case)
+                rec["err_over_tol"] = (o_err / out_tol[:, :, qh]).max().item()
+                records.append(rec)
+                dq_ = dout[:, :, qh].contiguous()
+                errs = [(g.float() - w.float()).abs().max().item() for g, w in
+                        zip(d_r, (want_grads[0][:, :, qh], want_grads[1][:, :, kh],
+                                  want_grads[2][:, :, kh]))]
+                rec = kernel_record(
+                    "flash_attention_bwd", K5B_SOURCE, K5B_REPLACES, max(errs),
+                    time_ms(lambda: flash_attention_bwd(*args, o_r, l_r, dq_, **kw),
+                            flush=flush),
+                    time_ms(lambda: flash_attention_bwd_ref(*args, o_r, l_r, dq_, **kw),
+                            flush=flush, iters=3),
+                    2 * (4 * args[0].numel() + 4 * args[1].numel()) + 4 * l_r.numel(),
+                    10 * D * pairs, "bf16", time_ms(sdpa_fwd_bwd(*args, dq_, kw), flush=flush),
+                    label=f" {case}", case=case)
+                rec["err_over_tol"] = share
+                records.append(rec)
+        print(f"[shard] K5 (with lse) and K5b on the {m} model ranks of mesh 1x{m} (Hq {hq}, "
+              f"Hk {hk} a rank, D {D}, causal, B {B}, S {S}, bf16): each rank's out, lse, dq, "
+              f"dk and dv bit-equal to its heads' slice of the whole launch, within the plain "
+              f"versions' bounds (worst err/tol {worst:.3f})")
+    del q, k, v, dout, out, lse, grads, want_out, want_grads
+    free_device()
+    return records
+
+
+def _train_losses(stdout):
+    """``{step: loss text}`` of a train launcher's ``[train] step`` lines."""
+    out = {}
+    for ln in stdout.splitlines():
+        if ln.startswith("[train] step"):
+            parts = ln.split()
+            out[int(parts[2])] = parts[4]
+    return out
+
+
+def sharded_train_launcher(card):
+    """``python -m torch.distributed.run --nproc-per-node 1 -m
+    repro_torch.launch.train --full --layers`` :data:`SHARD_LAUNCH_LAYERS`
+    ``--mesh 1,1 --fsdp --int8-opt`` at phi4-mini width, B 1, S 4096: a
+    straight run of :data:`SHARD_LAUNCH_STEPS` steps checkpointing every
+    :data:`SHARD_LAUNCH_EVERY` (rank 0 writing), then a run from a
+    directory holding only its step-3 checkpoint, which every rank
+    restores; the resumed run's logged losses must equal the straight
+    run's.  Checkpoints live under ``build/``, removed afterwards."""
+    import shutil
+    import tempfile
+
+    root = os.path.join(ROOT, "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="sharded-train-", dir=root)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    try:
+        def run(ckpt):
+            out = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc-per-node=1", "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH,
+                 "--full", "--layers", str(SHARD_LAUNCH_LAYERS), "--mesh", "1,1", "--fsdp",
+                 "--int8-opt", "--batch", "1", "--seq-len", str(TRAIN_S), "--steps",
+                 str(SHARD_LAUNCH_STEPS), "--ckpt-every", str(SHARD_LAUNCH_EVERY),
+                 "--log-every", "1", "--ckpt-dir", ckpt,
+                 "--heartbeat", os.path.join(tmp, "heartbeat.json")],
+                capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+            if out.returncode or "failed" in out.stdout:
+                raise AssertionError(f"train launcher under torchrun --mesh 1,1 --fsdp failed: "
+                                     f"{out.stdout[-1500:]} {out.stderr[-2000:]}")
+            return out.stdout
+        straight = run(os.path.join(tmp, "straight"))
+        at = SHARD_LAUNCH_EVERY + 1
+        os.makedirs(os.path.join(tmp, "resume"))
+        shutil.copytree(os.path.join(tmp, "straight", f"step_{at:08d}"),
+                        os.path.join(tmp, "resume", f"step_{at:08d}"))
+        resumed = run(os.path.join(tmp, "resume"))
+        a, b = _train_losses(straight), _train_losses(resumed)
+        if sorted(b) != list(range(at, SHARD_LAUNCH_STEPS)) or any(b[s] != a[s] for s in b):
+            raise AssertionError(f"train launcher under torchrun: resumed losses {b} against "
+                                 f"the straight run's {a}")
+        median = [ln for ln in straight.splitlines() if "median step" in ln]
+        print(f"[sharded-train] launcher under torch.distributed.run --nproc-per-node 1, "
+              f"--mesh 1,1 --fsdp --int8-opt --full --layers {SHARD_LAUNCH_LAYERS} S {TRAIN_S}: "
+              f"resumed from step {at}, losses at steps {at}-{SHARD_LAUNCH_STEPS - 1} equal to "
+              f"the straight run's ({', '.join(b[s] for s in sorted(b))}); "
+              f"{median[-1][8:] if median else ''} [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 PHASES = ("kernels", "head-widths", "long-context", "prefix", "score", "score-device", "decode",
           "decode-attends", "ssm", "hybrid", "long-serve", "whisper", "server", "train",
-          "sharded")
+          "sharded", "sharded-train")
 
 
 def sharded_only_phase(device, card):
@@ -5366,8 +5769,11 @@ def main(argv=None) -> int:
              "and the training path (smoke models against the CPU, phi4-mini-3.8b's full "
              "training steps, the launcher's resume), 'sharded' each mesh rank's K1 / K2 / "
              "K3 launches against their slice of the whole launch, then phi4-mini-3.8b "
-             "served through a sharded Scheduler over NCCL against its unsharded runs; "
-             "without it "
+             "served through a sharded Scheduler over NCCL against its unsharded runs, "
+             "'sharded-train' each model rank's K5 / K5b launches against their slice of the "
+             "whole launch, phi4-mini-3.8b's sharded 1x1 train step against the one-device "
+             "step, the compressed grad sync and the train launcher's resume under "
+             "torch.distributed.run; without it "
              "every phase "
              "runs and the records are printed")
     only = parser.parse_args(argv).only
@@ -5417,6 +5823,8 @@ def main(argv=None) -> int:
         records.append(timed(flash_prefix_phase, device, flush))
     if run("kernels") or run("sharded"):
         records += timed(shard_kernel_phase, device, flush)
+    if run("kernels") or run("sharded-train"):
+        records += timed(shard_flash_phase, device, flush)
     if run("score"):
         records += timed(bgpp_kernel_phase, device, flush)
     if run("kernels"):
@@ -5443,6 +5851,10 @@ def main(argv=None) -> int:
             timed(train_phase, device, card)
         if run("sharded"):
             timed(sharded_only_phase, device, card)
+        if run("sharded-train"):
+            timed(sharded_train_run, device, card)
+            timed(sharded_train_launcher, card)
+            multi_card_check(card)
         torch.cuda.synchronize()
         print(card)
         return 0
@@ -5462,8 +5874,10 @@ def main(argv=None) -> int:
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     # K5 over the training steps counts beside the serving paths'; K5b runs there alone
-    for name, n in timed(train_phase, device, card).items():
-        launches[name] = launches.get(name, 0) + n
+    for phase in (train_phase, sharded_train_run):
+        for name, n in timed(phase, device, card).items():
+            launches[name] = launches.get(name, 0) + n
+    timed(sharded_train_launcher, card)
     for phase in (trace_phase, flash_device_phase, bstc_device_phase, decode_device_phase,
                   bgpp_device_phase, score_device_phase, brcr_device_phase):
         timed(phase, device)

@@ -11,9 +11,16 @@ as its ``uint16`` bits with ``bfloat16`` as its dtype in the manifest (no
 copies before it returns, so the in-place optimizer may go on at once.
 ``restore`` departs from the reference: it writes the checkpoint into the
 template's leaves in place, one leaf read at a time, so a restore holds no
-second copy of the state (the reference returns new arrays).  The
-reference's ``shardings=`` (restore onto another mesh) belongs to sharding,
-ROADMAP item 7.
+second copy of the state (the reference returns new arrays).
+
+On a mesh (explicit SPMD: each rank holds its blocks) both take the
+state's placement as ``shardings`` (a
+:class:`~repro_torch.distributed.sharding.Placement`: the physical spec
+tree and the rules).  ``save`` gathers each leaf whole along its spec, one
+leaf at a time, every rank taking part, and rank 0 alone writes, in the
+same format, so a one-device checkpoint restores onto a mesh and back.
+``restore`` cuts each whole leaf to the rank's block of its spec, which
+may lie on another mesh than the one that saved: the elastic path.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding as sh
 from repro_torch.utils.tree import tree_items
 
 Tree = Any
@@ -47,13 +55,26 @@ def _host(leaf: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _flatten(tree: Tree) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
-    """``{path: host array}`` and ``{path: dtype name}`` of every leaf."""
+def _flatten(tree: Tree, shardings=None) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
+    """``{path: host array}`` and ``{path: dtype name}`` of every leaf (with
+    ``shardings``, of every whole leaf, gathered one at a time; empty off
+    rank 0)."""
     flat, dtypes = {}, {}
+    specs = None if shardings is None else dict(tree_items(shardings.specs))
     for key, leaf in tree_items(tree):
+        if specs is not None:
+            leaf = sh.gather_whole(leaf, specs[key], shardings.rules)
+            if _rank() != 0:
+                continue
         flat[key] = _host(leaf)
         dtypes[key] = _BF16 if leaf.dtype == torch.bfloat16 else str(flat[key].dtype)
     return flat, dtypes
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 class Checkpointer:
@@ -65,14 +86,19 @@ class Checkpointer:
         os.makedirs(directory, exist_ok=True)
 
     # ----------------------------------------------------------------- save
-    def save(self, step: int, state: Tree, metadata: Optional[Dict] = None):
+    def save(self, step: int, state: Tree, metadata: Optional[Dict] = None,
+             shardings: Optional[sh.Placement] = None):
         """Write ``state`` as step ``step``; the host copies happen on the
         caller's thread, the file writes on a background one (``wait``
         joins it) unless ``async_save`` is off.  A save in flight is joined
         before the copies are taken, so the host holds one copy at a time
-        (the reference copies first)."""
+        (the reference copies first).  With ``shardings`` every rank of the
+        mesh must call it: the leaves are gathered whole and rank 0
+        writes."""
         self.wait()
-        flat, dtypes = _flatten(state)
+        flat, dtypes = _flatten(state, shardings)
+        if shardings is not None and _rank() != 0:
+            return
         if self.async_save:
             self._thread = threading.Thread(
                 target=self._write, args=(step, flat, dtypes, metadata or {}), daemon=True)
@@ -121,20 +147,35 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template: Tree, step: Optional[int] = None) -> Tuple[int, Tree]:
+    def restore(self, template: Tree, step: Optional[int] = None,
+                shardings: Optional[sh.Placement] = None) -> Tuple[int, Tree]:
         """``(step, template)``: the checkpoint of ``step`` (the latest when
         None) copied into ``template``'s leaves in place, each in the
-        template leaf's device and dtype.  Waits for a save in flight."""
+        template leaf's device and dtype.  Waits for a save in flight.
+        With ``shardings`` (the placement of ``template``, whose leaves are
+        this rank's blocks) each whole leaf is cut to the rank's block of
+        its spec; every rank of the mesh calls it, and a barrier over the
+        world first lets rank 0's save in flight finish."""
         self.wait()
+        if shardings is not None:
+            import torch.distributed as dist
+
+            dist.barrier()
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         path = os.path.join(self.directory, f"step_{step:08d}")
         with open(os.path.join(path, "manifest.json")) as f:
             leaves = json.load(f)["leaves"]
+        specs = None if shardings is None else dict(tree_items(shardings.specs))
+        if specs is not None:
+            sizes = sh.mesh_sizes(shardings.rules.mesh)
+            coords = sh.mesh_coords(shardings.rules.mesh)
         with np.load(os.path.join(path, "arrays.npz")) as z, torch.no_grad():
             for key, leaf in tree_items(template):
                 arr = z[key]
+                if specs is not None:
+                    arr = np.array(sh.local_slice(arr, specs[key], sizes, coords))
                 if tuple(arr.shape) != tuple(leaf.shape):
                     raise ValueError(f"checkpoint leaf {key!r} has shape {arr.shape}, the "
                                      f"template's {tuple(leaf.shape)}")

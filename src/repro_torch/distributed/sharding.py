@@ -23,8 +23,19 @@ mapping.
 The reference places arrays with GSPMD and steers it with ``constrain``.
 The port runs explicit SPMD instead, one process a rank, each holding the
 local tensors of its shard: :func:`local_slice` takes a rank's block of a
-whole tensor along a spec, and :func:`all_gather` concatenates a dim over
-one mesh axis's process group.  ``constrain`` has no counterpart.
+whole tensor along a spec (:func:`cut_tree` a whole tree's, by the specs of
+:func:`physical_specs`; :func:`gather_whole` puts a block back together),
+and :func:`all_gather` concatenates a dim over one mesh axis's process
+group.  ``constrain`` has no counterpart.
+
+Training differentiates through the collectives, so it has its own:
+``torch.autograd.Function`` pairs whose backward is the forward's dual
+(:func:`copy_to` / :func:`reduce_from` around a model-parallel block,
+:func:`gather_from` / :func:`scatter_to` for a replicated tensor's blocks,
+:func:`gather_shards` / :func:`reduce_scatter_to` for sequence parallelism
+and FSDP).  Every sum over ranks is :func:`all_reduce_sum`'s: each rank
+gathers every part and adds them in rank order in f32, so all ranks hold
+the same bits and a group of one returns its own part unchanged.
 """
 
 from __future__ import annotations
@@ -210,23 +221,85 @@ def rules_for_mesh(mesh, **kw) -> ShardingRules:
 # --------------------------------------------------------------------------
 
 
-def local_slice(x: torch.Tensor, spec: Spec, sizes: Mapping[str, int],
-                coords: Mapping[str, int]) -> torch.Tensor:
-    """The block of the whole tensor ``x`` that the rank at mesh
-    coordinates ``coords`` holds under ``spec`` (a view).  A dim sharded
-    over several axes splits them major to minor, as a ``PartitionSpec``
-    does."""
+def block_index(shape, spec: Spec, sizes: Mapping[str, int],
+                coords: Mapping[str, int]) -> Tuple[slice, ...]:
+    """The slices of a whole tensor of ``shape`` that the rank at mesh
+    coordinates ``coords`` holds under ``spec``.  A dim sharded over
+    several axes splits them major to minor, as a ``PartitionSpec`` does."""
+    out = []
+    for dim, size in enumerate(shape):
+        phys = spec[dim] if dim < len(spec) else None
+        if phys is None:
+            out.append(slice(None))
+            continue
+        n, idx = 1, 0
+        for a in (phys if isinstance(phys, tuple) else (phys,)):
+            n *= sizes[a]
+            idx = idx * sizes[a] + coords[a]
+        step = size // n
+        out.append(slice(idx * step, (idx + 1) * step))
+    return tuple(out)
+
+
+def local_slice(x, spec: Spec, sizes: Mapping[str, int], coords: Mapping[str, int]):
+    """The block of the whole tensor (or numpy array) ``x`` that the rank
+    at mesh coordinates ``coords`` holds under ``spec`` (a view)."""
+    return x[block_index(x.shape, spec, sizes, coords)]
+
+
+def mesh_coords(mesh) -> Dict[str, int]:
+    """This process's coordinate on every axis of a ``DeviceMesh``."""
+    return {a: int(mesh.get_local_rank(a)) for a in mesh_axis_names(mesh)}
+
+
+def physical_specs(tree, specs, rules: ShardingRules, drop=()):
+    """The mesh-axis spec of every leaf of ``tree`` from its logical
+    ``specs`` (:meth:`ShardingRules.spec_for_shape` at the leaf's shape,
+    the logical axes in ``drop`` replicated)."""
+    if isinstance(tree, dict):
+        return {k: physical_specs(v, specs[k] if isinstance(specs, dict) else specs, rules, drop)
+                for k, v in tree.items()}
+    axes = tuple(None if a in drop else a for a in specs)
+    return rules.spec_for_shape(rules.mesh, axes, tree.shape)
+
+
+def cut_tree(tree, phys, rules: ShardingRules):
+    """Each leaf of the whole ``tree`` cut to this rank's block of its spec
+    in ``phys``.  A cut leaf is copied, contiguous, so the whole tensor can
+    be freed; an uncut one is the same tensor."""
+    sizes, coords = mesh_sizes(rules.mesh), mesh_coords(rules.mesh)
+
+    def one(x, spec):
+        y = local_slice(x, spec, sizes, coords)
+        return y.contiguous().clone() if y.shape != x.shape else x
+
+    if isinstance(tree, dict):
+        return {k: cut_tree(v, phys[k], rules) for k, v in tree.items()}
+    return one(tree, phys)
+
+
+def gather_whole(x: torch.Tensor, spec: Spec, rules: ShardingRules) -> torch.Tensor:
+    """The whole tensor whose block under ``spec`` this rank holds in
+    ``x``: every sharded dim all-gathered over its axes, the minor axis
+    first (:func:`local_slice`'s inverse); every rank of the mesh takes
+    part.  Contiguous; ``x`` itself where nothing is sharded."""
     for dim, phys in enumerate(spec):
         if phys is None:
             continue
-        axes = phys if isinstance(phys, tuple) else (phys,)
-        n, idx = 1, 0
-        for a in axes:
-            n *= sizes[a]
-            idx = idx * sizes[a] + coords[a]
-        step = x.shape[dim] // n
-        x = x.narrow(dim, idx * step, step)
-    return x
+        for axis in reversed(phys if isinstance(phys, tuple) else (phys,)):
+            x = all_gather(x, rules.mesh.get_group(axis), dim)
+    return x.contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where a tree lives on a mesh: its leaves' physical specs and the
+    rules whose mesh they name (the port's tree of ``NamedSharding``s;
+    :class:`repro_torch.checkpoint.Checkpointer` takes it as
+    ``shardings``)."""
+
+    specs: Any
+    rules: ShardingRules
 
 
 def _bytes(x: torch.Tensor) -> torch.Tensor:
@@ -263,6 +336,175 @@ def broadcast(x: torch.Tensor, group, src: int) -> torch.Tensor:
     return x
 
 
+def group_size(group) -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank(group)
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``group``, the same bits on every
+    rank: the parts are all-gathered and added in the group's rank order,
+    floats in f32 (cast back to ``x``'s dtype), integers in their own
+    dtype.  A group of one returns ``x``'s value."""
+    parts = all_gather(x[None], group, 0)
+    acc = parts[0].to(torch.float32 if x.is_floating_point() else x.dtype, copy=True)
+    for part in parts[1:]:
+        acc += part
+    return acc.to(x.dtype)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of every rank's ``x`` over ``group`` (exact)."""
+    return all_gather(x[None], group, 0).amax(0)
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of :func:`all_reduce_sum` of ``x``
+    (the parts cut before they are added), contiguous."""
+    n, r = group_size(group), group_rank(group)
+    step = x.shape[dim] // n
+    parts = all_gather(x[None], group, 0).narrow(dim % x.dim() + 1, r * step, step)
+    acc = parts[0].to(torch.float32 if x.is_floating_point() else x.dtype, copy=True)
+    for part in parts[1:]:
+        acc += part
+    return acc.to(x.dtype).contiguous()
+
+
+def own_block(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` (contiguous)."""
+    n = group_size(group)
+    step = x.shape[dim] // n
+    return x.narrow(dim, group_rank(group) * step, step).contiguous()
+
+
+def all_reduce_sum_(x: torch.Tensor, group, chunk: int = 1 << 26) -> torch.Tensor:
+    """:func:`all_reduce_sum` into ``x`` in place, a block of leading rows
+    of at most ``chunk`` elements at a time, so the temporaries stay those
+    of one block (a stacked leaf of 805 M elements is 3.2 GB in f32)."""
+    if x.dim() == 0:
+        return x.copy_(all_reduce_sum(x, group))
+    rows = max(1, chunk // max(1, x[0].numel()))
+    for i in range(0, x.shape[0], rows):
+        block = x[i:i + rows]
+        block.copy_(all_reduce_sum(block, group))
+    return x
+
+
+# --------------------------------------------------------------------------
+# collectives with a gradient: each forward's dual is its backward
+# --------------------------------------------------------------------------
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return own_block(g, ctx.group, ctx.dim), None, None
+
+
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return own_block(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim).contiguous(), None, None
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
+class _ReduceScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim).contiguous(), None, None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward, :func:`all_reduce_sum` backward: a replicated
+    tensor entering a block whose ranks compute different parts of it (or
+    a replicated weight applied to different rows on each rank)."""
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """:func:`all_reduce_sum` forward, identity backward: the partial sums
+    of a row-parallel product, made whole on every rank."""
+    return _ReduceFrom.apply(x, group)
+
+
+def gather_from(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """All-gather forward, the rank's own block of the gradient backward:
+    blocks made whole where every rank then computes the same thing."""
+    return _GatherFrom.apply(x, group, dim)
+
+
+def scatter_to(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The rank's own block forward, all-gather backward: a replicated
+    tensor cut to the rows a rank goes on with."""
+    return _ScatterTo.apply(x, group, dim)
+
+
+def gather_shards(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """All-gather forward, reduce-scatter backward: blocks made whole where
+    each rank then uses the whole on data of its own (sp's sequence
+    entering a model-parallel block; an FSDP weight)."""
+    return _GatherShards.apply(x, group, dim)
+
+
+def reduce_scatter_to(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Reduce-scatter forward, all-gather backward: a row-parallel
+    product's partial sums, summed and cut to the rank's sequence rows."""
+    return _ReduceScatterTo.apply(x, group, dim)
+
+
 # --------------------------------------------------------------------------
 # tensor parallelism as a model's layers see it
 # --------------------------------------------------------------------------
@@ -274,19 +516,104 @@ class ModelSplit:
     ``size`` and ``group``, this rank's index ``rank`` on it, and whether
     the heads (q / k / v and the KV stores) and the vocab (the embedding
     and the head) split over it.  The layers take it, or ``None`` for the
-    whole model, through the functions below."""
+    whole model, through the functions below.
+
+    Serving gathers the heads' attend outputs before a replicated ``wo``.
+    Training (``rows``) holds Megatron's split instead: ``wo`` and, where
+    ``ff``, the MLP's ``down`` are row shards whose partial products are
+    summed over the axis (:func:`leave_block`), ``gate`` / ``up`` column
+    shards; with ``seq`` (the rules' ``sp``) the residual stream holds
+    ``S / size`` rows a rank, gathered entering each block and
+    reduce-scattered leaving it."""
 
     size: int
     rank: int
     heads: bool
     vocab: bool
     group: Any
+    ff: bool = False  # gate / up column shards, down row shards (training)
+    rows: bool = False  # training: wo / down row-parallel, summed over the axis
+    seq: bool = False  # sp: the residual stream splits its sequence over the axis
+
+
+@dataclasses.dataclass(frozen=True)
+class DataSplit:
+    """FSDP as a forward sees it: the data axis's ``group`` and, for each
+    leaf of the parameter tree, the dim whose blocks the data ranks hold
+    (``None``: whole on every data rank).  :meth:`gather` makes a subtree's
+    leaves whole just before their use (:func:`gather_shards`: each
+    gradient comes back reduce-scattered to the rank's block)."""
+
+    group: Any
+    dims: Any
+
+    def gather(self, tree, dims):
+        """``tree``'s leaves made whole along their ``dims`` (a tree of the
+        same nesting)."""
+        if isinstance(tree, dict):
+            return {k: self.gather(v, dims[k]) for k, v in tree.items()}
+        return tree if dims is None else gather_shards(tree, self.group, dims)
+
+
+def heads_split(cfg, model: int) -> bool:
+    """Whether a model axis of ``model`` ranks splits the heads: only where
+    it divides both head counts (q and kv alike; GSPMD may split one and
+    replicate the other, explicit SPMD would misread that)."""
+    return cfg.num_heads % model == 0 and cfg.num_kv_heads % model == 0
+
+
+def heads_drop(cfg, model: int) -> Tuple[str, ...]:
+    """The logical head axes a placement replicates on purpose: both where
+    :func:`heads_split` is false (warning :class:`ShardingFallbackWarning`),
+    else none."""
+    if heads_split(cfg, model):
+        return ()
+    warnings.warn(f"heads ({cfg.num_heads} q, {cfg.num_kv_heads} kv) are not divisible by the "
+                  f"model axis ({model}); replicating them", ShardingFallbackWarning,
+                  stacklevel=3)
+    return (HEADS, KV_HEADS)
 
 
 def local_heads(cfg, split: Optional[ModelSplit] = None) -> Tuple[int, int]:
     """``(Hq, Hk)`` a rank computes (the whole counts without a split)."""
     n = split.size if split is not None and split.heads else 1
     return cfg.num_heads // n, cfg.num_kv_heads // n
+
+
+def training(split: Optional[ModelSplit]) -> bool:
+    """Whether ``split`` is a training split (row-parallel blocks)."""
+    return split is not None and split.rows
+
+
+def enter_block(x: torch.Tensor, split: ModelSplit, sharded: bool) -> torch.Tensor:
+    """A training block's input (the normed residual rows): under ``seq``
+    the sequence gathered (its gradient reduce-scattered back where the
+    block's weights split, ``sharded``, else the rank's own rows of it);
+    otherwise :func:`copy_to` where the block splits, as it is elsewhere."""
+    if split.seq:
+        return gather_shards(x, split.group, 1) if sharded else gather_from(x, split.group, 1)
+    return copy_to(x, split.group) if sharded else x
+
+
+def leave_block(x: torch.Tensor, split: ModelSplit, sharded: bool) -> torch.Tensor:
+    """A training block's output: a split block's partial sums summed over
+    the model axis (reduce-scattered to the rank's rows under ``seq``); a
+    whole block's output cut to the rank's rows under ``seq``."""
+    if split.seq:
+        return reduce_scatter_to(x, split.group, 1) if sharded else scatter_to(x, split.group, 1)
+    return reduce_from(x, split.group) if sharded else x
+
+
+def shared(w, split: Optional[ModelSplit], on_split_data: bool):
+    """A replicated weight (a tensor or a norm's tree) that each model rank
+    applies to data of its own (a norm under ``seq``, qk-norm on the
+    rank's heads): :func:`copy_to`, so its gradient sums the ranks'
+    parts."""
+    if not (training(split) and on_split_data):
+        return w
+    if isinstance(w, dict):
+        return {k: shared(v, split, on_split_data) for k, v in w.items()}
+    return copy_to(w, split.group)
 
 
 def gather_heads(x: torch.Tensor, split: Optional[ModelSplit], dim: int) -> torch.Tensor:
@@ -296,8 +623,9 @@ def gather_heads(x: torch.Tensor, split: Optional[ModelSplit], dim: int) -> torc
 
 
 def gather_vocab(logits: torch.Tensor, split: Optional[ModelSplit]) -> torch.Tensor:
-    """The whole vocab of head logits split on their last dim."""
-    return all_gather(logits, split.group, -1) if split is not None and split.vocab else logits
+    """The whole vocab of head logits split on their last dim (a gradient
+    takes each rank's own columns back)."""
+    return gather_from(logits, split.group, -1) if split is not None and split.vocab else logits
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
@@ -305,12 +633,12 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
     """Rows of an embedding ``table`` whose vocab may split over the model
     axis: each rank looks up the tokens it holds (its other lanes read row
     0), the rows are all-gathered and each token takes its holder's,
-    exactly."""
+    exactly (a gradient takes each rank's own rows back)."""
     if split is None or not split.vocab:
         return table[tokens]
     n = table.shape[0]
     rows = table[(tokens - split.rank * n).clamp(0, n - 1)]
-    every = all_gather(rows[None], split.group, 0)  # (size, ..., D)
+    every = gather_from(rows[None], split.group, 0)  # (size, ..., D)
     owner = torch.div(tokens, n, rounding_mode="floor")
     idx = owner[None, ..., None].expand((1,) + tuple(rows.shape))
     return torch.gather(every, 0, idx)[0]

@@ -3,9 +3,10 @@
 Counterpart of :mod:`repro.launch.mesh`.  The production meshes give their
 shape and axis names only (:class:`MeshShape`): nothing here reaches a
 device or a process group until :func:`make_debug_mesh` builds a
-``DeviceMesh`` over the world the caller started.  The serving launchers
-take their mesh flags (:func:`add_mesh_args`, :func:`mesh_from_args`) and
-start their world (:func:`start_mesh`, :func:`stop_mesh`) here.
+``DeviceMesh`` over the world the caller started.  The serving and
+training launchers take their mesh flags (:func:`add_mesh_args`,
+:func:`mesh_from_args`) and start their world (:func:`start_mesh`,
+:func:`stop_mesh`) here.
 """
 
 from __future__ import annotations
@@ -56,9 +57,9 @@ def make_debug_mesh(data: int = 1, model: int = 1, device: str = "cuda"):
 
 
 def add_mesh_args(ap) -> None:
-    """A serving launcher's ``--data`` / ``--model`` / ``--mesh`` flags."""
-    ap.add_argument("--data", type=int, default=1, help="data axis of the serving mesh")
-    ap.add_argument("--model", type=int, default=1, help="model axis of the serving mesh")
+    """A launcher's ``--data`` / ``--model`` / ``--mesh`` flags."""
+    ap.add_argument("--data", type=int, default=1, help="data axis of the mesh")
+    ap.add_argument("--model", type=int, default=1, help="model axis of the mesh")
     ap.add_argument("--mesh", default=None,
                     help="DATA,MODEL mesh shape (e.g. 2,4; overrides --data / --model); "
                          "run under torchrun --nproc-per-node DATA*MODEL")
@@ -78,12 +79,13 @@ def mesh_from_args(args) -> bool:
     return meshed
 
 
-def start_mesh(data: int, model: int, device: torch.device):
+def start_mesh(data: int, model: int, device: torch.device, **rule_kw):
     """The world (``torchrun``'s, else one rank over a file store) and
-    serving rules over a ``(data, model)`` mesh of it: NCCL on the card,
-    where each rank takes the card of its ``LOCAL_RANK``, gloo on the CPU.
-    Returns ``(device, rules, started)``; hand ``started`` to
-    :func:`stop_mesh`."""
+    rules over a ``(data, model)`` mesh of it: NCCL on the card, where each
+    rank takes the card of its ``LOCAL_RANK``, gloo on the CPU.
+    ``rule_kw`` are the rules' keywords (training's ``fsdp_axes`` and
+    ``sp``; serving's rules take none).  Returns ``(device, rules,
+    started)``; hand ``started`` to :func:`stop_mesh`."""
     import os
     import tempfile
 
@@ -97,13 +99,13 @@ def start_mesh(data: int, model: int, device: torch.device):
         if "WORLD_SIZE" in os.environ:
             dist.init_process_group(backend)
         else:
-            store = os.path.join(tempfile.mkdtemp(prefix="serve-mesh-"), "store")
+            store = os.path.join(tempfile.mkdtemp(prefix="mesh-"), "store")
             dist.init_process_group(backend, init_method=f"file://{store}", rank=0,
                                     world_size=1)
     if device.type == "cuda":
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         torch.cuda.set_device(device)
-    return device, rules_for_mesh(make_debug_mesh(data, model, device.type)), started
+    return device, rules_for_mesh(make_debug_mesh(data, model, device.type), **rule_kw), started
 
 
 def stop_mesh(started: bool) -> None:

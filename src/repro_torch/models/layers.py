@@ -201,17 +201,20 @@ def glu_act(kind: str, gate: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"glu_act: activation {kind!r} is not a gated unit")
 
 
-def mlp_apply(params, x: torch.Tensor, activation: str) -> torch.Tensor:
+def mlp_apply(params, x: torch.Tensor, activation: str, reduce=None) -> torch.Tensor:
     """Gated MLP ``down(act(gate(x)) * up(x))`` for ``swiglu`` / ``geglu``;
     the plain ``gelu`` MLP with biases (``up``, ``up_b``, ``down``,
-    ``down_b``) otherwise."""
+    ``down_b``) otherwise.  ``reduce`` (a training split's sum of ``down``'s
+    row-parallel partial products) is applied to ``down``'s product before
+    its bias."""
+    reduce = reduce or (lambda y: y)
     if activation in ("swiglu", "geglu"):
         gate = wdot(x, params["gate"])
-        return wdot(glu_act(activation, gate) * wdot(x, params["up"]), params["down"])
+        return reduce(wdot(glu_act(activation, gate) * wdot(x, params["up"]), params["down"]))
     if activation != "gelu":
         raise ValueError(f"mlp_apply: unknown activation {activation!r}")
     h = F.gelu(wdot(x, params["up"]) + params["up_b"], approximate="tanh")
-    return wdot(h, params["down"]) + params["down_b"]
+    return reduce(wdot(h, params["down"])) + params["down_b"]
 
 
 def qkv_project(params, x: torch.Tensor, num_heads: int, num_kv_heads: int,

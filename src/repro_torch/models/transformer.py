@@ -181,8 +181,11 @@ def lm_logits(params: Params, cfg, x: torch.Tensor,
               split: Optional[sh.ModelSplit] = None) -> torch.Tensor:
     """The final norm and the head: the untied ``lm_head`` (a raw leaf or a
     serve-time record), else the tied ``embed.T`` in the model dtype.  A
-    mesh rank's ``split`` gathers its vocab columns over ``"model"``."""
-    x = layers.apply_norm(x, params["final_norm"], cfg.norm)
+    mesh rank's ``split`` gathers its vocab columns over ``"model"``; a
+    training split's head is column-parallel on the whole sequence."""
+    x = _norm(x, params["final_norm"], cfg, split)
+    if sh.training(split):
+        x = sh.enter_block(x, split, split.vocab)
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T.to(_dtype(cfg.dtype))
@@ -222,22 +225,40 @@ def run_layer(fn, remat: bool, *args):
 # --------------------------------------------------------------------------
 
 
+def _norm(x, p, cfg, split):
+    """The config's norm of the rank's residual rows (its scale's gradient
+    summed over the model axis where those rows are the rank's own)."""
+    return layers.apply_norm(x, sh.shared(p, split, split is not None and split.seq), cfg.norm)
+
+
 def _attention_block(p, cfg, x, positions, theta: float, window: int, mask_kind: str,
                      return_kv: bool = False, split: Optional[sh.ModelSplit] = None):
     """Norm, QKV (qk-norm where set) with RoPE, ``blocked_attend``, ``wo``
     and the post-attention norm where set.  x ``(B, S, d)`` -> ``(out, (k,
     v) or None)`` with k / v ``(B, S, Hk, Dh)``.  A mesh rank's ``split``
-    projects and attends its heads and gathers them before ``wo``."""
-    h = layers.apply_norm(x, p["attn_norm"], cfg.norm)
+    projects and attends its heads; serving gathers them before ``wo``, a
+    training split sums its row shard of ``wo``'s product over the axis
+    (:func:`sh.leave_block`)."""
+    h = _norm(x, p["attn_norm"], cfg, split)
+    rows = sh.training(split)
+    if rows:
+        h = sh.enter_block(h, split, split.heads)
     Hq, Hk = sh.local_heads(cfg, split)
-    q, k, v = layers.qkv_project(p["attn"], h, Hq, Hk, cfg.head_dim, positions, theta,
+    attn_p = p["attn"]
+    if rows and cfg.qk_norm:  # applied to the rank's own heads
+        attn_p = dict(attn_p, q_norm=sh.shared(attn_p["q_norm"], split, split.heads),
+                      k_norm=sh.shared(attn_p["k_norm"], split, split.heads))
+    q, k, v = layers.qkv_project(attn_p, h, Hq, Hk, cfg.head_dim, positions, theta,
                                  qk_norm=cfg.qk_norm)
-    attn = sh.gather_heads(attention.blocked_attend(q, k, v, mask_kind=mask_kind,
-                                                    window=window), split, 2)
+    attn = attention.blocked_attend(q, k, v, mask_kind=mask_kind, window=window)
+    if not rows:
+        attn = sh.gather_heads(attn, split, 2)
     B, S = attn.shape[:2]
     out = layers.wdot(attn.reshape(B, S, -1), p["attn"]["wo"])
+    if rows:
+        out = sh.leave_block(out, split, split.heads)
     if cfg.post_norms:
-        out = layers.apply_norm(out, p["post_attn_norm"], cfg.norm)
+        out = _norm(out, p["post_attn_norm"], cfg, split)
     return out, ((k, v) if return_kv else None)
 
 
@@ -250,30 +271,44 @@ def ffn_apply(p, cfg, h, capacity_factor=None):
     return layers.mlp_apply(p["mlp"], h, cfg.activation), 0.0
 
 
-def _ffn_block(p, cfg, x):
+def _ffn_block(p, cfg, x, split: Optional[sh.ModelSplit] = None):
     """Norm, FFN (the MoE at the config's capacity factor) and the post-MLP
-    norm where set -> ``(out, aux)``; aux is 0 for a dense layer."""
-    h = layers.apply_norm(x, p["mlp_norm"], cfg.norm)
-    out, aux = ffn_apply(p, cfg, h)
+    norm where set -> ``(out, aux)``; aux is 0 for a dense layer.  A
+    training split's MLP runs its ``gate`` / ``up`` column shards and sums
+    its ``down`` row shard's product over the model axis."""
+    h = _norm(x, p["mlp_norm"], cfg, split)
+    if sh.training(split):
+        h = sh.enter_block(h, split, split.ff)
+        out = layers.mlp_apply(p["mlp"], h, cfg.activation,
+                               reduce=lambda y: sh.leave_block(y, split, split.ff))
+        aux = 0.0
+    else:
+        out, aux = ffn_apply(p, cfg, h)
     if cfg.post_norms:
-        out = layers.apply_norm(out, p["post_mlp_norm"], cfg.norm)
+        out = _norm(out, p["post_mlp_norm"], cfg, split)
     return out, aux
 
 
 def _layer(p, x, positions, *, cfg, theta: float, window: int, mask_kind: str,
-           return_kv: bool, split: Optional[sh.ModelSplit] = None):
-    """One layer: ``x + attn``, then ``+ ffn`` -> ``(x, aux, kv)``."""
+           return_kv: bool, split: Optional[sh.ModelSplit] = None,
+           fsdp: Optional[sh.DataSplit] = None, fsdp_dims=None):
+    """One layer: ``x + attn``, then ``+ ffn`` -> ``(x, aux, kv)``.  Under
+    FSDP the layer's weights are gathered over ``"data"`` here, so they
+    live for the layer only (and are gathered again when remat recomputes
+    it)."""
+    if fsdp is not None:
+        p = fsdp.gather(p, fsdp_dims)
     a, kv = _attention_block(p, cfg, x, positions, theta, window, mask_kind,
                              return_kv=return_kv, split=split)
     x = x + a
-    f, aux = _ffn_block(p, cfg, x)
+    f, aux = _ffn_block(p, cfg, x, split)
     return x + f, aux, kv
 
 
 def forward(params: Params, cfg, tokens: torch.Tensor, return_kv: bool = False,
             vision_embeds: Optional[torch.Tensor] = None, block_q: Optional[int] = None,
             block_k: Optional[int] = None, remat: bool = False,
-            split: Optional[sh.ModelSplit] = None):
+            split: Optional[sh.ModelSplit] = None, fsdp: Optional[sh.DataSplit] = None):
     """tokens ``(B, S)`` -> ``(logits (B, S', V), aux[, (k_all, v_all)])``.
 
     The residual stream runs in ``cfg.dtype``; ``aux`` is a 0-d float32
@@ -291,10 +326,20 @@ def forward(params: Params, cfg, tokens: torch.Tensor, return_kv: bool = False,
     reference's attention tiles) are accepted and ignored: the kernel's
     plan sets its own tiles.  ``split``: a mesh rank's place on the model
     axis (:class:`repro_torch.distributed.sharding.ModelSplit`; eager
-    admission on a mesh): the rank's heads (its K / V), the vocab-split
-    embedding and head, the whole logits."""
+    admission on a mesh, and the sharded train step): the rank's heads (its
+    K / V), the vocab-split embedding and head, the whole logits; a
+    training split also its FF shard, the row-parallel ``wo`` / ``down``
+    and, with ``seq``, ``S / size`` rows of the residual stream a rank.
+    ``fsdp`` (the sharded train step under FSDP rules): the leaves' dims
+    held in blocks over ``"data"``, gathered where they are used (the
+    layers' inside each layer)."""
     require_transformer(cfg, "forward")
     B, S = tokens.shape
+    layer_dims = None
+    if fsdp is not None:
+        top = {k: v for k, v in params.items() if k != "layers"}
+        params = dict(params, **fsdp.gather(top, {k: fsdp.dims[k] for k in top}))
+        layer_dims = tree_map(lambda d: None if d is None else d - 1, fsdp.dims["layers"])
     x = embed_tokens(params, cfg, tokens, split)
     mask_kind = _mask_kind(cfg)
     windows = layer_windows(cfg)
@@ -309,13 +354,19 @@ def forward(params: Params, cfg, tokens: torch.Tensor, return_kv: bool = False,
         windows = np.full_like(windows, vis.shape[1])
         S = x.shape[1]
     positions = torch.arange(S, device=tokens.device).expand(B, S)
+    if split is not None and split.seq:
+        if S % split.size:
+            raise ValueError(f"forward: sequence parallelism over {split.size} ranks needs "
+                             f"S divisible by it (S {S})")
+        x = sh.scatter_to(x, split.group, 1)
     thetas = layer_thetas(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
     for i, p in enumerate(layer_slices(params["layers"], cfg.num_layers)):
         x, aux_l, kv = run_layer(
             functools.partial(_layer, cfg=cfg, theta=float(thetas[i]), window=int(windows[i]),
-                              mask_kind=mask_kind, return_kv=return_kv, split=split),
+                              mask_kind=mask_kind, return_kv=return_kv, split=split,
+                              fsdp=fsdp, fsdp_dims=layer_dims),
             remat, p, x, positions)
         aux = aux + aux_l
         if return_kv:

@@ -43,7 +43,6 @@ goes through them.  The dense family is served on a mesh; the others
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from typing import Any, Optional, Tuple
 
 import numpy as np
@@ -89,42 +88,6 @@ def serving_param_specs(specs):
     return _map(fix, specs)
 
 
-def _coords(rules: sh.ShardingRules):
-    """This process's coordinate on every axis of the rules' DeviceMesh."""
-    mesh = rules.mesh
-    return {a: int(mesh.get_local_rank(a)) for a in sh.mesh_axis_names(mesh)}
-
-
-def _heads_split(cfg, model: int) -> bool:
-    return cfg.num_heads % model == 0 and cfg.num_kv_heads % model == 0
-
-
-def _physical(tree, specs, rules: sh.ShardingRules, drop=()):
-    """The mesh-axis spec of every leaf of ``tree`` from its logical
-    ``specs`` (:meth:`ShardingRules.spec_for_shape`, the logical axes in
-    ``drop`` replicated)."""
-    if isinstance(tree, dict):
-        return {k: _physical(v, specs[k] if isinstance(specs, dict) else specs, rules, drop)
-                for k, v in tree.items()}
-    axes = tuple(None if a in drop else a for a in specs)
-    return rules.spec_for_shape(rules.mesh, axes, tree.shape)
-
-
-def _cut(tree, phys, rules: sh.ShardingRules):
-    """Each leaf of ``tree`` cut to this rank's block of its spec.  A cut
-    leaf is copied, contiguous, so the whole tensor can be freed; an uncut
-    one is the same tensor."""
-    sizes, coords = sh.mesh_sizes(rules.mesh), _coords(rules)
-
-    def one(x, spec):
-        y = sh.local_slice(x, spec, sizes, coords)
-        return y.contiguous().clone() if y.shape != x.shape else x
-
-    if isinstance(tree, dict):
-        return {k: _cut(v, phys[k], rules) for k, v in tree.items()}
-    return one(tree, phys)
-
-
 def shard_params(params, specs, rules: sh.ShardingRules, cfg=None):
     """This rank's local parameter tree under the serving placement.
     ``specs`` is the model zoo's logical tree (``model_zoo.param_specs``),
@@ -132,19 +95,15 @@ def shard_params(params, specs, rules: sh.ShardingRules, cfg=None):
     ``"model"`` divides both head counts.  Identity without a mesh."""
     if rules.mesh is None or specs is None:
         return params
-    drop = ()
-    if cfg is not None and not _heads_split(cfg, mesh_shape(rules)[1]):
-        warnings.warn(f"heads ({cfg.num_heads} q, {cfg.num_kv_heads} kv) are not divisible "
-                      f"by the model axis ({mesh_shape(rules)[1]}); replicating them",
-                      sh.ShardingFallbackWarning, stacklevel=2)
-        drop = _OUTPUT_ONLY
-    return _cut(params, _physical(params, serving_param_specs(specs), rules, drop), rules)
+    drop = () if cfg is None else sh.heads_drop(cfg, mesh_shape(rules)[1])
+    return sh.cut_tree(params, sh.physical_specs(params, serving_param_specs(specs), rules, drop),
+                       rules)
 
 
 def _cache_drop(cfg, layout, rules) -> Tuple[Any, ...]:
     d, m = mesh_shape(rules)
     drop = []
-    if not _heads_split(cfg, m):
+    if not sh.heads_split(cfg, m):
         drop.append(sh.KV_HEADS)
     if layout.layout == "paged" or layout.batch % d:
         drop.append(sh.BATCH)
@@ -159,7 +118,7 @@ def cache_shardings(cache, cfg, layout, rules: sh.ShardingRules):
     if rules.mesh is None:
         return None
     specs = dict(kvc.cache_specs(cfg, layout), pos=(None,))
-    return _physical(cache, specs, rules, _cache_drop(cfg, layout, rules))
+    return sh.physical_specs(cache, specs, rules, _cache_drop(cfg, layout, rules))
 
 
 def shard_cache(cache, cfg, layout, rules: sh.ShardingRules):
@@ -167,7 +126,7 @@ def shard_cache(cache, cfg, layout, rules: sh.ShardingRules):
     :func:`cache_shardings` (identity without a mesh)."""
     if rules.mesh is None:
         return cache
-    return _cut(cache, cache_shardings(cache, cfg, layout, rules), rules)
+    return sh.cut_tree(cache, cache_shardings(cache, cfg, layout, rules), rules)
 
 
 def replicated(x, rules: Optional[sh.ShardingRules], device="cpu") -> torch.Tensor:
@@ -235,17 +194,17 @@ class Shard:
         if knobs:
             raise NotImplementedError(
                 f"sharded serving: {', '.join(knobs)} is not served (the placement shards "
-                f"heads, vocab and slots only; sequence and FSDP sharding are ROADMAP "
-                f"items 7b / 7c)")
+                f"heads, vocab and slots only; sequence and FSDP sharding of serving are "
+                f"ROADMAP item 7c)")
         if len([a for a in rules.batch_axes if sh.mesh_sizes(rules.mesh).get(a, 1) > 1]) > 1:
             raise NotImplementedError("sharded serving: one batch axis (data); a pod axis "
                                       "of more than one replica is not served")
         d, m = mesh_shape(rules)
-        coords = _coords(rules)
+        coords = sh.mesh_coords(rules.mesh)
         data_axis = next((a for a in rules.batch_axes if a in coords), rules.batch_axes[-1])
         slots = layout.batch % d == 0
         split = sh.ModelSplit(size=m, rank=coords[rules.model_axis],
-                              heads=_heads_split(cfg, m), vocab=cfg.vocab_size % m == 0,
+                              heads=sh.heads_split(cfg, m), vocab=cfg.vocab_size % m == 0,
                               group=rules.mesh.get_group(rules.model_axis))
         return cls(batch=layout.batch, data=d, d_rank=coords.get(data_axis, 0), slots=slots,
                    split_stores=slots and layout.layout == "slot",

@@ -1,0 +1,193 @@
+"""The sharded train step's placement: explicit SPMD on a ``(data, model)``
+mesh.
+
+The reference trains under GSPMD: its launcher places the state by
+``model_zoo.param_specs`` and ``opt_state_specs`` through the rules
+(``fsdp_axes=(D_MODEL,)`` under ``--fsdp``, ``sp`` where ``"model" > 1``)
+and the model code steers the activations with ``constrain``.  The port
+runs the same placement as explicit SPMD, one process a mesh rank holding
+plain local tensors:
+
+* ``"model"`` (Megatron): ``wq`` / ``wk`` / ``wv`` and the MLP's ``gate``
+  / ``up`` are column shards, ``wo`` and ``down`` row shards whose partial
+  products are summed over the axis; the embedding and the head split
+  their vocab, the head's logits gathered before the loss.  The heads
+  split only where ``"model"`` divides both head counts (as in serving),
+  the FF and the vocab where it divides them; anything else replicates,
+  with :class:`~repro_torch.distributed.sharding.ShardingFallbackWarning`.
+* ``sp``: the residual stream holds ``S / model`` rows a rank (gathered
+  entering each block, reduce-scattered leaving it).
+* ``"data"``: each rank takes its rows of the global batch; the loss is
+  the global mean over every label token of the mesh.  Under FSDP the
+  ``d_model`` dim of every leaf splits over ``"data"`` too: the forward
+  gathers a layer's weights inside the layer, and their gradients come
+  back reduce-scattered; every other leaf's gradient is summed over
+  ``"data"`` after the backward (:meth:`TrainShard.sync_grads`).
+* The moments follow the parameters (``opt_state_specs``): ZeRO falls out
+  of the FSDP rules, as in the reference.
+
+Only the dense family trains on a mesh here; the others raise, naming
+ROADMAP item 7c (as serving's refusal does).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.distributed import sharding as sh
+from repro_torch.utils.tree import tree_items, tree_map
+
+Tree = Any
+
+
+def _axes(entry):
+    return () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
+
+
+def train_specs(cfg, rules: sh.ShardingRules, logical: Optional[Tree] = None):
+    """``(shapes, specs, drop)``: the whole parameters on the meta device,
+    their physical specs under ``rules`` (``logical``: the model's logical
+    tree, ``model_zoo.param_specs`` when None) and the logical axes
+    replicated on purpose: the heads, where ``"model"`` does not divide
+    both head counts (warning
+    :class:`~repro_torch.distributed.sharding.ShardingFallbackWarning`).
+    Needs only the mesh's shape."""
+    from repro_torch.models import model_zoo
+
+    m = sh.mesh_sizes(rules.mesh).get(rules.model_axis, 1)
+    logical = model_zoo.param_specs(cfg) if logical is None else logical
+    shapes = model_zoo.init(cfg, None, "meta")
+    drop = sh.heads_drop(cfg, m)
+    return shapes, sh.physical_specs(shapes, logical, rules, drop), drop
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainShard:
+    """What one rank holds of a ``(cfg, rules)`` training placement: the
+    parameters' physical ``specs`` (their whole ``shapes`` on the meta
+    device), its place on ``"model"`` (``split``), FSDP's gather dims
+    (``fsdp``, None without it), its share of the batch over ``"data"``
+    and, for each parameter leaf, the process groups of each dim
+    (``groups``: the optimizer's reductions).  Built by :meth:`of`."""
+
+    rules: sh.ShardingRules
+    logical: Tree
+    shapes: Tree  # the whole parameters on the meta device
+    specs: Tree
+    drop: tuple
+    split: sh.ModelSplit
+    fsdp: Optional[sh.DataSplit]
+    data: int
+    d_rank: int
+    data_group: Any
+    groups: Tree
+
+    @classmethod
+    def of(cls, cfg, rules: Optional[sh.ShardingRules],
+           param_specs: Optional[Tree] = None) -> Optional["TrainShard"]:
+        """The rank's placement (``None`` without a mesh: one device)."""
+        if rules is None or rules.mesh is None:
+            return None
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"sharded training: family {cfg.family!r} under a mesh is ROADMAP item 7c "
+                f"(MoE token groups, ssm / hybrid state, the enc_dec cross memory, the VLM); "
+                f"the dense family trains sharded")
+        if rules.seq_shard:
+            raise NotImplementedError("sharded training: seq_shard is the long-context "
+                                      "decode knob (ROADMAP item 7c), not a training rule")
+        from repro_torch.models import model_zoo
+
+        mesh, sizes = rules.mesh, sh.mesh_sizes(rules.mesh)
+        batch = [a for a in rules.batch_axes if a in sizes]
+        if len([a for a in batch if sizes[a] > 1]) > 1:
+            raise NotImplementedError("sharded training: one batch axis (data); a pod axis "
+                                      "of more than one replica is not placed")
+        data_axis = next((a for a in batch if sizes[a] > 1), batch[-1] if batch else None)
+        if data_axis is None:
+            raise ValueError(f"sharded training: the mesh {sizes} has no batch axis "
+                             f"{rules.batch_axes}")
+        m = sizes.get(rules.model_axis, 1)
+        coords = sh.mesh_coords(mesh)
+        logical = model_zoo.param_specs(cfg) if param_specs is None else param_specs
+        shapes, specs, drop = train_specs(cfg, rules, logical)
+        split = sh.ModelSplit(
+            size=m, rank=coords[rules.model_axis], heads=not drop,
+            vocab=rules.model_axis in _axes(specs["embed"][0]),
+            group=mesh.get_group(rules.model_axis),
+            ff=rules.model_axis in _axes(specs["layers"]["mlp"]["up"][-1]),
+            rows=True, seq=rules.sp)
+        data_group = mesh.get_group(data_axis)
+        dims = tree_map(lambda spec: next((i for i, e in enumerate(spec)
+                                           if data_axis in _axes(e)), None), specs)
+        fsdp = sh.DataSplit(data_group, dims) if any(
+            d is not None for _, d in tree_items(dims)) else None
+        groups = tree_map(lambda spec: tuple(tuple(mesh.get_group(a) for a in _axes(e))
+                                             for e in spec), specs)
+        return cls(rules=rules, logical=logical, shapes=shapes, specs=specs, drop=drop,
+                   split=split, fsdp=fsdp, data=sizes[data_axis], d_rank=coords[data_axis],
+                   data_group=data_group, groups=groups)
+
+    # ---- placement ------------------------------------------------------
+
+    def shard_params(self, params: Tree) -> Tree:
+        """This rank's blocks of a whole parameter tree (copies)."""
+        return sh.cut_tree(params, self.specs, self.rules)
+
+    def opt_specs(self, opt_cfg) -> Tree:
+        """The physical specs of the optimizer state
+        (:func:`repro_torch.optim.opt_state_specs` at its shapes)."""
+        from repro_torch.optim import adamw_init, opt_state_specs
+
+        return sh.physical_specs(adamw_init(self.shapes, opt_cfg),
+                                 opt_state_specs(self.logical, opt_cfg), self.rules, self.drop)
+
+    def placement(self, opt_cfg) -> sh.Placement:
+        """The train state's ``{"params", "opt"}`` placement
+        (``Checkpointer``'s ``shardings``)."""
+        return sh.Placement({"params": self.specs, "opt": self.opt_specs(opt_cfg)},
+                            self.rules)
+
+    def local_rows(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This data rank's rows of a global batch (views)."""
+        b = batch["tokens"].shape[0] // self.data
+        return {k: v[self.d_rank * b:(self.d_rank + 1) * b] for k, v in batch.items()}
+
+    def forward_kwargs(self, seq_len: int) -> Dict[str, Any]:
+        """The forward's ``split`` and ``fsdp`` for a batch of ``seq_len``
+        tokens a row: ``sp`` replicates the residual stream (warning
+        :class:`~repro_torch.distributed.sharding.ShardingFallbackWarning`)
+        where ``"model"`` does not divide the sequence, as ``constrain``
+        does."""
+        split = self.split
+        if split.seq and seq_len % split.size:
+            warnings.warn(f"logical axis 'seq' (dim {seq_len}) is not divisible by the model "
+                          f"axis ({split.size}); replicating instead",
+                          sh.ShardingFallbackWarning, stacklevel=2)
+            split = dataclasses.replace(split, seq=False)
+        return dict(split=split, fsdp=self.fsdp)
+
+    # ---- gradients ------------------------------------------------------
+
+    def sync_grads(self, grads: Tree) -> Tree:
+        """Sum over ``"data"``, in place and in f32 (:func:`sh.all_reduce_sum_`),
+        every gradient the backward has not already summed: those of the
+        leaves FSDP does not split (an FSDP leaf's comes back
+        reduce-scattered)."""
+        def one(g, d):
+            if d is None:
+                sh.all_reduce_sum_(g, self.data_group)
+            return g
+
+        dims = self.fsdp.dims if self.fsdp is not None else tree_map(lambda _: None, grads)
+        return tree_map(one, grads, dims)
+
+    def gather_whole(self, tree: Tree, specs: Optional[Tree] = None) -> Tree:
+        """Every leaf of this rank's ``tree`` made whole (every rank of the
+        mesh takes part; the parameters' specs unless ``specs`` is given)."""
+        specs = self.specs if specs is None else specs
+        return tree_map(lambda x, s: sh.gather_whole(x, s, self.rules), tree, specs)

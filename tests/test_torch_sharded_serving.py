@@ -459,11 +459,11 @@ def test_column_shard_product_on_the_cpu(threads, equal):
                                   dict(fsdp_axes=(sh.FF,))], ids=["seq_shard", "sp", "fsdp"])
 def test_serving_refuses_the_knobs_it_does_not_place(knob):
     """Sequence and FSDP sharding are the reference's training and
-    long-context knobs: serving rules that set one are refused, not run on
-    a cut the engine would misread as its slots."""
+    long-context knobs: serving rules that set one are refused, naming
+    item 7c, not run on a cut the engine would misread as its slots."""
     cfg = _cfg()
     rules = sh.ShardingRules(mesh={"data": 2, "model": 4}, **knob)
-    with pytest.raises(NotImplementedError, match=next(iter(knob))):
+    with pytest.raises(NotImplementedError, match=f"{next(iter(knob))}.*item 7c"):
         shd.Shard.of(cfg, kvc.layout_for(cfg, SLOTS, MAX_SEQ), rules)
 
 

@@ -147,13 +147,33 @@ def test_adamw_update_matches_jax(state_dtype, clip):
 
 
 def test_adamw_updates_in_place_and_refuses_zero():
+    """The update writes in place.  ``zero_partition`` is, as in the
+    reference, a field only (it was refused before sharding was ported):
+    it is accepted, and whether ``"data"`` shards the moments is the
+    rules' ``fsdp_axes``, the moments' specs mirroring the parameters'
+    (``opt_state_specs``)."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.optim import opt_state_specs
+
     params = {"w": torch.ones(4, 3)}
     st = adamw_init(params, AdamWConfig())
     new, st2, _ = adamw_update(params, {"w": torch.full((4, 3), 0.5)}, st, AdamWConfig())
     assert new["w"] is params["w"] and st2["m"]["w"] is st["m"]["w"]
     assert int(st2["step"]) == 1 and not torch.equal(params["w"], torch.ones(4, 3))
-    with pytest.raises(ValueError, match="item 7"):
-        adamw_init(params, AdamWConfig(zero_partition=True))
+    zero = AdamWConfig(zero_partition=True)
+    st3 = adamw_init(params, zero)
+    adamw_update(params, {"w": torch.full((4, 3), 0.5)}, st3, zero)
+    assert int(st3["step"]) == 0 and st3["m"]["w"].abs().sum() > 0
+    specs = {"w": (sh.D_MODEL, sh.FF)}
+    for cfg in (zero, AdamWConfig(zero_partition=True, state_dtype="int8")):
+        ospecs = opt_state_specs(specs, cfg)
+        for fsdp, want in (((sh.D_MODEL,), ("data", "model")), ((), (None, "model"))):
+            rules = sh.ShardingRules(mesh={"data": 2, "model": 2}, fsdp_axes=fsdp)
+            m = ospecs["m"]["w"]
+            q = m["q"] if isinstance(m, dict) else m
+            got = rules.spec_for_shape(rules.mesh, q, (4, 6))
+            assert got == (("data",) if want[0] else None, want[1]), (cfg, fsdp, got)
+            assert got == rules.spec_for_shape(rules.mesh, specs["w"], (4, 6))
 
 
 # ---------------------------------------------------------------------------
