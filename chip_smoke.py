@@ -624,14 +624,14 @@ def k2_record(args, err, ms, plain_ms, table_numel, label, arch="phi4-mini-3.8b"
 DECODE_S, DECODE_PAGE = 1024, 16  # the decode attends' width and page in the main path
 
 
-def decode_attend_inputs(device):
+def decode_attend_inputs(device, arch="phi4-mini-3.8b"):
     """The decode attends' operands at the decode geometry (B 4 slots of
-    phi4-mini's Hk 8, g 3, D 128 over S 1024 lanes, page 16), seed 0:
-    positions at page ends, a page start, and one shorter than BGPP's
-    k_max."""
+    ``arch``'s heads, phi4-mini's Hk 8, g 3, D 128 by default, over S 1024
+    lanes, page 16), seed 0: positions at page ends, a page start, and one
+    shorter than BGPP's k_max."""
     from repro_torch.configs import get_config
 
-    cfg = get_config("phi4-mini-3.8b")
+    cfg = get_config(arch)
     S, page = DECODE_S, DECODE_PAGE
     return k1_inputs(device, 0, 4, S, [S - 1, 100, 20 * page - 1, 33 * page], page,
                      cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.head_dim)
@@ -2319,14 +2319,22 @@ GEMMA_DEPTH = 6
 # deepseek-7b (an untied head, g 1): one chunked bf16-KV run, 3 requests
 DEEPSEEK_ARCH, DEEPSEEK_TRACE = "deepseek-7b", dict(seed=0, n=3, lo=64, hi=512, new=16)
 # the MoE family at full width, depth cut to fit one card: llama4-scout
-# (16 experts top-1, a shared expert, the 202048-row head; layers 0-2 and
-# 4-6 chunked-local rings of min(8192, max_seq) lanes, 3 and 7 global; g 5)
-# in three runs, and mixtral-8x22b (8 experts top-2; both layers
-# sliding-window rings: no global layer, no page pool) once
-LLAMA4_ARCH, LLAMA4_DEPTH = "llama4-scout-17b-a16e", 8
+# (16 experts top-1, a shared expert, the 202048-row head; layers 0-2
+# chunked-local rings of min(8192, max_seq) lanes, 3 global; g 5) in three
+# runs, and mixtral-8x22b (8 experts top-2; both layers sliding-window
+# rings: no global layer, no page pool) once.  llama4-scout's depth was cut
+# from 8 to 4 layers (10.9 B parameters, 19.7 B at 8) to make room for the
+# sharded Scheduler's runs beside its unsharded ones and for the sharded
+# MoE train step's phase in the script's time
+LLAMA4_ARCH, LLAMA4_DEPTH = "llama4-scout-17b-a16e", 4
 LLAMA4_TRACE = dict(seed=0, n=6, lo=201, hi=450, new=16)
 LLAMA4_RUNS = (("bf16", "bf16", "chunked"), ("bgpp", "bstc", "chunked"),
                ("bf16", "bf16", "eager"))
+# llama4-scout's runs through a sharded Scheduler over an NCCL world of one
+# (ROADMAP item 7c-i), each held to the unsharded run of its formats: bstc
+# weights + bgpp KV, chunked (the MoE dropless on the rank's slots), and
+# bf16 eager (the forward at capacity factor 1.25 on the rank's heads)
+LLAMA4_SHARDED_RUNS = (("bgpp", "bstc", "chunked", "paged"), ("bf16", "bf16", "eager", "paged"))
 MIXTRAL_ARCH, MIXTRAL_DEPTH = "mixtral-8x22b", 2
 MIXTRAL_TRACE = dict(seed=0, n=3, lo=201, hi=450, new=16)
 MIXTRAL_RUNS = (("int8", "bf16", "chunked"),)
@@ -2341,6 +2349,7 @@ PALI_ARCH = "paligemma-3b"
 PALI_RUNS = (("bf16", "bf16", "chunked"), ("int8", "bf16", "chunked"),
              ("bgpp", "bstc", "chunked"))
 PALI_LONG_RUNS = (("bgpp", "bf16", "chunked"),)
+PALI_SHARDED_RUNS = (("bf16", "bf16", "chunked", "paged"),)  # through a sharded Scheduler
 PALI_LONG_TRACE, PALI_LONG_SEQ = dict(seed=0, n=2, lo=12000, hi=16000, new=8), 32768
 PALI_PROMPT, PALI_DECODES = 300, 8  # the vision prefill's text prompt, its decode steps
 
@@ -2658,13 +2667,15 @@ def start_world():
     return True
 
 
-def sharded_serve(cfg, params, outcome, device, card):
-    """Serve :data:`MAIN_TRACE` for every run of :data:`SHARDED_RUNS`
-    through a Scheduler with ``rules_for(1, 1)`` over an NCCL world of one
+def sharded_serve(cfg, params, outcome, device, card, runs=SHARDED_RUNS, trace_kw=MAIN_TRACE):
+    """Serve ``trace_kw`` for every run of ``runs`` (phi4-mini-3.8b's
+    :data:`SHARDED_RUNS` on :data:`MAIN_TRACE` by default) through a
+    Scheduler with ``rules_for(1, 1)`` over an NCCL world of one
     (:func:`serve_runs`: the same launch counts and checks): the layers'
     collectives run through NCCL whatever the group's size.  Tokens must be
     identical and logits bit-identical to the unsharded run of the same
-    formats in ``outcome``.  Returns the launches of each kernel."""
+    formats in ``outcome``.  The default runs also time one collective
+    (:func:`collective_cost`).  Returns the launches of each kernel."""
     import numpy as np
     import torch.distributed as dist
 
@@ -2673,13 +2684,14 @@ def sharded_serve(cfg, params, outcome, device, card):
     started = start_world()
     try:
         rules = shd.rules_for(1, 1, "cuda")
-        launches, got = serve_runs(cfg, params, SHARDED_RUNS, MAIN_TRACE, 1024, device, card,
+        launches, got = serve_runs(cfg, params, runs, trace_kw, 1024, device, card,
                                    rules=rules)
-        collective_cost(rules, device, card)
+        if runs is SHARDED_RUNS:
+            collective_cost(rules, device, card)
     finally:
         if started:
             dist.destroy_process_group()
-    for key in SHARDED_RUNS:
+    for key in runs:
         want, have = outcome[key[:3]], got[key]
         if have["tokens"] != want["tokens"]:
             raise AssertionError(f"sharded {key}: tokens differ from the unsharded run")
@@ -2738,36 +2750,54 @@ def _rank_slices(B, Hk, mesh):
             for i in range(d) for j in range(m)]
 
 
-def shard_kernel_phase(device, flush):
-    """Each mesh rank's decode launches, one after another on the card, at
-    phi4-mini-3.8b's decode geometry (Hq 24, Hk 8, D 128, 4 slots of 1024
-    lanes, page 16): for every rank of the meshes :data:`SHARD_MESHES`, K1
-    (bf16 and int8) and K2 on the rank's slots and kv heads (the pools whole
-    on every data rank, as the paged layout holds them) and K3 on its
-    column shard of ``wq`` and of ``lm_head`` (coded as matrices of their
-    own) must equal their slice of the whole launch bit for bit, planned at
-    the whole launch's geometry.  Every whole and rank launch is also held
-    to its plain version on the same operands (:func:`check_rows` with the
-    int8 bodies' code step; :func:`check_bstc`).  The same launches planned at their own
-    shapes are printed as a finding, and so is cuBLAS on a column shard
-    against the same columns of the whole product (f32 and bf16).  Returns
-    the records of the (2, 4) rank (0, 0)'s launches."""
-    import dataclasses
+# llama4-scout's decode geometry on a rank (ROADMAP item 7c-i: its 40 / 8
+# heads, g 5, split 20 / 4 and 5 / 1): every rank of these meshes, and rank
+# (0, 0) of 2x4 (10 / 2 heads on 2 slots)
+LLAMA4_SHARD_MESHES = ((1, 2), (1, 8))
 
+
+def shard_kernel_phase(device, flush):
+    """Each mesh rank's decode launches, one after another on the card
+    (:func:`shard_attends`, :func:`shard_k3`): at phi4-mini-3.8b's decode
+    geometry (Hq 24, Hk 8, D 128, 4 slots of 1024 lanes, page 16) for every
+    rank of the meshes :data:`SHARD_MESHES`, and at llama4-scout's (Hq 40,
+    Hk 8, g 5) for every rank of :data:`LLAMA4_SHARD_MESHES` and rank (0, 0)
+    of 2x4; K3 on column shards of phi4-mini's ``wq`` and ``lm_head`` (4
+    shards) and of llama4-scout's ``wq`` (2 and 8).  Returns the records of
+    both geometries' 2x4 rank (0, 0) launches, phi4-mini's ``lm_head``
+    shard and llama4-scout's ``wq`` shard of 8."""
+    records = shard_attends(device, flush, "phi4-mini-3.8b", SHARD_MESHES)
+    records += shard_attends(device, flush, LLAMA4_ARCH, LLAMA4_SHARD_MESHES + ((2, 4),),
+                             first_only=((2, 4),))
+    records += shard_k3(device, flush, "phi4-mini-3.8b", ("wq", "lm_head"), (4,),
+                        record=("lm_head", 4))
+    records += shard_k3(device, flush, LLAMA4_ARCH, ("wq",), (2, 8), record=("wq", 8))
+    return records
+
+
+def shard_attends(device, flush, arch, meshes, first_only=()):
+    """K1 (bf16 and int8) and K2 on each rank's slots and kv heads of
+    ``meshes`` (the pools whole on every data rank, as the paged layout
+    holds them; only rank (0, 0) of a mesh in ``first_only``) at ``arch``'s
+    decode geometry (:func:`decode_attend_inputs`): each must equal its
+    slice of the whole launch bit for bit, planned at the whole launch's
+    geometry, and be held to its plain version on the same operands
+    (:func:`check_rows` with the int8 bodies' code step).  The same launches
+    planned at their own shapes are printed as a finding.  Returns the
+    records of the 2x4 rank (0, 0)'s launches, timed, with ``case`` and
+    ``err_over_tol``."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.bgpp_paged_attend import bgpp_paged_attend
     from repro_torch.kernels.bgpp_paged_attend.ref import bgpp_paged_attend_ref
     from repro_torch.kernels.paged_flash_decode import paged_flash_decode
-    from repro_torch.kernels.bstc_matmul import bstc_matmul
-    from repro_torch.kernels.bstc_matmul.ref import bstc_matmul_plain
     from repro_torch.kernels.paged_flash_decode.ref import paged_flash_decode_ref
-    from repro_torch.serving import kv_cache as kvc, weights
+    from repro_torch.serving import kv_cache as kvc
 
-    cfg = get_config("phi4-mini-3.8b")
+    cfg = get_config(arch)
     page = DECODE_PAGE
-    q, kf, vf, table, pos = decode_attend_inputs(device)
+    q, kf, vf, table, pos = decode_attend_inputs(device, arch)
     B, Hk, g, D = q.shape
     whole = (B, Hk)
     kq, ks = kvc.quantize_kv(kf)
@@ -2811,33 +2841,35 @@ def shard_kernel_phase(device, flush):
     full = {name: kernels[name](*sliced(name, every, every)[0],
                                 **sliced(name, every, every)[1]) for name in kernels}
     for name, y in full.items():
-        checked(f"{name} whole launch", name, every, every, y)
+        checked(f"{arch} {name} whole launch", name, every, every, y)
     records, own, errs = [], {}, {}
-    for mesh in SHARD_MESHES:
+    for mesh in meshes:
+        ranks = _rank_slices(B, Hk, mesh)[:1 if mesh in first_only else None]
         for name in kernels:
-            for rank, b, h in _rank_slices(B, Hk, mesh):
+            for rank, b, h in ranks:
                 a, kw = sliced(name, b, h)
                 got = kernels[name](*a, whole=whole, **kw)
                 if not torch.equal(got, full[name][b, h]):
-                    raise AssertionError(f"{name} rank {rank} of mesh {mesh}: not its slice "
-                                         f"of the whole launch")
-                errs[(mesh, name, rank)] = checked(f"{name} rank {rank} of mesh {mesh}", name,
-                                                   b, h, got)
+                    raise AssertionError(f"{arch} {name} rank {rank} of mesh {mesh}: not its "
+                                         f"slice of the whole launch")
+                errs[(mesh, name, rank)] = checked(f"{arch} {name} rank {rank} of mesh {mesh}",
+                                                   name, b, h, got)
                 alone = kernels[name](*a, **kw)
                 own[(mesh, name)] = own.get((mesh, name), 0) + int(
                     not torch.equal(alone, full[name][b, h]))
             err = max(e for (m_, n_, _), (e, _) in errs.items() if (m_, n_) == (mesh, name))
-            print(f"[shard] {'K2 bgpp_paged_attend' if name == 'bgpp' else f'K1 {name}'} on "
-                  f"the {mesh[0] * mesh[1]} ranks of mesh {mesh[0]}x{mesh[1]} (slots "
+            print(f"[shard] {'K2 bgpp_paged_attend' if name == 'bgpp' else f'K1 {name}'} at "
+                  f"{arch}'s heads ({Hk * g} / {Hk}, g {g}) on {len(ranks)} of the "
+                  f"{mesh[0] * mesh[1]} ranks of mesh {mesh[0]}x{mesh[1]} (slots "
                   f"{B // mesh[0]}, kv heads {Hk // mesh[1]} a rank): each rank bit-equal to "
                   f"its slice of the whole launch at the whole geometry and within "
                   f"check_rows of its plain version (max_abs_err {err:.3e}); planned at its "
-                  f"own shape, {own[(mesh, name)]} of {mesh[0] * mesh[1]} ranks differ")
+                  f"own shape, {own[(mesh, name)]} of {len(ranks)} ranks differ")
     # the (2, 4) rank (0, 0)'s launches, timed against their plain versions
     rank, b, h = _rank_slices(B, Hk, (2, 4))[0]
-    label = (f" mesh 2x4 rank (0, 0): {B // 2} slots x {Hk // 4} kv heads, whole-launch "
+    label = (f" {arch} mesh 2x4 rank (0, 0): {B // 2} slots x {Hk // 4} kv heads, whole-launch "
              f"plan")
-    case = (f"mesh 2x4 rank (0, 0): B {B // 2} Hk {Hk // 4} g {g} D {D} page {page} "
+    case = (f"{arch} mesh 2x4 rank (0, 0): B {B // 2} Hk {Hk // 4} g {g} D {D} page {page} "
             f"S {DECODE_S}, whole-launch plan")
     for name in ("bf16", "int8"):
         a, kw = sliced(name, b, h)
@@ -2859,114 +2891,149 @@ def shard_kernel_phase(device, flush):
     plain = lambda: bgpp_paged_attend_ref(*la, **k2kw)
     err, ratio = errs[((2, 4), "bgpp", rank)]
     rec = k2_record(la, err, time_ms(run, 20, flush), time_ms(plain, 20, flush),
-                    la[6].numel(), label)
+                    la[6].numel(), label, arch=arch)
     rec.update(case=case, err_over_tol=ratio)
     records.append(rec)
     del bodies, args, full, steps, kf, vf, kq, vq
     torch.cuda.empty_cache()
-    # K3 on column shards of wq and the head: the model axis splits weights;
-    # meshes (1, 4) and (2, 4) hold the same four shards
+    return records
+
+
+def shard_k3(device, flush, arch, names, splits, record):
+    """K3 on column shards of ``arch``'s projections ``names`` (random bf16
+    weights, int8-quantized and BSTC-coded, N 4): the model axis splits a
+    weight's columns; for each ``m`` of ``splits`` every shard, coded as a
+    matrix of its own and planned at the whole matrix's rows
+    (``plan_rows``), must equal its rows of the whole launch bit for bit,
+    and the whole and every shard be within :func:`check_bstc` of the plain
+    version.  Planned at their own rows, and cuBLAS on a column shard
+    against the same columns of the whole product (f32 and bf16), are
+    printed as findings.  Returns the record of shard 0 of ``record``'s
+    ``(name, m)``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.bstc_matmul import bstc_matmul
+    from repro_torch.kernels.bstc_matmul.ref import bstc_matmul_plain
+    from repro_torch.serving import weights
+
+    cfg = get_config(arch)
     gen = torch.Generator(device=device).manual_seed(5)
-    d, m, N = cfg.d_model, 4, 4
+    d, N = cfg.d_model, 4
     x = torch.randn((d, N), generator=gen, device=device)
-    for pname, out in (("wq", cfg.q_dim), ("lm_head", cfg.vocab_size)):
+    outs = {"wq": cfg.q_dim, "lm_head": cfg.vocab_size}
+    records = []
+    for pname in names:
+        out = outs[pname]
         w = (torch.randn((d, out), generator=gen, device=device) * d ** -0.5).to(torch.bfloat16)
         rec = weights.quantize(w)
         ops = weights.bstc_record_from_int8(rec["q"], rec["scale"], cfg)["bstc"]
         whole_y = bstc_matmul(ops, x, apply_scale=True)
-        err = check_bstc(f"{pname} whole", ops, x, rec["q"].T.to(torch.int32), rec["scale"])
-        n, differ = out // m, 0
-        for r in range(m):
-            cols = slice(r * n, (r + 1) * n)
-            shard = weights._code(rec["q"][:, cols], rec["scale"][cols], cfg, roundtrip=False,
-                                  plan_rows=out)[0]["bstc"]
-            if not torch.equal(bstc_matmul(shard, x, apply_scale=True), whole_y[cols]):
-                raise AssertionError(f"bstc_matmul {pname} column shard {r} of {m}: not its "
-                                     f"rows of the whole launch")
-            q_cols = rec["q"][:, cols].T.to(torch.int32)
-            shard_err = check_bstc(f"{pname} column shard {r} of {m}", shard, x, q_cols,
-                                   rec["scale"][cols])
-            err = max(err, shard_err)
-            alone = dataclasses.replace(shard, plan_rows=0, _desc=None)
-            differ += int(not torch.equal(bstc_matmul(alone, x, apply_scale=True),
-                                          whole_y[cols]))
-            if pname == "lm_head" and r == 0:
-                run = lambda: bstc_matmul(shard, x, apply_scale=True)
-                plain = lambda: bstc_matmul_plain(shard, x, apply_scale=True)
-                dense = (rec["q"][:, cols].float() * rec["scale"][cols]).to(torch.bfloat16)
-                xb = x.T.to(torch.bfloat16).contiguous()
-                lib = time_ms(lambda: xb @ dense, 20, flush)
-                rk = kernel_record(
-                    "bstc_matmul", "src/repro_torch/csrc/bstc_matmul.cu",
-                    "src/repro/kernels/bstc_matmul/kernel.py:98",
-                    shard_err, time_ms(run, 20, flush),
-                    time_ms(plain, 5, flush),
-                    shard.stored_bytes + x.numel() * 4 + n * N * 4, 2 * n * d * N, "f32", lib,
-                    label=f" lm_head column shard 1 of {m} ({d} x {n}, N {N}), whole-launch "
-                          f"plan",
-                    case=f"lm_head column shard 1 of {m}: {d} x {n}, N {N}, whole-launch plan")
-                rk["err_over_tol"] = ((run() - plain()).abs()
-                                      / bstc_tol(q_cols, x, rec["scale"][cols])).max().item()
-                records.append(rk)
-            del shard, alone, q_cols
-        print(f"[shard] K3 bstc_matmul {pname} ({d} x {out}) in {m} column shards, each coded "
-              f"as its own matrix: each bit-equal to its rows of the whole launch at the "
-              f"whole geometry, the whole and every shard within check_bstc of the plain "
-              f"version (max_abs_err {err:.3e}); planned at its own rows, {differ} of {m} "
-              f"differ")
-        # cuBLAS (the raw-weight path's product, f32 as wdot upcasts, and bf16)
-        for dt in (torch.float32, torch.bfloat16):
-            xr, wr = x.T.contiguous().to(dt), w.to(dt)
-            full_p = xr @ wr
-            gap = max(float((xr @ wr[:, r * n:(r + 1) * n].contiguous()
-                             - full_p[:, r * n:(r + 1) * n]).abs().max()) for r in range(m))
-            print(f"[shard] cuBLAS x (4 x {d}) @ {pname} {str(dt)[6:]} column shards of {m} "
-                  f"against the whole product's columns: "
-                  f"{'bit-equal' if gap == 0 else f'max |diff| {gap:.3e}'}")
+        err = check_bstc(f"{arch} {pname} whole", ops, x, rec["q"].T.to(torch.int32),
+                         rec["scale"])
+        for m in splits:
+            n, differ = out // m, 0
+            for r in range(m):
+                cols = slice(r * n, (r + 1) * n)
+                shard = weights._code(rec["q"][:, cols], rec["scale"][cols], cfg,
+                                      roundtrip=False, plan_rows=out)[0]["bstc"]
+                if not torch.equal(bstc_matmul(shard, x, apply_scale=True), whole_y[cols]):
+                    raise AssertionError(f"bstc_matmul {arch} {pname} column shard {r} of "
+                                         f"{m}: not its rows of the whole launch")
+                q_cols = rec["q"][:, cols].T.to(torch.int32)
+                shard_err = check_bstc(f"{arch} {pname} column shard {r} of {m}", shard, x,
+                                       q_cols, rec["scale"][cols])
+                err = max(err, shard_err)
+                alone = dataclasses.replace(shard, plan_rows=0, _desc=None)
+                differ += int(not torch.equal(bstc_matmul(alone, x, apply_scale=True),
+                                              whole_y[cols]))
+                if (pname, m) == record and r == 0:
+                    run = lambda: bstc_matmul(shard, x, apply_scale=True)
+                    plain = lambda: bstc_matmul_plain(shard, x, apply_scale=True)
+                    dense = (rec["q"][:, cols].float() * rec["scale"][cols]).to(torch.bfloat16)
+                    xb = x.T.to(torch.bfloat16).contiguous()
+                    lib = time_ms(lambda: xb @ dense, 20, flush)
+                    what = f"{arch} {pname} column shard 1 of {m}: {d} x {n}, N {N}"
+                    rk = kernel_record(
+                        "bstc_matmul", "src/repro_torch/csrc/bstc_matmul.cu",
+                        "src/repro/kernels/bstc_matmul/kernel.py:98",
+                        shard_err, time_ms(run, 20, flush),
+                        time_ms(plain, 5, flush),
+                        shard.stored_bytes + x.numel() * 4 + n * N * 4, 2 * n * d * N, "f32",
+                        lib, label=f" {what}, whole-launch plan",
+                        case=f"{what}, whole-launch plan")
+                    rk["err_over_tol"] = ((run() - plain()).abs()
+                                          / bstc_tol(q_cols, x, rec["scale"][cols])).max().item()
+                    records.append(rk)
+                del shard, alone, q_cols
+            print(f"[shard] K3 bstc_matmul {arch} {pname} ({d} x {out}) in {m} column shards, "
+                  f"each coded as its own matrix: each bit-equal to its rows of the whole "
+                  f"launch at the whole geometry, the whole and every shard within check_bstc "
+                  f"of the plain version (max_abs_err {err:.3e}); planned at its own rows, "
+                  f"{differ} of {m} differ")
+            # cuBLAS (the raw-weight path's product, f32 as wdot upcasts, and bf16)
+            for dt in (torch.float32, torch.bfloat16):
+                xr, wr = x.T.contiguous().to(dt), w.to(dt)
+                full_p = xr @ wr
+                gap = max(float((xr @ wr[:, r * n:(r + 1) * n].contiguous()
+                                 - full_p[:, r * n:(r + 1) * n]).abs().max())
+                          for r in range(m))
+                print(f"[shard] cuBLAS x (4 x {d}) @ {arch} {pname} {str(dt)[6:]} column "
+                      f"shards of {m} against the whole product's columns: "
+                      f"{'bit-equal' if gap == 0 else f'max |diff| {gap:.3e}'}")
         del w, rec, ops, whole_y
         torch.cuda.empty_cache()
     return records
 
 
 def multi_card_check(card) -> None:
-    """Where the machine has two or more cards, serve deepseek-7b's smoke
-    config on the ``(1, n)`` mesh through ``torchrun`` (NCCL, a rank a
-    card), then train it there 3 steps (the train launcher, ``--fsdp``,
+    """Where the machine has two or more cards, serve deepseek-7b's and
+    llama4-scout's smoke configs on the ``(1, n)`` mesh through
+    ``torchrun`` (NCCL, a rank a card), then train deepseek-7b's and
+    mixtral-8x22b's there 3 steps each (the train launcher, ``--fsdp``,
     ``sp``); otherwise say that it was not run."""
     import torch
 
     n = torch.cuda.device_count()
     if n < 2:
-        print(f"[sharded] the (1, n) mesh over several cards, serving and training: not run "
-              f"({n} card)")
+        print(f"[sharded] the (1, n) mesh over several cards, serving deepseek-7b and "
+              f"llama4-scout and training deepseek-7b and mixtral-8x22b (smoke configs): not "
+              f"run ({n} card)")
         return
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    out = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         f"--nproc-per-node={n}", "-m", "repro_torch.launch.serve", "--arch", "deepseek-7b",
-         "--mesh", f"1,{n}", "--kv-format", "bf16", "--kv-layout", "paged", "--requests", "4",
-         "--max-new", "8"], capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
-    if out.returncode:
-        raise AssertionError(f"torchrun on the (1, {n}) mesh failed: {out.stderr[-2000:]}")
-    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("[serve]")]
-    print(f"[sharded] the (1, {n}) mesh over {n} cards through torchrun [{card}]:")
-    for ln in lines[-4:]:
-        print(ln)
-    out = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         f"--nproc-per-node={n}", "-m", "repro_torch.launch.train", "--arch", "deepseek-7b",
-         "--mesh", f"1,{n}", "--fsdp", "--steps", "3", "--batch", "4", "--seq-len", "64",
-         "--log-every", "1", "--ckpt-dir", os.path.join(ROOT, "build", f"train-1x{n}"),
-         "--heartbeat", os.path.join(ROOT, "build", f"train-1x{n}.json")],
-        capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
-    if out.returncode or "failed" in out.stdout:
-        raise AssertionError(f"the train launcher on the (1, {n}) mesh failed: "
-                             f"{out.stdout[-1500:]} {out.stderr[-2000:]}")
-    print(f"[sharded-train] deepseek-7b-smoke trained on the (1, {n}) mesh over {n} cards "
-          f"through torchrun (fsdp, sp) [{card}]:")
-    for ln in out.stdout.splitlines():
-        if ln.startswith("[train]"):
+    for arch in ("deepseek-7b", LLAMA4_ARCH):
+        out = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc-per-node={n}", "-m", "repro_torch.launch.serve", "--arch", arch,
+             "--mesh", f"1,{n}", "--kv-format", "bf16", "--kv-layout", "paged", "--requests",
+             "4", "--max-new", "8"], capture_output=True, text=True, timeout=600, env=env,
+            cwd=ROOT)
+        if out.returncode:
+            raise AssertionError(f"torchrun {arch} on the (1, {n}) mesh failed: "
+                                 f"{out.stderr[-2000:]}")
+        lines = [ln for ln in out.stdout.splitlines() if ln.startswith("[serve]")]
+        print(f"[sharded] {arch}-smoke served on the (1, {n}) mesh over {n} cards through "
+              f"torchrun [{card}]:")
+        for ln in lines[-4:]:
             print(ln)
+    for arch in ("deepseek-7b", MIXTRAL_ARCH):
+        out = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc-per-node={n}", "-m", "repro_torch.launch.train", "--arch", arch,
+             "--mesh", f"1,{n}", "--fsdp", "--steps", "3", "--batch", "4", "--seq-len", "64",
+             "--log-every", "1", "--ckpt-dir", os.path.join(ROOT, "build", f"train-{arch}-1x{n}"),
+             "--heartbeat", os.path.join(ROOT, "build", f"train-{arch}-1x{n}.json")],
+            capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+        if out.returncode or "failed" in out.stdout:
+            raise AssertionError(f"the train launcher ({arch}) on the (1, {n}) mesh failed: "
+                                 f"{out.stdout[-1500:]} {out.stderr[-2000:]}")
+        print(f"[sharded-train] {arch}-smoke trained on the (1, {n}) mesh over {n} cards "
+              f"through torchrun (fsdp, sp) [{card}]:")
+        for ln in out.stdout.splitlines():
+            if ln.startswith("[train]"):
+                print(ln)
 
 
 def zoo_serve_phase(device, card):
@@ -3002,37 +3069,63 @@ def zoo_serve_phase(device, card):
     free_device()
 
 
-def moe_serve_phase(device, card):
+def moe_serve_phase(device, card, sharded=True):
     """The MoE family at full width: llama4-scout cut to
     :data:`LLAMA4_DEPTH` layers for every run of :data:`LLAMA4_RUNS`
-    on :data:`LLAMA4_TRACE` (max_seq 1024), then mixtral-8x22b cut to
-    :data:`MIXTRAL_DEPTH` layers (no global layer) once
-    (:data:`MIXTRAL_RUNS`); :func:`serve_runs` checks each."""
+    on :data:`LLAMA4_TRACE` (max_seq 1024), then (``sharded``) the runs of
+    :data:`LLAMA4_SHARDED_RUNS` through a sharded Scheduler over an NCCL
+    world of one against them (:func:`sharded_serve`), then mixtral-8x22b
+    cut to :data:`MIXTRAL_DEPTH` layers (no global layer) once
+    (:data:`MIXTRAL_RUNS`); :func:`serve_runs` checks each.  Returns the
+    sharded runs' launches of each kernel."""
     cfg, params = init_model(LLAMA4_ARCH, device, LLAMA4_DEPTH)
-    serve_runs(cfg, params, LLAMA4_RUNS, LLAMA4_TRACE, 1024, device, card)
+    runs = LLAMA4_RUNS if sharded else tuple(k[:3] for k in LLAMA4_SHARDED_RUNS)
+    _, outcome = serve_runs(cfg, params, runs, LLAMA4_TRACE, 1024, device, card)
+    launches = timed_sharded(cfg, params, outcome, device, card, LLAMA4_SHARDED_RUNS,
+                             LLAMA4_TRACE)
     del params
     free_device()
-    cfg, params = init_model(MIXTRAL_ARCH, device, MIXTRAL_DEPTH)
-    serve_runs(cfg, params, MIXTRAL_RUNS, MIXTRAL_TRACE, 1024, device, card)
-    del params
-    free_device()
+    if sharded:
+        cfg, params = init_model(MIXTRAL_ARCH, device, MIXTRAL_DEPTH)
+        serve_runs(cfg, params, MIXTRAL_RUNS, MIXTRAL_TRACE, 1024, device, card)
+        del params
+        free_device()
+    return launches
 
 
-def vlm_serve_phase(device, card):
+def vlm_serve_phase(device, card, sharded=True):
     """The VLM family at full width and depth: paligemma-3b for every run
     of :data:`PALI_RUNS` on :data:`MAIN_TRACE` at max_seq 1024 (K3 7L + 1
-    = 127 launches a step, ``vision_proj`` raw), once at
+    = 127 launches a step, ``vision_proj`` raw), then the runs of
+    :data:`PALI_SHARDED_RUNS` through a sharded Scheduler over an NCCL
+    world of one against them (:func:`sharded_serve`), once at
     :data:`PALI_LONG_SEQ` on :data:`PALI_LONG_TRACE` with bgpp KV
     (:func:`serve_runs` checks each), then one eager admission with an
     image prefix (:func:`vision_prefill`).  Text prompts go through chunked
-    admission, as the reference's Scheduler serves a VLM."""
+    admission, as the reference's Scheduler serves a VLM.  Without
+    ``sharded`` (``--only sharded-moe``) only the sharded runs and the
+    unsharded runs they are held to.  Returns the sharded runs' launches of
+    each kernel."""
     cfg, params = init_model(PALI_ARCH, device)
-    serve_runs(cfg, params, PALI_RUNS, MAIN_TRACE, 1024, device, card,
-               k3_per_step=7 * cfg.num_layers + 1)
-    serve_runs(cfg, params, PALI_LONG_RUNS, PALI_LONG_TRACE, PALI_LONG_SEQ, device, card)
-    vision_prefill(cfg, params, device, card)
+    runs = PALI_RUNS if sharded else tuple(k[:3] for k in PALI_SHARDED_RUNS)
+    _, outcome = serve_runs(cfg, params, runs, MAIN_TRACE, 1024, device, card,
+                            k3_per_step=7 * cfg.num_layers + 1)
+    launches = timed_sharded(cfg, params, outcome, device, card, PALI_SHARDED_RUNS, MAIN_TRACE)
+    if sharded:
+        serve_runs(cfg, params, PALI_LONG_RUNS, PALI_LONG_TRACE, PALI_LONG_SEQ, device, card)
+        vision_prefill(cfg, params, device, card)
     del params
     free_device()
+    return launches
+
+
+def timed_sharded(cfg, params, outcome, device, card, runs, trace_kw):
+    """:func:`sharded_serve` of ``runs``, its seconds printed as a
+    ``[time]`` line."""
+    t = time.perf_counter()
+    launches = sharded_serve(cfg, params, outcome, device, card, runs, trace_kw)
+    print(f"[time] sharded_serve {cfg.name}: {time.perf_counter() - t:.1f} s")
+    return launches
 
 
 # the asyncio front door (serving/server.py) over full phi4-mini-3.8b, in
@@ -4426,7 +4519,8 @@ def trace_phase(device):
     sched = Scheduler(params, cfg, layout, device=device, chunk_budget=128)
     dev = profile_decode(sched, trace(1, 4, cfg.vocab_size, 200, 256, 24),
                          f"{cfg.name} bf16/bf16/chunked", top=12)
-    per_launch(dev, "paged_flash_decode bf16 (K1, g 5, 2 global layers)", ("dense_kernel",))
+    per_launch(dev, f"paged_flash_decode bf16 (K1, g 5, {len(layout.global_layers)} global "
+                    f"layers)", ("dense_kernel",))
     moe_decode_device(sched, sum(e.self_device_time_total for e in dev) / 4e3)
     del sched, params
     free_device()
@@ -5377,13 +5471,22 @@ SHARD_TRAIN_STEPS = 3  # a run each: f32 and int8 moments, unsharded then sharde
 SHARD_TRAIN_DEPTH = 8
 SHARD_HEAD_MESHES = ((1, 2), (1, 4), (1, 8))  # the model axes K5 / K5b split heads over
 SHARD_LAUNCH_LAYERS, SHARD_LAUNCH_STEPS, SHARD_LAUNCH_EVERY = LAUNCHER_LAYERS, 4, 2
+# the MoE and VLM families' sharded step (ROADMAP item 7c-i): mixtral-8x22b
+# at full width cut from 56 layers to 1 (2.91 B params: 0.40 B of embedding
+# and head, 2.42 B of experts), paligemma-3b cut from 18 to 2 with a
+# 256-patch prefix before 3840 text tokens (a 4096-row stream)
+MOE_TRAIN_DEPTH = 1
+PALI_TRAIN_DEPTH, PALI_TRAIN_S, PALI_TRAIN_STEPS = 2, 3840, 2
 
 
-def train_runs(cfg, batch, rules, fmt, device, want=None, trace=False):
-    """:data:`SHARD_TRAIN_STEPS` steps of ``cfg`` (re-initialised from seed
-    0) with ``fmt`` moments, one-device when ``rules`` is None, else one
-    rank's sharded step under ``rules``.  Returns ``(losses, grad norms,
-    ms a step, launches of each step, peak GiB, out)``: ``out`` the final
+def train_runs(cfg, batch, rules, fmt, device, want=None, trace=False,
+               steps=SHARD_TRAIN_STEPS):
+    """``steps`` steps of ``cfg`` (re-initialised from seed 0) with ``fmt``
+    moments, one-device when ``rules`` is None, else one rank's sharded
+    step under ``rules``.  Returns a dict: ``metrics`` (each step's loss,
+    ``ce``, ``aux`` and grad norm), ``ms`` a step, ``launches`` of each
+    step, ``peak`` GiB, ``dropped`` (an MoE's share of (token, slot)s its
+    routing dropped over the run, else None) and ``out``: the final
     parameter leaves on the card (the moments freed), or, given ``want``
     (another run's), how many of them differ from it.  With ``trace``, one
     more step then counts the collectives it issues
@@ -5394,7 +5497,7 @@ def train_runs(cfg, batch, rules, fmt, device, want=None, trace=False):
     from repro_torch.distributed import sharding as sh
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch.train import fwd_kwargs
-    from repro_torch.models import model_zoo
+    from repro_torch.models import model_zoo, moe
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.training import make_train_step
     from repro_torch.training.sharded import TrainShard
@@ -5409,20 +5512,34 @@ def train_runs(cfg, batch, rules, fmt, device, want=None, trace=False):
     opt_cfg = AdamWConfig(peak_lr=3e-4, state_dtype=fmt)
     state = {"params": params, "opt": adamw_init(params, opt_cfg)}
     step_fn = make_train_step(cfg, opt_cfg, fwd_kwargs(cfg), rules=rules)
-    losses, norms, ms, launches = [], [], [], []
-    for _ in range(SHARD_TRAIN_STEPS):
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
-        losses.append(metrics["loss"].item())
-        norms.append(metrics["grad_norm"].item())
-        ms.append((time.perf_counter() - t0) * 1e3)
-        launches.append(dict(LAUNCHES))
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    run = {"metrics": [], "ms": [], "launches": []}
+    kept, route = [0, 0], moe.route
+
+    def counted(*a, **kw):  # the (token, slot)s kept of all routed, forward and remat alike
+        r = route(*a, **kw)
+        kept[0] += int(r["keep"].sum())
+        kept[1] += r["keep"].numel()
+        return r
+
+    moe.route = counted
+    try:
+        for _ in range(steps):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            run["metrics"].append({k: metrics[k].item() for k in ("loss", "ce", "aux",
+                                                                  "grad_norm")})
+            run["ms"].append((time.perf_counter() - t0) * 1e3)
+            run["launches"].append(dict(LAUNCHES))
+    finally:
+        moe.route = route
+    run["dropped"] = 1 - kept[0] / kept[1] if kept[1] else None
+    run["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
     out = list(_leaves(state["params"]))
     if want is not None:
         out = sum(not torch.equal(a, b) for a, b in zip(out, want))
+    run["out"] = out
     if trace:
         calls, real = [], sh.all_gather
         sh.all_gather = lambda x, group, dim=0: calls.append(1) or real(x, group, dim)
@@ -5436,7 +5553,60 @@ def train_runs(cfg, batch, rules, fmt, device, want=None, trace=False):
                                  f"{cfg.name} {fmt} {'sharded 1x1' if rules else 'one-device'}")
     del state, params, step_fn
     free_device()
-    return losses, norms, ms, launches, peak, out
+    return run
+
+
+def held_to_one_device(cfg, batch, rules, fmts, device, card, steps=SHARD_TRAIN_STEPS,
+                       trace_fmt=None, tokens=None):
+    """For each moments format of ``fmts``: ``steps`` one-device steps, then
+    the same through the sharded train step under ``rules`` (an NCCL world
+    of one): every step's loss, ``ce``, ``aux`` and grad norm must equal the
+    one-device step's bit for bit, and after the last step every
+    parameter; every step launches K5 2L times (forward and remat) and K5b
+    L times, nothing else.  ``trace_fmt``'s sharded run counts and traces
+    one more step.  Prints ms a step, ``tokens`` (a step's rows, B x S
+    when None) a second, the peak and an MoE's dropped share.  Returns the
+    sharded steps' launches summed."""
+    L = cfg.num_layers
+    rows = tokens or TRAIN_B * TRAIN_S
+    total = {}
+    for fmt in fmts:
+        base = train_runs(cfg, batch, None, fmt, device, steps=steps)
+        got = train_runs(cfg, batch, rules, fmt, device, want=base["out"],
+                         trace=fmt == trace_fmt, steps=steps)
+        for i in range(steps):
+            want = {n: 0 for n in got["launches"][i]}
+            want.update(flash_attention=2 * L, flash_attention_bwd=L)
+            if got["launches"][i] != want:
+                raise AssertionError(f"sharded train {cfg.name} {fmt} step {i}: launches "
+                                     f"{got['launches'][i]}, want {want}")
+            for name, n in got["launches"][i].items():
+                total[name] = total.get(name, 0) + n
+        if got["metrics"] != base["metrics"]:
+            raise AssertionError(f"sharded train {cfg.name} {fmt}: metrics {got['metrics']} "
+                                 f"differ from the one-device step's {base['metrics']}")
+        if got["out"]:
+            raise AssertionError(f"sharded train {cfg.name} {fmt}: {got['out']} parameter "
+                                 f"leaves differ from the one-device step's after {steps} "
+                                 f"steps")
+        for what, run in (("one-device", base), ("sharded 1x1 fsdp", got)):
+            steady = run["ms"][1:]
+            drop = ("" if run["dropped"] is None else
+                    f", {100 * run['dropped']:.2f}% of (token, slot)s dropped at capacity "
+                    f"factor {cfg.moe_capacity_factor}")
+            print(f"[sharded-train] {cfg.name} ({L} layers) {fmt} moments, {what}: losses "
+                  f"{[round(m['loss'], 6) for m in run['metrics']]}, aux "
+                  f"{[round(m['aux'], 6) for m in run['metrics']]}, ms a step "
+                  f"{[round(x, 1) for x in run['ms']]} (steady {sum(steady) / len(steady):.1f} "
+                  f"ms, {rows * len(steady) / sum(steady) * 1e3:.0f} tokens/s), peak "
+                  f"{run['peak']:.2f} GiB{drop} [{card}]")
+        print(f"[sharded-train] {cfg.name} {fmt}: the sharded 1x1 step (NCCL, fsdp rules) "
+              f"is bit-identical to the one-device step: {steps} losses, ce, aux and grad "
+              f"norms, then all {len(base['out'])} parameter leaves; K5 {2 * L}, K5b {L} "
+              f"launches a step")
+        del base, got
+        free_device()
+    return total
 
 
 def sharded_train_run(device, card):
@@ -5446,18 +5616,14 @@ def sharded_train_run(device, card):
     reference launcher's ``--fsdp`` rules on a 1x1 mesh over an NCCL world
     of one (every FSDP gather, reduce-scatter, sum over ``"model"`` and the
     global-mean loss run as collectives of one), once with f32 and once
-    with int8 moments.  Every sharded step's loss and grad norm must equal
-    the one-device step's bit for bit, and after the last step every
-    parameter too; every step launches K5 2L times (forward and remat) and
-    K5b L times, nothing else.  The f32 sharded run counts and traces one
-    more step.  Then one int8-compressed sync of the step's grads
-    (``compressed_psum_mean`` over the world of one, and
+    with int8 moments (:func:`held_to_one_device`).  The f32 sharded run
+    counts and traces one more step.  Then one int8-compressed sync of the
+    step's grads (``compressed_psum_mean`` over the world of one, and
     ``make_compressed_dp_grad_fn``): each leaf equals its plain quantize
     formula ``round(g / s) * s / 1`` bit for bit, and differs from g.
     Returns the sharded steps' launches summed."""
     import dataclasses
 
-    import torch
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -5468,48 +5634,70 @@ def sharded_train_run(device, card):
     cfg = get_config(TRAIN_ARCH)
     if SHARD_TRAIN_DEPTH is not None:
         cfg = dataclasses.replace(cfg, num_layers=SHARD_TRAIN_DEPTH)
-    L = cfg.num_layers
     batch = to_device(SyntheticLMDataset(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0).batch(0),
                       device)
+    started = start_world()
+    try:
+        rules = sh.rules_for_mesh(make_debug_mesh(1, 1, "cuda"), fsdp_axes=(sh.D_MODEL,),
+                                  sp=False)
+        total = held_to_one_device(cfg, batch, rules, ("fp32", "int8"), device, card,
+                                   trace_fmt="fp32")
+        compressed_sync_check(cfg, batch, rules, device, card)
+    finally:
+        if started:
+            dist.destroy_process_group()
+    return total
+
+
+def sharded_moe_train_run(device, card):
+    """ROADMAP item 7c-i's training on the card: the reference launcher's
+    ``--fsdp`` rules on a 1x1 mesh over an NCCL world of one against the
+    one-device step (:func:`held_to_one_device`).  mixtral-8x22b at full
+    width cut to :data:`MOE_TRAIN_DEPTH` layer (2.91 B parameters: the
+    experts, their FF split over ``"model"`` and their ``d_model`` over
+    ``"data"``, the group-local dispatch on the rank's rows, the global
+    aux), B 1, S 4096, remat, at its own capacity factor 1.25 so that
+    tokens drop, :data:`SHARD_TRAIN_STEPS` f32 and int8 steps, K5 on the
+    sliding kind; then paligemma-3b cut to :data:`PALI_TRAIN_DEPTH`
+    layers, a 256-patch prefix before :data:`PALI_TRAIN_S` text tokens,
+    :data:`PALI_TRAIN_STEPS` f32 steps, K5 on ``prefix_causal``.  Returns
+    the sharded steps' launches summed."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset, to_device
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train import modality
+    from repro_torch.models import model_zoo, transformer
+
     started = start_world()
     total = {}
     try:
         rules = sh.rules_for_mesh(make_debug_mesh(1, 1, "cuda"), fsdp_axes=(sh.D_MODEL,),
                                   sp=False)
-        for fmt in ("fp32", "int8"):
-            base = train_runs(cfg, batch, None, fmt, device)
-            got = train_runs(cfg, batch, rules, fmt, device, want=base[5],
-                             trace=fmt == "fp32")
-            for i in range(SHARD_TRAIN_STEPS):
-                want = {n: 0 for n in got[3][i]}
-                want.update(flash_attention=2 * L, flash_attention_bwd=L)
-                if got[3][i] != want:
-                    raise AssertionError(f"sharded train {fmt} step {i}: launches {got[3][i]}, "
-                                         f"want {want}")
-                for name, n in got[3][i].items():
-                    total[name] = total.get(name, 0) + n
-            if got[0] != base[0] or got[1] != base[1]:
-                raise AssertionError(f"sharded train {fmt}: losses {got[0]} / grad norms "
-                                     f"{got[1]} differ from the one-device step's {base[0]} / "
-                                     f"{base[1]}")
-            if got[5]:
-                raise AssertionError(f"sharded train {fmt}: {got[5]} parameter leaves differ "
-                                     f"from the one-device step's after {SHARD_TRAIN_STEPS} "
-                                     f"steps")
-            for what, run in (("one-device", base), ("sharded 1x1 fsdp", got)):
-                steady = run[2][1:]
-                print(f"[sharded-train] {cfg.name} ({L} layers) {fmt} moments, {what}: losses "
-                      f"{[round(x, 6) for x in run[0]]}, ms a step "
-                      f"{[round(x, 1) for x in run[2]]} (steady {sum(steady) / len(steady):.1f} "
-                      f"ms, {TRAIN_B * TRAIN_S * len(steady) / sum(steady) * 1e3:.0f} "
-                      f"tokens/s), peak {run[4]:.2f} GiB [{card}]")
-            print(f"[sharded-train] {cfg.name} {fmt}: the sharded 1x1 step (NCCL, fsdp rules) "
-                  f"is bit-identical to the one-device step: {SHARD_TRAIN_STEPS} losses and "
-                  f"grad norms, then all {len(base[5])} parameter leaves; K5 {2 * L}, K5b "
-                  f"{L} launches a step")
-            del base, got
-            free_device()
-        compressed_sync_check(cfg, batch, rules, device, card)
+        for arch, depth, S, fmts, steps in (
+                (MIXTRAL_ARCH, MOE_TRAIN_DEPTH, TRAIN_S, ("fp32", "int8"), SHARD_TRAIN_STEPS),
+                (PALI_ARCH, PALI_TRAIN_DEPTH, PALI_TRAIN_S, ("fp32",), PALI_TRAIN_STEPS)):
+            cfg = dataclasses.replace(get_config(arch), num_layers=depth)
+            ds = SyntheticLMDataset(cfg.vocab_size, S, TRAIN_B, seed=0, modality=modality(cfg))
+            batch = to_device(ds.batch(0), device)
+            rows = TRAIN_B * (S + (cfg.vision_tokens if cfg.family == "vlm" else 0))
+            kind = transformer._mask_kind(cfg)
+            window = (cfg.vision_tokens if cfg.family == "vlm"
+                      else int(transformer.layer_windows(cfg)[0]))
+            nparam = sum(t.numel() for t in _leaves(model_zoo.init(cfg, None, "meta")))
+            print(f"[sharded-moe] {cfg.name} at full width, {depth} of "
+                  f"{get_config(arch).num_layers} layers ({nparam / 1e9:.3f} B params), B "
+                  f"{TRAIN_B}, a {rows}-row stream, remat; K5 / K5b on the {kind} kind "
+                  f"(window {window}); capacity factor {cfg.moe_capacity_factor}")
+            t = time.perf_counter()
+            for name, n in held_to_one_device(cfg, batch, rules, fmts, device, card,
+                                              steps=steps, tokens=rows).items():
+                total[name] = total.get(name, 0) + n
+            print(f"[time] sharded train {cfg.name}: {time.perf_counter() - t:.1f} s")
     finally:
         if started:
             dist.destroy_process_group()
@@ -5571,16 +5759,41 @@ def compressed_sync_check(cfg, batch, rules, device, card):
     free_device()
 
 
+# K5 / K5b on a model rank of the MoE archs' training shapes (ROADMAP item
+# 7c-i): mixtral's 48 / 8 heads, sliding 4096 at S 4096, every rank of 1x2
+# and 1x8; llama4-scout's 40 / 8 heads, chunked 8192 at S 8448, rank 0 of 1x8
+MIXTRAL_FLASH = dict(Hq=48, Hk=8, S=4096, kw=dict(mask_kind="sliding", window=4096, q_offset=0),
+                     meshes=((1, 2), (1, 8)), first_only=())
+LLAMA4_RANK_FLASH = dict(Hq=40, Hk=8, S=LLAMA4_FLASH_S,
+                         kw=dict(mask_kind="chunked", window=LLAMA4_CHUNK, q_offset=0),
+                         meshes=((1, 8),), first_only=((1, 8),))
+
+
 def shard_flash_phase(device, flush):
     """Each model rank's K5 (with its log-sum-exp, the training forward's
-    launch) and K5b at phi4-mini-3.8b's heads (Hq 24, Hk 8, D 128, causal,
-    B 1, S 4096, bf16) split over the model axes of
-    :data:`SHARD_HEAD_MESHES`: every rank's out, lse, dq, dk and dv must
-    equal its heads' slice of the whole launch bit for bit, and be within
-    K5's per-element bound (:func:`flash_case`'s) and K5b's
+    launch) and K5b (:func:`rank_flash`): at phi4-mini-3.8b's heads (Hq 24,
+    Hk 8, D 128, causal, B 1, S 4096, bf16) split over the model axes of
+    :data:`SHARD_HEAD_MESHES`, at mixtral-8x22b's (:data:`MIXTRAL_FLASH`)
+    and llama4-scout's (:data:`LLAMA4_RANK_FLASH`).  Returns the records of
+    the 1x2 and 1x8 meshes' rank 0 launches (K5 and K5b, timed, with their
+    cases and ``err_over_tol``)."""
+    records = rank_flash(device, flush, "phi4-mini-3.8b", Hq=24, Hk=8, S=TRAIN_S,
+                         kw=dict(mask_kind="causal", window=0, q_offset=0),
+                         meshes=SHARD_HEAD_MESHES, record=(2, 8))
+    records += rank_flash(device, flush, MIXTRAL_ARCH, record=(2, 8), **MIXTRAL_FLASH)
+    records += rank_flash(device, flush, LLAMA4_ARCH, record=(8,), **LLAMA4_RANK_FLASH)
+    return records
+
+
+def rank_flash(device, flush, arch, Hq, Hk, S, kw, meshes, record, first_only=()):
+    """K5 (with its log-sum-exp) and K5b at ``arch``'s heads (``Hq`` /
+    ``Hk``, D 128, B 1, bf16, the mask ``kw``) at length ``S``, split over
+    the model axes of ``meshes`` (only rank 0 of a mesh in
+    ``first_only``): every rank's out, lse, dq, dk and dv must equal its
+    heads' slice of the whole launch bit for bit, and be within K5's
+    per-element bound (:func:`flash_case`'s) and K5b's
     (:func:`bwd_tolerance`) of the plain versions' slice.  Returns the
-    records of the 1x2 and 1x8 meshes' rank 0 launches (K5 and K5b, timed,
-    with their cases and ``err_over_tol``)."""
+    records of rank 0's launches on the model axes of ``record``."""
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention_bwd
@@ -5590,11 +5803,11 @@ def shard_flash_phase(device, flush):
     from repro_torch.core.attention import make_mask
 
     gen = torch.Generator(device=device).manual_seed(9)
-    B, S, Hq, Hk, D = TRAIN_B, TRAIN_S, 24, 8, 128
+    B, D = TRAIN_B, 128
     mk = lambda H: torch.randn((B, S, H, D), generator=gen, device=device).to(torch.bfloat16)
     q, k, v, dout = mk(Hq), mk(Hk), mk(Hk), mk(Hq)
-    kw = dict(mask_kind="causal", window=0, q_offset=0)
-    fwd = lambda q_, k_, v_: flash_ops._forward(q_, k_, v_, "causal", 0, 0, D ** -0.5,
+    kind, window = kw["mask_kind"], kw["window"]
+    fwd = lambda q_, k_, v_: flash_ops._forward(q_, k_, v_, kind, window, 0, D ** -0.5,
                                                 want_lse=True)
     out, lse = fwd(q, k, v)
     grads = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
@@ -5606,11 +5819,13 @@ def shard_flash_phase(device, flush):
     out_tol = 1e-5 * v.float().abs().max() + torch.ldexp(
         torch.ones_like(want_out), torch.frexp(want_out.abs())[1] - 8)
     grad_tol = [bwd_tolerance(w, True) for w in want_grads]
+    what = f"{kind} {window}" if window else kind
     records = []
-    for _, m in SHARD_HEAD_MESHES:
+    for mesh in meshes:
+        m = mesh[1]
         hq, hk = Hq // m, Hk // m
-        worst = 0.0
-        for r in range(m):
+        worst, ranks = 0.0, range(1 if mesh in first_only else m)
+        for r in ranks:
             qh, kh = slice(r * hq, (r + 1) * hq), slice(r * hk, (r + 1) * hk)
             args = [t[:, :, h].contiguous() for t, h in ((q, qh), (k, kh), (v, kh))]
             o_r, l_r = fwd(*args)
@@ -5619,23 +5834,29 @@ def shard_flash_phase(device, flush):
             whole = (out[:, :, qh], lse[:, qh], grads[0][:, :, qh], grads[1][:, :, kh],
                      grads[2][:, :, kh])
             if not all(torch.equal(a, b) for a, b in zip((o_r, l_r) + tuple(d_r), whole)):
-                raise AssertionError(f"K5 / K5b rank {r} of mesh 1x{m}: not its heads' slice of "
-                                     f"the whole launch")
+                raise AssertionError(f"K5 / K5b {arch} rank {r} of mesh 1x{m}: not its heads' "
+                                     f"slice of the whole launch")
             share = 0.0
-            for got, want, tol in ((o_r, want_out[:, :, qh], out_tol[:, :, qh]),
-                                   (d_r[0], want_grads[0][:, :, qh], grad_tol[0][:, :, qh]),
-                                   (d_r[1], want_grads[1][:, :, kh], grad_tol[1][:, :, kh]),
-                                   (d_r[2], want_grads[2][:, :, kh], grad_tol[2][:, :, kh])):
+            for what_, got, want, tol in (
+                    ("out", o_r, want_out[:, :, qh], out_tol[:, :, qh]),
+                    ("dq", d_r[0], want_grads[0][:, :, qh], grad_tol[0][:, :, qh]),
+                    ("dk", d_r[1], want_grads[1][:, :, kh], grad_tol[1][:, :, kh]),
+                    ("dv", d_r[2], want_grads[2][:, :, kh], grad_tol[2][:, :, kh])):
                 err = (got.float() - want.float()).abs()
                 if bool((err > tol).any()):
-                    raise AssertionError(f"K5 / K5b rank {r} of mesh 1x{m}: beyond the plain "
-                                         f"version's bound by {(err / tol).max().item():.3f}x")
+                    at = tuple((err / tol).flatten().argmax().item() // n % s_ for n, s_ in
+                               zip(err.stride(), err.shape))
+                    raise AssertionError(
+                        f"K5 / K5b {arch} rank {r} of mesh 1x{m}: {what_} beyond the plain "
+                        f"version's bound by {(err / tol).max().item():.3f}x at {at}: kernel "
+                        f"{got[at].item():.6e}, plain {want[at].item():.6e}, bound "
+                        f"{tol[at].item():.3e}, max |plain| {want.float().abs().max().item():.4e}")
                 share = max(share, (err / tol).max().item())
             worst = max(worst, share)
-            if r == 0 and m in (2, 8):
-                case = (f"sharded train mesh 1x{m} rank 0: Hq {hq} Hk {hk} D {D} causal "
-                        f"B{B} S{S} bf16")
-                pairs = int(make_mask("causal", S, S, 0, 0, device).sum()) * B * hq
+            if r == 0 and m in record:
+                case = (f"{arch} sharded train mesh 1x{m} rank 0: Hq {hq} Hk {hk} D {D} "
+                        f"{what} B{B} S{S} bf16")
+                pairs = int(make_mask(kind, S, S, window, 0, device).sum()) * B * hq
                 o_err = (o_r.float() - want_out[:, :, qh]).abs()
                 rec = kernel_record(
                     "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -5662,10 +5883,11 @@ def shard_flash_phase(device, flush):
                     label=f" {case}", case=case)
                 rec["err_over_tol"] = share
                 records.append(rec)
-        print(f"[shard] K5 (with lse) and K5b on the {m} model ranks of mesh 1x{m} (Hq {hq}, "
-              f"Hk {hk} a rank, D {D}, causal, B {B}, S {S}, bf16): each rank's out, lse, dq, "
-              f"dk and dv bit-equal to its heads' slice of the whole launch, within the plain "
-              f"versions' bounds (worst err/tol {worst:.3f})")
+        print(f"[shard] K5 (with lse) and K5b at {arch}'s heads on {len(ranks)} of the {m} "
+              f"model ranks of mesh 1x{m} (Hq {hq}, Hk {hk} a rank, D {D}, {what}, B {B}, "
+              f"S {S}, bf16): each rank's out, lse, dq, dk and dv bit-equal to its heads' "
+              f"slice of the whole launch, within the plain versions' bounds (worst err/tol "
+              f"{worst:.3f})")
     del q, k, v, dout, out, lse, grads, want_out, want_grads
     free_device()
     return records
@@ -5734,7 +5956,7 @@ def sharded_train_launcher(card):
 
 PHASES = ("kernels", "head-widths", "long-context", "prefix", "score", "score-device", "decode",
           "decode-attends", "ssm", "hybrid", "long-serve", "whisper", "server", "train",
-          "sharded", "sharded-train")
+          "sharded", "sharded-train", "sharded-moe")
 
 
 def sharded_only_phase(device, card):
@@ -5747,6 +5969,26 @@ def sharded_only_phase(device, card):
     del params
     free_device()
     multi_card_check(card)
+
+
+def sharded_moe_only_phase(device, card):
+    """ROADMAP item 7c-i alone: llama4-scout's and paligemma-3b's sharded
+    Scheduler runs against their unsharded runs (:func:`moe_serve_phase`,
+    :func:`vlm_serve_phase` without the other runs), the sharded MoE and
+    VLM train steps (:func:`sharded_moe_train_run`) and
+    :func:`multi_card_check`."""
+    moe_serve_phase(device, card, sharded=False)
+    vlm_serve_phase(device, card, sharded=False)
+    timed(sharded_moe_train_run, device, card)
+    multi_card_check(card)
+
+
+def timed(fn, *args):
+    """``fn(*args)``, its seconds printed as a ``[time]`` line."""
+    t = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] {fn.__name__}: {time.perf_counter() - t:.1f} s")
+    return out
 
 
 def main(argv=None) -> int:
@@ -5773,7 +6015,11 @@ def main(argv=None) -> int:
              "'sharded-train' each model rank's K5 / K5b launches against their slice of the "
              "whole launch, phi4-mini-3.8b's sharded 1x1 train step against the one-device "
              "step, the compressed grad sync and the train launcher's resume under "
-             "torch.distributed.run; without it "
+             "torch.distributed.run, 'sharded-moe' each mesh rank's K1 / K2 / K3 and K5 / "
+             "K5b launches (llama4-scout's and mixtral's heads too), llama4-scout and "
+             "paligemma-3b served through a sharded Scheduler against their unsharded "
+             "runs, and mixtral-8x22b's and paligemma-3b's sharded 1x1 train steps against "
+             "the one-device step; without it "
              "every phase "
              "runs and the records are printed")
     only = parser.parse_args(argv).only
@@ -5798,13 +6044,6 @@ def main(argv=None) -> int:
     l2 = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     flush = lambda: l2.zero_()
 
-    def timed(fn, *args):
-        """``fn(*args)``, its seconds printed as a ``[time]`` line."""
-        t = time.perf_counter()
-        out = fn(*args)
-        print(f"[time] {fn.__name__}: {time.perf_counter() - t:.1f} s")
-        return out
-
     records = []
     if run("kernels"):
         records += timed(kernel_phase, device, flush)
@@ -5821,9 +6060,9 @@ def main(argv=None) -> int:
         records += timed(long_context_phase, device, flush)
     if run("prefix"):
         records.append(timed(flash_prefix_phase, device, flush))
-    if run("kernels") or run("sharded"):
+    if run("kernels") or run("sharded") or run("sharded-moe"):
         records += timed(shard_kernel_phase, device, flush)
-    if run("kernels") or run("sharded-train"):
+    if run("kernels") or run("sharded-train") or run("sharded-moe"):
         records += timed(shard_flash_phase, device, flush)
     if run("score"):
         records += timed(bgpp_kernel_phase, device, flush)
@@ -5855,6 +6094,8 @@ def main(argv=None) -> int:
             timed(sharded_train_run, device, card)
             timed(sharded_train_launcher, card)
             multi_card_check(card)
+        if run("sharded-moe"):
+            timed(sharded_moe_only_phase, device, card)
         torch.cuda.synchronize()
         print(card)
         return 0
@@ -5864,8 +6105,12 @@ def main(argv=None) -> int:
 
     launches = timed(serve_phase, device, card)
     multi_card_check(card)
-    for phase in (zoo_serve_phase, moe_serve_phase, vlm_serve_phase, long_serve_phase,
-                  ssm_phase):
+    timed(zoo_serve_phase, device, card)
+    # the sharded MoE and VLM Schedulers' launches count beside phi4-mini's
+    for phase in (moe_serve_phase, vlm_serve_phase):
+        for name, n in timed(phase, device, card).items():
+            launches[name] = launches.get(name, 0) + n
+    for phase in (long_serve_phase, ssm_phase):
         timed(phase, device, card)
     # K1 / K2 / K5 over jamba's and whisper's runs count beside phi4-mini's
     hybrid_launches, hybrid_records = timed(hybrid_phase, device, card)
@@ -5874,7 +6119,7 @@ def main(argv=None) -> int:
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     # K5 over the training steps counts beside the serving paths'; K5b runs there alone
-    for phase in (train_phase, sharded_train_run):
+    for phase in (train_phase, sharded_train_run, sharded_moe_train_run):
         for name, n in timed(phase, device, card).items():
             launches[name] = launches.get(name, 0) + n
     timed(sharded_train_launcher, card)

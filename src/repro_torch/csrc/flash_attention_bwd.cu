@@ -57,7 +57,11 @@
 //     by ~1e-3 of its typical size, outside the 1e-5 * max|grad| the
 //     kernel is held to.  Each is split as the forward splits p: hi =
 //     bf16(x), lo = bf16(x - hi), |x - hi - lo| <= 2^-17 |x|, and both
-//     halves go through the product (two mma a k-step).
+//     halves go through the product (two mma a k-step).  In the dk / dv
+//     pass the two go into a zeroed fragment and the chunk's sum is added
+//     to dk / dv by f32 adds: the mma accumulator's own additions, over
+//     the g S / 16 chunks of a key tile, drifted past 1e-5 max|dk| at g 5
+//     and 6 (llama4-scout's and mixtral's heads; g 3 stayed inside).
 //   * Tiles are bf16, rows of D, each row's 16-byte chunks XOR-swizzled by
 //     the row as the forward's (swz), so the 8 rows one ldmatrix phase
 //     reads hit 8 bank groups.  Shared memory a block: 12 T D bytes (dk / dv
@@ -554,6 +558,17 @@ __device__ __forceinline__ Lanes lanes(int lane) {
   return l;
 }
 
+// acc += hi B + lo B: one 16-query chunk's split product formed in a zeroed
+// fragment, then added to the running sum by f32 adds (round to nearest).
+__device__ __forceinline__ void chunk_add(float (&acc)[4], const uint32_t (&hi)[4],
+                                          const uint32_t (&lo)[4], uint32_t b0, uint32_t b1) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_bf16(t, hi, b0, b1);
+  mma_bf16(t, lo, b0, b1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += t[e];
+}
+
 // dk and dv of one key tile of one (batch, kv head).
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads, 2) dkdv_mma_kernel(const BwdArgs a) {
@@ -698,7 +713,11 @@ __global__ void __launch_bounds__(kMmaThreads, 2) dkdv_mma_kernel(const BwdArgs 
       }
 
       // ---- dv += P^T dout, dk += dS^T Q: the split fragments are the A
-      // operand of one 16-query k-step; dout and Q by ldmatrix.trans ----
+      // operand of one 16-query k-step; dout and Q by ldmatrix.trans.  The
+      // chunk's hi and lo products are formed in a zeroed fragment and
+      // added to dk / dv in f32 (chunk_add): accumulated in the mma's own
+      // accumulator over a group's g S / 16 chunks, dk drifted past the
+      // 1e-5 max|dk| bound at g 5 and 6 (S 4096 and 8448) ----
       uint32_t hi[4], lo[4];
       split_a(s, hi, lo);
       const uint32_t o_t = o_st + 16 * c * ROW_B + ln.bt_row;
@@ -707,10 +726,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2) dkdv_mma_kernel(const BwdArgs 
         const int ch = 2 * (cs * (NO / 2) + np);
         uint32_t b0, b1, b2, b3;
         ldsm_x4_trans(o_t + ((ch ^ ln.bt_x) << 4), b0, b1, b2, b3);
-        mma_bf16(dv[2 * np], hi, b0, b1);
-        mma_bf16(dv[2 * np + 1], hi, b2, b3);
-        mma_bf16(dv[2 * np], lo, b0, b1);
-        mma_bf16(dv[2 * np + 1], lo, b2, b3);
+        chunk_add(dv[2 * np], hi, lo, b0, b1);
+        chunk_add(dv[2 * np + 1], hi, lo, b2, b3);
       }
       split_a(dp, hi, lo);
       const uint32_t q_t = q_st + 16 * c * ROW_B + ln.bt_row;
@@ -719,10 +736,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2) dkdv_mma_kernel(const BwdArgs 
         const int ch = 2 * (cs * (NO / 2) + np);
         uint32_t b0, b1, b2, b3;
         ldsm_x4_trans(q_t + ((ch ^ ln.bt_x) << 4), b0, b1, b2, b3);
-        mma_bf16(dk[2 * np], hi, b0, b1);
-        mma_bf16(dk[2 * np + 1], hi, b2, b3);
-        mma_bf16(dk[2 * np], lo, b0, b1);
-        mma_bf16(dk[2 * np + 1], lo, b2, b3);
+        chunk_add(dk[2 * np], hi, lo, b0, b1);
+        chunk_add(dk[2 * np + 1], hi, lo, b2, b3);
       }
     }
   }

@@ -555,6 +555,22 @@ class DataSplit:
         return tree if dims is None else gather_shards(tree, self.group, dims)
 
 
+# the families that run on a mesh, served and trained, as the reference's
+# serve driver takes them (src/repro/launch/serve.py: dense, moe, vlm);
+# ROADMAP item 7c-ii is the rest
+MESH_FAMILIES = ("dense", "moe", "vlm")
+
+
+def require_mesh_family(cfg, who: str) -> None:
+    """Refuse a family that does not run on a mesh yet, naming ROADMAP item
+    7c-ii."""
+    if cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"{who}: family {cfg.family!r} under a mesh is ROADMAP item 7c-ii (the ssm / "
+            f"hybrid mamba state, the enc_dec cross memory); the "
+            f"{', '.join(MESH_FAMILIES)} families run sharded")
+
+
 def heads_split(cfg, model: int) -> bool:
     """Whether a model axis of ``model`` ranks splits the heads: only where
     it divides both head counts (q and kv alike; GSPMD may split one and

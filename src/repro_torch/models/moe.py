@@ -1,14 +1,14 @@
 """Mixture-of-experts FFN with GShard capacity dispatch (mixtral 8 experts
 top-2, llama4-scout 16 experts top-1 with a shared expert).
 
-Counterpart of :mod:`repro.models.moe` with one token group (the port has
-no mesh).  Routing is the reference's: router logits ``x @ router`` in x's
-dtype then float32, softmax, top-k with ``jax.lax.top_k``'s tie order,
-the gates renormalised when k > 1, ``capacity = min(max(1, ceil(T k / E
-cf)), T k)``, each (token, slot)'s place in its expert's queue from a
-token-major cumsum, and a (token, slot) whose place reaches the capacity
-dropped (gate weight 0).  ``capacity_factor = E`` is dropless: the serve
-path's decode and chunk steps route so, as the reference's do.
+Counterpart of :mod:`repro.models.moe`.  Routing is the reference's:
+router logits ``x @ router`` in x's dtype then float32, softmax, top-k
+with ``jax.lax.top_k``'s tie order, the gates renormalised when k > 1,
+``capacity = min(max(1, ceil(T k / E cf)), T k)``, each (token, slot)'s
+place in its expert's queue from a token-major cumsum, and a (token, slot)
+whose place reaches the capacity dropped (gate weight 0).
+``capacity_factor = E`` is dropless: the serve path's decode and chunk
+steps route so, as the reference's do.
 
 The experts are computed for the card, not as the reference's einsum over
 an ``(E, C, D)`` buffer that is mostly zeros: the kept (token, slot) rows
@@ -22,6 +22,16 @@ depend on its batch neighbours.  Which experts run is read on the host
 the reference computes them with ``jnp.einsum`` outside any kernel; a
 float32 activation against bfloat16 expert weights (the serve path's
 decode residual) upcasts one expert's matrix at a time, never a bank.
+
+On a mesh, serving replicates the experts (the bit-exact serving
+placement) and calls :func:`moe_apply` without a split.  The sharded train
+step passes its :class:`~repro_torch.distributed.sharding.ModelSplit` and
+the data axis's group: dispatch is the reference's *group-local* one, the
+rank's rows of the batch being its token group (``group_sizes``'
+contiguous block of ``B / data`` rows, its own capacity), the experts' FF
+split over ``"model"`` (``gate`` / ``up`` column shards, ``down`` row
+shards, the shared expert as the dense MLP), and the auxiliary loss the
+global one over every group.
 """
 
 from __future__ import annotations
@@ -124,41 +134,91 @@ def _expert_ffn(params: Params, e: int, h: torch.Tensor, activation: str) -> tor
     return layers.wdot(layers.glu_act(activation, g) * u, params["down"][e])
 
 
-def moe_apply(params: Params, x: torch.Tensor, cfg,
-              capacity_factor: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x ``(B, S, D)`` -> ``(y (B, S, D), aux)``: the routed experts'
-    gate-weighted sum (dropped (token, slot)s weigh 0), plus the shared
-    expert where the config has one; ``aux`` is the switch load-balance
-    loss plus 1e-3 of the router z-loss, a 0-d float32 tensor."""
-    B, S, D = x.shape
+def _experts(params: Params, xt: torch.Tensor, r, cfg) -> torch.Tensor:
+    """The kept (token, slot) rows of ``xt`` ``(T, D)`` through their
+    experts -> ``(T, k, D)`` (a dropped (token, slot)'s row is zeros)."""
+    T, D = xt.shape
     E, k = cfg.num_experts, cfg.experts_per_token
-    T = B * S
-    r = route(params, x, cfg, capacity_factor)
     C, keep = r["capacity"], r["keep"]
-    xt = x.reshape(T, D)
     # queue row of each kept (token, slot); a dropped one goes to the spare
     # row E * C, which no expert reads
     slot = torch.where(keep, r["experts"] * C + r["pos"], E * C).reshape(T * k)
-    buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((E * C + 1, D), dtype=xt.dtype, device=xt.device)
     buf[slot] = xt.repeat_interleave(k, dim=0)
-    counts = torch.zeros(E, dtype=torch.int32, device=x.device).index_add_(
+    counts = torch.zeros(E, dtype=torch.int32, device=xt.device).index_add_(
         0, r["experts"].reshape(-1), keep.reshape(-1).to(torch.int32))
     active = [e for e, n in enumerate(counts.tolist()) if n]
-    out = torch.zeros((E * C + 1, D), dtype=torch.promote_types(x.dtype, params["gate"].dtype),
-                      device=x.device)
+    out = torch.zeros((E * C + 1, D), dtype=torch.promote_types(xt.dtype, params["gate"].dtype),
+                      device=xt.device)
     for e in active:
         out[e * C:(e + 1) * C] = _expert_ffn(params, e, buf[e * C:(e + 1) * C], cfg.activation)
-    gathered = out[slot].reshape(T, k, D)
-    w = (r["gates"] * keep.float()).to(x.dtype)
-    # the combine, slot by slot in order, summed in float32, rounded once
+    return out[slot].reshape(T, k, D)
+
+
+def _combine(w: torch.Tensor, gathered: torch.Tensor) -> torch.Tensor:
+    """The gate-weighted sum of each token's k expert rows, slot by slot in
+    order, in float32, rounded once to the rows' dtype."""
     y = w[:, 0, None].float() * gathered[:, 0].float()
-    for j in range(1, k):
+    for j in range(1, w.shape[1]):
         y = y + w[:, j, None].float() * gathered[:, j].float()
-    y = y.to(out.dtype).reshape(B, S, D)
-    if "shared" in params:
-        y = y + layers.mlp_apply(params["shared"], x, cfg.activation)
+    return y.to(gathered.dtype)
+
+
+def _aux(r, E: int, data=None) -> torch.Tensor:
+    """The switch load-balance loss plus 1e-3 of the router z-loss, from the
+    top-1 expert's density, the mean router probability and the mean
+    squared log-sum-exp over the tokens.  With the data axis's ``data``
+    group the three means are the global ones: each rank's means (every
+    rank holds the same number of tokens) times ``1 / data`` are summed over
+    the group in rank order (identity backward, each rank's gradient
+    reaching its own tokens) before they are combined, since
+    ``sum(density * mean_prob)`` is not linear in the ranks' parts."""
     density = F.one_hot(r["experts"][:, 0], E).float().mean(0)
     mean_prob = r["probs"].mean(0)
-    lb_loss = E * torch.sum(density * mean_prob)
     z_loss = torch.mean(torch.square(torch.logsumexp(r["logits"], dim=-1)))
-    return y, lb_loss + 1e-3 * z_loss
+    if data is not None:
+        parts = torch.cat([density, mean_prob, z_loss[None]]) * (1.0 / sh.group_size(data))
+        parts = sh.reduce_from(parts, data)
+        density, mean_prob, z_loss = parts[:E], parts[E:2 * E], parts[2 * E]
+    lb_loss = E * torch.sum(density * mean_prob)
+    return lb_loss + 1e-3 * z_loss
+
+
+def moe_apply(params: Params, x: torch.Tensor, cfg, capacity_factor: Optional[float] = None,
+              split: Optional[sh.ModelSplit] = None, data=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x ``(B, S, D)`` -> ``(y (B, S, D), aux)``: the routed experts'
+    gate-weighted sum (dropped (token, slot)s weigh 0), plus the shared
+    expert where the config has one; ``aux`` is the switch load-balance
+    loss plus 1e-3 of the router z-loss, a 0-d float32 tensor.
+
+    ``split``, a training split (the sharded train step; serving passes
+    none): x is the rank's rows of the batch (its ``S / size`` sequence rows
+    under ``seq``, gathered here: the block is the reference's sequence
+    parallel region boundary), which are the reference's token group, so
+    the capacity is the rank's own.  Where ``split.ff`` the rank holds its
+    FF shard of every expert and of the shared expert: the router and the
+    gates are computed whole on every model rank from the un-copied input,
+    only the experts' input passes :func:`~sharding.copy_to`, the gates
+    weighing the partial expert rows pass it too (so the router's gradient
+    sums the ranks' partial ``dL/dw``), and the combined partial output is
+    summed over ``"model"`` (reduce-scattered to the rank's rows under
+    ``seq``).  ``data``: the data axis's group, over which ``aux`` is the
+    global one (:func:`_aux`)."""
+    rows = sh.training(split)
+    if rows and split.seq:
+        x = sh.gather_from(x, split.group, 1)
+    B, S, D = x.shape
+    r = route(params, x, cfg, capacity_factor)
+    sharded = rows and split.ff
+    xe = sh.copy_to(x, split.group) if sharded else x
+    w = (r["gates"] * r["keep"].float()).to(x.dtype)
+    if sharded:
+        w = sh.copy_to(w, split.group)
+    gathered = _experts(params, xe.reshape(B * S, D), r, cfg)
+    y = _combine(w, gathered).reshape(B, S, D)
+    if "shared" in params:
+        y = y + layers.mlp_apply(params["shared"], xe, cfg.activation)
+    if rows:
+        y = sh.leave_block(y, split, sharded)
+    return y, _aux(r, cfg.num_experts, data)

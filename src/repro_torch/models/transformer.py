@@ -27,8 +27,9 @@ projection runs before the tokens, positions count from the first patch,
 and every layer attends under prefix_causal with the patch count as its
 window.  ``remat`` recomputes each layer in the backward, as the
 reference's ``jax.checkpoint`` does.  Under a mesh (eager admission on a
-sharded Scheduler) it runs on one rank's heads and vocab: see
-``forward``'s ``split``.
+sharded Scheduler) it runs on one rank's heads and vocab, and in the
+sharded train step on the rank's rows, heads and FF shard (an MoE layer's
+dispatch group-local to the rank's rows): see ``forward``'s ``split``.
 """
 
 from __future__ import annotations
@@ -271,13 +272,17 @@ def ffn_apply(p, cfg, h, capacity_factor=None):
     return layers.mlp_apply(p["mlp"], h, cfg.activation), 0.0
 
 
-def _ffn_block(p, cfg, x, split: Optional[sh.ModelSplit] = None):
+def _ffn_block(p, cfg, x, split: Optional[sh.ModelSplit] = None, data=None):
     """Norm, FFN (the MoE at the config's capacity factor) and the post-MLP
     norm where set -> ``(out, aux)``; aux is 0 for a dense layer.  A
     training split's MLP runs its ``gate`` / ``up`` column shards and sums
-    its ``down`` row shard's product over the model axis."""
+    its ``down`` row shard's product over the model axis; its MoE runs on
+    the rank's rows and FF shard (:func:`moe.moe_apply`, the aux global
+    over the ``data`` group)."""
     h = _norm(x, p["mlp_norm"], cfg, split)
-    if sh.training(split):
+    if sh.training(split) and "moe" in p:
+        out, aux = moe.moe_apply(p["moe"], h, cfg, split=split, data=data)
+    elif sh.training(split):
         h = sh.enter_block(h, split, split.ff)
         out = layers.mlp_apply(p["mlp"], h, cfg.activation,
                                reduce=lambda y: sh.leave_block(y, split, split.ff))
@@ -291,24 +296,36 @@ def _ffn_block(p, cfg, x, split: Optional[sh.ModelSplit] = None):
 
 def _layer(p, x, positions, *, cfg, theta: float, window: int, mask_kind: str,
            return_kv: bool, split: Optional[sh.ModelSplit] = None,
-           fsdp: Optional[sh.DataSplit] = None, fsdp_dims=None):
+           fsdp: Optional[sh.DataSplit] = None, fsdp_dims=None, data=None):
     """One layer: ``x + attn``, then ``+ ffn`` -> ``(x, aux, kv)``.  Under
     FSDP the layer's weights are gathered over ``"data"`` here, so they
     live for the layer only (and are gathered again when remat recomputes
-    it)."""
+    it); an MoE layer's whole expert bank is gathered, whatever experts its
+    tokens pick, so every data rank issues the same collectives."""
     if fsdp is not None:
         p = fsdp.gather(p, fsdp_dims)
     a, kv = _attention_block(p, cfg, x, positions, theta, window, mask_kind,
                              return_kv=return_kv, split=split)
     x = x + a
-    f, aux = _ffn_block(p, cfg, x, split)
+    f, aux = _ffn_block(p, cfg, x, split, data)
     return x + f, aux, kv
+
+
+def require_vision(cfg, vision_embeds) -> None:
+    """A VLM's whole-sequence forward needs its image prefix: raise where
+    ``vision_embeds`` is None (the reference asserts)."""
+    if cfg.family == "vlm" and vision_embeds is None:
+        raise ValueError(
+            f"forward: {cfg.name} is of family 'vlm'; its whole-sequence forward "
+            f"needs vision_embeds (B, Tv, d_vision={cfg.d_vision}), the image "
+            f"prefix (chunked admission serves text prompts without it)")
 
 
 def forward(params: Params, cfg, tokens: torch.Tensor, return_kv: bool = False,
             vision_embeds: Optional[torch.Tensor] = None, block_q: Optional[int] = None,
             block_k: Optional[int] = None, remat: bool = False,
-            split: Optional[sh.ModelSplit] = None, fsdp: Optional[sh.DataSplit] = None):
+            split: Optional[sh.ModelSplit] = None, fsdp: Optional[sh.DataSplit] = None,
+            data=None):
     """tokens ``(B, S)`` -> ``(logits (B, S', V), aux[, (k_all, v_all)])``.
 
     The residual stream runs in ``cfg.dtype``; ``aux`` is a 0-d float32
@@ -332,7 +349,9 @@ def forward(params: Params, cfg, tokens: torch.Tensor, return_kv: bool = False,
     and, with ``seq``, ``S / size`` rows of the residual stream a rank.
     ``fsdp`` (the sharded train step under FSDP rules): the leaves' dims
     held in blocks over ``"data"``, gathered where they are used (the
-    layers' inside each layer)."""
+    layers' inside each layer).  ``data`` (the sharded train step): the data
+    axis's process group, over which an MoE layer's aux is the global one;
+    the rank's rows are its token group."""
     require_transformer(cfg, "forward")
     B, S = tokens.shape
     layer_dims = None
@@ -344,11 +363,7 @@ def forward(params: Params, cfg, tokens: torch.Tensor, return_kv: bool = False,
     mask_kind = _mask_kind(cfg)
     windows = layer_windows(cfg)
     if cfg.family == "vlm":
-        if vision_embeds is None:
-            raise ValueError(
-                f"forward: {cfg.name} is of family 'vlm'; its whole-sequence forward "
-                f"needs vision_embeds (B, Tv, d_vision={cfg.d_vision}), the image "
-                f"prefix (chunked admission serves text prompts without it)")
+        require_vision(cfg, vision_embeds)
         vis = (vision_embeds.to(x.dtype) @ params["vision_proj"]).to(x.dtype)
         x = torch.cat([vis, x], dim=1)
         windows = np.full_like(windows, vis.shape[1])
@@ -366,7 +381,7 @@ def forward(params: Params, cfg, tokens: torch.Tensor, return_kv: bool = False,
         x, aux_l, kv = run_layer(
             functools.partial(_layer, cfg=cfg, theta=float(thetas[i]), window=int(windows[i]),
                               mask_kind=mask_kind, return_kv=return_kv, split=split,
-                              fsdp=fsdp, fsdp_dims=layer_dims),
+                              fsdp=fsdp, fsdp_dims=layer_dims, data=data),
             remat, p, x, positions)
         aux = aux + aux_l
         if return_kv:

@@ -33,15 +33,17 @@ layer's K/V through ``kv_cache.write_prefill``; ``prefill_into_slot`` is
 the Scheduler's eager admission.
 
 ``make_serve_step``, ``make_prefill_chunk`` / ``ChunkedPrefill`` and
-``prefill_into_slot`` take the reference's ``rules``: with a mesh the dense
-family runs as explicit SPMD on this rank's shard
+``prefill_into_slot`` take the reference's ``rules``: with a mesh the
+dense, MoE and VLM families run as explicit SPMD on this rank's shard
 (:class:`repro_torch.serving.sharded.Shard`): q / k / v on the rank's
 heads, its slots of the decode batch, the KV writes and attends local, one
 all-gather of the heads' attend outputs over ``"model"`` before ``wo``,
 the vocab-split embedding and head, the logits gathered over ``"model"``
 then ``"data"``; a paged pool takes the step's K / V rows of every data
-rank.  The kernels plan at the whole launch's geometry.  No rules (or no
-mesh) is the single-device path, unchanged.
+rank.  The kernels plan at the whole launch's geometry.  An MoE layer's
+experts are replicated and route dropless over the rank's slots.  No rules
+(or no mesh) is the single-device path, unchanged; the ssm, hybrid and
+enc_dec families under a mesh raise (ROADMAP item 7c-ii).
 
 ``make_serve_step`` also decodes the families the reference decodes
 outside its Scheduler: ssm (a mamba state a layer, no KV), hybrid (jamba:
@@ -339,12 +341,10 @@ def _whisper_decode_layer(p, cfg, layout, cache, x, pos, layer_idx: int, phys, c
 
 
 def _mesh_family(cfg, shard, who: str) -> None:
-    """Under a mesh only the dense family is served (item 7c is the rest)."""
-    if shard is not None and cfg.family != "dense":
-        raise NotImplementedError(
-            f"{who}: family {cfg.family!r} under a mesh is ROADMAP item 7c (MoE token "
-            f"groups, ssm / hybrid state, the enc_dec cross memory, the VLM); the "
-            f"dense family is served sharded")
+    """Under a mesh the transformer families are served; the ssm, hybrid
+    and enc_dec ones are ROADMAP item 7c-ii (:func:`sh.require_mesh_family`)."""
+    if shard is not None:
+        sh.require_mesh_family(cfg, who)
 
 
 def make_serve_step(cfg, layout: kvc.CacheLayout, rules=None):
@@ -485,6 +485,7 @@ def prefill_into_slot(params, cfg, layout: kvc.CacheLayout, cache, slot: int,
     heads; in the slot layout only the data rank holding ``slot`` runs it
     and broadcasts its logits."""
     require_transformer(cfg, "prefill_into_slot")
+    transformer.require_vision(cfg, vision_embeds)  # on every rank, before a collective
     shard = shd.Shard.of(cfg, layout, rules)
     _mesh_family(cfg, shard, "prefill_into_slot")
     tokens = prompt[None] if prompt.ndim == 1 else prompt

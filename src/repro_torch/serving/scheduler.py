@@ -56,13 +56,16 @@ in every store leaf.  ``stats()["spec"]`` reports the acceptance and the
 KV and weight bytes per accepted token.
 
 ``rules`` (the reference's :class:`ShardingRules`) with a mesh serves the
-dense family as explicit SPMD (:mod:`repro_torch.serving.sharded`): every
+dense, MoE and VLM families as explicit SPMD
+(:mod:`repro_torch.serving.sharded`; the experts replicated, routing
+dropless on the rank's own slots): every
 rank runs the same Scheduler on the same requests from the same whole
 params, keeps its shard of the params and cache, and gets every step's
 logits gathered from every rank, so the host state (slots, pages,
 samples) stays identical on all of them; rank 0 reports.  The page table
 stays host-owned and replicated.  ``stats()`` adds the reference's mesh
-columns.  Another family under a mesh raises (item 7c).
+columns.  The ssm, hybrid and enc_dec families under a mesh raise
+(ROADMAP item 7c-ii).
 """
 
 from __future__ import annotations
@@ -75,6 +78,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import apply_weight_format_override, require_transformer
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import model_zoo
 from repro_torch.serving import engine, kv_cache as kvc, sharded as shd, spec_decode as spd
 from repro_torch.serving import weights as swt
@@ -123,15 +127,13 @@ class Scheduler:
     ):
         from repro_torch import resolve_device
 
+        if rules is not None and rules.mesh is not None:
+            sh.require_mesh_family(cfg, "Scheduler")
         require_transformer(cfg, "Scheduler")
         if admission not in ("chunked", "eager"):
             raise ValueError(f"Scheduler: admission {admission!r} is not chunked or eager")
         self.rules = rules
         self.mesh_shape = shd.mesh_shape(rules)
-        if rules is not None and rules.mesh is not None and cfg.family != "dense":
-            raise NotImplementedError(
-                f"Scheduler: family {cfg.family!r} under a mesh is ROADMAP item 7c (MoE "
-                f"token groups, the VLM); the dense family is served sharded")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(

@@ -36,8 +36,18 @@ heads split only where ``"model"`` divides both head counts
 cache alike; the reference may split a KV store whose q it replicates,
 which GSPMD reconciles and explicit SPMD would not.  Under a mesh the
 layer collectives run whatever the group's size, so a world of one still
-goes through them.  The dense family is served on a mesh; the others
-(item 7c) are refused by the Scheduler.
+goes through them.
+
+The dense, MoE and VLM families are served on a mesh, as the reference's
+serve driver takes them.  An MoE layer's router, experts and shared expert
+are replicated (no logical axis of theirs is in the serving subset) and
+route dropless in the decode and chunk steps, each rank over its own slots;
+an eager admission is one row, the reference's ``group_sizes(1, S) = (1,
+1)``: so a sharded MoE serve is the single-device run's bits too.  A VLM
+serves text through chunked admission (its 8 q / 1 kv heads replicate on a
+model axis of more than one rank).  The ssm, hybrid and enc_dec families
+are refused under a mesh (ROADMAP item 7c-ii:
+``sharding.require_mesh_family``).
 """
 
 from __future__ import annotations
@@ -194,8 +204,9 @@ class Shard:
         if knobs:
             raise NotImplementedError(
                 f"sharded serving: {', '.join(knobs)} is not served (the placement shards "
-                f"heads, vocab and slots only; sequence and FSDP sharding of serving are "
-                f"ROADMAP item 7c)")
+                f"heads, vocab and slots only, and the reference's serve driver never sets "
+                f"them; what is left of ROADMAP item 7c is item 7c-ii, the ssm, hybrid and "
+                f"enc_dec families)")
         if len([a for a in rules.batch_axes if sh.mesh_sizes(rules.mesh).get(a, 1) > 1]) > 1:
             raise NotImplementedError("sharded serving: one batch axis (data); a pod axis "
                                       "of more than one replica is not served")

@@ -26,13 +26,24 @@ plain local tensors:
 * The moments follow the parameters (``opt_state_specs``): ZeRO falls out
   of the FSDP rules, as in the reference.
 
-Only the dense family trains on a mesh here; the others raise, naming
-ROADMAP item 7c (as serving's refusal does).
+The dense, MoE and VLM families train on a mesh.  An MoE layer's experts
+split their FF over ``"model"`` (``gate`` / ``up`` ``(E, d, f)`` column
+shards, ``down`` ``(E, f, d)`` row shards, the shared expert as the dense
+MLP; the router replicated), and under FSDP their ``d_model`` over
+``"data"`` too, so an expert leaf ``(L, E, d, f)`` splits on two dims at
+once.  Its dispatch is the reference's group-local one: the rank's rows of
+the global batch are its token group (``ShardingRules.group_sizes``'
+contiguous block where ``"data"`` divides the batch; a batch it does not
+divide is refused), and the auxiliary loss is the global one over
+``"data"``.  A VLM's ``Tv + S`` stream is what ``sp`` splits.  The ssm,
+hybrid and enc_dec families raise, naming ROADMAP item 7c-ii (as
+serving's refusal does).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import warnings
 from typing import Any, Dict, Optional
 
@@ -65,6 +76,19 @@ def train_specs(cfg, rules: sh.ShardingRules, logical: Optional[Tree] = None):
     return shapes, sh.physical_specs(shapes, logical, rules, drop), drop
 
 
+def _ff_split(layer_specs, rules: sh.ShardingRules) -> bool:
+    """Whether ``"model"`` splits the layers' FF: the MLP's, or an MoE's
+    experts' (whose shared expert must split alike)."""
+    on = lambda spec: rules.model_axis in _axes(spec[-1])
+    if "moe" not in layer_specs:
+        return on(layer_specs["mlp"]["up"])
+    ff = on(layer_specs["moe"]["up"])
+    if "shared" in layer_specs["moe"] and on(layer_specs["moe"]["shared"]["up"]) != ff:
+        raise NotImplementedError("sharded training: the model axis splits the experts' FF "
+                                  "and the shared expert's differently")
+    return ff
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainShard:
     """What one rank holds of a ``(cfg, rules)`` training placement: the
@@ -92,14 +116,11 @@ class TrainShard:
         """The rank's placement (``None`` without a mesh: one device)."""
         if rules is None or rules.mesh is None:
             return None
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"sharded training: family {cfg.family!r} under a mesh is ROADMAP item 7c "
-                f"(MoE token groups, ssm / hybrid state, the enc_dec cross memory, the VLM); "
-                f"the dense family trains sharded")
+        sh.require_mesh_family(cfg, "sharded training")
         if rules.seq_shard:
             raise NotImplementedError("sharded training: seq_shard is the long-context "
-                                      "decode knob (ROADMAP item 7c), not a training rule")
+                                      "decode knob, not a training rule (ROADMAP item 7c-ii "
+                                      "leaves it to the ssm / hybrid / enc_dec placement)")
         from repro_torch.models import model_zoo
 
         mesh, sizes = rules.mesh, sh.mesh_sizes(rules.mesh)
@@ -118,8 +139,7 @@ class TrainShard:
         split = sh.ModelSplit(
             size=m, rank=coords[rules.model_axis], heads=not drop,
             vocab=rules.model_axis in _axes(specs["embed"][0]),
-            group=mesh.get_group(rules.model_axis),
-            ff=rules.model_axis in _axes(specs["layers"]["mlp"]["up"][-1]),
+            group=mesh.get_group(rules.model_axis), ff=_ff_split(specs["layers"], rules),
             rows=True, seq=rules.sp)
         data_group = mesh.get_group(data_axis)
         dims = tree_map(lambda spec: next((i for i, e in enumerate(spec)
@@ -153,23 +173,34 @@ class TrainShard:
                             self.rules)
 
     def local_rows(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """This data rank's rows of a global batch (views)."""
-        b = batch["tokens"].shape[0] // self.data
+        """This data rank's rows of a global batch (views; every input of
+        it, a VLM's ``vision`` beside the tokens and labels).  The data axis
+        must divide the batch: otherwise rows would be lost, and the
+        reference's MoE token groups (``gcd(B, data)`` of them) would cross
+        ranks."""
+        B = batch["tokens"].shape[0]
+        if B % self.data:
+            raise ValueError(f"sharded training: the data axis ({self.data} ranks) does not "
+                             f"divide the batch ({B} rows); the MoE's group-local dispatch "
+                             f"would put gcd(B, data) = {math.gcd(B, self.data)} token groups "
+                             f"across the ranks, and no rank may hold part of a group")
+        b = B // self.data
         return {k: v[self.d_rank * b:(self.d_rank + 1) * b] for k, v in batch.items()}
 
     def forward_kwargs(self, seq_len: int) -> Dict[str, Any]:
-        """The forward's ``split`` and ``fsdp`` for a batch of ``seq_len``
-        tokens a row: ``sp`` replicates the residual stream (warning
+        """The forward's ``split``, ``fsdp`` and ``data`` (the data axis's
+        group: an MoE layer's aux sums) for a residual stream of ``seq_len``
+        rows a sequence (a VLM's ``Tv + S``): ``sp`` replicates the stream
+        (warning
         :class:`~repro_torch.distributed.sharding.ShardingFallbackWarning`)
-        where ``"model"`` does not divide the sequence, as ``constrain``
-        does."""
+        where ``"model"`` does not divide it, as ``constrain`` does."""
         split = self.split
         if split.seq and seq_len % split.size:
             warnings.warn(f"logical axis 'seq' (dim {seq_len}) is not divisible by the model "
                           f"axis ({split.size}); replicating instead",
                           sh.ShardingFallbackWarning, stacklevel=2)
             split = dataclasses.replace(split, seq=False)
-        return dict(split=split, fsdp=self.fsdp)
+        return dict(split=split, fsdp=self.fsdp, data=self.data_group)
 
     # ---- gradients ------------------------------------------------------
 

@@ -68,17 +68,25 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, group=None) -> tor
     return total / torch.clamp(count, min=1)
 
 
+def stream_len(cfg, batch: Dict[str, torch.Tensor]) -> int:
+    """Rows a sequence of the residual stream: the tokens, after a VLM's
+    image prefix."""
+    S = batch["tokens"].shape[1]
+    return S + batch["vision"].shape[1] if cfg.family == "vlm" else S
+
+
 def make_loss_fn(cfg, fwd_kwargs: Optional[Dict] = None,
                  shard: Optional[TrainShard] = None):
     """``loss_fn(params, batch) -> (loss, {"ce", "aux"})``: cross entropy
     over the label positions (a VLM's prefix positions dropped) plus 0.01
     of the MoE auxiliary loss.  With a rank's ``shard`` the forward runs on
-    its blocks and rows and the cross entropy is the mesh's global mean."""
+    its blocks and rows, and the cross entropy and the MoE's aux are the
+    mesh's global ones."""
     fwd_kwargs = fwd_kwargs or {}
 
     def loss_fn(params, batch):
         kw = fwd_kwargs if shard is None else dict(
-            fwd_kwargs, **shard.forward_kwargs(batch["tokens"].shape[1]))
+            fwd_kwargs, **shard.forward_kwargs(stream_len(cfg, batch)))
         logits, aux = model_zoo.forward(params, cfg, batch, **kw)
         labels = batch["labels"]
         logits = logits[:, -labels.shape[1]:]  # drop VLM prefix positions
@@ -106,9 +114,11 @@ def loss_and_grads(loss_fn, params: Tree, batch: Dict[str, torch.Tensor]
 def _micro(batch: Dict[str, torch.Tensor], grad_accum: int, i: int,
            shard: Optional[TrainShard]) -> Dict[str, torch.Tensor]:
     """Microbatch ``i`` of ``grad_accum`` over the batch's leading dim.  On
-    a mesh the rank's rows are gathered over ``"data"`` first (tokens and
-    labels: a few bytes a row) and the rank takes its rows of the global
-    microbatch, so each microbatch is the reference's."""
+    a mesh the rank's rows of every input are gathered over ``"data"``
+    first (tokens and labels: a few bytes a row; a VLM's ``vision`` rows
+    too) and the rank takes its rows of the global microbatch, so each
+    microbatch is the reference's, and an MoE's token group is the rank's
+    rows of it."""
     if shard is not None:
         batch = {k: sh.all_gather(v, shard.data_group, 0) for k, v in batch.items()}
     mb = {k: v.reshape((grad_accum, v.shape[0] // grad_accum) + v.shape[1:])[i]

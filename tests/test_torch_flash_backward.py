@@ -198,7 +198,8 @@ def _k5b_model(q, k, v, o, lse, dout, kind, w, off, keep_lo=True):
     into bf16 hi + lo and both halves multiplied.  The sums run in the
     kernel's order: dk and dv over the group's query heads in turn, each
     over its queries in 16-row chunks (one mma k-step; a chunk the kernel
-    skips adds zeros), hi then lo; dq over the keys in 16-key chunks.  The
+    skips adds zeros), hi then lo into a zeroed fragment that one f32 add
+    takes to the sum; dq over the keys in 16-key chunks, hi then lo.  The
     scale applied to dk and dq at the end.  -> f32 ``(dq, dk, dv)``."""
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
@@ -217,10 +218,12 @@ def _k5b_model(q, k, v, o, lse, dout, kind, w, off, keep_lo=True):
     for gi in range(g):
         for c in range(0, Sq, 16):
             sl = slice(c, c + 16)
+            tv = tk = 0.0  # the chunk's products in a zeroed fragment, then one f32 add
             for x in p2:
-                dv = dv + torch.einsum("bhqk,bqhd->bkhd", x[:, :, gi, sl], dog[:, sl, :, gi])
+                tv = tv + torch.einsum("bhqk,bqhd->bkhd", x[:, :, gi, sl], dog[:, sl, :, gi])
             for x in ds2:
-                dk = dk + torch.einsum("bhqk,bqhd->bkhd", x[:, :, gi, sl], qg[:, sl, :, gi])
+                tk = tk + torch.einsum("bhqk,bqhd->bkhd", x[:, :, gi, sl], qg[:, sl, :, gi])
+            dv, dk = dv + tv, dk + tk
     dq = torch.zeros(B, Sq, Hk, g, D)
     for c in range(0, Sk, 16):
         for x in ds2:

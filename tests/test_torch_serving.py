@@ -200,12 +200,27 @@ class TestRefusals:
     def test_later_slices_raise(self, served):
         _, cfg, _, params = served
         lay = tkvc.layout_for(cfg, SLOTS, MAX_SEQ)
-        # a mesh serves the dense family; another family under one is item 7c
+        # a mesh serves the dense, MoE and VLM families: an MoE Scheduler on a
+        # 1x1 mesh (a gloo world of one) builds; the ssm, hybrid and enc_dec
+        # families under a mesh are item 7c-ii
+        from repro_torch.launch import mesh as launch_mesh
+        from repro_torch.models import model_zoo as tzoo
+
         moe_cfg = get_config("mixtral-8x22b", smoke=True)
+        moe_params = tzoo.init(moe_cfg, torch.Generator().manual_seed(0), "cpu")
+        _, mesh_rules, started = launch_mesh.start_mesh(1, 1, torch.device("cpu"))
+        try:
+            sched = Scheduler(moe_params, moe_cfg, tkvc.layout_for(moe_cfg, SLOTS, MAX_SEQ),
+                              device="cpu", rules=mesh_rules)
+            assert sched.shard is not None and sched.mesh_shape == (1, 1)
+        finally:
+            launch_mesh.stop_mesh(started)
         rules = ShardingRules(mesh={"data": 1, "model": 1})
-        with pytest.raises(NotImplementedError, match="7c"):
-            Scheduler(params, moe_cfg, tkvc.layout_for(moe_cfg, SLOTS, MAX_SEQ), device="cpu",
-                      rules=rules)
+        for arch in ("mamba2-1.3b", "jamba-1.5-large-398b", "whisper-medium"):
+            other = get_config(arch, smoke=True)
+            with pytest.raises(NotImplementedError, match="item 7c-ii"):
+                Scheduler(params, other, tkvc.layout_for(other, SLOTS, MAX_SEQ), device="cpu",
+                          rules=rules)
         # speculative decoding is ported: the call that raised now builds
         assert Scheduler(params, cfg, lay, device="cpu", spec_decode=True).spec.enabled
 

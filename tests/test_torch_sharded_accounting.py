@@ -26,7 +26,8 @@ from repro_torch.serving import kv_cache as kvc, weights as swt
 jax.config.update("jax_platform_name", "cpu")
 torch.set_num_threads(1)
 
-ARCHS = ["deepseek-7b", "phi4-mini-3.8b", "gemma3-4b", "jamba-1.5-large-398b"]
+ARCHS = ["deepseek-7b", "phi4-mini-3.8b", "gemma3-4b", "jamba-1.5-large-398b",
+         "llama4-scout-17b-a16e", "mixtral-8x22b", "paligemma-3b"]
 MESHES = [(1, 1), (2, 1), (1, 2), (1, 4), (2, 4), (4, 2), (3, 1), (16, 16)]
 
 
@@ -91,6 +92,30 @@ def test_weight_plan_mesh_columns_are_the_references(fmt):
     jcfg, cfg, jl, tl, jplan, tplan = _plans(fmt)
     assert [(e.path, e.placement) for e in tplan.entries] == \
         [(e.path, e.placement) for e in jplan.entries]
+    for mesh in MESHES:
+        got, want = tplan.decode_read_bytes(tl, cfg, mesh), jplan.decode_read_bytes(jl, jcfg, mesh)
+        for key in ("per_device", "per_device_by_placement", "shards_by_placement"):
+            assert _rounded(got[key]) == _rounded(want[key]), (mesh, key)
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "mixtral-8x22b", "paligemma-3b"])
+@pytest.mark.parametrize("fmt", ["bf16", "int8", "bstc"])
+def test_moe_and_vlm_weight_plan_mesh_columns_are_the_references(arch, fmt):
+    """The MoE and VLM families' weight plans on every mesh, as the
+    reference's: the same entries and placements (the router, the expert
+    banks, the shared expert and ``vision_proj`` stay raw and out of the
+    plan), and the per-device columns as integers."""
+    jcfg = japply(jax_config(arch, smoke=True), fmt)
+    cfg = apply_weight_format_override(get_config(arch, smoke=True), fmt)
+    jparams, _ = jzoo.init(jax.random.key(0), jcfg)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    jl = jkvc.layout_for(jcfg, 4, 48, kv_format="bf16")
+    tl = kvc.layout_for(cfg, 4, 48, kv_format="bf16")
+    _, jplan = jswt.prepare_serve_params(jparams, jcfg, jl, fmt)
+    _, tplan = swt.prepare_serve_params(tparams, cfg, fmt)
+    assert [(e.path, e.placement) for e in tplan.entries] == \
+        [(e.path, e.placement) for e in jplan.entries]
+    assert not any("moe" in str(e.path) or "vision" in str(e.path) for e in tplan.entries)
     for mesh in MESHES:
         got, want = tplan.decode_read_bytes(tl, cfg, mesh), jplan.decode_read_bytes(jl, jcfg, mesh)
         for key in ("per_device", "per_device_by_placement", "shards_by_placement"):

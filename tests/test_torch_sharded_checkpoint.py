@@ -163,9 +163,9 @@ def test_train_launcher_resumes_under_torchrun(tmp_path):
 
 
 def test_train_launcher_refuses_another_family_on_a_mesh(tmp_path):
-    """A family other than the dense one under ``--mesh`` raises, naming
-    item 7c."""
+    """The ssm family under ``--mesh`` raises, naming item 7c-ii (the
+    dense, MoE and VLM families train sharded)."""
     out = _launch(["-m", "repro_torch.launch.train", "--device", "cpu", "--arch", "mamba2-1.3b",
                    "--mesh", "1,1", "--steps", "1", "--ckpt-dir", str(tmp_path / "c"),
                    "--heartbeat", str(tmp_path / "hb.json")])
-    assert out.returncode != 0 and "item 7c" in out.stderr, out.stderr[-2000:]
+    assert out.returncode != 0 and "item 7c-ii" in out.stderr, out.stderr[-2000:]

@@ -460,7 +460,8 @@ def test_column_shard_product_on_the_cpu(threads, equal):
 def test_serving_refuses_the_knobs_it_does_not_place(knob):
     """Sequence and FSDP sharding are the reference's training and
     long-context knobs: serving rules that set one are refused, naming
-    item 7c, not run on a cut the engine would misread as its slots."""
+    item 7c (7c-ii is what is left of it), not run on a cut the engine
+    would misread as its slots."""
     cfg = _cfg()
     rules = sh.ShardingRules(mesh={"data": 2, "model": 4}, **knob)
     with pytest.raises(NotImplementedError, match=f"{next(iter(knob))}.*item 7c"):
@@ -500,6 +501,7 @@ def test_serve_launcher_runs_under_torchrun(tmp_path):
 
 
 def test_launcher_refuses_another_family_on_a_mesh():
-    """A family other than dense under a mesh raises, naming item 7c."""
-    run = _launch(["--arch", "mixtral-8x22b", "--mesh", "1,1", "--requests", "1"])
-    assert run.returncode != 0 and "7c" in run.stderr, run.stderr[-2000:]
+    """The ssm family under a mesh raises, naming item 7c-ii (the dense,
+    MoE and VLM families are served sharded)."""
+    run = _launch(["--arch", "mamba2-1.3b", "--mesh", "1,1", "--requests", "1"])
+    assert run.returncode != 0 and "7c-ii" in run.stderr, run.stderr[-2000:]
