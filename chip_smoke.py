@@ -150,9 +150,12 @@ Phases, each of which fails the run (nonzero exit) on any error:
    ``pos`` convention (the text length).  Then gemma3-1b at full width and
    depth served through the Scheduler at max_seq 524,288 with bgpp KV, one
    slot (K2 over the whole row, its selection spanning blocks, 4 launches a
-   step), and the ssm family: mamba2-1.3b at full width, cut to 24 of its
-   48 layers (bf16, seed 0) decoding four prompts of 256-448 tokens a token a step from a
-   zero state and 16 greedy tokens (4 slots; ms a step, traced), its
+   step), and the ssm family: mamba2-1.3b at full width, cut to 16 of its
+   48 layers (bf16, seed 0) decoding four prompts of 64-256 tokens a token a step from a
+   zero state and 16 greedy tokens (4 slots; ms a step, traced), then the
+   same decode through ``make_serve_step`` on a 1x1 NCCL mesh (the mixers
+   split by heads: tokens and every step's logits bit-identical, ms a step
+   and collectives a step), its
    forward timed at B 1, S 2048, the forward at chunk 64 held to the
    decode on an f32 copy of the weights, and its long_500k cache (the same
    bytes as a short one's, 16 steps).  Then the hybrid family:
@@ -162,7 +165,9 @@ Phases, each of which fails the run (nonzero exit) on any error:
    odd layers) and 8 of its 16 experts, top-2 kept (25.81 B params),
    decoding four prompts of 48-80 tokens a token a step from a zero state
    and 16 greedy tokens in bf16, int8 and bgpp KV (paged, page 16; K1 or
-   K2 once a step and nothing else; ms a step, mamba state bytes, traced),
+   K2 once a step and nothing else; ms a step, mamba state bytes, traced;
+   bf16 and bgpp again on a 1x1 NCCL mesh, bit-identical with the same
+   launches),
    its forward timed at B 1, S 2048 (K5 once), the forward's logits at
    each prompt's last position beside the bf16 decode's (printed), the
    forward against the decode at every prompt position on f32 weights with
@@ -188,7 +193,7 @@ Phases, each of which fails the run (nonzero exit) on any error:
    launches: full, causal and cross); traces of the encoder and of bf16
    and bgpp decode.  After
    every timed run, each of
-   phi4-mini's chunked runs traces a few steady decode steps, and its
+   phi4-mini's chunked runs but int8 KV traces a few steady decode steps, and its
    eager one a whole-prompt admission, and gemma3-4b (6 layers) traces bf16
    and bgpp decode and one eager admission (K1, K2 and K5 device ms a launch at
    D 256), and llama4-scout traces bf16 decode (K1 at g 5, one MoE
@@ -240,6 +245,14 @@ Phases, each of which fails the run (nonzero exit) on any error:
    --nproc-per-node 1`` with ``--mesh 1,1 --fsdp --int8-opt`` at 2
    layers, 4 steps, resumed from its step-3 checkpoint with equal losses;
    with two or more cards, the train launcher on the ``(1, n)`` mesh.
+   The ssm and hybrid families on a mesh (ROADMAP item 7c-ii (a)): K1 /
+   K2 at jamba's 64 / 8 heads on every rank of 1x2 and 1x8, and K5 / K5b
+   (causal, S 4096) on rank 0 of 1x8 (phase 3), each bit-equal to its
+   slice of the whole launch; mamba2-1.3b cut to 8 layers (3 f32 and 3
+   int8 steps) and jamba cut to 2 layers (a mamba layer with its MLP, the
+   attention layer with an MoE of 2 of its 16 experts; 2 f32 and 2 int8
+   steps) through the sharded train step on a 1x1 NCCL mesh, bit-identical
+   to one device; and the decode state a rank holds on 1x2 and 1x8.
 6. Reference check: the same small models (the smoke configs of
    phi4-mini, gemma3-4b, deepseek-7b, mixtral-8x22b,
    llama4-scout-17b-a16e and paligemma-3b) and traces served on the card
@@ -263,7 +276,8 @@ the last line is ``{"ok": true, "device": {...}}``.
 Each phase's seconds print as a ``[time]`` line.
 
 ``--only kernels|head-widths|long-context|prefix|score|score-device|decode|
-decode-attends|ssm|hybrid|long-serve|whisper|server|train`` (repeatable) runs just those parts of
+decode-attends|ssm|hybrid|long-serve|whisper|server|train|sharded|sharded-train|
+sharded-moe|sharded-ssm`` (repeatable) runs just those parts of
 phase 3 or 5 (``server``: phi4-mini-3.8b's bf16 and bgpp offline runs, then the
 front door over them; ``train``: K5b's cases and the training path; and, for
 ``score`` and ``decode``, K6's or K4's device times; ``decode-attends``
@@ -1430,8 +1444,9 @@ def flash_device_phase(device, calls: int = 20) -> None:
     in the forward, where q, k and v were just written), printed as device
     ms a call: the sum over the call's kernels of each one's mean device
     time (the trace may miss a call's first events; the kernels it recorded
-    are printed with their counts).  Run after the serving runs are timed:
-    a trace slows the process's later host work."""
+    are printed with their counts; a trace that recorded nothing on every
+    try is timed by CUDA events, :func:`_ms_a_call`).  Run after the serving
+    runs are timed: a trace slows the process's later host work."""
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1446,8 +1461,7 @@ def flash_device_phase(device, calls: int = 20) -> None:
             torch.cuda.synchronize()
             dev = _traced(lambda: [fn() for _ in range(calls)],
                           f"flash_attention {case[0]}: {calls} {name} calls", tries=3)
-            ms[name] = sum(e.self_device_time_total / e.count for e in dev) / 1e3
-            counts[name] = ", ".join(f"{e.count} x {e.key[:40]}" for e in dev)
+            ms[name], counts[name] = _ms_a_call(dev, fn, calls)
         print(f"[kernel] flash_attention {case[0]} device time (torch.profiler, {calls} calls "
               f"each, L2 warm): kernel {ms['kernel']:.4f} ms a call, SDPA {ms['SDPA']:.4f} ms a "
               f"call ({ms['kernel'] / ms['SDPA']:.2f}x); recorded: kernel {counts['kernel']}; "
@@ -1497,8 +1511,7 @@ def bstc_device_phase(device, calls: int = 20) -> None:
             dev = [e for e in _traced(run, f"bstc_matmul {name}: {calls} {label} calls",
                                       tries=3)
                    if "FillFunctor" not in e.key]
-            ms[label] = sum(e.self_device_time_total / e.count for e in dev) / 1e3
-            counts[label] = ", ".join(f"{e.count} x {e.key[:40]}" for e in dev)
+            ms[label], counts[label] = _ms_a_call(dev, fn, calls, flush=l2.zero_)
             step[label] += count * ms[label]
         print(f"[kernel] bstc_matmul {name} device time (torch.profiler, {calls} calls each, "
               f"L2 flushed): kernel {ms['kernel']:.4f} ms a call, bf16 torch.matmul "
@@ -1548,8 +1561,7 @@ def bgpp_device_phase(device, calls: int = 20) -> None:
 
         dev = [e for e in _traced(run, f"bgpp_paged_attend: {calls} {label} calls", tries=3)
                if "FillFunctor" not in e.key]
-        ms[label] = sum(e.self_device_time_total / e.count for e in dev) / 1e3
-        counts[label] = ", ".join(f"{e.count} x {e.key[:40]}" for e in dev)
+        ms[label], counts[label] = _ms_a_call(dev, fn, calls, flush=l2.zero_)
     print(f"[kernel] bgpp_paged_attend device time (torch.profiler, {calls} calls each, L2 "
           f"flushed, decode geometry): K2 {ms['K2']:.4f} ms a call, K1 int8 body on the same "
           f"int8 K/V {ms['K1 int8']:.4f} ms a call ({ms['K2'] / ms['K1 int8']:.2f}x); "
@@ -2059,7 +2071,8 @@ def _device_ms(fn, calls, l2, tries: int = 3):
     """Device ms a call of ``fn`` over one ``torch.profiler`` trace of
     ``calls`` calls, ``l2`` zeroed before each (the flush kernels left
     out), and the kernels the trace recorded.  A trace that recorded no
-    device time of ``fn`` is taken again, up to ``tries`` times."""
+    device time of ``fn`` is taken again, up to ``tries`` times, and then
+    :func:`_ms_a_call` times it by CUDA events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2076,8 +2089,7 @@ def _device_ms(fn, calls, l2, tries: int = 3):
                and "FillFunctor" not in e.key and e.self_device_time_total > 0]
         if dev:
             break
-    ms = sum(e.self_device_time_total / e.count for e in dev) / 1e3
-    return ms, ", ".join(f"{e.count} x {e.key[:32]}" for e in dev)
+    return _ms_a_call(dev, fn, calls, flush=l2.zero_, key=32)
 
 
 def brcr_device_phase(device, calls: int = 10) -> None:
@@ -2202,13 +2214,14 @@ def profile_decode(sched, reqs, label: str, steps: int = 4, top: int = 8):
                    f"{label}: {steps} steady decode steps", top=top)
 
 
-def _traced(fn, what: str, tries: int = 1, top: int = 8):
+def _traced(fn, what: str, tries: int = 2, top: int = 8):
     """Run ``fn`` once under ``torch.profiler``: print the device's busy
     share of the wall time and the device time by kernel (top 8), and
     return the device-side events.  Only device-side events count (a CPU
     op's row repeats its kernels' time).  The tracer now and then records
-    no device event at all: with ``tries`` > 1 such a trace is taken again,
-    up to ``tries`` times (for timing calls that can simply be repeated)."""
+    no device event at all: such a trace is taken again, up to ``tries``
+    times (every caller's ``fn`` can simply be repeated: a pure call, an
+    admission into the same slot, or more steady decode steps)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2232,6 +2245,21 @@ def _traced(fn, what: str, tries: int = 1, top: int = 8):
         print(f"[profile]   {t(e) / 1e3:8.3f} ms {100 * t(e) / busy:5.1f}% {e.count:5d} "
               f"calls  {e.key[:80]}")
     return dev
+
+
+def _ms_a_call(dev, fn, calls: int, flush=None, key: int = 40):
+    """Device ms a call from ``dev``, a trace's device events over
+    ``calls`` calls of ``fn`` (the sum over its kernels of each one's mean
+    device time), and the kernels it recorded.  Late in a long run the
+    tracer has recorded no device event at all on every try of a short
+    trace (K5's 20 calls, ~3 ms): then ``fn`` is timed by CUDA events
+    instead (:func:`time_ms` over ``calls`` calls, ``flush()`` between
+    them, outside the timed span), and the record says so."""
+    if sum(e.self_device_time_total for e in dev) > 0:
+        return (sum(e.self_device_time_total / e.count for e in dev) / 1e3,
+                ", ".join(f"{e.count} x {e.key[:key]}" for e in dev))
+    return (time_ms(fn, iters=calls, flush=flush),
+            "no device event traced, timed by CUDA events")
 
 
 def profile_admission(sched, prompt, label: str, top: int = 8):
@@ -2300,6 +2328,10 @@ def weight_set_bytes(tree) -> int:
 SERVE_RUNS = (("bf16", "bf16", "chunked"), ("int8", "bf16", "chunked"),
               ("bgpp", "bf16", "chunked"), ("bgpp", "bstc", "chunked"),
               ("bf16", "bf16", "eager"))
+# the runs trace_phase traces: SERVE_RUNS but int8 KV (its step is bf16's
+# but K1's body) and bgpp KV on bf16 weights (its K2 is traced in the bstc
+# run's step), both cut for the whole script's time
+TRACE_RUNS = tuple(r for r in SERVE_RUNS if r[0] != "int8" and r[:2] != ("bgpp", "bf16"))
 # (KV format, weight format) of each speculative run: chunked, paged, the
 # main trace, gamma 4 drafts from 4 kept planes; each is held to the
 # non-speculative run of the same formats
@@ -2639,9 +2671,11 @@ def serve_phase(device, card):
 # Scheduler over an NCCL world of one on phi4-mini-3.8b's main trace; each is
 # held to the unsharded run of its formats and admission (the int8 slot run
 # to the paged one: slot = paged bit for bit); the eager run's admissions
-# are the sharded forward on the rank's heads (K5) and the owner's broadcast
-SHARDED_RUNS = (("bf16", "bf16", "chunked", "paged"), ("int8", "bf16", "chunked", "slot"),
-                ("bgpp", "bf16", "chunked", "paged"), ("bgpp", "bstc", "chunked", "paged"),
+# are the sharded forward on the rank's heads (K5) and the owner's broadcast.
+# The bf16 and bgpp paged chunked runs on bf16 weights were cut for the whole
+# script's time: the eager run decodes through K1 bf16 on pages, the bstc
+# run through K2 on pages, the int8 slot run takes chunked admission
+SHARDED_RUNS = (("int8", "bf16", "chunked", "slot"), ("bgpp", "bstc", "chunked", "paged"),
                 ("bf16", "bf16", "eager", "paged"))
 # the meshes whose ranks' decode launches run one after another on one card
 SHARD_MESHES = ((2, 1), (1, 4), (2, 4))
@@ -2706,6 +2740,62 @@ def sharded_serve(cfg, params, outcome, device, card, runs=SHARDED_RUNS, trace_k
               f"{key[2]} run; {have['steps']} steps in {have['wall_s']} s (unsharded "
               f"{want['wall_s']} s) [{card}]")
     return launches
+
+
+def sharded_decode_check(cfg, decode, want, what, card):
+    """ROADMAP item 7c-ii (a) served: ``decode(rules, spans, rows)`` (a
+    ``make_serve_step`` run from a zero state returning each slot's
+    tokens) once more under ``rules_for(1, 1)`` over an NCCL world of one
+    (the mixers split by heads, every collective a group of one) against
+    the unsharded run ``want`` = ``(rows (steps, B, V), tokens, ms a step,
+    launches)``: tokens identical, every step's logits bit-identical, the
+    same kernel launches.  Prints ms a step for both and the collectives a
+    step (``sharding.all_gather`` carries every one).  Returns the
+    sharded run's launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels as K
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.serving import sharded as shd
+
+    want_rows, want_gen, want_ms, want_launches = want
+    started = start_world()
+    calls, real = [], sh.all_gather
+    sh.all_gather = lambda x, group, dim=0: calls.append(1) or real(x, group, dim)
+    try:
+        spans, rows = [], []
+        K.reset_launches()
+        t0 = time.perf_counter()
+        gen = decode(shd.rules_for(1, 1, "cuda"), spans, rows)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k: v for k, v in K.LAUNCHES.items() if v}
+    finally:
+        sh.all_gather = real
+        if started:
+            dist.destroy_process_group()
+    got = torch.stack(rows)
+    if gen != want_gen:
+        raise AssertionError(f"sharded {cfg.name} {what}: tokens differ from the unsharded run")
+    if got.shape != want_rows.shape or not torch.equal(got, want_rows):
+        diff = (float((got - want_rows).abs().max()) if got.shape == want_rows.shape
+                else got.shape)
+        raise AssertionError(f"sharded {cfg.name} {what}: logits differ from the unsharded run "
+                             f"({diff})")
+    if launched != want_launches:
+        raise AssertionError(f"sharded {cfg.name} {what}: launches {launched}, unsharded "
+                             f"{want_launches}")
+    ms = np.mean([a.elapsed_time(b) for a, b in spans])
+    print(f"[sharded-ssm] {cfg.name} {what} through make_serve_step on a 1x1 mesh over NCCL "
+          f"(world of one; mixers split by heads): {len(spans)} steps of {got.shape[1]} slots, "
+          f"tokens identical and every step's logits bit-identical to the unsharded run; "
+          f"launches {launched or 'none'} as unsharded; {ms:.3f} ms a step (unsharded "
+          f"{want_ms:.3f}; CUDA events), {len(calls) / len(spans):.0f} collectives a step, "
+          f"{wall:.2f} s [{card}]")
+    del got, rows
+    return launched
 
 
 def collective_cost(rules, device, card, calls=200) -> None:
@@ -2775,7 +2865,7 @@ def shard_kernel_phase(device, flush):
     return records
 
 
-def shard_attends(device, flush, arch, meshes, first_only=()):
+def shard_attends(device, flush, arch, meshes, first_only=(), timed_mesh=(2, 4)):
     """K1 (bf16 and int8) and K2 on each rank's slots and kv heads of
     ``meshes`` (the pools whole on every data rank, as the paged layout
     holds them; only rank (0, 0) of a mesh in ``first_only``) at ``arch``'s
@@ -2784,8 +2874,8 @@ def shard_attends(device, flush, arch, meshes, first_only=()):
     geometry, and be held to its plain version on the same operands
     (:func:`check_rows` with the int8 bodies' code step).  The same launches
     planned at their own shapes are printed as a finding.  Returns the
-    records of the 2x4 rank (0, 0)'s launches, timed, with ``case`` and
-    ``err_over_tol``."""
+    records of ``timed_mesh``'s rank (0, 0) launches, timed, with ``case``
+    and ``err_over_tol``."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2865,12 +2955,13 @@ def shard_attends(device, flush, arch, meshes, first_only=()):
                   f"its slice of the whole launch at the whole geometry and within "
                   f"check_rows of its plain version (max_abs_err {err:.3e}); planned at its "
                   f"own shape, {own[(mesh, name)]} of {len(ranks)} ranks differ")
-    # the (2, 4) rank (0, 0)'s launches, timed against their plain versions
-    rank, b, h = _rank_slices(B, Hk, (2, 4))[0]
-    label = (f" {arch} mesh 2x4 rank (0, 0): {B // 2} slots x {Hk // 4} kv heads, whole-launch "
-             f"plan")
-    case = (f"{arch} mesh 2x4 rank (0, 0): B {B // 2} Hk {Hk // 4} g {g} D {D} page {page} "
-            f"S {DECODE_S}, whole-launch plan")
+    # the timed mesh's rank (0, 0) launches, timed against their plain versions
+    td, tm = timed_mesh
+    rank, b, h = _rank_slices(B, Hk, timed_mesh)[0]
+    label = (f" {arch} mesh {td}x{tm} rank (0, 0): {B // td} slots x {Hk // tm} kv heads, "
+             f"whole-launch plan")
+    case = (f"{arch} mesh {td}x{tm} rank (0, 0): B {B // td} Hk {Hk // tm} g {g} D {D} page "
+            f"{page} S {DECODE_S}, whole-launch plan")
     for name in ("bf16", "int8"):
         a, kw = sliced(name, b, h)
         lq, lk, lt, lp = a[0], a[1], a[3], a[4]
@@ -2879,7 +2970,7 @@ def shard_attends(device, flush, arch, meshes, first_only=()):
         n_valid = sum(min(int(p) + 1, DECODE_S) for p in lp.cpu()) * lq.shape[1]
         row = 2 * D * lk.element_size() + (8 if len(kw) > 1 else 0)
         io = lq.numel() * 8 + lt.numel() * 4 + lq.shape[0] * 4
-        err, ratio = errs[((2, 4), name, rank)]
+        err, ratio = errs[(timed_mesh, name, rank)]
         rec = kernel_record(
             f"paged_flash_decode_{name}", K1_SOURCE, K1_REPLACES[name], err,
             time_ms(run, 20, flush), time_ms(plain, 20, flush), n_valid * row + io,
@@ -2889,7 +2980,7 @@ def shard_attends(device, flush, arch, meshes, first_only=()):
     la, _ = sliced("bgpp", b, h)
     run = lambda: bgpp_paged_attend(*la, whole=whole, **k2kw)
     plain = lambda: bgpp_paged_attend_ref(*la, **k2kw)
-    err, ratio = errs[((2, 4), "bgpp", rank)]
+    err, ratio = errs[(timed_mesh, "bgpp", rank)]
     rec = k2_record(la, err, time_ms(run, 20, flush), time_ms(plain, 20, flush),
                     la[6].numel(), label, arch=arch)
     rec.update(case=case, err_over_tol=ratio)
@@ -3459,8 +3550,10 @@ def long_serve_phase(device, card):
 # so the forward below runs them at chunk 64), then greedy tokens; the
 # forward timed at B 1, S 2048
 SSM_ARCH = "mamba2-1.3b"
-SSM_DEPTH = 24
-SSM_PROMPTS = (256, 320, 384, 448)
+# cut from 48 layers to 24, then to 16 to pay for the sharded ssm phase
+SSM_DEPTH = 16
+# 256-448 tokens until the sharded ssm phase: cut to 64-256 to pay for it
+SSM_PROMPTS = (64, 128, 192, 256)
 SSM_NEW, SSM_MAX_SEQ = 16, 1024
 SSM_FWD_S, SSM_FWD_CHUNK, SSM_CHECK_CHUNK = 2048, 256, 64
 # the forward against the decode, on an f32 copy of the weights: the chunked
@@ -3501,20 +3594,35 @@ def feed_greedy(step, params, cache, prompts, new, forced=None, on_step=None):
     return gen, cache
 
 
-def ssm_decode(cfg, params, prompts, new, device, timed=None):
+def sharded_step(cfg, layout, params, cache, rules):
+    """``(step, params, cache)``: ``engine.make_serve_step`` under
+    ``rules`` (none: one device) and the rank's shard of ``params`` and
+    ``cache`` (on a mesh of one rank the same tensors: no second copy)."""
+    from repro_torch.models import model_zoo
+    from repro_torch.serving import engine, sharded as shd
+
+    if rules is not None:
+        params = shd.shard_params(params, model_zoo.param_specs(cfg), rules, cfg)
+        cache = shd.shard_cache(cache, cfg, layout, rules)
+    return engine.make_serve_step(cfg, layout, rules), params, cache
+
+
+def ssm_decode(cfg, params, prompts, new, device, timed=None, rules=None, rows=None):
     """Decode ``prompts`` (one a slot) through ``engine.make_serve_step``
-    from a zero state (:func:`feed_greedy`).  Returns each slot's logits
-    at its prompt positions ``(n, V)`` f32, layer 0's state ``(h, conv)``
-    just after its prompt, its greedy tokens and the cache; ``timed`` (a
-    list) collects each step's CUDA event pair."""
+    from a zero state (:func:`feed_greedy`; under ``rules`` on the rank's
+    shard, :func:`sharded_step`).  Returns each slot's logits at its prompt
+    positions ``(n, V)`` f32, layer 0's state ``(h, conv)`` just after its
+    prompt, its greedy tokens and the cache; ``timed`` (a list) collects
+    each step's CUDA event pair, ``rows`` (a list) each step's ``(B, V)``
+    logits."""
     import torch
 
-    from repro_torch.serving import engine, kv_cache as kvc
+    from repro_torch.serving import kv_cache as kvc
 
     lens = [len(p) for p in prompts]
     layout = kvc.layout_for(cfg, len(prompts), SSM_MAX_SEQ)
     cache = kvc.init_cache_arrays(cfg, layout, device)
-    step = engine.make_serve_step(cfg, layout)
+    step, params, cache = sharded_step(cfg, layout, params, cache, rules)
     if timed is not None:
         step = _timed(step, timed)
     logits_at = [torch.empty((n, cfg.vocab_size), dtype=torch.float32, device=device)
@@ -3522,6 +3630,8 @@ def ssm_decode(cfg, params, prompts, new, device, timed=None):
     state_at = [None] * len(prompts)
 
     def keep(t, lg, cache):
+        if rows is not None:
+            rows.append(lg.clone())
         for b, n in enumerate(lens):
             if t < n:
                 logits_at[b][t] = lg[b]
@@ -3602,10 +3712,10 @@ def ssm_phase(device, card):
     free_device()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
-    spans = []
+    spans, rows = [], []
     t0 = time.perf_counter()
     logits_at, state_at, gen, cache, layout = ssm_decode(cfg, params, prompts, SSM_NEW, device,
-                                                         timed=spans)
+                                                         timed=spans, rows=rows)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = {k: v for k, v in K.LAUNCHES.items() if v}
@@ -3632,6 +3742,10 @@ def ssm_phase(device, card):
     _traced(lambda: [step(params, cache, toks) for _ in range(4)],
             f"{cfg.name} decode: 4 steps of {B} slots", top=8)
     del cache
+    sharded_decode_check(
+        cfg, lambda r, t, w: ssm_decode(cfg, params, prompts, SSM_NEW, device, t, r, w)[2],
+        (torch.stack(rows), gen, ms, {}), "decode", card)
+    del rows
 
     # the whole-sequence forward, timed, then held to the decode
     fwd = torch.as_tensor(rng.integers(0, V, (1, SSM_FWD_S)), device=device)
@@ -3723,6 +3837,7 @@ HYBRID_DEPTH, HYBRID_EXPERTS = 8, 8
 HYBRID_PROMPTS = (48, 56, 64, 80)
 HYBRID_NEW, HYBRID_MAX_SEQ, HYBRID_PAGE = 16, 1024, 16
 HYBRID_FORMATS = ("bf16", "int8", "bgpp")
+HYBRID_SHARD_FORMATS = ("bf16", "bgpp")  # served again through a 1x1 NCCL mesh
 HYBRID_FWD_S, HYBRID_FWD_CHUNK = 2048, 256
 # jamba-smoke (f32) on the card against the CPU: 24 greedy steps of 2 slots
 # (max_seq 64, page 8); logits within 1e-4 in bf16 KV and, teacher-forced
@@ -3739,27 +3854,31 @@ HYBRID_CPU_TOL, HYBRID_CODE_TOL, HYBRID_LOGIT_SHARE = 1e-4, 5e-3, 1e-4
 HYBRID_F32_EXPERTS, HYBRID_F32_SHARE = 2, 1e-3
 
 
-def hybrid_decode(cfg, params, fmt, prompts, new, device, timed=None):
+def hybrid_decode(cfg, params, fmt, prompts, new, device, timed=None, rules=None, every=None):
     """Decode ``prompts`` (one a slot) through ``engine.make_serve_step``
     from a zero state, paged with an identity page table
-    (:func:`feed_greedy`).  Returns each slot's logits at its prompt
+    (:func:`feed_greedy`; under ``rules`` on the rank's shard,
+    :func:`sharded_step`).  Returns each slot's logits at its prompt
     positions ``(n, V)`` f32, its greedy tokens, the cache and the layout;
-    ``timed`` (a list) collects each step's CUDA event pair."""
+    ``timed`` (a list) collects each step's CUDA event pair, ``every`` (a
+    list) each step's ``(B, V)`` logits."""
     import torch
 
-    from repro_torch.serving import engine, kv_cache as kvc
+    from repro_torch.serving import kv_cache as kvc
 
     lay = kvc.layout_for(cfg, len(prompts), HYBRID_MAX_SEQ, kv_format=fmt, layout="paged",
                          page_size=HYBRID_PAGE)
     cache = kvc.init_cache_arrays(cfg, lay, device)
     cache["page_table"] = kvc.identity_page_table(lay, device)
-    step = engine.make_serve_step(cfg, lay)
+    step, params, cache = sharded_step(cfg, lay, params, cache, rules)
     if timed is not None:
         step = _timed(step, timed)
     lens = [len(p) for p in prompts]
     rows = [torch.empty((n, cfg.vocab_size), dtype=torch.float32, device=device) for n in lens]
 
     def keep(t, lg, cache):
+        if every is not None:
+            every.append(lg.clone())
         for b, n in enumerate(lens):
             if t < n:
                 rows[b][t] = lg[b]
@@ -3821,15 +3940,15 @@ def hybrid_phase(device, card):
 
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, V, n) for n in HYBRID_PROMPTS]
-    kept, last_of = {}, {}
+    kept, last_of, unsharded = {}, {}, {}
     for fmt in HYBRID_FORMATS:
         free_device()
         torch.cuda.reset_peak_memory_stats()
-        spans = []
+        spans, every = [], ([] if fmt in HYBRID_SHARD_FORMATS else None)
         K.reset_launches()
         t0 = time.perf_counter()
         rows, gen, cache, lay = hybrid_decode(cfg, params, fmt, prompts, HYBRID_NEW, device,
-                                              timed=spans)
+                                              timed=spans, every=every)
         last = [r[-1] for r in rows]
         del rows
         torch.cuda.synchronize()
@@ -3855,7 +3974,9 @@ def hybrid_phase(device, card):
               f"{[g[:4] for g in gen]} [{card}]")
         kept[fmt] = (lay, cache, [g[-1] for g in gen])
         last_of[fmt] = last
-        del cache
+        if every is not None:
+            unsharded[fmt] = (torch.stack(every), gen, ms, {KERNEL_OF[fmt]: steps})
+        del cache, every
 
     # the whole-sequence forward, timed, then beside the bf16 decode
     free_device()
@@ -3906,6 +4027,12 @@ def hybrid_phase(device, card):
               f"paths through {cfg.num_layers} random layers, and the decode's residual is f32 "
               f"past the attention layer)")
     del last_of
+    for fmt in HYBRID_SHARD_FORMATS:  # the sharded runs' launches count beside the rest
+        decode = lambda r, t, w, f=fmt: hybrid_decode(cfg, params, f, prompts, HYBRID_NEW,
+                                                      device, t, r, w)[1]
+        for name, n in sharded_decode_check(cfg, decode, unsharded.pop(fmt), f"{fmt} KV decode",
+                                            card).items():
+            total[name] += n
 
     # traces, once every run above is timed
     heads = f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}"
@@ -4069,13 +4196,13 @@ def hybrid_smoke_checks(device):
 # whisper-medium (the enc_dec family) at full width and depth, decoded as the
 # reference decodes it: the encoder once, its memory projected into the
 # cache's cross_k / cross_v, then make_serve_step a token a step from
-# position 0 (no Scheduler, no prefill).  4 slots fed prompts of 64-128
+# position 0 (no Scheduler, no prefill).  4 slots fed prompts of 16-48
 # tokens, then 16 greedy tokens, in each (KV format, layout) of
 # WHISPER_RUNS (paged: page 16, max_seq 1024); the decode_32k layout
 # (max_seq 32768) at B 2 for 16 steps in WHISPER_LONG_FORMATS; the forward
 # at B 1, S 128
 WHISPER_ARCH = "whisper-medium"
-WHISPER_PROMPTS = (64, 80, 96, 128)
+WHISPER_PROMPTS = (16, 24, 32, 48)
 WHISPER_NEW, WHISPER_MAX_SEQ, WHISPER_PAGE = 16, 1024, 16
 WHISPER_RUNS = (("bf16", "paged"), ("int8", "paged"), ("bgpp", "paged"), ("bf16", "slot"))
 WHISPER_LONG_SEQ, WHISPER_LONG_B, WHISPER_LONG_STEPS = 32768, 2, 16
@@ -4084,7 +4211,7 @@ WHISPER_FWD_S, WHISPER_CPU_STEPS = 128, 4
 # the card against the CPU at full width over 4 steps from one cache: 1e-4
 # of max |logit|.  Both sides run the decode in f32 on the same weights and
 # cache (the residual is f32 from layer 0's attend on), so they differ by
-# f32 summation orders, diluted over the 143+ lanes each slot attends; a
+# f32 summation orders, diluted over the 63+ lanes each slot attends; a
 # decode with K1 blind to each slot's newest lane, teacher-forced with the
 # CPU's tokens, is read beside it and must fall outside the bound
 WHISPER_CPU_SHARE = 1e-4
@@ -4461,7 +4588,7 @@ def vision_prefill(cfg, params, device, card):
 def trace_phase(device):
     """After every timed serving run (a profiler trace slows later host
     work): phi4-mini's chunked runs trace a few steady decode steps and its
-    eager run one whole-prompt admission (:data:`SERVE_RUNS`); gemma3-4b
+    eager run one whole-prompt admission (:data:`TRACE_RUNS`); gemma3-4b
     at :data:`GEMMA_DEPTH` layers traces steady bf16-KV and bgpp-KV
     decode and one eager admission of
     1100+ tokens, and prints K1's, K2's and K5's device ms a launch at
@@ -4477,7 +4604,7 @@ def trace_phase(device):
 
     cfg, params = init_model("phi4-mini-3.8b", device)
     longest = max(trace(vocab=cfg.vocab_size, **MAIN_TRACE), key=lambda r: r.prompt_len)
-    for fmt, wfmt, admission in SERVE_RUNS:
+    for fmt, wfmt, admission in TRACE_RUNS:
         layout = kvc.layout_for(cfg, 4, 1024, kv_format=fmt, layout="paged", page_size=16)
         sched = Scheduler(params, cfg, layout, device=device, admission=admission,
                           chunk_budget=128, weight_format=wfmt)
@@ -4573,7 +4700,8 @@ def moe_decode_device(sched, step_ms: float, calls: int = 10, top: int = 6) -> N
           f"{cfg.num_experts} experts routed, top-{cfg.experts_per_token}, shared "
           f"{cfg.moe_shared_ff}): {ms:.4f} ms a call on the device; {L} a step: "
           f"{L * ms:.3f} ms of the traced step's {step_ms:.3f} ms "
-          f"({100 * L * ms / step_ms:.1f}%); by kernel, a call:")
+          f"({f'{100 * L * ms / step_ms:.1f}%' if step_ms else 'the step: not traced'}); "
+          f"by kernel, a call:")
     for e in sorted(evs, key=t, reverse=True)[:top]:
         print(f"[profile]     {t(e):8.4f} ms {100 * t(e) / ms:5.1f}% "
               f"{e.count / calls:5.1f} launches  {e.key[:80]}")
@@ -4616,7 +4744,13 @@ def ring_attend_device(sched, calls: int = 10) -> None:
 
 def per_launch(dev, what, names) -> None:
     """Print the device ms a launch of the kernels whose names hold one of
-    ``names`` in a trace's device events."""
+    ``names`` in a trace's device events.  A trace that recorded no device
+    event on every try of :func:`_traced` times nothing (the launch counts
+    are checked elsewhere): the line says so.  A trace that recorded device
+    time but no launch of ``names`` fails."""
+    if sum(e.self_device_time_total for e in dev) <= 0:
+        print(f"[profile]   {what}: not measured, the trace recorded no device event")
+        return
     hits = [e for e in dev if any(n in e.key for n in names)]
     total, count = sum(e.self_device_time_total for e in hits), sum(e.count for e in hits)
     if not count:
@@ -5562,12 +5696,14 @@ def held_to_one_device(cfg, batch, rules, fmts, device, card, steps=SHARD_TRAIN_
     the same through the sharded train step under ``rules`` (an NCCL world
     of one): every step's loss, ``ce``, ``aux`` and grad norm must equal the
     one-device step's bit for bit, and after the last step every
-    parameter; every step launches K5 2L times (forward and remat) and K5b
-    L times, nothing else.  ``trace_fmt``'s sharded run counts and traces
+    parameter; every step launches K5 2A times (forward and remat) and K5b
+    A times, nothing else, A the attention layers (every layer but a
+    mamba mixer's).  ``trace_fmt``'s sharded run counts and traces
     one more step.  Prints ms a step, ``tokens`` (a step's rows, B x S
     when None) a second, the peak and an MoE's dropped share.  Returns the
     sharded steps' launches summed."""
     L = cfg.num_layers
+    A = sum(cfg.layer_is_attention(i) for i in range(L))
     rows = tokens or TRAIN_B * TRAIN_S
     total = {}
     for fmt in fmts:
@@ -5576,7 +5712,7 @@ def held_to_one_device(cfg, batch, rules, fmts, device, card, steps=SHARD_TRAIN_
                          trace=fmt == trace_fmt, steps=steps)
         for i in range(steps):
             want = {n: 0 for n in got["launches"][i]}
-            want.update(flash_attention=2 * L, flash_attention_bwd=L)
+            want.update(flash_attention=2 * A, flash_attention_bwd=A)
             if got["launches"][i] != want:
                 raise AssertionError(f"sharded train {cfg.name} {fmt} step {i}: launches "
                                      f"{got['launches'][i]}, want {want}")
@@ -5602,7 +5738,7 @@ def held_to_one_device(cfg, batch, rules, fmts, device, card, steps=SHARD_TRAIN_
                   f"{run['peak']:.2f} GiB{drop} [{card}]")
         print(f"[sharded-train] {cfg.name} {fmt}: the sharded 1x1 step (NCCL, fsdp rules) "
               f"is bit-identical to the one-device step: {steps} losses, ce, aux and grad "
-              f"norms, then all {len(base['out'])} parameter leaves; K5 {2 * L}, K5b {L} "
+              f"norms, then all {len(base['out'])} parameter leaves; K5 {2 * A}, K5b {A} "
               f"launches a step")
         del base, got
         free_device()
@@ -5704,6 +5840,98 @@ def sharded_moe_train_run(device, card):
     return total
 
 
+def mixer_state_bytes(card) -> None:
+    """The decode state a rank holds for one slot of mamba2-1.3b (48 mamba
+    layers) and jamba-1.5-large-398b (63 of its 72 layers) at full depth on
+    model axes of 1, 2 and 8: the closed form ``L (H / m · P · N · 4 +
+    (K - 1)(d_in / m + 2 N) · 2)`` B held to the local shapes that
+    ``sharded.cache_shardings`` cuts (meta tensors).  Printed because the
+    reference's ``kv_read`` leaves the state out."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.serving import kv_cache as kvc, sharded as shd
+
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        cfg = get_config(arch)
+        lay = kvc.layout_for(cfg, 1, SSM_MAX_SEQ)
+        state = kvc.init_cache_arrays(cfg, lay, "meta")
+        L, d_in, N = len(lay.mamba_layers), cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+        H, P, K = d_in // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_conv
+        out = []
+        for m in (1, 2, 8):
+            rules = sh.ShardingRules(mesh={"data": 1, "model": m})
+            specs = shd.cache_shardings(state, cfg, lay, rules)["mamba"]
+            got = sum(sh.local_slice(a, specs[n], rules.mesh, {"data": 0, "model": 0}).numel()
+                      * a.element_size() for n, a in state["mamba"].items())
+            n = m if H % m == 0 else 1  # heads the model axis does not divide replicate
+            want = L * (H // n * P * N * 4 + (K - 1) * (d_in // n + 2 * N) * 2)
+            if got != want:
+                raise AssertionError(f"{arch} state on 1x{m}: {got} B a rank, closed form {want}")
+            out.append(f"1x{m} {got / 1e6:.3f} MB")
+        print(f"[sharded-ssm] {cfg.name} decode state a slot a rank ({L} mamba layers, h "
+              f"{H} heads x {P} x {N} f32 split by heads, conv window {K - 1} x (d_in {d_in} "
+              f"split + 2N {2 * N} whole) bf16): {', '.join(out)} (closed form = the cut)")
+
+
+# the ssm and hybrid families' sharded step (ROADMAP item 7c-ii (a)):
+# mamba2-1.3b at full width cut from 48 layers to 8, and jamba-1.5-large-398b
+# at full width cut to 2 layers, attn_every 2 (a mamba layer and its dense
+# MLP, then the attention layer and an MoE of 2 of its 16 experts; 3.43 B
+# params: one super-block with 2 experts is ~11 B, ~136 GB of f32 AdamW
+# state, past one card)
+SSM_TRAIN_DEPTH, HYBRID_TRAIN_EXPERTS, HYBRID_TRAIN_STEPS = 8, 2, 2
+
+
+def sharded_ssm_train_run(device, card):
+    """ROADMAP item 7c-ii (a)'s training on the card: the reference
+    launcher's ``--fsdp`` rules on a 1x1 mesh over an NCCL world of one
+    against the one-device step (:func:`held_to_one_device`, its
+    ``fwd_kwargs``: SSD chunk 64, remat): mamba2-1.3b (:data:`SSM_TRAIN_DEPTH`
+    layers; no kernel of the repo runs), :data:`SHARD_TRAIN_STEPS` f32 and
+    int8 steps; jamba cut to 2 layers (K5 2 and K5b 1 a step, capacity
+    factor 1.25, the dropped share printed), :data:`HYBRID_TRAIN_STEPS` f32
+    and int8 steps; B 1, S 4096.  Then :func:`mixer_state_bytes`.  Returns
+    the sharded steps' launches summed."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset, to_device
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model_zoo
+
+    mamba = dataclasses.replace(get_config(SSM_ARCH), num_layers=SSM_TRAIN_DEPTH)
+    jamba = dataclasses.replace(get_config(HYBRID_ARCH), num_layers=2, attn_every=2,
+                                attn_offset=1, num_experts=HYBRID_TRAIN_EXPERTS)
+    started = start_world()
+    total = {}
+    try:
+        rules = sh.rules_for_mesh(make_debug_mesh(1, 1, "cuda"), fsdp_axes=(sh.D_MODEL,),
+                                  sp=False)
+        for cfg, full, steps in ((mamba, get_config(SSM_ARCH), SHARD_TRAIN_STEPS),
+                                 (jamba, get_config(HYBRID_ARCH), HYBRID_TRAIN_STEPS)):
+            batch = to_device(SyntheticLMDataset(cfg.vocab_size, TRAIN_S, TRAIN_B,
+                                                 seed=0).batch(0), device)
+            nparam = sum(t.numel() for t in _leaves(model_zoo.init(cfg, None, "meta")))
+            experts = ("" if cfg.family == "ssm" else
+                       f" (attn_every 2, {cfg.num_experts} of {full.num_experts} experts)")
+            print(f"[sharded-ssm] {cfg.name} at full width, {cfg.num_layers} of "
+                  f"{full.num_layers} layers{experts} ({nparam / 1e9:.3f} B params), B "
+                  f"{TRAIN_B}, S {TRAIN_S}, remat; capacity factor {cfg.moe_capacity_factor}")
+            t = time.perf_counter()
+            for name, n in held_to_one_device(cfg, batch, rules, ("fp32", "int8"), device, card,
+                                              steps=steps).items():
+                total[name] = total.get(name, 0) + n
+            print(f"[time] sharded train {cfg.name}: {time.perf_counter() - t:.1f} s")
+    finally:
+        if started:
+            dist.destroy_process_group()
+    mixer_state_bytes(card)
+    return total
+
+
 def compressed_sync_check(cfg, batch, rules, device, card):
     """One int8-compressed sync of one step's grads on the card over the
     data axis of a world of one: ``compressed_psum_mean`` and
@@ -5782,6 +6010,25 @@ def shard_flash_phase(device, flush):
                          meshes=SHARD_HEAD_MESHES, record=(2, 8))
     records += rank_flash(device, flush, MIXTRAL_ARCH, record=(2, 8), **MIXTRAL_FLASH)
     records += rank_flash(device, flush, LLAMA4_ARCH, record=(8,), **LLAMA4_RANK_FLASH)
+    return records
+
+
+# jamba-1.5-large-398b's heads on a model rank (ROADMAP item 7c-ii (a)): its
+# 64 / 8 heads of 128, g 8, split 32 / 4 and 8 / 1
+JAMBA_RANK_MESHES = ((1, 2), (1, 8))
+
+
+def shard_ssm_kernel_phase(device, flush):
+    """The hybrid's attention launches on a model rank at jamba's heads:
+    K1 bf16 / int8 and K2 on every rank of :data:`JAMBA_RANK_MESHES`
+    (:func:`shard_attends`, rank (0, 0) of 1x8 timed), and K5 (with its
+    log-sum-exp) and K5b at causal, B 1, S 4096 on rank 0 of 1x8
+    (:func:`rank_flash`), each bit-equal to its slice of the whole launch.
+    Returns their records."""
+    records = shard_attends(device, flush, HYBRID_ARCH, JAMBA_RANK_MESHES, timed_mesh=(1, 8))
+    records += rank_flash(device, flush, HYBRID_ARCH, Hq=64, Hk=8, S=TRAIN_S,
+                          kw=dict(mask_kind="causal", window=0, q_offset=0), meshes=((1, 8),),
+                          record=(8,), first_only=((1, 8),))
     return records
 
 
@@ -5956,7 +6203,7 @@ def sharded_train_launcher(card):
 
 PHASES = ("kernels", "head-widths", "long-context", "prefix", "score", "score-device", "decode",
           "decode-attends", "ssm", "hybrid", "long-serve", "whisper", "server", "train",
-          "sharded", "sharded-train", "sharded-moe")
+          "sharded", "sharded-train", "sharded-moe", "sharded-ssm")
 
 
 def sharded_only_phase(device, card):
@@ -5981,6 +6228,47 @@ def sharded_moe_only_phase(device, card):
     vlm_serve_phase(device, card, sharded=False)
     timed(sharded_moe_train_run, device, card)
     multi_card_check(card)
+
+
+def sharded_ssm_only_phase(device, card):
+    """ROADMAP item 7c-ii (a) alone: mamba2-1.3b (:data:`SSM_DEPTH` layers)
+    decoding :data:`SSM_PROMPTS` and jamba-1.5-large-398b (one super-block,
+    8 experts) decoding :data:`HYBRID_PROMPTS` in :data:`HYBRID_SHARD_FORMATS`
+    through ``make_serve_step``, unsharded then on a 1x1 NCCL mesh
+    (:func:`sharded_decode_check`), then :func:`sharded_ssm_train_run`."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+
+    for arch, depth, experts, sizes, fmts in (
+            (SSM_ARCH, SSM_DEPTH, None, SSM_PROMPTS, (None,)),
+            (HYBRID_ARCH, HYBRID_DEPTH, HYBRID_EXPERTS, HYBRID_PROMPTS, HYBRID_SHARD_FORMATS)):
+        cfg, params = init_model(arch, device, depth=depth, experts=experts)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, n) for n in sizes]
+        for fmt in fmts:
+            if fmt is None:
+                decode = lambda r, t, w: ssm_decode(cfg, params, prompts, SSM_NEW, device, t, r,
+                                                    w)[2]
+            else:
+                decode = lambda r, t, w, f=fmt: hybrid_decode(cfg, params, f, prompts,
+                                                              HYBRID_NEW, device, t, r, w)[1]
+            spans, rows = [], []
+            K.reset_launches()
+            gen = decode(None, spans, rows)
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in K.LAUNCHES.items() if v}
+            want = (torch.stack(rows), gen, np.mean([a.elapsed_time(b) for a, b in spans]),
+                    launched)
+            del rows
+            sharded_decode_check(cfg, decode, want, "decode" if fmt is None else
+                                 f"{fmt} KV decode", card)
+            del want
+            free_device()
+        del params
+        free_device()
+    timed(sharded_ssm_train_run, device, card)
 
 
 def timed(fn, *args):
@@ -6019,7 +6307,10 @@ def main(argv=None) -> int:
              "K5b launches (llama4-scout's and mixtral's heads too), llama4-scout and "
              "paligemma-3b served through a sharded Scheduler against their unsharded "
              "runs, and mixtral-8x22b's and paligemma-3b's sharded 1x1 train steps against "
-             "the one-device step; without it "
+             "the one-device step, 'sharded-ssm' each model rank's K1 / K2 and K5 / K5b "
+             "launches at jamba's heads, mamba2-1.3b and jamba-1.5-large-398b decoding "
+             "through make_serve_step on a 1x1 mesh against their unsharded runs, and their "
+             "sharded 1x1 train steps against the one-device step; without it "
              "every phase "
              "runs and the records are printed")
     only = parser.parse_args(argv).only
@@ -6037,7 +6328,10 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     build.load()
-    print(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    print(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s; each "
+          f"source's nvcc ended at: " + ", ".join(
+              f"{n} {s:.1f} s" for n, s in sorted(build.COMPILE_SECONDS.items(),
+                                                  key=lambda kv: -kv[1])))
 
     device = torch.device("cuda")
     run = lambda phase: only is None or phase in only
@@ -6064,6 +6358,8 @@ def main(argv=None) -> int:
         records += timed(shard_kernel_phase, device, flush)
     if run("kernels") or run("sharded-train") or run("sharded-moe"):
         records += timed(shard_flash_phase, device, flush)
+    if run("kernels") or run("sharded-ssm"):
+        records += timed(shard_ssm_kernel_phase, device, flush)
     if run("score"):
         records += timed(bgpp_kernel_phase, device, flush)
     if run("kernels"):
@@ -6096,6 +6392,8 @@ def main(argv=None) -> int:
             multi_card_check(card)
         if run("sharded-moe"):
             timed(sharded_moe_only_phase, device, card)
+        if run("sharded-ssm"):
+            timed(sharded_ssm_only_phase, device, card)
         torch.cuda.synchronize()
         print(card)
         return 0
@@ -6119,7 +6417,7 @@ def main(argv=None) -> int:
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     # K5 over the training steps counts beside the serving paths'; K5b runs there alone
-    for phase in (train_phase, sharded_train_run, sharded_moe_train_run):
+    for phase in (train_phase, sharded_train_run, sharded_moe_train_run, sharded_ssm_train_run):
         for name, n in timed(phase, device, card).items():
             launches[name] = launches.get(name, 0) + n
     timed(sharded_train_launcher, card)

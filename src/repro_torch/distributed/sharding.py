@@ -28,6 +28,14 @@ whole tensor along a spec (:func:`cut_tree` a whole tree's, by the specs of
 and :func:`all_gather` concatenates a dim over one mesh axis's process
 group.  ``constrain`` has no counterpart.
 
+A dim may split in parts (:class:`Segments`): the mamba mixer's packed
+``in_proj`` columns ``[z, x, B, C, dt]`` split ``z``, ``x`` and ``dt`` by
+heads and keep ``B`` and ``C`` whole on every rank, where GSPMD's
+placement of ``(d_model, ff)`` would cut the packed axis in contiguous
+blocks across the parts.  :func:`local_slice`, :func:`cut_tree`,
+:func:`gather_whole` and :func:`physical_specs` honour it, so a gathered
+tree is the whole one in the reference's column order.
+
 Training differentiates through the collectives, so it has its own:
 ``torch.autograd.Function`` pairs whose backward is the forward's dual
 (:func:`copy_to` / :func:`reduce_from` around a model-parallel block,
@@ -45,6 +53,7 @@ import math
 import warnings
 from typing import Any, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 # logical axis vocabulary used by the model zoo
@@ -65,6 +74,59 @@ VISION = "vision"
 NONE = None
 
 Spec = Tuple[Any, ...]
+
+
+class Segments(tuple):
+    """A spec entry that splits a dim in parts: the tuple holds the mesh
+    axes (as a plain entry's tuple does, so code that reads an entry's axes
+    reads these), and ``parts`` lists ``(width, split)`` in order along the
+    dim.  A split part's blocks go to the axes' ranks, a whole part is on
+    every rank; a rank's block is its block of each part, concatenated.
+    Built by :func:`segmented`."""
+
+    def __new__(cls, axes, parts):
+        self = super().__new__(cls, tuple(axes))
+        self.parts = tuple((int(w), bool(s)) for w, s in parts)
+        return self
+
+    def __reduce__(self):
+        return Segments, (tuple(self), self.parts)
+
+    def __eq__(self, other):
+        return (isinstance(other, Segments) and tuple(self) == tuple(other)
+                and self.parts == other.parts)
+
+    def __ne__(self, other):
+        return not self == other
+
+    def __hash__(self):
+        return hash((tuple(self), self.parts))
+
+    def __repr__(self):
+        return f"Segments({tuple(self)!r}, {self.parts!r})"
+
+    def ranges(self, n: int, idx: int) -> Tuple[Tuple[int, int], ...]:
+        """``(start, stop)`` of each part's piece on the rank at index
+        ``idx`` of ``n``: its block of a split part, a whole part whole."""
+        out, at = [], 0
+        for w, split in self.parts:
+            step = w // n if split else w
+            lo = at + idx * step if split else at
+            out.append((lo, lo + step))
+            at += w
+        return tuple(out)
+
+
+def segmented(axis: str, parts) -> Any:
+    """The spec entry of a dim made of ``parts`` ``(width, split)`` over the
+    mesh axis ``axis``: ``None`` where no part splits, ``axis`` itself
+    where the one part splits, else a :class:`Segments`."""
+    parts = tuple((int(w), bool(s)) for w, s in parts)
+    if not any(s for _, s in parts):
+        return None
+    if len(parts) == 1:
+        return axis
+    return Segments((axis,), parts)
 
 
 class ShardingFallbackWarning(UserWarning):
@@ -229,22 +291,38 @@ def block_index(shape, spec: Spec, sizes: Mapping[str, int],
     out = []
     for dim, size in enumerate(shape):
         phys = spec[dim] if dim < len(spec) else None
-        if phys is None:
+        if phys is None or isinstance(phys, Segments):  # a segmented dim: local_slice
             out.append(slice(None))
             continue
-        n, idx = 1, 0
-        for a in (phys if isinstance(phys, tuple) else (phys,)):
-            n *= sizes[a]
-            idx = idx * sizes[a] + coords[a]
+        n, idx = _axis_index(phys if isinstance(phys, tuple) else (phys,), sizes, coords)
         step = size // n
         out.append(slice(idx * step, (idx + 1) * step))
     return tuple(out)
 
 
+def _axis_index(axes, sizes, coords) -> Tuple[int, int]:
+    """``(n, idx)``: the ranks over ``axes`` (major to minor) and the index
+    of the rank at ``coords`` among them."""
+    n, idx = 1, 0
+    for a in axes:
+        n *= sizes[a]
+        idx = idx * sizes[a] + coords[a]
+    return n, idx
+
+
 def local_slice(x, spec: Spec, sizes: Mapping[str, int], coords: Mapping[str, int]):
     """The block of the whole tensor (or numpy array) ``x`` that the rank
-    at mesh coordinates ``coords`` holds under ``spec`` (a view)."""
-    return x[block_index(x.shape, spec, sizes, coords)]
+    at mesh coordinates ``coords`` holds under ``spec`` (a view; a copy
+    where a dim is :class:`Segments`, its parts' pieces concatenated)."""
+    y = x[block_index(x.shape, spec, sizes, coords)]
+    for dim, phys in enumerate(spec):
+        n, idx = _axis_index(phys, sizes, coords) if isinstance(phys, Segments) else (1, 0)
+        if n > 1:  # one rank's block is the whole dim: no copy
+            pieces = [y[(slice(None),) * dim + (slice(lo, hi),)]
+                      for lo, hi in phys.ranges(n, idx)]
+            y = torch.cat(pieces, dim) if isinstance(y, torch.Tensor) else \
+                np.concatenate(pieces, dim)
+    return y
 
 
 def mesh_coords(mesh) -> Dict[str, int]:
@@ -252,15 +330,28 @@ def mesh_coords(mesh) -> Dict[str, int]:
     return {a: int(mesh.get_local_rank(a)) for a in mesh_axis_names(mesh)}
 
 
-def physical_specs(tree, specs, rules: ShardingRules, drop=()):
+def physical_specs(tree, specs, rules: ShardingRules, drop=(), segments=None):
     """The mesh-axis spec of every leaf of ``tree`` from its logical
     ``specs`` (:meth:`ShardingRules.spec_for_shape` at the leaf's shape,
-    the logical axes in ``drop`` replicated)."""
+    the logical axes in ``drop`` replicated).  ``segments``: a tree of the
+    same nesting, as deep as it needs to go, whose leaves ``(dim, parts)``
+    place that dim of the leaf in parts over ``"model"``
+    (:func:`segmented`) whatever its logical axis says."""
     if isinstance(tree, dict):
-        return {k: physical_specs(v, specs[k] if isinstance(specs, dict) else specs, rules, drop)
+        sub = lambda k: segments.get(k) if isinstance(segments, dict) else None
+        return {k: physical_specs(v, specs[k] if isinstance(specs, dict) else specs, rules, drop,
+                                  sub(k))
                 for k, v in tree.items()}
-    axes = tuple(None if a in drop else a for a in specs)
-    return rules.spec_for_shape(rules.mesh, axes, tree.shape)
+    axes = [None if a in drop else a for a in specs]
+    dim = None
+    if segments is not None:
+        dim, parts = segments
+        dim %= len(tree.shape)
+        axes[dim] = None  # the parts place it, not the logical axis
+    spec = rules.spec_for_shape(rules.mesh, tuple(axes), tree.shape)
+    if dim is not None:
+        spec = spec[:dim] + (segmented(rules.model_axis, parts),) + spec[dim + 1:]
+    return spec
 
 
 def cut_tree(tree, phys, rules: ShardingRules):
@@ -271,7 +362,9 @@ def cut_tree(tree, phys, rules: ShardingRules):
 
     def one(x, spec):
         y = local_slice(x, spec, sizes, coords)
-        return y.contiguous().clone() if y.shape != x.shape else x
+        if y.shape == x.shape:
+            return x
+        return y if any(isinstance(e, Segments) for e in spec) else y.contiguous().clone()
 
     if isinstance(tree, dict):
         return {k: cut_tree(v, phys[k], rules) for k, v in tree.items()}
@@ -286,9 +379,49 @@ def gather_whole(x: torch.Tensor, spec: Spec, rules: ShardingRules) -> torch.Ten
     for dim, phys in enumerate(spec):
         if phys is None:
             continue
+        if isinstance(phys, Segments):
+            x = _gather_parts(x, phys, rules, dim)
+            continue
         for axis in reversed(phys if isinstance(phys, tuple) else (phys,)):
             x = all_gather(x, rules.mesh.get_group(axis), dim)
     return x.contiguous()
+
+
+def _gather_parts(x: torch.Tensor, seg: Segments, rules: ShardingRules, dim: int):
+    """The whole dim ``dim`` of a :class:`Segments` block: the blocks
+    all-gathered over the segments' axis, then each split part's pieces
+    concatenated in rank order and a whole part taken from rank 0's."""
+    (axis,) = tuple(seg)
+    n = mesh_sizes(rules.mesh)[axis]
+    every = all_gather(x, rules.mesh.get_group(axis), dim)
+    width = x.shape[dim]
+    ranks = [part_pieces(every.narrow(dim, r * width, width), dim, seg.parts, n)
+             for r in range(n)]
+    return torch.cat([ranks[r][i][0] for i, (_, split) in enumerate(seg.parts)
+                      for r in range(n if split else 1)], dim)
+
+
+class PartGroups(tuple):
+    """The process groups that split a :class:`Segments` dim (the tuple),
+    with its ``parts``: a leaf's entry in the optimizer's ``groups``, so the
+    global norm counts a whole part once (:func:`part_pieces`)."""
+
+    def __new__(cls, groups, parts):
+        self = super().__new__(cls, tuple(groups))
+        self.parts = tuple(parts)
+        return self
+
+
+def part_pieces(x: torch.Tensor, dim: int, parts, n: int):
+    """Each part's piece of a rank's block ``x`` of a dim of ``parts`` over
+    ``n`` ranks, in order along ``dim``: ``(view, split)``, the rank's block
+    of a split part or a whole part."""
+    out, at = [], 0
+    for w, s in parts:
+        step = w // n if s else w
+        out.append((x.narrow(dim, at, step), s))
+        at += step
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -306,7 +439,9 @@ def _bytes(x: torch.Tensor) -> torch.Tensor:
     """A contiguous tensor as its bytes, ``(leading dim, bytes a row)``
     (a 0-d tensor as one row): what the collectives move, so gloo and NCCL
     carry any dtype and no arithmetic touches it."""
-    return x.reshape(x.shape[0] if x.dim() else 1, -1).view(torch.uint8)
+    lead = x.shape[0] if x.dim() else 1
+    # flat first: a size-1 dim may carry any stride, which the byte view refuses
+    return x.reshape(-1).view(torch.uint8).reshape(lead, -1)
 
 
 def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -467,6 +602,28 @@ class _ReduceScatterTo(torch.autograd.Function):
         return all_gather(g, ctx.group, ctx.dim).contiguous(), None, None
 
 
+class _SumPart(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, lo, hi):
+        ctx.group, ctx.dim, ctx.lo, ctx.hi = group, dim, lo, hi
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        part = g.narrow(ctx.dim, ctx.lo, ctx.hi - ctx.lo)
+        part.copy_(all_reduce_sum(part, ctx.group))
+        return g, None, None, None, None
+
+
+def sum_part(x: torch.Tensor, group, dim: int, lo: int, hi: int) -> torch.Tensor:
+    """Identity forward; backward sums the gradient's ``[lo, hi)`` along
+    ``dim`` over ``group``: a whole part of a leaf (the mixer's ``B`` / ``C``
+    columns) that each rank applies to its own heads, so that the part's
+    gradient is the whole one on every rank (:func:`copy_to` on a part)."""
+    return _SumPart.apply(x, group, dim, lo, hi)
+
+
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
     """Identity forward, :func:`all_reduce_sum` backward: a replicated
     tensor entering a block whose ranks compute different parts of it (or
@@ -524,7 +681,12 @@ class ModelSplit:
     summed over the axis (:func:`leave_block`), ``gate`` / ``up`` column
     shards; with ``seq`` (the rules' ``sp``) the residual stream holds
     ``S / size`` rows a rank, gathered entering each block and
-    reduce-scattered leaving it."""
+    reduce-scattered leaving it.  ``ssm``: the mamba mixers split by heads
+    (:func:`mixer_split`): a rank computes its heads' ``z``, ``x`` and
+    ``dt`` and the whole ``B`` / ``C``, steps its heads' state, and serving
+    gathers the gated product before the replicated norm and ``out_proj``,
+    where training sums the gated norm's squares over the axis and holds
+    ``out_proj`` row-parallel."""
 
     size: int
     rank: int
@@ -534,6 +696,7 @@ class ModelSplit:
     ff: bool = False  # gate / up column shards, down row shards (training)
     rows: bool = False  # training: wo / down row-parallel, summed over the axis
     seq: bool = False  # sp: the residual stream splits its sequence over the axis
+    ssm: bool = False  # the mamba mixers' heads split over the axis (mixer_split)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -555,20 +718,43 @@ class DataSplit:
         return tree if dims is None else gather_shards(tree, self.group, dims)
 
 
-# the families that run on a mesh, served and trained, as the reference's
-# serve driver takes them (src/repro/launch/serve.py: dense, moe, vlm);
-# ROADMAP item 7c-ii is the rest
-MESH_FAMILIES = ("dense", "moe", "vlm")
+# the families that run on a mesh: dense, moe and vlm through the Scheduler
+# (the reference's serve driver takes only them, src/repro/launch/serve.py),
+# ssm and hybrid through make_serve_step, all of them trained; ROADMAP item
+# 7c-ii (b), enc_dec, is the rest
+MESH_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 
 def require_mesh_family(cfg, who: str) -> None:
     """Refuse a family that does not run on a mesh yet, naming ROADMAP item
-    7c-ii."""
+    7c-ii (b)."""
     if cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
-            f"{who}: family {cfg.family!r} under a mesh is ROADMAP item 7c-ii (the ssm / "
-            f"hybrid mamba state, the enc_dec cross memory); the "
-            f"{', '.join(MESH_FAMILIES)} families run sharded")
+            f"{who}: family {cfg.family!r} under a mesh is ROADMAP item 7c-ii (b) (the "
+            f"enc_dec cross memory on kv_heads); the {', '.join(MESH_FAMILIES)} families "
+            f"run sharded")
+
+
+def mixer_heads(cfg) -> int:
+    """The mamba mixers' head count ``ssm_expand * d_model / ssm_head_dim``
+    (0 for a family without mixers)."""
+    if cfg.family not in ("ssm", "hybrid"):
+        return 0
+    return cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+
+
+def mixer_split(cfg, model: int, warn: bool = False) -> bool:
+    """Whether a model axis of ``model`` ranks splits the mamba mixers by
+    heads: only where it divides their head count; elsewhere the mixers
+    replicate (warning :class:`ShardingFallbackWarning` with ``warn``, as
+    :func:`heads_drop` does for the attention heads)."""
+    H = mixer_heads(cfg)
+    if not H or H % model == 0:
+        return bool(H)
+    if warn:
+        warnings.warn(f"mamba heads ({H}) are not divisible by the model axis ({model}); "
+                      f"replicating the mixers", ShardingFallbackWarning, stacklevel=3)
+    return False
 
 
 def heads_split(cfg, model: int) -> bool:

@@ -23,7 +23,8 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
-from typing import List, Optional
+import time
+from typing import Dict, List, Optional
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 # <checkout>/src/repro_torch/kernels/build.py -> <checkout>/build/repro_torch
@@ -35,6 +36,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _LIB: Optional[ctypes.CDLL] = None
+# seconds from the start of the last build until each source's nvcc ended
+COMPILE_SECONDS: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -63,7 +66,8 @@ def _stamp() -> str:
 def build(verbose: bool = False) -> pathlib.Path:
     """Compile the library if it is missing or stale; return its path.
 
-    One ``nvcc -c`` per source runs in parallel, then one link.  The
+    One ``nvcc -c`` per source runs in parallel, then one link; each
+    source's seconds land in :data:`COMPILE_SECONDS`.  The
     library is written under a temporary name and renamed into place, so
     a build cut short never leaves a half-written library behind."""
     lib = BUILD_DIR / LIB_NAME
@@ -75,21 +79,30 @@ def build(verbose: bool = False) -> pathlib.Path:
     nvcc = _nvcc()
     extra = ["-Xptxas", "-v"] if verbose else []
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs, procs = [], []
+        objs, procs, t0 = [], [], time.perf_counter()
         for src in sources():
             obj = pathlib.Path(tmp) / (src.stem + ".o")
             objs.append(obj)
-            procs.append((src, subprocess.Popen(
+            log = open(pathlib.Path(tmp) / (src.stem + ".log"), "w+")
+            procs.append((src, log, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                stdout=log, stderr=subprocess.STDOUT,
             )))
         failed = []
-        for src, p in procs:
-            out, _ = p.communicate()
-            if verbose and out:
-                print(out, end="")
-            if p.returncode:
-                failed.append(f"{src.name}:\n{out}")
+        COMPILE_SECONDS.clear()
+        pending = list(procs)
+        while pending:  # poll, so each source's end is timed, not its turn in the list
+            for src, log, p in [e for e in pending if e[2].poll() is not None]:
+                pending.remove((src, log, p))
+                COMPILE_SECONDS[src.name] = time.perf_counter() - t0
+                log.seek(0)
+                out = log.read()
+                log.close()
+                if verbose and out:
+                    print(out, end="")
+                if p.returncode:
+                    failed.append(f"{src.name}:\n{out}")
+            time.sleep(0.05)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp_lib = pathlib.Path(tmp) / LIB_NAME

@@ -18,7 +18,9 @@ paged layout, request scheduler).
 The counterpart of ``repro.launch.serve``.  ``--mesh D,M`` serves on a
 ``(data, model)`` mesh of ``D * M`` ranks (:mod:`repro_torch.serving.sharded`:
 the dense, MoE and VLM families, as the reference's driver takes them; the
-others under a mesh are ROADMAP item 7c-ii), one process a rank: under
+ssm and hybrid families are refused here as on one device, since they
+decode through ``make_serve_step`` on a mesh, and enc_dec under a mesh is
+ROADMAP item 7c-ii (b)), one process a rank: under
 ``torchrun`` the world comes
 from its environment, NCCL on the card (each rank on the card of its
 ``LOCAL_RANK``) and gloo with ``--device cpu``; run without ``torchrun``,

@@ -14,8 +14,8 @@ one device; ``--data`` / ``--model`` (or ``--mesh DATA,MODEL``) train on a
 ``(data, model)`` mesh of ``torch.distributed`` ranks (``torchrun``'s world,
 or a world of one), with the reference's rules: ``fsdp_axes=(d_model,)``
 under ``--fsdp``, sequence parallelism where ``model > 1``
-(:mod:`repro_torch.training.sharded`; the dense, MoE and VLM families, the
-others raising, naming ROADMAP item 7c-ii).  Each rank takes its rows of
+(:mod:`repro_torch.training.sharded`; the dense, MoE, VLM, ssm and hybrid
+families, enc_dec raising, naming ROADMAP item 7c-ii (b)).  Each rank takes its rows of
 the global batch (a VLM's ``vision`` stub rows beside its tokens; the data
 axis must divide ``--batch``); rank 0 alone writes checkpoints and the
 heartbeat, every rank restores.  It

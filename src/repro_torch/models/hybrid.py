@@ -15,7 +15,12 @@ through :func:`repro_torch.core.attention.blocked_attend`: the
 (:mod:`repro_torch.models.moe`) are plain PyTorch, as the reference's
 ``jnp``.  The reference's ``lax.scan`` over super-blocks is a Python loop
 over the layers; ``remat`` recomputes each layer in the backward (the
-reference rematerialises a super-block: the same values).
+reference rematerialises a super-block: the same values).  In the sharded
+train step (``forward``'s ``split``, ``fsdp``, ``data``) the attention
+layer takes the dense family's head split
+(:func:`transformer.attention_block`), the MoE layers the rank's rows and
+FF shard (:func:`moe.moe_apply`), the dense MLPs Megatron's split and the
+mixers their split by heads (:func:`mamba2.mixer_apply`).
 """
 
 from __future__ import annotations
@@ -26,7 +31,6 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core import attention
 from repro_torch.distributed import sharding as sh
 from repro_torch.models import layers, mamba2, moe, transformer
 from repro_torch.models.layers import _dtype
@@ -74,6 +78,13 @@ def param_specs(cfg) -> Params:
     if not cfg.tie_embeddings:
         specs["lm_head"] = (sh.D_MODEL, sh.VOCAB)
     return specs
+
+
+def param_segments(cfg, split: bool, gathered: bool = False) -> Params:
+    """:func:`mamba2.mixer_segments` of every mixer in :func:`init`'s tree
+    (the ``mamba`` subtree of each position that is not attention)."""
+    return {"blocks": {f"pos{j}": {"mamba": mamba2.mixer_segments(cfg, split, gathered)}
+                       for j in range(_period(cfg)) if not _pos_kinds(cfg, j)[0]}}
 
 
 def init(cfg, generator: torch.Generator, device="cuda") -> Params:
@@ -126,42 +137,56 @@ def init(cfg, generator: torch.Generator, device="cuda") -> Params:
     return params
 
 
-def _layer(p: Params, x: torch.Tensor, *, cfg, is_attn: bool, ssd_chunk: int):
+def _layer(p: Params, x: torch.Tensor, *, cfg, is_attn: bool, ssd_chunk: int,
+           split: Optional[sh.ModelSplit] = None, fsdp: Optional[sh.DataSplit] = None,
+           fsdp_dims=None, data=None):
     """One layer: ``x + attn(norm1(x))`` (no RoPE, causal) or ``x +
     mamba(norm1(x))``, then ``+ ffn(norm2(x))`` -> ``(x, aux)``; the MoE
-    routes at the config's capacity factor, a dense layer's aux is 0."""
-    h = layers.apply_norm(x, p["norm1"], cfg.norm)
+    routes at the config's capacity factor, a dense layer's aux is 0.
+    Under FSDP the layer's weights are gathered over ``"data"`` here."""
+    if fsdp is not None:
+        p = fsdp.gather(p, fsdp_dims)
     if is_attn:
-        q, k, v = layers.qkv_project(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
-                                     cfg.head_dim, None, cfg.rope_theta)
-        out = attention.blocked_attend(q, k, v, mask_kind="causal")
-        B, S = out.shape[:2]
-        x = x + layers.wdot(out.reshape(B, S, -1), p["attn"]["wo"])
+        a, _ = transformer.attention_block({"attn_norm": p["norm1"], "attn": p["attn"]}, cfg,
+                                           x, None, cfg.rope_theta, 0, "causal", split=split)
     else:
-        x = x + mamba2.mixer_apply(p["mamba"], cfg, h, chunk=ssd_chunk)
-    f, aux = transformer.ffn_apply(p, cfg, layers.apply_norm(x, p["norm2"], cfg.norm))
+        a = mamba2.mixer_apply(p["mamba"], cfg, transformer.norm_rows(x, p["norm1"], cfg, split),
+                               chunk=ssd_chunk, split=split)
+    x = x + a
+    f, aux = transformer.ffn_block(p, cfg, x, split, data, norm="norm2")
     return x + f, aux
 
 
 def forward(params: Params, cfg, tokens: torch.Tensor, block_q: Optional[int] = None,
-            block_k: Optional[int] = None, ssd_chunk: int = 256, remat: bool = False):
+            block_k: Optional[int] = None, ssd_chunk: int = 256, remat: bool = False,
+            split: Optional[sh.ModelSplit] = None, fsdp: Optional[sh.DataSplit] = None,
+            data=None):
     """tokens ``(B, S)`` -> ``(logits (B, S, V), aux)``: every layer in
     order (super-block ``b``, position ``j``), the final norm and the head;
     ``aux`` is a 0-d float32 tensor, the sum of the MoE layers' losses.
     ``ssd_chunk`` is the mixers' SSD chunk (``S`` a multiple of
     ``min(ssd_chunk, S)``); ``block_q`` / ``block_k`` (the reference's
     attention tiles) are accepted and ignored: the kernel's plan sets its
-    own."""
+    own.  ``split``, ``fsdp`` and ``data`` (the sharded train step) as in
+    :func:`transformer.forward`: the rank's heads, FF shard, vocab and
+    mixer heads, ``S / size`` rows of the residual stream under ``seq``,
+    FSDP's leaves gathered where they are used, an MoE layer's aux global
+    over ``data``."""
     period = _period(cfg)
     n = cfg.num_layers // period
-    x = transformer.embed_tokens(params, cfg, tokens)
+    block_dims = None
+    if fsdp is not None:
+        params, block_dims = transformer.gather_outer(params, fsdp, "blocks")
+    x = transformer.split_rows(transformer.embed_tokens(params, cfg, tokens, split), split)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     slices = {j: transformer.layer_slices(params["blocks"][f"pos{j}"], n)
               for j in range(period)}
     for b in range(n):
         for j in range(period):
-            body = functools.partial(_layer, cfg=cfg, is_attn=_pos_kinds(cfg, j)[0],
-                                     ssd_chunk=ssd_chunk)
+            body = functools.partial(
+                _layer, cfg=cfg, is_attn=_pos_kinds(cfg, j)[0], ssd_chunk=ssd_chunk,
+                split=split, fsdp=fsdp, data=data,
+                fsdp_dims=None if block_dims is None else block_dims[f"pos{j}"])
             x, aux_l = transformer.run_layer(body, remat, slices[j][b], x)
             aux = aux + aux_l
-    return transformer.lm_logits(params, cfg, x), aux
+    return transformer.lm_logits(params, cfg, x, split), aux

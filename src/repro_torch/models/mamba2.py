@@ -14,7 +14,21 @@ mixer/{in_proj, conv_w, conv_b, A_log, D, dt_bias, norm/scale, out_proj}}``
 stacked over the layers, ``final_norm``; the head is the tied ``embed.T``.
 The projections are plain ``x @ w`` (:func:`layers.wdot`), as the
 reference's, in the promoted dtype: the hybrid's decode residual is float32
-after its attention layer, and meets the bf16 mixer weights upcast.
+after its attention layer, and meets the bf16 mixer weights upcast.  The
+gated norm's mean square is the sum of squares times ``1 / d_in``, as XLA
+forms it.
+
+On a ``(data, model)`` mesh (``split``, a
+:class:`~repro_torch.distributed.sharding.ModelSplit` whose ``ssm`` is on)
+the mixer splits by heads, not by a contiguous cut of its packed axes
+(:func:`mixer_segments`): a rank holds its heads' columns of ``z``, ``x``
+and ``dt`` in ``in_proj``, its ``x`` channels of the conv, its ``d_in``
+slice of the gated norm and of ``out_proj``'s rows, and ``B``, ``C``,
+their conv channels, ``A_log``, ``D`` and ``dt_bias`` whole.  Serving
+gathers the gated product over ``"model"`` before the whole norm and
+``out_proj`` (the single-device bits); training sums the gated norm's
+squares over ``"model"`` and ``out_proj``'s row-parallel products, and
+sums the gradients of the whole parts its heads use alone.
 """
 
 from __future__ import annotations
@@ -33,17 +47,54 @@ from repro_torch.models.layers import _dtype
 Params = Dict[str, Any]
 
 
-def _dims(cfg) -> Tuple[int, int, int]:
-    """``(d_in, N, H)``: the inner width, the state width and the heads."""
+def _heads_split(split: Optional[sh.ModelSplit]) -> bool:
+    return split is not None and split.ssm
+
+
+def _dims(cfg, split: Optional[sh.ModelSplit] = None) -> Tuple[int, int, int]:
+    """``(d_in, N, H)``: the inner width, the state width and the heads (a
+    rank's share of ``d_in`` and ``H`` where ``split`` splits the heads)."""
     d_in = cfg.ssm_expand * cfg.d_model
-    return d_in, cfg.ssm_state, d_in // cfg.ssm_head_dim
+    n = split.size if _heads_split(split) else 1
+    return d_in // n, cfg.ssm_state, d_in // cfg.ssm_head_dim // n
 
 
 def mixer_specs() -> Params:
-    """Logical axes of one mamba mixer: ``ff`` on its inner width."""
+    """Logical axes of one mamba mixer: ``ff`` on its inner width (the
+    reference's; :func:`mixer_segments` says how ``"model"`` places it)."""
     return {"in_proj": (sh.D_MODEL, sh.FF), "conv_w": (sh.CONV, sh.FF), "conv_b": (sh.FF,),
             "A_log": (None,), "D": (None,), "dt_bias": (None,), "norm": {"scale": (sh.FF,)},
             "out_proj": (sh.FF, sh.D_MODEL)}
+
+
+def mixer_segments(cfg, split: bool, gathered: bool = False) -> Params:
+    """How ``"model"`` places one mixer's leaves
+    (:func:`~repro_torch.distributed.sharding.physical_specs`'
+    ``segments``): with ``split`` the heads' parts split and ``B`` / ``C``
+    stay whole (``in_proj``'s ``[z, x, B, C, dt]`` columns, the conv's
+    ``[x, B, C]`` channels), else every leaf is whole.  The norm's scale
+    and ``out_proj``'s rows split with the heads, or are whole where
+    ``gathered`` (serving gathers the gated product before them)."""
+    d_in, N, H = _dims(cfg)
+    conv = (-1, ((d_in, split), (2 * N, False)))
+    inner = ((d_in, split and not gathered),)
+    return {"in_proj": (-1, ((d_in, split), (d_in, split), (2 * N, False), (H, split))),
+            "conv_w": conv, "conv_b": conv, "norm": {"scale": (-1, inner)},
+            "out_proj": (-2, inner)}
+
+
+def state_segments(cfg, split: bool) -> Params:
+    """How ``"model"`` places the decode state ``{"h": (..., H, P, N),
+    "conv": (..., K - 1, d_in + 2 N)}``: the heads of ``h`` and the ``x``
+    channels of the conv window split with ``split``, ``B`` / ``C``'s
+    channels whole."""
+    d_in, N, H = _dims(cfg)
+    return {"h": (-3, ((H, split),)), "conv": (-1, ((d_in, split), (2 * N, False)))}
+
+
+def param_segments(cfg, split: bool, gathered: bool = False) -> Params:
+    """:func:`mixer_segments` of every layer's mixer in :func:`init`'s tree."""
+    return {"layers": {"mixer": mixer_segments(cfg, split, gathered)}}
 
 
 def mixer_init(cfg, generator: torch.Generator, device, dtype, stack: int) -> Params:
@@ -75,9 +126,10 @@ def mixer_init(cfg, generator: torch.Generator, device, dtype, stack: int) -> Pa
     }
 
 
-def _split_proj(cfg, zxbcdt: torch.Tensor):
-    """``in_proj``'s output -> ``(z, xBC, dt, d_in, N, H)``."""
-    d_in, N, H = _dims(cfg)
+def _split_proj(cfg, zxbcdt: torch.Tensor, split: Optional[sh.ModelSplit] = None):
+    """``in_proj``'s output -> ``(z, xBC, dt, d_in, N, H)`` (a rank's
+    widths under ``split``)."""
+    d_in, N, H = _dims(cfg, split)
     z = zxbcdt[..., :d_in]
     xBC = zxbcdt[..., d_in:2 * d_in + 2 * N]
     dt = zxbcdt[..., 2 * d_in + 2 * N:]
@@ -129,15 +181,19 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Te
     Cc = Cm.float().reshape(Bsz, nc, L, N)
     a_cum = torch.cumsum(dth * A.float()[:, None], dim=-1)  # (B, nc, H, L) log decay, <= 0
 
-    # intra-chunk: y[l] += sum_{m <= l} (C_l . B_m) exp(a_cum[l] - a_cum[m]) dt_m x_m
+    # intra-chunk: y[l] += sum_{m <= l} (C_l . B_m) exp(a_cum[l] - a_cum[m]) dt_m x_m.
+    # The mask goes in before the exponential: above the diagonal a_cum[l] -
+    # a_cum[m] is a chunk's summed decay, past 88 at full width (e^88 is f32's
+    # largest), and an exponential taken there and masked after it gives the
+    # backward 0 * inf = NaN (the reference's where(causal, exp(.), 0) does)
     w = a_cum[..., :, None] - a_cum[..., None, :]  # (B, nc, H, L, L)
     causal = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, Bm, Cm)):
         # the same operations out of place: autograd keeps what each needs
-        w = w.exp().masked_fill(~causal, 0.0)
+        w = w.masked_fill(~causal, -math.inf).exp()
         w = w * (Cc @ Bc.transpose(-1, -2))[:, :, None] * dth[..., None, :]
     else:
-        w.exp_().masked_fill_(~causal, 0.0)
+        w.masked_fill_(~causal, -math.inf).exp_()
         w.mul_((Cc @ Bc.transpose(-1, -2))[:, :, None]).mul_(dth[..., None, :])
     y = w @ xh  # (B, nc, H, L, P)
     del w
@@ -161,54 +217,120 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Te
     return (y, h) if return_state else y
 
 
-def _gated_out(p: Params, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """``out_proj(rms_norm(y * silu(z)))``, the gate in f32 cast to y's dtype."""
-    y = layers.rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm"]["scale"])
-    return layers.wdot(y, p["out_proj"])
+def _gated_norm(g: torch.Tensor, scale: torch.Tensor, cfg,
+                split: Optional[sh.ModelSplit] = None) -> torch.Tensor:
+    """RMS norm of the gated product over the whole ``d_in`` in f32 with a
+    zero-centred scale: the sum of squares times ``1 / d_in``.  A training
+    split's rank holds its ``d_in`` slice: its sum of squares is summed
+    over ``"model"`` (and so is the sum's gradient, which every rank's
+    channels feed)."""
+    gf = g.float()
+    ss = torch.sum(gf * gf, -1, keepdim=True)
+    if sh.training(split) and split.ssm:
+        ss = sh.copy_to(sh.reduce_from(ss, split.group), split.group)
+    d_in = cfg.ssm_expand * cfg.d_model
+    return (gf * torch.rsqrt(ss * (1.0 / d_in) + 1e-6) * (1.0 + scale.float())).to(g.dtype)
+
+
+def _gated_out(p: Params, y: torch.Tensor, z: torch.Tensor, cfg,
+               split: Optional[sh.ModelSplit] = None) -> torch.Tensor:
+    """``out_proj(gated_norm(y * silu(z)))``, the gate in f32 cast to y's
+    dtype.  A serving split's heads are gathered over ``"model"`` first
+    (concatenated: the whole product's bits)."""
+    g = y * F.silu(z.float()).to(y.dtype)
+    if _heads_split(split) and not split.rows:  # contiguous: the sums' order is the layout's
+        g = sh.all_gather(g, split.group, g.dim() - 1).contiguous()
+    return layers.wdot(_gated_norm(g, p["norm"]["scale"], cfg, split), p["out_proj"])
+
+
+def _head_params(p: Params, split: Optional[sh.ModelSplit]):
+    """``(A_log, D, dt_bias)`` of the rank's heads (whole without a head
+    split).  In training each is cut through
+    :func:`~repro_torch.distributed.sharding.scatter_to`, whose backward
+    gathers every rank's heads: the whole gradient on every rank."""
+    ps = (p["A_log"], p["D"], p["dt_bias"])
+    if not _heads_split(split):
+        return ps
+    cut = sh.scatter_to if split.rows else sh.own_block
+    return tuple(cut(v, split.group, v.dim() - 1) for v in ps)
+
+
+def _whole_parts(p: Params, cfg, split: Optional[sh.ModelSplit]):
+    """``(in_proj, conv_w, conv_b)`` for the forward: in training under a
+    head split, ``B`` / ``C``'s columns and conv channels (whole on every
+    rank, each rank applying them to its heads) pass
+    :func:`~repro_torch.distributed.sharding.sum_part`, so their gradient
+    is summed over ``"model"``."""
+    w, cw, cb = p["in_proj"], p["conv_w"], p["conv_b"]
+    if not (sh.training(split) and split.ssm):
+        return w, cw, cb
+    d_in, N, _ = _dims(cfg, split)
+    g = split.group
+    return (sh.sum_part(w, g, w.dim() - 1, 2 * d_in, 2 * d_in + 2 * N),
+            sh.sum_part(cw, g, cw.dim() - 1, d_in, d_in + 2 * N),
+            sh.sum_part(cb, g, cb.dim() - 1, d_in, d_in + 2 * N))
 
 
 def mixer_apply(p: Params, cfg, x: torch.Tensor, chunk: int = 256,
-                return_state: bool = False):
+                return_state: bool = False, split: Optional[sh.ModelSplit] = None):
     """Whole-sequence SSD mixer: x ``(B, S, d_model)`` -> ``(B, S,
     d_model)``.  With ``return_state`` also the decode continuation ``{"h":
     (B, H, P, N) f32, "conv": (B, K - 1, C)}`` (the last ``K - 1``
-    pre-activation conv inputs)."""
+    pre-activation conv inputs).
+
+    ``split``, a training split (the sharded train step): the mixer is a
+    block of its own (:func:`~repro_torch.distributed.sharding.enter_block`:
+    under ``seq`` the sequence is gathered, the SSD scan needing all of
+    it); with ``split.ssm`` the rank runs its heads (module docstring) and
+    ``out_proj``'s partial products are summed over ``"model"``
+    (reduce-scattered to the rank's rows under ``seq``)."""
+    rows = sh.training(split)
+    if rows:
+        x = sh.enter_block(x, split, split.ssm)
     B, S, _ = x.shape
-    z, xBC, dt, d_in, N, H = _split_proj(cfg, layers.wdot(x, p["in_proj"]))
+    w_in, conv_w, conv_b = _whole_parts(p, cfg, split)
+    A_log, D, dt_bias = _head_params(p, split)
+    z, xBC, dt, d_in, N, H = _split_proj(cfg, layers.wdot(x, w_in), split)
     xBC_raw = xBC
-    xBC, _ = _causal_conv(xBC, p["conv_w"], p["conv_b"])
+    xBC, _ = _causal_conv(xBC, conv_w, conv_b)
     xin = xBC[..., :d_in].reshape(B, S, H, cfg.ssm_head_dim)
     Bm, Cm = xBC[..., d_in:d_in + N], xBC[..., d_in + N:]
-    dt = F.softplus(dt.float() + p["dt_bias"])  # (B, S, H)
-    A = -torch.exp(p["A_log"])
+    dt = F.softplus(dt.float() + dt_bias)  # (B, S, H)
+    A = -torch.exp(A_log)
     res = ssd_chunked(xin, dt, A, Bm, Cm, chunk=chunk, return_state=return_state)
     y, h_final = res if return_state else (res, None)
-    y = y + xin * p["D"][None, None, :, None].to(x.dtype)
-    out = _gated_out(p, y.reshape(B, S, d_in), z)
+    y = y + xin * D[None, None, :, None].to(x.dtype)
+    out = _gated_out(p, y.reshape(B, S, d_in), z, cfg, split)
+    if rows:
+        out = sh.leave_block(out, split, split.ssm)
     if return_state:
-        K = p["conv_w"].shape[0]
+        K = conv_w.shape[0]
         return out, {"h": h_final, "conv": xBC_raw[:, -(K - 1):, :]}
     return out
 
 
-def mixer_decode_step(p: Params, cfg, x: torch.Tensor, state: Dict[str, torch.Tensor]
+def mixer_decode_step(p: Params, cfg, x: torch.Tensor, state: Dict[str, torch.Tensor],
+                      split: Optional[sh.ModelSplit] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token of the recurrence: x ``(B, 1, d_model)``, state ``{"h":
     (B, H, P, N) f32, "conv": (B, K - 1, C)}`` -> ``(out (B, 1, d_model),
-    new state)``."""
+    new state)``.  A serving ``split`` with ``ssm``: ``p`` and the state
+    hold the rank's heads (module docstring), and the gated product is
+    gathered over ``"model"`` before the whole norm and ``out_proj``."""
     B = x.shape[0]
-    z, xBC, dt, d_in, N, H = _split_proj(cfg, layers.wdot(x, p["in_proj"]))
+    A_log, D, dt_bias = _head_params(p, split)
+    z, xBC, dt, d_in, N, H = _split_proj(cfg, layers.wdot(x, p["in_proj"]), split)
     xBC, conv_state = _causal_conv(xBC, p["conv_w"], p["conv_b"], conv_state=state["conv"])
     xin = xBC[..., :d_in].reshape(B, H, cfg.ssm_head_dim).float()
     Bm = xBC[:, 0, d_in:d_in + N].float()  # (B, N)
     Cm = xBC[:, 0, d_in + N:].float()
-    dt_s = F.softplus(dt[:, 0].float() + p["dt_bias"])  # (B, H)
-    a = torch.exp(dt_s * -torch.exp(p["A_log"])[None, :])  # (B, H)
+    dt_s = F.softplus(dt[:, 0].float() + dt_bias)  # (B, H)
+    a = torch.exp(dt_s * -torch.exp(A_log)[None, :])  # (B, H)
     h = (state["h"] * a[:, :, None, None]
          + (dt_s[:, :, None] * xin)[..., None] * Bm[:, None, None, :])
     y = (h @ Cm[:, None, :, None])[..., 0]  # (B, H, P)
-    y = y + xin * p["D"][None, :, None]
-    out = _gated_out(p, y.reshape(B, 1, d_in).to(x.dtype), z)
+    y = y + xin * D[None, :, None]
+    out = _gated_out(p, y.reshape(B, 1, d_in).to(x.dtype), z, cfg, split)
     return out, {"h": h, "conv": conv_state}
 
 
@@ -251,18 +373,34 @@ def init(cfg, generator: torch.Generator, device="cuda") -> Params:
     return {"embed": embed, "layers": lay, "final_norm": {"scale": zeros(d)}}
 
 
-def _layer(p: Params, x: torch.Tensor, *, cfg, chunk: int) -> torch.Tensor:
-    return x + mixer_apply(p["mixer"], cfg, layers.apply_norm(x, p["norm"], cfg.norm),
-                           chunk=chunk)
+def _layer(p: Params, x: torch.Tensor, *, cfg, chunk: int,
+           split: Optional[sh.ModelSplit] = None, fsdp: Optional[sh.DataSplit] = None,
+           fsdp_dims=None) -> torch.Tensor:
+    """``x + mixer(norm(x))``; under FSDP the layer's weights gathered over
+    ``"data"`` here (and again when remat recomputes it)."""
+    if fsdp is not None:
+        p = fsdp.gather(p, fsdp_dims)
+    h = transformer.norm_rows(x, p["norm"], cfg, split)
+    return x + mixer_apply(p["mixer"], cfg, h, chunk=chunk, split=split)
 
 
-def forward(params: Params, cfg, tokens: torch.Tensor, chunk: int = 256, remat: bool = False):
+def forward(params: Params, cfg, tokens: torch.Tensor, chunk: int = 256, remat: bool = False,
+            split: Optional[sh.ModelSplit] = None, fsdp: Optional[sh.DataSplit] = None,
+            data=None):
     """tokens ``(B, S)`` -> ``(logits (B, S, V), aux 0.0)``: each layer
     ``x + mixer(norm(x))`` (recomputed in the backward with ``remat``, as
     the reference's ``jax.checkpoint``), the final norm and the tied
-    head."""
-    x = transformer.embed_tokens(params, cfg, tokens)
-    body = functools.partial(_layer, cfg=cfg, chunk=chunk)
+    head.  ``split`` / ``fsdp`` (the sharded train step): the rank's
+    vocab, heads (:func:`mixer_apply`) and, under ``seq``, ``S / size``
+    rows of the residual stream; FSDP's leaves gathered where they are
+    used.  ``data`` (the data axis's group) is taken for the families'
+    common signature: no leaf of this model sums over it in the forward."""
+    layer_dims = None
+    if fsdp is not None:
+        params, layer_dims = transformer.gather_outer(params, fsdp, "layers")
+    x = transformer.split_rows(transformer.embed_tokens(params, cfg, tokens, split), split)
+    body = functools.partial(_layer, cfg=cfg, chunk=chunk, split=split, fsdp=fsdp,
+                             fsdp_dims=layer_dims)
     for p in transformer.layer_slices(params["layers"], cfg.num_layers):
         x = transformer.run_layer(body, remat, p, x)
-    return transformer.lm_logits(params, cfg, x), torch.zeros((), device=x.device)
+    return transformer.lm_logits(params, cfg, x, split), torch.zeros((), device=x.device)

@@ -12,7 +12,7 @@ family's logical-axis tree, as the reference's.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -47,6 +47,18 @@ def param_specs(cfg) -> Params:
     if cfg.family == "enc_dec":
         return whisper.param_specs(cfg)
     return transformer.param_specs(cfg)
+
+
+def param_segments(cfg, split: bool, gathered: bool = False) -> Optional[Params]:
+    """How ``"model"`` places the mamba mixers' leaves of :func:`init`'s
+    tree (:func:`mamba2.mixer_segments`; ``split``: the mixers split by
+    heads, ``gathered``: serving's whole norm and ``out_proj``), ``None``
+    for a family without mixers."""
+    if cfg.family == "ssm":
+        return mamba2.param_segments(cfg, split, gathered)
+    if cfg.family == "hybrid":
+        return hybrid.param_segments(cfg, split, gathered)
+    return None
 
 
 def forward(params: Params, cfg, batch: Dict[str, torch.Tensor], **kw):

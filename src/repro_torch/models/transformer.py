@@ -184,7 +184,7 @@ def lm_logits(params: Params, cfg, x: torch.Tensor,
     serve-time record), else the tied ``embed.T`` in the model dtype.  A
     mesh rank's ``split`` gathers its vocab columns over ``"model"``; a
     training split's head is column-parallel on the whole sequence."""
-    x = _norm(x, params["final_norm"], cfg, split)
+    x = norm_rows(x, params["final_norm"], cfg, split)
     if sh.training(split):
         x = sh.enter_block(x, split, split.vocab)
     head = params.get("lm_head")
@@ -226,13 +226,13 @@ def run_layer(fn, remat: bool, *args):
 # --------------------------------------------------------------------------
 
 
-def _norm(x, p, cfg, split):
+def norm_rows(x, p, cfg, split):
     """The config's norm of the rank's residual rows (its scale's gradient
     summed over the model axis where those rows are the rank's own)."""
     return layers.apply_norm(x, sh.shared(p, split, split is not None and split.seq), cfg.norm)
 
 
-def _attention_block(p, cfg, x, positions, theta: float, window: int, mask_kind: str,
+def attention_block(p, cfg, x, positions, theta: float, window: int, mask_kind: str,
                      return_kv: bool = False, split: Optional[sh.ModelSplit] = None):
     """Norm, QKV (qk-norm where set) with RoPE, ``blocked_attend``, ``wo``
     and the post-attention norm where set.  x ``(B, S, d)`` -> ``(out, (k,
@@ -240,7 +240,7 @@ def _attention_block(p, cfg, x, positions, theta: float, window: int, mask_kind:
     projects and attends its heads; serving gathers them before ``wo``, a
     training split sums its row shard of ``wo``'s product over the axis
     (:func:`sh.leave_block`)."""
-    h = _norm(x, p["attn_norm"], cfg, split)
+    h = norm_rows(x, p["attn_norm"], cfg, split)
     rows = sh.training(split)
     if rows:
         h = sh.enter_block(h, split, split.heads)
@@ -259,7 +259,7 @@ def _attention_block(p, cfg, x, positions, theta: float, window: int, mask_kind:
     if rows:
         out = sh.leave_block(out, split, split.heads)
     if cfg.post_norms:
-        out = _norm(out, p["post_attn_norm"], cfg, split)
+        out = norm_rows(out, p["post_attn_norm"], cfg, split)
     return out, ((k, v) if return_kv else None)
 
 
@@ -272,14 +272,15 @@ def ffn_apply(p, cfg, h, capacity_factor=None):
     return layers.mlp_apply(p["mlp"], h, cfg.activation), 0.0
 
 
-def _ffn_block(p, cfg, x, split: Optional[sh.ModelSplit] = None, data=None):
-    """Norm, FFN (the MoE at the config's capacity factor) and the post-MLP
-    norm where set -> ``(out, aux)``; aux is 0 for a dense layer.  A
-    training split's MLP runs its ``gate`` / ``up`` column shards and sums
-    its ``down`` row shard's product over the model axis; its MoE runs on
-    the rank's rows and FF shard (:func:`moe.moe_apply`, the aux global
-    over the ``data`` group)."""
-    h = _norm(x, p["mlp_norm"], cfg, split)
+def ffn_block(p, cfg, x, split: Optional[sh.ModelSplit] = None, data=None,
+              norm: str = "mlp_norm"):
+    """Norm (``p[norm]``), FFN (the MoE at the config's capacity factor)
+    and the post-MLP norm where set -> ``(out, aux)``; aux is 0 for a
+    dense layer.  A training split's MLP runs its ``gate`` / ``up`` column
+    shards and sums its ``down`` row shard's product over the model axis;
+    its MoE runs on the rank's rows and FF shard (:func:`moe.moe_apply`,
+    the aux global over the ``data`` group)."""
+    h = norm_rows(x, p[norm], cfg, split)
     if sh.training(split) and "moe" in p:
         out, aux = moe.moe_apply(p["moe"], h, cfg, split=split, data=data)
     elif sh.training(split):
@@ -290,7 +291,7 @@ def _ffn_block(p, cfg, x, split: Optional[sh.ModelSplit] = None, data=None):
     else:
         out, aux = ffn_apply(p, cfg, h)
     if cfg.post_norms:
-        out = _norm(out, p["post_mlp_norm"], cfg, split)
+        out = norm_rows(out, p["post_mlp_norm"], cfg, split)
     return out, aux
 
 
@@ -304,11 +305,33 @@ def _layer(p, x, positions, *, cfg, theta: float, window: int, mask_kind: str,
     tokens pick, so every data rank issues the same collectives."""
     if fsdp is not None:
         p = fsdp.gather(p, fsdp_dims)
-    a, kv = _attention_block(p, cfg, x, positions, theta, window, mask_kind,
+    a, kv = attention_block(p, cfg, x, positions, theta, window, mask_kind,
                              return_kv=return_kv, split=split)
     x = x + a
-    f, aux = _ffn_block(p, cfg, x, split, data)
+    f, aux = ffn_block(p, cfg, x, split, data)
     return x + f, aux, kv
+
+
+def gather_outer(params: Params, fsdp: sh.DataSplit, stacked: str):
+    """FSDP: ``params`` with every leaf outside the stacked subtree
+    ``stacked`` gathered whole over ``"data"`` (the embedding, the head,
+    the final norm), and the stacked subtree's gather dims less its
+    stacking dim (a layer's slice is gathered inside the layer)."""
+    top = {k: v for k, v in params.items() if k != stacked}
+    params = dict(params, **fsdp.gather(top, {k: fsdp.dims[k] for k in top}))
+    return params, tree_map(lambda d: None if d is None else d - 1, fsdp.dims[stacked])
+
+
+def split_rows(x: torch.Tensor, split: Optional[sh.ModelSplit]) -> torch.Tensor:
+    """The residual stream ``(B, S, d)`` cut to the rank's ``S / size``
+    rows under ``seq`` (sequence parallelism), else as it is."""
+    if split is None or not split.seq:
+        return x
+    S = x.shape[1]
+    if S % split.size:
+        raise ValueError(f"forward: sequence parallelism over {split.size} ranks needs "
+                         f"S divisible by it (S {S})")
+    return sh.scatter_to(x, split.group, 1)
 
 
 def require_vision(cfg, vision_embeds) -> None:
@@ -356,9 +379,7 @@ def forward(params: Params, cfg, tokens: torch.Tensor, return_kv: bool = False,
     B, S = tokens.shape
     layer_dims = None
     if fsdp is not None:
-        top = {k: v for k, v in params.items() if k != "layers"}
-        params = dict(params, **fsdp.gather(top, {k: fsdp.dims[k] for k in top}))
-        layer_dims = tree_map(lambda d: None if d is None else d - 1, fsdp.dims["layers"])
+        params, layer_dims = gather_outer(params, fsdp, "layers")
     x = embed_tokens(params, cfg, tokens, split)
     mask_kind = _mask_kind(cfg)
     windows = layer_windows(cfg)
@@ -369,11 +390,7 @@ def forward(params: Params, cfg, tokens: torch.Tensor, return_kv: bool = False,
         windows = np.full_like(windows, vis.shape[1])
         S = x.shape[1]
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    if split is not None and split.seq:
-        if S % split.size:
-            raise ValueError(f"forward: sequence parallelism over {split.size} ranks needs "
-                             f"S divisible by it (S {S})")
-        x = sh.scatter_to(x, split.group, 1)
+    x = split_rows(x, split)
     thetas = layer_thetas(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []

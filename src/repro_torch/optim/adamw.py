@@ -33,11 +33,13 @@ parameters' logical axes.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import all_reduce_max, all_reduce_sum
+from repro_torch.distributed.sharding import (PartGroups, all_reduce_max, all_reduce_sum,
+                                              group_size, part_pieces)
 from repro_torch.optim.schedules import warmup_cosine
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -138,15 +140,30 @@ def global_norm(tree: Tree, groups: Optional[Tree] = None) -> torch.Tensor:
     """``sqrt(sum of squares)`` over every leaf, in f32.  With ``groups``
     (each leaf's process groups dim by dim) each leaf's sum of squares is
     summed over the groups that split it first, so the norm is the whole
-    tree's on every rank and a replicated leaf counts once.  Each leaf is
+    tree's on every rank and a replicated leaf counts once (a leaf with a
+    segmented dim, :class:`~repro_torch.distributed.sharding.PartGroups`,
+    sums its split parts' squares over every group and its whole parts'
+    over the other dims' groups only).  Each leaf is
     summed in its row-major order whatever its strides (a tied head's
     gradient comes back transposed on one device and contiguous off a
     reduce-scatter; the sum's order follows the layout)."""
-    def sq(g, dims):
-        s = torch.sum(torch.square(g.to(torch.float32, memory_format=torch.contiguous_format)))
-        for group in (grp for dim in dims for grp in dim):
+    def total(s, dims, skip=None):
+        for group in (grp for dim in dims if dim is not skip for grp in dim):
             s = all_reduce_sum(s, group)
         return s
+
+    def sq(g, dims):
+        # contiguous whatever its dtype: to() keeps an f32 leaf's strides
+        g = g.to(torch.float32).contiguous()
+        seg = next(((i, d) for i, d in enumerate(dims) if isinstance(d, PartGroups)
+                    and math.prod(group_size(x) for x in d) > 1), None)
+        if seg is None:
+            return total(torch.sum(torch.square(g)), dims)
+        i, d = seg
+        pieces = part_pieces(g, i, d.parts, math.prod(group_size(x) for x in d))
+        sq_of = lambda split: torch.sum(torch.square(torch.cat(
+            [p for p, s in pieces if s == split], i)))
+        return total(sq_of(True), dims) + total(sq_of(False), dims, skip=d)
 
     if groups is None:
         groups = tree_map(lambda _: (), tree)

@@ -41,9 +41,14 @@ all-gather of the heads' attend outputs over ``"model"`` before ``wo``,
 the vocab-split embedding and head, the logits gathered over ``"model"``
 then ``"data"``; a paged pool takes the step's K / V rows of every data
 rank.  The kernels plan at the whole launch's geometry.  An MoE layer's
-experts are replicated and route dropless over the rank's slots.  No rules
-(or no mesh) is the single-device path, unchanged; the ssm, hybrid and
-enc_dec families under a mesh raise (ROADMAP item 7c-ii).
+experts are replicated and route dropless over the rank's slots.
+``make_serve_step`` also runs the ssm and hybrid families on a mesh: a
+mamba layer steps the rank's heads of its slots' state and gathers the
+gated product over ``"model"`` before the replicated norm and
+``out_proj`` (:func:`repro_torch.models.mamba2.mixer_decode_step`); the
+hybrid's attention layer is the dense one on the rank's heads.  No rules
+(or no mesh) is the single-device path, unchanged; the enc_dec family
+under a mesh raises (ROADMAP item 7c-ii (b)).
 
 ``make_serve_step`` also decodes the families the reference decodes
 outside its Scheduler: ssm (a mamba state a layer, no KV), hybrid (jamba:
@@ -307,15 +312,17 @@ def _ffn_decode_layer(p, norm, cfg, x):
 
 
 def _mamba_decode_layer(norm, mixer, cfg, layout: kvc.CacheLayout, cache, x,
-                        layer_idx: int):
+                        layer_idx: int, split=None):
     """One mamba layer's decode token: the pre-norm ``norm``, the
     recurrence of ``mixer`` on the layer's state, the state written back
-    in place -> ``(out, cache)``."""
+    in place -> ``(out, cache)``.  With a mesh rank's ``split`` x, the
+    mixer and the state hold the rank's slots and heads (the state's rows
+    are x's: slot-major on ``"data"``)."""
     mi = layout.mamba_layers.index(layer_idx)
     st = cache["mamba"]
     h = layers.apply_norm(x, norm, cfg.norm)
     out, new = mamba2.mixer_decode_step(mixer, cfg, h,
-                                        {"h": st["h"][mi], "conv": st["conv"][mi]})
+                                        {"h": st["h"][mi], "conv": st["conv"][mi]}, split)
     st["h"][mi] = new["h"]
     st["conv"][mi] = new["conv"].to(st["conv"].dtype)
     return out, cache
@@ -341,8 +348,9 @@ def _whisper_decode_layer(p, cfg, layout, cache, x, pos, layer_idx: int, phys, c
 
 
 def _mesh_family(cfg, shard, who: str) -> None:
-    """Under a mesh the transformer families are served; the ssm, hybrid
-    and enc_dec ones are ROADMAP item 7c-ii (:func:`sh.require_mesh_family`)."""
+    """Under a mesh every family but enc_dec is served (ssm and hybrid
+    through :func:`make_serve_step` alone); enc_dec is ROADMAP item 7c-ii
+    (b) (:func:`sh.require_mesh_family`)."""
     if shard is not None:
         sh.require_mesh_family(cfg, who)
 
@@ -367,7 +375,8 @@ def make_serve_step(cfg, layout: kvc.CacheLayout, rules=None):
     GELU MLP; the cross memory must already hold the encoder's K / V
     (:func:`repro_torch.models.whisper.cross_kv`).  ``rules`` with a mesh:
     the step runs on this rank's shard of params and cache (module
-    docstring) and returns every slot's logits on every rank."""
+    docstring; the dense, MoE, VLM, ssm and hybrid families) and returns
+    every slot's logits on every rank."""
     require_served(cfg, "make_serve_step")
     shard = shd.Shard.of(cfg, layout, rules)
     _mesh_family(cfg, shard, "make_serve_step")
@@ -407,16 +416,18 @@ def make_serve_step(cfg, layout: kvc.CacheLayout, rules=None):
                 p = transformer.layer_params(params["blocks"][f"pos{j}"], b)
                 if cfg.layer_is_attention(i):
                     a, cache = _attn_decode_layer(p, p["norm1"], cfg, layout, cache, x, pos, i,
-                                                  None, phys=phys)
+                                                  None, phys=phys, shard=shard,
+                                                  pos_all=pos_all)
                 else:
                     a, cache = _mamba_decode_layer(p["norm1"], p["mamba"], cfg, layout, cache,
-                                                   x, i)
+                                                   x, i, split)
                 x = x + a
                 x = x + _ffn_decode_layer(p, p["norm2"], cfg, x)
                 continue
             p = transformer.layer_params(params["layers"], i)
             if cfg.family == "ssm":
-                m, cache = _mamba_decode_layer(p["norm"], p["mixer"], cfg, layout, cache, x, i)
+                m, cache = _mamba_decode_layer(p["norm"], p["mixer"], cfg, layout, cache, x, i,
+                                               split)
                 x = x + m
                 continue
             a, cache = _attn_decode_layer(p, p["attn_norm"], cfg, layout, cache, x, pos, i,

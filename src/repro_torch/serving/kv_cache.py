@@ -212,7 +212,9 @@ def _kv_stack_specs(kv_format: str) -> Tree:
 def cache_specs(cfg, layout: CacheLayout) -> Tree:
     """Logical-axis specs of :func:`init_cache_arrays`'s tree (pure data,
     the reference's): pools and stacks heads-parallel, slot stacks also
-    batch-parallel, the page table replicated."""
+    batch-parallel, the page table replicated.  The mamba state's ``FF``
+    is placed by heads on a mesh, not in contiguous blocks
+    (:func:`repro_torch.models.mamba2.state_segments`)."""
     specs: Tree = {"pos": (sh.BATCH,)}
     if layout.global_layers:
         if layout.layout == "paged":
@@ -777,7 +779,7 @@ def write_prefill_local(store: Tree, idx: int, k: torch.Tensor, v: torch.Tensor,
 
 
 def reset_slot(cache: Tree, layout: CacheLayout, slot: int,
-               row: Optional[int] = None) -> Tree:
+               row: Optional[int] = None, state_row: Optional[int] = None) -> Tree:
     """Clear one batch row in place: its global KV rows to zero (slot
     layout), its local rings to zero with ``abs_pos`` -1 (both layouts, so
     a previous occupant's lanes never alias into the new request's window),
@@ -785,15 +787,21 @@ def reset_slot(cache: Tree, layout: CacheLayout, slot: int,
     pools have no batch rows — page lifecycle belongs to
     :class:`repro_torch.serving.paging.PageAllocator`.  ``row`` is the
     slot's row in a mesh rank's slot-major stores (default ``slot``; -1:
-    another rank holds it, and only ``pos`` is cleared here)."""
+    another rank holds it, and only ``pos`` is cleared here);
+    ``state_row`` its row in the rank's mamba state (default ``row``:
+    :meth:`repro_torch.serving.sharded.Shard.state_row`)."""
     row = slot if row is None else row
+    rows = {"mamba": row if state_row is None else state_row}
     stores = ("local", "mamba") if layout.layout == "paged" else ("global", "local", "mamba")
-    for name in stores if row >= 0 else ():
+    for name in stores:
+        r = rows.get(name, row)
+        if r < 0:
+            continue
         for n, a in cache.get(name, {}).items():
             if n == "k_planes":
-                a[:, :, row] = 0
+                a[:, :, r] = 0
             else:
-                a[:, row] = -1 if n == "abs_pos" else 0
+                a[:, r] = -1 if n == "abs_pos" else 0
     for n in ("cross_k", "cross_v"):
         if n in cache and row >= 0:
             cache[n][:, row] = 0

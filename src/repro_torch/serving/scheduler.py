@@ -64,8 +64,9 @@ params, keeps its shard of the params and cache, and gets every step's
 logits gathered from every rank, so the host state (slots, pages,
 samples) stays identical on all of them; rank 0 reports.  The page table
 stays host-owned and replicated.  ``stats()`` adds the reference's mesh
-columns.  The ssm, hybrid and enc_dec families under a mesh raise
-(ROADMAP item 7c-ii).
+columns.  The ssm and hybrid families raise here as they do on one device
+(they decode through ``engine.make_serve_step``, which takes a mesh), and
+the enc_dec family under a mesh raises naming ROADMAP item 7c-ii (b).
 """
 
 from __future__ import annotations

@@ -45,8 +45,22 @@ route dropless in the decode and chunk steps, each rank over its own slots;
 an eager admission is one row, the reference's ``group_sizes(1, S) = (1,
 1)``: so a sharded MoE serve is the single-device run's bits too.  A VLM
 serves text through chunked admission (its 8 q / 1 kv heads replicate on a
-model axis of more than one rank).  The ssm, hybrid and enc_dec families
-are refused under a mesh (ROADMAP item 7c-ii:
+model axis of more than one rank).
+
+The ssm and hybrid families are served on a mesh through
+``engine.make_serve_step``, as the reference serves them.  A mamba
+mixer's ``in_proj`` is a column shard by heads (``z``, ``x`` and ``dt``
+on the rank's heads, ``B`` and ``C`` whole: not GSPMD's contiguous cut of
+the packed axis), its conv takes the rank's ``x`` channels, and its decode
+state holds the rank's heads of ``h`` and channels of the conv window
+(:func:`repro_torch.models.mamba2.mixer_segments` and ``state_segments``);
+the gated product is all-gathered over ``"model"`` before the replicated
+norm and ``out_proj``.  The state is slot-major on ``"data"`` in both
+layouts (no admission path writes it: the decode steps each rank's own
+slots).  Where ``"model"`` does not divide the mixers' heads they
+replicate, with the warning.  The hybrid's attention layer keeps the
+dense head split and its MoE layers the replicated experts.  The enc_dec
+family is refused under a mesh (ROADMAP item 7c-ii (b):
 ``sharding.require_mesh_family``).
 """
 
@@ -59,6 +73,7 @@ import numpy as np
 import torch
 
 from repro_torch.distributed import sharding as sh
+from repro_torch.models import mamba2
 from repro_torch.serving import kv_cache as kvc
 
 # logical axes that may shard a weight only as the OUTPUT axis (last dim)
@@ -98,16 +113,29 @@ def serving_param_specs(specs):
     return _map(fix, specs)
 
 
+def param_shardings(params, specs, rules: sh.ShardingRules, cfg=None):
+    """The physical spec of every leaf of ``params`` under the serving
+    placement (:func:`shard_params`)."""
+    drop, segments = (), None
+    if cfg is not None:
+        from repro_torch.models import model_zoo
+
+        m = mesh_shape(rules)[1]
+        drop = sh.heads_drop(cfg, m)
+        segments = model_zoo.param_segments(cfg, sh.mixer_split(cfg, m, warn=True),
+                                            gathered=True)
+    return sh.physical_specs(params, serving_param_specs(specs), rules, drop, segments)
+
+
 def shard_params(params, specs, rules: sh.ShardingRules, cfg=None):
     """This rank's local parameter tree under the serving placement.
     ``specs`` is the model zoo's logical tree (``model_zoo.param_specs``),
     ``None`` replicates everything; with ``cfg`` the heads split only where
-    ``"model"`` divides both head counts.  Identity without a mesh."""
+    ``"model"`` divides both head counts, and the mamba mixers by heads
+    where it divides theirs.  Identity without a mesh."""
     if rules.mesh is None or specs is None:
         return params
-    drop = () if cfg is None else sh.heads_drop(cfg, mesh_shape(rules)[1])
-    return sh.cut_tree(params, sh.physical_specs(params, serving_param_specs(specs), rules, drop),
-                       rules)
+    return sh.cut_tree(params, param_shardings(params, specs, rules, cfg), rules)
 
 
 def _cache_drop(cfg, layout, rules) -> Tuple[Any, ...]:
@@ -124,11 +152,20 @@ def cache_shardings(cache, cfg, layout, rules: sh.ShardingRules):
     """The spec of every leaf of a serving cache under the port's
     placement (``None`` without a mesh): pools and stacks heads-parallel
     on ``"model"``, slot-layout stores batch-parallel on ``"data"``,
-    ``pos`` and the page table replicated."""
+    ``pos`` and the page table replicated; the mamba state by heads on
+    ``"model"`` (``B`` / ``C``'s conv channels whole) and slot-major on
+    ``"data"`` in both layouts."""
     if rules.mesh is None:
         return None
     specs = dict(kvc.cache_specs(cfg, layout), pos=(None,))
-    return sh.physical_specs(cache, specs, rules, _cache_drop(cfg, layout, rules))
+    stores = {k: v for k, v in cache.items() if k != "mamba"}
+    out = sh.physical_specs(stores, specs, rules, _cache_drop(cfg, layout, rules))
+    if "mamba" in cache:
+        d, m = mesh_shape(rules)
+        out["mamba"] = sh.physical_specs(
+            cache["mamba"], specs["mamba"], rules, (sh.BATCH,) if layout.batch % d else (),
+            mamba2.state_segments(cfg, sh.mixer_split(cfg, m)))
+    return out
 
 
 def shard_cache(cache, cfg, layout, rules: sh.ShardingRules):
@@ -205,8 +242,8 @@ class Shard:
             raise NotImplementedError(
                 f"sharded serving: {', '.join(knobs)} is not served (the placement shards "
                 f"heads, vocab and slots only, and the reference's serve driver never sets "
-                f"them; what is left of ROADMAP item 7c is item 7c-ii, the ssm, hybrid and "
-                f"enc_dec families)")
+                f"them; what is left of ROADMAP item 7c is item 7c-ii (b), the enc_dec "
+                f"family)")
         if len([a for a in rules.batch_axes if sh.mesh_sizes(rules.mesh).get(a, 1) > 1]) > 1:
             raise NotImplementedError("sharded serving: one batch axis (data); a pod axis "
                                       "of more than one replica is not served")
@@ -216,7 +253,8 @@ class Shard:
         slots = layout.batch % d == 0
         split = sh.ModelSplit(size=m, rank=coords[rules.model_axis],
                               heads=sh.heads_split(cfg, m), vocab=cfg.vocab_size % m == 0,
-                              group=rules.mesh.get_group(rules.model_axis))
+                              group=rules.mesh.get_group(rules.model_axis),
+                              ssm=sh.mixer_split(cfg, m))
         return cls(batch=layout.batch, data=d, d_rank=coords.get(data_axis, 0), slots=slots,
                    split_stores=slots and layout.layout == "slot",
                    data_group=rules.mesh.get_group(data_axis), split=split)
@@ -240,6 +278,13 @@ class Shard:
         """``slot``'s row in this rank's slot-major stores; -1 where another
         data rank holds it."""
         if not self.split_stores:
+            return slot
+        return slot - self.lo if self.lo <= slot < self.hi else -1
+
+    def state_row(self, slot: int) -> int:
+        """``slot``'s row in this rank's mamba state, which is slot-major on
+        ``"data"`` in both layouts; -1 where another data rank holds it."""
+        if not self.slots:
             return slot
         return slot - self.lo if self.lo <= slot < self.hi else -1
 

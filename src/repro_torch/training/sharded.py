@@ -35,9 +35,22 @@ once.  Its dispatch is the reference's group-local one: the rank's rows of
 the global batch are its token group (``ShardingRules.group_sizes``'
 contiguous block where ``"data"`` divides the batch; a batch it does not
 divide is refused), and the auxiliary loss is the global one over
-``"data"``.  A VLM's ``Tv + S`` stream is what ``sp`` splits.  The ssm,
-hybrid and enc_dec families raise, naming ROADMAP item 7c-ii (as
-serving's refusal does).
+``"data"``.  A VLM's ``Tv + S`` stream is what ``sp`` splits.
+
+The ssm and hybrid families train on a mesh too.  A mamba mixer splits by
+heads where ``"model"`` divides its head count
+(:func:`~repro_torch.distributed.sharding.mixer_split`; elsewhere it
+replicates, with the warning): ``in_proj``'s ``z``, ``x`` and ``dt``
+columns, the conv's ``x`` channels, the gated norm's scale and
+``out_proj``'s rows on the rank's heads, ``B`` / ``C``'s columns and
+channels, ``A_log``, ``D`` and ``dt_bias`` whole
+(:func:`repro_torch.models.mamba2.mixer_segments`, a placement that differs
+from GSPMD's contiguous cut of the packed axis); the gated norm's squares
+are summed over ``"model"`` and ``out_proj`` is row-parallel.  Under ``sp``
+the mixer gathers the sequence (its scan needs all of it).  The hybrid's
+attention layer takes the dense split, its MoE layers the MoE's.  The
+enc_dec family raises, naming ROADMAP item 7c-ii (b) (as serving's refusal
+does).
 """
 
 from __future__ import annotations
@@ -62,9 +75,9 @@ def _axes(entry):
 def train_specs(cfg, rules: sh.ShardingRules, logical: Optional[Tree] = None):
     """``(shapes, specs, drop)``: the whole parameters on the meta device,
     their physical specs under ``rules`` (``logical``: the model's logical
-    tree, ``model_zoo.param_specs`` when None) and the logical axes
-    replicated on purpose: the heads, where ``"model"`` does not divide
-    both head counts (warning
+    tree, ``model_zoo.param_specs`` when None; the mamba mixers placed by
+    :func:`_segments`) and the logical axes replicated on purpose: the
+    heads, where ``"model"`` does not divide both head counts (warning
     :class:`~repro_torch.distributed.sharding.ShardingFallbackWarning`).
     Needs only the mesh's shape."""
     from repro_torch.models import model_zoo
@@ -73,11 +86,20 @@ def train_specs(cfg, rules: sh.ShardingRules, logical: Optional[Tree] = None):
     logical = model_zoo.param_specs(cfg) if logical is None else logical
     shapes = model_zoo.init(cfg, None, "meta")
     drop = sh.heads_drop(cfg, m)
-    return shapes, sh.physical_specs(shapes, logical, rules, drop), drop
+    return shapes, sh.physical_specs(shapes, logical, rules, drop, _segments(cfg, m)), drop
+
+
+def _segments(cfg, m: int, warn: bool = True) -> Optional[Tree]:
+    """The mixers' placement over a model axis of ``m``
+    (``model_zoo.param_segments``): split by heads where ``m`` divides
+    them, else whole (warning, with ``warn``)."""
+    from repro_torch.models import model_zoo
+
+    return model_zoo.param_segments(cfg, sh.mixer_split(cfg, m, warn=warn))
 
 
 def _ff_split(layer_specs, rules: sh.ShardingRules) -> bool:
-    """Whether ``"model"`` splits the layers' FF: the MLP's, or an MoE's
+    """Whether ``"model"`` splits a layer tree's FF: the MLP's, or an MoE's
     experts' (whose shared expert must split alike)."""
     on = lambda spec: rules.model_axis in _axes(spec[-1])
     if "moe" not in layer_specs:
@@ -89,14 +111,37 @@ def _ff_split(layer_specs, rules: sh.ShardingRules) -> bool:
     return ff
 
 
+def _model_ff_split(specs, rules: sh.ShardingRules) -> bool:
+    """:func:`_ff_split` over every layer tree with an FFN: the stacked
+    ``layers`` or each of the hybrid's ``blocks/pos{j}`` (which must agree);
+    False for a model without one (mamba2)."""
+    trees = [specs["layers"]] if "layers" in specs else list(specs.get("blocks", {}).values())
+    found = {_ff_split(t, rules) for t in trees if "mlp" in t or "moe" in t}
+    if len(found) > 1:
+        raise NotImplementedError("sharded training: the model axis splits one layer's FF "
+                                  "and not another's")
+    return found.pop() if found else False
+
+
+def _moment_segments(segments: Optional[Tree], int8: bool) -> Optional[Tree]:
+    """The optimizer state's segments: the parameters' on each moment
+    (an int8 moment's codes; its row scales are whole)."""
+    if segments is None:
+        return None
+    rec = lambda t: ({k: rec(v) for k, v in t.items()} if isinstance(t, dict)
+                     else ({"q": t} if int8 else t))
+    return {"m": rec(segments), "v": rec(segments)}
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainShard:
     """What one rank holds of a ``(cfg, rules)`` training placement: the
     parameters' physical ``specs`` (their whole ``shapes`` on the meta
     device), its place on ``"model"`` (``split``), FSDP's gather dims
-    (``fsdp``, None without it), its share of the batch over ``"data"``
-    and, for each parameter leaf, the process groups of each dim
-    (``groups``: the optimizer's reductions).  Built by :meth:`of`."""
+    (``fsdp``, None without it), its share of the batch over ``"data"``,
+    for each parameter leaf the process groups of each dim (``groups``:
+    the optimizer's reductions) and the mamba mixers' placement
+    (``segments``).  Built by :meth:`of`."""
 
     rules: sh.ShardingRules
     logical: Tree
@@ -109,6 +154,7 @@ class TrainShard:
     d_rank: int
     data_group: Any
     groups: Tree
+    segments: Optional[Tree] = None  # the mixers' placement (physical_specs' segments)
 
     @classmethod
     def of(cls, cfg, rules: Optional[sh.ShardingRules],
@@ -119,8 +165,9 @@ class TrainShard:
         sh.require_mesh_family(cfg, "sharded training")
         if rules.seq_shard:
             raise NotImplementedError("sharded training: seq_shard is the long-context "
-                                      "decode knob, not a training rule (ROADMAP item 7c-ii "
-                                      "leaves it to the ssm / hybrid / enc_dec placement)")
+                                      "decode knob, not a training rule; no family trains "
+                                      "with it (ROADMAP item 7c-ii (b), enc_dec, is the last "
+                                      "family to place)")
         from repro_torch.models import model_zoo
 
         mesh, sizes = rules.mesh, sh.mesh_sizes(rules.mesh)
@@ -139,18 +186,23 @@ class TrainShard:
         split = sh.ModelSplit(
             size=m, rank=coords[rules.model_axis], heads=not drop,
             vocab=rules.model_axis in _axes(specs["embed"][0]),
-            group=mesh.get_group(rules.model_axis), ff=_ff_split(specs["layers"], rules),
-            rows=True, seq=rules.sp)
+            group=mesh.get_group(rules.model_axis), ff=_model_ff_split(specs, rules),
+            rows=True, seq=rules.sp, ssm=sh.mixer_split(cfg, m))
         data_group = mesh.get_group(data_axis)
         dims = tree_map(lambda spec: next((i for i, e in enumerate(spec)
                                            if data_axis in _axes(e)), None), specs)
         fsdp = sh.DataSplit(data_group, dims) if any(
             d is not None for _, d in tree_items(dims)) else None
-        groups = tree_map(lambda spec: tuple(tuple(mesh.get_group(a) for a in _axes(e))
-                                             for e in spec), specs)
+
+        def dim_groups(e):  # a segmented dim's groups carry its parts (the global norm)
+            gs = tuple(mesh.get_group(a) for a in _axes(e))
+            return sh.PartGroups(gs, e.parts) if isinstance(e, sh.Segments) else gs
+
+        groups = tree_map(lambda spec: tuple(dim_groups(e) for e in spec), specs)
         return cls(rules=rules, logical=logical, shapes=shapes, specs=specs, drop=drop,
                    split=split, fsdp=fsdp, data=sizes[data_axis], d_rank=coords[data_axis],
-                   data_group=data_group, groups=groups)
+                   data_group=data_group, groups=groups,
+                   segments=_segments(cfg, m, warn=False))
 
     # ---- placement ------------------------------------------------------
 
@@ -164,7 +216,8 @@ class TrainShard:
         from repro_torch.optim import adamw_init, opt_state_specs
 
         return sh.physical_specs(adamw_init(self.shapes, opt_cfg),
-                                 opt_state_specs(self.logical, opt_cfg), self.rules, self.drop)
+                                 opt_state_specs(self.logical, opt_cfg), self.rules, self.drop,
+                                 _moment_segments(self.segments, opt_cfg.state_dtype == "int8"))
 
     def placement(self, opt_cfg) -> sh.Placement:
         """The train state's ``{"params", "opt"}`` placement

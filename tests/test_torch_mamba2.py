@@ -292,3 +292,27 @@ def test_every_leaf_crosses_with_its_dtype():
         bits = t.view(torch.int16).numpy() if want == torch.bfloat16 else t.numpy()
         np.testing.assert_array_equal(bits, a.view(np.int16) if want == torch.bfloat16 else a)
     assert {str(p[-1].key) for p, a in jl if a.dtype.name != "bfloat16"} == {"A_log", "D", "dt_bias"}
+
+
+def test_ssd_chunked_gradient_is_finite_past_f32_exp_range():
+    """A chunk whose summed decay passes 88 (e^88 is float32's largest):
+    the intra-chunk exponential above the diagonal would overflow, so it is
+    masked before it is taken; the forward and every grad are finite and
+    within 1e-5 of the same scan in float64, where nothing overflows (the
+    reference's ``where(causal, exp(decay), 0)`` gives its backward
+    ``0 * inf = NaN`` here)."""
+    rng = np.random.default_rng(9)
+    B, S, H, P, N, chunk = 1, 64, 2, 4, 3, 64
+    base = {"x": rng.normal(size=(B, S, H, P)), "dt": np.full((B, S, H), 2.0),
+            "A": -np.ones(H), "Bm": rng.normal(size=(B, S, N)), "Cm": rng.normal(size=(B, S, N))}
+    grads = {}
+    for dtype in (torch.float32, torch.float64):
+        ts = {k: torch.tensor(v, dtype=dtype, requires_grad=True) for k, v in base.items()}
+        y = mamba2.ssd_chunked(ts["x"], ts["dt"], ts["A"], ts["Bm"], ts["Cm"], chunk=chunk)
+        (y * torch.linspace(-1, 1, y.numel(), dtype=dtype).reshape(y.shape)).sum().backward()
+        grads[dtype] = {k: t.grad for k, t in ts.items()}
+        assert bool(torch.isfinite(y).all())
+    for k, g in grads[torch.float32].items():
+        want = grads[torch.float64][k]
+        assert bool(torch.isfinite(g).all()), k
+        _close(g.double(), want, tol=1e-5)

@@ -201,8 +201,10 @@ class TestRefusals:
         _, cfg, _, params = served
         lay = tkvc.layout_for(cfg, SLOTS, MAX_SEQ)
         # a mesh serves the dense, MoE and VLM families: an MoE Scheduler on a
-        # 1x1 mesh (a gloo world of one) builds; the ssm, hybrid and enc_dec
-        # families under a mesh are item 7c-ii
+        # 1x1 mesh (a gloo world of one) builds; the ssm and hybrid families
+        # take a mesh through make_serve_step, and the Scheduler refuses them
+        # as it does on one device; the enc_dec family under a mesh is item
+        # 7c-ii (b)
         from repro_torch.launch import mesh as launch_mesh
         from repro_torch.models import model_zoo as tzoo
 
@@ -218,7 +220,9 @@ class TestRefusals:
         rules = ShardingRules(mesh={"data": 1, "model": 1})
         for arch in ("mamba2-1.3b", "jamba-1.5-large-398b", "whisper-medium"):
             other = get_config(arch, smoke=True)
-            with pytest.raises(NotImplementedError, match="item 7c-ii"):
+            refusal = ((NotImplementedError, r"item 7c-ii \(b\)") if arch == "whisper-medium"
+                       else (ValueError, "decodes through make_serve_step directly"))
+            with pytest.raises(refusal[0], match=refusal[1]):
                 Scheduler(params, other, tkvc.layout_for(other, SLOTS, MAX_SEQ), device="cpu",
                           rules=rules)
         # speculative decoding is ported: the call that raised now builds

@@ -162,10 +162,35 @@ def test_train_launcher_resumes_under_torchrun(tmp_path):
     assert straight.count("[train] step") == 3  # rank 0 alone logs
 
 
+class _Mesh:  # the shape and coordinates a 2x2 DeviceMesh gives, without a world
+    mesh_dim_names = ("data", "model")
+    shape = (2, 2)
+
+    @staticmethod
+    def get_local_rank(axis):
+        return 0
+
+    @staticmethod
+    def get_group(axis):
+        return None
+
+
 def test_train_launcher_refuses_another_family_on_a_mesh(tmp_path):
-    """The ssm family under ``--mesh`` raises, naming item 7c-ii (the
-    dense, MoE and VLM families train sharded)."""
-    out = _launch(["-m", "repro_torch.launch.train", "--device", "cpu", "--arch", "mamba2-1.3b",
-                   "--mesh", "1,1", "--steps", "1", "--ckpt-dir", str(tmp_path / "c"),
-                   "--heartbeat", str(tmp_path / "hb.json")])
-    assert out.returncode != 0 and "item 7c-ii" in out.stderr, out.stderr[-2000:]
+    """The enc_dec family under ``--mesh`` raises, naming item 7c-ii (b)
+    (the dense, MoE, VLM, ssm and hybrid families train sharded): the
+    placement of mamba2 and jamba under the launcher's ``--fsdp`` rules on
+    2x2 builds, and so does its checkpoint placement."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training.sharded import TrainShard
+
+    out = _launch(["-m", "repro_torch.launch.train", "--device", "cpu", "--arch",
+                   "whisper-medium", "--mesh", "1,1", "--steps", "1", "--ckpt-dir",
+                   str(tmp_path / "c"), "--heartbeat", str(tmp_path / "hb.json")])
+    assert out.returncode != 0 and "item 7c-ii (b)" in out.stderr, out.stderr[-2000:]
+    rules = sh.rules_for_mesh(_Mesh(), fsdp_axes=(sh.D_MODEL,), sp=True)
+    for arch in ("mamba2-1.3b", "jamba-1.5-large-398b"):
+        shard = TrainShard.of(get_config(arch, smoke=True), rules)
+        assert shard.split.ssm and shard.fsdp is not None
+        assert shard.placement(AdamWConfig(state_dtype="int8")).specs["opt"]["m"]

@@ -112,13 +112,15 @@ for key, c in job["cases"].items():
     params, specs = jzoo.init(jax.random.key(0), cfg)
     rules = (jsh.rules_for_mesh(mesh, fsdp_axes=(jsh.D_MODEL,) if c["fsdp"] else (), sp=m > 1)
              if c["on_mesh"] else jsh.ShardingRules())
-    opt = jadamw.AdamWConfig(state_dtype=c["state_dtype"], **job["opt"])
-    bs = [{k: jnp.asarray(v) for k, v in b.items()} for b in job["batches"][c["arch"]]]
+    kw = c.get("kw") or job["kw"]  # a case may bring its own fwd_kw, AdamW settings, batches
+    opt = jadamw.AdamWConfig(state_dtype=c["state_dtype"], **(c.get("opt") or job["opt"]))
+    bs = [{k: jnp.asarray(v) for k, v in b.items()}
+          for b in (c.get("batches") or job["batches"][c["arch"]])]
     res = {}
     if c["grad_accum"] == 1:
-        loss_fn = jts.make_loss_fn(cfg, rules, job["kw"])
+        loss_fn = jts.make_loss_fn(cfg, rules, kw)
         res["grads"] = flat(jax.jit(jax.grad(lambda p, b: loss_fn(p, b)[0]))(params, bs[0]))
-    step = jax.jit(jts.make_train_step(cfg, rules, opt, job["kw"], grad_accum=c["grad_accum"],
+    step = jax.jit(jts.make_train_step(cfg, rules, opt, kw, grad_accum=c["grad_accum"],
                                        param_specs=specs))
     state = {"params": params, "opt": jadamw.adamw_init(params, opt)}
     res["metrics"] = []

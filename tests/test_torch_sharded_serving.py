@@ -500,8 +500,37 @@ def test_serve_launcher_runs_under_torchrun(tmp_path):
     assert stats["finished_requests"] == 3
 
 
+class _Mesh:  # the shape and coordinates a 1x2 DeviceMesh gives, without a world
+    mesh_dim_names = ("data", "model")
+    shape = (1, 2)
+
+    @staticmethod
+    def get_local_rank(axis):
+        return 0
+
+    @staticmethod
+    def get_group(axis):
+        return None
+
+
 def test_launcher_refuses_another_family_on_a_mesh():
-    """The ssm family under a mesh raises, naming item 7c-ii (the dense,
-    MoE and VLM families are served sharded)."""
-    run = _launch(["--arch", "mamba2-1.3b", "--mesh", "1,1", "--requests", "1"])
-    assert run.returncode != 0 and "7c-ii" in run.stderr, run.stderr[-2000:]
+    """The enc_dec family under a mesh raises, naming item 7c-ii (b) (the
+    dense, MoE and VLM families are served sharded through the launcher);
+    the ssm and hybrid families take a mesh through ``make_serve_step``,
+    which builds on a 1x2 placement, their mixers' ``in_proj`` cut to the
+    rank's heads with ``B`` / ``C`` whole."""
+    from repro_torch.serving import engine
+
+    run = _launch(["--arch", "whisper-medium", "--mesh", "1,1", "--requests", "1"])
+    assert run.returncode != 0 and "7c-ii (b)" in run.stderr, run.stderr[-2000:]
+    rules = sh.rules_for_mesh(_Mesh())
+    for arch in ("mamba2-1.3b", "jamba-1.5-large-398b"):
+        cfg = get_config(arch, smoke=True)
+        lay = kvc.layout_for(cfg, 2, 16)
+        assert engine.make_serve_step(cfg, lay, rules) is not None
+        params = model_zoo.init(cfg, torch.Generator().manual_seed(0), "cpu")
+        local = shd.shard_params(params, model_zoo.param_specs(cfg), rules, cfg)
+        mixer = (local["layers"]["mixer"] if cfg.family == "ssm"
+                 else local["blocks"]["pos0"]["mamba"])
+        d_in, N = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+        assert mixer["in_proj"].shape[-1] == d_in + 2 * N + d_in // cfg.ssm_head_dim // 2

@@ -158,11 +158,18 @@ def jax_oracle(case, data):
 
 
 def unequal_over_model(shard, tree, model_group):
-    """The leaves of ``tree`` not split over "model" that are not bit-equal
-    on every model rank."""
+    """The leaves of ``tree`` not split over "model" (of a segmented leaf,
+    its whole parts) that are not bit-equal on every model rank."""
     bad, specs = [], dict(tree_items(shard.specs))
     for key, x in tree_items(tree):
-        if any("model" in (e if isinstance(e, tuple) else (e,)) for e in specs[key] if e):
+        seg = next(((i, e) for i, e in enumerate(specs[key]) if isinstance(e, sh.Segments)),
+                   None)
+        if seg is not None:
+            i, e = seg
+            x = torch.cat([p for p, split in sh.part_pieces(x, i, e.parts,
+                                                              sh.group_size(model_group))
+                           if not split], i)
+        elif any("model" in (e if isinstance(e, tuple) else (e,)) for e in specs[key] if e):
             continue
         every = sh.all_gather(x[None], model_group, 0)
         if not all(torch.equal(every[0], e) for e in every[1:]):
@@ -360,14 +367,30 @@ def test_one_rank_mesh_is_the_one_device_step():
     assert all(torch.equal(res["opt"][k], x) for k, x in tree_items(state["opt"]))
 
 
+class _Mesh:  # the shape and coordinates a 2x2 DeviceMesh gives, without a world
+    mesh_dim_names = ("data", "model")
+    shape = (2, 2)
+
+    @staticmethod
+    def get_local_rank(axis):
+        return 0
+
+    @staticmethod
+    def get_group(axis):
+        return None
+
+
 def test_other_families_and_knobs_are_refused_under_a_training_mesh():
-    """The ssm, hybrid and enc_dec families raise under a training mesh,
-    naming item 7c-ii, as serving's refusal does (the dense, MoE and VLM
-    families train sharded); so does ``seq_shard``."""
+    """The enc_dec family raises under a training mesh, naming item 7c-ii
+    (b), as serving's refusal does (the dense, MoE, VLM, ssm and hybrid
+    families train sharded: mamba2's and jamba's placements build, their
+    mixers split by heads); so does ``seq_shard``."""
     mesh = {"data": 2, "model": 2}
-    for arch in ("mamba2-1.3b", "jamba-1.5-large-398b", "whisper-medium"):
-        with pytest.raises(NotImplementedError, match="item 7c-ii"):
-            TrainShard.of(get_config(arch, smoke=True), sh.ShardingRules(mesh=mesh))
+    with pytest.raises(NotImplementedError, match=r"item 7c-ii \(b\)"):
+        TrainShard.of(get_config("whisper-medium", smoke=True), sh.ShardingRules(mesh=mesh))
+    for arch in ("mamba2-1.3b", "jamba-1.5-large-398b"):
+        shard = TrainShard.of(get_config(arch, smoke=True), sh.rules_for_mesh(_Mesh()))
+        assert shard.split.ssm and shard.split.size == 2
     with pytest.raises(NotImplementedError, match="7c"):
         TrainShard.of(get_config(PHI, smoke=True), sh.ShardingRules(mesh=mesh, seq_shard=True))
     assert TrainShard.of(get_config(PHI, smoke=True), sh.ShardingRules()) is None
