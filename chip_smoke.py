@@ -190,8 +190,13 @@ Phases, each of which fails the run (nonzero exit) on any error:
    copy with slot 0 reset so the slots decode at other positions; the
    decode_32k layout (max_seq 32768, B 2)
    in bgpp and int8 KV for 16 steps; the forward at B 1, S 128 (K5 72
-   launches: full, causal and cross); traces of the encoder and of bf16
-   and bgpp decode.  After
+   launches: full, causal and cross); the encoder and the bf16 and bgpp
+   paged decodes again through ``make_serve_step`` on a 1x1 NCCL mesh
+   (ROADMAP item 7c-ii (b): the encoder's memory and its cross K / V
+   bit-identical, then tokens identical, every step's logits
+   bit-identical and K1 / K2 24 launches a step as unsharded; ms a step,
+   collectives a step and the encoder's ms for both); traces of the
+   encoder and of bf16 and bgpp decode.  After
    every timed run, each of
    phi4-mini's chunked runs but int8 KV traces a few steady decode steps, and its
    eager one a whole-prompt admission, and gemma3-4b (6 layers) traces bf16
@@ -253,6 +258,15 @@ Phases, each of which fails the run (nonzero exit) on any error:
    attention layer with an MoE of 2 of its 16 experts; 2 f32 and 2 int8
    steps) through the sharded train step on a 1x1 NCCL mesh, bit-identical
    to one device; and the decode state a rank holds on 1x2 and 1x8.
+   The enc_dec family on a mesh (ROADMAP item 7c-ii (b)): K1 / K2 at
+   whisper-medium's 16 / 16 heads of 64 on every rank of 1x2 and 1x8, and
+   K5 / K5b (``full``: the encoder's S 1500, the cross-attention's 448
+   queries over 1500 frames) on rank 0 of 1x8 (phase 3), each bit-equal to
+   its slice of the whole launch; whisper-medium at full width and depth
+   (B 1, decoder S 448 over 1500 frames, remat; 3 f32 and 3 int8 steps)
+   through the sharded train step on a 1x1 NCCL mesh, bit-identical to one
+   device (K5 120, K5b 72 launches a step), one more f32 step's
+   collectives counted.
 6. Reference check: the same small models (the smoke configs of
    phi4-mini, gemma3-4b, deepseek-7b, mixtral-8x22b,
    llama4-scout-17b-a16e and paligemma-3b) and traces served on the card
@@ -277,7 +291,7 @@ Each phase's seconds print as a ``[time]`` line.
 
 ``--only kernels|head-widths|long-context|prefix|score|score-device|decode|
 decode-attends|ssm|hybrid|long-serve|whisper|server|train|sharded|sharded-train|
-sharded-moe|sharded-ssm`` (repeatable) runs just those parts of
+sharded-moe|sharded-ssm|sharded-encdec`` (repeatable) runs just those parts of
 phase 3 or 5 (``server``: phi4-mini-3.8b's bf16 and bgpp offline runs, then the
 front door over them; ``train``: K5b's cases and the training path; and, for
 ``score`` and ``decode``, K6's or K4's device times; ``decode-attends``
@@ -2743,10 +2757,11 @@ def sharded_serve(cfg, params, outcome, device, card, runs=SHARDED_RUNS, trace_k
 
 
 def sharded_decode_check(cfg, decode, want, what, card):
-    """ROADMAP item 7c-ii (a) served: ``decode(rules, spans, rows)`` (a
+    """ROADMAP item 7c-ii served: ``decode(rules, spans, rows)`` (a
     ``make_serve_step`` run from a zero state returning each slot's
     tokens) once more under ``rules_for(1, 1)`` over an NCCL world of one
-    (the mixers split by heads, every collective a group of one) against
+    (the mixers, or whisper's heads and cross memory, split; every
+    collective a group of one) against
     the unsharded run ``want`` = ``(rows (steps, B, V), tokens, ms a step,
     launches)``: tokens identical, every step's logits bit-identical, the
     same kernel launches.  Prints ms a step for both and the collectives a
@@ -2788,8 +2803,10 @@ def sharded_decode_check(cfg, decode, want, what, card):
         raise AssertionError(f"sharded {cfg.name} {what}: launches {launched}, unsharded "
                              f"{want_launches}")
     ms = np.mean([a.elapsed_time(b) for a, b in spans])
-    print(f"[sharded-ssm] {cfg.name} {what} through make_serve_step on a 1x1 mesh over NCCL "
-          f"(world of one; mixers split by heads): {len(spans)} steps of {got.shape[1]} slots, "
+    tag, cut = (("sharded-encdec", "heads and the cross memory split") if cfg.family == "enc_dec"
+                else ("sharded-ssm", "mixers split by heads"))
+    print(f"[{tag}] {cfg.name} {what} through make_serve_step on a 1x1 mesh over NCCL "
+          f"(world of one; {cut}): {len(spans)} steps of {got.shape[1]} slots, "
           f"tokens identical and every step's logits bit-identical to the unsharded run; "
           f"launches {launched or 'none'} as unsharded; {ms:.3f} ms a step (unsharded "
           f"{want_ms:.3f}; CUDA events), {len(calls) / len(spans):.0f} collectives a step, "
@@ -4207,6 +4224,8 @@ WHISPER_NEW, WHISPER_MAX_SEQ, WHISPER_PAGE = 16, 1024, 16
 WHISPER_RUNS = (("bf16", "paged"), ("int8", "paged"), ("bgpp", "paged"), ("bf16", "slot"))
 WHISPER_LONG_SEQ, WHISPER_LONG_B, WHISPER_LONG_STEPS = 32768, 2, 16
 WHISPER_LONG_FORMATS = ("bgpp", "int8")
+# served again through make_serve_step on a 1x1 NCCL mesh (ROADMAP item 7c-ii (b))
+WHISPER_SHARD_RUNS = (("bf16", "paged"), ("bgpp", "paged"))
 WHISPER_FWD_S, WHISPER_CPU_STEPS = 128, 4
 # the card against the CPU at full width over 4 steps from one cache: 1e-4
 # of max |logit|.  Both sides run the decode in f32 on the same weights and
@@ -4243,23 +4262,26 @@ def whisper_cache(cfg, cross, fmt, layout, batch, max_seq, device, page=WHISPER_
     return lay, cache
 
 
-def whisper_decode(cfg, params, cache, layout, prompts, new, forced=None, timed=None):
+def whisper_decode(cfg, params, cache, layout, prompts, new, forced=None, timed=None,
+                   rules=None, every=None):
     """Feed ``prompts`` (one a slot) through ``engine.make_serve_step``
     from the cache's positions, then ``new`` greedy (or ``forced``) tokens
-    (:func:`feed_greedy`).  Returns each slot's logits at its generated
+    (:func:`feed_greedy`; under ``rules`` on the rank's shard,
+    :func:`sharded_step`).  Returns each slot's logits at its generated
     positions ``(new, V)`` f32 on the CPU, its tokens and the cache;
-    ``timed`` (a list) collects each step's CUDA event pair."""
+    ``timed`` (a list) collects each step's CUDA event pair, ``every`` (a
+    list) each step's ``(B, V)`` logits."""
     import torch
 
-    from repro_torch.serving import engine
-
-    step = engine.make_serve_step(cfg, layout)
+    step, params, cache = sharded_step(cfg, layout, params, cache, rules)
     if timed is not None:
         step = _timed(step, timed)
     lens = [len(p) for p in prompts]
     rows = [[] for _ in prompts]
 
     def keep(t, lg, cache):
+        if every is not None:
+            every.append(lg.clone())
         for b, n in enumerate(lens):
             if n - 1 <= t < n - 1 + new:
                 rows[b].append(lg[b].cpu())
@@ -4365,6 +4387,8 @@ def whisper_phase(device, card):
     * The card against the CPU from the bf16 paged run's final cache
       (:func:`whisper_cpu_check`): bf16 as it is, and an f32 copy with
       slot 0 reset, so the slots' positions differ.
+    * The encoder and the :data:`WHISPER_SHARD_RUNS` decodes again on a
+      1x1 NCCL mesh (:func:`whisper_sharded`), bit for bit.
     * decode_32k: max_seq 32768, B 2, :data:`WHISPER_LONG_FORMATS`, 16
       steps each (K1's int8 body / K2 over 32768 lanes, 24 a step).
     * Forward: ``model_zoo.forward`` at B 1, S 128 (K5 72 launches: 24
@@ -4415,20 +4439,19 @@ def whisper_phase(device, card):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; cross_kv into the cache's "
           f"memory in {cross_s * 1e3:.1f} ms, {cross_b} B a slot ({L} layers x "
           f"{cfg.num_kv_heads} heads x {cfg.encoder_seq} x {cfg.head_dim} x K and V) [{card}]")
-    del memory
 
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, V, n) for n in WHISPER_PROMPTS]
-    kept, tokens_of = {}, {}
+    kept, tokens_of, unsharded = {}, {}, {}
     for fmt, layout in WHISPER_RUNS:
         free_device()
         torch.cuda.reset_peak_memory_stats()
         lay, cache = whisper_cache(cfg, cross, fmt, layout, B, WHISPER_MAX_SEQ, device)
-        spans = []
+        spans, every = [], ([] if (fmt, layout) in WHISPER_SHARD_RUNS else None)
         K.reset_launches()
         t0 = time.perf_counter()
         rows, gen, cache = whisper_decode(cfg, params, cache, lay, prompts, WHISPER_NEW,
-                                          timed=spans)
+                                          timed=spans, every=every)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         steps = len(spans)
@@ -4440,6 +4463,9 @@ def whisper_phase(device, card):
         tokens_of[(fmt, layout)] = gen
         kv = kvc.decode_read_bytes(lay, cfg)["total"]
         ms = np.mean([a.elapsed_time(b) for a, b in spans])
+        if every is not None:
+            unsharded[fmt] = (torch.stack(every), gen, ms, {KERNEL_OF[fmt]: L * steps})
+            del every
         same = ""
         if (fmt, layout) == ("bf16", "slot"):
             same = (f"; greedy tokens equal to the paged bf16 run's in "
@@ -4462,6 +4488,13 @@ def whisper_phase(device, card):
     # cache as the run left it, then from an f32 copy with slot 0 reset
     lay, cache, last = kept["bf16"]
     whisper_cpu_check(cfg, params, lay, cache, last, cross, device)
+    free_device()
+
+    # the encoder and the paged decodes again on a 1x1 NCCL mesh: bit for bit
+    for name, n in whisper_sharded(cfg, params, frames, memory, cross, enc_ms, prompts,
+                                   unsharded, device, card).items():
+        total[name] += n
+    del memory, unsharded
     free_device()
 
     # decode_32k: the reference's 32768-lane cache, B 2
@@ -4522,6 +4555,79 @@ def whisper_phase(device, card):
         del cache
     del params, cross, frames
     free_device()
+    return total
+
+
+def whisper_sharded(cfg, params, frames, memory, cross, enc_ms, prompts, unsharded, device,
+                    card):
+    """ROADMAP item 7c-ii (b) served on the card: under ``rules_for(1, 1)``
+    over an NCCL world of one, the encoder on the rank's slots' frames and
+    heads (``Shard.of`` of the paged layout) and ``cross_kv`` of its kv
+    heads, each bit-identical to the unsharded ``memory`` / ``cross``
+    (K5 24 launches a call as unsharded; ms, CUDA events, 3 calls, beside
+    the unsharded ``enc_ms``; collectives a call); then each of
+    :data:`WHISPER_SHARD_RUNS` decoded from that cross memory through
+    ``make_serve_step`` on the mesh (:func:`sharded_decode_check` against
+    ``unsharded[fmt]``).  Returns the sharded runs' launches (the encoder's
+    and the decodes')."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels as K
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import model_zoo, whisper
+    from repro_torch.serving import kv_cache as kvc, sharded as shd
+
+    B = len(prompts)
+    started = start_world()
+    total = {}
+    try:
+        rules = shd.rules_for(1, 1, "cuda")
+        lay = kvc.layout_for(cfg, B, WHISPER_MAX_SEQ, layout="paged", page_size=WHISPER_PAGE)
+        shard = shd.Shard.of(cfg, lay, rules)
+        local = shd.shard_params(params, model_zoo.param_specs(cfg), rules, cfg)
+        rows = frames[shard.lo:shard.hi]
+        calls, real = [], sh.all_gather
+        sh.all_gather = lambda x, group, dim=0: calls.append(1) or real(x, group, dim)
+        try:
+            K.reset_launches()
+            got = whisper.encode(local, cfg, rows, shard.split)
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in K.LAUNCHES.items() if v}
+            n_enc = len(calls)
+            got_cross = whisper.cross_kv(local, cfg, got, shard.split)
+        finally:
+            sh.all_gather = real
+        for name, n in launched.items():
+            total[name] = total.get(name, 0) + n
+        if launched != {"flash_attention": cfg.encoder_layers}:
+            raise AssertionError(f"sharded {cfg.name} encoder: launches {launched}")
+        if not torch.equal(got, memory[shard.lo:shard.hi]):
+            raise AssertionError(f"sharded {cfg.name} encoder: memory differs from the "
+                                 f"unsharded encoder's")
+        if not all(torch.equal(a, b[:, shard.lo:shard.hi]) for a, b in zip(got_cross, cross)):
+            raise AssertionError(f"sharded {cfg.name} cross_kv: differs from the unsharded "
+                                 f"cross memory")
+        ms = time_ms(lambda: whisper.encode(local, cfg, rows, shard.split), iters=3)
+        print(f"[sharded-encdec] {cfg.name} encoder on a 1x1 mesh over NCCL (world of one; "
+              f"heads split): {shard.hi - shard.lo} rows x {cfg.encoder_seq} frames, memory and "
+              f"cross_kv bit-identical to the unsharded encoder's; launches {launched}; "
+              f"{ms:.3f} ms (unsharded {enc_ms:.3f}; CUDA events, 3 calls), {n_enc} "
+              f"collectives a call [{card}]")
+        del got, local
+        for fmt, layout in WHISPER_SHARD_RUNS:
+            def decode(r, t, w, fmt=fmt, layout=layout):
+                lay_, cache = whisper_cache(cfg, got_cross if r is not None else cross, fmt,
+                                            layout, B, WHISPER_MAX_SEQ, device)
+                return whisper_decode(cfg, params, cache, lay_, prompts, WHISPER_NEW, timed=t,
+                                      rules=r, every=w)[1]
+            for name, n in sharded_decode_check(cfg, decode, unsharded.pop(fmt),
+                                                f"{fmt} KV {layout} decode", card).items():
+                total[name] = total.get(name, 0) + n
+            free_device()
+    finally:
+        if started:
+            dist.destroy_process_group()
     return total
 
 
@@ -5624,8 +5730,8 @@ def train_runs(cfg, batch, rules, fmt, device, want=None, trace=False,
     parameter leaves on the card (the moments freed), or, given ``want``
     (another run's), how many of them differ from it.  With ``trace``, one
     more step then counts the collectives it issues
-    (``sharding.all_gather`` carries every one) and another is traced
-    (:func:`train_step_trace`)."""
+    (``sharding.all_gather`` carries every one) and, unless ``trace`` is
+    ``"count"``, another is traced (:func:`train_step_trace`)."""
     import torch
 
     from repro_torch.distributed import sharding as sh
@@ -5683,36 +5789,43 @@ def train_runs(cfg, batch, rules, fmt, device, want=None, trace=False,
             sh.all_gather = real
         print(f"[sharded-train] {cfg.name} {fmt}, {'sharded' if rules else 'one-device'}: "
               f"{len(calls)} collectives a step")
-        state = train_step_trace(step_fn, state, batch,
-                                 f"{cfg.name} {fmt} {'sharded 1x1' if rules else 'one-device'}")
+        if trace != "count":
+            state = train_step_trace(step_fn, state, batch, f"{cfg.name} {fmt} "
+                                     f"{'sharded 1x1' if rules else 'one-device'}")
     del state, params, step_fn
     free_device()
     return run
 
 
 def held_to_one_device(cfg, batch, rules, fmts, device, card, steps=SHARD_TRAIN_STEPS,
-                       trace_fmt=None, tokens=None):
+                       trace_fmt=None, tokens=None, count_fmt=None):
     """For each moments format of ``fmts``: ``steps`` one-device steps, then
     the same through the sharded train step under ``rules`` (an NCCL world
     of one): every step's loss, ``ce``, ``aux`` and grad norm must equal the
     one-device step's bit for bit, and after the last step every
     parameter; every step launches K5 2A times (forward and remat) and K5b
     A times, nothing else, A the attention layers (every layer but a
-    mamba mixer's).  ``trace_fmt``'s sharded run counts and traces
-    one more step.  Prints ms a step, ``tokens`` (a step's rows, B x S
-    when None) a second, the peak and an MoE's dropped share.  Returns the
-    sharded steps' launches summed."""
+    mamba mixer's; whisper: K5 E + 4L, the encoder's E not rematerialised
+    and the decoder's causal and cross each twice, K5b E + 2L).
+    ``trace_fmt``'s sharded run counts and traces one more step,
+    ``count_fmt``'s counts it only.  Prints ms a step, ``tokens`` (a step's
+    rows, B x S when None) a second, the peak and an MoE's dropped share.
+    Returns the sharded steps' launches summed."""
     L = cfg.num_layers
     A = sum(cfg.layer_is_attention(i) for i in range(L))
+    fwd, bwd = 2 * A, A
+    if cfg.family == "enc_dec":
+        fwd, bwd = cfg.encoder_layers + 4 * L, cfg.encoder_layers + 2 * L
     rows = tokens or TRAIN_B * TRAIN_S
     total = {}
     for fmt in fmts:
         base = train_runs(cfg, batch, None, fmt, device, steps=steps)
         got = train_runs(cfg, batch, rules, fmt, device, want=base["out"],
-                         trace=fmt == trace_fmt, steps=steps)
+                         trace=True if fmt == trace_fmt else "count" if fmt == count_fmt
+                         else False, steps=steps)
         for i in range(steps):
             want = {n: 0 for n in got["launches"][i]}
-            want.update(flash_attention=2 * A, flash_attention_bwd=A)
+            want.update(flash_attention=fwd, flash_attention_bwd=bwd)
             if got["launches"][i] != want:
                 raise AssertionError(f"sharded train {cfg.name} {fmt} step {i}: launches "
                                      f"{got['launches'][i]}, want {want}")
@@ -5738,7 +5851,7 @@ def held_to_one_device(cfg, batch, rules, fmts, device, card, steps=SHARD_TRAIN_
                   f"{run['peak']:.2f} GiB{drop} [{card}]")
         print(f"[sharded-train] {cfg.name} {fmt}: the sharded 1x1 step (NCCL, fsdp rules) "
               f"is bit-identical to the one-device step: {steps} losses, ce, aux and grad "
-              f"norms, then all {len(base['out'])} parameter leaves; K5 {2 * A}, K5b {A} "
+              f"norms, then all {len(base['out'])} parameter leaves; K5 {fwd}, K5b {bwd} "
               f"launches a step")
         del base, got
         free_device()
@@ -5932,6 +6045,50 @@ def sharded_ssm_train_run(device, card):
     return total
 
 
+# the enc_dec family's sharded step (ROADMAP item 7c-ii (b)): whisper-medium
+# at full width and depth, B 1, the published decoder context of 448 tokens
+# over 1500 frames
+WHISPER_TRAIN_S = 448
+
+
+def sharded_encdec_train_run(device, card):
+    """ROADMAP item 7c-ii (b)'s training on the card: whisper-medium at full
+    width and depth (24 + 24 layers) at B 1, decoder S
+    :data:`WHISPER_TRAIN_S` over 1500 frames, remat (the decoder's), the
+    reference launcher's ``--fsdp`` rules on a 1x1 mesh over an NCCL world
+    of one against the one-device step (:func:`held_to_one_device`):
+    :data:`SHARD_TRAIN_STEPS` f32 and int8 steps, each loss, ``ce`` and
+    grad norm and then every parameter bit-identical, K5 120 and K5b 72
+    launches a step; the f32 run counts one more step's collectives.
+    Returns the sharded steps' launches summed."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset, to_device
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train import modality
+    from repro_torch.models import model_zoo
+
+    cfg = get_config(WHISPER_ARCH)
+    batch = to_device(SyntheticLMDataset(cfg.vocab_size, WHISPER_TRAIN_S, TRAIN_B, seed=0,
+                                         modality=modality(cfg)).batch(0), device)
+    nparam = sum(t.numel() for t in _leaves(model_zoo.init(cfg, None, "meta")))
+    print(f"[sharded-encdec] {cfg.name} at full width and depth ({cfg.encoder_layers} + "
+          f"{cfg.num_layers} layers, {nparam / 1e9:.3f} B params), B {TRAIN_B}, decoder S "
+          f"{WHISPER_TRAIN_S} over {cfg.encoder_seq} frames, remat, fsdp rules")
+    started = start_world()
+    try:
+        rules = sh.rules_for_mesh(make_debug_mesh(1, 1, "cuda"), fsdp_axes=(sh.D_MODEL,),
+                                  sp=False)
+        total = held_to_one_device(cfg, batch, rules, ("fp32", "int8"), device, card,
+                                   tokens=TRAIN_B * WHISPER_TRAIN_S, count_fmt="fp32")
+    finally:
+        if started:
+            dist.destroy_process_group()
+    return total
+
+
 def compressed_sync_check(cfg, batch, rules, device, card):
     """One int8-compressed sync of one step's grads on the card over the
     data axis of a world of one: ``compressed_psum_mean`` and
@@ -6032,9 +6189,38 @@ def shard_ssm_kernel_phase(device, flush):
     return records
 
 
-def rank_flash(device, flush, arch, Hq, Hk, S, kw, meshes, record, first_only=()):
+# whisper-medium's heads on a model rank (ROADMAP item 7c-ii (b)): its 16 / 16
+# heads of 64, g 1, split 8 / 8 and 2 / 2
+WHISPER_RANK_MESHES = ((1, 2), (1, 8))
+
+
+def shard_encdec_kernel_phase(device, flush):
+    """The enc_dec family's launches on a model rank at whisper-medium's
+    heads: K1 bf16 / int8 and K2 on every rank of
+    :data:`WHISPER_RANK_MESHES` (:func:`shard_attends`, rank (0, 0) of 1x8
+    timed), and K5 (with its log-sum-exp) and K5b on rank 0 of 1x8 at the
+    encoder's ``full`` over 1500 frames and the cross-attention's ``full``
+    of :data:`WHISPER_TRAIN_S` queries over them (:func:`rank_flash`), each
+    bit-equal to its slice of the whole launch.  Returns their records."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(WHISPER_ARCH)
+    records = shard_attends(device, flush, WHISPER_ARCH, WHISPER_RANK_MESHES,
+                            timed_mesh=(1, 8))
+    full = dict(mask_kind="full", window=0, q_offset=0)
+    for Sq in (cfg.encoder_seq, WHISPER_TRAIN_S):
+        records += rank_flash(device, flush, WHISPER_ARCH, Hq=cfg.num_heads,
+                              Hk=cfg.num_kv_heads, S=Sq, Sk=cfg.encoder_seq, kw=full,
+                              meshes=((1, 8),), record=(8,), first_only=((1, 8),),
+                              D=cfg.head_dim)
+    return records
+
+
+def rank_flash(device, flush, arch, Hq, Hk, S, kw, meshes, record, first_only=(), D=128,
+               Sk=None):
     """K5 (with its log-sum-exp) and K5b at ``arch``'s heads (``Hq`` /
-    ``Hk``, D 128, B 1, bf16, the mask ``kw``) at length ``S``, split over
+    ``Hk`` of ``D``, B 1, bf16, the mask ``kw``) at ``S`` queries over
+    ``Sk`` keys (``S`` when None), split over
     the model axes of ``meshes`` (only rank 0 of a mesh in
     ``first_only``): every rank's out, lse, dq, dk and dv must equal its
     heads' slice of the whole launch bit for bit, and be within K5's
@@ -6050,9 +6236,9 @@ def rank_flash(device, flush, arch, Hq, Hk, S, kw, meshes, record, first_only=()
     from repro_torch.core.attention import make_mask
 
     gen = torch.Generator(device=device).manual_seed(9)
-    B, D = TRAIN_B, 128
-    mk = lambda H: torch.randn((B, S, H, D), generator=gen, device=device).to(torch.bfloat16)
-    q, k, v, dout = mk(Hq), mk(Hk), mk(Hk), mk(Hq)
+    B, Sk = TRAIN_B, Sk or S
+    mk = lambda H, n: torch.randn((B, n, H, D), generator=gen, device=device).to(torch.bfloat16)
+    q, k, v, dout = mk(Hq, S), mk(Hk, Sk), mk(Hk, Sk), mk(Hq, S)
     kind, window = kw["mask_kind"], kw["window"]
     fwd = lambda q_, k_, v_: flash_ops._forward(q_, k_, v_, kind, window, 0, D ** -0.5,
                                                 want_lse=True)
@@ -6101,9 +6287,10 @@ def rank_flash(device, flush, arch, Hq, Hk, S, kw, meshes, record, first_only=()
                 share = max(share, (err / tol).max().item())
             worst = max(worst, share)
             if r == 0 and m in record:
+                length = f"S{S}" if Sk == S else f"Sq{S} Sk{Sk}"
                 case = (f"{arch} sharded train mesh 1x{m} rank 0: Hq {hq} Hk {hk} D {D} "
-                        f"{what} B{B} S{S} bf16")
-                pairs = int(make_mask(kind, S, S, window, 0, device).sum()) * B * hq
+                        f"{what} B{B} {length} bf16")
+                pairs = int(make_mask(kind, S, Sk, window, 0, device).sum()) * B * hq
                 o_err = (o_r.float() - want_out[:, :, qh]).abs()
                 rec = kernel_record(
                     "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -6132,7 +6319,7 @@ def rank_flash(device, flush, arch, Hq, Hk, S, kw, meshes, record, first_only=()
                 records.append(rec)
         print(f"[shard] K5 (with lse) and K5b at {arch}'s heads on {len(ranks)} of the {m} "
               f"model ranks of mesh 1x{m} (Hq {hq}, Hk {hk} a rank, D {D}, {what}, B {B}, "
-              f"S {S}, bf16): each rank's out, lse, dq, dk and dv bit-equal to its heads' "
+              f"Sq {S}, Sk {Sk}, bf16): each rank's out, lse, dq, dk and dv bit-equal to its heads' "
               f"slice of the whole launch, within the plain versions' bounds (worst err/tol "
               f"{worst:.3f})")
     del q, k, v, dout, out, lse, grads, want_out, want_grads
@@ -6203,7 +6390,7 @@ def sharded_train_launcher(card):
 
 PHASES = ("kernels", "head-widths", "long-context", "prefix", "score", "score-device", "decode",
           "decode-attends", "ssm", "hybrid", "long-serve", "whisper", "server", "train",
-          "sharded", "sharded-train", "sharded-moe", "sharded-ssm")
+          "sharded", "sharded-train", "sharded-moe", "sharded-ssm", "sharded-encdec")
 
 
 def sharded_only_phase(device, card):
@@ -6271,6 +6458,44 @@ def sharded_ssm_only_phase(device, card):
     timed(sharded_ssm_train_run, device, card)
 
 
+def sharded_encdec_only_phase(device, card):
+    """ROADMAP item 7c-ii (b) alone: whisper-medium's encoder over 4 x 1500
+    frames and its :data:`WHISPER_SHARD_RUNS` decodes of
+    :data:`WHISPER_PROMPTS` unsharded, then again on a 1x1 NCCL mesh
+    (:func:`whisper_sharded`), then :func:`sharded_encdec_train_run`."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.models import whisper
+
+    cfg, params = init_model(WHISPER_ARCH, device)
+    B = len(WHISPER_PROMPTS)
+    frames = whisper_frames(cfg, B, 0, device)
+    memory = whisper.encode(params, cfg, frames)
+    cross = whisper.cross_kv(params, cfg, memory)
+    enc_ms = time_ms(lambda: whisper.encode(params, cfg, frames), iters=3)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in WHISPER_PROMPTS]
+    unsharded = {}
+    for fmt, layout in WHISPER_SHARD_RUNS:
+        lay, cache = whisper_cache(cfg, cross, fmt, layout, B, WHISPER_MAX_SEQ, device)
+        spans, every = [], []
+        K.reset_launches()
+        _, gen, cache = whisper_decode(cfg, params, cache, lay, prompts, WHISPER_NEW,
+                                       timed=spans, every=every)
+        torch.cuda.synchronize()
+        unsharded[fmt] = (torch.stack(every), gen,
+                          np.mean([a.elapsed_time(b) for a, b in spans]),
+                          {k: v for k, v in K.LAUNCHES.items() if v})
+        del cache, every
+        free_device()
+    whisper_sharded(cfg, params, frames, memory, cross, enc_ms, prompts, unsharded, device, card)
+    del params, memory, cross, unsharded
+    free_device()
+    timed(sharded_encdec_train_run, device, card)
+
+
 def timed(fn, *args):
     """``fn(*args)``, its seconds printed as a ``[time]`` line."""
     t = time.perf_counter()
@@ -6310,7 +6535,11 @@ def main(argv=None) -> int:
              "the one-device step, 'sharded-ssm' each model rank's K1 / K2 and K5 / K5b "
              "launches at jamba's heads, mamba2-1.3b and jamba-1.5-large-398b decoding "
              "through make_serve_step on a 1x1 mesh against their unsharded runs, and their "
-             "sharded 1x1 train steps against the one-device step; without it "
+             "sharded 1x1 train steps against the one-device step, 'sharded-encdec' each model "
+             "rank's K1 / K2 and K5 / K5b launches at whisper-medium's heads, its encoder and "
+             "bf16 / bgpp paged decodes through make_serve_step on a 1x1 mesh against their "
+             "unsharded runs, and its sharded 1x1 train step against the one-device step; "
+             "without it "
              "every phase "
              "runs and the records are printed")
     only = parser.parse_args(argv).only
@@ -6360,6 +6589,8 @@ def main(argv=None) -> int:
         records += timed(shard_flash_phase, device, flush)
     if run("kernels") or run("sharded-ssm"):
         records += timed(shard_ssm_kernel_phase, device, flush)
+    if run("kernels") or run("sharded-encdec"):
+        records += timed(shard_encdec_kernel_phase, device, flush)
     if run("score"):
         records += timed(bgpp_kernel_phase, device, flush)
     if run("kernels"):
@@ -6394,6 +6625,8 @@ def main(argv=None) -> int:
             timed(sharded_moe_only_phase, device, card)
         if run("sharded-ssm"):
             timed(sharded_ssm_only_phase, device, card)
+        if run("sharded-encdec"):
+            timed(sharded_encdec_only_phase, device, card)
         torch.cuda.synchronize()
         print(card)
         return 0
@@ -6417,7 +6650,8 @@ def main(argv=None) -> int:
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     # K5 over the training steps counts beside the serving paths'; K5b runs there alone
-    for phase in (train_phase, sharded_train_run, sharded_moe_train_run, sharded_ssm_train_run):
+    for phase in (train_phase, sharded_train_run, sharded_moe_train_run, sharded_ssm_train_run,
+                  sharded_encdec_train_run):
         for name, n in timed(phase, device, card).items():
             launches[name] = launches.get(name, 0) + n
     timed(sharded_train_launcher, card)

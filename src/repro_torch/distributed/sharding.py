@@ -718,23 +718,6 @@ class DataSplit:
         return tree if dims is None else gather_shards(tree, self.group, dims)
 
 
-# the families that run on a mesh: dense, moe and vlm through the Scheduler
-# (the reference's serve driver takes only them, src/repro/launch/serve.py),
-# ssm and hybrid through make_serve_step, all of them trained; ROADMAP item
-# 7c-ii (b), enc_dec, is the rest
-MESH_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
-
-
-def require_mesh_family(cfg, who: str) -> None:
-    """Refuse a family that does not run on a mesh yet, naming ROADMAP item
-    7c-ii (b)."""
-    if cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{who}: family {cfg.family!r} under a mesh is ROADMAP item 7c-ii (b) (the "
-            f"enc_dec cross memory on kv_heads); the {', '.join(MESH_FAMILIES)} families "
-            f"run sharded")
-
-
 def mixer_heads(cfg) -> int:
     """The mamba mixers' head count ``ssm_expand * d_model / ssm_head_dim``
     (0 for a family without mixers)."""

@@ -225,7 +225,34 @@ def load() -> ctypes.CDLL:
     return _LIB
 
 
+def time_builds(trees: List[str]) -> None:
+    """A clean build of each checkout's library in turn (its own
+    ``build.py``, its ``build/repro_torch`` removed first), printing the
+    seconds and when each source's ``nvcc`` ended: to compare two trees'
+    builds on one host, e.g. ``python -m repro_torch.kernels.build PARENT .
+    . PARENT``."""
+    import importlib.util
+
+    for i, tree in enumerate(trees):
+        path = pathlib.Path(tree).resolve() / "src" / "repro_torch" / "kernels" / "build.py"
+        spec = importlib.util.spec_from_file_location(f"_timed_build_{i}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        shutil.rmtree(mod.BUILD_DIR, ignore_errors=True)
+        t0 = time.perf_counter()
+        mod.build()
+        ends = sorted(mod.COMPILE_SECONDS.items(), key=lambda kv: -kv[1])
+        print(f"[build] {tree}: {time.perf_counter() - t0:.2f} s; each source's nvcc ended at: "
+              + ", ".join(f"{n} {s:.1f} s" for n, s in ends), flush=True)
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a nonzero ``cudaError_t``."""
     if err:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+if __name__ == "__main__":
+    import sys
+
+    time_builds(sys.argv[1:] or ["."])

@@ -18,9 +18,9 @@ paged layout, request scheduler).
 The counterpart of ``repro.launch.serve``.  ``--mesh D,M`` serves on a
 ``(data, model)`` mesh of ``D * M`` ranks (:mod:`repro_torch.serving.sharded`:
 the dense, MoE and VLM families, as the reference's driver takes them; the
-ssm and hybrid families are refused here as on one device, since they
-decode through ``make_serve_step`` on a mesh, and enc_dec under a mesh is
-ROADMAP item 7c-ii (b)), one process a rank: under
+ssm, hybrid and enc_dec families are refused here as on one device, since
+they decode through ``make_serve_step`` on a mesh), one process a rank:
+under
 ``torchrun`` the world comes
 from its environment, NCCL on the card (each rank on the card of its
 ``LOCAL_RANK``) and gloo with ``--device cpu``; run without ``torchrun``,
@@ -82,7 +82,6 @@ from repro_torch import resolve_device
 from repro_torch.configs import (ARCH_REGISTRY, WEIGHT_FORMATS, apply_bgpp_overrides,
                                  apply_spec_decode_overrides, apply_weight_format_override,
                                  get_config, require_transformer)
-from repro_torch.distributed import sharding as sh
 from repro_torch.launch import mesh
 from repro_torch.models import model_zoo
 from repro_torch.serving import kv_cache as kvc
@@ -156,8 +155,6 @@ def main(argv=None):
     cfg = apply_weight_format_override(cfg, args.weight_format)
     cfg = apply_spec_decode_overrides(cfg, enabled=args.spec_decode or None,
                                       gamma=args.draft_gamma, planes=args.draft_planes)
-    if meshed:
-        sh.require_mesh_family(cfg, "launch.serve")
     require_transformer(cfg, "launch.serve")
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)

@@ -14,10 +14,10 @@ one device; ``--data`` / ``--model`` (or ``--mesh DATA,MODEL``) train on a
 ``(data, model)`` mesh of ``torch.distributed`` ranks (``torchrun``'s world,
 or a world of one), with the reference's rules: ``fsdp_axes=(d_model,)``
 under ``--fsdp``, sequence parallelism where ``model > 1``
-(:mod:`repro_torch.training.sharded`; the dense, MoE, VLM, ssm and hybrid
-families, enc_dec raising, naming ROADMAP item 7c-ii (b)).  Each rank takes its rows of
-the global batch (a VLM's ``vision`` stub rows beside its tokens; the data
-axis must divide ``--batch``); rank 0 alone writes checkpoints and the
+(:mod:`repro_torch.training.sharded`; every family).  Each rank takes its
+rows of the global batch (a VLM's ``vision`` stub rows and whisper's
+``frames`` beside its tokens; the data axis must divide ``--batch``); rank
+0 alone writes checkpoints and the
 heartbeat, every rank restores.  It
 runs on ``--device cuda`` unless told otherwise; ``--full`` trains the
 published full-width config instead of the smoke one and ``--layers``

@@ -279,13 +279,17 @@ def ffn_block(p, cfg, x, split: Optional[sh.ModelSplit] = None, data=None,
     dense layer.  A training split's MLP runs its ``gate`` / ``up`` column
     shards and sums its ``down`` row shard's product over the model axis;
     its MoE runs on the rank's rows and FF shard (:func:`moe.moe_apply`,
-    the aux global over the ``data`` group)."""
+    the aux global over the ``data`` group).  The GELU MLP's ``up_b`` is
+    cut with ``up``'s columns and ``down_b`` added once, after the sum."""
     h = norm_rows(x, p[norm], cfg, split)
     if sh.training(split) and "moe" in p:
         out, aux = moe.moe_apply(p["moe"], h, cfg, split=split, data=data)
     elif sh.training(split):
         h = sh.enter_block(h, split, split.ff)
-        out = layers.mlp_apply(p["mlp"], h, cfg.activation,
+        mlp = p["mlp"]
+        if "down_b" in mlp:  # added after the row sum, to the rank's own rows under seq
+            mlp = dict(mlp, down_b=sh.shared(mlp["down_b"], split, split.seq))
+        out = layers.mlp_apply(mlp, h, cfg.activation,
                                reduce=lambda y: sh.leave_block(y, split, split.ff))
         aux = 0.0
     else:
@@ -312,14 +316,18 @@ def _layer(p, x, positions, *, cfg, theta: float, window: int, mask_kind: str,
     return x + f, aux, kv
 
 
-def gather_outer(params: Params, fsdp: sh.DataSplit, stacked: str):
+def gather_outer(params: Params, fsdp: sh.DataSplit, stacked):
     """FSDP: ``params`` with every leaf outside the stacked subtree
     ``stacked`` gathered whole over ``"data"`` (the embedding, the head,
     the final norm), and the stacked subtree's gather dims less its
-    stacking dim (a layer's slice is gathered inside the layer)."""
-    top = {k: v for k, v in params.items() if k != stacked}
+    stacking dim (a layer's slice is gathered inside the layer).  A tuple
+    of names (whisper's ``encoder`` and ``decoder``) keeps each of those
+    stacks back and returns a tuple of their dims."""
+    names = (stacked,) if isinstance(stacked, str) else tuple(stacked)
+    top = {k: v for k, v in params.items() if k not in names}
     params = dict(params, **fsdp.gather(top, {k: fsdp.dims[k] for k in top}))
-    return params, tree_map(lambda d: None if d is None else d - 1, fsdp.dims[stacked])
+    dims = tuple(tree_map(lambda d: None if d is None else d - 1, fsdp.dims[n]) for n in names)
+    return params, dims[0] if isinstance(stacked, str) else dims
 
 
 def split_rows(x: torch.Tensor, split: Optional[sh.ModelSplit]) -> torch.Tensor:

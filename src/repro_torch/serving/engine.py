@@ -46,9 +46,12 @@ experts are replicated and route dropless over the rank's slots.
 mamba layer steps the rank's heads of its slots' state and gathers the
 gated product over ``"model"`` before the replicated norm and
 ``out_proj`` (:func:`repro_torch.models.mamba2.mixer_decode_step`); the
-hybrid's attention layer is the dense one on the rank's heads.  No rules
-(or no mesh) is the single-device path, unchanged; the enc_dec family
-under a mesh raises (ROADMAP item 7c-ii (b)).
+hybrid's attention layer is the dense one on the rank's heads; an enc_dec
+layer's self-attention is too, and its cross-attention attends the rank's
+heads over its block of the cross memory (slot-major on ``"data"`` in
+both layouts) and gathers them over ``"model"`` before the replicated
+``xattn.wo``.  No rules (or no mesh) is the single-device path,
+unchanged.
 
 ``make_serve_step`` also decodes the families the reference decodes
 outside its Scheduler: ssm (a mamba state a layer, no KV), hybrid (jamba:
@@ -328,31 +331,29 @@ def _mamba_decode_layer(norm, mixer, cfg, layout: kvc.CacheLayout, cache, x,
     return out, cache
 
 
-def _whisper_decode_layer(p, cfg, layout, cache, x, pos, layer_idx: int, phys, cross_valid):
+def _whisper_decode_layer(p, cfg, layout, cache, x, pos, layer_idx: int, phys, cross_valid,
+                          shard=None, pos_all=None):
     """One whisper decoder layer's token -> ``(x, cache)``: the
     self-attention over the global store (RoPE at ``cfg.rope_theta``), the
     cross-attention (layer norm, ``wq``, the plain bf16-format attend over
     the layer's ``cross_k`` / ``cross_v`` with ``cross_valid``: every lane,
-    built once a step; ``wo``) and the GELU MLP, each a residual."""
+    built once a step; ``wo``) and the GELU MLP, each a residual.  With a
+    ``shard`` the self-attention is :func:`_attn_decode_layer`'s on the
+    rank's heads (K1 / K2 planned at the whole launch), and the cross
+    attend runs the rank's q heads over its cross heads and slots, gathered
+    over ``"model"`` before ``xattn.wo``."""
     B = x.shape[0]
     a, cache = _attn_decode_layer(p, p["norm1"], cfg, layout, cache, x, pos, layer_idx,
-                                  cfg.rope_theta, phys=phys)
+                                  cfg.rope_theta, phys=phys, shard=shard, pos_all=pos_all)
     x = x + a
+    split = shd.model_split(shard)
     h = layers.apply_norm(x, p["norm_x"], cfg.norm)
-    q = layers.wdot(h, p["xattn"]["wq"]).reshape(B, cfg.num_heads, cfg.head_dim)
+    q = layers.wdot(h, p["xattn"]["wq"]).reshape(B, sh.local_heads(cfg, split)[0], cfg.head_dim)
     entry = {"k": cache["cross_k"][layer_idx], "v": cache["cross_v"][layer_idx]}
-    out = _decode_attend(q, entry, cross_valid, cfg, "bf16")
+    out = sh.gather_heads(_decode_attend(q, entry, cross_valid, cfg, "bf16"), split, 1)
     x = x + layers.wdot(out.reshape(B, 1, -1), p["xattn"]["wo"])
     x = x + layers.mlp_apply(p["mlp"], layers.apply_norm(x, p["norm2"], cfg.norm), "gelu")
     return x, cache
-
-
-def _mesh_family(cfg, shard, who: str) -> None:
-    """Under a mesh every family but enc_dec is served (ssm and hybrid
-    through :func:`make_serve_step` alone); enc_dec is ROADMAP item 7c-ii
-    (b) (:func:`sh.require_mesh_family`)."""
-    if shard is not None:
-        sh.require_mesh_family(cfg, who)
 
 
 def make_serve_step(cfg, layout: kvc.CacheLayout, rules=None):
@@ -375,11 +376,10 @@ def make_serve_step(cfg, layout: kvc.CacheLayout, rules=None):
     GELU MLP; the cross memory must already hold the encoder's K / V
     (:func:`repro_torch.models.whisper.cross_kv`).  ``rules`` with a mesh:
     the step runs on this rank's shard of params and cache (module
-    docstring; the dense, MoE, VLM, ssm and hybrid families) and returns
-    every slot's logits on every rank."""
+    docstring; every family) and returns every slot's logits on every
+    rank."""
     require_served(cfg, "make_serve_step")
     shard = shd.Shard.of(cfg, layout, rules)
-    _mesh_family(cfg, shard, "make_serve_step")
     split = shd.model_split(shard)
     if layout.global_layers:
         kernel_decode.validate(cfg, layout)
@@ -409,7 +409,7 @@ def make_serve_step(cfg, layout: kvc.CacheLayout, rules=None):
             if cfg.family == "enc_dec":
                 x, cache = _whisper_decode_layer(transformer.layer_params(params["decoder"], i),
                                                  cfg, layout, cache, x, pos, i, phys,
-                                                 cross_valid)
+                                                 cross_valid, shard, pos_all)
                 continue
             if cfg.family == "hybrid":
                 b, j = divmod(i, cfg.attn_every)
@@ -498,7 +498,6 @@ def prefill_into_slot(params, cfg, layout: kvc.CacheLayout, cache, slot: int,
     require_transformer(cfg, "prefill_into_slot")
     transformer.require_vision(cfg, vision_embeds)  # on every rank, before a collective
     shard = shd.Shard.of(cfg, layout, rules)
-    _mesh_family(cfg, shard, "prefill_into_slot")
     tokens = prompt[None] if prompt.ndim == 1 else prompt
     if tokens.shape[0] != 1:
         raise ValueError(f"prefill_into_slot: one prompt per admission, got "
@@ -658,7 +657,6 @@ def make_prefill_chunk(cfg, layout: kvc.CacheLayout, rules=None):
     holding ``slot`` runs it and broadcasts its logits over ``"data"``."""
     require_transformer(cfg, "make_prefill_chunk")
     shard = shd.Shard.of(cfg, layout, rules)
-    _mesh_family(cfg, shard, "make_prefill_chunk")
     split = shd.model_split(shard)
     thetas = transformer.layer_thetas(cfg)
 

@@ -788,10 +788,12 @@ def reset_slot(cache: Tree, layout: CacheLayout, slot: int,
     :class:`repro_torch.serving.paging.PageAllocator`.  ``row`` is the
     slot's row in a mesh rank's slot-major stores (default ``slot``; -1:
     another rank holds it, and only ``pos`` is cleared here);
-    ``state_row`` its row in the rank's mamba state (default ``row``:
+    ``state_row`` its row in the rank's mamba state and cross memory,
+    which are slot-major in both layouts (default ``row``:
     :meth:`repro_torch.serving.sharded.Shard.state_row`)."""
     row = slot if row is None else row
-    rows = {"mamba": row if state_row is None else state_row}
+    state_row = row if state_row is None else state_row
+    rows = {"mamba": state_row}
     stores = ("local", "mamba") if layout.layout == "paged" else ("global", "local", "mamba")
     for name in stores:
         r = rows.get(name, row)
@@ -803,7 +805,7 @@ def reset_slot(cache: Tree, layout: CacheLayout, slot: int,
             else:
                 a[:, r] = -1 if n == "abs_pos" else 0
     for n in ("cross_k", "cross_v"):
-        if n in cache and row >= 0:
-            cache[n][:, row] = 0
+        if n in cache and state_row >= 0:
+            cache[n][:, state_row] = 0
     cache["pos"][slot] = 0
     return cache

@@ -64,9 +64,10 @@ params, keeps its shard of the params and cache, and gets every step's
 logits gathered from every rank, so the host state (slots, pages,
 samples) stays identical on all of them; rank 0 reports.  The page table
 stays host-owned and replicated.  ``stats()`` adds the reference's mesh
-columns.  The ssm and hybrid families raise here as they do on one device
-(they decode through ``engine.make_serve_step``, which takes a mesh), and
-the enc_dec family under a mesh raises naming ROADMAP item 7c-ii (b).
+columns.  The ssm, hybrid and enc_dec families raise here as they do on
+one device (they decode through ``engine.make_serve_step``, which takes a
+mesh), as the reference's serve launcher takes only the transformer
+families.
 """
 
 from __future__ import annotations
@@ -79,7 +80,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import apply_weight_format_override, require_transformer
-from repro_torch.distributed import sharding as sh
 from repro_torch.models import model_zoo
 from repro_torch.serving import engine, kv_cache as kvc, sharded as shd, spec_decode as spd
 from repro_torch.serving import weights as swt
@@ -128,8 +128,6 @@ class Scheduler:
     ):
         from repro_torch import resolve_device
 
-        if rules is not None and rules.mesh is not None:
-            sh.require_mesh_family(cfg, "Scheduler")
         require_transformer(cfg, "Scheduler")
         if admission not in ("chunked", "eager"):
             raise ValueError(f"Scheduler: admission {admission!r} is not chunked or eager")

@@ -59,9 +59,20 @@ norm and ``out_proj``.  The state is slot-major on ``"data"`` in both
 layouts (no admission path writes it: the decode steps each rank's own
 slots).  Where ``"model"`` does not divide the mixers' heads they
 replicate, with the warning.  The hybrid's attention layer keeps the
-dense head split and its MoE layers the replicated experts.  The enc_dec
-family is refused under a mesh (ROADMAP item 7c-ii (b):
-``sharding.require_mesh_family``).
+dense head split and its MoE layers the replicated experts.
+
+The enc_dec family (whisper) is served on a mesh through
+``engine.make_serve_step`` too.  Its encoder runs on the rank's rows of
+the frames and its heads (the heads' outputs gathered before the
+replicated ``wo``, the MLP replicated), and ``whisper.cross_kv`` projects
+the rank's kv heads from its columns of ``xattn.wk`` / ``wv``.  The cross
+memory ``(L, B, Hk, S_enc, Dh)`` is not paged: like the mamba state it is
+slot-major on ``"data"`` in both layouts and split by kv heads on
+``"model"`` (the reference's spec).  The decode's cross-attention attends
+the rank's q heads over its cross heads and gathers them over ``"model"``
+before the replicated ``xattn.wo``.  whisper-medium's vocab (51865) is odd,
+so its embedding and head stay whole on a model axis of more than one
+rank.
 """
 
 from __future__ import annotations
@@ -153,18 +164,24 @@ def cache_shardings(cache, cfg, layout, rules: sh.ShardingRules):
     placement (``None`` without a mesh): pools and stacks heads-parallel
     on ``"model"``, slot-layout stores batch-parallel on ``"data"``,
     ``pos`` and the page table replicated; the mamba state by heads on
-    ``"model"`` (``B`` / ``C``'s conv channels whole) and slot-major on
-    ``"data"`` in both layouts."""
+    ``"model"`` (``B`` / ``C``'s conv channels whole) and whisper's cross
+    memory by kv heads, both slot-major on ``"data"`` in both layouts (the
+    cross memory is not paged: the reference's spec)."""
     if rules.mesh is None:
         return None
+    d, m = mesh_shape(rules)
     specs = dict(kvc.cache_specs(cfg, layout), pos=(None,))
-    stores = {k: v for k, v in cache.items() if k != "mamba"}
+    slot_major = ("mamba", "cross_k", "cross_v")
+    stores = {k: v for k, v in cache.items() if k not in slot_major}
     out = sh.physical_specs(stores, specs, rules, _cache_drop(cfg, layout, rules))
+    by_slot = (sh.BATCH,) if layout.batch % d else ()
+    for name in ("cross_k", "cross_v"):
+        if name in cache:
+            heads = () if sh.heads_split(cfg, m) else (sh.KV_HEADS,)
+            out[name] = sh.physical_specs(cache[name], specs[name], rules, by_slot + heads)
     if "mamba" in cache:
-        d, m = mesh_shape(rules)
-        out["mamba"] = sh.physical_specs(
-            cache["mamba"], specs["mamba"], rules, (sh.BATCH,) if layout.batch % d else (),
-            mamba2.state_segments(cfg, sh.mixer_split(cfg, m)))
+        out["mamba"] = sh.physical_specs(cache["mamba"], specs["mamba"], rules, by_slot,
+                                         mamba2.state_segments(cfg, sh.mixer_split(cfg, m)))
     return out
 
 
@@ -242,8 +259,7 @@ class Shard:
             raise NotImplementedError(
                 f"sharded serving: {', '.join(knobs)} is not served (the placement shards "
                 f"heads, vocab and slots only, and the reference's serve driver never sets "
-                f"them; what is left of ROADMAP item 7c is item 7c-ii (b), the enc_dec "
-                f"family)")
+                f"them)")
         if len([a for a in rules.batch_axes if sh.mesh_sizes(rules.mesh).get(a, 1) > 1]) > 1:
             raise NotImplementedError("sharded serving: one batch axis (data); a pod axis "
                                       "of more than one replica is not served")
@@ -282,8 +298,9 @@ class Shard:
         return slot - self.lo if self.lo <= slot < self.hi else -1
 
     def state_row(self, slot: int) -> int:
-        """``slot``'s row in this rank's mamba state, which is slot-major on
-        ``"data"`` in both layouts; -1 where another data rank holds it."""
+        """``slot``'s row in this rank's mamba state and cross memory, which
+        are slot-major on ``"data"`` in both layouts; -1 where another data
+        rank holds it."""
         if not self.slots:
             return slot
         return slot - self.lo if self.lo <= slot < self.hi else -1

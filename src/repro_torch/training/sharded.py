@@ -48,9 +48,18 @@ channels, ``A_log``, ``D`` and ``dt_bias`` whole
 from GSPMD's contiguous cut of the packed axis); the gated norm's squares
 are summed over ``"model"`` and ``out_proj`` is row-parallel.  Under ``sp``
 the mixer gathers the sequence (its scan needs all of it).  The hybrid's
-attention layer takes the dense split, its MoE layers the MoE's.  The
-enc_dec family raises, naming ROADMAP item 7c-ii (b) (as serving's refusal
-does).
+attention layer takes the dense split, its MoE layers the MoE's.
+
+The enc_dec family (whisper) trains on a mesh too: both stacks take the
+dense split (heads, the GELU MLP's FF with ``up_b`` cut with ``up`` and
+``down_b`` added after the sum), the decoder's cross-attention on the
+rank's heads, whose partial gradient of the encoder memory is summed over
+``"model"``.  ``sp`` splits the decoder's residual and never the
+encoder's (the reference constrains it ``(batch, None, None)``); each data
+rank encodes its own rows of ``frames``.  Under FSDP each stack's layers
+are gathered inside the layer.  whisper-medium's vocab (51865) is odd, so
+its tied embedding and head stay whole on a model axis of more than one
+rank.
 """
 
 from __future__ import annotations
@@ -113,9 +122,12 @@ def _ff_split(layer_specs, rules: sh.ShardingRules) -> bool:
 
 def _model_ff_split(specs, rules: sh.ShardingRules) -> bool:
     """:func:`_ff_split` over every layer tree with an FFN: the stacked
-    ``layers`` or each of the hybrid's ``blocks/pos{j}`` (which must agree);
-    False for a model without one (mamba2)."""
-    trees = [specs["layers"]] if "layers" in specs else list(specs.get("blocks", {}).values())
+    ``layers``, each of the hybrid's ``blocks/pos{j}`` or whisper's
+    ``encoder`` and ``decoder`` (which must agree); False for a model
+    without one (mamba2)."""
+    trees = ([specs["layers"]] if "layers" in specs else
+             list(specs.get("blocks", {}).values())
+             + [specs[k] for k in ("encoder", "decoder") if k in specs])
     found = {_ff_split(t, rules) for t in trees if "mlp" in t or "moe" in t}
     if len(found) > 1:
         raise NotImplementedError("sharded training: the model axis splits one layer's FF "
@@ -162,12 +174,10 @@ class TrainShard:
         """The rank's placement (``None`` without a mesh: one device)."""
         if rules is None or rules.mesh is None:
             return None
-        sh.require_mesh_family(cfg, "sharded training")
         if rules.seq_shard:
             raise NotImplementedError("sharded training: seq_shard is the long-context "
                                       "decode knob, not a training rule; no family trains "
-                                      "with it (ROADMAP item 7c-ii (b), enc_dec, is the last "
-                                      "family to place)")
+                                      "with it")
         from repro_torch.models import model_zoo
 
         mesh, sizes = rules.mesh, sh.mesh_sizes(rules.mesh)

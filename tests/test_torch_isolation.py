@@ -46,7 +46,8 @@ def test_scan_sees_the_package():
     for k in ("flash_attention", "bgpp_score", "brcr_gemm"):
         assert PORT / "kernels" / k / "ops.py" in _files()
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
-        "bgpp_paged_attend.cu", "bgpp_paged_attend_long.cu", "bgpp_score.cu", "brcr_gemm.cu",
+        "bgpp_paged_attend.cu", "bgpp_paged_attend_g2.cu", "bgpp_paged_attend_g4.cu",
+        "bgpp_paged_attend_g8.cu", "bgpp_paged_attend_long.cu", "bgpp_score.cu", "brcr_gemm.cu",
         "bstc_decode.cu",
         "bstc_matmul.cu", "flash_attention.cu", "flash_attention_bwd.cu", "paged_flash_decode.cu",
         "paged_flash_decode_long.cu"]

@@ -201,10 +201,9 @@ class TestRefusals:
         _, cfg, _, params = served
         lay = tkvc.layout_for(cfg, SLOTS, MAX_SEQ)
         # a mesh serves the dense, MoE and VLM families: an MoE Scheduler on a
-        # 1x1 mesh (a gloo world of one) builds; the ssm and hybrid families
-        # take a mesh through make_serve_step, and the Scheduler refuses them
-        # as it does on one device; the enc_dec family under a mesh is item
-        # 7c-ii (b)
+        # 1x1 mesh (a gloo world of one) builds; the ssm, hybrid and enc_dec
+        # families take a mesh through make_serve_step, and the Scheduler
+        # refuses them as it does on one device
         from repro_torch.launch import mesh as launch_mesh
         from repro_torch.models import model_zoo as tzoo
 
@@ -220,9 +219,7 @@ class TestRefusals:
         rules = ShardingRules(mesh={"data": 1, "model": 1})
         for arch in ("mamba2-1.3b", "jamba-1.5-large-398b", "whisper-medium"):
             other = get_config(arch, smoke=True)
-            refusal = ((NotImplementedError, r"item 7c-ii \(b\)") if arch == "whisper-medium"
-                       else (ValueError, "decodes through make_serve_step directly"))
-            with pytest.raises(refusal[0], match=refusal[1]):
+            with pytest.raises(ValueError, match="decodes through make_serve_step directly"):
                 Scheduler(params, other, tkvc.layout_for(other, SLOTS, MAX_SEQ), device="cpu",
                           rules=rules)
         # speculative decoding is ported: the call that raised now builds

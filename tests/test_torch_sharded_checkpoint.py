@@ -176,21 +176,24 @@ class _Mesh:  # the shape and coordinates a 2x2 DeviceMesh gives, without a worl
 
 
 def test_train_launcher_refuses_another_family_on_a_mesh(tmp_path):
-    """The enc_dec family under ``--mesh`` raises, naming item 7c-ii (b)
-    (the dense, MoE, VLM, ssm and hybrid families train sharded): the
-    placement of mamba2 and jamba under the launcher's ``--fsdp`` rules on
-    2x2 builds, and so does its checkpoint placement."""
+    """Every family trains under ``--mesh``: the enc_dec family's launcher
+    run on a 1x1 mesh takes a step and checkpoints, and the placement of
+    mamba2, jamba and whisper under the launcher's ``--fsdp`` rules on 2x2
+    builds, and so does its checkpoint placement."""
     from repro_torch.configs import get_config
     from repro_torch.distributed import sharding as sh
     from repro_torch.optim import AdamWConfig
     from repro_torch.training.sharded import TrainShard
 
     out = _launch(["-m", "repro_torch.launch.train", "--device", "cpu", "--arch",
-                   "whisper-medium", "--mesh", "1,1", "--steps", "1", "--ckpt-dir",
-                   str(tmp_path / "c"), "--heartbeat", str(tmp_path / "hb.json")])
-    assert out.returncode != 0 and "item 7c-ii (b)" in out.stderr, out.stderr[-2000:]
+                   "whisper-medium", "--mesh", "1,1", "--steps", "1", "--batch", "2",
+                   "--seq-len", "16", "--ckpt-dir", str(tmp_path / "c"), "--heartbeat",
+                   str(tmp_path / "hb.json")])
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "[train] mesh 1x1 (whisper-smoke; fsdp False, sp False)" in out.stdout
+    assert (tmp_path / "c" / "step_00000001").is_dir()
     rules = sh.rules_for_mesh(_Mesh(), fsdp_axes=(sh.D_MODEL,), sp=True)
-    for arch in ("mamba2-1.3b", "jamba-1.5-large-398b"):
+    for arch in ("mamba2-1.3b", "jamba-1.5-large-398b", "whisper-medium"):
         shard = TrainShard.of(get_config(arch, smoke=True), rules)
-        assert shard.split.ssm and shard.fsdp is not None
+        assert shard.split.ssm == (arch != "whisper-medium") and shard.fsdp is not None
         assert shard.placement(AdamWConfig(state_dtype="int8")).specs["opt"]["m"]

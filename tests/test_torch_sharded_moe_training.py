@@ -106,13 +106,15 @@ flat = lambda t, p="": ({k: v for kk, vv in t.items()
                         else {p[:-1]: np.asarray(t)})
 out = {"cases": {}, "moe": {}}
 for key, c in job["cases"].items():
-    cfg = get_config(c["arch"], smoke=True)
+    cfg = dataclasses.replace(get_config(c["arch"], smoke=True), **c.get("replace", {}))
     if cfg.num_experts:
         cfg = dataclasses.replace(cfg, moe_capacity_factor=job["cf"])
     params, specs = jzoo.init(jax.random.key(0), cfg)
-    rules = (jsh.rules_for_mesh(mesh, fsdp_axes=(jsh.D_MODEL,) if c["fsdp"] else (), sp=m > 1)
+    rules = (jsh.rules_for_mesh(mesh, fsdp_axes=(jsh.D_MODEL,) if c["fsdp"] else (),
+                                sp=c.get("sp", m > 1))
              if c["on_mesh"] else jsh.ShardingRules())
-    kw = c.get("kw") or job["kw"]  # a case may bring its own fwd_kw, AdamW settings, batches
+    # a case may bring its own config fields, sp, fwd_kw, AdamW settings and batches
+    kw = c.get("kw") or job["kw"]
     opt = jadamw.AdamWConfig(state_dtype=c["state_dtype"], **(c.get("opt") or job["opt"]))
     bs = [{k: jnp.asarray(v) for k, v in b.items()}
           for b in (c.get("batches") or job["batches"][c["arch"]])]

@@ -459,12 +459,11 @@ def test_column_shard_product_on_the_cpu(threads, equal):
                                   dict(fsdp_axes=(sh.FF,))], ids=["seq_shard", "sp", "fsdp"])
 def test_serving_refuses_the_knobs_it_does_not_place(knob):
     """Sequence and FSDP sharding are the reference's training and
-    long-context knobs: serving rules that set one are refused, naming
-    item 7c (7c-ii is what is left of it), not run on a cut the engine
-    would misread as its slots."""
+    long-context knobs: serving rules that set one are refused, naming the
+    knob, not run on a cut the engine would misread as its slots."""
     cfg = _cfg()
     rules = sh.ShardingRules(mesh={"data": 2, "model": 4}, **knob)
-    with pytest.raises(NotImplementedError, match=f"{next(iter(knob))}.*item 7c"):
+    with pytest.raises(NotImplementedError, match=f"{next(iter(knob))} is not served"):
         shd.Shard.of(cfg, kvc.layout_for(cfg, SLOTS, MAX_SEQ), rules)
 
 
@@ -514,22 +513,26 @@ class _Mesh:  # the shape and coordinates a 1x2 DeviceMesh gives, without a worl
 
 
 def test_launcher_refuses_another_family_on_a_mesh():
-    """The enc_dec family under a mesh raises, naming item 7c-ii (b) (the
-    dense, MoE and VLM families are served sharded through the launcher);
-    the ssm and hybrid families take a mesh through ``make_serve_step``,
-    which builds on a 1x2 placement, their mixers' ``in_proj`` cut to the
-    rank's heads with ``B`` / ``C`` whole."""
+    """The enc_dec family under a mesh is refused by the launcher with its
+    one-device reason, as the reference's serve launcher takes only the
+    transformer families (the dense, MoE and VLM families are served
+    sharded through it); the ssm, hybrid and enc_dec families take a mesh
+    through ``make_serve_step``, which builds on a 1x2 placement."""
     from repro_torch.serving import engine
 
     run = _launch(["--arch", "whisper-medium", "--mesh", "1,1", "--requests", "1"])
-    assert run.returncode != 0 and "7c-ii (b)" in run.stderr, run.stderr[-2000:]
+    assert run.returncode != 0 and "decodes through make_serve_step directly" in run.stderr, \
+        run.stderr[-2000:]
     rules = sh.rules_for_mesh(_Mesh())
-    for arch in ("mamba2-1.3b", "jamba-1.5-large-398b"):
+    for arch in ("mamba2-1.3b", "jamba-1.5-large-398b", "whisper-medium"):
         cfg = get_config(arch, smoke=True)
         lay = kvc.layout_for(cfg, 2, 16)
         assert engine.make_serve_step(cfg, lay, rules) is not None
         params = model_zoo.init(cfg, torch.Generator().manual_seed(0), "cpu")
         local = shd.shard_params(params, model_zoo.param_specs(cfg), rules, cfg)
+        if cfg.family == "enc_dec":  # the cross projections' columns cut to the rank's heads
+            assert local["decoder"]["xattn"]["wk"].shape[-1] == cfg.kv_dim // 2
+            continue
         mixer = (local["layers"]["mixer"] if cfg.family == "ssm"
                  else local["blocks"]["pos0"]["mamba"])
         d_in, N = cfg.ssm_expand * cfg.d_model, cfg.ssm_state

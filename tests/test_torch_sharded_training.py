@@ -381,17 +381,18 @@ class _Mesh:  # the shape and coordinates a 2x2 DeviceMesh gives, without a worl
 
 
 def test_other_families_and_knobs_are_refused_under_a_training_mesh():
-    """The enc_dec family raises under a training mesh, naming item 7c-ii
-    (b), as serving's refusal does (the dense, MoE, VLM, ssm and hybrid
-    families train sharded: mamba2's and jamba's placements build, their
-    mixers split by heads); so does ``seq_shard``."""
+    """Every family trains sharded: mamba2's and jamba's placements build,
+    their mixers split by heads, and whisper's, its heads, both stacks' FF
+    and its vocab split over ``"model"``; ``seq_shard`` is refused, naming
+    the knob."""
     mesh = {"data": 2, "model": 2}
-    with pytest.raises(NotImplementedError, match=r"item 7c-ii \(b\)"):
-        TrainShard.of(get_config("whisper-medium", smoke=True), sh.ShardingRules(mesh=mesh))
     for arch in ("mamba2-1.3b", "jamba-1.5-large-398b"):
         shard = TrainShard.of(get_config(arch, smoke=True), sh.rules_for_mesh(_Mesh()))
         assert shard.split.ssm and shard.split.size == 2
-    with pytest.raises(NotImplementedError, match="7c"):
+    shard = TrainShard.of(get_config("whisper-medium", smoke=True), sh.rules_for_mesh(_Mesh()))
+    assert (shard.split.heads, shard.split.ff, shard.split.vocab, shard.split.ssm) == (
+        True, True, True, False)
+    with pytest.raises(NotImplementedError, match="seq_shard"):
         TrainShard.of(get_config(PHI, smoke=True), sh.ShardingRules(mesh=mesh, seq_shard=True))
     assert TrainShard.of(get_config(PHI, smoke=True), sh.ShardingRules()) is None
 
